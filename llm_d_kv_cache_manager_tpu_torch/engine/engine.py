@@ -1,0 +1,196 @@
+"""EnginePod: a minimal vLLM-style serving pod on torch.
+
+Port of the reference package's `engine/engine.py` in model mode: the device
+path (models/llama.py + ops/) and the host path (engine/block_manager.py)
+together, publishing the same KVEvents a real engine would to an in-process
+event sink, so the control plane can index the pod's cache.
+
+The pod serves on `config.device` ("cuda" by default; construction raises
+when no GPU is present unless "cpu" is asked for). On CUDA every attention
+call runs a hand-written kernel.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from llm_d_kv_cache_manager_tpu_torch.engine.block_manager import (
+    BlockManager,
+    BlockManagerConfig,
+    OutOfPagesError,
+    SequenceState,
+)
+from llm_d_kv_cache_manager_tpu_torch.kvevents.events import EventBatch
+from llm_d_kv_cache_manager_tpu_torch.models import llama
+from llm_d_kv_cache_manager_tpu_torch.utils.device import resolve_device
+
+
+@dataclass
+class EnginePodConfig:
+    pod_id: str = "pod-0"
+    model_name: str = "test-model"
+    n_pages: int = 512
+    page_size: int = 16
+    hash_seed: str = ""
+    device_tier: Optional[str] = None  # events' Medium; port pods use "gpu"
+    max_pages_per_seq: int = 32
+    model_config: Optional[llama.LlamaConfig] = None
+    device: str = "cuda"
+
+
+class EnginePod:
+    def __init__(
+        self,
+        config: EnginePodConfig,
+        event_sink: Optional[Callable[[EventBatch], None]] = None,
+        params=None,
+    ):
+        self.config = config
+        self.device = resolve_device(config.device)
+        self._sink = event_sink
+        self.block_manager = BlockManager(
+            BlockManagerConfig(
+                n_pages=config.n_pages,
+                page_size=config.page_size,
+                hash_seed=config.hash_seed,
+                device_tier=config.device_tier,
+            ),
+            event_sink=self._emit,
+        )
+        mc = config.model_config or llama.LlamaConfig()
+        self._model_config = mc
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            params = llama.init_params(mc, gen, self.device)
+        self.params = params
+        self.kv_cache = llama.make_kv_pages(
+            mc, config.n_pages, config.page_size, self.device
+        )
+        self.last_logits: Optional[torch.Tensor] = None
+
+    # -- events --------------------------------------------------------------
+
+    def _emit(self, batch: EventBatch) -> None:
+        if self._sink is not None:
+            self._sink(batch)
+
+    # -- serving -------------------------------------------------------------
+
+    def prefill(
+        self, tokens: List[int], lora_id: Optional[int] = None
+    ) -> Tuple[SequenceState, int]:
+        """Admit a sequence: allocate (with prefix reuse), compute the
+        uncached suffix in one chunk, commit pages + events. Returns
+        (state, cached_tokens)."""
+        state, start = self.begin_prefill(tokens, lora_id=lora_id)
+        self.prefill_chunk(state, start, len(tokens))
+        self.finish_prefill(state)
+        return state, state.num_cached_tokens
+
+    def begin_prefill(
+        self, tokens: List[int], lora_id: Optional[int] = None
+    ) -> Tuple[SequenceState, int]:
+        """Allocate pages (with prefix reuse) without computing anything.
+        Returns (state, compute_start): num_cached_tokens, except for fully
+        cached prompts, whose last position is recomputed for its logits."""
+        state = self.block_manager.allocate(tokens, lora_id=lora_id)
+        n_cached = state.num_cached_tokens
+        if n_cached >= len(tokens):
+            n_cached = min(n_cached, len(tokens) - 1)
+        return state, n_cached
+
+    def prefill_chunk(self, state: SequenceState, start: int, end: int) -> None:
+        """Compute KV (and logits) for tokens[start:end], attending over the
+        first `start` already-resident positions.
+
+        The chunk is padded to a power-of-2 length bucket, exactly as the
+        reference pod does: the bucket decides which pages get reserved
+        (and so which cached pages get reclaimed under pressure), which is
+        what keeps this pod's BlockRemoved stream identical to the
+        reference's. Pad rows write garbage KV into reserved-ahead pages past
+        `end`; every later real write lands before its position is attended,
+        and commits only cover real tokens."""
+        length = end - start
+        bucket = self.batch_bucket(length)
+        if bucket > length:
+            ps = self.config.page_size
+            pages_needed = (start + bucket + ps - 1) // ps
+            if pages_needed > self.config.max_pages_per_seq:
+                bucket = length  # capacity-capped: compute unpadded
+            else:
+                try:
+                    self.block_manager.reserve_pages(state, pages_needed)
+                except OutOfPagesError:
+                    bucket = length  # pool too tight: compute unpadded
+        block_table = self._padded_table(state)
+        chunk = torch.tensor(
+            state.tokens[start:end] + [0] * (bucket - length),
+            dtype=torch.int32, device=self.device,
+        )
+        self.kv_cache, self.last_logits = llama.prefill_cache(
+            self._model_config, self.params, self.kv_cache, chunk,
+            block_table, start, n_valid=length,
+        )
+
+    def finish_prefill(self, state: SequenceState) -> None:
+        """Commit full pages + emit BlockStored, now that every page's KV is
+        computed."""
+        self.block_manager.commit_prefill(state)
+
+    def decode_append(self, state: SequenceState, token: int) -> None:
+        """Record one generated token; it stays pending until the next
+        decode pass writes its KV row."""
+        self.block_manager.append_token(state, token)
+
+    def decode_step(self, state: SequenceState) -> int:
+        """Greedy-sample one token for this sequence."""
+        pos = len(state.tokens) - 1
+        last_token = torch.tensor([state.tokens[-1]], dtype=torch.int32, device=self.device)
+        self.kv_cache, logits = llama.decode_step_cache(
+            self._model_config, self.params, self.kv_cache, last_token,
+            self._padded_table(state)[None],
+            torch.tensor([pos], dtype=torch.int32, device=self.device),
+        )
+        # The pending token's KV row is now resident: commit any page it
+        # completed before appending the next (pending) token.
+        self.block_manager.mark_decode_computed(state)
+        token = int(torch.argmax(logits[0]))
+        self.block_manager.append_token(state, token)
+        return token
+
+    def free(self, state: SequenceState) -> None:
+        self.block_manager.free(state)
+
+    # -- helpers -------------------------------------------------------------
+
+    @staticmethod
+    def batch_bucket(n: int) -> int:
+        """Next power-of-2 shape bucket (>=1) for prefill chunk lengths."""
+        bucket = 1
+        while bucket < n:
+            bucket *= 2
+        return bucket
+
+    def table_bucket(self, n_pages_needed: int) -> int:
+        """Padded block-table width: next power of two covering the need,
+        capped at max_pages_per_seq."""
+        if n_pages_needed > self.config.max_pages_per_seq:
+            raise ValueError(
+                f"sequence needs {n_pages_needed} pages > "
+                f"max_pages_per_seq={self.config.max_pages_per_seq}; truncating "
+                "would silently corrupt K/V pages"
+            )
+        bucket = 1
+        while bucket < max(n_pages_needed, 1):
+            bucket *= 2
+        return min(bucket, self.config.max_pages_per_seq)
+
+    def _padded_table(self, state: SequenceState) -> torch.Tensor:
+        bucket = self.table_bucket(len(state.block_table))
+        table = np.zeros((bucket,), dtype=np.int32)
+        table[: len(state.block_table)] = state.block_table
+        return torch.from_numpy(table).to(self.device)

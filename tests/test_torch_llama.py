@@ -1,0 +1,180 @@
+"""The port's Llama serving functions against the JAX package's, in f32.
+
+One JAX parameter tree (plus numpy-drawn biases and KV pools) goes through
+both packages via `params_from_jax`; prefill and batched decode logits must
+agree to 1e-4 and the updated page pools to 1e-5.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from llm_d_kv_cache_manager_tpu.models import llama as jax_llama
+from llm_d_kv_cache_manager_tpu_torch.models import llama
+
+LOGITS_TOL = dict(atol=1e-4, rtol=0)
+CACHE_TOL = dict(atol=1e-5, rtol=1e-5)
+PAGE = 4
+
+BASE = dict(vocab_size=128, d_model=32, n_layers=2, n_q_heads=4, n_kv_heads=2,
+            head_dim=16, d_ff=64)
+
+
+def _configs(**overrides):
+    fields = {**BASE, **overrides}
+    return (
+        jax_llama.LlamaConfig(**fields, dtype=jnp.float32),
+        llama.LlamaConfig(**fields, dtype=torch.float32),
+    )
+
+
+def _params(jcfg, seed=0):
+    np_params = jax.tree_util.tree_map(
+        np.asarray, jax_llama.init_params(jcfg, jax.random.PRNGKey(seed))
+    )
+    if jcfg.attn_bias:  # zeros at init: draw real ones so the bias is load-bearing
+        rng = np.random.default_rng(seed)
+        for name in ("bq", "bk", "bv"):
+            shape = np_params["layers"][name].shape
+            np_params["layers"][name] = rng.standard_normal(shape, dtype=np.float32)
+    return np_params, llama.params_from_jax(np_params, device="cpu")
+
+
+def _pools(cfg, n_pages, seed=3):
+    rng = np.random.default_rng(seed)
+    shape = (cfg.n_layers, cfg.n_kv_heads, n_pages, PAGE, cfg.head_dim)
+    return (rng.standard_normal(shape, dtype=np.float32),
+            rng.standard_normal(shape, dtype=np.float32))
+
+
+def test_params_from_jax_keeps_layout_and_values():
+    jcfg, _ = _configs()
+    np_params, params = _params(jcfg)
+    c = jcfg
+    assert params["layers"]["wq"].shape == (c.n_layers, c.d_model, c.q_dim)  # [in, out]
+    assert params["layers"]["w_down"].shape == (c.n_layers, c.d_ff, c.d_model)
+    assert params["out"].shape == (c.d_model, c.vocab_size)
+    np.testing.assert_array_equal(params["layers"]["wk"].numpy(), np_params["layers"]["wk"])
+    np.testing.assert_array_equal(params["embed"].numpy(), np_params["embed"])
+
+
+def test_params_from_jax_carries_bf16():
+    jcfg = jax_llama.LlamaConfig(**BASE)  # bf16, the serving dtype
+    np_params = jax_llama.init_params(jcfg, jax.random.PRNGKey(1))
+    params = llama.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, np_params), device="cpu"
+    )
+    assert params["layers"]["wq"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        params["layers"]["wq"].float().numpy(),
+        np.asarray(np_params["layers"]["wq"].astype(jnp.float32)),
+    )
+
+
+# (config overrides, prefix tokens already cached, new tokens, padded length)
+PREFILL_CASES = {
+    "from_scratch_unpadded": ({}, 0, 10, None),
+    "from_scratch_padded": ({}, 0, 10, 16),
+    "prefix_hit_unpadded": ({}, 8, 6, None),
+    "prefix_hit_padded": ({}, 8, 6, 8),
+    "sliding_window": ({"sliding_window": 5}, 4, 9, 16),
+    "attn_bias": ({"attn_bias": True}, 4, 7, 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
+def test_prefill_cache_matches_jax(case):
+    overrides, n_prefix, n_new, padded = PREFILL_CASES[case]
+    jcfg, cfg = _configs(**overrides)
+    np_params, params = _params(jcfg)
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, jcfg.vocab_size, n_prefix + n_new).astype(np.int32)
+    n_pages = 8
+    table = rng.permutation(n_pages).astype(np.int32)
+    k0, v0 = _pools(jcfg, n_pages)
+
+    # The cached prefix is whatever a first prefill wrote; then the chunk.
+    jcache = (jnp.asarray(k0), jnp.asarray(v0))
+    pcache = (torch.from_numpy(k0.copy()), torch.from_numpy(v0.copy()))
+    steps = [(0, n_prefix, None)] if n_prefix else []
+    steps.append((n_prefix, n_new, padded))
+    for start, length, pad_to in steps:
+        chunk = tokens[start:start + length]
+        n_valid = None
+        if pad_to is not None:
+            chunk = np.concatenate([chunk, np.zeros(pad_to - length, np.int32)])
+            n_valid = length
+        jcache, want = jax_llama.prefill_cache(
+            jcfg, np_params, jcache, jnp.asarray(chunk), jnp.asarray(table), start,
+            n_valid=None if n_valid is None else jnp.asarray(n_valid, jnp.int32),
+        )
+        pcache, got = llama.prefill_cache(
+            cfg, params, pcache, torch.from_numpy(chunk), torch.from_numpy(table),
+            start, n_valid=n_valid,
+        )
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGITS_TOL)
+    for got_pool, want_pool in zip(pcache, jcache):
+        np.testing.assert_allclose(got_pool.numpy(), np.asarray(want_pool), **CACHE_TOL)
+
+
+@pytest.mark.parametrize("window", [None, 6])
+def test_decode_step_cache_batch_matches_jax(window):
+    jcfg, cfg = _configs(sliding_window=window)
+    np_params, params = _params(jcfg, seed=2)
+    rng = np.random.default_rng(7)
+    batch, pps = 3, 4
+    n_pages = batch * pps + 1
+    k0, v0 = _pools(jcfg, n_pages, seed=8)
+    tables = rng.permutation(n_pages)[: batch * pps].reshape(batch, pps).astype(np.int32)
+    seq_lens = np.array([3, 9, 14], np.int32)  # unequal; 14 -> last page
+    tokens = rng.integers(0, jcfg.vocab_size, batch).astype(np.int32)
+
+    jcache, want = jax_llama.decode_step_cache(
+        jcfg, np_params, (jnp.asarray(k0), jnp.asarray(v0)), jnp.asarray(tokens),
+        jnp.asarray(tables), jnp.asarray(seq_lens),
+    )
+    pcache, got = llama.decode_step_cache(
+        cfg, params, (torch.from_numpy(k0.copy()), torch.from_numpy(v0.copy())),
+        torch.from_numpy(tokens), torch.from_numpy(tables), torch.from_numpy(seq_lens),
+    )
+    assert got.shape == (batch, jcfg.vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGITS_TOL)
+    for got_pool, want_pool in zip(pcache, jcache):
+        np.testing.assert_allclose(got_pool.numpy(), np.asarray(want_pool), **CACHE_TOL)
+
+
+@pytest.mark.parametrize("fn", ["rms_norm", "rope", "mlp"])
+def test_layer_math_matches_jax(fn):
+    jcfg, cfg = _configs()
+    np_params, params = _params(jcfg)
+    rng = np.random.default_rng(9)
+    layer_np = {k: v[0] for k, v in np_params["layers"].items()}
+    layer = llama.layer_params(params, 0)
+    if fn == "rms_norm":
+        x = rng.standard_normal((2, 5, jcfg.d_model), dtype=np.float32)
+        scale = rng.standard_normal(jcfg.d_model, dtype=np.float32)
+        want = jax_llama.rms_norm(jnp.asarray(x), jnp.asarray(scale), jcfg.rms_eps)
+        got = llama.rms_norm(torch.from_numpy(x), torch.from_numpy(scale), cfg.rms_eps)
+    elif fn == "rope":
+        x = rng.standard_normal((2, 5, jcfg.n_q_heads, jcfg.head_dim), dtype=np.float32)
+        pos = rng.integers(0, 4096, (2, 5))
+        want = jax_llama._rope(jnp.asarray(x), jnp.asarray(pos), jcfg.rope_theta)
+        got = llama._rope(torch.from_numpy(x), torch.from_numpy(pos), cfg.rope_theta)
+    else:
+        x = rng.standard_normal((2, 5, jcfg.d_model), dtype=np.float32)
+        want = jax_llama._mlp(layer_np, jnp.asarray(x))
+        got = llama._mlp(layer, torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def test_cpu_config_is_the_reference_default_shape():
+    """The port's config mirrors the reference's field for field."""
+    jfields = [f.name for f in dataclasses.fields(jax_llama.LlamaConfig)]
+    pfields = [f.name for f in dataclasses.fields(llama.LlamaConfig)]
+    assert pfields == jfields
+    _, cfg = _configs()
+    assert (cfg.q_dim, cfg.kv_dim) == (64, 32)

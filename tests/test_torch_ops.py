@@ -1,0 +1,162 @@
+"""The port's attention ops against the JAX package's kernels.
+
+Inputs come from seeded numpy and go through both packages; the JAX Pallas
+kernels run in interpret mode on the CPU, as the JAX package's own tests run
+them. On CPU tensors the port's wrappers run their plain torch versions
+(the CUDA kernels are held against those same versions on the card by
+chip_smoke.py). f32 throughout; tolerance atol = rtol = 1e-5.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from llm_d_kv_cache_manager_tpu.ops.flash_prefill import flash_prefill as jax_flash_prefill
+from llm_d_kv_cache_manager_tpu.ops.paged_attention import (
+    paged_attention as jax_paged_attention,
+    write_kv_pages as jax_write_kv_pages,
+)
+from llm_d_kv_cache_manager_tpu_torch.ops import flash_prefill as port_flash
+from llm_d_kv_cache_manager_tpu_torch.ops import paged_attention as port_paged
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _paged_inputs(batch=2, n_q=8, n_kv=4, head_dim=128, page_size=128,
+                  n_pages=12, pps=3, seed=0):
+    """The shapes of tests/test_ops.py::_setup, drawn from numpy."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((batch, n_q, head_dim), dtype=np.float32)
+    k = rng.standard_normal((n_kv, n_pages, page_size, head_dim), dtype=np.float32)
+    v = rng.standard_normal((n_kv, n_pages, page_size, head_dim), dtype=np.float32)
+    bt = rng.permutation(n_pages)[: batch * pps].reshape(batch, pps).astype(np.int32)
+    return q, k, v, bt
+
+
+def _both_paged(inputs, seq_lens, window=None):
+    q, k, v, bt = inputs
+    lens = np.asarray(seq_lens, np.int32)
+    want = jax_paged_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bt),
+        jnp.asarray(lens), interpret=True, pipelined=True, window=window,
+    )
+    got = port_paged.paged_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(bt), torch.from_numpy(lens), window=window,
+    )
+    return np.asarray(want), got.numpy()
+
+
+@pytest.mark.parametrize("seq_lens", [[1, 300], [128, 384], [0, 256]])
+def test_paged_attention_matches_pipelined_kernel(seq_lens):
+    want, got = _both_paged(_paged_inputs(), seq_lens)
+    live = np.asarray(seq_lens) > 0
+    np.testing.assert_allclose(got[live], want[live], **TOL)
+    # seq_len == 0 slots: zeros in both (the JAX plain reference gives NaN).
+    assert not np.any(got[~live]) and not np.any(want[~live])
+
+
+def test_paged_attention_mha():
+    want, got = _both_paged(_paged_inputs(n_q=4, n_kv=4), [37, 290])
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("window", [64, 128, 200])
+def test_paged_attention_sliding_window(window):
+    inputs = _paged_inputs()
+    want, got = _both_paged(inputs, [37, 300], window=window)
+    np.testing.assert_allclose(got, want, **TOL)
+    _, full = _both_paged(inputs, [37, 300])
+    assert np.max(np.abs(got - full)) > 1e-3  # the window is load-bearing
+
+
+@pytest.mark.parametrize("pps", [1, 2])
+def test_paged_attention_narrow_table(pps):
+    want, got = _both_paged(_paged_inputs(pps=pps), [1, pps * 128])
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_paged_attention_bad_grouping_raises():
+    q, k, v, bt = (torch.from_numpy(a) for a in _paged_inputs(n_q=6, n_kv=4))
+    lens = torch.tensor([8, 8], dtype=torch.int32)
+    with pytest.raises(ValueError, match="not divisible"):
+        port_paged.paged_attention(q, k, v, bt, lens)
+    with pytest.raises(ValueError, match="not divisible"):
+        port_paged.paged_attention_reference(q, k, v, bt, lens)
+
+
+def test_paged_attention_cpu_tensors_launch_no_kernel():
+    before = port_paged.launches
+    q, k, v, bt = (torch.from_numpy(a) for a in _paged_inputs())
+    lens = torch.tensor([5, 200], dtype=torch.int32)
+    out = port_paged.paged_attention(q, k, v, bt, lens)
+    ref = port_paged.paged_attention_reference(q, k, v, bt, lens)
+    assert torch.equal(out, ref)
+    assert port_paged.launches == before
+
+
+@pytest.mark.parametrize("start_pos", [0, 14, 30])
+def test_write_kv_pages_matches_jax(start_pos):
+    rng = np.random.default_rng(1)
+    n_kv, n_pages, ps, hd, seq = 2, 8, 16, 8, 5
+    kp = rng.standard_normal((n_kv, n_pages, ps, hd), dtype=np.float32)
+    vp = rng.standard_normal((n_kv, n_pages, ps, hd), dtype=np.float32)
+    bt = np.array([5, 2, 7], np.int32)
+    k_new = rng.standard_normal((seq, n_kv, hd), dtype=np.float32)
+    v_new = rng.standard_normal((seq, n_kv, hd), dtype=np.float32)
+    want_k, want_v = jax_write_kv_pages(
+        jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(k_new), jnp.asarray(v_new), start_pos,
+    )
+    tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    got_k, got_v = port_paged.write_kv_pages(
+        tk, tv, torch.from_numpy(bt), torch.from_numpy(k_new),
+        torch.from_numpy(v_new), start_pos,
+    )
+    assert got_k is tk and got_v is tv  # updated in place
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(want_k))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(want_v))
+
+
+# The cases of tests/test_flash_prefill.py:
+# (b, l, s, n_q, n_kv, hd, offset, window, block_q, block_k).
+FLASH_CASES = {
+    "causal_from_scratch": (1, 96, 96, 4, 2, 64, 0, None, 32, 128),
+    "cached_prefix_offset": (1, 64, 96, 4, 2, 64, 32, None, 32, 128),
+    "per_batch_offsets": (2, 48, 80, 4, 2, 64, [5, 17], None, 32, 128),
+    "sliding_window": (1, 96, 96, 4, 2, 64, 0, 40, 32, 128),
+    "sliding_window_with_offset": (1, 64, 128, 4, 2, 64, 64, 48, 32, 128),
+    "mqa": (1, 64, 64, 4, 1, 64, 0, None, 32, 128),
+    "wide_gqa": (1, 64, 64, 8, 2, 64, 0, None, 32, 128),
+    "non_block_multiple_shapes": (1, 90, 150, 4, 2, 64, 60, None, 32, 128),
+    "single_block": (1, 16, 16, 2, 2, 64, 0, None, 16, 128),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_dense_attention_matches_flash_kernel(case):
+    b, l, s, n_q, n_kv, hd, offset, window, block_q, block_k = FLASH_CASES[case]
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((b, l, n_q, hd), dtype=np.float32)
+    k = rng.standard_normal((b, s, n_kv, hd), dtype=np.float32)
+    v = rng.standard_normal((b, s, n_kv, hd), dtype=np.float32)
+    off_np = np.asarray(offset, np.int32)
+    want = jax_flash_prefill(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(off_np),
+        window=window, block_q=block_q, block_k=block_k, interpret=True,
+    )
+    off_t = offset if isinstance(offset, int) else torch.from_numpy(off_np)
+    tq, tk, tv = torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v)
+    before = port_flash.launches
+    got = port_flash.flash_prefill(tq, tk, tv, off_t, window=window)
+    plain = port_flash.dense_attention(tq, tk, tv, off_t, window=window)
+    assert torch.equal(got, plain) and port_flash.launches == before
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_flash_prefill_bad_grouping_raises():
+    q = torch.zeros(1, 32, 3, 64)
+    k = torch.zeros(1, 32, 2, 64)
+    with pytest.raises(ValueError, match="not divisible"):
+        port_flash.flash_prefill(q, k, k, 0)
