@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # every phase; needs one CUDA card
-    python3 chip_smoke.py --kernels-only   # phases 1-4: build, check, time
+    python3 chip_smoke.py      # needs one CUDA card
 
 Phases, in order (any failure raises and the script exits non-zero):
   1. device lines: torch's device name and nvidia-smi's name + power limit;
@@ -25,7 +24,6 @@ Phases, in order (any failure raises and the script exits non-zero):
 
 from __future__ import annotations
 
-import argparse
 import json
 import re
 import statistics
@@ -53,11 +51,18 @@ from llm_d_kv_cache_manager_tpu_torch.ops import paged_attention as pa
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 
-# |kernel - plain| <= ATOL + RTOL * |plain|, per dtype. f32: both sides
-# accumulate in f32 in different orders. bf16: both round an f32 result to
-# bf16 (1 ulp is 2^-8 relative) and the flash kernel rounds its unnormalized
-# probabilities to bf16 where the plain version rounds normalized ones.
-TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
+# Kernel-vs-plain bars. f32, elementwise: |kernel - plain| <= 1e-4 +
+# 1e-4 |plain| (both sides accumulate in f32, in different orders). bf16, per
+# output row (one query head's head_dim vector): |kernel - plain| / |plain| in
+# the 2-norm. Both sides round an f32 result to bf16, and the flash kernel
+# rounds its unnormalized probabilities where the plain version rounds
+# normalized ones, so an elementwise bar would have to scale with each row's
+# size rather than with the element's. Each limit is a few times the largest
+# row error the kernel showed on an H100 and far below what a kernel that
+# skips one 64-token chunk or k-block of keys shows (chip_fault_check.py).
+# Rows whose plain output is all zeros (seq_len 0) must be exactly zero.
+F32_TOL = (1e-4, 1e-4)
+BF16_ROW_REL = {"paged_decode": 4e-3, "flash_prefill": 1.5e-2}
 
 FLAGSHIP = dict(
     vocab_size=32768, d_model=2048, n_layers=16, n_q_heads=16, n_kv_heads=8,
@@ -71,34 +76,41 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def check_close(name: str, got: torch.Tensor, ref: torch.Tensor, dtype) -> float:
-    atol, rtol = TOL[dtype]
-    got, ref = got.float(), ref.float()
-    if not torch.isfinite(got).all():
-        raise AssertionError(f"{name}: kernel output has non-finite values")
-    err = (got - ref).abs()
-    max_err = float(err.max()) if err.numel() else 0.0
-    ok = bool((err <= atol + rtol * ref.abs()).all())
-    log(f"  {name}: max_abs_err={max_err:.3e} tol={atol:g}+{rtol:g}|ref| "
-        f"{'ok' if ok else 'FAIL'}")
-    if not ok:
+def compare(kernel: str, got: torch.Tensor, ref: torch.Tensor, dtype) -> dict:
+    """The kernel's output against its plain version's, under the bar for
+    `kernel` and `dtype`: max abs error, max row relative error, and ok."""
+    hd = got.shape[-1]
+    got, ref = got.float().reshape(-1, hd), ref.float().reshape(-1, hd)
+    err = got - ref
+    ref_norm = ref.norm(dim=1)
+    live = ref_norm > 0
+    row_rel = float((err.norm(dim=1)[live] / ref_norm[live]).max()) if live.any() else 0.0
+    ok = bool(torch.isfinite(got).all()) and bool((got[~live] == 0).all())
+    if dtype == torch.float32:
+        atol, rtol = F32_TOL
+        ok = ok and bool((err.abs() <= atol + rtol * ref.abs()).all())
+        bar = f"|err| <= {atol:g} + {rtol:g}|ref|"
+    else:
+        ok = ok and row_rel <= BF16_ROW_REL[kernel]
+        bar = f"row rel <= {BF16_ROW_REL[kernel]:g}"
+    max_abs = float(err.abs().max()) if err.numel() else 0.0
+    return dict(max_abs_err=max_abs, row_rel_err=row_rel, bar=bar, ok=ok)
+
+
+def check_close(kernel: str, name: str, got, ref, dtype) -> float:
+    m = compare(kernel, got, ref, dtype)
+    log(f"  {name}: max_abs_err={m['max_abs_err']:.3e} row_rel_err="
+        f"{m['row_rel_err']:.3e} ({m['bar']}) {'ok' if m['ok'] else 'FAIL'}")
+    if not m["ok"]:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
-    return max_err
+    return m["max_abs_err"]
 
 
 def sdpa_gqa(q, k, v, **kwargs):
     """SDPA over grouped K/V (the library yardstick; the port never calls
-    it). Returns a zero-argument callable; K/V are expanded to the query
-    heads beforehand, outside the timed call, where `enable_gqa` is missing."""
+    it), as a zero-argument callable."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    try:
-        sdpa(q, k, v, enable_gqa=True, **kwargs)
-        return lambda: sdpa(q, k, v, enable_gqa=True, **kwargs)
-    except TypeError:
-        group = q.shape[1] // k.shape[1]
-        ke = k.repeat_interleave(group, dim=1)
-        ve = v.repeat_interleave(group, dim=1)
-        return lambda: sdpa(q, ke, ve, **kwargs)
+    return lambda: sdpa(q, k, v, enable_gqa=True, **kwargs)
 
 
 def profile_device_share(label: str, fn, runs: int = 3) -> dict:
@@ -188,9 +200,17 @@ def causal_pairs(l: int, s: int, offsets, window) -> int:
     return total
 
 
-def phase_kernel_checks(gen) -> dict:
-    log("== phase 3: kernels vs plain versions")
-    errs = {}
+# The case of each kernel at the main path's shape (bf16, batch 8 x 2048
+# context at page 16; one 2048-token causal chunk).
+MAIN_CASES = {
+    "paged_decode": "paged_decode bf16 page=16 window=None B=8",
+    "flash_prefill": "flash_prefill bf16 L=S=2048 off=0",
+}
+
+
+def kernel_cases(gen):
+    """Yields (kernel, dtype, case name, kernel output, plain output) over
+    the edge cases, bf16 first, then f32."""
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         for page in (16, 64):
@@ -200,26 +220,19 @@ def phase_kernel_checks(gen) -> dict:
                     (8, [0, 1, page, page + 1, 2 * page, 1000, 2047, 2048]),
                 ):
                     args = decode_inputs(gen, dtype, batch, lens, page)
-                    got = pa.paged_attention(*args, window=window)
-                    ref = pa.paged_attention_reference(*args, window=window)
-                    torch.cuda.synchronize()
-                    name = f"paged_decode {tag} page={page} window={window} B={batch}"
-                    err = check_close(name, got, ref, dtype)
-                    zero_rows = got[args[4] == 0]
-                    if zero_rows.numel() and float(zero_rows.abs().max()) != 0.0:
-                        raise AssertionError(f"{name}: seq_len 0 slot is not zeros")
-                    if dtype == torch.bfloat16 and page == PAGE and window is None and batch == 8:
-                        errs["paged_decode"] = err
+                    yield ("paged_decode", dtype,
+                           f"paged_decode {tag} page={page} window={window} B={batch}",
+                           pa.paged_attention(*args, window=window),
+                           pa.paged_attention_reference(*args, window=window))
         for n_q in (8, 32, 64):  # the other GQA groups the kernel takes: 1, 4, 8
             args = decode_inputs(gen, dtype, 4, [0, 17, 300, 2048], PAGE, n_q=n_q)
-            got = pa.paged_attention(*args)
-            ref = pa.paged_attention_reference(*args)
-            check_close(f"paged_decode {tag} group={n_q // N_KV}", got, ref, dtype)
+            yield ("paged_decode", dtype, f"paged_decode {tag} group={n_q // N_KV}",
+                   pa.paged_attention(*args), pa.paged_attention_reference(*args))
         for n_q in (8, 32):  # flash groups 1 and 4
             q, k, v = flash_inputs(gen, dtype, 1, 300, 700, n_q=n_q)
-            check_close(f"flash_prefill {tag} group={n_q // N_KV} L=300 S=700 off=400",
-                        fp.flash_prefill(q, k, v, 400), fp.dense_attention(q, k, v, 400),
-                        dtype)
+            yield ("flash_prefill", dtype,
+                   f"flash_prefill {tag} group={n_q // N_KV} L=300 S=700 off=400",
+                   fp.flash_prefill(q, k, v, 400), fp.dense_attention(q, k, v, 400))
         cases = (
             ("L=S=2048 off=0", 1, 2048, 2048, 0, None, None),
             ("L=512 S=2048 off=1536", 1, 512, 2048, 1536, None, None),
@@ -232,12 +245,19 @@ def phase_kernel_checks(gen) -> dict:
             offs = off if isinstance(off, int) else torch.tensor(off, dtype=torch.int32, device="cuda")
             got = fp.flash_prefill(q, k, v, offs, window=window)
             ref = fp.dense_attention(q, k, v, offs, window=window)
-            torch.cuda.synchronize()
             if n_valid is not None:
                 got, ref = got[:, :n_valid], ref[:, :n_valid]
-            err = check_close(f"flash_prefill {tag} {name}", got, ref, dtype)
-            if dtype == torch.bfloat16 and name == "L=S=2048 off=0":
-                errs["flash_prefill"] = err
+            yield "flash_prefill", dtype, f"flash_prefill {tag} {name}", got, ref
+
+
+def phase_kernel_checks(gen) -> dict:
+    log("== phase 3: kernels vs plain versions")
+    errs = {}
+    for kernel, dtype, name, got, ref in kernel_cases(gen):
+        torch.cuda.synchronize()
+        err = check_close(kernel, name, got, ref, dtype)
+        if name == MAIN_CASES[kernel]:
+            errs[kernel] = err
     return errs
 
 
@@ -478,11 +498,7 @@ def phase_batched_decode(params, cfg, gen) -> dict:
                 err_plain_vs_f32=err_plain, argmax_agree=agree, step_profile=prof)
 
 
-def main(argv) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after phase 4 (build, kernel checks, times)")
-    args = ap.parse_args(argv)
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -513,8 +529,6 @@ def main(argv) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = phase_kernel_checks(gen)
     times = phase_times(gen)
-    if args.kernels_only:
-        return 0
 
     cfg = llama.LlamaConfig(**FLAGSHIP)
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
@@ -548,4 +562,4 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())

@@ -9,10 +9,9 @@ part of this port yet.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 from llm_d_kv_cache_manager_tpu_torch.kvcache.backend import (
-    KVCacheBackendConfig,
     default_kv_cache_backend_configs,
     weight_map,
 )
@@ -32,12 +31,11 @@ class Indexer:
         self,
         token_processor_config: Optional[TokenProcessorConfig] = None,
         kv_block_index: Optional[Index] = None,
-        backend_configs: Optional[List[KVCacheBackendConfig]] = None,
     ):
         self.token_processor = ChunkedTokenDatabase(token_processor_config)
         self.kv_block_index = kv_block_index or InMemoryIndex()
         self.scorer = LongestPrefixScorer(
-            weight_map(backend_configs or default_kv_cache_backend_configs())
+            weight_map(default_kv_cache_backend_configs())
         )
 
     def get_pod_scores(

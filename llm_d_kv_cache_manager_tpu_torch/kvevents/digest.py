@@ -39,9 +39,8 @@ def digest_block_stored(
     pod_identifier: str,
     model_name: str,
     ev: BlockStored,
-    default_device_tier: str = DEFAULT_DEVICE_TIER,
 ) -> None:
-    tier = (ev.medium or default_device_tier).lower()
+    tier = (ev.medium or DEFAULT_DEVICE_TIER).lower()
     entries = [PodEntry(pod_identifier, tier)]
 
     engine_keys: List[Key] = []
@@ -83,9 +82,8 @@ def digest_block_removed(
     pod_identifier: str,
     model_name: str,
     ev: BlockRemoved,
-    default_device_tier: str = DEFAULT_DEVICE_TIER,
 ) -> None:
-    tier = (ev.medium or default_device_tier).lower()
+    tier = (ev.medium or DEFAULT_DEVICE_TIER).lower()
     entries = [PodEntry(pod_identifier, tier)]
     for raw in ev.block_hashes:
         try:
@@ -105,16 +103,10 @@ def digest_batch(
     pod_identifier: str,
     model_name: str,
     batch: EventBatch,
-    default_device_tier: str = DEFAULT_DEVICE_TIER,
 ) -> None:
     """Digest every event of one batch, in order."""
     for ev in batch.events:
         if isinstance(ev, BlockStored):
-            digest_block_stored(
-                index, token_processor, pod_identifier, model_name, ev,
-                default_device_tier,
-            )
+            digest_block_stored(index, token_processor, pod_identifier, model_name, ev)
         elif isinstance(ev, BlockRemoved):
-            digest_block_removed(
-                index, pod_identifier, model_name, ev, default_device_tier
-            )
+            digest_block_removed(index, pod_identifier, model_name, ev)

@@ -25,7 +25,6 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 KERNELS = ("paged_decode", "flash_prefill")
-NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"  # the CUDA toolkit's default home
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,8 +36,6 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 def find_nvcc() -> str:
     nvcc = shutil.which("nvcc")
-    if nvcc is None and os.path.exists(NVCC_FALLBACK):
-        nvcc = NVCC_FALLBACK
     if nvcc is None:
         raise RuntimeError(
             "nvcc not found: the port's CUDA kernels are built from csrc/ "

@@ -115,7 +115,6 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
 
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)  # nothing prebuilt
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
-    monkeypatch.setattr(_build, "NVCC_FALLBACK", str(tmp_path / "no-nvcc"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(["paged_decode"])
 
