@@ -4,18 +4,22 @@
     python3 chip_fault_check.py
 
 Shows that the kernel-vs-plain bars of chip_smoke.py catch a kernel that
-drops work. Each kernel is built once more from a mutated copy of its
-source, written only under the package's build/ directory:
+drops work. Each kernel source is built once more from a mutated copy,
+written only under the package's build/planted/ directory:
 
-  - paged_decode: the second 64-token chunk of every sequence is skipped;
+  - paged_decode (pipelined decode, bf16/f32 and int8 pages): the second
+    64-token chunk of every sequence is skipped;
+  - paged_decode_tiled (split-KV decode, bf16/f32 and int8 pages): the second
+    page of every split is dropped (both decode faults are planted in the
+    body the two sources share, each in its own source's build only);
   - flash_prefill: the second live k-block of every q-block is skipped.
 
 The real kernels and each mutant in turn are swapped in behind the wrappers
 and run through chip_smoke's kernel cases (bf16 and f32, the same seeded
-inputs) and its batch-8 flagship decode-logits check. Every case's errors
-are printed beside its bar, then one JSON summary line. Exits non-zero
-unless the real kernels pass every case and each mutant fails its kernel's
-main-shape bf16 case.
+inputs) and its batch-8 flagship decode-logits check of each decode kernel
+the source holds. Every case's errors are printed beside its bar, then one
+JSON summary line. Exits non-zero unless the real kernels pass every case
+and each mutant fails the main-shape bf16 case of every kernel it holds.
 """
 
 from __future__ import annotations
@@ -31,12 +35,20 @@ import chip_smoke
 from llm_d_kv_cache_manager_tpu_torch.models import llama
 from llm_d_kv_cache_manager_tpu_torch.ops import _build
 
+# Source built with a fault -> (file of csrc/ holding the line, line, faulty line).
 MUTANTS = {
     "paged_decode": (
-        "const int t_end = min(kChunk, seq_len - c_start);",
-        "const int t_end = c == 1 ? 0 : min(kChunk, seq_len - c_start);",
+        "paged_decode_common.cuh",
+        "const int t_end = min(kChunk, pos_end - c_start);",
+        "const int t_end = c == 1 ? 0 : min(kChunk, pos_end - c_start);",
+    ),
+    "paged_decode_tiled": (
+        "paged_decode_common.cuh",
+        "const bool live = t < t_end && pos >= win_lo;",
+        "const bool live = t < t_end && pos >= win_lo && pos / page_size != pos0 / page_size + 1;",
     ),
     "flash_prefill": (
+        "flash_prefill.cu",
         "const int k0 = j * kBlockK;",
         "const int k0 = j * kBlockK;\n    if (j == first_blk + 1) continue;",
     ),
@@ -44,24 +56,32 @@ MUTANTS = {
 
 
 def build_mutant(name: str) -> ctypes.CDLL:
-    old, new = MUTANTS[name]
-    src = (_build.CSRC_DIR / f"{name}.cu").read_text()
-    if src.count(old) != 1:
-        raise RuntimeError(f"{name}.cu: the line to mutate is not there once")
-    out_dir = _build.BUILD_DIR / "planted"
+    """Build csrc/<name>.cu with its fault planted, from a copy of the
+    source and the headers under build/planted/<name>/ (the shared header's
+    fault reaches only this source's build)."""
+    target, old, new = MUTANTS[name]
+    out_dir = _build.BUILD_DIR / "planted" / name
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = out_dir / f"{name}_mutant.cu"
-    cu.write_text(src.replace(old, new))
+    for path in [_build.CSRC_DIR / f"{name}.cu", *_build.CSRC_DIR.glob("*.cuh")]:
+        text = path.read_text()
+        if path.name == target:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{target}: the line to mutate is not there once")
+            text = text.replace(old, new)
+        (out_dir / path.name).write_text(text)
     so = out_dir / f"lib{name}_mutant.so"
-    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
-                   check=True, capture_output=True)
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                    str(out_dir / f"{name}.cu")], check=True, capture_output=True)
     return ctypes.CDLL(str(so))
 
 
-def run_cases(label: str) -> list:
+def run_cases(label: str, source=None) -> list:
+    """chip_smoke's kernel cases, or only those of the kernels in `source`."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for kernel, dtype, name, got, ref in chip_smoke.kernel_cases(gen):
+        if source is not None and chip_smoke.SOURCE[kernel] != source:
+            continue
         torch.cuda.synchronize()
         m = chip_smoke.compare(kernel, got, ref, dtype)
         rows.append(dict(variant=label, kernel=kernel, case=name, **m))
@@ -71,15 +91,18 @@ def run_cases(label: str) -> list:
     return rows
 
 
-def run_decode_logits(label: str, params, cfg) -> bool:
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    try:
-        chip_smoke.phase_batched_decode(params, cfg, gen)
-    except AssertionError as e:
-        chip_smoke.log(f"  [{label}] batched decode: FAIL ({e})")
-        return False
-    chip_smoke.log(f"  [{label}] batched decode: ok")
-    return True
+def run_decode_logits(label: str, source, params, cfg, params32, cfg32) -> dict:
+    """chip_smoke's batch-8 decode-logits check of each decode kernel in
+    `source` (all four for None): {row: passed}."""
+    out = {}
+    for row, spec in chip_smoke.DECODE_ROWS.items():
+        if source is not None and chip_smoke.SOURCE[row] != source:
+            continue
+        r = chip_smoke.batched_decode_check(
+            params, cfg, params32, cfg32, spec["int8"], spec["pipelined"])
+        out[row] = r["ok"]
+        chip_smoke.log(f"  [{label}] batched decode {row}: {'ok' if r['ok'] else 'FAIL'}")
+    return out
 
 
 def main() -> int:
@@ -92,26 +115,30 @@ def main() -> int:
     mutants = {name: build_mutant(name) for name in _build.KERNELS}
     cfg = llama.LlamaConfig(**chip_smoke.FLAGSHIP)
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    cfg32 = llama.LlamaConfig(**{**chip_smoke.FLAGSHIP, "dtype": torch.float32})
+    params32 = {k: (v.float() if torch.is_tensor(v) else {n: w.float() for n, w in v.items()})
+                for k, v in params.items()}
 
     chip_smoke.log("== real kernels")
     rows = run_cases("real")
-    logits_ok = {"real": run_decode_logits("real", params, cfg)}
+    logits_ok = {"real": run_decode_logits("real", None, params, cfg, params32, cfg32)}
     for name, lib in mutants.items():
         label = f"{name}-mutant"
         chip_smoke.log(f"== {label}")
         _build._libs[name] = lib
-        rows += [r for r in run_cases(label) if r["kernel"] == name]
-        if name == "paged_decode":
-            logits_ok[label] = run_decode_logits(label, params, cfg)
+        rows += run_cases(label, source=name)
+        if name != "flash_prefill":
+            logits_ok[label] = run_decode_logits(label, name, params, cfg, params32, cfg32)
         _build._libs[name] = real[name]
 
-    real_ok = all(r["ok"] for r in rows if r["variant"] == "real") and logits_ok["real"]
+    real_ok = all(r["ok"] for r in rows if r["variant"] == "real") and all(
+        logits_ok["real"].values())
     main_rows = {
-        name: next(r for r in rows if r["variant"] == f"{name}-mutant"
-                   and r["case"] == chip_smoke.MAIN_CASES[name])
-        for name in _build.KERNELS
+        kernel: next(r for r in rows if r["variant"] == f"{chip_smoke.SOURCE[kernel]}-mutant"
+                     and r["case"] == chip_smoke.MAIN_CASES[kernel])
+        for kernel in chip_smoke.KERNELS
     }
-    caught = {name: not r["ok"] for name, r in main_rows.items()}
+    caught = {kernel: not r["ok"] for kernel, r in main_rows.items()}
     worst = {}
     for r in rows:
         if r["case"].split()[1] == "bf16":
@@ -120,7 +147,7 @@ def main() -> int:
     chip_smoke.log(json.dumps({
         "real_ok": real_ok, "mutant_caught_at_main_shape": caught,
         "mutant_row_rel_err_at_main_shape": {
-            name: r["row_rel_err"] for name, r in main_rows.items()},
+            kernel: r["row_rel_err"] for kernel, r in main_rows.items()},
         "decode_logits_ok": logits_ok, "bf16_max_row_rel_err": worst,
         "bf16_row_rel_limits": chip_smoke.BF16_ROW_REL,
     }))

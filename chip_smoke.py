@@ -5,19 +5,28 @@
 
 Phases, in order (any failure raises and the script exits non-zero):
   1. device lines: torch's device name and nvidia-smi's name + power limit;
-  2. build: both kernels from llm_d_kv_cache_manager_tpu_torch/csrc with nvcc
-     for sm_90a (build seconds, ptxas register/spill lines);
-  3. kernel vs plain: each kernel against its plain torch version in bf16 and
-     f32 over edge cases (zero/one-token sequences, page boundaries, windows,
-     prefix-hit offsets, padded chunks, per-batch offsets);
+  2. build: the three kernel sources in llm_d_kv_cache_manager_tpu_torch/csrc
+     with nvcc for sm_90a (build seconds, ptxas register/spill lines);
+  3. kernel vs plain: each of the five kernels (paged decode pipelined and
+     tiled, each on bf16/f32 and on int8 pages, and flash prefill) against
+     its plain torch version in bf16 and f32 over edge cases (zero/one-token
+     sequences, page boundaries, pages of 16/64/128, windows, GQA groups 1-8,
+     prefix-hit offsets, padded chunks, per-batch offsets), and the tiled
+     decode against the pipelined one at f32 on both page formats;
   4. times at the main path's shapes (CUDA events, median of 30 runs):
      kernel, plain version, the card's bound, and SDPA as a library yardstick
-     that the port itself never calls;
-  5. serving: two EnginePods at the flagship width (1.14B Llama, bf16, random
-     weights from a seeded generator) whose KV events are digested into one
-     index; prefix reuse, pod ranking and kernel launch counts are asserted,
-     then a small f32 pod on the card is held against the same pod on the CPU;
-  6. batched decode at batch 8 x 2048 context, kernel path vs plain path;
+     that the port itself never calls (none exists for int8 pages);
+  5. serving at the flagship width (1.14B Llama, bf16, random weights from a
+     seeded generator): two bf16 pods and one int8-KV pod whose KV events are
+     digested into one index; prefix reuse, pod ranking and kernel launch
+     counts are asserted; then packed prefill (4 jobs in one batched pass)
+     against the same jobs one by one on twin pods, on both page formats;
+  5b. a small f32 pod on the card against the same pod on the CPU, on both
+     page formats;
+  6. batched decode at batch 8 x 2048 context for every (page format, decode
+     kernel) pair, kernel path vs plain path vs an f32 truth, with the
+     launches of each kernel counted; then 8-step multi-step decode against 8
+     single steps on a twin cache, on both page formats;
   7. one JSON line describing every kernel;
   8. last line: {"ok": true, "device": {...}}.
 """
@@ -46,6 +55,7 @@ from llm_d_kv_cache_manager_tpu_torch.models import llama
 from llm_d_kv_cache_manager_tpu_torch.ops import _build
 from llm_d_kv_cache_manager_tpu_torch.ops import flash_prefill as fp
 from llm_d_kv_cache_manager_tpu_torch.ops import paged_attention as pa
+from llm_d_kv_cache_manager_tpu_torch.ops import quantized_kv as qkv
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_BYTES_PER_S = 3.35e12
@@ -57,12 +67,25 @@ PEAK_BF16_FLOPS = 989e12
 # the 2-norm. Both sides round an f32 result to bf16, and the flash kernel
 # rounds its unnormalized probabilities where the plain version rounds
 # normalized ones, so an elementwise bar would have to scale with each row's
-# size rather than with the element's. Each limit is a few times the largest
-# row error the kernel showed on an H100 and far below what a kernel that
-# skips one 64-token chunk or k-block of keys shows (chip_fault_check.py).
-# Rows whose plain output is all zeros (seq_len 0) must be exactly zero.
+# size rather than with the element's. On int8 pages the plain version rounds
+# the dequantized K/V to bf16 as the reference does, where the kernels keep
+# them in f32. Each limit is a few times the largest row error the kernel
+# showed on an H100 and far below what a kernel that skips one 64-token
+# chunk, page or k-block of keys shows (chip_fault_check.py). Rows whose
+# plain output is all zeros (seq_len 0) must be exactly zero.
 F32_TOL = (1e-4, 1e-4)
-BF16_ROW_REL = {"paged_decode": 4e-3, "flash_prefill": 1.5e-2}
+BF16_ROW_REL = {
+    "paged_decode": 4e-3,
+    "paged_decode_int8": 1.5e-2,
+    "paged_decode_tiled": 4e-3,
+    "paged_decode_tiled_int8": 1.5e-2,
+    "flash_prefill": 1.5e-2,
+}
+# Packed prefill against the same jobs one by one (bf16, 16 layers): the
+# largest |logit| difference allowed, four bf16 ulps at |logit| in [2, 4).
+# An H100 read 0: each row's products and attention run in the same order in
+# both shapes.
+PACKED_LOGITS_TOL = 0.0625
 
 FLAGSHIP = dict(
     vocab_size=32768, d_model=2048, n_layers=16, n_q_heads=16, n_kv_heads=8,
@@ -71,9 +94,43 @@ FLAGSHIP = dict(
 PAGE = 16
 N_Q, N_KV, HD = FLAGSHIP["n_q_heads"], FLAGSHIP["n_kv_heads"], FLAGSHIP["head_dim"]
 
+# The paged-decode kernels (TPU rows 1-4): decode variant and page format.
+DECODE_ROWS = {
+    "paged_decode": dict(pipelined=True, int8=False),
+    "paged_decode_int8": dict(pipelined=True, int8=True),
+    "paged_decode_tiled": dict(pipelined=False, int8=False),
+    "paged_decode_tiled_int8": dict(pipelined=False, int8=True),
+}
+KERNELS = (*DECODE_ROWS, "flash_prefill")
+SOURCE = {  # the csrc/ source of each kernel
+    "paged_decode": "paged_decode", "paged_decode_int8": "paged_decode",
+    "paged_decode_tiled": "paged_decode_tiled",
+    "paged_decode_tiled_int8": "paged_decode_tiled", "flash_prefill": "flash_prefill",
+}
+REPLACES = {
+    "paged_decode": "llm_d_kv_cache_manager_tpu/ops/paged_attention.py:157",
+    "paged_decode_int8": "llm_d_kv_cache_manager_tpu/ops/paged_attention.py:157",
+    "paged_decode_tiled": "llm_d_kv_cache_manager_tpu/ops/paged_attention.py:78",
+    "paged_decode_tiled_int8": "llm_d_kv_cache_manager_tpu/ops/paged_attention.py:78",
+    "flash_prefill": "llm_d_kv_cache_manager_tpu/ops/flash_prefill.py:47",
+}
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def launch_counts() -> dict:
+    return {
+        "paged_decode": pa.launches, "paged_decode_int8": qkv.launches,
+        "paged_decode_tiled": pa.tiled_launches,
+        "paged_decode_tiled_int8": qkv.tiled_launches, "flash_prefill": fp.launches,
+    }
+
+
+def reset_launch_counts() -> None:
+    pa.launches = pa.tiled_launches = qkv.launches = qkv.tiled_launches = 0
+    fp.launches = 0
 
 
 def compare(kernel: str, got: torch.Tensor, ref: torch.Tensor, dtype) -> dict:
@@ -139,18 +196,31 @@ def profile_device_share(label: str, fn, runs: int = 3) -> dict:
     log(f"  profile {label}: wall {wall_ms:.3f} ms/call, device kernels "
         f"{device_ms:.3f} ms/call in {launches} launches "
         f"({100 * device_ms / wall_ms:.1f}% busy)")
-    for ms, count, key in sorted(rows, reverse=True)[:6]:
+    top = sorted(rows, reverse=True)[:6]
+    for ms, count, key in top:
         log(f"    {ms:8.3f} ms/call {count:5d} launches/call  {key[:80]}")
-    return dict(wall_ms=wall_ms, device_ms=device_ms, launches=launches)
+    return dict(wall_ms=wall_ms, device_ms=device_ms, launches=launches,
+                largest=dict(ms=top[0][0], launches=top[0][1], name=top[0][2][:80]))
 
 
-def time_ms(fn, runs: int = 30, warmup: int = 3) -> float:
-    """Median of `runs` CUDA-event-timed calls, in ms."""
+_L2_FLUSH = None
+
+
+def time_ms(fn, runs: int = 30, warmup: int = 3, cold: bool = False) -> float:
+    """Median of `runs` CUDA-event-timed calls, in ms. `cold`: rewrite a
+    128 MB buffer before each call (outside the timed span), so the call
+    finds its inputs out of the 50 MB L2, as a decode step finds each
+    layer's pages."""
+    global _L2_FLUSH
+    if cold and _L2_FLUSH is None:
+        _L2_FLUSH = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
+        if cold:
+            _L2_FLUSH.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -165,7 +235,9 @@ def time_ms(fn, runs: int = 30, warmup: int = 3) -> float:
 
 
 def decode_inputs(gen, dtype, batch, seq_lens, page, n_q=N_Q, n_kv=N_KV, hd=HD,
-                  max_ctx=2048):
+                  max_ctx=2048, int8=False):
+    """(q, pages, tables, lens): pages (k, v) in `dtype`, or int8 (k_q,
+    k_scale, v_q, v_scale) quantized from the same draw."""
     pps = max_ctx // page
     n_pages = batch * pps + 3
     dev = "cuda"
@@ -178,7 +250,26 @@ def decode_inputs(gen, dtype, batch, seq_lens, page, n_q=N_Q, n_kv=N_KV, hd=HD,
     # Slots past ceil(seq_len / page) are padding, 0 as the engine pads them.
     live = (torch.arange(pps, device=dev)[None] * page < lens[:, None].long())
     tables = torch.where(live, tables, torch.zeros_like(tables)).contiguous()
-    return q, k, v, tables, lens
+    pages = (k, v)
+    if int8:
+        (kq, ks), (vq, vs) = qkv.quantize_rows(k), qkv.quantize_rows(v)
+        pages = (kq, ks[..., None], vq, vs[..., None])
+    return q, pages, tables, lens
+
+
+def run_decode(row, q, pages, tables, lens, window=None, plain=False):
+    """Row `row`'s kernel (or, `plain`, its plain version) on these inputs."""
+    pipelined = DECODE_ROWS[row]["pipelined"]
+    if len(pages) == 2:
+        if plain:
+            return pa.paged_attention_reference(q, *pages, tables, lens, window=window)
+        return pa.paged_attention(q, *pages, tables, lens, pipelined=pipelined,
+                                  window=window)
+    if plain:
+        return qkv.paged_attention_quantized_reference(q, *pages, tables, lens,
+                                                       window=window)
+    return qkv.paged_attention_quantized(q, *pages, tables, lens, pipelined=pipelined,
+                                         window=window)
 
 
 def flash_inputs(gen, dtype, b, l, s, n_q=N_Q, n_kv=N_KV, hd=HD):
@@ -203,31 +294,48 @@ def causal_pairs(l: int, s: int, offsets, window) -> int:
 # The case of each kernel at the main path's shape (bf16, batch 8 x 2048
 # context at page 16; one 2048-token causal chunk).
 MAIN_CASES = {
-    "paged_decode": "paged_decode bf16 page=16 window=None B=8",
+    **{row: f"{row} bf16 page=16 window=None B=8" for row in DECODE_ROWS},
     "flash_prefill": "flash_prefill bf16 L=S=2048 off=0",
 }
 
 
 def kernel_cases(gen):
     """Yields (kernel, dtype, case name, kernel output, plain output) over
-    the edge cases, bf16 first, then f32."""
+    the edge cases, bf16 first, then f32. At f32 the tiled kernels are also
+    held against the pipelined ones (then "plain output" is the pipelined
+    kernel's)."""
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
-        for page in (16, 64):
-            for window in (None, 512):
-                for batch, lens in (
-                    (1, [2048]),
-                    (8, [0, 1, page, page + 1, 2 * page, 1000, 2047, 2048]),
-                ):
-                    args = decode_inputs(gen, dtype, batch, lens, page)
-                    yield ("paged_decode", dtype,
-                           f"paged_decode {tag} page={page} window={window} B={batch}",
-                           pa.paged_attention(*args, window=window),
-                           pa.paged_attention_reference(*args, window=window))
-        for n_q in (8, 32, 64):  # the other GQA groups the kernel takes: 1, 4, 8
-            args = decode_inputs(gen, dtype, 4, [0, 17, 300, 2048], PAGE, n_q=n_q)
-            yield ("paged_decode", dtype, f"paged_decode {tag} group={n_q // N_KV}",
-                   pa.paged_attention(*args), pa.paged_attention_reference(*args))
+        for row, spec in DECODE_ROWS.items():
+            for page in (16, 64, 128):
+                for window in (None, 512):
+                    for batch, lens in (
+                        (1, [2048]),
+                        (8, [0, 1, page, page + 1, 2 * page, 1000, 2047, 2048]),
+                    ):
+                        q, pages, tables, lens_t = decode_inputs(
+                            gen, dtype, batch, lens, page, int8=spec["int8"])
+                        yield (row, dtype,
+                               f"{row} {tag} page={page} window={window} B={batch}",
+                               run_decode(row, q, pages, tables, lens_t, window),
+                               run_decode(row, q, pages, tables, lens_t, window, plain=True))
+            for n_q in (8, 32, 64):  # the other GQA groups the kernels take: 1, 4, 8
+                q, pages, tables, lens_t = decode_inputs(
+                    gen, dtype, 4, [0, 17, 300, 2048], PAGE, n_q=n_q, int8=spec["int8"])
+                yield (row, dtype, f"{row} {tag} group={n_q // N_KV}",
+                       run_decode(row, q, pages, tables, lens_t),
+                       run_decode(row, q, pages, tables, lens_t, plain=True))
+        if dtype == torch.float32:
+            for tiled, piped in (("paged_decode_tiled", "paged_decode"),
+                                 ("paged_decode_tiled_int8", "paged_decode_int8")):
+                for page, window in ((16, None), (128, 512)):
+                    q, pages, tables, lens_t = decode_inputs(
+                        gen, dtype, 8, [0, 1, 37, 290, 1000, 1500, 2047, 2048], page,
+                        int8=DECODE_ROWS[tiled]["int8"])
+                    yield (tiled, dtype,
+                           f"{tiled} {tag} vs {piped} page={page} window={window}",
+                           run_decode(tiled, q, pages, tables, lens_t, window),
+                           run_decode(piped, q, pages, tables, lens_t, window))
         for n_q in (8, 32):  # flash groups 1 and 4
             q, k, v = flash_inputs(gen, dtype, 1, 300, 700, n_q=n_q)
             yield ("flash_prefill", dtype,
@@ -252,69 +360,88 @@ def kernel_cases(gen):
 
 def phase_kernel_checks(gen) -> dict:
     log("== phase 3: kernels vs plain versions")
-    errs = {}
+    errs, n = {}, 0
     for kernel, dtype, name, got, ref in kernel_cases(gen):
         torch.cuda.synchronize()
         err = check_close(kernel, name, got, ref, dtype)
+        n += 1
         if name == MAIN_CASES[kernel]:
             errs[kernel] = err
+    log(f"  {n} checks passed")
     return errs
 
 
-def phase_times(gen) -> dict:
-    log("== phase 4: times at the main path's shapes (bf16, median of 30)")
-    dtype = torch.bfloat16
-    out = {}
-    itemsize = 2
-
-    # Decode: batch 8, context 2048, page 16, flagship heads.
-    batch, ctx = 8, 2048
-    q, k, v, tables, lens = decode_inputs(gen, dtype, batch, [ctx] * batch, PAGE)
-    kernel_ms = time_ms(lambda: pa.paged_attention(q, k, v, tables, lens))
-    plain_ms = time_ms(lambda: pa.paged_attention_reference(q, k, v, tables, lens))
-    # Library yardstick: SDPA over the same K/V already gathered dense.
-    kd = k[:, tables.long()].movedim(1, 0).reshape(batch, N_KV, -1, HD).contiguous()
-    vd = v[:, tables.long()].movedim(1, 0).reshape(batch, N_KV, -1, HD).contiguous()
-    library_ms = time_ms(sdpa_gqa(q[:, :, None], kd, vd))
-    live = int(lens.sum())
-    nbytes = (2 * live * N_KV * HD + 2 * batch * N_Q * HD) * itemsize + tables.numel() * 4
-    flops = 4 * live * N_Q * HD
+def _bound(nbytes: int, flops: int) -> dict:
     bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-    out["paged_decode"] = dict(
-        ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-    )
-    log(f"  paged_decode B={batch} ctx={ctx} page={PAGE}: kernel {kernel_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
-        f"{out['paged_decode']['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB)")
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def time_decode(gen, row: str, batch: int, ctx: int) -> dict:
+    """Row `row` at batch x ctx (bf16 q, page 16, flagship heads), each call
+    cold in L2: kernel, plain version, SDPA over pre-gathered K/V (bf16 pages
+    only; no PyTorch call attends over int8 pages), and the bound."""
+    int8 = DECODE_ROWS[row]["int8"]
+    q, pages, tables, lens = decode_inputs(gen, torch.bfloat16, batch, [ctx] * batch,
+                                           PAGE, max_ctx=ctx, int8=int8)
+    kernel_ms = time_ms(lambda: run_decode(row, q, pages, tables, lens), cold=True)
+    plain_ms = time_ms(lambda: run_decode(row, q, pages, tables, lens, plain=True),
+                       cold=True)
+    library_ms = None
+    if not int8:
+        k, v = pages
+        kd = k[:, tables.long()].movedim(1, 0).reshape(batch, N_KV, -1, HD).contiguous()
+        vd = v[:, tables.long()].movedim(1, 0).reshape(batch, N_KV, -1, HD).contiguous()
+        library_ms = time_ms(sdpa_gqa(q[:, :, None], kd, vd), cold=True)
+    live = int(lens.sum())
+    kv_row_bytes = HD * (1 if int8 else 2) + (4 if int8 else 0)  # values (+ scale)
+    nbytes = 2 * live * N_KV * kv_row_bytes + 2 * batch * N_Q * HD * 2 + tables.numel() * 4
+    out = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+               **_bound(nbytes, 4 * live * N_Q * HD), mbytes=nbytes / 1e6)
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    log(f"  {row} B={batch} ctx={ctx} page={PAGE}: kernel {kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, SDPA {lib}, bound {out['bound_ms']:.4f} ms "
+        f"({nbytes / 1e6:.2f} MB)")
+    return out
+
+
+def phase_times(gen) -> tuple:
+    log("== phase 4: times at the main path's shapes (bf16, median of 30)")
+    main = {row: time_decode(gen, row, 8, 2048) for row in DECODE_ROWS}
+    batch1 = {row: time_decode(gen, row, 1, 4096) for row in DECODE_ROWS}
 
     # Prefill: one 2048-token causal chunk, offset 0.
     l = s = 2048
-    q, k, v = flash_inputs(gen, dtype, 1, l, s)
+    q, k, v = flash_inputs(gen, torch.bfloat16, 1, l, s)
     kernel_ms = time_ms(lambda: fp.flash_prefill(q, k, v, 0))
     plain_ms = time_ms(lambda: fp.dense_attention(q, k, v, 0))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     library_ms = time_ms(sdpa_gqa(qt, kt, vt, is_causal=True))
     flops = 4 * causal_pairs(l, s, [0], None) * N_Q * HD
-    nbytes = (2 * l * N_Q * HD + 2 * s * N_KV * HD) * itemsize
-    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-    out["flash_prefill"] = dict(
-        ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-    )
+    nbytes = (2 * l * N_Q * HD + 2 * s * N_KV * HD) * 2
+    main["flash_prefill"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                                 **_bound(nbytes, flops))
     log(f"  flash_prefill L=S={l}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"SDPA {library_ms:.4f} ms, bound {out['flash_prefill']['bound_ms']:.4f} ms "
+        f"SDPA {library_ms:.4f} ms, bound {main['flash_prefill']['bound_ms']:.4f} ms "
         f"({flops / 1e9:.2f} GFLOP)")
-    return out
+    return main, batch1
 
 
 # -- phase 5: serving -------------------------------------------------------------
 
 
+def event_rows(batches) -> list:
+    return [
+        (type(e).__name__, list(e.block_hashes),
+         getattr(e, "parent_block_hash", None), list(getattr(e, "token_ids", [])), e.medium)
+        for batch in batches for e in batch.events
+        if isinstance(e, (BlockStored, BlockRemoved))
+    ]
+
+
 def phase_serving(params, cfg) -> dict:
-    log("== phase 5: serving two flagship pods (bf16, page 16, 4096 pages each)")
+    log("== phase 5: serving two bf16 flagship pods (4096 pages of 16 each) and "
+        "one int8-KV pod (8192 pages of 16)")
     model = "llama-flagship-1.14b"
     index = InMemoryIndex()
     tp_cfg = TokenProcessorConfig(block_size=PAGE)
@@ -325,24 +452,25 @@ def phase_serving(params, cfg) -> dict:
             index, indexer.token_processor, pod_id, model, batch
         )
 
+    layout = {"pod-a": (4096, False), "pod-b": (4096, False), "pod-q": (8192, True)}
     pods = {
         pid: EnginePod(
             EnginePodConfig(
-                pod_id=pid, model_name=model, n_pages=4096, page_size=PAGE,
+                pod_id=pid, model_name=model, n_pages=n_pages, page_size=PAGE,
                 device_tier="gpu", max_pages_per_seq=256, model_config=cfg,
-                device="cuda",
+                device="cuda", use_quantized_kv=int8,
             ),
             event_sink=sink_for(pid), params=params,
         )
-        for pid in ("pod-a", "pod-b")
+        for pid, (n_pages, int8) in layout.items()
     }
     rng = np.random.default_rng(1234)
     prefixes = {pid: rng.integers(0, cfg.vocab_size, 1024).tolist() for pid in pods}
 
-    pa.launches = 0
-    fp.launches = 0
-    ttfts, decode_tokens, decode_s = [], 0, 0.0
-    for pid, n_requests in (("pod-a", 4), ("pod-b", 2)):
+    reset_launch_counts()
+    ttfts = {pid: [] for pid in pods}
+    decode = {pid: [0, 0.0] for pid in pods}  # tokens, seconds
+    for pid, n_requests in (("pod-a", 4), ("pod-b", 2), ("pod-q", 4)):
         pod = pods[pid]
         for r in range(n_requests):
             tokens = prefixes[pid] + rng.integers(0, cfg.vocab_size, 512).tolist()
@@ -356,23 +484,31 @@ def phase_serving(params, cfg) -> dict:
             pod.decode_append(state, first)
             t1 = time.perf_counter()
             generated = [pod.decode_step(state) for _ in range(31)]
-            decode_s += time.perf_counter() - t1
-            decode_tokens += len(generated)
+            decode[pid][1] += time.perf_counter() - t1
+            decode[pid][0] += len(generated)
             if not all(0 <= t < cfg.vocab_size for t in [first] + generated):
                 raise AssertionError(f"{pid} request {r}: token out of vocabulary")
             want = 0 if r == 0 else 1024
             if cached != want:
                 raise AssertionError(f"{pid} request {r}: cached {cached}, expected {want}")
-            ttfts.append(ttft)
+            ttfts[pid].append(ttft)
             log(f"  {pid} request {r}: cached {cached} tokens, TTFT {ttft * 1e3:.2f} ms")
             pod.free(state)
     torch.cuda.synchronize()
-    launches = {"paged_decode": pa.launches, "flash_prefill": fp.launches}
-    log(f"  decode {decode_tokens} tokens at batch 1: {decode_tokens / decode_s:.2f} tokens/s")
-    log(f"  kernel launches on the main path: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} kernel was never launched on the main path")
+    launches = launch_counts()
+    tokens_per_s = {pid: n / s for pid, (n, s) in decode.items()}
+    for pid in pods:
+        log(f"  {pid} ({'int8' if layout[pid][1] else 'bf16'} KV): decode "
+            f"{decode[pid][0]} tokens at batch 1, {tokens_per_s[pid]:.2f} tokens/s; "
+            f"prefix-hit TTFT {min(ttfts[pid][1:]) * 1e3:.2f}-"
+            f"{max(ttfts[pid][1:]) * 1e3:.2f} ms")
+    log(f"  kernel launches on the serving path: {launches}")
+    for name in ("paged_decode", "paged_decode_int8", "flash_prefill"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} kernel was never launched on the serving path")
+    # 16 layers x 31 decode steps x 4 requests on the int8 pod.
+    if launches["paged_decode_int8"] != 16 * 31 * 4:
+        raise AssertionError(f"int8 decode launches {launches['paged_decode_int8']}")
 
     for pid in pods:
         probe = prefixes[pid] + rng.integers(0, cfg.vocab_size, 256).tolist()
@@ -394,9 +530,65 @@ def phase_serving(params, cfg) -> dict:
     pod.free(state)
     del pods, pod
     torch.cuda.empty_cache()
-    return dict(launches=launches, ttft_ms=[t * 1e3 for t in ttfts],
-                decode_tokens_per_s=decode_tokens / decode_s,
-                prefill_profile=prefill_profile)
+    return dict(launches=launches, ttft_ms={p: [t * 1e3 for t in v] for p, v in ttfts.items()},
+                decode_tokens_per_s=tokens_per_s, prefill_profile=prefill_profile)
+
+
+def phase_packed_prefill(params, cfg) -> dict:
+    log("== phase 5 (packed prefill): 4 jobs in one batched pass vs one by one")
+    rng = np.random.default_rng(99)
+    shared = rng.integers(0, cfg.vocab_size, 256).tolist()
+    prompts = [shared + rng.integers(0, cfg.vocab_size, 200).tolist(),
+               rng.integers(0, cfg.vocab_size, 400).tolist(),
+               shared + rng.integers(0, cfg.vocab_size, 300).tolist(),
+               rng.integers(0, cfg.vocab_size, 350).tolist()]
+    out = {}
+    for int8 in (False, True):
+        runs = []
+        for packed in (True, False):
+            events = []
+            pod = EnginePod(
+                EnginePodConfig(n_pages=1024, page_size=PAGE, device_tier="gpu",
+                                max_pages_per_seq=64, model_config=cfg, device="cuda",
+                                use_quantized_kv=int8),
+                event_sink=events.append, params=params,
+            )
+            state, _ = pod.prefill(shared)
+            pod.free(state)
+            jobs = []
+            for prompt in prompts:
+                state, start = pod.begin_prefill(prompt)
+                jobs.append((state, start, len(prompt)))
+            before = fp.launches
+            if packed:
+                logits = pod.prefill_chunk_batch(jobs)
+            else:
+                logits = []
+                for state, start, end in jobs:
+                    pod.prefill_chunk(state, start, end)
+                    logits.append(pod.last_logits)
+            n_flash = fp.launches - before
+            for state, _, _ in jobs:
+                pod.finish_prefill(state)
+            runs.append(dict(starts=[s for _, s, _ in jobs], n_flash=n_flash,
+                             logits=torch.stack(logits).float(), events=event_rows(events)))
+            for state, _, _ in jobs:
+                pod.free(state)
+            del pod
+        tag = "int8" if int8 else "bf16"
+        a, b = runs
+        err = float((a["logits"] - b["logits"]).abs().max())
+        finite = bool(torch.isfinite(a["logits"]).all())
+        same_events = a["events"] == b["events"]
+        log(f"  {tag}: starts {a['starts']}; flash launches {a['n_flash']} packed vs "
+            f"{b['n_flash']} one by one; logits max_abs_diff={err:.4e} (tol "
+            f"{PACKED_LOGITS_TOL:g}), max |logit| {float(b['logits'].abs().max()):.4f}; "
+            f"event streams equal: {same_events} ({len(a['events'])} events)")
+        if not finite or err > PACKED_LOGITS_TOL or not same_events or a["n_flash"] != 16:
+            raise AssertionError(f"packed prefill ({tag}) disagrees with one-by-one prefill")
+        out[tag] = dict(max_abs_diff=err, events=len(a["events"]))
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_small_pod_vs_cpu() -> None:
@@ -406,74 +598,89 @@ def phase_small_pod_vs_cpu() -> None:
         head_dim=128, d_ff=512, dtype=torch.float32,
     )
     params_cpu = llama.init_params(cfg, torch.Generator().manual_seed(7), "cpu")
-    runs = {}
-    for device in ("cuda", "cpu"):
-        events = []
-        params = {k: (v.to(device) if torch.is_tensor(v) else
-                      {n: w.to(device) for n, w in v.items()})
-                  for k, v in params_cpu.items()}
-        pod = EnginePod(
-            EnginePodConfig(n_pages=8, page_size=PAGE, device_tier="gpu",
-                            max_pages_per_seq=8, model_config=cfg, device=device),
-            event_sink=events.append, params=params,
-        )
-        tokens_out, logits = [], []
-        for prompt in (list(range(40)), list(range(40)) + [5, 6, 7], list(range(100, 190))):
-            state, _ = pod.prefill(prompt)
-            logits.append(pod.last_logits.float().cpu())
-            tok = int(torch.argmax(pod.last_logits))
-            pod.decode_append(state, tok)
-            tokens_out.append([tok] + [pod.decode_step(state) for _ in range(12)])
-            pod.free(state)
-        stream = [
-            (type(e).__name__, list(e.block_hashes),
-             getattr(e, "parent_block_hash", None), list(getattr(e, "token_ids", [])), e.medium)
-            for batch in events for e in batch.events
-            if isinstance(e, (BlockStored, BlockRemoved))
-        ]
-        runs[device] = (tokens_out, logits, stream)
-    gpu, cpu = runs["cuda"], runs["cpu"]
-    err = max(float((a - b).abs().max()) for a, b in zip(gpu[1], cpu[1]))
-    log(f"  prefill logits max_abs_err={err:.3e} (tol 1e-3); tokens equal: "
-        f"{gpu[0] == cpu[0]}; event streams equal: {gpu[2] == cpu[2]} "
-        f"({len(gpu[2])} events, {sum(e[0] == 'BlockRemoved' for e in gpu[2])} removals)")
-    if err > 1e-3 or gpu[0] != cpu[0] or gpu[2] != cpu[2]:
-        raise AssertionError("small pod on the card disagrees with the CPU pod")
+    for int8 in (False, True):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            events = []
+            params = {k: (v.to(device) if torch.is_tensor(v) else
+                          {n: w.to(device) for n, w in v.items()})
+                      for k, v in params_cpu.items()}
+            pod = EnginePod(
+                EnginePodConfig(n_pages=8, page_size=PAGE, device_tier="gpu",
+                                max_pages_per_seq=8, model_config=cfg, device=device,
+                                use_quantized_kv=int8),
+                event_sink=events.append, params=params,
+            )
+            tokens_out, logits = [], []
+            for prompt in (list(range(40)), list(range(40)) + [5, 6, 7], list(range(100, 190))):
+                state, _ = pod.prefill(prompt)
+                logits.append(pod.last_logits.float().cpu())
+                tok = int(torch.argmax(pod.last_logits))
+                pod.decode_append(state, tok)
+                tokens_out.append([tok] + [pod.decode_step(state) for _ in range(12)])
+                pod.free(state)
+            runs[device] = (tokens_out, logits, event_rows(events))
+        gpu, cpu = runs["cuda"], runs["cpu"]
+        err = max(float((a - b).abs().max()) for a, b in zip(gpu[1], cpu[1]))
+        log(f"  {'int8' if int8 else 'f32'} pages: prefill logits max_abs_err={err:.3e} "
+            f"(tol 1e-3); tokens equal: {gpu[0] == cpu[0]}; event streams equal: "
+            f"{gpu[2] == cpu[2]} ({len(gpu[2])} events, "
+            f"{sum(e[0] == 'BlockRemoved' for e in gpu[2])} removals)")
+        if err > 1e-3 or gpu[0] != cpu[0] or gpu[2] != cpu[2]:
+            raise AssertionError("small pod on the card disagrees with the CPU pod")
 
 
-def phase_batched_decode(params, cfg, gen) -> dict:
-    log("== phase 6: batched decode, batch 8 x context 2048, kernel vs plain path")
-    batch, ctx = 8, 2048
-    pps = ctx // PAGE + 1
-    n_pages = batch * pps + 1
-    cache = llama.make_kv_pages(cfg, n_pages, PAGE, "cuda")
-    for pool in cache:
-        pool.normal_(0.0, 1.0, generator=gen)
-    tables = torch.randperm(n_pages, generator=gen, device="cuda")[: batch * pps]
-    tables = tables.reshape(batch, pps).to(torch.int32).contiguous()
-    lens = torch.full((batch,), ctx - 1, dtype=torch.int32, device="cuda")
-    tokens = torch.randint(0, cfg.vocab_size, (batch,), generator=gen, device="cuda",
-                           dtype=torch.int32)
+# -- phase 6: batched decode --------------------------------------------------------
+
+DECODE_BATCH, DECODE_CTX = 8, 2048
+
+
+def decode_setup(cfg, int8: bool, seed: int):
+    """A batch-8 decode state at 2,047 cached tokens per sequence, the same
+    for the same seed: (cache, tables, lens, tokens, trash_page). Tables
+    cover 16 positions more than the context; page `trash_page` is in none."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pps = DECODE_CTX // PAGE + 1
+    trash = DECODE_BATCH * pps
+    make = llama.make_kv_pages_quantized if int8 else llama.make_kv_pages
+    cache = make(cfg, trash + 1, PAGE, "cuda")
+    for i in range(cfg.n_layers):
+        for j in (0, 1):
+            rows = torch.randn(cache[0].shape[1:], generator=gen, device="cuda")
+            if int8:
+                values, scales = qkv.quantize_rows(rows)
+                cache[2 * j][i] = values
+                cache[2 * j + 1][i] = scales[..., None]
+            else:
+                cache[j][i] = rows.to(cache[j].dtype)
+    tables = torch.randperm(trash, generator=gen, device="cuda")
+    tables = tables.reshape(DECODE_BATCH, pps).to(torch.int32).contiguous()
+    lens = torch.full((DECODE_BATCH,), DECODE_CTX - 1, dtype=torch.int32, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (DECODE_BATCH,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    return cache, tables, lens, tokens, trash
+
+
+def batched_decode_check(params, cfg, params32, cfg32, int8: bool, pipelined: bool,
+                         seed: int = 5) -> dict:
+    """One batch-8 decode step through the kernel path against the plain path,
+    both against an f32 truth (the plain path with f32 weights on the same
+    pools, made before the bf16 steps write their new rows)."""
+    label = f"{'int8' if int8 else 'bf16'} pages, {'pipelined' if pipelined else 'tiled'}"
+    cache, tables, lens, tokens, _ = decode_setup(cfg, int8, seed)
     page_ids = torch.gather(tables, 1, (lens // PAGE).long()[:, None])[:, 0]
-    # Truth: the plain path with f32 weights and cache (made before the bf16
-    # steps write their new rows).
-    cfg32 = llama.LlamaConfig(**{**FLAGSHIP, "dtype": torch.float32})
-    params32 = {k: (v.float() if torch.is_tensor(v) else {n: w.float() for n, w in v.items()})
-                for k, v in params.items()}
-    cache32 = tuple(pool.float() for pool in cache)
-    _, truth = llama._decode_once(
-        cfg32, params32, cache32, tokens, tables, lens, page_ids, lens % PAGE,
-        attend=pa.paged_attention_reference,
-    )
-    del params32, cache32
-    _, logits = llama.decode_step_cache(cfg, params, cache, tokens, tables, lens)
-    _, plain = llama._decode_once(
-        cfg, params, cache, tokens, tables, lens, page_ids, lens % PAGE,
-        attend=pa.paged_attention_reference,
-    )
+    cache32 = tuple(p.float() if p.dtype == torch.bfloat16 else p.clone() for p in cache)
+    _, truth = llama._decode_once(cfg32, params32, cache32, tokens, tables, lens,
+                                  page_ids, lens % PAGE, plain=True)
+    del cache32
+    reset_launch_counts()
+    _, logits = llama.decode_step_cache(cfg, params, cache, tokens, tables, lens,
+                                        pipelined=pipelined)
     torch.cuda.synchronize()
-    if not torch.isfinite(logits).all() or logits.shape != (batch, cfg.vocab_size):
-        raise AssertionError("batched decode logits are not finite or misshapen")
+    launches = launch_counts()
+    _, plain = llama._decode_once(cfg, params, cache, tokens, tables, lens, page_ids,
+                                  lens % PAGE, plain=True)
+    torch.cuda.synchronize()
     err = float((logits.float() - plain.float()).abs().max())
     err_kernel = float((logits.float() - truth).abs().max())
     err_plain = float((plain.float() - truth).abs().max())
@@ -482,20 +689,70 @@ def phase_batched_decode(params, cfg, gen) -> dict:
     # truth; the kernel path may not stray further than twice the plain
     # path's own bf16 error (plus 1e-2 absolute).
     tol = 2 * err_plain + 1e-2
-    log(f"  logits: kernel vs plain max_abs_err={err:.4e}; vs f32 truth: kernel "
+    row = ("paged_decode_tiled" if not pipelined else "paged_decode") + ("_int8" if int8 else "")
+    ok = (bool(torch.isfinite(logits).all()) and logits.shape == (DECODE_BATCH, cfg.vocab_size)
+          and err_kernel <= tol and launches[row] == cfg.n_layers)
+    log(f"  {label}: kernel vs plain max_abs_err={err:.4e}; vs f32 truth: kernel "
         f"{err_kernel:.4e}, plain {err_plain:.4e} (tol {tol:.4e}); max |logit| "
-        f"{float(truth.abs().max()):.4f}; argmax agrees on {agree}/{batch}")
-    if err_kernel > tol:
-        raise AssertionError("batched decode kernel path strays from the f32 truth")
-    prof = profile_device_share(
-        "decode step, batch 8",
-        lambda: llama.decode_step_cache(cfg, params, cache, tokens, tables, lens),
-    )
-    step_ms = prof["wall_ms"]
-    log(f"  decode step (16 layers, batch 8): {step_ms:.3f} ms, "
-        f"{batch / step_ms * 1e3:.1f} tokens/s")
-    return dict(max_abs_err=err, err_kernel_vs_f32=err_kernel,
-                err_plain_vs_f32=err_plain, argmax_agree=agree, step_profile=prof)
+        f"{float(truth.abs().max()):.4f}; argmax agrees on {agree}/{DECODE_BATCH}; "
+        f"{row} launches {launches[row]} {'ok' if ok else 'FAIL'}")
+    return dict(ok=ok, row=row, launches=launches[row], max_abs_err=err,
+                err_kernel_vs_f32=err_kernel, err_plain_vs_f32=err_plain,
+                argmax_agree=agree, cache=cache, inputs=(tokens, tables, lens))
+
+
+def multi_step_check(params, cfg, int8: bool, n_steps: int = 8) -> bool:
+    """decode_multi_step_cache against n_steps single decode_step_cache calls
+    on a twin cache: the same greedy tokens."""
+    cache, tables, lens, tokens, trash = decode_setup(cfg, int8, seed=11)
+    _, multi = llama.decode_multi_step_cache(cfg, params, cache, tokens, tables, lens,
+                                             lens + n_steps, trash, n_steps)
+    del cache
+    twin, _, _, _, _ = decode_setup(cfg, int8, seed=11)
+    tok, pos, single = tokens, lens, []
+    for _ in range(n_steps):
+        _, logits = llama.decode_step_cache(cfg, params, twin, tok, tables, pos,
+                                            pipelined=True)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        single.append(tok)
+        pos = pos + 1
+    same = torch.equal(multi, torch.stack(single, dim=1))
+    log(f"  multi-step ({'int8' if int8 else 'bf16'} pages, {n_steps} steps, batch "
+        f"{DECODE_BATCH}): tokens equal to single steps: {same}")
+    return same
+
+
+def phase_batched_decode(params, cfg) -> dict:
+    log(f"== phase 6: batched decode, batch {DECODE_BATCH} x context {DECODE_CTX}, "
+        "kernel vs plain path, every page format and decode kernel")
+    cfg32 = llama.LlamaConfig(**{**FLAGSHIP, "dtype": torch.float32})
+    params32 = {k: (v.float() if torch.is_tensor(v) else {n: w.float() for n, w in v.items()})
+                for k, v in params.items()}
+    results, profiles = {}, {}
+    for int8 in (False, True):
+        for pipelined in (True, False):
+            r = batched_decode_check(params, cfg, params32, cfg32, int8, pipelined)
+            cache, (tokens, tables, lens) = r.pop("cache"), r.pop("inputs")
+            if not r["ok"]:
+                raise AssertionError(f"batched decode ({r['row']}) fails its bar")
+            results[r["row"]] = r
+            if pipelined:
+                profiles[r["row"]] = profile_device_share(
+                    f"decode step, batch {DECODE_BATCH}, {'int8' if int8 else 'bf16'} pages",
+                    lambda: llama.decode_step_cache(cfg, params, cache, tokens, tables, lens,
+                                                    pipelined=True),
+                )
+            del cache
+    del params32
+    torch.cuda.empty_cache()
+    for int8 in (False, True):
+        if not multi_step_check(params, cfg, int8):
+            raise AssertionError("multi-step decode tokens differ from single steps")
+    for row, prof in profiles.items():
+        ms = prof["wall_ms"]
+        log(f"  decode step ({row}, 16 layers, batch {DECODE_BATCH}): {ms:.3f} ms, "
+            f"{DECODE_BATCH / ms * 1e3:.1f} tokens/s")
+    return dict(checks=results, step_profiles=profiles)
 
 
 def main() -> int:
@@ -505,6 +762,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     log("== phase 1: device")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; device: "
@@ -523,12 +781,12 @@ def main() -> int:
         text = _build.build_log(name)
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
         spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", text))
-        log(f"  {name}: {len(regs)} instantiations, max {max(regs, default=0)} "
+        log(f"  {name}: {len(regs)} kernels, max {max(regs, default=0)} "
             f"registers/thread, {spills} bytes of spill stores in all")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = phase_kernel_checks(gen)
-    times = phase_times(gen)
+    times, times_batch1 = phase_times(gen)
 
     cfg = llama.LlamaConfig(**FLAGSHIP)
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
@@ -536,25 +794,31 @@ def main() -> int:
         params[k].numel() for k in ("embed", "final_norm", "out"))
     log(f"flagship params: {n_params / 1e9:.3f} B ({n_params * 2 / 1e9:.2f} GB bf16)")
     serving = phase_serving(params, cfg)
+    packed = phase_packed_prefill(params, cfg)
     phase_small_pod_vs_cpu()
-    batched = phase_batched_decode(params, cfg, gen)
+    batched = phase_batched_decode(params, cfg)
 
-    replaces = {
-        "paged_decode": "llm_d_kv_cache_manager_tpu/ops/paged_attention.py:157",
-        "flash_prefill": "llm_d_kv_cache_manager_tpu/ops/flash_prefill.py:47",
-    }
+    # Rows 1, 2 and 5 are counted on the serving path; rows 3 and 4 (the
+    # tiled decode entry) on phase 6's tiled decode steps.
+    launches = {name: serving["launches"][name] for name in
+                ("paged_decode", "paged_decode_int8", "flash_prefill")}
+    for row in ("paged_decode_tiled", "paged_decode_tiled_int8"):
+        launches[row] = batched["checks"][row]["launches"]
     kernels = [
         dict(
             name=name, route="cuda",
-            source=f"llm_d_kv_cache_manager_tpu_torch/csrc/{name}.cu",
-            replaces=replaces[name], launches=serving["launches"][name],
-            max_abs_err=errs[name], **times[name],
+            source=f"llm_d_kv_cache_manager_tpu_torch/csrc/{SOURCE[name]}.cu",
+            replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=errs[name],
+            **{k: times[name][k] for k in
+               ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         )
-        for name in _build.KERNELS
+        for name in KERNELS
     ]
     log(json.dumps({"kernels": kernels}))
-    log(json.dumps({"serving": serving, "batched_decode": batched,
-                    "build_s": build_s}))
+    log(json.dumps({"decode_batch1_ctx4096": times_batch1, "serving": serving,
+                    "packed_prefill": packed, "batched_decode": batched,
+                    "build_s": build_s, "run_s": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

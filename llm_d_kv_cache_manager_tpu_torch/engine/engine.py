@@ -6,7 +6,8 @@ together, publishing the same KVEvents a real engine would to an in-process
 event sink, so the control plane can index the pod's cache.
 
 The pod serves on `config.device` ("cuda" by default; construction raises
-when no GPU is present unless "cpu" is asked for). On CUDA every attention
+when no GPU is present unless "cpu" is asked for), with KV pages in the
+model dtype or, with `use_quantized_kv`, in int8. On CUDA every attention
 call runs a hand-written kernel.
 """
 
@@ -40,6 +41,9 @@ class EnginePodConfig:
     max_pages_per_seq: int = 32
     model_config: Optional[llama.LlamaConfig] = None
     device: str = "cuda"
+    # int8 KV pages: half the device memory per cached token, so twice the
+    # prefixes a pod keeps resident (ops/quantized_kv.py).
+    use_quantized_kv: bool = False
 
 
 class EnginePod:
@@ -67,9 +71,14 @@ class EnginePod:
             gen = torch.Generator(device=self.device).manual_seed(0)
             params = llama.init_params(mc, gen, self.device)
         self.params = params
-        self.kv_cache = llama.make_kv_pages(
-            mc, config.n_pages, config.page_size, self.device
-        )
+        # One sacrificial page beyond the block manager's pool: packed
+        # prefill and multi-step decode steer pad rows and over-budget rows
+        # there (llama.verify_step_cache, llama.decode_multi_step_cache), so
+        # a rectangular batch never corrupts a real page. No block table
+        # refers to it and the block manager never hands it out.
+        self.trash_page = config.n_pages
+        make = llama.make_kv_pages_quantized if config.use_quantized_kv else llama.make_kv_pages
+        self.kv_cache = make(mc, config.n_pages + 1, config.page_size, self.device)
         self.last_logits: Optional[torch.Tensor] = None
 
     # -- events --------------------------------------------------------------
@@ -136,6 +145,53 @@ class EnginePod:
             block_table, start, n_valid=length,
         )
 
+    def prefill_chunk_batch(self, jobs) -> List[torch.Tensor]:
+        """Compute several sequences' prefill chunks in one batched pass.
+
+        `jobs`: [(state, start, end)], each sequence's tokens[start:end)
+        computed while attending its own cached prefix. Returns one
+        last-position logits vector per job.
+
+        This is packed prefill: one weight stream for several prompts. The
+        op is `llama.verify_step_cache`, with per-sequence `max_lens`
+        steering the rectangular batch's pad rows into the trash page, so no
+        page is reserved beyond each sequence's real tokens. A single job
+        takes `prefill_chunk`."""
+        if len(jobs) == 1:
+            state, start, end = jobs[0]
+            self.prefill_chunk(state, start, end)
+            return [self.last_logits]
+        lengths = [end - start for _, start, end in jobs]
+        l_bucket = self.batch_bucket(max(lengths))
+        b_pad = self.batch_bucket(len(jobs))
+        # Skew guard: a rectangular batch pays bucket-width compute for every
+        # row. When padding more than doubles the real token count,
+        # per-sequence length-bucketed chunks are the cheaper shape.
+        if b_pad * l_bucket > 2 * sum(lengths):
+            out = []
+            for state, start, end in jobs:
+                self.prefill_chunk(state, start, end)
+                out.append(self.last_logits)
+            return out
+        t_bucket = self.table_bucket(max(len(state.block_table) for state, _, _ in jobs))
+        chunk = np.zeros((b_pad, l_bucket), dtype=np.int32)
+        tables = np.full((b_pad, t_bucket), self.trash_page, dtype=np.int32)
+        starts = np.zeros((b_pad,), dtype=np.int32)
+        max_lens = np.zeros((b_pad,), dtype=np.int32)  # pad rows: all trash
+        for i, (state, start, end) in enumerate(jobs):
+            chunk[i, : end - start] = state.tokens[start:end]
+            tables[i, : len(state.block_table)] = state.block_table
+            starts[i] = start
+            max_lens[i] = end  # real rows: positions start .. end-1
+        dev = self.device
+        self.kv_cache, logits = llama.verify_step_cache(
+            self._model_config, self.params, self.kv_cache,
+            torch.from_numpy(chunk).to(dev), torch.from_numpy(tables).to(dev),
+            torch.from_numpy(starts).to(dev), torch.from_numpy(max_lens).to(dev),
+            self.trash_page,
+        )
+        return [logits[i, lengths[i] - 1] for i in range(len(jobs))]
+
     def finish_prefill(self, state: SequenceState) -> None:
         """Commit full pages + emit BlockStored, now that every page's KV is
         computed."""
@@ -154,6 +210,7 @@ class EnginePod:
             self._model_config, self.params, self.kv_cache, last_token,
             self._padded_table(state)[None],
             torch.tensor([pos], dtype=torch.int32, device=self.device),
+            pipelined=True,
         )
         # The pending token's KV row is now resident: commit any page it
         # completed before appending the next (pending) token.

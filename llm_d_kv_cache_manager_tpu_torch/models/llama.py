@@ -6,9 +6,17 @@ cache (pools `[n_layers, n_kv, n_pages, page, hd]`, block tables on host):
 
 - `prefill_cache`: one sequence's new tokens, written into their pages and
   attending to the cached prefix through `ops.flash_prefill`,
-- `decode_step_cache`: a batched one-token step through `ops.paged_attention`.
+- `decode_step_cache`: a batched one-token step through `ops.paged_attention`
+  (`pipelined=True`, the default, or the split-KV tiled kernel),
+- `decode_multi_step_cache`: N greedy decode steps with the argmax kept on
+  the device and over-budget rows steered to a trash page,
+- `verify_step_cache`: several positions of every sequence in one batched
+  pass (packed prefill), through `ops.flash_prefill` with per-batch offsets.
 
-Both update the page pools IN PLACE (the reference returns new arrays).
+The cache is either a (k, v) pair of pools in the model dtype or an int8
+(k_q, k_scale, v_q, v_scale) quadruple (`ops/quantized_kv.py`); the helpers
+dispatch on the tuple's length. Every path updates the pools IN PLACE (the
+reference returns new arrays).
 Weights keep the reference's `[in, out]` layout (`x @ W`), stacked on a
 leading layer axis, so `params_from_jax` carries a JAX parameter tree across
 without transposes. On CUDA tensors every attention call runs a
@@ -18,7 +26,7 @@ hand-written kernel; on CPU tensors, its plain torch version.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,7 +35,15 @@ import torch.nn.functional as F
 from llm_d_kv_cache_manager_tpu_torch.ops.flash_prefill import flash_prefill
 from llm_d_kv_cache_manager_tpu_torch.ops.paged_attention import (
     paged_attention,
+    paged_attention_reference,
     write_kv_pages,
+)
+from llm_d_kv_cache_manager_tpu_torch.ops.quantized_kv import (
+    dequantize_gathered,
+    paged_attention_quantized,
+    paged_attention_quantized_reference,
+    quantize_rows,
+    write_kv_pages_quantized,
 )
 from llm_d_kv_cache_manager_tpu_torch.utils.device import resolve_device
 
@@ -182,28 +198,88 @@ def make_kv_pages(
     )
 
 
+def make_kv_pages_quantized(
+    config: LlamaConfig, n_pages: int, page_size: int, device="cuda"
+) -> Tuple[torch.Tensor, ...]:
+    """Per-layer int8 pools, layer-stacked: (k_q, k_scale, v_q, v_scale),
+    values [n_layers, n_kv, n_pages, page, hd] int8, scales [..., 1] f32."""
+    c = config
+    dev = resolve_device(device)
+    q_shape = (c.n_layers, c.n_kv_heads, n_pages, page_size, c.head_dim)
+    s_shape = q_shape[:-1] + (1,)
+    return (
+        torch.zeros(q_shape, dtype=torch.int8, device=dev),
+        torch.zeros(s_shape, dtype=torch.float32, device=dev),
+        torch.zeros(q_shape, dtype=torch.int8, device=dev),
+        torch.zeros(s_shape, dtype=torch.float32, device=dev),
+    )
+
+
+def _layer(cache: tuple, i: int) -> tuple:
+    """Layer i's slice of every pool of a layer-stacked cache."""
+    return tuple(pool[i] for pool in cache)
+
+
 def _cache_write(cache: tuple, block_table, k_new, v_new, start_pos) -> tuple:
-    """Write one layer's new K/V rows into its page slice (in place)."""
-    return write_kv_pages(cache[0], cache[1], block_table, k_new, v_new, start_pos)
+    """Write one layer's new K/V rows into its (model-dtype or int8) page
+    slice, in place."""
+    if len(cache) == 2:
+        return write_kv_pages(cache[0], cache[1], block_table, k_new, v_new, start_pos)
+    return write_kv_pages_quantized(*cache, block_table, k_new, v_new, start_pos)
 
 
-def _cache_gather_dense(cache: tuple, block_table: torch.Tensor):
-    """Materialize one layer's cached K/V for a block table (prefill path):
-    (k_all, v_all), each [1, max_ctx, n_kv, hd], contiguous."""
-    ids = block_table.long()
+def _scatter_rows(cache: tuple, page_ids, slots, k_rows, v_rows) -> None:
+    """Store K/V rows [n_kv, N, hd] at (page_ids, slots) [N] of one layer's
+    pools, quantizing them first for an int8 cache (in place)."""
+    if len(cache) == 2:
+        cache[0][:, page_ids, slots] = k_rows
+        cache[1][:, page_ids, slots] = v_rows
+        return
+    kq, ks, vq, vs = cache
+    k_q, k_s = quantize_rows(k_rows)
+    v_q, v_s = quantize_rows(v_rows)
+    kq[:, page_ids, slots] = k_q
+    ks[:, page_ids, slots, 0] = k_s
+    vq[:, page_ids, slots] = v_q
+    vs[:, page_ids, slots, 0] = v_s
 
-    def gather(pages):
-        g = pages[:, ids]  # [n_kv, pages, page, hd]
-        n_kv, n_seq_pages, page_size, head_dim = g.shape
-        return g.reshape(n_kv, n_seq_pages * page_size, head_dim).transpose(0, 1)[None].contiguous()
 
-    return gather(cache[0]), gather(cache[1])
+def _cache_gather_dense(cache: tuple, block_tables: torch.Tensor, dtype):
+    """Materialize one layer's cached K/V for each row of a block table
+    [B, P]: (k_all, v_all), each [B, P * page, n_kv, hd], contiguous. An int8
+    cache gathers the referenced pages first and dequantizes only those,
+    never the whole pool."""
+    ids = block_tables.long()
+    if len(cache) == 2:
+        k, v = cache[0][:, ids], cache[1][:, ids]
+    else:
+        k = dequantize_gathered(cache[0], cache[1], ids, dtype)
+        v = dequantize_gathered(cache[2], cache[3], ids, dtype)
+
+    def dense(g):  # [n_kv, B, P, page, hd] -> [B, P * page, n_kv, hd]
+        n_kv, b, n_seq_pages, page_size, head_dim = g.shape
+        return g.permute(1, 2, 3, 0, 4).reshape(b, n_seq_pages * page_size, n_kv, head_dim).contiguous()
+
+    return dense(k), dense(v)
 
 
-def _cache_attend(cache: tuple, q, block_tables, seq_lens, window=None,
-                  attend: Callable = paged_attention):
-    """Batched decode attention over one layer's cache slice."""
-    return attend(q, cache[0], cache[1], block_tables, seq_lens, window=window)
+def _cache_attend(cache: tuple, q, block_tables, seq_lens, *, pipelined: bool,
+                  window=None, plain: bool = False):
+    """Batched decode attention over one layer's cache slice: the decode
+    kernel of the cache's format and the chosen variant (its plain version
+    on CPU tensors), or with `plain=True` the plain version on any device
+    (the checks' comparison path)."""
+    if len(cache) == 2:
+        if plain:
+            return paged_attention_reference(q, *cache, block_tables, seq_lens, window=window)
+        return paged_attention(q, *cache, block_tables, seq_lens,
+                               pipelined=pipelined, window=window)
+    if plain:
+        return paged_attention_quantized_reference(
+            q, *cache, block_tables, seq_lens, window=window
+        )
+    return paged_attention_quantized(q, *cache, block_tables, seq_lens,
+                                     pipelined=pipelined, window=window)
 
 
 def _serving_attention(q, k, v, causal_offset, window=None):
@@ -216,7 +292,8 @@ def _serving_attention(q, k, v, causal_offset, window=None):
 def prefill_cache(
     config: LlamaConfig,
     params: Params,
-    kv_cache: tuple,  # (k_pages, v_pages), layer-stacked; updated in place
+    kv_cache: tuple,  # (k, v) or int8 (k_q, k_s, v_q, v_s), layer-stacked;
+    # updated in place
     tokens: torch.Tensor,  # [L] one sequence's NEW (non-cached) tokens
     block_table: torch.Tensor,  # [pages_per_seq] int32
     start_pos: int,  # number of already-cached tokens (prefix-cache hit)
@@ -229,7 +306,6 @@ def prefill_cache(
     (kv_cache, logits of token n_valid-1 (or L-1 unpadded))."""
     c = config
     l = tokens.shape[0]
-    k_pages, v_pages = kv_cache
     x = params["embed"][tokens.long()][None]  # [1, L, d]
     positions = (start_pos + torch.arange(l, device=x.device))[None]  # [1, L]
 
@@ -243,11 +319,11 @@ def prefill_cache(
         q = _rope(q, positions, c.rope_theta)
         k = _rope(k, positions, c.rope_theta)
 
-        cache = (k_pages[i], v_pages[i])
+        cache = _layer(kv_cache, i)
         _cache_write(cache, block_table, k[0], v[0], start_pos)
 
         # Attend to everything cached so far (prefix + new), causally.
-        k_all, v_all = _cache_gather_dense(cache, block_table)
+        k_all, v_all = _cache_gather_dense(cache, block_table[None], c.dtype)
         attn = _serving_attention(q, k_all, v_all, start_pos, window=c.sliding_window)
         x = x + attn.reshape(1, l, c.q_dim) @ layer["wo"]
         h = rms_norm(x, layer["mlp_norm"], c.rms_eps)
@@ -268,15 +344,13 @@ def _decode_once(
     seq_lens: torch.Tensor,  # [B] int32
     write_page_ids: torch.Tensor,  # [B] page each new KV row lands in
     write_slots: torch.Tensor,  # [B]
-    attend: Callable = paged_attention,
+    pipelined: bool = True,  # decode kernel variant; see _cache_attend
+    plain: bool = False,  # the plain attention path (checks compare with it)
 ) -> Tuple[tuple, torch.Tensor]:
     """Single batched decode step: writes each sequence's new K/V row at
-    (write_page_ids, write_slots) and attends over seq_lens+1 positions.
-    `attend` is the paged-attention op (the kernel wrapper; checks pass the
-    plain version to compare against)."""
+    (write_page_ids, write_slots) and attends over seq_lens+1 positions."""
     c = config
     b = tokens.shape[0]
-    k_pages, v_pages = kv_cache
     x = params["embed"][tokens.long()][:, None]  # [B, 1, d]
     positions = seq_lens.long()[:, None]  # [B, 1]
     page_ids = write_page_ids.long()
@@ -293,14 +367,14 @@ def _decode_once(
         q = _rope(q, positions, c.rope_theta)
         k = _rope(k, positions, c.rope_theta)
 
-        # Scatter each sequence's new row straight into the layer's pool
-        # slice: [n_kv, n_pages, page, hd][:, page_ids, slots] is [n_kv, B, hd].
-        k_pages[i][:, page_ids, slots] = k[:, 0].transpose(0, 1)
-        v_pages[i][:, page_ids, slots] = v[:, 0].transpose(0, 1)
-
+        # Scatter each sequence's new row straight into the layer's pools:
+        # [n_kv, n_pages, page, hd][:, page_ids, slots] is [n_kv, B, hd].
+        cache = _layer(kv_cache, i)
+        _scatter_rows(cache, page_ids, slots, k[:, 0].transpose(0, 1),
+                      v[:, 0].transpose(0, 1))
         attn = _cache_attend(
-            (k_pages[i], v_pages[i]), q[:, 0].contiguous(), block_tables, lens,
-            window=c.sliding_window, attend=attend,
+            cache, q[:, 0].contiguous(), block_tables, lens,
+            pipelined=pipelined, window=c.sliding_window, plain=plain,
         )
         x = x + attn.reshape(b, 1, c.q_dim) @ layer["wo"]
         h = rms_norm(x, layer["mlp_norm"], c.rms_eps)
@@ -317,6 +391,7 @@ def decode_step_cache(
     tokens: torch.Tensor,  # [B] current token per sequence
     block_tables: torch.Tensor,  # [B, pages_per_seq] int32
     seq_lens: torch.Tensor,  # [B] int32 tokens already cached (new token's position)
+    pipelined: bool = True,  # False: the split-KV tiled decode kernel
 ) -> Tuple[tuple, torch.Tensor]:
     """One batched decode step; returns (kv_cache, logits [B, vocab]) with
     the pools updated in place."""
@@ -326,5 +401,112 @@ def decode_step_cache(
     )[:, 0]
     slots = seq_lens % page_size
     return _decode_once(
-        config, params, kv_cache, tokens, block_tables, seq_lens, page_ids, slots
+        config, params, kv_cache, tokens, block_tables, seq_lens, page_ids, slots,
+        pipelined=pipelined,
     )
+
+
+def decode_multi_step_cache(
+    config: LlamaConfig,
+    params: Params,
+    kv_cache: tuple,
+    tokens: torch.Tensor,  # [B] current (pending) token per sequence
+    block_tables: torch.Tensor,  # [B, pages_per_seq] covering seq_lens+n_steps
+    seq_lens: torch.Tensor,  # [B] int32 tokens already cached
+    max_lens: torch.Tensor,  # [B] per-sequence write capacity: positions <
+    # max_lens land in real pages, later ones in the trash page
+    trash_page: int,  # sacrificial page id for capacity-masked writes
+    n_steps: int,
+) -> Tuple[tuple, torch.Tensor]:
+    """N greedy decode steps; returns (kv_cache, tokens_out [B, N]), where
+    tokens_out[:, j] is the token chosen at step j. Each step's argmax stays
+    on the device and feeds the next step, and the page-table walk advances
+    with it, so the host reads the tokens once at the end.
+
+    The batch is rectangular: a sequence whose budget ends mid-window keeps
+    stepping, but its out-of-budget KV rows go to `trash_page` (a page the
+    engine allocates beyond the block manager's pool), so it never corrupts
+    a real page; the host discards its out-of-budget tokens."""
+    page_size = kv_cache[0].shape[3]
+    last_index = block_tables.shape[1] - 1
+    tok, lens = tokens, seq_lens
+    out = []
+    for _ in range(n_steps):
+        # The table index is clamped for overrun rows; their page id is
+        # replaced by the trash page anyway.
+        idx = torch.clamp(lens // page_size, max=last_index).long()
+        pages = torch.gather(block_tables, 1, idx[:, None])[:, 0]
+        pages = torch.where(lens < max_lens, pages, torch.full_like(pages, trash_page))
+        kv_cache, logits = _decode_once(
+            config, params, kv_cache, tok, block_tables, lens, pages, lens % page_size,
+            pipelined=True,
+        )
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(tok)
+        lens = lens + 1
+    return kv_cache, torch.stack(out, dim=1)
+
+
+@torch.no_grad()
+def verify_step_cache(
+    config: LlamaConfig,
+    params: Params,
+    kv_cache: tuple,
+    tokens: torch.Tensor,  # [B, S] S new tokens per sequence
+    block_tables: torch.Tensor,  # [B, pages_per_seq] int32
+    start_positions: torch.Tensor,  # [B] int32 cached tokens per sequence
+    max_lens: Optional[torch.Tensor] = None,  # [B] per-sequence row-write
+    # capacity: rows at positions >= max_lens[b] go to trash_page, so a
+    # rectangular batch can exceed a short sequence's budget without
+    # corrupting real pages. None: every row lands in a real page.
+    trash_page: int = 0,
+) -> Tuple[tuple, torch.Tensor]:
+    """Batched multi-position pass: K/V and logits for S new tokens of every
+    sequence at once (packed prefill), each attending its own cached prefix
+    through the flash-prefill kernel with per-batch causal offsets. Returns
+    (kv_cache, logits [B, S, vocab]); logits[b, i] is the next-token opinion
+    after tokens[b, i]. Both cache layouts; pools updated in place."""
+    c = config
+    b, s = tokens.shape
+    page_size = kv_cache[0].shape[3]
+    starts = start_positions.to(torch.int32)
+    x = params["embed"][tokens.long()]  # [B, S, d]
+    positions = starts.long()[:, None] + torch.arange(s, device=x.device)[None]  # [B, S]
+
+    # Scatter targets of the new rows, (b, s) flattened. The table index is
+    # clamped (an over-capacity row's own index would read past the table);
+    # its page id is replaced by the trash page where the row exceeds the
+    # sequence's allowance.
+    page_idx = torch.clamp(positions // page_size, max=block_tables.shape[1] - 1)
+    page_ids = torch.gather(block_tables.long(), 1, page_idx)
+    if max_lens is not None:
+        over = positions >= max_lens.long()[:, None]
+        page_ids = torch.where(over, torch.full_like(page_ids, trash_page), page_ids)
+    page_ids = page_ids.reshape(-1)  # [B*S]
+    slots = (positions % page_size).reshape(-1)
+
+    for i in range(c.n_layers):
+        layer = layer_params(params, i)
+        h = rms_norm(x, layer["attn_norm"], c.rms_eps)
+        q_flat, v_flat = _qv_proj(h, layer)
+        q = q_flat.reshape(b, s, c.n_q_heads, c.head_dim)
+        k = _k_proj(layer, h).reshape(b, s, c.n_kv_heads, c.head_dim)
+        v = v_flat.reshape(b, s, c.n_kv_heads, c.head_dim)
+        q = _rope(q, positions, c.rope_theta)
+        k = _rope(k, positions, c.rope_theta)
+
+        cache = _layer(kv_cache, i)
+        _scatter_rows(
+            cache, page_ids, slots,
+            k.reshape(b * s, c.n_kv_heads, c.head_dim).transpose(0, 1),
+            v.reshape(b * s, c.n_kv_heads, c.head_dim).transpose(0, 1),
+        )
+        # Each sequence attends its own pages from its own causal offset.
+        k_all, v_all = _cache_gather_dense(cache, block_tables, c.dtype)
+        attn = _serving_attention(q, k_all, v_all, starts, window=c.sliding_window)
+        x = x + attn.reshape(b, s, c.q_dim) @ layer["wo"]
+        h = rms_norm(x, layer["mlp_norm"], c.rms_eps)
+        x = x + _mlp(layer, h)
+
+    x = rms_norm(x, params["final_norm"], c.rms_eps)
+    return kv_cache, x @ params["out"]  # [B, S, vocab]

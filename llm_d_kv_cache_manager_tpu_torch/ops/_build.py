@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` compiles on its own into
 `build/lib<name>_<hash>.so`, a shared library with a plain C interface (no
-PyTorch headers, so a build takes seconds). The hash covers the source and
-the flags, so an edited source rebuilds and an unchanged one is reused. All
+PyTorch headers, so a build takes seconds). The hash covers the source, the
+headers of `csrc/` and the flags, so an edited source or header rebuilds and
+an unchanged one is reused. All
 missing libraries build in parallel, one nvcc process per source.
 
 There is no fallback: a missing nvcc or a failed build raises.
@@ -24,7 +25,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-KERNELS = ("paged_decode", "flash_prefill")
+KERNELS = ("paged_decode", "paged_decode_tiled", "flash_prefill")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,8 +46,10 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # sources include these
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 

@@ -8,9 +8,12 @@ events the control plane ingests.
 
 - `paged_attention_reference`: the plain torch version (gather, masked
   softmax in f32). A `seq_len == 0` slot yields zeros, as the kernel does.
-- `paged_attention`: the wrapper. On CUDA tensors it launches the
-  hand-written kernel `csrc/paged_decode.cu`; on CPU tensors it runs the
-  plain version. It never falls back from CUDA to the plain version.
+- `paged_attention`: the wrapper, with the reference's `pipelined` switch
+  (default False). On CUDA tensors it launches a hand-written kernel,
+  `csrc/paged_decode.cu` (pipelined) or the split-KV
+  `csrc/paged_decode_tiled.cu` (tiled); on CPU tensors it runs the plain
+  version. It never falls back from CUDA to the plain version.
+  `ops/quantized_kv.py` launches the same two kernels on int8 pages.
 - `write_kv_pages`: scatter of new K/V rows into their pages.
 """
 
@@ -21,11 +24,12 @@ from typing import Optional
 
 import torch
 
-launches = 0  # paged_decode kernel launches (CUDA path only)
+# Kernel launches, counted by the wrappers (CUDA path only).
+launches = 0  # csrc/paged_decode.cu, bf16/f32 pages
+tiled_launches = 0  # csrc/paged_decode_tiled.cu, bf16/f32 pages
 
 _KERNEL_HEAD_DIMS = (128,)
 _KERNEL_GROUPS = (1, 2, 4, 8)
-_KERNEL_CHUNK = 64  # tokens staged per pipeline step; page_size must divide it
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -74,31 +78,47 @@ def paged_attention_reference(
     return out.reshape(batch, n_q_heads, head_dim).to(q.dtype)
 
 
-def _kernel() -> ctypes.CDLL:
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures: pointers, then int shape arguments, then scale, dtype,
+# kv_int8 and the stream (csrc/paged_decode.cu, csrc/paged_decode_tiled.cu).
+_ARGTYPES = {
+    "kvt_paged_decode": [_P] * 8 + [_I] * 8 + [_F, _I, _I, _P],
+    "kvt_paged_decode_tiled": [_P] * 11 + [_I] * 9 + [_F, _I, _I, _P],
+}
+
+
+def _kernel_fn(source: str, fn_name: str):
     from llm_d_kv_cache_manager_tpu_torch.ops import _build
 
-    lib = _build.library("paged_decode")
-    fn = lib.kvt_paged_decode
+    fn = getattr(_build.library(source), fn_name)
     if fn.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 6 + [i32] * 8 + [ctypes.c_float, i32, ptr]
-        fn.restype = i32
-    return lib
+        fn.argtypes = _ARGTYPES[fn_name]
+        fn.restype = _I
+    return fn
 
 
-def _launch(q, k_pages, v_pages, block_tables, seq_lens, window) -> torch.Tensor:
-    global launches
+def _check_kernel_args(q, k_pages, v_pages, block_tables, seq_lens, scales):
+    """Raise on what the decode kernels do not take. `scales` is None for
+    pages in q's dtype, or (k_scale, v_scale) for int8 pages."""
     n_kv, n_pages, page_size, head_dim = k_pages.shape
     batch, n_q, hd_q = q.shape
-    group = n_q // n_kv
-    tensors = (q, k_pages, v_pages, block_tables, seq_lens)
+    group = _check_grouping(n_q, n_kv)
+    tensors = (q, k_pages, v_pages, block_tables, seq_lens) + tuple(scales or ())
     if any(t.device != q.device for t in tensors):
-        raise ValueError("paged_attention: all tensors must be on one CUDA device")
-    if q.dtype not in _DTYPE_CODE or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise ValueError("paged decode: all tensors must be on one CUDA device")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"paged decode kernels take bf16 or f32 q, got {q.dtype}")
+    page_dtype = q.dtype if scales is None else torch.int8
+    if k_pages.dtype != page_dtype or v_pages.dtype != page_dtype:
         raise TypeError(
-            f"paged_attention kernel takes bf16 or f32 q/k/v of one dtype, got "
-            f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}"
+            f"paged decode kernel takes {page_dtype} pages with q {q.dtype}, got "
+            f"{k_pages.dtype}/{v_pages.dtype}"
         )
+    if scales is not None and any(
+        s.dtype != torch.float32 or s.shape != (n_kv, n_pages, page_size, 1)
+        for s in scales
+    ):
+        raise ValueError("int8 page scales must be f32 [n_kv, n_pages, page, 1]")
     if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
         raise TypeError("block_tables and seq_lens must be int32")
     if v_pages.shape != k_pages.shape or hd_q != head_dim:
@@ -110,29 +130,64 @@ def _launch(q, k_pages, v_pages, block_tables, seq_lens, window) -> torch.Tensor
         raise ValueError("block_tables must be [batch, pages] and seq_lens [batch]")
     if head_dim not in _KERNEL_HEAD_DIMS or group not in _KERNEL_GROUPS:
         raise ValueError(
-            f"paged_decode kernel takes head_dim in {_KERNEL_HEAD_DIMS} and "
+            f"paged decode kernels take head_dim in {_KERNEL_HEAD_DIMS} and "
             f"GQA group in {_KERNEL_GROUPS}, got {head_dim} and {group}"
         )
-    if _KERNEL_CHUNK % page_size:
-        raise ValueError(f"page_size {page_size} must divide {_KERNEL_CHUNK}")
     if not all(t.is_contiguous() for t in tensors) or any(
         t.data_ptr() % 16 for t in (k_pages, v_pages)
     ):
         raise ValueError(
-            "paged_attention kernel needs contiguous tensors and 16-byte aligned pages"
+            "paged decode kernels need contiguous tensors and 16-byte aligned pages"
         )
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def launch_decode(q, k_pages, v_pages, block_tables, seq_lens, window, *,
+                  pipelined: bool, scales=None) -> torch.Tensor:
+    """Launch `csrc/paged_decode.cu` (pipelined) or
+    `csrc/paged_decode_tiled.cu` on CUDA tensors; `scales` = (k_scale,
+    v_scale) for int8 pages. Counting the launch is the caller's."""
+    _check_kernel_args(q, k_pages, v_pages, block_tables, seq_lens, scales)
+    n_kv, n_pages, page_size, head_dim = k_pages.shape
+    batch, n_q, _ = q.shape
+    table_width = block_tables.shape[1]
+    k_scale, v_scale = scales if scales is not None else (None, None)
     out = torch.empty_like(q)
-    err = _kernel().kvt_paged_decode(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        batch, n_q, n_kv, n_pages, page_size, head_dim, block_tables.shape[1],
-        -1 if window is None else int(window),
-        1.0 / (head_dim**0.5), _DTYPE_CODE[q.dtype],
+    common = (
+        _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale), _ptr(v_scale),
+        _ptr(block_tables), _ptr(seq_lens),
+    )
+    window_arg = -1 if window is None else int(window)
+    tail = (
+        1.0 / (head_dim**0.5), _DTYPE_CODE[q.dtype], int(scales is not None),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
+    if pipelined:
+        name = "paged_decode"
+        err = _kernel_fn(name, "kvt_paged_decode")(
+            *common, _ptr(out), batch, n_q, n_kv, n_pages, page_size, head_dim,
+            table_width, window_arg, *tail,
+        )
+    else:
+        name = "paged_decode_tiled"
+        # About two CTAs per SM, never more splits than the table has pages;
+        # from the shapes alone (no read of seq_lens).
+        n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        n_splits = max(1, min(-(-2 * n_sms // (batch * n_kv)), table_width))
+        part = (batch, n_kv, n_splits, n_q // n_kv)
+        m_ws = torch.empty(part, dtype=torch.float32, device=q.device)
+        l_ws = torch.empty_like(m_ws)
+        acc_ws = torch.empty(part + (head_dim,), dtype=torch.float32, device=q.device)
+        err = _kernel_fn(name, "kvt_paged_decode_tiled")(
+            *common, _ptr(m_ws), _ptr(l_ws), _ptr(acc_ws), _ptr(out), batch, n_q,
+            n_kv, n_pages, page_size, head_dim, table_width, window_arg,
+            n_splits, *tail,
+        )
     if err:
-        raise RuntimeError(f"paged_decode kernel launch failed: CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return out
 
 
@@ -142,14 +197,25 @@ def paged_attention(
     v_pages: torch.Tensor,
     block_tables: torch.Tensor,  # [batch, pages_per_seq] int32
     seq_lens: torch.Tensor,  # [batch] int32
+    *,
+    pipelined: bool = False,
     window: Optional[int] = None,
 ) -> torch.Tensor:
-    """Flash-decoding paged attention: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors. Entries of a block table past
+    """Flash-decoding paged attention: on CUDA tensors the kernel of the
+    chosen variant (`pipelined=True`: `csrc/paged_decode.cu`, one CTA per
+    sequence and kv head; False: the split-KV `csrc/paged_decode_tiled.cu`),
+    on CPU tensors the plain version. Entries of a block table past
     ceil(seq_len / page_size) are never read."""
+    global launches, tiled_launches
     _check_grouping(q.shape[1], k_pages.shape[0])
     if q.is_cuda:
-        return _launch(q, k_pages, v_pages, block_tables, seq_lens, window)
+        out = launch_decode(q, k_pages, v_pages, block_tables, seq_lens, window,
+                            pipelined=pipelined)
+        if pipelined:
+            launches += 1
+        else:
+            tiled_launches += 1
+        return out
     return paged_attention_reference(
         q, k_pages, v_pages, block_tables, seq_lens, window=window
     )

@@ -63,7 +63,7 @@ def _event_rows(batches):
 class _PodPair:
     """The same pod on both packages, sharing one f32 parameter tree."""
 
-    def __init__(self, n_pages, max_pages_per_seq=16):
+    def __init__(self, n_pages, max_pages_per_seq=16, int8=False):
         jcfg = jax_llama.LlamaConfig(**CFG, dtype=jnp.float32)
         jparams = jax_llama.init_params(jcfg, jax.random.PRNGKey(0))
         np_params = jax.tree_util.tree_map(np.asarray, jparams)
@@ -72,13 +72,14 @@ class _PodPair:
             JaxEnginePodConfig(
                 n_pages=n_pages, page_size=PAGE, with_model=True, model_config=jcfg,
                 max_pages_per_seq=max_pages_per_seq, device_tier="gpu",
+                use_quantized_kv=int8,
             ),
             event_sink=self.jax_events.append, params=jparams,
         )
         self.port = EnginePod(
             EnginePodConfig(
                 n_pages=n_pages, page_size=PAGE, max_pages_per_seq=max_pages_per_seq,
-                device_tier="gpu", device="cpu",
+                device_tier="gpu", device="cpu", use_quantized_kv=int8,
                 model_config=llama.LlamaConfig(**CFG, dtype=torch.float32),
             ),
             event_sink=self.port_events.append,
@@ -108,11 +109,15 @@ REQUESTS = [
 ]
 
 
-@pytest.fixture(scope="module", params=[32, 8], ids=["roomy_pool", "tight_pool"])
+@pytest.fixture(
+    scope="module", params=[(32, False), (8, False), (32, True), (8, True)],
+    ids=["roomy_pool", "tight_pool", "roomy_pool_int8", "tight_pool_int8"],
+)
 def served(request):
-    pair = _PodPair(n_pages=request.param, max_pages_per_seq=8)
+    n_pages, int8 = request.param
+    pair = _PodPair(n_pages=n_pages, max_pages_per_seq=8, int8=int8)
     results = [pair.serve(prompt) for prompt in REQUESTS]
-    return request.param, pair, results
+    return n_pages, pair, results
 
 
 def test_generation_with_prefix_reuse_matches_jax(served):
@@ -133,6 +138,60 @@ def test_event_stream_matches_jax(served):
         assert removed  # page pressure reclaimed cached pages
     else:
         assert not removed
+
+
+def test_pods_allocate_a_trash_page(served):
+    _, pair, _ = served
+    n_pages = pair.port.config.n_pages
+    assert pair.port.trash_page == pair.jax.trash_page == n_pages
+    assert all(pool.shape[2] == n_pages + 1 for pool in pair.port.kv_cache)
+    assert len(pair.port.kv_cache) == len(pair.jax.kv_cache)  # 2 or 4 pools
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["model_dtype", "int8"])
+def test_prefill_chunk_batch_matches_jax(int8):
+    """Packed prefill of 3 jobs (two after a cached prefix, one fresh) on
+    both packages: the same logits, greedy continuations, event stream and
+    pod scores."""
+    pair = _PodPair(n_pages=32, int8=int8)
+    # Chunks of 13, 10 and 16 tokens: a 4 x 16 batch, within the skew guard
+    # (at most twice the real tokens), so both pods take one packed pass.
+    shared = list(range(1, 9))  # two pages, cached by a first request
+    prompts = [shared + list(range(20, 33)), list(range(40, 50)),
+               shared + list(range(60, 76))]
+    out = []
+    for pod, argmax in ((pair.jax, jnp.argmax), (pair.port, torch.argmax)):
+        state, _ = pod.prefill(shared)
+        pod.free(state)
+        jobs = []
+        for prompt in prompts:
+            state, start = pod.begin_prefill(prompt)
+            jobs.append((state, start, len(prompt)))
+        logits = pod.prefill_chunk_batch(jobs)
+        tokens = []
+        for (state, _, _), row in zip(jobs, logits):
+            pod.finish_prefill(state)
+            first = int(argmax(row))
+            pod.decode_append(state, first)
+            tokens.append([first] + [pod.decode_step(state) for _ in range(3)])
+        for state, _, _ in jobs:
+            pod.free(state)
+        out.append(([start for _, start, _ in jobs], logits, tokens))
+    (jstarts, jlogits, jtokens), (starts, logits, tokens) = out
+    assert starts == jstarts == [8, 0, 8]
+    for got, want in zip(logits, jlogits):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
+    assert tokens == jtokens
+    assert _event_rows(pair.port_events) == _event_rows(pair.jax_events)
+    by_pod = {"pod-e": pair.port_events}
+    jax_index, jax_tp = _jax_index_from_msgpack(by_pod)
+    indexer = _port_index(by_pod)
+    scorer = new_kv_block_scorer()
+    for probe in prompts + [shared + [7, 7, 7, 7]]:
+        jkeys = jax_tp.tokens_to_kv_block_keys(None, probe, MODEL)
+        want = scorer.score(jkeys, jax_index.lookup(jkeys, set())) if jkeys else {}
+        assert indexer.get_pod_scores(probe, MODEL, []) == want
+    assert indexer.get_pod_scores(prompts[2], MODEL, [])["pod-e"] == 6.0
 
 
 def _jax_index_from_msgpack(batches_by_pod):

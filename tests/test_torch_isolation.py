@@ -95,9 +95,13 @@ def test_default_device_pod_raises_without_gpu():
         EnginePod(EnginePodConfig(model_config=cfg))
 
 
-@pytest.mark.parametrize("entry", ["init_params", "make_kv_pages", "params_from_jax"])
+@pytest.mark.parametrize(
+    "entry", ["init_params", "make_kv_pages", "params_from_jax", "make_kv_pages_quantized",
+              "make_quantized_kv_pages"]
+)
 def test_default_device_model_entry_points_raise_without_gpu(entry):
     from llm_d_kv_cache_manager_tpu_torch.models import llama
+    from llm_d_kv_cache_manager_tpu_torch.ops.quantized_kv import make_quantized_kv_pages
 
     cfg = llama.LlamaConfig(vocab_size=64, d_model=32, n_layers=1, n_q_heads=2,
                             n_kv_heads=1, head_dim=16, d_ff=64, dtype=torch.float32)
@@ -105,6 +109,8 @@ def test_default_device_model_entry_points_raise_without_gpu(entry):
         "init_params": lambda: llama.init_params(cfg, torch.Generator()),
         "make_kv_pages": lambda: llama.make_kv_pages(cfg, 4, 4),
         "params_from_jax": lambda: llama.params_from_jax({"w": [1.0]}),
+        "make_kv_pages_quantized": lambda: llama.make_kv_pages_quantized(cfg, 4, 4),
+        "make_quantized_kv_pages": lambda: make_quantized_kv_pages(1, 4, 4, 16),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -127,3 +133,20 @@ def test_kernel_library_name_tracks_source_hash():
         assert path.parent == _build.BUILD_DIR
         assert path.name.startswith(f"lib{name}_") and path.suffix == ".so"
         assert (_build.CSRC_DIR / f"{name}.cu").exists()
+
+
+def test_kernel_library_name_tracks_shared_header(monkeypatch, tmp_path):
+    """Both decode sources include csrc/paged_decode_common.cuh: an edit
+    there must rebuild them, not reuse a library built from the old body."""
+    import shutil
+
+    from llm_d_kv_cache_manager_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    before = {name: _build.library_path(name) for name in _build.KERNELS}
+    header = csrc / "paged_decode_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: _build.library_path(name) for name in _build.KERNELS}
+    assert all(after[name] != before[name] for name in _build.KERNELS)

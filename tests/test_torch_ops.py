@@ -34,16 +34,17 @@ def _paged_inputs(batch=2, n_q=8, n_kv=4, head_dim=128, page_size=128,
     return q, k, v, bt
 
 
-def _both_paged(inputs, seq_lens, window=None):
+def _both_paged(inputs, seq_lens, window=None, pipelined=True):
     q, k, v, bt = inputs
     lens = np.asarray(seq_lens, np.int32)
     want = jax_paged_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bt),
-        jnp.asarray(lens), interpret=True, pipelined=True, window=window,
+        jnp.asarray(lens), interpret=True, pipelined=pipelined, window=window,
     )
     got = port_paged.paged_attention(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-        torch.from_numpy(bt), torch.from_numpy(lens), window=window,
+        torch.from_numpy(bt), torch.from_numpy(lens), pipelined=pipelined,
+        window=window,
     )
     return np.asarray(want), got.numpy()
 
@@ -77,6 +78,30 @@ def test_paged_attention_narrow_table(pps):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+# (seq_lens, window, n_q, page): the pipelined cases above, on the tiled
+# entry point (JAX `_decode_kernel` on a (seq, head, page) grid).
+TILED_CASES = {
+    "partial_pages": ([1, 300], None, 8, 128),
+    "page_boundaries": ([128, 384], None, 8, 128),
+    "empty_slot": ([0, 256], None, 8, 128),
+    "mha": ([37, 290], None, 4, 128),
+    "window_64": ([37, 300], 64, 8, 128),
+    "window_200": ([37, 300], 200, 8, 128),
+    "page_16": ([5, 300], None, 8, 16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TILED_CASES))
+def test_paged_attention_tiled_matches_tiled_kernel(case):
+    seq_lens, window, n_q, page = TILED_CASES[case]
+    scale = 128 // page
+    inputs = _paged_inputs(n_q=n_q, page_size=page, n_pages=12 * scale, pps=3 * scale)
+    before = port_paged.tiled_launches
+    want, got = _both_paged(inputs, seq_lens, window=window, pipelined=False)
+    np.testing.assert_allclose(got, want, **TOL)
+    assert port_paged.tiled_launches == before
+
+
 def test_paged_attention_bad_grouping_raises():
     q, k, v, bt = (torch.from_numpy(a) for a in _paged_inputs(n_q=6, n_kv=4))
     lens = torch.tensor([8, 8], dtype=torch.int32)
@@ -90,9 +115,10 @@ def test_paged_attention_cpu_tensors_launch_no_kernel():
     before = port_paged.launches
     q, k, v, bt = (torch.from_numpy(a) for a in _paged_inputs())
     lens = torch.tensor([5, 200], dtype=torch.int32)
-    out = port_paged.paged_attention(q, k, v, bt, lens)
-    ref = port_paged.paged_attention_reference(q, k, v, bt, lens)
-    assert torch.equal(out, ref)
+    for pipelined in (True, False):
+        out = port_paged.paged_attention(q, k, v, bt, lens, pipelined=pipelined)
+        ref = port_paged.paged_attention_reference(q, k, v, bt, lens)
+        assert torch.equal(out, ref)
     assert port_paged.launches == before
 
 
