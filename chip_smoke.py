@@ -11,11 +11,16 @@ Phases, in order (any failure raises and the script exits non-zero):
      tiled, each on bf16/f32 and on int8 pages, and flash prefill) against
      its plain torch version in bf16 and f32 over edge cases (zero/one-token
      sequences, page boundaries, pages of 16/64/128, windows, GQA groups 1-8,
-     prefix-hit offsets, padded chunks, per-batch offsets), and the tiled
-     decode against the pipelined one at f32 on both page formats;
-  4. times at the main path's shapes (CUDA events, median of 30 runs):
-     kernel, plain version, the card's bound, and SDPA as a library yardstick
-     that the port itself never calls (none exists for int8 pages);
+     prefix-hit offsets, padded chunks, per-batch offsets, both flash tile
+     plans, bf16 flash at head_dim 64 too), and the tiled decode against the
+     pipelined one at f32 on both page formats;
+  4. times at the main path's shapes: kernel, plain version, the card's
+     bound, and SDPA as a library yardstick that the port itself never calls
+     (none exists for int8 pages). Decode: CUDA events, median of 30 single
+     calls, each cold in L2. Prefill, at the 2,048-token chunk and at the
+     serving chunk (512 new tokens after 1,024 cached): median of 10 replays
+     of a CUDA graph of 10 calls, so that the host's launch cost, longer
+     than the kernel, stays out of the span;
   5. serving at the flagship width (1.14B Llama, bf16, random weights from a
      seeded generator): two bf16 pods and one int8-KV pod whose KV events are
      digested into one index; prefix reuse, pod ranking and kernel launch
@@ -23,6 +28,9 @@ Phases, in order (any failure raises and the script exits non-zero):
      against the same jobs one by one on twin pods, on both page formats;
   5b. a small f32 pod on the card against the same pod on the CPU, on both
      page formats;
+  5c. a prefix-hit prefill (1,024 cached tokens, then 512 new) at the
+     flagship width through the flash kernel path and through the plain
+     path, both against an f32 truth;
   6. batched decode at batch 8 x 2048 context for every (page format, decode
      kernel) pair, kernel path vs plain path vs an f32 truth, with the
      launches of each kernel counted; then 8-step multi-step decode against 8
@@ -203,6 +211,33 @@ def profile_device_share(label: str, fn, runs: int = 3) -> dict:
                 largest=dict(ms=top[0][0], launches=top[0][1], name=top[0][2][:80]))
 
 
+def time_graph_ms(fn, calls: int = 10, runs: int = 10) -> float:
+    """Median per-call device time, in ms, of `calls` back-to-back calls
+    captured in one CUDA graph and replayed `runs` times."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
 _L2_FLUSH = None
 
 
@@ -341,15 +376,27 @@ def kernel_cases(gen):
             yield ("flash_prefill", dtype,
                    f"flash_prefill {tag} group={n_q // N_KV} L=300 S=700 off=400",
                    fp.flash_prefill(q, k, v, 400), fp.dense_attention(q, k, v, 400))
-        cases = (
-            ("L=S=2048 off=0", 1, 2048, 2048, 0, None, None),
-            ("L=512 S=2048 off=1536", 1, 512, 2048, 1536, None, None),
-            ("L=8 chunk n_valid=5 S=64 off=40", 1, 8, 64, 40, None, 5),
-            ("per-batch offsets", 3, 64, 256, [0, 100, 192], None, None),
-            ("L=S=2048 window=512", 1, 2048, 2048, 0, 512, None),
-        )
-        for name, b, l, s, off, window, n_valid in cases:
-            q, k, v = flash_inputs(gen, dtype, b, l, s)
+        # (name, batch, L, S, offsets, window, rows kept, n_q, head_dim). The
+        # bf16 kernel takes 128-row CTAs where that grid covers the card (the
+        # 2,048-token chunks, the 4 x 1,000 and group-8 cases), else 64-row.
+        cases = [
+            ("L=S=2048 off=0", 1, 2048, 2048, 0, None, None, N_Q, HD),
+            ("L=512 S=2048 off=1536", 1, 512, 2048, 1536, None, None, N_Q, HD),
+            ("L=512 S=2048 off=1024", 1, 512, 2048, 1024, None, None, N_Q, HD),
+            ("L=8 chunk n_valid=5 S=64 off=40", 1, 8, 64, 40, None, 5, N_Q, HD),
+            ("per-batch offsets", 3, 64, 256, [0, 100, 192], None, None, N_Q, HD),
+            ("L=S=2048 window=512", 1, 2048, 2048, 0, 512, None, N_Q, HD),
+            ("B=4 L=1000 S=1500 per-batch offsets window=300", 4, 1000, 1500,
+             [0, 100, 300, 500], 300, None, N_Q, HD),
+            ("group=8 L=S=1024", 1, 1024, 1024, 0, None, None, 64, HD),
+        ]
+        if dtype == torch.bfloat16:  # the f32 kernel is built for head_dim 128 only
+            cases += [
+                ("hd=64 L=S=2048 off=0", 1, 2048, 2048, 0, None, None, N_Q, 64),
+                ("hd=64 L=300 S=700 off=400 window=200", 1, 300, 700, 400, 200, None, N_Q, 64),
+            ]
+        for name, b, l, s, off, window, n_valid, n_q, hd in cases:
+            q, k, v = flash_inputs(gen, dtype, b, l, s, n_q=n_q, hd=hd)
             offs = off if isinstance(off, int) else torch.tensor(off, dtype=torch.int32, device="cuda")
             got = fp.flash_prefill(q, k, v, offs, window=window)
             ref = fp.dense_attention(q, k, v, offs, window=window)
@@ -406,25 +453,58 @@ def time_decode(gen, row: str, batch: int, ctx: int) -> dict:
 
 
 def phase_times(gen) -> tuple:
-    log("== phase 4: times at the main path's shapes (bf16, median of 30)")
+    log("== phase 4: times at the main path's shapes (bf16)")
     main = {row: time_decode(gen, row, 8, 2048) for row in DECODE_ROWS}
     batch1 = {row: time_decode(gen, row, 1, 4096) for row in DECODE_ROWS}
 
-    # Prefill: one 2048-token causal chunk, offset 0.
-    l = s = 2048
+    # Prefill: one 2048-token causal chunk at offset 0 (the row's main shape),
+    # and the serving chunk.
+    main["flash_prefill"] = time_prefill(gen, 2048, 2048, 0)
+    serving = time_prefill(gen, *PREFILL_SERVING_SHAPE)
+    return main, batch1, serving
+
+
+# The prefill call of a prefix-hit request in phase 5: 512 new tokens after
+# 1,024 cached, against the pod's padded table (1,536 tokens need 96 pages of
+# 16, padded to a power of two: 128 pages, 2,048 positions).
+PREFILL_SERVING_SHAPE = (512, 2048, 1024)
+
+
+def time_prefill(gen, l: int, s: int, off: int) -> dict:
+    """Row 5 at L new tokens after `off` cached, S positions of K/V (bf16,
+    flagship heads): kernel, plain version, SDPA (is_causal where off == 0 and
+    L == S, else a lower-right causal bias over the first off + L keys, the
+    same function), and the bound over the keys the mask keeps."""
     q, k, v = flash_inputs(gen, torch.bfloat16, 1, l, s)
-    kernel_ms = time_ms(lambda: fp.flash_prefill(q, k, v, 0))
-    plain_ms = time_ms(lambda: fp.dense_attention(q, k, v, 0))
+    kernel_ms = time_graph_ms(lambda: fp.flash_prefill(q, k, v, off))
+    plain_ms = time_graph_ms(lambda: fp.dense_attention(q, k, v, off))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    library_ms = time_ms(sdpa_gqa(qt, kt, vt, is_causal=True))
-    flops = 4 * causal_pairs(l, s, [0], None) * N_Q * HD
-    nbytes = (2 * l * N_Q * HD + 2 * s * N_KV * HD) * 2
-    main["flash_prefill"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                                 **_bound(nbytes, flops))
-    log(f"  flash_prefill L=S={l}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"SDPA {library_ms:.4f} ms, bound {main['flash_prefill']['bound_ms']:.4f} ms "
-        f"({flops / 1e9:.2f} GFLOP)")
-    return main, batch1
+    library_ms, library_note = None, "SDPA is_causal"
+    if off == 0 and l == s:
+        library_ms = time_graph_ms(sdpa_gqa(qt, kt, vt, is_causal=True))
+    else:
+        from torch.nn.attention.bias import causal_lower_right
+
+        library_note = f"SDPA causal_lower_right({l}, {off + l}) on the first {off + l} keys"
+        kt, vt = kt[:, :, : off + l], vt[:, :, : off + l]
+        sdpa = sdpa_gqa(qt, kt, vt, attn_mask=causal_lower_right(l, off + l))
+        try:  # eagerly first: a failed call must not end inside a graph capture
+            sdpa()
+            torch.cuda.synchronize()
+        except RuntimeError as exc:  # no SDPA backend takes this bias with GQA
+            library_note += f": none ({type(exc).__name__}: {str(exc)[:120]})"
+        else:
+            library_ms = time_graph_ms(sdpa)
+    keys = min(s, off + l)
+    flops = 4 * causal_pairs(l, s, [off], None) * N_Q * HD
+    nbytes = (2 * l * N_Q * HD + 2 * keys * N_KV * HD) * 2
+    out = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, **_bound(nbytes, flops),
+               gflop=flops / 1e9)
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    log(f"  flash_prefill L={l} S={s} off={off}: kernel {kernel_ms:.4f} ms "
+        f"({flops / kernel_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, {library_note} "
+        f"{lib}, bound {out['bound_ms']:.4f} ms ({flops / 1e9:.2f} GFLOP)")
+    return out
 
 
 # -- phase 5: serving -------------------------------------------------------------
@@ -630,6 +710,69 @@ def phase_small_pod_vs_cpu() -> None:
             raise AssertionError("small pod on the card disagrees with the CPU pod")
 
 
+# -- phase 5c: prefill logits ------------------------------------------------------
+
+
+def f32_twin(params, cfg):
+    """The same weights in f32, and their config."""
+    cfg32 = llama.LlamaConfig(**{**FLAGSHIP, "dtype": torch.float32})
+    params32 = {k: (v.float() if torch.is_tensor(v) else {n: w.float() for n, w in v.items()})
+                for k, v in params.items()}
+    return params32, cfg32
+
+
+def prefill_logits_check(params, cfg, params32, cfg32, seed: int = 3) -> dict:
+    """A prefix-hit prefill through the flash kernel path against the plain
+    path, both against an f32 truth (the plain path with f32 weights and an
+    f32 cache): the 1,024-token prefix, then the serving chunk of 512 at
+    offset 1,024, over a table padded to 128 pages as the pod pads it."""
+    l_new, s, off = PREFILL_SERVING_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (off + l_new,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    table = torch.randperm(s // PAGE, generator=gen, device="cuda").to(torch.int32)
+    logits, launches = {}, 0
+    for name, c, p, plain in (("truth", cfg32, params32, True), ("kernel", cfg, params, False),
+                              ("plain", cfg, params, True)):
+        cache = llama.make_kv_pages(c, s // PAGE, PAGE, "cuda")
+        before = fp.launches
+        llama.prefill_cache(c, p, cache, tokens[:off], table, 0, plain=plain)
+        _, out = llama.prefill_cache(c, p, cache, tokens[off:], table, off, plain=plain)
+        torch.cuda.synchronize()
+        if name == "kernel":
+            launches = fp.launches - before
+        logits[name] = out.float()
+        del cache
+    err = float((logits["kernel"] - logits["plain"]).abs().max())
+    err_kernel = float((logits["kernel"] - logits["truth"]).abs().max())
+    err_plain = float((logits["plain"] - logits["truth"]).abs().max())
+    # As for decode: bf16 through 16 layers moves both bf16 paths off the
+    # f32 truth; the kernel path may not stray further than twice the plain
+    # path's own error (plus 1e-2 absolute).
+    tol = 2 * err_plain + 1e-2
+    ok = (bool(torch.isfinite(logits["kernel"]).all())
+          and logits["kernel"].shape == (cfg.vocab_size,)
+          and err_kernel <= tol and launches == 2 * cfg.n_layers)
+    log(f"  prefill {l_new} after {off} cached: kernel vs plain max_abs_err={err:.4e}; vs f32 "
+        f"truth: kernel {err_kernel:.4e}, plain {err_plain:.4e} (tol {tol:.4e}); max |logit| "
+        f"{float(logits['truth'].abs().max()):.4f}; argmax agrees: "
+        f"{int(logits['kernel'].argmax()) == int(logits['plain'].argmax())}; flash launches "
+        f"{launches} {'ok' if ok else 'FAIL'}")
+    return dict(ok=ok, launches=launches, max_abs_err=err, err_kernel_vs_f32=err_kernel,
+                err_plain_vs_f32=err_plain)
+
+
+def phase_prefill_logits(params, cfg) -> dict:
+    log("== phase 5c: prefill logits, kernel path vs plain path vs f32 truth")
+    params32, cfg32 = f32_twin(params, cfg)
+    r = prefill_logits_check(params, cfg, params32, cfg32)
+    del params32
+    torch.cuda.empty_cache()
+    if not r["ok"]:
+        raise AssertionError("prefill logits (flash_prefill) fail their bar")
+    return r
+
+
 # -- phase 6: batched decode --------------------------------------------------------
 
 DECODE_BATCH, DECODE_CTX = 8, 2048
@@ -725,9 +868,7 @@ def multi_step_check(params, cfg, int8: bool, n_steps: int = 8) -> bool:
 def phase_batched_decode(params, cfg) -> dict:
     log(f"== phase 6: batched decode, batch {DECODE_BATCH} x context {DECODE_CTX}, "
         "kernel vs plain path, every page format and decode kernel")
-    cfg32 = llama.LlamaConfig(**{**FLAGSHIP, "dtype": torch.float32})
-    params32 = {k: (v.float() if torch.is_tensor(v) else {n: w.float() for n, w in v.items()})
-                for k, v in params.items()}
+    params32, cfg32 = f32_twin(params, cfg)
     results, profiles = {}, {}
     for int8 in (False, True):
         for pipelined in (True, False):
@@ -786,7 +927,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = phase_kernel_checks(gen)
-    times, times_batch1 = phase_times(gen)
+    times, times_batch1, prefill_serving = phase_times(gen)
 
     cfg = llama.LlamaConfig(**FLAGSHIP)
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
@@ -796,6 +937,7 @@ def main() -> int:
     serving = phase_serving(params, cfg)
     packed = phase_packed_prefill(params, cfg)
     phase_small_pod_vs_cpu()
+    prefill_logits = phase_prefill_logits(params, cfg)
     batched = phase_batched_decode(params, cfg)
 
     # Rows 1, 2 and 5 are counted on the serving path; rows 3 and 4 (the
@@ -816,7 +958,9 @@ def main() -> int:
         for name in KERNELS
     ]
     log(json.dumps({"kernels": kernels}))
-    log(json.dumps({"decode_batch1_ctx4096": times_batch1, "serving": serving,
+    log(json.dumps({"decode_batch1_ctx4096": times_batch1,
+                    "prefill_serving_shape": prefill_serving, "serving": serving,
+                    "prefill_logits": prefill_logits,
                     "packed_prefill": packed, "batched_decode": batched,
                     "build_s": build_s, "run_s": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {

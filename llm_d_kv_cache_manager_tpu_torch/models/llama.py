@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from llm_d_kv_cache_manager_tpu_torch.ops.flash_prefill import flash_prefill
+from llm_d_kv_cache_manager_tpu_torch.ops.flash_prefill import dense_attention, flash_prefill
 from llm_d_kv_cache_manager_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_attention_reference,
@@ -282,9 +282,13 @@ def _cache_attend(cache: tuple, q, block_tables, seq_lens, *, pipelined: bool,
                                      pipelined=pipelined, window=window)
 
 
-def _serving_attention(q, k, v, causal_offset, window=None):
+def _serving_attention(q, k, v, causal_offset, window=None, plain: bool = False):
     """Attention for the serving prefill path: the flash-prefill kernel on
-    CUDA tensors, its plain version (`dense_attention`) on CPU tensors."""
+    CUDA tensors, its plain version (`dense_attention`) on CPU tensors, or
+    with `plain=True` the plain version on any device (the checks'
+    comparison path)."""
+    if plain:
+        return dense_attention(q, k, v, causal_offset, window=window)
     return flash_prefill(q, k, v, causal_offset, window=window)
 
 
@@ -301,6 +305,7 @@ def prefill_cache(
     # padded to a length bucket; pad rows write garbage KV at positions
     # beyond start_pos+n_valid, which callers must have reserved and which
     # is masked until a real write lands there. None -> all rows are real.
+    plain: bool = False,  # the plain attention path (checks compare with it)
 ) -> Tuple[tuple, torch.Tensor]:
     """Prefill new tokens, attending to the cached prefix; returns
     (kv_cache, logits of token n_valid-1 (or L-1 unpadded))."""
@@ -324,7 +329,8 @@ def prefill_cache(
 
         # Attend to everything cached so far (prefix + new), causally.
         k_all, v_all = _cache_gather_dense(cache, block_table[None], c.dtype)
-        attn = _serving_attention(q, k_all, v_all, start_pos, window=c.sliding_window)
+        attn = _serving_attention(q, k_all, v_all, start_pos, window=c.sliding_window,
+                                  plain=plain)
         x = x + attn.reshape(1, l, c.q_dim) @ layer["wo"]
         h = rms_norm(x, layer["mlp_norm"], c.rms_eps)
         x = x + _mlp(layer, h)

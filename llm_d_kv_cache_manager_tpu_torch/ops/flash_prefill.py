@@ -25,7 +25,9 @@ import torch
 
 launches = 0  # flash_prefill kernel launches (CUDA path only)
 
-_KERNEL_HEAD_DIMS = (128,)
+# Head dims each dtype's kernel is built for: the bf16 (wgmma) kernel at 64
+# and 128, the f32 (CUDA-core) kernel at 128.
+_KERNEL_HEAD_DIMS = {torch.bfloat16: (64, 128), torch.float32: (128,)}
 _KERNEL_MAX_GROUP = 64  # the kernel folds the GQA group into 64-row tiles
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -40,6 +42,8 @@ def _check_grouping(n_q: int, n_kv: int) -> int:
 
 
 def _offsets(causal_offset: Offset, batch: int, device) -> torch.Tensor:
+    if isinstance(causal_offset, int):  # filled on the device: no host copy
+        return torch.full((batch,), causal_offset, dtype=torch.int32, device=device)
     return torch.as_tensor(causal_offset, device=device).to(torch.int32).expand(batch)
 
 
@@ -79,7 +83,7 @@ def _kernel() -> ctypes.CDLL:
     fn = lib.kvt_flash_prefill
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 5 + [i32] * 7 + [ctypes.c_float, i32, ptr]
+        fn.argtypes = [ptr] * 4 + [i32, ptr] + [i32] * 7 + [ctypes.c_float, i32, ptr]
         fn.restype = i32
     return lib
 
@@ -100,18 +104,24 @@ def _launch(q, k, v, causal_offset, window) -> torch.Tensor:
         raise ValueError(
             f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}"
         )
-    if hd not in _KERNEL_HEAD_DIMS or group > _KERNEL_MAX_GROUP:
+    if hd not in _KERNEL_HEAD_DIMS[q.dtype] or group > _KERNEL_MAX_GROUP:
         raise ValueError(
-            f"flash_prefill kernel takes head_dim in {_KERNEL_HEAD_DIMS} and a "
-            f"GQA group <= {_KERNEL_MAX_GROUP}, got {hd} and {group}"
+            f"flash_prefill kernel takes head_dim in {_KERNEL_HEAD_DIMS[q.dtype]} for "
+            f"{q.dtype} and a GQA group <= {_KERNEL_MAX_GROUP}, got {hd} and {group}"
         )
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)):
         raise ValueError("flash_prefill kernel needs contiguous, 16-byte aligned q/k/v")
     out = torch.empty_like(q)
-    offs = _offsets(causal_offset, b, q.device).contiguous()
+    # A shared offset rides as a kernel argument (no host-to-device copy);
+    # per-batch offsets are read from the device.
+    offs, shared = None, 0
+    if isinstance(causal_offset, int):
+        shared = causal_offset
+    else:
+        offs = _offsets(causal_offset, b, q.device).contiguous()
     err = _kernel().kvt_flash_prefill(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), offs.data_ptr(), out.data_ptr(),
-        b, l, s, n_q, n_kv, hd, -1 if window is None else int(window),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if offs is None else offs.data_ptr(),
+        shared, out.data_ptr(), b, l, s, n_q, n_kv, hd, -1 if window is None else int(window),
         1.0 / (hd**0.5), _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )

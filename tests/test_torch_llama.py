@@ -15,6 +15,7 @@ import torch
 
 from llm_d_kv_cache_manager_tpu.models import llama as jax_llama
 from llm_d_kv_cache_manager_tpu_torch.models import llama
+from llm_d_kv_cache_manager_tpu_torch.ops import flash_prefill
 
 LOGITS_TOL = dict(atol=1e-4, rtol=0)
 CACHE_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -119,6 +120,27 @@ def test_prefill_cache_matches_jax(case):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGITS_TOL)
     for got_pool, want_pool in zip(pcache, jcache):
         np.testing.assert_allclose(got_pool.numpy(), np.asarray(want_pool), **CACHE_TOL)
+
+
+@pytest.mark.parametrize("window", [None, 5])
+def test_prefill_cache_plain_path_matches_default(window):
+    """`plain=True` (the checks' comparison path on the card) runs the same
+    attention as the default path takes on CPU tensors, and no kernel."""
+    _, cfg = _configs(sliding_window=window)
+    _, params = _params(_configs()[0])
+    rng = np.random.default_rng(6)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, 14).astype(np.int32))
+    table = torch.from_numpy(rng.permutation(8).astype(np.int32))
+    k0, v0 = _pools(cfg, 8)
+    logits = []
+    for plain in (False, True):
+        cache = (torch.from_numpy(k0.copy()), torch.from_numpy(v0.copy()))
+        before = flash_prefill.launches
+        cache, _ = llama.prefill_cache(cfg, params, cache, tokens[:8], table, 0, plain=plain)
+        cache, out = llama.prefill_cache(cfg, params, cache, tokens[8:], table, 8, plain=plain)
+        assert flash_prefill.launches == before
+        logits.append(out)
+    assert torch.equal(logits[0], logits[1])
 
 
 @pytest.mark.parametrize("window", [None, 6])

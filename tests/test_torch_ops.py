@@ -160,9 +160,27 @@ FLASH_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(FLASH_CASES))
-def test_dense_attention_matches_flash_kernel(case):
-    b, l, s, n_q, n_kv, hd, offset, window, block_q, block_k = FLASH_CASES[case]
+# The same comparison at head_dim 128, the only width the port's CUDA kernels
+# take, so the plain version that chip_smoke.py holds them against is itself
+# held against the TPU kernel there: every GQA group the flagship family uses,
+# ragged L, per-batch offsets, windows with offsets, rows past the last key
+# (the TPU kernel's s_real cut), and a reduced serving chunk (offset > 0, S
+# padded past offset + L as the pod pads its table).
+FLASH_CASES_HD128 = {
+    "group_1": (1, 96, 96, 4, 4, 128, 0, None, 32, 128),
+    "group_2_ragged_l": (1, 100, 100, 4, 2, 128, 0, None, 32, 128),
+    "group_4_offset": (1, 70, 130, 8, 2, 128, 60, None, 32, 128),
+    "group_8": (1, 40, 40, 8, 1, 128, 0, None, 16, 128),
+    "per_batch_offsets": (3, 50, 150, 4, 2, 128, [0, 37, 100], None, 32, 128),
+    "window_with_offset": (1, 80, 200, 4, 2, 128, 120, 48, 32, 128),
+    "per_batch_offsets_window": (2, 64, 192, 4, 2, 128, [10, 90], 40, 32, 128),
+    "rows_past_last_key": (1, 24, 40, 4, 2, 128, 30, None, 8, 128),
+    "serving_chunk_padded_table": (1, 64, 256, 4, 2, 128, 128, None, 32, 128),
+    "single_row_window": (1, 1, 64, 4, 2, 128, 63, 16, 8, 128),
+}
+
+
+def _check_flash_case(b, l, s, n_q, n_kv, hd, offset, window, block_q, block_k):
     rng = np.random.default_rng(2)
     q = rng.standard_normal((b, l, n_q, hd), dtype=np.float32)
     k = rng.standard_normal((b, s, n_kv, hd), dtype=np.float32)
@@ -179,6 +197,16 @@ def test_dense_attention_matches_flash_kernel(case):
     plain = port_flash.dense_attention(tq, tk, tv, off_t, window=window)
     assert torch.equal(got, plain) and port_flash.launches == before
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_dense_attention_matches_flash_kernel(case):
+    _check_flash_case(*FLASH_CASES[case])
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES_HD128))
+def test_dense_attention_matches_flash_kernel_hd128(case):
+    _check_flash_case(*FLASH_CASES_HD128[case])
 
 
 def test_flash_prefill_bad_grouping_raises():
