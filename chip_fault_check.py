@@ -5,13 +5,20 @@
 
 Shows that the kernel-vs-plain bars of chip_smoke.py catch a kernel that
 drops or leaks work. Each planted fault is built from a mutated copy of its
-kernel source, written only under the package's build/planted/ directory:
+kernel sources, written only under the package's build/planted/ directory:
 
-  - paged_decode (pipelined decode, bf16/f32 and int8 pages): the second
-    64-token chunk of every sequence is skipped;
-  - paged_decode_tiled (split-KV decode, bf16/f32 and int8 pages): the second
-    page of every split is dropped (both decode faults are planted in the
-    body the two sources share, each in its own source's build only);
+  - paged_decode (pipelined decode, the f32 and int8 pages of
+    paged_decode_common.cuh): the second 64-token chunk of every sequence is
+    skipped;
+  - paged_decode_tiled (split-KV decode, the same body): the second page of
+    every split is dropped (both planted in the body the two sources share,
+    each in its own source's build only);
+  - decode_sm90_stage (both decode sources on bf16 pages, the body of
+    paged_decode_sm90.cuh): the second 64-token stage of every CTA's range
+    is skipped;
+  - decode_cluster_rank (pipelined decode on bf16 pages): cluster rank 0's
+    partial is left out of the merge through distributed shared memory;
+  - decode_combine_split (split-KV decode): the combine pass drops split 1;
   - flash_prefill: the second live 128-key block of every q-block is skipped
     by the bf16 (wgmma) kernel;
   - flash_prefill_diagonal: the k-block on each q-block's causal diagonal
@@ -19,11 +26,13 @@ kernel source, written only under the package's build/planted/ directory:
 
 The real kernels and each mutant in turn are swapped in behind the wrappers
 and run through chip_smoke's kernel cases (bf16 and f32, the same seeded
-inputs), its batch-8 flagship decode-logits check of each decode kernel the
-source holds, and its flagship prefill-logits check for the flash source.
-Every case's errors are printed beside its bar, then one JSON summary line.
-Exits non-zero unless the real kernels pass every case and each mutant fails
-the main-shape bf16 case of every kernel it holds.
+inputs) of the kernels built from the mutated sources, its batch-8 flagship
+decode-logits check of each decode kernel the fault targets, and its
+flagship prefill-logits check for the flash faults. Every case's errors are
+printed beside its bar, then one JSON summary line. Exits non-zero unless
+the real kernels pass every case and every logits bar, and each mutant
+fails the main-shape bf16 case and the logits bar of every kernel it
+targets.
 """
 
 from __future__ import annotations
@@ -39,58 +48,85 @@ import chip_smoke
 from llm_d_kv_cache_manager_tpu_torch.models import llama
 from llm_d_kv_cache_manager_tpu_torch.ops import _build
 
-# Planted fault -> (kernel source it is built into, file of csrc/ holding the
-# line, line, faulty line).
+# Planted fault -> (kernel sources it is built into, file of csrc/ holding
+# the line, line, faulty line, the chip_smoke kernels it must fail).
 MUTANTS = {
     "paged_decode": (
-        "paged_decode", "paged_decode_common.cuh",
+        ("paged_decode",), "paged_decode_common.cuh",
         "const int t_end = min(kChunk, pos_end - c_start);",
         "const int t_end = c == 1 ? 0 : min(kChunk, pos_end - c_start);",
+        ("paged_decode_int8",),
     ),
     "paged_decode_tiled": (
-        "paged_decode_tiled", "paged_decode_common.cuh",
+        ("paged_decode_tiled",), "paged_decode_common.cuh",
         "const bool live = t < t_end && pos >= win_lo;",
         "const bool live = t < t_end && pos >= win_lo && pos / page_size != pos0 / page_size + 1;",
+        ("paged_decode_tiled_int8",),
+    ),
+    "decode_sm90_stage": (
+        ("paged_decode", "paged_decode_tiled"), "paged_decode_sm90.cuh",
+        "const int n_valid = min(kStage, pos_end - s_start);",
+        "const int n_valid = c == 1 ? 0 : min(kStage, pos_end - s_start);",
+        ("paged_decode", "paged_decode_tiled"),
+    ),
+    "decode_cluster_rank": (
+        ("paged_decode",), "paged_decode.cu",
+        "const float* pr = cluster.map_shared_rank(part, r);",
+        "if (r == 0 && n_ranks > 1) continue;\n        "
+        "const float* pr = cluster.map_shared_rank(part, r);",
+        ("paged_decode",),
+    ),
+    "decode_combine_split": (
+        ("paged_decode_tiled",), "paged_decode_tiled.cu",
+        "if (m == -INFINITY) continue;  // a split with no live position",
+        "if (m == -INFINITY || s == 1) continue;",
+        ("paged_decode_tiled",),
     ),
     "flash_prefill": (
-        "flash_prefill", "flash_prefill.cu",
+        ("flash_prefill",), "flash_prefill.cu",
         "const int k0 = j * kBK;",
         "const int k0 = j * kBK;\n    if (j == first_blk + 1) continue;",
+        ("flash_prefill",),
     ),
     "flash_prefill_diagonal": (
-        "flash_prefill", "flash_prefill.cu",
+        ("flash_prefill",), "flash_prefill.cu",
         "const bool interior = k0 + kBK - 1 <= hi_all && k0 >= lo_all;",
         "const bool interior = k0 <= hi_all && k0 >= lo_all;",
+        ("flash_prefill",),
     ),
 }
 
 
-def build_mutant(name: str) -> ctypes.CDLL:
-    """Build fault `name` into a copy of its kernel source and the headers
-    under build/planted/<name>/ (a shared header's fault reaches only this
-    build)."""
-    source, target, old, new = MUTANTS[name]
+def build_mutant(name: str) -> dict:
+    """Build fault `name` into a copy of each of its kernel sources and the
+    headers under build/planted/<name>/ (a shared header's fault reaches only
+    these builds): {source: library}."""
+    sources, target, old, new, _ = MUTANTS[name]
     out_dir = _build.BUILD_DIR / "planted" / name
     out_dir.mkdir(parents=True, exist_ok=True)
-    for path in [_build.CSRC_DIR / f"{source}.cu", *_build.CSRC_DIR.glob("*.cuh")]:
+    for path in [*_build.CSRC_DIR.glob("*.cu"), *_build.CSRC_DIR.glob("*.cuh")]:
         text = path.read_text()
         if path.name == target:
             if text.count(old) != 1:
                 raise RuntimeError(f"{target}: the line to mutate is not there once")
             text = text.replace(old, new)
         (out_dir / path.name).write_text(text)
-    so = out_dir / f"lib{name}_mutant.so"
-    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                    str(out_dir / f"{source}.cu")], check=True, capture_output=True)
-    return ctypes.CDLL(str(so))
+    libs = {}
+    for source in sources:
+        so = out_dir / f"lib{source}_mutant.so"
+        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                        str(out_dir / f"{source}.cu")], check=True, capture_output=True)
+        libs[source] = ctypes.CDLL(str(so))
+    return libs
 
 
-def run_cases(label: str, source=None) -> list:
-    """chip_smoke's kernel cases, or only those of the kernels in `source`."""
+def run_cases(label: str, sources=None) -> list:
+    """chip_smoke's kernel cases, or only those of the kernels built from
+    `sources`."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for kernel, dtype, name, got, ref in chip_smoke.kernel_cases(gen):
-        if source is not None and chip_smoke.SOURCE[kernel] != source:
+        if sources is not None and chip_smoke.SOURCE[kernel] not in sources:
             continue
         torch.cuda.synchronize()
         m = chip_smoke.compare(kernel, got, ref, dtype)
@@ -101,13 +137,12 @@ def run_cases(label: str, source=None) -> list:
     return rows
 
 
-def run_decode_logits(label: str, source, params, cfg, params32, cfg32) -> dict:
+def run_decode_logits(label: str, rows, params, cfg, params32, cfg32) -> dict:
     """chip_smoke's batch-8 decode-logits check of each decode kernel in
-    `source` (all four for None): {row: passed}."""
+    `rows`: {row: passed}."""
     out = {}
-    for row, spec in chip_smoke.DECODE_ROWS.items():
-        if source is not None and chip_smoke.SOURCE[row] != source:
-            continue
+    for row in rows:
+        spec = chip_smoke.DECODE_ROWS[row]
         r = chip_smoke.batched_decode_check(
             params, cfg, params32, cfg32, spec["int8"], spec["pipelined"])
         out[row] = r["ok"]
@@ -136,29 +171,31 @@ def main() -> int:
 
     chip_smoke.log("== real kernels")
     rows = run_cases("real")
-    logits_ok = {"real": {**run_decode_logits("real", None, params, cfg, params32, cfg32),
-                          **run_prefill_logits("real", params, cfg, params32, cfg32)}}
-    for name, lib in mutants.items():
-        source = MUTANTS[name][0]
+    logits_ok = {"real": {
+        **run_decode_logits("real", chip_smoke.DECODE_ROWS, params, cfg, params32, cfg32),
+        **run_prefill_logits("real", params, cfg, params32, cfg32)}}
+    for name, libs in mutants.items():
+        targets = MUTANTS[name][-1]
         label = f"{name}-mutant"
         chip_smoke.log(f"== {label}")
-        _build._libs[source] = lib
-        rows += run_cases(label, source=source)
-        if source == "flash_prefill":
+        _build._libs.update(libs)
+        rows += run_cases(label, sources=tuple(libs))
+        if targets == ("flash_prefill",):
             logits_ok[label] = run_prefill_logits(label, params, cfg, params32, cfg32)
         else:
-            logits_ok[label] = run_decode_logits(label, source, params, cfg, params32, cfg32)
-        _build._libs[source] = real[source]
+            logits_ok[label] = run_decode_logits(label, targets, params, cfg, params32, cfg32)
+        _build._libs.update({source: real[source] for source in libs})
 
     real_ok = all(r["ok"] for r in rows if r["variant"] == "real") and all(
         logits_ok["real"].values())
     main_rows = {
         f"{name}/{kernel}": next(r for r in rows if r["variant"] == f"{name}-mutant"
                                  and r["case"] == chip_smoke.MAIN_CASES[kernel])
-        for name, (source, *_) in MUTANTS.items()
-        for kernel in chip_smoke.KERNELS if chip_smoke.SOURCE[kernel] == source
+        for name, (*_, targets) in MUTANTS.items() for kernel in targets
     }
     caught = {key: not r["ok"] for key, r in main_rows.items()}
+    logits_caught = {label: not any(ok.values())
+                     for label, ok in logits_ok.items() if label != "real"}
     worst = {}
     for r in rows:
         if r["case"].split()[1] == "bf16":
@@ -168,10 +205,11 @@ def main() -> int:
         "real_ok": real_ok, "mutant_caught_at_main_shape": caught,
         "mutant_row_rel_err_at_main_shape": {
             kernel: r["row_rel_err"] for kernel, r in main_rows.items()},
+        "mutant_caught_by_logits": logits_caught,
         "logits_ok": logits_ok, "bf16_max_row_rel_err": worst,
         "bf16_row_rel_limits": chip_smoke.BF16_ROW_REL,
     }))
-    return 0 if real_ok and all(caught.values()) else 1
+    return 0 if real_ok and all(caught.values()) and all(logits_caught.values()) else 1
 
 
 if __name__ == "__main__":

@@ -11,16 +11,21 @@ Phases, in order (any failure raises and the script exits non-zero):
      tiled, each on bf16/f32 and on int8 pages, and flash prefill) against
      its plain torch version in bf16 and f32 over edge cases (zero/one-token
      sequences, page boundaries, pages of 16/64/128, windows, GQA groups 1-8,
+     sequences short enough to leave splits and cluster ranks empty, a
+     window inside one split's share or inside a page's second stage,
      prefix-hit offsets, padded chunks, per-batch offsets, both flash tile
-     plans, bf16 flash at head_dim 64 too), and the tiled decode against the
-     pipelined one at f32 on both page formats;
+     plans, bf16 flash at head_dim 64 too), the tiled decode against the
+     pipelined one at f32 on both page formats, and two calls of each bf16
+     decode kernel bit for bit;
   4. times at the main path's shapes: kernel, plain version, the card's
      bound, and SDPA as a library yardstick that the port itself never calls
-     (none exists for int8 pages). Decode: CUDA events, median of 30 single
-     calls, each cold in L2. Prefill, at the 2,048-token chunk and at the
-     serving chunk (512 new tokens after 1,024 cached): median of 10 replays
-     of a CUDA graph of 10 calls, so that the host's launch cost, longer
-     than the kernel, stays out of the span;
+     (none exists for int8 pages), each the median of 10 replays of a CUDA
+     graph of 10 calls, so that the host's launch cost, longer than the
+     kernel, stays out of the span. Decode at batch 8 x 2,048, at the
+     serving shape (batch 1 x 1,536 over a 128-page table) and at batch 1 x
+     4,096, each call cold in L2 (a 128 MB rewrite before each call in the
+     graph, whose own time is subtracted); prefill at the 2,048-token chunk
+     and at the serving chunk (512 new tokens after 1,024 cached);
   5. serving at the flagship width (1.14B Llama, bf16, random weights from a
      seeded generator): two bf16 pods and one int8-KV pod whose KV events are
      digested into one index; prefix reuse, pod ranking and kernel launch
@@ -211,7 +216,7 @@ def profile_device_share(label: str, fn, runs: int = 3) -> dict:
                 largest=dict(ms=top[0][0], launches=top[0][1], name=top[0][2][:80]))
 
 
-def time_graph_ms(fn, calls: int = 10, runs: int = 10) -> float:
+def _graph_ms(fn, calls: int, runs: int) -> float:
     """Median per-call device time, in ms, of `calls` back-to-back calls
     captured in one CUDA graph and replayed `runs` times."""
     side = torch.cuda.Stream()
@@ -241,21 +246,30 @@ def time_graph_ms(fn, calls: int = 10, runs: int = 10) -> float:
 _L2_FLUSH = None
 
 
-def time_ms(fn, runs: int = 30, warmup: int = 3, cold: bool = False) -> float:
-    """Median of `runs` CUDA-event-timed calls, in ms. `cold`: rewrite a
-    128 MB buffer before each call (outside the timed span), so the call
-    finds its inputs out of the 50 MB L2, as a decode step finds each
-    layer's pages."""
+def time_graph_ms(fn, calls: int = 10, runs: int = 10, cold: bool = False) -> float:
+    """Per-call device time of `fn`, in ms, through a CUDA graph (_graph_ms).
+    `cold`: each call in the graph follows a rewrite of a 128 MB buffer, so
+    it finds its inputs out of the 50 MB L2, as a decode step finds each
+    layer's pages; the rewrite's own graph time, taken alone, is
+    subtracted."""
     global _L2_FLUSH
-    if cold and _L2_FLUSH is None:
+    if not cold:
+        return _graph_ms(fn, calls, runs)
+    if _L2_FLUSH is None:
         _L2_FLUSH = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    flush = _L2_FLUSH.zero_
+    return (_graph_ms(lambda: (flush(), fn()), calls, runs)
+            - _graph_ms(flush, calls, runs))
+
+
+def time_ms(fn, runs: int = 30, warmup: int = 3) -> float:
+    """Median of `runs` CUDA-event-timed calls, in ms (host launch cost
+    included: the wall time of a call)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
-        if cold:
-            _L2_FLUSH.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -326,6 +340,19 @@ def causal_pairs(l: int, s: int, offsets, window) -> int:
     return total
 
 
+# Lengths that leave splits and cluster ranks empty: a 2,048-token sequence
+# splits over every rank, the short ones over the first rank or none.
+SPLIT_LENS = [0, 1, 17, 300, 2048]
+# (name, lens, page, window): cases for the splits and the clusters.
+SPLIT_CASES = (
+    ("lens 0/1/17/300/2048", SPLIT_LENS, PAGE, None),
+    # A window of 100 tokens, smaller than one split's or rank's share.
+    ("window=100 inside one split", [2048, 1500, 90], PAGE, 100),
+    # Page 128 holds two 64-token stages; the window starts in the second
+    # (2,047 - 50 = 1,997 > 1,920 + 64), so the first stage is all masked.
+    ("page=128 window=50 in a page's second stage", [2047, 1000, 130], 128, 50),
+)
+
 # The case of each kernel at the main path's shape (bf16, batch 8 x 2048
 # context at page 16; one 2048-token causal chunk).
 MAIN_CASES = {
@@ -356,10 +383,16 @@ def kernel_cases(gen):
                                run_decode(row, q, pages, tables, lens_t, window, plain=True))
             for n_q in (8, 32, 64):  # the other GQA groups the kernels take: 1, 4, 8
                 q, pages, tables, lens_t = decode_inputs(
-                    gen, dtype, 4, [0, 17, 300, 2048], PAGE, n_q=n_q, int8=spec["int8"])
+                    gen, dtype, 5, SPLIT_LENS, PAGE, n_q=n_q, int8=spec["int8"])
                 yield (row, dtype, f"{row} {tag} group={n_q // N_KV}",
                        run_decode(row, q, pages, tables, lens_t),
                        run_decode(row, q, pages, tables, lens_t, plain=True))
+            for name, lens, page, window in SPLIT_CASES:
+                q, pages, tables, lens_t = decode_inputs(
+                    gen, dtype, len(lens), lens, page, int8=spec["int8"])
+                yield (row, dtype, f"{row} {tag} {name}",
+                       run_decode(row, q, pages, tables, lens_t, window),
+                       run_decode(row, q, pages, tables, lens_t, window, plain=True))
         if dtype == torch.float32:
             for tiled, piped in (("paged_decode_tiled", "paged_decode"),
                                  ("paged_decode_tiled_int8", "paged_decode_int8")):
@@ -405,6 +438,24 @@ def kernel_cases(gen):
             yield "flash_prefill", dtype, f"flash_prefill {tag} {name}", got, ref
 
 
+def determinism_checks(gen) -> int:
+    """Two calls of each bf16-page decode kernel on the same inputs give the
+    same bits (no atomics; phase 6's multi-step check relies on it)."""
+    n = 0
+    for row in ("paged_decode", "paged_decode_tiled"):
+        for lens in (SPLIT_LENS, [0, 1, PAGE, PAGE + 1, 2 * PAGE, 1000, 2047, 2048]):
+            q, pages, tables, lens_t = decode_inputs(gen, torch.bfloat16, len(lens), lens, PAGE)
+            first = run_decode(row, q, pages, tables, lens_t)
+            second = run_decode(row, q, pages, tables, lens_t)
+            torch.cuda.synchronize()
+            same = torch.equal(first, second)
+            log(f"  {row} bf16 B={len(lens)}: two calls bit-identical: {same}")
+            if not same:
+                raise AssertionError(f"{row}: two calls on the same inputs differ")
+            n += 1
+    return n
+
+
 def phase_kernel_checks(gen) -> dict:
     log("== phase 3: kernels vs plain versions")
     errs, n = {}, 0
@@ -414,6 +465,7 @@ def phase_kernel_checks(gen) -> dict:
         n += 1
         if name == MAIN_CASES[kernel]:
             errs[kernel] = err
+    n += determinism_checks(gen)
     log(f"  {n} checks passed")
     return errs
 
@@ -424,44 +476,60 @@ def _bound(nbytes: int, flops: int) -> dict:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def time_decode(gen, row: str, batch: int, ctx: int) -> dict:
-    """Row `row` at batch x ctx (bf16 q, page 16, flagship heads), each call
-    cold in L2: kernel, plain version, SDPA over pre-gathered K/V (bf16 pages
-    only; no PyTorch call attends over int8 pages), and the bound."""
+# Decode timing shapes: (batch, context, table positions). The serving shape
+# is a pod's one request at a time, 1,536 tokens into its 128-page table.
+DECODE_SHAPES = {
+    "B=8 ctx=2048": (8, 2048, 2048),
+    "B=1 ctx=1536 table=2048": (1, 1536, 2048),
+    "B=1 ctx=4096": (1, 4096, 4096),
+}
+
+
+def time_decode(gen, row: str, shape: str, plain: bool = True) -> dict:
+    """Row `row` at a DECODE_SHAPES shape (bf16 q, page 16, flagship heads),
+    each call cold in L2: kernel, plain version (`plain`), SDPA over
+    pre-gathered K/V of the live positions (bf16 pages only; no PyTorch call
+    attends over int8 pages), and the bound."""
+    batch, ctx, table_ctx = DECODE_SHAPES[shape]
     int8 = DECODE_ROWS[row]["int8"]
     q, pages, tables, lens = decode_inputs(gen, torch.bfloat16, batch, [ctx] * batch,
-                                           PAGE, max_ctx=ctx, int8=int8)
-    kernel_ms = time_ms(lambda: run_decode(row, q, pages, tables, lens), cold=True)
-    plain_ms = time_ms(lambda: run_decode(row, q, pages, tables, lens, plain=True),
-                       cold=True)
+                                           PAGE, max_ctx=table_ctx, int8=int8)
+    kernel_ms = time_graph_ms(lambda: run_decode(row, q, pages, tables, lens), cold=True)
+    plain_ms = None
+    if plain:
+        plain_ms = time_graph_ms(lambda: run_decode(row, q, pages, tables, lens, plain=True),
+                                 cold=True)
     library_ms = None
     if not int8:
         k, v = pages
-        kd = k[:, tables.long()].movedim(1, 0).reshape(batch, N_KV, -1, HD).contiguous()
-        vd = v[:, tables.long()].movedim(1, 0).reshape(batch, N_KV, -1, HD).contiguous()
-        library_ms = time_ms(sdpa_gqa(q[:, :, None], kd, vd), cold=True)
+        kd, vd = (p[:, tables.long()].movedim(1, 0).reshape(batch, N_KV, -1, HD)[:, :, :ctx]
+                  .contiguous() for p in (k, v))
+        library_ms = time_graph_ms(sdpa_gqa(q[:, :, None], kd, vd), cold=True)
     live = int(lens.sum())
     kv_row_bytes = HD * (1 if int8 else 2) + (4 if int8 else 0)  # values (+ scale)
-    nbytes = 2 * live * N_KV * kv_row_bytes + 2 * batch * N_Q * HD * 2 + tables.numel() * 4
+    live_pages = batch * -(-ctx // PAGE)
+    nbytes = 2 * live * N_KV * kv_row_bytes + 2 * batch * N_Q * HD * 2 + live_pages * 4
     out = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                **_bound(nbytes, 4 * live * N_Q * HD), mbytes=nbytes / 1e6)
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-    log(f"  {row} B={batch} ctx={ctx} page={PAGE}: kernel {kernel_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, SDPA {lib}, bound {out['bound_ms']:.4f} ms "
-        f"({nbytes / 1e6:.2f} MB)")
+    plain_txt = "" if plain_ms is None else f", plain {plain_ms:.4f} ms"
+    log(f"  {row} {shape} page={PAGE}: kernel {kernel_ms:.4f} ms "
+        f"({nbytes / kernel_ms / 1e6:.1f} GB/s){plain_txt}, SDPA {lib}, bound "
+        f"{out['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB)")
     return out
 
 
 def phase_times(gen) -> tuple:
     log("== phase 4: times at the main path's shapes (bf16)")
-    main = {row: time_decode(gen, row, 8, 2048) for row in DECODE_ROWS}
-    batch1 = {row: time_decode(gen, row, 1, 4096) for row in DECODE_ROWS}
+    decode = {shape: {row: time_decode(gen, row, shape) for row in DECODE_ROWS}
+              for shape in DECODE_SHAPES}
+    main = dict(decode["B=8 ctx=2048"])
 
     # Prefill: one 2048-token causal chunk at offset 0 (the row's main shape),
     # and the serving chunk.
     main["flash_prefill"] = time_prefill(gen, 2048, 2048, 0)
     serving = time_prefill(gen, *PREFILL_SERVING_SHAPE)
-    return main, batch1, serving
+    return main, decode, serving
 
 
 # The prefill call of a prefix-hit request in phase 5: 512 new tokens after
@@ -927,7 +995,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = phase_kernel_checks(gen)
-    times, times_batch1, prefill_serving = phase_times(gen)
+    times, decode_times, prefill_serving = phase_times(gen)
 
     cfg = llama.LlamaConfig(**FLAGSHIP)
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
@@ -958,7 +1026,7 @@ def main() -> int:
         for name in KERNELS
     ]
     log(json.dumps({"kernels": kernels}))
-    log(json.dumps({"decode_batch1_ctx4096": times_batch1,
+    log(json.dumps({"decode_shapes": decode_times,
                     "prefill_serving_shape": prefill_serving, "serving": serving,
                     "prefill_logits": prefill_logits,
                     "packed_prefill": packed, "batched_decode": batched,

@@ -1,7 +1,7 @@
-// Paged flash-decoding attention for Hopper (sm_90a).
+// Paged flash-decoding attention for Hopper (sm_90a): one launch per call.
 //
-// Replaces the TPU kernel `_decode_kernel_pipelined` of the reference
-// package (llm_d_kv_cache_manager_tpu/ops/paged_attention.py), in both of its
+// Replaces the TPU kernel `_decode_kernel_pipelined` of the reference package
+// (llm_d_kv_cache_manager_tpu/ops/paged_attention.py:157), in both of its
 // instantiations: bf16/f32 pages through `paged_attention(pipelined=True)`,
 // and int8 pages with f32 per-row scales through
 // `ops/quantized_kv.py::paged_attention_quantized(pipelined=True)`. One query
@@ -9,25 +9,41 @@
 // its block table, with an online softmax in f32 (scale 1/sqrt(head_dim)),
 // mask `pos < seq_len` and, with a sliding window, `pos >= seq_len - window`
 // (pages wholly below the window are never read). A `seq_len == 0` slot
-// writes zeros.
+// writes zeros. Like the TPU kernel, one launch carries each sequence end to
+// end: no workspace, no second pass, no atomics (two calls give the same
+// bits).
 //
 // Bound on this card: bytes. Every K and V row of every live position is
 // read once and used for 2*group FLOPs per element, far below the ~295
 // FLOP/byte at which an H100 turns compute-bound. At the flagship decode
 // shape (batch 8, 2048 tokens, 8 kv heads, head_dim 128) one layer call
-// must move 67.1 MB in bf16 (20.0 us at 3.35 TB/s) and 34.6 MB in int8
-// (33.55 MB of values plus 1.05 MB of scales: 10.3 us).
+// must move 67.2 MB in bf16 (20.0 us at 3.35 TB/s) and 34.7 MB in int8
+// (10.4 us).
 //
-// Design: one CTA per (sequence, kv head), one thread per head_dim lane,
-// walking all of the sequence's live positions (from the first page inside
-// the window) through the cp.async ring of paged_decode_common.cuh, which
-// moves K/V once per kv head for the whole GQA group and keeps int8 scales
-// out of the inner products. Block-table entries past
-// ceil(seq_len / page_size) are never read. Not yet done (later work): a
-// split over the sequence for small batches (batch 8 x 8 heads is 64 CTAs on
-// 132 SMs; paged_decode_tiled.cu splits), wgmma and TMA.
+// bf16 pages (the pods' main path). The first port ran one 128-thread CTA
+// per (sequence, kv head) over the body of paged_decode_common.cuh: 64 CTAs
+// on 132 SMs at batch 8, and 8 CTAs at batch 1, the shape a pod decodes one
+// request at; the body itself stalled between loads (paged_decode_sm90.cuh
+// lists where). Here the live pages of each (sequence, kv head) are split
+// over a thread-block cluster of `cluster` CTAs (grid cluster x kv heads x
+// batch, the cluster along x), each running the body of
+// paged_decode_sm90.cuh over a contiguous share and leaving its partial
+// (m, l, acc) in its own shared memory. After a cluster barrier each rank
+// merges one slice of the head_dim columns from every rank through
+// distributed shared memory, in rank order, and writes the normalized
+// output; a second cluster barrier keeps every CTA's shared memory alive
+// until its peers have read it. A rank with no live page still reaches both
+// barriers with m = -inf, l = 0. The cluster size (a power of two, at most
+// the portable 8) comes from the shapes: ops/paged_attention.py
+// `decode_plan`.
+//
+// f32 and int8 pages keep the first port's design: one CTA per (sequence,
+// kv head) over the body of paged_decode_common.cuh.
+
+#include <cooperative_groups.h>
 
 #include "paged_decode_common.cuh"
+#include "paged_decode_sm90.cuh"
 
 namespace {
 
@@ -60,6 +76,62 @@ __global__ void __launch_bounds__(HD) paged_decode_kernel(
   }
 }
 
+// bf16 pages: rank blockIdx.x of the cluster of (sequence blockIdx.z, kv head
+// blockIdx.y) attends over its share of the live pages; the cluster then
+// merges through distributed shared memory.
+template <int HD, int GROUP>
+__global__ void __launch_bounds__(sm90::kThreads, 2) paged_decode_cluster_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_pages,
+    const __nv_bfloat16* __restrict__ v_pages, const int* __restrict__ block_tables,
+    const int* __restrict__ seq_lens, __nv_bfloat16* __restrict__ out, int n_q, int n_pages,
+    int page_size, int table_width, int window, float scale_log2) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_ranks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int seq_len = seq_lens[b];
+  // Positions past the table do not exist, as in the plain version's gather.
+  const int kv_len = min(seq_len, table_width * page_size);
+  const int first_page = window < 0 ? 0 : max(seq_len - window, 0) / page_size;
+  const int win_lo = window < 0 ? 0 : seq_len - window;
+  const int n_seq_pages = (kv_len + page_size - 1) / page_size;
+  const int per_rank = (max(n_seq_pages - first_page, 0) + n_ranks - 1) / n_ranks;
+  const int lo_page = first_page + rank * per_rank;
+  const int hi_page = min(lo_page + per_rank, n_seq_pages);
+  const size_t q0 = (static_cast<size_t>(b) * n_q + h * GROUP) * HD;
+
+  const float* part = sm90::attend_range<__nv_bfloat16, __nv_bfloat16, HD, GROUP>(
+      q + q0, k_pages, v_pages, block_tables + static_cast<size_t>(b) * table_width,
+      static_cast<size_t>(h) * n_pages, n_pages, page_size, lo_page * page_size,
+      min(hi_page * page_size, kv_len), win_lo, scale_log2);
+
+  cluster.sync();  // every rank's partial is in its shared memory
+  const int cols = HD / n_ranks;
+  for (int i = threadIdx.x; i < GROUP * cols; i += blockDim.x) {
+    const int g = i / cols;
+    const int col = rank * cols + i % cols;
+    float mm = -INFINITY;
+    for (int r = 0; r < n_ranks; ++r) {
+      mm = fmaxf(mm, cluster.map_shared_rank(part, r)[GROUP * HD + g]);
+    }
+    float ll = 0.f, a = 0.f;
+    if (mm != -INFINITY) {
+      for (int r = 0; r < n_ranks; ++r) {
+        const float* pr = cluster.map_shared_rank(part, r);
+        const float mr = pr[GROUP * HD + g];
+        if (mr == -INFINITY) continue;  // a rank with no live position
+        const float f = exp2f(mr - mm);
+        ll = fmaf(f, pr[GROUP * HD + GROUP + g], ll);
+        a = fmaf(f, pr[g * HD + col], a);
+      }
+    }
+    out[q0 + g * HD + col] = __float2bfloat16(ll == 0.f ? 0.f : a / ll);
+  }
+  cluster.sync();  // no CTA leaves while a peer may still read its partial
+}
+
 struct Args {
   const void* q;
   const void* k;
@@ -69,23 +141,53 @@ struct Args {
   const int* bt;
   const int* sl;
   void* out;
-  int batch, n_q, n_kv, n_pages, page_size, table_width, window;
+  int batch, n_q, n_kv, n_pages, page_size, table_width, window, cluster;
   float scale;
   cudaStream_t stream;
 };
 
+// f32 and int8 pages: one CTA per (sequence, kv head).
 template <typename TQ, typename TKV, int HD, int GROUP>
 cudaError_t launch(const Args& a) {
-  const size_t smem = DecodeSmem<TKV, HD, GROUP>::bytes;
+  const int smem = static_cast<int>(DecodeSmem<TKV, HD, GROUP>::bytes);
   auto kernel = paged_decode_kernel<TQ, TKV, HD, GROUP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  static std::atomic<unsigned> attributes_set{0};
+  const cudaError_t attr = sm90::set_attributes(kernel, smem, attributes_set);
+  if (attr != cudaSuccess) return attr;
   kernel<<<dim3(a.batch, a.n_kv), HD, smem, a.stream>>>(
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), a.ks, a.vs, a.bt, a.sl,
       static_cast<TQ*>(a.out), a.n_q, a.n_pages, a.page_size, a.table_width,
       a.window, a.scale);
+  return cudaGetLastError();
+}
+
+// bf16 pages: one cluster of `a.cluster` CTAs per (sequence, kv head).
+template <int HD, int GROUP>
+cudaError_t launch_cluster(const Args& a) {
+  constexpr int smem = sm90::Smem<__nv_bfloat16, HD, GROUP>::bytes;
+  static std::atomic<unsigned> attributes_set{0};
+  cudaError_t err =
+      sm90::set_attributes(paged_decode_cluster_kernel<HD, GROUP>, smem, attributes_set);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = a.cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.cluster, a.n_kv, a.batch);
+  cfg.blockDim = dim3(sm90::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, paged_decode_cluster_kernel<HD, GROUP>, static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k), static_cast<const __nv_bfloat16*>(a.v), a.bt,
+      a.sl, static_cast<__nv_bfloat16*>(a.out), a.n_q, a.n_pages, a.page_size, a.table_width,
+      a.window, a.scale * 1.4426950408889634f);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -100,37 +202,52 @@ cudaError_t dispatch_group(int group, const Args& a) {
   }
 }
 
+cudaError_t dispatch_cluster(int group, const Args& a) {
+  switch (group) {
+    case 1: return launch_cluster<128, 1>(a);
+    case 2: return launch_cluster<128, 2>(a);
+    case 4: return launch_cluster<128, 4>(a);
+    case 8: return launch_cluster<128, 8>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q [batch, n_q, head_dim]; k/v pages [n_kv, n_pages, page_size, head_dim];
 // k/v scales [n_kv, n_pages, page_size, 1] f32 (int8 pages only, else null);
 // block_tables [batch, table_width] int32; seq_lens [batch] int32;
-// out [batch, n_q, head_dim]. window < 0: no sliding window. dtype (of q and
-// out) 0 = f32, 1 = bf16; kv_int8 0: pages in the dtype of q, 1: int8 pages
-// with scales. Returns the launch's cudaError_t.
+// out [batch, n_q, head_dim]. window < 0: no sliding window. cluster: CTAs
+// per (sequence, kv head) on bf16 pages, a power of two up to 8 (1 for f32
+// and int8 pages). dtype (of q and out) 0 = f32, 1 = bf16; kv_int8 0: pages
+// in the dtype of q, 1: int8 pages with scales.
+// Returns the launch's cudaError_t.
 extern "C" int kvt_paged_decode(const void* q, const void* k_pages,
                                 const void* v_pages, const void* k_scales,
                                 const void* v_scales, const void* block_tables,
                                 const void* seq_lens, void* out, int batch,
                                 int n_q, int n_kv, int n_pages, int page_size,
                                 int head_dim, int table_width, int window,
-                                float scale, int dtype, int kv_int8,
+                                int cluster, float scale, int dtype, int kv_int8,
                                 void* stream) {
+  const bool bf16_pages = dtype == 1 && !kv_int8;
   if (head_dim != 128 || n_kv <= 0 || n_q % n_kv != 0 || page_size <= 0 ||
-      (kv_int8 && (k_scales == nullptr || v_scales == nullptr))) {
+      (kv_int8 && (k_scales == nullptr || v_scales == nullptr)) || cluster <= 0 ||
+      cluster > 8 || (cluster & (cluster - 1)) || (!bf16_pages && cluster != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{q, k_pages, v_pages, static_cast<const float*>(k_scales),
                static_cast<const float*>(v_scales),
                static_cast<const int*>(block_tables),
                static_cast<const int*>(seq_lens), out, batch, n_q, n_kv,
-               n_pages, page_size, table_width, window, scale,
+               n_pages, page_size, table_width, window, cluster, scale,
                static_cast<cudaStream_t>(stream)};
   const int group = n_q / n_kv;
   cudaError_t err;
-  if (dtype == 1) {
-    err = kv_int8 ? dispatch_group<__nv_bfloat16, int8_t>(group, a)
-                  : dispatch_group<__nv_bfloat16, __nv_bfloat16>(group, a);
+  if (bf16_pages) {
+    err = dispatch_cluster(group, a);
+  } else if (dtype == 1) {
+    err = dispatch_group<__nv_bfloat16, int8_t>(group, a);
   } else if (dtype == 0) {
     err = kv_int8 ? dispatch_group<float, int8_t>(group, a)
                   : dispatch_group<float, float>(group, a);

@@ -1,7 +1,8 @@
-// The attention body shared by the two paged-decode kernels
+// The attention body of the two paged-decode kernels on f32 and int8 pages
 // (paged_decode.cu, one CTA per (sequence, kv head); paged_decode_tiled.cu,
 // one CTA per (sequence, kv head, split)): one query token's GQA group
-// attends over a contiguous range of one sequence's positions.
+// attends over a contiguous range of one sequence's positions. bf16 pages
+// run the Hopper body of paged_decode_sm90.cuh instead.
 //
 // One thread per head_dim lane. The range is walked 64 tokens at a time
 // through a two-stage cp.async ring, so the next chunk's K and V are in

@@ -1,7 +1,7 @@
 // Split-KV paged decoding attention for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_decode_kernel` of the reference package
-// (llm_d_kv_cache_manager_tpu/ops/paged_attention.py, reached through
+// (llm_d_kv_cache_manager_tpu/ops/paged_attention.py:78, reached through
 // `_paged_attention_call` from `paged_attention(pipelined=False)`), in both of
 // its instantiations: bf16/f32 pages, and int8 pages with f32 per-row scales
 // through `ops/quantized_kv.py::paged_attention_quantized(pipelined=False)`.
@@ -11,9 +11,9 @@
 // writes zeros.
 //
 // Bound on this card: bytes, as for paged_decode.cu. At batch 8 x 2048
-// tokens, 8 kv heads of 128: 67.1 MB in bf16 (20.0 us at 3.35 TB/s), 34.6 MB
-// in int8 (10.3 us); at batch 1 x 4096 tokens: 16.8 MB bf16 (5.0 us) and
-// 8.65 MB int8 (2.6 us). The partials this design adds (n_splits x group x
+// tokens, 8 kv heads of 128: 67.2 MB in bf16 (20.0 us at 3.35 TB/s), 34.7 MB
+// in int8 (10.4 us); at batch 1 x 4096 tokens: 16.8 MB bf16 (5.0 us) and
+// 8.7 MB int8 (2.6 us). The partials this design adds (n_splits x group x
 // (head_dim + 2) f32 per sequence and kv head) are under 2% of that.
 //
 // Design: on the TPU the page axis of the grid runs in order and carries the
@@ -21,19 +21,25 @@
 // order, so the page axis becomes a parallel split with a second pass. Grid
 // (sequence, kv head, split): each CTA takes a contiguous share of the
 // sequence's live pages (clipped to the window and to
-// ceil(seq_len / page_size), so padding slots of the table are never read),
-// attends over it with the cp.async ring of paged_decode_common.cuh (int8
-// scales kept out of the inner products there) and writes the GQA group's
-// (m, l, acc) unnormalized to an f32 workspace. A split with no live page
-// writes m = -inf, l = 0. The combine kernel, one CTA per (sequence, kv
-// head), rescales each split by exp(m_s - M), skips empty splits,
-// normalizes and writes zeros for an all-empty row. The wrapper picks
-// n_splits from the shapes alone (about two CTAs per SM), so batch 1 fills
-// the card where paged_decode.cu runs 8 CTAs. No atomics: the result is
-// deterministic. Not yet done (later work): wgmma, TMA, and a combine fused
-// into the last split to finish.
+// ceil(seq_len / page_size), so padding slots of the table are never read)
+// and writes the GQA group's (m, l, acc) unnormalized to an f32 workspace
+// (one tensor, m, l and acc its views). A split with no live page writes
+// m = -inf, l = 0. The combine kernel, one CTA per (sequence, kv head),
+// rescales each split by exp(m_s - M), skips empty splits, normalizes and
+// writes zeros for an all-empty row. The split count comes from the shapes
+// alone (ops/paged_attention.py `decode_plan`, which also sizes
+// paged_decode.cu's clusters). No atomics: the result is deterministic.
+//
+// bf16 pages run the body of paged_decode_sm90.cuh: the first port's split
+// over the body of paged_decode_common.cuh had CTAs enough (about 320 at
+// batch 8) but moved 27% of the card's bytes per second, stalling between loads
+// (four CTA barriers and a shared-memory score buffer per 64-token chunk, a
+// two-stage ring, a table read per 16-byte copy); the new body keeps the math
+// in registers behind a three-stage bulk-copy ring. f32 and int8 pages keep
+// the old body.
 
 #include "paged_decode_common.cuh"
+#include "paged_decode_sm90.cuh"
 
 namespace {
 
@@ -77,6 +83,44 @@ __global__ void __launch_bounds__(HD) split_decode_kernel(
       m_ws[part * GROUP + g] = m[g];
       l_ws[part * GROUP + g] = l[g];
     }
+  }
+}
+
+// The same partial on bf16 pages, through the body of paged_decode_sm90.cuh
+// (its m, in the log2 domain, goes to the workspace in natural units).
+template <int HD, int GROUP>
+__global__ void __launch_bounds__(sm90::kThreads, 2) split_decode_sm90_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_pages,
+    const __nv_bfloat16* __restrict__ v_pages, const int* __restrict__ block_tables,
+    const int* __restrict__ seq_lens, float* __restrict__ m_ws, float* __restrict__ l_ws,
+    float* __restrict__ acc_ws, int n_q, int n_pages, int page_size, int table_width,
+    int window, float scale_log2) {
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int split = blockIdx.z;
+  const int n_splits = gridDim.z;
+  const int seq_len = seq_lens[b];
+  const int kv_len = min(seq_len, table_width * page_size);
+  const int first_page = window < 0 ? 0 : max(seq_len - window, 0) / page_size;
+  const int win_lo = window < 0 ? 0 : seq_len - window;
+  const int n_seq_pages = (kv_len + page_size - 1) / page_size;
+  const int per_split = (max(n_seq_pages - first_page, 0) + n_splits - 1) / n_splits;
+  const int lo_page = first_page + split * per_split;
+  const int hi_page = min(lo_page + per_split, n_seq_pages);
+
+  const float* part = sm90::attend_range<__nv_bfloat16, __nv_bfloat16, HD, GROUP>(
+      q + (static_cast<size_t>(b) * n_q + h * GROUP) * HD, k_pages, v_pages,
+      block_tables + static_cast<size_t>(b) * table_width, static_cast<size_t>(h) * n_pages,
+      n_pages, page_size, lo_page * page_size, min(hi_page * page_size, kv_len), win_lo,
+      scale_log2);
+
+  const size_t slot = (static_cast<size_t>(b) * gridDim.y + h) * n_splits + split;
+  for (int i = threadIdx.x; i < GROUP * HD; i += blockDim.x) {
+    acc_ws[slot * GROUP * HD + i] = part[i];
+  }
+  if (threadIdx.x < GROUP) {
+    m_ws[slot * GROUP + threadIdx.x] = part[GROUP * HD + threadIdx.x] * sm90::kLn2;
+    l_ws[slot * GROUP + threadIdx.x] = part[GROUP * HD + GROUP + threadIdx.x];
   }
 }
 
@@ -128,23 +172,46 @@ struct Args {
   cudaStream_t stream;
 };
 
+template <typename TQ, int HD, int GROUP>
+cudaError_t combine(const Args& a) {
+  combine_kernel<TQ, HD, GROUP><<<dim3(a.batch, a.n_kv), HD, 0, a.stream>>>(
+      a.m_ws, a.l_ws, a.acc_ws, static_cast<TQ*>(a.out), a.n_q, a.n_splits);
+  return cudaGetLastError();
+}
+
+// f32 and int8 pages: the body of paged_decode_common.cuh.
 template <typename TQ, typename TKV, int HD, int GROUP>
 cudaError_t launch(const Args& a) {
-  const size_t smem = DecodeSmem<TKV, HD, GROUP>::bytes;
+  const int smem = static_cast<int>(DecodeSmem<TKV, HD, GROUP>::bytes);
   auto kernel = split_decode_kernel<TQ, TKV, HD, GROUP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  static std::atomic<unsigned> attributes_set{0};
+  const cudaError_t attr = sm90::set_attributes(kernel, smem, attributes_set);
+  if (attr != cudaSuccess) return attr;
   kernel<<<dim3(a.batch, a.n_kv, a.n_splits), HD, smem, a.stream>>>(
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), a.ks, a.vs, a.bt, a.sl, a.m_ws, a.l_ws,
       a.acc_ws, a.n_q, a.n_pages, a.page_size, a.table_width, a.window,
       a.scale);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  combine_kernel<TQ, HD, GROUP><<<dim3(a.batch, a.n_kv), HD, 0, a.stream>>>(
-      a.m_ws, a.l_ws, a.acc_ws, static_cast<TQ*>(a.out), a.n_q, a.n_splits);
-  return cudaGetLastError();
+  return combine<TQ, HD, GROUP>(a);
+}
+
+// bf16 pages: the body of paged_decode_sm90.cuh.
+template <int HD, int GROUP>
+cudaError_t launch_sm90(const Args& a) {
+  const int smem = sm90::Smem<__nv_bfloat16, HD, GROUP>::bytes;
+  auto kernel = split_decode_sm90_kernel<HD, GROUP>;
+  static std::atomic<unsigned> attributes_set{0};
+  const cudaError_t attr = sm90::set_attributes(kernel, smem, attributes_set);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<dim3(a.batch, a.n_kv, a.n_splits), sm90::kThreads, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), a.bt, a.sl, a.m_ws, a.l_ws, a.acc_ws, a.n_q,
+      a.n_pages, a.page_size, a.table_width, a.window, a.scale * 1.4426950408889634f);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return combine<__nv_bfloat16, HD, GROUP>(a);
 }
 
 template <typename TQ, typename TKV>
@@ -154,6 +221,16 @@ cudaError_t dispatch_group(int group, const Args& a) {
     case 2: return launch<TQ, TKV, 128, 2>(a);
     case 4: return launch<TQ, TKV, 128, 4>(a);
     case 8: return launch<TQ, TKV, 128, 8>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch_sm90(int group, const Args& a) {
+  switch (group) {
+    case 1: return launch_sm90<128, 1>(a);
+    case 2: return launch_sm90<128, 2>(a);
+    case 4: return launch_sm90<128, 4>(a);
+    case 8: return launch_sm90<128, 8>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -189,8 +266,7 @@ extern "C" int kvt_paged_decode_tiled(
   const int group = n_q / n_kv;
   cudaError_t err;
   if (dtype == 1) {
-    err = kv_int8 ? dispatch_group<__nv_bfloat16, int8_t>(group, a)
-                  : dispatch_group<__nv_bfloat16, __nv_bfloat16>(group, a);
+    err = kv_int8 ? dispatch_group<__nv_bfloat16, int8_t>(group, a) : dispatch_sm90(group, a);
   } else if (dtype == 0) {
     err = kv_int8 ? dispatch_group<float, int8_t>(group, a)
                   : dispatch_group<float, float>(group, a);

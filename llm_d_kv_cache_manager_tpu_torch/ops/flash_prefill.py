@@ -76,15 +76,19 @@ def dense_attention(
     return out.reshape(b, l, n_q, hd).to(q.dtype)
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The C signature of csrc/flash_prefill.cu's entry point.
+_ARGTYPES = {"kvt_flash_prefill": [_P] * 4 + [_I, _P] + [_I] * 7 + [ctypes.c_float, _I, _P]}
+
+
 def _kernel() -> ctypes.CDLL:
     from llm_d_kv_cache_manager_tpu_torch.ops import _build
 
     lib = _build.library("flash_prefill")
     fn = lib.kvt_flash_prefill
     if fn.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 4 + [i32, ptr] + [i32] * 7 + [ctypes.c_float, i32, ptr]
-        fn.restype = i32
+        fn.argtypes = _ARGTYPES["kvt_flash_prefill"]
+        fn.restype = _I
     return lib
 
 

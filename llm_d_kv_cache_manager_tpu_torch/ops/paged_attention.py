@@ -10,16 +10,18 @@ events the control plane ingests.
   softmax in f32). A `seq_len == 0` slot yields zeros, as the kernel does.
 - `paged_attention`: the wrapper, with the reference's `pipelined` switch
   (default False). On CUDA tensors it launches a hand-written kernel,
-  `csrc/paged_decode.cu` (pipelined) or the split-KV
-  `csrc/paged_decode_tiled.cu` (tiled); on CPU tensors it runs the plain
-  version. It never falls back from CUDA to the plain version.
+  `csrc/paged_decode.cu` (pipelined: on bf16 pages one cluster launch) or
+  the split-KV `csrc/paged_decode_tiled.cu` (tiled); on CPU tensors it runs
+  the plain version. It never falls back from CUDA to the plain version.
   `ops/quantized_kv.py` launches the same two kernels on int8 pages.
+- `decode_plan`: the launch shape of both kernels, from the shapes alone.
 - `write_kv_pages`: scatter of new K/V rows into their pages.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -82,9 +84,42 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: pointers, then int shape arguments, then scale, dtype,
 # kv_int8 and the stream (csrc/paged_decode.cu, csrc/paged_decode_tiled.cu).
 _ARGTYPES = {
-    "kvt_paged_decode": [_P] * 8 + [_I] * 8 + [_F, _I, _I, _P],
+    "kvt_paged_decode": [_P] * 8 + [_I] * 9 + [_F, _I, _I, _P],
     "kvt_paged_decode_tiled": [_P] * 11 + [_I] * 9 + [_F, _I, _I, _P],
 }
+
+_STAGE_TOKENS = 64  # tokens a CTA of either decode kernel moves per ring stage
+_MAX_CLUSTER = 8  # the portable cluster size: every Hopper launch may ask for it
+
+
+def decode_plan(batch: int, n_kv: int, table_width: int, page_size: int,
+                n_sms: int) -> tuple:
+    """(cluster, n_splits): the CTAs per (sequence, kv head) of the
+    pipelined kernel on bf16 pages (one thread-block cluster) and of the
+    tiled kernel (a grid-level split), from the shapes alone (no read of
+    seq_lens).
+
+    Both split each (sequence, kv head) as far as one CTA per SM allows
+    (more CTAs read slower on an H100: each extra CTA adds its start-up,
+    its merge and, in the tiled kernel, a partial for the combine pass),
+    never into more parts than the table has pages or 64-token stages. The
+    cluster is that count rounded down to a power of two, at most 8."""
+    pairs = batch * n_kv
+    cap = max(1, min(table_width, table_width * page_size // _STAGE_TOKENS))
+    n_splits = max(1, min(n_sms // pairs, cap))
+    cluster = 1
+    while 2 * cluster <= min(_MAX_CLUSTER, n_splits):
+        cluster *= 2
+    return cluster, n_splits
+
+
+def old_body_splits(batch: int, n_kv: int, table_width: int, n_sms: int) -> int:
+    """The tiled kernel's split count on f32 and int8 pages, which keep the
+    body of csrc/paged_decode_common.cuh (128-thread CTAs, several to an
+    SM): about two CTAs per SM, never more splits than the table has pages.
+    decode_plan's one CTA per SM reads slower there at batch 8 on an
+    H100."""
+    return max(1, min(-(-2 * n_sms // (batch * n_kv)), table_width))
 
 
 def _kernel_fn(source: str, fn_name: str):
@@ -145,6 +180,22 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _plan(device: torch.device, batch: int, n_kv: int, table_width: int,
+          page_size: int, bf16_pages: bool) -> tuple:
+    """(cluster, n_splits) for this launch: decode_plan with the card's SM
+    count on bf16 pages; old_body_splits and no cluster on f32 and int8
+    pages."""
+    n_sms = _sm_count(device)
+    if not bf16_pages:
+        return 1, old_body_splits(batch, n_kv, table_width, n_sms)
+    return decode_plan(batch, n_kv, table_width, page_size, n_sms)
+
+
 def launch_decode(q, k_pages, v_pages, block_tables, seq_lens, window, *,
                   pipelined: bool, scales=None) -> torch.Tensor:
     """Launch `csrc/paged_decode.cu` (pipelined) or
@@ -165,22 +216,23 @@ def launch_decode(q, k_pages, v_pages, block_tables, seq_lens, window, *,
         1.0 / (head_dim**0.5), _DTYPE_CODE[q.dtype], int(scales is not None),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
+    cluster, n_splits = _plan(
+        q.device, batch, n_kv, table_width, page_size,
+        bf16_pages=q.dtype == torch.bfloat16 and scales is None,
+    )
     if pipelined:
         name = "paged_decode"
         err = _kernel_fn(name, "kvt_paged_decode")(
             *common, _ptr(out), batch, n_q, n_kv, n_pages, page_size, head_dim,
-            table_width, window_arg, *tail,
+            table_width, window_arg, cluster, *tail,
         )
     else:
         name = "paged_decode_tiled"
-        # About two CTAs per SM, never more splits than the table has pages;
-        # from the shapes alone (no read of seq_lens).
-        n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        n_splits = max(1, min(-(-2 * n_sms // (batch * n_kv)), table_width))
-        part = (batch, n_kv, n_splits, n_q // n_kv)
-        m_ws = torch.empty(part, dtype=torch.float32, device=q.device)
-        l_ws = torch.empty_like(m_ws)
-        acc_ws = torch.empty(part + (head_dim,), dtype=torch.float32, device=q.device)
+        # One f32 workspace: m and l [batch, n_kv, n_splits, group], then acc
+        # [..., group, head_dim].
+        n = batch * n_kv * n_splits * (n_q // n_kv)
+        ws = torch.empty(n * (head_dim + 2), dtype=torch.float32, device=q.device)
+        m_ws, l_ws, acc_ws = ws[:n], ws[n:2 * n], ws[2 * n:]
         err = _kernel_fn(name, "kvt_paged_decode_tiled")(
             *common, _ptr(m_ws), _ptr(l_ws), _ptr(acc_ws), _ptr(out), batch, n_q,
             n_kv, n_pages, page_size, head_dim, table_width, window_arg,
@@ -202,8 +254,9 @@ def paged_attention(
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """Flash-decoding paged attention: on CUDA tensors the kernel of the
-    chosen variant (`pipelined=True`: `csrc/paged_decode.cu`, one CTA per
-    sequence and kv head; False: the split-KV `csrc/paged_decode_tiled.cu`),
+    chosen variant (`pipelined=True`: `csrc/paged_decode.cu`, one launch, on
+    bf16 pages a thread-block cluster per sequence and kv head; False: the
+    split-KV `csrc/paged_decode_tiled.cu` and its combine pass),
     on CPU tensors the plain version. Entries of a block table past
     ceil(seq_len / page_size) are never read."""
     global launches, tiled_launches

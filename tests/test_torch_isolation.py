@@ -26,7 +26,7 @@ def _is_forbidden(module: str) -> bool:
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + sorted(REPO.glob("chip_*.py"))
 
 
 @pytest.mark.parametrize(

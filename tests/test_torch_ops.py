@@ -4,8 +4,14 @@ Inputs come from seeded numpy and go through both packages; the JAX Pallas
 kernels run in interpret mode on the CPU, as the JAX package's own tests run
 them. On CPU tensors the port's wrappers run their plain torch versions
 (the CUDA kernels are held against those same versions on the card by
-chip_smoke.py). f32 throughout; tolerance atol = rtol = 1e-5.
+chip_smoke.py). f32 throughout; tolerance atol = rtol = 1e-5. Also on the
+CPU: the decode kernels' launch plan, and the ctypes argument lists against
+the C entry points they call.
 """
+
+import ctypes
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -100,6 +106,82 @@ def test_paged_attention_tiled_matches_tiled_kernel(case):
     want, got = _both_paged(inputs, seq_lens, window=window, pipelined=False)
     np.testing.assert_allclose(got, want, **TOL)
     assert port_paged.tiled_launches == before
+
+
+# (batch, n_kv, table_width, page_size, n_sms): the flagship's decode shapes
+# on an H100's 132 SMs, the pod's padded tables, narrow tables and page 128.
+PLAN_CASES = {
+    "serving_b1_table128": (1, 8, 128, 16, 132),
+    "b2_ctx2048": (2, 8, 128, 16, 132),
+    "b1_ctx4096": (1, 8, 256, 16, 132),
+    "b8_ctx2048": (8, 8, 128, 16, 132),
+    "b8_trash_padded": (8, 8, 129, 16, 132),
+    "narrow_width1": (1, 8, 1, 16, 132),
+    "narrow_width2": (1, 8, 2, 16, 132),
+    "narrow_width2_b8": (8, 8, 2, 16, 132),
+    "page128_b1": (1, 8, 16, 128, 132),
+    "page128_width1": (1, 8, 1, 128, 132),
+    "page128_b8": (8, 8, 16, 128, 132),
+    "large_batch": (64, 8, 256, 16, 132),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_decode_plan(case):
+    batch, n_kv, width, page, n_sms = PLAN_CASES[case]
+    cluster, n_splits = port_paged.decode_plan(batch, n_kv, width, page, n_sms)
+    # Neither split exceeds the table's pages.
+    assert 1 <= n_splits <= width and 1 <= cluster <= width
+    # The cluster is a power of two no larger than the split and the
+    # portable 8, so it divides the pipelined kernel's grid (cluster x n_kv x
+    # batch, the cluster along x) and head_dim 128 (each rank merges an
+    # equal slice of the columns).
+    assert cluster & (cluster - 1) == 0 and cluster <= n_splits
+    assert 128 % cluster == 0 and cluster <= 8
+    # At most one CTA per SM once the pairs alone do not fill the card.
+    if batch * n_kv < n_sms:
+        assert batch * n_kv * max(cluster, n_splits) <= n_sms
+    # Batch 1 x 8 kv heads fills the card where the table allows it.
+    if batch == 1 and n_kv == 8 and width * page >= 16 * 64:
+        assert batch * n_kv * cluster >= 64 and batch * n_kv * n_splits >= 64
+
+
+@pytest.mark.parametrize("batch, width, want",
+                         [(8, 129, 5), (1, 128, 33), (1, 2, 2), (64, 256, 1)])
+def test_old_body_splits_keep_two_ctas_per_sm(batch, width, want):
+    """f32 and int8 pages keep the first port's split rule (about two CTAs
+    per SM)."""
+    assert port_paged.old_body_splits(batch, 8, width, 132) == want
+
+
+_CTYPE = {"ptr": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
+_CSRC = Path(port_paged.__file__).resolve().parent.parent / "csrc"
+
+
+def _c_signatures() -> dict:
+    """Every `extern "C" int kvt_*` entry point of csrc/*.cu: name -> the
+    ctypes kind of each parameter."""
+    sigs = {}
+    for path in sorted(_CSRC.glob("*.cu")):
+        for name, params in re.findall(
+                r'extern "C" int (kvt_\w+)\(([^)]*)\)', path.read_text()):
+            kinds = []
+            for param in params.split(","):
+                decl = " ".join(param.split())
+                kind = "ptr" if "*" in decl else decl.rsplit(" ", 1)[0].replace("const ", "")
+                kinds.append(_CTYPE[kind])
+            sigs[name] = kinds
+    return sigs
+
+
+@pytest.mark.parametrize("fn_name", ["kvt_flash_prefill", "kvt_paged_decode",
+                                     "kvt_paged_decode_tiled"])
+def test_ctypes_argtypes_match_c_signatures(fn_name):
+    """A ctypes argument list that disagrees with the C entry point cuts
+    pointers or shifts arguments silently on the card."""
+    sigs = _c_signatures()
+    assert sorted(sigs) == sorted({**port_paged._ARGTYPES, **port_flash._ARGTYPES})
+    assert sigs[fn_name] == {**port_paged._ARGTYPES, **port_flash._ARGTYPES}[fn_name]
 
 
 def test_paged_attention_bad_grouping_raises():
