@@ -7,18 +7,20 @@ Shows that the kernel-vs-plain bars of chip_smoke.py catch a kernel that
 drops or leaks work. Each planted fault is built from a mutated copy of its
 kernel sources, written only under the package's build/planted/ directory:
 
-  - paged_decode (pipelined decode, the f32 and int8 pages of
-    paged_decode_common.cuh): the second 64-token chunk of every sequence is
-    skipped;
-  - paged_decode_tiled (split-KV decode, the same body): the second page of
-    every split is dropped (both planted in the body the two sources share,
-    each in its own source's build only);
-  - decode_sm90_stage (both decode sources on bf16 pages, the body of
-    paged_decode_sm90.cuh): the second 64-token stage of every CTA's range
-    is skipped;
-  - decode_cluster_rank (pipelined decode on bf16 pages): cluster rank 0's
-    partial is left out of the merge through distributed shared memory;
-  - decode_combine_split (split-KV decode): the combine pass drops split 1;
+  - decode_sm90_stage (both decode sources for bf16 q, on bf16 and int8
+    pages: the body of paged_decode_sm90.cuh): the second 64-token stage of
+    every CTA's range is skipped;
+  - decode_cluster_rank (pipelined decode for bf16 q, both page formats):
+    cluster rank 0's partial is left out of the merge through distributed
+    shared memory;
+  - decode_combine_split (split-KV decode, both page formats): the combine
+    pass drops split 1;
+  - paged_decode (pipelined decode for f32 q, on f32 and int8 pages: the
+    first port's body, paged_decode_common.cuh): the second 64-token chunk
+    of every sequence is skipped;
+  - paged_decode_tiled (split-KV decode for f32 q, the same body): the
+    second page of every split is dropped (both planted in the body the two
+    sources share, each in its own source's build only);
   - flash_prefill: the second live 128-key block of every q-block is skipped
     by the bf16 (wgmma) kernel;
   - flash_prefill_diagonal: the k-block on each q-block's causal diagonal
@@ -31,8 +33,12 @@ decode-logits check of each decode kernel the fault targets, and its
 flagship prefill-logits check for the flash faults. Every case's errors are
 printed beside its bar, then one JSON summary line. Exits non-zero unless
 the real kernels pass every case and every logits bar, and each mutant
-fails the main-shape bf16 case and the logits bar of every kernel it
-targets.
+fails the main-shape case (batch 8, page 16, no window) and the logits bar
+of every kernel it targets. The main-shape case is the bf16 one, except for
+the two faults of the first port's body, which bf16 q no longer reaches:
+they are held to the f32 case of each row they target ("paged_decode f32
+page=16 window=None B=8" and its three siblings) and to no logits bar (the
+flagship logits run in bf16).
 """
 
 from __future__ import annotations
@@ -49,59 +55,67 @@ from llm_d_kv_cache_manager_tpu_torch.models import llama
 from llm_d_kv_cache_manager_tpu_torch.ops import _build
 
 # Planted fault -> (kernel sources it is built into, file of csrc/ holding
-# the line, line, faulty line, the chip_smoke kernels it must fail).
+# the line, line, faulty line, the chip_smoke kernels it must fail, the dtype
+# of the main-shape case it must fail them in).
 MUTANTS = {
-    "paged_decode": (
-        ("paged_decode",), "paged_decode_common.cuh",
-        "const int t_end = min(kChunk, pos_end - c_start);",
-        "const int t_end = c == 1 ? 0 : min(kChunk, pos_end - c_start);",
-        ("paged_decode_int8",),
-    ),
-    "paged_decode_tiled": (
-        ("paged_decode_tiled",), "paged_decode_common.cuh",
-        "const bool live = t < t_end && pos >= win_lo;",
-        "const bool live = t < t_end && pos >= win_lo && pos / page_size != pos0 / page_size + 1;",
-        ("paged_decode_tiled_int8",),
-    ),
     "decode_sm90_stage": (
         ("paged_decode", "paged_decode_tiled"), "paged_decode_sm90.cuh",
         "const int n_valid = min(kStage, pos_end - s_start);",
         "const int n_valid = c == 1 ? 0 : min(kStage, pos_end - s_start);",
-        ("paged_decode", "paged_decode_tiled"),
+        ("paged_decode", "paged_decode_int8", "paged_decode_tiled", "paged_decode_tiled_int8"),
+        "bf16",
     ),
     "decode_cluster_rank": (
         ("paged_decode",), "paged_decode.cu",
         "const float* pr = cluster.map_shared_rank(part, r);",
         "if (r == 0 && n_ranks > 1) continue;\n        "
         "const float* pr = cluster.map_shared_rank(part, r);",
-        ("paged_decode",),
+        ("paged_decode", "paged_decode_int8"), "bf16",
     ),
     "decode_combine_split": (
         ("paged_decode_tiled",), "paged_decode_tiled.cu",
         "if (m == -INFINITY) continue;  // a split with no live position",
         "if (m == -INFINITY || s == 1) continue;",
-        ("paged_decode_tiled",),
+        ("paged_decode_tiled", "paged_decode_tiled_int8"), "bf16",
+    ),
+    "paged_decode": (
+        ("paged_decode",), "paged_decode_common.cuh",
+        "const int t_end = min(kChunk, pos_end - c_start);",
+        "const int t_end = c == 1 ? 0 : min(kChunk, pos_end - c_start);",
+        ("paged_decode", "paged_decode_int8"), "f32",
+    ),
+    "paged_decode_tiled": (
+        ("paged_decode_tiled",), "paged_decode_common.cuh",
+        "const bool live = t < t_end && pos >= win_lo;",
+        "const bool live = t < t_end && pos >= win_lo && pos / page_size != pos0 / page_size + 1;",
+        ("paged_decode_tiled", "paged_decode_tiled_int8"), "f32",
     ),
     "flash_prefill": (
         ("flash_prefill",), "flash_prefill.cu",
         "const int k0 = j * kBK;",
         "const int k0 = j * kBK;\n    if (j == first_blk + 1) continue;",
-        ("flash_prefill",),
+        ("flash_prefill",), "bf16",
     ),
     "flash_prefill_diagonal": (
         ("flash_prefill",), "flash_prefill.cu",
         "const bool interior = k0 + kBK - 1 <= hi_all && k0 >= lo_all;",
         "const bool interior = k0 <= hi_all && k0 >= lo_all;",
-        ("flash_prefill",),
+        ("flash_prefill",), "bf16",
     ),
 }
+
+
+def main_case(kernel: str, dtype: str) -> str:
+    """chip_smoke's case of `kernel` at the main path's shape, in `dtype`
+    ("bf16" or "f32")."""
+    return chip_smoke.MAIN_CASES[kernel].replace(" bf16 ", f" {dtype} ")
 
 
 def build_mutant(name: str) -> dict:
     """Build fault `name` into a copy of each of its kernel sources and the
     headers under build/planted/<name>/ (a shared header's fault reaches only
     these builds): {source: library}."""
-    sources, target, old, new, _ = MUTANTS[name]
+    sources, target, old, new, _, _ = MUTANTS[name]
     out_dir = _build.BUILD_DIR / "planted" / name
     out_dir.mkdir(parents=True, exist_ok=True)
     for path in [*_build.CSRC_DIR.glob("*.cu"), *_build.CSRC_DIR.glob("*.cuh")]:
@@ -175,14 +189,14 @@ def main() -> int:
         **run_decode_logits("real", chip_smoke.DECODE_ROWS, params, cfg, params32, cfg32),
         **run_prefill_logits("real", params, cfg, params32, cfg32)}}
     for name, libs in mutants.items():
-        targets = MUTANTS[name][-1]
+        *_, targets, dtype = MUTANTS[name]
         label = f"{name}-mutant"
         chip_smoke.log(f"== {label}")
         _build._libs.update(libs)
         rows += run_cases(label, sources=tuple(libs))
         if targets == ("flash_prefill",):
             logits_ok[label] = run_prefill_logits(label, params, cfg, params32, cfg32)
-        else:
+        elif dtype == "bf16":
             logits_ok[label] = run_decode_logits(label, targets, params, cfg, params32, cfg32)
         _build._libs.update({source: real[source] for source in libs})
 
@@ -190,8 +204,8 @@ def main() -> int:
         logits_ok["real"].values())
     main_rows = {
         f"{name}/{kernel}": next(r for r in rows if r["variant"] == f"{name}-mutant"
-                                 and r["case"] == chip_smoke.MAIN_CASES[kernel])
-        for name, (*_, targets) in MUTANTS.items() for kernel in targets
+                                 and r["case"] == main_case(kernel, dtype))
+        for name, (*_, targets, dtype) in MUTANTS.items() for kernel in targets
     }
     caught = {key: not r["ok"] for key, r in main_rows.items()}
     logits_caught = {label: not any(ok.values())

@@ -10,13 +10,14 @@ Phases, in order (any failure raises and the script exits non-zero):
   3. kernel vs plain: each of the five kernels (paged decode pipelined and
      tiled, each on bf16/f32 and on int8 pages, and flash prefill) against
      its plain torch version in bf16 and f32 over edge cases (zero/one-token
-     sequences, page boundaries, pages of 16/64/128, windows, GQA groups 1-8,
-     sequences short enough to leave splits and cluster ranks empty, a
-     window inside one split's share or inside a page's second stage,
-     prefix-hit offsets, padded chunks, per-batch offsets, both flash tile
-     plans, bf16 flash at head_dim 64 too), the tiled decode against the
-     pipelined one at f32 on both page formats, and two calls of each bf16
-     decode kernel bit for bit;
+     sequences, page boundaries, pages of 16/64/128 and 17 (not a multiple
+     of 4), windows, GQA groups 1-8, sequences short enough to leave splits
+     and cluster ranks empty, a window inside one split's share or inside a
+     page's second stage, prefix-hit offsets, padded chunks, per-batch
+     offsets, both flash tile plans, bf16 flash at head_dim 64 too), the
+     tiled decode against the pipelined one at f32 on both page formats, and
+     two calls of each decode kernel for bf16 q (both page formats) bit for
+     bit;
   4. times at the main path's shapes: kernel, plain version, the card's
      bound, and SDPA as a library yardstick that the port itself never calls
      (none exists for int8 pages), each the median of 10 replays of a CUDA
@@ -84,8 +85,10 @@ PEAK_BF16_FLOPS = 989e12
 # the dequantized K/V to bf16 as the reference does, where the kernels keep
 # them in f32. Each limit is a few times the largest row error the kernel
 # showed on an H100 and far below what a kernel that skips one 64-token
-# chunk, page or k-block of keys shows (chip_fault_check.py). Rows whose
-# plain output is all zeros (seq_len 0) must be exactly zero.
+# chunk or stage, page or k-block of keys shows (chip_fault_check.py); the
+# int8 limits, set on the first port's body, hold unchanged for the Hopper
+# body that bf16 q now runs on int8 pages too. Rows whose plain output is
+# all zeros (seq_len 0) must be exactly zero.
 F32_TOL = (1e-4, 1e-4)
 BF16_ROW_REL = {
     "paged_decode": 4e-3,
@@ -351,6 +354,10 @@ SPLIT_CASES = (
     # Page 128 holds two 64-token stages; the window starts in the second
     # (2,047 - 50 = 1,997 > 1,920 + 64), so the first stage is all masked.
     ("page=128 window=50 in a page's second stage", [2047, 1000, 130], 128, 50),
+    # A page size that is not a multiple of 4 (the table holds 120 pages of
+    # 17, 2,040 positions): page pieces and int8 scale runs start at any row.
+    ("page=17", [0, 1, 16, 17, 18, 35, 1000, 2040], 17, None),
+    ("page=17 window=100", [2040, 1500, 90, 17], 17, 100),
 )
 
 # The case of each kernel at the main path's shape (bf16, batch 8 x 2048
@@ -439,12 +446,14 @@ def kernel_cases(gen):
 
 
 def determinism_checks(gen) -> int:
-    """Two calls of each bf16-page decode kernel on the same inputs give the
-    same bits (no atomics; phase 6's multi-step check relies on it)."""
+    """Two calls of each decode kernel for bf16 q (cluster merge, split and
+    combine; bf16 and int8 pages) on the same inputs give the same bits (no
+    atomics; phase 6's multi-step check relies on it)."""
     n = 0
-    for row in ("paged_decode", "paged_decode_tiled"):
+    for row, spec in DECODE_ROWS.items():
         for lens in (SPLIT_LENS, [0, 1, PAGE, PAGE + 1, 2 * PAGE, 1000, 2047, 2048]):
-            q, pages, tables, lens_t = decode_inputs(gen, torch.bfloat16, len(lens), lens, PAGE)
+            q, pages, tables, lens_t = decode_inputs(gen, torch.bfloat16, len(lens), lens, PAGE,
+                                                     int8=spec["int8"])
             first = run_decode(row, q, pages, tables, lens_t)
             second = run_decode(row, q, pages, tables, lens_t)
             torch.cuda.synchronize()

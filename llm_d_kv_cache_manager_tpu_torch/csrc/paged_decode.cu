@@ -20,11 +20,12 @@
 // must move 67.2 MB in bf16 (20.0 us at 3.35 TB/s) and 34.7 MB in int8
 // (10.4 us).
 //
-// bf16 pages (the pods' main path). The first port ran one 128-thread CTA
-// per (sequence, kv head) over the body of paged_decode_common.cuh: 64 CTAs
-// on 132 SMs at batch 8, and 8 CTAs at batch 1, the shape a pod decodes one
-// request at; the body itself stalled between loads (paged_decode_sm90.cuh
-// lists where). Here the live pages of each (sequence, kv head) are split
+// bf16 q, on bf16 or int8 pages (the pods' main path). The first port ran one
+// 128-thread CTA per (sequence, kv head) over the body of
+// paged_decode_common.cuh: 64 CTAs on 132 SMs at batch 8, and 8 CTAs at
+// batch 1, the shape a pod decodes one request at; the body itself stalled
+// between loads (paged_decode_sm90.cuh lists where). Here the live pages of
+// each (sequence, kv head) are split
 // over a thread-block cluster of `cluster` CTAs (grid cluster x kv heads x
 // batch, the cluster along x), each running the body of
 // paged_decode_sm90.cuh over a contiguous share and leaving its partial
@@ -37,8 +38,9 @@
 // the portable 8) comes from the shapes: ops/paged_attention.py
 // `decode_plan`.
 //
-// f32 and int8 pages keep the first port's design: one CTA per (sequence,
-// kv head) over the body of paged_decode_common.cuh.
+// f32 q (on f32 or int8 pages, the checking paths) keeps the first port's
+// design: one CTA per (sequence, kv head) over the body of
+// paged_decode_common.cuh.
 
 #include <cooperative_groups.h>
 
@@ -76,13 +78,14 @@ __global__ void __launch_bounds__(HD) paged_decode_kernel(
   }
 }
 
-// bf16 pages: rank blockIdx.x of the cluster of (sequence blockIdx.z, kv head
-// blockIdx.y) attends over its share of the live pages; the cluster then
-// merges through distributed shared memory.
-template <int HD, int GROUP>
+// bf16 q on TKV (bf16 or int8) pages: rank blockIdx.x of the cluster of
+// (sequence blockIdx.z, kv head blockIdx.y) attends over its share of the
+// live pages; the cluster then merges through distributed shared memory.
+template <typename TKV, int HD, int GROUP>
 __global__ void __launch_bounds__(sm90::kThreads, 2) paged_decode_cluster_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_pages,
-    const __nv_bfloat16* __restrict__ v_pages, const int* __restrict__ block_tables,
+    const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k_pages,
+    const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const int* __restrict__ block_tables,
     const int* __restrict__ seq_lens, __nv_bfloat16* __restrict__ out, int n_q, int n_pages,
     int page_size, int table_width, int window, float scale_log2) {
   namespace cg = cooperative_groups;
@@ -102,10 +105,11 @@ __global__ void __launch_bounds__(sm90::kThreads, 2) paged_decode_cluster_kernel
   const int hi_page = min(lo_page + per_rank, n_seq_pages);
   const size_t q0 = (static_cast<size_t>(b) * n_q + h * GROUP) * HD;
 
-  const float* part = sm90::attend_range<__nv_bfloat16, __nv_bfloat16, HD, GROUP>(
-      q + q0, k_pages, v_pages, block_tables + static_cast<size_t>(b) * table_width,
-      static_cast<size_t>(h) * n_pages, n_pages, page_size, lo_page * page_size,
-      min(hi_page * page_size, kv_len), win_lo, scale_log2);
+  const float* part = sm90::attend_range<__nv_bfloat16, TKV, HD, GROUP>(
+      q + q0, k_pages, v_pages, k_scales, v_scales,
+      block_tables + static_cast<size_t>(b) * table_width, static_cast<size_t>(h) * n_pages,
+      n_pages, page_size, lo_page * page_size, min(hi_page * page_size, kv_len), win_lo,
+      scale_log2);
 
   cluster.sync();  // every rank's partial is in its shared memory
   const int cols = HD / n_ranks;
@@ -146,7 +150,7 @@ struct Args {
   cudaStream_t stream;
 };
 
-// f32 and int8 pages: one CTA per (sequence, kv head).
+// f32 q: one CTA per (sequence, kv head).
 template <typename TQ, typename TKV, int HD, int GROUP>
 cudaError_t launch(const Args& a) {
   const int smem = static_cast<int>(DecodeSmem<TKV, HD, GROUP>::bytes);
@@ -162,13 +166,13 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-// bf16 pages: one cluster of `a.cluster` CTAs per (sequence, kv head).
-template <int HD, int GROUP>
+// bf16 q: one cluster of `a.cluster` CTAs per (sequence, kv head).
+template <typename TKV, int HD, int GROUP>
 cudaError_t launch_cluster(const Args& a) {
-  constexpr int smem = sm90::Smem<__nv_bfloat16, HD, GROUP>::bytes;
+  constexpr int smem = sm90::Smem<TKV, HD, GROUP>::bytes;
+  auto kernel = paged_decode_cluster_kernel<TKV, HD, GROUP>;
   static std::atomic<unsigned> attributes_set{0};
-  cudaError_t err =
-      sm90::set_attributes(paged_decode_cluster_kernel<HD, GROUP>, smem, attributes_set);
+  cudaError_t err = sm90::set_attributes(kernel, smem, attributes_set);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
@@ -183,10 +187,9 @@ cudaError_t launch_cluster(const Args& a) {
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(
-      &cfg, paged_decode_cluster_kernel<HD, GROUP>, static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k), static_cast<const __nv_bfloat16*>(a.v), a.bt,
-      a.sl, static_cast<__nv_bfloat16*>(a.out), a.n_q, a.n_pages, a.page_size, a.table_width,
-      a.window, a.scale * 1.4426950408889634f);
+      &cfg, kernel, static_cast<const __nv_bfloat16*>(a.q), static_cast<const TKV*>(a.k),
+      static_cast<const TKV*>(a.v), a.ks, a.vs, a.bt, a.sl, static_cast<__nv_bfloat16*>(a.out),
+      a.n_q, a.n_pages, a.page_size, a.table_width, a.window, a.scale * 1.4426950408889634f);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -202,12 +205,13 @@ cudaError_t dispatch_group(int group, const Args& a) {
   }
 }
 
+template <typename TKV>
 cudaError_t dispatch_cluster(int group, const Args& a) {
   switch (group) {
-    case 1: return launch_cluster<128, 1>(a);
-    case 2: return launch_cluster<128, 2>(a);
-    case 4: return launch_cluster<128, 4>(a);
-    case 8: return launch_cluster<128, 8>(a);
+    case 1: return launch_cluster<TKV, 128, 1>(a);
+    case 2: return launch_cluster<TKV, 128, 2>(a);
+    case 4: return launch_cluster<TKV, 128, 4>(a);
+    case 8: return launch_cluster<TKV, 128, 8>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -218,9 +222,9 @@ cudaError_t dispatch_cluster(int group, const Args& a) {
 // k/v scales [n_kv, n_pages, page_size, 1] f32 (int8 pages only, else null);
 // block_tables [batch, table_width] int32; seq_lens [batch] int32;
 // out [batch, n_q, head_dim]. window < 0: no sliding window. cluster: CTAs
-// per (sequence, kv head) on bf16 pages, a power of two up to 8 (1 for f32
-// and int8 pages). dtype (of q and out) 0 = f32, 1 = bf16; kv_int8 0: pages
-// in the dtype of q, 1: int8 pages with scales.
+// per (sequence, kv head) for bf16 q, a power of two up to 8 (1 for f32 q).
+// dtype (of q and out) 0 = f32, 1 = bf16; kv_int8 0: pages in the dtype of
+// q, 1: int8 pages with scales.
 // Returns the launch's cudaError_t.
 extern "C" int kvt_paged_decode(const void* q, const void* k_pages,
                                 const void* v_pages, const void* k_scales,
@@ -230,10 +234,9 @@ extern "C" int kvt_paged_decode(const void* q, const void* k_pages,
                                 int head_dim, int table_width, int window,
                                 int cluster, float scale, int dtype, int kv_int8,
                                 void* stream) {
-  const bool bf16_pages = dtype == 1 && !kv_int8;
   if (head_dim != 128 || n_kv <= 0 || n_q % n_kv != 0 || page_size <= 0 ||
       (kv_int8 && (k_scales == nullptr || v_scales == nullptr)) || cluster <= 0 ||
-      cluster > 8 || (cluster & (cluster - 1)) || (!bf16_pages && cluster != 1)) {
+      cluster > 8 || (cluster & (cluster - 1)) || (dtype != 1 && cluster != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{q, k_pages, v_pages, static_cast<const float*>(k_scales),
@@ -244,10 +247,8 @@ extern "C" int kvt_paged_decode(const void* q, const void* k_pages,
                static_cast<cudaStream_t>(stream)};
   const int group = n_q / n_kv;
   cudaError_t err;
-  if (bf16_pages) {
-    err = dispatch_cluster(group, a);
-  } else if (dtype == 1) {
-    err = dispatch_group<__nv_bfloat16, int8_t>(group, a);
+  if (dtype == 1) {
+    err = kv_int8 ? dispatch_cluster<int8_t>(group, a) : dispatch_cluster<__nv_bfloat16>(group, a);
   } else if (dtype == 0) {
     err = kv_int8 ? dispatch_group<float, int8_t>(group, a)
                   : dispatch_group<float, float>(group, a);

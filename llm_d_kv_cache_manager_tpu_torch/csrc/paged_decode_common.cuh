@@ -1,8 +1,9 @@
-// The attention body of the two paged-decode kernels on f32 and int8 pages
-// (paged_decode.cu, one CTA per (sequence, kv head); paged_decode_tiled.cu,
-// one CTA per (sequence, kv head, split)): one query token's GQA group
-// attends over a contiguous range of one sequence's positions. bf16 pages
-// run the Hopper body of paged_decode_sm90.cuh instead.
+// The attention body of the two paged-decode kernels for f32 q, on f32 and
+// int8 pages, the checking paths (paged_decode.cu, one CTA per (sequence, kv
+// head); paged_decode_tiled.cu, one CTA per (sequence, kv head, split)): one
+// query token's GQA group attends over a contiguous range of one sequence's
+// positions. bf16 q, on either page format, runs the Hopper body of
+// paged_decode_sm90.cuh instead.
 //
 // One thread per head_dim lane. The range is walked 64 tokens at a time
 // through a two-stage cp.async ring, so the next chunk's K and V are in
@@ -33,10 +34,6 @@ template <typename T>
 __device__ __forceinline__ float to_f(T x);
 template <>
 __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <>
 __device__ __forceinline__ float to_f<int8_t>(int8_t x) {
   return static_cast<float>(x);

@@ -1,19 +1,23 @@
-// The Hopper attention body of the two paged-decode kernels on bf16 pages
-// (paged_decode.cu: the splits of one (sequence, kv head) form a thread-block
-// cluster; paged_decode_tiled.cu: one CTA per (sequence, kv head, split)):
-// one query token's GQA group attends over a contiguous range of one
-// sequence's positions and leaves its partial softmax state in shared memory.
+// The Hopper attention body of the two paged-decode kernels for bf16 q, on
+// bf16 pages and on int8 pages with f32 per-row scales (paged_decode.cu: the
+// splits of one (sequence, kv head) form a thread-block cluster;
+// paged_decode_tiled.cu: one CTA per (sequence, kv head, split)): one query
+// token's GQA group attends over a contiguous range of one sequence's
+// positions and leaves its partial softmax state in shared memory.
 //
-// Replaces, for bf16 pages, the body of paged_decode_common.cuh (which the
-// f32 and int8 instantiations keep). Both serve the TPU kernels
-// `_decode_kernel_pipelined` and `_decode_kernel` of the reference package
-// (llm_d_kv_cache_manager_tpu/ops/paged_attention.py:157 and :78).
+// Replaces, for bf16 q, the body of paged_decode_common.cuh (which the f32-q
+// instantiations keep). Both serve the TPU kernels `_decode_kernel_pipelined`
+// and `_decode_kernel` of the reference package
+// (llm_d_kv_cache_manager_tpu/ops/paged_attention.py:157 and :78), the int8
+// pages those kernels' `quantized=True` instantiations (dequantized in f32,
+// as there: :118-121 and :247-250).
 //
 // Bound on this card: bytes. Every K and V row of every live position is read
 // once and used for 2 * group FLOPs per element, far below the ~295 FLOP/byte
 // at which an H100 turns compute-bound, so tensor cores buy nothing; what
 // counts is bytes in flight and a cheap inner loop. At batch 8 x 2,048 tokens,
-// 8 kv heads of 128, one layer call moves 67.2 MB (20.0 us at 3.35 TB/s).
+// 8 kv heads of 128, one layer call moves 67.2 MB on bf16 pages (20.0 us at
+// 3.35 TB/s) and 34.7 MB on int8 pages (10.4 us).
 //
 // What the old body lost, and where (paged_decode_common.cuh): four
 // __syncthreads per 64-token chunk; scores written to shared memory and read
@@ -27,27 +31,35 @@
 //    block-table entries 32 at a time (one coalesced load, then shuffles) and
 //    moves each stage of 64 tokens with Hopper's bulk copy
 //    (cp.async.bulk ... mbarrier::complete_tx), one copy of K and one of V
-//    per page piece (4 KB at page 16, half a page at page 128), into a
-//    three-stage ring of 32 KB stages. Each stage has a "full" mbarrier (the
-//    copies' bytes) and an "empty" one (one arrival per consumer warp); no
-//    thread of the CTA waits for another except through them.
+//    per page piece (4 KB at page 16 in bf16, half a page at page 128), into
+//    a three-stage ring of 32 KB stages (16.5 KB on int8 pages). Each stage
+//    has a "full" mbarrier (the copies' bytes) and an "empty" one (one
+//    arrival per consumer warp); no thread of the CTA waits for another
+//    except through them.
 //  - The math is in registers. A half-warp owns one token row at a time:
-//    lane i reads 16 bytes (8 bf16) at column 8i, conflict-free on the
-//    unpadded 256-byte rows. q for the whole group sits in registers as f32,
-//    pre-scaled by log2(e)/sqrt(head_dim), so scores are in the exp2 domain;
-//    a score is a 4-step shuffle reduction inside the half-warp. Each warp
-//    takes 16 tokens of every stage and keeps its own (m, l) per group row
-//    and its own acc (8 columns x group), P @ V accumulating in the lanes
-//    that read V. No score buffer, no per-token barrier.
+//    lane i reads column 8i onwards, 16 bytes (8 bf16) or 8 bytes (8 int8),
+//    conflict-free on the unpadded 256- or 128-byte rows. q for the whole
+//    group sits in registers as f32, pre-scaled by log2(e)/sqrt(head_dim), so
+//    scores are in the exp2 domain; a score is a 4-step shuffle reduction
+//    inside the half-warp. Each warp takes 16 tokens of every stage and keeps
+//    its own (m, l) per group row and its own acc (8 columns x group), P @ V
+//    accumulating in the lanes that read V. No score buffer, no per-token
+//    barrier.
+//  - Int8 pages: a row's f32 scale stays out of the inner products (score =
+//    k_scale * sum(q * k), and p * v_scale enters P @ V), one multiply per
+//    token row. An int8 element becomes f32 through a byte permute into the
+//    mantissa of 2^23 and one subtraction (the converter instruction runs at
+//    a quarter of the FMA rate). The scales need not be 16-byte aligned, so
+//    they do not ride the bulk copies: the producer's lanes copy them, 4
+//    bytes each (cp.async), into the stage, and each lane's
+//    cp.async.mbarrier.arrive holds the stage's "full" barrier until its
+//    copies land. Any page size works.
 //  - Only a stage that holds a position outside [win_lo, pos_end) builds a
 //    mask (the first stage under a window, the range's last stage); the
-//    others take the unmasked path. Masked positions are never read, so a
-//    stale row in the ring cannot leak a NaN.
+//    others take the unmasked path. Masked positions, their values and their
+//    scales, are never read, so a stale row in the ring cannot leak a NaN.
 //  - Warps merge their (m, l, acc) once, at the end of the range, through
 //    shared memory (the ring, free by then).
-//
-// Left for later work: int8 pages on this body (the page type is already a
-// template parameter; the scales would ride with the rows).
 
 #pragma once
 
@@ -61,21 +73,25 @@
 
 namespace sm90 {
 
-constexpr int kStage = 64;          // tokens per ring stage
+constexpr int kStage = 64;          // tokens per ring stage, on either page format
 constexpr int kStages = 3;          // ring depth
 constexpr int kConsumerWarps = 4;   // each takes 16 tokens of a stage
 constexpr int kThreads = (kConsumerWarps + 1) * 32;  // + the producer warp
 constexpr int kTokPerHalf = kStage / kConsumerWarps / 2;  // rows per half-warp per stage
 constexpr float kLn2 = 0.6931471805599453f;
 
+// TKV: __nv_bfloat16, or int8_t with f32 per-row scales. A stage holds K
+// [kStage][HD], V [kStage][HD] and, on int8 pages, their scales [kStage] each.
 template <typename TKV, int HD, int GROUP>
 struct Smem {
-  static_assert(std::is_same<TKV, __nv_bfloat16>::value,
-                "the sm90 decode body is instantiated for bf16 pages only");
+  static constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
+  static_assert(kQuant || std::is_same<TKV, __nv_bfloat16>::value,
+                "the sm90 decode body takes bf16 or int8 pages");
   static_assert(HD == 128, "a half-warp covers one 128-wide row");
   static constexpr int kRowBytes = HD * sizeof(TKV);
   static constexpr int kTileBytes = kStage * kRowBytes;  // one stage's K (or V)
-  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kScaleOffset = 2 * kTileBytes;    // K scales, then V scales
+  static constexpr int kStageBytes = kScaleOffset + (kQuant ? 2 * kStage * 4 : 0);
   static constexpr int kRingBytes = kStages * kStageBytes;
   // After the stage loop the ring holds, as floats: each consumer warp's
   // partial [warp][acc[G][HD], m[G], l[G], pad to 16 bytes], then the CTA's
@@ -118,8 +134,16 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
       ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
+__device__ __forceinline__ void copy4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+// One arrival on `bar` once every cp.async this thread issued has landed.
+__device__ __forceinline__ void copy4_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar)
+               : "memory");
+}
 
-// 16 bytes of a row -> 8 floats.
+// 16 bytes of a bf16 row -> 8 floats.
 __device__ __forceinline__ void unpack8(const uint4& raw, float (&x)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
@@ -127,6 +151,30 @@ __device__ __forceinline__ void unpack8(const uint4& raw, float (&x)[8]) {
     const float2 f = __bfloat1622float2(h[i]);
     x[2 * i] = f.x;
     x[2 * i + 1] = f.y;
+  }
+}
+
+// 8 bytes of an int8 row -> 8 exact floats: b + 128 (the xor) becomes the
+// low mantissa byte of 2^23, and 2^23 + 128 is subtracted.
+__device__ __forceinline__ void unpack8(const uint2& raw, float (&x)[8]) {
+  const uint32_t w[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      x[4 * i + b] = __int_as_float(__byte_perm(w[i], 0x4B000000u, 0x7650u | b)) - 8388736.f;
+    }
+  }
+}
+
+// Row t of a stage's K or V tile, this lane's 8 columns (8 hl ..), as floats.
+template <typename TKV, int kRowBytes>
+__device__ __forceinline__ void load_row8(const unsigned char* tile, int t, int hl,
+                                          float (&x)[8]) {
+  if constexpr (std::is_same<TKV, int8_t>::value) {
+    unpack8(reinterpret_cast<const uint2*>(tile + t * kRowBytes)[hl], x);
+  } else {
+    unpack8(reinterpret_cast<const uint4*>(tile + t * kRowBytes)[hl], x);
   }
 }
 
@@ -149,16 +197,20 @@ cudaError_t set_attributes(Kernel kernel, int smem, std::atomic<unsigned>& done)
 // Attend the GROUP query heads at q_group ([GROUP][HD], type TQ) over the
 // positions [pos0, pos_end) of one sequence and kv head, pos0 page-aligned,
 // masking positions below win_lo. `table`: the sequence's block-table row;
-// `head_page0`: h * n_pages. Every thread of the CTA (kThreads) must call it.
-// On return (after a CTA barrier) the CTA's partial lies in shared memory at
-// the returned pointer: acc[GROUP][HD] (unnormalized), m[GROUP] (log2
-// domain; -inf where nothing was attended), l[GROUP].
+// `head_page0`: h * n_pages; `k_scales`/`v_scales`: the int8 pools' f32 row
+// scales ([n_kv, n_pages, page], unused on bf16 pages). Every thread of the
+// CTA (kThreads) must call it. On return (after a CTA barrier) the CTA's
+// partial lies in shared memory at the returned pointer: acc[GROUP][HD]
+// (unnormalized), m[GROUP] (log2 domain; -inf where nothing was attended),
+// l[GROUP].
 template <typename TQ, typename TKV, int HD, int GROUP>
 __device__ __forceinline__ const float* attend_range(
     const TQ* __restrict__ q_group, const TKV* __restrict__ k_pages,
-    const TKV* __restrict__ v_pages, const int* __restrict__ table, size_t head_page0,
+    const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const int* __restrict__ table, size_t head_page0,
     int n_pages, int page_size, int pos0, int pos_end, int win_lo, float scale_log2) {
   using SM = Smem<TKV, HD, GROUP>;
+  constexpr bool kQuant = SM::kQuant;
   static_assert(std::is_same<TQ, __nv_bfloat16>::value, "q is bf16");
   // Tokens per half-warp between two softmax updates: scores s[kTok][GROUP]
   // stay within 16 registers.
@@ -183,13 +235,17 @@ __device__ __forceinline__ const float* attend_range(
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(full0 + 8 * s, 1);  // the producer's elected lane
+      // The producer's elected lane; on int8 pages every producer lane, once
+      // its scale copies have landed.
+      mbar_init(full0 + 8 * s, kQuant ? 32 : 1);
       mbar_init(empty0 + 8 * s, kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
+  const int half = lane >> 4;
+  const int hl = lane & 15;  // consumers: columns 8 hl .. 8 hl + 7
   if (warp == kConsumerWarps) {
     // Producer. Lane j holds table entry tbl_base + j; a page outside the
     // window of 32 reloads it (warp-uniform: every lane walks every page).
@@ -221,14 +277,23 @@ __device__ __forceinline__ const float* attend_range(
           bulk_copy(dst, k_pages + row * HD, bytes, full);
           bulk_copy(dst + SM::kTileBytes, v_pages + row * HD, bytes, full);
         }
+        if constexpr (kQuant) {
+          // Lanes 0-15 copy the K scales of the piece's rows, 16-31 the V's.
+          const float* src = (half ? v_scales : k_scales) + row;
+          const uint32_t sdst =
+              k_dst + SM::kScaleOffset + half * kStage * 4 + (r0 - s_start) * 4;
+          for (int i = hl; i < r1 - r0; i += 16) copy4(sdst + 4 * i, src + i);
+        }
       }
-      if (lane == 0) mbar_arrive(full);
+      if constexpr (kQuant) {
+        copy4_arrive(full);
+      } else if (lane == 0) {
+        mbar_arrive(full);
+      }
     }
   }
 
   // Consumers (the producer warp runs this part with nothing to do).
-  const int half = lane >> 4;
-  const int hl = lane & 15;  // columns 8 hl .. 8 hl + 7
   float q[GROUP][8];
   float acc[GROUP][8];
   float m[GROUP], l[GROUP];
@@ -253,6 +318,8 @@ __device__ __forceinline__ const float* attend_range(
       const bool masked = n_valid < kStage || s_start < win_lo;
       const unsigned char* kt = smem + slot * SM::kStageBytes;
       const unsigned char* vt = kt + SM::kTileBytes;
+      const float* k_sc = reinterpret_cast<const float*>(kt + SM::kScaleOffset);
+      const float* v_sc = k_sc + kStage;
       const int t_half = warp * (2 * kTokPerHalf) + half * kTokPerHalf;
       mbar_wait(full0 + 8 * slot, (c / kStages) & 1);
 
@@ -266,7 +333,7 @@ __device__ __forceinline__ const float* attend_range(
           live[j] = !masked || (t < n_valid && s_start + t >= win_lo);
           float k[8];
           if (live[j]) {
-            unpack8(reinterpret_cast<const uint4*>(kt + t * SM::kRowBytes)[hl], k);
+            load_row8<TKV, SM::kRowBytes>(kt, t, hl, k);
           } else {
 #pragma unroll
             for (int e = 0; e < 8; ++e) k[e] = 0.f;
@@ -281,11 +348,13 @@ __device__ __forceinline__ const float* attend_range(
         }
 #pragma unroll
         for (int j = 0; j < kTok; ++j) {
+          // A live row's K scale (a masked row's slot may hold a stale NaN).
+          const float k_scale = kQuant && live[j] ? k_sc[t_half + i0 + j] : 1.f;
 #pragma unroll
           for (int g = 0; g < GROUP; ++g) {
 #pragma unroll
             for (int o = 8; o; o >>= 1) s[j][g] += __shfl_xor_sync(0xffffffffu, s[j][g], o);
-            if (!live[j]) s[j][g] = -INFINITY;
+            s[j][g] = live[j] ? (kQuant ? s[j][g] * k_scale : s[j][g]) : -INFINITY;
           }
         }
         // Online softmax: m is warp-uniform; l and acc are per half-warp
@@ -314,12 +383,15 @@ __device__ __forceinline__ const float* attend_range(
 #pragma unroll
         for (int j = 0; j < kTok; ++j) {
           if (!live[j]) continue;
+          const int t = t_half + i0 + j;
+          const float v_scale = kQuant ? v_sc[t] : 1.f;
           float v[8];
-          unpack8(reinterpret_cast<const uint4*>(vt + (t_half + i0 + j) * SM::kRowBytes)[hl], v);
+          load_row8<TKV, SM::kRowBytes>(vt, t, hl, v);
 #pragma unroll
           for (int g = 0; g < GROUP; ++g) {
+            const float p = kQuant ? s[j][g] * v_scale : s[j][g];
 #pragma unroll
-            for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(s[j][g], v[e], acc[g][e]);
+            for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(p, v[e], acc[g][e]);
           }
         }
       }

@@ -27,16 +27,18 @@
 // m = -inf, l = 0. The combine kernel, one CTA per (sequence, kv head),
 // rescales each split by exp(m_s - M), skips empty splits, normalizes and
 // writes zeros for an all-empty row. The split count comes from the shapes
-// alone (ops/paged_attention.py `decode_plan`, which also sizes
-// paged_decode.cu's clusters). No atomics: the result is deterministic.
+// alone (ops/paged_attention.py: `decode_plan` for bf16 q, which also sizes
+// paged_decode.cu's clusters; `old_body_splits` for f32 q). No atomics: the
+// result is deterministic.
 //
-// bf16 pages run the body of paged_decode_sm90.cuh: the first port's split
-// over the body of paged_decode_common.cuh had CTAs enough (about 320 at
-// batch 8) but moved 27% of the card's bytes per second, stalling between loads
-// (four CTA barriers and a shared-memory score buffer per 64-token chunk, a
-// two-stage ring, a table read per 16-byte copy); the new body keeps the math
-// in registers behind a three-stage bulk-copy ring. f32 and int8 pages keep
-// the old body.
+// bf16 q, on bf16 or int8 pages, runs the body of paged_decode_sm90.cuh: the
+// first port's split over the body of paged_decode_common.cuh had CTAs enough
+// (about 320 at batch 8) but moved 27% of the card's bytes per second on
+// bf16 pages, stalling between loads (four CTA barriers and a shared-memory
+// score buffer per 64-token chunk, a two-stage ring, a table read per
+// 16-byte copy); the new body keeps the math in registers behind a
+// three-stage bulk-copy ring. f32 q (the checking paths, on f32 or int8
+// pages) keeps the old body.
 
 #include "paged_decode_common.cuh"
 #include "paged_decode_sm90.cuh"
@@ -86,12 +88,14 @@ __global__ void __launch_bounds__(HD) split_decode_kernel(
   }
 }
 
-// The same partial on bf16 pages, through the body of paged_decode_sm90.cuh
-// (its m, in the log2 domain, goes to the workspace in natural units).
-template <int HD, int GROUP>
+// The same partial for bf16 q on TKV (bf16 or int8) pages, through the body
+// of paged_decode_sm90.cuh (its m, in the log2 domain, goes to the workspace
+// in natural units).
+template <typename TKV, int HD, int GROUP>
 __global__ void __launch_bounds__(sm90::kThreads, 2) split_decode_sm90_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_pages,
-    const __nv_bfloat16* __restrict__ v_pages, const int* __restrict__ block_tables,
+    const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k_pages,
+    const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const int* __restrict__ block_tables,
     const int* __restrict__ seq_lens, float* __restrict__ m_ws, float* __restrict__ l_ws,
     float* __restrict__ acc_ws, int n_q, int n_pages, int page_size, int table_width,
     int window, float scale_log2) {
@@ -108,9 +112,10 @@ __global__ void __launch_bounds__(sm90::kThreads, 2) split_decode_sm90_kernel(
   const int lo_page = first_page + split * per_split;
   const int hi_page = min(lo_page + per_split, n_seq_pages);
 
-  const float* part = sm90::attend_range<__nv_bfloat16, __nv_bfloat16, HD, GROUP>(
-      q + (static_cast<size_t>(b) * n_q + h * GROUP) * HD, k_pages, v_pages,
-      block_tables + static_cast<size_t>(b) * table_width, static_cast<size_t>(h) * n_pages,
+  const float* part = sm90::attend_range<__nv_bfloat16, TKV, HD, GROUP>(
+      q + (static_cast<size_t>(b) * n_q + h * GROUP) * HD, k_pages, v_pages, k_scales,
+      v_scales, block_tables + static_cast<size_t>(b) * table_width,
+      static_cast<size_t>(h) * n_pages,
       n_pages, page_size, lo_page * page_size, min(hi_page * page_size, kv_len), win_lo,
       scale_log2);
 
@@ -179,7 +184,7 @@ cudaError_t combine(const Args& a) {
   return cudaGetLastError();
 }
 
-// f32 and int8 pages: the body of paged_decode_common.cuh.
+// f32 q: the body of paged_decode_common.cuh.
 template <typename TQ, typename TKV, int HD, int GROUP>
 cudaError_t launch(const Args& a) {
   const int smem = static_cast<int>(DecodeSmem<TKV, HD, GROUP>::bytes);
@@ -197,17 +202,17 @@ cudaError_t launch(const Args& a) {
   return combine<TQ, HD, GROUP>(a);
 }
 
-// bf16 pages: the body of paged_decode_sm90.cuh.
-template <int HD, int GROUP>
+// bf16 q: the body of paged_decode_sm90.cuh.
+template <typename TKV, int HD, int GROUP>
 cudaError_t launch_sm90(const Args& a) {
-  const int smem = sm90::Smem<__nv_bfloat16, HD, GROUP>::bytes;
-  auto kernel = split_decode_sm90_kernel<HD, GROUP>;
+  const int smem = sm90::Smem<TKV, HD, GROUP>::bytes;
+  auto kernel = split_decode_sm90_kernel<TKV, HD, GROUP>;
   static std::atomic<unsigned> attributes_set{0};
   const cudaError_t attr = sm90::set_attributes(kernel, smem, attributes_set);
   if (attr != cudaSuccess) return attr;
   kernel<<<dim3(a.batch, a.n_kv, a.n_splits), sm90::kThreads, smem, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), a.bt, a.sl, a.m_ws, a.l_ws, a.acc_ws, a.n_q,
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const TKV*>(a.k),
+      static_cast<const TKV*>(a.v), a.ks, a.vs, a.bt, a.sl, a.m_ws, a.l_ws, a.acc_ws, a.n_q,
       a.n_pages, a.page_size, a.table_width, a.window, a.scale * 1.4426950408889634f);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -225,12 +230,13 @@ cudaError_t dispatch_group(int group, const Args& a) {
   }
 }
 
+template <typename TKV>
 cudaError_t dispatch_sm90(int group, const Args& a) {
   switch (group) {
-    case 1: return launch_sm90<128, 1>(a);
-    case 2: return launch_sm90<128, 2>(a);
-    case 4: return launch_sm90<128, 4>(a);
-    case 8: return launch_sm90<128, 8>(a);
+    case 1: return launch_sm90<TKV, 128, 1>(a);
+    case 2: return launch_sm90<TKV, 128, 2>(a);
+    case 4: return launch_sm90<TKV, 128, 4>(a);
+    case 8: return launch_sm90<TKV, 128, 8>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -266,7 +272,7 @@ extern "C" int kvt_paged_decode_tiled(
   const int group = n_q / n_kv;
   cudaError_t err;
   if (dtype == 1) {
-    err = kv_int8 ? dispatch_group<__nv_bfloat16, int8_t>(group, a) : dispatch_sm90(group, a);
+    err = kv_int8 ? dispatch_sm90<int8_t>(group, a) : dispatch_sm90<__nv_bfloat16>(group, a);
   } else if (dtype == 0) {
     err = kv_int8 ? dispatch_group<float, int8_t>(group, a)
                   : dispatch_group<float, float>(group, a);

@@ -10,11 +10,12 @@ events the control plane ingests.
   softmax in f32). A `seq_len == 0` slot yields zeros, as the kernel does.
 - `paged_attention`: the wrapper, with the reference's `pipelined` switch
   (default False). On CUDA tensors it launches a hand-written kernel,
-  `csrc/paged_decode.cu` (pipelined: on bf16 pages one cluster launch) or
+  `csrc/paged_decode.cu` (pipelined: for bf16 q one cluster launch) or
   the split-KV `csrc/paged_decode_tiled.cu` (tiled); on CPU tensors it runs
   the plain version. It never falls back from CUDA to the plain version.
   `ops/quantized_kv.py` launches the same two kernels on int8 pages.
-- `decode_plan`: the launch shape of both kernels, from the shapes alone.
+- `decode_plan`: the launch shape of both kernels for bf16 q (on bf16 or
+  int8 pages), from the shapes alone; `old_body_splits` for f32 q.
 - `write_kv_pages`: scatter of new K/V rows into their pages.
 """
 
@@ -88,16 +89,16 @@ _ARGTYPES = {
     "kvt_paged_decode_tiled": [_P] * 11 + [_I] * 9 + [_F, _I, _I, _P],
 }
 
-_STAGE_TOKENS = 64  # tokens a CTA of either decode kernel moves per ring stage
+_STAGE_TOKENS = 64  # tokens per ring stage of either decode kernel, on both page formats
 _MAX_CLUSTER = 8  # the portable cluster size: every Hopper launch may ask for it
 
 
 def decode_plan(batch: int, n_kv: int, table_width: int, page_size: int,
                 n_sms: int) -> tuple:
     """(cluster, n_splits): the CTAs per (sequence, kv head) of the
-    pipelined kernel on bf16 pages (one thread-block cluster) and of the
-    tiled kernel (a grid-level split), from the shapes alone (no read of
-    seq_lens).
+    pipelined kernel for bf16 q (one thread-block cluster) and of the tiled
+    kernel (a grid-level split), on bf16 and on int8 pages, from the shapes
+    alone (no read of seq_lens).
 
     Both split each (sequence, kv head) as far as one CTA per SM allows
     (more CTAs read slower on an H100: each extra CTA adds its start-up,
@@ -114,11 +115,10 @@ def decode_plan(batch: int, n_kv: int, table_width: int, page_size: int,
 
 
 def old_body_splits(batch: int, n_kv: int, table_width: int, n_sms: int) -> int:
-    """The tiled kernel's split count on f32 and int8 pages, which keep the
-    body of csrc/paged_decode_common.cuh (128-thread CTAs, several to an
-    SM): about two CTAs per SM, never more splits than the table has pages.
-    decode_plan's one CTA per SM reads slower there at batch 8 on an
-    H100."""
+    """The tiled kernel's split count for f32 q (on f32 or int8 pages, the
+    checking paths), which keeps the body of csrc/paged_decode_common.cuh
+    (128-thread CTAs, several to an SM): about two CTAs per SM, never more
+    splits than the table has pages."""
     return max(1, min(-(-2 * n_sms // (batch * n_kv)), table_width))
 
 
@@ -185,13 +185,13 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _plan(device: torch.device, batch: int, n_kv: int, table_width: int,
-          page_size: int, bf16_pages: bool) -> tuple:
-    """(cluster, n_splits) for this launch: decode_plan with the card's SM
-    count on bf16 pages; old_body_splits and no cluster on f32 and int8
-    pages."""
-    n_sms = _sm_count(device)
-    if not bf16_pages:
+def _plan(n_sms: int, q_dtype: torch.dtype, batch: int, n_kv: int, table_width: int,
+          page_size: int) -> tuple:
+    """(cluster, n_splits) for a launch on a card of `n_sms` SMs: bf16 q, on
+    either page format, runs the body of csrc/paged_decode_sm90.cuh and
+    takes decode_plan; f32 q keeps the old body, old_body_splits and no
+    cluster."""
+    if q_dtype != torch.bfloat16:
         return 1, old_body_splits(batch, n_kv, table_width, n_sms)
     return decode_plan(batch, n_kv, table_width, page_size, n_sms)
 
@@ -216,10 +216,8 @@ def launch_decode(q, k_pages, v_pages, block_tables, seq_lens, window, *,
         1.0 / (head_dim**0.5), _DTYPE_CODE[q.dtype], int(scales is not None),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    cluster, n_splits = _plan(
-        q.device, batch, n_kv, table_width, page_size,
-        bf16_pages=q.dtype == torch.bfloat16 and scales is None,
-    )
+    cluster, n_splits = _plan(_sm_count(q.device), q.dtype, batch, n_kv, table_width,
+                              page_size)
     if pipelined:
         name = "paged_decode"
         err = _kernel_fn(name, "kvt_paged_decode")(
@@ -254,8 +252,8 @@ def paged_attention(
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """Flash-decoding paged attention: on CUDA tensors the kernel of the
-    chosen variant (`pipelined=True`: `csrc/paged_decode.cu`, one launch, on
-    bf16 pages a thread-block cluster per sequence and kv head; False: the
+    chosen variant (`pipelined=True`: `csrc/paged_decode.cu`, one launch, for
+    bf16 q a thread-block cluster per sequence and kv head; False: the
     split-KV `csrc/paged_decode_tiled.cu` and its combine pass),
     on CPU tensors the plain version. Entries of a block table past
     ceil(seq_len / page_size) are never read."""

@@ -13,9 +13,13 @@ V vector of one kv head), scale = amax/127 and q = round(x/scale) in
 - `paged_attention_quantized_reference`: the plain version (dequantize,
   round to q's dtype as the reference does, then `paged_attention_reference`).
 - `paged_attention_quantized`: the wrapper. On CUDA tensors it launches the
-  int8 instantiation of `csrc/paged_decode.cu` (`pipelined=True`) or of the
-  split-KV `csrc/paged_decode_tiled.cu` (False), which dequantize in f32
-  inside the kernel; on CPU tensors it runs the plain version.
+  int8 instantiation of `csrc/paged_decode.cu` (`pipelined=True`: for bf16
+  q one thread-block cluster launch) or of the split-KV
+  `csrc/paged_decode_tiled.cu` (False: split and combine), which dequantize
+  in f32 inside the kernel; for bf16 q both run the Hopper body of
+  `csrc/paged_decode_sm90.cuh`, the bf16 pages' body, with the launch shape
+  of `ops/paged_attention.py::decode_plan` (f32 q, a checking path, keeps
+  the first port's body). On CPU tensors it runs the plain version.
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@ kernels run in interpret mode on the CPU, as the JAX package's own tests run
 them. On CPU tensors the port's wrappers run their plain torch versions
 (the CUDA kernels are held against those same versions on the card by
 chip_smoke.py). f32 throughout; tolerance atol = rtol = 1e-5. Also on the
-CPU: the decode kernels' launch plan, and the ctypes argument lists against
-the C entry points they call.
+CPU: the decode kernels' launch plan (by q's dtype), and the ctypes argument
+lists against the C entry points they call.
 """
 
 import ctypes
@@ -149,9 +149,23 @@ def test_decode_plan(case):
 @pytest.mark.parametrize("batch, width, want",
                          [(8, 129, 5), (1, 128, 33), (1, 2, 2), (64, 256, 1)])
 def test_old_body_splits_keep_two_ctas_per_sm(batch, width, want):
-    """f32 and int8 pages keep the first port's split rule (about two CTAs
-    per SM)."""
+    """f32 q (on f32 or int8 pages) keeps the first port's split rule
+    (about two CTAs per SM)."""
     assert port_paged.old_body_splits(batch, 8, width, 132) == want
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_launch_plan_follows_q_dtype(case, q_dtype):
+    """bf16 q runs the Hopper body on bf16 and on int8 pages alike and takes
+    decode_plan; f32 q keeps the old body: old_body_splits, no cluster. The
+    page format does not enter the plan: both formats stage 64 tokens."""
+    batch, n_kv, width, page, n_sms = PLAN_CASES[case]
+    got = port_paged._plan(n_sms, q_dtype, batch, n_kv, width, page)
+    if q_dtype == torch.bfloat16:
+        assert got == port_paged.decode_plan(batch, n_kv, width, page, n_sms)
+    else:
+        assert got == (1, port_paged.old_body_splits(batch, n_kv, width, n_sms))
 
 
 _CTYPE = {"ptr": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
