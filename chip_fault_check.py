@@ -26,6 +26,12 @@ kernel sources, written only under the package's build/planted/ directory:
   - flash_prefill_diagonal: the k-block on each q-block's causal diagonal
     takes the unmasked interior path, so rows see future keys.
 
+Phase 7b's teacher-forced bar (the flagship served through the scheduler on
+a bf16 pod, every generated token held against an f32 truth) is held to
+the real tree, to the decode_sm90_stage mutant and to a planted scheduler
+fault, OffByOneScheduler (every decode row one position early); both
+faults must fail it.
+
 The real kernels and each mutant in turn are swapped in behind the wrappers
 and run through chip_smoke's kernel cases (bf16 and f32, the same seeded
 inputs) of the kernels built from the mutated sources, its batch-8 flagship
@@ -51,6 +57,7 @@ import sys
 import torch
 
 import chip_smoke
+from llm_d_kv_cache_manager_tpu_torch.engine.scheduler import Scheduler
 from llm_d_kv_cache_manager_tpu_torch.models import llama
 from llm_d_kv_cache_manager_tpu_torch.ops import _build
 
@@ -103,6 +110,11 @@ MUTANTS = {
         ("flash_prefill",), "bf16",
     ),
 }
+
+
+# The kernel faults also held to phase 7b's teacher-forced bar (a bf16 pod
+# through the scheduler), beside the planted scheduler fault.
+SCHEDULER_BAR_MUTANTS = ("decode_sm90_stage",)
 
 
 def main_case(kernel: str, dtype: str) -> str:
@@ -171,6 +183,31 @@ def run_prefill_logits(label: str, params, cfg, params32, cfg32) -> dict:
     return {"flash_prefill": ok}
 
 
+class OffByOneScheduler(Scheduler):
+    """A planted scheduler fault: every real row of a decode batch is
+    decoded one position early (its KV row overwrites the previous token's,
+    and RoPE and the attended length are one short)."""
+
+    def _assemble_batch(self, running):
+        tables, tokens, positions = super()._assemble_batch(running)
+        positions[: len(running)] -= 1
+        return tables, tokens, positions
+
+
+def run_scheduler_bar(label: str, params, cfg, params32, cfg32, delta: float,
+                      scheduler=Scheduler) -> dict:
+    """chip_smoke's phase 7b traffic on a bf16 pod at decode_steps 1 (no
+    EOS), held to its teacher-forced bar: the bar's reading."""
+    r, traffic, *_ = chip_smoke.flagship_run(params, cfg, False, 1, None, "m",
+                                             scheduler=scheduler)
+    bar = chip_smoke.teacher_forced_bar(params32, cfg32, traffic, r["requests"], delta)
+    chip_smoke.log(f"  [{label}] teacher-forced bar: greedy worst {bar['worst']['greedy']:.4f}, "
+                   f"sampled worst {bar['worst']['sampled']:.4f} (delta {delta:.4f}) "
+                   f"{'ok' if bar['ok'] else 'FAIL'}")
+    torch.cuda.empty_cache()
+    return bar
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_fault_check: no CUDA device", file=sys.stderr)
@@ -188,6 +225,9 @@ def main() -> int:
     logits_ok = {"real": {
         **run_decode_logits("real", chip_smoke.DECODE_ROWS, params, cfg, params32, cfg32),
         **run_prefill_logits("real", params, cfg, params32, cfg32)}}
+    delta, plain_err = chip_smoke.teacher_forced_delta(params, cfg, params32, cfg32, False)
+    chip_smoke.log(f"  phase 7b's delta on bf16 pages: {delta:.4f} (plain path {plain_err:.4f})")
+    bars = {"real": run_scheduler_bar("real", params, cfg, params32, cfg32, delta)}
     for name, libs in mutants.items():
         *_, targets, dtype = MUTANTS[name]
         label = f"{name}-mutant"
@@ -198,10 +238,17 @@ def main() -> int:
             logits_ok[label] = run_prefill_logits(label, params, cfg, params32, cfg32)
         elif dtype == "bf16":
             logits_ok[label] = run_decode_logits(label, targets, params, cfg, params32, cfg32)
+        if name in SCHEDULER_BAR_MUTANTS:
+            bars[label] = run_scheduler_bar(label, params, cfg, params32, cfg32, delta)
         _build._libs.update({source: real[source] for source in libs})
+    chip_smoke.log("== scheduler fault: decode positions off by one")
+    bars["decode_position_off_by_one"] = run_scheduler_bar(
+        "decode_position_off_by_one", params, cfg, params32, cfg32, delta,
+        scheduler=OffByOneScheduler)
 
     real_ok = all(r["ok"] for r in rows if r["variant"] == "real") and all(
-        logits_ok["real"].values())
+        logits_ok["real"].values()) and bars["real"]["ok"]
+    bar_caught = {label: not bar["ok"] for label, bar in bars.items() if label != "real"}
     main_rows = {
         f"{name}/{kernel}": next(r for r in rows if r["variant"] == f"{name}-mutant"
                                  and r["case"] == main_case(kernel, dtype))
@@ -220,10 +267,14 @@ def main() -> int:
         "mutant_row_rel_err_at_main_shape": {
             kernel: r["row_rel_err"] for kernel, r in main_rows.items()},
         "mutant_caught_by_logits": logits_caught,
+        "caught_by_scheduler_bar": bar_caught,
+        "scheduler_bar_readings": {label: dict(bar["worst"], delta=bar["delta"])
+                                   for label, bar in bars.items()},
         "logits_ok": logits_ok, "bf16_max_row_rel_err": worst,
         "bf16_row_rel_limits": chip_smoke.BF16_ROW_REL,
     }))
-    return 0 if real_ok and all(caught.values()) and all(logits_caught.values()) else 1
+    return 0 if (real_ok and all(caught.values()) and all(logits_caught.values())
+                 and all(bar_caught.values())) else 1
 
 
 if __name__ == "__main__":

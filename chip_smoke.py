@@ -41,8 +41,18 @@ Phases, in order (any failure raises and the script exits non-zero):
      kernel) pair, kernel path vs plain path vs an f32 truth, with the
      launches of each kernel counted; then 8-step multi-step decode against 8
      single steps on a twin cache, on both page formats;
-  7. one JSON line describing every kernel;
-  8. last line: {"ok": true, "device": {...}}.
+  7a. the continuous-batching scheduler on a small f32 pod on the card
+     against the same run on the CPU, both page formats: greedy and sampled
+     requests, a shared prefix, a pool that forces preemption; the same
+     tokens and event stream, and decode_steps 1 and 4 the same tokens;
+  7b. the flagship through the scheduler, 16 requests at once (12 sharing a
+     1,024-token prefix, 8 sampled, one stopping at EOS) on a bf16 pod at
+     decode_steps 1 and 4 and an int8 pod at 4: prefix hits, the pod's index
+     score, kernel launches per layer pass, and a teacher-forced bar on
+     every generated token against an f32 truth; tick walls, tokens/s, time
+     to first token and one decode tick's device share are logged;
+  then a JSON line of details, one JSON line describing every kernel, and
+  last: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -58,6 +68,7 @@ import numpy as np
 import torch
 
 from llm_d_kv_cache_manager_tpu_torch.engine.engine import EnginePod, EnginePodConfig
+from llm_d_kv_cache_manager_tpu_torch.engine.scheduler import Scheduler
 from llm_d_kv_cache_manager_tpu_torch.kvcache.indexer import Indexer
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.in_memory import InMemoryIndex
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.token_processor import (
@@ -70,6 +81,13 @@ from llm_d_kv_cache_manager_tpu_torch.ops import _build
 from llm_d_kv_cache_manager_tpu_torch.ops import flash_prefill as fp
 from llm_d_kv_cache_manager_tpu_torch.ops import paged_attention as pa
 from llm_d_kv_cache_manager_tpu_torch.ops import quantized_kv as qkv
+from llm_d_kv_cache_manager_tpu_torch.ops.sampling import (
+    SamplingParams,
+    filter_logits,
+    position_keys,
+    prng_key,
+    sample_tokens,
+)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_BYTES_PER_S = 3.35e12
@@ -134,6 +152,15 @@ REPLACES = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return smi.stdout.strip()
 
 
 def launch_counts() -> dict:
@@ -748,20 +775,27 @@ def phase_packed_prefill(params, cfg) -> dict:
     return out
 
 
+# Phases 5b and 7a: a small f32 model at the kernels' head_dim, cheap on the CPU.
+SMALL_MODEL = dict(vocab_size=512, d_model=256, n_layers=2, n_q_heads=4, n_kv_heads=2,
+                   head_dim=128, d_ff=512)
+
+
+def small_model(device):
+    """The small f32 model on `device`, the same seeded weights on every
+    device: (params, config)."""
+    cfg = llama.LlamaConfig(**SMALL_MODEL, dtype=torch.float32)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(7), "cpu")
+    return {k: (v.to(device) if torch.is_tensor(v) else {n: w.to(device) for n, w in v.items()})
+            for k, v in params.items()}, cfg
+
+
 def phase_small_pod_vs_cpu() -> None:
     log("== phase 5b: small f32 pod on the card vs the same pod on the CPU")
-    cfg = llama.LlamaConfig(
-        vocab_size=512, d_model=256, n_layers=2, n_q_heads=4, n_kv_heads=2,
-        head_dim=128, d_ff=512, dtype=torch.float32,
-    )
-    params_cpu = llama.init_params(cfg, torch.Generator().manual_seed(7), "cpu")
     for int8 in (False, True):
         runs = {}
         for device in ("cuda", "cpu"):
             events = []
-            params = {k: (v.to(device) if torch.is_tensor(v) else
-                          {n: w.to(device) for n, w in v.items()})
-                      for k, v in params_cpu.items()}
+            params, cfg = small_model(device)
             pod = EnginePod(
                 EnginePodConfig(n_pages=8, page_size=PAGE, device_tier="gpu",
                                 max_pages_per_seq=8, model_config=cfg, device=device,
@@ -973,6 +1007,393 @@ def phase_batched_decode(params, cfg) -> dict:
     return dict(checks=results, step_profiles=profiles)
 
 
+# -- phase 7: the scheduler -------------------------------------------------------
+
+# The llama entry points the pod and the scheduler call, with the layer
+# passes each call makes (decode_multi_step_cache: one per step).
+MODEL_CALLS = ("prefill_cache", "verify_step_cache", "decode_step_cache",
+               "decode_multi_step_cache")
+
+
+class CallCounter:
+    """Counts the layer passes of the llama entry points the pod and the
+    scheduler call (they look them up on the module at call time), and keeps
+    the arguments of the first decode call at the largest batch."""
+
+    def __init__(self):
+        self.passes = dict.fromkeys(MODEL_CALLS, 0)
+        self.decode_call = None
+        self._originals = {}
+
+    def __enter__(self):
+        for name in MODEL_CALLS:
+            self._originals[name] = getattr(llama, name)
+            setattr(llama, name, self._wrap(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._originals.items():
+            setattr(llama, name, fn)
+
+    def _wrap(self, name):
+        fn = self._originals[name]
+
+        def counted(*args, **kwargs):
+            passes = args[8] if name == "decode_multi_step_cache" else 1
+            self.passes[name] += passes
+            if name.startswith("decode") and (
+                    self.decode_call is None or args[3].shape[0] > self.decode_call[1][3].shape[0]):
+                self.decode_call = (name, args, kwargs)
+            return fn(*args, **kwargs)
+        return counted
+
+    def layer_passes(self) -> dict:
+        p = self.passes
+        return dict(prefill=p["prefill_cache"] + p["verify_step_cache"],
+                    decode=p["decode_step_cache"] + p["decode_multi_step_cache"])
+
+
+def run_scheduler(pod, traffic, decode_steps, max_batch, budget, scheduler=Scheduler) -> dict:
+    """Submit every request of `traffic` at once to a `scheduler` and step it
+    until it drains: tokens, requests, each tick's wall time, each request's
+    time from submit to its first token, preemptions."""
+    sched = scheduler(pod, max_batch=max_batch, prefill_token_budget=budget,
+                      decode_steps=decode_steps)
+    if pod.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = [sched.submit(**req) for req in traffic]
+    ticks, first_token_s, done = [], {}, {}
+    while sched.has_work:
+        t = time.perf_counter()
+        finished = sched.step()  # reads the tick's tokens back: the tick is over
+        now = time.perf_counter()
+        ticks.append(now - t)
+        done.update({r.req_id: r for r in finished})
+        for r in [*sched._running, *sched._waiting, *finished]:
+            if r.generated and r.req_id not in first_token_s:
+                first_token_s[r.req_id] = now - t0
+    wall = time.perf_counter() - t0
+    return dict(tokens=[done[i].generated for i in ids], requests=[done[i] for i in ids],
+                tick_s=ticks, wall_s=wall, first_token_s=[first_token_s[i] for i in ids],
+                preemptions=sched.preemptions)
+
+
+def small_traffic() -> list:
+    """Phase 7a's six requests: three greedy, three sampled (explicit seeds,
+    top_p 0.9), two sharing a two-page prefix, 24 new tokens each."""
+    rng = np.random.default_rng(71)
+    vocab = SMALL_MODEL["vocab_size"]
+    prefix = rng.integers(0, vocab, 2 * PAGE).tolist()
+    prompts = [prefix + rng.integers(0, vocab, 20).tolist(),
+               prefix + rng.integers(0, vocab, 28).tolist()]
+    prompts += [rng.integers(0, vocab, n).tolist() for n in (40, 24, 56, 18)]
+    samplings = [None, SamplingParams(0.8, 20, 0.9, seed=11), None,
+                 SamplingParams(1.5, 0, 0.9, seed=12), None, SamplingParams(1.1, 20, 0.9, seed=13)]
+    return [dict(prompt_tokens=p, max_new_tokens=24, sampling=sp)
+            for p, sp in zip(prompts, samplings)]
+
+
+# Phase 7a's pod: pages for about three of the six sequences at full length,
+# so decodes preempt.
+SMALL_SCHED_PAGES = 12
+
+
+def phase_scheduler_small() -> dict:
+    log("== phase 7a: the scheduler, small f32 pod on the card vs the CPU (6 mixed "
+        "requests, a preempting pool, decode_steps 1 and 4)")
+    traffic, out = small_traffic(), {}
+    for int8 in (False, True):
+        tag = "int8" if int8 else "f32"
+        runs = {}
+        for device in ("cuda", "cpu"):
+            params, cfg = small_model(device)
+            for steps in (1, 4):
+                events = []
+                pod = EnginePod(
+                    EnginePodConfig(n_pages=SMALL_SCHED_PAGES, page_size=PAGE, device_tier="gpu",
+                                    max_pages_per_seq=8, model_config=cfg, device=device,
+                                    use_quantized_kv=int8),
+                    event_sink=events.append, params=params,
+                )
+                r = run_scheduler(pod, traffic, steps, max_batch=4, budget=3 * PAGE)
+                runs[device, steps] = (r["tokens"], event_rows(events), r["preemptions"])
+        for steps in (1, 4):
+            gpu, cpu = runs["cuda", steps], runs["cpu", steps]
+            log(f"  {tag} pages, decode_steps {steps}: tokens equal to the CPU's: "
+                f"{gpu[0] == cpu[0]}; event streams equal: {gpu[1] == cpu[1]} ({len(gpu[1])} "
+                f"events, {sum(e[0] == 'BlockRemoved' for e in gpu[1])} removals); preemptions "
+                f"{gpu[2]} (CPU {cpu[2]})")
+            if gpu[0] != cpu[0] or gpu[1] != cpu[1] or gpu[2] < 1 or cpu[2] < 1:
+                raise AssertionError(f"scheduler on the card disagrees with the CPU ({tag}, "
+                                     f"decode_steps {steps}) or nothing was preempted")
+        for device in ("cuda", "cpu"):
+            same = runs[device, 1][0] == runs[device, 4][0]
+            log(f"  {tag} pages on {device}: decode_steps 1 and 4 give the same tokens: {same}")
+            if not same:
+                raise AssertionError(f"decode_steps 1 and 4 differ ({tag}, {device})")
+        out[tag] = dict(events=len(runs["cuda", 1][1]), preemptions=runs["cuda", 1][2],
+                        tokens=runs["cuda", 1][0])
+    return out
+
+
+def flagship_traffic(vocab: int, eos_token=None) -> tuple:
+    """Phase 7b's 16 requests, submitted at once: 12 of 1,024 shared + 512
+    unique tokens, 4 unique prompts of 64-256 tokens, interleaved at the
+    head of the queue; max_new_tokens staggered from 16 to 48; 8 greedy and
+    8 sampled (temperature 0.8, top_k 50, top_p 0.95, seeds 0-7). Request 3,
+    greedy, stops at `eos_token`. Returns (traffic, the shared prefix)."""
+    rng = np.random.default_rng(77)
+    prefix = rng.integers(0, vocab, 1024).tolist()
+    shared = [prefix + rng.integers(0, vocab, 512).tolist() for _ in range(12)]
+    unique = [rng.integers(0, vocab, n).tolist() for n in (64, 128, 192, 256)]
+    prompts = [p for pair in zip(shared[:4], unique) for p in pair] + shared[4:]
+    budgets = np.linspace(16, 48, 16).round().astype(int).tolist()
+    traffic, seed = [], 0
+    for i, prompt in enumerate(prompts):
+        sampling = None
+        if i % 4 in (1, 2):
+            sampling, seed = SamplingParams(0.8, 50, 0.95, seed=seed), seed + 1
+        traffic.append(dict(prompt_tokens=prompt, max_new_tokens=budgets[i], sampling=sampling,
+                            eos_token=eos_token if i == EOS_REQUEST else None))
+    return traffic, prefix
+
+
+EOS_REQUEST = 3  # the greedy unique prompt of 128 tokens
+SHARED_IDS = [0, 2, 4, 6] + list(range(8, 16))  # requests of the 1,024-token prefix
+FLAGSHIP_RUNS = (("bf16", False, 1), ("bf16", False, 4), ("int8", True, 4))
+
+
+def dense_logits(cfg, params, tokens, first: int) -> torch.Tensor:
+    """A plain causal forward over one whole sequence, with no cache and no
+    pages (the teacher-forced truth, at f32): logits at positions first.."""
+    l = tokens.shape[0]
+    x = params["embed"][tokens.long()][None]
+    positions = torch.arange(l, device=x.device)[None]
+    for i in range(cfg.n_layers):
+        layer = llama.layer_params(params, i)
+        h = llama.rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+        q_flat, v_flat = llama._qv_proj(h, layer)
+        q = llama._rope(q_flat.reshape(1, l, cfg.n_q_heads, cfg.head_dim), positions,
+                        cfg.rope_theta)
+        k = llama._rope(llama._k_proj(layer, h).reshape(1, l, cfg.n_kv_heads, cfg.head_dim),
+                        positions, cfg.rope_theta)
+        v = v_flat.reshape(1, l, cfg.n_kv_heads, cfg.head_dim)
+        attn = fp.dense_attention(q, k, v, 0)
+        x = x + attn.reshape(1, l, cfg.q_dim) @ layer["wo"]
+        x = x + llama._mlp(layer, llama.rms_norm(x, layer["mlp_norm"], cfg.rms_eps))
+    x = llama.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return x[0, first:] @ params["out"]
+
+
+def teacher_forced_bar(params32, cfg32, traffic, requests, delta: float) -> dict:
+    """Each finished request's prompt plus generated tokens through the f32
+    truth in one pass. A greedy token's truth logit must be within `delta`
+    of its row's maximum; a sampled token must lie in the kept set of
+    filter_logits of the truth row (its request's temperature, top_k and
+    top_p), widened by `delta` in logit units. Readings are the largest
+    shortfalls (<= delta passes; negative: inside the set)."""
+    worst = dict(greedy=-float("inf"), sampled=-float("inf"))
+    counts = dict(greedy=0, sampled=0)
+    dev = params32["embed"].device
+    for spec, req in zip(traffic, requests):
+        prompt, gen = spec["prompt_tokens"], req.generated
+        seq = torch.tensor(prompt + gen, dtype=torch.int32, device=dev)
+        truth = dense_logits(cfg32, params32, seq, len(prompt) - 1)[: len(gen)]
+        tok = torch.tensor(gen, device=dev)[:, None]
+        picked = torch.gather(truth, 1, tok)[:, 0]
+        sp = spec["sampling"]
+        if sp is None:
+            kind, short = "greedy", truth.max(dim=-1).values - picked
+        else:
+            n = len(gen)
+            kept = filter_logits(truth, torch.full((n,), sp.temperature, device=dev),
+                                 torch.full((n,), sp.top_k, device=dev, dtype=torch.int32),
+                                 torch.full((n,), sp.top_p, device=dev))
+            min_kept = torch.where(torch.isfinite(kept), kept, float("inf")).amin(dim=-1)
+            kind, short = "sampled", (min_kept - picked / sp.temperature) * sp.temperature
+        worst[kind] = max(worst[kind], float(short.max()))
+        counts[kind] += len(gen)
+    ok = max(worst.values()) <= delta
+    return dict(ok=ok, delta=delta, worst=worst, tokens_checked=counts)
+
+
+def flagship_run(params, cfg, int8: bool, decode_steps: int, eos_token, model: str,
+                 scheduler=Scheduler):
+    """One phase 7b run on a fresh pod: (result of run_scheduler, traffic,
+    prefix, indexer, pod, counted layer passes, launches)."""
+    index = InMemoryIndex()
+    indexer = Indexer(TokenProcessorConfig(block_size=PAGE), kv_block_index=index)
+    pod_id = "pod-sched-" + ("int8" if int8 else "bf16")
+    pod = EnginePod(
+        EnginePodConfig(pod_id=pod_id, model_name=model, n_pages=8192 if int8 else 4096,
+                        page_size=PAGE, device_tier="gpu", max_pages_per_seq=256,
+                        model_config=cfg, device=params["embed"].device,
+                        use_quantized_kv=int8),
+        event_sink=lambda b: digest_batch(index, indexer.token_processor, pod_id, model, b),
+        params=params,
+    )
+    traffic, prefix = flagship_traffic(cfg.vocab_size, eos_token)
+    reset_launch_counts()
+    with CallCounter() as counter:
+        r = run_scheduler(pod, traffic, decode_steps, max_batch=8, budget=512,
+                          scheduler=scheduler)
+    return r, traffic, prefix, indexer, pod, counter, launch_counts()
+
+
+def flagship_scheduler_check(params, cfg, params32, cfg32, int8: bool, decode_steps: int,
+                             delta: float) -> dict:
+    """Phase 7b on one pod: a probe run finds a token the EOS request
+    reaches (the first after its third that it has not emitted before; the
+    pods are deterministic), then the recorded run with that EOS on a fresh
+    pod, its checks and the teacher-forced bar."""
+    tag = f"{'int8' if int8 else 'bf16'} pages, decode_steps {decode_steps}"
+    model = "llama-flagship-1.14b"
+    probe = flagship_run(params, cfg, int8, decode_steps, None, model)
+    out = probe[0]["tokens"][EOS_REQUEST]
+    eos = next((t for j, t in enumerate(out) if j >= 3 and t not in out[:j]), None)
+    del probe
+    if eos is None:
+        raise AssertionError(f"phase 7b ({tag}): no new token after the third in {out}")
+    torch.cuda.empty_cache()
+    r, traffic, prefix, indexer, pod, counter, launches = flagship_run(
+        params, cfg, int8, decode_steps, eos, model)
+    failures = []
+    gen = r["tokens"]
+    eos_out = gen[EOS_REQUEST]
+    if not (eos_out[-1] == eos and eos not in eos_out[:-1]
+            and len(eos_out) < traffic[EOS_REQUEST]["max_new_tokens"]):
+        failures.append(f"request {EOS_REQUEST} did not stop at its EOS {eos}: {eos_out}")
+    for i, (spec, out) in enumerate(zip(traffic, gen)):
+        if i != EOS_REQUEST and len(out) != spec["max_new_tokens"]:
+            failures.append(f"request {i}: {len(out)} tokens, asked {spec['max_new_tokens']}")
+        if not all(0 <= t < cfg.vocab_size for t in out):
+            failures.append(f"request {i}: token out of vocabulary")
+    cached = [r["requests"][i].num_cached_tokens for i in SHARED_IDS]
+    if cached[0] != 0 or any(c != 1024 for c in cached[1:]):
+        failures.append(f"prefix group cached tokens {cached}")
+    probe_prompt = prefix + np.random.default_rng(5).integers(0, cfg.vocab_size, 256).tolist()
+    scores = indexer.get_pod_scores(probe_prompt, model, [])
+    if scores.get(pod.config.pod_id) != 1024 // PAGE:
+        failures.append(f"index scores for the prefix: {scores}")
+    passes = counter.layer_passes()
+    row = "paged_decode_int8" if int8 else "paged_decode"
+    want = {name: 0 for name in KERNELS}
+    want[row] = cfg.n_layers * passes["decode"]
+    want["flash_prefill"] = cfg.n_layers * passes["prefill"]
+    if launches != want or not passes["decode"] or not passes["prefill"]:
+        failures.append(f"launches {launches}, expected {want} from {counter.passes}")
+    bar = teacher_forced_bar(params32, cfg32, traffic, r["requests"], delta)
+    if not bar["ok"]:
+        failures.append(f"teacher-forced bar: {bar}")
+
+    ticks_ms = [t * 1e3 for t in r["tick_s"]]
+    n_tokens = sum(len(g) for g in gen)
+    card = card_line()
+    log(f"  {tag} ({card}): {len(ticks_ms)} ticks, {n_tokens} tokens in {r['wall_s']:.3f} s "
+        f"({n_tokens / r['wall_s']:.1f} tokens/s); tick wall ms min/median/max "
+        f"{min(ticks_ms):.2f}/{statistics.median(ticks_ms):.2f}/{max(ticks_ms):.2f}")
+    log(f"    tick wall ms: {' '.join(f'{t:.1f}' for t in ticks_ms)}")
+    log(f"    submit to first token, ms: "
+        f"{' '.join(f'{t * 1e3:.1f}' for t in r['first_token_s'])}")
+    log(f"    EOS {eos} stopped request {EOS_REQUEST} after {len(eos_out)} tokens; prefix group "
+        f"cached tokens {cached}; index score for the prefix {scores}; preemptions "
+        f"{r['preemptions']}")
+    log(f"    layer passes {passes}; launches {{{row}: {launches[row]}, flash_prefill: "
+        f"{launches['flash_prefill']}}} (16 per pass)")
+    log(f"    teacher-forced bar: greedy worst {bar['worst']['greedy']:.4f}, sampled worst "
+        f"{bar['worst']['sampled']:.4f} (delta {delta:.4f}; {bar['tokens_checked']} tokens) "
+        f"{'ok' if bar['ok'] else 'FAIL'}")
+    out = dict(ok=not failures, failures=failures, card=card, ticks=len(ticks_ms),
+               tick_ms=ticks_ms, tokens=n_tokens, wall_s=r["wall_s"],
+               tokens_per_s=n_tokens / r["wall_s"],
+               first_token_ms=[t * 1e3 for t in r["first_token_s"]], launches=launches,
+               layer_passes=passes, bar=bar, eos=eos, cached=cached)
+    if not failures:
+        name, args, kwargs = counter.decode_call
+        out["tick_profile"] = profile_device_share(
+            f"decode tick of the scheduler ({tag}, batch {args[3].shape[0]}, sampled rows)",
+            decode_tick(name, args, kwargs, traffic))
+    del pod
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_tick(name, args, kwargs, traffic):
+    """The device work of one scheduler decode tick, replayed from a recorded
+    decode call (the same rows rewritten at the same positions): the model
+    step, token selection with the sampling arrays of the first requests of
+    `traffic`, and the read back."""
+    if name == "decode_multi_step_cache":
+        return lambda: getattr(llama, name)(*args, **kwargs)[1].tolist()
+    b = args[3].shape[0]
+    sps = [t["sampling"] or SamplingParams() for t in traffic[:b]]
+    temps = torch.tensor([sp.temperature for sp in sps], device="cuda")
+    top_ks = torch.tensor([sp.top_k for sp in sps], dtype=torch.int32, device="cuda")
+    top_ps = torch.tensor([sp.top_p for sp in sps], device="cuda")
+    keys = torch.stack([prng_key(sp.seed or 0) for sp in sps])
+
+    def tick():
+        _, logits = llama.decode_step_cache(*args, **kwargs)
+        return sample_tokens(logits, temps, top_ks, top_ps, position_keys(keys, args[5])).tolist()
+    return tick
+
+
+def teacher_forced_delta(params, cfg, params32, cfg32, int8: bool) -> tuple:
+    """(delta, e): e is the bf16 plain path's largest logit error against
+    the f32 truth on this page format, read on four of phase 7b's sequences
+    (prompt plus 32 tokens, prefilled from position 0 through
+    `prefill_cache(plain=True)` on a fresh cache, last position); delta =
+    2 x (2e + 1e-2), twice phase 6's bar, since a served token's logit and
+    its row's maximum may each sit that far from the truth."""
+    traffic, _ = flagship_traffic(cfg.vocab_size)
+    rng = np.random.default_rng(9)
+    e, dev = 0.0, params["embed"].device
+    make = llama.make_kv_pages_quantized if int8 else llama.make_kv_pages
+    for i in (0, 1, 3, 8):
+        seq = traffic[i]["prompt_tokens"] + rng.integers(0, cfg.vocab_size, 32).tolist()
+        tokens = torch.tensor(seq, dtype=torch.int32, device=dev)
+        n_pages = -(-len(seq) // PAGE)
+        cache = make(cfg, n_pages, PAGE, dev)
+        table = torch.arange(n_pages, dtype=torch.int32, device=dev)
+        _, got = llama.prefill_cache(cfg, params, cache, tokens, table, 0, plain=True)
+        truth = dense_logits(cfg32, params32, tokens, len(seq) - 1)[0]
+        e = max(e, float((got.float() - truth).abs().max()))
+        del cache
+    return 2 * (2 * e + 1e-2), e
+
+
+def phase_scheduler_flagship(params, cfg) -> dict:
+    log("== phase 7b: the flagship through the scheduler (16 requests at once, 12 sharing a "
+        "1,024-token prefix; 8 greedy, 8 sampled; max_batch 8, prefill budget 512)")
+    params32, cfg32 = f32_twin(params, cfg)
+    tf = dense_logits(cfg32, params32, torch.arange(300, device="cuda", dtype=torch.int32), 299)
+    cache = llama.make_kv_pages(cfg32, 19, PAGE, "cuda")
+    _, pc = llama.prefill_cache(cfg32, params32, cache, torch.arange(300, device="cuda",
+                                dtype=torch.int32), torch.arange(19, dtype=torch.int32,
+                                device="cuda"), 0, plain=True)
+    truth_err = float((tf[0] - pc).abs().max())
+    log(f"  the truth's dense forward vs prefill_cache(plain=True), f32, 300 tokens: "
+        f"max_abs_err={truth_err:.3e} (tol 1e-3)")
+    del cache
+    if truth_err > 1e-3:
+        raise AssertionError("the teacher-forced truth disagrees with the plain prefill path")
+    out = {}
+    for fmt, int8, steps in FLAGSHIP_RUNS:
+        if fmt not in out:
+            delta, e = teacher_forced_delta(params, cfg, params32, cfg32, int8)
+            log(f"  {fmt} pages: bf16 plain path vs f32 truth {e:.4f}; delta {delta:.4f}")
+            out[fmt] = dict(plain_err=e, delta=delta)
+        r = flagship_scheduler_check(params, cfg, params32, cfg32, int8, steps,
+                                     out[fmt]["delta"])
+        out[f"{fmt} steps{steps}"] = r
+        if not r["ok"]:
+            raise AssertionError(f"phase 7b ({fmt}, decode_steps {steps}): {r['failures']}")
+    del params32
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -985,12 +1406,7 @@ def main() -> int:
     log("== phase 1: device")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; device: "
         f"{torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()})")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    for line in smi.stdout.strip().splitlines():
-        log(line)
+    log(card_line())
 
     log("== phase 2: build")
     build_s = _build.build()
@@ -1016,30 +1432,36 @@ def main() -> int:
     phase_small_pod_vs_cpu()
     prefill_logits = phase_prefill_logits(params, cfg)
     batched = phase_batched_decode(params, cfg)
+    sched_small = phase_scheduler_small()
+    sched = phase_scheduler_flagship(params, cfg)
 
-    # Rows 1, 2 and 5 are counted on the serving path; rows 3 and 4 (the
+    # Rows 1, 2 and 5 are counted on the serving path (phase 5) and on the
+    # scheduler's path (phase 7b's recorded runs, summed); rows 3 and 4 (the
     # tiled decode entry) on phase 6's tiled decode steps.
-    launches = {name: serving["launches"][name] for name in
-                ("paged_decode", "paged_decode_int8", "flash_prefill")}
+    runs = [sched[f"{fmt} steps{steps}"] for fmt, _, steps in FLAGSHIP_RUNS]
+    by_path = {name: {"serving": serving["launches"][name],
+                      "scheduler": sum(r["launches"][name] for r in runs)}
+               for name in ("paged_decode", "paged_decode_int8", "flash_prefill")}
     for row in ("paged_decode_tiled", "paged_decode_tiled_int8"):
-        launches[row] = batched["checks"][row]["launches"]
+        by_path[row] = {"batched_decode": batched["checks"][row]["launches"]}
     kernels = [
         dict(
             name=name, route="cuda",
             source=f"llm_d_kv_cache_manager_tpu_torch/csrc/{SOURCE[name]}.cu",
-            replaces=REPLACES[name], launches=launches[name],
-            max_abs_err=errs[name],
+            replaces=REPLACES[name], launches=next(iter(by_path[name].values())),
+            launches_by_path=by_path[name], max_abs_err=errs[name],
             **{k: times[name][k] for k in
                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         )
         for name in KERNELS
     ]
-    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"decode_shapes": decode_times,
                     "prefill_serving_shape": prefill_serving, "serving": serving,
                     "prefill_logits": prefill_logits,
                     "packed_prefill": packed, "batched_decode": batched,
+                    "scheduler_small": sched_small, "scheduler": sched,
                     "build_s": build_s, "run_s": time.perf_counter() - t_start}))
+    log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

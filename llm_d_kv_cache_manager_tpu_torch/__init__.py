@@ -11,10 +11,12 @@ Layout mirrors the reference package module for module:
   - kvcache/        token-ID read path (Indexer.get_pod_scores), scorer,
                     kvblock hashing/keys/token processor/in-memory index
   - kvevents/       event schema (msgpack wire form) + synchronous digest
-  - engine/         BlockManager + EnginePod (model mode)
+  - engine/         BlockManager + EnginePod (model mode) + the
+                    continuous-batching Scheduler
   - models/llama.py paged-KV Llama serving functions
   - ops/            paged_attention / flash_prefill wrappers (kernel on CUDA,
-                    plain torch version on CPU) + the nvcc builder
+                    plain torch version on CPU), the nvcc build step, and
+                    sampling (JAX's Threefry noise in torch ops)
   - csrc/           CUDA C++ kernels for sm_90a
 
 This package imports torch and numpy only; it never imports jax or the

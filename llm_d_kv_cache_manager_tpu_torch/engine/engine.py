@@ -112,6 +112,24 @@ class EnginePod:
             n_cached = min(n_cached, len(tokens) - 1)
         return state, n_cached
 
+    def lora_index(self, lora_id: Optional[int]) -> int:
+        """Registry index for an adapter id (0 = base). This pod serves no
+        adapters, so any other id raises KeyError and admission rejects the
+        request."""
+        if lora_id is None:
+            return 0
+        raise KeyError(f"no LoRA adapters configured (requested {lora_id})")
+
+    def lora_for_decode(self, lora_ids) -> None:
+        """The adapter stack and per-row indices of a decode batch: None,
+        since this pod serves no adapters."""
+        return None
+
+    def prefetch(self, tokens: List[int], lora_id: Optional[int] = None) -> int:
+        """Start background payload fetches for a queued prompt's restorable
+        blocks. This pod has no host tier, so nothing is queued: returns 0."""
+        return 0
+
     def prefill_chunk(self, state: SequenceState, start: int, end: int) -> None:
         """Compute KV (and logits) for tokens[start:end], attending over the
         first `start` already-resident positions.

@@ -8,8 +8,9 @@ cache (pools `[n_layers, n_kv, n_pages, page, hd]`, block tables on host):
   attending to the cached prefix through `ops.flash_prefill`,
 - `decode_step_cache`: a batched one-token step through `ops.paged_attention`
   (`pipelined=True`, the default, or the split-KV tiled kernel),
-- `decode_multi_step_cache`: N greedy decode steps with the argmax kept on
-  the device and over-budget rows steered to a trash page,
+- `decode_multi_step_cache`: N decode steps with each token (argmax, or
+  `ops.sampling.sample_tokens`) kept on the device and over-budget rows
+  steered to a trash page,
 - `verify_step_cache`: several positions of every sequence in one batched
   pass (packed prefill), through `ops.flash_prefill` with per-batch offsets.
 
@@ -45,6 +46,7 @@ from llm_d_kv_cache_manager_tpu_torch.ops.quantized_kv import (
     quantize_rows,
     write_kv_pages_quantized,
 )
+from llm_d_kv_cache_manager_tpu_torch.ops.sampling import position_keys, sample_tokens
 from llm_d_kv_cache_manager_tpu_torch.utils.device import resolve_device
 
 Params = Dict
@@ -423,11 +425,15 @@ def decode_multi_step_cache(
     # max_lens land in real pages, later ones in the trash page
     trash_page: int,  # sacrificial page id for capacity-masked writes
     n_steps: int,
+    sampling=None,  # (temps [B], top_ks [B], top_ps [B], base_keys [B, 2])
+    # or None for greedy; keys are folded per in-loop position, so the
+    # tokens equal single-step sampling's (ops/sampling.py)
 ) -> Tuple[tuple, torch.Tensor]:
-    """N greedy decode steps; returns (kv_cache, tokens_out [B, N]), where
-    tokens_out[:, j] is the token chosen at step j. Each step's argmax stays
-    on the device and feeds the next step, and the page-table walk advances
-    with it, so the host reads the tokens once at the end.
+    """N decode steps; returns (kv_cache, tokens_out [B, N]), where
+    tokens_out[:, j] is the token chosen at step j (argmax, or filtered
+    sampling when `sampling` is given). Each step's token stays on the
+    device and feeds the next step, and the page-table walk advances with
+    it, so the host reads the tokens once at the end.
 
     The batch is rectangular: a sequence whose budget ends mid-window keeps
     stepping, but its out-of-budget KV rows go to `trash_page` (a page the
@@ -447,7 +453,12 @@ def decode_multi_step_cache(
             config, params, kv_cache, tok, block_tables, lens, pages, lens % page_size,
             pipelined=True,
         )
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        if sampling is None:
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        else:
+            temps, top_ks, top_ps, base_keys = sampling
+            tok = sample_tokens(logits, temps, top_ks, top_ps,
+                                position_keys(base_keys, lens))
         out.append(tok)
         lens = lens + 1
     return kv_cache, torch.stack(out, dim=1)

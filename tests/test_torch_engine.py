@@ -63,8 +63,9 @@ def _event_rows(batches):
 class _PodPair:
     """The same pod on both packages, sharing one f32 parameter tree."""
 
-    def __init__(self, n_pages, max_pages_per_seq=16, int8=False):
-        jcfg = jax_llama.LlamaConfig(**CFG, dtype=jnp.float32)
+    def __init__(self, n_pages, max_pages_per_seq=16, int8=False, n_layers=1):
+        cfg = {**CFG, "n_layers": n_layers}
+        jcfg = jax_llama.LlamaConfig(**cfg, dtype=jnp.float32)
         jparams = jax_llama.init_params(jcfg, jax.random.PRNGKey(0))
         np_params = jax.tree_util.tree_map(np.asarray, jparams)
         self.jax_events, self.port_events = [], []
@@ -80,7 +81,7 @@ class _PodPair:
             EnginePodConfig(
                 n_pages=n_pages, page_size=PAGE, max_pages_per_seq=max_pages_per_seq,
                 device_tier="gpu", device="cpu", use_quantized_kv=int8,
-                model_config=llama.LlamaConfig(**CFG, dtype=torch.float32),
+                model_config=llama.LlamaConfig(**cfg, dtype=torch.float32),
             ),
             event_sink=self.port_events.append,
             params=llama.params_from_jax(np_params, device="cpu"),

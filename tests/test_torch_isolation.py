@@ -95,6 +95,34 @@ def test_default_device_pod_raises_without_gpu():
         EnginePod(EnginePodConfig(model_config=cfg))
 
 
+@pytest.mark.parametrize("module", ["engine.scheduler", "ops.sampling"])
+def test_scheduler_and_sampler_are_checked(module):
+    """The scheduler and the sampler are among the modules the import checks
+    above load and parse."""
+    path = PORT / (module.replace(".", "/") + ".py")
+    assert path in _port_files()
+    assert "import torch" in path.read_text()
+
+
+def test_default_device_scheduler_raises_without_gpu():
+    """A Scheduler needs a pod, and a pod built without device='cpu' raises
+    on a machine with no card: the scheduler never falls back to the CPU.
+    The sampler's keys default to the card the same way."""
+    from llm_d_kv_cache_manager_tpu_torch.engine.engine import EnginePod, EnginePodConfig
+    from llm_d_kv_cache_manager_tpu_torch.engine.scheduler import Scheduler
+    from llm_d_kv_cache_manager_tpu_torch.models.llama import LlamaConfig
+    from llm_d_kv_cache_manager_tpu_torch.ops.sampling import prng_key
+
+    cfg = LlamaConfig(vocab_size=64, d_model=32, n_layers=1, n_q_heads=2,
+                      n_kv_heads=1, head_dim=16, d_ff=64, dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Scheduler(EnginePod(EnginePodConfig(model_config=cfg)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        prng_key(0)
+    pod = EnginePod(EnginePodConfig(model_config=cfg, device="cpu"))
+    assert Scheduler(pod).pod.device.type == "cpu"
+
+
 @pytest.mark.parametrize(
     "entry", ["init_params", "make_kv_pages", "params_from_jax", "make_kv_pages_quantized",
               "make_quantized_kv_pages"]

@@ -406,3 +406,40 @@ def test_decode_multi_step_capacity_mask_steers_to_trash(layout):
         torch.tensor([7], dtype=torch.int32), torch.tensor([13], dtype=torch.int32), 16, 6,
     )
     assert got[0, :2].tolist() == unrestricted[0, :2].tolist()
+
+
+@pytest.mark.parametrize("layout", ["model_dtype", "int8"])
+def test_decode_multi_step_sampling_matches_jax_and_single_steps(layout):
+    """`sampling=(temps, top_ks, top_ps, base_keys)`: the same sampled tokens
+    as the JAX package's multi-step decode, and as single steps that sample
+    with `position_keys(base_keys, position)`."""
+    from llm_d_kv_cache_manager_tpu_torch.ops import sampling
+
+    n = 5
+    (jcfg, np_params, jcache), (cfg, params, pcache), table, pending = (
+        _multi_step_setup(layout))
+    jax_arrays = (jnp.asarray([1.3]), jnp.asarray([20], jnp.int32), jnp.asarray([0.9]),
+                  jnp.stack([jax.random.PRNGKey(42)]))
+    port_arrays = (torch.tensor([1.3]), torch.tensor([20], dtype=torch.int32),
+                   torch.tensor([0.9]), torch.stack([sampling.prng_key(42, "cpu")]))
+    _, want = jax_llama.decode_multi_step_cache(
+        jcfg, np_params, jcache, jnp.asarray(pending), jnp.asarray(table[None]),
+        jnp.asarray([7], jnp.int32), jnp.asarray([7 + n], jnp.int32), 16, n,
+        sampling=jax_arrays,
+    )
+    twin = tuple(p.clone() for p in pcache)
+    _, got = llama.decode_multi_step_cache(
+        cfg, params, pcache, torch.from_numpy(pending), torch.from_numpy(table[None]),
+        torch.tensor([7], dtype=torch.int32), torch.tensor([7 + n], dtype=torch.int32),
+        16, n, sampling=port_arrays,
+    )
+    assert got.tolist() == np.asarray(want).tolist()
+    tok, single = torch.from_numpy(pending), []
+    for i in range(n):
+        pos = torch.tensor([7 + i], dtype=torch.int32)
+        twin, logits = llama.decode_step_cache(
+            cfg, params, twin, tok, torch.from_numpy(table[None]), pos, pipelined=True)
+        tok = sampling.sample_tokens(logits, *port_arrays[:3],
+                                     sampling.position_keys(port_arrays[3], pos))
+        single.append(int(tok[0]))
+    assert got[0].tolist() == single
