@@ -32,6 +32,12 @@ the real tree, to the decode_sm90_stage mutant and to a planted scheduler
 fault, OffByOneScheduler (every decode row one position early); both
 faults must fail it.
 
+Phase 8b's bit-identical check (P' restored from the host store on a tight
+bf16 pod against the same prompt on a pod that never evicts: suffix logits
+and 32 greedy tokens) is held to the real tree and to a planted codec fault,
+the host tier's insert landing every block one page off (the page after the
+one the block manager took for it); the fault must fail it.
+
 The real kernels and each mutant in turn are swapped in behind the wrappers
 and run through chip_smoke's kernel cases (bf16 and f32, the same seeded
 inputs) of the kernels built from the mutated sources, its batch-8 flagship
@@ -57,6 +63,7 @@ import sys
 import torch
 
 import chip_smoke
+from llm_d_kv_cache_manager_tpu_torch.engine import engine as engine_mod
 from llm_d_kv_cache_manager_tpu_torch.engine.scheduler import Scheduler
 from llm_d_kv_cache_manager_tpu_torch.models import llama
 from llm_d_kv_cache_manager_tpu_torch.ops import _build
@@ -208,6 +215,37 @@ def run_scheduler_bar(label: str, params, cfg, params32, cfg32, delta: float,
     return bar
 
 
+def scatter_one_page_off(cache, page_ids, blocks):
+    """A planted codec fault: each block lands in the page after its own
+    (wrapping inside the pool, trash page included, so no index leaves it)."""
+    real_scatter(cache, (page_ids + 1) % cache[0].shape[2], blocks)
+
+
+real_scatter = engine_mod._scatter_pages
+
+
+def run_host_tier_bar(label: str, params, cfg, scatter=None) -> dict:
+    """Phase 8b's bit-identical check on bf16 pages, with `scatter` as the
+    codec's page scatter: whether P' restored from the host store matched
+    the resident reference bit for bit (logits and tokens), and the
+    readings."""
+    engine_mod._scatter_pages = scatter or real_scatter
+    try:
+        r = chip_smoke.host_tier_restore_check(params, cfg, False)
+    finally:
+        engine_mod._scatter_pages = real_scatter
+    for pod in r["pods"]:
+        pod.close()
+    torch.cuda.empty_cache()
+    c = r["checks"]
+    bits = c["restore_logits_bits"] and c["restore_tokens"]
+    diff = r["readings"]["restore_max_abs_logit_diff"]
+    chip_smoke.log(f"  [{label}] host-tier restore: logits max |diff| {diff}, tokens equal "
+                   f"{c['restore_tokens']}: {'ok' if bits else 'FAIL'} (all checks {r['ok']})")
+    return dict(ok=bits, all_checks=r["ok"], max_abs_logit_diff=diff,
+                tokens_equal=c["restore_tokens"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_fault_check: no CUDA device", file=sys.stderr)
@@ -241,13 +279,18 @@ def main() -> int:
         if name in SCHEDULER_BAR_MUTANTS:
             bars[label] = run_scheduler_bar(label, params, cfg, params32, cfg32, delta)
         _build._libs.update({source: real[source] for source in libs})
+    chip_smoke.log("== host-tier restore: the real codec, and the codec fault one page off")
+    host_tier = {"real": run_host_tier_bar("real", params, cfg),
+                 "insert_one_page_off": run_host_tier_bar(
+                     "insert_one_page_off", params, cfg, scatter_one_page_off)}
     chip_smoke.log("== scheduler fault: decode positions off by one")
     bars["decode_position_off_by_one"] = run_scheduler_bar(
         "decode_position_off_by_one", params, cfg, params32, cfg32, delta,
         scheduler=OffByOneScheduler)
 
     real_ok = all(r["ok"] for r in rows if r["variant"] == "real") and all(
-        logits_ok["real"].values()) and bars["real"]["ok"]
+        logits_ok["real"].values()) and bars["real"]["ok"] and host_tier["real"]["all_checks"]
+    host_tier_caught = not host_tier["insert_one_page_off"]["ok"]
     bar_caught = {label: not bar["ok"] for label, bar in bars.items() if label != "real"}
     main_rows = {
         f"{name}/{kernel}": next(r for r in rows if r["variant"] == f"{name}-mutant"
@@ -268,13 +311,14 @@ def main() -> int:
             kernel: r["row_rel_err"] for kernel, r in main_rows.items()},
         "mutant_caught_by_logits": logits_caught,
         "caught_by_scheduler_bar": bar_caught,
+        "host_tier_fault_caught": host_tier_caught, "host_tier_readings": host_tier,
         "scheduler_bar_readings": {label: dict(bar["worst"], delta=bar["delta"])
                                    for label, bar in bars.items()},
         "logits_ok": logits_ok, "bf16_max_row_rel_err": worst,
         "bf16_row_rel_limits": chip_smoke.BF16_ROW_REL,
     }))
     return 0 if (real_ok and all(caught.values()) and all(logits_caught.values())
-                 and all(bar_caught.values())) else 1
+                 and all(bar_caught.values()) and host_tier_caught) else 1
 
 
 if __name__ == "__main__":

@@ -6,7 +6,9 @@
 Phases, in order (any failure raises and the script exits non-zero):
   1. device lines: torch's device name and nvidia-smi's name + power limit;
   2. build: the three kernel sources in llm_d_kv_cache_manager_tpu_torch/csrc
-     with nvcc for sm_90a (build seconds, ptxas register/spill lines);
+     with nvcc for sm_90a and the host tier's transfer library
+     (kv_connectors/cpp/kv_transfer.cpp) with the C++ compiler, all at once
+     (build seconds, ptxas register/spill lines);
   3. kernel vs plain: each of the five kernels (paged decode pipelined and
      tiled, each on bf16/f32 and on int8 pages, and flash prefill) against
      its plain torch version in bf16 and f32 over edge cases (zero/one-token
@@ -51,6 +53,21 @@ Phases, in order (any failure raises and the script exits non-zero):
      score, kernel launches per layer pass, and a teacher-forced bar on
      every generated token against an f32 truth; tick walls, tokens/s, time
      to first token and one decode tick's device share are logged;
+  8a. the host tier on small f32 pods on the card against the same pods on
+     the CPU, both page formats: offload on reclaim, the host capacity bound,
+     restore on a miss, eager staging with an overwrite before the admit, and
+     a two-pod onboard over loopback TCP through the index; the same tokens,
+     event streams (media included) and tier-store stats;
+  8b-8d. the flagship through the host tier, bf16 and int8 pages: on a pod
+     of 132 pages an unrelated 1,536-token request reclaims P's 1,024-token
+     prefix (64 blocks offloaded to the host store, medium "cpu"); P' (the
+     prefix and 512 other tokens) restores it; a fresh pod onboards it from a
+     reference pod over the transfer wire, found through the index; P' on
+     both must be bit-identical (suffix logits, 32 greedy tokens) to the
+     reference pod, which never evicts; launches are 16 per layer pass. The
+     codec's and the wire's rates, four times to first token of P'
+     (resident, restore, onboard, recompute) and the cost model's verdict
+     at those rates are logged;
   then a JSON line of details, one JSON line describing every kernel, and
   last: {"ok": true, "device": {...}}.
 """
@@ -67,11 +84,22 @@ import time
 import numpy as np
 import torch
 
+from llm_d_kv_cache_manager_tpu_torch.engine.costs import (
+    ALWAYS_TRANSFER,
+    PEER,
+    READY,
+    STAGED,
+    TransferCostModel,
+    flops_per_token,
+)
 from llm_d_kv_cache_manager_tpu_torch.engine.engine import EnginePod, EnginePodConfig
 from llm_d_kv_cache_manager_tpu_torch.engine.scheduler import Scheduler
+from llm_d_kv_cache_manager_tpu_torch.engine.tiering import IndexBackedPeerResolver
 from llm_d_kv_cache_manager_tpu_torch.kvcache.indexer import Indexer
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.in_memory import InMemoryIndex
+from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.key import PodEntry
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.token_processor import (
+    ChunkedTokenDatabase,
     TokenProcessorConfig,
 )
 from llm_d_kv_cache_manager_tpu_torch.kvevents.digest import digest_batch
@@ -1394,6 +1422,396 @@ def phase_scheduler_flagship(params, cfg) -> dict:
     return out
 
 
+# -- phase 8: the host tier -------------------------------------------------------
+
+# Phase 8a's sequences, after the reference package's host-tier tests, at
+# page 16 on the small f32 model: (name, pod options, steps). A step is
+# (prompt, greedy tokens after the first, free the sequence after).
+def tier_sequences() -> list:
+    a, b = list(range(64)), [300 + i for i in range(128)]
+    return [
+        ("offload_on_reclaim", dict(n_pages=4), [(a, 0, True), (b[:32], 0, True)]),
+        ("host_capacity_bound", dict(n_pages=4, host_capacity_blocks=2),
+         [(a, 0, True), (b[:64], 0, True)]),
+        ("restore_on_miss", dict(n_pages=6),
+         [(a + [50, 51], 0, True), (b[:80], 0, True), (a + [50, 51], 5, True)]),
+    ]
+
+
+def tier_pod(device, int8, pod_id="pod-t", sink=None, **over):
+    params, cfg = small_model(device)
+    opts = dict(n_pages=8, page_size=PAGE, device_tier="gpu", max_pages_per_seq=8,
+                model_config=cfg, device=device, use_quantized_kv=int8,
+                enable_host_tier=True, transfer_cost_model=ALWAYS_TRANSFER)
+    opts.update(over)
+    return EnginePod(EnginePodConfig(pod_id=pod_id, model_name="m", **opts),
+                     event_sink=sink, params=params)
+
+
+def serve_steps(pod, steps) -> list:
+    out = []
+    for prompt, n_decode, free in steps:
+        state, cached = pod.prefill(prompt)
+        tokens = [int(torch.argmax(pod.last_logits))]
+        if n_decode:
+            pod.decode_append(state, tokens[0])
+            tokens += [pod.decode_step(state) for _ in range(n_decode)]
+        if free:
+            pod.free(state)
+        out.append((cached, tokens))
+    return out
+
+
+def tier_run(device: str, int8: bool) -> dict:
+    """Phase 8a's sequences on `device`: per sequence the tokens, the event
+    stream (media included) and the tier store's stats."""
+    runs = {}
+    for name, opts, steps in tier_sequences():
+        events = []
+        pod = tier_pod(device, int8, sink=events.append, **opts)
+        try:
+            runs[name] = (serve_steps(pod, steps), event_rows(events),
+                          dict(pod.tier_store.stats))
+        finally:
+            pod.close()
+
+    # Eager staging: free() snapshots A's pages, B overwrites them before
+    # the background admit, and the host store still gets A's bytes.
+    events = []
+    pod = tier_pod(device, int8, sink=events.append, eager_stage=True)
+    try:
+        prompt_a, prompt_b = list(range(64)), [200 + i for i in range(128)]
+        state, _ = pod.prefill(prompt_a)
+        blocks = list(pod.block_manager.committed_blocks(state))
+        truth = pod.tier_store.codec.extract_many([blk[3] for blk in blocks])
+        pod.free(state)
+        extracts = []
+        real = pod.tier_store.codec.extract_many
+        pod.tier_store.codec.extract_many = lambda ids: extracts.append(len(ids)) or real(ids)
+        state_b, _ = pod.prefill(prompt_b)
+        pod.tier_store.codec.extract_many = real
+        pod.tier_store.drain_async_stages()
+        staged = [pod.connector.fetch_staged(blk[0], len(t)) for blk, t in zip(blocks, truth)]
+        pod.free(state_b)
+        pod.tier_store.drain_async_stages()
+        runs["eager_stage"] = ((extracts, staged == truth, len(blocks)), event_rows(events),
+                               dict(pod.tier_store.stats))
+    finally:
+        pod.close()
+
+    # Two pods: A exports a prompt, B onboards it through the index.
+    index = InMemoryIndex()
+    tp = ChunkedTokenDatabase(TokenProcessorConfig(block_size=PAGE))
+    events = {"pod-a": [], "pod-b": []}
+
+    def sink(pid):
+        def f(batch):
+            events[pid].append(batch)
+            digest_batch(index, tp, pid, "m", batch)
+        return f
+
+    pod_a = tier_pod(device, int8, "pod-a", sink("pod-a"), n_pages=16)
+    pod_b = tier_pod(device, int8, "pod-b", sink("pod-b"), n_pages=16)
+    try:
+        prompt = list(range(7, 83))  # 4 full pages and a partial one
+        state, _ = pod_a.prefill(prompt)
+        exported = pod_a.export_sequence(state)
+        pod_b.set_peer_resolver(IndexBackedPeerResolver(
+            index, "m", {"pod-a": pod_a.transfer_address}, "pod-b"))
+        served = serve_steps(pod_b, [(prompt, 4, True)])
+        keys = tp.tokens_to_kv_block_keys(None, prompt, "m")
+        hits = index.lookup(keys, set())
+        indexed = all(PodEntry("pod-b", "gpu") in hits.get(k, []) for k in keys)
+        runs["two_pod_onboard"] = ((exported, served, indexed),
+                                   event_rows(events["pod-a"] + events["pod-b"]),
+                                   dict(pod_b.tier_store.stats))
+    finally:
+        pod_a.close()
+        pod_b.close()
+    return runs
+
+
+def phase_host_tier_small() -> dict:
+    log("== phase 8a: the host tier, small f32 pods on the card vs the CPU (offload on "
+        "reclaim, host capacity, restore on a miss, eager staging, two-pod onboard)")
+    out = {}
+    for int8 in (False, True):
+        fmt = "int8" if int8 else "f32"
+        gpu, cpu = tier_run("cuda", int8), tier_run("cpu", int8)
+        for name in gpu:
+            same = gpu[name] == cpu[name]
+            log(f"  {fmt} pages, {name}: tokens/results {gpu[name][0]}; "
+                f"{len(gpu[name][1])} events; stats {gpu[name][2]}; card == CPU: {same}")
+            if not same:
+                raise AssertionError(f"phase 8a ({fmt}, {name}): the card disagrees with the CPU")
+        eager, onboard = gpu["eager_stage"][0], gpu["two_pod_onboard"][0]
+        checks = dict(
+            offloads=gpu["offload_on_reclaim"][2]["offloads"] == 2,
+            host_evictions=gpu["host_capacity_bound"][2]["host_evictions"] == 2,
+            restores=gpu["restore_on_miss"][0][2][0] == 64
+            and gpu["restore_on_miss"][2]["restores"] >= 4,
+            eager=eager[0] == [] and eager[1] and eager[2] == 4,
+            onboard=onboard[0] == 4 and onboard[1][0][0] == 64 and onboard[2]
+            and gpu["two_pod_onboard"][2]["onboards"] == 4,
+        )
+        if not all(checks.values()):
+            raise AssertionError(f"phase 8a ({fmt}): {checks}")
+        out[fmt] = {name: r[2] for name, r in gpu.items()}
+    return out
+
+
+# Phase 8b-8d: the flagship through the host tier. P is a 1,024-token prefix
+# and 512 unique tokens; P' the same prefix and 512 other tokens.
+PREFIX_TOKENS, SUFFIX_TOKENS, HOST_TIER_DECODE = 1024, 512, 32
+# The tight pod's pool: the 128 pages of a 1,536-token prompt's 2,048-token
+# prefill bucket, and 4 more. An unrelated 1,536-token request (128 pages
+# with its bucket) then leaves 4 pages besides the ones it takes, so it
+# reclaims every page of P's prefix.
+TIGHT_PAGES = 132
+TTFT_REPS = 3
+
+
+def ttft_serve(pod, tokens, n_decode=0, keep=False) -> dict:
+    """Prefill `tokens` and read the first token back (the time to first
+    token), then `n_decode` - 1 greedy decode steps: cached tokens, the
+    prefill logits, the tokens, the time."""
+    sync()
+    t0 = time.perf_counter()
+    state, cached = pod.prefill(tokens)
+    first = int(torch.argmax(pod.last_logits))
+    ttft = time.perf_counter() - t0
+    logits = pod.last_logits.clone()
+    out = [first]
+    if n_decode:
+        pod.decode_append(state, first)
+        out += [pod.decode_step(state) for _ in range(n_decode - 1)]
+    if not keep:
+        pod.free(state)
+    if not torch.isfinite(logits.float()).all():
+        raise AssertionError("non-finite prefill logits")
+    return dict(state=state, cached=cached, logits=logits, tokens=out, ttft=ttft)
+
+
+def sync() -> None:
+    """Wait for the card (a no-op where there is none: a CPU rehearsal)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def median_s(fn, reps: int = 5) -> float:
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def host_tier_restore_check(params, cfg, int8: bool, reps: int = 1) -> dict:
+    """Phase 8b (8d on int8 pages) and 8c: P on a reference pod large
+    enough never to evict (which exports P and serves P' from resident
+    pages) and on the tight pod; an unrelated request reclaims P's prefix on
+    the tight pod, whose P' restores it from the host store; a fresh pod C
+    onboards it from the reference pod through the index. P' on either must
+    be bit-identical to the reference (suffix logits and 32 greedy tokens).
+    With reps > 1, P' is served again with other suffixes (the prefix is
+    evicted again on the tight pod) for the times to first token."""
+    fmt = "int8" if int8 else "bf16"
+    model = "llama-flagship-1.14b"
+    vocab = cfg.vocab_size
+    rng = np.random.default_rng(88)
+    prefix = rng.integers(0, vocab, PREFIX_TOKENS).tolist()
+    prompt_p = prefix + rng.integers(0, vocab, SUFFIX_TOKENS).tolist()
+    primes = [prefix + rng.integers(0, vocab, SUFFIX_TOKENS).tolist() for _ in range(reps)]
+    others = [rng.integers(0, vocab, PREFIX_TOKENS + SUFFIX_TOKENS).tolist()
+              for _ in range(reps)]
+    index = InMemoryIndex()
+    tp = ChunkedTokenDatabase(TokenProcessorConfig(block_size=PAGE))
+    events = {}
+
+    def pod(pid, n_pages, host_tier=True):
+        events[pid] = []
+
+        def sink(batch):
+            events[pid].append(batch)
+            digest_batch(index, tp, pid, model, batch)
+
+        return EnginePod(EnginePodConfig(
+            pod_id=pid, model_name=model, n_pages=n_pages, page_size=PAGE, device_tier="gpu",
+            max_pages_per_seq=256, model_config=cfg, device=params["embed"].device,
+            use_quantized_kv=int8, enable_host_tier=host_tier,
+            transfer_cost_model=ALWAYS_TRANSFER),
+            event_sink=sink, params=params)
+
+    pods = []
+    try:
+        ref = pod("pod-a", 4096)
+        tight = pod("pod-tight", TIGHT_PAGES)
+        pods += [ref, tight]
+        p_ref = ttft_serve(ref, prompt_p, HOST_TIER_DECODE, keep=True)
+        exported = ref.export_sequence(p_ref["state"])
+        ref.free(p_ref["state"])
+        ttft_serve(tight, prompt_p, HOST_TIER_DECODE)
+        committed_p = (len(prompt_p) + HOST_TIER_DECODE - 1) // PAGE
+        ttft_serve(tight, others[0])
+        # The unrelated request's 128 pages: the pages P left free, then the
+        # oldest of P's committed pages.
+        want_offloads = 128 - (TIGHT_PAGES - committed_p)
+        offloads = tight.tier_store.stats["offloads"]
+
+        ttfts = {"resident": [], "restore": [], "onboard": [], "recompute": []}
+        results = {}
+        for k, prime in enumerate(primes):
+            n_decode = HOST_TIER_DECODE if k == 0 else 0
+            if k:
+                ttft_serve(tight, others[k])  # evicts the prefix again
+            restores = tight.tier_store.stats["restores"]
+            pod_c = pod(f"pod-c{k}", 256)
+            pod_c.set_peer_resolver(IndexBackedPeerResolver(
+                index, model, {"pod-a": ref.transfer_address}, pod_c.config.pod_id))
+            fresh = pod(f"pod-fresh{k}", 256, host_tier=False)
+            pods += [pod_c, fresh]
+            runs = dict(resident=ttft_serve(ref, prime, n_decode),
+                        restore=ttft_serve(tight, prime, n_decode),
+                        onboard=ttft_serve(pod_c, prime, n_decode),
+                        recompute=ttft_serve(fresh, prime))
+            for key, r in runs.items():
+                ttfts[key].append(r["ttft"])
+            if k == 0:
+                results = runs
+                results["restores"] = tight.tier_store.stats["restores"] - restores
+                results["onboards"] = pod_c.tier_store.stats["onboards"]
+                keys = tp.tokens_to_kv_block_keys(None, prefix, model)
+                hits = index.lookup(keys, set())
+                results["indexed_c"] = sum(
+                    PodEntry(pod_c.config.pod_id, "gpu") in hits.get(key, []) for key in keys)
+            pod_c.close()
+            fresh.close()
+
+        prefix_hashes = [key.chunk_hash for key in tp.tokens_to_kv_block_keys(None, prefix, "")]
+        rows = event_rows(events["pod-tight"])
+        stored_cpu = {h for r in rows if r[0] == "BlockStored" and r[-1] == "cpu" for h in r[1]}
+        removed_gpu = {h for r in rows if r[0] == "BlockRemoved" and r[-1] == "gpu" for h in r[1]}
+        res, rst, onb = results["resident"], results["restore"], results["onboard"]
+        checks = dict(
+            exported=exported == committed_p,
+            offloads=offloads == want_offloads,
+            restore_cached=rst["cached"] == PREFIX_TOKENS,
+            restores=results["restores"] == len(prefix_hashes),
+            offloaded_to_cpu=set(prefix_hashes) <= stored_cpu,
+            removed_from_gpu=set(prefix_hashes) <= removed_gpu,
+            restore_logits_bits=torch.equal(rst["logits"], res["logits"]),
+            restore_tokens=rst["tokens"] == res["tokens"],
+            onboard_cached=onb["cached"] == PREFIX_TOKENS,
+            onboards=results["onboards"] == len(prefix_hashes),
+            onboard_logits_bits=torch.equal(onb["logits"], res["logits"]),
+            onboard_tokens=onb["tokens"] == res["tokens"],
+            indexed_c=results["indexed_c"] == len(prefix_hashes),
+            resident_cached=res["cached"] == PREFIX_TOKENS,
+        )
+        readings = dict(
+            restore_max_abs_logit_diff=float((rst["logits"].float() - res["logits"].float())
+                                             .abs().max()),
+            onboard_max_abs_logit_diff=float((onb["logits"].float() - res["logits"].float())
+                                             .abs().max()),
+            tokens=res["tokens"], restore_tokens=rst["tokens"], onboard_tokens=onb["tokens"],
+            offloads_after_unrelated=offloads, expected_offloads=want_offloads,
+            tight_pages=TIGHT_PAGES, tier_stats=dict(tight.tier_store.stats))
+        log(f"  {fmt}: tight pod of {TIGHT_PAGES} pages: {offloads} offloads after the "
+            f"unrelated request (expected {want_offloads}); P' restored {results['restores']} "
+            f"blocks, cached {rst['cached']}; pod C onboarded {results['onboards']}, cached "
+            f"{onb['cached']}; logits diff restore {readings['restore_max_abs_logit_diff']}, "
+            f"onboard {readings['onboard_max_abs_logit_diff']}; checks {checks}")
+        return dict(ok=all(checks.values()), checks=checks, readings=readings,
+                    ttft_s=ttfts, ref=ref, pods=pods, prefix_hashes=prefix_hashes)
+    except BaseException:
+        for p in pods:
+            p.close()
+        raise
+
+
+def transfer_rates(ref, scratch, prefix_hashes) -> dict:
+    """The codec's gather + device-to-host copy and its host-to-device
+    insert at 64 blocks, the loopback host store's and the wire's fetch of
+    the same 64 blocks (medians of 5 calls): seconds and bytes/s."""
+    codec = ref.tier_store.codec
+    n = len(prefix_hashes)
+    ids = list(range(n))
+    nbytes = n * codec.page_nbytes
+    payloads = codec.extract_many(ids)
+    items = list(zip(ids, payloads))
+    cap = codec.page_nbytes
+    peer = ref.connector.port
+    sec = dict(
+        extract=median_s(lambda: codec.extract_many(ids)),
+        insert=median_s(lambda: scratch.tier_store.codec.insert_many(items)),
+        store=median_s(lambda: ref.connector.fetch_staged_many(prefix_hashes, cap)),
+        wire=median_s(lambda: scratch.connector.onboard_payloads(
+            "127.0.0.1", peer, prefix_hashes, cap)),
+    )
+    if any(p is None for p in ref.connector.fetch_staged_many(prefix_hashes, cap)):
+        raise AssertionError("the host store lost a prefix block")
+    return dict(blocks=n, payload_bytes_per_block=codec.page_nbytes, seconds=sec,
+                bytes_per_s={k: nbytes / v for k, v in sec.items()})
+
+
+def phase_host_tier_flagship(params, cfg) -> dict:
+    log("== phase 8b-8d: the flagship through the host tier (reclaim -> offload -> restore "
+        "on a tight pod, a peer onboard through the index; bf16 and int8 pages)")
+    out = {}
+    launches = dict.fromkeys(("paged_decode", "paged_decode_int8", "flash_prefill"), 0)
+    for int8 in (False, True):
+        fmt = "int8" if int8 else "bf16"
+        reset_launch_counts()
+        with CallCounter() as counter:
+            r = host_tier_restore_check(params, cfg, int8, reps=TTFT_REPS)
+        sync()
+        got = launch_counts()
+        passes = counter.layer_passes()
+        decode_row = "paged_decode_int8" if int8 else "paged_decode"
+        want = {"flash_prefill": 16 * passes["prefill"], decode_row: 16 * passes["decode"]}
+        for name, n in want.items():
+            launches[name] += got[name]
+            if got[name] != n or n <= 0:
+                raise AssertionError(f"phase 8 ({fmt}): {name} launched {got[name]} times, "
+                                     f"16 per layer pass is {n}")
+        try:
+            if not r["ok"]:
+                raise AssertionError(f"phase 8 ({fmt}): {r['checks']} {r['readings']}")
+            scratch = next(p for p in r["pods"] if p.config.pod_id == "pod-tight")
+            rates = transfer_rates(r["ref"], scratch, r["prefix_hashes"])
+        finally:
+            for p in r["pods"]:
+                p.close()
+        ttft_ms = {k: statistics.median(v) * 1e3 for k, v in r["ttft_s"].items()}
+        sec = rates["seconds"]
+        nbytes = rates["blocks"] * rates["payload_bytes_per_block"]
+        measured = dict(
+            staged_bytes_per_s=nbytes / (sec["store"] + sec["insert"]),
+            peer_bytes_per_s=nbytes / (sec["wire"] + sec["insert"]),
+            insert_bytes_per_s=nbytes / sec["insert"],
+            compute_flops_per_s=flops_per_token(cfg) * (PREFIX_TOKENS + SUFFIX_TOKENS)
+            / statistics.median(r["ttft_s"]["recompute"]),
+            source=f"chip_smoke.py phase 8 ({fmt} pages) on {card_line()}")
+        gate = TransferCostModel.for_model(cfg, quantized=int8, rates=measured)
+        n = len(r["prefix_hashes"])
+        verdict = {src: gate.admit_prefix([src] * n, PAGE) for src in (READY, STAGED, PEER)}
+        log(f"  {fmt}: {rates['payload_bytes_per_block']} payload bytes per block; 64-block "
+            f"seconds {sec}; bytes/s {rates['bytes_per_s']}")
+        log(f"  {fmt}: TTFT of P' (median of {TTFT_REPS}, ms): {ttft_ms}; all: "
+            f"{ {k: [t * 1e3 for t in v] for k, v in r['ttft_s'].items()} }")
+        log(f"  {fmt}: cost model from this run's rates {measured}: blocks of {n} admitted "
+            f"{verdict}; layer passes {passes}; launches {got}")
+        out[fmt] = dict(checks=r["checks"], readings=r["readings"], ttft_ms=ttft_ms,
+                        ttft_s=r["ttft_s"], rates=rates, measured_rates=measured,
+                        verdict=verdict, passes=passes, launches=got)
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1409,8 +1827,8 @@ def main() -> int:
     log(card_line())
 
     log("== phase 2: build")
-    build_s = _build.build()
-    log(f"  built {_build.KERNELS} in {build_s:.2f} s")
+    build_s = _build.build((*_build.KERNELS, _build.TRANSFER))
+    log(f"  built {_build.KERNELS} and the {_build.TRANSFER} library in {build_s:.2f} s")
     for name in _build.KERNELS:
         text = _build.build_log(name)
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
@@ -1434,13 +1852,17 @@ def main() -> int:
     batched = phase_batched_decode(params, cfg)
     sched_small = phase_scheduler_small()
     sched = phase_scheduler_flagship(params, cfg)
+    tier_small = phase_host_tier_small()
+    tier = phase_host_tier_flagship(params, cfg)
 
-    # Rows 1, 2 and 5 are counted on the serving path (phase 5) and on the
-    # scheduler's path (phase 7b's recorded runs, summed); rows 3 and 4 (the
-    # tiled decode entry) on phase 6's tiled decode steps.
+    # Rows 1, 2 and 5 are counted on the serving path (phase 5), on the
+    # scheduler's path (phase 7b's recorded runs, summed) and on the host
+    # tier's (phase 8b-8d); rows 3 and 4 (the tiled decode entry) on phase
+    # 6's tiled decode steps.
     runs = [sched[f"{fmt} steps{steps}"] for fmt, _, steps in FLAGSHIP_RUNS]
     by_path = {name: {"serving": serving["launches"][name],
-                      "scheduler": sum(r["launches"][name] for r in runs)}
+                      "scheduler": sum(r["launches"][name] for r in runs),
+                      "host_tier": tier["launches"][name]}
                for name in ("paged_decode", "paged_decode_int8", "flash_prefill")}
     for row in ("paged_decode_tiled", "paged_decode_tiled_int8"):
         by_path[row] = {"batched_decode": batched["checks"][row]["launches"]}
@@ -1460,6 +1882,7 @@ def main() -> int:
                     "prefill_logits": prefill_logits,
                     "packed_prefill": packed, "batched_decode": batched,
                     "scheduler_small": sched_small, "scheduler": sched,
+                    "host_tier_small": tier_small, "host_tier": tier,
                     "build_s": build_s, "run_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

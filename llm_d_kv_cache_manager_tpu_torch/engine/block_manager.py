@@ -1,7 +1,6 @@
 """KV-page manager with prefix caching and KVEvent emission.
 
-Port of the reference package's `engine/block_manager.py` without the
-host-tier hooks (offload on reclaim, chain restore on miss):
+Port of the reference package's `engine/block_manager.py`:
 
 - page allocation for sequences over a fixed device page pool,
 - prefix caching: full pages are keyed by the same chained CBOR+FNV-64a hash
@@ -11,7 +10,10 @@ host-tier hooks (offload on reclaim, chain restore on miss):
   reclaimed LRU on allocation pressure,
 - event emission: BlockStored when a full page is committed (with parent
   hash chaining), BlockRemoved when a cached page is reclaimed,
-  AllBlocksCleared on reset.
+  AllBlocksCleared on reset,
+- the host tier's hooks (engine/tiering.py): a reclaim wave offloads its
+  committed pages in one batched call, and an allocation that misses on the
+  device restores the longest restorable run of its chain in one batch.
 
 Pure host-side bookkeeping; the page tensors live in models/llama.py and
 are driven by engine.EnginePod.
@@ -19,6 +21,7 @@ are driven by engine.EnginePod.
 
 from __future__ import annotations
 
+import itertools
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -36,6 +39,9 @@ from llm_d_kv_cache_manager_tpu_torch.kvevents.events import (
     Event,
     EventBatch,
 )
+from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
+
+logger = kvlog.get_logger("engine.block_manager")
 
 EventSink = Callable[[EventBatch], None]
 
@@ -59,16 +65,44 @@ class SequenceState:
 
 
 class _Page:
-    __slots__ = ("page_id", "ref_count", "chunk_hash")
+    __slots__ = ("page_id", "ref_count", "chunk_hash", "token_ids", "parent_hash", "lora_id")
 
     def __init__(self, page_id: int):
         self.page_id = page_id
         self.ref_count = 0
         self.chunk_hash: Optional[int] = None  # set when committed (full page)
+        # Provenance, kept so a reclaimed page can be offloaded with a
+        # well-formed BlockStored (the control plane recomputes request keys
+        # from token_ids + parent hash + lora_id).
+        self.token_ids: Optional[List[int]] = None
+        self.parent_hash: Optional[int] = None
+        self.lora_id: Optional[int] = None
 
 
 class OutOfPagesError(RuntimeError):
     pass
+
+
+# Hooks of the host tier (engine/tiering.py):
+#  ReclaimHook(chunk_hash, token_ids, parent_hash, page_id, lora_id): a
+#    committed page is about to be dropped; offload it if desired.
+#  ReclaimManyHook([(hash, token_ids, parent, page_id, lora_id)]): the same
+#    for a whole reclaim wave (one device gather).
+#  PageLoader(chunk_hash, token_ids, parent_hash, page_id) -> bool: land one
+#    missing block into `page_id`.
+#  ChainPlanner([hashes]) -> int: longest restorable prefix, membership
+#    checks only (no bytes moved).
+#  ChainLoader([(hash, token_ids, parent)], take_pages) -> [page_ids]: fetch
+#    a chain prefix's payloads FIRST, then call take_pages(k) for exactly the
+#    pages the fetched payloads need (once per landing wave), land them, and
+#    return the landed page ids aligned with the block prefix. Fetch before
+#    take: a stale plan cannot evict cached pages for a restore that lands
+#    nothing.
+ReclaimHook = Callable[[int, List[int], Optional[int], int, Optional[int]], None]
+PageLoader = Callable[[int, List[int], Optional[int], int], bool]
+ReclaimManyHook = Callable[[List[tuple]], None]
+ChainPlanner = Callable[[List[int]], int]
+ChainLoader = Callable[[List[tuple], Callable[[int], List[int]]], List[int]]
 
 
 class BlockManager:
@@ -76,9 +110,19 @@ class BlockManager:
         self,
         config: BlockManagerConfig,
         event_sink: Optional[EventSink] = None,
+        reclaim_hook: Optional[ReclaimHook] = None,
+        page_loader: Optional[PageLoader] = None,
+        reclaim_many_hook: Optional[ReclaimManyHook] = None,
+        chain_planner: Optional[ChainPlanner] = None,
+        chain_loader: Optional[ChainLoader] = None,
     ):
         self.config = config
         self.event_sink = event_sink
+        self.reclaim_hook = reclaim_hook
+        self.page_loader = page_loader
+        self.reclaim_many_hook = reclaim_many_hook
+        self.chain_planner = chain_planner
+        self.chain_loader = chain_loader
         self.token_db = ChunkedTokenDatabase(
             TokenProcessorConfig(block_size=config.page_size, hash_seed=config.hash_seed)
         )
@@ -100,6 +144,16 @@ class BlockManager:
     def num_cached_pages(self) -> int:
         return len(self._hash_to_page)
 
+    def cached_hashes(self, limit: Optional[int] = None) -> List[int]:
+        """Device-resident chunk hashes in insertion order, at most `limit`."""
+        if limit is None:
+            return list(self._hash_to_page)
+        return list(itertools.islice(self._hash_to_page, max(limit, 0)))
+
+    def is_cached(self, chunk_hash: int) -> bool:
+        """True when the block is device-resident (committed and reusable)."""
+        return chunk_hash in self._hash_to_page
+
     # -- allocation ----------------------------------------------------------
 
     def allocate(
@@ -117,10 +171,18 @@ class BlockManager:
 
         block_table: List[int] = []
         keys = self.token_db.tokens_to_kv_block_keys(None, tokens, "", lora_id=lora_id)
-        # 1. Reuse cached pages along the hash chain.
+        # 1. Reuse cached pages along the hash chain; on a device miss, try
+        # the host tier (host store, then peer pods) before giving up. A
+        # restore's own reclaims can offload LATER chain blocks to the host
+        # (restorable one step behind), so retry while each attempt lands
+        # something: bounded by the chain length.
         n_cached_pages = 0
-        for key in keys:
+        chain_allowed = True
+        for i, key in enumerate(keys):
             page_id = self._hash_to_page.get(key.chunk_hash)
+            if page_id is None and chain_allowed:
+                chain_allowed = self._try_load_chain(keys, tokens, i, lora_id) > 0
+                page_id = self._hash_to_page.get(key.chunk_hash)
             if page_id is None:
                 break
             page = self._pages[page_id]
@@ -202,7 +264,9 @@ class BlockManager:
         page, then AllBlocksCleared (the digest treats the latter as a
         no-op and relies on the per-block removals)."""
         cached_hashes = list(self._hash_to_page)
-        self.__init__(self.config, self.event_sink)
+        self.__init__(self.config, self.event_sink, self.reclaim_hook,
+                      self.page_loader, self.reclaim_many_hook,
+                      self.chain_planner, self.chain_loader)
         events: List[Event] = []
         if cached_hashes:
             events.append(
@@ -211,12 +275,116 @@ class BlockManager:
         events.append(AllBlocksCleared())
         self._emit(events)
 
+    def committed_blocks(self, state: SequenceState):
+        """Yield (chunk_hash, token_ids, parent_hash, page_id, lora_id) for
+        each committed page of a sequence: what the host tier needs to
+        export it (engine.EnginePod.export_sequence)."""
+        for i in range(state.n_hashed_pages):
+            page = self._pages[state.block_table[i]]
+            if page.chunk_hash is None or page.token_ids is None:
+                continue
+            yield (page.chunk_hash, page.token_ids, page.parent_hash,
+                   page.page_id, page.lora_id)
+
     # -- internals -----------------------------------------------------------
 
+    def _try_load_chain(self, keys: List[Key], tokens: List[int], start: int,
+                        lora_id: Optional[int]) -> int:
+        """On a device miss, land the longest restorable prefix of the rest
+        of the chain in one batch: plan (membership checks), fetch, take
+        exactly the pages the fetched payloads need, land them
+        (tiering.load_chain), and commit them with one chained multi-block
+        BlockStored. Restored blocks register in _hash_to_page, where the
+        allocate loop picks them up. Returns the number of blocks landed."""
+        if self.chain_loader is None and self.page_loader is None:
+            return 0
+        ps = self.config.page_size
+        # Stop the batch at the first repeated hash (both occurrences
+        # registering would strand a page) and at the first device-resident
+        # one (re-fetching it would clobber the live page's registration).
+        seen = set()
+        uniq: List[Key] = []
+        for key in keys[start:]:
+            if key.chunk_hash in seen or key.chunk_hash in self._hash_to_page:
+                break
+            seen.add(key.chunk_hash)
+            uniq.append(key)
+        if not uniq:
+            return 0
+        if self.chain_planner is not None:
+            n_plan = min(self.chain_planner([k.chunk_hash for k in uniq]), len(uniq))
+        elif self.chain_loader is not None:
+            n_plan = len(uniq)
+        else:
+            n_plan = 1  # a single-page loader probes one block
+        if n_plan <= 0:
+            return 0
+        blocks = []
+        for j in range(n_plan):
+            i = start + j
+            blocks.append((uniq[j].chunk_hash, tokens[i * ps:(i + 1) * ps],
+                           keys[i - 1].chunk_hash if i > 0 else None))
+
+        landed: List[int] = []
+        taken: List[int] = []
+        if self.chain_loader is not None:
+            def take_pages(k: int) -> List[int]:
+                got = self._take_free_pages(min(k, self.num_free_pages))
+                taken.extend(got)
+                return got
+
+            try:
+                landed = list(self.chain_loader(blocks, take_pages))
+            except Exception as e:  # noqa: BLE001 - a data-plane fault must not fail allocate
+                logger.debug("chain loader failed: %s", e)
+                landed = []
+        else:
+            for chunk_hash, token_ids, parent_hash in blocks:
+                if self.num_free_pages <= 0:
+                    break
+                page_id = self._take_free_pages(1)[0]
+                taken.append(page_id)
+                try:
+                    ok = self.page_loader(chunk_hash, token_ids, parent_hash, page_id)
+                except Exception as e:  # noqa: BLE001
+                    logger.debug("page loader failed for %x: %s", chunk_hash, e)
+                    ok = False
+                if not ok:
+                    break
+                landed.append(page_id)
+
+        stored_hashes: List[int] = []
+        stored_tokens: List[int] = []
+        for (chunk_hash, token_ids, parent_hash), page_id in zip(blocks, landed):
+            page = self._pages[page_id]
+            page.chunk_hash = chunk_hash
+            page.token_ids = list(token_ids)
+            page.parent_hash = parent_hash
+            page.lora_id = lora_id
+            self._hash_to_page[chunk_hash] = page_id
+            stored_hashes.append(chunk_hash)
+            stored_tokens.extend(token_ids)
+        # Pages taken but never landed (loader fault, short fetch) go
+        # straight back to the pool.
+        landed_set = set(landed)
+        self._free_fresh.extend(p for p in taken if p not in landed_set)
+        if stored_hashes:
+            self._emit([
+                BlockStored(
+                    block_hashes=stored_hashes,
+                    parent_block_hash=blocks[0][2],
+                    token_ids=stored_tokens,
+                    block_size=ps,
+                    lora_id=lora_id,
+                    medium=self.config.device_tier,
+                )
+            ])
+        return len(landed)
+
     def _take_free_pages(self, k: int) -> List[int]:
-        """k pages in one grab, fresh pool first then LRU reclaim (one
-        multi-hash BlockRemoved per reclaim wave). Atomic: on shortfall
-        nothing is taken."""
+        """k pages in one grab, fresh pool first then LRU reclaim. Atomic: on
+        shortfall nothing is taken. A reclaim wave offloads in one batched
+        hook call and drops with one multi-hash BlockRemoved."""
         if k <= 0:
             return []
         got = [self._free_fresh.pop() for _ in range(min(k, len(self._free_fresh)))]
@@ -226,7 +394,8 @@ class BlockManager:
         if len(self._reclaimable) < need:
             self._free_fresh.extend(reversed(got))
             raise OutOfPagesError(f"no free pages (pool={self.config.n_pages})")
-        victims = [self._reclaimable.popitem(last=False)[0] for _ in range(need)]
+        victims = [self._reclaimable.popitem(last=False)[0] for _ in range(need)]  # LRU order
+        offload: List[tuple] = []
         removed_hashes: List[int] = []
         for page_id in victims:
             page = self._pages[page_id]
@@ -235,8 +404,27 @@ class BlockManager:
             # may have lost the registration race.
             if self._hash_to_page.get(page.chunk_hash) == page_id:
                 self._hash_to_page.pop(page.chunk_hash)
+                if page.token_ids is not None:
+                    offload.append((page.chunk_hash, page.token_ids, page.parent_hash,
+                                    page_id, page.lora_id))
                 removed_hashes.append(page.chunk_hash)
             page.chunk_hash = None
+            page.token_ids = None
+            page.parent_hash = None
+            page.lora_id = None
+        if offload:
+            if self.reclaim_many_hook is not None:
+                try:
+                    self.reclaim_many_hook(offload)
+                except Exception as e:  # noqa: BLE001 - offload is best-effort
+                    logger.debug("reclaim offload failed: %s", e)
+            elif self.reclaim_hook is not None:
+                # One failing offload must not drop the rest of the wave.
+                for block in offload:
+                    try:
+                        self.reclaim_hook(*block)
+                    except Exception as e:  # noqa: BLE001
+                        logger.debug("reclaim offload failed for %x: %s", block[0], e)
         if removed_hashes:
             self._emit([
                 BlockRemoved(block_hashes=removed_hashes, medium=self.config.device_tier)
@@ -275,6 +463,9 @@ class BlockManager:
         for offset, key in enumerate(keys):
             page = self._pages[state.block_table[start_page + offset]]
             page.chunk_hash = key.chunk_hash
+            page.token_ids = new_tokens[offset * ps:(offset + 1) * ps]
+            page.parent_hash = parent_hash if offset == 0 else keys[offset - 1].chunk_hash
+            page.lora_id = state.lora_id
             # First registration wins: a page already holding this hash
             # keeps its mapping (this page is duplicate content).
             self._hash_to_page.setdefault(key.chunk_hash, page.page_id)

@@ -130,3 +130,10 @@ def prefix_hashes(
         h = link(h, chunk, extra)
         hashes.append(h)
     return hashes
+
+
+def fold64(h: int, v: int) -> int:
+    """One step of a 64-bit fold: FNV-1a's xor-multiply applied to a whole
+    64-bit value. Not the block-key hash: the host tier's rendezvous ranking
+    of peer holders uses it (engine/tiering.IndexBackedPeerResolver)."""
+    return ((h ^ (v & _MASK64)) * _FNV64_PRIME) & _MASK64

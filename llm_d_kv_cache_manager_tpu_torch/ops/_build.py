@@ -1,13 +1,19 @@
-"""Builds the CUDA kernels in `csrc/` with nvcc and loads them with ctypes.
+"""Builds the port's native libraries and loads them with ctypes.
 
-Each `csrc/<name>.cu` compiles on its own into
+Each CUDA kernel `csrc/<name>.cu` compiles on its own with nvcc into
 `build/lib<name>_<hash>.so`, a shared library with a plain C interface (no
-PyTorch headers, so a build takes seconds). The hash covers the source, the
-headers of `csrc/` and the flags, so an edited source or header rebuilds and
-an unchanged one is reused. All
-missing libraries build in parallel, one nvcc process per source.
+PyTorch headers, so a build takes seconds). The host tier's block store and
+transfer wire, `kv_connectors/cpp/kv_transfer.cpp` at the repository root,
+compiles the same way with the C++ compiler into
+`build/lib<TRANSFER>_<hash>.so`. The hash covers the source (and, for a
+kernel, the headers of `csrc/`) and the flags, so an edited source or header
+rebuilds and an unchanged one is reused. All missing libraries build in
+parallel, one compiler process per source; each writes a pid-suffixed
+temporary file and renames it into place, so processes that build the same
+library at once do no harm.
 
-There is no fallback: a missing nvcc or a failed build raises.
+There is no fallback: a missing compiler or a failed build raises, with the
+compiler's log.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -30,6 +36,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# The host tier's C++ engine, with the flags of kv_connectors/cpp/Makefile.
+TRANSFER = "kvtransfer"
+TRANSFER_SOURCE = _PKG.parent / "kv_connectors" / "cpp" / "kv_transfer.cpp"
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+CXX_LIBS = ("-lpthread",)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -45,52 +56,75 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def find_cxx() -> str:
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError(
+            "no C++ compiler (g++ or c++) found: the host tier's transfer "
+            f"library is built from {TRANSFER_SOURCE.name} and has no fallback"
+        )
+    return cxx
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):  # sources include these
-        digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    if name == TRANSFER:
+        digest = hashlib.sha256(TRANSFER_SOURCE.read_bytes())
+        digest.update(" ".join(CXX_FLAGS + CXX_LIBS).encode())
+    else:
+        digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):  # sources include these
+            digest.update(header.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
+def _command(name: str, out: Path) -> List[str]:
+    if name == TRANSFER:
+        return [find_cxx(), *CXX_FLAGS, "-o", str(out), str(TRANSFER_SOURCE), *CXX_LIBS]
+    return [find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
+
+
 def build(names: Iterable[str] = KERNELS) -> float:
-    """Compile every named kernel whose library is missing, all nvcc
+    """Compile every named library whose file is missing, all compiler
     processes started together. Returns the wall seconds spent."""
     t0 = time.perf_counter()
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return time.perf_counter() - t0
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
+    commands = {}
     for name in todo:
         out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
+        commands[name] = (out, tmp, _command(name, tmp))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = [
+        (name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )))
+        ))
+        for name, (out, tmp, cmd) in commands.items()
+    ]
     failed = []
     for name, out, tmp, proc in procs:
         log, _ = proc.communicate()
         out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            failed.append(f"{name} (exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise RuntimeError("native library build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
 
 
 def build_log(name: str) -> str:
-    """nvcc/ptxas output of the last build of `name` (registers, spills)."""
+    """Compiler output of the last build of `name` (registers, spills)."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library for `csrc/<name>.cu`, built on first use."""
+    """The loaded library `name` (a kernel of csrc/, or TRANSFER), built on
+    first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -178,3 +178,48 @@ def test_kernel_library_name_tracks_shared_header(monkeypatch, tmp_path):
     header.write_text(header.read_text() + "\n// edited\n")
     after = {name: _build.library_path(name) for name in _build.KERNELS}
     assert all(after[name] != before[name] for name in _build.KERNELS)
+
+
+@pytest.mark.parametrize(
+    "module", ["engine.costs", "engine.tiering", "kv_connectors.connector", "engine.engine"]
+)
+def test_host_tier_modules_are_checked(module):
+    """The host tier's modules are among those the import checks above load
+    and parse."""
+    path = PORT / (module.replace(".", "/") + ".py")
+    assert path.exists() and path in _port_files()
+
+
+def test_default_device_host_tier_pod_raises_without_gpu():
+    """A host-tier pod defaults to the card like any pod and raises before
+    it starts a transfer server."""
+    from llm_d_kv_cache_manager_tpu_torch.engine.engine import EnginePod, EnginePodConfig
+    from llm_d_kv_cache_manager_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig(vocab_size=64, d_model=32, n_layers=1, n_q_heads=2,
+                      n_kv_heads=1, head_dim=16, d_ff=64, dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EnginePod(EnginePodConfig(model_config=cfg, enable_host_tier=True,
+                                  transfer_cost_model=None))
+
+
+def test_transfer_build_without_cxx_raises(monkeypatch, tmp_path):
+    from llm_d_kv_cache_manager_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)  # nothing prebuilt
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="no C\\+\\+ compiler"):
+        _build.build([_build.TRANSFER])
+
+
+def test_transfer_library_name_tracks_its_source(monkeypatch, tmp_path):
+    """The transfer library is keyed by its source's hash, lives in the
+    port's build/ directory, and is never the JAX package's file name."""
+    from llm_d_kv_cache_manager_tpu_torch.ops import _build
+
+    path = _build.library_path(_build.TRANSFER)
+    assert path.parent == _build.BUILD_DIR and path.name != "libkvtransfer.so"
+    src = tmp_path / "kv_transfer.cpp"
+    src.write_text(_build.TRANSFER_SOURCE.read_text() + "\n// edited\n")
+    monkeypatch.setattr(_build, "TRANSFER_SOURCE", src)
+    assert _build.library_path(_build.TRANSFER) != path
