@@ -32,6 +32,14 @@ the real tree, to the decode_sm90_stage mutant and to a planted scheduler
 fault, OffByOneScheduler (every decode row one position early); both
 faults must fail it.
 
+Phase 9b's teacher-forced bar (the flagship with three LoRA adapters on a
+bf16 pod, every token against the f32 truth of its adapter's merged
+weights) is held to the real pod and to a planted fault, AdapterDroppedPod,
+whose decode batches gather the base (index 0) for every row; phase 10b's
+bar (a bf16 pod through the speculative scheduler with the 2-layer draft)
+is held to the real scheduler and to OverAcceptScheduler, which keeps one
+proposal more than matched. Both faults must fail their bars.
+
 Phase 8b's bit-identical check (P' restored from the host store on a tight
 bf16 pod against the same prompt on a pod that never evicts: suffix logits
 and 32 greedy tokens) is held to the real tree and to a planted codec fault,
@@ -64,6 +72,7 @@ import torch
 
 import chip_smoke
 from llm_d_kv_cache_manager_tpu_torch.engine import engine as engine_mod
+from llm_d_kv_cache_manager_tpu_torch.engine.engine import EnginePod
 from llm_d_kv_cache_manager_tpu_torch.engine.scheduler import Scheduler
 from llm_d_kv_cache_manager_tpu_torch.models import llama
 from llm_d_kv_cache_manager_tpu_torch.ops import _build
@@ -215,6 +224,61 @@ def run_scheduler_bar(label: str, params, cfg, params32, cfg32, delta: float,
     return bar
 
 
+class AdapterDroppedPod(EnginePod):
+    """A planted LoRA fault: every batched call (decode, packed prefill)
+    gathers the base (index 0) for every row, so an adapter applies only in
+    a single sequence's prefill."""
+
+    def lora_for_decode(self, lora_ids):
+        return super().lora_for_decode([None] * len(lora_ids))
+
+
+class OverAcceptScheduler(chip_smoke.SpecRecorder):
+    """A planted speculation fault: a greedy row keeps one proposal more than
+    matched the target's argmax chain (within its allowance)."""
+
+    @staticmethod
+    def _greedy_accepted(argmaxes, proposals, allowed: int) -> int:
+        n = chip_smoke.SpecRecorder._greedy_accepted(argmaxes, proposals, allowed)
+        return min(n + 1, allowed)
+
+
+def run_lora_bar(label: str, params, cfg, params32, cfg32, delta: float,
+                 pod_class=EnginePod) -> dict:
+    """chip_smoke's phase 9b traffic on a bf16 pod of `pod_class`, held to
+    its teacher-forced bar: the bar's reading."""
+    adapters = chip_smoke.flagship_adapters(cfg)
+    merged = {lid: chip_smoke.lora.merge_adapter(params32, a) for lid, a in adapters.items()}
+    r, traffic, *_ = chip_smoke.lora_flagship_run(params, cfg, False, adapters, "m",
+                                                  pod_class=pod_class)
+    bar = chip_smoke.teacher_forced_bar(params32, cfg32, traffic, r["requests"], delta,
+                                        truth_params=chip_smoke.lora_truth(merged, params32,
+                                                                           traffic))
+    chip_smoke.log(f"  [{label}] LoRA teacher-forced bar: greedy worst "
+                   f"{bar['worst']['greedy']:.4f}, sampled worst {bar['worst']['sampled']:.4f} "
+                   f"(delta {delta:.4f}) {'ok' if bar['ok'] else 'FAIL'}")
+    del r, merged, adapters
+    torch.cuda.empty_cache()
+    return bar
+
+
+def run_spec_bar(label: str, params, cfg, params32, cfg32, delta: float,
+                 cls=chip_smoke.SpecRecorder) -> dict:
+    """chip_smoke's phase 10b traffic through a `cls` scheduler with the
+    2-layer draft on a bf16 pod, held to its teacher-forced bar: the bar's
+    reading."""
+    draft_cfg, draft_params = chip_smoke.weak_draft()
+    r, traffic, *_ = chip_smoke.spec_flagship_run(params, cfg, False, draft_cfg, draft_params,
+                                                  cls)
+    bar = chip_smoke.teacher_forced_bar(params32, cfg32, traffic, r["requests"], delta)
+    chip_smoke.log(f"  [{label}] speculative teacher-forced bar: greedy worst "
+                   f"{bar['worst']['greedy']:.4f}, sampled worst {bar['worst']['sampled']:.4f} "
+                   f"(delta {delta:.4f}) {'ok' if bar['ok'] else 'FAIL'}")
+    del r, draft_params
+    torch.cuda.empty_cache()
+    return bar
+
+
 def scatter_one_page_off(cache, page_ids, blocks):
     """A planted codec fault: each block lands in the page after its own
     (wrapping inside the pool, trash page included, so no index leaves it)."""
@@ -287,9 +351,23 @@ def main() -> int:
     bars["decode_position_off_by_one"] = run_scheduler_bar(
         "decode_position_off_by_one", params, cfg, params32, cfg32, delta,
         scheduler=OffByOneScheduler)
+    chip_smoke.log("== LoRA fault: the adapter dropped in decode")
+    serving_bars = {
+        "lora_real": run_lora_bar("lora_real", params, cfg, params32, cfg32, delta),
+        "lora_adapter_dropped_in_decode": run_lora_bar(
+            "lora_adapter_dropped_in_decode", params, cfg, params32, cfg32, delta,
+            pod_class=AdapterDroppedPod),
+    }
+    chip_smoke.log("== speculation fault: one proposal accepted more than matched")
+    serving_bars["spec_real"] = run_spec_bar("spec_real", params, cfg, params32, cfg32, delta)
+    serving_bars["spec_over_accept"] = run_spec_bar(
+        "spec_over_accept", params, cfg, params32, cfg32, delta, cls=OverAcceptScheduler)
 
     real_ok = all(r["ok"] for r in rows if r["variant"] == "real") and all(
-        logits_ok["real"].values()) and bars["real"]["ok"] and host_tier["real"]["all_checks"]
+        logits_ok["real"].values()) and bars["real"]["ok"] and host_tier["real"]["all_checks"] \
+        and serving_bars["lora_real"]["ok"] and serving_bars["spec_real"]["ok"]
+    serving_caught = {label: not serving_bars[label]["ok"]
+                      for label in ("lora_adapter_dropped_in_decode", "spec_over_accept")}
     host_tier_caught = not host_tier["insert_one_page_off"]["ok"]
     bar_caught = {label: not bar["ok"] for label, bar in bars.items() if label != "real"}
     main_rows = {
@@ -311,6 +389,9 @@ def main() -> int:
             kernel: r["row_rel_err"] for kernel, r in main_rows.items()},
         "mutant_caught_by_logits": logits_caught,
         "caught_by_scheduler_bar": bar_caught,
+        "caught_by_lora_and_speculative_bars": serving_caught,
+        "lora_and_speculative_bar_readings": {label: dict(bar["worst"], delta=bar["delta"])
+                                              for label, bar in serving_bars.items()},
         "host_tier_fault_caught": host_tier_caught, "host_tier_readings": host_tier,
         "scheduler_bar_readings": {label: dict(bar["worst"], delta=bar["delta"])
                                    for label, bar in bars.items()},
@@ -318,7 +399,8 @@ def main() -> int:
         "bf16_row_rel_limits": chip_smoke.BF16_ROW_REL,
     }))
     return 0 if (real_ok and all(caught.values()) and all(logits_caught.values())
-                 and all(bar_caught.values()) and host_tier_caught) else 1
+                 and all(bar_caught.values()) and host_tier_caught
+                 and all(serving_caught.values())) else 1
 
 
 if __name__ == "__main__":

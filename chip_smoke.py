@@ -2,6 +2,8 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py      # needs one CUDA card
+    python3 chip_smoke.py --phases 3,9  # a development run of some phases
+                                        # (no kernels or ok line)
 
 Phases, in order (any failure raises and the script exits non-zero):
   1. device lines: torch's device name and nvidia-smi's name + power limit;
@@ -16,7 +18,9 @@ Phases, in order (any failure raises and the script exits non-zero):
      of 4), windows, GQA groups 1-8, sequences short enough to leave splits
      and cluster ranks empty, a window inside one split's share or inside a
      page's second stage, prefix-hit offsets, padded chunks, per-batch
-     offsets, both flash tile plans, bf16 flash at head_dim 64 too), the
+     offsets, both flash tile plans, bf16 flash at head_dim 64 too, the
+     speculative verify's shape: 8 rows of 2, 5 or 9 new tokens at offsets
+     that are no multiple of a tile, one offset 0, a window), the
      tiled decode against the pipelined one at f32 on both page formats, and
      two calls of each decode kernel for bf16 q (both page formats) bit for
      bit;
@@ -28,7 +32,9 @@ Phases, in order (any failure raises and the script exits non-zero):
      serving shape (batch 1 x 1,536 over a 128-page table) and at batch 1 x
      4,096, each call cold in L2 (a 128 MB rewrite before each call in the
      graph, whose own time is subtracted); prefill at the 2,048-token chunk
-     and at the serving chunk (512 new tokens after 1,024 cached);
+     and at the serving chunk (512 new tokens after 1,024 cached), and at
+     the speculative verify's shape (batch 8 x 5 new tokens after 1,503
+     cached, over the 2,048-position table);
   5. serving at the flagship width (1.14B Llama, bf16, random weights from a
      seeded generator): two bf16 pods and one int8-KV pod whose KV events are
      digested into one index; prefix reuse, pod ranking and kernel launch
@@ -68,12 +74,37 @@ Phases, in order (any failure raises and the script exits non-zero):
      codec's and the wire's rates, four times to first token of P'
      (resident, restore, onboard, recompute) and the cost model's verdict
      at those rates are logged;
+  9a. multi-LoRA on small f32 pods on the card against the same pods on the
+     CPU (2 adapters of rank 8; 6 requests mixing the base and both
+     adapters through the Scheduler, a pool that preempts, decode_steps 1
+     and 4, both page formats): the same tokens and event streams;
+  9b. the flagship with 3 adapters (rank 16 on wq/wv) on a bf16 pod and an
+     int8 pod: 12 requests at once (the base and each adapter 3 times, a
+     shared 1,024-token prefix, 6 sampled): every token against a dense f32
+     truth of its adapter's merged weights, each adapter's truth apart from
+     the base's by more than the bar, adapter-scoped prefix hits and index
+     scores, 16 launches per layer pass; tokens/s against the same traffic
+     on the base model and one decode tick's device share are logged;
+  10a. speculative decoding on small f32 pods on the card against the CPU:
+     SpeculativeDecoder (greedy and sampled, k = 4) and SpeculativeScheduler
+     (6 mixed requests, two on adapters, a pool that preempts, k = 3): the
+     same tokens, stats and event streams;
+  10b. the flagship through SpeculativeScheduler (k = 4, 8 requests, 4
+     sampled) with the target as its own draft and with a 2-layer draft, on
+     a bf16 pod and an int8 pod, and SpeculativeDecoder on one request:
+     every token against the f32 truth, every rejected greedy proposal of
+     the perfect draft a near-tie of the truth, only accepted tokens
+     advertised, every page released, launches per layer pass; acceptance,
+     tokens/s against the plain Scheduler on the same traffic, the verify
+     call's and the draft step's wall and device time, launches and read
+     backs per tick are logged;
   then a JSON line of details, one JSON line describing every kernel, and
   last: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import statistics
@@ -93,7 +124,12 @@ from llm_d_kv_cache_manager_tpu_torch.engine.costs import (
     flops_per_token,
 )
 from llm_d_kv_cache_manager_tpu_torch.engine.engine import EnginePod, EnginePodConfig
+from llm_d_kv_cache_manager_tpu_torch.engine import speculative
 from llm_d_kv_cache_manager_tpu_torch.engine.scheduler import Scheduler
+from llm_d_kv_cache_manager_tpu_torch.engine.speculative import (
+    SpeculativeDecoder,
+    SpeculativeScheduler,
+)
 from llm_d_kv_cache_manager_tpu_torch.engine.tiering import IndexBackedPeerResolver
 from llm_d_kv_cache_manager_tpu_torch.kvcache.indexer import Indexer
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.in_memory import InMemoryIndex
@@ -104,7 +140,7 @@ from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.token_processor import (
 )
 from llm_d_kv_cache_manager_tpu_torch.kvevents.digest import digest_batch
 from llm_d_kv_cache_manager_tpu_torch.kvevents.events import BlockRemoved, BlockStored
-from llm_d_kv_cache_manager_tpu_torch.models import llama
+from llm_d_kv_cache_manager_tpu_torch.models import llama, lora
 from llm_d_kv_cache_manager_tpu_torch.ops import _build
 from llm_d_kv_cache_manager_tpu_torch.ops import flash_prefill as fp
 from llm_d_kv_cache_manager_tpu_torch.ops import paged_attention as pa
@@ -423,6 +459,12 @@ MAIN_CASES = {
 }
 
 
+def verify_offsets(l: int) -> list:
+    """Cached tokens of 8 speculating sequences near 1,500-2,000: no
+    multiple of 64, the last at the 2,048-position table's end."""
+    return [1501, 1537, 1601, 1663, 1729, 1800, 1950, 2048 - l]
+
+
 def kernel_cases(gen):
     """Yields (kernel, dtype, case name, kernel output, plain output) over
     the edge cases, bf16 first, then f32. At f32 the tiled kernels are also
@@ -484,6 +526,18 @@ def kernel_cases(gen):
             ("B=4 L=1000 S=1500 per-batch offsets window=300", 4, 1000, 1500,
              [0, 100, 300, 500], 300, None, N_Q, HD),
             ("group=8 L=S=1024", 1, 1024, 1024, 0, None, None, 64, HD),
+        ]
+        # The speculative verify (verify_step_cache, k = 2, 4, 8): 8 rows of
+        # L = k + 1 new tokens at per-batch offsets that are no multiple of
+        # a tile, so most rows of a tile are padding and the diagonal lands
+        # mid-tile; one offset of 0; a window.
+        cases += [(f"verify B=8 L={l} S=2048 per-batch offsets", 8, l, 2048, verify_offsets(l),
+                   None, None, N_Q, HD) for l in (2, 5, 9)]
+        cases += [
+            ("verify B=8 L=5 S=2048 offsets with 0", 8, 5, 2048, [0] + verify_offsets(5)[1:],
+             None, None, N_Q, HD),
+            ("verify B=8 L=5 S=2048 window=300", 8, 5, 2048, verify_offsets(5), 300, None,
+             N_Q, HD),
         ]
         if dtype == torch.bfloat16:  # the f32 kernel is built for head_dim 128 only
             cases += [
@@ -593,7 +647,7 @@ def phase_times(gen) -> tuple:
     # and the serving chunk.
     main["flash_prefill"] = time_prefill(gen, 2048, 2048, 0)
     serving = time_prefill(gen, *PREFILL_SERVING_SHAPE)
-    return main, decode, serving
+    return main, decode, serving, time_verify(gen)
 
 
 # The prefill call of a prefix-hit request in phase 5: 512 new tokens after
@@ -636,6 +690,46 @@ def time_prefill(gen, l: int, s: int, off: int) -> dict:
     log(f"  flash_prefill L={l} S={s} off={off}: kernel {kernel_ms:.4f} ms "
         f"({flops / kernel_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, {library_note} "
         f"{lib}, bound {out['bound_ms']:.4f} ms ({flops / 1e9:.2f} GFLOP)")
+    return out
+
+
+# The verify call of the speculative scheduler at k = 4: 8 sequences of 5
+# new tokens after about 1,500 cached, over the padded 128-page table.
+VERIFY_SHAPE = (8, 5, 2048, 1503)  # batch, L, S, cached tokens of every row
+
+
+def time_verify(gen) -> dict:
+    """Row 5 at VERIFY_SHAPE (per-batch offsets, all equal): kernel, plain
+    version, SDPA with a lower-right causal mask over the first off + L keys
+    (one mask fits every row), and the bound over the keys the mask keeps."""
+    from torch.nn.attention.bias import causal_lower_right
+
+    b, l, s, off = VERIFY_SHAPE
+    q, k, v = flash_inputs(gen, torch.bfloat16, b, l, s)
+    offs = torch.full((b,), off, dtype=torch.int32, device="cuda")
+    kernel_ms = time_graph_ms(lambda: fp.flash_prefill(q, k, v, offs))
+    plain_ms = time_graph_ms(lambda: fp.dense_attention(q, k, v, offs))
+    keys = off + l
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t[:, :keys].transpose(1, 2).contiguous() for t in (k, v))
+    sdpa = sdpa_gqa(qt, kt, vt, attn_mask=causal_lower_right(l, keys))
+    library_ms, note = None, f"SDPA causal_lower_right({l}, {keys}) on the first {keys} keys"
+    try:
+        sdpa()
+        torch.cuda.synchronize()
+    except RuntimeError as exc:
+        note += f": none ({type(exc).__name__}: {str(exc)[:120]})"
+    else:
+        library_ms = time_graph_ms(sdpa)
+    flops = 4 * causal_pairs(l, s, [off] * b, None) * N_Q * HD
+    nbytes = (2 * b * l * N_Q * HD + 2 * b * keys * N_KV * HD) * 2
+    table_mbytes = 2 * b * s * N_KV * HD * 2 / 1e6
+    out = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, **_bound(nbytes, flops),
+               gflop=flops / 1e9, mbytes=nbytes / 1e6, table_mbytes=table_mbytes)
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    log(f"  flash_prefill verify B={b} L={l} S={s} off={off}: kernel {kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, {note} {lib}, bound {out['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB "
+        f"of the kept keys, {table_mbytes:.1f} MB over the whole table; {flops / 1e9:.3f} GFLOP)")
     return out
 
 
@@ -808,13 +902,18 @@ SMALL_MODEL = dict(vocab_size=512, d_model=256, n_layers=2, n_q_heads=4, n_kv_he
                    head_dim=128, d_ff=512)
 
 
-def small_model(device):
-    """The small f32 model on `device`, the same seeded weights on every
-    device: (params, config)."""
-    cfg = llama.LlamaConfig(**SMALL_MODEL, dtype=torch.float32)
-    params = llama.init_params(cfg, torch.Generator().manual_seed(7), "cpu")
-    return {k: (v.to(device) if torch.is_tensor(v) else {n: w.to(device) for n, w in v.items()})
-            for k, v in params.items()}, cfg
+def small_model(device, seed: int = 7, **over):
+    """The small f32 model (fields of SMALL_MODEL replaced by `over`) on
+    `device`, the same seeded weights on every device: (params, config)."""
+    cfg = llama.LlamaConfig(**{**SMALL_MODEL, **over}, dtype=torch.float32)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    return to_device(params, device), cfg
+
+
+def to_device(tree, device):
+    """A parameter or adapter tree (tensors, or dicts of them) on `device`."""
+    return {k: (v.to(device) if torch.is_tensor(v) else to_device(v, device))
+            for k, v in tree.items()}
 
 
 def phase_small_pod_vs_cpu() -> None:
@@ -1050,7 +1149,9 @@ class CallCounter:
 
     def __init__(self):
         self.passes = dict.fromkeys(MODEL_CALLS, 0)
+        self.kernels = dict.fromkeys(KERNELS, 0)  # launches the calls must make
         self.decode_call = None
+        self.first_call = {}  # (name, tokens' shape) -> (args, kwargs) of its first call
         self._originals = {}
 
     def __enter__(self):
@@ -1069,6 +1170,14 @@ class CallCounter:
         def counted(*args, **kwargs):
             passes = args[8] if name == "decode_multi_step_cache" else 1
             self.passes[name] += passes
+            # One attention launch per layer pass: flash for a prefill or a
+            # verify, the pipelined decode kernel of the cache's format.
+            if name in ("prefill_cache", "verify_step_cache"):
+                row = "flash_prefill"
+            else:
+                row = "paged_decode_int8" if len(args[2]) == 4 else "paged_decode"
+            self.kernels[row] += args[0].n_layers * passes
+            self.first_call.setdefault((name, tuple(args[3].shape)), (args, kwargs))
             if name.startswith("decode") and (
                     self.decode_call is None or args[3].shape[0] > self.decode_call[1][3].shape[0]):
                 self.decode_call = (name, args, kwargs)
@@ -1087,6 +1196,7 @@ def run_scheduler(pod, traffic, decode_steps, max_batch, budget, scheduler=Sched
     time from submit to its first token, preemptions."""
     sched = scheduler(pod, max_batch=max_batch, prefill_token_budget=budget,
                       decode_steps=decode_steps)
+    core = getattr(sched, "inner", sched)  # a SpeculativeScheduler's Scheduler
     if pod.device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1098,13 +1208,13 @@ def run_scheduler(pod, traffic, decode_steps, max_batch, budget, scheduler=Sched
         now = time.perf_counter()
         ticks.append(now - t)
         done.update({r.req_id: r for r in finished})
-        for r in [*sched._running, *sched._waiting, *finished]:
+        for r in [*core._running, *core._waiting, *finished]:
             if r.generated and r.req_id not in first_token_s:
                 first_token_s[r.req_id] = now - t0
     wall = time.perf_counter() - t0
     return dict(tokens=[done[i].generated for i in ids], requests=[done[i] for i in ids],
                 tick_s=ticks, wall_s=wall, first_token_s=[first_token_s[i] for i in ids],
-                preemptions=sched.preemptions)
+                preemptions=core.preemptions, scheduler=sched)
 
 
 def small_traffic() -> list:
@@ -1214,9 +1324,11 @@ def dense_logits(cfg, params, tokens, first: int) -> torch.Tensor:
     return x[0, first:] @ params["out"]
 
 
-def teacher_forced_bar(params32, cfg32, traffic, requests, delta: float) -> dict:
+def teacher_forced_bar(params32, cfg32, traffic, requests, delta: float,
+                       truth_params=None) -> dict:
     """Each finished request's prompt plus generated tokens through the f32
-    truth in one pass. A greedy token's truth logit must be within `delta`
+    truth in one pass (`truth_params(i)`: request i's f32 weights, default
+    params32). A greedy token's truth logit must be within `delta`
     of its row's maximum; a sampled token must lie in the kept set of
     filter_logits of the truth row (its request's temperature, top_k and
     top_p), widened by `delta` in logit units. Readings are the largest
@@ -1224,10 +1336,11 @@ def teacher_forced_bar(params32, cfg32, traffic, requests, delta: float) -> dict
     worst = dict(greedy=-float("inf"), sampled=-float("inf"))
     counts = dict(greedy=0, sampled=0)
     dev = params32["embed"].device
-    for spec, req in zip(traffic, requests):
+    for i, (spec, req) in enumerate(zip(traffic, requests)):
         prompt, gen = spec["prompt_tokens"], req.generated
         seq = torch.tensor(prompt + gen, dtype=torch.int32, device=dev)
-        truth = dense_logits(cfg32, params32, seq, len(prompt) - 1)[: len(gen)]
+        weights = params32 if truth_params is None else truth_params(i)
+        truth = dense_logits(cfg32, weights, seq, len(prompt) - 1)[: len(gen)]
         tok = torch.tensor(gen, device=dev)[:, None]
         picked = torch.gather(truth, 1, tok)[:, 0]
         sp = spec["sampling"]
@@ -1812,7 +1925,603 @@ def phase_host_tier_flagship(params, cfg) -> dict:
     return out
 
 
-def main() -> int:
+# -- phase 9: multi-LoRA -----------------------------------------------------------
+
+SMALL_LORA_IDS = (1, 2)
+
+
+def small_adapters(device) -> dict:
+    """Phase 9a's two rank-8 adapters of the small model, seeded on the CPU
+    and moved to `device`: {lora_id: adapter}."""
+    cfg = llama.LlamaConfig(**SMALL_MODEL, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(91)
+    return {lid: to_device(lora.make_test_adapter(cfg, 8, gen, device="cpu"), device)
+            for lid in SMALL_LORA_IDS}
+
+
+def small_lora_traffic(lora_ids) -> list:
+    """Phase 7a's six requests, request i under lora_ids[i]."""
+    return [dict(req, lora_id=lid) for req, lid in zip(small_traffic(), lora_ids)]
+
+
+def small_pod(device, int8, params, cfg, n_pages=SMALL_SCHED_PAGES, adapters=None, sink=None):
+    return EnginePod(
+        EnginePodConfig(n_pages=n_pages, page_size=PAGE, device_tier="gpu", max_pages_per_seq=8,
+                        model_config=cfg, device=device, use_quantized_kv=int8),
+        event_sink=sink, params=params, lora_adapters=adapters)
+
+
+def phase_lora_small() -> dict:
+    log("== phase 9a: multi-LoRA, small f32 pods on the card vs the CPU (2 adapters of rank 8; "
+        "6 requests mixing the base and both adapters, a preempting pool, decode_steps 1 and 4)")
+    # Requests 0 and 1 share a two-page prefix under one adapter.
+    traffic, out = small_lora_traffic((1, 1, None, 2, None, 2)), {}
+    for int8 in (False, True):
+        tag = "int8" if int8 else "f32"
+        runs = {}
+        for device in ("cuda", "cpu"):
+            params, cfg = small_model(device)
+            adapters = small_adapters(device)
+            for steps in (1, 4):
+                events = []
+                pod = small_pod(device, int8, params, cfg, adapters=adapters, sink=events.append)
+                r = run_scheduler(pod, traffic, steps, max_batch=4, budget=3 * PAGE)
+                runs[device, steps] = (r["tokens"], event_rows(events), r["preemptions"],
+                                       [q.num_cached_tokens for q in r["requests"]])
+        for steps in (1, 4):
+            gpu, cpu = runs["cuda", steps], runs["cpu", steps]
+            log(f"  {tag} pages, decode_steps {steps}: tokens equal to the CPU's: "
+                f"{gpu[0] == cpu[0]}; event streams equal: {gpu[1] == cpu[1]} ({len(gpu[1])} "
+                f"events); preemptions {gpu[2]} (CPU {cpu[2]}); cached tokens {gpu[3]}")
+            if gpu[0] != cpu[0] or gpu[1] != cpu[1] or gpu[3] != cpu[3] or gpu[2] < 1:
+                raise AssertionError(f"phase 9a ({tag}, decode_steps {steps}): the card disagrees "
+                                     "with the CPU or nothing was preempted")
+        if runs["cuda", 1][0] != runs["cuda", 4][0]:
+            raise AssertionError(f"phase 9a ({tag}): decode_steps 1 and 4 differ")
+        out[tag] = dict(events=len(runs["cuda", 1][1]), preemptions=runs["cuda", 1][2],
+                        tokens=runs["cuda", 1][0])
+    return out
+
+
+# Phase 9b: the base and three adapters of rank 16 on wq/wv (alpha 16).
+LORA_IDS = (None, 11, 12, 13)
+LORA_RANK, LORA_ALPHA = 16, 16.0
+
+
+def flagship_adapters(cfg) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(90)
+    return {lid: lora.make_test_adapter(cfg, LORA_RANK, gen, alpha=LORA_ALPHA, device="cuda")
+            for lid in LORA_IDS[1:]}
+
+
+def lora_traffic(vocab: int, adapters: bool = True) -> tuple:
+    """Phase 9b's 12 requests, submitted at once: 1,024 shared + 512 unique
+    tokens and 32 new tokens each, request i under LORA_IDS[i % 4] (each id
+    3 times; all base with `adapters=False`); 6 sampled as phase 7b's
+    (temperature 0.8, top_k 50, top_p 0.95, seed i), every id both greedy
+    and sampled. Returns (traffic, the shared prefix)."""
+    rng = np.random.default_rng(79)
+    prefix = rng.integers(0, vocab, 1024).tolist()
+    traffic = []
+    for i in range(12):
+        sampled = (i % 4 + i // 4) % 2 == 1
+        traffic.append(dict(
+            prompt_tokens=prefix + rng.integers(0, vocab, 512).tolist(), max_new_tokens=32,
+            sampling=SamplingParams(0.8, 50, 0.95, seed=i) if sampled else None,
+            lora_id=LORA_IDS[i % 4] if adapters else None))
+    return traffic, prefix
+
+
+def indexed_pod(params, cfg, int8: bool, pod_id: str, model: str, adapters=None, events=None,
+                pod_class=EnginePod):
+    """A flagship pod (4,096 bf16 or 8,192 int8 pages) whose events a fresh
+    index digests (and `events` keeps): (pod, indexer)."""
+    index = InMemoryIndex()
+    indexer = Indexer(TokenProcessorConfig(block_size=PAGE), kv_block_index=index)
+
+    def sink(batch):
+        digest_batch(index, indexer.token_processor, pod_id, model, batch)
+        if events is not None:
+            events.append(batch)
+    pod = pod_class(
+        EnginePodConfig(pod_id=pod_id, model_name=model, n_pages=8192 if int8 else 4096,
+                        page_size=PAGE, device_tier="gpu", max_pages_per_seq=256,
+                        model_config=cfg, device="cuda", use_quantized_kv=int8),
+        event_sink=sink, params=params, lora_adapters=adapters)
+    return pod, indexer
+
+
+def adapter_gaps(cfg32, params32, merged, traffic, requests) -> dict:
+    """For each adapter, the largest |logit of its merged f32 truth - logit
+    of the base truth| over the generated rows of its requests."""
+    gaps, dev = {}, params32["embed"].device
+    for spec, req in zip(traffic, requests):
+        lid = spec["lora_id"]
+        if lid is None:
+            continue
+        prompt = spec["prompt_tokens"]
+        seq = torch.tensor(prompt + req.generated, dtype=torch.int32, device=dev)
+        diff = (dense_logits(cfg32, merged[lid], seq, len(prompt) - 1)
+                - dense_logits(cfg32, params32, seq, len(prompt) - 1))
+        gaps[lid] = max(gaps.get(lid, 0.0), float(diff.abs().max()))
+    return gaps
+
+
+def lora_flagship_run(params, cfg, int8: bool, adapters, model: str, pod_class=EnginePod):
+    """Phase 9b's traffic on a fresh pod serving `adapters`: (result of
+    run_scheduler, traffic, indexer, pod, counted calls, launches)."""
+    traffic, _ = lora_traffic(cfg.vocab_size)
+    pod, indexer = indexed_pod(params, cfg, int8, f"pod-lora-{'int8' if int8 else 'bf16'}",
+                               model, adapters, pod_class=pod_class)
+    reset_launch_counts()
+    with CallCounter() as counter:
+        r = run_scheduler(pod, traffic, 1, max_batch=8, budget=512)
+    return r, traffic, indexer, pod, counter, launch_counts()
+
+
+def lora_truth(merged, params32, traffic):
+    """teacher_forced_bar's truth_params: request i's adapter merged into
+    the f32 weights, or the base."""
+    return lambda i: merged.get(traffic[i]["lora_id"], params32)
+
+
+def lora_flagship_check(params, cfg, params32, cfg32, adapters, merged, int8: bool,
+                        delta: float) -> dict:
+    fmt = "int8" if int8 else "bf16"
+    model = "llama-flagship-1.14b"
+    r, traffic, indexer, pod, counter, launches = lora_flagship_run(params, cfg, int8, adapters,
+                                                                    model)
+    failures, gen = [], r["tokens"]
+    for i, out in enumerate(gen):
+        if len(out) != 32 or not all(0 <= t < cfg.vocab_size for t in out):
+            failures.append(f"request {i}: {len(out)} tokens or one out of vocabulary")
+    # Adapter-scoped prefix hits: the first request under each id computes
+    # the shared prefix, the later ones under the same id hit it.
+    cached = [q.num_cached_tokens for q in r["requests"]]
+    if cached != [0] * 4 + [1024] * 8:
+        failures.append(f"cached tokens {cached}")
+    # The index scores request 1's prompt (adapter 11) by its whole prompt
+    # under adapter 11, by the shared prefix under the base and adapter 12,
+    # and not at all under an adapter the pod never served.
+    probe, pid = traffic[1]["prompt_tokens"], pod.config.pod_id
+    scores = {str(lid): indexer.get_pod_scores(probe, model, [], lora_id=lid).get(pid, 0)
+              for lid in (11, None, 12, 99)}
+    if scores != {"11": 1536 // PAGE, "None": 1024 // PAGE, "12": 1024 // PAGE, "99": 0}:
+        failures.append(f"index scores {scores}")
+    passes = counter.layer_passes()
+    if launches != counter.kernels or not passes["decode"] or not passes["prefill"]:
+        failures.append(f"launches {launches}, expected {counter.kernels}")
+    bar = teacher_forced_bar(params32, cfg32, traffic, r["requests"], delta,
+                             truth_params=lora_truth(merged, params32, traffic))
+    if not bar["ok"]:
+        failures.append(f"teacher-forced bar: {bar}")
+    gaps = adapter_gaps(cfg32, params32, merged, traffic, r["requests"])
+    if min(gaps.values()) <= delta:
+        failures.append(f"an adapter's truth is within the bar's delta {delta:.4f} of the "
+                        f"base's: {gaps} (raise LORA_ALPHA)")
+    n_tokens = sum(len(g) for g in gen)
+    ticks_ms = [t * 1e3 for t in r["tick_s"]]
+    log(f"  {fmt} ({card_line()}): {len(ticks_ms)} ticks, {n_tokens} tokens in "
+        f"{r['wall_s']:.3f} s ({n_tokens / r['wall_s']:.1f} tokens/s); tick wall ms median "
+        f"{statistics.median(ticks_ms):.2f}; cached {cached}; index scores {scores}")
+    log(f"    layer passes {passes}; launches {launches} (expected {counter.kernels})")
+    log(f"    teacher-forced bar (each request's adapter merged into the f32 truth): greedy worst "
+        f"{bar['worst']['greedy']:.4f}, sampled worst {bar['worst']['sampled']:.4f} (delta "
+        f"{delta:.4f}; {bar['tokens_checked']} tokens) {'ok' if bar['ok'] else 'FAIL'}; "
+        f"adapter vs base truth, largest |diff|: {gaps}")
+    out = dict(ok=not failures, failures=failures, tokens=n_tokens, wall_s=r["wall_s"],
+               tokens_per_s=n_tokens / r["wall_s"], ticks=len(ticks_ms), tick_ms=ticks_ms,
+               cached=cached, scores=scores, launches=launches, layer_passes=passes, bar=bar,
+               adapter_gaps=gaps)
+    if not failures:
+        name, args, kwargs = counter.decode_call
+        out["tick_profile"] = profile_device_share(
+            f"decode tick with adapters ({fmt}, batch {args[3].shape[0]}, sampled rows)",
+            decode_tick(name, args, kwargs, traffic))
+    del pod, counter
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lora_flagship(params, cfg, deltas) -> dict:
+    log("== phase 9b: the flagship with 3 LoRA adapters (rank 16 on wq/wv, alpha 16) through "
+        "the scheduler: 12 requests at once, the base and each adapter 3 times, 6 sampled")
+    params32, cfg32 = f32_twin(params, cfg)
+    adapters = flagship_adapters(cfg)
+    merged = {lid: lora.merge_adapter(params32, a) for lid, a in adapters.items()}
+    out = {fmt: lora_flagship_check(params, cfg, params32, cfg32, adapters, merged, int8,
+                                    deltas[fmt])
+           for fmt, int8 in (("bf16", False), ("int8", True))}
+    for fmt in ("bf16", "int8"):
+        if not out[fmt]["ok"]:
+            raise AssertionError(f"phase 9b ({fmt}): {out[fmt]['failures']}")
+    # The same traffic on the base model, same pod shape, same call.
+    traffic, _ = lora_traffic(cfg.vocab_size, adapters=False)
+    pod, _ = indexed_pod(params, cfg, False, "pod-lora-base", "llama-flagship-1.14b")
+    r = run_scheduler(pod, traffic, 1, max_batch=8, budget=512)
+    n = sum(len(g) for g in r["tokens"])
+    out["base_only_bf16"] = dict(tokens=n, wall_s=r["wall_s"], tokens_per_s=n / r["wall_s"])
+    log(f"  base-only run of the same traffic (bf16): {n} tokens in {r['wall_s']:.3f} s "
+        f"({n / r['wall_s']:.1f} tokens/s) against {out['bf16']['tokens_per_s']:.1f} with "
+        "adapters")
+    out["launches"] = {name: out["bf16"]["launches"][name] + out["int8"]["launches"][name]
+                       for name in KERNELS}
+    del pod, params32, merged
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 10: speculative decoding -------------------------------------------------
+
+
+class SpecRecorder(SpeculativeScheduler):
+    """A SpeculativeScheduler that keeps each greedy row's rejected proposal
+    (request, index into its generated tokens, proposal, the target's
+    correction), read from the tick's one read-back (no device work of its
+    own), and counts its speculative ticks."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.rejections = []
+        self.spec_ticks = 0
+
+    def _spec_decode(self):
+        running = list(self.inner._running)
+        before = {r.req_id: (len(r.state.tokens), len(r.generated)) for r in running}
+        seen = []
+        real = speculative._read_back
+
+        def capture(parts):
+            host = real(parts)
+            seen.append((tuple(parts[0].shape), host))
+            return host
+        speculative._read_back = capture
+        try:
+            finished = super()._spec_decode()
+        finally:
+            speculative._read_back = real
+        if not running:
+            return finished
+        self.spec_ticks += 1
+        (b_pad, k), host = seen[0]
+        props = np.asarray(host[: b_pad * k]).reshape(b_pad, k)
+        argm = np.asarray(host[b_pad * k: b_pad * (2 * k + 1)]).reshape(b_pad, k + 1)
+        ps = self.pod.config.page_size
+        for i, r in enumerate(running):
+            if r.sampling is not None and not r.sampling.is_greedy:
+                continue
+            n_tokens, n_gen = before[r.req_id]
+            allowed = max(0, min(self.k, self._stripe_pages * ps - n_tokens,
+                                 r.max_new_tokens - n_gen - 1))
+            n_accept = len(r.generated) - n_gen - 1
+            if n_accept < allowed:
+                self.rejections.append((r.req_id, n_gen + n_accept, int(props[i, n_accept]),
+                                        int(argm[i, n_accept])))
+        return finished
+
+
+def spec_scheduler(draft_cfg, draft_params, k: int, cls=SpecRecorder):
+    """A run_scheduler factory of `cls` (a SpecRecorder) with this draft."""
+    return lambda pod, max_batch, prefill_token_budget, decode_steps: cls(
+        pod, draft_cfg, draft_params, k=k, max_batch=max_batch,
+        prefill_token_budget=prefill_token_budget)
+
+
+def phase_spec_small() -> dict:
+    log("== phase 10a: speculative decoding, small f32 pods on the card vs the CPU "
+        "(SpeculativeDecoder greedy and sampled at k 4; SpeculativeScheduler at k 3 over 6 "
+        "mixed requests, two on adapters, a preempting pool)")
+    traffic = small_lora_traffic((None, None, 1, None, 2, None))
+    out = {}
+    for int8 in (False, True):
+        tag = "int8" if int8 else "f32"
+        runs = {}
+        for device in ("cuda", "cpu"):
+            params, cfg = small_model(device)
+            draft_params, draft_cfg = small_model(device, seed=8, n_layers=1)
+            events = []
+            pod = small_pod(device, int8, params, cfg, n_pages=64, sink=events.append)
+            dec = SpeculativeDecoder(pod, draft_cfg, draft_params, k=4)
+            prompt = traffic[2]["prompt_tokens"]
+            greedy = dec.generate(prompt, 24)
+            sampled = dec.generate(prompt, 24, sampling=SamplingParams(1.0, 20, 0.9, seed=5))
+            dec_stats = dataclasses.astuple(dec.stats)
+            spec_events = []
+            spec_pod = small_pod(device, int8, params, cfg, adapters=small_adapters(device),
+                                 sink=spec_events.append)
+            r = run_scheduler(spec_pod, traffic, 1, max_batch=4, budget=3 * PAGE,
+                              scheduler=spec_scheduler(draft_cfg, draft_params, 3))
+            runs[device] = dict(
+                decoder=(greedy, sampled, dec_stats, event_rows(events)),
+                scheduler=(r["tokens"], dataclasses.astuple(r["scheduler"].stats),
+                           event_rows(spec_events)),
+                preemptions=r["preemptions"])
+        gpu, cpu = runs["cuda"], runs["cpu"]
+        log(f"  {tag} pages: decoder tokens, stats {gpu['decoder'][2]} and events equal to the "
+            f"CPU's: {gpu['decoder'] == cpu['decoder']}; scheduler tokens, stats "
+            f"{gpu['scheduler'][1]} and events ({len(gpu['scheduler'][2])}) equal: "
+            f"{gpu['scheduler'] == cpu['scheduler']}; preemptions {gpu['preemptions']} "
+            f"(CPU {cpu['preemptions']})")
+        if gpu != cpu or gpu["preemptions"] < 1:
+            raise AssertionError(f"phase 10a ({tag}): the card disagrees with the CPU or "
+                                 "nothing was preempted")
+        out[tag] = dict(decoder_stats=gpu["decoder"][2], scheduler_stats=gpu["scheduler"][1],
+                        preemptions=gpu["preemptions"])
+    return out
+
+
+SPEC_K = 4
+# The weak draft: the flagship's family and widths at 2 layers, another seed.
+WEAK_DRAFT = dict(FLAGSHIP, n_layers=2)
+
+
+def weak_draft() -> tuple:
+    """(config, params) of the weak draft, seeded init (seed 1) on the card."""
+    cfg = llama.LlamaConfig(**WEAK_DRAFT)
+    return cfg, llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+
+
+def spec_traffic(vocab: int) -> tuple:
+    """Phase 10b's 8 requests, submitted at once: 1,024 shared + 512 unique
+    tokens, 32 new tokens each; the odd ones sampled as phase 7b's
+    (temperature 0.8, top_k 50, top_p 0.95, seed i). Returns (traffic, the
+    shared prefix)."""
+    rng = np.random.default_rng(83)
+    prefix = rng.integers(0, vocab, 1024).tolist()
+    traffic = [dict(prompt_tokens=prefix + rng.integers(0, vocab, 512).tolist(),
+                    max_new_tokens=32,
+                    sampling=SamplingParams(0.8, 50, 0.95, seed=i) if i % 2 else None)
+               for i in range(8)]
+    return traffic, prefix
+
+
+def advertised_blocks(batches, traffic, requests) -> dict:
+    """The BlockStored blocks as token prefixes against the full pages of
+    every request's accepted sequence (the prompt and every generated token
+    but the last, which never gets KV): equal, and nothing removed."""
+    prefix_of, stored, removed = {}, set(), 0
+    for batch in batches:
+        for e in batch.events:
+            if isinstance(e, BlockRemoved):
+                removed += 1
+            if not isinstance(e, BlockStored):
+                continue
+            prefix = prefix_of.get(e.parent_block_hash, ())
+            for j, h in enumerate(e.block_hashes):
+                prefix = prefix + tuple(e.token_ids[j * PAGE:(j + 1) * PAGE])
+                prefix_of[h] = prefix
+                stored.add(prefix)
+    expected = set()
+    for spec, req in zip(traffic, requests):
+        seq = tuple(spec["prompt_tokens"] + req.generated[:-1])
+        expected.update(seq[: j * PAGE] for j in range(1, len(seq) // PAGE + 1))
+    return dict(ok=stored == expected and removed == 0, stored=len(stored),
+                expected=len(expected), unexpected=len(stored - expected),
+                missing=len(expected - stored), removed=removed)
+
+
+def near_ties(params32, cfg32, traffic, requests, rejections, delta: float) -> dict:
+    """Each rejected greedy proposal against the f32 truth of its request's
+    final sequence: (max - truth logit of the proposal) at the rejected
+    position must be <= delta (a near-tie that bf16 rounding decides)."""
+    worst, dev = -float("inf"), params32["embed"].device
+    by_req = {}
+    for req_id, g, proposal, correction in rejections:
+        by_req.setdefault(req_id, []).append((g, proposal, correction))
+    ids = [r.req_id for r in requests]
+    for req_id, rows in by_req.items():
+        i = ids.index(req_id)
+        prompt, gen = traffic[i]["prompt_tokens"], requests[i].generated
+        seq = torch.tensor(prompt + gen, dtype=torch.int32, device=dev)
+        truth = dense_logits(cfg32, params32, seq, len(prompt) - 1)
+        for g, proposal, correction in rows:
+            if gen[g] != correction:
+                raise AssertionError(f"request {req_id}: token {g} is {gen[g]}, the recorded "
+                                     f"correction {correction}")
+            worst = max(worst, float(truth[g].max() - truth[g, proposal]))
+    return dict(ok=worst <= delta, rejections=len(rejections), worst=worst, delta=delta)
+
+
+def spec_flagship_run(params, cfg, int8: bool, draft_cfg, draft_params, cls=SpecRecorder):
+    """Phase 10b's traffic through a `cls` scheduler on a fresh pod: (result
+    of run_scheduler, traffic, the pod's event batches, pod, counted calls,
+    launches, read backs)."""
+    traffic, _ = spec_traffic(cfg.vocab_size)
+    events = []
+    pod, _ = indexed_pod(params, cfg, int8, f"pod-spec-{'int8' if int8 else 'bf16'}", "m",
+                         events=events)
+    reset_launch_counts()
+    read_backs = speculative.read_backs
+    with CallCounter() as counter:
+        r = run_scheduler(pod, traffic, 1, max_batch=8, budget=512,
+                          scheduler=spec_scheduler(draft_cfg, draft_params, SPEC_K, cls))
+    return (r, traffic, events, pod, counter, launch_counts(),
+            speculative.read_backs - read_backs)
+
+
+def spec_flagship_check(params, cfg, params32, cfg32, int8: bool, draft: str, draft_cfg,
+                        draft_params, delta: float) -> dict:
+    fmt = "int8" if int8 else "bf16"
+    tag = f"{fmt} pages, {draft} draft"
+    r, traffic, events, pod, counter, launches, read_backs = spec_flagship_run(
+        params, cfg, int8, draft_cfg, draft_params)
+    sched = r["scheduler"]
+    failures = []
+    for i, out in enumerate(r["tokens"]):
+        if len(out) != 32 or not all(0 <= t < cfg.vocab_size for t in out):
+            failures.append(f"request {i}: {len(out)} tokens or one out of vocabulary")
+    bar = teacher_forced_bar(params32, cfg32, traffic, r["requests"], delta)
+    if not bar["ok"]:
+        failures.append(f"teacher-forced bar: {bar}")
+    ties = None
+    if draft == "perfect":
+        ties = near_ties(params32, cfg32, traffic, r["requests"], sched.rejections, delta)
+        if not ties["ok"]:
+            failures.append(f"a rejected proposal of the perfect draft is no near-tie: {ties}")
+    adv = advertised_blocks(events, traffic, r["requests"])
+    if not adv["ok"]:
+        failures.append(f"advertised blocks {adv}")
+    free = pod.block_manager.num_free_pages
+    if free != pod.config.n_pages:
+        failures.append(f"{free} of {pod.config.n_pages} pages free at the end")
+    if launches != counter.kernels or not counter.kernels["paged_decode"]:
+        failures.append(f"launches {launches}, expected {counter.kernels}")
+    if read_backs != sched.spec_ticks:
+        failures.append(f"{read_backs} read backs in {sched.spec_ticks} speculative ticks")
+    n_tokens = sum(len(g) for g in r["tokens"])
+    stats = sched.stats
+    log(f"  {tag} ({card_line()}): {len(r['tick_s'])} ticks ({sched.spec_ticks} speculative), "
+        f"{n_tokens} tokens in {r['wall_s']:.3f} s ({n_tokens / r['wall_s']:.1f} tokens/s); "
+        f"acceptance {stats.acceptance_rate:.3f} ({stats.accepted}/{stats.proposed} in "
+        f"{stats.rounds} rounds); read backs per speculative tick "
+        f"{read_backs / max(sched.spec_ticks, 1):.2f}")
+    log(f"    launches {launches} (expected {counter.kernels}; "
+        f"{sum(launches.values()) / len(r['tick_s']):.1f} per tick); layer passes "
+        f"{counter.passes}; advertised {adv}; pages free {free}")
+    log(f"    teacher-forced bar: greedy worst {bar['worst']['greedy']:.4f}, sampled worst "
+        f"{bar['worst']['sampled']:.4f} (delta {delta:.4f}) {'ok' if bar['ok'] else 'FAIL'}"
+        + ("" if ties is None else f"; rejected greedy proposals {ties['rejections']}, worst "
+           f"truth shortfall {ties['worst']:.4f} {'ok' if ties['ok'] else 'FAIL'}"))
+    out = dict(ok=not failures, failures=failures, tokens=n_tokens, wall_s=r["wall_s"],
+               tokens_per_s=n_tokens / r["wall_s"], ticks=len(r["tick_s"]),
+               spec_ticks=sched.spec_ticks, tick_ms=[t * 1e3 for t in r["tick_s"]],
+               stats=dataclasses.asdict(stats), acceptance=stats.acceptance_rate,
+               read_backs=read_backs, launches=launches, layer_passes=counter.passes,
+               bar=bar, near_ties=ties, advertised=adv)
+    if not failures:
+        verify = counter.first_call.get(("verify_step_cache", (8, SPEC_K + 1)))
+        if verify is not None and draft == "perfect":
+            out["verify_profile"] = profile_device_share(
+                f"verify call ({fmt}, batch 8 x {SPEC_K + 1} positions)",
+                lambda: llama.verify_step_cache(*verify[0], **verify[1]))
+        step = counter.first_call.get(("decode_step_cache", (8,)))
+        if step is not None:
+            out["draft_step_profile"] = profile_device_share(
+                f"draft step ({draft}, {draft_cfg.n_layers} layers, batch 8)",
+                lambda: llama.decode_step_cache(*step[0], **step[1]))
+    del pod, counter, sched, r
+    torch.cuda.empty_cache()
+    return out
+
+
+def decoder_rejections(hosts, k_of_round) -> list:
+    """A greedy SpeculativeDecoder run's rejected proposals from its rounds'
+    read-backs ([chunk, argmaxes], chunk = [t0] + proposals): (index into
+    the generated tokens, proposal, correction)."""
+    out, g = [], 0
+    for host, k in zip(hosts, k_of_round):
+        n = k + 1
+        chunk, argm = host[:n], host[n:]
+        n_accept = 0
+        while n_accept < k and argm[n_accept] == chunk[1 + n_accept]:
+            n_accept += 1
+        if n_accept < k:
+            out.append((g + 1 + n_accept, chunk[1 + n_accept], argm[n_accept]))
+        g += 1 + n_accept
+    return out
+
+
+def spec_decoder_check(params, cfg, params32, cfg32, draft: str, draft_cfg, draft_params,
+                       delta: float) -> dict:
+    """SpeculativeDecoder on phase 10b's request 0 (greedy) on a bf16 pod."""
+    traffic, _ = spec_traffic(cfg.vocab_size)
+    events = []
+    pod, _ = indexed_pod(params, cfg, False, "pod-spec-decoder", "m", events=events)
+    dec = SpeculativeDecoder(pod, draft_cfg, draft_params, k=SPEC_K)
+    hosts = []
+    real = speculative._read_back
+
+    def capture(parts):
+        host = real(parts)
+        hosts.append((parts[0].numel() - 1, host))
+        return host
+    speculative._read_back = capture
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dec.generate(traffic[0]["prompt_tokens"], 32)
+        wall = time.perf_counter() - t0
+    finally:
+        speculative._read_back = real
+
+    class Done:  # the finished request as teacher_forced_bar reads it
+        generated = out
+        req_id = 0
+    bar = teacher_forced_bar(params32, cfg32, traffic[:1], [Done], delta)
+    failures = [] if bar["ok"] else [f"teacher-forced bar: {bar}"]
+    ties = None
+    if draft == "perfect":
+        rejected = decoder_rejections([h for _, h in hosts], [k for k, _ in hosts])
+        ties = near_ties(params32, cfg32, traffic[:1], [Done],
+                         [(0, g, p, c) for g, p, c in rejected], delta)
+        if not ties["ok"]:
+            failures.append(f"a rejected proposal of the perfect draft is no near-tie: {ties}")
+    adv = advertised_blocks(events, traffic[:1], [Done])
+    if not adv["ok"]:
+        failures.append(f"advertised blocks {adv}")
+    if pod.block_manager.num_free_pages != pod.config.n_pages or len(out) != 32:
+        failures.append(f"{len(out)} tokens; {pod.block_manager.num_free_pages} pages free")
+    stats = dec.stats
+    log(f"  SpeculativeDecoder, {draft} draft, bf16: 32 tokens in {wall:.3f} s "
+        f"({32 / wall:.1f} tokens/s); acceptance {stats.acceptance_rate:.3f} "
+        f"({stats.accepted}/{stats.proposed} in {stats.rounds} rounds, {len(hosts)} read backs); "
+        f"bar greedy worst {bar['worst']['greedy']:.4f}"
+        + ("" if ties is None else f"; rejections {ties['rejections']}, worst {ties['worst']:.4f}")
+        + f" {'ok' if not failures else 'FAIL'}")
+    del pod, dec
+    torch.cuda.empty_cache()
+    return dict(ok=not failures, failures=failures, wall_s=wall, tokens_per_s=32 / wall,
+                stats=dataclasses.asdict(stats), read_backs=len(hosts), bar=bar, near_ties=ties,
+                advertised=adv)
+
+
+def phase_spec_flagship(params, cfg, deltas) -> dict:
+    log(f"== phase 10b: the flagship through SpeculativeScheduler (k {SPEC_K}, max_batch 8, 8 "
+        "requests of 1,024 shared + 512 unique tokens, 32 new, 4 sampled): the target as its "
+        "own draft and a 2-layer draft, bf16 and int8 pods; SpeculativeDecoder on one request")
+    params32, cfg32 = f32_twin(params, cfg)
+    weak_cfg, weak = weak_draft()
+    drafts = {"perfect": (cfg, params), "weak": (weak_cfg, weak)}
+    out = {}
+    traffic, _ = spec_traffic(cfg.vocab_size)
+    pod, _ = indexed_pod(params, cfg, False, "pod-plain", "m")
+    r = run_scheduler(pod, traffic, 1, max_batch=8, budget=512)
+    n = sum(len(g) for g in r["tokens"])
+    out["plain_bf16"] = dict(tokens=n, wall_s=r["wall_s"], tokens_per_s=n / r["wall_s"],
+                             ticks=len(r["tick_s"]))
+    log(f"  plain Scheduler, bf16, the same traffic: {n} tokens in {r['wall_s']:.3f} s "
+        f"({n / r['wall_s']:.1f} tokens/s, {len(r['tick_s'])} ticks)")
+    del pod, r
+    launches = dict.fromkeys(KERNELS, 0)
+    for fmt, int8, draft in (("bf16", False, "perfect"), ("bf16", False, "weak"),
+                             ("int8", True, "weak")):
+        res = spec_flagship_check(params, cfg, params32, cfg32, int8, draft, *drafts[draft],
+                                  deltas[fmt])
+        out[f"{fmt} {draft}"] = res
+        if not res["ok"]:
+            raise AssertionError(f"phase 10b ({fmt}, {draft} draft): {res['failures']}")
+        launches = {name: launches[name] + res["launches"][name] for name in KERNELS}
+    for draft in ("perfect", "weak"):
+        res = spec_decoder_check(params, cfg, params32, cfg32, draft, *drafts[draft],
+                                 deltas["bf16"])
+        out[f"decoder {draft}"] = res
+        if not res["ok"]:
+            raise AssertionError(f"phase 10b (decoder, {draft} draft): {res['failures']}")
+    out["launches"] = launches
+    del params32, weak, drafts
+    torch.cuda.empty_cache()
+    return out
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phases", default=None,
+                        help="comma-separated phases to run after the build (3 4 5 5b 5c 6 7a "
+                        "7b 8a 8 9a 9b 10a 10b; 9b and 10b run 7b's deltas first); a partial "
+                        "run prints no kernels or ok line")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -1837,10 +2546,12 @@ def main() -> int:
             f"registers/thread, {spills} bytes of spill stores in all")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errs = phase_kernel_checks(gen)
-    times, decode_times, prefill_serving = phase_times(gen)
-
     cfg = llama.LlamaConfig(**FLAGSHIP)
+    if args.phases is not None:
+        return partial_run(args.phases.split(","), gen, cfg)
+    errs = phase_kernel_checks(gen)
+    times, decode_times, prefill_serving, verify_time = phase_times(gen)
+
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     n_params = sum(w.numel() for w in params["layers"].values()) + sum(
         params[k].numel() for k in ("embed", "final_norm", "out"))
@@ -1854,15 +2565,23 @@ def main() -> int:
     sched = phase_scheduler_flagship(params, cfg)
     tier_small = phase_host_tier_small()
     tier = phase_host_tier_flagship(params, cfg)
+    deltas = {fmt: sched[fmt]["delta"] for fmt in ("bf16", "int8")}
+    lora_small = phase_lora_small()
+    lora_flagship = phase_lora_flagship(params, cfg, deltas)
+    spec_small = phase_spec_small()
+    spec = phase_spec_flagship(params, cfg, deltas)
 
     # Rows 1, 2 and 5 are counted on the serving path (phase 5), on the
-    # scheduler's path (phase 7b's recorded runs, summed) and on the host
-    # tier's (phase 8b-8d); rows 3 and 4 (the tiled decode entry) on phase
-    # 6's tiled decode steps.
+    # scheduler's path (phase 7b's recorded runs, summed), on the host
+    # tier's (phase 8b-8d), on multi-LoRA's (phase 9b) and on speculative
+    # decoding's (phase 10b's scheduler runs); rows 3 and 4 (the tiled
+    # decode entry) on phase 6's tiled decode steps.
     runs = [sched[f"{fmt} steps{steps}"] for fmt, _, steps in FLAGSHIP_RUNS]
     by_path = {name: {"serving": serving["launches"][name],
                       "scheduler": sum(r["launches"][name] for r in runs),
-                      "host_tier": tier["launches"][name]}
+                      "host_tier": tier["launches"][name],
+                      "lora": lora_flagship["launches"][name],
+                      "speculative": spec["launches"][name]}
                for name in ("paged_decode", "paged_decode_int8", "flash_prefill")}
     for row in ("paged_decode_tiled", "paged_decode_tiled_int8"):
         by_path[row] = {"batched_decode": batched["checks"][row]["launches"]}
@@ -1878,16 +2597,57 @@ def main() -> int:
         for name in KERNELS
     ]
     log(json.dumps({"decode_shapes": decode_times,
-                    "prefill_serving_shape": prefill_serving, "serving": serving,
-                    "prefill_logits": prefill_logits,
+                    "prefill_serving_shape": prefill_serving, "verify_shape": verify_time,
+                    "serving": serving, "prefill_logits": prefill_logits,
                     "packed_prefill": packed, "batched_decode": batched,
                     "scheduler_small": sched_small, "scheduler": sched,
                     "host_tier_small": tier_small, "host_tier": tier,
+                    "lora_small": lora_small, "lora": lora_flagship,
+                    "speculative_small": spec_small, "speculative": spec,
                     "build_s": build_s, "run_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def partial_run(phases, gen, cfg) -> int:
+    """A development run of some phases (no kernels or ok line); exits 0
+    when each of them passes."""
+    t_start = time.perf_counter()
+    out = {}
+    if "3" in phases:
+        out["kernel_errs"] = phase_kernel_checks(gen)
+    if "4" in phases:
+        out["times"] = phase_times(gen)
+    params = None
+    if any(p not in ("3", "4", "5b", "7a", "8a", "9a", "10a") for p in phases):
+        params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    steps = {
+        "5": lambda: phase_serving(params, cfg), "5b": phase_small_pod_vs_cpu,
+        "5c": lambda: phase_prefill_logits(params, cfg),
+        "6": lambda: phase_batched_decode(params, cfg), "7a": phase_scheduler_small,
+        "7b": lambda: phase_scheduler_flagship(params, cfg), "8a": phase_host_tier_small,
+        "8": lambda: phase_host_tier_flagship(params, cfg), "9a": phase_lora_small,
+        "10a": phase_spec_small,
+    }
+    for phase in phases:
+        if phase in steps:
+            out[phase] = steps[phase]()
+    if "9b" in phases or "10b" in phases:
+        params32, cfg32 = f32_twin(params, cfg)
+        deltas = {fmt: teacher_forced_delta(params, cfg, params32, cfg32, int8)[0]
+                  for fmt, int8 in (("bf16", False), ("int8", True))}
+        del params32
+        torch.cuda.empty_cache()
+        log(f"  teacher-forced deltas {deltas}")
+        if "9b" in phases:
+            out["9b"] = phase_lora_flagship(params, cfg, deltas)
+        if "10b" in phases:
+            out["10b"] = phase_spec_flagship(params, cfg, deltas)
+    log(json.dumps(out, default=str))
+    log(f"partial run of phases {phases}: {time.perf_counter() - t_start:.1f} s")
     return 0
 
 

@@ -11,9 +11,12 @@ Layout mirrors the reference package module for module:
   - kvcache/        token-ID read path (Indexer.get_pod_scores), scorer,
                     kvblock hashing/keys/token processor/in-memory index
   - kvevents/       event schema (msgpack wire form) + synchronous digest
-  - engine/         BlockManager + EnginePod (model mode) + the
-                    continuous-batching Scheduler
-  - models/llama.py paged-KV Llama serving functions
+  - engine/         BlockManager + EnginePod (model mode, multi-LoRA) + the
+                    continuous-batching Scheduler + speculative decoding
+                    (SpeculativeDecoder, SpeculativeScheduler) + the host
+                    tier (tiering, costs)
+  - models/         paged-KV Llama serving functions (llama.py) and LoRA
+                    adapters (lora.py)
   - ops/            paged_attention / flash_prefill wrappers (kernel on CUDA,
                     plain torch version on CPU), the nvcc build step, and
                     sampling (JAX's Threefry noise in torch ops)

@@ -10,6 +10,10 @@ when no GPU is present unless "cpu" is asked for), with KV pages in the
 model dtype or, with `use_quantized_kv`, in int8. On CUDA every attention
 call runs a hand-written kernel.
 
+With `lora_adapters`, the pod serves several LoRA adapters beside the base
+model (`models/lora.py`): one layer-stacked registry, index 0 the base, and
+each sequence's adapter applied in prefill and decode.
+
 With `enable_host_tier`, the pod has the reference's host tier
 (engine/tiering.py over kv_connectors/connector.py): reclaimed pages are
 offloaded to a host store, a device miss restores a chain from it or
@@ -35,6 +39,7 @@ from llm_d_kv_cache_manager_tpu_torch.engine.block_manager import (
 from llm_d_kv_cache_manager_tpu_torch.engine.tiering import PageCodec
 from llm_d_kv_cache_manager_tpu_torch.kvevents.events import EventBatch
 from llm_d_kv_cache_manager_tpu_torch.models import llama
+from llm_d_kv_cache_manager_tpu_torch.models import lora as lora_mod
 from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
 from llm_d_kv_cache_manager_tpu_torch.utils.device import resolve_device
 
@@ -277,6 +282,7 @@ class EnginePod:
         config: EnginePodConfig,
         event_sink: Optional[Callable[[EventBatch], None]] = None,
         params=None,
+        lora_adapters: Optional[dict] = None,  # {lora_id: models.lora params}
     ):
         self.config = config
         self.device = resolve_device(config.device)
@@ -347,6 +353,17 @@ class EnginePod:
         self.kv_cache = make(mc, config.n_pages + 1, config.page_size, self.device)
         self.last_logits: Optional[torch.Tensor] = None
 
+        # Multi-LoRA registry: adapter weights served per sequence, with the
+        # cache already scoped per adapter (block hashes carry lora_id).
+        # Index 0 is the zero adapter (base traffic).
+        self.lora_stack = None
+        self._lora_index: dict = {}
+        if lora_adapters:
+            ids = sorted(lora_adapters)
+            stack = lora_mod.stack_adapters([lora_adapters[i] for i in ids])
+            self.lora_stack = {k: v.to(self.device) for k, v in stack.items()}
+            self._lora_index = {lid: i + 1 for i, lid in enumerate(ids)}
+
     # -- events --------------------------------------------------------------
 
     def _emit(self, batch: EventBatch) -> None:
@@ -379,17 +396,29 @@ class EnginePod:
         return state, n_cached
 
     def lora_index(self, lora_id: Optional[int]) -> int:
-        """Registry index for an adapter id (0 = base). This pod serves no
-        adapters, so any other id raises KeyError and admission rejects the
-        request."""
+        """Registry index for an adapter id (0 = base). Raises KeyError for
+        an unknown adapter, so admission rejects the request."""
         if lora_id is None:
             return 0
-        raise KeyError(f"no LoRA adapters configured (requested {lora_id})")
+        if self.lora_stack is None:
+            raise KeyError(f"no LoRA adapters configured (requested {lora_id})")
+        return self._lora_index[lora_id]
 
-    def lora_for_decode(self, lora_ids) -> None:
-        """The adapter stack and per-row indices of a decode batch: None,
-        since this pod serves no adapters."""
-        return None
+    def _lora_for_prefill(self, lora_id: Optional[int]):
+        """One sequence's adapter (per-layer arrays), or None on a pod that
+        serves no adapters."""
+        if self.lora_stack is None:
+            return None
+        return lora_mod.select_adapter(self.lora_stack, self.lora_index(lora_id))
+
+    def lora_for_decode(self, lora_ids):
+        """(registry stack, [B] int32 indices on the pod's device) for a
+        batch, or None when the pod serves no adapters. The per-row weight
+        gather happens inside the llama call, once per call."""
+        if self.lora_stack is None:
+            return None
+        idx = torch.tensor([self.lora_index(i) for i in lora_ids], dtype=torch.int32)
+        return self.lora_stack, idx.to(self.device)
 
     def prefill_chunk(self, state: SequenceState, start: int, end: int) -> None:
         """Compute KV (and logits) for tokens[start:end], attending over the
@@ -422,6 +451,7 @@ class EnginePod:
         self.kv_cache, self.last_logits = llama.prefill_cache(
             self._model_config, self.params, self.kv_cache, chunk,
             block_table, start, n_valid=length,
+            lora=self._lora_for_prefill(state.lora_id),
         )
 
     def prefill_chunk_batch(self, jobs) -> List[torch.Tensor]:
@@ -457,6 +487,8 @@ class EnginePod:
         tables = np.full((b_pad, t_bucket), self.trash_page, dtype=np.int32)
         starts = np.zeros((b_pad,), dtype=np.int32)
         max_lens = np.zeros((b_pad,), dtype=np.int32)  # pad rows: all trash
+        lora_ids = [state.lora_id for state, _, _ in jobs]
+        lora_ids += [None] * (b_pad - len(jobs))  # pad rows: the base model
         for i, (state, start, end) in enumerate(jobs):
             chunk[i, : end - start] = state.tokens[start:end]
             tables[i, : len(state.block_table)] = state.block_table
@@ -467,7 +499,7 @@ class EnginePod:
             self._model_config, self.params, self.kv_cache,
             torch.from_numpy(chunk).to(dev), torch.from_numpy(tables).to(dev),
             torch.from_numpy(starts).to(dev), torch.from_numpy(max_lens).to(dev),
-            self.trash_page,
+            self.trash_page, lora=self.lora_for_decode(lora_ids),
         )
         return [logits[i, lengths[i] - 1] for i in range(len(jobs))]
 
@@ -489,7 +521,7 @@ class EnginePod:
             self._model_config, self.params, self.kv_cache, last_token,
             self._padded_table(state)[None],
             torch.tensor([pos], dtype=torch.int32, device=self.device),
-            pipelined=True,
+            pipelined=True, lora=self.lora_for_decode([state.lora_id]),
         )
         # The pending token's KV row is now resident: commit any page it
         # completed before appending the next (pending) token.

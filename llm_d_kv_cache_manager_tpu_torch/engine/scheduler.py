@@ -305,13 +305,11 @@ class Scheduler:
             positions[i] = len(req.state.tokens) - 1
         return tables, tokens, positions
 
-    def _check_no_lora(self, running: List[Request], n_rows: int) -> None:
-        """The decode batch's adapters (pad rows are base). The port's model
-        has no LoRA path yet, so a pod that serves adapters is refused
-        rather than decoded without them."""
+    def _lora_for(self, running: List[Request], n_rows: int):
+        """The decode batch's adapters for the llama call: pad rows run the
+        base model (index 0), and their output is discarded."""
         lora_ids = [r.lora_id for r in running] + [None] * (n_rows - len(running))
-        if self.pod.lora_for_decode(lora_ids) is not None:
-            raise NotImplementedError("LoRA decode is not ported")
+        return self.pod.lora_for_decode(lora_ids)
 
     def _sampling_arrays(self, reqs: List[Request], padded_len: int):
         """None when every request is greedy; otherwise (temps, top_ks,
@@ -359,12 +357,11 @@ class Scheduler:
         pod = self.pod
         dev = pod.device
         tables, tokens, positions = self._assemble_batch(self._running)
-        self._check_no_lora(self._running, len(tokens))
         positions_t = torch.from_numpy(positions).to(dev)
         pod.kv_cache, logits = llama.decode_step_cache(
             pod._model_config, pod.params, pod.kv_cache,
             torch.from_numpy(tokens).to(dev), torch.from_numpy(tables).to(dev),
-            positions_t, pipelined=True,
+            positions_t, pipelined=True, lora=self._lora_for(self._running, len(tokens)),
         )
         sarr = self._sampling_arrays(self._running, len(tokens))
         if sarr is None:
@@ -431,7 +428,6 @@ class Scheduler:
         # Pad rows: 0 rows allowed (every write lands in the trash page).
         padded_accepts = accepts + [0] * (len(tokens) - len(accepts))
         max_lens = positions + np.asarray(padded_accepts, dtype=np.int32)
-        self._check_no_lora(running, len(tokens))
 
         pod.kv_cache, toks = llama.decode_multi_step_cache(
             pod._model_config, pod.params, pod.kv_cache,
@@ -439,6 +435,7 @@ class Scheduler:
             torch.from_numpy(positions).to(dev), torch.from_numpy(max_lens).to(dev),
             pod.trash_page, n,
             sampling=self._sampling_arrays(running, len(tokens)),
+            lora=self._lora_for(running, len(tokens)),
         )
         toks = toks.tolist()  # [B][n]
 

@@ -12,7 +12,13 @@ cache (pools `[n_layers, n_kv, n_pages, page, hd]`, block tables on host):
   `ops.sampling.sample_tokens`) kept on the device and over-budget rows
   steered to a trash page,
 - `verify_step_cache`: several positions of every sequence in one batched
-  pass (packed prefill), through `ops.flash_prefill` with per-batch offsets.
+  pass (packed prefill, speculative verification), through
+  `ops.flash_prefill` with per-batch offsets.
+
+Each path takes an optional `lora`: q/v adapter deltas (`models/lora.py`),
+one adapter for a prefill, `(stack, [B] indices)` for a batch, where a row
+may run the base model (index 0). `lora=None` leaves the computation as it
+is without adapters, launch for launch.
 
 The cache is either a (k, v) pair of pools in the model dtype or an int8
 (k_q, k_scale, v_q, v_scale) quadruple (`ops/quantized_kv.py`); the helpers
@@ -33,6 +39,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from llm_d_kv_cache_manager_tpu_torch.models.lora import (
+    apply_decode_delta,
+    apply_prefill_delta,
+    gather_adapters,
+)
 from llm_d_kv_cache_manager_tpu_torch.ops.flash_prefill import dense_attention, flash_prefill
 from llm_d_kv_cache_manager_tpu_torch.ops.paged_attention import (
     paged_attention,
@@ -176,6 +187,35 @@ def _qv_proj(h: torch.Tensor, layer: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     return q_flat, v_flat
 
 
+def _gathered_lora(lora):
+    """Per-sequence adapter weights {name: [n_layers, B, ...]} from (stack,
+    indices), gathered once per call; None without adapters."""
+    if lora is None:
+        return None
+    stack, adapter_indices = lora
+    return gather_adapters(stack, adapter_indices)
+
+
+def _layer_lora(lora_layers, i: int):
+    """Layer i's slice of gathered (or selected) adapter weights, or None."""
+    if lora_layers is None:
+        return None
+    return {name: w[i] for name, w in lora_layers.items()}
+
+
+def _qv_proj_with_lora(h: torch.Tensor, layer: Dict, lora_slice):
+    """q/v projections with optional per-sequence LoRA deltas: the one
+    definition decode, multi-step decode and verify share, so their LoRA
+    math cannot drift apart. h: [B, S, d]; lora_slice: a layer's gathered
+    adapter arrays ([B, d, r] / [B, r, out]) or None."""
+    q_flat, v_flat = _qv_proj(h, layer)
+    if lora_slice is not None:
+        dq, dv = apply_decode_delta(h, lora_slice)
+        q_flat = q_flat + dq
+        v_flat = v_flat + dv
+    return q_flat, v_flat
+
+
 def _k_proj(layer: Dict, h: torch.Tensor) -> torch.Tensor:
     """K projection with the optional Qwen2-family bias."""
     k = h @ layer["wk"]
@@ -308,9 +348,13 @@ def prefill_cache(
     # beyond start_pos+n_valid, which callers must have reserved and which
     # is masked until a real write lands there. None -> all rows are real.
     plain: bool = False,  # the plain attention path (checks compare with it)
+    lora=None,  # this sequence's adapter (lora.select_adapter) or None
+    all_logits: bool = False,  # True: logits of EVERY position (spec verify)
 ) -> Tuple[tuple, torch.Tensor]:
     """Prefill new tokens, attending to the cached prefix; returns
-    (kv_cache, logits of token n_valid-1 (or L-1 unpadded))."""
+    (kv_cache, logits of token n_valid-1 (or L-1 unpadded)), or with
+    `all_logits` (kv_cache, logits [L, vocab]): the speculative decoder's
+    verification pass. `lora` adds this sequence's q/v adapter deltas."""
     c = config
     l = tokens.shape[0]
     x = params["embed"][tokens.long()][None]  # [1, L, d]
@@ -320,6 +364,10 @@ def prefill_cache(
         layer = layer_params(params, i)
         h = rms_norm(x, layer["attn_norm"], c.rms_eps)
         q_flat, v_flat = _qv_proj(h, layer)
+        if lora is not None:
+            dq, dv = apply_prefill_delta(h, _layer_lora(lora, i))
+            q_flat = q_flat + dq
+            v_flat = v_flat + dv
         q = q_flat.reshape(1, l, c.n_q_heads, c.head_dim)
         k = _k_proj(layer, h).reshape(1, l, c.n_kv_heads, c.head_dim)
         v = v_flat.reshape(1, l, c.n_kv_heads, c.head_dim)
@@ -338,6 +386,8 @@ def prefill_cache(
         x = x + _mlp(layer, h)
 
     x = rms_norm(x, params["final_norm"], c.rms_eps)
+    if all_logits:
+        return kv_cache, x[0] @ params["out"]  # [L, vocab]
     last = l - 1 if n_valid is None else n_valid - 1
     return kv_cache, x[0, last] @ params["out"]
 
@@ -354,6 +404,7 @@ def _decode_once(
     write_slots: torch.Tensor,  # [B]
     pipelined: bool = True,  # decode kernel variant; see _cache_attend
     plain: bool = False,  # the plain attention path (checks compare with it)
+    lora_layers=None,  # gathered per-sequence adapters (_gathered_lora) or None
 ) -> Tuple[tuple, torch.Tensor]:
     """Single batched decode step: writes each sequence's new K/V row at
     (write_page_ids, write_slots) and attends over seq_lens+1 positions."""
@@ -368,7 +419,7 @@ def _decode_once(
     for i in range(c.n_layers):
         layer = layer_params(params, i)
         h = rms_norm(x, layer["attn_norm"], c.rms_eps)
-        q_flat, v_flat = _qv_proj(h, layer)
+        q_flat, v_flat = _qv_proj_with_lora(h, layer, _layer_lora(lora_layers, i))
         q = q_flat.reshape(b, 1, c.n_q_heads, c.head_dim)
         k = _k_proj(layer, h).reshape(b, 1, c.n_kv_heads, c.head_dim)
         v = v_flat.reshape(b, 1, c.n_kv_heads, c.head_dim)
@@ -400,6 +451,8 @@ def decode_step_cache(
     block_tables: torch.Tensor,  # [B, pages_per_seq] int32
     seq_lens: torch.Tensor,  # [B] int32 tokens already cached (new token's position)
     pipelined: bool = True,  # False: the split-KV tiled decode kernel
+    lora=None,  # (adapter registry stack, [B] int32 indices) or None; a
+    # batch mixes adapters and base traffic (index 0)
 ) -> Tuple[tuple, torch.Tensor]:
     """One batched decode step; returns (kv_cache, logits [B, vocab]) with
     the pools updated in place."""
@@ -410,7 +463,7 @@ def decode_step_cache(
     slots = seq_lens % page_size
     return _decode_once(
         config, params, kv_cache, tokens, block_tables, seq_lens, page_ids, slots,
-        pipelined=pipelined,
+        pipelined=pipelined, lora_layers=_gathered_lora(lora),
     )
 
 
@@ -428,6 +481,7 @@ def decode_multi_step_cache(
     sampling=None,  # (temps [B], top_ks [B], top_ps [B], base_keys [B, 2])
     # or None for greedy; keys are folded per in-loop position, so the
     # tokens equal single-step sampling's (ops/sampling.py)
+    lora=None,  # (stack, [B] indices) or None, as decode_step_cache's
 ) -> Tuple[tuple, torch.Tensor]:
     """N decode steps; returns (kv_cache, tokens_out [B, N]), where
     tokens_out[:, j] is the token chosen at step j (argmax, or filtered
@@ -441,6 +495,7 @@ def decode_multi_step_cache(
     a real page; the host discards its out-of-budget tokens."""
     page_size = kv_cache[0].shape[3]
     last_index = block_tables.shape[1] - 1
+    lora_layers = _gathered_lora(lora)
     tok, lens = tokens, seq_lens
     out = []
     for _ in range(n_steps):
@@ -451,7 +506,7 @@ def decode_multi_step_cache(
         pages = torch.where(lens < max_lens, pages, torch.full_like(pages, trash_page))
         kv_cache, logits = _decode_once(
             config, params, kv_cache, tok, block_tables, lens, pages, lens % page_size,
-            pipelined=True,
+            pipelined=True, lora_layers=lora_layers,
         )
         if sampling is None:
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -477,12 +532,15 @@ def verify_step_cache(
     # rectangular batch can exceed a short sequence's budget without
     # corrupting real pages. None: every row lands in a real page.
     trash_page: int = 0,
+    lora=None,  # (stack, [B] indices) or None, as decode_step_cache's
 ) -> Tuple[tuple, torch.Tensor]:
     """Batched multi-position pass: K/V and logits for S new tokens of every
-    sequence at once (packed prefill), each attending its own cached prefix
-    through the flash-prefill kernel with per-batch causal offsets. Returns
-    (kv_cache, logits [B, S, vocab]); logits[b, i] is the next-token opinion
-    after tokens[b, i]. Both cache layouts; pools updated in place."""
+    sequence at once (packed prefill, or the speculative scheduler's
+    verification of [pending] + proposals), each attending its own cached
+    prefix through the flash-prefill kernel with per-batch causal offsets.
+    Returns (kv_cache, logits [B, S, vocab]); logits[b, i] is the next-token
+    opinion after tokens[b, i]. Both cache layouts; pools updated in
+    place."""
     c = config
     b, s = tokens.shape
     page_size = kv_cache[0].shape[3]
@@ -501,11 +559,12 @@ def verify_step_cache(
         page_ids = torch.where(over, torch.full_like(page_ids, trash_page), page_ids)
     page_ids = page_ids.reshape(-1)  # [B*S]
     slots = (positions % page_size).reshape(-1)
+    lora_layers = _gathered_lora(lora)
 
     for i in range(c.n_layers):
         layer = layer_params(params, i)
         h = rms_norm(x, layer["attn_norm"], c.rms_eps)
-        q_flat, v_flat = _qv_proj(h, layer)
+        q_flat, v_flat = _qv_proj_with_lora(h, layer, _layer_lora(lora_layers, i))
         q = q_flat.reshape(b, s, c.n_q_heads, c.head_dim)
         k = _k_proj(layer, h).reshape(b, s, c.n_kv_heads, c.head_dim)
         v = v_flat.reshape(b, s, c.n_kv_heads, c.head_dim)

@@ -223,3 +223,45 @@ def test_transfer_library_name_tracks_its_source(monkeypatch, tmp_path):
     src.write_text(_build.TRANSFER_SOURCE.read_text() + "\n// edited\n")
     monkeypatch.setattr(_build, "TRANSFER_SOURCE", src)
     assert _build.library_path(_build.TRANSFER) != path
+
+
+@pytest.mark.parametrize("module", ["models.lora", "engine.speculative"])
+def test_lora_and_speculative_modules_are_checked(module):
+    """Multi-LoRA and speculative decoding are among the modules the import
+    checks above load and parse."""
+    path = PORT / (module.replace(".", "/") + ".py")
+    assert path in _port_files()
+    assert "import torch" in path.read_text()
+
+
+def test_default_device_lora_and_speculation_raise_without_gpu():
+    """A LoRA pod, the speculative decoder and scheduler (each needs a pod)
+    and the adapter constructors default to the card and raise without one;
+    asked for by name, the CPU serves them."""
+    from llm_d_kv_cache_manager_tpu_torch.engine.engine import EnginePod, EnginePodConfig
+    from llm_d_kv_cache_manager_tpu_torch.engine.speculative import (
+        SpeculativeDecoder,
+        SpeculativeScheduler,
+    )
+    from llm_d_kv_cache_manager_tpu_torch.models import llama, lora
+
+    cfg = llama.LlamaConfig(vocab_size=64, d_model=32, n_layers=1, n_q_heads=2,
+                            n_kv_heads=1, head_dim=16, d_ff=64, dtype=torch.float32)
+    params = llama.init_params(cfg, torch.Generator(), "cpu")
+    adapter = lora.init_lora_adapter(cfg, 2, torch.Generator(), device="cpu")
+    calls = [
+        lambda: EnginePod(EnginePodConfig(model_config=cfg), lora_adapters={1: adapter}),
+        lambda: SpeculativeDecoder(EnginePod(EnginePodConfig(model_config=cfg)), cfg, params),
+        lambda: SpeculativeScheduler(EnginePod(EnginePodConfig(model_config=cfg)), cfg, params),
+        lambda: lora.init_lora_adapter(cfg, 2, torch.Generator()),
+        lambda: lora.make_test_adapter(cfg, 2, torch.Generator()),
+        lambda: lora.lora_from_jax({k: v.numpy() for k, v in adapter.items()}),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    pod = EnginePod(EnginePodConfig(model_config=cfg, device="cpu"), lora_adapters={1: adapter})
+    assert pod.lora_for_decode([1, None])[1].device.type == "cpu"
+    spec = SpeculativeScheduler(EnginePod(EnginePodConfig(model_config=cfg, device="cpu")),
+                                cfg, params)
+    assert spec._draft_cache[0].device.type == "cpu"
