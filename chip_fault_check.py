@@ -40,6 +40,14 @@ bar (a bf16 pod through the speculative scheduler with the 2-layer draft)
 is held to the real scheduler and to OverAcceptScheduler, which keeps one
 proposal more than matched. Both faults must fail their bars.
 
+Phase 11b's checks of the served tokens (Mixtral-8x7B's widths at 4
+layers through the scheduler on a bf16 pod: the teacher-forced bar against
+the f32 truth, and the greedy tokens' agreement with the truth's argmax
+against the plain bf16 path's) are held to the real MoE dispatch and to a
+planted MoE fault, top-1 serving: every token keeps only its first routed
+expert, at gate 1; the fault must fail them (either check fails phase 11b;
+each one's reading is printed).
+
 Phase 8b's bit-identical check (P' restored from the host store on a tight
 bf16 pod against the same prompt on a pod that never evicts: suffix logits
 and 32 greedy tokens) is held to the real tree and to a planted codec fault,
@@ -64,6 +72,7 @@ flagship logits run in bf16).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import subprocess
 import sys
@@ -74,7 +83,7 @@ import chip_smoke
 from llm_d_kv_cache_manager_tpu_torch.engine import engine as engine_mod
 from llm_d_kv_cache_manager_tpu_torch.engine.engine import EnginePod
 from llm_d_kv_cache_manager_tpu_torch.engine.scheduler import Scheduler
-from llm_d_kv_cache_manager_tpu_torch.models import llama
+from llm_d_kv_cache_manager_tpu_torch.models import llama, mixtral
 from llm_d_kv_cache_manager_tpu_torch.ops import _build
 
 # Planted fault -> (kernel sources it is built into, file of csrc/ holding
@@ -310,6 +319,38 @@ def run_host_tier_bar(label: str, params, cfg, scatter=None) -> dict:
                 tokens_equal=c["restore_tokens"])
 
 
+real_moe = mixtral._moe_mlp_dense
+
+
+def top1_moe(config, layer, x):
+    """A planted MoE fault: every token keeps only its first routed expert,
+    at gate 1 (softmax over one logit)."""
+    return real_moe(dataclasses.replace(config, top_k=1), layer, x)
+
+
+def run_moe_bar(label: str, params, cfg, params32, cfg32, delta: float, moe=None) -> dict:
+    """chip_smoke's phase 11b traffic on a bf16 Mixtral pod serving through
+    `moe` as its MoE dispatch (the truth keeps the real one), held to its
+    teacher-forced bar: the bar's reading."""
+    mixtral._moe_mlp_dense = moe or real_moe
+    try:
+        r, traffic, *_ = chip_smoke.moe_run(params, cfg, False)
+    finally:
+        mixtral._moe_mlp_dense = real_moe
+    bar = chip_smoke.teacher_forced_bar(params32, cfg32, traffic, r["requests"], delta)
+    agree = chip_smoke.greedy_agreement(params, cfg, params32, cfg32, traffic, r["requests"],
+                                        False)
+    chip_smoke.log(f"  [{label}] MoE teacher-forced bar: greedy worst "
+                   f"{bar['worst']['greedy']:.4f}, sampled worst {bar['worst']['sampled']:.4f} "
+                   f"(delta {delta:.4f}) {'ok' if bar['ok'] else 'FAIL'}; greedy tokens off "
+                   f"the truth's argmax {agree['disagree_served']:.4f} (plain path "
+                   f"{agree['disagree_plain']:.4f}, limit {agree['limit']:.4f}) "
+                   f"{'ok' if agree['ok'] else 'FAIL'}")
+    del r
+    torch.cuda.empty_cache()
+    return dict(bar, ok=bar["ok"] and agree["ok"], bar_ok=bar["ok"], agreement=agree)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_fault_check: no CUDA device", file=sys.stderr)
@@ -363,11 +404,28 @@ def main() -> int:
     serving_bars["spec_over_accept"] = run_spec_bar(
         "spec_over_accept", params, cfg, params32, cfg32, delta, cls=OverAcceptScheduler)
 
+    chip_smoke.log("== MoE fault: top-1 serving (the first routed expert only, at gate 1)")
+    del params, params32
+    torch.cuda.empty_cache()
+    mcfg, mparams = chip_smoke.mixtral_model()
+    mparams32, mcfg32 = chip_smoke.f32_twin(mparams, mcfg)
+    moe_delta, moe_plain_err = chip_smoke.teacher_forced_delta(mparams, mcfg, mparams32, mcfg32,
+                                                               False)
+    chip_smoke.log(f"  phase 11b's delta on bf16 pages: {moe_delta:.4f} (plain path "
+                   f"{moe_plain_err:.4f})")
+    serving_bars["moe_real"] = run_moe_bar("moe_real", mparams, mcfg, mparams32, mcfg32,
+                                           moe_delta)
+    serving_bars["moe_top1"] = run_moe_bar("moe_top1", mparams, mcfg, mparams32, mcfg32,
+                                           moe_delta, moe=top1_moe)
+    del mparams, mparams32
+
     real_ok = all(r["ok"] for r in rows if r["variant"] == "real") and all(
         logits_ok["real"].values()) and bars["real"]["ok"] and host_tier["real"]["all_checks"] \
-        and serving_bars["lora_real"]["ok"] and serving_bars["spec_real"]["ok"]
+        and serving_bars["lora_real"]["ok"] and serving_bars["spec_real"]["ok"] \
+        and serving_bars["moe_real"]["ok"]
     serving_caught = {label: not serving_bars[label]["ok"]
-                      for label in ("lora_adapter_dropped_in_decode", "spec_over_accept")}
+                      for label in ("lora_adapter_dropped_in_decode", "spec_over_accept",
+                                    "moe_top1")}
     host_tier_caught = not host_tier["insert_one_page_off"]["ok"]
     bar_caught = {label: not bar["ok"] for label, bar in bars.items() if label != "real"}
     main_rows = {
@@ -389,8 +447,8 @@ def main() -> int:
             kernel: r["row_rel_err"] for kernel, r in main_rows.items()},
         "mutant_caught_by_logits": logits_caught,
         "caught_by_scheduler_bar": bar_caught,
-        "caught_by_lora_and_speculative_bars": serving_caught,
-        "lora_and_speculative_bar_readings": {label: dict(bar["worst"], delta=bar["delta"])
+        "caught_by_lora_speculative_and_moe_bars": serving_caught,
+        "lora_speculative_and_moe_bar_readings": {label: dict(bar["worst"], delta=bar["delta"])
                                               for label, bar in serving_bars.items()},
         "host_tier_fault_caught": host_tier_caught, "host_tier_readings": host_tier,
         "scheduler_bar_readings": {label: dict(bar["worst"], delta=bar["delta"])

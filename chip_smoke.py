@@ -98,6 +98,22 @@ Phases, in order (any failure raises and the script exits non-zero):
      tokens/s against the plain Scheduler on the same traffic, the verify
      call's and the draft step's wall and device time, launches and read
      backs per tick are logged;
+  11a. the MoE family (models/mixtral.py) on small f32 pods (4 experts,
+     top-2) on the card against the same pods on the CPU, both page formats:
+     the Scheduler over phase 7a's requests at decode_steps 1 and 4, packed
+     prefill, and SpeculativeScheduler with a dense 1-layer draft over the
+     MoE target; the same tokens, stats and event streams;
+  11b. Mixtral-8x7B at its published widths, cut to 4 layers (bf16, seeded
+     weights; phase 4 also times rows 1, 2 and 5 at its attention shape):
+     phase 5c's prefill-logits and phase 6's batch-8 decode-logits checks
+     (every page format and decode kernel) with the routing flips counted,
+     then 8 requests (1,024 shared + 512 unique tokens, 32 new, 4 sampled)
+     through the Scheduler on a bf16 pod and an int8 pod: prefix hits, each
+     pod ranked first for its own prefix, launches per layer pass, phase
+     7b's teacher-forced bar on every token, and the greedy tokens off the
+     truth's argmax at most twice as often as the plain bf16 path's plus
+     0.05 (routing flips widen the bar's delta); tokens/s, tick walls, and one
+     decode tick's and one prefill chunk's device profile are logged;
   then a JSON line of details, one JSON line describing every kernel, and
   last: {"ok": true, "device": {...}}.
 """
@@ -140,7 +156,7 @@ from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.token_processor import (
 )
 from llm_d_kv_cache_manager_tpu_torch.kvevents.digest import digest_batch
 from llm_d_kv_cache_manager_tpu_torch.kvevents.events import BlockRemoved, BlockStored
-from llm_d_kv_cache_manager_tpu_torch.models import llama, lora
+from llm_d_kv_cache_manager_tpu_torch.models import llama, lora, mixtral
 from llm_d_kv_cache_manager_tpu_torch.ops import _build
 from llm_d_kv_cache_manager_tpu_torch.ops import flash_prefill as fp
 from llm_d_kv_cache_manager_tpu_torch.ops import paged_attention as pa
@@ -307,7 +323,8 @@ def profile_device_share(label: str, fn, runs: int = 3) -> dict:
     for ms, count, key in top:
         log(f"    {ms:8.3f} ms/call {count:5d} launches/call  {key[:80]}")
     return dict(wall_ms=wall_ms, device_ms=device_ms, launches=launches,
-                largest=dict(ms=top[0][0], launches=top[0][1], name=top[0][2][:80]))
+                largest=dict(ms=top[0][0], launches=top[0][1], name=top[0][2][:80]),
+                top=[dict(ms=ms, launches=count, name=key[:80]) for ms, count, key in top])
 
 
 def _graph_ms(fn, calls: int, runs: int) -> float:
@@ -603,15 +620,19 @@ DECODE_SHAPES = {
 }
 
 
-def time_decode(gen, row: str, shape: str, plain: bool = True) -> dict:
-    """Row `row` at a DECODE_SHAPES shape (bf16 q, page 16, flagship heads),
-    each call cold in L2: kernel, plain version (`plain`), SDPA over
-    pre-gathered K/V of the live positions (bf16 pages only; no PyTorch call
-    attends over int8 pages), and the bound."""
+def time_decode(gen, row: str, shape: str, plain: bool = True, n_q: int = N_Q) -> dict:
+    """Row `row` at a DECODE_SHAPES shape (bf16 q, page 16, n_q query heads
+    over the flagship's 8 KV heads), each call cold in L2: kernel, plain
+    version (`plain`), SDPA over pre-gathered K/V of the live positions (bf16
+    pages only; no PyTorch call attends over int8 pages), and the bound. On
+    the timed inputs the kernel is also held against its plain version
+    (max_abs_err, under phase 3's bar)."""
     batch, ctx, table_ctx = DECODE_SHAPES[shape]
     int8 = DECODE_ROWS[row]["int8"]
     q, pages, tables, lens = decode_inputs(gen, torch.bfloat16, batch, [ctx] * batch,
-                                           PAGE, max_ctx=table_ctx, int8=int8)
+                                           PAGE, max_ctx=table_ctx, int8=int8, n_q=n_q)
+    err = check_close(row, f"{row} {shape} n_q={n_q}", run_decode(row, q, pages, tables, lens),
+                      run_decode(row, q, pages, tables, lens, plain=True), torch.bfloat16)
     kernel_ms = time_graph_ms(lambda: run_decode(row, q, pages, tables, lens), cold=True)
     plain_ms = None
     if plain:
@@ -626,12 +647,12 @@ def time_decode(gen, row: str, shape: str, plain: bool = True) -> dict:
     live = int(lens.sum())
     kv_row_bytes = HD * (1 if int8 else 2) + (4 if int8 else 0)  # values (+ scale)
     live_pages = batch * -(-ctx // PAGE)
-    nbytes = 2 * live * N_KV * kv_row_bytes + 2 * batch * N_Q * HD * 2 + live_pages * 4
+    nbytes = 2 * live * N_KV * kv_row_bytes + 2 * batch * n_q * HD * 2 + live_pages * 4
     out = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-               **_bound(nbytes, 4 * live * N_Q * HD), mbytes=nbytes / 1e6)
+               **_bound(nbytes, 4 * live * n_q * HD), mbytes=nbytes / 1e6, max_abs_err=err)
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
     plain_txt = "" if plain_ms is None else f", plain {plain_ms:.4f} ms"
-    log(f"  {row} {shape} page={PAGE}: kernel {kernel_ms:.4f} ms "
+    log(f"  {row} {shape} page={PAGE} n_q={n_q}: kernel {kernel_ms:.4f} ms "
         f"({nbytes / kernel_ms / 1e6:.1f} GB/s){plain_txt}, SDPA {lib}, bound "
         f"{out['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB)")
     return out
@@ -647,7 +668,16 @@ def phase_times(gen) -> tuple:
     # and the serving chunk.
     main["flash_prefill"] = time_prefill(gen, 2048, 2048, 0)
     serving = time_prefill(gen, *PREFILL_SERVING_SHAPE)
-    return main, decode, serving, time_verify(gen)
+    verify = time_verify(gen)
+    # Phase 11's model (Mixtral-8x7B) at its attention shape: 32 query heads
+    # over the same 8 KV heads, a GQA group of 4 (the flagship's is 2).
+    n_q = MIXTRAL["n_q_heads"]
+    log(f"  at the Mixtral attention shape (n_q {n_q}, n_kv {MIXTRAL['n_kv_heads']})")
+    mixtral_shape = {shape: {row: time_decode(gen, row, shape, n_q=n_q)
+                             for row in ("paged_decode", "paged_decode_int8")}
+                     for shape in ("B=8 ctx=2048", "B=1 ctx=1536 table=2048")}
+    mixtral_shape["flash_prefill serving"] = time_prefill(gen, *PREFILL_SERVING_SHAPE, n_q=n_q)
+    return main, decode, serving, verify, mixtral_shape
 
 
 # The prefill call of a prefix-hit request in phase 5: 512 new tokens after
@@ -656,12 +686,17 @@ def phase_times(gen) -> tuple:
 PREFILL_SERVING_SHAPE = (512, 2048, 1024)
 
 
-def time_prefill(gen, l: int, s: int, off: int) -> dict:
+def time_prefill(gen, l: int, s: int, off: int, n_q: int = N_Q) -> dict:
     """Row 5 at L new tokens after `off` cached, S positions of K/V (bf16,
-    flagship heads): kernel, plain version, SDPA (is_causal where off == 0 and
-    L == S, else a lower-right causal bias over the first off + L keys, the
-    same function), and the bound over the keys the mask keeps."""
-    q, k, v = flash_inputs(gen, torch.bfloat16, 1, l, s)
+    n_q query heads over the flagship's 8 KV heads): kernel, plain version,
+    SDPA (is_causal where off == 0 and L == S, else a lower-right causal bias
+    over the first off + L keys, the same function), and the bound over the
+    keys the mask keeps. On the timed inputs the kernel is also held against
+    its plain version."""
+    q, k, v = flash_inputs(gen, torch.bfloat16, 1, l, s, n_q=n_q)
+    err = check_close("flash_prefill", f"flash_prefill L={l} S={s} off={off} n_q={n_q}",
+                      fp.flash_prefill(q, k, v, off), fp.dense_attention(q, k, v, off),
+                      torch.bfloat16)
     kernel_ms = time_graph_ms(lambda: fp.flash_prefill(q, k, v, off))
     plain_ms = time_graph_ms(lambda: fp.dense_attention(q, k, v, off))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -682,12 +717,12 @@ def time_prefill(gen, l: int, s: int, off: int) -> dict:
         else:
             library_ms = time_graph_ms(sdpa)
     keys = min(s, off + l)
-    flops = 4 * causal_pairs(l, s, [off], None) * N_Q * HD
-    nbytes = (2 * l * N_Q * HD + 2 * keys * N_KV * HD) * 2
+    flops = 4 * causal_pairs(l, s, [off], None) * n_q * HD
+    nbytes = (2 * l * n_q * HD + 2 * keys * N_KV * HD) * 2
     out = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, **_bound(nbytes, flops),
-               gflop=flops / 1e9)
+               gflop=flops / 1e9, max_abs_err=err)
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-    log(f"  flash_prefill L={l} S={s} off={off}: kernel {kernel_ms:.4f} ms "
+    log(f"  flash_prefill L={l} S={s} off={off} n_q={n_q}: kernel {kernel_ms:.4f} ms "
         f"({flops / kernel_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, {library_note} "
         f"{lib}, bound {out['bound_ms']:.4f} ms ({flops / 1e9:.2f} GFLOP)")
     return out
@@ -953,7 +988,7 @@ def phase_small_pod_vs_cpu() -> None:
 
 def f32_twin(params, cfg):
     """The same weights in f32, and their config."""
-    cfg32 = llama.LlamaConfig(**{**FLAGSHIP, "dtype": torch.float32})
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     params32 = {k: (v.float() if torch.is_tensor(v) else {n: w.float() for n, w in v.items()})
                 for k, v in params.items()}
     return params32, cfg32
@@ -1304,24 +1339,10 @@ FLAGSHIP_RUNS = (("bf16", False, 1), ("bf16", False, 4), ("int8", True, 4))
 
 def dense_logits(cfg, params, tokens, first: int) -> torch.Tensor:
     """A plain causal forward over one whole sequence, with no cache and no
-    pages (the teacher-forced truth, at f32): logits at positions first.."""
-    l = tokens.shape[0]
-    x = params["embed"][tokens.long()][None]
-    positions = torch.arange(l, device=x.device)[None]
-    for i in range(cfg.n_layers):
-        layer = llama.layer_params(params, i)
-        h = llama.rms_norm(x, layer["attn_norm"], cfg.rms_eps)
-        q_flat, v_flat = llama._qv_proj(h, layer)
-        q = llama._rope(q_flat.reshape(1, l, cfg.n_q_heads, cfg.head_dim), positions,
-                        cfg.rope_theta)
-        k = llama._rope(llama._k_proj(layer, h).reshape(1, l, cfg.n_kv_heads, cfg.head_dim),
-                        positions, cfg.rope_theta)
-        v = v_flat.reshape(1, l, cfg.n_kv_heads, cfg.head_dim)
-        attn = fp.dense_attention(q, k, v, 0)
-        x = x + attn.reshape(1, l, cfg.q_dim) @ layer["wo"]
-        x = x + llama._mlp(layer, llama.rms_norm(x, layer["mlp_norm"], cfg.rms_eps))
-    x = llama.rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return x[0, first:] @ params["out"]
+    pages (the teacher-forced truth, at f32), of either model family
+    (`forward_dense`, the tests' oracle): logits at positions first.."""
+    forward = mixtral.forward_dense if llama.is_moe_config(cfg) else llama.forward_dense
+    return forward(cfg, params, tokens[None])[0, first:]
 
 
 def teacher_forced_bar(params32, cfg32, traffic, requests, delta: float,
@@ -2513,14 +2534,383 @@ def phase_spec_flagship(params, cfg, deltas) -> dict:
     return out
 
 
+# -- phase 11: the MoE family (Mixtral) ---------------------------------------------
+
+# Mixtral-8x7B-v0.1 at its published widths (the HF config.json of
+# mistralai/Mixtral-8x7B-v0.1: hidden 4,096, intermediate 14,336, 32 heads
+# over 8 KV heads of 128, 8 experts, top-2, vocab 32,000, rope_theta 1e6,
+# rms_norm_eps 1e-5, no sliding window), depth cut from 32 layers to 4: the
+# whole model is 46.7 B parameters, 93.4 GB in bf16, more than one card
+# holds; 4 layers are 6.07 B (12.1 GB, and 24.3 GB for the f32 truth).
+MIXTRAL = dict(vocab_size=32000, d_model=4096, n_layers=4, n_q_heads=32, n_kv_heads=8,
+               head_dim=128, d_ff=14336, n_experts=8, top_k=2, rope_theta=1e6, rms_eps=1e-5)
+MOE_MODEL = "mixtral-8x7b-4-layers"
+# Phase 11a's small f32 MoE model: phase 7a's widths with 4 experts, top-2.
+SMALL_MOE = dict(SMALL_MODEL, n_experts=4, top_k=2)
+
+
+def small_moe(device, seed: int = 7):
+    """The small f32 MoE model on `device`, the same seeded weights on every
+    device: (params, config)."""
+    cfg = mixtral.MixtralConfig(**SMALL_MOE, dtype=torch.float32)
+    params = mixtral.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    return to_device(params, device), cfg
+
+
+def small_packed_prefill(pod) -> tuple:
+    """Phase 5's packed prefill at the small model's size: 3 jobs of 20-28
+    new tokens (two on a cached two-page prefix; lengths close enough that
+    the pod packs them, a pad row beside them) in one batched pass: (logits
+    [3, vocab] on the host, flash launches)."""
+    rng = np.random.default_rng(41)
+    vocab = SMALL_MOE["vocab_size"]
+    shared = rng.integers(0, vocab, 2 * PAGE).tolist()
+    state, _ = pod.prefill(shared)
+    pod.free(state)
+    prompts = [shared + rng.integers(0, vocab, 20).tolist(), rng.integers(0, vocab, 24).tolist(),
+               shared + rng.integers(0, vocab, 28).tolist()]
+    jobs = []
+    for prompt in prompts:
+        state, start = pod.begin_prefill(prompt)
+        jobs.append((state, start, len(prompt)))
+    before = fp.launches
+    logits = torch.stack(pod.prefill_chunk_batch(jobs)).float().cpu()
+    n_flash = fp.launches - before
+    for state, _, _ in jobs:
+        pod.finish_prefill(state)
+        pod.free(state)
+    return logits, n_flash
+
+
+def phase_moe_small() -> dict:
+    log("== phase 11a: the MoE family, small f32 pods on the card vs the CPU (4 experts, "
+        "top-2): the Scheduler over 6 mixed requests with a preempting pool at decode_steps 1 "
+        "and 4, packed prefill, a dense 1-layer draft under SpeculativeScheduler")
+    traffic, out = small_traffic(), {}
+    for int8 in (False, True):
+        tag = "int8" if int8 else "f32"
+        runs = {}
+        for device in ("cuda", "cpu"):
+            params, cfg = small_moe(device)
+            draft_params, draft_cfg = small_model(device, seed=8, n_layers=1)
+            for steps in (1, 4):
+                events = []
+                pod = small_pod(device, int8, params, cfg, sink=events.append)
+                r = run_scheduler(pod, traffic, steps, max_batch=4, budget=3 * PAGE)
+                runs[device, steps] = (r["tokens"], event_rows(events), r["preemptions"],
+                                       [q.num_cached_tokens for q in r["requests"]])
+            events = []
+            logits, n_flash = small_packed_prefill(
+                small_pod(device, int8, params, cfg, n_pages=64, sink=events.append))
+            runs[device, "packed"] = (logits, n_flash, event_rows(events))
+            events = []
+            r = run_scheduler(small_pod(device, int8, params, cfg, n_pages=64,
+                                        sink=events.append),
+                              traffic, 1, max_batch=4, budget=3 * PAGE,
+                              scheduler=spec_scheduler(draft_cfg, draft_params, 3))
+            runs[device, "spec"] = (r["tokens"], dataclasses.astuple(r["scheduler"].stats),
+                                    event_rows(events))
+        failures = []
+        for steps in (1, 4):
+            gpu, cpu = runs["cuda", steps], runs["cpu", steps]
+            log(f"  {tag} pages, decode_steps {steps}: tokens equal to the CPU's: "
+                f"{gpu[0] == cpu[0]}; event streams equal: {gpu[1] == cpu[1]} ({len(gpu[1])} "
+                f"events); preemptions {gpu[2]} (CPU {cpu[2]}); cached tokens {gpu[3]}")
+            if gpu != cpu or gpu[2] < 1:
+                failures.append(f"decode_steps {steps}: the card disagrees with the CPU or "
+                                "nothing was preempted")
+        if runs["cuda", 1][0] != runs["cuda", 4][0]:
+            failures.append("decode_steps 1 and 4 differ")
+        (g_logits, g_flash, g_events), (c_logits, _, c_events) = (
+            runs["cuda", "packed"], runs["cpu", "packed"])
+        packed_err = float((g_logits - c_logits).abs().max())
+        log(f"  {tag} pages, packed prefill of 3 jobs: logits vs the CPU's max_abs_diff="
+            f"{packed_err:.3e} (tol 1e-3); flash launches {g_flash}; event streams equal: "
+            f"{g_events == c_events}")
+        if packed_err > 1e-3 or g_events != c_events or g_flash != SMALL_MOE["n_layers"]:
+            failures.append(f"packed prefill: max_abs_diff {packed_err}, {g_flash} launches")
+        spec_gpu, spec_cpu = runs["cuda", "spec"], runs["cpu", "spec"]
+        log(f"  {tag} pages, SpeculativeScheduler (k 3, dense 1-layer draft): tokens, stats "
+            f"{spec_gpu[1]} and events ({len(spec_gpu[2])}) equal to the CPU's: "
+            f"{spec_gpu == spec_cpu}")
+        if spec_gpu != spec_cpu:
+            failures.append("speculative scheduler: the card disagrees with the CPU")
+        if failures:
+            raise AssertionError(f"phase 11a ({tag}): {failures}")
+        out[tag] = dict(events=len(runs["cuda", 1][1]), preemptions=runs["cuda", 1][2],
+                        packed_max_abs_diff=packed_err, spec_stats=spec_gpu[1])
+    return out
+
+
+class RoutingRecorder:
+    """While entered, keeps each MoE layer call's routed expert sets
+    ([tokens, top_k], sorted, on the host), read off the same router product
+    and top-k the dispatch computes (checks only: one read back a layer)."""
+
+    def __enter__(self):
+        self.calls = []
+        self._real = mixtral._moe_mlp_dense
+
+        def recorded(config, layer, x):
+            logits = (x.reshape(-1, x.shape[-1]) @ layer["router"]).float()
+            self.calls.append(mixtral.top_k(logits, config.top_k)[1].sort(-1).values.cpu())
+            return self._real(config, layer, x)
+        mixtral._moe_mlp_dense = recorded
+        return self
+
+    def __exit__(self, *exc):
+        mixtral._moe_mlp_dense = self._real
+
+    def flips(self) -> dict:
+        """The calls as three runs of one computation (the f32 truth, the
+        kernel path, the plain path, the order of phases 5c's and 6's
+        checks): the (token, layer) rows whose routed set differs, plain path
+        against the truth and kernel path against the plain path."""
+        per = len(self.calls) // 3
+        truth, kernel, plain = (self.calls[i * per:(i + 1) * per] for i in range(3))
+
+        def count(a, b):
+            return sum(int((x != y).any(-1).sum()) for x, y in zip(a, b))
+        return dict(flips_plain_vs_truth=count(plain, truth),
+                    flips_kernel_vs_plain=count(kernel, plain),
+                    routed_rows=sum(x.shape[0] for x in truth))
+
+
+def moe_logits_checks(params, cfg, params32, cfg32) -> dict:
+    """Phase 5c's prefill-logits check and phase 6's batch-8 decode-logits
+    check of every (page format, decode kernel) pair on the Mixtral model,
+    each with its routing flips."""
+    out = {}
+    with RoutingRecorder() as rec:
+        out["prefill"] = dict(prefill_logits_check(params, cfg, params32, cfg32), **rec.flips())
+    for int8 in (False, True):
+        for pipelined in (True, False):
+            with RoutingRecorder() as rec:
+                r = batched_decode_check(params, cfg, params32, cfg32, int8, pipelined)
+            del r["cache"], r["inputs"]
+            out[r["row"]] = dict(r, **rec.flips())
+    torch.cuda.empty_cache()
+    for name, r in out.items():
+        log(f"  {name}: routing flips, plain vs truth {r['flips_plain_vs_truth']}, kernel vs "
+            f"plain {r['flips_kernel_vs_plain']} of {r['routed_rows']} (token, layer) rows")
+    return out
+
+
+def moe_traffic(vocab: int, seed: int) -> tuple:
+    """Phase 11b's 8 requests, submitted at once: 1,024 shared + 512 unique
+    tokens (ids below `vocab`), 32 new each; the odd ones sampled as phase
+    7b's (temperature 0.8, top_k 50, top_p 0.95, seed i). Returns (traffic,
+    the shared prefix)."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, 1024).tolist()
+    traffic = [dict(prompt_tokens=prefix + rng.integers(0, vocab, 512).tolist(),
+                    max_new_tokens=32,
+                    sampling=SamplingParams(0.8, 50, 0.95, seed=i) if i % 2 else None)
+               for i in range(8)]
+    return traffic, prefix
+
+
+MOE_TRAFFIC_SEEDS = {"bf16": 87, "int8": 89}  # a prefix of its own for each pod
+
+
+def moe_indexer() -> tuple:
+    index = InMemoryIndex()
+    return index, Indexer(TokenProcessorConfig(block_size=PAGE), kv_block_index=index)
+
+
+def moe_run(params, cfg, int8: bool, index_parts=None):
+    """Phase 11b's traffic through the Scheduler on a fresh Mixtral pod
+    (2,048 pages of 16) whose events `index_parts` (an index and its
+    indexer) digest: (result of run_scheduler, traffic, prefix, pod, counted
+    calls, launches)."""
+    fmt = "int8" if int8 else "bf16"
+    pod_id = f"pod-moe-{fmt}"
+    index, indexer = index_parts or moe_indexer()
+    pod = EnginePod(
+        EnginePodConfig(pod_id=pod_id, model_name=MOE_MODEL, n_pages=2048, page_size=PAGE,
+                        device_tier="gpu", max_pages_per_seq=256, model_config=cfg,
+                        device="cuda", use_quantized_kv=int8),
+        event_sink=lambda b: digest_batch(index, indexer.token_processor, pod_id, MOE_MODEL, b),
+        params=params)
+    traffic, prefix = moe_traffic(cfg.vocab_size, MOE_TRAFFIC_SEEDS[fmt])
+    reset_launch_counts()
+    with CallCounter() as counter:
+        r = run_scheduler(pod, traffic, 1, max_batch=8, budget=512)
+    return r, traffic, prefix, pod, counter, launch_counts()
+
+
+def moe_step_bytes(cfg, batch: int, ctx: int, int8: bool) -> int:
+    """Bytes a MoE decode step must move at least: every weight once (at
+    batch 8 a layer's 16 picks reach nearly every expert, and the dense
+    dispatch reads them all), the batch's embedding rows, and each
+    sequence's K/V once."""
+    c = cfg
+    per_layer = (2 * c.d_model * c.q_dim + 2 * c.d_model * c.kv_dim + 2 * c.d_model
+                 + c.d_model * c.n_experts + 3 * c.n_experts * c.d_model * c.d_ff)
+    weights = (c.n_layers * per_layer + c.d_model + c.d_model * c.vocab_size) * 2
+    kv_row = c.head_dim + 4 if int8 else 2 * c.head_dim
+    return weights + batch * c.d_model * 2 + 2 * c.n_layers * batch * ctx * c.n_kv_heads * kv_row
+
+
+def greedy_agreement(params, cfg, params32, cfg32, traffic, requests, int8: bool) -> dict:
+    """How often a greedy token is the f32 truth's argmax at its position:
+    the served run's tokens, and on the same sequences the bf16 plain path
+    (`prefill_cache(plain=True, all_logits=True)` on a fresh cache of the
+    pod's page format). A routing flip moves a bf16 row's logits by a whole
+    expert, so the teacher-forced bar's delta, read where flips land, is
+    wide; this reads how often the served path strays, against how often the
+    plain path does: the served disagreement may be at most twice the plain
+    path's plus 0.05 (the form of phases 5c's and 6's bars)."""
+    agree = dict(served=0, plain=0, tokens=0)
+    dev = params["embed"].device
+    make = llama.make_kv_pages_quantized if int8 else llama.make_kv_pages
+    for spec, req in zip(traffic, requests):
+        if spec["sampling"] is not None:
+            continue
+        prompt, gen = spec["prompt_tokens"], req.generated
+        seq = torch.tensor(prompt + gen, dtype=torch.int32, device=dev)
+        rows = slice(len(prompt) - 1, len(prompt) - 1 + len(gen))
+        truth = dense_logits(cfg32, params32, seq, 0)[rows].argmax(-1)
+        n_pages = -(-len(seq) // PAGE)
+        cache = make(cfg, n_pages, PAGE, dev)
+        _, plain = llama.prefill_cache(cfg, params, cache, seq,
+                                       torch.arange(n_pages, dtype=torch.int32, device=dev), 0,
+                                       plain=True, all_logits=True)
+        agree["served"] += int((torch.tensor(gen, device=dev) == truth).sum())
+        agree["plain"] += int((plain[rows].argmax(-1) == truth).sum())
+        agree["tokens"] += len(gen)
+        del cache
+    n = agree["tokens"]
+    d_served, d_plain = 1 - agree["served"] / n, 1 - agree["plain"] / n
+    limit = 2 * d_plain + 0.05
+    return dict(ok=d_served <= limit, disagree_served=d_served, disagree_plain=d_plain,
+                limit=limit, tokens=n)
+
+
+def moe_check(params, cfg, params32, cfg32, int8: bool, delta: float, index_parts) -> dict:
+    """Phase 11b on one pod: the run, its checks, the teacher-forced bar,
+    and the profiles of one decode tick and one prefill chunk."""
+    fmt = "int8" if int8 else "bf16"
+    r, traffic, prefix, pod, counter, launches = moe_run(params, cfg, int8, index_parts)
+    failures, gen = [], r["tokens"]
+    for i, out in enumerate(gen):
+        if len(out) != 32 or not all(0 <= t < cfg.vocab_size for t in out):
+            failures.append(f"request {i}: {len(out)} tokens or one out of vocabulary")
+    cached = [q.num_cached_tokens for q in r["requests"]]
+    if cached != [0] + [1024] * 7:
+        failures.append(f"cached tokens {cached}")
+    passes = counter.layer_passes()
+    if launches != counter.kernels or not passes["decode"] or not passes["prefill"]:
+        failures.append(f"launches {launches}, expected {counter.kernels}")
+    bar = teacher_forced_bar(params32, cfg32, traffic, r["requests"], delta)
+    if not bar["ok"]:
+        failures.append(f"teacher-forced bar: {bar}")
+    agree = greedy_agreement(params, cfg, params32, cfg32, traffic, r["requests"], int8)
+    if not agree["ok"]:
+        failures.append(f"greedy agreement with the truth: {agree}")
+    n_tokens = sum(len(g) for g in gen)
+    ticks_ms = [t * 1e3 for t in r["tick_s"]]
+    log(f"  {fmt} ({card_line()}): {len(ticks_ms)} ticks, {n_tokens} tokens in "
+        f"{r['wall_s']:.3f} s ({n_tokens / r['wall_s']:.1f} tokens/s); tick wall ms "
+        f"min/median/max {min(ticks_ms):.2f}/{statistics.median(ticks_ms):.2f}/"
+        f"{max(ticks_ms):.2f}")
+    log(f"    tick wall ms: {' '.join(f'{t:.1f}' for t in ticks_ms)}")
+    log(f"    submit to first token, ms: "
+        f"{' '.join(f'{t * 1e3:.1f}' for t in r['first_token_s'])}")
+    log(f"    cached {cached}; layer passes {passes}; launches {launches} (expected "
+        f"{counter.kernels})")
+    log(f"    teacher-forced bar: greedy worst {bar['worst']['greedy']:.4f}, sampled worst "
+        f"{bar['worst']['sampled']:.4f} (delta {delta:.4f}; {bar['tokens_checked']} tokens) "
+        f"{'ok' if bar['ok'] else 'FAIL'}")
+    log(f"    greedy tokens off the truth's argmax: served {agree['disagree_served']:.4f}, plain "
+        f"path {agree['disagree_plain']:.4f} (limit {agree['limit']:.4f}; {agree['tokens']} "
+        f"tokens) {'ok' if agree['ok'] else 'FAIL'}")
+    out = dict(ok=not failures, failures=failures, tokens=n_tokens, wall_s=r["wall_s"],
+               tokens_per_s=n_tokens / r["wall_s"], ticks=len(ticks_ms), tick_ms=ticks_ms,
+               first_token_ms=[t * 1e3 for t in r["first_token_s"]], cached=cached,
+               launches=launches, layer_passes=passes, bar=bar, agreement=agree, prefix=prefix)
+    if not failures:
+        name, args, kwargs = counter.decode_call
+        batch = args[3].shape[0]
+        tick = decode_tick(name, args, kwargs, traffic)
+        tick()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tick()
+        extra_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+        prof = profile_device_share(f"MoE decode tick ({fmt}, batch {batch}, sampled rows)", tick)
+        ctx = int(args[5].max()) + 1
+        bound = moe_step_bytes(cfg, batch, ctx, int8) / PEAK_BYTES_PER_S * 1e3
+        out["tick_profile"] = dict(prof, bound_ms=bound, peak_extra_mb=extra_mb)
+        log(f"    decode tick bound {bound:.3f} ms (every weight once, {ctx} positions of K/V); "
+            f"allocated above the resident set during a tick: {extra_mb:.1f} MB (one copied "
+            f"expert tensor of a layer would be "
+            f"{cfg.n_experts * cfg.d_model * cfg.d_ff * 2 / 1e6:.0f} MB)")
+        chunk = counter.first_call.get(("prefill_cache", (512,)))
+        if chunk is not None:
+            out["prefill_profile"] = profile_device_share(
+                f"MoE prefill chunk of 512 tokens ({fmt}, start {chunk[0][5]})",
+                lambda: llama.prefill_cache(*chunk[0], **chunk[1]))
+    del pod, counter
+    torch.cuda.empty_cache()
+    return out
+
+
+def mixtral_model() -> tuple:
+    """(config, params) of phase 11b's model, seeded init on the card."""
+    cfg = mixtral.MixtralConfig(**MIXTRAL)
+    return cfg, mixtral.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+
+
+def phase_moe_flagship() -> dict:
+    log("== phase 11b: Mixtral-8x7B widths at 4 layers (bf16, seeded weights) through the "
+        "Scheduler, bf16 and int8 pages: 8 requests of 1,024 shared + 512 unique tokens, 32 "
+        "new, 4 sampled")
+    cfg, params = mixtral_model()
+    n_params = sum(w.numel() for w in params["layers"].values()) + sum(
+        params[k].numel() for k in ("embed", "final_norm", "out"))
+    log(f"  Mixtral params at {cfg.n_layers} layers: {n_params / 1e9:.3f} B "
+        f"({n_params * 2 / 1e9:.2f} GB bf16)")
+    params32, cfg32 = f32_twin(params, cfg)
+    out = dict(n_params=n_params, logits=moe_logits_checks(params, cfg, params32, cfg32))
+    for name, r in out["logits"].items():
+        if not r["ok"]:
+            raise AssertionError(f"phase 11b ({name} logits) fails its bar: {r}")
+    index_parts = moe_indexer()
+    for fmt, int8 in (("bf16", False), ("int8", True)):
+        delta, e = teacher_forced_delta(params, cfg, params32, cfg32, int8)
+        log(f"  {fmt} pages: bf16 plain path vs f32 truth {e:.4f}; delta {delta:.4f}")
+        r = moe_check(params, cfg, params32, cfg32, int8, delta, index_parts)
+        out[fmt] = dict(r, plain_err=e, delta=delta)
+        if not r["ok"]:
+            raise AssertionError(f"phase 11b ({fmt}): {r['failures']}")
+    # The index ranks each pod first for a prompt on its own prefix.
+    scores = {}
+    for fmt in ("bf16", "int8"):
+        probe = out[fmt].pop("prefix") + np.random.default_rng(5).integers(
+            0, cfg.vocab_size, 256).tolist()
+        scores[fmt] = index_parts[1].get_pod_scores(probe, MOE_MODEL, [])
+        best = max(scores[fmt], key=scores[fmt].get)
+        log(f"  index scores for the {fmt} pod's prefix: {scores[fmt]}")
+        if best != f"pod-moe-{fmt}" or scores[fmt][best] != 1024 // PAGE:
+            raise AssertionError(f"phase 11b: the {fmt} prefix ranks {best} first: {scores}")
+    out["scores"] = scores
+    out["launches"] = {name: out["bf16"]["launches"][name] + out["int8"]["launches"][name]
+                       for name in KERNELS}
+    del params, params32
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=None,
                         help="comma-separated phases to run after the build (3 4 5 5b 5c 6 7a "
-                        "7b 8a 8 9a 9b 10a 10b; 9b and 10b run 7b's deltas first); a partial "
-                        "run prints no kernels or ok line")
+                        "7b 8a 8 9a 9b 10a 10b 11a 11b; 9b and 10b run 7b's deltas first); a "
+                        "partial run prints no kernels or ok line")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2550,7 +2940,7 @@ def main(argv=None) -> int:
     if args.phases is not None:
         return partial_run(args.phases.split(","), gen, cfg)
     errs = phase_kernel_checks(gen)
-    times, decode_times, prefill_serving, verify_time = phase_times(gen)
+    times, decode_times, prefill_serving, verify_time, mixtral_times = phase_times(gen)
 
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     n_params = sum(w.numel() for w in params["layers"].values()) + sum(
@@ -2570,21 +2960,28 @@ def main(argv=None) -> int:
     lora_flagship = phase_lora_flagship(params, cfg, deltas)
     spec_small = phase_spec_small()
     spec = phase_spec_flagship(params, cfg, deltas)
+    del params  # phase 11b holds 36 GB of Mixtral weights and their f32 twin
+    torch.cuda.empty_cache()
+    moe_small = phase_moe_small()
+    moe = phase_moe_flagship()
 
     # Rows 1, 2 and 5 are counted on the serving path (phase 5), on the
     # scheduler's path (phase 7b's recorded runs, summed), on the host
-    # tier's (phase 8b-8d), on multi-LoRA's (phase 9b) and on speculative
-    # decoding's (phase 10b's scheduler runs); rows 3 and 4 (the tiled
-    # decode entry) on phase 6's tiled decode steps.
+    # tier's (phase 8b-8d), on multi-LoRA's (phase 9b), on speculative
+    # decoding's (phase 10b's scheduler runs) and on the MoE family's
+    # (phase 11b's scheduler runs); rows 3 and 4 (the tiled decode entry) on
+    # phase 6's and phase 11b's tiled decode steps.
     runs = [sched[f"{fmt} steps{steps}"] for fmt, _, steps in FLAGSHIP_RUNS]
     by_path = {name: {"serving": serving["launches"][name],
                       "scheduler": sum(r["launches"][name] for r in runs),
                       "host_tier": tier["launches"][name],
                       "lora": lora_flagship["launches"][name],
-                      "speculative": spec["launches"][name]}
+                      "speculative": spec["launches"][name],
+                      "moe": moe["launches"][name]}
                for name in ("paged_decode", "paged_decode_int8", "flash_prefill")}
     for row in ("paged_decode_tiled", "paged_decode_tiled_int8"):
-        by_path[row] = {"batched_decode": batched["checks"][row]["launches"]}
+        by_path[row] = {"batched_decode": batched["checks"][row]["launches"],
+                        "moe_batched_decode": moe["logits"][row]["launches"]}
     kernels = [
         dict(
             name=name, route="cuda",
@@ -2604,6 +3001,7 @@ def main(argv=None) -> int:
                     "host_tier_small": tier_small, "host_tier": tier,
                     "lora_small": lora_small, "lora": lora_flagship,
                     "speculative_small": spec_small, "speculative": spec,
+                    "mixtral_attention_shape": mixtral_times, "moe_small": moe_small, "moe": moe,
                     "build_s": build_s, "run_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2622,7 +3020,7 @@ def partial_run(phases, gen, cfg) -> int:
     if "4" in phases:
         out["times"] = phase_times(gen)
     params = None
-    if any(p not in ("3", "4", "5b", "7a", "8a", "9a", "10a") for p in phases):
+    if any(p not in ("3", "4", "5b", "7a", "8a", "9a", "10a", "11a", "11b") for p in phases):
         params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     steps = {
         "5": lambda: phase_serving(params, cfg), "5b": phase_small_pod_vs_cpu,
@@ -2630,7 +3028,7 @@ def partial_run(phases, gen, cfg) -> int:
         "6": lambda: phase_batched_decode(params, cfg), "7a": phase_scheduler_small,
         "7b": lambda: phase_scheduler_flagship(params, cfg), "8a": phase_host_tier_small,
         "8": lambda: phase_host_tier_flagship(params, cfg), "9a": phase_lora_small,
-        "10a": phase_spec_small,
+        "10a": phase_spec_small, "11a": phase_moe_small,
     }
     for phase in phases:
         if phase in steps:
@@ -2646,6 +3044,10 @@ def partial_run(phases, gen, cfg) -> int:
             out["9b"] = phase_lora_flagship(params, cfg, deltas)
         if "10b" in phases:
             out["10b"] = phase_spec_flagship(params, cfg, deltas)
+    if "11b" in phases:
+        del params
+        torch.cuda.empty_cache()
+        out["11b"] = phase_moe_flagship()
     log(json.dumps(out, default=str))
     log(f"partial run of phases {phases}: {time.perf_counter() - t_start:.1f} s")
     return 0

@@ -43,8 +43,9 @@ MEASURED_RATES = {
 
 def flops_per_token(model_config) -> float:
     """~2 FLOPs per parameter touched per token: attention projections +
-    gated MLP. The LM head is left out: this prices recomputing cached
-    prefix blocks, whose tokens never produce logits."""
+    gated MLP (a MoE model's top_k experts and its router). The LM head is
+    left out: this prices recomputing cached prefix blocks, whose tokens
+    never produce logits."""
     c = model_config
     attn = (
         c.d_model * c.n_q_heads * c.head_dim  # wq
@@ -52,6 +53,10 @@ def flops_per_token(model_config) -> float:
         + c.n_q_heads * c.head_dim * c.d_model  # wo
     )
     mlp = 3 * c.d_model * c.d_ff  # gate, up, down
+    # The MoE family (models/mixtral.py) activates top_k experts per token.
+    n_experts_active = getattr(c, "top_k", None)
+    if getattr(c, "n_experts", 0) and n_experts_active:
+        mlp = n_experts_active * mlp + c.d_model * c.n_experts  # + router
     return 2.0 * c.n_layers * (attn + mlp)
 
 

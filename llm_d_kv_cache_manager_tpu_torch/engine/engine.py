@@ -234,7 +234,7 @@ class EnginePodConfig:
     hash_seed: str = ""
     device_tier: Optional[str] = None  # events' Medium; port pods use "gpu"
     max_pages_per_seq: int = 32
-    model_config: Optional[llama.LlamaConfig] = None
+    model_config: Optional[llama.LlamaConfig] = None  # or a mixtral.MixtralConfig
     device: str = "cuda"
     # int8 KV pages: half the device memory per cached token, so twice the
     # prefixes a pod keeps resident (ops/quantized_kv.py).
@@ -339,9 +339,22 @@ class EnginePod:
             chain_planner=store.plan_restore if store else None,
             chain_loader=store.load_chain if store else None,
         )
+        # Both model families serve through llama.py's paged ops (the MLP
+        # dispatches on the layer dict): a config carrying n_experts is the
+        # MoE family (models/mixtral.py).
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
-            params = llama.init_params(mc, gen, self.device)
+            if llama.is_moe_config(mc):
+                from llm_d_kv_cache_manager_tpu_torch.models import mixtral
+
+                params = mixtral.init_params(mc, gen, self.device)
+            else:
+                params = llama.init_params(mc, gen, self.device)
+        if llama.is_moe_config(mc) != ("router" in params["layers"]):
+            raise ValueError(
+                "model_config family does not match params structure "
+                "(MoE config needs router/expert params and vice versa)"
+            )
         self.params = params
         # One sacrificial page beyond the block manager's pool: packed
         # prefill and multi-step decode steer pad rows and over-budget rows

@@ -24,6 +24,10 @@ The cache is either a (k, v) pair of pools in the model dtype or an int8
 (k_q, k_scale, v_q, v_scale) quadruple (`ops/quantized_kv.py`); the helpers
 dispatch on the tuple's length. Every path updates the pools IN PLACE (the
 reference returns new arrays).
+Both model families serve through these paths: the MLP dispatches on the
+layer dict (`_mlp_dispatch`), dense SwiGLU or the MoE mixture of
+`models/mixtral.py`. `forward_dense` is the dense family's cacheless
+forward, the oracle of the serving tests.
 Weights keep the reference's `[in, out]` layout (`x @ W`), stacked on a
 leading layer axis, so `params_from_jax` carries a JAX parameter tree across
 without transposes. On CUDA tensors every attention call runs a
@@ -177,6 +181,30 @@ def _mlp(layer: Dict, x: torch.Tensor) -> torch.Tensor:
     return (gate * (x @ layer["w_up"])) @ layer["w_down"]
 
 
+def is_moe_config(config) -> bool:
+    """The family predicate: a config carrying n_experts is the MoE family
+    (models/mixtral.py), whose layers carry a "router" (the key
+    `_mlp_dispatch` reads); the pod checks that the two agree."""
+    return getattr(config, "n_experts", None) is not None
+
+
+def _mlp_dispatch(config, layer: Dict, x: torch.Tensor) -> torch.Tensor:
+    """The MLP of the serving paths for both families: a layer dict carrying
+    a "router" key is a MoE layer and routes through the mixture, any other
+    is dense SwiGLU; `config` is the family's own config.
+
+    Serving always routes dropless (`capacity_factor` is ignored): the
+    static-capacity dispatch makes tokens contend for expert slots with
+    whatever shares the call, so a token's output would depend on the
+    co-batched traffic and the bucket padding, and paged serving would no
+    longer equal the dense forward."""
+    if "router" in layer:
+        from llm_d_kv_cache_manager_tpu_torch.models import mixtral
+
+        return mixtral._moe_mlp_dense(config, layer, x)
+    return _mlp(layer, x)
+
+
 def _qv_proj(h: torch.Tensor, layer: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     """q/v projections with the optional Qwen2-family bias."""
     q_flat = h @ layer["wq"]
@@ -220,6 +248,29 @@ def _k_proj(layer: Dict, h: torch.Tensor) -> torch.Tensor:
     """K projection with the optional Qwen2-family bias."""
     k = h @ layer["wk"]
     return k + layer["bk"] if "bk" in layer else k
+
+
+@torch.no_grad()
+def forward_dense(config: LlamaConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """Plain causal forward over whole sequences (no cache; inference only):
+    the serving tests' oracle. tokens: [B, L] -> logits [B, L, vocab]."""
+    c = config
+    b, l = tokens.shape
+    x = params["embed"][tokens.long()]
+    positions = torch.arange(l, device=x.device).expand(b, l)
+    for i in range(c.n_layers):
+        layer = layer_params(params, i)
+        h = rms_norm(x, layer["attn_norm"], c.rms_eps)
+        q_flat, v_flat = _qv_proj(h, layer)
+        q = _rope(q_flat.reshape(b, l, c.n_q_heads, c.head_dim), positions, c.rope_theta)
+        k = _rope(_k_proj(layer, h).reshape(b, l, c.n_kv_heads, c.head_dim), positions,
+                  c.rope_theta)
+        v = v_flat.reshape(b, l, c.n_kv_heads, c.head_dim)
+        attn = dense_attention(q, k, v, 0, window=c.sliding_window)
+        x = x + attn.reshape(b, l, c.q_dim) @ layer["wo"]
+        x = x + _mlp(layer, rms_norm(x, layer["mlp_norm"], c.rms_eps))
+    x = rms_norm(x, params["final_norm"], c.rms_eps)
+    return x @ params["out"]
 
 
 # ---------------------------------------------------------------------------
@@ -383,7 +434,7 @@ def prefill_cache(
                                   plain=plain)
         x = x + attn.reshape(1, l, c.q_dim) @ layer["wo"]
         h = rms_norm(x, layer["mlp_norm"], c.rms_eps)
-        x = x + _mlp(layer, h)
+        x = x + _mlp_dispatch(c, layer, h)
 
     x = rms_norm(x, params["final_norm"], c.rms_eps)
     if all_logits:
@@ -437,7 +488,7 @@ def _decode_once(
         )
         x = x + attn.reshape(b, 1, c.q_dim) @ layer["wo"]
         h = rms_norm(x, layer["mlp_norm"], c.rms_eps)
-        x = x + _mlp(layer, h)
+        x = x + _mlp_dispatch(c, layer, h)
 
     x = rms_norm(x, params["final_norm"], c.rms_eps)
     return kv_cache, x[:, 0] @ params["out"]
@@ -582,7 +633,7 @@ def verify_step_cache(
         attn = _serving_attention(q, k_all, v_all, starts, window=c.sliding_window)
         x = x + attn.reshape(b, s, c.q_dim) @ layer["wo"]
         h = rms_norm(x, layer["mlp_norm"], c.rms_eps)
-        x = x + _mlp(layer, h)
+        x = x + _mlp_dispatch(c, layer, h)
 
     x = rms_norm(x, params["final_norm"], c.rms_eps)
     return kv_cache, x @ params["out"]  # [B, S, vocab]

@@ -265,3 +265,58 @@ def test_default_device_lora_and_speculation_raise_without_gpu():
     spec = SpeculativeScheduler(EnginePod(EnginePodConfig(model_config=cfg, device="cpu")),
                                 cfg, params)
     assert spec._draft_cache[0].device.type == "cpu"
+
+
+@pytest.mark.parametrize("module", ["models.mixtral", "models.hf_loader"])
+def test_moe_and_hf_loader_modules_are_checked(module):
+    """The MoE family and the HF bridge are among the modules the import
+    checks above load and parse."""
+    path = PORT / (module.replace(".", "/") + ".py")
+    assert path in _port_files()
+    assert "import torch" in path.read_text()
+
+
+def test_port_imports_without_transformers():
+    """The card's machine has no transformers: every port module imports
+    with it blocked (hf_loader imports it inside load_hf_llama only)."""
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py")
+    )
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['transformers'] = None\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "print('OK')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0 and "OK" in proc.stdout, proc.stdout + proc.stderr
+
+
+def test_default_device_moe_entry_points_raise_without_gpu():
+    """A MoE pod, mixtral.init_params and the HF loader default to the card
+    and raise without one; asked for by name, the CPU serves them."""
+    from llm_d_kv_cache_manager_tpu_torch.engine.engine import EnginePod, EnginePodConfig
+    from llm_d_kv_cache_manager_tpu_torch.models import hf_loader, mixtral
+
+    cfg = mixtral.MixtralConfig(vocab_size=64, d_model=32, n_layers=1, n_q_heads=2,
+                                n_kv_heads=1, head_dim=16, d_ff=64, n_experts=4,
+                                dtype=torch.float32)
+    params = mixtral.init_params(cfg, torch.Generator(), "cpu")
+    state_dict = {"model.embed_tokens.weight": params["embed"]}
+    calls = [
+        lambda: EnginePod(EnginePodConfig(model_config=cfg)),
+        lambda: mixtral.init_params(cfg, torch.Generator()),
+        lambda: hf_loader.mixtral_params_from_hf(state_dict, cfg),
+        lambda: hf_loader.params_from_hf(state_dict, cfg),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    pod = EnginePod(EnginePodConfig(model_config=cfg, device="cpu"))
+    assert pod.params["layers"]["router"].device.type == "cpu"
