@@ -114,6 +114,34 @@ Phases, in order (any failure raises and the script exits non-zero):
      truth's argmax at most twice as often as the plain bf16 path's plus
      0.05 (routing flips widen the bar's delta); tokens/s, tick walls, and one
      decode tick's and one prefill chunk's device profile are logged;
+  12a. the control plane at a fleet's size, host only: 16 simulated pods of
+     28,672 blocks of 16 (64 shared 64-block prefixes, each held by 4 pods,
+     and unique tails; 10% of each pod's blocks then removed), made from
+     --seed, as msgpack bytes from the port's own codec through the
+     EventPool's 4 workers into IndexConfig.default()'s ShardedIndex; the
+     index must hold exactly the (key, pod) pairs of a plain replay, 1,024
+     prompt chains scored by score_many (word prompts through the
+     tokenization pool, its prefix-store shortcut off; each must derive its
+     whole chain, none shed) and one
+     by one by score_hashes must equal the plain longest prefix, nothing
+     dropped or lost; digestion rate, drain and read-path times are logged;
+     a run past 60 s is made again at the pod count its time scales to,
+     and the cut is printed;
+  12b. four bf16 flagship pods (640 pages each, one set of weights) whose
+     event sinks pack their batches into one EventPool, routed by the full
+     Indexer (a word-level Tokenizer through the `tokenizer=` seam, the LRU
+     prefix store, the chain memo): 8 waves of 8 requests (8 system prompts
+     of 1,024 tokens, each request one of them and a 256-token turn of its
+     own, 16 greedy tokens) through each pod's Scheduler, once routed to the
+     top get_pod_scores pod (ties round robin) and once round robin on fresh
+     pods, each pod's share of a wave served batched (max_batch 8) and then,
+     on fresh pods, each request alone; after every wave each pod's indexed
+     blocks equal its committed pages and each precise request's cached
+     tokens equal 16 x the index's match_blocks for its pod; served alone,
+     every request's greedy tokens equal those of a pod that never evicts;
+     batched, they pass phase 7b's teacher-forced bar; the batched runs' hit
+     rates and TTFTs, drain and read-path times are logged. Neither phase imports zmq, msgpack, xxhash or tokenizers:
+     the ZMQ hop is checked in tier-1 (tests/test_torch_zmq.py);
   then a JSON line of details, one JSON line describing every kernel, and
   last: {"ok": true, "device": {...}}.
 """
@@ -121,6 +149,7 @@ Phases, in order (any failure raises and the script exits non-zero):
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import re
 import statistics
@@ -147,15 +176,26 @@ from llm_d_kv_cache_manager_tpu_torch.engine.speculative import (
     SpeculativeScheduler,
 )
 from llm_d_kv_cache_manager_tpu_torch.engine.tiering import IndexBackedPeerResolver
-from llm_d_kv_cache_manager_tpu_torch.kvcache.indexer import Indexer
+from llm_d_kv_cache_manager_tpu_torch.kvcache.indexer import (
+    Indexer,
+    IndexerConfig,
+    ScoreRequest,
+)
+from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock import hashing
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.in_memory import InMemoryIndex
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.key import PodEntry
+from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.sharded import ShardedIndex
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.token_processor import (
     ChunkedTokenDatabase,
     TokenProcessorConfig,
 )
 from llm_d_kv_cache_manager_tpu_torch.kvevents.digest import digest_batch
-from llm_d_kv_cache_manager_tpu_torch.kvevents.events import BlockRemoved, BlockStored
+from llm_d_kv_cache_manager_tpu_torch.kvevents.events import (
+    BlockRemoved,
+    BlockStored,
+    EventBatch,
+)
+from llm_d_kv_cache_manager_tpu_torch.kvevents.pool import EventPool, EventPoolConfig, Message
 from llm_d_kv_cache_manager_tpu_torch.models import llama, lora, mixtral
 from llm_d_kv_cache_manager_tpu_torch.ops import _build
 from llm_d_kv_cache_manager_tpu_torch.ops import flash_prefill as fp
@@ -167,6 +207,14 @@ from llm_d_kv_cache_manager_tpu_torch.ops.sampling import (
     position_keys,
     prng_key,
     sample_tokens,
+)
+from llm_d_kv_cache_manager_tpu_torch.tokenization.pool import (
+    TokenizationPool,
+    TokenizersPoolConfig,
+)
+from llm_d_kv_cache_manager_tpu_torch.tokenization.tokenizer import (
+    TokenizationResult,
+    Tokenizer,
 )
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
@@ -780,13 +828,29 @@ def event_rows(batches) -> list:
     ]
 
 
+def token_indexer(index) -> Indexer:
+    """An Indexer over `index` for prompts given as token IDs (phases 5-11):
+    `chain_scores` scores them through its `score_hashes`."""
+    return Indexer(
+        IndexerConfig(token_processor_config=TokenProcessorConfig(block_size=PAGE)),
+        kv_block_index=index,
+    )
+
+
+def chain_scores(indexer, tokens, model: str, pods=(), lora_id=None) -> dict:
+    """The index's pod scores for a token-ID prompt: the lookup and scoring
+    stages of the read path (`Indexer.score_hashes`) over the prompt's
+    block chain."""
+    keys = indexer.token_processor.tokens_to_kv_block_keys(None, tokens, model, lora_id=lora_id)
+    return indexer.score_hashes(model, [k.chunk_hash for k in keys], pods).scores
+
+
 def phase_serving(params, cfg) -> dict:
     log("== phase 5: serving two bf16 flagship pods (4096 pages of 16 each) and "
         "one int8-KV pod (8192 pages of 16)")
     model = "llama-flagship-1.14b"
     index = InMemoryIndex()
-    tp_cfg = TokenProcessorConfig(block_size=PAGE)
-    indexer = Indexer(tp_cfg, kv_block_index=index)
+    indexer = token_indexer(index)
 
     def sink_for(pod_id):
         return lambda batch: digest_batch(
@@ -853,7 +917,7 @@ def phase_serving(params, cfg) -> dict:
 
     for pid in pods:
         probe = prefixes[pid] + rng.integers(0, cfg.vocab_size, 256).tolist()
-        scores = indexer.get_pod_scores(probe, model, list(pods))
+        scores = chain_scores(indexer, probe, model, list(pods))
         best = max(scores, key=scores.get) if scores else None
         log(f"  scores for a {pid}-prefix prompt: {scores}")
         if best != pid:
@@ -1385,7 +1449,7 @@ def flagship_run(params, cfg, int8: bool, decode_steps: int, eos_token, model: s
     """One phase 7b run on a fresh pod: (result of run_scheduler, traffic,
     prefix, indexer, pod, counted layer passes, launches)."""
     index = InMemoryIndex()
-    indexer = Indexer(TokenProcessorConfig(block_size=PAGE), kv_block_index=index)
+    indexer = token_indexer(index)
     pod_id = "pod-sched-" + ("int8" if int8 else "bf16")
     pod = EnginePod(
         EnginePodConfig(pod_id=pod_id, model_name=model, n_pages=8192 if int8 else 4096,
@@ -1435,7 +1499,7 @@ def flagship_scheduler_check(params, cfg, params32, cfg32, int8: bool, decode_st
     if cached[0] != 0 or any(c != 1024 for c in cached[1:]):
         failures.append(f"prefix group cached tokens {cached}")
     probe_prompt = prefix + np.random.default_rng(5).integers(0, cfg.vocab_size, 256).tolist()
-    scores = indexer.get_pod_scores(probe_prompt, model, [])
+    scores = chain_scores(indexer, probe_prompt, model)
     if scores.get(pod.config.pod_id) != 1024 // PAGE:
         failures.append(f"index scores for the prefix: {scores}")
     passes = counter.layer_passes()
@@ -2038,7 +2102,7 @@ def indexed_pod(params, cfg, int8: bool, pod_id: str, model: str, adapters=None,
     """A flagship pod (4,096 bf16 or 8,192 int8 pages) whose events a fresh
     index digests (and `events` keeps): (pod, indexer)."""
     index = InMemoryIndex()
-    indexer = Indexer(TokenProcessorConfig(block_size=PAGE), kv_block_index=index)
+    indexer = token_indexer(index)
 
     def sink(batch):
         digest_batch(index, indexer.token_processor, pod_id, model, batch)
@@ -2105,7 +2169,7 @@ def lora_flagship_check(params, cfg, params32, cfg32, adapters, merged, int8: bo
     # under adapter 11, by the shared prefix under the base and adapter 12,
     # and not at all under an adapter the pod never served.
     probe, pid = traffic[1]["prompt_tokens"], pod.config.pod_id
-    scores = {str(lid): indexer.get_pod_scores(probe, model, [], lora_id=lid).get(pid, 0)
+    scores = {str(lid): chain_scores(indexer, probe, model, lora_id=lid).get(pid, 0)
               for lid in (11, None, 12, 99)}
     if scores != {"11": 1536 // PAGE, "None": 1024 // PAGE, "12": 1024 // PAGE, "99": 0}:
         failures.append(f"index scores {scores}")
@@ -2715,7 +2779,7 @@ MOE_TRAFFIC_SEEDS = {"bf16": 87, "int8": 89}  # a prefix of its own for each pod
 
 def moe_indexer() -> tuple:
     index = InMemoryIndex()
-    return index, Indexer(TokenProcessorConfig(block_size=PAGE), kv_block_index=index)
+    return index, token_indexer(index)
 
 
 def moe_run(params, cfg, int8: bool, index_parts=None):
@@ -2890,7 +2954,7 @@ def phase_moe_flagship() -> dict:
     for fmt in ("bf16", "int8"):
         probe = out[fmt].pop("prefix") + np.random.default_rng(5).integers(
             0, cfg.vocab_size, 256).tolist()
-        scores[fmt] = index_parts[1].get_pod_scores(probe, MOE_MODEL, [])
+        scores[fmt] = chain_scores(index_parts[1], probe, MOE_MODEL)
         best = max(scores[fmt], key=scores[fmt].get)
         log(f"  index scores for the {fmt} pod's prefix: {scores[fmt]}")
         if best != f"pod-moe-{fmt}" or scores[fmt][best] != 1024 // PAGE:
@@ -2903,14 +2967,481 @@ def phase_moe_flagship() -> dict:
     return out
 
 
+# -- phase 12: the write plane and the prompt read path -----------------------
+
+FLEET_MODEL = "llama-8b-fleet"
+FLEET_PODS = 16  # simulated pods of an 80 GB card each
+FLEET_BLOCKS_PER_POD = 28672  # 458,752 tokens of an 8B model's 128 KiB/token KV
+FLEET_SHARED = 64  # shared prefixes of 64 blocks
+FLEET_PREFIXES_PER_POD = 16  # each shared prefix is held by 4 pods (<= 10 per key)
+FLEET_TAIL_BLOCKS = 48  # per conversation: one shared prefix + a unique tail
+FLEET_CHAINS = 1024
+PHASE_12A_LIMIT_S = 60.0
+# The tokenization pool answers a prompt that its prefix store covers at
+# min_prefix_overlap_ratio (0.8 by default) with the store's cached tokens,
+# so a chain comes out short of the prompt by design, and scores below the
+# plain longest prefix where a pod holds past the cut. Phase 12a holds
+# score_many to whole chains, so its pool tokenizes every prompt; phase 12b
+# keeps the default, where bar 2 checks what the shortcut predicts.
+WHOLE_PROMPTS = TokenizersPoolConfig(workers=4, min_prefix_overlap_ratio=float("inf"))
+
+
+class WordTokenizer(Tokenizer):
+    """A deterministic word-level tokenizer: the word "w01234" is token 1234.
+    Every word is 6 bytes and a space follows it, so a prompt's text is 7
+    bytes a token and a 1,024-token system prompt fills exactly 28 of the
+    prefix store's 256-byte chunks."""
+
+    def encode(self, prompt: str, model_name: str) -> TokenizationResult:
+        words = prompt.split(" ")
+        ends = list(itertools.accumulate(len(w) + 1 for w in words))
+        return TokenizationResult(tokens=[int(w[1:]) for w in words],
+                                  offsets=[(e - len(w) - 1, e - 1) for w, e in zip(words, ends)])
+
+
+def words(tokens) -> str:
+    return " ".join(f"w{t:05d}" for t in tokens)
+
+
+def plain_longest_prefix(chain, held: dict) -> dict:
+    """The plain longest-prefix score of a chain: for each pod, the number of
+    leading blocks it holds (every tier here weighs 1)."""
+    scores = {}
+    for pod, keys in held.items():
+        n = 0
+        for h in chain:
+            if h not in keys:
+                break
+            n += 1
+        if n:
+            scores[pod] = float(n)
+    return scores
+
+
+def fleet_traffic(seed: int, n_pods: int) -> tuple:
+    """Phase 12a's fleet from `seed`: per pod, conversations of a shared
+    prefix and a unique tail (one BlockStored each, chained to the prefix),
+    then 10% of the pod's blocks removed. Returns (batches per pod, the
+    plain replay {pod: live chain hashes}, the conversations as (prefix,
+    tail tokens, tail hashes, pod), the shared prefixes' tokens and
+    hashes)."""
+    rng = np.random.default_rng(seed)
+    root = hashing.init_hash("")
+    vocab = FLAGSHIP["vocab_size"]
+    shared = [rng.integers(0, vocab, 64 * PAGE).tolist() for _ in range(FLEET_SHARED)]
+    shared_hashes = [hashing.prefix_hashes_fast(root, t, PAGE) for t in shared]
+    n_conv = (FLEET_BLOCKS_PER_POD - FLEET_PREFIXES_PER_POD * 64) // FLEET_TAIL_BLOCKS
+    batches, held, convs = {}, {}, []
+    for p in range(n_pods):
+        pod = f"pod-{p:02d}"
+        mine = [(p * 4 + j) % FLEET_SHARED for j in range(FLEET_PREFIXES_PER_POD)]
+        out, keys, stored = [], set(), set()
+        for c in range(n_conv):
+            s = mine[c % len(mine)]
+            tail = rng.integers(0, vocab, FLEET_TAIL_BLOCKS * PAGE).tolist()
+            tail_hashes = hashing.prefix_hashes_fast(shared_hashes[s][-1], tail, PAGE)
+            if s not in stored:  # the prefix's first conversation stores it
+                stored.add(s)
+                out.append(EventBatch(ts=float(len(out)), events=[BlockStored(
+                    block_hashes=shared_hashes[s], parent_block_hash=None,
+                    token_ids=shared[s], block_size=PAGE)]))
+                keys.update(shared_hashes[s])
+            out.append(EventBatch(ts=float(len(out)), events=[BlockStored(
+                block_hashes=tail_hashes, parent_block_hash=shared_hashes[s][-1],
+                token_ids=tail, block_size=PAGE)]))
+            keys.update(tail_hashes)
+            convs.append((s, tail, tail_hashes, pod))
+        order = sorted(keys)
+        gone = [order[i] for i in rng.choice(len(order), len(order) // 10, replace=False)]
+        for i in range(0, len(gone), 64):
+            out.append(EventBatch(ts=float(len(out)), events=[BlockRemoved(gone[i:i + 64])]))
+        held[pod] = keys - set(gone)
+        batches[pod] = out
+    return batches, held, convs, shared, shared_hashes
+
+
+def fleet_chains(seed: int, convs, shared, shared_hashes) -> list:
+    """Phase 12a's prompts: a shared prefix, the first k blocks of one of
+    its conversations' tails (0-48) and 16-64 blocks nobody stored. Returns
+    (tokens, full chain) pairs."""
+    rng = np.random.default_rng(seed + 1)
+    vocab = FLAGSHIP["vocab_size"]
+    out = []
+    for _ in range(FLEET_CHAINS):
+        s, tail, tail_hashes, _ = convs[rng.integers(0, len(convs))]
+        k = int(rng.integers(0, FLEET_TAIL_BLOCKS + 1))
+        extra = rng.integers(0, vocab, int(rng.integers(16, 65)) * PAGE).tolist()
+        tokens = shared[s] + tail[:k * PAGE] + extra
+        parent = tail_hashes[k - 1] if k else shared_hashes[s][-1]
+        chain = shared_hashes[s] + tail_hashes[:k] + hashing.prefix_hashes_fast(
+            parent, extra, PAGE)
+        out.append((tokens, chain))
+    return out
+
+
+def index_pairs(index) -> set:
+    """(request key hash, pod, tier) for every entry of the index."""
+    return {(h, pod, tier) for _, h, pods in index.export_view().entries for pod, tier in pods}
+
+
+def feed(pool, messages, high: int = 2048, low: int = 256) -> None:
+    """Hand messages to the pool as the subscriber would, waiting whenever a
+    shard's queue passes `high` until every shard is under `low`: the
+    producer never outruns the bounded queues, so nothing is dropped."""
+    for i, msg in enumerate(messages):
+        pool.add_task(msg)
+        if i % 128 == 0 and max(pool.queue_depths()) > high:
+            while max(pool.queue_depths()) > low:
+                time.sleep(0.001)
+
+
+def phase_control_plane(seed: int) -> dict:
+    """Phase 12a at FLEET_PODS pods; a run past PHASE_12A_LIMIT_S is made
+    again at the pod count its time scales to, until one fits."""
+    n_pods = FLEET_PODS
+    while True:
+        res = control_plane_run(seed, n_pods)
+        if res["run_s"] <= PHASE_12A_LIMIT_S or n_pods == 1:
+            break
+        cut = max(1, min(n_pods - 1, int(n_pods * PHASE_12A_LIMIT_S / res["run_s"])))
+        log(f"  phase 12a ran {res['run_s']:.1f} s at {n_pods} pods, past its "
+            f"{PHASE_12A_LIMIT_S:.0f} s limit: again at {cut} pods")
+        n_pods = cut
+    res["cut_from"] = None if n_pods == FLEET_PODS else FLEET_PODS
+    log(f"  phase 12a: {n_pods} pods"
+        + (f" (cut from {FLEET_PODS} pods to fit the time limit)" if res["cut_from"] else
+           " (no cut)"))
+    return res
+
+
+def control_plane_run(seed: int, n_pods: int) -> dict:
+    log(f"== phase 12a: the control plane at a fleet's size (host only): {n_pods} pods x "
+        f"{FLEET_BLOCKS_PER_POD} blocks of {PAGE}, IndexConfig.default(), EventPool "
+        f"concurrency 4, seed {seed}")
+    t_phase = time.perf_counter()
+    batches, held, convs, shared, shared_hashes = fleet_traffic(seed, n_pods)
+    # Interleave the pods' streams round robin (each pod's own order kept).
+    messages, cursors = [], {pod: 0 for pod in batches}
+    while cursors:
+        for pod in list(cursors):
+            seq = cursors[pod]
+            if seq == len(batches[pod]):
+                del cursors[pod]
+                continue
+            messages.append(Message(
+                topic=f"kv@{pod}@{FLEET_MODEL}", payload=batches[pod][seq].to_msgpack(),
+                seq=seq, pod_identifier=pod, model_name=FLEET_MODEL))
+            cursors[pod] = seq + 1
+    setup_s = time.perf_counter() - t_phase
+    n_blocks = sum(len(e.block_hashes) for bs in batches.values() for b in bs for e in b.events
+                   if isinstance(e, BlockStored))
+    n_removed = sum(len(e.block_hashes) for bs in batches.values() for b in bs for e in b.events
+                    if isinstance(e, BlockRemoved))
+    payload_mb = sum(len(m.payload) for m in messages) / 1e6
+    log(f"  made {len(messages)} msgpack batches ({payload_mb:.1f} MB): {n_blocks} blocks "
+        f"stored, {n_removed} removed, in {setup_s:.1f} s")
+
+    indexer = Indexer(
+        IndexerConfig(token_processor_config=TokenProcessorConfig(block_size=PAGE)),
+        tokenization_pool=TokenizationPool(WHOLE_PROMPTS, tokenizer=WordTokenizer()),
+    )
+    if not isinstance(indexer.kv_block_index, ShardedIndex):
+        raise AssertionError(f"default index is {type(indexer.kv_block_index).__name__}")
+    pool = EventPool(EventPoolConfig(concurrency=4), indexer.kv_block_index,
+                     indexer.token_processor)
+    pool.start(with_subscriber=False)
+    try:
+        t0 = time.perf_counter()
+        feed(pool, messages)
+        t1 = time.perf_counter()
+        pool.drain()
+        t2 = time.perf_counter()
+        counters = dict(dropped=pool.dropped_events, removals_lost=pool.removals_lost,
+                        workers_alive=pool.workers_alive())
+    finally:
+        pool.shutdown()
+    digest_s = t2 - t0
+    log(f"  digested in {digest_s:.3f} s ({n_blocks / digest_s:.0f} blocks/s stored, "
+        f"{len(messages) / digest_s:.0f} batches/s); the last drain took {t2 - t1:.3f} s; "
+        f"{counters}")
+    failures = []
+    if counters["dropped"] or counters["removals_lost"] or counters["workers_alive"] != 4:
+        failures.append(f"pool counters {counters}")
+    want = {(h, pod, "gpu") for pod, keys in held.items() for h in keys}
+    got = index_pairs(indexer.kv_block_index)
+    if got != want:
+        failures.append(f"index holds {len(got)} (key, pod) pairs, the plain replay "
+                        f"{len(want)}: {len(got - want)} extra, {len(want - got)} missing")
+
+    chains = fleet_chains(seed, convs, shared, shared_hashes)
+    requests = [ScoreRequest(words(t), FLEET_MODEL) for t, _ in chains]
+    indexer.run()
+    try:
+        t0 = time.perf_counter()
+        many = indexer.score_many(requests)
+        many_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        singles = [indexer.score_hashes(FLEET_MODEL, chain) for _, chain in chains]
+        single_s = time.perf_counter() - t0
+    finally:
+        indexer.shutdown()
+    # Every prompt is whole blocks, so score_many must derive the whole chain;
+    # an item shed by the tokenization pool comes back empty.
+    bad, shed = 0, sum(not m.block_hashes for m in many)
+    for (tokens, chain), m, s in zip(chains, many, singles):
+        plain = plain_longest_prefix(chain, held)
+        if m.block_hashes != chain or m.scores != plain or s.scores != plain:
+            bad += 1
+    hit_blocks = [max(s.match_blocks.values(), default=0) for s in singles]
+    if shed:
+        failures.append(f"score_many shed {shed} of {len(chains)} prompts")
+    if bad:
+        failures.append(f"{bad} of {len(chains)} chains score apart from the plain replay")
+    run_s = time.perf_counter() - t_phase
+    log(f"  {len(chains)} chains of {min(len(c) for _, c in chains)}-"
+        f"{max(len(c) for _, c in chains)} blocks: score_many {many_s * 1e6 / len(chains):.1f} "
+        f"us/chain (tokenize + derive + lookup + score), score_hashes "
+        f"{single_s * 1e6 / len(chains):.1f} us/chain (lookup + score); best match "
+        f"{statistics.median(hit_blocks)} blocks median; {bad} chains off the plain score")
+    log(f"  phase 12a ran {run_s:.1f} s (limit {PHASE_12A_LIMIT_S:.0f} s) at {n_pods} pods")
+    if failures:
+        raise AssertionError(f"phase 12a: {failures}")
+    return dict(pods=n_pods, blocks_stored=n_blocks, blocks_removed=n_removed,
+                batches=len(messages), payload_mb=payload_mb, digest_s=digest_s,
+                blocks_per_s=n_blocks / digest_s, last_drain_s=t2 - t1,
+                score_many_us=many_s * 1e6 / len(chains),
+                score_hashes_us=single_s * 1e6 / len(chains), setup_s=setup_s, run_s=run_s,
+                counters=counters)
+
+
+FLEET_SYSTEMS = 8  # system prompts of 1,024 tokens
+FLEET_WAVES = 8  # waves of 8 requests, each wave one request per system prompt
+FLEET_TURN = 256
+FLEET_NEW = 16
+FLEET_POD_PAGES = 640
+FLEET_POD_IDS = ("pod-0", "pod-1", "pod-2", "pod-3")
+
+
+def multitenant_traffic(seed: int, vocab: int) -> list:
+    """Phase 12b's waves: 8 system prompts, 64 users; wave w sends one
+    request per system prompt in a seeded order, each a system prompt and a
+    256-token turn of its own."""
+    rng = np.random.default_rng(seed + 12)
+    systems = [rng.integers(0, vocab, 1024).tolist() for _ in range(FLEET_SYSTEMS)]
+    return [[dict(system=int(s), tokens=systems[s] + rng.integers(0, vocab, FLEET_TURN).tolist())
+             for s in rng.permutation(FLEET_SYSTEMS)] for _ in range(FLEET_WAVES)]
+
+
+def fleet_pods(params, cfg, pool, model: str, n_pages: int, ids, removed: list) -> dict:
+    """Flagship bf16 pods sharing `params`; each pod's sink packs its event
+    batches with the port's codec into `pool` (a Message per batch, as the
+    ZMQ subscriber would hand it over) and counts removed blocks into
+    `removed`."""
+    pods = {}
+    for pid in ids:
+        seq = iter(range(1 << 62))
+
+        def sink(batch, pid=pid, seq=seq):
+            removed[0] += sum(len(e.block_hashes) for e in batch.events
+                              if isinstance(e, BlockRemoved))
+            pool.add_task(Message(topic=f"kv@{pid}@{model}", payload=batch.to_msgpack(),
+                                  seq=next(seq), pod_identifier=pid, model_name=model))
+
+        pods[pid] = EnginePod(
+            EnginePodConfig(pod_id=pid, model_name=model, n_pages=n_pages, page_size=PAGE,
+                            device_tier="gpu", max_pages_per_seq=96, model_config=cfg,
+                            device=params["embed"].device),
+            event_sink=sink, params=params)
+    return pods
+
+
+def serve_share(pod, share: list, max_batch: int) -> dict:
+    """A pod's share of a wave through its Scheduler (prefill budget 512):
+    at `max_batch` 8 the share is submitted at once and served batched, the
+    routed load whose hit rate and TTFT phase 12b reports; at `max_batch` 1
+    each request is served alone, which runs the same work on every pod:
+    its prefill chunks are the same whether its 1,024-token system prompt
+    hits (one 256-token chunk at offset 1,024) or not (512, 512, 256), and
+    it decodes at batch 1. Batched, cuBLAS picks kernels by row count and a
+    bf16 row differs by ulps between batch sizes, so only the batch-1 run
+    can equal the reference bit for bit (bar 3)."""
+    specs = [dict(prompt_tokens=q["tokens"], max_new_tokens=FLEET_NEW, sampling=None)
+             for q in share]
+    groups = [specs] if max_batch > 1 else [[spec] for spec in specs]
+    out = dict(tokens=[], requests=[], first_token_s=[])
+    for group in groups:
+        r = run_scheduler(pod, group, decode_steps=1, max_batch=max_batch, budget=512)
+        for key in out:
+            out[key] += r[key]
+    return out
+
+
+def fleet_run(params, cfg, waves, policy: str, max_batch: int) -> dict:
+    """One policy over the waves on four fresh pods: route, serve each pod's
+    share through its Scheduler, drain the pool, and check bars 1 and 2."""
+    model = "llama-flagship-1.14b"
+    indexer = Indexer(
+        IndexerConfig(token_processor_config=TokenProcessorConfig(block_size=PAGE)),
+        tokenization_pool=TokenizationPool(TokenizersPoolConfig(workers=2),
+                                           tokenizer=WordTokenizer()),
+    )
+    pool = EventPool(EventPoolConfig(concurrency=4), indexer.kv_block_index,
+                     indexer.token_processor)
+    pool.start(with_subscriber=False)
+    indexer.run()
+    removed = [0]
+    pods = fleet_pods(params, cfg, pool, model, FLEET_POD_PAGES, FLEET_POD_IDS, removed)
+    rr = 0
+    tokens, requests, cached, ttft, read_s, drain_s, failures = {}, {}, {}, [], [], [], []
+    try:
+        for w, wave in enumerate(waves):
+            share = {pid: [] for pid in pods}
+            for j, req in enumerate(wave):
+                if policy == "precise":
+                    t0 = time.perf_counter()
+                    ps = indexer.get_pod_scores_ex(words(req["tokens"]), model, list(pods))
+                    read_s.append(time.perf_counter() - t0)
+                    best = max(ps.scores.values(), default=None)
+                    tied = [p for p in pods if ps.scores.get(p) == best] if ps.scores else list(pods)
+                    pid = tied[rr % len(tied)]
+                    predicted = PAGE * ps.match_blocks.get(pid, 0)
+                else:
+                    pid, predicted = FLEET_POD_IDS[rr % len(FLEET_POD_IDS)], None
+                rr += 1
+                share[pid].append((j, req, predicted))
+            for pid, reqs in share.items():
+                if not reqs:
+                    continue
+                r = serve_share(pods[pid], [q for _, q, _ in reqs], max_batch)
+                for (j, _, predicted), out, done, first in zip(
+                        reqs, r["tokens"], r["requests"], r["first_token_s"]):
+                    tokens[(w, j)], requests[(w, j)] = out, done
+                    cached[(w, j)] = done.num_cached_tokens
+                    ttft.append((first, done.num_cached_tokens > 0))
+                    if predicted is not None and done.num_cached_tokens != predicted:
+                        failures.append(f"wave {w} request {j} on {pid}: cached "
+                                        f"{done.num_cached_tokens}, the index predicted {predicted}")
+            t0 = time.perf_counter()
+            pool.drain()
+            drain_s.append(time.perf_counter() - t0)
+            for pid, pod in pods.items():
+                committed = {(h, "gpu") for h in pod.block_manager.cached_hashes()}
+                indexed = {(h, tier) for h, p, tier in index_pairs(indexer.kv_block_index)
+                           if p == pid}
+                if committed != indexed:
+                    failures.append(f"wave {w} {pid}: index {len(indexed)} blocks, pod "
+                                    f"{len(committed)} ({len(indexed - committed)} extra)")
+        counters = dict(dropped=pool.dropped_events, removals_lost=pool.removals_lost)
+        if counters != dict(dropped=0, removals_lost=0):
+            failures.append(f"pool counters {counters}")
+    finally:
+        indexer.shutdown()
+        pool.shutdown()
+    prompt_tokens = sum(len(q["tokens"]) for wave in waves for q in wave)
+    hit_rate = sum(cached.values()) / prompt_tokens
+    hit_ms = [t * 1e3 for t, hit in ttft if hit]
+    miss_ms = [t * 1e3 for t, hit in ttft if not hit]
+    return dict(tokens=tokens, requests=requests,
+                cached={f"{w}.{j}": c for (w, j), c in cached.items()},
+                hit_rate=hit_rate, ttft_median_ms=statistics.median(t for t, _ in ttft) * 1e3,
+                ttft_mean_ms=statistics.fmean(t for t, _ in ttft) * 1e3,
+                ttft_hit_median_ms=statistics.median(hit_ms) if hit_ms else None,
+                ttft_miss_median_ms=statistics.median(miss_ms) if miss_ms else None,
+                ttft_ms=[t * 1e3 for t, _ in ttft],
+                read_ms=[t * 1e3 for t in read_s], drain_ms=[t * 1e3 for t in drain_s],
+                failures=failures, counters=counters, removed_blocks=removed[0])
+
+
+def phase_fleet(params, cfg, seed: int) -> dict:
+    log(f"== phase 12b: four bf16 flagship pods ({FLEET_POD_PAGES} pages of {PAGE} each) "
+        f"behind the port's Indexer and EventPool; {FLEET_WAVES} waves of {FLEET_SYSTEMS} "
+        f"requests (a 1,024-token system prompt of 8 + a {FLEET_TURN}-token turn, "
+        f"{FLEET_NEW} greedy tokens), each pod's share of a wave batched (max_batch 8), "
+        f"then again with each request alone for bar 3")
+    waves = multitenant_traffic(seed, cfg.vocab_size)
+    card = card_line()
+    # The reference: every request alone on one pod that never evicts.
+    ref_pod = EnginePod(
+        EnginePodConfig(pod_id="pod-ref", model_name="ref", n_pages=2048, page_size=PAGE,
+                        device_tier="gpu", max_pages_per_seq=96, model_config=cfg,
+                        device=params["embed"].device), params=params)
+    want = {}
+    for w, wave in enumerate(waves):
+        for j, q in enumerate(wave):
+            want[(w, j)] = serve_share(ref_pod, [q], 1)["tokens"][0]
+    del ref_pod
+    torch.cuda.empty_cache()
+    out, failures, batched = {}, [], {}
+    reset_launch_counts()
+    for policy in ("precise", "round_robin"):
+        for max_batch in (8, 1):
+            run = f"{policy} batch {max_batch}"
+            res = fleet_run(params, cfg, waves, policy, max_batch)
+            off = [k for k in want if res["tokens"][k] != want[k]]
+            if max_batch == 1 and off:  # bar 3
+                res["failures"].append(f"{len(off)} requests' greedy tokens differ from the "
+                                       f"never-evicting pod: first {off[0]}")
+            if policy == "round_robin" and not res["removed_blocks"]:
+                res["failures"].append("round-robin pods never reclaimed a page")
+            failures += [f"{run}: {f}" for f in res["failures"]]
+            log(f"  {run} ({card}): prefix-hit rate {res['hit_rate']:.4f} (cached / prompt "
+                f"tokens), TTFT median {res['ttft_median_ms']:.2f} ms, mean "
+                f"{res['ttft_mean_ms']:.2f} ms (median of hits "
+                f"{res['ttft_hit_median_ms'] or 0:.2f}, of misses "
+                f"{res['ttft_miss_median_ms'] or 0:.2f}); pool drain ms per wave "
+                f"{' '.join(f'{t:.2f}' for t in res['drain_ms'])}")
+            if res["read_ms"]:
+                log(f"    read path per request (get_pod_scores_ex): median "
+                    f"{statistics.median(res['read_ms']):.3f} ms, max "
+                    f"{max(res['read_ms']):.3f} ms")
+            log(f"    cached tokens by wave: "
+                f"{[sum(c for k, c in res['cached'].items() if k.startswith(f'{wi}.')) for wi in range(FLEET_WAVES)]}"
+                f"; {res['removed_blocks']} blocks removed; {len(off)} of {len(want)} "
+                f"requests' greedy tokens apart from the never-evicting pod; "
+                f"{len(res['failures'])} failures")
+            res["tokens_apart"] = len(off)
+            if max_batch > 1:
+                batched[policy] = (res.pop("tokens"), res.pop("requests"))
+            else:
+                res.pop("tokens"), res.pop("requests")
+            out[run] = res
+    launches = launch_counts()
+    log(f"  kernel launches in the four fleet runs: {launches}")
+    for name in ("paged_decode", "flash_prefill"):
+        if launches[name] <= 0:
+            failures.append(f"{name} was never launched on the fleet path")
+    # The batched runs' tokens against the f32 truth: phase 7b's
+    # teacher-forced bar on every greedy token, at the delta of bf16 pages.
+    params32, cfg32 = f32_twin(params, cfg)
+    delta, e = teacher_forced_delta(params, cfg, params32, cfg32, False)
+    for policy, (tokens, requests) in batched.items():
+        keys = sorted(tokens)
+        traffic = [dict(prompt_tokens=waves[w][j]["tokens"], sampling=None) for w, j in keys]
+        bar = teacher_forced_bar(params32, cfg32, traffic, [requests[k] for k in keys], delta)
+        log(f"    {policy} batch 8, teacher-forced bar: greedy worst "
+            f"{bar['worst']['greedy']:.4f} over {bar['tokens_checked']['greedy']} tokens "
+            f"(delta {delta:.4f}: the bf16 plain path is {e:.4f} off the truth)")
+        if not bar["ok"]:
+            failures.append(f"{policy} batch 8: teacher-forced bar {bar}")
+        out[f"{policy} batch 8"]["bar"] = bar
+    del params32
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"phase 12b: {failures[:6]}")
+    out.update(card=card, launches=launches)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=None,
                         help="comma-separated phases to run after the build (3 4 5 5b 5c 6 7a "
-                        "7b 8a 8 9a 9b 10a 10b 11a 11b; 9b and 10b run 7b's deltas first); a "
-                        "partial run prints no kernels or ok line")
+                        "7b 8a 8 9a 9b 10a 10b 11a 11b 12a 12b; 9b and 10b run 7b's deltas "
+                        "first); a partial run prints no kernels or ok line")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of phase 12's events, prompts and traffic")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2938,7 +3469,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     cfg = llama.LlamaConfig(**FLAGSHIP)
     if args.phases is not None:
-        return partial_run(args.phases.split(","), gen, cfg)
+        return partial_run(args.phases.split(","), gen, cfg, args.seed)
     errs = phase_kernel_checks(gen)
     times, decode_times, prefill_serving, verify_time, mixtral_times = phase_times(gen)
 
@@ -2964,12 +3495,18 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     moe_small = phase_moe_small()
     moe = phase_moe_flagship()
+    control = phase_control_plane(args.seed)
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    fleet = phase_fleet(params, cfg, args.seed)
+    del params
+    torch.cuda.empty_cache()
 
     # Rows 1, 2 and 5 are counted on the serving path (phase 5), on the
     # scheduler's path (phase 7b's recorded runs, summed), on the host
     # tier's (phase 8b-8d), on multi-LoRA's (phase 9b), on speculative
     # decoding's (phase 10b's scheduler runs) and on the MoE family's
-    # (phase 11b's scheduler runs); rows 3 and 4 (the tiled decode entry) on
+    # (phase 11b's scheduler runs) and on the fleet's (phase 12b's four pods,
+    # both policies; bf16 pages only); rows 3 and 4 (the tiled decode entry) on
     # phase 6's and phase 11b's tiled decode steps.
     runs = [sched[f"{fmt} steps{steps}"] for fmt, _, steps in FLAGSHIP_RUNS]
     by_path = {name: {"serving": serving["launches"][name],
@@ -2977,7 +3514,8 @@ def main(argv=None) -> int:
                       "host_tier": tier["launches"][name],
                       "lora": lora_flagship["launches"][name],
                       "speculative": spec["launches"][name],
-                      "moe": moe["launches"][name]}
+                      "moe": moe["launches"][name],
+                      "fleet": fleet["launches"][name]}
                for name in ("paged_decode", "paged_decode_int8", "flash_prefill")}
     for row in ("paged_decode_tiled", "paged_decode_tiled_int8"):
         by_path[row] = {"batched_decode": batched["checks"][row]["launches"],
@@ -3002,6 +3540,7 @@ def main(argv=None) -> int:
                     "lora_small": lora_small, "lora": lora_flagship,
                     "speculative_small": spec_small, "speculative": spec,
                     "mixtral_attention_shape": mixtral_times, "moe_small": moe_small, "moe": moe,
+                    "control_plane": control, "fleet": fleet,
                     "build_s": build_s, "run_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3010,7 +3549,7 @@ def main(argv=None) -> int:
     return 0
 
 
-def partial_run(phases, gen, cfg) -> int:
+def partial_run(phases, gen, cfg, seed: int = 0) -> int:
     """A development run of some phases (no kernels or ok line); exits 0
     when each of them passes."""
     t_start = time.perf_counter()
@@ -3020,7 +3559,8 @@ def partial_run(phases, gen, cfg) -> int:
     if "4" in phases:
         out["times"] = phase_times(gen)
     params = None
-    if any(p not in ("3", "4", "5b", "7a", "8a", "9a", "10a", "11a", "11b") for p in phases):
+    if any(p not in ("3", "4", "5b", "7a", "8a", "9a", "10a", "11a", "11b", "12a")
+           for p in phases):
         params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     steps = {
         "5": lambda: phase_serving(params, cfg), "5b": phase_small_pod_vs_cpu,
@@ -3029,6 +3569,7 @@ def partial_run(phases, gen, cfg) -> int:
         "7b": lambda: phase_scheduler_flagship(params, cfg), "8a": phase_host_tier_small,
         "8": lambda: phase_host_tier_flagship(params, cfg), "9a": phase_lora_small,
         "10a": phase_spec_small, "11a": phase_moe_small,
+        "12a": lambda: phase_control_plane(seed), "12b": lambda: phase_fleet(params, cfg, seed),
     }
     for phase in phases:
         if phase in steps:

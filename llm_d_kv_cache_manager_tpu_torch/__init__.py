@@ -3,14 +3,21 @@
 The serving path of `llm_d_kv_cache_manager_tpu` (the JAX reference package
 beside this one) rebuilt on torch: a paged-KV Llama pod whose decode and
 prefill attention run through hand-written CUDA kernels (`csrc/`), a block
-manager that emits the same BlockStored/BlockRemoved events, and the slice
-of the control plane that digests those events into an index and scores
-pods by cached prefix.
+manager that emits the same BlockStored/BlockRemoved events, and the
+control plane's write path (events over ZMQ into a sharded worker pool and
+index) and read path (prompt -> tokens -> block keys -> lookup -> pod
+scores).
 
 Layout mirrors the reference package module for module:
-  - kvcache/        token-ID read path (Indexer.get_pod_scores), scorer,
-                    kvblock hashing/keys/token processor/in-memory index
-  - kvevents/       event schema (msgpack wire form) + synchronous digest
+  - kvcache/        the Indexer (get_pod_scores, score_many, score_hashes,
+                    explain_scores), scorer, kvblock hashing/keys/chain
+                    memo/token processor and the in-memory and sharded
+                    indexes
+  - kvevents/       event schema (msgpack wire form), the sharded
+                    EventPool, the ZMQ subscriber and publisher, and a
+                    synchronous digest for in-process callers
+  - tokenization/   the tokenization pool, tokenizers and prefix stores
+  - utils/          LRU, a msgpack codec and XXH64 in plain Python
   - engine/         BlockManager + EnginePod (model mode, multi-LoRA) + the
                     continuous-batching Scheduler + speculative decoding
                     (SpeculativeDecoder, SpeculativeScheduler) + the host
@@ -22,7 +29,8 @@ Layout mirrors the reference package module for module:
                     sampling (JAX's Threefry noise in torch ops)
   - csrc/           CUDA C++ kernels for sm_90a
 
-This package imports torch and numpy only; it never imports jax or the
+This package imports torch and numpy only (pyzmq in the two ZMQ modules,
+HF `tokenizers` when a tokenizer loads); it never imports jax or the
 reference package. Entry points default to device="cuda" and raise when no
 GPU is present; pass device="cpu" to run the plain versions on the CPU.
 """

@@ -51,6 +51,8 @@ class BlockManagerConfig:
     n_pages: int = 512
     page_size: int = 16  # tokens per page == control-plane block size
     hash_seed: str = ""
+    # False: no page is hashed, reused or advertised (no BlockStored).
+    enable_prefix_caching: bool = True
     device_tier: Optional[str] = None  # None -> events carry no Medium
 
 
@@ -170,7 +172,11 @@ class BlockManager:
         n_pages_needed = (len(tokens) + ps - 1) // ps
 
         block_table: List[int] = []
-        keys = self.token_db.tokens_to_kv_block_keys(None, tokens, "", lora_id=lora_id)
+        keys = (
+            self.token_db.tokens_to_kv_block_keys(None, tokens, "", lora_id=lora_id)
+            if self.config.enable_prefix_caching
+            else []
+        )
         # 1. Reuse cached pages along the hash chain; on a device miss, try
         # the host tier (host store, then peer pods) before giving up. A
         # restore's own reclaims can offload LATER chain blocks to the host
@@ -443,6 +449,8 @@ class BlockManager:
 
     def _commit_full_pages(self, state: SequenceState, n_computed: int) -> None:
         """Commit pages fully covered by the first `n_computed` tokens."""
+        if not self.config.enable_prefix_caching:
+            return
         ps = self.config.page_size
         n_full = min(n_computed, len(state.tokens)) // ps
         if n_full <= state.n_hashed_pages:

@@ -229,6 +229,9 @@ class _DevicePageCodec(PageCodec):
 class EnginePodConfig:
     pod_id: str = "pod-0"
     model_name: str = "test-model"
+    # Set: the pod also publishes its events over ZMQ to the indexer's bound
+    # SUB endpoint (kvevents/publisher.py); None -> event_sink only.
+    zmq_endpoint: Optional[str] = None
     n_pages: int = 512
     page_size: int = 16
     hash_seed: str = ""
@@ -286,6 +289,16 @@ class EnginePod:
     ):
         self.config = config
         self.device = resolve_device(config.device)
+        self._publisher = None
+        if config.zmq_endpoint:
+            from llm_d_kv_cache_manager_tpu_torch.kvevents.publisher import (
+                Publisher,
+                make_topic,
+            )
+
+            self._publisher = Publisher(
+                config.zmq_endpoint, make_topic(config.pod_id, config.model_name)
+            )
         self._sink = event_sink
         mc = config.model_config or llama.LlamaConfig()
         self._model_config = mc
@@ -380,6 +393,8 @@ class EnginePod:
     # -- events --------------------------------------------------------------
 
     def _emit(self, batch: EventBatch) -> None:
+        if self._publisher is not None:
+            self._publisher.publish(batch)
         if self._sink is not None:
             self._sink(batch)
 
@@ -669,7 +684,11 @@ class EnginePod:
         return landed
 
     def close(self) -> None:
-        """Stop the host tier's threads, client and server (idempotent)."""
+        """Close the event publisher and stop the host tier's threads, client
+        and server (idempotent)."""
+        if self._publisher is not None:
+            self._publisher.close()
+            self._publisher = None
         if self.tier_store is not None:
             self.tier_store.close()
         if self.connector is not None:

@@ -1,7 +1,8 @@
 """FNV hashing + canonical CBOR encoding for block-key derivation.
 
-Pure-Python copy of the reference package's `kvcache/kvblock/hashing.py`
-(the C fast path stays with the reference package). A block's request key is
+Pure-Python copy of the reference package's `kvcache/kvblock/hashing.py`.
+The port has no C hash core yet: `have_native()` is False and every fast
+path below runs its pure-Python branch, which defines the keys. A block's request key is
 `FNV-64a(canonical_CBOR([parent_u64, [token_u32...], extra|null]))`,
 chained block to block, with the root hash `FNV-64a(hash_seed_bytes)`. The
 `sha256_cbor_64bit` variant hashes the same payload with sha256 and keeps the
@@ -15,12 +16,23 @@ from typing import Iterable, List, Optional, Sequence
 
 _FNV64_OFFSET = 0xCBF29CE484222325
 _FNV64_PRIME = 0x100000001B3
+_FNV32_OFFSET = 0x811C9DC5
+_FNV32_PRIME = 0x01000193
 _MASK64 = 0xFFFFFFFFFFFFFFFF
+_MASK32 = 0xFFFFFFFF
 
 
 def fnv64a(data: bytes, h: int = _FNV64_OFFSET) -> int:
     for b in data:
         h = ((h ^ b) * _FNV64_PRIME) & _MASK64
+    return h
+
+
+def fnv32a(data: bytes) -> int:
+    """FNV-1a 32: the event pool shards messages by it (kvevents/pool.py)."""
+    h = _FNV32_OFFSET
+    for b in data:
+        h = ((h ^ b) * _FNV32_PRIME) & _MASK32
     return h
 
 
@@ -132,8 +144,56 @@ def prefix_hashes(
     return hashes
 
 
+def have_native() -> bool:
+    """True when a C hash core is built. The port has none yet."""
+    return False
+
+
 def fold64(h: int, v: int) -> int:
     """One step of a 64-bit fold: FNV-1a's xor-multiply applied to a whole
-    64-bit value. Not the block-key hash: the host tier's rendezvous ranking
-    of peer holders uses it (engine/tiering.IndexBackedPeerResolver)."""
+    64-bit value. Not the block-key hash: chain-memo fingerprints
+    (kvblock/chain_memo.py), the prefix store's state chain and the host
+    tier's rendezvous ranking of peer holders use it."""
     return ((h ^ (v & _MASK64)) * _FNV64_PRIME) & _MASK64
+
+
+def token_fingerprints(
+    fp0: int, tokens: Sequence[int], seg_tokens: int
+) -> List[int]:
+    """Chained fingerprints of `tokens` at every full `seg_tokens` boundary
+    (trailing partial segment dropped)."""
+    if seg_tokens <= 0:
+        raise ValueError("seg_tokens must be positive")
+    n = (len(tokens) // seg_tokens) * seg_tokens
+    h = fp0
+    out: List[int] = []
+    for i in range(n):
+        h = ((h ^ (int(tokens[i]) & _MASK64)) * _FNV64_PRIME) & _MASK64
+        if (i + 1) % seg_tokens == 0:
+            out.append(h)
+    return out
+
+
+def prefix_hashes_fast(
+    parent: int,
+    tokens: Sequence[int],
+    block_size: int,
+    extra: Optional[Sequence[int]] = None,
+    algo: str = "fnv64_cbor",
+) -> List[int]:
+    """Chunk `tokens` into full blocks of `block_size` and chain-hash them
+    under `algo` ("fnv64_cbor" or "sha256_cbor_64bit")."""
+    n_full = len(tokens) // block_size
+    if n_full == 0:
+        return []
+    chunks = [tokens[i * block_size:(i + 1) * block_size] for i in range(n_full)]
+    return prefix_hashes(parent, chunks, extra, algo=algo)
+
+
+def prefix_hashes_fast_many(tasks: Sequence[tuple]) -> List[List[int]]:
+    """Batched `prefix_hashes_fast`: `tasks` holds (parent, tokens,
+    block_size, extra, algo) tuples, one hash list comes back per task."""
+    return [
+        prefix_hashes_fast(parent, tokens, block_size, extra, algo=algo)
+        for parent, tokens, block_size, extra, algo in tasks
+    ]

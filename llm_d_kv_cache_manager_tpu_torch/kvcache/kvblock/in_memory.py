@@ -1,14 +1,15 @@
 """Default in-memory KV-block index: two-level LRU.
 
-Port of the reference package's `InMemoryIndex` (add, evict, lookup): an LRU
-of request-key -> per-key pod LRU (capped, default 10 pods/key), plus an LRU
-mapping engine keys -> request keys.
+Copy of the reference package's `InMemoryIndex`: an LRU of request-key →
+per-key pod LRU (capped, default 10 pods/key), plus an LRU mapping engine
+keys → request keys.
 
-- lookup: a missing key, or a key present with an empty pod cache, cuts the
-  search (`LongestPrefixScorer` empties its active set at any gap, so later
-  hits could never contribute).
+- lookup: a key present with an empty pod cache cuts the search (the prefix
+  chain is known to break there). A *missing* key cuts too:
+  `LongestPrefixScorer` empties its active set at any gap in the chain, so
+  entries past the first missing key can never contribute to a score.
 - add: double-checked insertion so concurrent adders share one pod cache.
-- evict: resolves engine->request key; removing the last pod removes the key
+- evict: resolves engine→request key; removing the last pod removes the key
   from both maps (with a re-check to shrink the race window).
 """
 
@@ -18,14 +19,10 @@ import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Set
 
-from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.index import Index
-from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.key import (
-    Key,
-    PodEntry,
-    pod_matches,
-)
-from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
+from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.index import Index, IndexView
+from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.key import Key, PodEntry, pod_matches
 from llm_d_kv_cache_manager_tpu_torch.utils.lru import LRUCache
+from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
 
 logger = kvlog.get_logger("kvblock.in_memory")
 
@@ -66,6 +63,8 @@ class InMemoryIndex(Index):
         for key in request_keys:
             pod_cache = self._data.get(key)
             if pod_cache is None:
+                # Gap in the prefix chain: the scorer's active set empties
+                # here, so post-gap hits are unusable — stop looking them up.
                 kvlog.trace(logger, "key not found, cutting search: %s", key)
                 return pods_per_key
             entries = pod_cache.cache.keys()
@@ -83,6 +82,53 @@ class InMemoryIndex(Index):
                 pods_per_key[key] = entries
         return pods_per_key
 
+    def lookup_many(
+        self, requests: Sequence[tuple]
+    ) -> List[Dict[Key, List[PodEntry]]]:
+        """Batched `lookup` (Index.lookup_many): ONE `get_many` over the
+        union of every item's keys replaces the per-key lock acquisition
+        of N sequential lookups (recency refreshes once per batch instead
+        of once per item — an LRU-order difference only, never a score
+        difference). Items sharing a key share the materialized entry
+        list object, which is what lets the scorer's batch path reuse
+        per-key weight maps across items."""
+        if not requests:
+            return []
+        union: List[Key] = []
+        for keys, _ in requests:
+            if not keys:
+                raise ValueError("no request keys provided for lookup")
+            union.extend(keys)
+        fetched = self._data.get_many(union)
+        entries_cache: Dict[Key, list] = {}
+        shared: dict = {}
+        out: List[Dict[Key, List[PodEntry]]] = []
+        for request_keys, pod_identifier_set in requests:
+            pods_per_key: Dict[Key, List[PodEntry]] = {}
+            for key in request_keys:
+                pod_cache = fetched.get(key)
+                if pod_cache is None:
+                    break  # gap: chain cut for this item only
+                entries = entries_cache.get(key)
+                if entries is None:
+                    entries = entries_cache[key] = pod_cache.cache.keys()
+                if not entries:
+                    break
+                if pod_identifier_set:
+                    sk = (id(pod_identifier_set), key)
+                    hits = shared.get(sk)
+                    if hits is None:
+                        hits = shared[sk] = [
+                            e for e in entries
+                            if pod_matches(e.pod_identifier, pod_identifier_set)
+                        ]
+                    if hits:
+                        pods_per_key[key] = hits
+                else:
+                    pods_per_key[key] = entries
+            out.append(pods_per_key)
+        return out
+
     def add(
         self,
         engine_keys: Sequence[Key],
@@ -93,8 +139,7 @@ class InMemoryIndex(Index):
             raise ValueError("no keys or entries provided for adding to index")
         if len(engine_keys) != len(request_keys):
             raise ValueError(
-                f"engine/request key length mismatch: {len(engine_keys)} != "
-                f"{len(request_keys)}"
+                f"engine/request key length mismatch: {len(engine_keys)} != {len(request_keys)}"
             )
 
         for engine_key, request_key in zip(engine_keys, request_keys):
@@ -122,9 +167,7 @@ class InMemoryIndex(Index):
 
         request_key = self._engine_to_request.get(engine_key)
         if request_key is None:
-            kvlog.trace(
-                logger, "engine key not in index, nothing to evict: %s", engine_key
-            )
+            kvlog.trace(logger, "engine key not in index, nothing to evict: %s", engine_key)
             return
 
         pod_cache = self._data.get(request_key)
@@ -138,8 +181,9 @@ class InMemoryIndex(Index):
             is_empty = len(pod_cache.cache) == 0
 
         if is_empty:
-            # Re-check before removal to shrink the window where a
-            # concurrent add repopulates the cache.
+            # Re-check before removal to minimize (not eliminate) the window
+            # where a concurrent add repopulates the cache; worst case an
+            # empty cache is left behind for LRU to collect.
             current = self._data.get(request_key)
             if current is not None:
                 with current.mu:
@@ -150,3 +194,48 @@ class InMemoryIndex(Index):
 
     def get_request_key(self, engine_key: Key) -> Optional[Key]:
         return self._engine_to_request.get(engine_key)
+
+    def remove_pod(self, pod_identifier: str) -> int:
+        """One-pass quarantine purge (Index.remove_pod contract).
+
+        Walks a snapshot of the key space; the same best-effort caveat as
+        `evict` applies under concurrency (an add racing the pass can
+        repopulate a key, which LRU then collects).
+        """
+        target = {pod_identifier}
+        removed = 0
+        emptied = set()
+        for request_key, pod_cache in self._data.items():
+            with pod_cache.mu:
+                victims = [
+                    e for e in pod_cache.cache.keys()
+                    if pod_matches(e.pod_identifier, target)
+                ]
+                for entry in victims:
+                    pod_cache.cache.remove(entry)
+                removed += len(victims)
+                is_empty = victims and len(pod_cache.cache) == 0
+            if is_empty:
+                self._data.remove(request_key)
+                emptied.add(request_key)
+        if emptied:
+            for engine_key, request_key in self._engine_to_request.items():
+                if request_key in emptied:
+                    self._engine_to_request.remove(engine_key)
+        return removed
+
+    def export_view(self) -> IndexView:
+        """Snapshot both LRUs oldest-first (Index.export_view contract)."""
+        entries = []
+        for request_key, pod_cache in self._data.items():
+            with pod_cache.mu:
+                pods = tuple(
+                    (e.pod_identifier, e.device_tier)
+                    for e in pod_cache.cache.keys()
+                )
+            entries.append((request_key.model_name, request_key.chunk_hash, pods))
+        engine_map = [
+            (ek.model_name, ek.chunk_hash, rk.model_name, rk.chunk_hash)
+            for ek, rk in self._engine_to_request.items()
+        ]
+        return IndexView(entries=entries, engine_map=engine_map)

@@ -9,14 +9,17 @@ msgpack *arrays* (tagged unions):
   BlockRemoved      = ["BlockRemoved", block_hashes, medium]
   AllBlocksCleared  = ["AllBlocksCleared"]
 
-`msgpack` is imported inside `to_msgpack`/`from_msgpack` only: in-process
-consumers pass the event objects and never need it.
+The wire bytes are made and read by the port's own codec
+(utils/msgpack_codec.py), which gives the bytes of `msgpack.packb(...,
+use_bin_type=True)`: the port needs no msgpack package.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, List, Optional, Sequence, Union
+
+from llm_d_kv_cache_manager_tpu_torch.utils import msgpack_codec
 
 BLOCK_STORED_TAG = "BlockStored"
 BLOCK_REMOVED_TAG = "BlockRemoved"
@@ -112,18 +115,14 @@ class EventBatch:
     data_parallel_rank: Optional[int] = None
 
     def to_msgpack(self) -> bytes:
-        import msgpack
-
         arr: List[Any] = [self.ts, [e.to_tagged_union() for e in self.events]]
         if self.data_parallel_rank is not None:
             arr.append(self.data_parallel_rank)
-        return msgpack.packb(arr, use_bin_type=True)
+        return msgpack_codec.packb(arr)
 
     @classmethod
     def from_msgpack(cls, payload: bytes) -> "EventBatch":
-        import msgpack
-
-        arr = msgpack.unpackb(payload, raw=False, strict_map_key=False)
+        arr = msgpack_codec.unpackb(payload)
         if not isinstance(arr, (list, tuple)) or len(arr) < 2:
             raise ValueError("malformed event batch: expected [ts, events, ...]")
         ts = float(arr[0])

@@ -5,9 +5,9 @@ tree and serve the same requests; greedy tokens and the BlockStored /
 BlockRemoved stream must match exactly, including under page pressure where
 bucket-padded prefill reservations decide what gets reclaimed. The port's
 events, as msgpack bytes, digested by the JAX EventPool must give the index
-the port's own digest builds, and the port's token-ID read path must score
-pods exactly as the JAX ChunkedTokenDatabase -> InMemoryIndex.lookup ->
-LongestPrefixScorer pipeline does.
+the port's own digest builds, and the port Indexer's `score_hashes` over a
+prompt's chain must score pods exactly as the JAX ChunkedTokenDatabase ->
+InMemoryIndex.lookup -> LongestPrefixScorer pipeline does.
 """
 
 import jax
@@ -39,7 +39,7 @@ from llm_d_kv_cache_manager_tpu_torch.engine.block_manager import (
     BlockManagerConfig,
 )
 from llm_d_kv_cache_manager_tpu_torch.engine.engine import EnginePod, EnginePodConfig
-from llm_d_kv_cache_manager_tpu_torch.kvcache.indexer import Indexer
+from llm_d_kv_cache_manager_tpu_torch.kvcache.indexer import Indexer, IndexerConfig
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.in_memory import InMemoryIndex
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.token_processor import (
     ChunkedTokenDatabase,
@@ -191,8 +191,8 @@ def test_prefill_chunk_batch_matches_jax(int8):
     for probe in prompts + [shared + [7, 7, 7, 7]]:
         jkeys = jax_tp.tokens_to_kv_block_keys(None, probe, MODEL)
         want = scorer.score(jkeys, jax_index.lookup(jkeys, set())) if jkeys else {}
-        assert indexer.get_pod_scores(probe, MODEL, []) == want
-    assert indexer.get_pod_scores(prompts[2], MODEL, [])["pod-e"] == 6.0
+        assert _scores(indexer, probe, []) == want
+    assert _scores(indexer, prompts[2], [])["pod-e"] == 6.0
 
 
 def _jax_index_from_msgpack(batches_by_pod):
@@ -215,12 +215,19 @@ def _jax_index_from_msgpack(batches_by_pod):
 
 
 def _port_index(batches_by_pod):
-    indexer = Indexer(TokenProcessorConfig(block_size=PAGE))
+    indexer = Indexer(IndexerConfig(token_processor_config=TokenProcessorConfig(block_size=PAGE)))
     for pod_id, batches in batches_by_pod.items():
         for batch in batches:
             digest_batch(indexer.kv_block_index, indexer.token_processor, pod_id,
                          MODEL, batch)
     return indexer
+
+
+def _scores(indexer, tokens, pods):
+    """The port Indexer's scores for a token-ID prompt: score_hashes over
+    the prompt's chain."""
+    keys = indexer.token_processor.tokens_to_kv_block_keys(None, tokens, MODEL)
+    return indexer.score_hashes(MODEL, [k.chunk_hash for k in keys], pods).scores
 
 
 def _entries(lookup_result):
@@ -249,7 +256,7 @@ def test_msgpack_events_digested_by_jax_pool_match_port_index(served):
 
 
 def test_pod_scores_match_jax_read_path():
-    """Two port pods; the port's get_pod_scores vs the JAX pipeline over the
+    """Two port pods; the port Indexer's scores vs the JAX pipeline over the
     same events (sent as msgpack bytes)."""
     events = {"pod-a": [], "pod-b": []}
     cfg = llama.LlamaConfig(**CFG, dtype=torch.float32)
@@ -278,9 +285,9 @@ def test_pod_scores_match_jax_read_path():
         for pods in ([], ["pod-a"], ["pod-a", "pod-b"]):
             jkeys = jax_tp.tokens_to_kv_block_keys(None, probe, MODEL)
             want = scorer.score(jkeys, jax_index.lookup(jkeys, set(pods))) if jkeys else {}
-            assert indexer.get_pod_scores(probe, MODEL, pods) == want
-    assert indexer.get_pod_scores(probes[0], MODEL, [])["pod-a"] == 3.0
-    assert indexer.get_pod_scores(probes[2], MODEL, []) == {"pod-b": 3.0}
+            assert _scores(indexer, probe, pods) == want
+    assert _scores(indexer, probes[0], [])["pod-a"] == 3.0
+    assert _scores(indexer, probes[2], []) == {"pod-b": 3.0}
 
 
 @pytest.mark.parametrize("seed", ["", "x"])

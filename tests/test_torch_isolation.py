@@ -320,3 +320,69 @@ def test_default_device_moe_entry_points_raise_without_gpu():
             call()
     pod = EnginePod(EnginePodConfig(model_config=cfg, device="cpu"))
     assert pod.params["layers"]["router"].device.type == "cpu"
+
+
+WIRE_LIBRARIES = ("zmq", "msgpack", "xxhash", "tokenizers", "transformers")
+ZMQ_MODULES = ("kvevents/publisher.py", "kvevents/zmq_subscriber.py")
+
+
+def test_port_imports_without_the_wire_libraries():
+    """The card's machine has no pyzmq, msgpack, xxhash, tokenizers or
+    transformers: with all five blocked, every port module but the two ZMQ
+    ones imports, and chip_smoke imports."""
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py")
+        if str(p.relative_to(PORT)) not in ZMQ_MODULES
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for lib in {WIRE_LIBRARIES!r}:\n"
+        "    sys.modules[lib] = None\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "print('OK', len(sys.modules))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0 and "OK" in proc.stdout, proc.stdout + proc.stderr
+
+
+def _top_level_imports(path):
+    """Modules a file imports at module level (not inside a function)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = []
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            names += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
+def test_wire_libraries_are_never_imported_at_module_level(path):
+    """Only the two ZMQ modules import zmq at module level; no port file
+    imports msgpack, xxhash, tokenizers or transformers there (the port
+    has its own msgpack codec and XXH64, and imports tokenizers lazily)."""
+    rel = str(path.relative_to(PORT)) if PORT in path.parents else path.name
+    allowed = {"zmq"} if rel in ZMQ_MODULES else set()
+    bad = [m for m in _top_level_imports(path)
+           if m.split(".")[0] in WIRE_LIBRARIES and m.split(".")[0] not in allowed]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("module", [
+    "utils.msgpack_codec", "utils.xxh64", "kvevents.pool", "kvevents.publisher",
+    "kvevents.zmq_subscriber", "kvcache.indexer", "kvcache.kvblock.sharded",
+    "kvcache.kvblock.chain_memo", "tokenization.pool", "tokenization.tokenizer",
+    "tokenization.prefixstore.lru_store", "tokenization.prefixstore.trie_store",
+])
+def test_control_plane_modules_are_checked(module):
+    """The write and read planes are among the modules the import checks
+    above load and parse."""
+    path = PORT / (module.replace(".", "/") + ".py")
+    assert path in _port_files()
