@@ -24,7 +24,12 @@ kernel sources, written only under the package's build/planted/ directory:
   - flash_prefill: the second live 128-key block of every q-block is skipped
     by the bf16 (wgmma) kernel;
   - flash_prefill_diagonal: the k-block on each q-block's causal diagonal
-    takes the unmasked interior path, so rows see future keys.
+    takes the unmasked interior path, so rows see future keys;
+  - decode_sm90_hd64_cols (both decode sources for bf16 q, both page
+    formats): at head_dim 64 the last lane of each half-warp leaves its 4
+    columns out of P @ V, so columns 60-63 of every output row stay 0.
+    Its main-shape case is at Qwen2.5-0.5B's attention shape (14/2 heads of
+    64) and its logits bar is phase 13b's decode-logits check on that model.
 
 Phase 7b's teacher-forced bar (the flagship served through the scheduler on
 a bf16 pod, every generated token held against an f32 truth) is held to
@@ -134,40 +139,63 @@ MUTANTS = {
         "const bool interior = k0 <= hi_all && k0 >= lo_all;",
         ("flash_prefill",), "bf16",
     ),
+    "decode_sm90_hd64_cols": (
+        ("paged_decode", "paged_decode_tiled"), "paged_decode_sm90.cuh",
+        "for (int e = 0; e < kCols; ++e) acc[g][e] = fmaf(p, v[e], acc[g][e]);",
+        "for (int e = 0; e < kCols; ++e) {\n"
+        "              if (HD != 64 || hl < 15) acc[g][e] = fmaf(p, v[e], acc[g][e]);\n"
+        "            }",
+        ("paged_decode", "paged_decode_int8", "paged_decode_tiled", "paged_decode_tiled_int8"),
+        "bf16",
+    ),
 }
 
 
 # The kernel faults also held to phase 7b's teacher-forced bar (a bf16 pod
 # through the scheduler), beside the planted scheduler fault.
 SCHEDULER_BAR_MUTANTS = ("decode_sm90_stage",)
+# Faults at a phase 13 model's attention shape: their main-shape case and
+# logits bar are that model's (chip_smoke.QWEN_MAIN_CASES, phase 13b).
+MUTANT_MODEL = {"decode_sm90_hd64_cols": "qwen2.5-0.5b"}
 
 
-def main_case(kernel: str, dtype: str) -> str:
+def main_case(kernel: str, dtype: str, mutant: str = "") -> str:
     """chip_smoke's case of `kernel` at the main path's shape, in `dtype`
-    ("bf16" or "f32")."""
-    return chip_smoke.MAIN_CASES[kernel].replace(" bf16 ", f" {dtype} ")
+    ("bf16" or "f32"): the flagship's, or for a fault of MUTANT_MODEL that
+    model's."""
+    model = MUTANT_MODEL.get(mutant)
+    cases = chip_smoke.MAIN_CASES if model is None else chip_smoke.QWEN_MAIN_CASES[model]
+    return cases[kernel].replace(" bf16 ", f" {dtype} ")
 
 
-def build_mutant(name: str) -> dict:
-    """Build fault `name` into a copy of each of its kernel sources and the
-    headers under build/planted/<name>/ (a shared header's fault reaches only
-    these builds): {source: library}."""
-    sources, target, old, new, _, _ = MUTANTS[name]
-    out_dir = _build.BUILD_DIR / "planted" / name
-    out_dir.mkdir(parents=True, exist_ok=True)
-    for path in [*_build.CSRC_DIR.glob("*.cu"), *_build.CSRC_DIR.glob("*.cuh")]:
-        text = path.read_text()
-        if path.name == target:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{target}: the line to mutate is not there once")
-            text = text.replace(old, new)
-        (out_dir / path.name).write_text(text)
-    libs = {}
-    for source in sources:
-        so = out_dir / f"lib{source}_mutant.so"
-        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                        str(out_dir / f"{source}.cu")], check=True, capture_output=True)
-        libs[source] = ctypes.CDLL(str(so))
+def build_mutants() -> dict:
+    """Build each fault of MUTANTS into a copy of each of its kernel sources
+    and the headers under build/planted/<name>/ (a shared header's fault
+    reaches only these builds), one nvcc per (fault, source), all started
+    together: {name: {source: library}}."""
+    procs = []
+    for name, (sources, target, old, new, _, _) in MUTANTS.items():
+        out_dir = _build.BUILD_DIR / "planted" / name
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for path in [*_build.CSRC_DIR.glob("*.cu"), *_build.CSRC_DIR.glob("*.cuh")]:
+            text = path.read_text()
+            if path.name == target:
+                if text.count(old) != 1:
+                    raise RuntimeError(f"{target}: the line to mutate is not there once")
+                text = text.replace(old, new)
+            (out_dir / path.name).write_text(text)
+        for source in sources:
+            so = out_dir / f"lib{source}_mutant.so"
+            procs.append((name, source, so, subprocess.Popen(
+                [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                 str(out_dir / f"{source}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {name: {} for name in MUTANTS}
+    for name, source, so, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"mutant {name} ({source}) failed to build:\n{log}")
+        libs[name][source] = ctypes.CDLL(str(so))
     return libs
 
 
@@ -358,16 +386,25 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build()
     real = {name: _build.library(name) for name in _build.KERNELS}
-    mutants = {name: build_mutant(name) for name in MUTANTS}
+    mutants = build_mutants()
     cfg = llama.LlamaConfig(**chip_smoke.FLAGSHIP)
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     params32, cfg32 = chip_smoke.f32_twin(params, cfg)
+    # Phase 13b's model of each MUTANT_MODEL fault: (params, cfg, params32, cfg32).
+    models = {}
+    for model in set(MUTANT_MODEL.values()):
+        qcfg, qparams = chip_smoke.qwen_model(model)
+        models[model] = (qparams, qcfg, *chip_smoke.f32_twin(qparams, qcfg))
 
     chip_smoke.log("== real kernels")
     rows = run_cases("real")
     logits_ok = {"real": {
         **run_decode_logits("real", chip_smoke.DECODE_ROWS, params, cfg, params32, cfg32),
         **run_prefill_logits("real", params, cfg, params32, cfg32)}}
+    for model, weights in models.items():
+        logits_ok["real"].update({
+            f"{model}/{row}": ok for row, ok in run_decode_logits(
+                f"real {model}", chip_smoke.DECODE_ROWS, *weights).items()})
     delta, plain_err = chip_smoke.teacher_forced_delta(params, cfg, params32, cfg32, False)
     chip_smoke.log(f"  phase 7b's delta on bf16 pages: {delta:.4f} (plain path {plain_err:.4f})")
     bars = {"real": run_scheduler_bar("real", params, cfg, params32, cfg32, delta)}
@@ -377,7 +414,9 @@ def main() -> int:
         chip_smoke.log(f"== {label}")
         _build._libs.update(libs)
         rows += run_cases(label, sources=tuple(libs))
-        if targets == ("flash_prefill",):
+        if name in MUTANT_MODEL:
+            logits_ok[label] = run_decode_logits(label, targets, *models[MUTANT_MODEL[name]])
+        elif targets == ("flash_prefill",):
             logits_ok[label] = run_prefill_logits(label, params, cfg, params32, cfg32)
         elif dtype == "bf16":
             logits_ok[label] = run_decode_logits(label, targets, params, cfg, params32, cfg32)
@@ -405,7 +444,7 @@ def main() -> int:
         "spec_over_accept", params, cfg, params32, cfg32, delta, cls=OverAcceptScheduler)
 
     chip_smoke.log("== MoE fault: top-1 serving (the first routed expert only, at gate 1)")
-    del params, params32
+    del params, params32, models
     torch.cuda.empty_cache()
     mcfg, mparams = chip_smoke.mixtral_model()
     mparams32, mcfg32 = chip_smoke.f32_twin(mparams, mcfg)
@@ -430,7 +469,7 @@ def main() -> int:
     bar_caught = {label: not bar["ok"] for label, bar in bars.items() if label != "real"}
     main_rows = {
         f"{name}/{kernel}": next(r for r in rows if r["variant"] == f"{name}-mutant"
-                                 and r["case"] == main_case(kernel, dtype))
+                                 and r["case"] == main_case(kernel, dtype, name))
         for name, (*_, targets, dtype) in MUTANTS.items() for kernel in targets
     }
     caught = {key: not r["ok"] for key, r in main_rows.items()}

@@ -4,6 +4,8 @@
     python3 chip_smoke.py      # needs one CUDA card
     python3 chip_smoke.py --phases 3,9  # a development run of some phases
                                         # (no kernels or ok line)
+    python3 chip_smoke.py --phases 3,4,13  # the kernels' shapes and the
+                                           # Qwen2 family
 
 Phases, in order (any failure raises and the script exits non-zero):
   1. device lines: torch's device name and nvidia-smi's name + power limit;
@@ -15,15 +17,18 @@ Phases, in order (any failure raises and the script exits non-zero):
      tiled, each on bf16/f32 and on int8 pages, and flash prefill) against
      its plain torch version in bf16 and f32 over edge cases (zero/one-token
      sequences, page boundaries, pages of 16/64/128 and 17 (not a multiple
-     of 4), windows, GQA groups 1-8, sequences short enough to leave splits
-     and cluster ranks empty, a window inside one split's share or inside a
-     page's second stage, prefix-hit offsets, padded chunks, per-batch
-     offsets, both flash tile plans, bf16 flash at head_dim 64 too, the
+     of 4), windows, GQA groups 1-8, 12 and 16 (two chunks of the group
+     over one kv head) at head_dim 128 and groups 1-12 at 64, sequences
+     short enough to leave splits and cluster ranks empty, a window inside
+     one split's share or inside a page's second stage, every decode case
+     again at both Qwen2.5 attention shapes (28/4 heads of 128, 14/2 of 64:
+     group 7), prefix-hit offsets, padded chunks, per-batch offsets, both
+     flash tile plans, flash at head_dim 64 and at group 7, the
      speculative verify's shape: 8 rows of 2, 5 or 9 new tokens at offsets
      that are no multiple of a tile, one offset 0, a window), the
      tiled decode against the pipelined one at f32 on both page formats, and
-     two calls of each decode kernel for bf16 q (both page formats) bit for
-     bit;
+     two calls of each decode kernel for bf16 q (both page formats, the
+     flagship's and both Qwen2.5 shapes) bit for bit;
   4. times at the main path's shapes: kernel, plain version, the card's
      bound, and SDPA as a library yardstick that the port itself never calls
      (none exists for int8 pages), each the median of 10 replays of a CUDA
@@ -34,7 +39,9 @@ Phases, in order (any failure raises and the script exits non-zero):
      graph, whose own time is subtracted); prefill at the 2,048-token chunk
      and at the serving chunk (512 new tokens after 1,024 cached), and at
      the speculative verify's shape (batch 8 x 5 new tokens after 1,503
-     cached, over the 2,048-position table);
+     cached, over the 2,048-position table); every row again at both
+     Qwen2.5 attention shapes (decode at batch 8 x 2,048 and at the serving
+     shape, prefill at the serving chunk);
   5. serving at the flagship width (1.14B Llama, bf16, random weights from a
      seeded generator): two bf16 pods and one int8-KV pod whose KV events are
      digested into one index; prefix reuse, pod ranking and kernel launch
@@ -142,6 +149,19 @@ Phases, in order (any failure raises and the script exits non-zero):
      batched, they pass phase 7b's teacher-forced bar; the batched runs' hit
      rates and TTFTs, drain and read-path times are logged. Neither phase imports zmq, msgpack, xxhash or tokenizers:
      the ZMQ hop is checked in tier-1 (tests/test_torch_zmq.py);
+  13. the Qwen2 family at its published widths, whole (no depth cut):
+     Qwen2.5-7B (28 layers, 28/4 heads of 128, 152,064 tokens, untied head)
+     and Qwen2.5-0.5B (24 layers, 14/2 heads of 64, tied head), configs
+     through the port's hf_loader.config_from_hf, seeded weights and q/k/v
+     biases, bf16. Per model: 13a, a bf16 pod and an int8 pod (page 16)
+     whose events one Indexer digests, 8 requests each of 1,024 shared +
+     512 unique tokens: cached tokens 0 then 1,024, each pod ranked first
+     for its own prefix, launches per layer pass; 13b, phase 5c's
+     prefill-logits and phase 6's batch-8 x 2,048 decode-logits checks
+     (every page format and decode kernel) against an f32 truth; 13c, phase
+     7b's traffic through the Scheduler on a bf16 pod at decode_steps 1 and
+     an int8 pod at 4 with its checks and teacher-forced bar, tokens/s and
+     tick walls logged;
   then a JSON line of details, one JSON line describing every kernel, and
   last: {"ok": true, "device": {...}}.
 """
@@ -156,6 +176,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -196,7 +217,7 @@ from llm_d_kv_cache_manager_tpu_torch.kvevents.events import (
     EventBatch,
 )
 from llm_d_kv_cache_manager_tpu_torch.kvevents.pool import EventPool, EventPoolConfig, Message
-from llm_d_kv_cache_manager_tpu_torch.models import llama, lora, mixtral
+from llm_d_kv_cache_manager_tpu_torch.models import hf_loader, llama, lora, mixtral
 from llm_d_kv_cache_manager_tpu_torch.ops import _build
 from llm_d_kv_cache_manager_tpu_torch.ops import flash_prefill as fp
 from llm_d_kv_cache_manager_tpu_torch.ops import paged_attention as pa
@@ -522,6 +543,20 @@ MAIN_CASES = {
     **{row: f"{row} bf16 page=16 window=None B=8" for row in DECODE_ROWS},
     "flash_prefill": "flash_prefill bf16 L=S=2048 off=0",
 }
+# Phase 13's models at their attention shapes (n_q, n_kv, head_dim): GQA
+# group 7 at head_dim 128 and at 64.
+QWEN_SHAPES = {"qwen2.5-7b": (28, 4, 128), "qwen2.5-0.5b": (14, 2, 64)}
+# Their cases of each kernel at the main path's shape, as MAIN_CASES.
+QWEN_MAIN_CASES = {
+    model: {**{row: f"{row} bf16 {model} B=8" for row in DECODE_ROWS},
+            "flash_prefill": f"flash_prefill bf16 {model} L=S=2048 off=0"}
+    for model in QWEN_SHAPES
+}
+# Decode groups held at head_dim 128 beside 1, 4 and 8: 3-7 in one CTA; 12
+# and 16 in two even chunks; 13 in chunks of 7 and 6 rows (a partial last
+# chunk); 64, the largest, in 8 chunks. And at head_dim 64.
+DECODE_GROUPS = (3, 5, 6, 7, 12, 13, 16, 64)
+HD64_GROUPS = (1, 2, 4, 7, 8, 12, 13)
 
 
 def verify_offsets(l: int) -> list:
@@ -550,12 +585,34 @@ def kernel_cases(gen):
                                f"{row} {tag} page={page} window={window} B={batch}",
                                run_decode(row, q, pages, tables, lens_t, window),
                                run_decode(row, q, pages, tables, lens_t, window, plain=True))
-            for n_q in (8, 32, 64):  # the other GQA groups the kernels take: 1, 4, 8
+            for n_q in (8, 32, 64):  # the other powers of two: groups 1, 4, 8
                 q, pages, tables, lens_t = decode_inputs(
                     gen, dtype, 5, SPLIT_LENS, PAGE, n_q=n_q, int8=spec["int8"])
                 yield (row, dtype, f"{row} {tag} group={n_q // N_KV}",
                        run_decode(row, q, pages, tables, lens_t),
                        run_decode(row, q, pages, tables, lens_t, plain=True))
+            # Groups of 3 to 7 rows, and groups above 8 in chunks (12: 2 x 6,
+            # 16: 2 x 8), over 4 kv heads; then head_dim 64 over 2.
+            for group, n_kv, hd in ([(g, 4, HD) for g in DECODE_GROUPS]
+                                    + [(g, 2, 64) for g in HD64_GROUPS]):
+                q, pages, tables, lens_t = decode_inputs(
+                    gen, dtype, 5, SPLIT_LENS, PAGE, n_q=group * n_kv, n_kv=n_kv, hd=hd,
+                    int8=spec["int8"])
+                yield (row, dtype, f"{row} {tag} group={group} n_kv={n_kv} hd={hd}",
+                       run_decode(row, q, pages, tables, lens_t),
+                       run_decode(row, q, pages, tables, lens_t, plain=True))
+            # The Qwen2.5 attention shapes, through the edge cases above.
+            for model, (n_q, n_kv, hd) in QWEN_SHAPES.items():
+                cases = [("B=8", [0, 1, PAGE, PAGE + 1, 2 * PAGE, 1000, 2047, 2048], PAGE, None),
+                         ("page=64 window=512 B=8", [1, 63, 64, 65, 700, 1000, 2047, 2048], 64,
+                          512), *SPLIT_CASES]
+                for name, lens, page, window in cases:
+                    q, pages, tables, lens_t = decode_inputs(
+                        gen, dtype, len(lens), lens, page, n_q=n_q, n_kv=n_kv, hd=hd,
+                        int8=spec["int8"])
+                    yield (row, dtype, f"{row} {tag} {model} {name}",
+                           run_decode(row, q, pages, tables, lens_t, window),
+                           run_decode(row, q, pages, tables, lens_t, window, plain=True))
             for name, lens, page, window in SPLIT_CASES:
                 q, pages, tables, lens_t = decode_inputs(
                     gen, dtype, len(lens), lens, page, int8=spec["int8"])
@@ -578,39 +635,53 @@ def kernel_cases(gen):
             yield ("flash_prefill", dtype,
                    f"flash_prefill {tag} group={n_q // N_KV} L=300 S=700 off=400",
                    fp.flash_prefill(q, k, v, 400), fp.dense_attention(q, k, v, 400))
-        # (name, batch, L, S, offsets, window, rows kept, n_q, head_dim). The
-        # bf16 kernel takes 128-row CTAs where that grid covers the card (the
-        # 2,048-token chunks, the 4 x 1,000 and group-8 cases), else 64-row.
+        # (name, batch, L, S, offsets, window, rows kept, n_q, n_kv, head_dim).
+        # The bf16 kernel takes 128-row CTAs where that grid covers the card
+        # (the 2,048-token chunks, the 4 x 1,000 and group-8 cases), else 64-row.
         cases = [
-            ("L=S=2048 off=0", 1, 2048, 2048, 0, None, None, N_Q, HD),
-            ("L=512 S=2048 off=1536", 1, 512, 2048, 1536, None, None, N_Q, HD),
-            ("L=512 S=2048 off=1024", 1, 512, 2048, 1024, None, None, N_Q, HD),
-            ("L=8 chunk n_valid=5 S=64 off=40", 1, 8, 64, 40, None, 5, N_Q, HD),
-            ("per-batch offsets", 3, 64, 256, [0, 100, 192], None, None, N_Q, HD),
-            ("L=S=2048 window=512", 1, 2048, 2048, 0, 512, None, N_Q, HD),
+            ("L=S=2048 off=0", 1, 2048, 2048, 0, None, None, N_Q, N_KV, HD),
+            ("L=512 S=2048 off=1536", 1, 512, 2048, 1536, None, None, N_Q, N_KV, HD),
+            ("L=512 S=2048 off=1024", 1, 512, 2048, 1024, None, None, N_Q, N_KV, HD),
+            ("L=8 chunk n_valid=5 S=64 off=40", 1, 8, 64, 40, None, 5, N_Q, N_KV, HD),
+            ("per-batch offsets", 3, 64, 256, [0, 100, 192], None, None, N_Q, N_KV, HD),
+            ("L=S=2048 window=512", 1, 2048, 2048, 0, 512, None, N_Q, N_KV, HD),
             ("B=4 L=1000 S=1500 per-batch offsets window=300", 4, 1000, 1500,
-             [0, 100, 300, 500], 300, None, N_Q, HD),
-            ("group=8 L=S=1024", 1, 1024, 1024, 0, None, None, 64, HD),
+             [0, 100, 300, 500], 300, None, N_Q, N_KV, HD),
+            ("group=8 L=S=1024", 1, 1024, 1024, 0, None, None, 64, N_KV, HD),
         ]
         # The speculative verify (verify_step_cache, k = 2, 4, 8): 8 rows of
         # L = k + 1 new tokens at per-batch offsets that are no multiple of
         # a tile, so most rows of a tile are padding and the diagonal lands
         # mid-tile; one offset of 0; a window.
         cases += [(f"verify B=8 L={l} S=2048 per-batch offsets", 8, l, 2048, verify_offsets(l),
-                   None, None, N_Q, HD) for l in (2, 5, 9)]
+                   None, None, N_Q, N_KV, HD) for l in (2, 5, 9)]
         cases += [
             ("verify B=8 L=5 S=2048 offsets with 0", 8, 5, 2048, [0] + verify_offsets(5)[1:],
-             None, None, N_Q, HD),
+             None, None, N_Q, N_KV, HD),
             ("verify B=8 L=5 S=2048 window=300", 8, 5, 2048, verify_offsets(5), 300, None,
-             N_Q, HD),
+             N_Q, N_KV, HD),
+            ("hd=64 L=S=2048 off=0", 1, 2048, 2048, 0, None, None, N_Q, N_KV, 64),
+            ("hd=64 L=300 S=700 off=400 window=200", 1, 300, 700, 400, 200, None, N_Q, N_KV, 64),
+            # Groups above 8: 13 folds 4 positions into 52 of 64 rows, 64
+            # one position a 64-row tile.
+            ("group=13 hd=64 B=2 L=200 S=600 per-batch offsets", 2, 200, 600, [100, 400], None,
+             None, 26, 2, 64),
+            ("group=64 L=100 S=300 off=200 window=150", 1, 100, 300, 200, 150, None, 64, 1, HD),
         ]
-        if dtype == torch.bfloat16:  # the f32 kernel is built for head_dim 128 only
+        # A group of 7 folds 9 positions into a 64-row tile (18 into 128
+        # rows): the two Qwen2.5 shapes at both tile plans (the 2,048-token
+        # chunk fills the card with 128-row CTAs, the serving chunk does
+        # not), per-batch offsets and a window.
+        for model, (n_q, n_kv, hd) in QWEN_SHAPES.items():
             cases += [
-                ("hd=64 L=S=2048 off=0", 1, 2048, 2048, 0, None, None, N_Q, 64),
-                ("hd=64 L=300 S=700 off=400 window=200", 1, 300, 700, 400, 200, None, N_Q, 64),
+                (f"{model} L=S=2048 off=0", 1, 2048, 2048, 0, None, None, n_q, n_kv, hd),
+                (f"{model} L=512 S=2048 off=1024", 1, 512, 2048, 1024, None, None, n_q, n_kv,
+                 hd),
+                (f"{model} B=3 L=300 S=1000 per-batch offsets window=300", 3, 300, 1000,
+                 [0, 100, 700], 300, None, n_q, n_kv, hd),
             ]
-        for name, b, l, s, off, window, n_valid, n_q, hd in cases:
-            q, k, v = flash_inputs(gen, dtype, b, l, s, n_q=n_q, hd=hd)
+        for name, b, l, s, off, window, n_valid, n_q, n_kv, hd in cases:
+            q, k, v = flash_inputs(gen, dtype, b, l, s, n_q=n_q, n_kv=n_kv, hd=hd)
             offs = off if isinstance(off, int) else torch.tensor(off, dtype=torch.int32, device="cuda")
             got = fp.flash_prefill(q, k, v, offs, window=window)
             ref = fp.dense_attention(q, k, v, offs, window=window)
@@ -622,17 +693,21 @@ def kernel_cases(gen):
 def determinism_checks(gen) -> int:
     """Two calls of each decode kernel for bf16 q (cluster merge, split and
     combine; bf16 and int8 pages) on the same inputs give the same bits (no
-    atomics; phase 6's multi-step check relies on it)."""
+    atomics; phase 6's multi-step check relies on it), at the flagship's and
+    the Qwen2.5 attention shapes."""
     n = 0
+    shapes = {"flagship": (N_Q, N_KV, HD), **QWEN_SHAPES}
     for row, spec in DECODE_ROWS.items():
-        for lens in (SPLIT_LENS, [0, 1, PAGE, PAGE + 1, 2 * PAGE, 1000, 2047, 2048]):
+        for (model, (n_q, n_kv, hd)), lens in itertools.product(
+                shapes.items(), (SPLIT_LENS, [0, 1, PAGE, PAGE + 1, 2 * PAGE, 1000, 2047, 2048])):
             q, pages, tables, lens_t = decode_inputs(gen, torch.bfloat16, len(lens), lens, PAGE,
+                                                     n_q=n_q, n_kv=n_kv, hd=hd,
                                                      int8=spec["int8"])
             first = run_decode(row, q, pages, tables, lens_t)
             second = run_decode(row, q, pages, tables, lens_t)
             torch.cuda.synchronize()
             same = torch.equal(first, second)
-            log(f"  {row} bf16 B={len(lens)}: two calls bit-identical: {same}")
+            log(f"  {row} bf16 {model} B={len(lens)}: two calls bit-identical: {same}")
             if not same:
                 raise AssertionError(f"{row}: two calls on the same inputs differ")
             n += 1
@@ -668,18 +743,21 @@ DECODE_SHAPES = {
 }
 
 
-def time_decode(gen, row: str, shape: str, plain: bool = True, n_q: int = N_Q) -> dict:
+def time_decode(gen, row: str, shape: str, plain: bool = True, n_q: int = N_Q,
+                n_kv: int = N_KV, hd: int = HD) -> dict:
     """Row `row` at a DECODE_SHAPES shape (bf16 q, page 16, n_q query heads
-    over the flagship's 8 KV heads), each call cold in L2: kernel, plain
-    version (`plain`), SDPA over pre-gathered K/V of the live positions (bf16
-    pages only; no PyTorch call attends over int8 pages), and the bound. On
-    the timed inputs the kernel is also held against its plain version
-    (max_abs_err, under phase 3's bar)."""
+    over n_kv KV heads of hd, by default the flagship's), each call cold in
+    L2: kernel, plain version (`plain`), SDPA over pre-gathered K/V of the
+    live positions (bf16 pages only; no PyTorch call attends over int8
+    pages), and the bound. On the timed inputs the kernel is also held
+    against its plain version (max_abs_err, under phase 3's bar)."""
     batch, ctx, table_ctx = DECODE_SHAPES[shape]
     int8 = DECODE_ROWS[row]["int8"]
     q, pages, tables, lens = decode_inputs(gen, torch.bfloat16, batch, [ctx] * batch,
-                                           PAGE, max_ctx=table_ctx, int8=int8, n_q=n_q)
-    err = check_close(row, f"{row} {shape} n_q={n_q}", run_decode(row, q, pages, tables, lens),
+                                           PAGE, max_ctx=table_ctx, int8=int8, n_q=n_q,
+                                           n_kv=n_kv, hd=hd)
+    label = f"{row} {shape} n_q={n_q} n_kv={n_kv} hd={hd}"
+    err = check_close(row, label, run_decode(row, q, pages, tables, lens),
                       run_decode(row, q, pages, tables, lens, plain=True), torch.bfloat16)
     kernel_ms = time_graph_ms(lambda: run_decode(row, q, pages, tables, lens), cold=True)
     plain_ms = None
@@ -689,18 +767,18 @@ def time_decode(gen, row: str, shape: str, plain: bool = True, n_q: int = N_Q) -
     library_ms = None
     if not int8:
         k, v = pages
-        kd, vd = (p[:, tables.long()].movedim(1, 0).reshape(batch, N_KV, -1, HD)[:, :, :ctx]
+        kd, vd = (p[:, tables.long()].movedim(1, 0).reshape(batch, n_kv, -1, hd)[:, :, :ctx]
                   .contiguous() for p in (k, v))
         library_ms = time_graph_ms(sdpa_gqa(q[:, :, None], kd, vd), cold=True)
     live = int(lens.sum())
-    kv_row_bytes = HD * (1 if int8 else 2) + (4 if int8 else 0)  # values (+ scale)
+    kv_row_bytes = hd * (1 if int8 else 2) + (4 if int8 else 0)  # values (+ scale)
     live_pages = batch * -(-ctx // PAGE)
-    nbytes = 2 * live * N_KV * kv_row_bytes + 2 * batch * n_q * HD * 2 + live_pages * 4
+    nbytes = 2 * live * n_kv * kv_row_bytes + 2 * batch * n_q * hd * 2 + live_pages * 4
     out = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-               **_bound(nbytes, 4 * live * n_q * HD), mbytes=nbytes / 1e6, max_abs_err=err)
+               **_bound(nbytes, 4 * live * n_q * hd), mbytes=nbytes / 1e6, max_abs_err=err)
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
     plain_txt = "" if plain_ms is None else f", plain {plain_ms:.4f} ms"
-    log(f"  {row} {shape} page={PAGE} n_q={n_q}: kernel {kernel_ms:.4f} ms "
+    log(f"  {label} page={PAGE}: kernel {kernel_ms:.4f} ms "
         f"({nbytes / kernel_ms / 1e6:.1f} GB/s){plain_txt}, SDPA {lib}, bound "
         f"{out['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB)")
     return out
@@ -725,7 +803,18 @@ def phase_times(gen) -> tuple:
                              for row in ("paged_decode", "paged_decode_int8")}
                      for shape in ("B=8 ctx=2048", "B=1 ctx=1536 table=2048")}
     mixtral_shape["flash_prefill serving"] = time_prefill(gen, *PREFILL_SERVING_SHAPE, n_q=n_q)
-    return main, decode, serving, verify, mixtral_shape
+    # Phase 13's models at their attention shapes: every row, at the batch-8
+    # and the serving decode shapes and at the serving prefill chunk.
+    qwen_shapes = {}
+    for model, (n_q, n_kv, hd) in QWEN_SHAPES.items():
+        log(f"  at the {model} attention shape (n_q {n_q}, n_kv {n_kv}, head_dim {hd})")
+        shapes = {shape: {row: time_decode(gen, row, shape, n_q=n_q, n_kv=n_kv, hd=hd)
+                          for row in DECODE_ROWS}
+                  for shape in ("B=8 ctx=2048", "B=1 ctx=1536 table=2048")}
+        shapes["flash_prefill serving"] = time_prefill(gen, *PREFILL_SERVING_SHAPE, n_q=n_q,
+                                                       n_kv=n_kv, hd=hd)
+        qwen_shapes[model] = shapes
+    return main, decode, serving, verify, mixtral_shape, qwen_shapes
 
 
 # The prefill call of a prefix-hit request in phase 5: 512 new tokens after
@@ -734,15 +823,17 @@ def phase_times(gen) -> tuple:
 PREFILL_SERVING_SHAPE = (512, 2048, 1024)
 
 
-def time_prefill(gen, l: int, s: int, off: int, n_q: int = N_Q) -> dict:
+def time_prefill(gen, l: int, s: int, off: int, n_q: int = N_Q, n_kv: int = N_KV,
+                 hd: int = HD) -> dict:
     """Row 5 at L new tokens after `off` cached, S positions of K/V (bf16,
-    n_q query heads over the flagship's 8 KV heads): kernel, plain version,
-    SDPA (is_causal where off == 0 and L == S, else a lower-right causal bias
-    over the first off + L keys, the same function), and the bound over the
-    keys the mask keeps. On the timed inputs the kernel is also held against
-    its plain version."""
-    q, k, v = flash_inputs(gen, torch.bfloat16, 1, l, s, n_q=n_q)
-    err = check_close("flash_prefill", f"flash_prefill L={l} S={s} off={off} n_q={n_q}",
+    n_q query heads over n_kv KV heads of hd, by default the flagship's):
+    kernel, plain version, SDPA (is_causal where off == 0 and L == S, else a
+    lower-right causal bias over the first off + L keys, the same function),
+    and the bound over the keys the mask keeps. On the timed inputs the
+    kernel is also held against its plain version."""
+    q, k, v = flash_inputs(gen, torch.bfloat16, 1, l, s, n_q=n_q, n_kv=n_kv, hd=hd)
+    label = f"flash_prefill L={l} S={s} off={off} n_q={n_q} n_kv={n_kv} hd={hd}"
+    err = check_close("flash_prefill", label,
                       fp.flash_prefill(q, k, v, off), fp.dense_attention(q, k, v, off),
                       torch.bfloat16)
     kernel_ms = time_graph_ms(lambda: fp.flash_prefill(q, k, v, off))
@@ -765,12 +856,12 @@ def time_prefill(gen, l: int, s: int, off: int, n_q: int = N_Q) -> dict:
         else:
             library_ms = time_graph_ms(sdpa)
     keys = min(s, off + l)
-    flops = 4 * causal_pairs(l, s, [off], None) * n_q * HD
-    nbytes = (2 * l * n_q * HD + 2 * keys * N_KV * HD) * 2
+    flops = 4 * causal_pairs(l, s, [off], None) * n_q * hd
+    nbytes = (2 * l * n_q * hd + 2 * keys * n_kv * hd) * 2
     out = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, **_bound(nbytes, flops),
                gflop=flops / 1e9, max_abs_err=err)
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-    log(f"  flash_prefill L={l} S={s} off={off} n_q={n_q}: kernel {kernel_ms:.4f} ms "
+    log(f"  {label}: kernel {kernel_ms:.4f} ms "
         f"({flops / kernel_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, {library_note} "
         f"{lib}, bound {out['bound_ms']:.4f} ms ({flops / 1e9:.2f} GFLOP)")
     return out
@@ -1404,9 +1495,11 @@ FLAGSHIP_RUNS = (("bf16", False, 1), ("bf16", False, 4), ("int8", True, 4))
 def dense_logits(cfg, params, tokens, first: int) -> torch.Tensor:
     """A plain causal forward over one whole sequence, with no cache and no
     pages (the teacher-forced truth, at f32), of either model family
-    (`forward_dense`, the tests' oracle): logits at positions first.."""
-    forward = mixtral.forward_dense if llama.is_moe_config(cfg) else llama.forward_dense
-    return forward(cfg, params, tokens[None])[0, first:]
+    (`forward_dense`, the tests' oracle): logits at positions first.. (the
+    dense family's head runs on those rows only)."""
+    if llama.is_moe_config(cfg):
+        return mixtral.forward_dense(cfg, params, tokens[None])[0, first:]
+    return llama.forward_dense(cfg, params, tokens[None], first=first)[0]
 
 
 def teacher_forced_bar(params32, cfg32, traffic, requests, delta: float,
@@ -1468,13 +1561,12 @@ def flagship_run(params, cfg, int8: bool, decode_steps: int, eos_token, model: s
 
 
 def flagship_scheduler_check(params, cfg, params32, cfg32, int8: bool, decode_steps: int,
-                             delta: float) -> dict:
-    """Phase 7b on one pod: a probe run finds a token the EOS request
-    reaches (the first after its third that it has not emitted before; the
-    pods are deterministic), then the recorded run with that EOS on a fresh
-    pod, its checks and the teacher-forced bar."""
-    tag = f"{'int8' if int8 else 'bf16'} pages, decode_steps {decode_steps}"
-    model = "llama-flagship-1.14b"
+                             delta: float, model: str = "llama-flagship-1.14b") -> dict:
+    """Phase 7b on one pod of `model`: a probe run finds a token the EOS
+    request reaches (the first after its third that it has not emitted
+    before; the pods are deterministic), then the recorded run with that EOS
+    on a fresh pod, its checks and the teacher-forced bar."""
+    tag = f"{model}, {'int8' if int8 else 'bf16'} pages, decode_steps {decode_steps}"
     probe = flagship_run(params, cfg, int8, decode_steps, None, model)
     out = probe[0]["tokens"][EOS_REQUEST]
     eos = next((t for j, t in enumerate(out) if j >= 3 and t not in out[:j]), None)
@@ -1526,7 +1618,7 @@ def flagship_scheduler_check(params, cfg, params32, cfg32, int8: bool, decode_st
         f"cached tokens {cached}; index score for the prefix {scores}; preemptions "
         f"{r['preemptions']}")
     log(f"    layer passes {passes}; launches {{{row}: {launches[row]}, flash_prefill: "
-        f"{launches['flash_prefill']}}} (16 per pass)")
+        f"{launches['flash_prefill']}}} ({cfg.n_layers} per pass)")
     log(f"    teacher-forced bar: greedy worst {bar['worst']['greedy']:.4f}, sampled worst "
         f"{bar['worst']['sampled']:.4f} (delta {delta:.4f}; {bar['tokens_checked']} tokens) "
         f"{'ok' if bar['ok'] else 'FAIL'}")
@@ -3432,14 +3524,201 @@ def phase_fleet(params, cfg, seed: int) -> dict:
     return out
 
 
+
+# -- phase 13: the Qwen2 family at published widths ---------------------------
+
+# The config.json fields of Qwen/Qwen2.5-7B and Qwen/Qwen2.5-0.5B that the
+# port's hf_loader.config_from_hf reads, as plain attribute objects (the card
+# has no transformers, and nothing is downloaded). Both are served whole:
+# no depth cut.
+QWEN_HF = {
+    "qwen2.5-7b": dict(
+        model_type="qwen2", hidden_size=3584, intermediate_size=18944, num_hidden_layers=28,
+        num_attention_heads=28, num_key_value_heads=4, vocab_size=152064,
+        rope_theta=1000000.0, rms_norm_eps=1e-6, max_position_embeddings=131072,
+        use_sliding_window=False, sliding_window=131072, max_window_layers=28,
+        tie_word_embeddings=False),
+    "qwen2.5-0.5b": dict(
+        model_type="qwen2", hidden_size=896, intermediate_size=4864, num_hidden_layers=24,
+        num_attention_heads=14, num_key_value_heads=2, vocab_size=151936,
+        rope_theta=1000000.0, rms_norm_eps=1e-6, max_position_embeddings=32768,
+        use_sliding_window=False, sliding_window=32768, max_window_layers=24,
+        tie_word_embeddings=True),
+}
+# The q/k/v biases are drawn (init_params makes them 0, which would leave the
+# biased path unchecked): normal with these deviations, beside projections of
+# about 1.2 (7B) and 0.6 (0.5B) per element. A v bias passes through the
+# softmax whole (the weights sum to 1), so every position gains the same
+# vector; a large one would make the random model's output nearly the same at
+# every position. q and k biases move the attention weights only.
+QWEN_BIAS_STD = {"bq": 0.5, "bk": 0.5, "bv": 0.05}
+QWEN_RUNS = (("bf16", False, 1), ("int8", True, 4))  # 13c: page format, decode_steps
+
+
+def qwen_model(name: str, seed: int = 0) -> tuple:
+    """(config, params) of a phase 13 model on the card: the config through
+    config_from_hf, seeded init_params, seeded biases, and for a tied
+    checkpoint the head as the embedding's transpose (one tensor)."""
+    hf = types.SimpleNamespace(**QWEN_HF[name])
+    cfg = hf_loader.config_from_hf(hf)
+    if (cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim) != QWEN_SHAPES[name] or not cfg.attn_bias \
+            or cfg.sliding_window is not None:
+        raise AssertionError(f"{name}: config_from_hf gave {cfg}")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = llama.init_params(cfg, gen, "cuda")
+    for key, std in QWEN_BIAS_STD.items():
+        params["layers"][key].normal_(0.0, std, generator=gen)
+    if hf.tie_word_embeddings:
+        params["out"] = params["embed"].t()
+    return cfg, params
+
+
+def qwen_prefixes(name: str, vocab: int) -> dict:
+    """13a's traffic: for each pod, a 1,024-token prefix of its own and 8
+    prompts of it + 512 unique tokens."""
+    rng = np.random.default_rng(131 if name == "qwen2.5-7b" else 137)
+    out = {}
+    for fmt in ("bf16", "int8"):
+        prefix = rng.integers(0, vocab, 1024).tolist()
+        out[fmt] = (prefix, [prefix + rng.integers(0, vocab, 512).tolist() for _ in range(8)])
+    return out
+
+
+def qwen_serving(name: str, params, cfg) -> dict:
+    """Phase 13a: a bf16 pod and an int8 pod (page 16) whose BlockStored
+    streams one Indexer digests; each serves its 8 prompts one at a time
+    (prefill, then 8 greedy decode steps). Cached tokens 0, then 1,024;
+    finite logits, tokens in the vocabulary; each pod ranked first for a
+    prompt on its own prefix; launches = one per layer pass of each call
+    (CallCounter)."""
+    index, indexer = moe_indexer()
+    traffic = qwen_prefixes(name, cfg.vocab_size)
+    out, failures = {}, []
+    for fmt, int8 in (("bf16", False), ("int8", True)):
+        pod_id = f"pod-{name}-{fmt}"
+        pod = EnginePod(
+            EnginePodConfig(pod_id=pod_id, model_name=name, n_pages=1024, page_size=PAGE,
+                            device_tier="gpu", max_pages_per_seq=256, model_config=cfg,
+                            device="cuda", use_quantized_kv=int8),
+            event_sink=lambda b, pid=pod_id: digest_batch(index, indexer.token_processor, pid,
+                                                          name, b),
+            params=params)
+        reset_launch_counts()
+        cached, ttfts = [], []
+        with CallCounter() as counter:
+            for r, tokens in enumerate(traffic[fmt][1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, n_cached = pod.prefill(tokens)
+                first = int(torch.argmax(pod.last_logits))
+                ttfts.append(time.perf_counter() - t0)
+                if not torch.isfinite(pod.last_logits).all():
+                    failures.append(f"{fmt} request {r}: non-finite prefill logits")
+                pod.decode_append(state, first)
+                generated = [first] + [pod.decode_step(state) for _ in range(8)]
+                if not all(0 <= t < cfg.vocab_size for t in generated):
+                    failures.append(f"{fmt} request {r}: token out of vocabulary")
+                cached.append(n_cached)
+                pod.free(state)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        if cached != [0] + [1024] * 7:
+            failures.append(f"{fmt}: cached tokens {cached}")
+        passes = counter.layer_passes()
+        if launches != counter.kernels or not passes["decode"] or not passes["prefill"]:
+            failures.append(f"{fmt}: launches {launches}, expected {counter.kernels}")
+        log(f"  13a {name} {fmt} pod: cached {cached}; prefix-hit TTFT "
+            f"{min(ttfts[1:]) * 1e3:.2f}-{max(ttfts[1:]) * 1e3:.2f} ms; layer passes {passes}; "
+            f"launches {launches}")
+        out[fmt] = dict(cached=cached, ttft_ms=[t * 1e3 for t in ttfts], launches=launches,
+                        layer_passes=passes)
+        del pod
+        torch.cuda.empty_cache()
+    scores = {}
+    for fmt in ("bf16", "int8"):
+        probe = traffic[fmt][0] + np.random.default_rng(5).integers(0, cfg.vocab_size,
+                                                                    256).tolist()
+        scores[fmt] = chain_scores(indexer, probe, name)
+        best = max(scores[fmt], key=scores[fmt].get) if scores[fmt] else None
+        log(f"  13a {name}: index scores for the {fmt} pod's prefix: {scores[fmt]}")
+        if best != f"pod-{name}-{fmt}" or scores[fmt][best] != 1024 // PAGE:
+            failures.append(f"the {fmt} prefix ranks {best} first: {scores[fmt]}")
+    if failures:
+        raise AssertionError(f"phase 13a ({name}): {failures}")
+    out["scores"] = scores
+    return out
+
+
+def qwen_logits(name: str, params, cfg, params32, cfg32) -> dict:
+    """Phase 13b: phase 5c's prefill-logits check and phase 6's batch-8 x
+    2,048 decode-logits check of every (page format, decode kernel) pair, on
+    the model at its full depth. The truth computes logits only at the rows
+    the checks read."""
+    out = {"prefill": prefill_logits_check(params, cfg, params32, cfg32)}
+    for int8 in (False, True):
+        for pipelined in (True, False):
+            r = batched_decode_check(params, cfg, params32, cfg32, int8, pipelined)
+            del r["cache"], r["inputs"]
+            out[r["row"]] = r
+    torch.cuda.empty_cache()
+    failed = [k for k, r in out.items() if not r["ok"]]
+    if failed:
+        raise AssertionError(f"phase 13b ({name}): logits fail their bars: {failed}")
+    return out
+
+
+def phase_qwen() -> dict:
+    log("== phase 13: Qwen2.5-7B and Qwen2.5-0.5B at their published widths (bf16, seeded "
+        "weights and q/k/v biases): prefix reuse and routing, logits against an f32 truth, "
+        "the Scheduler")
+    out = {}
+    for name in QWEN_HF:
+        t0 = time.perf_counter()
+        cfg, params = qwen_model(name)
+        n_params = sum(w.numel() for w in params["layers"].values()) + sum(
+            params[k].numel() for k in ("embed", "final_norm")) + (
+            0 if QWEN_HF[name]["tie_word_embeddings"] else params["out"].numel())
+        log(f"  {name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_q_heads}/"
+            f"{cfg.n_kv_heads} of {cfg.head_dim}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B "
+            f"params ({n_params * 2 / 1e9:.2f} GB bf16)")
+        params32, cfg32 = f32_twin(params, cfg)
+        r = dict(n_params=n_params, serving=qwen_serving(name, params, cfg),
+                 logits=qwen_logits(name, params, cfg, params32, cfg32))
+        for fmt, int8, steps in QWEN_RUNS:
+            delta, e = teacher_forced_delta(params, cfg, params32, cfg32, int8)
+            log(f"  13c {name} {fmt} pages: bf16 plain path vs f32 truth {e:.4f}; delta "
+                f"{delta:.4f}")
+            s = flagship_scheduler_check(params, cfg, params32, cfg32, int8, steps, delta,
+                                         model=name)
+            r[f"scheduler {fmt} steps{steps}"] = dict(s, plain_err=e)
+            if not s["ok"]:
+                raise AssertionError(f"phase 13c ({name}, {fmt}): {s['failures']}")
+        r["seconds"] = time.perf_counter() - t0
+        log(f"  {name}: phase 13 took {r['seconds']:.1f} s")
+        out[name] = r
+        del params, params32
+        torch.cuda.empty_cache()
+    # Rows 1, 2 and 5 on 13a's pods and 13c's scheduler runs; rows 3 and 4
+    # on 13b's tiled decode steps; both models.
+    out["launches"] = {
+        row: sum(out[m]["serving"][fmt]["launches"][row] for m in QWEN_HF for fmt in ("bf16",
+                                                                                       "int8"))
+        + sum(out[m][f"scheduler {fmt} steps{steps}"]["launches"][row]
+              for m in QWEN_HF for fmt, _, steps in QWEN_RUNS)
+        + sum(out[m]["logits"][row]["launches"] for m in QWEN_HF
+              if row in out[m]["logits"])
+        for row in KERNELS}
+    log(f"  phase 13 launches: {out['launches']}")
+    return out
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=None,
                         help="comma-separated phases to run after the build (3 4 5 5b 5c 6 7a "
-                        "7b 8a 8 9a 9b 10a 10b 11a 11b 12a 12b; 9b and 10b run 7b's deltas "
-                        "first); a partial run prints no kernels or ok line")
+                        "7b 8a 8 9a 9b 10a 10b 11a 11b 12a 12b 13; 9b and 10b run 7b's "
+                        "deltas first); a partial run prints no kernels or ok line")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of phase 12's events, prompts and traffic")
     args = parser.parse_args(argv)
@@ -3471,7 +3750,8 @@ def main(argv=None) -> int:
     if args.phases is not None:
         return partial_run(args.phases.split(","), gen, cfg, args.seed)
     errs = phase_kernel_checks(gen)
-    times, decode_times, prefill_serving, verify_time, mixtral_times = phase_times(gen)
+    times, decode_times, prefill_serving, verify_time, mixtral_times, qwen_times = \
+        phase_times(gen)
 
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     n_params = sum(w.numel() for w in params["layers"].values()) + sum(
@@ -3500,14 +3780,17 @@ def main(argv=None) -> int:
     fleet = phase_fleet(params, cfg, args.seed)
     del params
     torch.cuda.empty_cache()
+    qwen = phase_qwen()
 
     # Rows 1, 2 and 5 are counted on the serving path (phase 5), on the
     # scheduler's path (phase 7b's recorded runs, summed), on the host
     # tier's (phase 8b-8d), on multi-LoRA's (phase 9b), on speculative
     # decoding's (phase 10b's scheduler runs) and on the MoE family's
     # (phase 11b's scheduler runs) and on the fleet's (phase 12b's four pods,
-    # both policies; bf16 pages only); rows 3 and 4 (the tiled decode entry) on
-    # phase 6's and phase 11b's tiled decode steps.
+    # both policies; bf16 pages only) and on the Qwen2 family's (phase 13a's
+    # pods and 13c's scheduler runs, both models); rows 3 and 4 (the tiled
+    # decode entry) on phase 6's, phase 11b's and phase 13b's tiled decode
+    # steps.
     runs = [sched[f"{fmt} steps{steps}"] for fmt, _, steps in FLAGSHIP_RUNS]
     by_path = {name: {"serving": serving["launches"][name],
                       "scheduler": sum(r["launches"][name] for r in runs),
@@ -3515,11 +3798,13 @@ def main(argv=None) -> int:
                       "lora": lora_flagship["launches"][name],
                       "speculative": spec["launches"][name],
                       "moe": moe["launches"][name],
-                      "fleet": fleet["launches"][name]}
+                      "fleet": fleet["launches"][name],
+                      "qwen": qwen["launches"][name]}
                for name in ("paged_decode", "paged_decode_int8", "flash_prefill")}
     for row in ("paged_decode_tiled", "paged_decode_tiled_int8"):
         by_path[row] = {"batched_decode": batched["checks"][row]["launches"],
-                        "moe_batched_decode": moe["logits"][row]["launches"]}
+                        "moe_batched_decode": moe["logits"][row]["launches"],
+                        "qwen_batched_decode": qwen["launches"][row]}
     kernels = [
         dict(
             name=name, route="cuda",
@@ -3541,6 +3826,7 @@ def main(argv=None) -> int:
                     "speculative_small": spec_small, "speculative": spec,
                     "mixtral_attention_shape": mixtral_times, "moe_small": moe_small, "moe": moe,
                     "control_plane": control, "fleet": fleet,
+                    "qwen_attention_shapes": qwen_times, "qwen": qwen,
                     "build_s": build_s, "run_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3559,7 +3845,7 @@ def partial_run(phases, gen, cfg, seed: int = 0) -> int:
     if "4" in phases:
         out["times"] = phase_times(gen)
     params = None
-    if any(p not in ("3", "4", "5b", "7a", "8a", "9a", "10a", "11a", "11b", "12a")
+    if any(p not in ("3", "4", "5b", "7a", "8a", "9a", "10a", "11a", "11b", "12a", "13")
            for p in phases):
         params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     steps = {
@@ -3585,10 +3871,13 @@ def partial_run(phases, gen, cfg, seed: int = 0) -> int:
             out["9b"] = phase_lora_flagship(params, cfg, deltas)
         if "10b" in phases:
             out["10b"] = phase_spec_flagship(params, cfg, deltas)
-    if "11b" in phases:
+    if "11b" in phases or "13" in phases:
         del params
         torch.cuda.empty_cache()
+    if "11b" in phases:
         out["11b"] = phase_moe_flagship()
+    if "13" in phases:
+        out["13"] = phase_qwen()
     log(json.dumps(out, default=str))
     log(f"partial run of phases {phases}: {time.perf_counter() - t_start:.1f} s")
     return 0

@@ -59,7 +59,15 @@
 // two consumer warpgroups in ping-pong behind mbarriers.
 //
 // The f32 instantiation (checks and small f32 pods) keeps the first port's
-// CUDA-core structure: scores, probabilities and output in shared memory.
+// CUDA-core structure: scores, probabilities and output in shared memory,
+// at head_dim 64 and 128 like the bf16 kernel.
+//
+// GQA: a group of g query heads folds into a tile's rows as (position, head)
+// pairs, floor(R / g) positions a CTA of R = 64 or 128 rows (a group of 7:
+// 9 positions in 63 of 64 rows, or 18 in 126 of 128; the rest are dead rows),
+// for any g up to 64. A warpgroup's 64 rows may then split a position's
+// heads between the two warpgroups of a CTA; each warpgroup's key range
+// covers every position it holds a row of.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -753,7 +761,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* offs
 // q [batch, q_len, n_q, head_dim]; k/v [batch, kv_len, n_kv, head_dim];
 // offsets [batch] int32 causal offsets on the device, or null for one
 // `offset` shared by every batch row; out like q. window < 0: no sliding
-// window. dtype 0 = f32 (head_dim 128), 1 = bf16 (head_dim 64 or 128).
+// window. dtype 0 = f32, 1 = bf16, each at head_dim 64 or 128; n_q / n_kv
+// (the GQA group) at most 64.
 // Returns the launch's cudaError_t.
 extern "C" int kvt_flash_prefill(const void* q, const void* k, const void* v,
                                  const void* offsets, int offset, void* out, int batch,
@@ -774,6 +783,9 @@ extern "C" int kvt_flash_prefill(const void* q, const void* k, const void* v,
   } else if (dtype == 0 && head_dim == 128) {
     err = f32::launch<128>(q, k, v, offsets, offset, out, batch, q_len, kv_len, n_q, n_kv, window,
                            scale, s);
+  } else if (dtype == 0 && head_dim == 64) {
+    err = f32::launch<64>(q, k, v, offsets, offset, out, batch, q_len, kv_len, n_q, n_kv, window,
+                          scale, s);
   }
   return static_cast<int>(err);
 }

@@ -41,6 +41,12 @@
 // f32 q (on f32 or int8 pages, the checking paths) keeps the first port's
 // design: one CTA per (sequence, kv head) over the body of
 // paged_decode_common.cuh.
+//
+// Shapes: head_dim 64 or 128, any GQA group up to 64. A group above 8 runs
+// as chunks of at most 8 query heads over the same kv head
+// (paged_decode_common.cuh, `rows_of`): one more cluster (bf16 q) or CTA
+// (f32 q) per chunk, each reading the kv head's pages again, so group 12
+// moves twice the K/V bytes of one pass.
 
 #include <cooperative_groups.h>
 
@@ -49,50 +55,53 @@
 
 namespace {
 
-template <typename TQ, typename TKV, int HD, int GROUP>
+template <typename TQ, typename TKV, int HD, int ROWS>
 __global__ void __launch_bounds__(HD) paged_decode_kernel(
     const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
     const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int* __restrict__ block_tables,
-    const int* __restrict__ seq_lens, TQ* __restrict__ out, int n_q,
+    const int* __restrict__ seq_lens, TQ* __restrict__ out, int n_q, int group,
     int n_pages, int page_size, int table_width, int window, float scale) {
   const int b = blockIdx.x;
-  const int h = blockIdx.y;
+  const ChunkRows c = chunk_rows<ROWS>(blockIdx.y, group);
   const int seq_len = seq_lens[b];
   // Positions past the table do not exist, as in the plain version's gather.
   const int kv_len = min(seq_len, table_width * page_size);
   const int first_page = window < 0 ? 0 : max(seq_len - window, 0) / page_size;
   const int win_lo = window < 0 ? 0 : seq_len - window;
-  const size_t q0 = (static_cast<size_t>(b) * n_q + h * GROUP) * HD;
+  const size_t q0 = (static_cast<size_t>(b) * n_q + c.row0) * HD;
 
-  float acc[GROUP], m[GROUP], l[GROUP];
-  attend_range<TQ, TKV, HD, GROUP>(
+  float acc[ROWS], m[ROWS], l[ROWS];
+  attend_range<TQ, TKV, HD, ROWS>(
       q + q0, k_pages, v_pages, k_scales, v_scales,
       block_tables + static_cast<size_t>(b) * table_width,
-      static_cast<size_t>(h) * n_pages, n_pages, page_size,
-      first_page * page_size, kv_len, win_lo, scale, acc, m, l);
+      static_cast<size_t>(c.h) * n_pages, n_pages, page_size,
+      first_page * page_size, kv_len, win_lo, scale, c.n_rows, acc, m, l);
 
 #pragma unroll
-  for (int g = 0; g < GROUP; ++g) {
-    out[q0 + g * HD + threadIdx.x] = from_f<TQ>(acc[g] / (l[g] == 0.f ? 1.f : l[g]));
+  for (int g = 0; g < ROWS; ++g) {
+    if (g < c.n_rows) {
+      out[q0 + g * HD + threadIdx.x] = from_f<TQ>(acc[g] / (l[g] == 0.f ? 1.f : l[g]));
+    }
   }
 }
 
 // bf16 q on TKV (bf16 or int8) pages: rank blockIdx.x of the cluster of
-// (sequence blockIdx.z, kv head blockIdx.y) attends over its share of the
-// live pages; the cluster then merges through distributed shared memory.
-template <typename TKV, int HD, int GROUP>
+// (sequence blockIdx.z, kv head and chunk blockIdx.y) attends over its share
+// of the live pages; the cluster then merges through distributed shared
+// memory.
+template <typename TKV, int HD, int ROWS>
 __global__ void __launch_bounds__(sm90::kThreads, 2) paged_decode_cluster_kernel(
     const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k_pages,
     const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int* __restrict__ block_tables,
-    const int* __restrict__ seq_lens, __nv_bfloat16* __restrict__ out, int n_q, int n_pages,
-    int page_size, int table_width, int window, float scale_log2) {
+    const int* __restrict__ seq_lens, __nv_bfloat16* __restrict__ out, int n_q, int group,
+    int n_pages, int page_size, int table_width, int window, float scale_log2) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int n_ranks = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const int h = blockIdx.y;
+  const ChunkRows c = chunk_rows<ROWS>(blockIdx.y, group);
   const int b = blockIdx.z;
   const int seq_len = seq_lens[b];
   // Positions past the table do not exist, as in the plain version's gather.
@@ -103,31 +112,33 @@ __global__ void __launch_bounds__(sm90::kThreads, 2) paged_decode_cluster_kernel
   const int per_rank = (max(n_seq_pages - first_page, 0) + n_ranks - 1) / n_ranks;
   const int lo_page = first_page + rank * per_rank;
   const int hi_page = min(lo_page + per_rank, n_seq_pages);
-  const size_t q0 = (static_cast<size_t>(b) * n_q + h * GROUP) * HD;
+  const size_t q0 = (static_cast<size_t>(b) * n_q + c.row0) * HD;
 
-  const float* part = sm90::attend_range<__nv_bfloat16, TKV, HD, GROUP>(
+  const float* part = sm90::attend_range<__nv_bfloat16, TKV, HD, ROWS>(
       q + q0, k_pages, v_pages, k_scales, v_scales,
-      block_tables + static_cast<size_t>(b) * table_width, static_cast<size_t>(h) * n_pages,
+      block_tables + static_cast<size_t>(b) * table_width, static_cast<size_t>(c.h) * n_pages,
       n_pages, page_size, lo_page * page_size, min(hi_page * page_size, kv_len), win_lo,
-      scale_log2);
+      scale_log2, c.n_rows);
 
   cluster.sync();  // every rank's partial is in its shared memory
+  // Each rank merges HD / n_ranks columns (the cluster, a power of two up to
+  // 8, divides 64 and 128).
   const int cols = HD / n_ranks;
-  for (int i = threadIdx.x; i < GROUP * cols; i += blockDim.x) {
+  for (int i = threadIdx.x; i < c.n_rows * cols; i += blockDim.x) {
     const int g = i / cols;
     const int col = rank * cols + i % cols;
     float mm = -INFINITY;
     for (int r = 0; r < n_ranks; ++r) {
-      mm = fmaxf(mm, cluster.map_shared_rank(part, r)[GROUP * HD + g]);
+      mm = fmaxf(mm, cluster.map_shared_rank(part, r)[ROWS * HD + g]);
     }
     float ll = 0.f, a = 0.f;
     if (mm != -INFINITY) {
       for (int r = 0; r < n_ranks; ++r) {
         const float* pr = cluster.map_shared_rank(part, r);
-        const float mr = pr[GROUP * HD + g];
+        const float mr = pr[ROWS * HD + g];
         if (mr == -INFINITY) continue;  // a rank with no live position
         const float f = exp2f(mr - mm);
-        ll = fmaf(f, pr[GROUP * HD + GROUP + g], ll);
+        ll = fmaf(f, pr[ROWS * HD + ROWS + g], ll);
         a = fmaf(f, pr[g * HD + col], a);
       }
     }
@@ -145,32 +156,32 @@ struct Args {
   const int* bt;
   const int* sl;
   void* out;
-  int batch, n_q, n_kv, n_pages, page_size, table_width, window, cluster;
+  int batch, n_q, n_kv, group, n_pages, page_size, table_width, window, cluster;
   float scale;
   cudaStream_t stream;
 };
 
-// f32 q: one CTA per (sequence, kv head).
-template <typename TQ, typename TKV, int HD, int GROUP>
+// f32 q: one CTA per (sequence, kv head, chunk).
+template <typename TQ, typename TKV, int HD, int ROWS>
 cudaError_t launch(const Args& a) {
-  const int smem = static_cast<int>(DecodeSmem<TKV, HD, GROUP>::bytes);
-  auto kernel = paged_decode_kernel<TQ, TKV, HD, GROUP>;
+  const int smem = static_cast<int>(DecodeSmem<TKV, HD, ROWS>::bytes);
+  auto kernel = paged_decode_kernel<TQ, TKV, HD, ROWS>;
   static std::atomic<unsigned> attributes_set{0};
   const cudaError_t attr = sm90::set_attributes(kernel, smem, attributes_set);
   if (attr != cudaSuccess) return attr;
-  kernel<<<dim3(a.batch, a.n_kv), HD, smem, a.stream>>>(
+  kernel<<<dim3(a.batch, a.n_kv * n_chunks_of(a.group)), HD, smem, a.stream>>>(
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), a.ks, a.vs, a.bt, a.sl,
-      static_cast<TQ*>(a.out), a.n_q, a.n_pages, a.page_size, a.table_width,
+      static_cast<TQ*>(a.out), a.n_q, a.group, a.n_pages, a.page_size, a.table_width,
       a.window, a.scale);
   return cudaGetLastError();
 }
 
-// bf16 q: one cluster of `a.cluster` CTAs per (sequence, kv head).
-template <typename TKV, int HD, int GROUP>
+// bf16 q: one cluster of `a.cluster` CTAs per (sequence, kv head, chunk).
+template <typename TKV, int HD, int ROWS>
 cudaError_t launch_cluster(const Args& a) {
-  constexpr int smem = sm90::Smem<TKV, HD, GROUP>::bytes;
-  auto kernel = paged_decode_cluster_kernel<TKV, HD, GROUP>;
+  constexpr int smem = sm90::Smem<TKV, HD, ROWS>::bytes;
+  auto kernel = paged_decode_cluster_kernel<TKV, HD, ROWS>;
   static std::atomic<unsigned> attributes_set{0};
   cudaError_t err = sm90::set_attributes(kernel, smem, attributes_set);
   if (err != cudaSuccess) return err;
@@ -180,7 +191,7 @@ cudaError_t launch_cluster(const Args& a) {
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.cluster, a.n_kv, a.batch);
+  cfg.gridDim = dim3(a.cluster, a.n_kv * n_chunks_of(a.group), a.batch);
   cfg.blockDim = dim3(sm90::kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = a.stream;
@@ -189,31 +200,24 @@ cudaError_t launch_cluster(const Args& a) {
   err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const __nv_bfloat16*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), a.ks, a.vs, a.bt, a.sl, static_cast<__nv_bfloat16*>(a.out),
-      a.n_q, a.n_pages, a.page_size, a.table_width, a.window, a.scale * 1.4426950408889634f);
+      a.n_q, a.group, a.n_pages, a.page_size, a.table_width, a.window,
+      a.scale * 1.4426950408889634f);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <typename TQ, typename TKV>
-cudaError_t dispatch_group(int group, const Args& a) {
-  switch (group) {
-    case 1: return launch<TQ, TKV, 128, 1>(a);
-    case 2: return launch<TQ, TKV, 128, 2>(a);
-    case 4: return launch<TQ, TKV, 128, 4>(a);
-    case 8: return launch<TQ, TKV, 128, 8>(a);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t dispatch(int head_dim, const Args& a) {
+  return with_shape(head_dim, rows_of(a.group), [&](auto hd, auto rows) {
+    return launch<TQ, TKV, decltype(hd)::value, decltype(rows)::value>(a);
+  });
 }
 
 template <typename TKV>
-cudaError_t dispatch_cluster(int group, const Args& a) {
-  switch (group) {
-    case 1: return launch_cluster<TKV, 128, 1>(a);
-    case 2: return launch_cluster<TKV, 128, 2>(a);
-    case 4: return launch_cluster<TKV, 128, 4>(a);
-    case 8: return launch_cluster<TKV, 128, 8>(a);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t dispatch_cluster(int head_dim, const Args& a) {
+  return with_shape(head_dim, rows_of(a.group), [&](auto hd, auto rows) {
+    return launch_cluster<TKV, decltype(hd)::value, decltype(rows)::value>(a);
+  });
 }
 
 }  // namespace
@@ -221,8 +225,9 @@ cudaError_t dispatch_cluster(int group, const Args& a) {
 // q [batch, n_q, head_dim]; k/v pages [n_kv, n_pages, page_size, head_dim];
 // k/v scales [n_kv, n_pages, page_size, 1] f32 (int8 pages only, else null);
 // block_tables [batch, table_width] int32; seq_lens [batch] int32;
-// out [batch, n_q, head_dim]. window < 0: no sliding window. cluster: CTAs
-// per (sequence, kv head) for bf16 q, a power of two up to 8 (1 for f32 q).
+// out [batch, n_q, head_dim]. head_dim 64 or 128; n_q / n_kv (the GQA group)
+// at most 64. window < 0: no sliding window. cluster: CTAs per (sequence, kv
+// head, group chunk) for bf16 q, a power of two up to 8 (1 for f32 q).
 // dtype (of q and out) 0 = f32, 1 = bf16; kv_int8 0: pages in the dtype of
 // q, 1: int8 pages with scales.
 // Returns the launch's cudaError_t.
@@ -234,7 +239,8 @@ extern "C" int kvt_paged_decode(const void* q, const void* k_pages,
                                 int head_dim, int table_width, int window,
                                 int cluster, float scale, int dtype, int kv_int8,
                                 void* stream) {
-  if (head_dim != 128 || n_kv <= 0 || n_q % n_kv != 0 || page_size <= 0 ||
+  if ((head_dim != 64 && head_dim != 128) || n_kv <= 0 || n_q % n_kv != 0 ||
+      n_q / n_kv < 1 || n_q / n_kv > 64 || page_size <= 0 ||
       (kv_int8 && (k_scales == nullptr || v_scales == nullptr)) || cluster <= 0 ||
       cluster > 8 || (cluster & (cluster - 1)) || (dtype != 1 && cluster != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -242,16 +248,15 @@ extern "C" int kvt_paged_decode(const void* q, const void* k_pages,
   const Args a{q, k_pages, v_pages, static_cast<const float*>(k_scales),
                static_cast<const float*>(v_scales),
                static_cast<const int*>(block_tables),
-               static_cast<const int*>(seq_lens), out, batch, n_q, n_kv,
+               static_cast<const int*>(seq_lens), out, batch, n_q, n_kv, n_q / n_kv,
                n_pages, page_size, table_width, window, cluster, scale,
                static_cast<cudaStream_t>(stream)};
-  const int group = n_q / n_kv;
   cudaError_t err;
   if (dtype == 1) {
-    err = kv_int8 ? dispatch_cluster<int8_t>(group, a) : dispatch_cluster<__nv_bfloat16>(group, a);
+    err = kv_int8 ? dispatch_cluster<int8_t>(head_dim, a)
+                  : dispatch_cluster<__nv_bfloat16>(head_dim, a);
   } else if (dtype == 0) {
-    err = kv_int8 ? dispatch_group<float, int8_t>(group, a)
-                  : dispatch_group<float, float>(group, a);
+    err = kv_int8 ? dispatch<float, int8_t>(head_dim, a) : dispatch<float, float>(head_dim, a);
   } else {
     err = cudaErrorInvalidValue;
   }

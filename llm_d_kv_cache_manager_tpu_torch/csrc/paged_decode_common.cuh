@@ -16,6 +16,10 @@
 // ride along with 4-byte copies and stay out of the inner products:
 // score = scale_k * sum(q * k_int8), and P @ V accumulates
 // (p * scale_v) * v_int8. The softmax runs online in f32.
+//
+// Also here, for both decode sources and both bodies: how a GQA group maps
+// onto CTAs (`n_chunks_of`, `rows_of`) and the dispatch over the built
+// (head_dim, rows) instantiations (`with_shape`).
 
 #pragma once
 
@@ -25,10 +29,67 @@
 #include <stdint.h>
 
 #include <type_traits>
+#include <utility>
 
 namespace {
 
 constexpr int kChunk = 64;  // tokens staged per pipeline step
+
+// A decode CTA holds at most kMaxRows query heads (the sm90 body keeps q and
+// acc for each in registers). A GQA group above that runs as n_chunks_of
+// chunks of rows_of rows each over the same kv head, one more CTA (or
+// cluster) per chunk: group 12 as 2 x 6, 16 as 2 x 8, 13 as 2 x 7 (the last
+// chunk's seventh row does not exist). Each chunk reads the kv head's pages
+// again, so a group of g > 8 moves ceil(g / 8) times the K/V bytes of one
+// pass. ops/paged_attention.py (`group_chunks`) follows the same rule.
+constexpr int kMaxRows = 8;
+__host__ __device__ constexpr int n_chunks_of(int group) {
+  return (group + kMaxRows - 1) / kMaxRows;
+}
+__host__ __device__ constexpr int rows_of(int group) {
+  return (group + n_chunks_of(group) - 1) / n_chunks_of(group);
+}
+
+// Grid row y of a decode launch is the pair (kv head h, chunk): the chunk's
+// first query row in the sequence's q, and how many of its ROWS exist.
+struct ChunkRows {
+  int h, row0, n_rows;
+};
+template <int ROWS>
+__device__ __forceinline__ ChunkRows chunk_rows(int y, int group) {
+  const int n_chunks = n_chunks_of(group);
+  const int h = y / n_chunks;
+  const int chunk = y % n_chunks;
+  return {h, h * group + chunk * ROWS, min(ROWS, group - chunk * ROWS)};
+}
+
+// launch(std::integral_constant<int, HD>, std::integral_constant<int, ROWS>)
+// for the instantiation that serves head_dim and rows; cudaErrorInvalidValue
+// for a shape no kernel is built for.
+template <int ROWS, typename F>
+cudaError_t with_head_dim(int head_dim, F& launch) {
+  if (head_dim == 64) {
+    return launch(std::integral_constant<int, 64>{}, std::integral_constant<int, ROWS>{});
+  }
+  if (head_dim == 128) {
+    return launch(std::integral_constant<int, 128>{}, std::integral_constant<int, ROWS>{});
+  }
+  return cudaErrorInvalidValue;
+}
+template <typename F>
+cudaError_t with_shape(int head_dim, int rows, F&& launch) {
+  switch (rows) {
+    case 1: return with_head_dim<1>(head_dim, launch);
+    case 2: return with_head_dim<2>(head_dim, launch);
+    case 3: return with_head_dim<3>(head_dim, launch);
+    case 4: return with_head_dim<4>(head_dim, launch);
+    case 5: return with_head_dim<5>(head_dim, launch);
+    case 6: return with_head_dim<6>(head_dim, launch);
+    case 7: return with_head_dim<7>(head_dim, launch);
+    case 8: return with_head_dim<8>(head_dim, launch);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 template <typename T>
 __device__ __forceinline__ float to_f(T x);
@@ -66,7 +127,7 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // TKV: the storage type of the pages, the type of q itself or int8_t (then
 // with f32 per-row scales).
-template <typename TKV, int HD, int GROUP>
+template <typename TKV, int HD, int ROWS>
 struct DecodeSmem {
   static constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   static constexpr int kVec = 16 / sizeof(TKV);  // elements per 16-byte copy
@@ -75,24 +136,25 @@ struct DecodeSmem {
   static constexpr size_t scale_floats = kQuant ? 2 * 2 * kChunk : 0;
   static constexpr size_t bytes =
       2 * kv_bytes +
-      sizeof(float) * (scale_floats + GROUP * HD + GROUP * kChunk + 3 * GROUP);
+      sizeof(float) * (scale_floats + ROWS * HD + ROWS * kChunk + 3 * ROWS);
 };
 
-// Attend the GROUP query heads at q_group ([GROUP][HD]) over positions
-// [pos0, pos_end) of one sequence and kv head (`table`: the sequence's block
+// Attend the ROWS query heads at q_group ([ROWS][HD]; rows from n_rows on
+// do not exist and read as zeros) over positions [pos0, pos_end) of one
+// sequence and kv head (`table`: the sequence's block
 // table row; `head_page0`: h * n_pages), masking positions below win_lo.
 // Leaves this thread's lane of the unnormalized output in acc and each
 // group row's running max and normalizer in m and l (m = -inf, l = 0 when
 // nothing was attended). Every thread of the CTA must call it.
-template <typename TQ, typename TKV, int HD, int GROUP>
+template <typename TQ, typename TKV, int HD, int ROWS>
 __device__ __forceinline__ void attend_range(
     const TQ* __restrict__ q_group, const TKV* __restrict__ k_pages,
     const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int* __restrict__ table,
     size_t head_page0, int n_pages, int page_size, int pos0, int pos_end,
-    int win_lo, float scale, float (&acc)[GROUP], float (&m)[GROUP],
-    float (&l)[GROUP]) {
-  using SM = DecodeSmem<TKV, HD, GROUP>;
+    int win_lo, float scale, int n_rows, float (&acc)[ROWS], float (&m)[ROWS],
+    float (&l)[ROWS]) {
+  using SM = DecodeSmem<TKV, HD, ROWS>;
   constexpr bool kQuant = SM::kQuant;
   constexpr int kThreads = HD;  // one thread per output lane
   constexpr int kWarps = kThreads / 32;
@@ -105,19 +167,21 @@ __device__ __forceinline__ void attend_range(
   TKV* vs = reinterpret_cast<TKV*>(smem + SM::kv_bytes);  // [2][kChunk][kRow]
   float* kss = reinterpret_cast<float*>(smem + 2 * SM::kv_bytes);  // [2][kChunk]
   float* vss = kss + (kQuant ? 2 * kChunk : 0);                    // [2][kChunk]
-  float* qs = kss + SM::scale_floats;  // [GROUP][HD]
-  float* ss = qs + GROUP * HD;         // [GROUP][kChunk] scores, then probs
-  float* m_s = ss + GROUP * kChunk;    // [GROUP] running max
-  float* l_s = m_s + GROUP;            // [GROUP] running normalizer
-  float* a_s = l_s + GROUP;            // [GROUP] this chunk's rescale
+  float* qs = kss + SM::scale_floats;  // [ROWS][HD]
+  float* ss = qs + ROWS * HD;         // [ROWS][kChunk] scores, then probs
+  float* m_s = ss + ROWS * kChunk;    // [ROWS] running max
+  float* l_s = m_s + ROWS;            // [ROWS] running normalizer
+  float* a_s = l_s + ROWS;            // [ROWS] this chunk's rescale
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int n_chunks = pos_end > pos0 ? (pos_end - pos0 + kChunk - 1) / kChunk : 0;
 
-  for (int i = tid; i < GROUP * HD; i += kThreads) qs[i] = to_f(q_group[i]);
-  if (tid < GROUP) {
+  for (int i = tid; i < ROWS * HD; i += kThreads) {
+    qs[i] = i / HD < n_rows ? to_f(q_group[i]) : 0.f;
+  }
+  if (tid < ROWS) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
   }
@@ -146,7 +210,7 @@ __device__ __forceinline__ void attend_range(
   };
 
 #pragma unroll
-  for (int g = 0; g < GROUP; ++g) acc[g] = 0.f;
+  for (int g = 0; g < ROWS; ++g) acc[g] = 0.f;
 
   if (n_chunks > 0) load_chunk(0, 0);
   __syncthreads();
@@ -169,7 +233,7 @@ __device__ __forceinline__ void attend_range(
     const int t_end = min(kChunk, pos_end - c_start);
 
     // Scores: one (group row, token) pair per thread per step.
-    for (int p = tid; p < GROUP * kChunk; p += kThreads) {
+    for (int p = tid; p < ROWS * kChunk; p += kThreads) {
       const int g = p / kChunk;
       const int t = p % kChunk;
       const int pos = c_start + t;
@@ -195,7 +259,7 @@ __device__ __forceinline__ void attend_range(
 
     // Online softmax, one warp per group row; probabilities (times the V
     // row scales for int8 pages) overwrite ss.
-    for (int g = warp; g < GROUP; g += kWarps) {
+    for (int g = warp; g < ROWS; g += kWarps) {
       const float m_prev = m_s[g];
       const float s0 = ss[g * kChunk + lane];
       const float s1 = ss[g * kChunk + lane + 32];
@@ -232,17 +296,17 @@ __device__ __forceinline__ void attend_range(
 
     // P @ V: this thread's head_dim lane for every group row.
 #pragma unroll
-    for (int g = 0; g < GROUP; ++g) acc[g] *= a_s[g];
+    for (int g = 0; g < ROWS; ++g) acc[g] *= a_s[g];
     for (int t = 0; t < t_end; ++t) {
       const float vv = to_f(vc[t * kRow + tid]);
 #pragma unroll
-      for (int g = 0; g < GROUP; ++g) acc[g] += ss[g * kChunk + t] * vv;
+      for (int g = 0; g < ROWS; ++g) acc[g] += ss[g * kChunk + t] * vv;
     }
     __syncthreads();  // the stage and ss are rewritten next step
   }
 
 #pragma unroll
-  for (int g = 0; g < GROUP; ++g) {
+  for (int g = 0; g < ROWS; ++g) {
     m[g] = m_s[g];
     l[g] = l_s[g];
   }

@@ -3,7 +3,9 @@
 // splits of one (sequence, kv head) form a thread-block cluster;
 // paged_decode_tiled.cu: one CTA per (sequence, kv head, split)): one query
 // token's GQA group attends over a contiguous range of one sequence's
-// positions and leaves its partial softmax state in shared memory.
+// positions and leaves its partial softmax state in shared memory. A CTA
+// holds ROWS query heads of one kv head: the whole GQA group, or one chunk of
+// a group above 8 (paged_decode_common.cuh, `rows_of`).
 //
 // Replaces, for bf16 q, the body of paged_decode_common.cuh (which the f32-q
 // instantiations keep). Both serve the TPU kernels `_decode_kernel_pipelined`
@@ -17,7 +19,8 @@
 // at which an H100 turns compute-bound, so tensor cores buy nothing; what
 // counts is bytes in flight and a cheap inner loop. At batch 8 x 2,048 tokens,
 // 8 kv heads of 128, one layer call moves 67.2 MB on bf16 pages (20.0 us at
-// 3.35 TB/s) and 34.7 MB on int8 pages (10.4 us).
+// 3.35 TB/s) and 34.7 MB on int8 pages (10.4 us). Head dim 64 halves the
+// bytes of a row, and the body's work per row with them.
 //
 // What the old body lost, and where (paged_decode_common.cuh): four
 // __syncthreads per 64-token chunk; scores written to shared memory and read
@@ -31,20 +34,22 @@
 //    block-table entries 32 at a time (one coalesced load, then shuffles) and
 //    moves each stage of 64 tokens with Hopper's bulk copy
 //    (cp.async.bulk ... mbarrier::complete_tx), one copy of K and one of V
-//    per page piece (4 KB at page 16 in bf16, half a page at page 128), into
+//    per page piece (4 KB at page 16 in bf16 at head_dim 128, half a page at
+//    page 128), into
 //    a three-stage ring of 32 KB stages (16.5 KB on int8 pages). Each stage
 //    has a "full" mbarrier (the copies' bytes) and an "empty" one (one
 //    arrival per consumer warp); no thread of the CTA waits for another
 //    except through them.
 //  - The math is in registers. A half-warp owns one token row at a time:
-//    lane i reads column 8i onwards, 16 bytes (8 bf16) or 8 bytes (8 int8),
-//    conflict-free on the unpadded 256- or 128-byte rows. q for the whole
-//    group sits in registers as f32, pre-scaled by log2(e)/sqrt(head_dim), so
-//    scores are in the exp2 domain; a score is a 4-step shuffle reduction
-//    inside the half-warp. Each warp takes 16 tokens of every stage and keeps
-//    its own (m, l) per group row and its own acc (8 columns x group), P @ V
-//    accumulating in the lanes that read V. No score buffer, no per-token
-//    barrier.
+//    lane i reads the kCols = HD / 16 columns from kCols * i onwards. At
+//    head_dim 128 that is 16 bytes (8 bf16) or 8 bytes (8 int8) a lane, at 64
+//    8 bytes (4 bf16) or 4 bytes (4 int8), conflict-free on the unpadded
+//    rows (256, 128 or 64 bytes). q for the CTA's rows sits in registers as
+//    f32, pre-scaled by log2(e)/sqrt(head_dim), so scores are in the exp2
+//    domain; a score is a 4-step shuffle reduction inside the half-warp.
+//    Each warp takes 16 tokens of every stage and keeps its own (m, l) per
+//    row and its own acc (kCols columns x rows), P @ V accumulating in the
+//    lanes that read V. No score buffer, no per-token barrier.
 //  - Int8 pages: a row's f32 scale stays out of the inner products (score =
 //    k_scale * sum(q * k), and p * v_scale enters P @ V), one multiply per
 //    token row. An int8 element becomes f32 through a byte permute into the
@@ -82,12 +87,15 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 // TKV: __nv_bfloat16, or int8_t with f32 per-row scales. A stage holds K
 // [kStage][HD], V [kStage][HD] and, on int8 pages, their scales [kStage] each.
-template <typename TKV, int HD, int GROUP>
+template <typename TKV, int HD, int ROWS>
 struct Smem {
   static constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   static_assert(kQuant || std::is_same<TKV, __nv_bfloat16>::value,
                 "the sm90 decode body takes bf16 or int8 pages");
-  static_assert(HD == 128, "a half-warp covers one 128-wide row");
+  // A half-warp covers one row, HD / 16 columns a lane: 4 or 8, one vector
+  // load of 4 to 16 bytes on either page format.
+  static_assert(HD == 64 || HD == 128, "the sm90 decode body takes head_dim 64 or 128");
+  static constexpr int kCols = HD / 16;
   static constexpr int kRowBytes = HD * sizeof(TKV);
   static constexpr int kTileBytes = kStage * kRowBytes;  // one stage's K (or V)
   static constexpr int kScaleOffset = 2 * kTileBytes;    // K scales, then V scales
@@ -96,7 +104,7 @@ struct Smem {
   // After the stage loop the ring holds, as floats: each consumer warp's
   // partial [warp][acc[G][HD], m[G], l[G], pad to 16 bytes], then the CTA's
   // (the same layout).
-  static constexpr int kPartFloats = GROUP * HD + ((2 * GROUP + 3) & ~3);
+  static constexpr int kPartFloats = ROWS * HD + ((2 * ROWS + 3) & ~3);
   static constexpr int kPartOffset = kConsumerWarps * kPartFloats * 4;  // bytes
   static_assert(kPartOffset + kPartFloats * 4 <= kRingBytes, "partials fit the ring");
   static constexpr int kBarOffset = kRingBytes;  // full[kStages], empty[kStages]
@@ -143,39 +151,50 @@ __device__ __forceinline__ void copy4_arrive(uint32_t bar) {
                : "memory");
 }
 
-// 16 bytes of a bf16 row -> 8 floats.
-__device__ __forceinline__ void unpack8(const uint4& raw, float (&x)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+// W words of bf16 pairs -> 2W floats.
+template <int W>
+__device__ __forceinline__ void unpack(const uint32_t (&w)[W], float (&x)[2 * W],
+                                       __nv_bfloat16) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
+  for (int i = 0; i < W; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
     x[2 * i] = f.x;
     x[2 * i + 1] = f.y;
   }
 }
 
-// 8 bytes of an int8 row -> 8 exact floats: b + 128 (the xor) becomes the
+// W words of int8 quads -> 4W exact floats: b + 128 (the xor) becomes the
 // low mantissa byte of 2^23, and 2^23 + 128 is subtracted.
-__device__ __forceinline__ void unpack8(const uint2& raw, float (&x)[8]) {
-  const uint32_t w[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
+template <int W>
+__device__ __forceinline__ void unpack(const uint32_t (&w)[W], float (&x)[4 * W], int8_t) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int i = 0; i < W; ++i) {
+    const uint32_t u = w[i] ^ 0x80808080u;
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
-      x[4 * i + b] = __int_as_float(__byte_perm(w[i], 0x4B000000u, 0x7650u | b)) - 8388736.f;
+      x[4 * i + b] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7650u | b)) - 8388736.f;
     }
   }
 }
 
-// Row t of a stage's K or V tile, this lane's 8 columns (8 hl ..), as floats.
-template <typename TKV, int kRowBytes>
-__device__ __forceinline__ void load_row8(const unsigned char* tile, int t, int hl,
-                                          float (&x)[8]) {
-  if constexpr (std::is_same<TKV, int8_t>::value) {
-    unpack8(reinterpret_cast<const uint2*>(tile + t * kRowBytes)[hl], x);
+// Columns N hl .. N hl + N - 1 of the row at `row` (type T, bf16 or int8),
+// as floats: one vector load of 4, 8 or 16 bytes.
+template <typename T, int N>
+__device__ __forceinline__ void load_cols(const void* row, int hl, float (&x)[N]) {
+  constexpr int kWords = N * static_cast<int>(sizeof(T)) / 4;
+  static_assert(kWords == 1 || kWords == 2 || kWords == 4, "a lane loads 4, 8 or 16 bytes");
+  const unsigned char* p = static_cast<const unsigned char*>(row) + hl * kWords * 4;
+  uint32_t w[kWords];
+  if constexpr (kWords == 4) {
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
+    w[0] = r.x, w[1] = r.y, w[2] = r.z, w[3] = r.w;
+  } else if constexpr (kWords == 2) {
+    const uint2 r = *reinterpret_cast<const uint2*>(p);
+    w[0] = r.x, w[1] = r.y;
   } else {
-    unpack8(reinterpret_cast<const uint4*>(tile + t * kRowBytes)[hl], x);
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
   }
+  unpack(w, x, T{});
 }
 
 // Kernel attributes belong to the current device's context: set the
@@ -194,27 +213,30 @@ cudaError_t set_attributes(Kernel kernel, int smem, std::atomic<unsigned>& done)
   return err;
 }
 
-// Attend the GROUP query heads at q_group ([GROUP][HD], type TQ) over the
-// positions [pos0, pos_end) of one sequence and kv head, pos0 page-aligned,
-// masking positions below win_lo. `table`: the sequence's block-table row;
+// Attend the ROWS query heads at q_group ([ROWS][HD], type TQ; rows from
+// n_rows on do not exist and read as zeros) over the positions [pos0,
+// pos_end) of one sequence and kv head, pos0 page-aligned, masking positions
+// below win_lo. `table`: the sequence's block-table row;
 // `head_page0`: h * n_pages; `k_scales`/`v_scales`: the int8 pools' f32 row
 // scales ([n_kv, n_pages, page], unused on bf16 pages). Every thread of the
 // CTA (kThreads) must call it. On return (after a CTA barrier) the CTA's
-// partial lies in shared memory at the returned pointer: acc[GROUP][HD]
-// (unnormalized), m[GROUP] (log2 domain; -inf where nothing was attended),
-// l[GROUP].
-template <typename TQ, typename TKV, int HD, int GROUP>
+// partial lies in shared memory at the returned pointer: acc[ROWS][HD]
+// (unnormalized), m[ROWS] (log2 domain; -inf where nothing was attended),
+// l[ROWS].
+template <typename TQ, typename TKV, int HD, int ROWS>
 __device__ __forceinline__ const float* attend_range(
     const TQ* __restrict__ q_group, const TKV* __restrict__ k_pages,
     const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int* __restrict__ table, size_t head_page0,
-    int n_pages, int page_size, int pos0, int pos_end, int win_lo, float scale_log2) {
-  using SM = Smem<TKV, HD, GROUP>;
+    int n_pages, int page_size, int pos0, int pos_end, int win_lo, float scale_log2,
+    int n_rows) {
+  using SM = Smem<TKV, HD, ROWS>;
   constexpr bool kQuant = SM::kQuant;
+  constexpr int kCols = SM::kCols;
   static_assert(std::is_same<TQ, __nv_bfloat16>::value, "q is bf16");
-  // Tokens per half-warp between two softmax updates: scores s[kTok][GROUP]
+  // Tokens per half-warp between two softmax updates: scores s[kTok][ROWS]
   // stay within 16 registers.
-  constexpr int kTokWanted = GROUP >= 8 ? 2 : (GROUP >= 4 ? 4 : 8);
+  constexpr int kTokWanted = ROWS > 4 ? 2 : (ROWS > 2 ? 4 : 8);
   constexpr int kTok = kTokWanted < kTokPerHalf ? kTokWanted : kTokPerHalf;
   static_assert(kTokPerHalf % kTok == 0, "steps tile a stage");
 
@@ -245,7 +267,7 @@ __device__ __forceinline__ const float* attend_range(
   __syncthreads();
 
   const int half = lane >> 4;
-  const int hl = lane & 15;  // consumers: columns 8 hl .. 8 hl + 7
+  const int hl = lane & 15;  // consumers: columns kCols hl .. kCols hl + kCols - 1
   if (warp == kConsumerWarps) {
     // Producer. Lane j holds table entry tbl_base + j; a page outside the
     // window of 32 reloads it (warp-uniform: every lane walks every page).
@@ -294,15 +316,20 @@ __device__ __forceinline__ const float* attend_range(
   }
 
   // Consumers (the producer warp runs this part with nothing to do).
-  float q[GROUP][8];
-  float acc[GROUP][8];
-  float m[GROUP], l[GROUP];
+  float q[ROWS][kCols];
+  float acc[ROWS][kCols];
+  float m[ROWS], l[ROWS];
 #pragma unroll
-  for (int g = 0; g < GROUP; ++g) {
-    float x[8];
-    unpack8(*reinterpret_cast<const uint4*>(q_group + g * HD + 8 * hl), x);
+  for (int g = 0; g < ROWS; ++g) {
+    float x[kCols];
+    if (g < n_rows) {
+      load_cols<TQ, kCols>(q_group + g * HD, hl, x);
+    } else {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
+      for (int e = 0; e < kCols; ++e) x[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < kCols; ++e) {
       q[g][e] = x[e] * scale_log2;
       acc[g][e] = 0.f;
     }
@@ -325,24 +352,24 @@ __device__ __forceinline__ const float* attend_range(
 
 #pragma unroll
       for (int i0 = 0; i0 < kTokPerHalf; i0 += kTok) {
-        float s[kTok][GROUP];
+        float s[kTok][ROWS];
         bool live[kTok];
 #pragma unroll
         for (int j = 0; j < kTok; ++j) {
           const int t = t_half + i0 + j;
           live[j] = !masked || (t < n_valid && s_start + t >= win_lo);
-          float k[8];
+          float k[kCols];
           if (live[j]) {
-            load_row8<TKV, SM::kRowBytes>(kt, t, hl, k);
+            load_cols<TKV, kCols>(kt + t * SM::kRowBytes, hl, k);
           } else {
 #pragma unroll
-            for (int e = 0; e < 8; ++e) k[e] = 0.f;
+            for (int e = 0; e < kCols; ++e) k[e] = 0.f;
           }
 #pragma unroll
-          for (int g = 0; g < GROUP; ++g) {
+          for (int g = 0; g < ROWS; ++g) {
             float d = 0.f;
 #pragma unroll
-            for (int e = 0; e < 8; ++e) d = fmaf(q[g][e], k[e], d);
+            for (int e = 0; e < kCols; ++e) d = fmaf(q[g][e], k[e], d);
             s[j][g] = d;
           }
         }
@@ -351,7 +378,7 @@ __device__ __forceinline__ const float* attend_range(
           // A live row's K scale (a masked row's slot may hold a stale NaN).
           const float k_scale = kQuant && live[j] ? k_sc[t_half + i0 + j] : 1.f;
 #pragma unroll
-          for (int g = 0; g < GROUP; ++g) {
+          for (int g = 0; g < ROWS; ++g) {
 #pragma unroll
             for (int o = 8; o; o >>= 1) s[j][g] += __shfl_xor_sync(0xffffffffu, s[j][g], o);
             s[j][g] = live[j] ? (kQuant ? s[j][g] * k_scale : s[j][g]) : -INFINITY;
@@ -360,7 +387,7 @@ __device__ __forceinline__ const float* attend_range(
         // Online softmax: m is warp-uniform; l and acc are per half-warp
         // until the end of the range.
 #pragma unroll
-        for (int g = 0; g < GROUP; ++g) {
+        for (int g = 0; g < ROWS; ++g) {
           float mx = s[0][g];
 #pragma unroll
           for (int j = 1; j < kTok; ++j) mx = fmaxf(mx, s[j][g]);
@@ -373,7 +400,7 @@ __device__ __forceinline__ const float* attend_range(
           m[g] = m_new;
           l[g] *= alpha;
 #pragma unroll
-          for (int e = 0; e < 8; ++e) acc[g][e] *= alpha;
+          for (int e = 0; e < kCols; ++e) acc[g][e] *= alpha;
 #pragma unroll
           for (int j = 0; j < kTok; ++j) {
             s[j][g] = exp2f(s[j][g] - base);
@@ -385,13 +412,13 @@ __device__ __forceinline__ const float* attend_range(
           if (!live[j]) continue;
           const int t = t_half + i0 + j;
           const float v_scale = kQuant ? v_sc[t] : 1.f;
-          float v[8];
-          load_row8<TKV, SM::kRowBytes>(vt, t, hl, v);
+          float v[kCols];
+          load_cols<TKV, kCols>(vt + t * SM::kRowBytes, hl, v);
 #pragma unroll
-          for (int g = 0; g < GROUP; ++g) {
+          for (int g = 0; g < ROWS; ++g) {
             const float p = kQuant ? s[j][g] * v_scale : s[j][g];
 #pragma unroll
-            for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(p, v[e], acc[g][e]);
+            for (int e = 0; e < kCols; ++e) acc[g][e] = fmaf(p, v[e], acc[g][e]);
           }
         }
       }
@@ -405,46 +432,48 @@ __device__ __forceinline__ const float* attend_range(
   if (warp < kConsumerWarps) {
     float* mine = scratch + warp * SM::kPartFloats;
 #pragma unroll
-    for (int g = 0; g < GROUP; ++g) {
+    for (int g = 0; g < ROWS; ++g) {
       l[g] += __shfl_xor_sync(0xffffffffu, l[g], 16);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], 16);
+      for (int e = 0; e < kCols; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], 16);
       if (lane == 0) {
-        mine[GROUP * HD + g] = m[g];
-        mine[GROUP * HD + GROUP + g] = l[g];
+        mine[ROWS * HD + g] = m[g];
+        mine[ROWS * HD + ROWS + g] = l[g];
       }
       if (half == 0) {
-        float4* dst = reinterpret_cast<float4*>(mine + g * HD + 8 * hl);
-        dst[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
-        dst[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
+        float4* dst = reinterpret_cast<float4*>(mine + g * HD + kCols * hl);
+#pragma unroll
+        for (int e = 0; e < kCols; e += 4) {
+          dst[e / 4] = make_float4(acc[g][e], acc[g][e + 1], acc[g][e + 2], acc[g][e + 3]);
+        }
       }
     }
   }
   __syncthreads();
   if (tid < HD) {
 #pragma unroll
-    for (int g = 0; g < GROUP; ++g) {
+    for (int g = 0; g < ROWS; ++g) {
       float mm = -INFINITY;
 #pragma unroll
       for (int w = 0; w < kConsumerWarps; ++w) {
-        mm = fmaxf(mm, scratch[w * SM::kPartFloats + GROUP * HD + g]);
+        mm = fmaxf(mm, scratch[w * SM::kPartFloats + ROWS * HD + g]);
       }
       float ll = 0.f, a = 0.f;
       if (mm != -INFINITY) {
 #pragma unroll
         for (int w = 0; w < kConsumerWarps; ++w) {
           const float* pw = scratch + w * SM::kPartFloats;
-          const float mw = pw[GROUP * HD + g];
+          const float mw = pw[ROWS * HD + g];
           if (mw == -INFINITY) continue;  // a warp with nothing live
           const float f = exp2f(mw - mm);
-          ll = fmaf(f, pw[GROUP * HD + GROUP + g], ll);
+          ll = fmaf(f, pw[ROWS * HD + ROWS + g], ll);
           a = fmaf(f, pw[g * HD + tid], a);
         }
       }
       part[g * HD + tid] = a;
       if (tid == 0) {
-        part[GROUP * HD + g] = mm;
-        part[GROUP * HD + GROUP + g] = ll;
+        part[ROWS * HD + g] = mm;
+        part[ROWS * HD + ROWS + g] = ll;
       }
     }
   }

@@ -39,24 +39,32 @@
 // 16-byte copy); the new body keeps the math in registers behind a
 // three-stage bulk-copy ring. f32 q (the checking paths, on f32 or int8
 // pages) keeps the old body.
+//
+// Shapes: head_dim 64 or 128, any GQA group up to 64. A group above 8 runs
+// as chunks of at most 8 query heads over the same kv head
+// (paged_decode_common.cuh, `rows_of`): the grid's kv-head axis becomes
+// (kv head, chunk), each chunk reading the kv head's pages again (group 12:
+// twice the K/V bytes of one pass), and the workspace holds rows_of(group)
+// rows per (sequence, kv head, chunk, split).
 
 #include "paged_decode_common.cuh"
 #include "paged_decode_sm90.cuh"
 
 namespace {
 
-// Partial attention of one (sequence, kv head) over one split of its pages.
-// Workspace: m/l [batch, n_kv, n_splits, GROUP], acc [.., GROUP, HD], f32.
-template <typename TQ, typename TKV, int HD, int GROUP>
+// Partial attention of one (sequence, kv head, chunk) over one split of its
+// pages. Workspace: m/l [batch, n_kv * n_chunks, n_splits, ROWS], acc [..,
+// ROWS, HD], f32.
+template <typename TQ, typename TKV, int HD, int ROWS>
 __global__ void __launch_bounds__(HD) split_decode_kernel(
     const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
     const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int* __restrict__ block_tables,
     const int* __restrict__ seq_lens, float* __restrict__ m_ws,
-    float* __restrict__ l_ws, float* __restrict__ acc_ws, int n_q, int n_pages,
+    float* __restrict__ l_ws, float* __restrict__ acc_ws, int n_q, int group, int n_pages,
     int page_size, int table_width, int window, float scale) {
   const int b = blockIdx.x;
-  const int h = blockIdx.y;
+  const ChunkRows c = chunk_rows<ROWS>(blockIdx.y, group);
   const int split = blockIdx.z;
   const int n_splits = gridDim.z;
   const int seq_len = seq_lens[b];
@@ -69,21 +77,21 @@ __global__ void __launch_bounds__(HD) split_decode_kernel(
   const int lo_page = first_page + split * per_split;
   const int hi_page = min(lo_page + per_split, n_seq_pages);
 
-  float acc[GROUP], m[GROUP], l[GROUP];
-  attend_range<TQ, TKV, HD, GROUP>(
-      q + (static_cast<size_t>(b) * n_q + h * GROUP) * HD, k_pages, v_pages,
+  float acc[ROWS], m[ROWS], l[ROWS];
+  attend_range<TQ, TKV, HD, ROWS>(
+      q + (static_cast<size_t>(b) * n_q + c.row0) * HD, k_pages, v_pages,
       k_scales, v_scales, block_tables + static_cast<size_t>(b) * table_width,
-      static_cast<size_t>(h) * n_pages, n_pages, page_size,
+      static_cast<size_t>(c.h) * n_pages, n_pages, page_size,
       lo_page * page_size, min(hi_page * page_size, kv_len), win_lo, scale,
-      acc, m, l);
+      c.n_rows, acc, m, l);
 
-  const size_t part = (static_cast<size_t>(b) * gridDim.y + h) * n_splits + split;
+  const size_t part = (static_cast<size_t>(b) * gridDim.y + blockIdx.y) * n_splits + split;
 #pragma unroll
-  for (int g = 0; g < GROUP; ++g) {
-    acc_ws[(part * GROUP + g) * HD + threadIdx.x] = acc[g];
+  for (int g = 0; g < ROWS; ++g) {
+    acc_ws[(part * ROWS + g) * HD + threadIdx.x] = acc[g];
     if (threadIdx.x == 0) {
-      m_ws[part * GROUP + g] = m[g];
-      l_ws[part * GROUP + g] = l[g];
+      m_ws[part * ROWS + g] = m[g];
+      l_ws[part * ROWS + g] = l[g];
     }
   }
 }
@@ -91,16 +99,16 @@ __global__ void __launch_bounds__(HD) split_decode_kernel(
 // The same partial for bf16 q on TKV (bf16 or int8) pages, through the body
 // of paged_decode_sm90.cuh (its m, in the log2 domain, goes to the workspace
 // in natural units).
-template <typename TKV, int HD, int GROUP>
+template <typename TKV, int HD, int ROWS>
 __global__ void __launch_bounds__(sm90::kThreads, 2) split_decode_sm90_kernel(
     const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k_pages,
     const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int* __restrict__ block_tables,
     const int* __restrict__ seq_lens, float* __restrict__ m_ws, float* __restrict__ l_ws,
-    float* __restrict__ acc_ws, int n_q, int n_pages, int page_size, int table_width,
+    float* __restrict__ acc_ws, int n_q, int group, int n_pages, int page_size, int table_width,
     int window, float scale_log2) {
   const int b = blockIdx.x;
-  const int h = blockIdx.y;
+  const ChunkRows c = chunk_rows<ROWS>(blockIdx.y, group);
   const int split = blockIdx.z;
   const int n_splits = gridDim.z;
   const int seq_len = seq_lens[b];
@@ -112,50 +120,50 @@ __global__ void __launch_bounds__(sm90::kThreads, 2) split_decode_sm90_kernel(
   const int lo_page = first_page + split * per_split;
   const int hi_page = min(lo_page + per_split, n_seq_pages);
 
-  const float* part = sm90::attend_range<__nv_bfloat16, TKV, HD, GROUP>(
-      q + (static_cast<size_t>(b) * n_q + h * GROUP) * HD, k_pages, v_pages, k_scales,
+  const float* part = sm90::attend_range<__nv_bfloat16, TKV, HD, ROWS>(
+      q + (static_cast<size_t>(b) * n_q + c.row0) * HD, k_pages, v_pages, k_scales,
       v_scales, block_tables + static_cast<size_t>(b) * table_width,
-      static_cast<size_t>(h) * n_pages,
+      static_cast<size_t>(c.h) * n_pages,
       n_pages, page_size, lo_page * page_size, min(hi_page * page_size, kv_len), win_lo,
-      scale_log2);
+      scale_log2, c.n_rows);
 
-  const size_t slot = (static_cast<size_t>(b) * gridDim.y + h) * n_splits + split;
-  for (int i = threadIdx.x; i < GROUP * HD; i += blockDim.x) {
-    acc_ws[slot * GROUP * HD + i] = part[i];
+  const size_t slot = (static_cast<size_t>(b) * gridDim.y + blockIdx.y) * n_splits + split;
+  for (int i = threadIdx.x; i < ROWS * HD; i += blockDim.x) {
+    acc_ws[slot * ROWS * HD + i] = part[i];
   }
-  if (threadIdx.x < GROUP) {
-    m_ws[slot * GROUP + threadIdx.x] = part[GROUP * HD + threadIdx.x] * sm90::kLn2;
-    l_ws[slot * GROUP + threadIdx.x] = part[GROUP * HD + GROUP + threadIdx.x];
+  if (threadIdx.x < ROWS) {
+    m_ws[slot * ROWS + threadIdx.x] = part[ROWS * HD + threadIdx.x] * sm90::kLn2;
+    l_ws[slot * ROWS + threadIdx.x] = part[ROWS * HD + ROWS + threadIdx.x];
   }
 }
 
-// Second pass: merge the splits of one (sequence, kv head) and normalize.
-template <typename TQ, int HD, int GROUP>
+// Second pass: merge the splits of one (sequence, kv head, chunk) and
+// normalize.
+template <typename TQ, int HD, int ROWS>
 __global__ void __launch_bounds__(HD) combine_kernel(
     const float* __restrict__ m_ws, const float* __restrict__ l_ws,
-    const float* __restrict__ acc_ws, TQ* __restrict__ out, int n_q,
+    const float* __restrict__ acc_ws, TQ* __restrict__ out, int n_q, int group,
     int n_splits) {
   const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int n_kv = gridDim.y;
+  const ChunkRows c = chunk_rows<ROWS>(blockIdx.y, group);
   const int tid = threadIdx.x;
-  const size_t part0 = (static_cast<size_t>(b) * n_kv + h) * n_splits;
-  for (int g = 0; g < GROUP; ++g) {
+  const size_t part0 = (static_cast<size_t>(b) * gridDim.y + blockIdx.y) * n_splits;
+  for (int g = 0; g < c.n_rows; ++g) {
     float m_max = -INFINITY;
     for (int s = 0; s < n_splits; ++s) {
-      m_max = fmaxf(m_max, m_ws[(part0 + s) * GROUP + g]);
+      m_max = fmaxf(m_max, m_ws[(part0 + s) * ROWS + g]);
     }
     float l = 0.f, o = 0.f;
     if (m_max != -INFINITY) {
       for (int s = 0; s < n_splits; ++s) {
-        const float m = m_ws[(part0 + s) * GROUP + g];
+        const float m = m_ws[(part0 + s) * ROWS + g];
         if (m == -INFINITY) continue;  // a split with no live position
         const float w = expf(m - m_max);
-        l += w * l_ws[(part0 + s) * GROUP + g];
-        o += w * acc_ws[((part0 + s) * GROUP + g) * HD + tid];
+        l += w * l_ws[(part0 + s) * ROWS + g];
+        o += w * acc_ws[((part0 + s) * ROWS + g) * HD + tid];
       }
     }
-    out[(static_cast<size_t>(b) * n_q + h * GROUP + g) * HD + tid] =
+    out[(static_cast<size_t>(b) * n_q + c.row0 + g) * HD + tid] =
         from_f<TQ>(l == 0.f ? 0.f : o / l);
   }
 }
@@ -172,73 +180,71 @@ struct Args {
   float* l_ws;
   float* acc_ws;
   void* out;
-  int batch, n_q, n_kv, n_pages, page_size, table_width, window, n_splits;
+  int batch, n_q, n_kv, group, n_pages, page_size, table_width, window, n_splits;
   float scale;
   cudaStream_t stream;
 };
 
-template <typename TQ, int HD, int GROUP>
+// Grid of the split pass: (sequence, kv head x chunk, split).
+dim3 split_grid(const Args& a) {
+  return dim3(a.batch, a.n_kv * n_chunks_of(a.group), a.n_splits);
+}
+
+template <typename TQ, int HD, int ROWS>
 cudaError_t combine(const Args& a) {
-  combine_kernel<TQ, HD, GROUP><<<dim3(a.batch, a.n_kv), HD, 0, a.stream>>>(
-      a.m_ws, a.l_ws, a.acc_ws, static_cast<TQ*>(a.out), a.n_q, a.n_splits);
+  combine_kernel<TQ, HD, ROWS><<<dim3(a.batch, a.n_kv * n_chunks_of(a.group)), HD, 0,
+                                 a.stream>>>(
+      a.m_ws, a.l_ws, a.acc_ws, static_cast<TQ*>(a.out), a.n_q, a.group, a.n_splits);
   return cudaGetLastError();
 }
 
 // f32 q: the body of paged_decode_common.cuh.
-template <typename TQ, typename TKV, int HD, int GROUP>
+template <typename TQ, typename TKV, int HD, int ROWS>
 cudaError_t launch(const Args& a) {
-  const int smem = static_cast<int>(DecodeSmem<TKV, HD, GROUP>::bytes);
-  auto kernel = split_decode_kernel<TQ, TKV, HD, GROUP>;
+  const int smem = static_cast<int>(DecodeSmem<TKV, HD, ROWS>::bytes);
+  auto kernel = split_decode_kernel<TQ, TKV, HD, ROWS>;
   static std::atomic<unsigned> attributes_set{0};
   const cudaError_t attr = sm90::set_attributes(kernel, smem, attributes_set);
   if (attr != cudaSuccess) return attr;
-  kernel<<<dim3(a.batch, a.n_kv, a.n_splits), HD, smem, a.stream>>>(
+  kernel<<<split_grid(a), HD, smem, a.stream>>>(
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), a.ks, a.vs, a.bt, a.sl, a.m_ws, a.l_ws,
-      a.acc_ws, a.n_q, a.n_pages, a.page_size, a.table_width, a.window,
+      a.acc_ws, a.n_q, a.group, a.n_pages, a.page_size, a.table_width, a.window,
       a.scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return combine<TQ, HD, GROUP>(a);
+  return combine<TQ, HD, ROWS>(a);
 }
 
 // bf16 q: the body of paged_decode_sm90.cuh.
-template <typename TKV, int HD, int GROUP>
+template <typename TKV, int HD, int ROWS>
 cudaError_t launch_sm90(const Args& a) {
-  const int smem = sm90::Smem<TKV, HD, GROUP>::bytes;
-  auto kernel = split_decode_sm90_kernel<TKV, HD, GROUP>;
+  const int smem = sm90::Smem<TKV, HD, ROWS>::bytes;
+  auto kernel = split_decode_sm90_kernel<TKV, HD, ROWS>;
   static std::atomic<unsigned> attributes_set{0};
   const cudaError_t attr = sm90::set_attributes(kernel, smem, attributes_set);
   if (attr != cudaSuccess) return attr;
-  kernel<<<dim3(a.batch, a.n_kv, a.n_splits), sm90::kThreads, smem, a.stream>>>(
+  kernel<<<split_grid(a), sm90::kThreads, smem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), a.ks, a.vs, a.bt, a.sl, a.m_ws, a.l_ws, a.acc_ws, a.n_q,
-      a.n_pages, a.page_size, a.table_width, a.window, a.scale * 1.4426950408889634f);
+      a.group, a.n_pages, a.page_size, a.table_width, a.window, a.scale * 1.4426950408889634f);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return combine<__nv_bfloat16, HD, GROUP>(a);
+  return combine<__nv_bfloat16, HD, ROWS>(a);
 }
 
 template <typename TQ, typename TKV>
-cudaError_t dispatch_group(int group, const Args& a) {
-  switch (group) {
-    case 1: return launch<TQ, TKV, 128, 1>(a);
-    case 2: return launch<TQ, TKV, 128, 2>(a);
-    case 4: return launch<TQ, TKV, 128, 4>(a);
-    case 8: return launch<TQ, TKV, 128, 8>(a);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t dispatch(int head_dim, const Args& a) {
+  return with_shape(head_dim, rows_of(a.group), [&](auto hd, auto rows) {
+    return launch<TQ, TKV, decltype(hd)::value, decltype(rows)::value>(a);
+  });
 }
 
 template <typename TKV>
-cudaError_t dispatch_sm90(int group, const Args& a) {
-  switch (group) {
-    case 1: return launch_sm90<TKV, 128, 1>(a);
-    case 2: return launch_sm90<TKV, 128, 2>(a);
-    case 4: return launch_sm90<TKV, 128, 4>(a);
-    case 8: return launch_sm90<TKV, 128, 8>(a);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t dispatch_sm90(int head_dim, const Args& a) {
+  return with_shape(head_dim, rows_of(a.group), [&](auto hd, auto rows) {
+    return launch_sm90<TKV, decltype(hd)::value, decltype(rows)::value>(a);
+  });
 }
 
 }  // namespace
@@ -246,10 +252,12 @@ cudaError_t dispatch_sm90(int group, const Args& a) {
 // q [batch, n_q, head_dim]; k/v pages [n_kv, n_pages, page_size, head_dim];
 // k/v scales [n_kv, n_pages, page_size, 1] f32 (int8 pages only, else null);
 // block_tables [batch, table_width] int32; seq_lens [batch] int32;
-// workspace: m_ws and l_ws [batch, n_kv, n_splits, n_q / n_kv] f32, acc_ws
-// [batch, n_kv, n_splits, n_q / n_kv, head_dim] f32; out [batch, n_q,
-// head_dim]. window < 0: no sliding window. dtype (of q and out) 0 = f32,
-// 1 = bf16; kv_int8 0: pages in the dtype of q, 1: int8 pages with scales.
+// workspace (rows = rows_of(n_q / n_kv), chunks = n_chunks_of(n_q / n_kv)):
+// m_ws and l_ws [batch, n_kv * chunks, n_splits, rows] f32, acc_ws [batch,
+// n_kv * chunks, n_splits, rows, head_dim] f32; out [batch, n_q, head_dim].
+// head_dim 64 or 128; n_q / n_kv (the GQA group) at most 64. window < 0: no
+// sliding window. dtype (of q and out) 0 = f32, 1 = bf16; kv_int8 0: pages
+// in the dtype of q, 1: int8 pages with scales.
 // Returns the first failing launch's cudaError_t.
 extern "C" int kvt_paged_decode_tiled(
     const void* q, const void* k_pages, const void* v_pages,
@@ -258,8 +266,9 @@ extern "C" int kvt_paged_decode_tiled(
     int batch, int n_q, int n_kv, int n_pages, int page_size, int head_dim,
     int table_width, int window, int n_splits, float scale, int dtype,
     int kv_int8, void* stream) {
-  if (head_dim != 128 || n_kv <= 0 || n_q % n_kv != 0 || page_size <= 0 ||
-      n_splits <= 0 || (kv_int8 && (k_scales == nullptr || v_scales == nullptr))) {
+  if ((head_dim != 64 && head_dim != 128) || n_kv <= 0 || n_q % n_kv != 0 ||
+      n_q / n_kv < 1 || n_q / n_kv > 64 || page_size <= 0 || n_splits <= 0 ||
+      (kv_int8 && (k_scales == nullptr || v_scales == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{q, k_pages, v_pages, static_cast<const float*>(k_scales),
@@ -267,15 +276,14 @@ extern "C" int kvt_paged_decode_tiled(
                static_cast<const int*>(block_tables),
                static_cast<const int*>(seq_lens), static_cast<float*>(m_ws),
                static_cast<float*>(l_ws), static_cast<float*>(acc_ws), out,
-               batch, n_q, n_kv, n_pages, page_size, table_width, window,
+               batch, n_q, n_kv, n_q / n_kv, n_pages, page_size, table_width, window,
                n_splits, scale, static_cast<cudaStream_t>(stream)};
-  const int group = n_q / n_kv;
   cudaError_t err;
   if (dtype == 1) {
-    err = kv_int8 ? dispatch_sm90<int8_t>(group, a) : dispatch_sm90<__nv_bfloat16>(group, a);
+    err = kv_int8 ? dispatch_sm90<int8_t>(head_dim, a)
+                  : dispatch_sm90<__nv_bfloat16>(head_dim, a);
   } else if (dtype == 0) {
-    err = kv_int8 ? dispatch_group<float, int8_t>(group, a)
-                  : dispatch_group<float, float>(group, a);
+    err = kv_int8 ? dispatch<float, int8_t>(head_dim, a) : dispatch<float, float>(head_dim, a);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -251,9 +251,12 @@ def _k_proj(layer: Dict, h: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def forward_dense(config: LlamaConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+def forward_dense(config: LlamaConfig, params: Params, tokens: torch.Tensor,
+                  first: int = 0) -> torch.Tensor:
     """Plain causal forward over whole sequences (no cache; inference only):
-    the serving tests' oracle. tokens: [B, L] -> logits [B, L, vocab]."""
+    the serving tests' oracle. tokens: [B, L] -> logits [B, L - first, vocab]
+    of positions first.. (the head runs on those rows only: at a 152k
+    vocabulary, logits of every position of a long batch take gigabytes)."""
     c = config
     b, l = tokens.shape
     x = params["embed"][tokens.long()]
@@ -269,7 +272,7 @@ def forward_dense(config: LlamaConfig, params: Params, tokens: torch.Tensor) -> 
         attn = dense_attention(q, k, v, 0, window=c.sliding_window)
         x = x + attn.reshape(b, l, c.q_dim) @ layer["wo"]
         x = x + _mlp(layer, rms_norm(x, layer["mlp_norm"], c.rms_eps))
-    x = rms_norm(x, params["final_norm"], c.rms_eps)
+    x = rms_norm(x[:, first:], params["final_norm"], c.rms_eps)
     return x @ params["out"]
 
 

@@ -15,7 +15,11 @@ events the control plane ingests.
   the plain version. It never falls back from CUDA to the plain version.
   `ops/quantized_kv.py` launches the same two kernels on int8 pages.
 - `decode_plan`: the launch shape of both kernels for bf16 q (on bf16 or
-  int8 pages), from the shapes alone; `old_body_splits` for f32 q.
+  int8 pages), from the shapes alone; `old_body_splits` for f32 q;
+  `group_chunks`: how a GQA group above 8 splits over CTAs.
+- The kernels take head_dim 64 or 128 and any GQA group up to 64, in bf16
+  and f32 q, on pages of q's dtype and on int8 pages; any other shape raises
+  on CUDA tensors (`_check_kernel_args`).
 - `write_kv_pages`: scatter of new K/V rows into their pages.
 """
 
@@ -31,8 +35,11 @@ import torch
 launches = 0  # csrc/paged_decode.cu, bf16/f32 pages
 tiled_launches = 0  # csrc/paged_decode_tiled.cu, bf16/f32 pages
 
-_KERNEL_HEAD_DIMS = (128,)
-_KERNEL_GROUPS = (1, 2, 4, 8)
+_KERNEL_HEAD_DIMS = (64, 128)
+_KERNEL_MAX_GROUP = 64  # flash_prefill's limit too: a model needs both
+_MAX_ROWS = 8  # query heads one decode CTA holds (csrc/paged_decode_common.cuh)
+# What the JAX kernels take and these do not yet: raised by name.
+_STILL_OWED = "head dims other than 64 and 128, and GQA groups above 64"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -93,19 +100,31 @@ _STAGE_TOKENS = 64  # tokens per ring stage of either decode kernel, on both pag
 _MAX_CLUSTER = 8  # the portable cluster size: every Hopper launch may ask for it
 
 
+def group_chunks(group: int) -> tuple:
+    """(n_chunks, rows): a GQA group of at most _MAX_ROWS query heads runs
+    as one chunk of `group` rows; a larger one as ceil(group / 8) chunks of
+    equal rows over the same kv head, the last chunk's spare rows unused
+    (12 -> 2 x 6, 16 -> 2 x 8, 13 -> 2 x 7). The kernels' `n_chunks_of` and
+    `rows_of` (csrc/paged_decode_common.cuh) follow the same rule."""
+    n_chunks = -(-group // _MAX_ROWS)
+    return n_chunks, -(-group // n_chunks)
+
+
 def decode_plan(batch: int, n_kv: int, table_width: int, page_size: int,
-                n_sms: int) -> tuple:
-    """(cluster, n_splits): the CTAs per (sequence, kv head) of the
-    pipelined kernel for bf16 q (one thread-block cluster) and of the tiled
-    kernel (a grid-level split), on bf16 and on int8 pages, from the shapes
-    alone (no read of seq_lens).
+                n_sms: int, group: int = 1) -> tuple:
+    """(cluster, n_splits): the CTAs per (sequence, kv head, group chunk)
+    of the pipelined kernel for bf16 q (one thread-block cluster) and of the
+    tiled kernel (a grid-level split), on bf16 and on int8 pages, from the
+    shapes alone (no read of seq_lens).
 
     Both split each (sequence, kv head) as far as one CTA per SM allows
     (more CTAs read slower on an H100: each extra CTA adds its start-up,
     its merge and, in the tiled kernel, a partial for the combine pass),
     never into more parts than the table has pages or 64-token stages. The
-    cluster is that count rounded down to a power of two, at most 8."""
-    pairs = batch * n_kv
+    cluster is that count rounded down to a power of two, at most 8, so it
+    divides head_dim 64 and 128 (each rank merges head_dim / cluster
+    columns)."""
+    pairs = batch * n_kv * group_chunks(group)[0]
     cap = max(1, min(table_width, table_width * page_size // _STAGE_TOKENS))
     n_splits = max(1, min(n_sms // pairs, cap))
     cluster = 1
@@ -114,12 +133,15 @@ def decode_plan(batch: int, n_kv: int, table_width: int, page_size: int,
     return cluster, n_splits
 
 
-def old_body_splits(batch: int, n_kv: int, table_width: int, n_sms: int) -> int:
+def old_body_splits(batch: int, n_kv: int, table_width: int, n_sms: int,
+                    group: int = 1) -> int:
     """The tiled kernel's split count for f32 q (on f32 or int8 pages, the
     checking paths), which keeps the body of csrc/paged_decode_common.cuh
-    (128-thread CTAs, several to an SM): about two CTAs per SM, never more
-    splits than the table has pages."""
-    return max(1, min(-(-2 * n_sms // (batch * n_kv)), table_width))
+    (head_dim-thread CTAs, several to an SM): about two CTAs per SM over the
+    (sequence, kv head, group chunk) triples, never more splits than the
+    table has pages."""
+    triples = batch * n_kv * group_chunks(group)[0]
+    return max(1, min(-(-2 * n_sms // triples), table_width))
 
 
 def _kernel_fn(source: str, fn_name: str):
@@ -163,10 +185,11 @@ def _check_kernel_args(q, k_pages, v_pages, block_tables, seq_lens, scales):
         )
     if block_tables.dim() != 2 or block_tables.shape[0] != batch or seq_lens.shape != (batch,):
         raise ValueError("block_tables must be [batch, pages] and seq_lens [batch]")
-    if head_dim not in _KERNEL_HEAD_DIMS or group not in _KERNEL_GROUPS:
+    if head_dim not in _KERNEL_HEAD_DIMS or group > _KERNEL_MAX_GROUP:
         raise ValueError(
-            f"paged decode kernels take head_dim in {_KERNEL_HEAD_DIMS} and "
-            f"GQA group in {_KERNEL_GROUPS}, got {head_dim} and {group}"
+            f"paged decode kernels take head_dim in {_KERNEL_HEAD_DIMS} and a GQA "
+            f"group of at most {_KERNEL_MAX_GROUP}, got {head_dim} and {group} "
+            f"(still owed: {_STILL_OWED})"
         )
     if not all(t.is_contiguous() for t in tensors) or any(
         t.data_ptr() % 16 for t in (k_pages, v_pages)
@@ -186,14 +209,14 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _plan(n_sms: int, q_dtype: torch.dtype, batch: int, n_kv: int, table_width: int,
-          page_size: int) -> tuple:
+          page_size: int, group: int = 1) -> tuple:
     """(cluster, n_splits) for a launch on a card of `n_sms` SMs: bf16 q, on
     either page format, runs the body of csrc/paged_decode_sm90.cuh and
     takes decode_plan; f32 q keeps the old body, old_body_splits and no
     cluster."""
     if q_dtype != torch.bfloat16:
-        return 1, old_body_splits(batch, n_kv, table_width, n_sms)
-    return decode_plan(batch, n_kv, table_width, page_size, n_sms)
+        return 1, old_body_splits(batch, n_kv, table_width, n_sms, group)
+    return decode_plan(batch, n_kv, table_width, page_size, n_sms, group)
 
 
 def launch_decode(q, k_pages, v_pages, block_tables, seq_lens, window, *,
@@ -216,8 +239,9 @@ def launch_decode(q, k_pages, v_pages, block_tables, seq_lens, window, *,
         1.0 / (head_dim**0.5), _DTYPE_CODE[q.dtype], int(scales is not None),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
+    group = n_q // n_kv
     cluster, n_splits = _plan(_sm_count(q.device), q.dtype, batch, n_kv, table_width,
-                              page_size)
+                              page_size, group)
     if pipelined:
         name = "paged_decode"
         err = _kernel_fn(name, "kvt_paged_decode")(
@@ -226,9 +250,10 @@ def launch_decode(q, k_pages, v_pages, block_tables, seq_lens, window, *,
         )
     else:
         name = "paged_decode_tiled"
-        # One f32 workspace: m and l [batch, n_kv, n_splits, group], then acc
-        # [..., group, head_dim].
-        n = batch * n_kv * n_splits * (n_q // n_kv)
+        # One f32 workspace: m and l [batch, n_kv * n_chunks, n_splits, rows],
+        # then acc [..., rows, head_dim] (group_chunks).
+        n_chunks, rows = group_chunks(group)
+        n = batch * n_kv * n_chunks * n_splits * rows
         ws = torch.empty(n * (head_dim + 2), dtype=torch.float32, device=q.device)
         m_ws, l_ws, acc_ws = ws[:n], ws[n:2 * n], ws[2 * n:]
         err = _kernel_fn(name, "kvt_paged_decode_tiled")(

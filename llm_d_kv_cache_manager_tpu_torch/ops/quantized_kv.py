@@ -19,7 +19,9 @@ V vector of one kv head), scale = amax/127 and q = round(x/scale) in
   in f32 inside the kernel; for bf16 q both run the Hopper body of
   `csrc/paged_decode_sm90.cuh`, the bf16 pages' body, with the launch shape
   of `ops/paged_attention.py::decode_plan` (f32 q, a checking path, keeps
-  the first port's body). On CPU tensors it runs the plain version.
+  the first port's body). On CPU tensors it runs the plain version. The
+  kernels take the shapes `ops/paged_attention.py` names (head_dim 64 or
+  128, any GQA group up to 64); its checks raise on any other.
 """
 
 from __future__ import annotations

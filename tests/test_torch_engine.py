@@ -61,13 +61,19 @@ def _event_rows(batches):
 
 
 class _PodPair:
-    """The same pod on both packages, sharing one f32 parameter tree."""
+    """The same pod on both packages, sharing one f32 parameter tree.
+    `config`: LlamaConfig fields over CFG's; `edit_params`: maps the JAX
+    init's tree (numpy leaves) to the tree both pods serve."""
 
-    def __init__(self, n_pages, max_pages_per_seq=16, int8=False, n_layers=1):
-        cfg = {**CFG, "n_layers": n_layers}
+    def __init__(self, n_pages, max_pages_per_seq=16, int8=False, n_layers=1, config=None,
+                 edit_params=None):
+        cfg = {**CFG, "n_layers": n_layers, **(config or {})}
         jcfg = jax_llama.LlamaConfig(**cfg, dtype=jnp.float32)
         jparams = jax_llama.init_params(jcfg, jax.random.PRNGKey(0))
         np_params = jax.tree_util.tree_map(np.asarray, jparams)
+        if edit_params is not None:
+            np_params = edit_params(np_params)
+            jparams = jax.tree_util.tree_map(jnp.asarray, np_params)
         self.jax_events, self.port_events = [], []
         self.jax = JaxEnginePod(
             JaxEnginePodConfig(

@@ -4,9 +4,12 @@ Inputs come from seeded numpy and go through both packages; the JAX Pallas
 kernels run in interpret mode on the CPU, as the JAX package's own tests run
 them. On CPU tensors the port's wrappers run their plain torch versions
 (the CUDA kernels are held against those same versions on the card by
-chip_smoke.py). f32 throughout; tolerance atol = rtol = 1e-5. Also on the
-CPU: the decode kernels' launch plan (by q's dtype), and the ctypes argument
-lists against the C entry points they call.
+chip_smoke.py). f32 throughout; tolerance atol = rtol = 1e-5. The shapes
+run through every GQA group and head dim the CUDA kernels take (groups of 3
+to 7, groups above 8 that run in chunks, head_dim 64 beside 128, the
+Qwen2.5 attention shapes). Also on the CPU: the decode kernels' launch plan
+(by q's dtype and GQA group), the ctypes argument lists against the C entry
+points they call, and the messages that name what the kernels still owe.
 """
 
 import ctypes
@@ -82,6 +85,39 @@ def test_paged_attention_sliding_window(window):
 def test_paged_attention_narrow_table(pps):
     want, got = _both_paged(_paged_inputs(pps=pps), [1, pps * 128])
     np.testing.assert_allclose(got, want, **TOL)
+
+
+# (n_q, n_kv, head_dim, seq_lens, window) at page 16 over 6-page tables: the
+# groups and head dims the kernels take beyond the flagship family's (3-7 in
+# one CTA; 12 in two chunks of 6, 13 in 7 + 6; head_dim 64), the two Qwen2.5 attention
+# shapes (28/4 of 128, 14/2 of 64: group 7), an empty slot and windows.
+SHAPE_CASES = {
+    "group_3": (6, 2, 128, [5, 90], None),
+    "group_5": (10, 2, 128, [17, 96], None),
+    "group_6_window": (12, 2, 128, [40, 96], 24),
+    "group_7_qwen7b_heads": (28, 4, 128, [0, 77], None),
+    "group_12_chunked": (24, 2, 128, [33, 96], None),
+    "group_12_chunked_window": (12, 1, 128, [96, 50], 40),
+    "group_13_partial_last_chunk": (26, 2, 128, [31, 96], None),
+    "hd64_group_1": (2, 2, 64, [16, 81], None),
+    "hd64_group_7_qwen05b_heads": (14, 2, 64, [1, 96], None),
+    "hd64_group_7_window": (14, 2, 64, [70, 96], 30),
+    "hd64_group_12_chunked": (12, 1, 64, [0, 64], None),
+}
+
+
+@pytest.mark.parametrize("pipelined", [True, False], ids=["pipelined", "tiled"])
+@pytest.mark.parametrize("case", sorted(SHAPE_CASES))
+def test_paged_attention_groups_and_head_dims(case, pipelined):
+    n_q, n_kv, hd, seq_lens, window = SHAPE_CASES[case]
+    inputs = _paged_inputs(n_q=n_q, n_kv=n_kv, head_dim=hd, page_size=16, n_pages=14,
+                           pps=6, seed=3)
+    before = (port_paged.launches, port_paged.tiled_launches)
+    want, got = _both_paged(inputs, seq_lens, window=window, pipelined=pipelined)
+    live = np.asarray(seq_lens) > 0
+    np.testing.assert_allclose(got[live], want[live], **TOL)
+    assert not np.any(got[~live])
+    assert (port_paged.launches, port_paged.tiled_launches) == before
 
 
 # (seq_lens, window, n_q, page): the pipelined cases above, on the tiled
@@ -172,6 +208,88 @@ _CTYPE = {"ptr": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
 _CSRC = Path(port_paged.__file__).resolve().parent.parent / "csrc"
 
 
+# (batch, n_kv, table_width, page_size, n_sms, group, head_dim): the Qwen2.5
+# attention shapes at the pods' decode shapes (group 7 over 4 and 2 kv
+# heads, head_dim 128 and 64), and groups that run in chunks: 12 over 8 kv
+# heads (Mistral-Large's 96/8) and the largest, 64 over one.
+GROUP_PLAN_CASES = {
+    "qwen7b_serving_b1": (1, 4, 128, 16, 132, 7, 128),
+    "qwen7b_b8_trash_padded": (8, 4, 129, 16, 132, 7, 128),
+    "qwen05b_serving_b1": (1, 2, 128, 16, 132, 7, 64),
+    "qwen05b_b8": (8, 2, 129, 16, 132, 7, 64),
+    "chunked_group12_b1": (1, 8, 128, 16, 132, 12, 128),
+    "chunked_group12_b8": (8, 8, 129, 16, 132, 12, 128),
+    "chunked_group12_hd64_narrow": (2, 8, 2, 16, 132, 12, 64),
+    "chunked_group64_b1": (1, 1, 256, 16, 132, 64, 128),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GROUP_PLAN_CASES))
+def test_decode_plan_counts_group_chunks(case):
+    batch, n_kv, width, page, n_sms, group, hd = GROUP_PLAN_CASES[case]
+    n_chunks, rows = port_paged.group_chunks(group)
+    triples = batch * n_kv * n_chunks  # CTAs (or clusters) before splitting
+    cluster, n_splits = port_paged.decode_plan(batch, n_kv, width, page, n_sms, group)
+    assert 1 <= cluster <= n_splits <= width
+    assert cluster & (cluster - 1) == 0 and cluster <= 8
+    # Each rank of the cluster merges an equal slice of the head dim.
+    assert hd % cluster == 0 and (hd // cluster) % 4 == 0
+    # Split no further than one CTA per SM, counting the chunk axis.
+    if triples < n_sms:
+        assert triples * max(cluster, n_splits) <= n_sms
+    splits32 = port_paged.old_body_splits(batch, n_kv, width, n_sms, group)
+    assert 1 <= splits32 <= width and (splits32 == 1 or triples * (splits32 - 1) < 2 * n_sms)
+    assert port_paged._plan(n_sms, torch.bfloat16, batch, n_kv, width, page, group) == (
+        cluster, n_splits)
+    assert port_paged._plan(n_sms, torch.float32, batch, n_kv, width, page, group) == (
+        1, splits32)
+
+
+def test_group_chunks_cover_every_group():
+    """Groups up to 8 run whole; a larger one in ceil(group / 8) chunks of
+    equal rows, at most 8, the last chunk not empty."""
+    assert [port_paged.group_chunks(g) for g in (1, 7, 8, 12, 13, 16, 64)] == [
+        (1, 1), (1, 7), (1, 8), (2, 6), (2, 7), (2, 8), (8, 8)]
+    for group in range(1, 65):
+        n_chunks, rows = port_paged.group_chunks(group)
+        assert rows <= 8 and n_chunks == -(-group // 8)
+        assert (n_chunks - 1) * rows < group <= n_chunks * rows
+
+
+def _kernel_args(n_q, n_kv, hd, dtype=torch.bfloat16):
+    q, k, v, bt = (torch.from_numpy(a) for a in _paged_inputs(
+        batch=1, n_q=n_q, n_kv=n_kv, head_dim=hd, page_size=16, n_pages=4, pps=2))
+    return (q.to(dtype), k.to(dtype), v.to(dtype), bt, torch.tensor([20], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("n_q, n_kv, hd", [(6, 2, 96), (130, 2, 128), (65, 1, 64),
+                                           (4, 2, 256)])
+def test_decode_kernel_check_names_what_is_owed(n_q, n_kv, hd):
+    """A shape the decode kernels do not take raises before any launch, and
+    the message names what is still owed (head dims other than 64 and 128,
+    groups above 64)."""
+    with pytest.raises(ValueError, match="still owed: head dims other than 64 and 128, "
+                                         "and GQA groups above 64"):
+        port_paged._check_kernel_args(*_kernel_args(n_q, n_kv, hd), None)
+
+
+@pytest.mark.parametrize("n_q, n_kv, hd", [(28, 4, 128), (14, 2, 64), (24, 2, 128),
+                                           (64, 1, 64), (8, 8, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernel_check_takes_new_shapes(n_q, n_kv, hd, dtype):
+    port_paged._check_kernel_args(*_kernel_args(n_q, n_kv, hd, dtype), None)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n_q, n_kv, hd", [(6, 2, 96), (130, 2, 128)])
+def test_flash_kernel_check_names_what_is_owed(n_q, n_kv, hd, dtype):
+    q = torch.zeros(1, 16, n_q, hd, dtype=dtype)
+    k = torch.zeros(1, 16, n_kv, hd, dtype=dtype)
+    with pytest.raises(ValueError, match="still owed: head dims other than 64 and 128, "
+                                         "and GQA groups above 64"):
+        port_flash._launch(q, k, k, 0, None)
+
+
 def _c_signatures() -> dict:
     """Every `extern "C" int kvt_*` entry point of csrc/*.cu: name -> the
     ctypes kind of each parameter."""
@@ -256,8 +374,8 @@ FLASH_CASES = {
 }
 
 
-# The same comparison at head_dim 128, the only width the port's CUDA kernels
-# take, so the plain version that chip_smoke.py holds them against is itself
+# The same comparison at head_dim 128, the flagship family's width, so the
+# plain version that chip_smoke.py holds the CUDA kernels against is itself
 # held against the TPU kernel there: every GQA group the flagship family uses,
 # ragged L, per-batch offsets, windows with offsets, rows past the last key
 # (the TPU kernel's s_real cut), and a reduced serving chunk (offset > 0, S
@@ -273,6 +391,22 @@ FLASH_CASES_HD128 = {
     "rows_past_last_key": (1, 24, 40, 4, 2, 128, 30, None, 8, 128),
     "serving_chunk_padded_table": (1, 64, 256, 4, 2, 128, 128, None, 32, 128),
     "single_row_window": (1, 1, 64, 4, 2, 128, 63, 16, 8, 128),
+}
+
+
+# Head_dim 64 (the f32 kernel takes it too now) and GQA group 7, which folds
+# 9 positions into a 64-row tile of the CUDA kernel: both Qwen2.5 attention
+# shapes (28/4 of 128, 14/2 of 64) with offsets, per-batch offsets and
+# windows.
+FLASH_CASES_GROUPS = {
+    "hd64_group_2_offset": (1, 70, 130, 4, 2, 64, 60, None, 32, 128),
+    "hd64_group_7": (1, 50, 50, 14, 2, 64, 0, None, 16, 128),
+    "hd64_group_7_per_batch_window": (2, 40, 120, 14, 2, 64, [10, 80], 30, 16, 128),
+    "group_7_qwen7b_heads_offset": (1, 30, 96, 28, 4, 128, 66, None, 16, 128),
+    "group_7_window": (1, 45, 45, 7, 1, 128, 0, 20, 16, 128),
+    "group_12_per_batch": (2, 20, 60, 12, 1, 64, [0, 40], None, 8, 128),
+    "group_13_hd64_per_batch": (2, 24, 70, 26, 2, 64, [5, 46], None, 8, 128),
+    "group_64_window": (1, 12, 40, 64, 1, 128, 28, 16, 8, 128),
 }
 
 
@@ -303,6 +437,11 @@ def test_dense_attention_matches_flash_kernel(case):
 @pytest.mark.parametrize("case", sorted(FLASH_CASES_HD128))
 def test_dense_attention_matches_flash_kernel_hd128(case):
     _check_flash_case(*FLASH_CASES_HD128[case])
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES_GROUPS))
+def test_dense_attention_matches_flash_kernel_groups(case):
+    _check_flash_case(*FLASH_CASES_GROUPS[case])
 
 
 def test_flash_prefill_bad_grouping_raises():

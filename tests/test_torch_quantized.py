@@ -4,7 +4,8 @@
 bit (int8 values and f32 scales), on f32 and bf16 inputs with zero rows. The
 port's plain int8 paged attention (what its wrapper runs on CPU tensors) must
 match the JAX Pallas kernels, pipelined and tiled, run in interpret mode, to
-atol = rtol = 1e-5 in f32. Inputs come from seeded numpy.
+atol = rtol = 1e-5 in f32, at the flagship family's shapes and at every GQA
+group and head dim the CUDA kernels take. Inputs come from seeded numpy.
 """
 
 import jax.numpy as jnp
@@ -123,6 +124,42 @@ def test_paged_attention_quantized_matches_jax_kernel(case, pipelined):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     if 0 in seq_lens:
         assert not got[lens == 0].any()
+
+
+# (n_q, n_kv, hd, seq_lens, window) at page 16 over 6-page tables: the GQA
+# groups and head dims the CUDA kernels take beyond the flagship family's, as
+# tests/test_torch_ops.py's SHAPE_CASES, on int8 pages.
+SHAPE_CASES = {
+    "group_3": (6, 2, 128, [5, 90], None),
+    "group_5": (10, 2, 128, [17, 96], None),
+    "group_6_window": (12, 2, 128, [40, 96], 24),
+    "group_7_qwen7b_heads": (28, 4, 128, [0, 77], None),
+    "group_12_chunked_window": (12, 1, 128, [96, 50], 40),
+    "group_13_partial_last_chunk": (26, 2, 128, [31, 96], None),
+    "hd64_group_7_qwen05b_heads": (14, 2, 64, [1, 96], None),
+    "hd64_group_7_window": (14, 2, 64, [70, 96], 30),
+    "hd64_group_12_chunked": (12, 1, 64, [0, 64], None),
+}
+
+
+@pytest.mark.parametrize("pipelined", [True, False], ids=["pipelined", "tiled"])
+@pytest.mark.parametrize("case", sorted(SHAPE_CASES))
+def test_paged_attention_quantized_groups_and_head_dims(case, pipelined):
+    n_q, n_kv, hd, seq_lens, window = SHAPE_CASES[case]
+    inputs = _quantized_inputs(n_q=n_q, n_kv=n_kv, hd=hd, page=16, n_pages=14, pps=6)
+    lens = np.asarray(seq_lens, np.int32)
+    want = jax_paged_attention_quantized(
+        *(jnp.asarray(a) for a in inputs), jnp.asarray(lens),
+        interpret=True, pipelined=pipelined, window=window,
+    )
+    before = (port_qkv.launches, port_qkv.tiled_launches)
+    got = port_qkv.paged_attention_quantized(
+        *(torch.from_numpy(a) for a in inputs), torch.from_numpy(lens),
+        pipelined=pipelined, window=window,
+    )
+    assert (port_qkv.launches, port_qkv.tiled_launches) == before
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert not got[lens == 0].any()
 
 
 def test_quantized_reference_rounds_to_q_dtype():
