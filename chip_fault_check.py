@@ -53,6 +53,16 @@ planted MoE fault, top-1 serving: every token keeps only its first routed
 expert, at gate 1; the fault must fail them (either check fails phase 11b;
 each one's reading is printed).
 
+Phase 14a's index equality (12a's fleet stream, here at 4 pods, through the
+EventPool into the native index: the index must hold the plain replay's
+(key, pod) pairs) is held to the real native digest and to a planted digest
+fault, RemovalBlindDigest, which drops every BlockRemoved of one pod before
+the arena applies the batch; phase 14b's prefetch bar (the chosen pod must
+fetch exactly the peer-held head of its missing tail, on a load-blend run
+of 14b's traffic, batched) is held to the real RoutePrefetcher and to
+PrefixPrefetcher, which hands the pod its matched prefix instead of the
+missing tail. Both faults must fail their bars.
+
 Phase 8b's bit-identical check (P' restored from the host store on a tight
 bf16 pod against the same prompt on a pod that never evicts: suffix logits
 and 32 greedy tokens) is held to the real tree and to a planted codec fault,
@@ -88,6 +98,9 @@ import chip_smoke
 from llm_d_kv_cache_manager_tpu_torch.engine import engine as engine_mod
 from llm_d_kv_cache_manager_tpu_torch.engine.engine import EnginePod
 from llm_d_kv_cache_manager_tpu_torch.engine.scheduler import Scheduler
+from llm_d_kv_cache_manager_tpu_torch.kv_connectors.prefetch import RoutePrefetcher
+from llm_d_kv_cache_manager_tpu_torch.kvevents import pool as pool_mod
+from llm_d_kv_cache_manager_tpu_torch.kvevents.events import BlockRemoved, EventBatch
 from llm_d_kv_cache_manager_tpu_torch.models import llama, mixtral
 from llm_d_kv_cache_manager_tpu_torch.ops import _build
 
@@ -379,6 +392,64 @@ def run_moe_bar(label: str, params, cfg, params32, cfg32, delta: float, moe=None
     return dict(bar, ok=bar["ok"] and agree["ok"], bar_ok=bar["ok"], agreement=agree)
 
 
+real_native_digest = pool_mod.native_digest
+BLIND_POD = "pod-01"
+
+
+def removal_blind_digest(index, token_processor, pod_identifier, model_name, batch, *args):
+    """A planted digest fault: one pod's BlockRemoved events never reach the
+    arena (the rest of its batches apply as usual)."""
+    if pod_identifier == BLIND_POD:
+        batch = EventBatch(ts=batch.ts, events=[e for e in batch.events
+                                                if not isinstance(e, BlockRemoved)],
+                           data_parallel_rank=batch.data_parallel_rank)
+    return real_native_digest(index, token_processor, pod_identifier, model_name, batch, *args)
+
+
+def run_native_index_bar(label: str, digest=None) -> dict:
+    """Phase 14a's index equality at 4 pods with `digest` as the event
+    pool's native digest: whether the arena held the plain replay."""
+    pool_mod.native_digest = digest or real_native_digest
+    try:
+        chip_smoke.native_control_plane_run(0, 4, cost_aware=False)
+        ok, reason = True, ""
+    except AssertionError as e:
+        ok, reason = False, str(e)
+    finally:
+        pool_mod.native_digest = real_native_digest
+    chip_smoke.log(f"  [{label}] native index equality: {'ok' if ok else 'FAIL'} {reason}")
+    return dict(ok=ok, reason=reason)
+
+
+class PrefixPrefetcher(RoutePrefetcher):
+    """A planted prefetch fault: the chosen pod is handed the prefix it
+    already holds instead of the tail it misses."""
+
+    def submit_route(self, pod_identifier, pod_scores):
+        return self.submit(pod_identifier,
+                           pod_scores.block_hashes[:pod_scores.match_blocks.get(pod_identifier, 0)])
+
+
+def run_prefetch_bar(label: str, params, cfg, prefetcher_cls=RoutePrefetcher) -> dict:
+    """Phase 14b's traffic under load blend, batched, with `prefetcher_cls`:
+    whether every request's prefetch matched the index's peer-held head of
+    its missing tail (and every other bar of the run held)."""
+    template, _ = chip_smoke.chat_fixture()
+    tok = chip_smoke.WordTokenizer(chip_smoke.ChatTemplatingProcessor())
+    waves = chip_smoke.chat_traffic(0, cfg.vocab_size, template, tok)
+    r = chip_smoke.read_plane_run(params, cfg, waves, "load_blend", 8,
+                                  prefetcher_cls=prefetcher_cls)
+    torch.cuda.empty_cache()
+    prefetch = [f for f in r["failures"] if "the prefetcher fetched" in f]
+    ok = not r["failures"]
+    chip_smoke.log(f"  [{label}] prefetch bar: prefetched {r['prefetched_blocks']} of "
+                   f"{r['peer_head_blocks']} peer-held blocks, landed {r['landed_blocks']}, "
+                   f"{len(prefetch)} prefetch failures, {len(r['failures'])} in all: "
+                   f"{'ok' if ok else 'FAIL'} {r['failures'][:2]}")
+    return dict(ok=ok, prefetch_failures=len(prefetch), prefetched=r["prefetched_blocks"],
+                peer_head=r["peer_head_blocks"], landed=r["landed_blocks"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_fault_check: no CUDA device", file=sys.stderr)
@@ -442,6 +513,14 @@ def main() -> int:
     serving_bars["spec_real"] = run_spec_bar("spec_real", params, cfg, params32, cfg32, delta)
     serving_bars["spec_over_accept"] = run_spec_bar(
         "spec_over_accept", params, cfg, params32, cfg32, delta, cls=OverAcceptScheduler)
+    chip_smoke.log("== read-plane faults: a native digest blind to one pod's removals, and a "
+                   "prefetcher that hands over the matched prefix")
+    read_plane = {"native_real": run_native_index_bar("native_real"),
+                  "native_removal_blind": run_native_index_bar("native_removal_blind",
+                                                               removal_blind_digest),
+                  "prefetch_real": run_prefetch_bar("prefetch_real", params, cfg),
+                  "prefetch_matched_prefix": run_prefetch_bar(
+                      "prefetch_matched_prefix", params, cfg, PrefixPrefetcher)}
 
     chip_smoke.log("== MoE fault: top-1 serving (the first routed expert only, at gate 1)")
     del params, params32, models
@@ -461,7 +540,12 @@ def main() -> int:
     real_ok = all(r["ok"] for r in rows if r["variant"] == "real") and all(
         logits_ok["real"].values()) and bars["real"]["ok"] and host_tier["real"]["all_checks"] \
         and serving_bars["lora_real"]["ok"] and serving_bars["spec_real"]["ok"] \
-        and serving_bars["moe_real"]["ok"]
+        and serving_bars["moe_real"]["ok"] and read_plane["native_real"]["ok"] \
+        and read_plane["prefetch_real"]["ok"]
+    read_plane_caught = {label: not read_plane[label]["ok"]
+                         for label in ("native_removal_blind", "prefetch_matched_prefix")}
+    read_plane_caught["prefetch_matched_prefix"] &= \
+        read_plane["prefetch_matched_prefix"]["prefetch_failures"] > 0
     serving_caught = {label: not serving_bars[label]["ok"]
                       for label in ("lora_adapter_dropped_in_decode", "spec_over_accept",
                                     "moe_top1")}
@@ -490,6 +574,7 @@ def main() -> int:
         "lora_speculative_and_moe_bar_readings": {label: dict(bar["worst"], delta=bar["delta"])
                                               for label, bar in serving_bars.items()},
         "host_tier_fault_caught": host_tier_caught, "host_tier_readings": host_tier,
+        "read_plane_faults_caught": read_plane_caught, "read_plane_readings": read_plane,
         "scheduler_bar_readings": {label: dict(bar["worst"], delta=bar["delta"])
                                    for label, bar in bars.items()},
         "logits_ok": logits_ok, "bf16_max_row_rel_err": worst,
@@ -497,7 +582,7 @@ def main() -> int:
     }))
     return 0 if (real_ok and all(caught.values()) and all(logits_caught.values())
                  and all(bar_caught.values()) and host_tier_caught
-                 and all(serving_caught.values())) else 1
+                 and all(serving_caught.values()) and all(read_plane_caught.values())) else 1
 
 
 if __name__ == "__main__":

@@ -6,6 +6,8 @@
                                         # (no kernels or ok line)
     python3 chip_smoke.py --phases 3,4,13  # the kernels' shapes and the
                                            # Qwen2 family
+    python3 chip_smoke.py --phases 12a,14a,14b  # the control plane and the
+                                                # read plane
 
 Phases, in order (any failure raises and the script exits non-zero):
   1. device lines: torch's device name and nvidia-smi's name + power limit;
@@ -137,7 +139,7 @@ Phases, in order (any failure raises and the script exits non-zero):
   12b. four bf16 flagship pods (640 pages each, one set of weights) whose
      event sinks pack their batches into one EventPool, routed by the full
      Indexer (a word-level Tokenizer through the `tokenizer=` seam, the LRU
-     prefix store, the chain memo): 8 waves of 8 requests (8 system prompts
+     prefix store, the chain memo): 6 waves of 8 requests (8 system prompts
      of 1,024 tokens, each request one of them and a 256-token turn of its
      own, 16 greedy tokens) through each pod's Scheduler, once routed to the
      top get_pod_scores pod (ties round robin) and once round robin on fresh
@@ -162,6 +164,40 @@ Phases, in order (any failure raises and the script exits non-zero):
      7b's traffic through the Scheduler on a bf16 pod at decode_steps 1 and
      an int8 pod at 4 with its checks and teacher-forced bar, tokens/s and
      tick walls logged;
+  14a. (run right after 12a, on its stream) the control plane over the
+     native index, host only: 12a's fleet as msgpack bytes through the
+     EventPool into IndexConfig(native=True), the C arena built from
+     native/kvscore.c (with the C hash core, native/fnvcbor.c) into the
+     package's build/ directory; the index must hold the plain replay's
+     (key, pod) pairs, the arena must count every stored and removed block,
+     and score_many (one native crossing a batch) and score_hashes must
+     equal the plain longest prefix and phase 12a's ShardedIndex scores on
+     the 1,024 chains, with no fallback to the Python path; then the same
+     stream into the cost-aware index, with a budget that holds it all
+     (contents = the replay) and with a quarter of those bytes (held bytes
+     within the budget, every kept entry in the replay or a tail keyed
+     from the root after its parent's mapping was evicted); the native
+     digestion rate is logged beside 12a's; cut like 12a past 60 s;
+  14b. (run right after 12b) chat requests over four bf16 flagship pods
+     (640 pages each, host tiers that always transfer, eager staging, a
+     transfer server and an index-backed peer resolver each) behind the
+     native index: the committed template (tests/fixtures/chat) renders
+     the fixture strings tier-1 holds against transformers; 3 turns of 8
+     conversations on 12b's system prompts and a cohort of 8 new users on
+     one of them (4 waves of 8), each a RenderRequest scored by
+     get_pod_scores_ex and routed by RoutingPolicy.select (load blend,
+     weight 1, from each pod's Scheduler queue depth at an explicit `now`)
+     or by the top score, the chosen pod's missing tail handed over by the
+     RoutePrefetcher before the wave is served; served batched under both
+     policies and alone under load blend. Bars: each turn's tokens extend
+     the last's; the prefetcher fetches exactly the peer-held head of each
+     missing tail; every admission's cached tokens = 16 x (device blocks
+     the index predicted + blocks landed); after each wave every pod's gpu
+     entries = its committed pages and its cpu entries = its host store;
+     every choice = the plain recomputation of the policy, overrides
+     counted; alone, greedy tokens = a never-evicting pod bit for bit;
+     batched, phase 7b's teacher-forced bar; hit rate, TTFT, prefetched
+     and landed blocks, render, read-path and route times are logged;
   then a JSON line of details, one JSON line describing every kernel, and
   last: {"ok": true, "device": {...}}.
 """
@@ -177,6 +213,7 @@ import subprocess
 import sys
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -197,19 +234,31 @@ from llm_d_kv_cache_manager_tpu_torch.engine.speculative import (
     SpeculativeScheduler,
 )
 from llm_d_kv_cache_manager_tpu_torch.engine.tiering import IndexBackedPeerResolver
+from llm_d_kv_cache_manager_tpu_torch.fleethealth.load import PodLoadTracker
+from llm_d_kv_cache_manager_tpu_torch.kv_connectors.prefetch import RoutePrefetcher
 from llm_d_kv_cache_manager_tpu_torch.kvcache.indexer import (
     Indexer,
     IndexerConfig,
     ScoreRequest,
 )
-from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock import hashing
-from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.in_memory import InMemoryIndex
-from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.key import PodEntry
+from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock import hashing, native_index
+from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.cost_aware import (
+    CostAwareIndexConfig,
+    CostAwareMemoryIndex,
+)
+from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.in_memory import (
+    InMemoryIndex,
+    InMemoryIndexConfig,
+)
+from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.index import IndexConfig
+from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.key import Key, PodEntry
+from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.native_index import NativeScoringIndex
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.sharded import ShardedIndex
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.token_processor import (
     ChunkedTokenDatabase,
     TokenProcessorConfig,
 )
+from llm_d_kv_cache_manager_tpu_torch.kvcache.routing import RoutingPolicy, RoutingPolicyConfig
 from llm_d_kv_cache_manager_tpu_torch.kvevents.digest import digest_batch
 from llm_d_kv_cache_manager_tpu_torch.kvevents.events import (
     BlockRemoved,
@@ -228,6 +277,10 @@ from llm_d_kv_cache_manager_tpu_torch.ops.sampling import (
     position_keys,
     prng_key,
     sample_tokens,
+)
+from llm_d_kv_cache_manager_tpu_torch.preprocessing.chat_completions import (
+    ChatTemplatingProcessor,
+    RenderRequest,
 )
 from llm_d_kv_cache_manager_tpu_torch.tokenization.pool import (
     TokenizationPool,
@@ -3078,17 +3131,33 @@ PHASE_12A_LIMIT_S = 60.0
 WHOLE_PROMPTS = TokenizersPoolConfig(workers=4, min_prefix_overlap_ratio=float("inf"))
 
 
+# The chat template's tags and roles (tests/fixtures/chat/word-chat.jinja):
+# tokens of their own, at the top of the flagship's vocabulary.
+CHAT_WORDS = {w: FLAGSHIP["vocab_size"] - 1 - i for i, w in enumerate((
+    "<|start_header_id|>", "<|end_header_id|>", "<|eot_id|>", "system", "user", "assistant"))}
+
+
 class WordTokenizer(Tokenizer):
-    """A deterministic word-level tokenizer: the word "w01234" is token 1234.
-    Every word is 6 bytes and a space follows it, so a prompt's text is 7
-    bytes a token and a 1,024-token system prompt fills exactly 28 of the
-    prefix store's 256-byte chunks."""
+    """A deterministic word-level tokenizer: the word "w01234" is token 1234
+    (a CHAT_WORDS word its own id). Every word is 6 bytes and a space
+    follows it, so a prompt's text is 7 bytes a token and a 1,024-token
+    system prompt fills exactly 28 of the prefix store's 256-byte chunks.
+    Chat templates render through the ChatTemplatingProcessor it is given."""
+
+    def __init__(self, chat_templating=None):
+        self.chat_templating = chat_templating
 
     def encode(self, prompt: str, model_name: str) -> TokenizationResult:
         words = prompt.split(" ")
         ends = list(itertools.accumulate(len(w) + 1 for w in words))
-        return TokenizationResult(tokens=[int(w[1:]) for w in words],
+        return TokenizationResult(tokens=[CHAT_WORDS[w] if w in CHAT_WORDS else int(w[1:])
+                                          for w in words],
                                   offsets=[(e - len(w) - 1, e - 1) for w, e in zip(words, ends)])
+
+    def render_chat_template(self, request) -> str:
+        if self.chat_templating is None:
+            raise NotImplementedError("no chat templating processor")
+        return self.chat_templating.render(request)
 
 
 def words(tokens) -> str:
@@ -3206,13 +3275,9 @@ def phase_control_plane(seed: int) -> dict:
     return res
 
 
-def control_plane_run(seed: int, n_pods: int) -> dict:
-    log(f"== phase 12a: the control plane at a fleet's size (host only): {n_pods} pods x "
-        f"{FLEET_BLOCKS_PER_POD} blocks of {PAGE}, IndexConfig.default(), EventPool "
-        f"concurrency 4, seed {seed}")
-    t_phase = time.perf_counter()
-    batches, held, convs, shared, shared_hashes = fleet_traffic(seed, n_pods)
-    # Interleave the pods' streams round robin (each pod's own order kept).
+def fleet_messages(batches) -> tuple:
+    """The pods' streams as msgpack Messages, interleaved round robin (each
+    pod's own order kept); with the stored and removed block counts."""
     messages, cursors = [], {pod: 0 for pod in batches}
     while cursors:
         for pod in list(cursors):
@@ -3224,11 +3289,21 @@ def control_plane_run(seed: int, n_pods: int) -> dict:
                 topic=f"kv@{pod}@{FLEET_MODEL}", payload=batches[pod][seq].to_msgpack(),
                 seq=seq, pod_identifier=pod, model_name=FLEET_MODEL))
             cursors[pod] = seq + 1
-    setup_s = time.perf_counter() - t_phase
     n_blocks = sum(len(e.block_hashes) for bs in batches.values() for b in bs for e in b.events
                    if isinstance(e, BlockStored))
     n_removed = sum(len(e.block_hashes) for bs in batches.values() for b in bs for e in b.events
                     if isinstance(e, BlockRemoved))
+    return messages, n_blocks, n_removed
+
+
+def control_plane_run(seed: int, n_pods: int) -> dict:
+    log(f"== phase 12a: the control plane at a fleet's size (host only): {n_pods} pods x "
+        f"{FLEET_BLOCKS_PER_POD} blocks of {PAGE}, IndexConfig.default(), EventPool "
+        f"concurrency 4, seed {seed}")
+    t_phase = time.perf_counter()
+    batches, held, convs, shared, shared_hashes = fleet_traffic(seed, n_pods)
+    messages, n_blocks, n_removed = fleet_messages(batches)
+    setup_s = time.perf_counter() - t_phase
     payload_mb = sum(len(m.payload) for m in messages) / 1e6
     log(f"  made {len(messages)} msgpack batches ({payload_mb:.1f} MB): {n_blocks} blocks "
         f"stored, {n_removed} removed, in {setup_s:.1f} s")
@@ -3239,22 +3314,10 @@ def control_plane_run(seed: int, n_pods: int) -> dict:
     )
     if not isinstance(indexer.kv_block_index, ShardedIndex):
         raise AssertionError(f"default index is {type(indexer.kv_block_index).__name__}")
-    pool = EventPool(EventPoolConfig(concurrency=4), indexer.kv_block_index,
-                     indexer.token_processor)
-    pool.start(with_subscriber=False)
-    try:
-        t0 = time.perf_counter()
-        feed(pool, messages)
-        t1 = time.perf_counter()
-        pool.drain()
-        t2 = time.perf_counter()
-        counters = dict(dropped=pool.dropped_events, removals_lost=pool.removals_lost,
-                        workers_alive=pool.workers_alive())
-    finally:
-        pool.shutdown()
-    digest_s = t2 - t0
+    digest_s, drain_s, counters = digest_stream(indexer.kv_block_index,
+                                                indexer.token_processor, messages)
     log(f"  digested in {digest_s:.3f} s ({n_blocks / digest_s:.0f} blocks/s stored, "
-        f"{len(messages) / digest_s:.0f} batches/s); the last drain took {t2 - t1:.3f} s; "
+        f"{len(messages) / digest_s:.0f} batches/s); the last drain took {drain_s:.3f} s; "
         f"{counters}")
     failures = []
     if counters["dropped"] or counters["removals_lost"] or counters["workers_alive"] != 4:
@@ -3300,18 +3363,29 @@ def control_plane_run(seed: int, n_pods: int) -> dict:
         raise AssertionError(f"phase 12a: {failures}")
     return dict(pods=n_pods, blocks_stored=n_blocks, blocks_removed=n_removed,
                 batches=len(messages), payload_mb=payload_mb, digest_s=digest_s,
-                blocks_per_s=n_blocks / digest_s, last_drain_s=t2 - t1,
+                blocks_per_s=n_blocks / digest_s, last_drain_s=drain_s,
                 score_many_us=many_s * 1e6 / len(chains),
                 score_hashes_us=single_s * 1e6 / len(chains), setup_s=setup_s, run_s=run_s,
-                counters=counters)
+                counters=counters,
+                # Phase 14a holds the native index's scores to these.
+                readings=dict(seed=seed, many=[(m.scores, m.match_blocks) for m in many],
+                              singles=[(x.scores, x.match_blocks) for x in singles]))
 
 
 FLEET_SYSTEMS = 8  # system prompts of 1,024 tokens
-FLEET_WAVES = 8  # waves of 8 requests, each wave one request per system prompt
+# Waves of 8 requests, each wave one request per system prompt: 8 until
+# phase 14 joined the run, cut to 6 to keep the whole run inside the time
+# it took before.
+FLEET_WAVES = 6
 FLEET_TURN = 256
 FLEET_NEW = 16
 FLEET_POD_PAGES = 640
 FLEET_POD_IDS = ("pod-0", "pod-1", "pod-2", "pod-3")
+
+
+def system_prompts(rng, vocab: int) -> list:
+    """The 8 system prompts of 1,024 tokens that phases 12b and 14b share."""
+    return [rng.integers(0, vocab, 1024).tolist() for _ in range(FLEET_SYSTEMS)]
 
 
 def multitenant_traffic(seed: int, vocab: int) -> list:
@@ -3319,7 +3393,7 @@ def multitenant_traffic(seed: int, vocab: int) -> list:
     request per system prompt in a seeded order, each a system prompt and a
     256-token turn of its own."""
     rng = np.random.default_rng(seed + 12)
-    systems = [rng.integers(0, vocab, 1024).tolist() for _ in range(FLEET_SYSTEMS)]
+    systems = system_prompts(rng, vocab)
     return [[dict(system=int(s), tokens=systems[s] + rng.integers(0, vocab, FLEET_TURN).tolist())
              for s in rng.permutation(FLEET_SYSTEMS)] for _ in range(FLEET_WAVES)]
 
@@ -3525,6 +3599,598 @@ def phase_fleet(params, cfg, seed: int) -> dict:
 
 
 
+# -- phase 14: the read plane's second half -----------------------------------
+
+PHASE_14A_LIMIT_S = 60.0
+# The cost-aware replays take the streams of this many of 14a's pods: the
+# whole fleet through the Python digest into the cost-aware index took
+# 15-23 s a replay on an H100 machine's host, and two of them pushed the
+# phase past its 60 s.
+COST_AWARE_PODS = 4
+CHAT_DIR = Path(__file__).resolve().parent / "tests" / "fixtures" / "chat"
+
+
+def digest_stream(index, token_processor, messages) -> tuple:
+    """`messages` through an EventPool of 4 workers into `index`: (digest
+    seconds, the last drain's seconds, the pool's counters)."""
+    pool = EventPool(EventPoolConfig(concurrency=4), index, token_processor)
+    pool.start(with_subscriber=False)
+    try:
+        t0 = time.perf_counter()
+        feed(pool, messages)
+        t1 = time.perf_counter()
+        pool.drain()
+        t2 = time.perf_counter()
+        counters = dict(dropped=pool.dropped_events, removals_lost=pool.removals_lost,
+                        workers_alive=pool.workers_alive())
+    finally:
+        pool.shutdown()
+    return t2 - t0, t2 - t1, counters
+
+
+def native_indexer(tokenizer) -> Indexer:
+    """An Indexer over `IndexConfig(native=True)`: the C arena, built on
+    first use (a failed build raises)."""
+    indexer = Indexer(
+        IndexerConfig(token_processor_config=TokenProcessorConfig(block_size=PAGE),
+                      kv_block_index_config=IndexConfig(in_memory_config=InMemoryIndexConfig(),
+                                                        native=True)),
+        tokenization_pool=TokenizationPool(WHOLE_PROMPTS, tokenizer=tokenizer))
+    if not isinstance(indexer.kv_block_index, NativeScoringIndex):
+        raise AssertionError(f"native=True built {type(indexer.kv_block_index).__name__}")
+    return indexer
+
+
+def phase_native_control_plane(seed: int, sharded: dict) -> dict:
+    """Phase 14a at FLEET_PODS pods, cut like 12a past PHASE_14A_LIMIT_S. Its
+    scores are held to phase 12a's ShardedIndex readings (same seed): at
+    12a's pod count, which is run again when the two counts differ."""
+    ref = sharded.pop("readings")
+    if ref["seed"] != seed:
+        raise AssertionError(f"phase 12a ran at seed {ref['seed']}, 14a at {seed}")
+    n_pods = FLEET_PODS
+    while True:
+        res = native_control_plane_run(seed, n_pods, ref if n_pods == sharded["pods"] else None)
+        if res["run_s"] <= PHASE_14A_LIMIT_S or n_pods == 1:
+            break
+        cut = max(1, min(n_pods - 1, int(n_pods * PHASE_14A_LIMIT_S / res["run_s"])))
+        log(f"  phase 14a ran {res['run_s']:.1f} s at {n_pods} pods, past its "
+            f"{PHASE_14A_LIMIT_S:.0f} s limit: again at {cut} pods")
+        n_pods = cut
+    res["cut_from"] = None if n_pods == FLEET_PODS else FLEET_PODS
+    log(f"  phase 14a: {n_pods} pods"
+        + (f" (cut from {FLEET_PODS} pods to fit the time limit)" if res["cut_from"] else
+           " (no cut)"))
+    if n_pods != sharded["pods"]:
+        log(f"  phase 14a again at phase 12a's {sharded['pods']} pods, for the ShardedIndex "
+            f"comparison")
+        res["at_12a_pods"] = native_control_plane_run(seed, sharded["pods"], ref,
+                                                      cost_aware=False)
+    res["python_blocks_per_s"] = sharded["blocks_per_s"]
+    log(f"  native digest {res['blocks_per_s']:.0f} blocks/s at {n_pods} pods against phase "
+        f"12a's Python digest {sharded['blocks_per_s']:.0f} blocks/s at {sharded['pods']} pods "
+        f"({res['blocks_per_s'] / sharded['blocks_per_s']:.2f}x), same call ({card_line()})")
+    return res
+
+
+def native_control_plane_run(seed: int, n_pods: int, ref=None, cost_aware: bool = True) -> dict:
+    log(f"== phase 14a: the control plane over the native index (host only): {n_pods} pods x "
+        f"{FLEET_BLOCKS_PER_POD} blocks of {PAGE}, IndexConfig(native=True), EventPool "
+        f"concurrency 4, seed {seed}")
+    t_phase = time.perf_counter()
+    batches, held, convs, shared, shared_hashes = fleet_traffic(seed, n_pods)
+    messages, n_blocks, n_removed = fleet_messages(batches)
+    setup_s = time.perf_counter() - t_phase
+    indexer = native_indexer(WordTokenizer())
+    index = indexer.kv_block_index
+    fallbacks = native_index.fallback_total()
+    digest_s, drain_s, counters = digest_stream(index, indexer.token_processor, messages)
+    status = index.native_status()
+    log(f"  made {len(messages)} msgpack batches in {setup_s:.1f} s; digested {n_blocks} "
+        f"stored and {n_removed} removed blocks in {digest_s:.3f} s ({n_blocks / digest_s:.0f} "
+        f"blocks/s stored; the last drain {drain_s:.3f} s); {counters}; arena {status}")
+    failures = []
+    if counters["dropped"] or counters["removals_lost"] or counters["workers_alive"] != 4:
+        failures.append(f"pool counters {counters}")
+    want = {(h, pod, "gpu") for pod, keys in held.items() for h in keys}
+    got = index_pairs(index)
+    if got != want:
+        failures.append(f"index holds {len(got)} (key, pod) pairs, the plain replay "
+                        f"{len(want)}: {len(got - want)} extra, {len(want - got)} missing")
+    if status["blocks_applied"] != n_blocks + n_removed:
+        failures.append(f"the arena applied {status['blocks_applied']} blocks of "
+                        f"{n_blocks + n_removed}")
+
+    chains = fleet_chains(seed, convs, shared, shared_hashes)
+    requests = [ScoreRequest(words(t), FLEET_MODEL) for t, _ in chains]
+    indexer.run()
+    try:
+        t0 = time.perf_counter()
+        many = indexer.score_many(requests)
+        many_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        singles = [indexer.score_hashes(FLEET_MODEL, chain) for _, chain in chains]
+        single_s = time.perf_counter() - t0
+    finally:
+        indexer.shutdown()
+    bad = sum(m.block_hashes != chain or m.scores != plain_longest_prefix(chain, held)
+              or s.scores != plain_longest_prefix(chain, held)
+              for (_, chain), m, s in zip(chains, many, singles))
+    if bad:
+        failures.append(f"{bad} of {len(chains)} chains score apart from the plain replay")
+    apart = None
+    if ref is not None:
+        apart = sum((m.scores, m.match_blocks) != r1 or (s.scores, s.match_blocks) != r2
+                    for m, s, r1, r2 in zip(many, singles, ref["many"], ref["singles"]))
+        if apart:
+            failures.append(f"{apart} of {len(chains)} chains score apart from phase 12a's "
+                            f"ShardedIndex")
+    fallbacks = native_index.fallback_total() - fallbacks
+    if fallbacks:
+        failures.append(f"{fallbacks} batches fell back to the Python path")
+    log(f"  {len(chains)} chains: score_many {many_s * 1e6 / len(chains):.1f} us/chain "
+        f"(tokenize + derive + one native crossing), score_hashes "
+        f"{single_s * 1e6 / len(chains):.1f} us/chain; {bad} off the plain replay, "
+        f"{'not compared' if apart is None else apart} off the ShardedIndex; fallbacks "
+        f"{fallbacks}")
+    out = dict(pods=n_pods, blocks_stored=n_blocks, blocks_removed=n_removed,
+               batches=len(messages), digest_s=digest_s, blocks_per_s=n_blocks / digest_s,
+               last_drain_s=drain_s, score_many_us=many_s * 1e6 / len(chains),
+               score_hashes_us=single_s * 1e6 / len(chains), setup_s=setup_s,
+               counters=counters, arena=status, fallbacks=fallbacks, apart_from_sharded=apart)
+    if cost_aware:
+        # A stored tail whose parent's engine mapping the budget evicted is
+        # keyed from the root (the reference's digest rule): those keys, per
+        # pod, are the only entries a budgeted index may hold outside the
+        # replay.
+        pods = {f"pod-{p:02d}" for p in range(min(n_pods, COST_AWARE_PODS))}
+        root = hashing.init_hash("")
+        orphans = {(h, pod, "gpu") for _, tail, _, pod in convs if pod in pods
+                   for h in hashing.prefix_hashes_fast(root, tail, PAGE)}
+        out["cost_aware"] = cost_aware_replays(
+            [m for m in messages if m.pod_identifier in pods],
+            {x for x in want if x[1] in pods}, orphans, failures)
+    out["run_s"] = time.perf_counter() - t_phase
+    log(f"  phase 14a ran {out['run_s']:.1f} s (limit {PHASE_14A_LIMIT_S:.0f} s) at "
+        f"{n_pods} pods")
+    if failures:
+        raise AssertionError(f"phase 14a: {failures}")
+    return out
+
+
+def cost_aware_replays(messages, want: set, orphans: set, failures: list) -> dict:
+    """The same stream into the cost-aware index: with a budget that holds
+    it all (its contents must equal the replay, nothing evicted), then with
+    a quarter of the bytes that run held (the bytes held stay within the
+    budget, something is evicted, and every kept entry is in the replay or
+    is one of `orphans`: a tail keyed from the root because its parent's
+    mapping was evicted first)."""
+    tp = ChunkedTokenDatabase(TokenProcessorConfig(block_size=PAGE))
+    full = CostAwareMemoryIndex(CostAwareIndexConfig(max_size_bytes="4GiB"))
+    full_s, _, counters = digest_stream(full, tp, messages)
+    held_bytes = full.total_cost_bytes
+    got = index_pairs(full)
+    if got != want or any(full.eviction_stats.values()) or counters["dropped"]:
+        failures.append(f"cost_aware (4GiB) holds {len(got)} pairs of {len(want)}, evicted "
+                        f"{full.eviction_stats}, {counters}")
+    del full
+    budget = held_bytes // 4
+    small = CostAwareMemoryIndex(CostAwareIndexConfig(max_size_bytes=budget))
+    small_s, _, counters = digest_stream(small, tp, messages)
+    kept = index_pairs(small)
+    rooted = kept - want
+    if small.total_cost_bytes > budget or not rooted <= orphans \
+            or not small.eviction_stats["lru"]:
+        failures.append(f"cost_aware at a quarter budget ({budget} B): holds "
+                        f"{small.total_cost_bytes} B, {len(rooted - orphans)} entries in neither "
+                        f"the replay nor the root-keyed tails, evicted {small.eviction_stats}")
+    out = dict(full_s=full_s, held_bytes=held_bytes, quarter_budget=budget, quarter_s=small_s,
+               quarter_held_bytes=small.total_cost_bytes, quarter_kept=len(kept),
+               quarter_root_keyed=len(rooted), quarter_evictions=dict(small.eviction_stats),
+               replay_pairs=len(want))
+    log(f"  cost_aware, the streams of {len({m.pod_identifier for m in messages})} pods "
+        f"({len(messages)} batches): the "
+        f"whole of them in {full_s:.2f} s holds {held_bytes} B, every pair of the replay; at a "
+        f"quarter ({budget} B) in {small_s:.2f} s it holds "
+        f"{small.total_cost_bytes} B: {len(kept) - len(rooted)} of the replay's {len(want)} "
+        f"pairs and {len(rooted)} root-keyed tail entries; evictions {small.eviction_stats}")
+    return out
+
+
+# Phase 14b: chat requests over four flagship pods, routed by load blend.
+CHAT_USER = 96  # tokens of a user turn
+CHAT_REPLY = 32  # tokens of an assistant turn
+CHAT_TURNS = 3
+READ_PLANE_RUNS = (("load_blend", 8), ("prefix_only", 8), ("load_blend", 1))
+LOAD_WEIGHT = 1.0
+
+
+def chat_fixture() -> tuple:
+    """The committed chat template and the rendered strings that tier-1
+    holds against transformers (tests/test_torch_chat.py)."""
+    fixture = json.loads((CHAT_DIR / "rendered.json").read_text())
+    return (CHAT_DIR / fixture["template"]).read_text(), fixture["cases"]
+
+
+def chat_traffic(seed: int, vocab: int, template: str, tok) -> list:
+    """Phase 14b's waves of RenderRequests over 12b's 8 system prompts:
+    waves 0-2 carry turns 1-3 of 8 conversations (conversation c on system
+    prompt c; a seeded user turn of CHAT_USER tokens each, the earlier turns
+    answered by seeded replies of CHAT_REPLY), wave 3 the first turns of 8
+    new conversations on system prompt 0 (a later cohort of one tenant's
+    users). Each request carries its rendered prompt's token ids."""
+    rng = np.random.default_rng(seed + 14)
+    systems = system_prompts(np.random.default_rng(seed + 12), vocab)
+
+    def turn(n):
+        return words(rng.integers(0, vocab, n).tolist())
+
+    convs = [[{"role": "system", "content": words(systems[c])}] for c in range(FLEET_SYSTEMS)]
+    waves = []
+    for t in range(CHAT_TURNS):
+        for conv in convs:
+            if t:
+                conv.append({"role": "assistant", "content": turn(CHAT_REPLY)})
+            conv.append({"role": "user", "content": turn(CHAT_USER)})
+        waves.append([(c, t, [dict(m) for m in convs[c]]) for c in rng.permutation(FLEET_SYSTEMS)])
+    cohort = [[{"role": "system", "content": words(systems[0])},
+               {"role": "user", "content": turn(CHAT_USER)}] for _ in range(FLEET_SYSTEMS)]
+    waves.append([(FLEET_SYSTEMS + i, 0, m) for i, m in enumerate(cohort)])
+    out = []
+    for wave in waves:
+        out.append([])
+        for conv, t, messages in wave:
+            request = RenderRequest(conversations=[messages], chat_template=template,
+                                    model_name=READ_PLANE_MODEL)
+            tokens = tok.encode(tok.render_chat_template(request), READ_PLANE_MODEL).tokens
+            out[-1].append(dict(conv=int(conv), turn=t, request=request, tokens=tokens))
+    return out
+
+
+READ_PLANE_MODEL = "llama-flagship-1.14b"
+
+
+def read_plane_pods(params, cfg, pool, index) -> dict:
+    """Four bf16 flagship pods (shared weights) whose sinks pack their event
+    batches into `pool`, each with a host tier that always transfers, eager
+    staging (a finished sequence's pages are staged, so the index names a
+    peer's copy "cpu" and its transfer server serves it) and a peer
+    resolver over the shared index."""
+    pods = {}
+    for pid in FLEET_POD_IDS:
+        seq = iter(range(1 << 62))
+
+        def sink(batch, pid=pid, seq=seq):
+            pool.add_task(Message(topic=f"kv@{pid}@{READ_PLANE_MODEL}",
+                                  payload=batch.to_msgpack(), seq=next(seq), pod_identifier=pid,
+                                  model_name=READ_PLANE_MODEL))
+
+        pods[pid] = EnginePod(
+            EnginePodConfig(pod_id=pid, model_name=READ_PLANE_MODEL, n_pages=FLEET_POD_PAGES,
+                            page_size=PAGE, device_tier="gpu", max_pages_per_seq=96,
+                            model_config=cfg, device=params["embed"].device,
+                            enable_host_tier=True, transfer_cost_model=ALWAYS_TRANSFER,
+                            eager_stage=True),
+            event_sink=sink, params=params)
+    addrs = {pid: pod.transfer_address for pid, pod in pods.items()}
+    for pid, pod in pods.items():
+        pod.set_peer_resolver(IndexBackedPeerResolver(index, READ_PLANE_MODEL, addrs, pid))
+    return pods
+
+
+def held_run(index, chain, pod: str, tier: str, others: bool = False) -> int:
+    """Leading blocks of `chain` that `pod` (with `others`: any other pod)
+    holds at `tier`, by the index."""
+    if not chain:
+        return 0
+    keys = [Key(READ_PLANE_MODEL, h) for h in chain]
+    hits = index.lookup(keys, set())
+    n = 0
+    for key in keys:
+        if not any((e.pod_identifier != pod if others else e.pod_identifier == pod)
+                   and e.device_tier == tier for e in hits.get(key, ())):
+            break
+        n += 1
+    return n
+
+
+def queue_depth(sched) -> int:
+    return len(sched._waiting) + len(sched._running)
+
+
+def plain_route(policy: str, scores: dict, loads: dict, rr: int):
+    """The routing choice recomputed in plain Python: load blend's
+    utility = prefix_frac - w * load_index (load_index = queue depth / 4,
+    the policy's default norm, here the only signal), max then the
+    lexicographic-min pod; prefix only, the top score (ties and no cache
+    round robin). Returns (choice, whether load blend overrode the prefix
+    argmax)."""
+    pods = list(FLEET_POD_IDS)
+    if policy == "prefix_only":
+        best = max(scores.values(), default=None)
+        tied = [p for p in pods if scores.get(p) == best] if scores else pods
+        return tied[rr % len(tied)], False
+    top = max(scores.values()) if scores else 0.0
+    util = {p: ((scores.get(p, 0.0) / top) if top else 0.0) - LOAD_WEIGHT * (loads[p] / 4.0)
+            for p in pods}
+    best = max(util.values())
+    choice = min(p for p, u in util.items() if u == best)
+    prefix = min((p for p, s in scores.items() if s == top), default=None)
+    return choice, prefix is not None and choice != prefix
+
+
+def read_plane_run(params, cfg, waves, policy: str, max_batch: int,
+                   prefetcher_cls=RoutePrefetcher) -> dict:
+    """One policy over the waves on four fresh pods. Per request: report
+    each pod's Scheduler queue depth to the PodLoadTracker (`now` explicit),
+    score the RenderRequest through get_pod_scores_ex, choose with
+    RoutingPolicy.select (prefix only: the top score), hand the chosen pod
+    its missing tail through the RoutePrefetcher, drain it, wait for the
+    peer fetches the index predicts, and queue the request on the pod's
+    Scheduler. Then serve every pod's queue. Bars: the prefetch, the
+    landing, the index and the routing choices."""
+    indexer = native_indexer(WordTokenizer(ChatTemplatingProcessor()))
+    index = indexer.kv_block_index
+    pool = EventPool(EventPoolConfig(concurrency=4), index, indexer.token_processor)
+    pool.start(with_subscriber=False)
+    indexer.run()
+    pods = read_plane_pods(params, cfg, pool, index)
+    clock = [1000.0]
+    tracker = PodLoadTracker(clock=lambda: clock[0])
+    router = RoutingPolicy(RoutingPolicyConfig(policy=policy, load_weight=LOAD_WEIGHT),
+                           load_tracker=tracker)
+    prefetcher = prefetcher_cls(lambda pid, hashes: pods[pid].prefetch_hashes(hashes))
+    tp = indexer.token_processor
+    fallbacks = native_index.fallback_total()
+    rr, records, failures = 0, [], []
+    tokens, requests, cached, ttft = {}, {}, {}, []
+    times = dict(render_ms=[], read_ms=[], route_ms=[], prefetch_wait_ms=[])
+    try:
+        for w, wave in enumerate(waves):
+            scheds = {pid: Scheduler(pod, max_batch=max_batch, prefill_token_budget=512,
+                                     decode_steps=1) for pid, pod in pods.items()}
+            routed = {}
+            for j, q in enumerate(wave):
+                clock[0] += 1.0
+                now = clock[0]
+                loads = {pid: queue_depth(s) for pid, s in scheds.items()}
+                for pid, depth in loads.items():
+                    tracker.report(pid, queue_depth=depth, now=now)
+                t0 = time.perf_counter()
+                indexer.tokenizers_pool.tokenizer.render_chat_template(q["request"])
+                times["render_ms"].append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                ps = indexer.get_pod_scores_ex("", READ_PLANE_MODEL, list(pods),
+                                               render_request=q["request"])
+                times["read_ms"].append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                choice = router.select(ps.scores, list(pods), now=now)
+                if choice is None:  # prefix only: the top score, ties round robin
+                    choice = plain_route("prefix_only", ps.scores, loads, rr)[0]
+                times["route_ms"].append((time.perf_counter() - t0) * 1e3)
+                chain = [k.chunk_hash for k in tp.tokens_to_kv_block_keys(
+                    None, q["tokens"], READ_PLANE_MODEL)]
+                if ps.block_hashes != chain:
+                    failures.append(f"wave {w} request {j}: the indexer's chain ({len(ps.block_hashes)} "
+                                    f"blocks) is not the rendered prompt's ({len(chain)})")
+                device = held_run(index, chain, choice, "gpu")
+                tail = ps.missing_tail(choice)
+                head = tail[:held_run(index, tail, choice, "cpu", others=True)]
+                tier = pods[choice].tier_store
+                with tier._mu:  # the ready buffer: payloads fetched, not yet landed
+                    ready = set(tier._ready)
+                expect = min(sum(h not in ready for h in head),
+                             pods[choice].config.prefetch_capacity_blocks - len(ready))
+                before = tier.stats["prefetched"]
+                t0 = time.perf_counter()
+                prefetcher.submit_route(choice, ps)
+                prefetcher.drain()
+                deadline = time.perf_counter() + 5.0
+                while tier.stats["prefetched"] - before < expect and time.perf_counter() < deadline:
+                    time.sleep(0.002)
+                fetched = tier.stats["prefetched"] - before
+                times["prefetch_wait_ms"].append((time.perf_counter() - t0) * 1e3)
+                if fetched != expect:
+                    failures.append(f"wave {w} request {j} on {choice}: the prefetcher fetched "
+                                    f"{fetched} blocks, the index's peer-held head of the "
+                                    f"missing tail is {expect}")
+                rid = scheds[choice].submit(prompt_tokens=q["tokens"], max_new_tokens=FLEET_NEW)
+                routed[(choice, rid)] = j
+                records.append(dict(wave=w, request=j, conv=q["conv"], turn=q["turn"], rr=rr,
+                                    pod=choice, scores=dict(ps.scores),
+                                    match=dict(ps.match_blocks), loads=loads, device=device,
+                                    tail=len(tail), peer_head=len(head), fetched=fetched))
+                rr += 1
+            wave_records = records[-len(wave):]
+            for pid, sched in scheds.items():
+                if not sched.has_work:
+                    continue
+                device_of = {rid: wave_records[j]["device"]
+                             for (p, rid), j in routed.items() if p == pid}
+                r = serve_routed(pods[pid], sched, device_of)
+                failures += [f"wave {w} {pid}: {f}" for f in r["failures"]]
+                for rid, req in r["done"].items():
+                    j = routed[(pid, rid)]
+                    tokens[(w, j)], requests[(w, j)] = req.generated, req
+                    cached[(w, j)] = req.num_cached_tokens
+                    ttft.append((r["first_token_s"][rid], req.num_cached_tokens > 0))
+            for pod in pods.values():
+                pod.tier_store.drain_async_stages()
+            pool.drain()
+            pairs = index_pairs(index)
+            for pid, pod in pods.items():
+                committed = set(pod.block_manager.cached_hashes())
+                on_gpu = {h for h, p, tier in pairs if p == pid and tier == "gpu"}
+                on_cpu = {h for h, p, tier in pairs if p == pid and tier == "cpu"}
+                if committed != on_gpu:
+                    failures.append(f"wave {w} {pid}: index {len(on_gpu)} gpu blocks, pod "
+                                    f"{len(committed)} ({len(on_gpu - committed)} extra)")
+                if pod.tier_store.staged_subset(on_cpu) != on_cpu or \
+                        pod.tier_store.staged_count != len(on_cpu):
+                    failures.append(f"wave {w} {pid}: index {len(on_cpu)} cpu blocks, host "
+                                    f"store {pod.tier_store.staged_count}")
+        counters = dict(dropped=pool.dropped_events, removals_lost=pool.removals_lost,
+                        prefetch_dropped=prefetcher.stats["dropped"],
+                        fallbacks=native_index.fallback_total() - fallbacks)
+        if any(counters.values()):
+            failures.append(f"counters {counters}")
+        tier_stats = {pid: dict(pod.tier_store.stats) for pid, pod in pods.items()}
+    finally:
+        prefetcher.close()
+        indexer.shutdown()
+        pool.shutdown()
+        for pod in pods.values():
+            pod.close()
+    overrides = 0
+    for rec in records:
+        want, overrode = plain_route(policy, rec["scores"], rec["loads"], rec["rr"])
+        overrides += overrode
+        if rec["pod"] != want:
+            failures.append(f"wave {rec['wave']} request {rec['request']}: routed to "
+                            f"{rec['pod']}, the plain utility picks {want}")
+    if router.stats["overrides"] != overrides:
+        failures.append(f"the policy counted {router.stats['overrides']} overrides, the plain "
+                        f"recomputation {overrides}")
+    prompt_tokens = sum(len(q["tokens"]) for wave in waves for q in wave)
+    hit_ms = [t * 1e3 for t, hit in ttft if hit]
+    return dict(tokens=tokens, requests=requests, failures=failures, counters=counters,
+                cached={f"{w}.{j}": c for (w, j), c in cached.items()},
+                hit_rate=sum(cached.values()) / prompt_tokens,
+                ttft_median_ms=statistics.median(t for t, _ in ttft) * 1e3,
+                ttft_hit_median_ms=statistics.median(hit_ms) if hit_ms else None,
+                ttft_ms=[t * 1e3 for t, _ in ttft], overrides=overrides,
+                policy_stats=dict(router.stats), prefetcher=prefetcher.status(),
+                prefetched_blocks=sum(r["fetched"] for r in records),
+                peer_head_blocks=sum(r["peer_head"] for r in records),
+                landed_blocks=sum(s["onboards"] + s["restores"] for s in tier_stats.values()),
+                tier_stats=tier_stats, routes=[(r["wave"], r["request"], r["pod"])
+                                               for r in records],
+                **{k: dict(median=statistics.median(v), max=max(v)) for k, v in times.items()})
+
+
+def serve_routed(pod, sched, device_of: dict) -> dict:
+    """Step a pod's Scheduler until its queue drains. At each step that
+    admits requests, their cached tokens must equal 16 x (the blocks the
+    index said were on the pod's device + the blocks the host tier landed
+    in that step): a prefetched block is landed at admission, so the
+    prediction plus the landing is exact."""
+    sync()
+    t0 = time.perf_counter()
+    first, done, failures = {}, {}, []
+    while sched.has_work:
+        pending = [r for r in sched._waiting if r.state is None]
+        stats = pod.tier_store.stats
+        landed0 = stats["onboards"] + stats["restores"]
+        finished = sched.step()
+        now = time.perf_counter()
+        landed = stats["onboards"] + stats["restores"] - landed0
+        admitted = [r for r in pending if r.state is not None]
+        got = sum(r.num_cached_tokens for r in admitted)
+        want = PAGE * (sum(device_of[r.req_id] for r in admitted) + landed)
+        if got != want:
+            failures.append(f"requests {[r.req_id for r in admitted]} admitted with {got} cached "
+                            f"tokens, the index and the landing predict {want}")
+        done.update({r.req_id: r for r in finished})
+        for r in [*sched._running, *sched._waiting, *finished]:
+            if r.generated and r.req_id not in first:
+                first[r.req_id] = now - t0
+    if sched.preemptions:
+        failures.append(f"{sched.preemptions} preemptions")
+    return dict(done=done, first_token_s=first, failures=failures)
+
+
+def phase_read_plane(params, cfg, seed: int) -> dict:
+    log(f"== phase 14b: chat requests over four bf16 flagship pods ({FLEET_POD_PAGES} pages of "
+        f"{PAGE}, host tiers, eager staging) behind the native index: {CHAT_TURNS} turns of 8 "
+        f"conversations and a cohort of 8 on one system prompt, rendered from the committed "
+        f"template, routed by load blend (weight {LOAD_WEIGHT}) and by prefix only, the chosen "
+        f"pod's missing tail prefetched; batched (max_batch 8), and load blend again alone")
+    t_phase = time.perf_counter()
+    template, cases = chat_fixture()
+    chat = ChatTemplatingProcessor()
+    failures = []
+    for c in cases:
+        req = dict(c["request"])
+        got = chat.render(RenderRequest(chat_template=template, **req))
+        if got != c["rendered"]:
+            failures.append(f"fixture case {req}: rendered {got!r}")
+    tok = WordTokenizer(chat)
+    waves = chat_traffic(seed, cfg.vocab_size, template, tok)
+    last = {}
+    for wave in waves:
+        for q in wave:
+            prev = last.get(q["conv"])
+            if prev is not None and q["tokens"][:len(prev)] != prev:
+                failures.append(f"conversation {q['conv']} turn {q['turn'] + 1} does not "
+                                f"extend turn {q['turn']}")
+            last[q["conv"]] = q["tokens"]
+    n_req = sum(len(w) for w in waves)
+    log(f"  {len(cases)} fixture renders checked; {n_req} requests of "
+        f"{min(len(q['tokens']) for w in waves for q in w)}-"
+        f"{max(len(q['tokens']) for w in waves for q in w)} tokens")
+    card = card_line()
+    ref_pod = EnginePod(
+        EnginePodConfig(pod_id="pod-ref", model_name="ref", n_pages=2048, page_size=PAGE,
+                        device_tier="gpu", max_pages_per_seq=96, model_config=cfg,
+                        device=params["embed"].device), params=params)
+    want = {(w, j): serve_share(ref_pod, [q], 1)["tokens"][0]
+            for w, wave in enumerate(waves) for j, q in enumerate(wave)}
+    del ref_pod
+    torch.cuda.empty_cache()
+    out, batched = {}, {}
+    reset_launch_counts()
+    for policy, max_batch in READ_PLANE_RUNS:
+        run = f"{policy} batch {max_batch}"
+        res = read_plane_run(params, cfg, waves, policy, max_batch)
+        off = [k for k in want if res["tokens"][k] != want[k]]
+        if max_batch == 1 and off:
+            res["failures"].append(f"{len(off)} requests' greedy tokens differ from the "
+                                   f"never-evicting pod: first {off[0]}")
+        if policy == "load_blend" and not (res["overrides"] and res["prefetched_blocks"]):
+            res["failures"].append(f"load blend overrode {res['overrides']} routes and "
+                                   f"prefetched {res['prefetched_blocks']} blocks")
+        failures += [f"{run}: {f}" for f in res["failures"]]
+        log(f"  {run} ({card}): prefix-hit rate {res['hit_rate']:.4f}, TTFT median "
+            f"{res['ttft_median_ms']:.2f} ms (of hits {res['ttft_hit_median_ms'] or 0:.2f}); "
+            f"overrides {res['overrides']}; prefetched {res['prefetched_blocks']} blocks of "
+            f"{res['peer_head_blocks']} peer-held, landed {res['landed_blocks']}; prefetcher "
+            f"{res['prefetcher']['stats']}; render {res['render_ms']['median']:.3f} ms, read "
+            f"path {res['read_ms']['median']:.3f} ms, route {res['route_ms']['median']:.4f} ms, "
+            f"prefetch wait {res['prefetch_wait_ms']['median']:.2f} ms (medians); routes "
+            f"{res['routes']}; {len(off)} of {len(want)} apart from the never-evicting pod; "
+            f"{len(res['failures'])} failures")
+        res["tokens_apart"] = len(off)
+        if max_batch > 1:
+            batched[policy] = (res.pop("tokens"), res.pop("requests"))
+        else:
+            res.pop("tokens"), res.pop("requests")
+        out[run] = res
+    launches = launch_counts()
+    log(f"  kernel launches in the three runs: {launches}")
+    for name in ("paged_decode", "flash_prefill"):
+        if launches[name] <= 0:
+            failures.append(f"{name} was never launched on the read plane's path")
+    params32, cfg32 = f32_twin(params, cfg)
+    delta, e = teacher_forced_delta(params, cfg, params32, cfg32, False)
+    for policy, (tokens, requests) in batched.items():
+        keys = sorted(tokens)
+        traffic = [dict(prompt_tokens=waves[w][j]["tokens"], sampling=None) for w, j in keys]
+        bar = teacher_forced_bar(params32, cfg32, traffic, [requests[k] for k in keys], delta)
+        log(f"    {policy} batch 8, teacher-forced bar: greedy worst "
+            f"{bar['worst']['greedy']:.4f} over {bar['tokens_checked']['greedy']} tokens "
+            f"(delta {delta:.4f}: the bf16 plain path is {e:.4f} off the truth)")
+        if not bar["ok"]:
+            failures.append(f"{policy} batch 8: teacher-forced bar {bar}")
+        out[f"{policy} batch 8"]["bar"] = bar
+    del params32
+    torch.cuda.empty_cache()
+    out.update(card=card, launches=launches, seconds=time.perf_counter() - t_phase)
+    log(f"  phase 14b took {out['seconds']:.1f} s")
+    if failures:
+        raise AssertionError(f"phase 14b: {failures[:6]}")
+    return out
+
+
 # -- phase 13: the Qwen2 family at published widths ---------------------------
 
 # The config.json fields of Qwen/Qwen2.5-7B and Qwen/Qwen2.5-0.5B that the
@@ -3717,10 +4383,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=None,
                         help="comma-separated phases to run after the build (3 4 5 5b 5c 6 7a "
-                        "7b 8a 8 9a 9b 10a 10b 11a 11b 12a 12b 13; 9b and 10b run 7b's "
-                        "deltas first); a partial run prints no kernels or ok line")
+                        "7b 8a 8 9a 9b 10a 10b 11a 11b 12a 12b 13 14a 14b; 9b and 10b run "
+                        "7b's deltas first, 14a runs 12a first); a partial run prints no "
+                        "kernels or ok line")
     parser.add_argument("--seed", type=int, default=0,
-                        help="seed of phase 12's events, prompts and traffic")
+                        help="seed of phases 12 and 14's events, prompts and traffic")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3776,8 +4443,10 @@ def main(argv=None) -> int:
     moe_small = phase_moe_small()
     moe = phase_moe_flagship()
     control = phase_control_plane(args.seed)
+    native = phase_native_control_plane(args.seed, control)
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     fleet = phase_fleet(params, cfg, args.seed)
+    read_plane = phase_read_plane(params, cfg, args.seed)
     del params
     torch.cuda.empty_cache()
     qwen = phase_qwen()
@@ -3788,7 +4457,8 @@ def main(argv=None) -> int:
     # decoding's (phase 10b's scheduler runs) and on the MoE family's
     # (phase 11b's scheduler runs) and on the fleet's (phase 12b's four pods,
     # both policies; bf16 pages only) and on the Qwen2 family's (phase 13a's
-    # pods and 13c's scheduler runs, both models); rows 3 and 4 (the tiled
+    # pods and 13c's scheduler runs, both models) and on the read plane's
+    # (phase 14b's four pods, its three runs; bf16 pages); rows 3 and 4 (the tiled
     # decode entry) on phase 6's, phase 11b's and phase 13b's tiled decode
     # steps.
     runs = [sched[f"{fmt} steps{steps}"] for fmt, _, steps in FLAGSHIP_RUNS]
@@ -3799,7 +4469,8 @@ def main(argv=None) -> int:
                       "speculative": spec["launches"][name],
                       "moe": moe["launches"][name],
                       "fleet": fleet["launches"][name],
-                      "qwen": qwen["launches"][name]}
+                      "qwen": qwen["launches"][name],
+                      "read_plane": read_plane["launches"][name]}
                for name in ("paged_decode", "paged_decode_int8", "flash_prefill")}
     for row in ("paged_decode_tiled", "paged_decode_tiled_int8"):
         by_path[row] = {"batched_decode": batched["checks"][row]["launches"],
@@ -3825,7 +4496,8 @@ def main(argv=None) -> int:
                     "lora_small": lora_small, "lora": lora_flagship,
                     "speculative_small": spec_small, "speculative": spec,
                     "mixtral_attention_shape": mixtral_times, "moe_small": moe_small, "moe": moe,
-                    "control_plane": control, "fleet": fleet,
+                    "control_plane": control, "native_control_plane": native,
+                    "fleet": fleet, "read_plane": read_plane,
                     "qwen_attention_shapes": qwen_times, "qwen": qwen,
                     "build_s": build_s, "run_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
@@ -3845,7 +4517,9 @@ def partial_run(phases, gen, cfg, seed: int = 0) -> int:
     if "4" in phases:
         out["times"] = phase_times(gen)
     params = None
-    if any(p not in ("3", "4", "5b", "7a", "8a", "9a", "10a", "11a", "11b", "12a", "13")
+    if "14a" in phases and "12a" not in phases:
+        phases = ["12a", *phases]  # 14a holds its scores to 12a's ShardedIndex
+    if any(p not in ("3", "4", "5b", "7a", "8a", "9a", "10a", "11a", "11b", "12a", "13", "14a")
            for p in phases):
         params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     steps = {
@@ -3856,6 +4530,8 @@ def partial_run(phases, gen, cfg, seed: int = 0) -> int:
         "8": lambda: phase_host_tier_flagship(params, cfg), "9a": phase_lora_small,
         "10a": phase_spec_small, "11a": phase_moe_small,
         "12a": lambda: phase_control_plane(seed), "12b": lambda: phase_fleet(params, cfg, seed),
+        "14a": lambda: phase_native_control_plane(seed, out["12a"]),
+        "14b": lambda: phase_read_plane(params, cfg, seed),
     }
     for phase in phases:
         if phase in steps:
@@ -3878,6 +4554,7 @@ def partial_run(phases, gen, cfg, seed: int = 0) -> int:
         out["11b"] = phase_moe_flagship()
     if "13" in phases:
         out["13"] = phase_qwen()
+    out.get("12a", {}).pop("readings", None)
     log(json.dumps(out, default=str))
     log(f"partial run of phases {phases}: {time.perf_counter() - t_start:.1f} s")
     return 0

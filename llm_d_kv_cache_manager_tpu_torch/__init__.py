@@ -10,14 +10,20 @@ scores).
 
 Layout mirrors the reference package module for module:
   - kvcache/        the Indexer (get_pod_scores, score_many, score_hashes,
-                    explain_scores), scorer, kvblock hashing/keys/chain
-                    memo/token processor and the in-memory and sharded
-                    indexes
+                    explain_scores; chat requests through render_request),
+                    scorer, the load-blend routing policy, kvblock
+                    hashing/keys/chain memo/token processor and the
+                    in-memory, sharded, cost-aware, Redis and native
+                    (C arena) indexes
   - kvevents/       event schema (msgpack wire form), the sharded
                     EventPool, the ZMQ subscriber and publisher, and a
                     synchronous digest for in-process callers
-  - tokenization/   the tokenization pool, tokenizers and prefix stores
-  - utils/          LRU, a msgpack codec and XXH64 in plain Python
+  - tokenization/   the tokenization pool, tokenizers (local, HF, the UDS
+                    sidecar client) and prefix stores
+  - preprocessing/  chat-template rendering (jinja2)
+  - fleethealth/    per-pod load signals for the routing policy
+  - kv_connectors/  the transfer data plane and the route-driven prefetcher
+  - utils/          LRU, a msgpack codec, XXH64 and human-size parsing
   - engine/         BlockManager + EnginePod (model mode, multi-LoRA) + the
                     continuous-batching Scheduler + speculative decoding
                     (SpeculativeDecoder, SpeculativeScheduler) + the host
@@ -25,13 +31,15 @@ Layout mirrors the reference package module for module:
   - models/         paged-KV Llama serving functions (llama.py) and LoRA
                     adapters (lora.py)
   - ops/            paged_attention / flash_prefill wrappers (kernel on CUDA,
-                    plain torch version on CPU), the nvcc build step, and
-                    sampling (JAX's Threefry noise in torch ops)
+                    plain torch version on CPU), the build step (nvcc for
+                    the kernels, the C compilers for the host libraries and
+                    the native/ hash core and scoring arena), and sampling
+                    (JAX's Threefry noise in torch ops)
   - csrc/           CUDA C++ kernels for sm_90a
 
 This package imports torch and numpy only (pyzmq in the two ZMQ modules,
-HF `tokenizers` when a tokenizer loads); it never imports jax or the
-reference package. Entry points default to device="cuda" and raise when no
+HF `tokenizers` when a tokenizer loads, jinja2 when a chat template
+renders); it never imports jax or the reference package. Entry points default to device="cuda" and raise when no
 GPU is present; pass device="cpu" to run the plain versions on the CPU.
 """
 

@@ -722,8 +722,8 @@ class TieredKVStore:
             # Unregister so the budget isn't leaked and the blocks fall
             # back to the synchronous reclaim-time stage.
             entry["ready"].set()
-            self._claim_entry(entry)
-            entry["done"].set()
+            if self._claim_entry(entry):
+                self._finish_entry(entry)
             logger.debug("eager stage snapshot failed: %s", e)
             return 0
         entry["ready"].set()
@@ -733,15 +733,25 @@ class TieredKVStore:
 
     def _claim_entry(self, entry: dict) -> bool:
         """Exactly-once claim of an in-flight snapshot (the stager thread
-        and an inline reclaim may race for it)."""
+        and an inline reclaim may race for it). The blocks stay registered
+        as in flight until _finish_entry: a reclaim that finds one while
+        another thread admits it waits for that admit instead of taking
+        the block for fresh and extracting it a second time."""
         with self._mu:
             if entry["claimed"]:
                 return False
             entry["claimed"] = True
+            return True
+
+    def _finish_entry(self, entry: dict) -> None:
+        """Its claimant's last step: unregister the snapshot's blocks
+        (whether or not they landed), then wake the threads waiting for its
+        admit."""
+        with self._mu:
             for b in entry["blocks"]:
                 self._pending_stage.pop(b[0], None)
             self._pending_pages -= len(entry["blocks"])
-            return True
+        entry["done"].set()
 
     def _resolve_entry(self, entry: dict) -> int:
         if not self._claim_entry(entry):
@@ -763,7 +773,7 @@ class TieredKVStore:
                 return 0
             return self._admit_payloads(entry["blocks"], payloads)
         finally:
-            entry["done"].set()
+            self._finish_entry(entry)
 
     def _ensure_stager(self) -> None:
         if self._closed:
@@ -783,8 +793,8 @@ class TieredKVStore:
                 if not self._closed:
                     self._resolve_entry(entry)
                 else:
-                    self._claim_entry(entry)  # drop without resolving
-                    entry["done"].set()
+                    if self._claim_entry(entry):  # drop without resolving
+                        self._finish_entry(entry)
             except Exception as e:  # noqa: BLE001 - stager must not die
                 logger.debug("eager stage failed: %s", e)
             finally:

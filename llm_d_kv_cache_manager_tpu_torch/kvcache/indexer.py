@@ -3,8 +3,8 @@
 Copy of the reference package's `kvcache/indexer.py`. `get_pod_scores`
 runs the four-stage read path:
 
-  1. tokenize the prompt (prefix-store shortcut → full tokenization) via
-     the tokenization pool,
+  1. tokenize the prompt (chat-template render → prefix-store shortcut →
+     full tokenization) via the tokenization pool,
   2. convert tokens to chained KV-block keys (ChunkedTokenDatabase, with
      the chain memo),
   3. look the keys up in the KV-block index (which pods hold which blocks),
@@ -14,9 +14,9 @@ The write plane (kvevents.pool.EventPool) is constructed separately and
 shares this Indexer's `kv_block_index` and token processor — index sharing
 is the only read/write coupling. The optional fleet-health, popularity,
 routing-policy, prediction and anti-entropy objects are duck-typed, as in
-the reference. Not ported yet (ROADMAP.md queue 1 item 3b): chat-template
-rendering (a `render_request` that is not None raises NotImplementedError),
-the native scoring plan, and the trace spans.
+the reference. Over the native index (kvblock/native_index.py) a
+`score_many` batch runs as one fused crossing (`_native_score_plan`). The
+reference's trace spans are not ported.
 """
 
 from __future__ import annotations
@@ -36,9 +36,6 @@ from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.token_processor import (
 from llm_d_kv_cache_manager_tpu_torch.kvcache.scorer import (
     KVBlockScorerConfig,
     new_kv_block_scorer,
-)
-from llm_d_kv_cache_manager_tpu_torch.tokenization.tokenizer import (
-    CHAT_TEMPLATING_UNPORTED,
 )
 from llm_d_kv_cache_manager_tpu_torch.tokenization.pool import (
     PoolOverloadedError,
@@ -112,6 +109,7 @@ class Indexer:
         config: Optional[IndexerConfig] = None,
         tokenization_pool: Optional[TokenizationPool] = None,
         kv_block_index: Optional[Index] = None,
+        chat_templating=None,
         fleet_health=None,
         popularity=None,
         routing_policy=None,
@@ -173,6 +171,7 @@ class Indexer:
         self.tokenizers_pool = tokenization_pool or TokenizationPool(
             self.config.tokenizers_pool_config,
             prefix_store=self.prefix_store,
+            chat_templating=chat_templating,
         )
 
     def run(self) -> None:
@@ -223,8 +222,6 @@ class Indexer:
         evidence into it. Explain therefore runs THIS code path, not a
         parallel reimplementation, which is what makes its scores
         bit-identical by construction."""
-        if render_request is not None:
-            raise NotImplementedError(CHAT_TEMPLATING_UNPORTED)
         # Same validation as the event-ingest side (kvevents/pool.py): an
         # invalid adapter id degrades to the base keyspace rather than
         # hashing into a keyspace no event can ever populate.
@@ -335,8 +332,6 @@ class Indexer:
         normally (the single-call overload contract, item-scoped)."""
         if not requests:
             return []
-        if any(r.render_request is not None for r in requests):
-            raise NotImplementedError(CHAT_TEMPLATING_UNPORTED)
         n = len(requests)
         results: List[Optional[PodScores]] = [None] * n
 
@@ -459,6 +454,15 @@ class Indexer:
                 plan_specs[ref_pos]["forked"] = True
 
         if plan_specs:
+            native_out = self._native_score_plan(plan_specs)
+            if native_out is not None:
+                for spec, (scores, match_blocks) in zip(plan_specs, native_out):
+                    results[spec["item"]] = PodScores(
+                        scores=scores,
+                        match_blocks=match_blocks,
+                        block_hashes=[k.chunk_hash for k in spec["keys"]],
+                    )
+                return results
             lookup_many = getattr(self.kv_block_index, "lookup_many", None)
             if lookup_many is not None:
                 hits = lookup_many(lookup_reqs)
@@ -497,6 +501,46 @@ class Indexer:
                     block_hashes=[k.chunk_hash for k in spec["keys"]],
                 )
         return results
+
+    def _native_score_plan(self, plan_specs):
+        """Fused read path: when the index is the native arena, run the
+        whole batch plan — lookup + longest-prefix score + fleet-health /
+        anti-entropy / routing adjustments — in one GIL-released crossing.
+
+        Returns the per-spec `(scores, match_blocks)` list, or None when
+        the backend isn't native (the ordinary Python path, not a
+        fallback) or the crossing failed (counted in
+        `native_index.fallback_total()`; the Python path recomputes the
+        batch from the same state, so degradation is invisible in the
+        scores)."""
+        from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.native_index import (
+            NativeScoringIndex,
+            count_fallback,
+        )
+
+        inner = getattr(self.kv_block_index, "inner", self.kv_block_index)
+        if not isinstance(inner, NativeScoringIndex):
+            return None
+        medium_weights = getattr(self.scorer, "medium_weights", None)
+        if medium_weights is None:
+            count_fallback()  # custom scorer: parity not provable in C
+            return None
+        try:
+            return inner.score_plan(
+                plan_specs,
+                medium_weights,
+                fleet_health=self.fleet_health,
+                antientropy=self.antientropy,
+                routing_policy=self.routing_policy,
+            )
+        except Exception as e:  # noqa: BLE001 - any native failure must
+            # degrade to the Python path, never the read path itself.
+            count_fallback()
+            logger.warning(
+                "native scoring crossing failed; batch fell back to the "
+                "Python path: %s", e,
+            )
+            return None
 
     def score_hashes(
         self,

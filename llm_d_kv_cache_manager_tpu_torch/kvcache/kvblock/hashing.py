@@ -1,8 +1,12 @@
 """FNV hashing + canonical CBOR encoding for block-key derivation.
 
-Pure-Python copy of the reference package's `kvcache/kvblock/hashing.py`.
-The port has no C hash core yet: `have_native()` is False and every fast
-path below runs its pure-Python branch, which defines the keys. A block's request key is
+Copy of the reference package's `kvcache/kvblock/hashing.py`. The batch fast
+paths (`prefix_hashes_fast`, `prefix_hashes_fast_many`, `token_fingerprints`)
+run on the C hash core, `native/fnvcbor.c`, which the port builds on first
+use (`ops/_build.py`; a failed build raises). The pure-Python functions
+(`prefix_hashes`, `token_fingerprints_plain`) define the keys: the C core is
+bit-identical to them, and tokens its conversion rejects (floats, negatives)
+take them. A block's request key is
 `FNV-64a(canonical_CBOR([parent_u64, [token_u32...], extra|null]))`,
 chained block to block, with the root hash `FNV-64a(hash_seed_bytes)`. The
 `sha256_cbor_64bit` variant hashes the same payload with sha256 and keeps the
@@ -144,9 +148,18 @@ def prefix_hashes(
     return hashes
 
 
+def _core():
+    """The C hash core (`native/fnvcbor.c`), built and loaded on first use."""
+    from llm_d_kv_cache_manager_tpu_torch.ops import _build
+
+    return _build.extension("_kvtpu_native")
+
+
 def have_native() -> bool:
-    """True when a C hash core is built. The port has none yet."""
-    return False
+    """True once the C hash core is loaded; it is built on first use, and a
+    failed build raises with the compiler's log."""
+    _core()
+    return True
 
 
 def fold64(h: int, v: int) -> int:
@@ -161,7 +174,20 @@ def token_fingerprints(
     fp0: int, tokens: Sequence[int], seg_tokens: int
 ) -> List[int]:
     """Chained fingerprints of `tokens` at every full `seg_tokens` boundary
-    (trailing partial segment dropped)."""
+    (trailing partial segment dropped), on the C hash core."""
+    if seg_tokens <= 0:
+        raise ValueError("seg_tokens must be positive")
+    try:
+        return list(_core().token_fingerprints(fp0, tokens, seg_tokens))
+    except (TypeError, OverflowError):
+        pass  # exotic token types: the plain loop defines the behavior
+    return token_fingerprints_plain(fp0, tokens, seg_tokens)
+
+
+def token_fingerprints_plain(
+    fp0: int, tokens: Sequence[int], seg_tokens: int
+) -> List[int]:
+    """`token_fingerprints` in pure Python."""
     if seg_tokens <= 0:
         raise ValueError("seg_tokens must be positive")
     n = (len(tokens) // seg_tokens) * seg_tokens
@@ -182,17 +208,46 @@ def prefix_hashes_fast(
     algo: str = "fnv64_cbor",
 ) -> List[int]:
     """Chunk `tokens` into full blocks of `block_size` and chain-hash them
-    under `algo` ("fnv64_cbor" or "sha256_cbor_64bit")."""
+    under `algo` ("fnv64_cbor" or "sha256_cbor_64bit"). fnv64_cbor runs on
+    the C hash core in one crossing with the GIL released."""
     n_full = len(tokens) // block_size
     if n_full == 0:
         return []
+    if algo == "fnv64_cbor":
+        try:
+            return list(_core().batch_prefix_hashes(
+                int(parent), tokens, block_size,
+                None if extra is None else list(extra),
+            ))
+        except (TypeError, OverflowError):
+            # Tokens the C conversion rejects (e.g. floats, negatives):
+            # the pure-Python path defines the behavior.
+            pass
     chunks = [tokens[i * block_size:(i + 1) * block_size] for i in range(n_full)]
     return prefix_hashes(parent, chunks, extra, algo=algo)
 
 
 def prefix_hashes_fast_many(tasks: Sequence[tuple]) -> List[List[int]]:
     """Batched `prefix_hashes_fast`: `tasks` holds (parent, tokens,
-    block_size, extra, algo) tuples, one hash list comes back per task."""
+    block_size, extra, algo) tuples, one hash list comes back per task.
+    When every task is fnv64_cbor the whole batch derives in one C crossing
+    (`batch_prefix_hashes_many`); otherwise each task runs on its own."""
+    if not tasks:
+        return []
+    if all(t[4] == "fnv64_cbor" for t in tasks):
+        try:
+            return [
+                list(hashes)
+                for hashes in _core().batch_prefix_hashes_many([
+                    (
+                        int(parent), tokens, block_size,
+                        None if extra is None else list(extra),
+                    )
+                    for parent, tokens, block_size, extra, _ in tasks
+                ])
+            ]
+        except (TypeError, OverflowError):
+            pass  # fall through: pure Python defines the behavior
     return [
         prefix_hashes_fast(parent, tokens, block_size, extra, algo=algo)
         for parent, tokens, block_size, extra, algo in tasks

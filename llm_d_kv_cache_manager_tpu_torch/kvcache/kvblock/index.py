@@ -6,11 +6,13 @@ and separately maps *engine keys* to request keys so eviction events —
 which only carry engine hashes — can find their entries.
 
 Backend selection order is the reference's: in-memory → cost-aware →
-redis/valkey, first configured wins. The port builds the in-memory
-backends (`InMemoryIndex`, and the lock-striped `ShardedIndex` that
-`IndexConfig.default()` selects); the cost-aware, redis, native and
-metrics-instrumented backends are not ported yet, and asking for one
-raises NotImplementedError rather than falling back to another backend.
+redis/valkey, first configured wins. The in-memory backend is the
+lock-striped `ShardedIndex` that `IndexConfig.default()` selects, the
+single-lock `InMemoryIndex` with `sharded=False`, or the C arena's
+`NativeScoringIndex` with `native=True` (built on first use; a failed build
+raises rather than falling back to another backend). The
+metrics-instrumented wrapper is not ported (ROADMAP.md queue 1 item 7), so
+`enable_metrics=True` raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -123,8 +125,9 @@ class IndexConfig:
     in_memory_config: Optional["InMemoryIndexConfig"] = None
     cost_aware_config: Optional["CostAwareIndexConfig"] = None
     redis_config: Optional["RedisIndexConfig"] = None
-    # The reference's metrics-instrumented wrapper: not ported yet, so True
-    # raises in new_index.
+    # The reference's metrics-instrumented wrapper: not ported (it wraps the
+    # metrics collector, ROADMAP.md queue 1 item 7), so True raises in
+    # new_index.
     enable_metrics: bool = False
     # In-memory striping (kvblock/sharded.py). When the in-memory backend is
     # selected (explicitly or by default), `sharded=True` builds a
@@ -135,8 +138,11 @@ class IndexConfig:
     sharded: bool = True
     num_shards: int = 16  # DEFAULT_NUM_SHARDS (sharded.py)
     recency_refresh_interval: int = 64  # DEFAULT_RECENCY_REFRESH (sharded.py)
-    # Native scoring core (the reference's kvblock/native_index.py): not
-    # ported yet, so True raises in new_index.
+    # Native scoring core (kvblock/native_index.py): when the in-memory
+    # backend is selected, back the index with the C arena so the whole
+    # read path (lookup + score + per-pod adjustments) and event digestion
+    # run in single GIL-released crossings. Scores are bit-identical to the
+    # Python backends.
     native: bool = False
 
     @classmethod
@@ -148,26 +154,32 @@ class IndexConfig:
         return cls(in_memory_config=InMemoryIndexConfig())
 
 
-_UNPORTED = "is not ported yet (ROADMAP.md queue 1 item 3)"
-
-
 def new_index(config: Optional[IndexConfig] = None) -> Index:
     """Build the configured index backend."""
     if config is None:
         config = IndexConfig.default()
 
-    if config.in_memory_config is not None:
-        index = _new_memory_index(config, config.in_memory_config)
-    elif config.cost_aware_config is not None:
-        raise NotImplementedError(f"the cost_aware index backend {_UNPORTED}")
-    elif config.redis_config is not None:
-        raise NotImplementedError(f"the redis index backend {_UNPORTED}")
-    else:
-        index = _new_memory_index(config, None)
-
     if config.enable_metrics:
-        raise NotImplementedError(f"the instrumented index backend {_UNPORTED}")
-    return index
+        raise NotImplementedError(
+            "the metrics-instrumented index backend is not ported yet: it "
+            "wraps the metrics collector, which moves with metrics/ "
+            "(ROADMAP.md queue 1 item 7)"
+        )
+    if config.in_memory_config is not None:
+        return _new_memory_index(config, config.in_memory_config)
+    if config.cost_aware_config is not None:
+        from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.cost_aware import (
+            CostAwareMemoryIndex,
+        )
+
+        return CostAwareMemoryIndex(config.cost_aware_config)
+    if config.redis_config is not None:
+        from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.redis_index import (
+            RedisIndex,
+        )
+
+        return RedisIndex(config.redis_config)
+    return _new_memory_index(config, None)
 
 
 def _new_memory_index(config: IndexConfig, in_memory_config) -> Index:
@@ -179,7 +191,15 @@ def _new_memory_index(config: IndexConfig, in_memory_config) -> Index:
     )
 
     if config.native:
-        raise NotImplementedError(f"the native index backend {_UNPORTED}")
+        from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.native_index import (
+            NativeIndexConfig,
+            NativeScoringIndex,
+        )
+
+        imc = in_memory_config or InMemoryIndexConfig()
+        return NativeScoringIndex(NativeIndexConfig(
+            size=imc.size, pod_cache_size=imc.pod_cache_size,
+        ))
 
     if not config.sharded:
         return InMemoryIndex(in_memory_config)

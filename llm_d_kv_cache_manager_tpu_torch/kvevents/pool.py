@@ -28,8 +28,10 @@ its BlockRemoved digests are retained; the per-shard pending deque is capped
 digest is discarded and counted (`removals_lost`) — a last-resort trade of
 index soundness for bounded memory.
 
-The reference's trace spans, metrics counters and native-arena digest are
-not ported yet; every counter that is a public attribute is.
+Over the native index (kvblock/native_index.py) a whole batch is applied
+in one C crossing (`native_digest`). The reference's trace spans and
+metrics counters are not ported; every counter that is a public attribute
+is.
 """
 
 from __future__ import annotations
@@ -490,6 +492,11 @@ def digest_events(
     divergence=None,
 ) -> None:
     """Digest every event of one batch, in order."""
+    if native_digest(
+        index, token_processor, pod_identifier, model_name, batch,
+        default_device_tier, popularity, load_tracker, divergence,
+    ):
+        return
     for event in batch.events:
         if isinstance(event, BlockStored):
             digest_block_stored(index, token_processor, pod_identifier, model_name, event,
@@ -503,6 +510,89 @@ def digest_events(
                                  default_device_tier, divergence)
         elif isinstance(event, AllBlocksCleared):
             continue  # engines emit per-block removals as well
+
+
+def native_digest(
+    index: Index,
+    token_processor: ChunkedTokenDatabase,
+    pod_identifier: str,
+    model_name: str,
+    batch: EventBatch,
+    default_device_tier: str = DEFAULT_DEVICE_TIER,
+    popularity=None,
+    load_tracker=None,
+    divergence=None,
+) -> bool:
+    """Apply the whole decoded batch against the native arena in one
+    GIL-released crossing (kvscore.c `apply_batch`), chain-deriving
+    request keys in C. Returns False when the batch must take the
+    pure-Python digest instead: non-native index backend, a subsystem
+    the arena doesn't model (popularity store-observes, divergence
+    orphan probes, a non-fnv64 hash chain), or a conversion error —
+    the latter counted in `native_index.fallback_total()`. The arena is
+    untouched on failure, so the Python path replays the batch to the
+    exact same final state. The chain memo isn't warmed by native
+    digestion (a read-path perf cache, not state).
+    """
+    from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.native_index import (
+        NativeScoringIndex,
+        count_fallback,
+    )
+
+    inner = getattr(index, "inner", index)
+    if not isinstance(inner, NativeScoringIndex):
+        return False
+    if popularity is not None or divergence is not None:
+        return False
+    tp = token_processor
+    if tp.config.hash_algo != "fnv64_cbor":
+        return False
+
+    shaped: List[tuple] = []
+    removed_counts: List[int] = []
+    for event in batch.events:
+        if isinstance(event, BlockStored):
+            tier = (event.medium or default_device_tier).lower()
+            packed = inner.intern_entry(pod_identifier, tier)
+            lora_id = event.lora_id
+            if (
+                not isinstance(lora_id, int)
+                or isinstance(lora_id, bool)
+                or lora_id < 0
+            ):
+                if lora_id is not None:
+                    logger.debug(
+                        "ignoring invalid lora_id %r in BlockStored", lora_id,
+                    )
+                lora_id = None
+            extra = (lora_id,) if lora_id is not None else None
+            shaped.append((
+                1, event.block_hashes, event.parent_block_hash,
+                event.token_ids, extra, packed,
+            ))
+        elif isinstance(event, BlockRemoved):
+            tier = (event.medium or default_device_tier).lower()
+            packed = inner.intern_entry(pod_identifier, tier)
+            shaped.append((0, event.block_hashes, packed))
+            removed_counts.append(
+                len(event.block_hashes) if event.block_hashes else 0
+            )
+        elif isinstance(event, AllBlocksCleared):
+            continue  # engines emit per-block removals as well
+    try:
+        inner.apply_batch(model_name, tp.init_hash, tp.block_size, shaped)
+    except Exception as e:  # noqa: BLE001 - arena untouched: replay
+        # the batch through the Python digest for an identical result.
+        count_fallback()
+        logger.debug("native digest fell back to the Python path: %s", e)
+        return False
+    # Load-tracker pre-pass AFTER the apply succeeded — running it during
+    # shaping would double-count if we then fell back.
+    if load_tracker is not None:
+        for n in removed_counts:
+            if n:
+                load_tracker.observe_removed_blocks(pod_identifier, n)
+    return True
 
 
 def digest_block_stored(

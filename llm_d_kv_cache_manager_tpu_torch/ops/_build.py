@@ -1,13 +1,19 @@
-"""Builds the port's native libraries and loads them with ctypes.
+"""Builds the port's native libraries and loads them.
 
 Each CUDA kernel `csrc/<name>.cu` compiles on its own with nvcc into
 `build/lib<name>_<hash>.so`, a shared library with a plain C interface (no
 PyTorch headers, so a build takes seconds). The host tier's block store and
 transfer wire, `kv_connectors/cpp/kv_transfer.cpp` at the repository root,
 compiles the same way with the C++ compiler into
-`build/lib<TRANSFER>_<hash>.so`. The hash covers the source (and, for a
-kernel, the headers of `csrc/`) and the flags, so an edited source or header
-rebuilds and an unchanged one is reused. All missing libraries build in
+`build/lib<TRANSFER>_<hash>.so`. The C hash core and scoring arena,
+`native/fnvcbor.c` and `native/kvscore.c` at the repository root, compile
+with the C compiler against this Python's headers into
+`build/<name>_<hash>.so` and load as CPython extension modules under the
+port's own dotted names (`extension`); the sources fix the init symbols, so
+the names end in `_kvtpu_native` and `_kvtpu_kvscore`. The hash covers the
+source (and, for a kernel, the headers of `csrc/`; for an extension,
+`native/kvhash.h` and the include directory) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused. All missing libraries build in
 parallel, one compiler process per source; each writes a pid-suffixed
 temporary file and renames it into place, so processes that build the same
 library at once do no harm.
@@ -20,12 +26,17 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import shutil
 import subprocess
+import sys
+import sysconfig
 import threading
 import time
 from pathlib import Path
+from types import ModuleType
 from typing import Dict, Iterable, List
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -41,9 +52,14 @@ TRANSFER = "kvtransfer"
 TRANSFER_SOURCE = _PKG.parent / "kv_connectors" / "cpp" / "kv_transfer.cpp"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 CXX_LIBS = ("-lpthread",)
+# The C hash core and the scoring arena: extension name -> source in native/.
+NATIVE_DIR = _PKG.parent / "native"
+EXTENSIONS = {"_kvtpu_native": "fnvcbor.c", "_kvtpu_kvscore": "kvscore.c"}
+CC_FLAGS = ("-O3", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_extensions: Dict[str, ModuleType] = {}
 
 
 def find_nvcc() -> str:
@@ -66,7 +82,34 @@ def find_cxx() -> str:
     return cxx
 
 
+def find_cc() -> str:
+    cc = shutil.which("cc") or shutil.which("gcc")
+    if cc is None:
+        raise RuntimeError(
+            "no C compiler (cc or gcc) found: the native hash core and "
+            "scoring arena are built from native/*.c and have no fallback"
+        )
+    return cc
+
+
+def python_include() -> Path:
+    """This interpreter's header directory; the extensions need Python.h."""
+    include = Path(sysconfig.get_paths()["include"])
+    if not (include / "Python.h").exists():
+        raise RuntimeError(
+            f"Python.h not found in {include}: the native hash core and "
+            "scoring arena (native/*.c) cannot be built without it"
+        )
+    return include
+
+
 def library_path(name: str) -> Path:
+    if name in EXTENSIONS:
+        digest = hashlib.sha256((NATIVE_DIR / EXTENSIONS[name]).read_bytes())
+        digest.update((NATIVE_DIR / "kvhash.h").read_bytes())
+        digest.update(" ".join(CC_FLAGS).encode())
+        digest.update(sysconfig.get_paths()["include"].encode())
+        return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
     if name == TRANSFER:
         digest = hashlib.sha256(TRANSFER_SOURCE.read_bytes())
         digest.update(" ".join(CXX_FLAGS + CXX_LIBS).encode())
@@ -79,6 +122,11 @@ def library_path(name: str) -> Path:
 
 
 def _command(name: str, out: Path) -> List[str]:
+    if name in EXTENSIONS:
+        return [
+            find_cc(), *CC_FLAGS, f"-I{python_include()}", f"-I{NATIVE_DIR}",
+            "-o", str(out), str(NATIVE_DIR / EXTENSIONS[name]),
+        ]
     if name == TRANSFER:
         return [find_cxx(), *CXX_FLAGS, "-o", str(out), str(TRANSFER_SOURCE), *CXX_LIBS]
     return [find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
@@ -131,3 +179,22 @@ def library(name: str) -> ctypes.CDLL:
             build([name])
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def extension(name: str) -> ModuleType:
+    """The CPython extension `name` (a key of EXTENSIONS), built on first use
+    and loaded as `llm_d_kv_cache_manager_tpu_torch.<name>`. A failed build
+    raises with the compiler's log."""
+    with _lock:
+        module = _extensions.get(name)
+        if module is None:
+            build([name])
+            dotted = f"{_PKG.name}.{name}"
+            path = str(library_path(name))
+            loader = importlib.machinery.ExtensionFileLoader(dotted, path)
+            spec = importlib.util.spec_from_file_location(dotted, path, loader=loader)
+            module = importlib.util.module_from_spec(spec)
+            loader.exec_module(module)
+            sys.modules[dotted] = module
+            _extensions[name] = module
+        return module

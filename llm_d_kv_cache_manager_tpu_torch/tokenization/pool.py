@@ -1,7 +1,8 @@
 """Tokenization worker pool.
 
 Copy of the reference package's `tokenization/pool.py`: N workers (default
-5) drain a task queue; each task consults the prefix store — if the
+5) drain a task queue; each task optionally renders a chat template, then
+consults the prefix store — if the
 cached-prefix coverage is at least `min_prefix_overlap_ratio` (default 0.8)
 the cached tokens are used directly, otherwise the prompt is fully
 tokenized and the result is fed back into the prefix store. Two submission
@@ -9,16 +10,13 @@ modes: blocking `tokenize` (the read path) and fire-and-forget
 `enqueue_tokenization` (cache warming).
 
 The composite tokenizer is assembled from the enabled backends in the order
-local → HF hub; a caller may inject its own `Tokenizer` instead
+local → UDS sidecar → HF hub; a caller may inject its own `Tokenizer` instead
 (`tokenizer=`). The task queue is bounded. Overload policy: blocking
 `tokenize` waits briefly for a slot then raises `PoolOverloadedError` so the
 caller can shed or back off; fire-and-forget `enqueue_tokenization` is
 dropped and counted (`rejected_tasks`) — cache warming is best-effort.
 
-Not ported yet (ROADMAP.md queue 1 item 3b): the UDS sidecar backend
-(`enable_uds=True` raises NotImplementedError), chat-template rendering (a
-task with a render request raises NotImplementedError), and the reference's
-trace spans and metrics counters.
+The reference's trace spans and metrics counters are not ported.
 """
 
 from __future__ import annotations
@@ -35,7 +33,6 @@ from llm_d_kv_cache_manager_tpu_torch.tokenization.prefixstore.indexer import (
     new_prefix_store,
 )
 from llm_d_kv_cache_manager_tpu_torch.tokenization.tokenizer import (
-    CHAT_TEMPLATING_UNPORTED,
     CachedHFTokenizer,
     CachedLocalTokenizer,
     CompositeTokenizer,
@@ -103,10 +100,11 @@ class TokenizationPool:
         config: Optional[TokenizersPoolConfig] = None,
         prefix_store: Optional[PrefixStore] = None,
         tokenizer: Optional[Tokenizer] = None,
+        chat_templating=None,
     ):
         self.config = config or TokenizersPoolConfig()
         self.prefix_store = prefix_store or new_prefix_store(PrefixStoreConfig())
-        self.tokenizer = tokenizer or self._build_composite()
+        self.tokenizer = tokenizer or self._build_composite(chat_templating)
         depth = max(0, self.config.max_queue_depth)
         self._queue: "queue.Queue[Optional[_Task]]" = queue.Queue(maxsize=depth)
         self._workers: List[threading.Thread] = []
@@ -115,22 +113,24 @@ class TokenizationPool:
         self._rejected = 0
         self._rejected_mu = threading.Lock()
 
-    def _build_composite(self) -> CompositeTokenizer:
+    def _build_composite(self, chat_templating) -> CompositeTokenizer:
         backends: List[Tokenizer] = []
         if self.config.enable_local:
             backends.append(
                 CachedLocalTokenizer(
                     tokenizer_files=self.config.local_tokenizer_files,
+                    chat_templating=chat_templating,
                 )
             )
         if self.config.enable_uds:
-            raise NotImplementedError(
-                "the UDS tokenizer backend is not ported yet (ROADMAP.md queue 1 item 3b)"
-            )
+            from llm_d_kv_cache_manager_tpu_torch.tokenization.uds_client import UDSTokenizer
+
+            backends.append(UDSTokenizer(self.config.uds_socket_path))
         if self.config.enable_hf:
             backends.append(
                 CachedHFTokenizer(
                     auth_token=self.config.hf_auth_token,
+                    chat_templating=chat_templating,
                 )
             )
         if not backends:
@@ -349,7 +349,7 @@ class TokenizationPool:
     def _process(self, task: _Task) -> TokenizedPrompt:
         prompt = task.prompt
         if task.render_request is not None:
-            raise NotImplementedError(CHAT_TEMPLATING_UNPORTED)
+            prompt = self.tokenizer.render_chat_template(task.render_request)
 
         # Prefix-store shortcut, with boundary state when the store supports
         # it (LRU store). The trie store only speaks the base contract.

@@ -7,15 +7,16 @@ Copy of the reference package's `tokenization/tokenizer.py`:
   `org/name`) and plain relative paths, configured via
   LOCAL_TOKENIZER_DIR / LOCAL_TOKENIZER_FILENAME,
 - an HF-hub provider that downloads tokenizers on demand,
-- a composite that tries backends in order.
+- a composite that tries backends in order for both encode and chat-template
+  rendering.
 
 The HuggingFace `tokenizers` package is imported lazily, when a backend
 first loads a tokenizer, so the port imports without it. Offsets are
 converted from character to **byte** offsets because the prefix store
-chunks the prompt's UTF-8 bytes. Chat templating (the reference's
-`preprocessing/`) is not ported yet: `render_chat_template` raises
-NotImplementedError on every backend. The reference's per-backend metrics
-counters are not ported either.
+chunks the prompt's UTF-8 bytes. The local and HF backends render chat
+templates through the `ChatTemplatingProcessor` they are given
+(preprocessing/chat_completions.py). The reference's per-backend metrics
+counters are not ported.
 """
 
 from __future__ import annotations
@@ -36,9 +37,6 @@ DEFAULT_TOKENIZER_CACHE_SIZE = 20
 ENV_LOCAL_TOKENIZER_DIR = "LOCAL_TOKENIZER_DIR"
 ENV_LOCAL_TOKENIZER_FILENAME = "LOCAL_TOKENIZER_FILENAME"
 DEFAULT_TOKENIZER_FILENAME = "tokenizer.json"
-CHAT_TEMPLATING_UNPORTED = (
-    "chat templating is not ported yet (ROADMAP.md queue 1 item 3b)"
-)
 
 
 @dataclass
@@ -54,11 +52,11 @@ class Tokenizer(abc.ABC):
     def render_chat_template(self, request) -> str:
         """Render a chat-completions request to a prompt string.
 
-        Backends that cannot render raise NotImplementedError so the
-        composite falls through to the next backend. No port backend renders
-        yet (CHAT_TEMPLATING_UNPORTED).
+        `request` is a preprocessing.chat_completions.RenderRequest. Backends
+        that cannot render raise NotImplementedError so the composite falls
+        through to the next backend.
         """
-        raise NotImplementedError(CHAT_TEMPLATING_UNPORTED)
+        raise NotImplementedError
 
 
 def _char_to_byte_offsets(text: str, char_offsets: Sequence[Tuple[int, int]]) -> List[Offset]:
@@ -222,8 +220,10 @@ class CachedLocalTokenizer(_CachedTokenizerBase):
         self,
         tokenizer_files: Optional[Dict[str, str]] = None,
         cache_size: int = DEFAULT_TOKENIZER_CACHE_SIZE,
+        chat_templating=None,
     ):
         super().__init__(cache_size)
+        self._chat_templating = chat_templating
         if tokenizer_files is None:
             root = os.environ.get(ENV_LOCAL_TOKENIZER_DIR, "")
             fname = os.environ.get(
@@ -243,7 +243,9 @@ class CachedLocalTokenizer(_CachedTokenizerBase):
         return HFTokenizer.from_file(path)
 
     def render_chat_template(self, request) -> str:
-        raise NotImplementedError(CHAT_TEMPLATING_UNPORTED)
+        if self._chat_templating is None:
+            raise NotImplementedError("local tokenizer has no chat templating processor")
+        return self._chat_templating.render(request)
 
 
 class CachedHFTokenizer(_CachedTokenizerBase):
@@ -253,8 +255,10 @@ class CachedHFTokenizer(_CachedTokenizerBase):
         self,
         cache_size: int = DEFAULT_TOKENIZER_CACHE_SIZE,
         auth_token: Optional[str] = None,
+        chat_templating=None,
     ):
         super().__init__(cache_size)
+        self._chat_templating = chat_templating
         self.auth_token = auth_token or os.environ.get("HF_TOKEN")
 
     def _load(self, model_name: str):
@@ -263,11 +267,13 @@ class CachedHFTokenizer(_CachedTokenizerBase):
         return HFTokenizer.from_pretrained(model_name, auth_token=self.auth_token)
 
     def render_chat_template(self, request) -> str:
-        raise NotImplementedError(CHAT_TEMPLATING_UNPORTED)
+        if self._chat_templating is None:
+            raise NotImplementedError("hf tokenizer has no chat templating processor")
+        return self._chat_templating.render(request)
 
 
 class CompositeTokenizer(Tokenizer):
-    """Ordered fallback over tokenizer backends (local → HF)."""
+    """Ordered fallback over tokenizer backends (local → UDS → HF)."""
 
     def __init__(self, backends: Sequence[Tokenizer]):
         if not backends:

@@ -386,3 +386,92 @@ def test_control_plane_modules_are_checked(module):
     above load and parse."""
     path = PORT / (module.replace(".", "/") + ".py")
     assert path in _port_files()
+
+
+READ_PLANE_MODULES = [
+    "utils.humansize", "kvcache.kvblock.cost_aware", "kvcache.kvblock.resp",
+    "kvcache.kvblock.redis_index", "kvcache.kvblock.native_index", "fleethealth.load",
+    "kvcache.routing", "kv_connectors.prefetch", "preprocessing.chat_completions",
+    "tokenization.uds_client",
+]
+
+
+@pytest.mark.parametrize("module", READ_PLANE_MODULES)
+def test_read_plane_modules_are_checked(module):
+    """The read plane's second half (the index backends, routing, prefetch,
+    chat templates, the UDS tokenizer) is among the modules the import
+    checks above load and parse."""
+    path = PORT / (module.replace(".", "/") + ".py")
+    assert path in _port_files()
+
+
+def test_read_plane_imports_without_the_wire_libraries():
+    """With transformers, zmq, msgpack, xxhash and tokenizers blocked, each
+    new module imports and the chat renderer renders (on jinja2)."""
+    code = (
+        "import importlib, sys\n"
+        f"for lib in {WIRE_LIBRARIES!r}:\n"
+        "    sys.modules[lib] = None\n"
+        f"for m in {READ_PLANE_MODULES!r}:\n"
+        f"    importlib.import_module({(PORT.name + '.')!r} + m)\n"
+        f"from {PORT.name}.preprocessing.chat_completions import (\n"
+        "    ChatTemplatingProcessor, RenderRequest)\n"
+        "out = ChatTemplatingProcessor().render(RenderRequest(\n"
+        "    conversations=[[{'role': 'user', 'content': 'hi'}]],\n"
+        "    chat_template='{% for m in messages %}{{ m.content }}{% endfor %}'))\n"
+        "print('OK', out)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0 and "OK hi" in proc.stdout, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("name", ["_kvtpu_native", "_kvtpu_kvscore"])
+def test_native_extension_loads_under_the_port_name(name):
+    """The C hash core and the arena build into the port's build/ directory
+    and load under the port's dotted name: never a file of the JAX package,
+    whose own build decides which of its tests run."""
+    from llm_d_kv_cache_manager_tpu_torch.ops import _build
+
+    module = _build.extension(name)
+    assert module.__name__ == f"{PORT.name}.{name}"
+    assert Path(module.__file__).parent == _build.BUILD_DIR
+    assert sys.modules[module.__name__] is module
+    assert not list((REPO / REFERENCE).glob(f"{name}_*.so"))
+
+
+def test_native_build_without_cc_raises(monkeypatch, tmp_path):
+    from llm_d_kv_cache_manager_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)  # nothing prebuilt
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="no C compiler"):
+        _build.build(["_kvtpu_kvscore"])
+
+
+def test_native_build_without_python_header_raises(monkeypatch, tmp_path):
+    from llm_d_kv_cache_manager_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.sysconfig, "get_paths", lambda: {"include": str(tmp_path)})
+    with pytest.raises(RuntimeError, match="Python.h not found"):
+        _build.build(["_kvtpu_native"])
+
+
+def test_native_extension_name_tracks_its_sources(monkeypatch, tmp_path):
+    """An extension is keyed by its source and the shared kvhash.h."""
+    import shutil
+
+    from llm_d_kv_cache_manager_tpu_torch.ops import _build
+
+    before = {name: _build.library_path(name) for name in _build.EXTENSIONS}
+    native = tmp_path / "native"
+    shutil.copytree(_build.NATIVE_DIR, native, ignore=shutil.ignore_patterns("build"))
+    monkeypatch.setattr(_build, "NATIVE_DIR", native)
+    assert {name: _build.library_path(name) for name in _build.EXTENSIONS} == before
+    header = native / "kvhash.h"
+    header.write_text(header.read_text() + "\n/* edited */\n")
+    after = {name: _build.library_path(name) for name in _build.EXTENSIONS}
+    assert all(after[name] != before[name] for name in _build.EXTENSIONS)

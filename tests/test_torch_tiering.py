@@ -623,6 +623,46 @@ def test_prefetch_races_load_chain():
     assert not t.is_alive()
 
 
+def test_reclaim_waits_for_a_snapshot_the_stager_is_admitting():
+    """A reclaim that finds its blocks claimed by the stager thread, whose
+    resolve is still waiting for the copy, waits for that admit: no second
+    extract, and each block is staged once."""
+    gate, entered = threading.Event(), threading.Event()
+
+    class SlowCodec(counting_codec(port_tiering.PageCodec).__class__):
+        def extract_many_async(self, page_ids):
+            resolve = super().extract_many_async(page_ids)
+
+            def slow():
+                entered.set()
+                gate.wait(timeout=10.0)
+                return resolve()
+            return slow
+
+    codec, conn = SlowCodec(), FakeConnector()
+    store = port_tiering.TieredKVStore(conn, codec)
+    try:
+        blocks = [_block(i) for i in range(4)]
+        assert store.stage_async(blocks) == 4
+        assert entered.wait(timeout=5.0)  # the stager has claimed the snapshot
+        result = []
+        reclaim = threading.Thread(target=lambda: result.append(store._stage_many(blocks)))
+        reclaim.start()
+        time.sleep(0.05)
+        gate.set()
+        reclaim.join(timeout=10.0)
+        store.drain_async_stages()
+        assert result == [4]
+        assert codec.extract_calls == [] and codec.async_calls == [4]
+        assert [c for c in conn.calls if c[0] == "stage"] == [
+            ("stage", 1000 + i, [i], None, None) for i in range(4)]
+        assert store.staged_count == 4 and store._pending_pages == 0
+        assert not store._pending_stage
+    finally:
+        gate.set()
+        store.close()
+
+
 # -- the peer resolver --------------------------------------------------------------
 
 
