@@ -63,6 +63,15 @@ of 14b's traffic, batched) is held to the real RoutePrefetcher and to
 PrefixPrefetcher, which hands the pod its matched prefix instead of the
 missing tail. Both faults must fail their bars.
 
+Phase 15a's resilience bars (the fault plan on four flagship pods with the
+plane wired) are held to the real FleetHealthTracker and ResidencyAuditor
+and to two planted faults: PassStaleTracker, whose filter_scores detects and
+purges but passes stale pods' scores through (it must fail the bar against
+scoring and routing to a stale pod), and NoReadmitAuditor, which purges
+phantoms but never re-admits a resident block the index missed (it must
+fail the bar that every pod's indexed set equals its committed pages after
+an audit).
+
 Phase 8b's bit-identical check (P' restored from the host store on a tight
 bf16 pod against the same prompt on a pod that never evicts: suffix logits
 and 32 greedy tokens) is held to the real tree and to a planted codec fault,
@@ -98,6 +107,8 @@ import chip_smoke
 from llm_d_kv_cache_manager_tpu_torch.engine import engine as engine_mod
 from llm_d_kv_cache_manager_tpu_torch.engine.engine import EnginePod
 from llm_d_kv_cache_manager_tpu_torch.engine.scheduler import Scheduler
+from llm_d_kv_cache_manager_tpu_torch.antientropy import ResidencyAuditor
+from llm_d_kv_cache_manager_tpu_torch.fleethealth.tracker import SUSPECT, FleetHealthTracker
 from llm_d_kv_cache_manager_tpu_torch.kv_connectors.prefetch import RoutePrefetcher
 from llm_d_kv_cache_manager_tpu_torch.kvevents import pool as pool_mod
 from llm_d_kv_cache_manager_tpu_torch.kvevents.events import BlockRemoved, EventBatch
@@ -450,6 +461,43 @@ def run_prefetch_bar(label: str, params, cfg, prefetcher_cls=RoutePrefetcher) ->
                 peer_head=r["peer_head_blocks"], landed=r["landed_blocks"])
 
 
+class PassStaleTracker(FleetHealthTracker):
+    """A planted health fault: stale pods are detected and purged, but their
+    scores pass through (suspect pods are still demoted)."""
+
+    def filter_scores(self, scores):
+        if not scores:
+            return scores
+        self.refresh()
+        factor = self.config.suspect_demotion_factor
+        return {pod: s * factor if self.state_of(pod) == SUSPECT else s
+                for pod, s in scores.items()}
+
+
+class NoReadmitAuditor(ResidencyAuditor):
+    """A planted anti-entropy fault: phantoms are purged, resident blocks the
+    index missed are never re-admitted."""
+
+    def _readmit(self, pod, resident, advertised, tier):
+        return 0
+
+
+def run_resilience_bar(label: str, params, cfg, **classes) -> dict:
+    """Phase 15a's faulted, wired arm with the given tracker or auditor
+    class: whether its bars held, and which of them failed."""
+    waves = chip_smoke.multitenant_traffic(0, cfg.vocab_size, chip_smoke.RESILIENCE_WAVES)
+    r = chip_smoke.resilience_arm(params, cfg, waves, chip_smoke.RESILIENCE_PLAN, True, **classes)
+    torch.cuda.empty_cache()
+    stale = [f for f in r["failures"] if "stale" in f and ("names" in f or "by score" in f)]
+    repair = [f for f in r["failures"] if "after the audit" in f]
+    ok = not r["failures"]
+    chip_smoke.log(f"  [{label}] resilience bars: {len(stale)} stale-routing failures, "
+                   f"{len(repair)} index-vs-pages failures, {len(r['failures'])} in all: "
+                   f"{'ok' if ok else 'FAIL'} {r['failures'][:2]}")
+    return dict(ok=ok, stale_failures=len(stale), repair_failures=len(repair),
+                phantom_routes=r["phantom_routes"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_fault_check: no CUDA device", file=sys.stderr)
@@ -521,6 +569,13 @@ def main() -> int:
                   "prefetch_real": run_prefetch_bar("prefetch_real", params, cfg),
                   "prefetch_matched_prefix": run_prefetch_bar(
                       "prefetch_matched_prefix", params, cfg, PrefixPrefetcher)}
+    chip_smoke.log("== resilience faults: a tracker that scores stale pods, and an auditor "
+                   "that never re-admits")
+    resilience = {"real": run_resilience_bar("real", params, cfg),
+                  "pass_stale_tracker": run_resilience_bar(
+                      "pass_stale_tracker", params, cfg, tracker_cls=PassStaleTracker),
+                  "no_readmit_auditor": run_resilience_bar(
+                      "no_readmit_auditor", params, cfg, auditor_cls=NoReadmitAuditor)}
 
     chip_smoke.log("== MoE fault: top-1 serving (the first routed expert only, at gate 1)")
     del params, params32, models
@@ -541,11 +596,14 @@ def main() -> int:
         logits_ok["real"].values()) and bars["real"]["ok"] and host_tier["real"]["all_checks"] \
         and serving_bars["lora_real"]["ok"] and serving_bars["spec_real"]["ok"] \
         and serving_bars["moe_real"]["ok"] and read_plane["native_real"]["ok"] \
-        and read_plane["prefetch_real"]["ok"]
+        and read_plane["prefetch_real"]["ok"] and resilience["real"]["ok"]
     read_plane_caught = {label: not read_plane[label]["ok"]
                          for label in ("native_removal_blind", "prefetch_matched_prefix")}
     read_plane_caught["prefetch_matched_prefix"] &= \
         read_plane["prefetch_matched_prefix"]["prefetch_failures"] > 0
+    resilience_caught = {
+        "pass_stale_tracker": resilience["pass_stale_tracker"]["stale_failures"] > 0,
+        "no_readmit_auditor": resilience["no_readmit_auditor"]["repair_failures"] > 0}
     serving_caught = {label: not serving_bars[label]["ok"]
                       for label in ("lora_adapter_dropped_in_decode", "spec_over_accept",
                                     "moe_top1")}
@@ -575,6 +633,7 @@ def main() -> int:
                                               for label, bar in serving_bars.items()},
         "host_tier_fault_caught": host_tier_caught, "host_tier_readings": host_tier,
         "read_plane_faults_caught": read_plane_caught, "read_plane_readings": read_plane,
+        "resilience_faults_caught": resilience_caught, "resilience_readings": resilience,
         "scheduler_bar_readings": {label: dict(bar["worst"], delta=bar["delta"])
                                    for label, bar in bars.items()},
         "logits_ok": logits_ok, "bf16_max_row_rel_err": worst,
@@ -582,7 +641,8 @@ def main() -> int:
     }))
     return 0 if (real_ok and all(caught.values()) and all(logits_caught.values())
                  and all(bar_caught.values()) and host_tier_caught
-                 and all(serving_caught.values()) and all(read_plane_caught.values())) else 1
+                 and all(serving_caught.values()) and all(read_plane_caught.values())
+                 and all(resilience_caught.values())) else 1
 
 
 if __name__ == "__main__":

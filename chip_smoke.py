@@ -8,6 +8,8 @@
                                            # Qwen2 family
     python3 chip_smoke.py --phases 12a,14a,14b  # the control plane and the
                                                 # read plane
+    python3 chip_smoke.py --phases 15a,15b  # the fleet's resilience plane
+                                            # (15b runs 12a first)
 
 Phases, in order (any failure raises and the script exits non-zero):
   1. device lines: torch's device name and nvidia-smi's name + power limit;
@@ -198,6 +200,43 @@ Phases, in order (any failure raises and the script exits non-zero):
      counted; alone, greedy tokens = a never-evicting pod bit for bit;
      batched, phase 7b's teacher-forced bar; hit rate, TTFT, prefetched
      and landed blocks, render, read-path and route times are logged;
+  15a. (run right after 14b) the fleet's resilience plane around four bf16
+     flagship pods (640 pages each) behind one EventPool and Indexer, on a
+     fake clock one step a wave: 8 waves of 12b's traffic, each wave scored
+     in one score_many call and routed precisely (top score, ties and no
+     cache signal to the wave's least loaded pod), each pod's share served
+     batched; the pods' messages reach the pool through a FaultInjector
+     under a seeded FaultPlan (a pod crashes and restarts cold, a pod's
+     stream stalls and resumes, a pod's stream drops, duplicates and
+     reorders, a pod is wiped without a removal event). Three arms: no
+     faults with the plane wired (FleetHealthTracker through the Indexer's
+     fleet_health= and the pool's health_tracker=, AntiEntropyTracker
+     through antientropy= and divergence=, a ResidencyAuditor over the
+     pods' resident_block_digest after every wave), the plan with the plane,
+     the plan without it. Bars: without faults, the scores and routes equal
+     an Indexer without the plane over the same index, and the plane acts
+     on nothing; with the plan, the crashed and stalled pods go stale within
+     stale_after_s plus one step and recover when their streams resume, a
+     quarantine purges exactly the pod's indexed entries, the tracker's gap,
+     duplicate and reorder counts equal the injector's, no score names a
+     stale pod and no request goes to one by its score, after every audit
+     from the wipe on every pod's indexed (key, tier) set equals its
+     committed pages (a stale pod's is empty), and from then on every
+     request's cached tokens equal 16 x the index's match_blocks; the
+     control arm's phantom routes, each arm's hit rate and TTFT median are
+     logged;
+  15b. (host only) the resource governor and the departure reaper over 12a's
+     digested index: meters on the index, the chain memo, the prefix store,
+     fleet health, load and anti-entropy; a governor whose budget holds
+     everything journals and sheds nothing; a third of the pods leave
+     (quarantined: purged, then reaped from every per-pod map and the
+     resolver's negative cache) and join again (their streams digested
+     again: the index equals the replay); then a governor at a quarter of the
+     accounted bytes: after its ticks the accounted bytes are within the
+     budget, its journal follows SHED_LADDER's order with the index shed
+     only at critical, what the index holds is a subset of the replay, and
+     score_hashes on 12a's 1,024 chains equals the plain longest prefix over
+     the index as it stands;
   then a JSON line of details, one JSON line describing every kernel, and
   last: {"ok": true, "device": {...}}.
 """
@@ -218,6 +257,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from llm_d_kv_cache_manager_tpu_torch.antientropy import (
+    AntiEntropyTracker,
+    AuditorConfig,
+    ResidencyAuditor,
+)
 from llm_d_kv_cache_manager_tpu_torch.engine.costs import (
     ALWAYS_TRANSFER,
     PEER,
@@ -234,7 +278,18 @@ from llm_d_kv_cache_manager_tpu_torch.engine.speculative import (
     SpeculativeScheduler,
 )
 from llm_d_kv_cache_manager_tpu_torch.engine.tiering import IndexBackedPeerResolver
+from llm_d_kv_cache_manager_tpu_torch.fleethealth.faults import (
+    FaultInjector,
+    FaultPlan,
+    PodFaults,
+)
 from llm_d_kv_cache_manager_tpu_torch.fleethealth.load import PodLoadTracker
+from llm_d_kv_cache_manager_tpu_torch.fleethealth.tracker import (
+    HEALTHY,
+    STALE,
+    FleetHealthConfig,
+    FleetHealthTracker,
+)
 from llm_d_kv_cache_manager_tpu_torch.kv_connectors.prefetch import RoutePrefetcher
 from llm_d_kv_cache_manager_tpu_torch.kvcache.indexer import (
     Indexer,
@@ -281,6 +336,22 @@ from llm_d_kv_cache_manager_tpu_torch.ops.sampling import (
 from llm_d_kv_cache_manager_tpu_torch.preprocessing.chat_completions import (
     ChatTemplatingProcessor,
     RenderRequest,
+)
+from llm_d_kv_cache_manager_tpu_torch.resourcegov import (
+    LEVEL_CRITICAL,
+    LEVEL_OK,
+    SHED_LADDER,
+    STRUCT_ANTIENTROPY,
+    STRUCT_CHAIN_MEMO,
+    STRUCT_FLEETHEALTH,
+    STRUCT_INDEX,
+    STRUCT_LOAD,
+    STRUCT_PREFIX_STORE,
+    DepartureReaper,
+    Meter,
+    ResourceAccountant,
+    ResourceGovConfig,
+    ResourceGovernor,
 )
 from llm_d_kv_cache_manager_tpu_torch.tokenization.pool import (
     TokenizationPool,
@@ -3369,7 +3440,9 @@ def control_plane_run(seed: int, n_pods: int) -> dict:
                 counters=counters,
                 # Phase 14a holds the native index's scores to these.
                 readings=dict(seed=seed, many=[(m.scores, m.match_blocks) for m in many],
-                              singles=[(x.scores, x.match_blocks) for x in singles]))
+                              singles=[(x.scores, x.match_blocks) for x in singles]),
+                # Phase 15b governs this index rather than digesting it again.
+                digested=dict(indexer=indexer, held=held, chains=chains, messages=messages))
 
 
 FLEET_SYSTEMS = 8  # system prompts of 1,024 tokens
@@ -3388,14 +3461,14 @@ def system_prompts(rng, vocab: int) -> list:
     return [rng.integers(0, vocab, 1024).tolist() for _ in range(FLEET_SYSTEMS)]
 
 
-def multitenant_traffic(seed: int, vocab: int) -> list:
-    """Phase 12b's waves: 8 system prompts, 64 users; wave w sends one
+def multitenant_traffic(seed: int, vocab: int, n_waves: int = FLEET_WAVES) -> list:
+    """Phase 12b's waves: 8 system prompts, 8 users a wave; wave w sends one
     request per system prompt in a seeded order, each a system prompt and a
     256-token turn of its own."""
     rng = np.random.default_rng(seed + 12)
     systems = system_prompts(rng, vocab)
     return [[dict(system=int(s), tokens=systems[s] + rng.integers(0, vocab, FLEET_TURN).tolist())
-             for s in rng.permutation(FLEET_SYSTEMS)] for _ in range(FLEET_WAVES)]
+             for s in rng.permutation(FLEET_SYSTEMS)] for _ in range(n_waves)]
 
 
 def fleet_pods(params, cfg, pool, model: str, n_pages: int, ids, removed: list) -> dict:
@@ -4377,14 +4450,528 @@ def phase_qwen() -> dict:
     log(f"  phase 13 launches: {out['launches']}")
     return out
 
+# -- phase 15: the fleet's resilience plane -----------------------------------
+
+RESILIENCE_WAVES = 9
+RESILIENCE_STEP_S = 1.0  # the fake clock's step per wave
+# A pod publishes about two batches a wave, so a lossy stream can miss a whole
+# wave: suspect after two quiet waves, stale after three and a half.
+RESILIENCE_HEALTH = dict(suspect_after_s=2.5, stale_after_s=3.5)
+# The shape of the reference's fault arms (benchmarking/FLEET_BENCH_FAULTS.json
+# config.fault_plan and FLEET_BENCH_DIVERGENCE.json's wipe plan) on four pods,
+# in waves: one pod crashes and restarts cold, one pod's stream stalls and
+# resumes, one pod's stream drops, duplicates and reorders, one pod is wiped
+# without a removal event.
+RESILIENCE_PLAN = dict(seed=42, pods={
+    "pod-0": dict(silent_wipe_at_s=6.0),
+    "pod-1": dict(crash_at_s=1.0, restart_at_s=5.0),
+    "pod-2": dict(stall_from_s=1.0, stall_until_s=5.0),
+    "pod-3": dict(drop_rate=0.1, duplicate_rate=0.05, reorder_rate=0.1),
+})
+RESILIENCE_CRASHED, RESILIENCE_STALLED, RESILIENCE_LOSSY = "pod-1", "pod-2", "pod-3"
+# Every audit challenges all a pod advertises and asks for all it holds: a
+# pod holds at most FLEET_POD_PAGES blocks.
+RESILIENCE_AUDIT = dict(interval_s=RESILIENCE_STEP_S, sample_per_pod=4 * FLEET_POD_PAGES,
+                        readmit_sample=4 * FLEET_POD_PAGES, device_tier="gpu", host_tier="cpu")
+RESILIENCE_MODEL = "llama-flagship-1.14b"
+
+
+class FakeClock:
+    """The plane's one clock: a run is a pure function of the plan and the
+    traffic."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def fault_plan(spec: dict) -> FaultPlan:
+    return FaultPlan(seed=spec["seed"],
+                     pods={pod: PodFaults(**f) for pod, f in spec["pods"].items()})
+
+
+def route_wave(scored, alive: list) -> list:
+    """Precise routing of one wave: each request goes to its top-scored
+    routable pod (ties to the least loaded of this wave, then pod order);
+    the requests with no cache signal on a routable pod then go, in wave
+    order, to the least loaded routable pod. Returns (pod, "score" or
+    "fallback") per request."""
+    order = {p: i for i, p in enumerate(FLEET_POD_IDS)}
+    loads = {p: 0 for p in alive}
+    out, fallback = [None] * len(scored), []
+    for j, ps in enumerate(scored):
+        cand = {p: s for p, s in ps.scores.items() if p in loads}
+        if not cand:
+            fallback.append(j)
+            continue
+        best = max(cand.values())
+        pid = min((p for p, s in cand.items() if s == best), key=lambda p: (loads[p], order[p]))
+        out[j] = (pid, "score")
+        loads[pid] += 1
+    for j in fallback:
+        pid = min(loads, key=lambda p: (loads[p], order[p]))
+        out[j] = (pid, "fallback")
+        loads[pid] += 1
+    return out
+
+
+def resilience_arm(params, cfg, waves, plan: dict, plane: bool,
+                   tracker_cls=FleetHealthTracker, auditor_cls=ResidencyAuditor) -> dict:
+    """One arm of phase 15a on four fresh flagship pods: the waves routed
+    precisely, each pod's share batched, with `plan`'s faults injected at
+    the pods' delivery into the EventPool, and (with `plane`) the fleet
+    health tracker, the anti-entropy tracker and the residency auditor
+    wired. Checks the arm's bars; returns its readings and failures."""
+    t_arm = time.perf_counter()
+    device = params["embed"].device
+    clock = FakeClock()
+    faults = fault_plan(plan)
+    injector = FaultInjector(faults, clock)
+    tracker = trust = auditor = None
+    if plane:
+        tracker = tracker_cls(FleetHealthConfig(**RESILIENCE_HEALTH), clock=clock)
+        trust = AntiEntropyTracker(clock=clock)
+    indexer = Indexer(
+        IndexerConfig(token_processor_config=TokenProcessorConfig(block_size=PAGE)),
+        tokenization_pool=TokenizationPool(TokenizersPoolConfig(workers=2),
+                                           tokenizer=WordTokenizer()),
+        fleet_health=tracker, antientropy=trust)
+    index = indexer.kv_block_index
+    if not plan["pods"]:  # the same index without the plane: the no-fault pin
+        twin = Indexer(IndexerConfig(token_processor_config=TokenProcessorConfig(
+            block_size=PAGE)), kv_block_index=index)
+    pool = EventPool(EventPoolConfig(concurrency=4), index, indexer.token_processor,
+                     health_tracker=tracker, divergence=trust)
+    pool.start(with_subscriber=False)
+    indexer.run()
+    wave_of, sent, delivered = [0], {p: [] for p in FLEET_POD_IDS}, {p: [] for p in FLEET_POD_IDS}
+
+    def to_pool(msg):
+        delivered[msg.pod_identifier].append((wave_of[0], msg.seq))
+        pool.add_task(msg)
+
+    deliver = {pid: injector.wrap(pid, to_pool) for pid in FLEET_POD_IDS}
+    seqs = {pid: 0 for pid in FLEET_POD_IDS}
+
+    def new_pod(pid):
+        def sink(batch):
+            seq = seqs[pid]
+            seqs[pid] += 1
+            sent[pid].append(seq)
+            deliver[pid](Message(topic=f"kv@{pid}@{RESILIENCE_MODEL}",
+                                 payload=batch.to_msgpack(), seq=seq, pod_identifier=pid,
+                                 model_name=RESILIENCE_MODEL))
+
+        return EnginePod(
+            EnginePodConfig(pod_id=pid, model_name=RESILIENCE_MODEL, n_pages=FLEET_POD_PAGES,
+                            page_size=PAGE, device_tier="gpu", max_pages_per_seq=96,
+                            model_config=cfg, device=device),
+            event_sink=sink, params=params)
+
+    pods = {pid: new_pod(pid) for pid in FLEET_POD_IDS}
+    down = set()
+    if plane:
+        auditor = auditor_cls(
+            index, RESILIENCE_MODEL,
+            lambda pod, dev, host, k: None if pod in down else pods[pod].resident_block_digest(
+                dev, host, k),
+            tracker=trust, config=AuditorConfig(**RESILIENCE_AUDIT), clock=clock)
+    wipe_s = max((f.silent_wipe_at_s for f in faults.pods.values()
+                  if f.silent_wipe_at_s is not None), default=None)
+    failures, cached, ttft, routes, states, drained = [], {}, [], [], [], []
+    phantom_routes, purge_checks, repair_checks, purged_seen = 0, [], 0, {}
+    prev_stale = set()
+    try:
+        for w, wave in enumerate(waves):
+            clock.t = w * RESILIENCE_STEP_S
+            wave_of[0] = w
+            for pid, f in faults.pods.items():
+                if f.silent_wipe_at_s == clock.t:  # its cache replaced, its removals lost
+                    pods[pid] = new_pod(pid)
+                if f.crashed(clock.t):
+                    down.add(pid)
+                elif pid in down:  # restart: a cold pod, a fresh publisher
+                    down.discard(pid)
+                    seqs[pid] = 0
+                    pods[pid] = new_pod(pid)
+                    pods[pid].block_manager.clear()  # announces its empty cache
+            pool.drain()
+            before = index_pairs(index) if plane else None
+            scored = indexer.score_many([ScoreRequest(words(q["tokens"]), RESILIENCE_MODEL)
+                                         for q in wave])
+            stale = {p for p in FLEET_POD_IDS if plane and tracker.state_of(p) == STALE}
+            states.append({p: tracker.state_of(p) for p in FLEET_POD_IDS} if plane else {})
+            alive = [p for p in FLEET_POD_IDS if p not in down]
+            route = route_wave(scored, alive)
+            if plane:
+                for pid in stale - prev_stale:  # detected at this call: the purge bar
+                    got = tracker.summary()["pods"][pid]["purged_entries"] - purged_seen.get(pid, 0)
+                    want = sum(1 for _, p, _ in before if p == pid)
+                    purge_checks.append((w, pid, got, want))
+                    if got != want:
+                        failures.append(f"wave {w}: {pid} quarantined with {got} entries "
+                                        f"purged, {want} indexed at that moment")
+                for j, ps in enumerate(scored):
+                    named = set(ps.scores) & stale
+                    if named:
+                        failures.append(f"wave {w} request {j}: a score names stale {named}")
+                    if route[j][1] == "score" and route[j][0] in stale:
+                        failures.append(f"wave {w} request {j}: routed by score to stale "
+                                        f"{route[j][0]}")
+                if not plan["pods"]:
+                    for j, ps in enumerate(scored):  # the no-fault pin
+                        bare = twin.score_hashes(RESILIENCE_MODEL, ps.block_hashes)
+                        if (bare.scores, bare.match_blocks) != (ps.scores, ps.match_blocks):
+                            failures.append(f"wave {w} request {j}: scores with the plane "
+                                            f"{ps.scores} differ from without {bare.scores}")
+                    if route_wave([twin.score_hashes(RESILIENCE_MODEL, ps.block_hashes)
+                                   for ps in scored], alive) != route:
+                        failures.append(f"wave {w}: routes differ with and without the plane")
+            prev_stale = stale
+            share = {pid: [] for pid in FLEET_POD_IDS}
+            for j, (q, ps, (pid, kind)) in enumerate(zip(wave, scored, route)):
+                share[pid].append((j, q, PAGE * ps.match_blocks.get(pid, 0)))
+                routes.append((w, j, pid, kind))
+            for pid, reqs in share.items():
+                if not reqs:
+                    continue
+                r = serve_share(pods[pid], [q for _, q, _ in reqs], 8)
+                for (j, _, pred), done, first in zip(reqs, r["requests"], r["first_token_s"]):
+                    cached[(w, j)] = done.num_cached_tokens
+                    ttft.append(first)
+                    phantom_routes += pred > done.num_cached_tokens
+                    # The routing bar: exact wherever the index is held true
+                    # (every wave of a run without faults; after the auditor's
+                    # first round past the wipe otherwise).
+                    settled = not plan["pods"] or (wipe_s is not None and clock.t > wipe_s)
+                    if plane and settled and done.num_cached_tokens != pred:
+                        failures.append(f"wave {w} request {j} on {pid}: cached "
+                                        f"{done.num_cached_tokens}, the index predicted {pred}")
+            pool.drain()
+            if plane:
+                drained.append({p: tracker.state_of(p) for p in FLEET_POD_IDS})
+                auditor.tick(clock.t)
+                purged_seen = {p: d["purged_entries"]
+                               for p, d in tracker.summary()["pods"].items()}
+                if not plan["pods"] or (wipe_s is not None and clock.t >= wipe_s):
+                    pairs = index_pairs(index)
+                    for pid, pod in pods.items():
+                        indexed = {(h, tier) for h, p, tier in pairs if p == pid}
+                        want = (set() if tracker.state_of(pid) == STALE else
+                                {(h, "gpu") for h in pod.block_manager.cached_hashes()})
+                        repair_checks += 1
+                        if indexed != want:
+                            failures.append(f"wave {w} {pid} after the audit: index "
+                                            f"{len(indexed)} blocks, pod {len(want)} "
+                                            f"({len(indexed - want)} extra, "
+                                            f"{len(want - indexed)} missing)")
+        injector.flush()
+        pool.drain()
+        counters = dict(dropped=pool.dropped_events, removals_lost=pool.removals_lost)
+        if counters != dict(dropped=0, removals_lost=0):
+            failures.append(f"pool counters {counters}")
+    finally:
+        indexer.shutdown()
+        pool.shutdown()
+    out = dict(sent={p: len(s) for p, s in sent.items()},
+               delivered_by_wave={p: [sum(1 for w, _ in d if w == wi) for wi in range(len(waves))]
+                                  for p, d in delivered.items()},
+               phantom_routes=phantom_routes, injected=dict(injector.injected),
+               routes_by_kind={k: sum(1 for r in routes if r[3] == k)
+                               for k in ("score", "fallback")})
+    prompt_tokens = sum(len(q["tokens"]) for wave in waves for q in wave)
+    out.update(hit_rate=sum(cached.values()) / prompt_tokens,
+               ttft_median_ms=statistics.median(ttft) * 1e3)
+    if plane:
+        summary = tracker.summary()
+        out.update(states=states, purge_checks=purge_checks, repair_checks=repair_checks,
+                   anomalies=tracker.anomaly_totals(), auditor=auditor.status(),
+                   trust=trust.status()["totals"],
+                   detection_latency_s={p: d["detection_latency_s"]
+                                        for p, d in summary["pods"].items()},
+                   recoveries={p: d["recoveries"] for p, d in summary["pods"].items()},
+                   purged={p: d["purged_entries"] for p, d in summary["pods"].items()})
+        if plan["pods"]:
+            failures += resilience_bars(out, summary, sent, delivered, states, drained)
+        else:
+            quiet = dict(purged=sum(out["purged"].values()),
+                         phantoms=out["auditor"]["phantoms_purged"],
+                         readmitted=out["auditor"]["blocks_readmitted"],
+                         anomalies=sum(out["anomalies"].values()))
+            if any(quiet.values()):
+                failures.append(f"the plane acted on a fleet without faults: {quiet}")
+    out.update(failures=failures, seconds=time.perf_counter() - t_arm)
+    return out
+
+
+def resilience_bars(out: dict, summary: dict, sent: dict, delivered: dict, states: list,
+                    drained: list) -> list:
+    """Phase 15a's detection and anomaly bars on the faulted, wired arm:
+    `states` holds each pod's state at each wave's routing, `drained` after
+    each wave's events were digested."""
+    failures = []
+    limit = RESILIENCE_HEALTH["stale_after_s"] + RESILIENCE_STEP_S
+    for pid in (RESILIENCE_CRASHED, RESILIENCE_STALLED):
+        latency = summary["pods"][pid]["detection_latency_s"]
+        if latency is None or latency > limit:
+            failures.append(f"{pid} detected after {latency} s (limit {limit} s)")
+        stale_waves = [w for w, s in enumerate(states) if s[pid] == STALE]
+        resumed = [w for w, _ in delivered[pid] if stale_waves and w > stale_waves[0]]
+        if not resumed:
+            failures.append(f"{pid}'s stream never resumed after its detection")
+        elif not summary["pods"][pid]["recoveries"] or drained[resumed[0]][pid] != HEALTHY:
+            failures.append(f"{pid} did not recover when its stream resumed (wave {resumed[0]})")
+    # The tracker sees a lost seq only after the first delivered one: a seq
+    # below the first delivered one (lost, or held and swapped behind it) or
+    # a lost seq past the last delivered one shows no gap.
+    lossy = summary["pods"][RESILIENCE_LOSSY]
+    order = [s for _, s in delivered[RESILIENCE_LOSSY]]
+    got, sent_seqs = set(order), set(sent[RESILIENCE_LOSSY])
+    leading = sum(1 for s in sent_seqs if s < order[0])
+    trailing = sum(1 for s in sent_seqs - got if s > max(got))
+    inj = out["injected"]
+    seen = dict(gap_events=lossy["gap_events"], duplicates=lossy["duplicates"],
+                reorders=lossy["reorders"])
+    want = dict(gap_events=inj["dropped"] + inj["reordered"] - leading - trailing,
+                duplicates=inj["duplicated"], reorders=inj["reordered"])
+    out["anomaly_check"] = dict(seen=seen, injected=want, leading=leading, trailing=trailing)
+    if lossy["recoveries"]:
+        failures.append(f"{RESILIENCE_LOSSY} left the healthy state (its seq tracking was "
+                        f"reset, so its counts cannot be held to the injector's)")
+    if seen != want or not (inj["dropped"] and inj["duplicated"] and inj["reordered"]):
+        failures.append(f"{RESILIENCE_LOSSY}'s anomalies {seen}, the injector's {want}")
+    return failures
+
+
+def phase_resilience(params, cfg, seed: int) -> dict:
+    log(f"== phase 15a: faults and anti-entropy around four bf16 flagship pods "
+        f"({FLEET_POD_PAGES} pages of {PAGE}): {RESILIENCE_WAVES} waves of phase 12b's traffic "
+        f"routed precisely, each pod's share batched, a fake clock {RESILIENCE_STEP_S} s a "
+        f"wave; plan {RESILIENCE_PLAN}; health {RESILIENCE_HEALTH}; arms: no faults with the "
+        f"plane, the plan with the plane, the plan without it")
+    t_phase = time.perf_counter()
+    card = card_line()
+    waves = multitenant_traffic(seed, cfg.vocab_size, RESILIENCE_WAVES)
+    reset_launch_counts()
+    arms = {"no_faults": resilience_arm(params, cfg, waves, dict(seed=0, pods={}), True),
+            "faults_plane": resilience_arm(params, cfg, waves, RESILIENCE_PLAN, True),
+            "faults_control": resilience_arm(params, cfg, waves, RESILIENCE_PLAN, False)}
+    launches = launch_counts()
+    failures = [f"{name}: {f}" for name, arm in arms.items() for f in arm["failures"]]
+    for name, arm in arms.items():
+        log(f"  {name} ({card}): hit rate {arm['hit_rate']:.4f}, TTFT median "
+            f"{arm['ttft_median_ms']:.2f} ms, phantom routes {arm['phantom_routes']}, routes "
+            f"{arm['routes_by_kind']}, injected {arm['injected']}, {arm['seconds']:.1f} s, "
+            f"{len(arm['failures'])} failures")
+        if "auditor" in arm:
+            log(f"    detection latency s {arm['detection_latency_s']}, recoveries "
+                f"{arm['recoveries']}, purged {arm['purged']}; purge checks "
+                f"{arm['purge_checks']}; auditor {arm['auditor']}; trust {arm['trust']}; "
+                f"anomalies {arm['anomalies']} {arm.get('anomaly_check', '')}; "
+                f"{arm['repair_checks']} pod checks after an audit")
+    log(f"  kernel launches in the three arms: {launches}")
+    for name in ("paged_decode", "flash_prefill"):
+        if launches[name] <= 0:
+            failures.append(f"{name} was never launched on the resilience path")
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 15a ran {seconds:.1f} s")
+    if failures:
+        raise AssertionError(f"phase 15a: {failures[:6]}")
+    for arm in arms.values():
+        arm.pop("states", None)
+    return dict(arms=arms, launches=launches, card=card, seconds=seconds)
+
+
+# Ticks of the quarter-budget governor at most (one rung fires a tick at
+# elevated, so draining the small structures takes tens of ticks).
+GOVERNOR_MAX_TICKS = 256
+
+
+def phase_governor(seed: int, control: dict) -> dict:
+    """Phase 15b over phase 12a's digested index (its indexer, stream and
+    plain replay, handed over in `control["digested"]`)."""
+    dig = control.pop("digested")
+    log(f"== phase 15b: the resource governor and the departure reaper over phase 12a's "
+        f"digested fleet ({control['pods']} pods, host only): meters on the index, the chain "
+        f"memo, the prefix store, fleet health, load and anti-entropy; a governor at a "
+        f"quarter of the accounted bytes; a third of the pods leave and are reaped, then "
+        f"join again")
+    t_phase = time.perf_counter()
+    indexer, held, chains, messages = dig["indexer"], dig["held"], dig["chains"], dig["messages"]
+    index = indexer.kv_block_index
+    pods = sorted(held)
+    clock = FakeClock()
+    # The run's clock spans a minute at most: windows of an hour keep every
+    # live pod healthy, so only the churn takes pods out.
+    tracker = FleetHealthTracker(FleetHealthConfig(suspect_after_s=3600.0, stale_after_s=7200.0),
+                                 index=index, clock=clock)
+    load = PodLoadTracker(clock=clock)
+    trust = AntiEntropyTracker(clock=clock)
+    addrs = {pod: ("10.0.0.1", 7000 + i) for i, pod in enumerate(pods)}
+    resolver = IndexBackedPeerResolver(index, FLEET_MODEL, addrs, "router",
+                                       negative_ttl_s=3600.0, clock=clock)
+    for msg in messages:  # the pods' streams as the tracker would have seen them
+        tracker.observe_batch(msg.pod_identifier, msg.topic, msg.seq, 0.0)
+    for i, pod in enumerate(pods):
+        load.report(pod, queue_depth=i % 4, inflight=1, busy_until=1.0)
+        trust.observe_audit(pod, verified=16, phantom=0)
+        resolver.note_miss(addrs[pod], [i])
+    reaper = DepartureReaper(clock=clock)
+    reaper.register("fleethealth", tracker.forget_pod)
+    reaper.register("load", load.forget_pod)
+    reaper.register("antientropy", trust.forget_pod)
+    reaper.register("negative_cache", resolver.forget_pod)
+    tracker.on_departed = reaper.reap
+    acc = ResourceAccountant()
+    memo = indexer.token_processor.chain_memo
+    acc.register(Meter(STRUCT_INDEX, lambda: sum(index.segment_sizes()), bytes_per_entry=1024.0,
+                       shed=index.shed))
+    acc.register(Meter(STRUCT_CHAIN_MEMO, memo.entries, bytes_per_entry=256.0, shed=memo.shed))
+    acc.register(Meter(STRUCT_PREFIX_STORE, indexer.prefix_store.entries,
+                       bytes_per_entry=4096.0, shed=indexer.prefix_store.shed))
+    acc.register(Meter(STRUCT_FLEETHEALTH, tracker.entries, bytes_per_entry=512.0))
+    acc.register(Meter(STRUCT_LOAD, load.entries, bytes_per_entry=256.0))
+    acc.register(Meter(STRUCT_ANTIENTROPY, trust.entries, bytes_per_entry=256.0))
+    failures = []
+
+    def rows() -> dict:
+        return dict(fleethealth=sorted(tracker.summary()["pods"]), load=sorted(load.snapshot()),
+                    antientropy=sorted(trust.status()["pods"]))
+
+    # A governor whose budget holds everything journals nothing, sheds nothing.
+    total = acc.total_bytes()
+    entries0 = sum(index.segment_sizes())
+    roomy = ResourceGovernor(acc, ResourceGovConfig(budget_mb=2 * total / 2**20,
+                                                    min_interval_s=0.0), clock=clock)
+    for _ in range(3):
+        clock.t += 1.0
+        roomy.tick()
+    if roomy.journal() or roomy.stats_counters["sheds"] or sum(index.segment_sizes()) != entries0:
+        failures.append(f"a governor with room journaled {roomy.journal()}")
+
+    # Churn: a third of the pods leave (a quarantine: purge, then the reap).
+    leavers = pods[1::3]
+    t0 = time.perf_counter()
+    purged = {pod: tracker.quarantine(pod) for pod in leavers}
+    churn_s = time.perf_counter() - t0
+    pairs = index_pairs(index)
+    left_behind = sum(1 for _, p, _ in pairs if p in leavers)
+    if left_behind:
+        failures.append(f"{left_behind} entries of reaped pods remain")
+    live = sorted(set(pods) - set(leavers))
+    after_leave = rows()
+    for name, have in after_leave.items():
+        if have != live:
+            failures.append(f"after the reap, {name} holds rows for {have}, live {live}")
+    if resolver.negative_entries() != len(live):  # one noted miss a pod
+        failures.append(f"after the reap the negative cache holds "
+                        f"{resolver.negative_entries()} rows, {len(live)} live pods")
+    # They join again: their streams through an EventPool with the tracker wired.
+    t0 = time.perf_counter()
+    pool = EventPool(EventPoolConfig(concurrency=4), index, indexer.token_processor,
+                     health_tracker=tracker)
+    pool.start(with_subscriber=False)
+    try:
+        feed(pool, [m for m in messages if m.pod_identifier in leavers])
+        pool.drain()
+    finally:
+        pool.shutdown()
+    for i, pod in enumerate(pods):
+        if pod in leavers:
+            load.report(pod, queue_depth=i % 4, inflight=1, busy_until=1.0)
+            trust.observe_audit(pod, verified=16, phantom=0)
+    rejoin_s = time.perf_counter() - t0
+    want = {(h, pod, "gpu") for pod, keys in held.items() for h in keys}
+    pairs = index_pairs(index)
+    if pairs != want:
+        failures.append(f"after the rejoin the index holds {len(pairs)} pairs, the replay "
+                        f"{len(want)}")
+    for name, have in rows().items():
+        if have != pods:
+            failures.append(f"after the rejoin, {name} holds rows for {have}")
+
+    # The governor at a quarter of the accounted bytes.
+    total = acc.total_bytes()
+    gov = ResourceGovernor(acc, ResourceGovConfig(budget_mb=total / 4 / 2**20,
+                                                  min_interval_s=0.0, cooldown_s=1.0,
+                                                  journal_len=GOVERNOR_MAX_TICKS * 4),
+                           clock=clock)
+    t0 = time.perf_counter()
+    ticks = 0
+    while ticks < GOVERNOR_MAX_TICKS:
+        clock.t += 1.0
+        ticks += 1
+        if gov.tick() is None and gov.level != LEVEL_CRITICAL:
+            break
+    shed_s = time.perf_counter() - t0
+    status = gov.status()
+    journal = gov.journal()
+    if status["accounted_bytes"] > gov.budget_bytes:
+        failures.append(f"accounted {status['accounted_bytes']} B over the budget "
+                        f"{gov.budget_bytes:.0f} B after {ticks} ticks")
+    if len(journal) == gov.config.journal_len:
+        failures.append("the journal filled up: its order cannot be checked")
+    order = {r.structure: i for i, r in enumerate(SHED_LADDER)}
+    level, by_tick = LEVEL_OK, {}
+    for t, kind, what, _, _ in journal:
+        if kind == "level":
+            level = what.split("->")[1]
+        elif kind == "shed":
+            by_tick.setdefault(t, []).append(order[what])
+            if what == STRUCT_INDEX and level != LEVEL_CRITICAL:
+                failures.append(f"the index was shed at {level} (t {t})")
+    if any(ix != sorted(ix) for ix in by_tick.values()):
+        failures.append(f"sheds out of the ladder's order: {by_tick}")
+    if not any(e[1] == "shed" and e[2] == STRUCT_INDEX for e in journal):
+        failures.append("a quarter budget never shed the index")
+    pairs = index_pairs(index)
+    if not pairs <= want:
+        failures.append(f"{len(pairs - want)} entries after the shed are not in the replay")
+    now_held = {}
+    for h, pod, _ in pairs:
+        now_held.setdefault(pod, set()).add(h)
+    t0 = time.perf_counter()
+    off = sum(1 for _, chain in chains
+              if indexer.score_hashes(FLEET_MODEL, chain).scores
+              != plain_longest_prefix(chain, now_held))
+    score_s = time.perf_counter() - t0
+    if off:
+        failures.append(f"{off} of {len(chains)} chains score apart from the plain longest "
+                        f"prefix over the shed index")
+    for name, have in rows().items():
+        if have != pods:
+            failures.append(f"{name} holds rows for {have}, live {pods}")
+    seconds = time.perf_counter() - t_phase
+    log(f"  accounted {total:.0f} B before the governor, budget {gov.budget_bytes:.0f} B, after "
+        f"{ticks} ticks {status['accounted_bytes']} B ({status['level']}); meters "
+        f"{status['meters']}; journal {journal}")
+    log(f"  churn: {len(leavers)} pods left (purged {sum(purged.values())} entries in "
+        f"{churn_s:.3f} s, reaper {reaper.status()['stats']}), rejoined in {rejoin_s:.1f} s; "
+        f"shed ticks {shed_s:.2f} s; {len(chains)} chains scored in {score_s:.2f} s, {off} off "
+        f"the plain longest prefix; index {len(pairs)} of the replay's {len(want)} pairs; "
+        f"phase 15b ran {seconds:.1f} s")
+    if failures:
+        raise AssertionError(f"phase 15b: {failures[:6]}")
+    return dict(budget_bytes=gov.budget_bytes, accounted_before=total,
+                accounted_after=status["accounted_bytes"], level=status["level"], ticks=ticks,
+                journal=journal, meters=status["meters"], stats=status["stats"],
+                leavers=leavers, purged=purged, reaper=reaper.status()["stats"],
+                index_pairs_after=len(pairs), replay_pairs=len(want), churn_s=churn_s,
+                rejoin_s=rejoin_s, shed_s=shed_s, score_s=score_s, seconds=seconds)
+
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=None,
                         help="comma-separated phases to run after the build (3 4 5 5b 5c 6 7a "
-                        "7b 8a 8 9a 9b 10a 10b 11a 11b 12a 12b 13 14a 14b; 9b and 10b run "
-                        "7b's deltas first, 14a runs 12a first); a partial run prints no "
+                        "7b 8a 8 9a 9b 10a 10b 11a 11b 12a 12b 13 14a 14b 15a 15b; 9b and "
+                        "10b run 7b's deltas first, 14a and 15b run 12a first); a partial run "
+                        "prints no "
                         "kernels or ok line")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of phases 12 and 14's events, prompts and traffic")
@@ -4447,8 +5034,10 @@ def main(argv=None) -> int:
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     fleet = phase_fleet(params, cfg, args.seed)
     read_plane = phase_read_plane(params, cfg, args.seed)
+    resilience = phase_resilience(params, cfg, args.seed)
     del params
     torch.cuda.empty_cache()
+    governor = phase_governor(args.seed, control)
     qwen = phase_qwen()
 
     # Rows 1, 2 and 5 are counted on the serving path (phase 5), on the
@@ -4458,7 +5047,8 @@ def main(argv=None) -> int:
     # (phase 11b's scheduler runs) and on the fleet's (phase 12b's four pods,
     # both policies; bf16 pages only) and on the Qwen2 family's (phase 13a's
     # pods and 13c's scheduler runs, both models) and on the read plane's
-    # (phase 14b's four pods, its three runs; bf16 pages); rows 3 and 4 (the tiled
+    # (phase 14b's four pods, its three runs; bf16 pages); rows 1 and 5 also on
+    # the fleet's resilience plane (phase 15a's pods, its three arms); rows 3 and 4 (the tiled
     # decode entry) on phase 6's, phase 11b's and phase 13b's tiled decode
     # steps.
     runs = [sched[f"{fmt} steps{steps}"] for fmt, _, steps in FLAGSHIP_RUNS]
@@ -4472,6 +5062,8 @@ def main(argv=None) -> int:
                       "qwen": qwen["launches"][name],
                       "read_plane": read_plane["launches"][name]}
                for name in ("paged_decode", "paged_decode_int8", "flash_prefill")}
+    for name in ("paged_decode", "flash_prefill"):  # phase 15a's bf16 pods: rows 1 and 5
+        by_path[name]["fleet_health"] = resilience["launches"][name]
     for row in ("paged_decode_tiled", "paged_decode_tiled_int8"):
         by_path[row] = {"batched_decode": batched["checks"][row]["launches"],
                         "moe_batched_decode": moe["logits"][row]["launches"],
@@ -4497,7 +5089,8 @@ def main(argv=None) -> int:
                     "speculative_small": spec_small, "speculative": spec,
                     "mixtral_attention_shape": mixtral_times, "moe_small": moe_small, "moe": moe,
                     "control_plane": control, "native_control_plane": native,
-                    "fleet": fleet, "read_plane": read_plane,
+                    "fleet": fleet, "read_plane": read_plane, "resilience": resilience,
+                    "governor": governor,
                     "qwen_attention_shapes": qwen_times, "qwen": qwen,
                     "build_s": build_s, "run_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
@@ -4517,10 +5110,10 @@ def partial_run(phases, gen, cfg, seed: int = 0) -> int:
     if "4" in phases:
         out["times"] = phase_times(gen)
     params = None
-    if "14a" in phases and "12a" not in phases:
-        phases = ["12a", *phases]  # 14a holds its scores to 12a's ShardedIndex
-    if any(p not in ("3", "4", "5b", "7a", "8a", "9a", "10a", "11a", "11b", "12a", "13", "14a")
-           for p in phases):
+    if ("14a" in phases or "15b" in phases) and "12a" not in phases:
+        phases = ["12a", *phases]  # 14a holds its scores to 12a's index, 15b governs it
+    if any(p not in ("3", "4", "5b", "7a", "8a", "9a", "10a", "11a", "11b", "12a", "13", "14a",
+                     "15b") for p in phases):
         params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     steps = {
         "5": lambda: phase_serving(params, cfg), "5b": phase_small_pod_vs_cpu,
@@ -4532,6 +5125,8 @@ def partial_run(phases, gen, cfg, seed: int = 0) -> int:
         "12a": lambda: phase_control_plane(seed), "12b": lambda: phase_fleet(params, cfg, seed),
         "14a": lambda: phase_native_control_plane(seed, out["12a"]),
         "14b": lambda: phase_read_plane(params, cfg, seed),
+        "15a": lambda: phase_resilience(params, cfg, seed),
+        "15b": lambda: phase_governor(seed, out["12a"]),
     }
     for phase in phases:
         if phase in steps:
@@ -4555,6 +5150,7 @@ def partial_run(phases, gen, cfg, seed: int = 0) -> int:
     if "13" in phases:
         out["13"] = phase_qwen()
     out.get("12a", {}).pop("readings", None)
+    out.get("12a", {}).pop("digested", None)
     log(json.dumps(out, default=str))
     log(f"partial run of phases {phases}: {time.perf_counter() - t_start:.1f} s")
     return 0

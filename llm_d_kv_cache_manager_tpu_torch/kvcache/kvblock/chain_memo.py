@@ -169,6 +169,24 @@ class ChainMemo:
                 "native": hashing.have_native(),
             }
 
+    def shed(self, fraction: float) -> int:
+        """Resource-governor hook: drop the `fraction` least-recently-used
+        memo entries. Pure cache: the next derivation over a dropped
+        prefix re-hashes from scratch (bit-identical keys, just slower),
+        so shedding trades CPU for memory and nothing else. Returns
+        entries dropped."""
+        fraction = min(max(fraction, 0.0), 1.0)
+        with self._mu:
+            n = int(len(self._cache) * fraction)
+            for key in self._cache.keys()[:n]:
+                self._cache.remove(key)
+            return n
+
+    def entries(self) -> int:
+        """Memoized prefixes — the resource accountant's O(1) meter read."""
+        with self._mu:
+            return len(self._cache)
+
     def _count(self, hit: bool, reused: int, hashed: int) -> None:
         with self._mu:
             if hit:

@@ -224,6 +224,65 @@ class InMemoryIndex(Index):
                     self._engine_to_request.remove(engine_key)
         return removed
 
+    def shed(self, fraction: float) -> int:
+        """Resource-governor hook: drop the oldest `fraction` of request
+        keys — the LRU tail, exactly what capacity eviction would reclaim
+        next, so a shed is indistinguishable from running at a smaller
+        index. A dropped block stops scoring until its pod re-advertises
+        it (re-derivable state, never truth). Returns pod entries removed."""
+        fraction = min(max(fraction, 0.0), 1.0)
+        if fraction <= 0.0:
+            return 0
+        removed = 0
+        emptied = set()
+        keys = self._data.keys()
+        for request_key in keys[: int(len(keys) * fraction)]:
+            pod_cache = self._data.peek(request_key)
+            if pod_cache is None:
+                continue
+            with pod_cache.mu:
+                removed += len(pod_cache.cache)
+            self._data.remove(request_key)
+            emptied.add(request_key)
+        if emptied:
+            for engine_key, request_key in self._engine_to_request.items():
+                if request_key in emptied:
+                    self._engine_to_request.remove(engine_key)
+        return removed
+
+    def remove_entries(
+        self, pod_identifier: str, request_keys, device_tiers=None
+    ) -> int:
+        """Targeted purge (Index.remove_entries contract): only the given
+        request keys are touched, via `peek` so untouched keys keep their
+        recency order — the purge must not perturb what the LRU evicts
+        next."""
+        target = {pod_identifier}
+        removed = 0
+        emptied = set()
+        for request_key in request_keys:
+            pod_cache = self._data.peek(request_key)
+            if pod_cache is None:
+                continue
+            with pod_cache.mu:
+                victims = [
+                    e for e in pod_cache.cache.keys()
+                    if pod_matches(e.pod_identifier, target)
+                    and (device_tiers is None or e.device_tier in device_tiers)
+                ]
+                for entry in victims:
+                    pod_cache.cache.remove(entry)
+                removed += len(victims)
+                is_empty = victims and len(pod_cache.cache) == 0
+            if is_empty:
+                self._data.remove(request_key)
+                emptied.add(request_key)
+        if emptied:
+            for engine_key, request_key in self._engine_to_request.items():
+                if request_key in emptied:
+                    self._engine_to_request.remove(engine_key)
+        return removed
+
     def export_view(self) -> IndexView:
         """Snapshot both LRUs oldest-first (Index.export_view contract)."""
         entries = []
@@ -239,3 +298,23 @@ class InMemoryIndex(Index):
             for ek, rk in self._engine_to_request.items()
         ]
         return IndexView(entries=entries, engine_map=engine_map)
+
+    def import_view(self, view: IndexView) -> int:
+        """Rebuild both key spaces in view order (Index.import_view)."""
+        imported = 0
+        for model_name, chunk_hash, pods in view.entries:
+            request_key = Key(model_name, chunk_hash)
+            pod_cache = self._data.get(request_key)
+            if pod_cache is None:
+                pod_cache = _PodCache(self._pod_cache_size)
+                self._data.add(request_key, pod_cache)
+            with pod_cache.mu:
+                for pod, tier in pods:
+                    pod_cache.cache.add(PodEntry(pod, tier), None)
+                    imported += 1
+        for engine_model, engine_hash, req_model, req_hash in view.engine_map:
+            self._engine_to_request.add(
+                Key(engine_model, engine_hash), Key(req_model, req_hash)
+            )
+        return imported
+

@@ -71,6 +71,31 @@ class Index(abc.ABC):
     def get_request_key(self, engine_key: Key) -> Optional[Key]:
         """Resolve an engine key to its request key, or None if unknown."""
 
+    def remove_entries(
+        self,
+        pod_identifier: str,
+        request_keys: Sequence[Key],
+        device_tiers: Optional[Set[str]] = None,
+    ) -> int:
+        """Targeted purge: remove `pod_identifier`'s entries for exactly
+        the given request keys (optionally only entries whose tier is in
+        `device_tiers`; None = all tiers).
+
+        The anti-entropy repair primitive (antientropy/): where
+        `remove_pod` quarantines a whole pod, this surgically drops the
+        specific (pod, block) placements that fetch-miss feedback or a
+        residency audit proved phantom — the pod's OTHER placements keep
+        scoring. Pod matching follows `remove_pod` semantics (a bare pod
+        name also matches its DP-ranked identities; `key.pod_matches`).
+        Keys left with no pods are dropped from both key spaces, exactly
+        as if the view had been exported, filtered, and re-imported.
+        Keys the pod has no entry for are no-ops. Returns the number of pod
+        entries removed.
+        """
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support remove_entries"
+        )
+
     @abc.abstractmethod
     def remove_pod(self, pod_identifier: str) -> int:
         """Bulk-purge every entry `pod_identifier` holds, in one pass.
@@ -96,10 +121,22 @@ class Index(abc.ABC):
             f"{type(self).__name__} does not support export_view"
         )
 
+    def import_view(self, view: "IndexView") -> int:
+        """Load an `export_view` projection into this (fresh) backend.
+
+        Entries are applied oldest-first, re-establishing both key spaces
+        and recency order. Import targets an EMPTY index: existing entries
+        are kept (imports merge), but recency interleaving with pre-import
+        state is unspecified. Returns the number of pod entries imported.
+        """
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support import_view"
+        )
+
 
 @dataclass
 class IndexView:
-    """Portable projection of an index's read state (export_view).
+    """Portable projection of an index's read state (export/import_view).
 
     `entries` holds one row per request key — ``(model_name, chunk_hash,
     ((pod_identifier, device_tier), ...))`` — in recency order, oldest
@@ -113,8 +150,8 @@ class IndexView:
     engine_map: List[tuple] = field(default_factory=list)
 
     def entry_count(self) -> int:
-        """Total pod entries across all keys (the unit `remove_pod` counts
-        in)."""
+        """Total pod entries across all keys (the unit `remove_pod` and
+        `import_view` count in)."""
         return sum(len(row[2]) for row in self.entries)
 
 

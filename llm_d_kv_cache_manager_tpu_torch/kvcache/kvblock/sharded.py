@@ -424,6 +424,80 @@ class ShardedIndex(Index):
                         seg.engine_to_request.remove(engine_key)
         return removed
 
+    def shed(self, fraction: float) -> int:
+        """Resource-governor hook: drop the oldest `fraction` of request
+        keys in every segment — the LRU tail, exactly what capacity
+        eviction would reclaim next, so a shed is indistinguishable from
+        running at a smaller index. The segment LRU's on_evict hook
+        prunes each dropped key's read-view entry under the segment
+        lock; engine mappings pointing at a dropped key are swept after.
+        Returns pod entries removed."""
+        fraction = min(max(fraction, 0.0), 1.0)
+        if fraction <= 0.0:
+            return 0
+        removed = 0
+        emptied = set()
+        for seg in self._segments:
+            keys = seg.data.keys()
+            for request_key in keys[: int(len(keys) * fraction)]:
+                pod_cache = seg.data.peek(request_key)
+                if pod_cache is None:
+                    continue
+                with pod_cache.mu:
+                    removed += len(pod_cache.cache)
+                seg.data.remove(request_key)
+                emptied.add(request_key)
+        if emptied:
+            for seg in self._segments:
+                for engine_key, request_key in seg.engine_to_request.items():
+                    if request_key in emptied:
+                        seg.engine_to_request.remove(engine_key)
+        return removed
+
+    def remove_entries(
+        self, pod_identifier: str, request_keys, device_tiers=None
+    ) -> int:
+        """Targeted purge (Index.remove_entries contract). Each touched
+        key's read-view entry is REPUBLISHED under its pod cache's mutex
+        (same discipline as `add`/`evict`), so concurrent lock-free
+        lookups only ever see before/after states of a key — a purged
+        phantom stops scoring the moment this returns. Untouched keys are
+        accessed via `peek`, keeping their recency order."""
+        target = {pod_identifier}
+        removed = 0
+        emptied = set()
+        view = self._view
+        for request_key in request_keys:
+            seg = self._segments[self.shard_of(request_key)]
+            pod_cache = seg.data.peek(request_key)
+            if pod_cache is None:
+                continue
+            with pod_cache.mu:
+                victims = [
+                    e for e in pod_cache.cache.keys()
+                    if pod_matches(e.pod_identifier, target)
+                    and (device_tiers is None or e.device_tier in device_tiers)
+                ]
+                for entry in victims:
+                    pod_cache.cache.remove(entry)
+                removed += len(victims)
+                if not victims:
+                    continue
+                pod_cache.republish()
+                view[request_key] = pod_cache.entries
+                is_empty = len(pod_cache.cache) == 0
+            if is_empty:
+                # The segment LRU's on_evict hook prunes the view entry
+                # under the segment lock.
+                seg.data.remove(request_key)
+                emptied.add(request_key)
+        if emptied:
+            for seg in self._segments:
+                for engine_key, request_key in seg.engine_to_request.items():
+                    if request_key in emptied:
+                        seg.engine_to_request.remove(engine_key)
+        return removed
+
     def export_view(self) -> IndexView:
         """Snapshot segment by segment, each stripe oldest-first
         (Index.export_view contract). Keys re-stripe identically on
@@ -448,3 +522,31 @@ class ShardedIndex(Index):
                     request_key.model_name, request_key.chunk_hash,
                 ))
         return IndexView(entries=entries, engine_map=engine_map)
+
+    def import_view(self, view: IndexView) -> int:
+        """Rebuild segments + the lock-free read view (Index.import_view).
+
+        Entries publish under each pod cache's mutex exactly like `add`,
+        so a replica can import while its read path is already serving —
+        lookups see before/after states of a key, never a torn one."""
+        imported = 0
+        read_view = self._view
+        for model_name, chunk_hash, pods in view.entries:
+            request_key = Key(model_name, chunk_hash)
+            seg = self._segments[self.shard_of(request_key)]
+            pod_cache = seg.data.get(request_key)
+            if pod_cache is None:
+                pod_cache = _ShardPodCache(self._pod_cache_size)
+                seg.data.add(request_key, pod_cache)
+            with pod_cache.mu:
+                for pod, tier in pods:
+                    pod_cache.cache.add(PodEntry(pod, tier), None)
+                    imported += 1
+                pod_cache.republish()
+                read_view[request_key] = pod_cache.entries
+        for engine_model, engine_hash, req_model, req_hash in view.engine_map:
+            engine_key = Key(engine_model, engine_hash)
+            self._segments[self.shard_of(engine_key)].engine_to_request.add(
+                engine_key, Key(req_model, req_hash)
+            )
+        return imported

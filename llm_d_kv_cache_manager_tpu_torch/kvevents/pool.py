@@ -467,8 +467,12 @@ class EventPool:
             # same DP-rank-qualified identity the index entries use, so the
             # tracker's state keys always match score keys.
             self.health_tracker.observe_batch(pod, msg.topic, msg.seq, batch.ts)
+        self._digest_events(pod, msg.model_name, batch)
+
+    def _digest_events(self, pod_identifier: str, model_name: str, batch: EventBatch) -> None:
+        """Digest one decoded batch under this pool's tier default and hooks."""
         digest_events(
-            self.index, self.token_processor, pod, msg.model_name, batch,
+            self.index, self.token_processor, pod_identifier, model_name, batch,
             self.config.default_device_tier, self.popularity, self.load_tracker,
             self.divergence,
         )

@@ -113,6 +113,24 @@ class LRUTokenStore(PrefixStore):
                     state_ok = False  # unfingerprintable chunk breaks the chain
         return tuple(state)
 
+    def shed(self, fraction: float) -> int:
+        """Resource-governor hook: drop the `fraction` least-recently-used
+        token chunks. The store is a pure tokenization cache — a dropped
+        chunk means the next prompt over it re-tokenizes (and the chain
+        memo misses its boundary states), costing latency only. Returns
+        chunks dropped."""
+        fraction = min(max(fraction, 0.0), 1.0)
+        with self._mu:
+            n = int(len(self._cache) * fraction)
+            for key in self._cache.keys()[:n]:
+                self._cache.remove(key)
+            return n
+
+    def entries(self) -> int:
+        """Cached token chunks — the resource accountant's O(1) meter read."""
+        with self._mu:
+            return len(self._cache)
+
     def find_longest_contained_tokens(self, prompt: str) -> Tuple[List[int], float]:
         tokens, ratio, _ = self.find_longest_with_state(prompt)
         return tokens, ratio

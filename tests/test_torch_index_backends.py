@@ -9,8 +9,8 @@ core against the JAX package's, on the same inputs.
 - The native backend (the port's own build of native/kvscore.c): the
   scenarios of tests/test_native_core.py held against the JAX package's
   Python backends and, where the JAX package's build is importable, its
-  native module. The port has no fleet-health or anti-entropy trackers
-  yet, so its score plans run with the routing policy only.
+  native module. Its score plans here run with the routing policy only;
+  tests/test_torch_fleethealth.py runs them with both trackers.
 - The C hash core (native/fnvcbor.c): every fast path equals its
   pure-Python definition and the JAX package's hashes.
 - The event pool's native digest and the Indexer's native score plan

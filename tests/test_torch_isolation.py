@@ -475,3 +475,43 @@ def test_native_extension_name_tracks_its_sources(monkeypatch, tmp_path):
     header.write_text(header.read_text() + "\n/* edited */\n")
     after = {name: _build.library_path(name) for name in _build.EXTENSIONS}
     assert all(after[name] != before[name] for name in _build.EXTENSIONS)
+
+
+RESILIENCE_MODULES = [
+    "autopilot", "autopilot.knobs", "fleethealth", "fleethealth.tracker",
+    "fleethealth.faults", "antientropy", "antientropy.tracker", "antientropy.feedback",
+    "antientropy.auditor", "resourcegov", "resourcegov.accountant", "resourcegov.reaper",
+    "resourcegov.governor",
+]
+
+
+# Ids as paths: tests/conftest.py skips a test whose keywords hold a bare
+# "antientropy" when the JAX package's transfer library is not built.
+@pytest.mark.parametrize("module", RESILIENCE_MODULES, ids=lambda m: m.replace(".", "/") + ".py")
+def test_resilience_plane_modules_are_checked(module):
+    """The fleet's resilience plane (fleet health and fault injection,
+    anti-entropy, the resource governor and the autopilot's knobs) is among
+    the modules the import checks above load and parse."""
+    rel = module.replace(".", "/")
+    path = PORT / rel / "__init__.py" if (PORT / rel).is_dir() else PORT / (rel + ".py")
+    assert path in _port_files()
+
+
+def test_resilience_plane_imports_without_the_wire_libraries():
+    """With jax, transformers, zmq, msgpack, xxhash and tokenizers blocked,
+    each module of the resilience plane imports, and none loads a metrics or
+    tracing module (the port has none yet)."""
+    code = (
+        "import importlib, sys\n"
+        f"for lib in {WIRE_LIBRARIES + ('jax', 'prometheus_client')!r}:\n"
+        "    sys.modules[lib] = None\n"
+        f"for m in {RESILIENCE_MODULES!r}:\n"
+        f"    importlib.import_module({(PORT.name + '.')!r} + m)\n"
+        "bad = [m for m in sys.modules if '.metrics' in m or '.obs' in m]\n"
+        "print('BAD', bad)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0 and "BAD []" in proc.stdout, proc.stdout + proc.stderr
