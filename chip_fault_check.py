@@ -72,6 +72,15 @@ phantoms but never re-admits a resident block the index missed (it must
 fail the bar that every pod's indexed set equals its committed pages after
 an audit).
 
+Phase 16's bars are held to the real proactive planes and to three
+planted faults: second_best_route, a router that takes the second-best
+scored pod (it must fail 16a's bar that each precise request's cached
+tokens equal 16 x the top pod's match_blocks); SilentReplicator, whose
+tick submits nothing (it must fail 16b's bar that placement lands
+replicated blocks); and EtaBlindTable, a session table that never
+predicts a next-turn ETA (it must fail 16c's bar that anticipation leaves
+more of s0's prefix resident than reactive serving).
+
 Phase 8b's bit-identical check (P' restored from the host store on a tight
 bf16 pod against the same prompt on a pod that never evicts: suffix logits
 and 32 greedy tokens) is held to the real tree and to a planted codec fault,
@@ -98,6 +107,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 
@@ -114,6 +124,8 @@ from llm_d_kv_cache_manager_tpu_torch.kvevents import pool as pool_mod
 from llm_d_kv_cache_manager_tpu_torch.kvevents.events import BlockRemoved, EventBatch
 from llm_d_kv_cache_manager_tpu_torch.models import llama, mixtral
 from llm_d_kv_cache_manager_tpu_torch.ops import _build
+from llm_d_kv_cache_manager_tpu_torch.placement import HotPrefixReplicator
+from llm_d_kv_cache_manager_tpu_torch.prediction import SessionTable
 
 # Planted fault -> (kernel sources it is built into, file of csrc/ holding
 # the line, line, faulty line, the chip_smoke kernels it must fail, the dtype
@@ -498,6 +510,80 @@ def run_resilience_bar(label: str, params, cfg, **classes) -> dict:
                 phantom_routes=r["phantom_routes"])
 
 
+def second_best_route(scores: dict, rr: int) -> tuple:
+    """A planted routing fault: the pod ranked second by score (pods without
+    a score rank after every scored one, in pod order); the real rule where
+    no pod scores."""
+    if not scores:
+        return chip_smoke.trace_route(scores, rr)
+    pods = chip_smoke.FLEET_POD_IDS
+    ranked = sorted(pods, key=lambda p: (-scores.get(p, 0.0), pods.index(p)))
+    return ranked[1], rr
+
+
+class SilentReplicator(HotPrefixReplicator):
+    """A planted placement fault: the policy loop ticks but submits nothing."""
+
+    def tick(self, now=None):
+        self.stats["ticks"] += 1
+        return 0
+
+
+class EtaBlindTable(SessionTable):
+    """A planted prediction fault: sessions are tracked, but no next-turn ETA
+    is ever predicted, so no session is ever due."""
+
+    def _eta_locked(self, rec):
+        return math.inf
+
+
+def run_proactive_bars(params, cfg) -> dict:
+    """Phase 16's bars, each on the real plane and on its planted fault:
+    16a's prediction bar (a precise request's cached tokens = 16 x the top
+    pod's match_blocks) under the real router and `second_best_route`; 16b's
+    landed bar with the real HotPrefixReplicator and SilentReplicator; 16c's
+    residency bar with the real SessionTable and EtaBlindTable."""
+    out = {}
+    requests = chip_smoke.sharegpt_requests()
+    for label, route in (("sharegpt_real", chip_smoke.trace_route),
+                         ("second_best_router", second_best_route)):
+        arm = chip_smoke.trace_arm(params, cfg, requests, "precise", route=route)
+        missed = [f for f in arm["failures"] if "the index predicted" in f]
+        out[label] = dict(ok=not arm["failures"], match_failures=len(missed),
+                          hit_rate=arm["summary"]["hit_rate"])
+    requests = chip_smoke.placement_requests()
+    base = {name: chip_smoke.placement_arm(params, cfg, requests, chip_smoke.PLACEMENT_ARMS[name])
+            for name in ("off", "observe")}
+    for label, cls in (("placement_real", HotPrefixReplicator),
+                       ("silent_replicator", SilentReplicator)):
+        on = chip_smoke.placement_arm(params, cfg, requests, chip_smoke.PLACEMENT_ARMS["on"],
+                                      replicator_cls=cls)
+        fails = on["failures"] + chip_smoke.placement_bars({**base, "on": on})
+        out[label] = dict(ok=not fails, landed_failures=sum("placement on landed" in f
+                                                            for f in fails),
+                          replicated=on["replicated_blocks"])
+    requests = chip_smoke.prediction_requests()
+    tok = chip_smoke.TextTokenizer(cfg.vocab_size)
+    want = chip_smoke.never_evicting_tokens(params, cfg, [
+        tok.encode(r.prompt, "").tokens for r in requests
+        if r.session == chip_smoke.PREDICTION_SESSION], [1])[0]
+    base = {name: chip_smoke.prediction_arm(params, cfg, requests,
+                                            chip_smoke.PREDICTION_ARMS[name])
+            for name in ("off", "observe")}
+    for label, cls in (("prediction_real", SessionTable), ("eta_blind_table", EtaBlindTable)):
+        on = chip_smoke.prediction_arm(params, cfg, requests, chip_smoke.PREDICTION_ARMS["on"],
+                                       table_cls=cls)
+        fails = on["failures"] + chip_smoke.prediction_bars({**base, "on": on}, want)
+        out[label] = dict(ok=not fails, residency_failures=sum(f.startswith("on: resident")
+                                                               for f in fails),
+                          resident=on["audit"]["resident"],
+                          resident_off=base["off"]["audit"]["resident"])
+    torch.cuda.empty_cache()
+    for label, r in out.items():
+        chip_smoke.log(f"  [{label}] {'ok' if r['ok'] else 'FAIL'} {r}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_fault_check: no CUDA device", file=sys.stderr)
@@ -576,6 +662,9 @@ def main() -> int:
                       "pass_stale_tracker", params, cfg, tracker_cls=PassStaleTracker),
                   "no_readmit_auditor": run_resilience_bar(
                       "no_readmit_auditor", params, cfg, auditor_cls=NoReadmitAuditor)}
+    chip_smoke.log("== proactive faults: a router that takes the second-best pod, a replicator "
+                   "that submits nothing, a session table that never predicts an ETA")
+    proactive = run_proactive_bars(params, cfg)
 
     chip_smoke.log("== MoE fault: top-1 serving (the first routed expert only, at gate 1)")
     del params, params32, models
@@ -596,7 +685,9 @@ def main() -> int:
         logits_ok["real"].values()) and bars["real"]["ok"] and host_tier["real"]["all_checks"] \
         and serving_bars["lora_real"]["ok"] and serving_bars["spec_real"]["ok"] \
         and serving_bars["moe_real"]["ok"] and read_plane["native_real"]["ok"] \
-        and read_plane["prefetch_real"]["ok"] and resilience["real"]["ok"]
+        and read_plane["prefetch_real"]["ok"] and resilience["real"]["ok"] \
+        and all(proactive[label]["ok"]
+                for label in ("sharegpt_real", "placement_real", "prediction_real"))
     read_plane_caught = {label: not read_plane[label]["ok"]
                          for label in ("native_removal_blind", "prefetch_matched_prefix")}
     read_plane_caught["prefetch_matched_prefix"] &= \
@@ -604,6 +695,10 @@ def main() -> int:
     resilience_caught = {
         "pass_stale_tracker": resilience["pass_stale_tracker"]["stale_failures"] > 0,
         "no_readmit_auditor": resilience["no_readmit_auditor"]["repair_failures"] > 0}
+    proactive_caught = {
+        "second_best_router": proactive["second_best_router"]["match_failures"] > 0,
+        "silent_replicator": proactive["silent_replicator"]["landed_failures"] > 0,
+        "eta_blind_table": proactive["eta_blind_table"]["residency_failures"] > 0}
     serving_caught = {label: not serving_bars[label]["ok"]
                       for label in ("lora_adapter_dropped_in_decode", "spec_over_accept",
                                     "moe_top1")}
@@ -634,6 +729,7 @@ def main() -> int:
         "host_tier_fault_caught": host_tier_caught, "host_tier_readings": host_tier,
         "read_plane_faults_caught": read_plane_caught, "read_plane_readings": read_plane,
         "resilience_faults_caught": resilience_caught, "resilience_readings": resilience,
+        "proactive_faults_caught": proactive_caught, "proactive_readings": proactive,
         "scheduler_bar_readings": {label: dict(bar["worst"], delta=bar["delta"])
                                    for label, bar in bars.items()},
         "logits_ok": logits_ok, "bf16_max_row_rel_err": worst,
@@ -642,7 +738,7 @@ def main() -> int:
     return 0 if (real_ok and all(caught.values()) and all(logits_caught.values())
                  and all(bar_caught.values()) and host_tier_caught
                  and all(serving_caught.values()) and all(read_plane_caught.values())
-                 and all(resilience_caught.values())) else 1
+                 and all(resilience_caught.values()) and all(proactive_caught.values())) else 1
 
 
 if __name__ == "__main__":

@@ -10,6 +10,8 @@
                                                 # read plane
     python3 chip_smoke.py --phases 15a,15b  # the fleet's resilience plane
                                             # (15b runs 12a first)
+    python3 chip_smoke.py --phases 16a,16b,16c  # the workload engine and the
+                                                # proactive planes
 
 Phases, in order (any failure raises and the script exits non-zero):
   1. device lines: torch's device name and nvidia-smi's name + power limit;
@@ -141,7 +143,7 @@ Phases, in order (any failure raises and the script exits non-zero):
   12b. four bf16 flagship pods (640 pages each, one set of weights) whose
      event sinks pack their batches into one EventPool, routed by the full
      Indexer (a word-level Tokenizer through the `tokenizer=` seam, the LRU
-     prefix store, the chain memo): 6 waves of 8 requests (8 system prompts
+     prefix store, the chain memo): 4 waves of 8 requests (8 system prompts
      of 1,024 tokens, each request one of them and a 256-token turn of its
      own, 16 greedy tokens) through each pod's Scheduler, once routed to the
      top get_pod_scores pod (ties round robin) and once round robin on fresh
@@ -237,6 +239,43 @@ Phases, in order (any failure raises and the script exits non-zero):
      only at critical, what the index holds is a subset of the replay, and
      score_hashes on 12a's 1,024 chains equals the plain longest prefix over
      the index as it stands;
+  16a. (run right after 15a) the ShareGPT replay: the port's workload engine
+     generates benchmarking/fleet_device_bench.py's SHAREGPT_FULL trace
+     (24 sessions of at most 8 turns, four system-prefix groups, 76
+     requests) and its JSONL's sha256 must be the reference's; four bf16
+     flagship pods with the bench's v2 capacity (1,536 pages, 704 a
+     sequence; 16 new tokens at decode_steps 8, prefill budget 4,096)
+     behind one EventPool and Indexer (a word-level text tokenizer: the
+     card has no `tokenizers`) serve it open-loop on a virtual per-pod
+     clock (TTFT = queue wait + measured time to first token), routed
+     precisely (the top score, ties to the lowest pod, no signal round
+     robin) and round robin. Bars: each precise request's cached tokens =
+     16 x the top pod's match_blocks; after the replay every pod's indexed
+     blocks = its committed pages; 16 seeded precise requests' greedy
+     tokens = a never-evicting pod's. Hit rate, TTFT p50/p90/mean, queue
+     wait and service p50 per arm are logged beside BASELINE.json's
+     targets;
+  16b. hot-prefix placement: tests/test_placement.py's multi-tenant trace
+     (3 tenants, Zipf 2, 16 sessions of at most 2 turns) over four pods
+     with host tiers (256 pages, 512 host blocks, the cost gate off, eager
+     staging), arms off, observe-only (an unreachable threshold) and on (2
+     replicas, threshold 3, cooldown 2 s): the popularity tracker on the
+     Indexer, the HotPrefixReplicator ticked at every arrival on a fake
+     clock, its jobs through a RoutePrefetcher into prefetch_hashes and
+     warm_chain. Bars: observe-only = off (routes, cached and greedy
+     tokens, event streams); on, replicated blocks and jobs > 0, no
+     unhealthy target, no drop; every pod's gpu entries = its pages and cpu
+     entries = its host store after every request;
+  16c. session prediction: tests/test_prediction.py's churn scenario (s0
+     with a 420-word prefix at 0 s, 24 junk sessions of 500 words from 1
+     s, s0's second turn at 12 s) on pods of 192 pages and 2,048 host
+     blocks, arms off, observe-only and on (the SessionTable on the
+     Indexer, the PrefetchScheduler ticked at every arrival, its jobs into
+     the router's pick's prefetch_hashes and warm_chain). Bars:
+     observe-only = off; off, s0's first-turn blocks resident before its
+     second turn are fewer than its blocks; on, more are resident and
+     blocks were pre-landed; the second turn's greedy tokens = a
+     never-evicting pod's in every arm; its TTFT is logged;
   then a JSON line of details, one JSON line describing every kernel, and
   last: {"ok": true, "device": {...}}.
 """
@@ -244,8 +283,11 @@ Phases, in order (any failure raises and the script exits non-zero):
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import io
 import itertools
 import json
+import random
 import re
 import statistics
 import subprocess
@@ -333,6 +375,18 @@ from llm_d_kv_cache_manager_tpu_torch.ops.sampling import (
     prng_key,
     sample_tokens,
 )
+from llm_d_kv_cache_manager_tpu_torch.placement import (
+    ChainPopularityTracker,
+    HotPrefixReplicator,
+    PopularityConfig,
+    ReplicationConfig,
+)
+from llm_d_kv_cache_manager_tpu_torch.prediction import (
+    PredictionConfig,
+    PrefetchScheduler,
+    SchedulerConfig,
+    SessionTable,
+)
 from llm_d_kv_cache_manager_tpu_torch.preprocessing.chat_completions import (
     ChatTemplatingProcessor,
     RenderRequest,
@@ -361,6 +415,15 @@ from llm_d_kv_cache_manager_tpu_torch.tokenization.tokenizer import (
     TokenizationResult,
     Tokenizer,
 )
+from llm_d_kv_cache_manager_tpu_torch.workloads import (
+    MaterializedRequest,
+    MultiTenantConfig,
+    ShareGPTConfig,
+    generate_multitenant,
+    write_trace,
+)
+from llm_d_kv_cache_manager_tpu_torch.workloads import generate as generate_sharegpt
+from llm_d_kv_cache_manager_tpu_torch.workloads.synthetic import text as synthetic_text
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_BYTES_PER_S = 3.35e12
@@ -3448,8 +3511,9 @@ def control_plane_run(seed: int, n_pods: int) -> dict:
 FLEET_SYSTEMS = 8  # system prompts of 1,024 tokens
 # Waves of 8 requests, each wave one request per system prompt: 8 until
 # phase 14 joined the run, cut to 6 to keep the whole run inside the time
-# it took before.
-FLEET_WAVES = 6
+# it took before, and to 4 when phase 16 joined (the fewest at which the
+# round-robin pods still reclaim a page).
+FLEET_WAVES = 4
 FLEET_TURN = 256
 FLEET_NEW = 16
 FLEET_POD_PAGES = 640
@@ -3596,7 +3660,8 @@ def phase_fleet(params, cfg, seed: int) -> dict:
         f"behind the port's Indexer and EventPool; {FLEET_WAVES} waves of {FLEET_SYSTEMS} "
         f"requests (a 1,024-token system prompt of 8 + a {FLEET_TURN}-token turn, "
         f"{FLEET_NEW} greedy tokens), each pod's share of a wave batched (max_batch 8), "
-        f"then again with each request alone for bar 3")
+        f"then again with each request alone for bar 3 (cut from 6 waves to {FLEET_WAVES} "
+        f"to keep the whole run's time with phase 16)")
     waves = multitenant_traffic(seed, cfg.vocab_size)
     card = card_line()
     # The reference: every request alone on one pod that never evicts.
@@ -4963,13 +5028,712 @@ def phase_governor(seed: int, control: dict) -> dict:
                 rejoin_s=rejoin_s, shed_s=shed_s, score_s=score_s, seconds=seconds)
 
 
+# -- phase 16: the workload engine and the proactive planes --------------------
+
+PROACTIVE_MODEL = "llama-flagship-1.14b"
+# benchmarking/fleet_device_bench.py's SHAREGPT_FULL over its four pods (one
+# prefix group a pod) at its default seed, and the sha256 of that trace's JSONL
+# as the JAX package writes it (tests/test_torch_workloads.py holds the two
+# equal, so the card serves the reference's exact prompt stream).
+SHAREGPT_FULL = dict(seed=7, prefix_groups=4, n_sessions=24, max_turns=8, length_scale=1.0,
+                     session_rate_per_s=0.5)
+SHAREGPT_SHA256 = "140bf40a7c5ca9d936b49931c8ce794bfcc803970d761f62dba97b5a5c138273"
+# fleet_device_bench.py's "v2" pods and Scheduler: pages a pod, pages a
+# sequence, new tokens, decode steps, prefill budget and batch.
+TRACE_POD = dict(n_pages=1536, max_pages_per_seq=704)
+TRACE_SERVE = dict(max_new=16, decode_steps=8, budget=4096, max_batch=4)
+TRACE_ALONE = 16  # precise requests held to a pod that never evicts
+TRACE_ALONE_SEED = 16
+# tests/test_placement.py TestPlacementEndToEnd: its trace, pods and arms, and
+# bench.py's placement constants (the tracker's half-life, the queue bound).
+PLACEMENT_TRACE = dict(n_tenants=3, n_sessions=16, seed=5, zipf_s=2.0, session_rate_per_s=6.0,
+                       max_turns=2, prefix_words=120)
+PLACEMENT_POD = dict(n_pages=256, host_capacity_blocks=512, max_pages_per_seq=240)
+PLACEMENT_ARMS = {"off": None, "observe": dict(hotness_threshold=1e9),
+                  "on": dict(k_replicas=2, hotness_threshold=3.0, cooldown_s=2.0)}
+PLACEMENT_HALF_LIFE_S = 60.0
+PROACTIVE_QUEUE_BOUND = 64
+# tests/test_prediction.py TestPredictionEndToEnd: its pods and arms.
+PREDICTION_POD = dict(n_pages=192, host_capacity_blocks=2048, max_pages_per_seq=64)
+PREDICTION_ARMS = {"off": None, "observe": dict(max_jobs_per_tick=0, tail_trim_blocks=0),
+                   "on": dict(max_jobs_per_tick=4, session_cooldown_s=1.0, start_frac=0.8,
+                              tail_trim_blocks=8, default_eta_s=10.0)}
+PREDICTION_SESSION = "s0"
+# The rehearsal's model: the flagship's vocabulary at a CPU's width (tier-1
+# runs the three phases' arms on it: tests/test_torch_{workloads,placement,
+# prediction}.py).
+REHEARSAL_MODEL = dict(d_model=64, n_layers=1, n_q_heads=2, n_kv_heads=1, head_dim=32, d_ff=128,
+                       vocab_size=FLAGSHIP["vocab_size"])
+
+
+class TextTokenizer(Tokenizer):
+    """Word-level tokenizer of the workload engine's text prompts: every
+    space-separated word, the empty one included, is one token, its FNV-1a
+    hash modulo the vocabulary. (The card has no `tokenizers` library, so
+    the reference bench's BPE fixture cannot load there.)"""
+
+    def __init__(self, vocab: int):
+        self.vocab = vocab
+        self._ids = {}
+
+    def encode(self, prompt: str, model_name: str) -> TokenizationResult:
+        words = prompt.split(" ")
+        ids = self._ids
+        tokens = []
+        for w in words:
+            t = ids.get(w)
+            if t is None:
+                t = ids[w] = hashing.fnv64a(w.encode("utf-8")) % self.vocab
+            tokens.append(t)
+        ends = list(itertools.accumulate(len(w) + 1 for w in words))
+        return TokenizationResult(tokens=tokens, offsets=[(e - len(w) - 1, e - 1)
+                                                          for w, e in zip(words, ends)])
+
+
+def sharegpt_trace():
+    return generate_sharegpt(ShareGPTConfig(**SHAREGPT_FULL))
+
+
+def sharegpt_requests() -> list:
+    return sharegpt_trace().requests()
+
+
+def trace_sha256(trace) -> str:
+    buf = io.StringIO()
+    write_trace(trace, buf)
+    return hashlib.sha256(buf.getvalue().encode("utf-8")).hexdigest()
+
+
+def placement_requests() -> list:
+    return generate_multitenant(MultiTenantConfig(**PLACEMENT_TRACE)).requests()
+
+
+def prediction_requests() -> list:
+    """tests/test_prediction.py's `_mini_trace`: session s0 (a 420-word
+    prefix) at t=0, 24 single-turn junk sessions of 500 words churning every
+    pod's pages during its think window, s0's next turn at t=12 s."""
+    rng = random.Random(7)
+    base = "session zero shared prefix " + synthetic_text(rng, 420)
+    reqs = [MaterializedRequest(arrival_s=0.0, session="s0", turn=0, prompt=base,
+                                output_len=20)]
+    for j in range(24):
+        reqs.append(MaterializedRequest(arrival_s=1.0 + 0.25 * j, session=f"junk-{j}", turn=0,
+                                        prompt=f"[junk {j}] " + synthetic_text(rng, 500),
+                                        output_len=10))
+    grown = base + " [user] " + synthetic_text(rng, 60)
+    reqs.append(MaterializedRequest(arrival_s=12.0, session="s0", turn=1, prompt=grown,
+                                    output_len=20))
+    return reqs
+
+
+def pctl(xs, q: float) -> float:
+    """fleet_device_bench.py's percentile: the sorted sample at int(n q)."""
+    s = sorted(xs)
+    return s[min(int(len(s) * q), len(s) - 1)]
+
+
+def proactive_fleet(params, cfg, tok, n_pages: int, max_pages_per_seq: int,
+                    host_capacity_blocks=None, popularity=None, prediction=None,
+                    health=None) -> dict:
+    """Four flagship pods sharing `params` behind an Indexer (whole prompts
+    through `tok`; the prefix store's shortcut off, so every route scores the
+    served chain) and an EventPool fed msgpack batches by the pods' sinks;
+    `popularity` rides both (routes and stores). With
+    `host_capacity_blocks`: host tiers with the cost gate off, eager staging
+    and peer resolvers over the index. Each pod's event batches are kept in
+    `events`."""
+    indexer = Indexer(
+        IndexerConfig(token_processor_config=TokenProcessorConfig(block_size=PAGE)),
+        tokenization_pool=TokenizationPool(
+            TokenizersPoolConfig(workers=2, min_prefix_overlap_ratio=float("inf")),
+            tokenizer=tok),
+        popularity=popularity, prediction=prediction)
+    index = indexer.kv_block_index
+    pool = EventPool(EventPoolConfig(concurrency=4), index, indexer.token_processor,
+                     health_tracker=health, popularity=popularity)
+    pool.start(with_subscriber=False)
+    indexer.run()
+    host = host_capacity_blocks is not None
+    pods, events = {}, {pid: [] for pid in FLEET_POD_IDS}
+    for pid in FLEET_POD_IDS:
+        seq = iter(range(1 << 62))
+
+        def sink(batch, pid=pid, seq=seq):
+            events[pid].append(batch)
+            pool.add_task(Message(topic=f"kv@{pid}@{PROACTIVE_MODEL}",
+                                  payload=batch.to_msgpack(), seq=next(seq), pod_identifier=pid,
+                                  model_name=PROACTIVE_MODEL))
+
+        tier = dict(enable_host_tier=True, host_capacity_blocks=host_capacity_blocks,
+                    transfer_cost_model=None, eager_stage=True) if host else {}
+        pods[pid] = EnginePod(
+            EnginePodConfig(pod_id=pid, model_name=PROACTIVE_MODEL, n_pages=n_pages,
+                            page_size=PAGE, device_tier="gpu",
+                            max_pages_per_seq=max_pages_per_seq, model_config=cfg,
+                            device=params["embed"].device, **tier),
+            event_sink=sink, params=params)
+    if host:
+        addrs = {pid: pod.transfer_address for pid, pod in pods.items()}
+        for pid, pod in pods.items():
+            pod.set_peer_resolver(IndexBackedPeerResolver(index, PROACTIVE_MODEL, addrs, pid))
+    return dict(indexer=indexer, index=index, pool=pool, pods=pods, events=events, host=host)
+
+
+def settle(fleet) -> None:
+    """Every staged page admitted to its host store and every event batch
+    digested: the index as the pods stand."""
+    if fleet["host"]:
+        for pod in fleet["pods"].values():
+            pod.tier_store.drain_async_stages()
+    fleet["pool"].drain()
+
+
+def close_fleet(fleet) -> None:
+    fleet["indexer"].shutdown()
+    fleet["pool"].shutdown()
+    for pod in fleet["pods"].values():
+        pod.close()
+
+
+def tier_failures(fleet) -> list:
+    """14b's residency check: each pod's gpu entries are its committed pages
+    and (with a host tier) its cpu entries are its host store."""
+    pairs = index_pairs(fleet["index"])
+    out = []
+    for pid, pod in fleet["pods"].items():
+        committed = set(pod.block_manager.cached_hashes())
+        on_gpu = {h for h, p, tier in pairs if p == pid and tier == "gpu"}
+        if committed != on_gpu:
+            out.append(f"{pid}: index {len(on_gpu)} gpu blocks, pod {len(committed)} "
+                       f"({len(on_gpu - committed)} extra)")
+        if fleet["host"]:
+            on_cpu = {h for h, p, tier in pairs if p == pid and tier == "cpu"}
+            if pod.tier_store.staged_subset(on_cpu) != on_cpu or \
+                    pod.tier_store.staged_count != len(on_cpu):
+                out.append(f"{pid}: index {len(on_cpu)} cpu blocks, host store "
+                           f"{pod.tier_store.staged_count}")
+    return out
+
+
+def pool_failures(fleet) -> list:
+    counters = dict(dropped=fleet["pool"].dropped_events,
+                    removals_lost=fleet["pool"].removals_lost)
+    return [f"pool counters {counters}"] if any(counters.values()) else []
+
+
+def serve_alone(pod, tokens, max_new: int = TRACE_SERVE["max_new"]) -> tuple:
+    """One request alone through the pod's Scheduler at TRACE_SERVE's
+    settings: (the finished request, seconds to its first token, seconds in
+    all)."""
+    r = run_scheduler(pod, [dict(prompt_tokens=tokens, max_new_tokens=max_new, sampling=None)],
+                      decode_steps=TRACE_SERVE["decode_steps"],
+                      max_batch=TRACE_SERVE["max_batch"], budget=TRACE_SERVE["budget"])
+    return r["requests"][0], r["first_token_s"][0], r["wall_s"]
+
+
+def trace_route(scores: dict, rr: int) -> tuple:
+    """fleet_device_bench.py's precise router: the top score, ties to the
+    lowest pod number; no cache signal round robin. (pod, rr)."""
+    if not scores:
+        return FLEET_POD_IDS[rr % len(FLEET_POD_IDS)], rr + 1
+    best = max(scores.values())
+    return min((p for p, s in scores.items() if s == best), key=FLEET_POD_IDS.index), rr
+
+
+def spread_route(scores: dict, served: dict) -> str:
+    """Phases 16b and 16c's router: the top score, ties and no cache signal
+    to the pod that has served the fewest requests, then pod order. It
+    reads no clock, so every arm routes the same given the same scores."""
+    cand = scores or {p: 0.0 for p in FLEET_POD_IDS}
+    best = max(cand.values())
+    return min((p for p, s in cand.items() if s == best),
+               key=lambda p: (served[p], FLEET_POD_IDS.index(p)))
+
+
+def never_evicting_tokens(params, cfg, prompts: list, checked) -> list:
+    """Greedy tokens of the `checked` prompts (indices, in order) when every
+    prompt is served alone in order on one pod large enough to never evict.
+    Each prompt's prefill then starts where the fleet's did, over KV computed
+    by the same earlier prefills (a fleet that routes to the longest prefix
+    and never evicts computes each block once), so the tokens must be the
+    fleet's bit for bit; the unchecked prompts stop after their first token
+    (their prefill is all a later prompt reuses)."""
+    checked = sorted(checked)
+    pages = sum(-(-(len(t) + TRACE_SERVE["max_new"]) // PAGE) for t in prompts) + 8
+    pod = EnginePod(EnginePodConfig(
+        pod_id="pod-ref", model_name="ref", n_pages=pages, page_size=PAGE, device_tier="gpu",
+        max_pages_per_seq=TRACE_POD["max_pages_per_seq"], model_config=cfg,
+        device=params["embed"].device), params=params)
+    out = {k: serve_alone(pod, t, TRACE_SERVE["max_new"] if k in checked else 1)[0].generated
+           for k, t in enumerate(prompts)}
+    del pod
+    return [out[k] for k in checked]
+
+
+def served_row(r, pid: str, done, first_s: float, total_s: float, free_at: dict) -> dict:
+    """The open-loop replay's clock: a request waits until its pod is free
+    (each pod serves in arrival order); TTFT = the wait + the measured time
+    to its first token."""
+    wait = max(0.0, free_at[pid] - r.arrival_s)
+    free_at[pid] = max(r.arrival_s, free_at[pid]) + total_s
+    return dict(session=r.session, turn=r.turn, pod=pid, prompt=len(done.prompt_tokens),
+                cached=done.num_cached_tokens, wait_s=wait, first_s=first_s,
+                service_s=total_s, ttft_s=wait + first_s, tokens=list(done.generated))
+
+
+def replay_summary(rows: list) -> dict:
+    ttft = [r["ttft_s"] for r in rows]
+    return dict(requests=len(rows),
+                hit_rate=sum(r["cached"] for r in rows) / sum(r["prompt"] for r in rows),
+                ttft_p50_s=pctl(ttft, 0.5), ttft_p90_s=pctl(ttft, 0.9),
+                ttft_mean_s=statistics.fmean(ttft),
+                queue_wait_p50_s=pctl([r["wait_s"] for r in rows], 0.5),
+                service_p50_s=pctl([r["service_s"] for r in rows], 0.5),
+                compute_ttft_p50_s=pctl([r["first_s"] for r in rows], 0.5))
+
+
+def trace_arm(params, cfg, requests, policy: str, route=trace_route) -> dict:
+    """One arm of phase 16a on four fresh pods: the trace replayed open-loop
+    in arrival order, each request routed (`precise`: by the index through
+    `route`; else round robin) and served alone, the pool drained after
+    each. Bars: a precise request's cached tokens = 16 x the index's
+    match_blocks for its top-scored pod (the router's prediction comes
+    true), and after the replay every pod's indexed blocks = its committed
+    pages."""
+    t_arm = time.perf_counter()
+    tok = TextTokenizer(cfg.vocab_size)
+    fleet = proactive_fleet(params, cfg, tok, **TRACE_POD)
+    indexer, pods = fleet["indexer"], fleet["pods"]
+    tp = indexer.token_processor
+    free_at = {pid: 0.0 for pid in pods}
+    rr, rows, failures, read_ms = 0, [], [], []
+    try:
+        for k, r in enumerate(requests):
+            tokens = tok.encode(r.prompt, PROACTIVE_MODEL).tokens
+            predicted = None
+            if policy == "precise":
+                t0 = time.perf_counter()
+                ps = indexer.get_pod_scores_ex(r.prompt, PROACTIVE_MODEL, list(pods))
+                read_ms.append((time.perf_counter() - t0) * 1e3)
+                chain = [key.chunk_hash for key in
+                         tp.tokens_to_kv_block_keys(None, tokens, PROACTIVE_MODEL)]
+                if ps.block_hashes != chain:
+                    failures.append(f"request {k}: the indexer scored {len(ps.block_hashes)} "
+                                    f"blocks, the prompt has {len(chain)}")
+                # The index's prediction: the top-scored pod holds this
+                # many of the prompt's blocks, and the request lands there.
+                best = trace_route(ps.scores, rr)[0]
+                predicted = PAGE * ps.match_blocks.get(best, 0)
+                pid, rr = route(ps.scores, rr)
+            else:
+                pid, rr = FLEET_POD_IDS[rr % len(FLEET_POD_IDS)], rr + 1
+            done, first_s, total_s = serve_alone(pods[pid], tokens)
+            rows.append(served_row(r, pid, done, first_s, total_s, free_at))
+            rows[-1]["predicted"] = predicted
+            if predicted is not None and done.num_cached_tokens != predicted:
+                failures.append(f"request {k} on {pid}: cached {done.num_cached_tokens}, the "
+                                f"index predicted {predicted} (on {best})")
+            settle(fleet)
+        failures += tier_failures(fleet) + pool_failures(fleet)
+        removed = sum(len(e.block_hashes) for batches in fleet["events"].values()
+                      for b in batches for e in b.events if isinstance(e, BlockRemoved))
+    finally:
+        close_fleet(fleet)
+    return dict(summary=replay_summary(rows), rows=rows, failures=failures,
+                removed_blocks=removed, routes={p: sum(r["pod"] == p for r in rows)
+                                                for p in FLEET_POD_IDS},
+                read_ms_p50=pctl(read_ms, 0.5) if read_ms else None,
+                seconds=time.perf_counter() - t_arm)
+
+
+def alone_subset(n_requests: int) -> list:
+    return sorted(random.Random(TRACE_ALONE_SEED).sample(range(n_requests), TRACE_ALONE))
+
+
+def phase_sharegpt(params, cfg) -> dict:
+    log(f"== phase 16a: the ShareGPT replay (fleet_device_bench.py's SHAREGPT_FULL {SHAREGPT_FULL})"
+        f" over four bf16 flagship pods ({TRACE_POD['n_pages']} pages of {PAGE}, "
+        f"{TRACE_POD['max_pages_per_seq']} a sequence; {TRACE_SERVE}), open-loop on a virtual "
+        f"per-pod clock, routed precisely by the index and round robin")
+    t_phase = time.perf_counter()
+    trace = sharegpt_trace()
+    digest = trace_sha256(trace)
+    requests = trace.requests()
+    failures = [] if digest == SHAREGPT_SHA256 else [
+        f"the trace's sha256 {digest} is not the reference's {SHAREGPT_SHA256}"]
+    card = card_line()
+    tok = TextTokenizer(cfg.vocab_size)
+    subset = alone_subset(len(requests))
+    want = never_evicting_tokens(params, cfg, [tok.encode(r.prompt, "").tokens
+                                               for r in requests], subset)
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    arms = {policy: trace_arm(params, cfg, requests, policy)
+            for policy in ("precise", "round_robin")}
+    launches = launch_counts()
+    off = [k for k, w in zip(subset, want) if arms["precise"]["rows"][k]["tokens"] != w]
+    if off:
+        failures.append(f"{len(off)} of {TRACE_ALONE} precise requests' greedy tokens differ "
+                        f"from the never-evicting pod: {off}")
+    for policy, arm in arms.items():
+        failures += [f"{policy}: {f}" for f in arm["failures"]]
+        s = arm["summary"]
+        log(f"  {policy} ({card}): {s['requests']} requests, hit rate {s['hit_rate']:.4f}, "
+            f"TTFT p50 {s['ttft_p50_s'] * 1e3:.2f} ms p90 {s['ttft_p90_s'] * 1e3:.2f} ms mean "
+            f"{s['ttft_mean_s'] * 1e3:.2f} ms, queue wait p50 {s['queue_wait_p50_s'] * 1e3:.2f} "
+            f"ms, service p50 {s['service_p50_s'] * 1e3:.2f} ms, compute TTFT p50 "
+            f"{s['compute_ttft_p50_s'] * 1e3:.2f} ms; routes {arm['routes']}; "
+            f"{arm['removed_blocks']} blocks removed; read path p50 {arm['read_ms_p50']} ms; "
+            f"{arm['seconds']:.1f} s; {len(arm['failures'])} failures")
+    p, rr = arms["precise"]["summary"], arms["round_robin"]["summary"]
+    ratio = rr["ttft_p50_s"] / p["ttft_p50_s"]
+    # The same request under both policies: where its compute TTFT moved.
+    pairs = list(zip(arms["precise"]["rows"], arms["round_robin"]["rows"]))
+    for name, keep in (("both miss", lambda a, b: not a["cached"] and not b["cached"]),
+                       ("precise hits more", lambda a, b: a["cached"] > b["cached"]),
+                       ("equal hits", lambda a, b: a["cached"] == b["cached"] > 0)):
+        d = [(a["first_s"] - b["first_s"]) * 1e3 for a, b in pairs if keep(a, b)]
+        if d:
+            log(f"    paired compute TTFT, precise - round robin, {name} ({len(d)} requests): "
+                f"median {statistics.median(d):.2f} ms")
+    log(f"  precise / round robin: hit rate {p['hit_rate']:.4f} vs {rr['hit_rate']:.4f} "
+        f"(BASELINE.json target >= 0.8), TTFT p50 {ratio:.3f}x lower (target >= 2x); "
+        f"{TRACE_ALONE - len(off)} of {TRACE_ALONE} alone checks equal; launches {launches}")
+    for name in ("paged_decode", "flash_prefill"):
+        if launches[name] <= 0:
+            failures.append(f"{name} was never launched on the ShareGPT path")
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 16a ran {seconds:.1f} s")
+    if failures:
+        raise AssertionError(f"phase 16a: {failures[:6]}")
+    for arm in arms.values():
+        for row in arm["rows"]:
+            row.pop("tokens")
+    return dict(sha256=digest, arms=arms, ttft_p50_ratio=ratio, alone=subset, card=card,
+                launches=launches, seconds=seconds)
+
+
+def proactive_replay(fleet, requests, tok, served: dict, before=None, hook=None) -> tuple:
+    """Phases 16b and 16c's replay on `fleet`: per request, `before(now)`
+    (the proactive plane's tick), route by `spread_route` over the index's
+    scores (`served` counts each pod's requests), `hook(request, pod,
+    tokens)` before admission, serve alone, settle, and hold every pod's
+    tiers to the index. (rows, failures)."""
+    indexer, pods = fleet["indexer"], fleet["pods"]
+    free_at = {pid: 0.0 for pid in pods}
+    rows, failures = [], []
+    for k, r in enumerate(requests):
+        fleet["clock"].t = r.arrival_s
+        if before is not None:
+            for pid, seconds in before(r.arrival_s).items():  # background work on pod clocks
+                free_at[pid] = max(free_at[pid], r.arrival_s) + seconds
+        tokens = tok.encode(r.prompt, PROACTIVE_MODEL).tokens
+        ps = indexer.get_pod_scores_ex(r.prompt, PROACTIVE_MODEL, list(pods))
+        pid = spread_route(ps.scores, served)
+        served[pid] += 1
+        if hook is not None:
+            hook(r, pods[pid], tokens)
+        done, first_s, total_s = serve_alone(pods[pid], tokens)
+        rows.append(served_row(r, pid, done, first_s, total_s, free_at))
+        settle(fleet)
+        failures += [f"request {k}: {f}" for f in tier_failures(fleet)]
+    return rows, failures
+
+
+def arm_streams(fleet, rows) -> dict:
+    """What an observe-only arm must leave exactly as the plane-off arm:
+    routes, cached tokens, greedy tokens and every pod's event stream."""
+    return dict(routes=[r["pod"] for r in rows], cached=[r["cached"] for r in rows],
+                tokens=[r["tokens"] for r in rows],
+                events={pid: event_rows(b) for pid, b in fleet["events"].items()})
+
+
+def timed_jobs(prefetcher, fleet, seconds: dict) -> dict:
+    """Drain a prefetcher's queued jobs and settle the fleet; returns the
+    seconds the jobs took on each pod (`seconds`, filled by the jobs)."""
+    prefetcher.drain(timeout_s=30.0)
+    settle(fleet)
+    out = dict(seconds)
+    seconds.clear()
+    return out
+
+
+def placement_arm(params, cfg, requests, placement, replicator_cls=HotPrefixReplicator) -> dict:
+    """One arm of phase 16b: the multi-tenant trace over four fresh pods
+    with host tiers; with `placement`, the popularity tracker on the
+    Indexer's read path and a HotPrefixReplicator ticked at every arrival
+    on a fake clock, its jobs through a RoutePrefetcher (source
+    "replication") into the target pod's prefetch_hashes and warm_chain."""
+    t_arm = time.perf_counter()
+    clock = FakeClock()
+    tok = TextTokenizer(cfg.vocab_size)
+    health = FleetHealthTracker(FleetHealthConfig(), clock=clock)
+    rep_cfg = ReplicationConfig(**placement) if placement is not None else None
+    popularity = None if rep_cfg is None else ChainPopularityTracker(
+        PopularityConfig(half_life_s=PLACEMENT_HALF_LIFE_S,
+                         max_prefix_blocks=rep_cfg.max_prefix_blocks), clock=clock)
+    fleet = proactive_fleet(params, cfg, tok, popularity=popularity, health=health,
+                            **PLACEMENT_POD)
+    fleet["clock"] = clock
+    pods = fleet["pods"]
+    landed, job_s, errors = {pid: 0 for pid in pods}, {}, []
+
+    def replicate(pid, hashes):
+        try:
+            t0 = time.perf_counter()
+            pod = pods[pid]
+            pod.prefetch_hashes(list(hashes))
+            chain = popularity.chain(hashes[0])
+            if chain is None or not chain.prefix_tokens:
+                return 0
+            n = pod.warm_chain(chain.prefix_tokens)
+            sync()
+            landed[pid] += n
+            job_s[pid] = job_s.get(pid, 0.0) + time.perf_counter() - t0
+            return n
+        except Exception as e:  # the prefetcher swallows a job's error
+            errors.append(f"replication to {pid}: {e!r}")
+            raise
+
+    prefetcher = RoutePrefetcher(replicate, queue_bound=PROACTIVE_QUEUE_BOUND)
+    replicator = None if rep_cfg is None else replicator_cls(
+        popularity, submit_fn=lambda pod, hashes, chain: prefetcher.submit(
+            pod, hashes, source="replication"),
+        pods_fn=lambda: list(FLEET_POD_IDS), config=rep_cfg, fleet_health=health,
+        index=fleet["index"], clock=clock)
+
+    def before(now):
+        if replicator is not None and replicator.tick(now):
+            return timed_jobs(prefetcher, fleet, job_s)
+        return {}
+
+    try:
+        rows, failures = proactive_replay(fleet, requests, tok, {pid: 0 for pid in pods},
+                                          before=before)
+        streams = arm_streams(fleet, rows)
+        failures += errors + pool_failures(fleet)
+        out = dict(rows=rows, streams=streams, failures=failures,
+                   replicated_blocks=sum(landed.values()), landed=landed,
+                   prefetcher=prefetcher.status(),
+                   replicator=dict(replicator.stats) if replicator else None,
+                   tracker=popularity.stats() if popularity else None,
+                   tier_stats={pid: dict(pod.tier_store.stats) for pid, pod in pods.items()})
+    finally:
+        prefetcher.close()
+        close_fleet(fleet)
+    out.update(summary=replay_summary(rows), seconds=time.perf_counter() - t_arm)
+    return out
+
+
+def placement_bars(arms: dict) -> list:
+    """tests/test_placement.py's claims on the card: observe-only is the
+    off arm exactly; on, blocks land, jobs were submitted, no target was
+    unhealthy and nothing was dropped."""
+    failures = []
+    off, observe, on = arms["off"], arms["observe"], arms["on"]
+    for key in off["streams"]:
+        if observe["streams"][key] != off["streams"][key]:
+            failures.append(f"observe-only differs from off in {key}")
+    if off["replicated_blocks"] or observe["replicated_blocks"]:
+        failures.append(f"replicated without a hot chain: off {off['replicated_blocks']}, "
+                        f"observe {observe['replicated_blocks']}")
+    rep = on["replicator"]
+    if not (on["replicated_blocks"] > 0 and rep["jobs_submitted"] > 0):
+        failures.append(f"placement on landed {on['replicated_blocks']} blocks from "
+                        f"{rep['jobs_submitted']} jobs")
+    if rep["skipped_unhealthy"] or on["prefetcher"]["stats"]["dropped"]:
+        failures.append(f"skipped unhealthy {rep['skipped_unhealthy']}, prefetcher dropped "
+                        f"{on['prefetcher']['stats']['dropped']}")
+    return failures
+
+
+def phase_placement(params, cfg) -> dict:
+    log(f"== phase 16b: hot-prefix placement over four bf16 flagship pods with host tiers "
+        f"({PLACEMENT_POD}, cost gate off, eager staging): tests/test_placement.py's "
+        f"multi-tenant trace {PLACEMENT_TRACE} (lora_id dropped), arms {PLACEMENT_ARMS}")
+    t_phase = time.perf_counter()
+    card = card_line()
+    requests = placement_requests()
+    reset_launch_counts()
+    arms = {name: placement_arm(params, cfg, requests, p) for name, p in PLACEMENT_ARMS.items()}
+    launches = launch_counts()
+    failures = [f"{name}: {f}" for name, arm in arms.items() for f in arm["failures"]]
+    failures += placement_bars(arms)
+    for name, arm in arms.items():
+        s = arm["summary"]
+        log(f"  {name} ({card}): hit rate {s['hit_rate']:.4f}, TTFT p50 "
+            f"{s['ttft_p50_s'] * 1e3:.2f} ms, mean {s['ttft_mean_s'] * 1e3:.2f} ms; replicated "
+            f"{arm['replicated_blocks']} blocks {arm['landed']}; replicator {arm['replicator']}; "
+            f"prefetcher {arm['prefetcher']['by_source']}; {arm['seconds']:.1f} s; "
+            f"{len(arm['failures'])} failures")
+    log(f"  launches {launches}")
+    for name in ("paged_decode", "flash_prefill"):
+        if launches[name] <= 0:
+            failures.append(f"{name} was never launched on the placement path")
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 16b ran {seconds:.1f} s")
+    if failures:
+        raise AssertionError(f"phase 16b: {failures[:6]}")
+    for arm in arms.values():
+        arm.pop("streams")
+        for row in arm["rows"]:
+            row.pop("tokens")
+    return dict(arms=arms, launches=launches, card=card, seconds=seconds)
+
+
+def prediction_arm(params, cfg, requests, prediction, table_cls=SessionTable) -> dict:
+    """One arm of phase 16c: the churn scenario over four fresh pods with
+    host tiers; with `prediction`, a SessionTable on the Indexer's read
+    path and a PrefetchScheduler ticked at every arrival on a fake clock,
+    its jobs through a RoutePrefetcher (source "prediction") into the
+    router's pick's prefetch_hashes and warm_chain. Reads the blocks of s0's
+    first turn resident on its routed pod just before its second turn."""
+    t_arm = time.perf_counter()
+    clock = FakeClock()
+    tok = TextTokenizer(cfg.vocab_size)
+    table = scheduler = None
+    kwargs = dict(prediction or {})
+    sched_kwargs = {k: kwargs.pop(k) for k in ("max_jobs_per_tick", "session_cooldown_s",
+                                               "start_frac") if k in kwargs}
+    if prediction is not None:
+        table = table_cls(PredictionConfig(**kwargs), clock=clock)
+    fleet = proactive_fleet(params, cfg, tok, prediction=table, **PREDICTION_POD)
+    fleet["clock"] = clock
+    pods, tp = fleet["pods"], fleet["indexer"].token_processor
+    landed, job_s, errors, served = [0], {}, [], {pid: 0 for pid in pods}
+    audit, prev_chain = {}, []
+
+    def preland(pid, hashes):
+        try:
+            t0 = time.perf_counter()
+            pod = pods[pid]
+            pod.prefetch_hashes(list(hashes))
+            rec = table.record_by_tail(hashes[-1])
+            if rec is None or not rec.tokens:
+                return 0
+            n = pod.warm_chain(rec.tokens, lora_id=rec.lora_id)
+            sync()
+            if n:
+                landed[0] += n
+                table.note_landed(hashes[-1], n)
+            job_s[pid] = job_s.get(pid, 0.0) + time.perf_counter() - t0
+            return n
+        except Exception as e:  # the prefetcher swallows a job's error
+            errors.append(f"prediction prefetch to {pid}: {e!r}")
+            raise
+
+    prefetcher = RoutePrefetcher(preland, queue_bound=PROACTIVE_QUEUE_BOUND)
+    if table is not None:
+        scheduler = PrefetchScheduler(
+            table, score_fn=fleet["indexer"].score_hashes,
+            submit_fn=lambda pod, hashes: prefetcher.submit(pod, hashes, source="prediction"),
+            config=SchedulerConfig(**sched_kwargs),
+            select_fn=lambda scores: spread_route(scores, served), clock=clock)
+
+    def before(now):
+        if scheduler is not None and scheduler.tick(now):
+            return timed_jobs(prefetcher, fleet, job_s)
+        return {}
+
+    def hook(r, pod, tokens):
+        if r.session != PREDICTION_SESSION:
+            return
+        keys = tp.tokens_to_kv_block_keys(None, tokens, PROACTIVE_MODEL)
+        if r.turn == 0:
+            prev_chain[:] = [k.chunk_hash for k in keys]
+        else:
+            audit.update(resident=pod.resident_prefix_blocks(prev_chain),
+                         prefix_blocks=len(prev_chain))
+
+    try:
+        rows, failures = proactive_replay(fleet, requests, tok, served, before=before,
+                                          hook=hook)
+        streams = arm_streams(fleet, rows)
+        failures += errors + pool_failures(fleet)
+        out = dict(rows=rows, streams=streams, failures=failures, audit=audit,
+                   predicted_landed_blocks=landed[0], prefetcher=prefetcher.status(),
+                   scheduler=dict(scheduler.stats) if scheduler else None,
+                   table=table.stats() if table else None,
+                   tier_stats={pid: dict(pod.tier_store.stats) for pid, pod in pods.items()})
+    finally:
+        prefetcher.close()
+        close_fleet(fleet)
+    turn1 = next(r for r in rows if (r["session"], r["turn"]) == (PREDICTION_SESSION, 1))
+    out.update(summary=replay_summary(rows), turn1=turn1, seconds=time.perf_counter() - t_arm)
+    return out
+
+
+def prediction_bars(arms: dict, want: list) -> list:
+    """tests/test_prediction.py's claims on the card: observe-only is the
+    off arm exactly; off, s0's prefix was really evicted before its next
+    turn; on, more of it is resident and blocks were pre-landed; and turn
+    1's tokens are a never-evicting pod's in every arm."""
+    failures = []
+    off, observe, on = arms["off"], arms["observe"], arms["on"]
+    for key in off["streams"]:
+        if observe["streams"][key] != off["streams"][key]:
+            failures.append(f"observe-only differs from off in {key}")
+    if not off["audit"]["resident"] < off["audit"]["prefix_blocks"]:
+        failures.append(f"off: {off['audit']} (the scenario must evict s0's prefix)")
+    if not (on["audit"]["resident"] > off["audit"]["resident"]
+            and on["predicted_landed_blocks"] > 0):
+        failures.append(f"on: resident {on['audit']['resident']} (off "
+                        f"{off['audit']['resident']}), pre-landed "
+                        f"{on['predicted_landed_blocks']} blocks")
+    for name, arm in arms.items():
+        if arm["turn1"]["tokens"] != want:
+            failures.append(f"{name}: turn 1's greedy tokens differ from the never-evicting pod")
+    return failures
+
+
+def phase_prediction(params, cfg) -> dict:
+    log(f"== phase 16c: session prediction over four bf16 flagship pods with host tiers "
+        f"({PREDICTION_POD}, cost gate off, eager staging): tests/test_prediction.py's churn "
+        f"scenario (s0 at 0 s, 24 junk sessions from 1 s, s0's turn 1 at 12 s), arms "
+        f"{PREDICTION_ARMS}")
+    t_phase = time.perf_counter()
+    card = card_line()
+    requests = prediction_requests()
+    tok = TextTokenizer(cfg.vocab_size)
+    want = never_evicting_tokens(params, cfg, [tok.encode(r.prompt, "").tokens for r in requests
+                                               if r.session == PREDICTION_SESSION], [1])[0]
+    reset_launch_counts()
+    arms = {name: prediction_arm(params, cfg, requests, p) for name, p in PREDICTION_ARMS.items()}
+    launches = launch_counts()
+    failures = [f"{name}: {f}" for name, arm in arms.items() for f in arm["failures"]]
+    failures += prediction_bars(arms, want)
+    for name, arm in arms.items():
+        t1 = arm["turn1"]
+        log(f"  {name} ({card}): s0 resident {arm['audit']['resident']} of "
+            f"{arm['audit']['prefix_blocks']} blocks before turn 1 on {t1['pod']}; turn 1 "
+            f"cached {t1['cached']} of {t1['prompt']} tokens, TTFT {t1['ttft_s'] * 1e3:.2f} ms "
+            f"(compute {t1['first_s'] * 1e3:.2f} ms); pre-landed "
+            f"{arm['predicted_landed_blocks']}; scheduler {arm['scheduler']}; table "
+            f"{arm['table']}; hit rate {arm['summary']['hit_rate']:.4f}; "
+            f"{arm['seconds']:.1f} s; {len(arm['failures'])} failures")
+    log(f"  launches {launches}")
+    for name in ("paged_decode", "flash_prefill"):
+        if launches[name] <= 0:
+            failures.append(f"{name} was never launched on the prediction path")
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 16c ran {seconds:.1f} s")
+    if failures:
+        raise AssertionError(f"phase 16c: {failures[:6]}")
+    for arm in arms.values():
+        arm.pop("streams")
+        for row in arm["rows"]:
+            row.pop("tokens")
+    return dict(arms=arms, launches=launches, card=card, seconds=seconds)
+
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=None,
                         help="comma-separated phases to run after the build (3 4 5 5b 5c 6 7a "
-                        "7b 8a 8 9a 9b 10a 10b 11a 11b 12a 12b 13 14a 14b 15a 15b; 9b and "
+                        "7b 8a 8 9a 9b 10a 10b 11a 11b 12a 12b 13 14a 14b 15a 15b 16a 16b "
+                        "16c; 9b and "
                         "10b run 7b's deltas first, 14a and 15b run 12a first); a partial run "
                         "prints no "
                         "kernels or ok line")
@@ -5035,6 +5799,9 @@ def main(argv=None) -> int:
     fleet = phase_fleet(params, cfg, args.seed)
     read_plane = phase_read_plane(params, cfg, args.seed)
     resilience = phase_resilience(params, cfg, args.seed)
+    proactive = {"sharegpt": phase_sharegpt(params, cfg),
+                 "placement": phase_placement(params, cfg),
+                 "prediction": phase_prediction(params, cfg)}
     del params
     torch.cuda.empty_cache()
     governor = phase_governor(args.seed, control)
@@ -5064,6 +5831,8 @@ def main(argv=None) -> int:
                for name in ("paged_decode", "paged_decode_int8", "flash_prefill")}
     for name in ("paged_decode", "flash_prefill"):  # phase 15a's bf16 pods: rows 1 and 5
         by_path[name]["fleet_health"] = resilience["launches"][name]
+        # Phase 16's bf16 pods, rows 1 and 5: 16a-16c, each counted from 0.
+        by_path[name]["sharegpt"] = sum(p["launches"][name] for p in proactive.values())
     for row in ("paged_decode_tiled", "paged_decode_tiled_int8"):
         by_path[row] = {"batched_decode": batched["checks"][row]["launches"],
                         "moe_batched_decode": moe["logits"][row]["launches"],
@@ -5090,7 +5859,7 @@ def main(argv=None) -> int:
                     "mixtral_attention_shape": mixtral_times, "moe_small": moe_small, "moe": moe,
                     "control_plane": control, "native_control_plane": native,
                     "fleet": fleet, "read_plane": read_plane, "resilience": resilience,
-                    "governor": governor,
+                    "governor": governor, "proactive": proactive,
                     "qwen_attention_shapes": qwen_times, "qwen": qwen,
                     "build_s": build_s, "run_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
@@ -5126,6 +5895,9 @@ def partial_run(phases, gen, cfg, seed: int = 0) -> int:
         "14a": lambda: phase_native_control_plane(seed, out["12a"]),
         "14b": lambda: phase_read_plane(params, cfg, seed),
         "15a": lambda: phase_resilience(params, cfg, seed),
+        "16a": lambda: phase_sharegpt(params, cfg),
+        "16b": lambda: phase_placement(params, cfg),
+        "16c": lambda: phase_prediction(params, cfg),
         "15b": lambda: phase_governor(seed, out["12a"]),
     }
     for phase in phases:

@@ -1,13 +1,13 @@
 """The port's resource governor, departure reaper and autopilot knobs against
 the JAX package's, on the same inputs.
 
-- Every test of tests/test_resourcegov.py but the four that need a module
+- Every test of tests/test_resourcegov.py but the three that need a module
   the port lacks (`WAITS`) runs on both packages (`reference_module`): the
   accountant, the governor's config, pressure state machine, shed ladder and
   restore, its budget knob, the reaper, each tracker's `forget_pod`, the
   transfer client's peer bounding and the shed/rewarm bit identity.
-- tests/test_autopilot.py's `TestKnobs` and the auditor's registered knob,
-  on both packages.
+- tests/test_autopilot.py's `TestKnobs` and the auditor's, the prediction
+  scheduler's and the replicator's registered knobs, on both packages.
 - A governor over the seeded fault stream of tests/test_torch_fleethealth.py
   (meters on the index, the chain memo, the prefix store, fleet health, load
   and anti-entropy; a budget a quarter of the accounted bytes; a pod leaving
@@ -45,7 +45,6 @@ pytestmark = pytest.mark.resourcegov
 WAITS = {
     "TestShedLadder::test_shed_events_reach_the_metrics_walk":
         "metrics.collector and prometheus_client (ROADMAP.md queue 1 item 7)",
-    "TestShedPreservesInFlightState": "prediction.sessions (ROADMAP.md queue 1 item 5)",
     "TestResourceHttpSurface": "api.http_service (ROADMAP.md queue 1 item 7)",
 }
 CASES = reference_cases("test_resourcegov.py", WAITS)
@@ -64,15 +63,19 @@ def test_every_governor_case_is_taken():
     waiting = {(c, m) for c, m in every
                if c in WAITS or f"{c}::{m}" in WAITS}
     assert {(c, m) for c, m, _ in CASES} == every - waiting
-    assert len(waiting) == 4
+    assert len(waiting) == 3
 
 
-# tests/test_autopilot.py: the knob registry and the auditor's knob. The
+# tests/test_autopilot.py: the knob registry and the auditor's, the
+# prediction scheduler's and the replicator's registered knobs. The
 # controller, the signal assembler and the service wiring wait for
 # autopilot/{controller,signals}.py and api/ (ROADMAP.md queue 1 items 5, 7).
+REGISTERED_KNOBS = ("test_auditor_knob_tightens_the_live_cadence",
+                    "test_prediction_jobs_floor_is_one_not_zero",
+                    "test_replicator_registers_both_placement_knobs")
 KNOB_CASES = [c for c in reference_cases("test_autopilot.py", {})
               if c[0] == "TestKnobs"
-              or c[:2] == ("TestRegisteredKnobs", "test_auditor_knob_tightens_the_live_cadence")]
+              or (c[0] == "TestRegisteredKnobs" and c[1] in REGISTERED_KNOBS)]
 
 
 @pytest.mark.autopilot
@@ -83,7 +86,7 @@ def test_knob_case_on_both_packages(case, pkg, request):
 
 
 def test_knob_cases_taken():
-    assert len(KNOB_CASES) == 7
+    assert len(KNOB_CASES) == 9
 
 
 # -- a governor over the seeded fault stream -----------------------------------
