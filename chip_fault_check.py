@@ -81,6 +81,19 @@ replicated blocks); and EtaBlindTable, a session table that never
 predicts a next-turn ETA (it must fail 16c's bar that anticipation leaves
 more of s0's prefix resident than reactive serving).
 
+Phase 17's bars are held to the real fleet planes and to five planted
+faults: WrongOwnerScorer, a ClusterScorer whose merge takes each pod's
+score from the replica after its owner (it must fail 17a's bar that the
+replicated answer is the Indexer's, over 16a's first 24 requests);
+drop_last_entry_encoder, a snapshot encoder that leaves the view's last
+entry out (it must fail 17a's warm-restart bar); NeverDemoteTracker, a
+region failover tracker that never demotes a silent region (it must fail
+17b's detection bar); AdmittingTransport, a FaultyTransport that delivers
+damaged blocks with integrity on (it must fail 17c's integrity bar on bf16
+pages); and PastCeilingController, an autopilot that steps around a knob's
+clamp past its ceiling (it must fail 17d's bounds bar on 15a's faulted
+arm).
+
 Phase 8b's bit-identical check (P' restored from the host store on a tight
 bf16 pod against the same prompt on a pod that never evicts: suffix logits
 and 32 greedy tokens) is held to the real tree and to a planted codec fault,
@@ -118,8 +131,17 @@ from llm_d_kv_cache_manager_tpu_torch.engine import engine as engine_mod
 from llm_d_kv_cache_manager_tpu_torch.engine.engine import EnginePod
 from llm_d_kv_cache_manager_tpu_torch.engine.scheduler import Scheduler
 from llm_d_kv_cache_manager_tpu_torch.antientropy import ResidencyAuditor
-from llm_d_kv_cache_manager_tpu_torch.fleethealth.tracker import SUSPECT, FleetHealthTracker
+from llm_d_kv_cache_manager_tpu_torch.autopilot import AutopilotController
+from llm_d_kv_cache_manager_tpu_torch.cluster import ClusterScorer
+from llm_d_kv_cache_manager_tpu_torch.cluster import snapshot as snapshot_mod
+from llm_d_kv_cache_manager_tpu_torch.federation import RegionFailoverTracker
+from llm_d_kv_cache_manager_tpu_torch.fleethealth.tracker import (
+    HEALTHY,
+    SUSPECT,
+    FleetHealthTracker,
+)
 from llm_d_kv_cache_manager_tpu_torch.kv_connectors.prefetch import RoutePrefetcher
+from llm_d_kv_cache_manager_tpu_torch.kvcache.indexer import PodScores
 from llm_d_kv_cache_manager_tpu_torch.kvevents import pool as pool_mod
 from llm_d_kv_cache_manager_tpu_torch.kvevents.events import BlockRemoved, EventBatch
 from llm_d_kv_cache_manager_tpu_torch.models import llama, mixtral
@@ -584,6 +606,138 @@ def run_proactive_bars(params, cfg) -> dict:
     return out
 
 
+class WrongOwnerScorer(ClusterScorer):
+    """A planted fault: each pod's score and match length are taken from the
+    replica after its owner, which digested none of its stream."""
+
+    def _merge(self, replies):
+        merged = PodScores()
+        n = len(self.transports)
+        for rid, ps in replies:
+            if not merged.block_hashes and ps.block_hashes:
+                merged.block_hashes = ps.block_hashes
+        by_rid = dict(replies)
+        pods = {p for _, ps in replies for p in ps.scores}
+        for pod in sorted(pods):
+            other = by_rid.get((self.partitioner.replica_for(pod) + 1) % n)
+            if other is not None and pod in other.scores:
+                merged.scores[pod] = other.scores[pod]
+                merged.match_blocks[pod] = other.match_blocks.get(pod, 0)
+        return merged
+
+
+def drop_last_entry_encoder(view, seq_counters, created_ts=None):
+    """A planted snapshot fault: the encoder leaves the view's last entry
+    out of the file."""
+    return REAL_ENCODE(dataclasses.replace(view, entries=list(view.entries)[:-1]), seq_counters,
+                       created_ts=created_ts)
+
+
+REAL_ENCODE = snapshot_mod.encode_snapshot
+
+
+class NeverDemoteTracker(RegionFailoverTracker):
+    """A planted failover fault: a silent region is never demoted (its
+    digests still count when they come)."""
+
+    def state_of(self, region_id: str) -> str:
+        super().state_of(region_id)
+        return HEALTHY
+
+
+class AdmittingTransport(chip_smoke.RecordingTransport):
+    """A planted chaos fault: with integrity on, damaged blocks are counted as
+    detected but delivered, as with integrity off."""
+
+    def fetch_many(self, host, port, block_hashes, max_size):
+        verify, self.verify_integrity = self.verify_integrity, False
+        try:
+            out = super().fetch_many(host, port, block_hashes, max_size)
+        finally:
+            self.verify_integrity = verify
+        return out
+
+
+class PastCeilingController(AutopilotController):
+    """A planted autopilot fault: each nudge is applied upward by eight
+    max_steps, around the knob's clamp, so it steps past the ceiling."""
+
+    def _apply(self, now, rule_name, knob_name, frac):
+        knob = self.registry.get(knob_name)
+        if knob is None:
+            return None
+        before = knob.position()
+        knob._set(before + 8 * abs(frac) * knob.spec.max_step)
+        entry = (round(now, 3), rule_name, knob_name, "up", round(knob.position() - before, 6),
+                 knob.position())
+        self.journal.append(entry)
+        self.stats["actuations"] += 1
+        return entry
+
+
+FLEET_PLANE_REQUESTS = 24  # 16a's first requests for the 17a faults (restart at 12)
+
+
+def run_fleet_plane_bars(params, cfg) -> dict:
+    """Phase 17's bars, each on the real plane and on its planted fault:
+    17a's replicated scoring (WrongOwnerScorer) and warm restart
+    (drop_last_entry_encoder) over 16a's first FLEET_PLANE_REQUESTS
+    requests; 17b's detection (NeverDemoteTracker); 17c's integrity bar on
+    bf16 pages (AdmittingTransport); 17d's bounds (PastCeilingController)
+    on 15a's faulted arm."""
+    out = {}
+    requests = chip_smoke.sharegpt_requests()[:FLEET_PLANE_REQUESTS]
+    for label, scorer in (("cluster_real", ClusterScorer), ("wrong_owner_merge",
+                                                              WrongOwnerScorer)):
+        arm = chip_smoke.cluster_arm(params, cfg, requests, scorer_cls=scorer)
+        fails = arm["failures"] + arm["cluster"]["failures"]
+        out[label] = dict(ok=not fails, merge_failures=sum("the cluster scored" in f
+                                                           for f in fails))
+    snapshot_mod.encode_snapshot = drop_last_entry_encoder
+    try:
+        arm = chip_smoke.cluster_arm(params, cfg, requests)
+    finally:
+        snapshot_mod.encode_snapshot = REAL_ENCODE
+    fails = arm["failures"] + arm["cluster"]["failures"]
+    out["snapshot_drops_last_entry"] = dict(ok=not fails, restart_failures=sum(
+        f.startswith("warm restart") for f in fails))
+    requests, _ = chip_smoke.geo_requests()
+    for label, tracker in (("federation_real", RegionFailoverTracker),
+                           ("never_demote_tracker", NeverDemoteTracker)):
+        arm = chip_smoke.geo_arm(params, cfg, requests, tracker_cls=tracker)
+        out[label] = dict(ok=not arm["failures"], detection_failures=sum(
+            "detected at" in f or "not suspect" in f or "not stale" in f
+            for f in arm["failures"]))
+    for label, cls in (("chaos_real", chip_smoke.RecordingTransport),
+                       ("admitting_transport", AdmittingTransport)):
+        r = chip_smoke.chaos_check(params, cfg, False, transport_cls=cls)
+        out[label] = dict(ok=not r["failures"], integrity_failures=sum(
+            f.startswith("corrupt:") for f in r["failures"]))
+    waves = chip_smoke.multitenant_traffic(0, cfg.vocab_size, chip_smoke.RESILIENCE_WAVES)
+    for label, cls in (("autopilot_real", AutopilotController),
+                       ("past_ceiling_controller", PastCeilingController)):
+        r = chip_smoke.resilience_arm(params, cfg, waves, chip_smoke.RESILIENCE_PLAN, True,
+                                      autopilot=cls)
+        out[label] = dict(ok=not r["failures"] and r["autopilot"]["actuations"] > 0,
+                          bound_failures=sum("bounds" in f or "outside" in f
+                                             for f in r["failures"]),
+                          actuations=r["autopilot"]["actuations"])
+    torch.cuda.empty_cache()
+    for label, r in out.items():
+        chip_smoke.log(f"  [{label}] {'ok' if r['ok'] else 'FAIL'} {r}")
+    return out
+
+
+FLEET_PLANE_FAULTS = {  # planted fault -> the count of its bar's failures that must be > 0
+    "wrong_owner_merge": "merge_failures",
+    "snapshot_drops_last_entry": "restart_failures",
+    "never_demote_tracker": "detection_failures",
+    "admitting_transport": "integrity_failures",
+    "past_ceiling_controller": "bound_failures",
+}
+FLEET_PLANE_REAL = ("cluster_real", "federation_real", "chaos_real", "autopilot_real")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_fault_check: no CUDA device", file=sys.stderr)
@@ -665,6 +819,12 @@ def main() -> int:
     chip_smoke.log("== proactive faults: a router that takes the second-best pod, a replicator "
                    "that submits nothing, a session table that never predicts an ETA")
     proactive = run_proactive_bars(params, cfg)
+    chip_smoke.log("== fleet-plane faults: a merge that takes a pod's score from a replica "
+                   "that does not own it, a snapshot encoder that drops the last entry, a "
+                   "failover tracker that never demotes a silent region, a transport that "
+                   "admits damaged blocks with integrity on, a controller that steps past a "
+                   "knob's ceiling")
+    fleet_plane = run_fleet_plane_bars(params, cfg)
 
     chip_smoke.log("== MoE fault: top-1 serving (the first routed expert only, at gate 1)")
     del params, params32, models
@@ -687,7 +847,10 @@ def main() -> int:
         and serving_bars["moe_real"]["ok"] and read_plane["native_real"]["ok"] \
         and read_plane["prefetch_real"]["ok"] and resilience["real"]["ok"] \
         and all(proactive[label]["ok"]
-                for label in ("sharegpt_real", "placement_real", "prediction_real"))
+                for label in ("sharegpt_real", "placement_real", "prediction_real")) \
+        and all(fleet_plane[label]["ok"] for label in FLEET_PLANE_REAL)
+    fleet_plane_caught = {label: not fleet_plane[label]["ok"] and fleet_plane[label][key] > 0
+                          for label, key in FLEET_PLANE_FAULTS.items()}
     read_plane_caught = {label: not read_plane[label]["ok"]
                          for label in ("native_removal_blind", "prefetch_matched_prefix")}
     read_plane_caught["prefetch_matched_prefix"] &= \
@@ -730,6 +893,7 @@ def main() -> int:
         "read_plane_faults_caught": read_plane_caught, "read_plane_readings": read_plane,
         "resilience_faults_caught": resilience_caught, "resilience_readings": resilience,
         "proactive_faults_caught": proactive_caught, "proactive_readings": proactive,
+        "fleet_plane_faults_caught": fleet_plane_caught, "fleet_plane_readings": fleet_plane,
         "scheduler_bar_readings": {label: dict(bar["worst"], delta=bar["delta"])
                                    for label, bar in bars.items()},
         "logits_ok": logits_ok, "bf16_max_row_rel_err": worst,
@@ -738,7 +902,8 @@ def main() -> int:
     return 0 if (real_ok and all(caught.values()) and all(logits_caught.values())
                  and all(bar_caught.values()) and host_tier_caught
                  and all(serving_caught.values()) and all(read_plane_caught.values())
-                 and all(resilience_caught.values()) and all(proactive_caught.values())) else 1
+                 and all(resilience_caught.values()) and all(proactive_caught.values())
+                 and all(fleet_plane_caught.values())) else 1
 
 
 if __name__ == "__main__":

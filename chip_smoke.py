@@ -12,6 +12,8 @@
                                             # (15b runs 12a first)
     python3 chip_smoke.py --phases 16a,16b,16c  # the workload engine and the
                                                 # proactive planes
+    python3 chip_smoke.py --phases 17a,17b,17c,17d  # the fleet planes' second
+                                                    # half
 
 Phases, in order (any failure raises and the script exits non-zero):
   1. device lines: torch's device name and nvidia-smi's name + power limit;
@@ -276,6 +278,48 @@ Phases, in order (any failure raises and the script exits non-zero):
      second turn are fewer than its blocks; on, more are resident and
      blocks were pre-landed; the second turn's greedy tokens = a
      never-evicting pod's in every arm; its TTFT is logged;
+  17a. (inside 16a's precise arm) the replicated indexers: 3 IndexerReplicas
+     (each an Indexer, an EventPool gated by ReplicaPartitioner.accepts, a
+     FleetHealthTracker for its seq watermarks) get every message the
+     arm's pool gets. Bars: for every request a ClusterScorer over them
+     gives the Indexer's scores, match blocks and chain, and a
+     single-region GlobalRouter over the Indexer the same pod; halfway,
+     the replica holding the most entries snapshots (CBOR), shuts down,
+     misses a request's messages and restarts warm from the file and the
+     journal since its 8th last message (the seq floors drop exactly
+     those 8), then holds exactly the Indexer's entries of its pods; after
+     the replay the replicas' union is the Indexer's entries;
+  17b. bench.py --geo's federation cut to two regions of two bf16 flagship
+     pods (16a's pods; each region an Indexer, an EventPool and a
+     popularity tracker behind a Region) under one GlobalRouter on a fake
+     clock: the geo trace of 16 sessions (48 requests), digests at every
+     4 s, region-0 lost at 0.55 of the span (no digest, its front raises).
+     Bars: region-0 is suspect and then stale exactly when its last digest
+     is 8 and 12 s old, detected at the first reading from then on; no
+     request delegated to it after that; every failover and retry goes to
+     the rendezvous successor; every request's cached tokens = 16 x its
+     pod's match_blocks; 12 seeded requests' greedy tokens = a
+     never-evicting pod of their region's;
+  17c. phase 8's peer onboard under kv_connectors/faults.py's injector (the
+     onboarding pod's client wrapped in FaultyTransport), bf16 and int8
+     pages. Corrupt, integrity on: the damaged blocks are the seeded draw's,
+     each detected, none admitted; the pod onboards the blocks before the
+     first and recomputes the rest, and P' (suffix logits, 32 greedy
+     tokens) equals a never-evicting pod that served those blocks first.
+     Integrity off: every damaged block admitted. Stall (3 requests): the
+     breaker opens after 2 charged timeouts, the next fetch is skipped
+     uncharged, and every answer equals the never-evicting pod's
+     recompute;
+  17d. (inside 15a) an AutopilotController (an SLOMonitor of the requests
+     whose cached share fell under half, the anti-entropy tracker, the
+     auditor's cadence knob) on 15a's fake clock: on the no-fault arm, no
+     actuation and the knob at its baseline (the same scores, routes,
+     cached and greedy tokens as the arm without it is held by tier-1's
+     rehearsal and by `--phases 17d`, which runs that arm too: a cut of the
+     whole run, printed); a fourth arm, the plan with the plane and the
+     autopilot: actuations, each within its knob's bounds and one max_step,
+     journaled, the knob back at baseline after the faults, and 15a's
+     bars;
   then a JSON line of details, one JSON line describing every kernel, and
   last: {"ok": true, "device": {...}}.
 """
@@ -283,15 +327,18 @@ Phases, in order (any failure raises and the script exits non-zero):
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
 import io
 import itertools
 import json
+import os
 import random
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -299,6 +346,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from llm_d_kv_cache_manager_tpu_torch.autopilot import (
+    AutopilotConfig,
+    AutopilotController,
+    KnobRegistry,
+    SignalAssembler,
+)
 from llm_d_kv_cache_manager_tpu_torch.antientropy import (
     AntiEntropyTracker,
     AuditorConfig,
@@ -319,7 +372,22 @@ from llm_d_kv_cache_manager_tpu_torch.engine.speculative import (
     SpeculativeDecoder,
     SpeculativeScheduler,
 )
+from llm_d_kv_cache_manager_tpu_torch.cluster import (
+    ClusterConfig,
+    ClusterScorer,
+    IndexerReplica,
+    LocalReplicaTransport,
+    ReplicaPartitioner,
+)
 from llm_d_kv_cache_manager_tpu_torch.engine.tiering import IndexBackedPeerResolver
+from llm_d_kv_cache_manager_tpu_torch.federation import (
+    FederationConfig,
+    GlobalRouter,
+    Region,
+    RegionFailoverTracker,
+    derive_fn_from_indexer,
+    encode_digest,
+)
 from llm_d_kv_cache_manager_tpu_torch.fleethealth.faults import (
     FaultInjector,
     FaultPlan,
@@ -331,6 +399,11 @@ from llm_d_kv_cache_manager_tpu_torch.fleethealth.tracker import (
     STALE,
     FleetHealthConfig,
     FleetHealthTracker,
+)
+from llm_d_kv_cache_manager_tpu_torch.kv_connectors.faults import (
+    FaultyTransport,
+    PeerTransferFaults,
+    TransferFaultPlan,
 )
 from llm_d_kv_cache_manager_tpu_torch.kv_connectors.prefetch import RoutePrefetcher
 from llm_d_kv_cache_manager_tpu_torch.kvcache.indexer import (
@@ -364,6 +437,12 @@ from llm_d_kv_cache_manager_tpu_torch.kvevents.events import (
 )
 from llm_d_kv_cache_manager_tpu_torch.kvevents.pool import EventPool, EventPoolConfig, Message
 from llm_d_kv_cache_manager_tpu_torch.models import hf_loader, llama, lora, mixtral
+from llm_d_kv_cache_manager_tpu_torch.obs.slo import (
+    OBJECTIVE_HIT_RATE,
+    SLOConfig,
+    SLOMonitor,
+    SLOObjective,
+)
 from llm_d_kv_cache_manager_tpu_torch.ops import _build
 from llm_d_kv_cache_manager_tpu_torch.ops import flash_prefill as fp
 from llm_d_kv_cache_manager_tpu_torch.ops import paged_attention as pa
@@ -416,9 +495,11 @@ from llm_d_kv_cache_manager_tpu_torch.tokenization.tokenizer import (
     Tokenizer,
 )
 from llm_d_kv_cache_manager_tpu_torch.workloads import (
+    GeoConfig,
     MaterializedRequest,
     MultiTenantConfig,
     ShareGPTConfig,
+    generate_geo,
     generate_multitenant,
     write_trace,
 )
@@ -4583,12 +4664,17 @@ def route_wave(scored, alive: list) -> list:
 
 
 def resilience_arm(params, cfg, waves, plan: dict, plane: bool,
-                   tracker_cls=FleetHealthTracker, auditor_cls=ResidencyAuditor) -> dict:
+                   tracker_cls=FleetHealthTracker, auditor_cls=ResidencyAuditor,
+                   autopilot=None) -> dict:
     """One arm of phase 15a on four fresh flagship pods: the waves routed
     precisely, each pod's share batched, with `plan`'s faults injected at
     the pods' delivery into the EventPool, and (with `plane`) the fleet
     health tracker, the anti-entropy tracker and the residency auditor
-    wired. Checks the arm's bars; returns its readings and failures."""
+    wired. `autopilot` (a controller class, with `plane`) attaches phase
+    17d's `AutopilotRig`, ticked after every wave's audit and on past the
+    last wave until its knobs are home. Checks the arm's bars; returns its
+    readings (`trace`: every wave's scores, every route, cached and greedy
+    tokens) and failures."""
     t_arm = time.perf_counter()
     device = params["embed"].device
     clock = FakeClock()
@@ -4643,9 +4729,11 @@ def resilience_arm(params, cfg, waves, plan: dict, plane: bool,
             lambda pod, dev, host, k: None if pod in down else pods[pod].resident_block_digest(
                 dev, host, k),
             tracker=trust, config=AuditorConfig(**RESILIENCE_AUDIT), clock=clock)
+    rig = AutopilotRig(auditor, trust, autopilot) if autopilot is not None else None
     wipe_s = max((f.silent_wipe_at_s for f in faults.pods.values()
                   if f.silent_wipe_at_s is not None), default=None)
     failures, cached, ttft, routes, states, drained = [], {}, [], [], [], []
+    generated, wave_scores = {}, []
     phantom_routes, purge_checks, repair_checks, purged_seen = 0, [], 0, {}
     prev_stale = set()
     try:
@@ -4666,6 +4754,7 @@ def resilience_arm(params, cfg, waves, plan: dict, plane: bool,
             before = index_pairs(index) if plane else None
             scored = indexer.score_many([ScoreRequest(words(q["tokens"]), RESILIENCE_MODEL)
                                          for q in wave])
+            wave_scores.append([(ps.scores, ps.match_blocks) for ps in scored])
             stale = {p for p in FLEET_POD_IDS if plane and tracker.state_of(p) == STALE}
             states.append({p: tracker.state_of(p) for p in FLEET_POD_IDS} if plane else {})
             alive = [p for p in FLEET_POD_IDS if p not in down]
@@ -4703,8 +4792,11 @@ def resilience_arm(params, cfg, waves, plan: dict, plane: bool,
                 if not reqs:
                     continue
                 r = serve_share(pods[pid], [q for _, q, _ in reqs], 8)
-                for (j, _, pred), done, first in zip(reqs, r["requests"], r["first_token_s"]):
+                for (j, q, pred), done, first in zip(reqs, r["requests"], r["first_token_s"]):
                     cached[(w, j)] = done.num_cached_tokens
+                    generated[(w, j)] = list(done.generated)
+                    if rig is not None:
+                        rig.served(clock.t, done.num_cached_tokens, len(q["tokens"]))
                     ttft.append(first)
                     phantom_routes += pred > done.num_cached_tokens
                     # The routing bar: exact wherever the index is held true
@@ -4718,6 +4810,11 @@ def resilience_arm(params, cfg, waves, plan: dict, plane: bool,
             if plane:
                 drained.append({p: tracker.state_of(p) for p in FLEET_POD_IDS})
                 auditor.tick(clock.t)
+                if rig is not None and w == 0:
+                    rig.clock.t = clock.t
+                    rig.start()
+                elif rig is not None:
+                    rig.tick(clock.t)
                 purged_seen = {p: d["purged_entries"]
                                for p, d in tracker.summary()["pods"].items()}
                 if not plan["pods"] or (wipe_s is not None and clock.t >= wipe_s):
@@ -4740,7 +4837,8 @@ def resilience_arm(params, cfg, waves, plan: dict, plane: bool,
     finally:
         indexer.shutdown()
         pool.shutdown()
-    out = dict(sent={p: len(s) for p, s in sent.items()},
+    out = dict(trace=dict(scores=wave_scores, routes=routes, cached=cached, tokens=generated),
+               sent={p: len(s) for p, s in sent.items()},
                delivered_by_wave={p: [sum(1 for w, _ in d if w == wi) for wi in range(len(waves))]
                                   for p, d in delivered.items()},
                phantom_routes=phantom_routes, injected=dict(injector.injected),
@@ -4767,8 +4865,59 @@ def resilience_arm(params, cfg, waves, plan: dict, plane: bool,
                          anomalies=sum(out["anomalies"].values()))
             if any(quiet.values()):
                 failures.append(f"the plane acted on a fleet without faults: {quiet}")
+    if rig is not None:
+        rig.settle(clock.t)
+        out["autopilot"] = rig.readings()
+        failures += [f"autopilot: {f}" for f in out["autopilot"]["failures"]]
     out.update(failures=failures, seconds=time.perf_counter() - t_arm)
     return out
+
+
+def autopilot_arms(params, cfg, waves, healthy: dict, bare=None,
+                   controller_cls=AutopilotController) -> dict:
+    """Phase 17d on phase 15a: `healthy` is 15a's no-fault arm with the
+    autopilot attached, and a fourth arm runs the plan with the plane and
+    the autopilot. Bars: healthy, no actuation, the knob at its baseline,
+    and (where `bare`, the no-fault arm without the autopilot, is given) the
+    same scores, routes, cached and greedy tokens as `bare`; under the plan,
+    actuations, each inside its knob's bounds and one max_step, journaled,
+    the knob back at baseline after the faults, and 15a's bars. The whole
+    run gives no `bare` (a cut, printed: one 15a arm less); tier-1's
+    rehearsal and `--phases 17d` hold the identity."""
+    arms = {"faults_plane_autopilot": resilience_arm(params, cfg, waves, RESILIENCE_PLAN, True,
+                                                     autopilot=controller_cls)}
+    failures = [f"17d faults_plane_autopilot: {f}"
+                for f in arms["faults_plane_autopilot"]["failures"]]
+    ap, plan = healthy["autopilot"], arms["faults_plane_autopilot"]["autopilot"]
+    if ap["actuations"] or ap["journal"] or not ap["at_baseline"]:
+        failures.append(f"17d: the autopilot acted on a fleet without faults: {ap}")
+    if bare is not None:
+        for key in ("scores", "routes", "cached", "tokens"):
+            if healthy["trace"][key] != bare["trace"][key]:
+                failures.append(f"17d: {key} differ with the autopilot attached to the "
+                                f"no-fault arm")
+    if not plan["actuations"] or not plan["reverts"] or not plan["at_baseline"]:
+        failures.append(f"17d: under the plan the autopilot made {plan['actuations']} "
+                        f"actuations, {plan['reverts']} reverts, at baseline "
+                        f"{plan['at_baseline']}")
+    return dict(arms=arms, healthy=ap, compared_to_bare=bare is not None, failures=failures)
+
+
+def report_autopilot(out: dict, healthy: dict, card: str) -> None:
+    ap = out["healthy"]
+    same = ("the same scores, routes, cached and greedy tokens as the arm without it"
+            if out["compared_to_bare"] else "cut: no second no-fault arm without the "
+            "autopilot (tier-1's rehearsal holds that identity)")
+    log(f"== phase 17d on 15a's no-fault arm ({card}): {ap['actuations']} actuations, journal "
+        f"{ap['journal']}, at baseline {ap['at_baseline']}, bad/total {ap['counts']}; hit rate "
+        f"{healthy['hit_rate']:.4f}; {same}")
+    for name, arm in out["arms"].items():
+        ap = arm["autopilot"]
+        log(f"== phase 17d {name} ({card}): {ap['actuations']} actuations ({ap['reverts']} "
+            f"reverts), journal {ap['journal']}, at baseline {ap['at_baseline']}, bad/total "
+            f"by wave {ap['by_wave']}; hit rate {arm['hit_rate']:.4f}, phantom routes "
+            f"{arm['phantom_routes']}, {arm['seconds']:.1f} s, {len(arm['failures'])} failures")
+    log(f"  launches in the faulted autopilot arm: {out['launches']}")
 
 
 def resilience_bars(out: dict, summary: dict, sent: dict, delivered: dict, states: list,
@@ -4820,11 +4969,18 @@ def phase_resilience(params, cfg, seed: int) -> dict:
     card = card_line()
     waves = multitenant_traffic(seed, cfg.vocab_size, RESILIENCE_WAVES)
     reset_launch_counts()
-    arms = {"no_faults": resilience_arm(params, cfg, waves, dict(seed=0, pods={}), True),
+    no_faults = dict(seed=0, pods={})
+    # Phase 17d's healthy autopilot rides on the no-fault arm.
+    arms = {"no_faults": resilience_arm(params, cfg, waves, no_faults, True,
+                                        autopilot=AutopilotController),
             "faults_plane": resilience_arm(params, cfg, waves, RESILIENCE_PLAN, True),
             "faults_control": resilience_arm(params, cfg, waves, RESILIENCE_PLAN, False)}
     launches = launch_counts()
     failures = [f"{name}: {f}" for name, arm in arms.items() for f in arm["failures"]]
+    reset_launch_counts()
+    autopilot = autopilot_arms(params, cfg, waves, arms["no_faults"])
+    autopilot["launches"] = launch_counts()
+    failures += autopilot.pop("failures")
     for name, arm in arms.items():
         log(f"  {name} ({card}): hit rate {arm['hit_rate']:.4f}, TTFT median "
             f"{arm['ttft_median_ms']:.2f} ms, phantom routes {arm['phantom_routes']}, routes "
@@ -4837,17 +4993,21 @@ def phase_resilience(params, cfg, seed: int) -> dict:
                 f"anomalies {arm['anomalies']} {arm.get('anomaly_check', '')}; "
                 f"{arm['repair_checks']} pod checks after an audit")
     log(f"  kernel launches in the three arms: {launches}")
+    report_autopilot(autopilot, arms["no_faults"], card)
     for name in ("paged_decode", "flash_prefill"):
         if launches[name] <= 0:
             failures.append(f"{name} was never launched on the resilience path")
+        if autopilot["launches"][name] <= 0:
+            failures.append(f"{name} was never launched on the autopilot's arms")
     torch.cuda.empty_cache()
     seconds = time.perf_counter() - t_phase
-    log(f"  phase 15a ran {seconds:.1f} s")
+    log(f"  phase 15a and 17d ran {seconds:.1f} s")
     if failures:
-        raise AssertionError(f"phase 15a: {failures[:6]}")
-    for arm in arms.values():
+        raise AssertionError(f"phase 15a/17d: {failures[:6]}")
+    for arm in [*arms.values(), *autopilot["arms"].values()]:
         arm.pop("states", None)
-    return dict(arms=arms, launches=launches, card=card, seconds=seconds)
+        arm.pop("trace", None)
+    return dict(arms=arms, launches=launches, autopilot=autopilot, card=card, seconds=seconds)
 
 
 # Ticks of the quarter-budget governor at most (one rung fires a tick at
@@ -5134,14 +5294,14 @@ def pctl(xs, q: float) -> float:
 
 def proactive_fleet(params, cfg, tok, n_pages: int, max_pages_per_seq: int,
                     host_capacity_blocks=None, popularity=None, prediction=None,
-                    health=None) -> dict:
+                    health=None, tap=None, pod_ids=FLEET_POD_IDS) -> dict:
     """Four flagship pods sharing `params` behind an Indexer (whole prompts
     through `tok`; the prefix store's shortcut off, so every route scores the
     served chain) and an EventPool fed msgpack batches by the pods' sinks;
     `popularity` rides both (routes and stores). With
     `host_capacity_blocks`: host tiers with the cost gate off, eager staging
     and peer resolvers over the index. Each pod's event batches are kept in
-    `events`."""
+    `events`; `tap`, where given, gets every message the pool gets."""
     indexer = Indexer(
         IndexerConfig(token_processor_config=TokenProcessorConfig(block_size=PAGE)),
         tokenization_pool=TokenizationPool(
@@ -5154,15 +5314,17 @@ def proactive_fleet(params, cfg, tok, n_pages: int, max_pages_per_seq: int,
     pool.start(with_subscriber=False)
     indexer.run()
     host = host_capacity_blocks is not None
-    pods, events = {}, {pid: [] for pid in FLEET_POD_IDS}
-    for pid in FLEET_POD_IDS:
+    pods, events = {}, {pid: [] for pid in pod_ids}
+    for pid in pod_ids:
         seq = iter(range(1 << 62))
 
         def sink(batch, pid=pid, seq=seq):
             events[pid].append(batch)
-            pool.add_task(Message(topic=f"kv@{pid}@{PROACTIVE_MODEL}",
-                                  payload=batch.to_msgpack(), seq=next(seq), pod_identifier=pid,
-                                  model_name=PROACTIVE_MODEL))
+            msg = Message(topic=f"kv@{pid}@{PROACTIVE_MODEL}", payload=batch.to_msgpack(),
+                          seq=next(seq), pod_identifier=pid, model_name=PROACTIVE_MODEL)
+            pool.add_task(msg)
+            if tap is not None:
+                tap(msg)
 
         tier = dict(enable_host_tier=True, host_capacity_blocks=host_capacity_blocks,
                     transfer_cost_model=None, eager_stage=True) if host else {}
@@ -5292,17 +5454,21 @@ def replay_summary(rows: list) -> dict:
                 compute_ttft_p50_s=pctl([r["first_s"] for r in rows], 0.5))
 
 
-def trace_arm(params, cfg, requests, policy: str, route=trace_route) -> dict:
+def trace_arm(params, cfg, requests, policy: str, route=trace_route, shadow=None) -> dict:
     """One arm of phase 16a on four fresh pods: the trace replayed open-loop
     in arrival order, each request routed (`precise`: by the index through
     `route`; else round robin) and served alone, the pool drained after
     each. Bars: a precise request's cached tokens = 16 x the index's
     match_blocks for its top-scored pod (the router's prediction comes
     true), and after the replay every pod's indexed blocks = its committed
-    pages."""
+    pages. A `shadow` (phase 17a's `ClusterShadow`) gets every message of
+    the pods and holds its replicated answers to each precise route."""
     t_arm = time.perf_counter()
     tok = TextTokenizer(cfg.vocab_size)
-    fleet = proactive_fleet(params, cfg, tok, **TRACE_POD)
+    fleet = proactive_fleet(params, cfg, tok, **TRACE_POD,
+                            tap=shadow.deliver if shadow is not None else None)
+    if shadow is not None:
+        shadow.attach(fleet, len(requests))
     indexer, pods = fleet["indexer"], fleet["pods"]
     tp = indexer.token_processor
     free_at = {pid: 0.0 for pid in pods}
@@ -5324,9 +5490,13 @@ def trace_arm(params, cfg, requests, policy: str, route=trace_route) -> dict:
                 # many of the prompt's blocks, and the request lands there.
                 best = trace_route(ps.scores, rr)[0]
                 predicted = PAGE * ps.match_blocks.get(best, 0)
+                if shadow is not None:
+                    shadow.check(k, r.prompt, ps, rr)
                 pid, rr = route(ps.scores, rr)
             else:
                 pid, rr = FLEET_POD_IDS[rr % len(FLEET_POD_IDS)], rr + 1
+            if shadow is not None:
+                shadow.before_serve(k)
             done, first_s, total_s = serve_alone(pods[pid], tokens)
             rows.append(served_row(r, pid, done, first_s, total_s, free_at))
             rows[-1]["predicted"] = predicted
@@ -5334,10 +5504,16 @@ def trace_arm(params, cfg, requests, policy: str, route=trace_route) -> dict:
                 failures.append(f"request {k} on {pid}: cached {done.num_cached_tokens}, the "
                                 f"index predicted {predicted} (on {best})")
             settle(fleet)
+            if shadow is not None:
+                shadow.after_serve(k)
         failures += tier_failures(fleet) + pool_failures(fleet)
+        if shadow is not None:
+            shadow.finish()
         removed = sum(len(e.block_hashes) for batches in fleet["events"].values()
                       for b in batches for e in b.events if isinstance(e, BlockRemoved))
     finally:
+        if shadow is not None:
+            shadow.close()
         close_fleet(fleet)
     return dict(summary=replay_summary(rows), rows=rows, failures=failures,
                 removed_blocks=removed, routes={p: sum(r["pod"] == p for r in rows)
@@ -5368,8 +5544,10 @@ def phase_sharegpt(params, cfg) -> dict:
                                                for r in requests], subset)
     torch.cuda.empty_cache()
     reset_launch_counts()
-    arms = {policy: trace_arm(params, cfg, requests, policy)
-            for policy in ("precise", "round_robin")}
+    # Phase 17a rides on the precise arm: replicas beside its Indexer.
+    arms = {"precise": cluster_arm(params, cfg, requests)}
+    arms["precise"]["cluster"]["launches"] = launch_counts()
+    arms["round_robin"] = trace_arm(params, cfg, requests, "round_robin")
     launches = launch_counts()
     off = [k for k, w in zip(subset, want) if arms["precise"]["rows"][k]["tokens"] != w]
     if off:
@@ -5396,6 +5574,7 @@ def phase_sharegpt(params, cfg) -> dict:
         if d:
             log(f"    paired compute TTFT, precise - round robin, {name} ({len(d)} requests): "
                 f"median {statistics.median(d):.2f} ms")
+    failures += report_cluster(arms["precise"], card)
     log(f"  precise / round robin: hit rate {p['hit_rate']:.4f} vs {rr['hit_rate']:.4f} "
         f"(BASELINE.json target >= 0.8), TTFT p50 {ratio:.3f}x lower (target >= 2x); "
         f"{TRACE_ALONE - len(off)} of {TRACE_ALONE} alone checks equal; launches {launches}")
@@ -5403,9 +5582,9 @@ def phase_sharegpt(params, cfg) -> dict:
         if launches[name] <= 0:
             failures.append(f"{name} was never launched on the ShareGPT path")
     seconds = time.perf_counter() - t_phase
-    log(f"  phase 16a ran {seconds:.1f} s")
+    log(f"  phase 16a (with 17a) ran {seconds:.1f} s")
     if failures:
-        raise AssertionError(f"phase 16a: {failures[:6]}")
+        raise AssertionError(f"phase 16a/17a: {failures[:6]}")
     for arm in arms.values():
         for row in arm["rows"]:
             row.pop("tokens")
@@ -5726,6 +5905,816 @@ def phase_prediction(params, cfg) -> dict:
     return dict(arms=arms, launches=launches, card=card, seconds=seconds)
 
 
+# -- phase 17: the fleet planes' second half ------------------------------------
+
+# 17a: benchmarking/fleet_device_bench.py's --cluster-replicas wiring (N
+# partition-gated replicas beside the monolithic Indexer, fed the same
+# messages) over phase 16a's precise arm; one replica restarts warm halfway.
+CLUSTER_REPLICAS = 3
+# Messages of its pods digested before the snapshot that the restarted
+# replica is handed again with its tail: the snapshot's seq floors must drop
+# each.
+CLUSTER_OVERLAP = 8
+# A fan-out deadline no CPU stall reaches: a late replica would show as a
+# missing partition, a failure, not as a slower answer.
+CLUSTER_SCATTER_TIMEOUT_S = 120.0
+
+
+def entry_rows(index) -> set:
+    """(model, request key hash, pod, tier) for every entry of the index."""
+    return {(m, h, pod, tier) for m, h, pods in index.export_view().entries for pod, tier in pods}
+
+
+def engine_rows(index) -> set:
+    return set(index.export_view().engine_map)
+
+
+class ClusterShadow:
+    """Phase 17a beside phase 16a's precise arm: `CLUSTER_REPLICAS`
+    partition-gated IndexerReplicas (each its own Indexer over the fleet's
+    tokenization pool, its pool gated by `ReplicaPartitioner.accepts`, a
+    FleetHealthTracker on a frozen clock for its seq watermarks) get every
+    message the fleet's pool gets, in order; a ClusterScorer over them and
+    a single-region GlobalRouter over the monolithic Indexer answer every
+    precise route. Halfway through, the replica holding the most entries
+    snapshots, shuts down, misses one request's messages and restarts warm
+    from the CBOR file plus the journal since its `CLUSTER_OVERLAP`-th last
+    message. Failures are collected in `failures`."""
+
+    def __init__(self, snapshot_path: str, scorer_cls=ClusterScorer):
+        self.snapshot_path = snapshot_path
+        self.scorer_cls = scorer_cls
+        self.journal, self.failures = [], []
+        self.replicas, self.down, self.fleet = [], set(), None
+        self.compared = self.router_compared = 0
+        self.restart = None
+
+    def _replica(self, rid: int):
+        indexer = Indexer(IndexerConfig(token_processor_config=TokenProcessorConfig(
+            block_size=PAGE)), tokenization_pool=self.fleet["indexer"].tokenizers_pool)
+        rep = IndexerReplica(
+            indexer, ClusterConfig(num_replicas=CLUSTER_REPLICAS, replica_id=rid,
+                                   snapshot_path=self.snapshot_path),
+            pool_config=EventPoolConfig(concurrency=2),
+            health_tracker=FleetHealthTracker(FleetHealthConfig(), clock=lambda: 0.0))
+        rep.start()
+        return rep
+
+    def attach(self, fleet, n_requests: int) -> None:
+        self.fleet, self.half = fleet, n_requests // 2
+        self.replicas = [self._replica(rid) for rid in range(CLUSTER_REPLICAS)]
+        for msg in self.journal:  # anything published before the replicas came up
+            for rep in self.replicas:
+                rep.ingest(msg)
+        self.scorer = self.scorer_cls(
+            [LocalReplicaTransport(r.indexer) for r in self.replicas],
+            partitioner=ReplicaPartitioner(CLUSTER_REPLICAS),
+            config=ClusterConfig(num_replicas=CLUSTER_REPLICAS,
+                                 scatter_timeout_s=CLUSTER_SCATTER_TIMEOUT_S),
+            clock=lambda: 0.0)
+        self.router = GlobalRouter(FederationConfig(region_id="region-0"),
+                                   [Region("region-0", fleet["indexer"])], clock=lambda: 0.0)
+
+    def deliver(self, msg) -> None:
+        self.journal.append(msg)
+        for rid, rep in enumerate(self.replicas):
+            if rid not in self.down:
+                rep.ingest(msg)
+
+    def drain(self) -> None:
+        for rid, rep in enumerate(self.replicas):
+            if rid not in self.down:
+                rep.event_pool.drain()
+
+    def check(self, k: int, prompt: str, ps, rr: int) -> None:
+        """Request k's replicated and federated answers against the
+        monolithic Indexer's `ps` (its pool drained)."""
+        self.drain()
+        pods = list(self.fleet["pods"])
+        cs = self.scorer.get_pod_scores_ex(prompt, PROACTIVE_MODEL, pods)
+        want = (ps.scores, ps.match_blocks, ps.block_hashes)
+        if (cs.scores, cs.match_blocks, cs.block_hashes) != want:
+            self.failures.append(f"request {k}: the cluster scored {cs.scores} "
+                                 f"{cs.match_blocks}, the Indexer {ps.scores} {ps.match_blocks}")
+        self.compared += 1
+        gs = self.router.score_ex(prompt, PROACTIVE_MODEL, pods)
+        if gs.region != "region-0" or (gs.pod_scores.scores, gs.pod_scores.match_blocks) != \
+                want[:2] or trace_route(gs.pod_scores.scores, rr)[0] != trace_route(ps.scores,
+                                                                                   rr)[0]:
+            self.failures.append(f"request {k}: the single-region router picked "
+                                 f"{gs.region}/{gs.pod_scores.scores}, the Indexer {ps.scores}")
+        self.router_compared += 1
+
+    def before_serve(self, k: int) -> None:
+        if k != self.half:
+            return
+        self.drain()
+        sizes = [len(entry_rows(r.indexer.kv_block_index)) for r in self.replicas]
+        self.rid = sizes.index(max(sizes))
+        rep = self.replicas[self.rid]
+        taken = rep.take_snapshot()
+        self.snap_at = len(self.journal)
+        owned = [i for i in range(self.snap_at) if rep.partitioner.accepts(self.journal[i])]
+        self.tail_at = owned[-CLUSTER_OVERLAP] if len(owned) >= CLUSTER_OVERLAP else 0
+        rep.shutdown()
+        self.down.add(self.rid)
+        self.restart = dict(request=k, replica=self.rid, snapshot=taken)
+
+    def after_serve(self, k: int) -> None:
+        if k != self.half:
+            return
+        self.fleet["pool"].drain()
+        rep = self._replica(self.rid)
+        part = rep.partitioner
+        tail = self.journal[self.tail_at:]
+        missed = sum(part.accepts(m) for m in self.journal[self.snap_at:])
+        stats = rep.warm_restart(tail=tail)
+        self.replicas[self.rid] = rep
+        self.down.discard(self.rid)
+        self.scorer.transports[self.rid] = LocalReplicaTransport(rep.indexer)
+        dup = sum(part.accepts(m) for m in self.journal[self.tail_at:self.snap_at])
+        owned = {r for r in entry_rows(self.fleet["index"]) if part.owns(r[2])}
+        got = entry_rows(rep.indexer.kv_block_index)
+        self.restart.update(tail=len(tail), missed=missed, duplicates=dup,
+                            replay_skipped=stats["replay_skipped"], state=rep.state,
+                            imported=stats["imported_pod_entries"], entries=len(got),
+                            owned=len(owned), seq_floors=stats["seq_floors"])
+        if stats["tail_messages"] != len(tail) or stats["replay_skipped"] != dup or \
+                rep.state != "ready" or not dup:
+            self.failures.append(f"warm restart: {self.restart}, {stats}")
+        if got != owned:
+            self.failures.append(f"warm restart: the replica holds {len(got)} entries, the "
+                                 f"Indexer {len(owned)} of its pods ({len(got - owned)} extra, "
+                                 f"{len(owned - got)} missing)")
+
+    def finish(self) -> None:
+        self.drain()
+        union, engine = set(), set()
+        for rep in self.replicas:
+            union |= entry_rows(rep.indexer.kv_block_index)
+            engine |= engine_rows(rep.indexer.kv_block_index)
+        mono = entry_rows(self.fleet["index"])
+        self.union = dict(replica_entries=len(union), indexer_entries=len(mono),
+                          engine_rows=len(engine),
+                          indexer_engine_rows=len(engine_rows(self.fleet["index"])))
+        if union != mono:
+            self.failures.append(f"the replicas' union holds {len(union)} entries, the Indexer "
+                                 f"{len(mono)} ({len(union - mono)} extra, {len(mono - union)} "
+                                 f"missing)")
+        if not engine <= engine_rows(self.fleet["index"]):
+            self.failures.append("the replicas map engine keys the Indexer does not")
+        filtered = [rep.event_pool.filtered_events for rep in self.replicas]
+        self.union["filtered"] = filtered
+
+    def close(self) -> None:
+        if hasattr(self, "scorer"):
+            self.scorer.close()
+        for rid, rep in enumerate(self.replicas):
+            if rid not in self.down:
+                rep.shutdown()
+
+    def readings(self) -> dict:
+        return dict(compared=self.compared, router_compared=self.router_compared,
+                    restart=self.restart, union=getattr(self, "union", None),
+                    scatter=self.scorer.status()["scatter_calls"] if hasattr(self, "scorer")
+                    else 0, failures=self.failures)
+
+
+def release_device() -> None:
+    """Collect the pods earlier arms left in reference cycles (a pod and its
+    event sink, tier store and connector refer to each other, so no
+    refcount frees their device pages) and return the cached blocks."""
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def cluster_failures(shadow, n_requests: int) -> list:
+    out = list(shadow.failures)
+    if shadow.compared != n_requests or shadow.router_compared != n_requests:
+        out.append(f"{shadow.compared} cluster and {shadow.router_compared} router answers "
+                   f"compared of {n_requests} requests")
+    if shadow.restart is None or "replay_skipped" not in shadow.restart:
+        out.append("the replica never restarted")
+    return out
+
+
+def cluster_arm(params, cfg, requests, scorer_cls=ClusterScorer) -> dict:
+    """Phase 16a's precise arm with phase 17a's shadow: the arm and the
+    shadow's readings, and both's failures. The restarted replica's snapshot
+    is a file of its own under the package's build/ directory (git ignores
+    it), removed after the arm."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, path = tempfile.mkstemp(prefix="phase17a-", suffix=".cbor", dir=_build.BUILD_DIR)
+    os.close(fd)
+    try:
+        shadow = ClusterShadow(path, scorer_cls=scorer_cls)
+        arm = trace_arm(params, cfg, requests, "precise", shadow=shadow)
+    finally:
+        os.unlink(path)
+    arm["cluster"] = shadow.readings()
+    arm["cluster"]["failures"] = cluster_failures(shadow, len(requests))
+    return arm
+
+
+def report_cluster(arm: dict, card: str) -> list:
+    c = arm["cluster"]
+    log(f"== phase 17a: {CLUSTER_REPLICAS} partition-gated indexer replicas and a "
+        f"single-region GlobalRouter beside phase 16a's precise arm ({card}): "
+        f"{c['compared']} requests scored by the ClusterScorer ({c['scatter']} scatter calls) "
+        f"and the router; a replica restarted warm: {c['restart']}; union {c['union']}; "
+        f"{len(c['failures'])} failures")
+    return [f"17a: {f}" for f in c["failures"]]
+
+
+# 17b: bench.py --geo's federation (its trace, sketch, digest cadence and
+# windows, GEO_LOST_REGION lost at GEO_LOSS_AT_FRAC of the span), cut to two
+# regions of two pods and a trace of 16 sessions (48 requests).
+GEO = dict(n_regions=2, n_sessions=16, seed=42, day_period_s=120.0, diurnal_amplitude=0.85,
+           session_rate_per_s=2.4, prefixes_per_region=2, prefix_words=900, max_turns=5)
+GEO_MAX_REQUESTS = 48
+GEO_REGION_PODS = 2
+# The region lost: the cut trace's last requests (after the loss is detected)
+# are homed in region-0, so losing it sends them to the failover successor.
+GEO_LOST_REGION = "region-0"
+GEO_LOSS_AT_FRAC = 0.55
+GEO_FEDERATION = dict(digest_interval_s=4.0, digest_suspect_after_s=8.0,
+                      digest_stale_after_s=12.0, digest_hot_k=6, digest_max_prefix_blocks=24,
+                      replicate_hot_chains=False)
+GEO_SKETCH = dict(half_life_s=60.0, top_k=24, max_prefix_blocks=24, sketch_width=1024)
+GEO_ALONE = 12  # delegated requests held to a never-evicting pod of their region
+GEO_ALONE_SEED = 17
+
+
+def geo_requests() -> tuple:
+    """The cut geo trace's requests and the trace's full request count."""
+    requests = generate_geo(GeoConfig(**GEO)).requests()
+    return requests[:GEO_MAX_REQUESTS], len(requests)
+
+
+class RegionFront:
+    """A region's precise front (its Indexer) that stops answering once the
+    region is lost."""
+
+    def __init__(self, indexer):
+        self.indexer, self.lost = indexer, False
+
+    def get_pod_scores_ex(self, prompt, model_name, pod_identifiers, lora_id=None):
+        if self.lost:
+            raise ConnectionError("region lost")
+        return self.indexer.get_pod_scores_ex(prompt, model_name, pod_identifiers,
+                                              lora_id=lora_id)
+
+
+def region_route(scores: dict, ids: list, rr: int) -> tuple:
+    """Inside a region: the top score, ties to the lowest pod; no cache
+    signal round robin over the region's pods. (pod, rr)."""
+    if not scores:
+        return ids[rr % len(ids)], rr + 1
+    best = max(scores.values())
+    return min((p for p, s in scores.items() if s == best), key=ids.index), rr
+
+
+def rendezvous_successor(home: str, regions: list, skip=()) -> str:
+    """federation/failover.py's rule, computed here: the surviving region
+    of the highest fnv64a(home:region)."""
+    return max((r for r in regions if r != home and r not in skip),
+               key=lambda r: hashing.fnv64a(f"{home}:{r}".encode("utf-8")))
+
+
+def geo_arm(params, cfg, requests, tracker_cls=RegionFailoverTracker) -> dict:
+    """Phase 17b: two regions of two flagship pods (phase 16a's pods), each
+    region an Indexer, an EventPool and a popularity tracker behind a
+    `Region`, one GlobalRouter over both on a fake clock set to each
+    arrival; digests ship at every multiple of the interval (the clock
+    visits each before the next arrival); from `loss_at` the lost region
+    ships none and its front raises. Each request is scored by `score_ex`
+    (home region from the trace), routed inside the picked region and
+    served alone. The lost region's failover state is read at every digest
+    tick and arrival."""
+    t_arm = time.perf_counter()
+    clock = FakeClock()
+    tok = TextTokenizer(cfg.vocab_size)
+    fed_cfg = FederationConfig(region_id="region-0",
+                               regions=[f"region-{r}" for r in range(GEO["n_regions"])],
+                               **GEO_FEDERATION)
+    names = fed_cfg.region_set()
+    fleets, fronts, regions, ids = {}, {}, {}, {}
+    try:
+        for r, name in enumerate(names):
+            ids[name] = [f"pod-{r * GEO_REGION_PODS + i}" for i in range(GEO_REGION_PODS)]
+            tracker = ChainPopularityTracker(PopularityConfig(**GEO_SKETCH), clock=clock)
+            fleets[name] = proactive_fleet(params, cfg, tok, **TRACE_POD, popularity=tracker,
+                                           pod_ids=ids[name])
+            fronts[name] = RegionFront(fleets[name]["indexer"])
+            regions[name] = Region(name, fronts[name], tracker=tracker,
+                                   pods_fn=lambda name=name: ids[name])
+        survivor = next(n for n in names if n != GEO_LOST_REGION)
+        router = GlobalRouter(fed_cfg, regions,
+                              derive_fn=derive_fn_from_indexer(fleets[survivor]["indexer"]),
+                              clock=clock)
+        router.failover = tracker_cls(names, suspect_after_s=fed_cfg.digest_suspect_after_s,
+                                      stale_after_s=fed_cfg.digest_stale_after_s, clock=clock)
+        loss_at = round(requests[-1].arrival_s * GEO_LOSS_AT_FRAC, 3)
+        lost, next_digest, last_lost_digest, detected = False, 0.0, None, None
+        rr = {name: 0 for name in names}
+        rows, failures, states = [], [], []
+        def at(t: float) -> None:
+            nonlocal lost, detected
+            clock.t = t
+            if not lost and t >= loss_at:
+                lost = fronts[GEO_LOST_REGION].lost = True
+            state = router.failover.state_of(GEO_LOST_REGION)
+            states.append((t, state))
+            if lost and detected is None and state == STALE:
+                detected = t
+
+        for k, req in enumerate(requests):
+            while next_digest <= req.arrival_s:
+                at(next_digest)
+                for name in names:
+                    if lost and name == GEO_LOST_REGION:
+                        continue
+                    router.ingest_digest(encode_digest(regions[name].build_digest(
+                        fed_cfg, now=clock.t)), now=clock.t)
+                    if name == GEO_LOST_REGION:
+                        last_lost_digest = clock.t
+                next_digest += fed_cfg.digest_interval_s
+            at(req.arrival_s)
+            gs = router.score_ex(req.prompt, PROACTIVE_MODEL, [], home_region=req.region,
+                                 now=clock.t)
+            tried = gs.detail.get("tried", [])
+            if detected is not None and (gs.region == GEO_LOST_REGION or
+                                         GEO_LOST_REGION in tried):
+                failures.append(f"request {k}: delegated to {GEO_LOST_REGION} after its "
+                                f"detection at {detected} s")
+            fo = gs.detail.get("failover")
+            if fo is not None and fo["target"] != rendezvous_successor(fo["home"], names):
+                failures.append(f"request {k}: failover to {fo['target']}, the rendezvous "
+                                f"successor of {fo['home']} is "
+                                f"{rendezvous_successor(fo['home'], names)}")
+            if tried and gs.region != rendezvous_successor(tried[0], names, skip=tried):
+                failures.append(f"request {k}: {tried} failed, then {gs.region}")
+            if not gs.region:
+                failures.append(f"request {k}: no region answered ({gs.detail})")
+                continue
+            pid, rr[gs.region] = region_route(gs.pod_scores.scores, ids[gs.region],
+                                              rr[gs.region])
+            tokens = tok.encode(req.prompt, PROACTIVE_MODEL).tokens
+            done, first_s, total_s = serve_alone(fleets[gs.region]["pods"][pid], tokens)
+            predicted = PAGE * gs.pod_scores.match_blocks.get(pid, 0)
+            if done.num_cached_tokens != predicted:
+                failures.append(f"request {k} on {gs.region}/{pid}: cached "
+                                f"{done.num_cached_tokens}, match_blocks say {predicted}")
+            settle(fleets[gs.region])
+            rows.append(dict(k=k, home=req.region, region=gs.region, pod=pid,
+                             cached=done.num_cached_tokens, prompt=len(tokens),
+                             tried=list(tried), failover=fo is not None, first_s=first_s,
+                             tokens=list(done.generated)))
+        # Demotion: suspect once its last digest is suspect_after old, stale
+        # once stale_after old; detected at the first reading from then on,
+        # which a digest tick bounds by one interval.
+        window = (last_lost_digest or 0.0) + fed_cfg.digest_stale_after_s
+        after = [t for t, _ in states if t >= window]
+        if detected is None or not after or detected != after[0] or \
+                detected > window + fed_cfg.digest_interval_s:
+            failures.append(f"{GEO_LOST_REGION} detected at {detected} s, its window closed at "
+                            f"{window} s (first reading past it {after[:1]})")
+        for t, st in states:
+            if t < loss_at or last_lost_digest is None:
+                continue
+            age = t - last_lost_digest
+            want = ("stale" if age >= fed_cfg.digest_stale_after_s else "suspect"
+                    if age >= fed_cfg.digest_suspect_after_s else "healthy")
+            if st != want:
+                failures.append(f"{GEO_LOST_REGION} at {t} s (digest {age:.3f} s old) is {st}, "
+                                f"not {want}")
+        seen = [st for t, st in states if t >= loss_at]
+        if "suspect" not in seen or "stale" not in seen:
+            failures.append(f"{GEO_LOST_REGION}'s states after the loss: {seen}")
+        post = [r for r in rows if r["home"] == GEO_LOST_REGION and detected is not None and
+                requests[r["k"]].arrival_s >= detected]
+        if not post or not any(r["tried"] for r in rows):
+            failures.append(f"the loss left {len(post)} requests homed in {GEO_LOST_REGION} "
+                            f"after its detection and {sum(bool(r['tried']) for r in rows)} "
+                            f"failed delegations: the bars would be vacuous")
+        failures += [f"{name}: {f}" for name in names
+                     for f in tier_failures(fleets[name]) + pool_failures(fleets[name])]
+        removed = sum(len(e.block_hashes) for f in fleets.values()
+                      for batches in f["events"].values()
+                      for b in batches for e in b.events if isinstance(e, BlockRemoved))
+        if removed:
+            failures.append(f"{removed} blocks evicted: the never-evicting bar needs pods that "
+                            f"keep every block")
+        status = router.status(now=clock.t)
+    finally:
+        for f in fleets.values():
+            close_fleet(f)
+    return dict(rows=rows, failures=failures, loss_at=loss_at, detected=detected,
+                last_lost_digest=last_lost_digest, states=states,
+                detection_s=None if detected is None else detected - loss_at,
+                routed={name: sum(r["region"] == name for r in rows) for name in names},
+                failovers=sum(r["failover"] for r in rows),
+                retried=sum(bool(r["tried"]) for r in rows),
+                hit_rate=sum(r["cached"] for r in rows) / max(1, sum(r["prompt"] for r in rows)),
+                counters=status["counters"], lost_state=status["regions"][GEO_LOST_REGION],
+                seconds=time.perf_counter() - t_arm)
+
+
+def geo_alone_failures(params, cfg, arm: dict, requests) -> list:
+    """The greedy tokens of `GEO_ALONE` seeded delegated requests against a
+    never-evicting pod of the region each went to, serving that region's
+    requests in order."""
+    tok = TextTokenizer(cfg.vocab_size)
+    rows = arm["rows"]
+    checked = set(random.Random(GEO_ALONE_SEED).sample(range(len(rows)),
+                                                        min(GEO_ALONE, len(rows))))
+    out = []
+    for name in sorted({r["region"] for r in rows}):
+        mine = [i for i, r in enumerate(rows) if r["region"] == name]
+        prompts = [tok.encode(requests[rows[i]["k"]].prompt, "").tokens for i in mine]
+        local = [j for j, i in enumerate(mine) if i in checked]
+        want = never_evicting_tokens(params, cfg, prompts, local)
+        for j, w in zip(local, want):
+            if rows[mine[j]]["tokens"] != w:
+                out.append(f"request {rows[mine[j]]['k']} on {name}: greedy tokens differ from "
+                           f"the never-evicting pod")
+    arm["alone_checked"] = sorted(rows[i]["k"] for i in checked)
+    return out
+
+
+# 17c: the transfer plane's chaos injector (kv_connectors/faults.py, wrapped
+# as bench.py's --chaos wraps each pod's client) on phase 8's peer onboard.
+CHAOS_RATE = 0.05
+CHAOS_CUT = (16, 48)  # the first corrupted block lies in this range of the prefix
+CHAOS_BREAKER = 2  # breaker_failure_threshold of the stalled client
+CHAOS_STALL_REQUESTS = 3
+
+
+class RecordingTransport(FaultyTransport):
+    """FaultyTransport that records the blocks its seeded draw damaged."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.damaged = []
+
+    def _block_corrupted(self, block_hash: int, rate: float) -> bool:
+        hit = super()._block_corrupted(block_hash, rate)
+        if hit:
+            self.damaged.append(block_hash)
+        return hit
+
+
+def chaos_seed(prefix_hashes) -> tuple:
+    """The first plan seed whose draw damages the prefix first at a block in
+    CHAOS_CUT: (seed, the damaged block indices)."""
+    probe = FaultyTransport(None, TransferFaultPlan(), clock=lambda: 0.0)
+    for seed in range(1, 1000):
+        probe.plan.seed = seed
+        bad = [i for i, h in enumerate(prefix_hashes) if probe._block_corrupted(h, CHAOS_RATE)]
+        if bad and CHAOS_CUT[0] <= bad[0] < CHAOS_CUT[1]:
+            return seed, bad
+    raise AssertionError("no seed damages the prefix inside CHAOS_CUT")
+
+
+def chaos_check(params, cfg, int8: bool, transport_cls=RecordingTransport) -> dict:
+    """Phase 17c on one page format. A source pod S (host tier, never
+    evicts) serves the first `cut` blocks of the prefix and then P
+    (exported to its ready buffer, found through the index); an onboarding
+    pod C whose `connector.client` is wrapped in the injector serves P'.
+    Corrupt with integrity on: the damaged blocks are the seeded draw's, each
+    detected, none admitted; C onboards the `cut` blocks before the first
+    and recomputes the rest, and P' (suffix logits, 32 greedy tokens) equals
+    a never-evicting pod M that served the same `cut` blocks first. Integrity
+    off: every damaged block is admitted. Stall: the breaker opens after
+    CHAOS_BREAKER charged timeouts, later fetches are skipped uncharged, and
+    each answer equals M's recompute."""
+    model = "llama-flagship-1.14b"
+    rng = np.random.default_rng(88)
+    vocab = cfg.vocab_size
+    prefix = rng.integers(0, vocab, PREFIX_TOKENS).tolist()
+    prompt_p = prefix + rng.integers(0, vocab, SUFFIX_TOKENS).tolist()
+    prompt_q = prefix + rng.integers(0, vocab, SUFFIX_TOKENS).tolist()
+    stall = [rng.integers(0, vocab, PREFIX_TOKENS + SUFFIX_TOKENS).tolist()
+             for _ in range(CHAOS_STALL_REQUESTS)]
+    stall_q = [p[:PREFIX_TOKENS] + rng.integers(0, vocab, SUFFIX_TOKENS).tolist() for p in stall]
+    index = InMemoryIndex()
+    tp = ChunkedTokenDatabase(TokenProcessorConfig(block_size=PAGE))
+    hashes = [key.chunk_hash for key in tp.tokens_to_kv_block_keys(None, prefix, "")]
+    seed, bad = chaos_seed(hashes)
+    cut = bad[0]
+    clock = FakeClock()
+    pods = []
+
+    def pod(pid, n_pages, host_tier=True):
+        def sink(batch):
+            digest_batch(index, tp, pid, model, batch)
+
+        p = EnginePod(EnginePodConfig(
+            pod_id=pid, model_name=model, n_pages=n_pages, page_size=PAGE, device_tier="gpu",
+            max_pages_per_seq=256, model_config=cfg, device=params["embed"].device,
+            use_quantized_kv=int8, enable_host_tier=host_tier,
+            transfer_cost_model=ALWAYS_TRANSFER), event_sink=sink, params=params)
+        pods.append(p)
+        return p
+
+    def onboarding_pod(pid, faults, verify):
+        c = pod(pid, 256)
+        c.set_peer_resolver(IndexBackedPeerResolver(index, model, {"pod-s": src.transfer_address},
+                                                    pid))
+        inner = c.connector.client
+        inner.config.breaker_failure_threshold = CHAOS_BREAKER
+        inner.clock = clock
+        plan = TransferFaultPlan(seed=seed, peers={tuple(src.transfer_address): faults})
+        c.connector.client = transport_cls(inner, plan, clock=clock, verify_integrity=verify)
+        return c
+
+    out, failures = dict(seed=seed, damaged_indices=bad, cut=cut), []
+    try:
+        src = pod("pod-s", 4096)
+        ttft_serve(src, prefix[:cut * PAGE])
+        p_src = ttft_serve(src, prompt_p, keep=True)
+        src.export_sequence(p_src["state"])
+        src.free(p_src["state"])
+        for q in stall:
+            r = ttft_serve(src, q, keep=True)
+            src.export_sequence(r["state"])
+            src.free(r["state"])
+        ref = pod("pod-m", 4096, host_tier=False)
+        ttft_serve(ref, prefix[:cut * PAGE])
+        want = ttft_serve(ref, prompt_q, HOST_TIER_DECODE)
+        want_stall = [ttft_serve(ref, q, HOST_TIER_DECODE) for q in stall_q]
+
+        arms = {}
+        for name, verify in (("corrupt", True), ("corrupt_integrity_off", False)):
+            c = onboarding_pod(f"pod-c-{name}", PeerTransferFaults(corrupt_rate=CHAOS_RATE),
+                               verify)
+            # The control arm's counts are its bar: its answer is not held, so
+            # it stops at its first token.
+            got = ttft_serve(c, prompt_q, HOST_TIER_DECODE if verify else 1)
+            ft = c.connector.client
+            # A block that came back damaged is asked for again (the store's
+            # fallback fetch): the draw damages it again, and it counts again.
+            damaged = ft.damaged
+            arms[name] = dict(cached=got["cached"], counters=dict(ft.counters),
+                              damaged=len(damaged), damaged_blocks=len(set(damaged)),
+                              onboards=c.tier_store.stats["onboards"],
+                              logits_equal=torch.equal(got["logits"], want["logits"]),
+                              tokens_equal=got["tokens"] == want["tokens"][:len(got["tokens"])],
+                              max_abs_logit_diff=float((got["logits"].float() -
+                                                        want["logits"].float()).abs().max()))
+            draw = {hashes[i] for i in bad}
+            if set(damaged) != draw:
+                failures.append(f"{name}: the injector damaged {len(set(damaged))} blocks, the "
+                                f"seeded draw {len(draw)}")
+            if verify:
+                want_counts = dict(corrupt_injected=len(damaged), corrupt_detected=len(damaged),
+                                   corrupt_admitted=0)
+                if {k: ft.counters[k] for k in want_counts} != want_counts:
+                    failures.append(f"{name}: counters {ft.counters}, want {want_counts}")
+                if got["cached"] != cut * PAGE or arms[name]["onboards"] != cut:
+                    failures.append(f"{name}: cached {got['cached']} after {arms[name]['onboards']} "
+                                    f"onboards; the first damaged block is {cut}")
+                if not (arms[name]["logits_equal"] and arms[name]["tokens_equal"]):
+                    failures.append(f"{name}: P' differs from the never-evicting pod "
+                                    f"({arms[name]['max_abs_logit_diff']})")
+            elif ft.counters["corrupt_admitted"] != len(bad) or len(damaged) != len(bad):
+                failures.append(f"{name}: {ft.counters['corrupt_admitted']} admitted, "
+                                f"{len(bad)} damaged")
+        c = onboarding_pod("pod-c-stall", PeerTransferFaults(stall_from_s=0.0), True)
+        got_stall = [ttft_serve(c, q, HOST_TIER_DECODE) for q in stall_q]
+        ft = c.connector.client
+        ladder = ft._timeout_ladder_s(connect=False)
+        log_rows = list(ft.fetch_log)
+        state = ft.peer_state(*src.transfer_address).breaker.state
+        arms["stall"] = dict(counters=dict(ft.counters), fetch_log=log_rows, breaker=state,
+                             cached=[g["cached"] for g in got_stall],
+                             equal=[torch.equal(g["logits"], w["logits"]) and
+                                    g["tokens"] == w["tokens"]
+                                    for g, w in zip(got_stall, want_stall)])
+        kinds = [row[3] for row in log_rows]
+        want_kinds = ["stalled"] * CHAOS_BREAKER + ["breaker_skip"] * (
+            CHAOS_STALL_REQUESTS - CHAOS_BREAKER)
+        if kinds != want_kinds or [row[2] for row in log_rows] != \
+                [ladder] * CHAOS_BREAKER + [0.0] * (CHAOS_STALL_REQUESTS - CHAOS_BREAKER):
+            failures.append(f"stall: fetches {log_rows}, want {want_kinds} at {ladder} s each "
+                            f"until the breaker opens")
+        if state != "open" or ft.counters["stalled_fetches"] != CHAOS_BREAKER:
+            failures.append(f"stall: breaker {state}, counters {ft.counters}")
+        if not all(arms["stall"]["equal"]) or any(arms["stall"]["cached"]):
+            failures.append(f"stall: answers {arms['stall']['equal']}, cached "
+                            f"{arms['stall']['cached']}")
+        out.update(arms=arms, failures=failures)
+        return out
+    finally:
+        for p in pods:
+            p.close()
+
+
+# 17d: the SLO autopilot on phase 15a. The monitor's hit-rate objective
+# counts the requests whose cached share of the prompt fell under
+# AUTOPILOT_HIT_FLOOR (bench.py's autopilot arm's objective), sampled from
+# the second wave on (the first is the cold start). Windows and controller
+# cadence in waves of RESILIENCE_STEP_S.
+AUTOPILOT_HIT_FLOOR = 0.5
+AUTOPILOT_HIT_BUDGET = 0.05
+AUTOPILOT_SLO = dict(fast_window_s=2.0, slow_window_s=4.0, burn_threshold=2.0)
+AUTOPILOT_CTRL = dict(min_interval_s=RESILIENCE_STEP_S, warmup_s=2.0, cooldown_s=1.0,
+                      decay_after_s=2.0)
+AUTOPILOT_SETTLE_TICKS = 16  # quiet ticks after the replay for the knobs to walk home
+
+
+class AutopilotRig:
+    """Phase 17d's controller on a resilience arm: an SLOMonitor over the
+    arm's hit counters, a SignalAssembler over it and the anti-entropy
+    tracker, the auditor's cadence knob, an AutopilotController on the arm's
+    fake clock. `tick(now)` checks every actuation's bounds; `settle`
+    ticks on after the replay until every knob is home."""
+
+    def __init__(self, auditor, trust, controller_cls=AutopilotController):
+        # Its own clock: it follows the arm's wave by wave, and walks on
+        # alone after the replay (the plane's clock stays where it ended).
+        self.clock = FakeClock()
+        self.counts = [0, 0]  # (bad, total) requests since the monitor's birth
+        self.monitor = None
+        self.registry = KnobRegistry()
+        if auditor is not None:
+            auditor.register_knobs(self.registry)
+        self.baseline = {n: d["position"] for n, d in self.registry.positions().items()}
+        self.trust = trust
+        self.controller_cls = controller_cls
+        self.controller = None
+        self.applied, self.failures, self.by_wave = [], [], {}
+
+    def start(self) -> None:
+        """After the first wave: the monitor's baseline sample excludes the
+        cold start."""
+        self.monitor = SLOMonitor([SLOObjective(
+            name=OBJECTIVE_HIT_RATE, description=f"requests with a cached share under "
+            f"{AUTOPILOT_HIT_FLOOR}", budget=AUTOPILOT_HIT_BUDGET,
+            counts_fn=lambda: tuple(self.counts))], SLOConfig(**AUTOPILOT_SLO), clock=self.clock)
+        self.controller = self.controller_cls(
+            self.registry, SignalAssembler(slo_monitor=self.monitor, antientropy=self.trust,
+                                           clock=self.clock),
+            config=AutopilotConfig(**AUTOPILOT_CTRL), clock=self.clock)
+
+    def served(self, now: float, cached: int, prompt: int) -> None:
+        if self.monitor is not None:
+            bad = cached < AUTOPILOT_HIT_FLOOR * prompt
+            self.counts[0] += bad
+            self.counts[1] += 1
+            wave = self.by_wave.setdefault(now, [0, 0])
+            wave[0] += bad
+            wave[1] += 1
+
+    def tick(self, now: float) -> list:
+        if self.controller is None:
+            return []
+        self.clock.t = now
+        applied = self.controller.tick(now)
+        self.applied += applied
+        for t, rule, name, direction, delta, pos in applied:
+            spec = self.registry.get(name).spec
+            if abs(delta) > spec.max_step + 1e-12 or not spec.floor <= pos <= spec.ceiling:
+                self.failures.append(f"{t} s: {rule} moved {name} by {delta} to {pos}, bounds "
+                                     f"[{spec.floor}, {spec.ceiling}] step {spec.max_step}")
+        for name, doc in self.registry.positions().items():
+            spec = self.registry.get(name).spec
+            if not spec.floor <= doc["position"] <= spec.ceiling:
+                self.failures.append(f"{now} s: {name} at {doc['position']}, outside "
+                                     f"[{spec.floor}, {spec.ceiling}]")
+        return applied
+
+    def settle(self, now: float) -> float:
+        for _ in range(AUTOPILOT_SETTLE_TICKS):
+            if self.registry.at_baseline() and self.applied:
+                break
+            now += RESILIENCE_STEP_S
+            self.tick(now)
+        return now
+
+    def readings(self) -> dict:
+        journal = list(self.controller.journal) if self.controller is not None else []
+        if journal != self.applied:
+            self.failures.append(f"the journal {journal} is not the actuations {self.applied}")
+        return dict(actuations=len(self.applied), journal=journal,
+                    reverts=sum(e[3] == "revert" for e in journal),
+                    at_baseline=self.registry.at_baseline(), baseline=self.baseline,
+                    final={n: d["position"] for n, d in self.registry.positions().items()},
+                    counts=list(self.counts), by_wave=dict(self.by_wave),
+                    status=self.controller.status()["rules"] if self.controller else None,
+                    failures=self.failures)
+
+
+def phase_cluster(params, cfg) -> dict:
+    """Phase 17a alone (`--phases 17a`): phase 16a's precise arm with the
+    replicas beside it (the full run's 16a carries it)."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    release_device()
+    reset_launch_counts()
+    arm = cluster_arm(params, cfg, sharegpt_requests())
+    arm["cluster"]["launches"] = launch_counts()
+    failures = report_cluster(arm, card) + [f"16a precise: {f}" for f in arm["failures"]]
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 17a ran {seconds:.1f} s; launches {arm['cluster']['launches']}")
+    if failures:
+        raise AssertionError(f"phase 17a: {failures[:6]}")
+    return dict(cluster=arm["cluster"], summary=arm["summary"], seconds=seconds)
+
+
+def phase_geo(params, cfg) -> dict:
+    requests, n_all = geo_requests()
+    log(f"== phase 17b: two regions of {GEO_REGION_PODS} bf16 flagship pods "
+        f"({TRACE_POD['n_pages']} pages of {PAGE}) under one GlobalRouter on a fake clock; the "
+        f"geo trace {GEO} cut from {n_all} to its first {len(requests)} requests; "
+        f"{GEO_LOST_REGION} lost at {GEO_LOSS_AT_FRAC} of the span; federation "
+        f"{GEO_FEDERATION}; sketch {GEO_SKETCH}")
+    t_phase = time.perf_counter()
+    card = card_line()
+    release_device()
+    reset_launch_counts()
+    arm = geo_arm(params, cfg, requests)
+    launches = launch_counts()
+    failures = list(arm["failures"]) + geo_alone_failures(params, cfg, arm, requests)
+    log(f"  ({card}): loss at {arm['loss_at']} s, {GEO_LOST_REGION}'s last digest "
+        f"{arm['last_lost_digest']} s, detected stale at {arm['detected']} s "
+        f"({arm['detection_s']} s after the loss); routed {arm['routed']}, "
+        f"{arm['failovers']} failovers, {arm['retried']} failed delegations retried; hit rate "
+        f"{arm['hit_rate']:.4f}; counters {arm['counters']}; {GEO_LOST_REGION} "
+        f"{arm['lost_state']}; never-evicting checks on requests {arm['alone_checked']}; "
+        f"launches {launches}; {arm['seconds']:.1f} s; {len(failures)} failures")
+    for name in ("paged_decode", "flash_prefill"):
+        if launches[name] <= 0:
+            failures.append(f"{name} was never launched on the federation path")
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 17b ran {seconds:.1f} s")
+    if failures:
+        raise AssertionError(f"phase 17b: {failures[:6]}")
+    for row in arm["rows"]:
+        row.pop("tokens")
+    arm.pop("states")
+    return dict(arm=arm, launches=launches, card=card, seconds=seconds)
+
+
+def phase_chaos(params, cfg) -> dict:
+    log(f"== phase 17c: phase 8's peer onboard under the transfer plane's chaos injector "
+        f"(the onboarding pod's client wrapped in FaultyTransport; corrupt rate {CHAOS_RATE}, "
+        f"the first damaged block in {CHAOS_CUT}; a stall with breaker threshold "
+        f"{CHAOS_BREAKER} over {CHAOS_STALL_REQUESTS} requests), bf16 and int8 pages")
+    t_phase = time.perf_counter()
+    card = card_line()
+    out, failures = {}, []
+    reset_launch_counts()
+    for int8 in (False, True):
+        fmt = "int8" if int8 else "bf16"
+        release_device()
+        r = chaos_check(params, cfg, int8)
+        failures += [f"{fmt}: {f}" for f in r.pop("failures")]
+        for name, arm in r["arms"].items():
+            log(f"  {fmt} {name} ({card}): " + ", ".join(
+                f"{k} {v}" for k, v in arm.items() if k != "fetch_log"))
+        log(f"  {fmt}: plan seed {r['seed']}, damaged prefix blocks {r['damaged_indices']}; "
+            f"stall fetches {r['arms']['stall']['fetch_log']}")
+        out[fmt] = r
+    launches = launch_counts()
+    for name in ("paged_decode", "paged_decode_int8", "flash_prefill"):
+        if launches[name] <= 0:
+            failures.append(f"{name} was never launched on the transfer chaos path")
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 17c ran {seconds:.1f} s; launches {launches}")
+    if failures:
+        raise AssertionError(f"phase 17c: {failures[:6]}")
+    return dict(formats=out, launches=launches, card=card, seconds=seconds)
+
+
+def phase_autopilot(params, cfg, seed: int) -> dict:
+    """Phase 17d alone (`--phases 17d`): phase 15a's no-fault arm without the
+    autopilot and with it, held equal, then the faulted autopilot arm (the
+    full run's 15a carries the latter two)."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    release_device()
+    waves = multitenant_traffic(seed, cfg.vocab_size, RESILIENCE_WAVES)
+    bare = resilience_arm(params, cfg, waves, dict(seed=0, pods={}), True)
+    healthy = resilience_arm(params, cfg, waves, dict(seed=0, pods={}), True,
+                             autopilot=AutopilotController)
+    reset_launch_counts()
+    out = autopilot_arms(params, cfg, waves, healthy, bare)
+    out["launches"] = launch_counts()
+    failures = out.pop("failures") + [f"no_faults: {f}" for arm in (bare, healthy)
+                                      for f in arm["failures"]]
+    report_autopilot(out, healthy, card)
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 17d ran {seconds:.1f} s")
+    if failures:
+        raise AssertionError(f"phase 17d: {failures[:6]}")
+    for arm in out["arms"].values():
+        arm.pop("states", None)
+        arm.pop("trace", None)
+    return dict(out, seconds=seconds)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5733,7 +6722,7 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", default=None,
                         help="comma-separated phases to run after the build (3 4 5 5b 5c 6 7a "
                         "7b 8a 8 9a 9b 10a 10b 11a 11b 12a 12b 13 14a 14b 15a 15b 16a 16b "
-                        "16c; 9b and "
+                        "16c 17a 17b 17c 17d; 9b and "
                         "10b run 7b's deltas first, 14a and 15b run 12a first); a partial run "
                         "prints no "
                         "kernels or ok line")
@@ -5802,6 +6791,8 @@ def main(argv=None) -> int:
     proactive = {"sharegpt": phase_sharegpt(params, cfg),
                  "placement": phase_placement(params, cfg),
                  "prediction": phase_prediction(params, cfg)}
+    federation = phase_geo(params, cfg)
+    chaos = phase_chaos(params, cfg)
     del params
     torch.cuda.empty_cache()
     governor = phase_governor(args.seed, control)
@@ -5833,6 +6824,14 @@ def main(argv=None) -> int:
         by_path[name]["fleet_health"] = resilience["launches"][name]
         # Phase 16's bf16 pods, rows 1 and 5: 16a-16c, each counted from 0.
         by_path[name]["sharegpt"] = sum(p["launches"][name] for p in proactive.values())
+        # Phase 17's: 17a's replicated arm (16a's precise arm, inside the
+        # count above), 17b's two regions, 17d's two autopilot arms.
+        by_path[name]["cluster"] = proactive["sharegpt"]["arms"]["precise"]["cluster"][
+            "launches"][name]
+        by_path[name]["federation"] = federation["launches"][name]
+        by_path[name]["autopilot"] = resilience["autopilot"]["launches"][name]
+    for name in ("paged_decode", "paged_decode_int8", "flash_prefill"):  # 17c, both formats
+        by_path[name]["transfer_chaos"] = chaos["launches"][name]
     for row in ("paged_decode_tiled", "paged_decode_tiled_int8"):
         by_path[row] = {"batched_decode": batched["checks"][row]["launches"],
                         "moe_batched_decode": moe["logits"][row]["launches"],
@@ -5859,7 +6858,8 @@ def main(argv=None) -> int:
                     "mixtral_attention_shape": mixtral_times, "moe_small": moe_small, "moe": moe,
                     "control_plane": control, "native_control_plane": native,
                     "fleet": fleet, "read_plane": read_plane, "resilience": resilience,
-                    "governor": governor, "proactive": proactive,
+                    "governor": governor, "proactive": proactive, "federation": federation,
+                    "transfer_chaos": chaos,
                     "qwen_attention_shapes": qwen_times, "qwen": qwen,
                     "build_s": build_s, "run_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
@@ -5898,6 +6898,10 @@ def partial_run(phases, gen, cfg, seed: int = 0) -> int:
         "16a": lambda: phase_sharegpt(params, cfg),
         "16b": lambda: phase_placement(params, cfg),
         "16c": lambda: phase_prediction(params, cfg),
+        "17a": lambda: phase_cluster(params, cfg),
+        "17b": lambda: phase_geo(params, cfg),
+        "17c": lambda: phase_chaos(params, cfg),
+        "17d": lambda: phase_autopilot(params, cfg, seed),
         "15b": lambda: phase_governor(seed, out["12a"]),
     }
     for phase in phases:

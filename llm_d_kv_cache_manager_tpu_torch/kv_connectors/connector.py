@@ -811,6 +811,32 @@ class TransferClient:
                     best, best_cover = result, cover
             return best if best is not None else [None] * len(block_hashes)
 
+    def register_knobs(self, registry) -> None:
+        """Publish the hedge delay floor to the autopilot
+        (autopilot/knobs.py). The per-peer hedge delay is EWMA-derived
+        and clamped to [floor, cap] on every fetch, so lowering the
+        floor is the config surface that launches hedges earlier when
+        breakers are tripping. Bounds: [1ms, cap] — a hedge can never
+        fire before the wire could plausibly answer, and the controller
+        can never push the floor past the operator's cap."""
+        from llm_d_kv_cache_manager_tpu_torch.autopilot.knobs import (
+            KNOB_TRANSFER_HEDGE_FLOOR,
+            KnobSpec,
+        )
+
+        cfg = self.config
+        registry.register(
+            KnobSpec(
+                name=KNOB_TRANSFER_HEDGE_FLOOR,
+                floor=min(0.001, cfg.hedge_delay_floor_s),
+                ceiling=cfg.hedge_delay_cap_s,
+                max_step=max(cfg.hedge_delay_floor_s / 2.0, 0.001),
+                description="minimum delay before a hedged fetch launches",
+            ),
+            get=lambda: cfg.hedge_delay_floor_s,
+            set_=lambda v: setattr(cfg, "hedge_delay_floor_s", float(v)),
+        )
+
     # -- introspection -----------------------------------------------------
 
     def status(self) -> dict:

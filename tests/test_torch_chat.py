@@ -38,6 +38,7 @@ def _pkg(pkg):
         chat="preprocessing.chat_completions", tok="tokenization.tokenizer",
         tpool="tokenization.pool", uds="tokenization.uds_client", indexer="kvcache.indexer",
         tp="kvcache.kvblock.token_processor", ev="kvevents.events", pool="kvevents.pool",
+        hashing="kvcache.kvblock.hashing",
     )
     return SimpleNamespace(name=pkg, **{
         k: importlib.import_module(f"{pkg}.{v}") for k, v in mods.items()})
@@ -268,6 +269,18 @@ def _chat_indexer(p):
     return indexer, tokens
 
 
+def _own_core(p, explain):
+    """The explain document with the chain memo's "native" flag replaced by
+    whether it tells the truth about package `p`'s own C hash core: the
+    port builds its core on first use, the JAX package's is loaded only
+    where it was built, so the raw flags differ between checkouts."""
+    memo = dict(explain["chain_memo"])
+    stats = dict(memo["stats"])
+    stats["native"] = stats["native"] == p.hashing.have_native()
+    memo["stats"] = stats
+    return {**explain, "chain_memo": memo}
+
+
 def test_indexer_render_request_matches_jax():
     """get_pod_scores(_ex), explain_scores and score_many with a render
     request: the same tokens, scores, match lengths and chains."""
@@ -292,7 +305,7 @@ def test_indexer_render_request_matches_jax():
             indexer.shutdown()
         assert ex.scores["pod-a"] > ex.scores["pod-b"] > 0
         outs.append((tokens, ex.scores, ex.match_blocks, ex.block_hashes, plain,
-                     {k: v for k, v in explain.items() if k != "timings"},
+                     _own_core(p, {k: v for k, v in explain.items() if k != "timings"}),
                      [(m.scores, m.match_blocks, m.block_hashes) for m in many]))
     assert outs[1] == outs[0]
 

@@ -507,7 +507,50 @@ def test_resilience_plane_imports_without_the_wire_libraries():
         "    sys.modules[lib] = None\n"
         f"for m in {RESILIENCE_MODULES!r}:\n"
         f"    importlib.import_module({(PORT.name + '.')!r} + m)\n"
-        "bad = [m for m in sys.modules if '.metrics' in m or '.obs' in m]\n"
+        f"bad = [m for m in sys.modules if '.metrics' in m or ('.obs' in m and m not in {SLO!r})]\n"
+        "print('BAD', bad)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0 and "BAD []" in proc.stdout, proc.stdout + proc.stderr
+
+
+# The fleet planes' second half: replicated indexers, the region tier, the
+# transfer plane's chaos injector and the SLO autopilot. The SLO monitor
+# (obs/slo.py, the obs package's only module) is the one obs module they load.
+SLO = (f"{PORT.name}.obs", f"{PORT.name}.obs.slo")
+FLEET_PLANE_MODULES = [
+    "utils.cbor", "obs", "obs.slo", "autopilot.signals", "autopilot.controller", "api",
+    "api.admission", "kv_connectors.faults", "cluster", "cluster.partition", "cluster.snapshot",
+    "cluster.replica", "cluster.scorer", "cluster.membership", "federation",
+    "federation.digest", "federation.region", "federation.failover", "federation.router",
+]
+
+
+# Ids as paths, as above: a bare "cluster" or "federation" keyword is one
+# tests/conftest.py skips when grpcio is missing.
+@pytest.mark.parametrize("module", FLEET_PLANE_MODULES, ids=lambda m: m.replace(".", "/") + ".py")
+def test_fleet_plane_modules_are_checked(module):
+    """Each module of the fleet planes' second half is among the modules the
+    import checks above load and parse."""
+    rel = module.replace(".", "/")
+    path = PORT / rel / "__init__.py" if (PORT / rel).is_dir() else PORT / (rel + ".py")
+    assert path in _port_files()
+
+
+def test_fleet_plane_imports_without_the_wire_libraries():
+    """With jax, grpc, aiohttp, transformers, zmq, msgpack, xxhash and
+    tokenizers blocked, each module of the fleet planes' second half imports
+    and loads no metrics or tracing module."""
+    code = (
+        "import importlib, sys\n"
+        f"for lib in {WIRE_LIBRARIES + ('jax', 'prometheus_client', 'grpc', 'aiohttp')!r}:\n"
+        "    sys.modules[lib] = None\n"
+        f"for m in {FLEET_PLANE_MODULES!r}:\n"
+        f"    importlib.import_module({(PORT.name + '.')!r} + m)\n"
+        f"bad = [m for m in sys.modules if '.metrics' in m or ('.obs' in m and m not in {SLO!r})]\n"
         "print('BAD', bad)\n"
     )
     proc = subprocess.run(

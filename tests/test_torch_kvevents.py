@@ -295,8 +295,10 @@ def _scenario_digest(m):
 
 
 def _scenario_sharding(m):
-    """fnv32a(pod) % concurrency decides each message's queue."""
-    pool = _pool(m, concurrency=4)
+    """fnv32a(pod) % concurrency decides each message's queue. The key's pod
+    cache holds all 12 pods: with the default 10, which pods survive would
+    depend on the order the four workers run."""
+    pool = _pool(m, index=m.new_index(pods=12), concurrency=4)
     pods = [f"pod-{i}" for i in range(12)]
     batch = m.ev.EventBatch(0.0, [m.ev.BlockStored([1], None, [1, 2, 3, 4], 4)])
     for i, pod in enumerate(pods):

@@ -47,8 +47,10 @@ from tests.test_torch_fleethealth import (
 WAITS = {
     "TestInstrumentedIndex": "kvblock/instrumented.py and metrics.collector (ROADMAP.md queue 1 "
                              "item 7)",
-    "TestClusterReplicasEquivalence": "cluster/ (ROADMAP.md queue 1 item 5) and bench.py's "
-                                      "FleetSim",
+    "TestClusterReplicasEquivalence":
+        "bench.py's FleetSim, the benchmark's own code, which is not ported (chip_smoke.py "
+        "phase 17a and tests/test_torch_cluster.py's rehearsal of it make the claim, cluster "
+        "scoring bit-identical to a monolithic indexer, on the port's pods)",
     "TestPlacementEndToEnd::test_replication_lands_blocks_and_disabled_is_bit_identical":
         "bench.py's FleetSim, the benchmark's own code, which is not ported "
         "(test_phase_16b_arms_rehearse_the_end_to_end_claims makes its claims on the port's pods)",

@@ -6,8 +6,9 @@ the JAX package's, on the same inputs.
   accountant, the governor's config, pressure state machine, shed ladder and
   restore, its budget knob, the reaper, each tracker's `forget_pod`, the
   transfer client's peer bounding and the shed/rewarm bit identity.
-- tests/test_autopilot.py's `TestKnobs` and the auditor's, the prediction
-  scheduler's and the replicator's registered knobs, on both packages.
+- tests/test_autopilot.py's `TestKnobs` and the admission gate's, the
+  auditor's, the prediction scheduler's and the replicator's registered
+  knobs, on both packages.
 - A governor over the seeded fault stream of tests/test_torch_fleethealth.py
   (meters on the index, the chain memo, the prefix store, fleet health, load
   and anti-entropy; a budget a quarter of the accounted bytes; a pod leaving
@@ -66,11 +67,13 @@ def test_every_governor_case_is_taken():
     assert len(waiting) == 3
 
 
-# tests/test_autopilot.py: the knob registry and the auditor's, the
-# prediction scheduler's and the replicator's registered knobs. The
-# controller, the signal assembler and the service wiring wait for
-# autopilot/{controller,signals}.py and api/ (ROADMAP.md queue 1 items 5, 7).
-REGISTERED_KNOBS = ("test_auditor_knob_tightens_the_live_cadence",
+# tests/test_autopilot.py: the knob registry and the admission gate's, the
+# auditor's, the prediction scheduler's and the replicator's registered
+# knobs. The controller, the signal assembler, the burn history and the
+# healthy bit identity run in tests/test_torch_autopilot.py; the service
+# wiring waits for api/ (ROADMAP.md queue 1 item 7).
+REGISTERED_KNOBS = ("test_admission_knob_widens_the_live_waiting_line",
+                    "test_auditor_knob_tightens_the_live_cadence",
                     "test_prediction_jobs_floor_is_one_not_zero",
                     "test_replicator_registers_both_placement_knobs")
 KNOB_CASES = [c for c in reference_cases("test_autopilot.py", {})
@@ -86,7 +89,7 @@ def test_knob_case_on_both_packages(case, pkg, request):
 
 
 def test_knob_cases_taken():
-    assert len(KNOB_CASES) == 9
+    assert len(KNOB_CASES) == 10
 
 
 # -- a governor over the seeded fault stream -----------------------------------
