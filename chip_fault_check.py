@@ -94,6 +94,14 @@ pages); and PastCeilingController, an autopilot that steps around a knob's
 clamp past its ceiling (it must fail 17d's bounds bar on 15a's faulted
 arm).
 
+Phase 18a's bars (the HTTP service routing 16a's precise arm, the whole
+trace) are held to the real service and to three planted faults: DroppingPoolService,
+a service whose event pool drops every 50th message (it must fail the bar
+that every answer equals the Indexer's); SkippingCounter, the lookup
+counter skipping every 7th increment (it must fail the /metrics counts the
+CPU rehearsal predicts); and every_other_trace, a flight recorder that
+drops every other completed trace (it must fail the read-trace count).
+
 Phase 8b's bit-identical check (P' restored from the host store on a tight
 bf16 pod against the same prompt on a pod that never evicts: suffix logits
 and 32 greedy tokens) is held to the real tree and to a planted codec fault,
@@ -119,6 +127,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import itertools
 import json
 import math
 import subprocess
@@ -127,6 +136,8 @@ import sys
 import torch
 
 import chip_smoke
+from llm_d_kv_cache_manager_tpu_torch import obs
+from llm_d_kv_cache_manager_tpu_torch.api import http_service
 from llm_d_kv_cache_manager_tpu_torch.engine import engine as engine_mod
 from llm_d_kv_cache_manager_tpu_torch.engine.engine import EnginePod
 from llm_d_kv_cache_manager_tpu_torch.engine.scheduler import Scheduler
@@ -144,7 +155,9 @@ from llm_d_kv_cache_manager_tpu_torch.kv_connectors.prefetch import RoutePrefetc
 from llm_d_kv_cache_manager_tpu_torch.kvcache.indexer import PodScores
 from llm_d_kv_cache_manager_tpu_torch.kvevents import pool as pool_mod
 from llm_d_kv_cache_manager_tpu_torch.kvevents.events import BlockRemoved, EventBatch
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics_collector
 from llm_d_kv_cache_manager_tpu_torch.models import llama, mixtral
+from llm_d_kv_cache_manager_tpu_torch.obs import spans as spans_mod
 from llm_d_kv_cache_manager_tpu_torch.ops import _build
 from llm_d_kv_cache_manager_tpu_torch.placement import HotPrefixReplicator
 from llm_d_kv_cache_manager_tpu_torch.prediction import SessionTable
@@ -738,6 +751,94 @@ FLEET_PLANE_FAULTS = {  # planted fault -> the count of its bar's failures that 
 FLEET_PLANE_REAL = ("cluster_real", "federation_real", "chaos_real", "autopilot_real")
 
 
+SERVICE_DROP_EVERY = 50
+SERVICE_SKIP_EVERY = 7
+
+
+class DroppingPoolService(http_service.ScoringService):
+    """A planted service fault: its event pool drops every 50th message."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        add, count = self.event_pool.add_task, itertools.count(1)
+
+        def add_task(msg):
+            if next(count) % SERVICE_DROP_EVERY:
+                add(msg)
+
+        self.event_pool.add_task = add_task
+
+
+class SkippingCounter:
+    """A planted collector fault: a counter that skips every 7th increment
+    (swapped in for the lookup counter the instrumented index bumps)."""
+
+    def __init__(self, counter):
+        self.counter = counter
+        self.count = itertools.count(1)
+
+    def inc(self, amount: float = 1) -> None:
+        if next(self.count) % SERVICE_SKIP_EVERY:
+            self.counter.inc(amount)
+
+    def __getattr__(self, name):
+        return getattr(self.counter, name)
+
+
+def every_other_trace(submit):
+    """A planted recorder fault: the flight recorder keeps every other
+    completed trace."""
+    count = itertools.count()
+
+    def dropping(trace):
+        if next(count) % 2 == 0:
+            submit(trace)
+
+    return dropping
+
+
+def run_service_bars(params, cfg) -> dict:
+    """Phase 18a's bars on the real service and on its three planted faults,
+    each over 16a's whole trace (its 145 messages: a pool that drops every
+    50th loses two)."""
+    requests = chip_smoke.sharegpt_requests()
+    out = {}
+
+    def run(label, **kw):
+        arm = chip_smoke.service_arm(params, cfg, requests, **kw)
+        fails = arm["failures"] + arm["service"]["failures"]
+        out[label] = dict(ok=not fails,
+                          score_failures=sum("the service scored" in f for f in fails),
+                          metric_failures=sum(f.startswith("18a: metrics:") for f in fails),
+                          trace_failures=sum(f.startswith("18a: read_traces:") for f in fails))
+
+    run("service_real")
+    run("pool_drops_every_50th", service_cls=DroppingPoolService)
+    metrics_collector.register_metrics()
+    real_counter = metrics_collector.index_lookup_requests
+    metrics_collector.index_lookup_requests = SkippingCounter(real_counter)
+    try:
+        run("lookup_counter_skips")
+    finally:
+        metrics_collector.index_lookup_requests = real_counter
+    real_submit = obs.get_recorder().submit
+    spans_mod._submit = every_other_trace(real_submit)
+    try:
+        run("recorder_drops_every_other_trace")
+    finally:
+        spans_mod._submit = real_submit
+    for label, r in out.items():
+        chip_smoke.log(f"  [{label}] {'ok' if r['ok'] else 'FAIL'} {r}")
+    return out
+
+
+SERVICE_FAULTS = {  # planted fault -> the count of its bar's failures that must be > 0
+    "pool_drops_every_50th": "score_failures",
+    "lookup_counter_skips": "metric_failures",
+    "recorder_drops_every_other_trace": "trace_failures",
+}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_fault_check: no CUDA device", file=sys.stderr)
@@ -825,6 +926,9 @@ def main() -> int:
                    "admits damaged blocks with integrity on, a controller that steps past a "
                    "knob's ceiling")
     fleet_plane = run_fleet_plane_bars(params, cfg)
+    chip_smoke.log("== service faults: a pool that drops every 50th message, a lookup counter "
+                   "that skips every 7th increment, a recorder that drops every other trace")
+    service = run_service_bars(params, cfg)
 
     chip_smoke.log("== MoE fault: top-1 serving (the first routed expert only, at gate 1)")
     del params, params32, models
@@ -848,9 +952,12 @@ def main() -> int:
         and read_plane["prefetch_real"]["ok"] and resilience["real"]["ok"] \
         and all(proactive[label]["ok"]
                 for label in ("sharegpt_real", "placement_real", "prediction_real")) \
-        and all(fleet_plane[label]["ok"] for label in FLEET_PLANE_REAL)
+        and all(fleet_plane[label]["ok"] for label in FLEET_PLANE_REAL) \
+        and service["service_real"]["ok"]
     fleet_plane_caught = {label: not fleet_plane[label]["ok"] and fleet_plane[label][key] > 0
                           for label, key in FLEET_PLANE_FAULTS.items()}
+    service_caught = {label: not service[label]["ok"] and service[label][key] > 0
+                      for label, key in SERVICE_FAULTS.items()}
     read_plane_caught = {label: not read_plane[label]["ok"]
                          for label in ("native_removal_blind", "prefetch_matched_prefix")}
     read_plane_caught["prefetch_matched_prefix"] &= \
@@ -894,6 +1001,7 @@ def main() -> int:
         "resilience_faults_caught": resilience_caught, "resilience_readings": resilience,
         "proactive_faults_caught": proactive_caught, "proactive_readings": proactive,
         "fleet_plane_faults_caught": fleet_plane_caught, "fleet_plane_readings": fleet_plane,
+        "service_faults_caught": service_caught, "service_readings": service,
         "scheduler_bar_readings": {label: dict(bar["worst"], delta=bar["delta"])
                                    for label, bar in bars.items()},
         "logits_ok": logits_ok, "bf16_max_row_rel_err": worst,
@@ -903,7 +1011,8 @@ def main() -> int:
                  and all(bar_caught.values()) and host_tier_caught
                  and all(serving_caught.values()) and all(read_plane_caught.values())
                  and all(resilience_caught.values()) and all(proactive_caught.values())
-                 and all(fleet_plane_caught.values())) else 1
+                 and all(fleet_plane_caught.values())
+                 and all(service_caught.values())) else 1
 
 
 if __name__ == "__main__":

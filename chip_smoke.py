@@ -14,6 +14,8 @@
                                                 # proactive planes
     python3 chip_smoke.py --phases 17a,17b,17c,17d  # the fleet planes' second
                                                     # half
+    python3 chip_smoke.py --phases 18a  # the HTTP scoring service in front
+                                        # of 16a's precise arm
 
 Phases, in order (any failure raises and the script exits non-zero):
   1. device lines: torch's device name and nvidia-smi's name + power limit;
@@ -277,7 +279,10 @@ Phases, in order (any failure raises and the script exits non-zero):
      observe-only = off; off, s0's first-turn blocks resident before its
      second turn are fewer than its blocks; on, more are resident and
      blocks were pre-landed; the second turn's greedy tokens = a
-     never-evicting pod's in every arm; its TTFT is logged;
+     never-evicting pod's in every arm; its TTFT is logged. The whole run
+     takes 16b's and 16c's off and on arms only (`FULL_RUN_PROACTIVE_ARMS`,
+     cut to make room for 18a): observe-only = off is held by
+     `--phases 16b` / `--phases 16c` and by tier-1's rehearsals;
   17a. (inside 16a's precise arm) the replicated indexers: 3 IndexerReplicas
      (each an Indexer, an EventPool gated by ReplicaPartitioner.accepts, a
      FleetHealthTracker for its seq watermarks) get every message the
@@ -320,6 +325,23 @@ Phases, in order (any failure raises and the script exits non-zero):
      autopilot: actuations, each within its knob's bounds and one max_step,
      journaled, the knob back at baseline after the faults, and 15a's
      bars;
+  18a. (inside 16a's precise arm, beside 17a) the port's HTTP scoring
+     service (api/http_service.py's ScoringService over its own Indexer,
+     the index metrics-instrumented, tracing on, admission at its
+     defaults) on 127.0.0.1 over a real socket: every message of the pods
+     also goes into the service's EventPool, in process and in order, and
+     each precise request is routed by its POST /score_completions answer
+     (http.client, a timeout). Bars: every answer equals the Indexer's
+     scores; one POST /score_completions/batch of all the prompts equals
+     that many single calls; 4 /debug/score_explain answers equal
+     /score_completions; /metrics parses as the text format 0.0.4 and its
+     lookup, admission, eviction and drop counts and the lookup-latency
+     histogram's count moved by what the CPU rehearsal predicts
+     (`SERVICE_PREDICTED`); /health is ok and /readyz 200 with the
+     predicted pod states; /debug/traces holds one read trace per request
+     (each carrying its X-Kvtpu-Trace id) with the read path's spans in the
+     reference's order (`SERVICE_READ_SPANS`); /debug/critical_path has the
+     scoring root's row;
   then a JSON line of details, one JSON line describing every kernel, and
   last: {"ok": true, "device": {...}}.
 """
@@ -329,6 +351,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import hashlib
+import http.client
 import io
 import itertools
 import json
@@ -346,6 +369,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from llm_d_kv_cache_manager_tpu_torch import obs
+from llm_d_kv_cache_manager_tpu_torch.api import http_service
+from llm_d_kv_cache_manager_tpu_torch.api.web import AppServer
 from llm_d_kv_cache_manager_tpu_torch.autopilot import (
     AutopilotConfig,
     AutopilotController,
@@ -436,6 +462,7 @@ from llm_d_kv_cache_manager_tpu_torch.kvevents.events import (
     EventBatch,
 )
 from llm_d_kv_cache_manager_tpu_torch.kvevents.pool import EventPool, EventPoolConfig, Message
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics_collector
 from llm_d_kv_cache_manager_tpu_torch.models import hf_loader, llama, lora, mixtral
 from llm_d_kv_cache_manager_tpu_torch.obs.slo import (
     OBJECTIVE_HIT_RATE,
@@ -5219,6 +5246,11 @@ PREDICTION_ARMS = {"off": None, "observe": dict(max_jobs_per_tick=0, tail_trim_b
                    "on": dict(max_jobs_per_tick=4, session_cooldown_s=1.0, start_frac=0.8,
                               tail_trim_blocks=8, default_eta_s=10.0)}
 PREDICTION_SESSION = "s0"
+# The whole run's cut, made to make room for phase 18a: 16b and 16c run
+# their off and on arms; the observe-only arm, whose bar is that it equals
+# the off arm, runs in `--phases 16b` / `--phases 16c` and in tier-1's
+# rehearsals (tests/test_torch_{placement,prediction}.py).
+FULL_RUN_PROACTIVE_ARMS = ("off", "on")
 # The rehearsal's model: the flagship's vocabulary at a CPU's width (tier-1
 # runs the three phases' arms on it: tests/test_torch_{workloads,placement,
 # prediction}.py).
@@ -5461,8 +5493,10 @@ def trace_arm(params, cfg, requests, policy: str, route=trace_route, shadow=None
     each. Bars: a precise request's cached tokens = 16 x the index's
     match_blocks for its top-scored pod (the router's prediction comes
     true), and after the replay every pod's indexed blocks = its committed
-    pages. A `shadow` (phase 17a's `ClusterShadow`) gets every message of
-    the pods and holds its replicated answers to each precise route."""
+    pages. A `shadow` (phase 17a's `ClusterShadow`, phase 18a's
+    `ServiceShadow`, or both in `Shadows`) gets every message of the pods
+    and holds its answers to each precise route; an answer from its `check`
+    (the service's) is what routes the request."""
     t_arm = time.perf_counter()
     tok = TextTokenizer(cfg.vocab_size)
     fleet = proactive_fleet(params, cfg, tok, **TRACE_POD,
@@ -5490,9 +5524,8 @@ def trace_arm(params, cfg, requests, policy: str, route=trace_route, shadow=None
                 # many of the prompt's blocks, and the request lands there.
                 best = trace_route(ps.scores, rr)[0]
                 predicted = PAGE * ps.match_blocks.get(best, 0)
-                if shadow is not None:
-                    shadow.check(k, r.prompt, ps, rr)
-                pid, rr = route(ps.scores, rr)
+                answer = shadow.check(k, r.prompt, ps, rr) if shadow is not None else None
+                pid, rr = route(ps.scores if answer is None else answer, rr)
             else:
                 pid, rr = FLEET_POD_IDS[rr % len(FLEET_POD_IDS)], rr + 1
             if shadow is not None:
@@ -5544,9 +5577,11 @@ def phase_sharegpt(params, cfg) -> dict:
                                                for r in requests], subset)
     torch.cuda.empty_cache()
     reset_launch_counts()
-    # Phase 17a rides on the precise arm: replicas beside its Indexer.
-    arms = {"precise": cluster_arm(params, cfg, requests)}
+    # Phases 17a and 18a ride on the precise arm: replicas beside its
+    # Indexer, and the HTTP service whose answers route it.
+    arms = {"precise": cluster_arm(params, cfg, requests, service=ServiceShadow())}
     arms["precise"]["cluster"]["launches"] = launch_counts()
+    arms["precise"]["service"]["launches"] = launch_counts()
     arms["round_robin"] = trace_arm(params, cfg, requests, "round_robin")
     launches = launch_counts()
     off = [k for k, w in zip(subset, want) if arms["precise"]["rows"][k]["tokens"] != w]
@@ -5575,6 +5610,7 @@ def phase_sharegpt(params, cfg) -> dict:
             log(f"    paired compute TTFT, precise - round robin, {name} ({len(d)} requests): "
                 f"median {statistics.median(d):.2f} ms")
     failures += report_cluster(arms["precise"], card)
+    failures += report_service(arms["precise"], card)
     log(f"  precise / round robin: hit rate {p['hit_rate']:.4f} vs {rr['hit_rate']:.4f} "
         f"(BASELINE.json target >= 0.8), TTFT p50 {ratio:.3f}x lower (target >= 2x); "
         f"{TRACE_ALONE - len(off)} of {TRACE_ALONE} alone checks equal; launches {launches}")
@@ -5582,9 +5618,10 @@ def phase_sharegpt(params, cfg) -> dict:
         if launches[name] <= 0:
             failures.append(f"{name} was never launched on the ShareGPT path")
     seconds = time.perf_counter() - t_phase
-    log(f"  phase 16a (with 17a) ran {seconds:.1f} s")
+    log(f"  phase 16a (with 17a and 18a) ran {seconds:.1f} s, "
+        f"{arms['precise']['service']['seconds']:.2f} s of it in 18a's service calls")
     if failures:
-        raise AssertionError(f"phase 16a/17a: {failures[:6]}")
+        raise AssertionError(f"phase 16a/17a/18a: {failures[:6]}")
     for arm in arms.values():
         for row in arm["rows"]:
             row.pop("tokens")
@@ -5709,7 +5746,8 @@ def placement_bars(arms: dict) -> list:
     off arm exactly; on, blocks land, jobs were submitted, no target was
     unhealthy and nothing was dropped."""
     failures = []
-    off, observe, on = arms["off"], arms["observe"], arms["on"]
+    off, on = arms["off"], arms["on"]
+    observe = arms.get("observe", off)  # the full run's 16b has no observe-only arm
     for key in off["streams"]:
         if observe["streams"][key] != off["streams"][key]:
             failures.append(f"observe-only differs from off in {key}")
@@ -5726,15 +5764,16 @@ def placement_bars(arms: dict) -> list:
     return failures
 
 
-def phase_placement(params, cfg) -> dict:
+def phase_placement(params, cfg, arm_names=tuple(PLACEMENT_ARMS)) -> dict:
+    chosen = {name: PLACEMENT_ARMS[name] for name in arm_names}
     log(f"== phase 16b: hot-prefix placement over four bf16 flagship pods with host tiers "
         f"({PLACEMENT_POD}, cost gate off, eager staging): tests/test_placement.py's "
-        f"multi-tenant trace {PLACEMENT_TRACE} (lora_id dropped), arms {PLACEMENT_ARMS}")
+        f"multi-tenant trace {PLACEMENT_TRACE} (lora_id dropped), arms {chosen}")
     t_phase = time.perf_counter()
     card = card_line()
     requests = placement_requests()
     reset_launch_counts()
-    arms = {name: placement_arm(params, cfg, requests, p) for name, p in PLACEMENT_ARMS.items()}
+    arms = {name: placement_arm(params, cfg, requests, p) for name, p in chosen.items()}
     launches = launch_counts()
     failures = [f"{name}: {f}" for name, arm in arms.items() for f in arm["failures"]]
     failures += placement_bars(arms)
@@ -5848,7 +5887,8 @@ def prediction_bars(arms: dict, want: list) -> list:
     turn; on, more of it is resident and blocks were pre-landed; and turn
     1's tokens are a never-evicting pod's in every arm."""
     failures = []
-    off, observe, on = arms["off"], arms["observe"], arms["on"]
+    off, on = arms["off"], arms["on"]
+    observe = arms.get("observe", off)  # the full run's 16c has no observe-only arm
     for key in off["streams"]:
         if observe["streams"][key] != off["streams"][key]:
             failures.append(f"observe-only differs from off in {key}")
@@ -5865,11 +5905,12 @@ def prediction_bars(arms: dict, want: list) -> list:
     return failures
 
 
-def phase_prediction(params, cfg) -> dict:
+def phase_prediction(params, cfg, arm_names=tuple(PREDICTION_ARMS)) -> dict:
+    chosen = {name: PREDICTION_ARMS[name] for name in arm_names}
     log(f"== phase 16c: session prediction over four bf16 flagship pods with host tiers "
         f"({PREDICTION_POD}, cost gate off, eager staging): tests/test_prediction.py's churn "
         f"scenario (s0 at 0 s, 24 junk sessions from 1 s, s0's turn 1 at 12 s), arms "
-        f"{PREDICTION_ARMS}")
+        f"{chosen}")
     t_phase = time.perf_counter()
     card = card_line()
     requests = prediction_requests()
@@ -5877,7 +5918,7 @@ def phase_prediction(params, cfg) -> dict:
     want = never_evicting_tokens(params, cfg, [tok.encode(r.prompt, "").tokens for r in requests
                                                if r.session == PREDICTION_SESSION], [1])[0]
     reset_launch_counts()
-    arms = {name: prediction_arm(params, cfg, requests, p) for name, p in PREDICTION_ARMS.items()}
+    arms = {name: prediction_arm(params, cfg, requests, p) for name, p in chosen.items()}
     launches = launch_counts()
     failures = [f"{name}: {f}" for name, arm in arms.items() for f in arm["failures"]]
     failures += prediction_bars(arms, want)
@@ -6099,21 +6140,26 @@ def cluster_failures(shadow, n_requests: int) -> list:
     return out
 
 
-def cluster_arm(params, cfg, requests, scorer_cls=ClusterScorer) -> dict:
-    """Phase 16a's precise arm with phase 17a's shadow: the arm and the
-    shadow's readings, and both's failures. The restarted replica's snapshot
-    is a file of its own under the package's build/ directory (git ignores
-    it), removed after the arm."""
+def cluster_arm(params, cfg, requests, scorer_cls=ClusterScorer, service=None) -> dict:
+    """Phase 16a's precise arm with phase 17a's shadow (and, given
+    `service`, phase 18a's `ServiceShadow` beside it, which then routes): the
+    arm and the shadows' readings, and their failures. The restarted
+    replica's snapshot is a file of its own under the package's build/
+    directory (git ignores it), removed after the arm."""
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, path = tempfile.mkstemp(prefix="phase17a-", suffix=".cbor", dir=_build.BUILD_DIR)
     os.close(fd)
     try:
         shadow = ClusterShadow(path, scorer_cls=scorer_cls)
-        arm = trace_arm(params, cfg, requests, "precise", shadow=shadow)
+        both = shadow if service is None else Shadows(shadow, service)
+        arm = trace_arm(params, cfg, requests, "precise", shadow=both)
     finally:
         os.unlink(path)
     arm["cluster"] = shadow.readings()
     arm["cluster"]["failures"] = cluster_failures(shadow, len(requests))
+    if service is not None:
+        arm["service"] = dict(service.readings, seconds=service.seconds,
+                              failures=service_failures(service))
     return arm
 
 
@@ -6125,6 +6171,348 @@ def report_cluster(arm: dict, card: str) -> list:
         f"and the router; a replica restarted warm: {c['restart']}; union {c['union']}; "
         f"{len(c['failures'])} failures")
     return [f"17a: {f}" for f in c["failures"]]
+
+
+# -- phase 18a: the HTTP scoring service in front of 16a's precise arm ----------
+
+# The service's environment (api/http_service.py config_from_env's keys): the
+# index metrics-instrumented, tracing on with a ring that holds the whole
+# arm's traces, admission and the SLO monitor at their defaults, and
+# fleet-health windows no gap of a slow machine reaches.
+SERVICE_ENV = dict(zmq_endpoint="tcp://*:0", zmq_topic="kv@", pool_concurrency=4, hash_seed="",
+                   block_size=PAGE, http_port=0, enable_metrics=True, trace_enabled=True,
+                   trace_ring=4096, trace_slow_ms=10.0, trace_propagate=True,
+                   suspect_after_s=1e6, stale_after_s=2e6)
+SERVICE_TIMEOUT_S = 60.0  # every HTTP call's socket timeout
+SERVICE_TRACE_BASE = 0x18A0_0000_0000_0000  # request k's trace id is this + k + 1
+SERVICE_EXPLAIN = 4  # /debug/score_explain calls, at seeded requests
+SERVICE_EXPLAIN_SEED = 18
+# The read path's spans of one /score_completions, in the order the reference
+# package records them (tests/test_torch_service.py holds it to the JAX
+# package's trace of the same read path); a prompt shorter than one block
+# stops after the derivation (`SERVICE_SHORT_SPANS`).
+SERVICE_READ_SPANS = ("read.tokenize_queue_wait", "read.prefix_store", "read.encode",
+                      "read.tokenize", "read.derive", "read.lookup", "read.score")
+SERVICE_SHORT_SPANS = SERVICE_READ_SPANS[:5]
+# What /metrics must have moved by over the arm (the service's registry is the
+# process's, so the bar reads the difference from the arm's start), by the
+# number of requests replayed: the CPU rehearsal's counts
+# (tests/test_torch_service.py runs it and holds these equal).
+SERVICE_METRICS = ("kvcache_index_lookup_requests_total", "kvcache_index_admissions_total",
+                   "kvcache_index_evictions_total", "kvcache_events_dropped_total",
+                   "kvcache_index_lookup_latency_seconds_count")
+SERVICE_PREDICTED = {
+    n: dict(metrics=dict(zip(SERVICE_METRICS, counts)), pod_states=dict.fromkeys(FLEET_POD_IDS, "healthy"),
+            read_traces=n)
+    for n, counts in ((76, (220.0, 1734.0, 0.0, 0.0, 149.0)),)  # the whole trace
+}
+
+
+_SAMPLE_LINE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? (\S+)$')
+_LABEL_PAIR = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"(,|$)')
+
+
+def parse_exposition(text: str) -> dict:
+    """The Prometheus text format 0.0.4, parsed strictly: {(sample name,
+    sorted label pairs): value}. A HELP or TYPE line of an unknown form, a
+    sample before its family's TYPE, or a sample line that does not parse
+    raises ValueError."""
+    samples, typed = {}, {}
+    for n, line in enumerate(text.splitlines(), 1):
+        if not line:
+            continue
+        if line.startswith("# HELP "):
+            if len(line.split(" ", 3)) < 3:
+                raise ValueError(f"line {n}: bad HELP line {line!r}")
+            continue
+        if line.startswith("# TYPE "):
+            parts = line.split(" ")
+            if len(parts) != 4 or parts[3] not in ("counter", "gauge", "histogram", "summary",
+                                                   "untyped"):
+                raise ValueError(f"line {n}: bad TYPE line {line!r}")
+            typed[parts[2]] = parts[3]
+            continue
+        if line.startswith("#"):
+            continue
+        m = _SAMPLE_LINE.match(line)
+        if m is None:
+            raise ValueError(f"line {n}: bad sample line {line!r}")
+        name, _, body, value = m.groups()
+        family = next((f for f in (name, re.sub(r"_(bucket|count|sum)$", "", name))
+                       if f in typed), None)
+        if family is None:
+            raise ValueError(f"line {n}: sample {name!r} before its family's TYPE line")
+        labels = []
+        if body:
+            pos = 0
+            while pos < len(body):
+                lm = _LABEL_PAIR.match(body, pos)
+                if lm is None:
+                    raise ValueError(f"line {n}: bad labels {body!r}")
+                labels.append((lm.group(1), lm.group(2)))
+                pos = lm.end()
+        samples[(name, tuple(sorted(labels)))] = float(value)
+    return samples
+
+
+class ServiceShadow:
+    """Phase 18a beside phase 16a's precise arm: the port's ScoringService
+    (`service_cls`) over an Indexer built as the fleet's is (TextTokenizer,
+    the prefix store's shortcut off) with its index metrics-instrumented,
+    served by api/web.py's AppServer on 127.0.0.1. Every message of the pods
+    goes into the service's EventPool in order; each precise request is
+    scored by POST /score_completions (carrying request k's X-Kvtpu-Trace
+    id), and the arm routes by that answer. `finish` holds the batch,
+    explain, metrics, health, readiness and trace surfaces to their bars.
+    Failures are collected in `failures`; `seconds` is the time spent in
+    the shadow's calls (the service's own pool digests beside them)."""
+
+    def __init__(self, service_cls=http_service.ScoringService):
+        self.service_cls = service_cls
+        self.pending, self.failures, self.prompts = [], [], []
+        self.blocks, self.delivered = [], 0
+        self.service = self.server = self.fleet = None
+        self.seconds = 0.0
+        self.readings = {}
+
+    # -- HTTP over the loopback socket --------------------------------------
+
+    def call(self, method: str, path: str, body=None, headers=None) -> tuple:
+        """(status, headers, body bytes) of one request on a fresh
+        connection with a timeout."""
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=SERVICE_TIMEOUT_S)
+        try:
+            data = None if body is None else json.dumps(body).encode()
+            hdrs = dict(headers or {})
+            if data is not None:
+                hdrs["Content-Type"] = "application/json"
+            conn.request(method, path, body=data, headers=hdrs)
+            resp = conn.getresponse()
+            return resp.status, dict(resp.getheaders()), resp.read()
+        finally:
+            conn.close()
+
+    def call_json(self, method: str, path: str, body=None, headers=None, want: int = 200):
+        status, _, data = self.call(method, path, body, headers)
+        if status != want:
+            self.failures.append(f"{method} {path}: status {status}, want {want}: "
+                                 f"{data[:200]!r}")
+            return None
+        return json.loads(data)
+
+    def score(self, prompt: str, headers=None):
+        got = self.call_json("POST", "/score_completions", dict(
+            prompt=prompt, model=PROACTIVE_MODEL, pods=list(self.fleet["pods"])), headers)
+        return None if got is None else got["podScores"]
+
+    def metrics(self) -> dict:
+        status, hdrs, data = self.call("GET", "/metrics")
+        if status != 200 or not hdrs.get("Content-Type", "").startswith(
+                "text/plain; version=0.0.4"):
+            self.failures.append(f"GET /metrics: status {status}, {hdrs.get('Content-Type')}")
+            return {}
+        try:
+            samples = parse_exposition(data.decode("utf-8"))
+        except ValueError as e:
+            self.failures.append(f"GET /metrics does not parse: {e}")
+            return {}
+        return {name: sum(v for (n, _), v in samples.items() if n == name)
+                for name in SERVICE_METRICS}
+
+    # -- the arm's hooks ------------------------------------------------------
+
+    def attach(self, fleet, n_requests: int) -> None:
+        t0 = time.perf_counter()
+        self.fleet, self.n = fleet, n_requests
+        vocab = fleet["indexer"].tokenizers_pool.tokenizer.vocab
+        indexer = Indexer(
+            IndexerConfig(token_processor_config=TokenProcessorConfig(block_size=PAGE),
+                          kv_block_index_config=dataclasses.replace(IndexConfig.default(),
+                                                                    enable_metrics=True)),
+            tokenization_pool=TokenizationPool(
+                TokenizersPoolConfig(workers=2, min_prefix_overlap_ratio=float("inf")),
+                tokenizer=TextTokenizer(vocab)))
+        self.service = self.service_cls(dict(SERVICE_ENV), indexer=indexer)
+        self.service.start(with_subscriber=False)
+        obs.get_recorder().clear()  # the arm's traces only (trace ids repeat across arms)
+        self.server = AppServer(self.service.make_app())
+        self.port = self.server.start("127.0.0.1", 0)
+        self.before = self.metrics()
+        for msg in self.pending:
+            self.service.event_pool.add_task(msg)
+        self.pending = []
+        self.seconds += time.perf_counter() - t0
+
+    def deliver(self, msg) -> None:
+        t0 = time.perf_counter()
+        self.delivered += 1
+        if self.service is None:
+            self.pending.append(msg)
+        else:
+            self.service.event_pool.add_task(msg)
+        self.seconds += time.perf_counter() - t0
+
+    def check(self, k: int, prompt: str, ps, rr: int):
+        """Request k's answer over the socket, held to the Indexer's `ps`;
+        the arm routes by it."""
+        t0 = time.perf_counter()
+        self.service.event_pool.drain()
+        carrier = obs.TraceCarrier(SERVICE_TRACE_BASE + k + 1, SERVICE_TRACE_BASE).serialize()
+        got = self.score(prompt, {obs.HTTP_TRACE_HEADER: carrier})
+        if got is not None and got != ps.scores:
+            self.failures.append(f"request {k}: the service scored {got}, the Indexer "
+                                 f"{ps.scores}")
+        self.prompts.append(prompt)
+        self.blocks.append(len(ps.block_hashes))
+        self.seconds += time.perf_counter() - t0
+        return ps.scores if got is None else got
+
+    def before_serve(self, k: int) -> None:
+        pass
+
+    def after_serve(self, k: int) -> None:
+        pass
+
+    def finish(self) -> None:
+        t0 = time.perf_counter()
+        self.service.event_pool.drain()
+        pods = list(self.fleet["pods"])
+        got = self.call_json("POST", "/score_completions/batch", dict(requests=[
+            dict(prompt=p, model=PROACTIVE_MODEL, pods=pods) for p in self.prompts]))
+        singles = [self.score(p) for p in self.prompts]
+        batch = None if got is None else [r["podScores"] for r in got["results"]]
+        if batch != singles:
+            off = [k for k, (b, s) in enumerate(zip(batch or [], singles)) if b != s]
+            self.failures.append(f"the batch of {len(self.prompts)} differs from single calls "
+                                 f"at {off[:8]} (batch {None if batch is None else len(batch)})")
+        explained = sorted(random.Random(SERVICE_EXPLAIN_SEED).sample(
+            range(len(self.prompts)), min(SERVICE_EXPLAIN, len(self.prompts))))
+        for k in explained:
+            explain = self.call_json("POST", "/debug/score_explain", dict(
+                prompt=self.prompts[k], model=PROACTIVE_MODEL, pods=pods))
+            if explain is not None and explain["scores"] != singles[k]:
+                self.failures.append(f"score_explain of request {k}: {explain['scores']}, "
+                                     f"/score_completions {singles[k]}")
+        after = self.metrics()
+        moved = {name: after.get(name, 0.0) - self.before.get(name, 0.0)
+                 for name in SERVICE_METRICS}
+        health = self.call_json("GET", "/health")
+        if health != {"status": "ok"}:
+            self.failures.append(f"/health answered {health}")
+        ready = self.call_json("GET", "/readyz")
+        states = {} if ready is None else {p: d["state"]
+                                           for p, d in ready["fleet"]["pods"].items()}
+        traces = self.call_json("GET", f"/debug/traces?plane=read&limit={SERVICE_ENV['trace_ring']}")
+        ids = {f"{SERVICE_TRACE_BASE + k + 1:016x}": k for k in range(len(self.prompts))}
+        mine = [t for t in (traces or {}).get("recent", []) if t["trace_id"] in ids]
+        off_shape = [ids[t["trace_id"]] for t in mine
+                     if tuple(s["name"] for s in t["spans"]) != (
+                         SERVICE_READ_SPANS if self.blocks[ids[t["trace_id"]]]
+                         else SERVICE_SHORT_SPANS)]
+        roots = {t["name"] for t in mine}
+        critical = self.call_json("GET", "/debug/critical_path")
+        self.readings = dict(
+            metrics=moved, pod_states=states, read_traces=len(mine),
+            short_prompts=sum(not b for b in self.blocks), roots=sorted(roots),
+            explained=explained,
+            batch=None if batch is None else len(batch),
+            critical_roots=sorted((critical or {}).get("roots", {})),
+            dropped=self.service.event_pool.dropped_events, messages=self.delivered)
+        want = SERVICE_PREDICTED.get(len(self.prompts))
+        if want is None:
+            self.failures.append(f"no prediction for {len(self.prompts)} requests")
+        else:
+            for key in ("metrics", "pod_states", "read_traces"):
+                if self.readings[key] != want[key]:
+                    self.failures.append(f"{key}: {self.readings[key]}, the rehearsal "
+                                         f"predicted {want[key]}")
+        if moved.get("kvcache_events_dropped_total"):
+            self.failures.append(f"the service's pool dropped events: {moved}")
+        if off_shape or roots - {"read.get_pod_scores"}:
+            self.failures.append(f"read traces {sorted(roots)}; requests {off_shape[:8]} lack "
+                                 f"the read path's spans {SERVICE_READ_SPANS}")
+        if "read.get_pod_scores" not in self.readings["critical_roots"]:
+            self.failures.append(f"/debug/critical_path has no read.get_pod_scores row: "
+                                 f"{self.readings['critical_roots']}")
+        if len(self.prompts) != self.n:
+            self.failures.append(f"{len(self.prompts)} of {self.n} requests went through the "
+                                 f"service")
+        self.seconds += time.perf_counter() - t0
+
+    def close(self) -> None:
+        t0 = time.perf_counter()
+        if self.server is not None:
+            self.server.stop()
+        if self.service is not None:
+            self.service.stop()
+        metrics_collector.stop_metrics_logging()
+        self.seconds += time.perf_counter() - t0
+
+
+class Shadows:
+    """Several shadows beside one arm, each called in turn; `check` answers
+    with the last answer one of them gave (the service's, which routes)."""
+
+    def __init__(self, *shadows):
+        self.shadows = shadows
+
+    def attach(self, fleet, n_requests: int) -> None:
+        for s in self.shadows:
+            s.attach(fleet, n_requests)
+
+    def deliver(self, msg) -> None:
+        for s in self.shadows:
+            s.deliver(msg)
+
+    def check(self, k: int, prompt: str, ps, rr: int):
+        answer = None
+        for s in self.shadows:
+            got = s.check(k, prompt, ps, rr)
+            if got is not None:
+                answer = got
+        return answer
+
+    def before_serve(self, k: int) -> None:
+        for s in self.shadows:
+            s.before_serve(k)
+
+    def after_serve(self, k: int) -> None:
+        for s in self.shadows:
+            s.after_serve(k)
+
+    def finish(self) -> None:
+        for s in self.shadows:
+            s.finish()
+
+    def close(self) -> None:
+        for s in self.shadows:
+            s.close()
+
+
+def service_failures(shadow) -> list:
+    return [f"18a: {f}" for f in shadow.failures]
+
+
+def service_arm(params, cfg, requests, service_cls=http_service.ScoringService) -> dict:
+    """Phase 16a's precise arm routed by phase 18a's service alone (`--phases
+    18a`, the rehearsal and the fault check): the arm and the service's
+    readings and failures."""
+    shadow = ServiceShadow(service_cls)
+    arm = trace_arm(params, cfg, requests, "precise", shadow=shadow)
+    arm["service"] = dict(shadow.readings, seconds=shadow.seconds,
+                          failures=service_failures(shadow))
+    return arm
+
+
+def report_service(arm: dict, card: str) -> list:
+    s = arm["service"]
+    log(f"== phase 18a: the HTTP scoring service in front of phase 16a's precise arm ({card}): "
+        f"{arm['summary']['requests']} requests routed by POST /score_completions over "
+        f"127.0.0.1; /metrics moved {s.get('metrics')}; pods {s.get('pod_states')}; "
+        f"{s.get('read_traces')} read traces; explain at {s.get('explained')}; batch of "
+        f"{s.get('batch')}; {s['seconds']:.2f} s in the service's calls; "
+        f"{len(s['failures'])} failures")
+    return list(s["failures"])
 
 
 # 17b: bench.py --geo's federation (its trace, sketch, digest cadence and
@@ -6623,6 +7011,27 @@ def phase_cluster(params, cfg) -> dict:
     return dict(cluster=arm["cluster"], summary=arm["summary"], seconds=seconds)
 
 
+def phase_service(params, cfg) -> dict:
+    """Phase 18a alone (`--phases 18a`): phase 16a's precise arm routed by
+    the service (the full run's 16a carries it, beside 17a)."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    release_device()
+    reset_launch_counts()
+    arm = service_arm(params, cfg, sharegpt_requests())
+    arm["service"]["launches"] = launches = launch_counts()
+    failures = report_service(arm, card) + [f"16a precise: {f}" for f in arm["failures"]]
+    for name in ("paged_decode", "flash_prefill"):
+        if launches[name] <= 0:
+            failures.append(f"{name} was never launched on the service's path")
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 18a ran {seconds:.1f} s (the precise arm {arm['seconds']:.1f} s, "
+        f"{arm['service']['seconds']:.2f} s of it in the service's calls); launches {launches}")
+    if failures:
+        raise AssertionError(f"phase 18a: {failures[:6]}")
+    return dict(service=arm["service"], summary=arm["summary"], seconds=seconds)
+
+
 def phase_geo(params, cfg) -> dict:
     requests, n_all = geo_requests()
     log(f"== phase 17b: two regions of {GEO_REGION_PODS} bf16 flagship pods "
@@ -6722,7 +7131,7 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", default=None,
                         help="comma-separated phases to run after the build (3 4 5 5b 5c 6 7a "
                         "7b 8a 8 9a 9b 10a 10b 11a 11b 12a 12b 13 14a 14b 15a 15b 16a 16b "
-                        "16c 17a 17b 17c 17d; 9b and "
+                        "16c 17a 17b 17c 17d 18a; 9b and "
                         "10b run 7b's deltas first, 14a and 15b run 12a first); a partial run "
                         "prints no "
                         "kernels or ok line")
@@ -6789,8 +7198,10 @@ def main(argv=None) -> int:
     read_plane = phase_read_plane(params, cfg, args.seed)
     resilience = phase_resilience(params, cfg, args.seed)
     proactive = {"sharegpt": phase_sharegpt(params, cfg),
-                 "placement": phase_placement(params, cfg),
-                 "prediction": phase_prediction(params, cfg)}
+                 "placement": phase_placement(params, cfg, FULL_RUN_PROACTIVE_ARMS),
+                 "prediction": phase_prediction(params, cfg, FULL_RUN_PROACTIVE_ARMS)}
+    log(f"  the whole run's cut (for phase 18a): 16b and 16c ran their arms "
+        f"{FULL_RUN_PROACTIVE_ARMS}; the observe-only arm runs in --phases 16b / 16c")
     federation = phase_geo(params, cfg)
     chaos = phase_chaos(params, cfg)
     del params
@@ -6827,6 +7238,10 @@ def main(argv=None) -> int:
         # Phase 17's: 17a's replicated arm (16a's precise arm, inside the
         # count above), 17b's two regions, 17d's two autopilot arms.
         by_path[name]["cluster"] = proactive["sharegpt"]["arms"]["precise"]["cluster"][
+            "launches"][name]
+        # Phase 18a's: the service routes 16a's precise arm (inside the
+        # sharegpt count, as the cluster's).
+        by_path[name]["service"] = proactive["sharegpt"]["arms"]["precise"]["service"][
             "launches"][name]
         by_path[name]["federation"] = federation["launches"][name]
         by_path[name]["autopilot"] = resilience["autopilot"]["launches"][name]
@@ -6902,6 +7317,7 @@ def partial_run(phases, gen, cfg, seed: int = 0) -> int:
         "17b": lambda: phase_geo(params, cfg),
         "17c": lambda: phase_chaos(params, cfg),
         "17d": lambda: phase_autopilot(params, cfg, seed),
+        "18a": lambda: phase_service(params, cfg),
         "15b": lambda: phase_governor(seed, out["12a"]),
     }
     for phase in phases:

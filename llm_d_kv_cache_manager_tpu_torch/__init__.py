@@ -21,6 +21,14 @@ Layout mirrors the reference package module for module:
   - tokenization/   the tokenization pool, tokenizers (local, HF, the UDS
                     sidecar client) and prefix stores
   - preprocessing/  chat-template rendering (jinja2)
+  - api/            the HTTP scoring service (http_service.py, served by
+                    api/web.py on the standard library), the gRPC service
+                    (grpc_server.py, indexer_pb2.py) and the admission gate
+  - metrics/        the Prometheus collectors (collector.py) on the port's
+                    own registry (registry.py, text format 0.0.4)
+  - obs/            the tracing spine: spans, the flight recorder, the
+                    cross-process carrier and the SLO monitor
+  - config.py       JSON round trip of the IndexerConfig tree
   - fleethealth/    per-pod load signals for the routing policy
   - kv_connectors/  the transfer data plane and the route-driven prefetcher
   - utils/          LRU, a msgpack codec, XXH64 and human-size parsing
@@ -38,8 +46,9 @@ Layout mirrors the reference package module for module:
   - csrc/           CUDA C++ kernels for sm_90a
 
 This package imports torch and numpy only (pyzmq in the two ZMQ modules,
-HF `tokenizers` when a tokenizer loads, jinja2 when a chat template
-renders); it never imports jax or the reference package. Entry points default to device="cuda" and raise when no
+grpcio and protobuf in the two gRPC modules, HF `tokenizers` when a
+tokenizer loads, jinja2 when a chat template renders); it never imports
+jax or the reference package. Entry points default to device="cuda" and raise when no
 GPU is present; pass device="cpu" to run the plain versions on the CPU.
 """
 

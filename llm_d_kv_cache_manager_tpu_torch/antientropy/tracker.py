@@ -1,7 +1,6 @@
 """Per-pod advertised-vs-verified trust: the anti-entropy scoreboard.
 
-Copy of the reference package's `antientropy/tracker.py`, without its metrics
-counters (every count `status()` returns is kept). The index is eventually
+Copy of the reference package's `antientropy/tracker.py`. The index is eventually
 consistent with best-effort KVEvents, so its view of a pod can silently diverge
 from what the pod actually holds — a pod that evicted without its BlockRemoved
 landing, or a buggy engine advertising blocks it never stored. `fleethealth`
@@ -42,12 +41,14 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.key import base_pod_identifier
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
 
 logger = kvlog.get_logger("antientropy.tracker")
 
-# Fixed divergence-source vocabulary (the reference labels its divergence
-# counter with these and nothing else).
+# Fixed divergence-source vocabulary — the only values the
+# kvcache_index_divergence_observations_total `source` label may carry
+# (pinned in tests/test_metrics_hygiene.py / tests/test_antientropy.py).
 SOURCE_FETCH_MISS = "fetch_miss"
 SOURCE_ORPHAN_REMOVAL = "orphan_removal"
 SOURCE_AUDIT_PHANTOM = "audit_phantom"
@@ -147,6 +148,8 @@ class AntiEntropyTracker:
         """The data plane proved `blocks` advertised placements phantom
         (per-block "missing" answers from the pod itself); `purged` index
         entries were repaired off the back of it."""
+        metrics.count_divergence(SOURCE_FETCH_MISS, blocks)
+        metrics.count_divergence_purged(purged)
         with self._mu:
             rec = self._record(pod_identifier)
             rec.fetch_misses += blocks
@@ -158,6 +161,7 @@ class AntiEntropyTracker:
         evidence the index LOST this pod's store event (divergence in the
         other direction). Counted, never charged against the pod's
         accuracy — see the module docstring."""
+        metrics.count_divergence(SOURCE_ORPHAN_REMOVAL, blocks)
         with self._mu:
             rec = self._record(pod_identifier)
             rec.orphan_removals += blocks
@@ -176,6 +180,11 @@ class AntiEntropyTracker:
         `readmitted` resident blocks the index had lost. A clean audit
         (phantom == 0) is the recovery path — it pulls the EWMA back
         toward 1.0."""
+        if phantom:
+            metrics.count_divergence(SOURCE_AUDIT_PHANTOM, phantom)
+        metrics.count_divergence_purged(purged)
+        metrics.count_divergence_readmitted(readmitted)
+        metrics.count_divergence_audit()
         if now is None:
             now = self.clock()
         with self._mu:

@@ -1,8 +1,6 @@
 """Bounded admission control for the scoring surfaces.
 
-Copy of the reference package's `api/admission.py`, without its metrics
-counters (every count is kept in `stats`; the counters come with the
-port's metrics collector, ROADMAP.md queue 1 item 7). The autopilot's
+Copy of the reference package's `api/admission.py`. The autopilot's
 `admission_queue_depth` knob actuates it.
 
 Under saturation an unbounded service queue converts overload into
@@ -51,6 +49,7 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, Optional
 
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
 
 logger = kvlog.get_logger("api.admission")
@@ -169,6 +168,7 @@ class AdmissionController:
         hint = self.retry_after_hint(now)
         self._shed_times.append(now)
         self.stats[f"shed_{kind}"] += 1
+        metrics.count_admission_shed(kind)
         return AdmissionRejected(kind, hint)
 
     def try_acquire(self, budget_s: Optional[float] = None) -> None:
@@ -195,6 +195,7 @@ class AdmissionController:
                 capped_by_deadline = True
             self._waiting += 1
             self.stats["queued"] += 1
+            metrics.count_admission_queued()
             deadline_at = self.clock() + wait_cap
             try:
                 while self._active >= cfg.max_concurrency:

@@ -1,9 +1,6 @@
 """Closed-loop SLO autopilot: declarative rules from burn to bounded nudges.
 
-Copy of the reference package's `autopilot/controller.py`, without the
-`kvcache_autopilot_actuations_total` counter (it comes with the port's
-metrics collector, ROADMAP.md queue 1 item 7); every `status()` field and
-journal entry is kept.
+Copy of the reference package's `autopilot/controller.py`.
 
 The fleet's planes are observable — burn-rate gauges, breaker states,
 trust EWMAs, per-source prefetch drops — but without a controller every
@@ -60,6 +57,7 @@ from llm_d_kv_cache_manager_tpu_torch.autopilot.signals import (
     SignalAssembler,
     SignalSnapshot,
 )
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 from llm_d_kv_cache_manager_tpu_torch.obs.slo import (
     OBJECTIVE_HIT_RATE,
     OBJECTIVE_READ_LATENCY,
@@ -287,6 +285,7 @@ class AutopilotController:
         )
         self.journal.append(entry)
         self.stats["actuations"] += 1
+        metrics.count_autopilot_actuation(rule_name, direction)
         logger.info(
             "autopilot actuation: rule=%s knob=%s %s by %g -> %g",
             rule_name, knob_name, direction, delta, knob.position(),
@@ -325,6 +324,7 @@ class AutopilotController:
             self.journal.append(entry)
             self.stats["actuations"] += 1
             self.stats["reverts"] += 1
+            metrics.count_autopilot_actuation(RULE_DECAY, DIRECTION_REVERT)
             applied.append(entry)
             if knob.at_baseline():
                 # Fully reverted: drop it from every rule's decay set so

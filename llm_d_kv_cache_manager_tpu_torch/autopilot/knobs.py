@@ -1,7 +1,6 @@
 """Typed, clamped, steppable policy knobs — the autopilot's write surface.
 
-Copy of the reference package's `autopilot/knobs.py`, without its
-knob-position gauge. Every subsystem re-reads its config dataclass on each
+Copy of the reference package's `autopilot/knobs.py`. Every subsystem re-reads its config dataclass on each
 tick/call (`ResidencyAuditor.tick`, the resource governor's budget, ...),
 so an in-place mutation of a config attribute is an immediate,
 thread-visible actuation with no new plumbing. This module makes those
@@ -20,8 +19,9 @@ mutations SAFE to automate:
   by calling their own ``register_knobs(registry)``, so the autopilot
   can only ever touch surfaces whose owners explicitly published them.
 
-Knob names are a fixed vocabulary (`AUTOPILOT_KNOBS`): a spec naming any
-other knob is refused.
+Knob names are a fixed vocabulary (`AUTOPILOT_KNOBS`) — the
+``kvcache_autopilot_knob_position{knob}`` gauge's label values come from
+this tuple and nowhere else (pinned in tests/test_metrics_hygiene.py).
 """
 
 from __future__ import annotations
@@ -30,11 +30,14 @@ import threading
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
 
 logger = kvlog.get_logger("autopilot.knobs")
 
-# Fixed knob-name vocabulary. Each name is owned by exactly one
+# Fixed knob-name vocabulary (the `knob` label of
+# kvcache_autopilot_knob_position — bounded by construction, enforced by
+# tests/test_metrics_hygiene.py). Each name is owned by exactly one
 # subsystem's register_knobs().
 KNOB_PLACEMENT_K = "placement.k_replicas"
 KNOB_PLACEMENT_JOBS = "placement.max_jobs_per_tick"
@@ -125,6 +128,7 @@ class Knob:
             return 0.0
         self._set(int(after) if self.spec.integer else after)
         self.nudges += 1
+        metrics.set_autopilot_knob_position(self.spec.name, after)
         return after - before
 
     def revert_step(self) -> float:
@@ -144,6 +148,7 @@ class Knob:
             return 0.0
         self._set(int(after) if self.spec.integer else after)
         self.nudges += 1
+        metrics.set_autopilot_knob_position(self.spec.name, after)
         return after - before
 
     def status(self) -> dict:
@@ -180,6 +185,7 @@ class KnobRegistry:
             if spec.name in self._knobs:
                 raise ValueError(f"knob {spec.name!r} already registered")
             self._knobs[spec.name] = knob
+        metrics.set_autopilot_knob_position(spec.name, knob.baseline)
         logger.info(
             "autopilot knob registered: %s baseline=%g bounds=[%g, %g] "
             "max_step=%g",

@@ -1,7 +1,6 @@
 """cluster: the replicated indexer control plane.
 
-Copy of the reference package's `cluster/__init__.py`, less the gRPC
-replica transport (ROADMAP.md queue 1 item 7).
+Copy of the reference package's `cluster/__init__.py`.
 
 N indexer replicas running as one logical index — the first step from "a
 library with benches" to a control plane that survives its own restarts
@@ -12,7 +11,7 @@ library with benches" to a control plane that survives its own restarts
   and the kvevents pool use; `ZMQSubscriber` subscribes per-partition
   prefixes and swaps them live on reassignment (`resubscribe`).
 - **Scatter-gather scoring** (`scorer.py`): `ClusterScorer` fans
-  `get_pod_scores_ex` across replicas (local-call transport) and
+  `get_pod_scores_ex` across replicas (local-call and gRPC transports) and
   merges by partition ownership — bit-identical to a single replica when
   all partitions answer, degraded (missing partition = no cache signal for
   its pods) when one is down.
@@ -48,6 +47,7 @@ from llm_d_kv_cache_manager_tpu_torch.cluster.membership import (  # noqa: F401
 )
 from llm_d_kv_cache_manager_tpu_torch.cluster.scorer import (  # noqa: F401
     ClusterScorer,
+    GrpcReplicaTransport,
     LocalReplicaTransport,
     ReplicaUnavailable,
 )
@@ -64,6 +64,7 @@ from llm_d_kv_cache_manager_tpu_torch.cluster.snapshot import (  # noqa: F401
 __all__ = [
     "ClusterConfig",
     "ClusterScorer",
+    "GrpcReplicaTransport",
     "DRAINING",
     "FleetMembership",
     "IndexerReplica",

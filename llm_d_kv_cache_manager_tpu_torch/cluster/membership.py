@@ -1,8 +1,6 @@
 """Elastic fleet membership: pod join/leave as a first-class subsystem.
 
-Copy of the reference package's `cluster/membership.py`, without the
-transition counter (it comes with the port's metrics collector,
-ROADMAP.md queue 1 item 7); `phases()` and `stats` keep every count.
+Copy of the reference package's `cluster/membership.py`.
 
 Without this module, partition reassignment on join/leave is "a config
 change" with nothing orchestrating it. An elastic fleet — the saturation
@@ -53,6 +51,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 from llm_d_kv_cache_manager_tpu_torch.cluster.partition import ReplicaPartitioner
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.index import IndexView
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.key import base_pod_identifier
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
 
 logger = kvlog.get_logger("cluster.membership")
@@ -314,6 +313,7 @@ class FleetMembership:
             old = self._phase.get(pod)
             self._phase[pod] = phase
             self._since[pod] = self.clock()
+        metrics.count_membership_transition(phase)
         logger.info("membership: pod %s %s -> %s", pod, old, phase)
 
     # -- join --------------------------------------------------------------

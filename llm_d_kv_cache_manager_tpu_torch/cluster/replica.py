@@ -1,9 +1,6 @@
 """One member of the replicated indexer control plane.
 
-Copy of the reference package's `cluster/replica.py`, without its
-metrics gauges and tracing spans (they come with the port's metrics
-collector and tracing spine, ROADMAP.md queue 1 item 7); every stat and
-readiness field is kept.
+Copy of the reference package's `cluster/replica.py`.
 
 `IndexerReplica` ties the pieces together for a single process: the
 partition gate on its event pool (it digests only the streams it owns), the
@@ -34,12 +31,14 @@ from __future__ import annotations
 import time
 from typing import Iterable, List, Optional, Sequence
 
+from llm_d_kv_cache_manager_tpu_torch import obs
 from llm_d_kv_cache_manager_tpu_torch.cluster.partition import (
     ClusterConfig,
     ReplicaPartitioner,
 )
 from llm_d_kv_cache_manager_tpu_torch.cluster import snapshot as snapshot_mod
 from llm_d_kv_cache_manager_tpu_torch.kvevents.pool import EventPool, EventPoolConfig
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
 
 logger = kvlog.get_logger("cluster.replica")
@@ -82,6 +81,8 @@ class IndexerReplica:
         self.state = READY
         self.last_snapshot_ts: Optional[float] = None
         self.last_restart_stats: Optional[dict] = None
+        metrics.set_replica_partitions(self.config.num_replicas)
+        metrics.count_replica_transition(self.state)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -95,6 +96,7 @@ class IndexerReplica:
         if state == self.state:
             return
         old, self.state = self.state, state
+        metrics.count_replica_transition(state)
         logger.info(
             "replica %d/%d: %s -> %s",
             self.config.replica_id, self.config.num_replicas, old, state,
@@ -130,6 +132,7 @@ class IndexerReplica:
             path, self.indexer.kv_block_index, seq_counters, created_ts=now
         )
         self.last_snapshot_ts = now
+        metrics.set_snapshot_age(0.0)
         return stats
 
     def warm_restart(
@@ -143,41 +146,51 @@ class IndexerReplica:
         floors drop anything already inside the imported view.
         """
         path = path or self.config.snapshot_path
-        t0 = time.perf_counter()
-        snap = snapshot_mod.read_snapshot(path)
-        self._set_state(REPLAYING)
-        imported = snapshot_mod.restore_index(
-            self.indexer.kv_block_index, snap
-        )
-        floors = snap.seq_floors()
-        self.event_pool.set_seq_floors(floors)
-        skipped_before = self.event_pool.replay_skipped
-        replayed = 0
-        for msg in tail:
-            self.event_pool.add_task(msg)
-            replayed += 1
-        self.event_pool.drain()
-        self.event_pool.clear_seq_floors()
-        self._set_state(READY)
-        stats = {
-            "snapshot_path": path,
-            "snapshot_created_ts": snap.created_ts,
-            "imported_pod_entries": imported,
-            "seq_floors": len(floors),
-            "tail_messages": replayed,
-            "replay_skipped": (
-                self.event_pool.replay_skipped - skipped_before
-            ),
-            "warm_restart_s": round(time.perf_counter() - t0, 6),
-        }
-        self.last_restart_stats = stats
-        logger.info(
-            "warm restart complete: %d entries imported, %d/%d tail "
-            "messages were pre-floor no-ops, %.3fs",
-            imported, stats["replay_skipped"], replayed,
-            stats["warm_restart_s"],
-        )
-        return stats
+        with obs.request("cluster.warm_restart", {
+            "replica": self.config.replica_id,
+        }) as trace:
+            t0 = time.perf_counter()
+            snap = snapshot_mod.read_snapshot(path)
+            self._set_state(REPLAYING)
+            imported = snapshot_mod.restore_index(
+                self.indexer.kv_block_index, snap
+            )
+            obs.record_into(
+                trace, "cluster.snapshot_load", t0, time.perf_counter()
+            )
+            t1 = time.perf_counter()
+            floors = snap.seq_floors()
+            self.event_pool.set_seq_floors(floors)
+            skipped_before = self.event_pool.replay_skipped
+            replayed = 0
+            for msg in tail:
+                metrics.set_replay_lag(max(0, replayed))
+                self.event_pool.add_task(msg)
+                replayed += 1
+            self.event_pool.drain()
+            self.event_pool.clear_seq_floors()
+            metrics.set_replay_lag(0)
+            obs.record_into(trace, "cluster.replay", t1, time.perf_counter())
+            self._set_state(READY)
+            stats = {
+                "snapshot_path": path,
+                "snapshot_created_ts": snap.created_ts,
+                "imported_pod_entries": imported,
+                "seq_floors": len(floors),
+                "tail_messages": replayed,
+                "replay_skipped": (
+                    self.event_pool.replay_skipped - skipped_before
+                ),
+                "warm_restart_s": round(time.perf_counter() - t0, 6),
+            }
+            self.last_restart_stats = stats
+            logger.info(
+                "warm restart complete: %d entries imported, %d/%d tail "
+                "messages were pre-floor no-ops, %.3fs",
+                imported, stats["replay_skipped"], replayed,
+                stats["warm_restart_s"],
+            )
+            return stats
 
     # -- introspection -----------------------------------------------------
 
@@ -189,6 +202,8 @@ class IndexerReplica:
     def readiness(self) -> dict:
         """The /readyz `replication` section."""
         age = self.snapshot_age_s()
+        if age is not None:
+            metrics.set_snapshot_age(age)
         return {
             "replica_id": self.config.replica_id,
             "num_replicas": self.config.num_replicas,

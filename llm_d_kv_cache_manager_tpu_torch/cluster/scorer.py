@@ -1,10 +1,6 @@
 """Scatter-gather scoring across indexer replicas.
 
-Copy of the reference package's `cluster/scorer.py`, without its tracing
-spans and metrics counter, the carrier-propagating `*_traced` transport
-forms, and the gRPC transport (all of which come with the port's
-service surfaces and tracing spine, ROADMAP.md queue 1 item 7):
-`GrpcReplicaTransport` raises at construction.
+Copy of the reference package's `cluster/scorer.py`.
 
 `ClusterScorer` is the router-facing front of the replicated control plane:
 it fans one `get_pod_scores_ex` call across every live replica, merges the
@@ -36,10 +32,12 @@ and stale replicas are skipped entirely — one probe per
 
 from __future__ import annotations
 
+import json
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from llm_d_kv_cache_manager_tpu_torch import obs
 from llm_d_kv_cache_manager_tpu_torch.cluster.partition import (
     ClusterConfig,
     ReplicaPartitioner,
@@ -50,6 +48,7 @@ from llm_d_kv_cache_manager_tpu_torch.fleethealth import (
     FleetHealthTracker,
 )
 from llm_d_kv_cache_manager_tpu_torch.kvcache.indexer import PodScores
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
 
 logger = kvlog.get_logger("cluster.scorer")
@@ -77,18 +76,126 @@ class LocalReplicaTransport:
         pass instead of N single calls)."""
         return self.indexer.score_many(requests)
 
+    # -- carrier-propagating forms (obs/carrier.py) ------------------------
+    # The scatter-gather runs transports on executor threads, so even an
+    # in-process replica loses the caller's thread-local trace; adopting
+    # the carrier re-links its root trace to the caller's trace id, and
+    # the exported spans ride back exactly like a gRPC reply's — one
+    # assembly path for both transports.
+
+    def get_pod_scores_ex_traced(
+        self, prompt, model_name, pod_identifiers, lora_id=None, carrier=None
+    ):
+        with obs.adopt(carrier) as adoption:
+            ps = self.indexer.get_pod_scores_ex(
+                prompt, model_name, pod_identifiers, lora_id=lora_id
+            )
+        return ps, obs.export_trace(adoption.trace)
+
+    def score_many_traced(self, requests, carrier=None):
+        with obs.adopt(carrier) as adoption:
+            results = self.indexer.score_many(requests)
+        payload = obs.export_trace(adoption.trace)
+        return results, ([payload] if payload is not None else [])
 
 
 class GrpcReplicaTransport:
-    """Remote replica over `kvtpu.api.v1.IndexerService/GetPodScoresEx`:
-    the reference's gRPC server and client are not ported yet."""
+    """Remote replica over `kvtpu.api.v1.IndexerService/GetPodScoresEx`.
+
+    The Ex method returns the scores PLUS match_blocks/block_hashes as a
+    JSON payload (api/grpc_server.py — same no-protoc generic-handler
+    pattern as ExplainScores), which is what the merge needs. Connection
+    construction is lazy so building a cluster config never blocks on an
+    unreachable peer.
+    """
 
     def __init__(self, target: str, timeout_s: float = 1.0):
-        raise NotImplementedError(
-            "GrpcReplicaTransport needs the gRPC service surface, which the "
-            "port still owes (ROADMAP.md queue 1 item 7); use "
-            "LocalReplicaTransport"
+        self.target = target
+        self.timeout_s = timeout_s
+        self._client = None
+
+    def _ensure_client(self):
+        if self._client is None:
+            from llm_d_kv_cache_manager_tpu_torch.api.grpc_server import (
+                IndexerGrpcClient,
+            )
+
+            self._client = IndexerGrpcClient(self.target, timeout_s=self.timeout_s)
+        return self._client
+
+    @staticmethod
+    def _to_pod_scores(payload: dict) -> PodScores:
+        return PodScores(
+            scores=dict(payload.get("scores", {})),
+            match_blocks={
+                p: int(n) for p, n in payload.get("match_blocks", {}).items()
+            },
+            block_hashes=[int(h) for h in payload.get("block_hashes", [])],
         )
+
+    def get_pod_scores_ex(
+        self, prompt: str, model_name: str, pod_identifiers, lora_id=None
+    ) -> PodScores:
+        return self.get_pod_scores_ex_traced(
+            prompt, model_name, pod_identifiers, lora_id=lora_id
+        )[0]
+
+    def get_pod_scores_ex_traced(
+        self, prompt, model_name, pod_identifiers, lora_id=None, carrier=None
+    ):
+        """Carrier-propagating form: the carrier rides the gRPC metadata,
+        the replica runs its stages under the caller's trace id, and its
+        span tuples come back as the reply's `trace` field (returned
+        separately so the merge never sees it)."""
+        import grpc
+
+        try:
+            payload = self._ensure_client().get_pod_scores_ex(
+                prompt, model_name, pod_identifiers, lora_id=lora_id,
+                carrier=carrier,
+            )
+        except (grpc.RpcError, json.JSONDecodeError, OSError) as e:
+            raise ReplicaUnavailable(f"{self.target}: {e}") from e
+        return self._to_pod_scores(payload), payload.get("trace")
+
+    def score_many(self, requests) -> List[PodScores]:
+        """Batched read path over the streaming `ScorePodsBulk` endpoint:
+        the whole batch rides one gRPC stream (the server micro-batches it
+        through `Indexer.score_many`), so a replica is crossed once per
+        BATCH, not once per request."""
+        return self.score_many_traced(requests)[0]
+
+    def score_many_traced(self, requests, carrier=None):
+        import grpc
+
+        traces: List[dict] = []
+        try:
+            payloads = self._ensure_client().score_pods_bulk(
+                [
+                    {
+                        "prompt": r.prompt,
+                        "model_name": r.model_name,
+                        "pod_identifiers": list(r.pod_identifiers),
+                        "lora_id": r.lora_id,
+                    }
+                    for r in requests
+                ],
+                carrier=carrier,
+                trace_sink=traces,
+            )
+        except (grpc.RpcError, json.JSONDecodeError, OSError) as e:
+            raise ReplicaUnavailable(f"{self.target}: {e}") from e
+        if len(payloads) != len(requests):
+            raise ReplicaUnavailable(
+                f"{self.target}: bulk stream returned {len(payloads)} "
+                f"results for {len(requests)} requests"
+            )
+        return [self._to_pod_scores(p) for p in payloads], traces
+
+    def close(self) -> None:
+        if self._client is not None:
+            self._client.close()
+            self._client = None
 
 
 class ClusterScorer:
@@ -126,7 +233,8 @@ class ClusterScorer:
         self._executor = ThreadPoolExecutor(
             max_workers=len(transports), thread_name_prefix="cluster-scatter"
         )
-        # Monotonic per-instance counters (the status surface).
+        # Monotonic per-instance counters (status surface; the Prometheus
+        # counterpart is kvcache_replica_scatter_errors_total).
         self.scatter_calls = 0
         self.scatter_errors = 0
 
@@ -153,9 +261,12 @@ class ClusterScorer:
     def get_pod_scores_ex(
         self, prompt: str, model_name: str, pod_identifiers, lora_id=None
     ) -> PodScores:
-        return self._scatter_gather(
-            prompt, model_name, pod_identifiers, lora_id
-        )
+        with obs.request(
+            "cluster.get_pod_scores", {"replicas": len(self.transports)}
+        ) as trace:
+            return self._scatter_gather(
+                prompt, model_name, pod_identifiers, lora_id, trace
+            )
 
     def score_many(self, requests) -> List[PodScores]:
         """Batched scatter-gather: ONE fan-out wave covers the whole
@@ -170,31 +281,58 @@ class ClusterScorer:
         if not requests:
             return []
         requests = list(requests)
-        replies = self._fan_out("score_many", requests)
-        return [
-            self._merge([(rid, reply[i]) for rid, reply in replies])
-            for i in range(len(requests))
-        ]
+        with obs.request(
+            "cluster.score_many",
+            {"replicas": len(self.transports), "batch": len(requests)},
+        ) as trace:
+            replies = self._fan_out(
+                trace, "score_many", "score_many_traced", requests,
+            )
+            t_merge = time.perf_counter()
+            merged = [
+                self._merge([(rid, reply[i]) for rid, reply in replies])
+                for i in range(len(requests))
+            ]
+            obs.record_into(trace, "cluster.merge", t_merge, time.perf_counter())
+            return merged
 
-    def _fan_out(self, method, *args):
+    def _fan_out(self, trace, method, traced_method, *args):
         """One scatter wave: submit the call to every live replica, gather
-        under the fan-out deadline, degrade per replica."""
+        under the fan-out deadline, degrade per replica. When the caller
+        has a trace, its carrier rides to every replica that supports the
+        traced transport form and the replies' span payloads are grafted
+        back under per-replica `cluster.rpc` hop spans — the recorder
+        then holds ONE cross-process tree for the request."""
         self.scatter_calls += 1
         targets = self._live_replicas()
+        carrier = obs.current_carrier() if trace is not None else None
 
         def call(rid: int):
-            return getattr(self.transports[rid], method)(*args)
+            transport = self.transports[rid]
+            traced = (
+                getattr(transport, traced_method, None)
+                if carrier is not None else None
+            )
+            t0 = time.perf_counter()
+            if traced is not None:
+                result, remote = traced(*args, carrier=carrier)
+            else:
+                result = getattr(transport, method)(*args)
+                remote = None
+            return result, remote, t0, time.perf_counter()
 
+        t_fan = time.perf_counter()
         futures = [
             (rid, self._executor.submit(call, rid)) for rid in targets
         ]
         deadline = time.perf_counter() + self.config.scatter_timeout_s
         replies = []
+        grafts = []
         degraded: List[int] = []
         for rid, fut in futures:
             budget = max(0.0, deadline - time.perf_counter())
             try:
-                result = fut.result(timeout=budget)
+                result, remote, t0c, t1c = fut.result(timeout=budget)
             except Exception as e:  # noqa: BLE001 - degrade per replica
                 fut.cancel()
                 self._observe_failure(rid, e)
@@ -202,6 +340,26 @@ class ClusterScorer:
                 continue
             self._observe_success(rid)
             replies.append((rid, result))
+            if carrier is not None:
+                grafts.append((rid, remote, t0c, t1c))
+        # One fan-out window for the whole wave, then per-replica rpc hop
+        # spans with the replicas' own stages grafted inside them. Which
+        # replicas participated/degraded rides in the trace meta (ids are
+        # data, never metric labels — cardinality stays bounded).
+        obs.record_into(trace, "cluster.fanout", t_fan, time.perf_counter())
+        for rid, remote, t0c, t1c in grafts:
+            if isinstance(remote, list):
+                payloads = [p for p in remote if p] or [None]
+            else:
+                payloads = [remote]
+            for k, payload in enumerate(payloads):
+                obs.graft_remote(
+                    trace, payload, t0c, t1c, hop="cluster.rpc", depth=2,
+                    add_hop=(k == 0),
+                )
+            obs.annotate("rpc_replicas", self.replica_name(rid))
+        if trace is not None and getattr(trace, "meta", None) is not None:
+            trace.meta["degraded_replicas"] = degraded
         if degraded:
             kvlog.trace(
                 logger,
@@ -211,12 +369,16 @@ class ClusterScorer:
         return replies
 
     def _scatter_gather(
-        self, prompt, model_name, pod_identifiers, lora_id
+        self, prompt, model_name, pod_identifiers, lora_id, trace
     ) -> PodScores:
         replies = self._fan_out(
-            "get_pod_scores_ex", prompt, model_name, pod_identifiers, lora_id,
+            trace, "get_pod_scores_ex", "get_pod_scores_ex_traced",
+            prompt, model_name, pod_identifiers, lora_id,
         )
-        return self._merge(replies)
+        t_merge = time.perf_counter()
+        merged = self._merge(replies)
+        obs.record_into(trace, "cluster.merge", t_merge, time.perf_counter())
+        return merged
 
     def _live_replicas(self) -> List[int]:
         """All replicas except stale ones — with the carve-out that a stale
@@ -244,6 +406,7 @@ class ClusterScorer:
 
     def _observe_failure(self, rid: int, e: Exception) -> None:
         self.scatter_errors += 1
+        metrics.count_scatter_error()
         # A failing replica provides no liveness evidence — the tracker's
         # quiet-stream windows do the demotion; the failure count is kept
         # on the record like a decode failure (stream alive but useless).

@@ -1,7 +1,6 @@
 """The host tier: wires kv_connectors into the serving loop.
 
-Port of the reference package's `engine/tiering.py` (without its trace spans
-and metrics counters; `stats` keeps the counts):
+Port of the reference package's `engine/tiering.py`:
 
 - **reclaim -> offload**: when the block manager reclaims a committed device
   page under allocation pressure, the page's bytes are staged in the host
@@ -30,9 +29,19 @@ import time
 from collections import OrderedDict
 from typing import TYPE_CHECKING, Callable, Dict, List, Mapping, Optional, Tuple
 
-from llm_d_kv_cache_manager_tpu_torch.engine.costs import PEER, READY, STAGED, TransferCostModel
+from llm_d_kv_cache_manager_tpu_torch import obs
+from llm_d_kv_cache_manager_tpu_torch.engine.costs import (
+    PEER,
+    READY,
+    STAGED,
+    TransferCostModel,
+)
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.hashing import fnv64a, fold64
-from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.key import Key, base_pod_identifier
+from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.key import (
+    Key,
+    base_pod_identifier,
+)
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
 
 if TYPE_CHECKING:
@@ -251,8 +260,16 @@ class TieredKVStore:
         parent_hash) in chain order. Returns the landed page ids (aligned
         with the block prefix) — fetches stop at the first miss so the
         hash chain never gets a hole, and fetch-before-take means a stale
-        plan cannot evict device-cached pages for a restore that lands
-        nothing."""
+        plan cannot evict HBM-cached pages for a restore that lands
+        nothing.
+
+        A root trace in the flight recorder (`transfer.load_chain`; a
+        nested stage when the caller is already traced), with the
+        staged/peer fetches and onboard waves as child spans."""
+        with obs.request("transfer.load_chain", {"blocks": len(blocks)}):
+            return self._load_chain_impl(blocks, take_pages)
+
+    def _load_chain_impl(self, blocks: List[tuple], take_pages) -> List[int]:
         landed: List[int] = []
         buffer: List[tuple] = []  # fetched, not yet landed: (payload, stat)
         cost_sources: List[str] = []  # what each fetched block actually cost
@@ -268,15 +285,16 @@ class TieredKVStore:
             if not buffer or exhausted:
                 buffer = []
                 return
-            page_ids = take_pages(len(buffer))
-            use = buffer[: len(page_ids)]
-            if use:
-                self.codec.insert_many(
-                    [(pid, p) for pid, (p, _) in zip(page_ids, use)]
-                )
-                for _, stat in use:
-                    self.stats[stat] += 1
-                landed.extend(page_ids[: len(use)])
+            with obs.stage("transfer.onboard_wave"):
+                page_ids = take_pages(len(buffer))
+                use = buffer[: len(page_ids)]
+                if use:
+                    self.codec.insert_many(
+                        [(pid, p) for pid, (p, _) in zip(page_ids, use)]
+                    )
+                    for _, stat in use:
+                        self.stats[stat] += 1
+                    landed.extend(page_ids[: len(use)])
             if len(use) < len(buffer):
                 exhausted = True
             buffer = []
@@ -405,34 +423,36 @@ class TieredKVStore:
         rendezvous-ranked holder is raced — the first valid reply wins,
         so a slow/corrupt/broken peer costs the hedge delay instead of
         the full timeout ladder."""
-        if candidates is not None and len(candidates) > 1:
-            hedged = getattr(
-                self.connector, "onboard_payloads_hedged", None
-            )
-            if hedged is not None:
+        with obs.stage("transfer.peer_fetch"):
+            if candidates is not None and len(candidates) > 1:
+                hedged = getattr(
+                    self.connector, "onboard_payloads_hedged", None
+                )
+                if hedged is not None:
+                    self.stats["batched_fetches"] += 1
+                    return hedged(candidates, hashes, max_size)
+            batched = getattr(self.connector, "onboard_payloads", None)
+            if batched is not None and len(hashes) > 1:
                 self.stats["batched_fetches"] += 1
-                return hedged(candidates, hashes, max_size)
-        batched = getattr(self.connector, "onboard_payloads", None)
-        if batched is not None and len(hashes) > 1:
-            self.stats["batched_fetches"] += 1
-            return batched(addr[0], addr[1], hashes, max_size)
-        out: List[Optional[bytes]] = []
-        for h in hashes:
-            payload = self.connector.onboard_payload(
-                addr[0], addr[1], h, max_size
-            )
-            out.append(payload)
-            if payload is None:
-                break  # chain cut: later blocks can't land anyway
-        return out
+                return batched(addr[0], addr[1], hashes, max_size)
+            out: List[Optional[bytes]] = []
+            for h in hashes:
+                payload = self.connector.onboard_payload(
+                    addr[0], addr[1], h, max_size
+                )
+                out.append(payload)
+                if payload is None:
+                    break  # chain cut: later blocks can't land anyway
+            return out
 
     def _fetch_staged_many(
         self, hashes: List[int], max_size: int,
     ) -> List[Optional[bytes]]:
-        batched = getattr(self.connector, "fetch_staged_many", None)
-        if batched is not None and len(hashes) > 1:
-            return batched(hashes, max_size)
-        return [self.connector.fetch_staged(h, max_size) for h in hashes]
+        with obs.stage("transfer.staged_fetch"):
+            batched = getattr(self.connector, "fetch_staged_many", None)
+            if batched is not None and len(hashes) > 1:
+                return batched(hashes, max_size)
+            return [self.connector.fetch_staged(h, max_size) for h in hashes]
 
     # -- async prefetch ----------------------------------------------------
 
@@ -509,6 +529,12 @@ class TieredKVStore:
         """Warm a whole submit's worth of blocks with batched fetches: one
         loopback round trip for the host-staged run, one multi-block
         round trip per peer (instead of one connection + RTT per block)."""
+        # A root trace of its own: this runs on the background prefetcher
+        # thread, where no request trace is ever active.
+        with obs.request("transfer.prefetch_batch", {"blocks": len(batch)}):
+            self._prefetch_batch_impl(batch)
+
+    def _prefetch_batch_impl(self, batch: List[int]) -> None:
         max_size = max(self.codec.page_nbytes, 1)
         with self._mu:
             todo = [h for h in batch if h not in self._ready]
@@ -578,7 +604,14 @@ class TieredKVStore:
         Blocks with an in-flight eager snapshot (stage_async) are claimed
         and admitted inline — their content was captured at snapshot time
         and the host copy has been overlapping since, so this path pays
-        only the residual sync instead of a fresh extract."""
+        only the residual sync instead of a fresh extract.
+
+        A root trace in the flight recorder (`transfer.stage`), with
+        extract dispatch/drain and host-store admits as child spans."""
+        with obs.request("transfer.stage", {"blocks": len(blocks)}):
+            return self._stage_many_impl(blocks)
+
+    def _stage_many_impl(self, blocks: List[tuple]) -> int:
         fresh = []
         n_resident = 0
         pending_blocks = []
@@ -614,7 +647,8 @@ class TieredKVStore:
             return n_resident
         wave = self.stage_wave_pages
         if len(fresh) <= wave:
-            payloads = self.codec.extract_many([b[3] for b in fresh])
+            with obs.stage("transfer.stage_extract"):
+                payloads = self.codec.extract_many([b[3] for b in fresh])
             return n_resident + self._admit_payloads(fresh, payloads)
         # Dispatch-then-drain double buffering: at most one un-drained wave
         # in flight beyond the one being dispatched, so pending gather
@@ -623,7 +657,8 @@ class TieredKVStore:
         for start in range(0, len(fresh), wave):
             w = fresh[start:start + wave]
             try:
-                resolve = self.codec.extract_many_async([b[3] for b in w])
+                with obs.stage("transfer.stage_extract"):
+                    resolve = self.codec.extract_many_async([b[3] for b in w])
             except Exception as e:  # noqa: BLE001 - wave is best-effort
                 logger.debug("stage wave dispatch failed: %s", e)
                 continue
@@ -637,7 +672,8 @@ class TieredKVStore:
 
     def _drain_stage_wave(self, blocks: List[tuple], resolve) -> int:
         try:
-            payloads = resolve()
+            with obs.stage("transfer.stage_drain"):
+                payloads = resolve()
         except Exception as e:  # noqa: BLE001 - wave is best-effort
             logger.debug("stage wave resolve failed: %s", e)
             return 0
@@ -646,6 +682,12 @@ class TieredKVStore:
     def _admit_payloads(self, blocks: List[tuple], payloads: List[bytes]) -> int:
         """Admit extracted payloads to the host store (capacity-evicting).
         Returns how many landed."""
+        with obs.stage("transfer.stage_admit"):
+            return self._admit_payloads_impl(blocks, payloads)
+
+    def _admit_payloads_impl(
+        self, blocks: List[tuple], payloads: List[bytes]
+    ) -> int:
         n_resident = 0
         for (chunk_hash, token_ids, parent_hash, _pid, lora_id), payload in zip(
             blocks, payloads
@@ -983,4 +1025,5 @@ class IndexBackedPeerResolver:
         if not fresh or fresh[0] == ranked[0]:
             return ranked
         self.negative_skips += 1
+        metrics.count_negative_cache_skip()
         return fresh + [a for a in ranked if a not in fresh]

@@ -2,9 +2,7 @@
 failover, reusing membership's two-phase handoff vocabulary at region
 granularity.
 
-Copy of the reference package's `federation/failover.py`, without its
-metrics counters (ROADMAP.md queue 1 item 7); `summary()` and
-`failovers` keep every count.
+Copy of the reference package's `federation/failover.py`.
 
 A region does not report itself dead — it goes *quiet*. The only signal
 the global tier has is the one it already consumes: the periodic digest
@@ -43,6 +41,7 @@ from llm_d_kv_cache_manager_tpu_torch.fleethealth import (
     FleetHealthTracker,
 )
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.hashing import fnv64a
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
 
 logger = kvlog.get_logger("federation.failover")
@@ -104,6 +103,7 @@ class RegionFailoverTracker:
         prev = self._last_state.get(region_id)
         if prev != state:
             self._last_state[region_id] = state
+            metrics.count_federation_transition(state)
             if prev is not None:
                 logger.warning(
                     "region %s: %s -> %s (digest staleness)",
@@ -147,6 +147,7 @@ class RegionFailoverTracker:
                 best, best_weight = region, weight
         if best is not None:
             self.failovers += 1
+            metrics.count_federation_failover()
         return best
 
     # -- introspection -----------------------------------------------------

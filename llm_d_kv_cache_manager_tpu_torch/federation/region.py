@@ -1,8 +1,7 @@
 """Region abstraction + federation config: one precise fleet behind the
 global tier.
 
-Copy of the reference package's `federation/region.py`, without the carrier-propagating delegation (ROADMAP.md queue 1
-item 7).
+Copy of the reference package's `federation/region.py`.
 
 A *region* is everything the repo already builds — an `Indexer` (or the
 replicated `ClusterScorer` front over N indexer replicas), its event
@@ -136,6 +135,24 @@ class Region:
         return self.scorer.get_pod_scores_ex(
             prompt, model_name, pod_identifiers, lora_id=lora_id
         )
+
+    def get_pod_scores_ex_traced(
+        self, prompt, model_name, pod_identifiers, lora_id=None, carrier=None
+    ):
+        """Carrier-propagating delegation (obs/carrier.py): a REMOTE
+        region's transport ships its span tuples back for the global
+        router to graft; a local front (Indexer / ClusterScorer) runs on
+        the caller's thread, where its stages land in the current trace
+        directly — it returns no payload."""
+        traced = getattr(self.scorer, "get_pod_scores_ex_traced", None)
+        if carrier is not None and traced is not None:
+            return traced(
+                prompt, model_name, pod_identifiers, lora_id=lora_id,
+                carrier=carrier,
+            )
+        return self.get_pod_scores_ex(
+            prompt, model_name, pod_identifiers, lora_id=lora_id
+        ), None
 
     def score_many(self, requests) -> List[PodScores]:
         score_many = getattr(self.scorer, "score_many", None)

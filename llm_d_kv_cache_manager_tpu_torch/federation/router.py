@@ -1,9 +1,6 @@
 """GlobalRouter: the two-level read path over a federation of regions.
 
-Copy of the reference package's `federation/router.py`, without its
-tracing spans, the carrier-propagating delegation and its metrics
-(ROADMAP.md queue 1 item 7); `status()` and `stats_counters` keep every
-count.
+Copy of the reference package's `federation/router.py`.
 
 Level 1 — **approximate, global**: score the request's leading block
 hashes against every region's shipped popularity sketch
@@ -35,6 +32,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+from llm_d_kv_cache_manager_tpu_torch import obs
 from llm_d_kv_cache_manager_tpu_torch.federation.digest import (
     RegionDigest,
     decode_digest,
@@ -43,6 +41,7 @@ from llm_d_kv_cache_manager_tpu_torch.federation.digest import (
 from llm_d_kv_cache_manager_tpu_torch.federation.failover import RegionFailoverTracker
 from llm_d_kv_cache_manager_tpu_torch.federation.region import FederationConfig, Region
 from llm_d_kv_cache_manager_tpu_torch.kvcache.indexer import PodScores
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
 
 logger = kvlog.get_logger("federation.router")
@@ -146,6 +145,7 @@ class GlobalRouter:
         digest = region.build_digest(self.config, now=now)
         data = encode_digest(digest)
         self.stats_counters["digest_bytes_sent"] += len(data)
+        metrics.count_federation_digest_bytes(len(data))
         self.ingest_digest(digest, now=now, received_bytes=0)
         return data
 
@@ -203,6 +203,7 @@ class GlobalRouter:
                 self.stats_counters["warm_jobs"] += 1
                 if landed:
                     self.stats_counters["warmed_blocks"] += landed
+                    metrics.count_federation_warmed(landed)
         # Cooldown table hygiene (bounded by the travelling chain set).
         if len(self._warm_last) > 64 * max(len(self.regions), 1):
             horizon = now - cfg.replicate_cooldown_s
@@ -278,6 +279,7 @@ class GlobalRouter:
         ):
             detail["mispick"] = True
             self.stats_counters["mispicked_regions"] += 1
+            metrics.count_federation_mispick()
         return best_region, detail
 
     # -- two-level read path ----------------------------------------------
@@ -295,11 +297,17 @@ class GlobalRouter:
         fails at delegation time contributes nothing — the request retries
         the next-ranked candidate (degraded, never stalled), and an
         exhausted candidate list answers the explicit no-cache-signal
-        empty PodScores."""
-        return self._score_ex(
-            prompt, model_name, pod_identifiers, lora_id=lora_id,
-            home_region=home_region, now=now,
-        )
+        empty PodScores.
+
+        Traced end to end (`federation.score` root): region_pick /
+        delegate / failover_retry stages, and a remote region's reply
+        spans graft back under a `federation.rpc` hop — the recorder then
+        shows the WAN hop inside the same tree as the local stages."""
+        with obs.request("federation.score"):
+            return self._score_ex(
+                prompt, model_name, pod_identifiers, lora_id=lora_id,
+                home_region=home_region, now=now,
+            )
 
     def _score_ex(
         self,
@@ -324,23 +332,30 @@ class GlobalRouter:
                 region=region_id, pod_scores=ps,
                 detail={"single_region": True},
             )
-        hashes: Sequence[int] = ()
-        if self.derive_fn is not None:
-            hashes = self.derive_fn(prompt, model_name, lora_id)
-        region_id, detail = self.pick_region(
-            hashes, home_region=home_region, now=now
-        )
+        with obs.stage("federation.region_pick", nested=True):
+            hashes: Sequence[int] = ()
+            if self.derive_fn is not None:
+                hashes = self.derive_fn(prompt, model_name, lora_id)
+            region_id, detail = self.pick_region(
+                hashes, home_region=home_region, now=now
+            )
         tried = []
         while region_id is not None:
             region = self.regions.get(region_id)
             if region is not None:
+                stage_name = (
+                    "federation.delegate" if not tried
+                    else "federation.failover_retry"
+                )
                 try:
-                    ps, _ = self._delegate(
-                        region, prompt, model_name, pod_identifiers,
-                        lora_id,
-                    )
+                    with obs.stage(stage_name, nested=True):
+                        ps, _ = self._delegate(
+                            region, prompt, model_name, pod_identifiers,
+                            lora_id,
+                        )
                     self._count_route(region_id, home_region)
                     detail["tried"] = tried
+                    obs.annotate("region", region_id)
                     return GlobalScore(
                         region=region_id, pod_scores=ps, detail=detail
                     )
@@ -360,10 +375,29 @@ class GlobalRouter:
         )
 
     def _delegate(self, region, prompt, model_name, pod_identifiers, lora_id):
-        """One precise delegation to the region's front."""
-        return region.get_pod_scores_ex(
-            prompt, model_name, pod_identifiers, lora_id=lora_id
-        ), None
+        """One precise delegation, carrier-propagating when the region's
+        front supports the traced transport form (a remote region over
+        gRPC); its reply spans assemble under a `federation.rpc` hop. A
+        local region's front runs on THIS thread — its stages land in the
+        current trace directly, no carrier needed."""
+        carrier = obs.current_carrier()
+        traced = getattr(region, "get_pod_scores_ex_traced", None)
+        if carrier is None or traced is None:
+            return region.get_pod_scores_ex(
+                prompt, model_name, pod_identifiers, lora_id=lora_id
+            ), None
+        t0 = time.perf_counter()
+        ps, remote = traced(
+            prompt, model_name, pod_identifiers, lora_id=lora_id,
+            carrier=carrier,
+        )
+        t1 = time.perf_counter()
+        if remote is not None:
+            obs.graft_remote(
+                obs.current_trace(), remote, t0, t1,
+                hop="federation.rpc", depth=1,
+            )
+        return ps, remote
 
     def get_pod_scores_ex(
         self, prompt: str, model_name: str, pod_identifiers, lora_id=None
@@ -380,6 +414,7 @@ class GlobalRouter:
             self.routed_by_region[region_id] += 1
         if home_region is not None and region_id == home_region:
             self.stats_counters["routed_home"] += 1
+        metrics.count_federation_route(region_id)
 
     # -- introspection -----------------------------------------------------
 
@@ -396,6 +431,8 @@ class GlobalRouter:
         for r in self.config.region_set():
             entry = digests.get(r)
             age = round(now - entry[1], 3) if entry is not None else None
+            if age is not None:
+                metrics.set_federation_digest_age(r, age)
             regions[r] = {
                 **staleness.get(r, {"state": "healthy"}),
                 "digest_age_s": age,

@@ -1,8 +1,6 @@
 """Pod-lifecycle & staleness tracking for the KV-block control plane.
 
-Copy of the reference package's `fleethealth/tracker.py`, without its
-metrics counters (every count `summary()`, `anomaly_totals()` and
-`seq_snapshot()` return is kept). The index is a *near-real-time* view of
+Copy of the reference package's `fleethealth/tracker.py`. The index is a *near-real-time* view of
 the fleet's cache placement, kept fresh only by the engines' event
 streams: a crashed pod, a stalled ZMQ stream, or dropped event batches
 leave phantom placements that `GetPodScores` keeps routing traffic to.
@@ -52,6 +50,7 @@ from typing import Callable, Dict, List, Optional
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.key import (
     base_pod_identifier,
 )
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
 
 logger = kvlog.get_logger("fleethealth.tracker")
@@ -197,11 +196,14 @@ class FleetHealthTracker:
                 if last is not None:
                     if seq == last:
                         rec.duplicates += 1
+                        metrics.count_stream_anomaly("duplicate")
                     elif seq < last:
                         rec.reorders += 1
+                        metrics.count_stream_anomaly("reorder")
                     elif seq > last + 1:
                         rec.seq_gaps += 1
                         rec.gap_events += seq - last - 1
+                        metrics.count_stream_anomaly("seq_gap")
                         logger.warning(
                             "event seq gap on %s topic=%s: %d -> %d "
                             "(%d batch(es) lost)",
@@ -212,6 +214,7 @@ class FleetHealthTracker:
                 ts + self.config.ts_regression_tolerance_s < rec.last_ts
             ):
                 rec.ts_regressions += 1
+                metrics.count_stream_anomaly("ts_regression")
             rec.last_ts = max(rec.last_ts or ts, ts)
 
     def observe_decode_failure(self, pod_identifier: str) -> None:
@@ -288,6 +291,7 @@ class FleetHealthTracker:
         old = rec.state
         rec.state = new_state
         rec.state_since = now
+        metrics.count_pod_transition(new_state)
         log = logger.info if new_state == HEALTHY else logger.warning
         log("pod %s: %s -> %s (last event %.1fs ago)",
             pod, old, new_state, now - rec.last_event_t)
@@ -326,6 +330,7 @@ class FleetHealthTracker:
             # unwind the read path; the pod stays excluded by state anyway.
             logger.warning("failed to purge stale pod %s from index: %s", pod, e)
             return
+        metrics.count_stale_purged(removed)
         with self._mu:
             rec = self._pods.get(pod)
             if rec is not None:
@@ -364,6 +369,7 @@ class FleetHealthTracker:
             self._fire_departed(pod_identifier)
             return 0
         removed = self.index.remove_pod(pod_identifier)
+        metrics.count_stale_purged(removed)
         with self._mu:
             rec = self._pods.get(pod_identifier)
             if rec is not None:

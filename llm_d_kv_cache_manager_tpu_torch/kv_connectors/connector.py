@@ -1,7 +1,6 @@
 """kv_connectors: the KV-block data plane (host store + pod-to-pod wire).
 
-Port of the reference package's `kv_connectors/connector.py` (without its
-trace spans, metrics counters and fault injection):
+Port of the reference package's `kv_connectors/connector.py`:
 
 - **Host store**: `KVConnector.stage` registers an opaque block payload with
   the C++ transfer server (`kv_connectors/cpp/kv_transfer.cpp`, loaded with
@@ -27,6 +26,7 @@ the name, sizes come from the engine config on both ends.
 from __future__ import annotations
 
 import ctypes
+import os
 import threading
 import time
 from collections import deque
@@ -35,7 +35,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from llm_d_kv_cache_manager_tpu_torch import obs
 from llm_d_kv_cache_manager_tpu_torch.kvevents.events import BlockRemoved, BlockStored, EventBatch
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 from llm_d_kv_cache_manager_tpu_torch.ops import _build
 from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
 
@@ -146,6 +148,20 @@ class BlockTransferServer:
 # -- pooled keep-alive client -------------------------------------------------
 
 
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, default))
+    except (TypeError, ValueError):
+        return default
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, default))
+    except (TypeError, ValueError):
+        return default
+
+
 @dataclass
 class TransferClientConfig:
     connect_timeout_ms: int = 2000
@@ -185,11 +201,50 @@ class TransferClientConfig:
     # disables the sweep.
     peer_idle_ttl_s: float = 0.0
 
+    @classmethod
+    def from_env(cls) -> "TransferClientConfig":
+        """Env-tunable form for the process-wide default client (the knobs
+        a deployment flips without code: see docs/configuration.md)."""
+        return cls(
+            connect_timeout_ms=_env_int("KVTPU_TRANSFER_CONNECT_TIMEOUT_MS", 2000),
+            io_timeout_ms=_env_int("KVTPU_TRANSFER_IO_TIMEOUT_MS", 5000),
+            retries=_env_int("KVTPU_TRANSFER_RETRIES", 1),
+            verify_integrity=_env_int("KVTPU_TRANSFER_VERIFY_INTEGRITY", 1) != 0,
+            breaker_failure_threshold=_env_int(
+                "KVTPU_TRANSFER_BREAKER_THRESHOLD", 5
+            ),
+            breaker_cooldown_s=_env_float(
+                "KVTPU_TRANSFER_BREAKER_COOLDOWN_S", 30.0
+            ),
+            hedge_delay_floor_s=_env_float(
+                "KVTPU_TRANSFER_HEDGE_FLOOR_MS", 5.0
+            ) / 1e3,
+            hedge_delay_cap_s=_env_float(
+                "KVTPU_TRANSFER_HEDGE_CAP_MS", 2000.0
+            ) / 1e3,
+            peer_idle_ttl_s=_env_float(
+                "KVTPU_TRANSFER_PEER_IDLE_TTL_S", 0.0
+            ),
+        )
 
-# Breaker states, as transitions and `status()` report them.
+
+
+
+# Breaker states — the fixed vocabulary the transition metric's `state`
+# label carries (pinned in tests/test_metrics_hygiene.py).
 BREAKER_CLOSED = "closed"
 BREAKER_OPEN = "open"
 BREAKER_HALF_OPEN = "half_open"
+BREAKER_STATES = (BREAKER_CLOSED, BREAKER_OPEN, BREAKER_HALF_OPEN)
+
+# Per-block error kinds — the fixed vocabulary of
+# kvcache_transfer_block_errors_total{kind} (pinned in the hygiene walk).
+# `transport`: the whole round trip failed its bounded timeout/retry
+# budget; `oversized`: the peer answered with a block over the caller's
+# cap (drained, dropped); `corrupt`: the end-to-end checksum failed on
+# receipt; `breaker_open`: skipped instantly because the peer's breaker
+# was open.
+TRANSFER_ERROR_KINDS = ("transport", "oversized", "corrupt", "breaker_open")
 
 # Sentinels for per-block wire statuses inside _transport_fetch results.
 _OVERSIZED = object()  # -3: present remotely but over the caller's cap
@@ -515,6 +570,7 @@ class TransferClient:
 
     def _fail(self, host: str, port: int, n: int, what: str) -> None:
         self.stats["failures"] += 1
+        metrics.count_transfer_failure()
         logger.warning(
             "transfer %s from %s:%d failed after %d attempt(s) (%d block(s) "
             "treated as missing)", what, host, port,
@@ -527,6 +583,7 @@ class TransferClient:
         if transition is None:
             return
         old, new = transition
+        metrics.count_breaker_transition(new)
         log = logger.info if new == BREAKER_CLOSED else logger.warning
         log("transfer breaker for %s: %s -> %s", peer.key, old, new)
         if self.on_breaker_transition is not None:
@@ -567,10 +624,13 @@ class TransferClient:
         else:
             with peer.lock:
                 peer.failures += 1
+            metrics.count_transfer_block_error("transport", blocks)
         if corrupt_blocks:
             with peer.lock:
                 peer.corrupt_blocks += corrupt_blocks
             self.stats["corrupt_blocks"] += corrupt_blocks
+            metrics.count_transfer_corrupt(corrupt_blocks)
+            metrics.count_transfer_block_error("corrupt", corrupt_blocks)
             logger.warning(
                 "%d corrupt block(s) detected from %s:%d — discarded "
                 "(checksum mismatch), falling back", corrupt_blocks, host,
@@ -586,6 +646,7 @@ class TransferClient:
         with peer.lock:
             peer.breaker_skips += 1
         self.stats["breaker_skipped_blocks"] += n
+        metrics.count_transfer_block_error("breaker_open", n)
         return [None] * n
 
     # -- fetch paths -------------------------------------------------------
@@ -663,9 +724,12 @@ class TransferClient:
         self, host: str, port: int, hashes: List[int], max_size: int,
     ) -> List[Optional[bytes]]:
         n = len(hashes)
-        t0 = self.clock()
-        ok, entries = self._transport_fetch(host, port, hashes, max_size)
-        latency = max(self.clock() - t0, 0.0)
+        # Peer identity rides the trace META (data), never a metric label.
+        obs.annotate("peer", f"{host}:{port}")
+        with obs.stage("transfer.dcn_fetch"):
+            t0 = self.clock()
+            ok, entries = self._transport_fetch(host, port, hashes, max_size)
+            latency = max(self.clock() - t0, 0.0)
         if not ok:
             self.note_result(host, port, ok=False, latency_s=latency, blocks=n)
             self._fail(host, port, n, "batch fetch")
@@ -679,6 +743,7 @@ class TransferClient:
                 result.append(None)  # detected — treated exactly like a miss
             elif entry is _OVERSIZED:
                 self.stats["oversized_blocks"] += 1
+                metrics.count_transfer_block_error("oversized", 1)
                 logger.warning(
                     "block %x from %s:%d exceeds cap %d — dropped",
                     h, host, port, max(max_size, 1),
@@ -795,6 +860,7 @@ class TransferClient:
                     # with holes: fan to the next rendezvous-ranked holder.
                     launch(nxt)
                     self.stats["hedges"] += 1
+                    metrics.count_transfer_hedge()
                 elif inflight[0] == 0:
                     break
                 done = examined  # rebind for the closure below
@@ -869,6 +935,47 @@ class TransferClient:
         for conn in conns:
             with conn.lock:
                 self._drop(conn)
+
+
+_default_client: Optional[TransferClient] = None
+_default_client_mu = threading.Lock()
+
+
+def default_client() -> TransferClient:
+    """Process-wide pooled client (module-level fetch_block/fetch_blocks).
+    Env-tunable: KVTPU_TRANSFER_{CONNECT_TIMEOUT_MS, IO_TIMEOUT_MS,
+    RETRIES, VERIFY_INTEGRITY, BREAKER_THRESHOLD, BREAKER_COOLDOWN_S,
+    HEDGE_FLOOR_MS, HEDGE_CAP_MS}."""
+    global _default_client
+    with _default_client_mu:
+        if _default_client is None:
+            _default_client = TransferClient(TransferClientConfig.from_env())
+        return _default_client
+
+
+def peek_default_client() -> Optional[TransferClient]:
+    """The process-wide client if one exists — WITHOUT creating it (the
+    /readyz transfer section must not conjure a transfer plane into a
+    process that never used one)."""
+    with _default_client_mu:
+        return _default_client
+
+
+def fetch_block(host: str, port: int, block_hash: int, max_size: int) -> Optional[bytes]:
+    """Fetch a staged block from a pod over the pooled keep-alive client.
+    None if the block is missing (a present-but-empty block returns b"") OR
+    if the transfer failed after the bounded timeout/retry budget — the
+    failure is logged and counted (`transfer_failures`), never raised, so a
+    dead peer degrades to a cache miss instead of an unbounded hang."""
+    return default_client().fetch_one(host, port, block_hash, max_size)
+
+
+def fetch_blocks(
+    host: str, port: int, block_hashes: List[int], max_size: int,
+) -> List[Optional[bytes]]:
+    """Batched `fetch_block`: one round trip per chain (multi-block wire
+    protocol). Same None semantics per block."""
+    return default_client().fetch_many(host, port, block_hashes, max_size)
 
 
 @dataclass
@@ -952,25 +1059,26 @@ class KVConnector:
         cannot corrupt it) and a CUDA event; on the CPU a copy. The block is
         staged (+ host-tier event) when `drain_offloads` resolves it. Past
         `max_inflight_offloads`, the oldest entry is drained first."""
-        host, event = [], None
-        for page in (k_page, v_page):
-            if page.device.type == "cuda":
-                buf = torch.empty(page.shape, dtype=page.dtype, pin_memory=True)
-                buf.copy_(page, non_blocking=True)
-            else:
-                buf = page.detach().clone()
-            host.append(buf)
-        if any(page.device.type == "cuda" for page in (k_page, v_page)):
-            event = torch.cuda.Event()
-            event.record()
-        # The device pages stay referenced until the copy has completed.
-        entry = (block_hash, host, (k_page, v_page), event, list(token_ids),
-                 block_size, parent_hash, lora_id)
-        drain_oldest = []
-        with self._offload_mu:
-            self._offloads.append(entry)
-            while len(self._offloads) > max(1, self.config.max_inflight_offloads):
-                drain_oldest.append(self._offloads.popleft())
+        with obs.stage("transfer.offload_dispatch"):
+            host, event = [], None
+            for page in (k_page, v_page):
+                if page.device.type == "cuda":
+                    buf = torch.empty(page.shape, dtype=page.dtype, pin_memory=True)
+                    buf.copy_(page, non_blocking=True)
+                else:
+                    buf = page.detach().clone()
+                host.append(buf)
+            if any(page.device.type == "cuda" for page in (k_page, v_page)):
+                event = torch.cuda.Event()
+                event.record()
+            # The device pages stay referenced until the copy has completed.
+            entry = (block_hash, host, (k_page, v_page), event, list(token_ids),
+                     block_size, parent_hash, lora_id)
+            drain_oldest = []
+            with self._offload_mu:
+                self._offloads.append(entry)
+                while len(self._offloads) > max(1, self.config.max_inflight_offloads):
+                    drain_oldest.append(self._offloads.popleft())
         for old in drain_oldest:
             self._resolve_offload(old)
 
@@ -994,11 +1102,12 @@ class KVConnector:
             return len(self._offloads)
 
     def _resolve_offload(self, entry) -> None:
-        block_hash, host, _pages, event, token_ids, block_size, parent, lora = entry
-        if event is not None:
-            event.synchronize()
-        self.stage(block_hash, b"".join(_tensor_bytes(t) for t in host), token_ids,
-                   block_size, parent, lora)
+        with obs.stage("transfer.offload_drain"):
+            block_hash, host, _pages, event, token_ids, block_size, parent, lora = entry
+            if event is not None:
+                event.synchronize()
+            self.stage(block_hash, b"".join(_tensor_bytes(t) for t in host), token_ids,
+                       block_size, parent, lora)
 
     def restore(self, block_hash: int, like_k, like_v) -> Optional[Tuple]:
         """Bring a host-staged block back as (k_page, v_page) tensors shaped

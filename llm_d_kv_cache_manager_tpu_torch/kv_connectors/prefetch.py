@@ -5,8 +5,7 @@ routed prompt (`Indexer.get_pod_scores_ex`). The moment the router picks a
 pod, the exact set of blocks that pod will MISS — the tail of the chain past
 its matched prefix — is known, minutes of compute before the engine's
 allocator faults on it. This module (a copy of the reference package's
-`kv_connectors/prefetch.py`, without its trace span and metrics counters;
-`stats` and `status()` are kept) feeds it to the chosen pod's prefetcher, so
+`kv_connectors/prefetch.py`) feeds it to the chosen pod's prefetcher, so
 the peer fetch rides the request's queue/tokenize/schedule latency rather
 than its TTFT.
 
@@ -24,6 +23,8 @@ import queue
 import threading
 from typing import Callable, Dict, List, Optional
 
+from llm_d_kv_cache_manager_tpu_torch import obs
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
 
 logger = kvlog.get_logger("kv_connectors.prefetch")
@@ -31,7 +32,8 @@ logger = kvlog.get_logger("kv_connectors.prefetch")
 PrefetchFn = Callable[[str, List[int]], int]
 
 # The fixed submitter vocabulary: every plane that rides this queue names
-# itself from this set.
+# itself from this set, and the per-source drop metric's label is bounded
+# by it (tests/test_metrics_hygiene.py pins the values).
 PREFETCH_SOURCES = ("route", "replication", "prediction")
 
 
@@ -91,6 +93,7 @@ class RoutePrefetcher:
         except queue.Full:
             self.stats["dropped"] += 1
             self._source(source)["dropped"] += 1
+            metrics.count_prefetch_drop(source)
             return False
         self.stats["submitted"] += 1
         self._source(source)["submitted"] += 1
@@ -116,12 +119,16 @@ class RoutePrefetcher:
             pod_identifier, block_hashes, source = item
             try:
                 if not self._closed:
-                    n = self.prefetch_fn(pod_identifier, block_hashes)
+                    # A root trace: the prefetch worker thread never has a
+                    # request trace active.
+                    with obs.request("transfer.route_prefetch"):
+                        n = self.prefetch_fn(pod_identifier, block_hashes)
                     self.stats["executed"] += 1
                     self.stats["blocks_queued"] += int(n or 0)
                     st = self._source(source)
                     st["executed"] += 1
                     st["blocks_queued"] += int(n or 0)
+                    metrics.count_route_prefetch(int(n or 0))
             except Exception as e:  # noqa: BLE001 - a hint must never kill
                 logger.debug(  # the worker; the engine restores on fault
                     "route prefetch for %s failed: %s", pod_identifier, e

@@ -15,8 +15,7 @@ shares this Indexer's `kv_block_index` and token processor — index sharing
 is the only read/write coupling. The optional fleet-health, popularity,
 routing-policy, prediction and anti-entropy objects are duck-typed, as in
 the reference. Over the native index (kvblock/native_index.py) a
-`score_many` batch runs as one fused crossing (`_native_score_plan`). The
-reference's trace spans are not ported.
+`score_many` batch runs as one fused crossing (`_native_score_plan`).
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
+from llm_d_kv_cache_manager_tpu_torch import obs
 from llm_d_kv_cache_manager_tpu_torch.kvcache.backend import (
     KVCacheBackendConfig,
     default_kv_cache_backend_configs,
@@ -222,6 +222,24 @@ class Indexer:
         evidence into it. Explain therefore runs THIS code path, not a
         parallel reimplementation, which is what makes its scores
         bit-identical by construction."""
+        # No meta dict on the hot path — the model rides in the explain
+        # report; a per-request dict alloc is measurable at this depth.
+        with obs.request("read.get_pod_scores"):
+            return self._get_pod_scores_ex(
+                prompt, model_name, pod_identifiers,
+                render_request=render_request, lora_id=lora_id,
+                _explain=_explain,
+            )
+
+    def _get_pod_scores_ex(
+        self,
+        prompt: str,
+        model_name: str,
+        pod_identifiers: Sequence[str],
+        render_request=None,
+        lora_id=None,
+        _explain: Optional[dict] = None,
+    ) -> PodScores:
         # Same validation as the event-ingest side (kvevents/pool.py): an
         # invalid adapter id degrades to the base keyspace rather than
         # hashing into a keyspace no event can ever populate.
@@ -231,9 +249,10 @@ class Indexer:
             lora_id = None
 
         try:
-            tokenized = self.tokenizers_pool.tokenize_ex(
-                render_request, prompt, model_name
-            )
+            with obs.stage("read.tokenize", nested=True):
+                tokenized = self.tokenizers_pool.tokenize_ex(
+                    render_request, prompt, model_name
+                )
         except PoolOverloadedError:
             # Degrade, don't fail: an empty score map routes the request by
             # the caller's fallback strategy, which beats queueing the read
@@ -249,10 +268,11 @@ class Indexer:
         # The pool's prefix-store boundary state rides along so the chain
         # memo can resume key derivation at the first novel block of a
         # follow-up turn — same keys, none of the re-hashing.
-        block_keys = self.token_processor.tokens_to_kv_block_keys(
-            None, tokenized.tokens, model_name, lora_id=lora_id,
-            prefix_state=tokenized.prefix_state,
-        )
+        with obs.stage("read.derive"):
+            block_keys = self.token_processor.tokens_to_kv_block_keys(
+                None, tokenized.tokens, model_name, lora_id=lora_id,
+                prefix_state=tokenized.prefix_state,
+            )
         if _explain is not None:
             memo = self.token_processor.chain_memo
             _explain["tokens"] = len(tokenized.tokens)
@@ -293,22 +313,24 @@ class Indexer:
                 block_size=self.token_processor.block_size,
             )
 
-        key_to_pods = self.kv_block_index.lookup(
-            block_keys, set(pod_identifiers)
-        )
-        scores, match_blocks = self.scorer.score_ex(block_keys, key_to_pods)
-        if _explain is not None:
-            _explain["raw_scores"] = dict(scores)
-        if self.fleet_health is not None:
-            # Degraded-mode scoring: suspect pods demoted, stale pods
-            # excluded. An emptied map is the explicit no-cache-signal
-            # answer — the caller's load/round-robin fallback takes over
-            # instead of routing to phantom placements.
-            scores = self.fleet_health.filter_scores(scores)
-        if self.antientropy is not None:
-            scores = self.antientropy.adjust_scores(scores)
-        if self.routing_policy is not None:
-            scores = self.routing_policy.adjust(scores, _explain=_explain)
+        with obs.stage("read.lookup"):
+            key_to_pods = self.kv_block_index.lookup(
+                block_keys, set(pod_identifiers)
+            )
+        with obs.stage("read.score"):
+            scores, match_blocks = self.scorer.score_ex(block_keys, key_to_pods)
+            if _explain is not None:
+                _explain["raw_scores"] = dict(scores)
+            if self.fleet_health is not None:
+                # Degraded-mode scoring: suspect pods demoted, stale pods
+                # excluded. An emptied map is the explicit no-cache-signal
+                # answer — the caller's load/round-robin fallback takes over
+                # instead of routing to phantom placements.
+                scores = self.fleet_health.filter_scores(scores)
+            if self.antientropy is not None:
+                scores = self.antientropy.adjust_scores(scores)
+            if self.routing_policy is not None:
+                scores = self.routing_policy.adjust(scores, _explain=_explain)
         kvlog.trace(logger, "pod scores: %s", scores)
         return PodScores(
             scores=scores,
@@ -329,9 +351,18 @@ class Indexer:
         requests]` over the same state. Degradation is per
         ITEM: a request shed by a saturated tokenization pool returns an
         empty `PodScores` in its slot while the rest of the batch scores
-        normally (the single-call overload contract, item-scoped)."""
+        normally (the single-call overload contract, item-scoped).
+
+        One root trace (`read.score_many`) covers the batch, with
+        `read.batch.*` stage spans plus the pool workers' per-item spans
+        recorded into it — stage attribution shows exactly where the
+        amortization lands."""
         if not requests:
             return []
+        with obs.request("read.score_many", {"batch": len(requests)}):
+            return self._score_many(requests)
+
+    def _score_many(self, requests: Sequence[ScoreRequest]) -> List[PodScores]:
         n = len(requests)
         results: List[Optional[PodScores]] = [None] * n
 
@@ -348,9 +379,10 @@ class Indexer:
                 lora_id = None
             loras.append(lora_id)
 
-        tokenized = self.tokenizers_pool.tokenize_many(
-            [(r.render_request, r.prompt, r.model_name) for r in requests]
-        )
+        with obs.stage("read.batch.tokenize", nested=True):
+            tokenized = self.tokenizers_pool.tokenize_many(
+                [(r.render_request, r.prompt, r.model_name) for r in requests]
+            )
         live: List[int] = []
         shed = 0
         for i, t in enumerate(tokenized):
@@ -367,13 +399,14 @@ class Indexer:
                 "degraded to empty scores", shed, n,
             )
 
-        keys_per_item = self.token_processor.tokens_to_kv_block_keys_many([
-            (
-                tokenized[i].tokens, requests[i].model_name, loras[i],
-                tokenized[i].prefix_state,
-            )
-            for i in live
-        ])
+        with obs.stage("read.batch.derive"):
+            keys_per_item = self.token_processor.tokens_to_kv_block_keys_many([
+                (
+                    tokenized[i].tokens, requests[i].model_name, loras[i],
+                    tokenized[i].prefix_state,
+                )
+                for i in live
+            ])
 
         # Relevant-pod sets are built ONCE per distinct pod list and reused
         # across the batch (the single-call path rebuilds per call).
@@ -463,43 +496,45 @@ class Indexer:
                         block_hashes=[k.chunk_hash for k in spec["keys"]],
                     )
                 return results
-            lookup_many = getattr(self.kv_block_index, "lookup_many", None)
-            if lookup_many is not None:
-                hits = lookup_many(lookup_reqs)
-            else:  # duck-typed test doubles without the batch API
-                hits = [
-                    self.kv_block_index.lookup(keys, pod_set)
-                    for keys, pod_set in lookup_reqs
-                ]
-            plan: List[tuple] = []
-            for spec in plan_specs:
-                if spec["ref"] is None:
-                    plan.append((
-                        "solo", spec["keys"], hits[spec["lookup"]],
-                        spec.get("forked", False),
-                    ))
-                else:
-                    plan.append((
-                        "fork", spec["ref"], spec["shared"], spec["tail"],
-                        hits[spec["lookup"]]
-                        if spec["lookup"] is not None else {},
-                    ))
-            scored = self.scorer.score_plan(plan)
-            fleet_health = self.fleet_health
-            antientropy = self.antientropy
-            routing_policy = self.routing_policy
-            for spec, (scores, match_blocks) in zip(plan_specs, scored):
-                if fleet_health is not None:
-                    scores = fleet_health.filter_scores(scores)
-                if antientropy is not None:
-                    scores = antientropy.adjust_scores(scores)
-                if routing_policy is not None:
-                    scores = routing_policy.adjust(scores)
-                results[spec["item"]] = PodScores(
-                    scores=scores,
-                    match_blocks=match_blocks,
-                    block_hashes=[k.chunk_hash for k in spec["keys"]],
-                )
+            with obs.stage("read.batch.lookup"):
+                lookup_many = getattr(self.kv_block_index, "lookup_many", None)
+                if lookup_many is not None:
+                    hits = lookup_many(lookup_reqs)
+                else:  # duck-typed test doubles without the batch API
+                    hits = [
+                        self.kv_block_index.lookup(keys, pod_set)
+                        for keys, pod_set in lookup_reqs
+                    ]
+            with obs.stage("read.batch.score"):
+                plan: List[tuple] = []
+                for spec in plan_specs:
+                    if spec["ref"] is None:
+                        plan.append((
+                            "solo", spec["keys"], hits[spec["lookup"]],
+                            spec.get("forked", False),
+                        ))
+                    else:
+                        plan.append((
+                            "fork", spec["ref"], spec["shared"], spec["tail"],
+                            hits[spec["lookup"]]
+                            if spec["lookup"] is not None else {},
+                        ))
+                scored = self.scorer.score_plan(plan)
+                fleet_health = self.fleet_health
+                antientropy = self.antientropy
+                routing_policy = self.routing_policy
+                for spec, (scores, match_blocks) in zip(plan_specs, scored):
+                    if fleet_health is not None:
+                        scores = fleet_health.filter_scores(scores)
+                    if antientropy is not None:
+                        scores = antientropy.adjust_scores(scores)
+                    if routing_policy is not None:
+                        scores = routing_policy.adjust(scores)
+                    results[spec["item"]] = PodScores(
+                        scores=scores,
+                        match_blocks=match_blocks,
+                        block_hashes=[k.chunk_hash for k in spec["keys"]],
+                    )
         return results
 
     def _native_score_plan(self, plan_specs):
@@ -526,13 +561,14 @@ class Indexer:
             count_fallback()  # custom scorer: parity not provable in C
             return None
         try:
-            return inner.score_plan(
-                plan_specs,
-                medium_weights,
-                fleet_health=self.fleet_health,
-                antientropy=self.antientropy,
-                routing_policy=self.routing_policy,
-            )
+            with obs.stage("read.batch.native"):
+                return inner.score_plan(
+                    plan_specs,
+                    medium_weights,
+                    fleet_health=self.fleet_health,
+                    antientropy=self.antientropy,
+                    routing_policy=self.routing_policy,
+                )
         except Exception as e:  # noqa: BLE001 - any native failure must
             # degrade to the Python path, never the read path itself.
             count_fallback()

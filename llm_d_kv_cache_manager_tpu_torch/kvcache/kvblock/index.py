@@ -6,13 +6,12 @@ and separately maps *engine keys* to request keys so eviction events —
 which only carry engine hashes — can find their entries.
 
 Backend selection order is the reference's: in-memory → cost-aware →
-redis/valkey, first configured wins. The in-memory backend is the
-lock-striped `ShardedIndex` that `IndexConfig.default()` selects, the
-single-lock `InMemoryIndex` with `sharded=False`, or the C arena's
-`NativeScoringIndex` with `native=True` (built on first use; a failed build
-raises rather than falling back to another backend). The
-metrics-instrumented wrapper is not ported (ROADMAP.md queue 1 item 7), so
-`enable_metrics=True` raises NotImplementedError.
+redis/valkey, first configured wins; metrics wrapping is applied last. The
+in-memory backend is the lock-striped `ShardedIndex` that
+`IndexConfig.default()` selects, the single-lock `InMemoryIndex` with
+`sharded=False`, or the C arena's `NativeScoringIndex` with `native=True`
+(built on first use; a failed build raises rather than falling back to
+another backend).
 """
 
 from __future__ import annotations
@@ -162,10 +161,12 @@ class IndexConfig:
     in_memory_config: Optional["InMemoryIndexConfig"] = None
     cost_aware_config: Optional["CostAwareIndexConfig"] = None
     redis_config: Optional["RedisIndexConfig"] = None
-    # The reference's metrics-instrumented wrapper: not ported (it wraps the
-    # metrics collector, ROADMAP.md queue 1 item 7), so True raises in
-    # new_index.
     enable_metrics: bool = False
+    metrics_logging_interval_s: float = 60.0
+    # InstrumentedIndex: observe kvcache_index_max_pod_hit_count every Nth
+    # lookup (the per-lookup pod hit-count walk is the one O(result) pass
+    # the wrapper adds; 1 = every call, the historical behavior).
+    metrics_hit_count_stride: int = 1
     # In-memory striping (kvblock/sharded.py). When the in-memory backend is
     # selected (explicitly or by default), `sharded=True` builds a
     # lock-striped ShardedIndex over `num_shards` segments instead of the
@@ -192,31 +193,42 @@ class IndexConfig:
 
 
 def new_index(config: Optional[IndexConfig] = None) -> Index:
-    """Build the configured index backend."""
+    """Build the configured index backend, optionally metrics-instrumented."""
     if config is None:
         config = IndexConfig.default()
 
-    if config.enable_metrics:
-        raise NotImplementedError(
-            "the metrics-instrumented index backend is not ported yet: it "
-            "wraps the metrics collector, which moves with metrics/ "
-            "(ROADMAP.md queue 1 item 7)"
-        )
+    index: Optional[Index] = None
     if config.in_memory_config is not None:
-        return _new_memory_index(config, config.in_memory_config)
-    if config.cost_aware_config is not None:
+        index = _new_memory_index(config, config.in_memory_config)
+    elif config.cost_aware_config is not None:
         from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.cost_aware import (
             CostAwareMemoryIndex,
         )
 
-        return CostAwareMemoryIndex(config.cost_aware_config)
-    if config.redis_config is not None:
-        from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.redis_index import (
-            RedisIndex,
+        index = CostAwareMemoryIndex(config.cost_aware_config)
+    elif config.redis_config is not None:
+        from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.redis_index import RedisIndex
+
+        index = RedisIndex(config.redis_config)
+    else:
+        index = _new_memory_index(config, None)
+
+    if config.enable_metrics:
+        from llm_d_kv_cache_manager_tpu_torch.metrics.collector import (
+            register_metrics,
+            start_metrics_logging,
+        )
+        from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.instrumented import (
+            InstrumentedIndex,
         )
 
-        return RedisIndex(config.redis_config)
-    return _new_memory_index(config, None)
+        register_metrics()
+        start_metrics_logging(config.metrics_logging_interval_s)
+        index = InstrumentedIndex(
+            index, hit_count_stride=config.metrics_hit_count_stride
+        )
+
+    return index
 
 
 def _new_memory_index(config: IndexConfig, in_memory_config) -> Index:

@@ -77,8 +77,9 @@ def have_native_index() -> bool:
     return True
 
 
-# Process-wide count of batches handed back to the pure-Python path, a
-# plain int (the reference also mirrors it into a metrics counter).
+# Process-wide count of batches handed back to the pure-Python path —
+# mirrored into kvcache_native_fallbacks_total when metrics are
+# registered, kept as a plain int so /readyz can report it either way.
 _fallbacks = 0
 _fallbacks_mu = threading.Lock()
 
@@ -87,6 +88,9 @@ def count_fallback() -> None:
     global _fallbacks
     with _fallbacks_mu:
         _fallbacks += 1
+    from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
+
+    metrics.count_native_fallback()
 
 
 def fallback_total() -> int:

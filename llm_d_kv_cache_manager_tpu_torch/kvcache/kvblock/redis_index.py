@@ -171,6 +171,9 @@ class RedisIndex(Index):
         if state == self._state:
             return
         old, self._state = self._state, state
+        from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
+
+        metrics.count_redis_transition(state)
         log = logger.info if state == "up" else logger.warning
         log("redis index %s: %s -> %s", self.config.url, old, state)
 

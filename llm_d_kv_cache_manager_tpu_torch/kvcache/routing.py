@@ -1,7 +1,6 @@
 """Pluggable routing policy: blend prefix affinity with pod load.
 
-Copy of the reference package's `kvcache/routing.py`, without its metrics
-counter (the `stats` counters and `status()` are kept). The read path's
+Copy of the reference package's `kvcache/routing.py`. The read path's
 contract so far has been "score = weighted longest cached prefix"; the
 router argmaxes it. That is the right answer until the fleet saturates: a
 pod with the hottest prefix keeps winning the argmax while its admission
@@ -47,6 +46,7 @@ import threading
 from dataclasses import dataclass
 from typing import Dict, Optional
 
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
 
 logger = kvlog.get_logger("kvcache.routing")
@@ -158,6 +158,7 @@ class RoutingPolicy:
             if after != before:
                 self.stats["overrides"] += 1
         if after != before:
+            metrics.count_routing_override()
             kvlog.trace(
                 logger,
                 "load blend overrode prefix argmax %s -> %s", before, after,
@@ -211,6 +212,8 @@ class RoutingPolicy:
         with self._mu:
             self.stats["adjusted_requests"] += adjusted
             self.stats["overrides"] += overrides
+        for _ in range(overrides):
+            metrics.count_routing_override()
 
     def select(
         self,
@@ -272,6 +275,7 @@ class RoutingPolicy:
             if overrode:
                 self.stats["overrides"] += 1
         if overrode:
+            metrics.count_routing_override()
             kvlog.trace(
                 logger,
                 "load blend overrode prefix argmax %s -> %s",

@@ -29,20 +29,20 @@ digest is discarded and counted (`removals_lost`) — a last-resort trade of
 index soundness for bounded memory.
 
 Over the native index (kvblock/native_index.py) a whole batch is applied
-in one C crossing (`native_digest`). The reference's trace spans and
-metrics counters are not ported; every counter that is a public attribute
-is.
+in one C crossing (`native_digest`).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import queue
 import threading
 import time
 from dataclasses import dataclass
 from typing import Deque, List, Optional
 
+from llm_d_kv_cache_manager_tpu_torch import obs
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.hashing import fnv32a
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.index import Index
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.key import Key, PodEntry
@@ -56,11 +56,16 @@ from llm_d_kv_cache_manager_tpu_torch.kvevents.events import (
     EventBatch,
     hash_as_uint64,
 )
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
 
 logger = kvlog.get_logger("kvevents.pool")
 
 DEFAULT_DEVICE_TIER = "gpu"  # the tier port pods advertise
+
+# Shared no-op context for the untraced fast path (obs stages only wrap the
+# sampled batches — see _process_event).
+_NOOP_CTX = contextlib.nullcontext()
 
 
 @dataclass
@@ -90,7 +95,8 @@ class Message:
     pod_identifier: str
     model_name: str
     # Stamped by add_task (perf_counter): dequeue-time minus this is the
-    # shard-queue wait.
+    # shard-queue wait — the stage that separates "digestion is slow" from
+    # "a shard worker is backed up" (obs/ write-plane trace).
     enqueue_t: float = 0.0
 
 
@@ -175,6 +181,11 @@ class EventPool:
         self._dropped = 0
         self._removals_lost = 0
         self._dropped_mu = threading.Lock()
+        # Write-plane trace sampling (obs/): batches are ~10x more frequent
+        # than read requests, so only every write_trace_stride-th batch is
+        # traced. Racy increments across shard workers only perturb which
+        # batch gets sampled.
+        self._batch_counter = 0
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -376,6 +387,7 @@ class EventPool:
                     break
                 lost += len(stale[2])
             pending.append(digest)
+        metrics.count_event_dropped()
         with self._dropped_mu:
             self._dropped += 1
             dropped = self._dropped
@@ -445,8 +457,24 @@ class EventPool:
                 return
 
     def _process_event(self, msg: Message) -> None:
+        if obs.enabled():
+            self._batch_counter += 1
+            stride = max(1, obs.get_config().write_trace_stride)
+            if self._batch_counter % stride == 0:
+                with obs.request("write.digest", {"topic": msg.topic}):
+                    if msg.enqueue_t:
+                        obs.record(
+                            "write.queue_wait", msg.enqueue_t,
+                            time.perf_counter(),
+                        )
+                    self._process_event_impl(msg, traced=True)
+                return
+        self._process_event_impl(msg)
+
+    def _process_event_impl(self, msg: Message, traced: bool = False) -> None:
         try:
-            batch = EventBatch.from_msgpack(msg.payload)
+            with obs.stage("write.decode") if traced else _NOOP_CTX:
+                batch = EventBatch.from_msgpack(msg.payload)
         except Exception as e:  # noqa: BLE001 - poison pill: drop, don't retry
             logger.debug("dropping undecodable event batch (topic=%s): %s", msg.topic, e)
             if self.health_tracker is not None:
@@ -467,7 +495,17 @@ class EventPool:
             # same DP-rank-qualified identity the index entries use, so the
             # tracker's state keys always match score keys.
             self.health_tracker.observe_batch(pod, msg.topic, msg.seq, batch.ts)
-        self._digest_events(pod, msg.model_name, batch)
+        with obs.stage("write.index_apply") if traced else _NOOP_CTX:
+            self._digest_events(pod, msg.model_name, batch)
+        # Event publish → index visible, observed for EVERY batch (the
+        # fleet-wide index-staleness signal, not a sampled trace stage).
+        # batch.ts is the publisher's wall clock; sim/bench batches carry
+        # synthetic ts values, which the plausibility window screens out.
+        ts = batch.ts
+        if isinstance(ts, float) and ts > 0.0:
+            delay = time.time() - ts
+            if 0.0 <= delay < 3600.0:
+                metrics.observe_apply_delay(delay)
 
     def _digest_events(self, pod_identifier: str, model_name: str, batch: EventBatch) -> None:
         """Digest one decoded batch under this pool's tier default and hooks."""

@@ -1,18 +1,28 @@
 """SLO plane: declarative objectives + multi-window burn-rate monitoring.
 
-Copy of the monitor part of the reference package's `obs/slo.py`: the
-window, objective and status names, `SLOConfig`, `SLOObjective` and
-`SLOMonitor`, with the objectives' `counts_fn`s and the clock injected by
-the caller (the autopilot, a fleet replay, tests). The shipped objective
-set reads the Prometheus registry, and the burn-rate gauges are written to
-it; both wait for the port's metrics collector (ROADMAP.md queue 1 item 7):
-`default_objectives` raises until then, and `evaluate` writes no gauge.
+A control plane serving millions of users cannot wait for the bench to
+notice it is degrading: it needs to know, from its own live metrics,
+whether it is spending its error budget faster than the objective allows
+— *before* the budget is gone. This module is the classic multi-window
+burn-rate design (Google SRE workbook) sized to this repo:
 
 - **Objectives are declarative.** Each `SLOObjective` names a budget (the
   allowed fraction of bad events) and a reader that returns cumulative
-  ``(bad, total)`` counts. The reference's shipped set is
-  ``read_latency_p99``, ``hit_rate`` and ``shed_rate``; their names are
-  kept here so the rules and documents speak the same vocabulary.
+  ``(bad, total)`` counts from the REAL Prometheus registry — no parallel
+  bookkeeping that can drift from what operators scrape. The shipped set:
+
+  * ``read_latency_p99`` — read-path requests slower than
+    ``read_p99_ms``, from ``kvcache_stage_latency_seconds{plane="read",
+    stage="get_pod_scores"}`` bucket counts (strided observation: sampled
+    but unbiased; the threshold snaps to the nearest bucket boundary at
+    or above the configured value).
+  * ``hit_rate`` — lookups that found NO cached block, from the
+    ``kvcache_index_max_pod_hit_count`` histogram's ``le="0"`` bucket.
+    Budget = 1 − ``hit_rate_floor``.
+  * ``shed_rate`` — requests explicitly shed at the serving surface
+    (``kvcache_admission_shed_total``) against sheds + served lookups.
+    Budget = ``shed_rate_ceiling``.
+
 - **Burn rates are windowed, fast + slow.** Counters are cumulative, so
   the monitor keeps a bounded ring of (time, counts) samples — one per
   evaluation — and differences against the sample at the window's far
@@ -25,8 +35,15 @@ it; both wait for the port's metrics collector (ROADMAP.md queue 1 item 7):
   monitor alerts on its whole history rather than staying silent for an
   hour.
 
+- **Surfaces.** ``GET /slo/status`` (api/http_service.py), a ``slo``
+  section in ``/readyz`` (never gates readiness — an SLO breach is an
+  alert, not a liveness failure), and
+  ``kvcache_slo_burn_rate{objective,window}`` gauges whose label values
+  are pinned to the fixed vocabularies below
+  (tests/test_metrics_hygiene.py).
+
 No background thread: evaluation is pull-based from whatever cadence the
-caller owns (a replay's fake clock, tests with an injected clock).
+caller owns (scrapes, /readyz probes, tests with an injected clock).
 """
 
 from __future__ import annotations
@@ -37,6 +54,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 
 # Fixed label vocabularies (metric label values come from these tuples
 # and nowhere else).
@@ -105,15 +123,103 @@ class SLOObjective:
     detail: dict = field(default_factory=dict)
 
 
-def default_objectives(config: SLOConfig) -> List[SLOObjective]:
-    """The reference's shipped objective set reads the live Prometheus
-    registry (stage latency histogram, max-pod-hit histogram, shed and
-    lookup counters); the port has no metrics collector yet."""
-    raise NotImplementedError(
-        "default_objectives reads the metrics collector, which the port "
-        "still owes (ROADMAP.md queue 1 item 7); pass SLOObjective "
-        "readers to SLOMonitor instead"
+def _histogram_le_counts(hist, threshold_s: float, label_match: dict):
+    """(bad, total, effective_le) from one labeled histogram child:
+    total = _count, bad = total - cumulative count of the smallest bucket
+    at or above `threshold_s`."""
+    if hist is None:
+        return 0.0, 0.0, None
+    total = 0.0
+    buckets: Dict[float, float] = {}
+    for metric in hist.collect():
+        for s in metric.samples:
+            labels = s.labels
+            if any(labels.get(k) != v for k, v in label_match.items()):
+                continue
+            if s.name.endswith("_count"):
+                total += s.value
+            elif s.name.endswith("_bucket"):
+                le = labels.get("le")
+                if le is not None:
+                    bound = float(le)
+                    buckets[bound] = buckets.get(bound, 0.0) + s.value
+    if not buckets:
+        return 0.0, total, None
+    effective = min(
+        (b for b in buckets if b >= threshold_s), default=float("inf")
     )
+    good = buckets.get(effective, total)
+    return max(0.0, total - good), total, (
+        effective if effective != float("inf") else None
+    )
+
+
+def default_objectives(config: SLOConfig) -> List[SLOObjective]:
+    """The shipped objective set, reading the live registry."""
+    threshold_s = config.read_p99_ms / 1e3
+
+    def read_latency_counts():
+        bad, total, _ = _histogram_le_counts(
+            metrics.stage_latency, threshold_s,
+            {"plane": "read", "stage": "get_pod_scores"},
+        )
+        return bad, total
+
+    def hit_rate_counts():
+        # Bad = lookups whose max consecutive hit count was 0 — the
+        # le=0 bucket's cumulative count, NOT the latency-style
+        # "above threshold" complement.
+        hist = metrics.index_max_pod_hits
+        if hist is None:
+            return 0.0, 0.0
+        total = zero = 0.0
+        for metric in hist.collect():
+            for s in metric.samples:
+                if s.name.endswith("_count"):
+                    total += s.value
+                elif s.name.endswith("_bucket"):
+                    le = s.labels.get("le")
+                    if le is not None and float(le) == 0.0:
+                        zero += s.value
+        return zero, total
+
+    def shed_rate_counts():
+        shed = metrics.counter_value(metrics.admission_shed)
+        served = metrics.counter_value(metrics.index_lookup_requests)
+        return shed, shed + served
+
+    return [
+        SLOObjective(
+            name=OBJECTIVE_READ_LATENCY,
+            description=(
+                "fraction of read-path scoring requests slower than the "
+                "latency threshold (strided histogram sample)"
+            ),
+            budget=config.read_latency_budget,
+            counts_fn=read_latency_counts,
+            detail={"threshold_ms": config.read_p99_ms},
+        ),
+        SLOObjective(
+            name=OBJECTIVE_HIT_RATE,
+            description=(
+                "fraction of index lookups finding no cached block "
+                "(floor objective on the fleet's cache usefulness)"
+            ),
+            budget=max(1e-9, 1.0 - config.hit_rate_floor),
+            counts_fn=hit_rate_counts,
+            detail={"floor": config.hit_rate_floor},
+        ),
+        SLOObjective(
+            name=OBJECTIVE_SHED_RATE,
+            description=(
+                "fraction of arriving requests explicitly shed at the "
+                "serving surface (429 / RESOURCE_EXHAUSTED)"
+            ),
+            budget=config.shed_rate_ceiling,
+            counts_fn=shed_rate_counts,
+            detail={"ceiling": config.shed_rate_ceiling},
+        ),
+    ]
 
 
 class SLOMonitor:
@@ -188,8 +294,9 @@ class SLOMonitor:
         return base
 
     def evaluate(self, now: Optional[float] = None) -> dict:
-        """Take a sample, compute per-objective per-window burn rates and
-        return the status document (the reference's /slo/status)."""
+        """Take a sample, compute per-objective per-window burn rates,
+        update the `kvcache_slo_burn_rate` gauges, and return the status
+        document (/slo/status)."""
         if now is None:
             now = self.clock()
         self.sample(now)
@@ -220,9 +327,7 @@ class SLOMonitor:
                     bad_frac = 0.0
                 burn = bad_frac / obj.budget
                 burns[wname] = burn
-                # The reference also sets the kvcache_slo_burn_rate gauge
-                # here; it comes with the metrics collector (ROADMAP.md
-                # queue 1 item 7).
+                metrics.set_slo_burn_rate(obj.name, wname, burn)
                 window_docs[wname] = {
                     "window_s": wlen,
                     "effective_window_s": round(latest_t - base_t, 3),

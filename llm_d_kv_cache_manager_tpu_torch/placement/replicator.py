@@ -1,7 +1,6 @@
 """Proactive K-way replication of hot prefixes.
 
-Copy of the reference package's `placement/replicator.py`, without its
-metrics counters (every count `stats` and `status()` hold is kept). The
+Copy of the reference package's `placement/replicator.py`. The
 popularity tracker (placement/popularity.py) says *what* is hot; this
 module decides *where* it should live and pushes it there through the planes
 that already exist: replica jobs ride the route-driven prefetch queue
@@ -39,6 +38,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.hashing import fnv64a
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.key import Key
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 from llm_d_kv_cache_manager_tpu_torch.placement.popularity import (
     ChainPopularityTracker,
     ChainStat,
@@ -136,8 +136,10 @@ class HotPrefixReplicator:
                 if self.submit_fn(pod, list(prefix), chain):
                     self.stats["jobs_submitted"] += 1
                     self.stats["blocks_submitted"] += len(prefix)
+                    metrics.count_placement_replication(len(prefix))
                 else:
                     self.stats["drops"] += 1
+                    metrics.count_placement_drop()
             submitted += 1
             kvlog.trace(
                 logger,
@@ -203,6 +205,7 @@ class HotPrefixReplicator:
                 continue
             if not self._healthy(pod):
                 self.stats["skipped_unhealthy"] += 1
+                metrics.count_placement_skip_unhealthy()
                 continue
             # Rendezvous hash: a per-(chain, pod) weight gives every chain
             # its own deterministic pod ranking — replicas of different hot

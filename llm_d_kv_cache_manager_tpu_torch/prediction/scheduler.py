@@ -1,8 +1,6 @@
 """Budget-bounded anticipatory prefetch: pre-land the next turn.
 
-Copy of the reference package's `prediction/scheduler.py`, without its
-metrics counter and tracing spans (every count `stats` and `status()`
-hold is kept). The session table (prediction/sessions.py) says *when* a
+Copy of the reference package's `prediction/scheduler.py`. The session table (prediction/sessions.py) says *when* a
 session's next turn is expected and *what* chain it will lead with; this module decides
 *where* that chain should already be, and pushes it there during the idle
 think window — through the planes that already exist, with serving always
@@ -37,6 +35,8 @@ import time
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
+from llm_d_kv_cache_manager_tpu_torch import obs
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 from llm_d_kv_cache_manager_tpu_torch.prediction.sessions import (
     SessionRecord,
     SessionTable,
@@ -128,24 +128,29 @@ class PrefetchScheduler:
         )
         if not due:
             return 0
+        # Only working ticks trace (prediction plane stage attribution):
+        # an idle tick is the overwhelmingly common case and must not
+        # churn the flight-recorder ring.
         submitted = 0
-        for rec, expected_at in due:
-            if submitted >= cfg.max_jobs_per_tick:
-                break
-            if self._prefetch(rec, now):
-                submitted += 1
-                kvlog.trace(
-                    logger,
-                    "anticipatory prefetch for session %x "
-                    "(expected in %.2fs)",
-                    rec.tail, expected_at - now,
-                )
+        with obs.request("prediction.tick", {"due": len(due)}):
+            for rec, expected_at in due:
+                if submitted >= cfg.max_jobs_per_tick:
+                    break
+                if self._prefetch(rec, now):
+                    submitted += 1
+                    kvlog.trace(
+                        logger,
+                        "anticipatory prefetch for session %x "
+                        "(expected in %.2fs)",
+                        rec.tail, expected_at - now,
+                    )
         return submitted
 
     def _prefetch(self, rec: SessionRecord, now: float) -> bool:
         if not rec.chain_hashes:
             return False
-        result = self.score_fn(rec.model_name, rec.chain_hashes)
+        with obs.stage("prediction.score_hashes", nested=True):
+            result = self.score_fn(rec.model_name, rec.chain_hashes)
         pod = self.select_fn(result.scores)
         if pod is None:
             self.stats["skipped_no_target"] += 1
@@ -158,11 +163,13 @@ class PrefetchScheduler:
         # and idempotent (prefetch_hashes filters resident blocks;
         # warm_chain materializes only what some tier can supply), so
         # over-submission costs a queue slot, never a wasted transfer.
-        submitted = self.submit_fn(pod, list(rec.chain_hashes))
+        with obs.stage("prediction.submit"):
+            submitted = self.submit_fn(pod, list(rec.chain_hashes))
         if submitted:
             self.table.note_prefetch(rec, pod, now)
             self.stats["jobs_submitted"] += 1
             self.stats["blocks_submitted"] += len(rec.chain_hashes)
+            metrics.count_prediction_prefetch(len(rec.chain_hashes))
             return True
         self.stats["drops"] += 1
         return False

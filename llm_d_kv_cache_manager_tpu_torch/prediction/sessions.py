@@ -1,7 +1,6 @@
 """Session table: learn per-session next-turn ETAs from the read path.
 
-Copy of the reference package's `prediction/sessions.py`, without its
-misprediction metrics counter (`stats()` keeps every count). Every plane
+Copy of the reference package's `prediction/sessions.py`. Every plane
 before this one reacts to an arrival; this module is the memory that lets
 the fleet act *before* one. The read path already derives each routed
 prompt's block-hash chain (`Indexer.get_pod_scores_ex`), and a
@@ -45,6 +44,7 @@ from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 
 
 @dataclass
@@ -319,6 +319,7 @@ class SessionTable:
         self.stats_counters["mispredicted_bytes"] += (
             blocks * self.config.block_bytes
         )
+        metrics.count_prediction_mispredicted(blocks)
 
     # -- ETA model ---------------------------------------------------------
 

@@ -1,13 +1,13 @@
 """Fleet-wide memory accounting: the governor's measurement plane.
 
-Copy of the reference package's `resourcegov/accountant.py`, without its
-accounted-bytes gauge and shed counter (`snapshot(publish=True)` accepts the
-flag and publishes nothing; `stats_counters` is kept). Every stateful structure
-in the control plane — index shards, chain memo, prefix store, session table,
-popularity sketch/top-K, obs rings, per-pod tracker maps, per-peer transfer
-state — registers a **meter** here: a name from the fixed `RESOURCE_STRUCTURES`
-vocabulary, an O(1) entry count, a bytes estimate, and (for the sheddable
-structures) a `shed(fraction)` hook plus an optional bounded `restore()` step.
+Copy of the reference package's `resourcegov/accountant.py`.
+
+Every stateful structure in the control plane — index shards, chain
+memo, prefix store, session table, popularity sketch/top-K, obs rings,
+per-pod tracker maps, per-peer transfer state — registers a **meter**
+here: a name from the fixed `RESOURCE_STRUCTURES` vocabulary, an O(1)
+entry count, a bytes estimate, and (for the sheddable structures) a
+`shed(fraction)` hook plus an optional bounded `restore()` step.
 
 The accountant only *measures and delegates*: it never decides when to
 shed (that is the governor's pressure state machine) and it never
@@ -31,13 +31,15 @@ import threading
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
 
 logger = kvlog.get_logger("resourcegov.accountant")
 
-# Fixed structure-name vocabulary (the reference labels its resource gauges
-# with these and nothing else). Each name is owned by exactly one
-# subsystem's meter registration.
+# Fixed structure-name vocabulary — the only values the
+# kvcache_resource_accounted_bytes / kvcache_resource_shed_events_total
+# `structure` label may carry (pinned in tests/test_metrics_hygiene.py).
+# Each name is owned by exactly one subsystem's meter registration.
 STRUCT_OBS = "obs"
 STRUCT_SESSIONS = "sessions"
 STRUCT_POPULARITY = "popularity"
@@ -152,14 +154,19 @@ class ResourceAccountant:
 
     def snapshot(self, publish: bool = False) -> Dict[str, Dict[str, float]]:
         """{structure: {entries, bytes}} over every registered meter.
-        `publish` is the governor's tick path; the reference lands each
-        structure's bytes on a gauge there, the port has no metrics
-        collector yet (ROADMAP.md queue 1 item 7) and publishes nothing."""
+        With `publish`, each structure's bytes land on the accounted-
+        bytes gauge (the governor's tick path; ad-hoc status reads keep
+        the metric untouched)."""
         with self._mu:
             meters = list(self._meters.values())
         out: Dict[str, Dict[str, float]] = {}
         for meter in meters:
-            out[meter.name] = meter.read()
+            doc = meter.read()
+            out[meter.name] = doc
+            if publish:
+                metrics.set_resource_accounted_bytes(
+                    meter.name, doc["bytes"]
+                )
         return out
 
     def total_bytes(self) -> float:
@@ -181,6 +188,7 @@ class ResourceAccountant:
             with self._mu:
                 self.stats_counters["sheds"] += 1
                 self.stats_counters["entries_shed"] += dropped
+            metrics.count_shed_event(name)
         return dropped
 
     def restore_step(self, name: str) -> bool:

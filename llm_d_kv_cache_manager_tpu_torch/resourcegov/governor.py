@@ -1,7 +1,6 @@
 """Pressure state machine + shed ladder: graceful degradation under load.
 
-Copy of the reference package's `resourcegov/governor.py`, without its
-pressure-transition counter. The accountant (accountant.py) says how big every
+Copy of the reference package's `resourcegov/governor.py`. The accountant (accountant.py) says how big every
 stateful structure is; this module decides what to do about it. A configured
 byte budget over the summed accounted bytes drives a three-level pressure state
 machine — ``ok -> elevated -> critical`` with hysteresis back down
@@ -41,6 +40,7 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 from llm_d_kv_cache_manager_tpu_torch.resourcegov.accountant import (
     RESOURCE_STRUCTURES,
     STRUCT_CHAIN_MEMO,
@@ -55,7 +55,9 @@ from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
 
 logger = kvlog.get_logger("resourcegov.governor")
 
-# Fixed pressure-level vocabulary.
+# Fixed pressure-level vocabulary — the only values the
+# kvcache_resource_pressure_transitions_total `level` label may carry
+# (pinned in tests/test_metrics_hygiene.py).
 LEVEL_OK = "ok"
 LEVEL_ELEVATED = "elevated"
 LEVEL_CRITICAL = "critical"
@@ -210,6 +212,7 @@ class ResourceGovernor:
         self.level = new_level
         self._level_since = now
         self.stats_counters["transitions"] += 1
+        metrics.count_pressure_transition(new_level)
         self._journal.append(
             (round(now, 3), "level", f"{old}->{new_level}", 0,
              round(pressure, 4))

@@ -14,19 +14,23 @@ local → UDS sidecar → HF hub; a caller may inject its own `Tokenizer` instea
 (`tokenizer=`). The task queue is bounded. Overload policy: blocking
 `tokenize` waits briefly for a slot then raises `PoolOverloadedError` so the
 caller can shed or back off; fire-and-forget `enqueue_tokenization` is
-dropped and counted (`rejected_tasks`) — cache warming is best-effort.
+dropped and counted (`rejected_tasks`, `kvcache_tokenization_rejected_total`) — cache warming
+is best-effort.
 
-The reference's trace spans and metrics counters are not ported.
+The read path's stages record into the submitter's trace (`obs.bind`
+semantics without the context switch: the submitter blocks on the future).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from concurrent.futures import Future
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
+from llm_d_kv_cache_manager_tpu_torch import obs
 from llm_d_kv_cache_manager_tpu_torch.tokenization.prefixstore.indexer import (
     PrefixStore,
     PrefixStoreConfig,
@@ -38,6 +42,7 @@ from llm_d_kv_cache_manager_tpu_torch.tokenization.tokenizer import (
     CompositeTokenizer,
     Tokenizer,
 )
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
 
 logger = kvlog.get_logger("tokenization.pool")
@@ -90,6 +95,12 @@ class _Task:
     prompt: str
     model_name: str
     future: Optional[Future]
+    # Tracing spine (obs/): the submitter's trace + enqueue stamp ride the
+    # task so the worker can attribute its queue wait and work to the
+    # blocked request (the submitter waits on `future`, so the handoff is
+    # race-free). Both None/0 when tracing is off or the submit is async.
+    obs_trace: Optional[object] = None
+    enqueue_t: float = 0.0
 
 
 class TokenizationPool:
@@ -172,6 +183,7 @@ class TokenizationPool:
             return self._rejected
 
     def _count_rejected(self) -> None:
+        metrics.count_tokenization_rejected()
         with self._rejected_mu:
             self._rejected += 1
             rejected = self._rejected
@@ -204,6 +216,9 @@ class TokenizationPool:
             self.run()
         fut: Future = Future()
         task = _Task(render_request, prompt, model_name, fut)
+        if obs.enabled():
+            task.obs_trace = obs.current_trace()
+            task.enqueue_t = time.perf_counter()
         try:
             self._queue.put(task, timeout=self.config.enqueue_timeout_s)
         except queue.Full:
@@ -249,6 +264,7 @@ class TokenizationPool:
           busy can never stall a batch that already holds queue slots."""
         if not self._started:
             self.run()
+        trace = obs.current_trace() if obs.enabled() else None
         resolved: Dict[int, TokenizedPrompt] = {}
         walk_many = getattr(
             self.prefix_store, "find_longest_with_state_many", None
@@ -259,7 +275,12 @@ class TokenizationPool:
                 if render_request is None
             ]
             if plain:
+                t0 = time.perf_counter() if trace is not None else 0.0
                 walked = walk_many([items[i][1] for i in plain])
+                if trace is not None:
+                    obs.record_into(
+                        trace, "read.prefix_store", t0, time.perf_counter()
+                    )
                 min_ratio = self.config.min_prefix_overlap_ratio
                 for i, (tokens, ratio, state) in zip(plain, walked):
                     if ratio >= min_ratio:
@@ -273,6 +294,9 @@ class TokenizationPool:
                 continue
             fut: Future = Future()
             task = _Task(render_request, prompt, model_name, fut)
+            if trace is not None:
+                task.obs_trace = trace
+                task.enqueue_t = time.perf_counter()
             try:
                 self._queue.put(task, timeout=self.config.enqueue_timeout_s)
             except queue.Full:
@@ -294,7 +318,13 @@ class TokenizationPool:
                 self._queue.task_done()
                 break
             try:
-                result = self._process(task)
+                t = task.obs_trace
+                if task.enqueue_t:
+                    obs.record_into(
+                        t, "read.tokenize_queue_wait", task.enqueue_t,
+                        time.perf_counter(),
+                    )
+                result = self._process(task, t)
                 if task.future is not None:
                     task.future.set_result(result)
             except Exception as e:  # noqa: BLE001 - deliver errors to waiter
@@ -335,7 +365,17 @@ class TokenizationPool:
             try:
                 if task is None:
                     return
-                result = self._process(task)
+                # Record into the submitter's captured trace directly (it
+                # blocks on the future, so this worker is the trace's only
+                # running thread). Queue wait is the stage that separates
+                # "the tokenizer is slow" from "the pool is saturated".
+                trace = task.obs_trace
+                if task.enqueue_t:
+                    obs.record_into(
+                        trace, "read.tokenize_queue_wait", task.enqueue_t,
+                        time.perf_counter(),
+                    )
+                result = self._process(task, trace)
                 if task.future is not None:
                     task.future.set_result(result)
             except Exception as e:  # noqa: BLE001 - deliver errors to waiter
@@ -346,13 +386,23 @@ class TokenizationPool:
             finally:
                 self._queue.task_done()
 
-    def _process(self, task: _Task) -> TokenizedPrompt:
+    def _process(self, task: _Task, trace=None) -> TokenizedPrompt:
+        # Stage timing rides the submitter's captured trace (sync read
+        # path). Fire-and-forget warm-up tasks carry no trace and pay no
+        # timing at all.
+        traced = trace is not None
         prompt = task.prompt
         if task.render_request is not None:
+            t0 = time.perf_counter()
             prompt = self.tokenizer.render_chat_template(task.render_request)
+            t1 = time.perf_counter()
+            metrics.observe_render(t1 - t0)
+            if traced:
+                obs.record_into(trace, "read.render", t0, t1)
 
         # Prefix-store shortcut, with boundary state when the store supports
         # it (LRU store). The trie store only speaks the base contract.
+        t0 = time.perf_counter() if traced else 0.0
         find_with_state = getattr(
             self.prefix_store, "find_longest_with_state", None
         )
@@ -363,10 +413,21 @@ class TokenizationPool:
                 prompt
             )
             state = ()
+        if traced:
+            obs.record_into(
+                trace, "read.prefix_store", t0, time.perf_counter()
+            )
         if ratio < self.config.min_prefix_overlap_ratio:
+            t0 = time.perf_counter()
             result = self.tokenizer.encode(prompt, task.model_name)
+            t1 = time.perf_counter()
+            metrics.observe_tokenization(t1 - t0, len(result.tokens))
             state = self.prefix_store.add_tokenization(
                 prompt, result.tokens, result.offsets
             ) or ()
             tokens = list(result.tokens)
+            if traced:
+                obs.record_into(
+                    trace, "read.encode", t0, time.perf_counter()
+                )
         return TokenizedPrompt(tokens=tokens, prefix_state=tuple(state))

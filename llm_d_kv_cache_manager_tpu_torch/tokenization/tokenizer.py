@@ -15,8 +15,7 @@ first loads a tokenizer, so the port imports without it. Offsets are
 converted from character to **byte** offsets because the prefix store
 chunks the prompt's UTF-8 bytes. The local and HF backends render chat
 templates through the `ChatTemplatingProcessor` they are given
-(preprocessing/chat_completions.py). The reference's per-backend metrics
-counters are not ported.
+(preprocessing/chat_completions.py).
 """
 
 from __future__ import annotations
@@ -24,9 +23,11 @@ from __future__ import annotations
 import abc
 import os
 import threading
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics
 from llm_d_kv_cache_manager_tpu_torch.tokenization.prefixstore.indexer import Offset
 from llm_d_kv_cache_manager_tpu_torch.utils.lru import LRUCache
 from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
@@ -282,26 +283,40 @@ class CompositeTokenizer(Tokenizer):
 
     def encode(self, prompt: str, model_name: str) -> TokenizationResult:
         errors: List[str] = []
-        for backend in self.backends:
+        for i, backend in enumerate(self.backends):
             name = type(backend).__name__
+            t0 = time.perf_counter()
             try:
-                return backend.encode(prompt, model_name)
+                result = backend.encode(prompt, model_name)
             except Exception as e:  # noqa: BLE001 - fallback semantics
+                # Only a failure with a backend behind it is a fallback; the
+                # last backend's failure is a hard error (raised below).
+                if i + 1 < len(self.backends):
+                    metrics.count_backend_fallback(name, "encode")
                 errors.append(f"{name}: {e}")
+                continue
+            metrics.observe_backend(name, "encode", time.perf_counter() - t0)
+            return result
         raise RuntimeError(
             f"all tokenizer backends failed for model {model_name!r}: {'; '.join(errors)}"
         )
 
     def render_chat_template(self, request) -> str:
         errors: List[str] = []
-        for backend in self.backends:
+        for i, backend in enumerate(self.backends):
             name = type(backend).__name__
+            t0 = time.perf_counter()
             try:
-                return backend.render_chat_template(request)
+                rendered = backend.render_chat_template(request)
             except NotImplementedError:
                 continue
             except Exception as e:  # noqa: BLE001
+                if i + 1 < len(self.backends):
+                    metrics.count_backend_fallback(name, "render")
                 errors.append(f"{name}: {e}")
+                continue
+            metrics.observe_backend(name, "render", time.perf_counter() - t0)
+            return rendered
         raise RuntimeError(
             f"all chat-templating backends failed: {'; '.join(errors) or 'none capable'}"
         )

@@ -1,9 +1,8 @@
 """The port's anti-entropy plane against the JAX package's, on the same inputs.
 
-- Every test of tests/test_antientropy.py but the two that read the HTTP
-  service's readiness document and the one that wraps an index in the
-  metrics collector (`WAITS`: the port has neither yet, ROADMAP.md queue 1
-  item 7) runs on both packages (`reference_module`): `remove_entries` over
+- Every test of tests/test_antientropy.py runs on both packages
+  (`reference_module`), the HTTP service's readiness document and the
+  metrics-instrumented index included: `remove_entries` over
   every backend, the trust tracker, fetch-miss feedback (also end to end
   through a real transfer server and client: the JAX package's connector
   borrows the port's build of the transfer library), the resolver's negative
@@ -33,11 +32,7 @@ from tests.test_torch_fleethealth import (
 )
 
 # Cases of tests/test_antientropy.py that need a module the port lacks.
-WAITS = {
-    "TestReadyzIndexHealth": "api.http_service (ROADMAP.md queue 1 item 7)",
-    "TestRemoveEntries::test_instrumented_counts_evictions":
-        "kvblock/instrumented.py and metrics.collector (ROADMAP.md queue 1 item 7)",
-}
+WAITS = {}
 CASES = reference_cases("test_antientropy.py", WAITS)
 
 
@@ -79,18 +74,14 @@ def test_antientropy_case_on_both_packages(case, pkg, request):
 
 
 def test_every_policy_case_is_taken():
-    """Every test of tests/test_antientropy.py but the three WAITS names."""
+    """Every test of tests/test_antientropy.py."""
     from tests.test_torch_fleethealth import reference_module
 
     ns = reference_module("test_antientropy.py", JAX_PKG)
     every = {(c, m) for c, cls in vars(ns).items() if c.startswith("Test")
              for m in vars(cls) if m.startswith("test_")}
     taken = {(c, m) for c, m, _ in CASES}
-    assert every - taken == {
-        ("TestReadyzIndexHealth", "test_index_health_section"),
-        ("TestReadyzIndexHealth", "test_disabled_returns_400_and_null_section"),
-        ("TestRemoveEntries", "test_instrumented_counts_evictions"),
-    }
+    assert every - taken == set()
 
 
 DIVERGENCE_PLAN = dict(seed=11, pods={

@@ -1,14 +1,14 @@
 """The port's SLO monitor and autopilot against the JAX package's.
 
-- tests/test_slo.py's `TestBurnMath` (the burn arithmetic, the multi-window
-  states, the baseline at the monitor's birth, the bounded ring and the
-  config's validation) runs on both packages; its other classes read the
-  Prometheus registry or the HTTP service (`SLO_WAITS`).
+- Every test of tests/test_slo.py runs on both packages: the burn
+  arithmetic, the multi-window states, the baseline at the monitor's birth,
+  the bounded ring, the config's validation, the shipped objectives over
+  each package's metrics registry and the HTTP surfaces.
 - Every class of tests/test_autopilot.py but the knob classes (run by
-  tests/test_torch_resourcegov.py) and the service wiring (`WAITS`) runs on
-  both packages: the signal assembler, the burn history, the controller's
-  rules, warm-up, cooldown, decay and journal, the admission gate's dynamic
-  Retry-After and the healthy bit identity.
+  tests/test_torch_resourcegov.py, `WAITS`) runs on both packages: the
+  signal assembler, the burn history, the controller's rules, warm-up,
+  cooldown, decay and journal, the admission gate's dynamic Retry-After, the
+  healthy bit identity and the service wiring.
 - chip_smoke.py phase 17d at CPU width: phase 15a's no-fault arm with an
   autopilot attached, and the fourth arm (the plan, the plane and the
   autopilot).
@@ -28,20 +28,11 @@ from tests.test_torch_fleethealth import PACKAGES, PKG_IDS
 
 pytestmark = pytest.mark.autopilot
 
-SLO_WAITS = {
-    "TestRegistryObjectives": "metrics.collector, which default_objectives reads (ROADMAP.md "
-                              "queue 1 item 7)",
-    "TestSloHttpSurface": "api.http_service's /slo surfaces (ROADMAP.md queue 1 item 7)",
-    "TestBurnMath::test_config_validation":
-        "its last check builds default_objectives, which reads metrics.collector (ROADMAP.md "
-        "queue 1 item 7); test_slo_config_validation below makes its checks with hand-made "
-        "objectives",
-}
+SLO_WAITS = {}
 # TestKnobs and TestRegisteredKnobs run in tests/test_torch_resourcegov.py.
 WAITS = {
     "TestKnobs": "tests/test_torch_resourcegov.py",
     "TestRegisteredKnobs": "tests/test_torch_resourcegov.py",
-    "TestServiceWiring": "api.http_service's /autopilot surfaces (ROADMAP.md queue 1 item 7)",
 }
 SLO_CASES = own_cases("test_slo.py", SLO_WAITS)
 CASES = own_cases("test_autopilot.py", WAITS)
@@ -61,20 +52,21 @@ def test_autopilot_case_on_both_packages(case, pkg, request):
 
 def test_every_autopilot_case_is_taken():
     for test_file, waits, cases, counts in (
-            ("test_slo.py", SLO_WAITS, SLO_CASES, (13, 7)),
-            ("test_autopilot.py", WAITS, CASES, (36, 14))):
+            ("test_slo.py", SLO_WAITS, SLO_CASES, (13, 0)),
+            ("test_autopilot.py", WAITS, CASES, (36, 10))):
         every = every_test(test_file)
         assert {(c, m) for c, m, _ in cases} == every - waiting(test_file, waits)
         assert (len(every), len(waiting(test_file, waits))) == counts
-    assert {c for c, _, _ in SLO_CASES} == {"TestBurnMath"}
-    assert len(SLO_CASES) == 6
+    assert {c for c, _, _ in SLO_CASES} == {"TestBurnMath", "TestRegistryObjectives",
+                                             "TestSloHttpSurface"}
+    assert len(SLO_CASES) == 13
 
 
 @pytest.mark.parametrize("pkg", PACKAGES, ids=PKG_IDS)
 def test_slo_config_validation(pkg):
     """TestBurnMath::test_config_validation's checks, the duplicate names
-    made of hand-made objectives; the port's `default_objectives` raises and
-    names the collector it waits for."""
+    made of hand-made objectives; `default_objectives` builds the shipped
+    set, one objective per name of `SLO_OBJECTIVES`."""
     import importlib
 
     slo = importlib.import_module(f"{pkg}.obs.slo")
@@ -92,9 +84,8 @@ def test_slo_config_validation(pkg):
     with pytest.raises(ValueError, match="duplicate"):
         slo.SLOMonitor(objectives + objectives[:1], slo.SLOConfig())
     assert slo.SLOMonitor(objectives, slo.SLOConfig()).evaluate(0.0)["status"] == slo.STATUS_OK
-    if pkg != PACKAGES[0]:
-        with pytest.raises(NotImplementedError, match="item 7"):
-            slo.default_objectives(slo.SLOConfig())
+    shipped = slo.default_objectives(slo.SLOConfig())
+    assert tuple(o.name for o in shipped) == tuple(slo.SLO_OBJECTIVES)
 
 
 # -- chip_smoke.py phase 17d at CPU width ----------------------------------------

@@ -39,16 +39,8 @@ from tests.test_torch_fleethealth import (
 )
 
 # Cases that need code the port does not carry yet.
-WAITS = {
-    "TestGrpcTransport": "api.grpc_server and the gRPC replica transport (ROADMAP.md queue 1 "
-                         "item 7)",
-    "TestIndexerReplica::test_readyz_reports_replaying_as_503":
-        "api.http_service's ScoringService (ROADMAP.md queue 1 item 7)",
-    "TestIndexerReplica::test_cluster_snapshot_endpoint":
-        "api.http_service's ScoringService (ROADMAP.md queue 1 item 7)",
-}
+WAITS = {}
 MEMBERSHIP_WAITS = {
-    "test_reassignment_counts_transitions": "metrics.collector (ROADMAP.md queue 1 item 7)",
     "test_join_warms_through_data_plane_e2e":
         "bench.py's FleetSim, the benchmark's own code, which is not ported (phase 17a and "
         "its rehearsal make the cluster's claims on the port's pods)",
@@ -63,6 +55,11 @@ def _fixture_function(obj):
     if type(obj).__name__ == "FixtureFunctionDefinition":
         return obj._get_wrapped_function()
     return None
+
+
+def _autouse(obj):
+    marker = getattr(obj, "_fixture_function_marker", None)
+    return bool(marker is not None and marker.autouse)
 
 
 def _param_marks(func):
@@ -114,8 +111,8 @@ def run_own_case(test_file, case, pkg, request, fixtures=None):
     """Run one case of tests/<test_file> on package `pkg`. Its fixtures
     resolve, in order, from `fixtures` (name -> function of the fixture
     resolver), the test's class, the test module, then pytest's own
-    (`tmp_path`, `monkeypatch`, ...); generator fixtures are closed after
-    the test."""
+    (`tmp_path`, `monkeypatch`, ...); the module's and the class's autouse
+    fixtures run first, and generator fixtures are closed after the test."""
     ns = reference_module(test_file, pkg)
     cls_name, name, combo = case
     cls = getattr(ns, cls_name) if cls_name else None
@@ -153,9 +150,13 @@ def run_own_case(test_file, case, pkg, request, fixtures=None):
         return value
 
     params = list(inspect.signature(func).parameters)[1 if cls is not None else 0:]
+    autouse = [name for scope in (vars(ns), vars(cls) if cls is not None else {})
+               for name, value in scope.items() if _autouse(value)]
     if hasattr(obj, "setup_method"):
         obj.setup_method(func)
     try:
+        for arg in autouse:
+            resolve(arg)
         for arg in params:
             if arg not in kwargs:
                 kwargs[arg] = resolve(arg)
@@ -203,8 +204,8 @@ def test_membership_case_on_both_packages(case, pkg, request):
 
 def test_every_cluster_case_is_taken():
     for test_file, waits, cases, n_all, n_waiting in (
-            ("test_cluster.py", WAITS, CASES, 24, 4),
-            ("test_membership.py", MEMBERSHIP_WAITS, MEMBERSHIP_CASES, 18, 2)):
+            ("test_cluster.py", WAITS, CASES, 24, 0),
+            ("test_membership.py", MEMBERSHIP_WAITS, MEMBERSHIP_CASES, 18, 1)):
         every = every_test(test_file)
         assert {(c, m) for c, m, _ in cases} == every - waiting(test_file, waits)
         assert (len(every), len(waiting(test_file, waits))) == (n_all, n_waiting)

@@ -1,11 +1,11 @@
 """The port's federated region tier against the JAX package's.
 
-- Every test of tests/test_federation.py but those that need the service
-  surfaces the port does not carry (`WAITS`) runs on both packages
-  (`own_cases` / `run_own_case` of tests/test_torch_cluster.py): the digest
-  codec, the sketch export and merge, the single-region bit identity over
-  the index backends and the ClusterScorer front, the region pick, the
-  failover tracker and the cross-region warm.
+- Every test of tests/test_federation.py runs on both packages (`own_cases`
+  / `run_own_case` of tests/test_torch_cluster.py): the digest codec, the
+  sketch export and merge, the single-region bit identity over the index
+  backends and the ClusterScorer front, the region pick, the failover
+  tracker, the cross-region warm, the /federation HTTP surfaces and a
+  remote region behind the gRPC transport.
 - A region digest built from the same seeded routes and stores is byte-equal
   in the two packages, and each package decodes the other's.
 - chip_smoke.py phase 17b at CPU width: two regions of two pods, one of them
@@ -27,11 +27,7 @@ from tests.test_torch_cluster import (  # noqa: F401 - one_thread is a fixture
 )
 from tests.test_torch_fleethealth import JAX_PKG, PACKAGES, PKG_IDS, PORT_PKG
 
-WAITS = {
-    "TestFederationHttp": "api.http_service's /federation surfaces (ROADMAP.md queue 1 item 7)",
-    "TestGrpcCrossRegion": "api.grpc_server and the gRPC cross-region transport (ROADMAP.md "
-                           "queue 1 item 7)",
-}
+WAITS = {}
 CASES = own_cases("test_federation.py", WAITS)
 
 
@@ -44,7 +40,7 @@ def test_federation_case_on_both_packages(case, pkg, request):
 def test_every_federation_case_is_taken():
     every = every_test("test_federation.py")
     assert {(c, m) for c, m, _ in CASES} == every - waiting("test_federation.py", WAITS)
-    assert (len(every), len(waiting("test_federation.py", WAITS))) == (25, 3)
+    assert (len(every), len(waiting("test_federation.py", WAITS))) == (25, 0)
 
 
 # -- digest bytes across the two packages ---------------------------------------

@@ -52,8 +52,18 @@ pytestmark = pytest.mark.faults
 # -- the JAX package's own tests, on either package ----------------------------
 
 
+# What the reference tests import from libraries the port does not use, and
+# the port's counterparts: its own Prometheus registry, and a loopback client
+# for its HTTP service (tests/loopback_client.py).
+PORT_STAND_INS = {
+    "prometheus_client": f"{PORT_PKG}.metrics.registry",
+    "aiohttp.test_utils": "tests.loopback_client",
+}
+
+
 class _ImportsOf(ast.NodeTransformer):
-    """Point every `from <JAX package>... import` at `pkg`."""
+    """Point every `from <JAX package>... import` at `pkg`; for the port,
+    also point the library imports of `PORT_STAND_INS` at their stand-ins."""
 
     def __init__(self, pkg):
         self.pkg = pkg
@@ -62,6 +72,16 @@ class _ImportsOf(ast.NodeTransformer):
         mod = node.module or ""
         if mod == JAX_PKG or mod.startswith(JAX_PKG + "."):
             node.module = self.pkg + mod[len(JAX_PKG):]
+        elif self.pkg == PORT_PKG and mod in PORT_STAND_INS:
+            node.module = PORT_STAND_INS[mod]
+        return node
+
+    def visit_Import(self, node):
+        if self.pkg == PORT_PKG:
+            for alias in node.names:
+                if alias.name in PORT_STAND_INS:
+                    alias.asname = alias.asname or alias.name
+                    alias.name = PORT_STAND_INS[alias.name]
         return node
 
 
@@ -73,7 +93,17 @@ def _available(node):
         mod = importlib.import_module(node.module)
     except ImportError:
         return None
-    node.names = [a for a in node.names if hasattr(mod, a.name)]
+
+    def present(name):
+        if hasattr(mod, name):
+            return True
+        try:  # a submodule not imported yet
+            importlib.import_module(f"{node.module}.{name}")
+        except ImportError:
+            return False
+        return True
+
+    node.names = [a for a in node.names if present(a.name)]
     return node if node.names else None
 
 

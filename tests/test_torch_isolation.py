@@ -477,6 +477,11 @@ def test_native_extension_name_tracks_its_sources(monkeypatch, tmp_path):
     assert all(after[name] != before[name] for name in _build.EXTENSIONS)
 
 
+# The port's metrics collector and tracing spine: the only metrics and
+# tracing modules a plane may load (neither is prometheus_client's).
+SPINE = tuple(f"{PORT.name}.{m}" for m in (
+    "metrics", "metrics.collector", "metrics.registry", "obs", "obs.spans", "obs.recorder",
+    "obs.carrier", "obs.slo"))
 RESILIENCE_MODULES = [
     "autopilot", "autopilot.knobs", "fleethealth", "fleethealth.tracker",
     "fleethealth.faults", "antientropy", "antientropy.tracker", "antientropy.feedback",
@@ -498,16 +503,17 @@ def test_resilience_plane_modules_are_checked(module):
 
 
 def test_resilience_plane_imports_without_the_wire_libraries():
-    """With jax, transformers, zmq, msgpack, xxhash and tokenizers blocked,
-    each module of the resilience plane imports, and none loads a metrics or
-    tracing module (the port has none yet)."""
+    """With jax, prometheus_client, transformers, zmq, msgpack, xxhash and
+    tokenizers blocked, each module of the resilience plane imports, and the
+    metrics and tracing modules it loads are the port's own."""
     code = (
         "import importlib, sys\n"
         f"for lib in {WIRE_LIBRARIES + ('jax', 'prometheus_client')!r}:\n"
         "    sys.modules[lib] = None\n"
         f"for m in {RESILIENCE_MODULES!r}:\n"
         f"    importlib.import_module({(PORT.name + '.')!r} + m)\n"
-        f"bad = [m for m in sys.modules if '.metrics' in m or ('.obs' in m and m not in {SLO!r})]\n"
+        f"bad = [m for m in sys.modules if ('metrics' in m or 'obs' in m.split('.'))\n"
+        f"       and m not in {SPINE!r} and sys.modules[m] is not None]\n"
         "print('BAD', bad)\n"
     )
     proc = subprocess.run(
@@ -518,9 +524,7 @@ def test_resilience_plane_imports_without_the_wire_libraries():
 
 
 # The fleet planes' second half: replicated indexers, the region tier, the
-# transfer plane's chaos injector and the SLO autopilot. The SLO monitor
-# (obs/slo.py, the obs package's only module) is the one obs module they load.
-SLO = (f"{PORT.name}.obs", f"{PORT.name}.obs.slo")
+# transfer plane's chaos injector and the SLO autopilot.
 FLEET_PLANE_MODULES = [
     "utils.cbor", "obs", "obs.slo", "autopilot.signals", "autopilot.controller", "api",
     "api.admission", "kv_connectors.faults", "cluster", "cluster.partition", "cluster.snapshot",
@@ -541,16 +545,18 @@ def test_fleet_plane_modules_are_checked(module):
 
 
 def test_fleet_plane_imports_without_the_wire_libraries():
-    """With jax, grpc, aiohttp, transformers, zmq, msgpack, xxhash and
-    tokenizers blocked, each module of the fleet planes' second half imports
-    and loads no metrics or tracing module."""
+    """With jax, grpc, aiohttp, prometheus_client, transformers, zmq,
+    msgpack, xxhash and tokenizers blocked, each module of the fleet planes'
+    second half imports, and the metrics and tracing modules it loads are
+    the port's own."""
     code = (
         "import importlib, sys\n"
         f"for lib in {WIRE_LIBRARIES + ('jax', 'prometheus_client', 'grpc', 'aiohttp')!r}:\n"
         "    sys.modules[lib] = None\n"
         f"for m in {FLEET_PLANE_MODULES!r}:\n"
         f"    importlib.import_module({(PORT.name + '.')!r} + m)\n"
-        f"bad = [m for m in sys.modules if '.metrics' in m or ('.obs' in m and m not in {SLO!r})]\n"
+        f"bad = [m for m in sys.modules if ('metrics' in m or 'obs' in m.split('.'))\n"
+        f"       and m not in {SPINE!r} and sys.modules[m] is not None]\n"
         "print('BAD', bad)\n"
     )
     proc = subprocess.run(
@@ -558,3 +564,95 @@ def test_fleet_plane_imports_without_the_wire_libraries():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0 and "BAD []" in proc.stdout, proc.stdout + proc.stderr
+
+
+# -- the service surface and the observability spine ---------------------------
+
+# The card lists no aiohttp, prometheus_client, grpc or protobuf (and tier-1
+# imports both packages into one process): the port's service and metrics
+# stand on the standard library, and gRPC stays in its two modules.
+SERVICE_LIBRARIES = ("aiohttp", "prometheus_client")
+GRPC_MODULES = ("api/grpc_server.py", "api/indexer_pb2.py")
+# Files that reach the gRPC modules only inside a function: the gRPC replica
+# transport and its `*_traced` forms, and the api package's lazy exports.
+LAZY_GRPC = ("cluster/scorer.py", "api/__init__.py")
+SERVICE_MODULES = [
+    "metrics", "metrics.registry", "metrics.collector", "obs", "obs.spans", "obs.recorder",
+    "obs.carrier", "obs.slo", "kvcache.kvblock.instrumented", "config", "api", "api.web",
+    "api.http_service",
+]
+
+
+def _every_import(path):
+    """Every module a file imports, at module level or inside a function."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            names += [node.module] + [f"{node.module}.{a.name}" for a in node.names]
+    return names
+
+
+def _is_grpc(module):
+    return (module.split(".")[0] == "grpc" or module.startswith("google.protobuf")
+            or module.startswith(f"{PORT.name}.api.grpc_server")
+            or module.startswith(f"{PORT.name}.api.indexer_pb2"))
+
+
+def _rel(path):
+    return str(path.relative_to(PORT)) if PORT in path.parents else path.name
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_port_file_imports_aiohttp_or_prometheus_client(path):
+    bad = [m for m in _every_import(path) if m.split(".")[0] in SERVICE_LIBRARIES]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
+def test_only_the_grpc_modules_import_grpc(path):
+    """grpc and google.protobuf are imported at module level only by
+    api/grpc_server.py and api/indexer_pb2.py; the gRPC transports reach
+    them inside a function; no other file reaches them at all."""
+    rel = _rel(path)
+    if rel in GRPC_MODULES:
+        return
+    assert not [m for m in _top_level_imports(path) if _is_grpc(m)]
+    lazy = [m for m in _every_import(path) if _is_grpc(m)]
+    assert not lazy or rel in LAZY_GRPC, lazy
+
+
+def test_grpc_reaches_the_transports_lazily():
+    for rel in LAZY_GRPC:
+        assert [m for m in _every_import(PORT / rel) if _is_grpc(m)], rel
+
+
+@pytest.mark.parametrize("module", SERVICE_MODULES, ids=lambda m: m.replace(".", "/") + ".py")
+def test_service_modules_are_checked(module):
+    rel = module.replace(".", "/")
+    path = PORT / rel / "__init__.py" if (PORT / rel).is_dir() else PORT / (rel + ".py")
+    assert path in _port_files()
+
+
+def test_service_imports_without_the_service_libraries():
+    """With aiohttp, prometheus_client, grpc, protobuf, jax and the wire
+    libraries blocked, the HTTP service, the metrics collector, the tracing
+    spine, the instrumented index and the config loader import, and so
+    does chip_smoke.py (whose phase 18a serves over HTTP on the card)."""
+    blocked = WIRE_LIBRARIES + ("jax", "prometheus_client", "aiohttp", "grpc", "google.protobuf")
+    code = (
+        "import importlib, sys\n"
+        f"for lib in {blocked!r}:\n"
+        "    sys.modules[lib] = None\n"
+        f"for m in {SERVICE_MODULES!r}:\n"
+        f"    importlib.import_module({(PORT.name + '.')!r} + m)\n"
+        "import chip_smoke\n"
+        "print('OK', len(sys.modules))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0 and "OK" in proc.stdout, proc.stdout + proc.stderr

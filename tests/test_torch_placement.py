@@ -45,8 +45,6 @@ from tests.test_torch_fleethealth import (
 
 # Cases of tests/test_placement.py that need code the port does not carry.
 WAITS = {
-    "TestInstrumentedIndex": "kvblock/instrumented.py and metrics.collector (ROADMAP.md queue 1 "
-                             "item 7)",
     "TestClusterReplicasEquivalence":
         "bench.py's FleetSim, the benchmark's own code, which is not ported (chip_smoke.py "
         "phase 17a and tests/test_torch_cluster.py's rehearsal of it make the claim, cluster "
@@ -132,7 +130,7 @@ def test_every_placement_case_is_taken():
     waiting = {(c, m) for c, m in every if c in WAITS or f"{c}::{m}" in WAITS}
     own = {(OWN_BACKENDS, m) for m, _ in _own_backend_cases()}
     assert {(c, m) for c, m, _ in CASES} | own == every - waiting
-    assert len(waiting) == 5 and len(_own_backend_cases()) == 4
+    assert len(waiting) == 2 and len(_own_backend_cases()) == 4
 
 
 def test_port_namespace_runs_the_port():

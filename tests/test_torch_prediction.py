@@ -43,7 +43,6 @@ from tests.test_torch_placement import (  # noqa: F401 (fixtures)
 
 # Cases of tests/test_prediction.py that need code the port does not carry.
 WAITS = {
-    "TestApiSurface": "api.http_service (ROADMAP.md queue 1 item 7)",
     "TestPredictionEndToEnd": "bench.py's FleetSim, the benchmark's own code, which is not ported "
                               "(test_phase_16c_arms_rehearse_the_end_to_end_claims makes its "
                               "claims on the port's pods)",
@@ -65,7 +64,7 @@ def test_every_prediction_case_is_taken():
              for m in vars(cls) if m.startswith("test_")}
     waiting = {(c, m) for c, m in every if c in WAITS or f"{c}::{m}" in WAITS}
     assert {(c, m) for c, m, _ in CASES} == every - waiting
-    assert len(waiting) == 4
+    assert len(waiting) == 2
 
 
 def test_port_namespace_runs_the_port():

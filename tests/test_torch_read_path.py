@@ -440,13 +440,20 @@ def test_injected_tokenizer_seam_matches_jax():
 
 
 def test_unported_paths_raise_not_implemented():
-    """Only the metrics-instrumented index stays unported (it moves with
-    metrics/, ROADMAP.md queue 1 item 7). A render request on a tokenizer
-    that has no chat-templating processor raises NotImplementedError, as
-    the reference's base contract does, on every read-path entry."""
+    """Nothing of the read path is left unported: `enable_metrics=True`
+    wraps the index in the metrics-instrumented one. A render request on a
+    tokenizer that has no chat-templating processor raises
+    NotImplementedError, as the reference's base contract does, on every
+    read-path entry."""
     p = _pkg(PORT_PKG)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
-        p.index.new_index(p.index.IndexConfig(enable_metrics=True))
+    from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.instrumented import InstrumentedIndex
+    from llm_d_kv_cache_manager_tpu_torch.metrics import collector
+
+    try:
+        assert isinstance(p.index.new_index(p.index.IndexConfig(enable_metrics=True)),
+                          InstrumentedIndex)
+    finally:
+        collector.stop_metrics_logging()
     indexer = p.indexer.Indexer(tokenization_pool=p.tpool.TokenizationPool(
         p.tpool.TokenizersPoolConfig(workers=1), tokenizer=_word_tokenizer(p)))
     try:

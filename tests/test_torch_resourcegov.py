@@ -1,9 +1,8 @@
 """The port's resource governor, departure reaper and autopilot knobs against
 the JAX package's, on the same inputs.
 
-- Every test of tests/test_resourcegov.py but the three that need a module
-  the port lacks (`WAITS`) runs on both packages (`reference_module`): the
-  accountant, the governor's config, pressure state machine, shed ladder and
+- Every test of tests/test_resourcegov.py runs on both packages
+  (`reference_module`): the accountant, the governor's config, pressure state machine, shed ladder and
   restore, its budget knob, the reaper, each tracker's `forget_pod`, the
   transfer client's peer bounding and the shed/rewarm bit identity.
 - tests/test_autopilot.py's `TestKnobs` and the admission gate's, the
@@ -43,11 +42,7 @@ from tests.test_torch_fleethealth import (
 pytestmark = pytest.mark.resourcegov
 
 # Cases of tests/test_resourcegov.py that need a module the port lacks.
-WAITS = {
-    "TestShedLadder::test_shed_events_reach_the_metrics_walk":
-        "metrics.collector and prometheus_client (ROADMAP.md queue 1 item 7)",
-    "TestResourceHttpSurface": "api.http_service (ROADMAP.md queue 1 item 7)",
-}
+WAITS = {}
 CASES = reference_cases("test_resourcegov.py", WAITS)
 
 
@@ -64,14 +59,14 @@ def test_every_governor_case_is_taken():
     waiting = {(c, m) for c, m in every
                if c in WAITS or f"{c}::{m}" in WAITS}
     assert {(c, m) for c, m, _ in CASES} == every - waiting
-    assert len(waiting) == 3
+    assert len(waiting) == 0
 
 
 # tests/test_autopilot.py: the knob registry and the admission gate's, the
 # auditor's, the prediction scheduler's and the replicator's registered
 # knobs. The controller, the signal assembler, the burn history and the
-# healthy bit identity run in tests/test_torch_autopilot.py; the service
-# wiring waits for api/ (ROADMAP.md queue 1 item 7).
+# healthy bit identity, and the service wiring, run in
+# tests/test_torch_autopilot.py.
 REGISTERED_KNOBS = ("test_admission_knob_widens_the_live_waiting_line",
                     "test_auditor_knob_tightens_the_live_cadence",
                     "test_prediction_jobs_floor_is_one_not_zero",
