@@ -102,6 +102,17 @@ counter skipping every 7th increment (it must fail the /metrics counts the
 CPU rehearsal predicts); and every_other_trace, a flight recorder that
 drops every other completed trace (it must fail the read-trace count).
 
+Phase 19's bars are held to the real tp pod and train step and to four
+planted faults: skip_wo_all_reduce, rank 1 keeping its partial sum after
+wo (its collectives fall out of step with rank 0's: it must fail the bar
+that a rank that fails or hangs fails the phase, or the logits bars);
+rank1_gets_rank0_heads, the KV pages sharded with rank 1 given rank 0's
+heads (it must fail the decode-logits bar on the pre-filled cache);
+rank1_publishes, rank 1 publishing its events too (it must fail the bar
+that rank 1 publishes nothing); and drop_one_layer_grad, a train step whose
+gradients of layer 5 are dropped (swapped in as llama.loss_and_grads: it
+must fail 19b's gradient bar).
+
 Phase 8b's bit-identical check (P' restored from the host store on a tight
 bf16 pod against the same prompt on a pod that never evicts: suffix logits
 and 32 greedy tokens) is held to the real tree and to a planted codec fault,
@@ -159,6 +170,8 @@ from llm_d_kv_cache_manager_tpu_torch.metrics import collector as metrics_collec
 from llm_d_kv_cache_manager_tpu_torch.models import llama, mixtral
 from llm_d_kv_cache_manager_tpu_torch.obs import spans as spans_mod
 from llm_d_kv_cache_manager_tpu_torch.ops import _build
+from llm_d_kv_cache_manager_tpu_torch.parallel import serving as tp_serving
+from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import MeshCoords
 from llm_d_kv_cache_manager_tpu_torch.placement import HotPrefixReplicator
 from llm_d_kv_cache_manager_tpu_torch.prediction import SessionTable
 
@@ -839,6 +852,83 @@ SERVICE_FAULTS = {  # planted fault -> the count of its bar's failures that must
 }
 
 
+# -- phase 19's planted faults: each installed in a tp rank's process before it
+# serves (the first three), or around the train step (the last) --------------
+
+
+def skip_wo_all_reduce(rank: int) -> None:
+    """Rank 1 skips the all-reduce after wo: the first reduce_from_tp of
+    each layer pass (w_down's is the second)."""
+    if rank != 1:
+        return
+    real, calls = llama.reduce_from_tp, itertools.count()
+    llama.reduce_from_tp = lambda x, group: x if next(calls) % 2 == 0 else real(x, group)
+
+
+def rank1_gets_rank0_heads(rank: int) -> None:
+    """The KV pages sharded with rank 1 given rank 0's heads."""
+    if rank != 1:
+        return
+    real = tp_serving.shard_kv_cache
+    tp_serving.shard_kv_cache = lambda cache, mesh: real(
+        cache, MeshCoords({"tp": chip_smoke.TP}, {"tp": 0}))
+
+
+def rank1_publishes(rank: int) -> None:
+    """Rank 1 publishes its pod's events too."""
+    if rank != 1:
+        return
+    real = EnginePod.__init__
+
+    def init(self, *args, **kwargs):
+        real(self, *args, **kwargs)
+        self._publishes = True
+    EnginePod.__init__ = init
+
+
+DROPPED_LAYER = 5
+REAL_LOSS_AND_GRADS = llama.loss_and_grads
+
+
+def drop_one_layer_grad(loss_of, params, dp_group=None):
+    """The gradients of layer DROPPED_LAYER dropped from every stacked weight."""
+    loss, grads = REAL_LOSS_AND_GRADS(loss_of, params, dp_group)
+    for g in grads["layers"].values():
+        g[DROPPED_LAYER].zero_()
+    return loss, grads
+
+
+TP_FAULTS = {"skip_wo_all_reduce": skip_wo_all_reduce,
+             "rank1_gets_rank0_heads": rank1_gets_rank0_heads,
+             "rank1_publishes": rank1_publishes}
+
+
+def run_tp_bars(params, cfg, params32, cfg32, deltas: dict) -> dict:
+    """Phase 19a's bars on the real tp pod and on each rank fault, phase
+    19b's on the real train step and on drop_one_layer_grad: each run's
+    failures (a raise counts as one)."""
+    out = {}
+
+    def run(label, fn):
+        try:
+            failures = fn()["failures"]
+        except AssertionError as e:  # a rank failed or hung
+            failures = [f"raised: {str(e)[:400]}"]
+        out[label] = dict(ok=not failures, failures=failures)
+        chip_smoke.log(f"  [{label}] {'ok' if not failures else 'FAIL'} {failures}")
+
+    run("tp_real", lambda: chip_smoke.tp_check(params, cfg, params32, cfg32, deltas))
+    for label, fault in TP_FAULTS.items():
+        run(label, lambda: chip_smoke.tp_check(params, cfg, params32, cfg32, deltas, fault))
+    run("train_real", lambda: chip_smoke.train_check(params, cfg, params32, cfg32))
+    llama.loss_and_grads = drop_one_layer_grad
+    try:
+        run("drop_one_layer_grad", lambda: chip_smoke.train_check(params, cfg, params32, cfg32))
+    finally:
+        llama.loss_and_grads = REAL_LOSS_AND_GRADS
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_fault_check: no CUDA device", file=sys.stderr)
@@ -929,6 +1019,11 @@ def main() -> int:
     chip_smoke.log("== service faults: a pool that drops every 50th message, a lookup counter "
                    "that skips every 7th increment, a recorder that drops every other trace")
     service = run_service_bars(params, cfg)
+    chip_smoke.log("== tp and training faults: rank 1 skipping the all-reduce after wo, rank 1 "
+                   "given rank 0's KV heads, rank 1 publishing events, a train step dropping "
+                   "one layer's gradients")
+    int8_delta, _ = chip_smoke.teacher_forced_delta(params, cfg, params32, cfg32, True)
+    tp_bars = run_tp_bars(params, cfg, params32, cfg32, {"bf16": delta, "int8": int8_delta})
 
     chip_smoke.log("== MoE fault: top-1 serving (the first routed expert only, at gate 1)")
     del params, params32, models
@@ -953,7 +1048,10 @@ def main() -> int:
         and all(proactive[label]["ok"]
                 for label in ("sharegpt_real", "placement_real", "prediction_real")) \
         and all(fleet_plane[label]["ok"] for label in FLEET_PLANE_REAL) \
-        and service["service_real"]["ok"]
+        and service["service_real"]["ok"] \
+        and tp_bars["tp_real"]["ok"] and tp_bars["train_real"]["ok"]
+    tp_caught = {label: not tp_bars[label]["ok"]
+                 for label in (*TP_FAULTS, "drop_one_layer_grad")}
     fleet_plane_caught = {label: not fleet_plane[label]["ok"] and fleet_plane[label][key] > 0
                           for label, key in FLEET_PLANE_FAULTS.items()}
     service_caught = {label: not service[label]["ok"] and service[label][key] > 0
@@ -1002,6 +1100,7 @@ def main() -> int:
         "proactive_faults_caught": proactive_caught, "proactive_readings": proactive,
         "fleet_plane_faults_caught": fleet_plane_caught, "fleet_plane_readings": fleet_plane,
         "service_faults_caught": service_caught, "service_readings": service,
+        "tp_and_training_faults_caught": tp_caught, "tp_and_training_readings": tp_bars,
         "scheduler_bar_readings": {label: dict(bar["worst"], delta=bar["delta"])
                                    for label, bar in bars.items()},
         "logits_ok": logits_ok, "bf16_max_row_rel_err": worst,
@@ -1012,7 +1111,8 @@ def main() -> int:
                  and all(serving_caught.values()) and all(read_plane_caught.values())
                  and all(resilience_caught.values()) and all(proactive_caught.values())
                  and all(fleet_plane_caught.values())
-                 and all(service_caught.values())) else 1
+                 and all(service_caught.values())
+                 and all(tp_caught.values())) else 1
 
 
 if __name__ == "__main__":

@@ -16,6 +16,8 @@
                                                     # half
     python3 chip_smoke.py --phases 18a  # the HTTP scoring service in front
                                         # of 16a's precise arm
+    python3 chip_smoke.py --phases 19a,19b  # a tp = 2 pod in two processes
+                                            # on one card, and the train step
 
 Phases, in order (any failure raises and the script exits non-zero):
   1. device lines: torch's device name and nvidia-smi's name + power limit;
@@ -51,7 +53,9 @@ Phases, in order (any failure raises and the script exits non-zero):
      the speculative verify's shape (batch 8 x 5 new tokens after 1,503
      cached, over the 2,048-position table); every row again at both
      Qwen2.5 attention shapes (decode at batch 8 x 2,048 and at the serving
-     shape, prefill at the serving chunk);
+     shape, prefill at the serving chunk); rows 1, 2 and 5 again at a tp = 2
+     rank's shape (8/4 heads of 128: decode at batch 8 x 2,048, prefill at
+     the serving chunk);
   5. serving at the flagship width (1.14B Llama, bf16, random weights from a
      seeded generator): two bf16 pods and one int8-KV pod whose KV events are
      digested into one index; prefix reuse, pod ranking and kernel launch
@@ -342,6 +346,29 @@ Phases, in order (any failure raises and the script exits non-zero):
      (each carrying its X-Kvtpu-Trace id) with the read path's spans in the
      reference's order (`SERVICE_READ_SPANS`); /debug/critical_path has the
      scoring root's row;
+  19a. a tensor-parallel flagship pod of two ranks: two spawned processes on
+     the one card over a gloo group (NCCL refuses two ranks on one device),
+     each with the seeded weights' Megatron shard and its 4 of the 8 KV
+     heads of every page, the paged paths all-reducing after wo and w_down
+     and gathering the vocab-parallel logits, rank 0's tokens broadcast
+     each tick; ten requests (phase 5's shape: 1,024 shared + 512 unique
+     tokens, 16 greedy tokens) through the Scheduler on bf16 pages at
+     decode_steps 1 and int8 pages at 4, against a tp = 1 pod on the same
+     weights in this process. Bars: rank 0's BlockStored/BlockRemoved
+     stream equals the tp = 1 pod's and rank 1 publishes nothing; the
+     second request on caches 1,024 tokens; on each rank the prefix-hit
+     prefill's logits (phase 5c's) and batch-8 decode logits (phase 6's,
+     both page formats) within 2 x the bf16 plain path's error + 1e-2 of
+     the f32 truth; every served token inside phase 7b's teacher-forced
+     bar; each rank's pages hold 4 heads and both ranks' block tables and
+     tokens are equal every tick; a rank that fails or hangs fails the
+     phase (joined under a time limit, each collective bounded). A decode
+     tick's wall at tp 1 and 2 and the collectives' share are logged;
+  19b. the SGD train step on the flagship (bf16 params, batch 4 x 512
+     tokens from a seed) against an f32 twin: the step-0 loss within a
+     relative 1e-2, each tensor's gradient (each layer's slice of a
+     stacked weight) by relative norm error under the stated bar, and the
+     loss falling over 5 steps; step wall and tokens/s logged;
   then a JSON line of details, one JSON line describing every kernel, and
   last: {"ok": true, "device": {...}}.
 """
@@ -368,6 +395,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from llm_d_kv_cache_manager_tpu_torch import obs
 from llm_d_kv_cache_manager_tpu_torch.api import http_service
@@ -481,6 +509,9 @@ from llm_d_kv_cache_manager_tpu_torch.ops.sampling import (
     prng_key,
     sample_tokens,
 )
+from llm_d_kv_cache_manager_tpu_torch.parallel import multihost
+from llm_d_kv_cache_manager_tpu_torch.parallel import serving as tp_serving
+from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import MeshCoords
 from llm_d_kv_cache_manager_tpu_torch.placement import (
     ChainPopularityTracker,
     HotPrefixReplicator,
@@ -1109,7 +1140,15 @@ def phase_times(gen) -> tuple:
         shapes["flash_prefill serving"] = time_prefill(gen, *PREFILL_SERVING_SHAPE, n_q=n_q,
                                                        n_kv=n_kv, hd=hd)
         qwen_shapes[model] = shapes
-    return main, decode, serving, verify, mixtral_shape, qwen_shapes
+    # Phase 19a's rank of a tp = 2 flagship pod: half the heads of each kind.
+    n_q, n_kv = N_Q // TP, N_KV // TP
+    log(f"  at a tp = {TP} rank's attention shape (n_q {n_q}, n_kv {n_kv}, head_dim {HD})")
+    tp_rank_shape = {"B=8 ctx=2048": {row: time_decode(gen, row, "B=8 ctx=2048", n_q=n_q,
+                                                       n_kv=n_kv)
+                                      for row in ("paged_decode", "paged_decode_int8")},
+                     "flash_prefill serving": time_prefill(gen, *PREFILL_SERVING_SHAPE, n_q=n_q,
+                                                           n_kv=n_kv)}
+    return main, decode, serving, verify, mixtral_shape, qwen_shapes, tp_rank_shape
 
 
 # The prefill call of a prefix-hit request in phase 5: 512 new tokens after
@@ -1450,10 +1489,7 @@ def prefill_logits_check(params, cfg, params32, cfg32, seed: int = 3) -> dict:
     f32 cache): the 1,024-token prefix, then the serving chunk of 512 at
     offset 1,024, over a table padded to 128 pages as the pod pads it."""
     l_new, s, off = PREFILL_SERVING_SHAPE
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    tokens = torch.randint(0, cfg.vocab_size, (off + l_new,), generator=gen, device="cuda",
-                           dtype=torch.int32)
-    table = torch.randperm(s // PAGE, generator=gen, device="cuda").to(torch.int32)
+    tokens, table = prefill_check_inputs(cfg, seed)
     logits, launches = {}, 0
     for name, c, p, plain in (("truth", cfg32, params32, True), ("kernel", cfg, params, False),
                               ("plain", cfg, params, True)):
@@ -7124,6 +7160,479 @@ def phase_autopilot(params, cfg, seed: int) -> dict:
     return dict(out, seconds=seconds)
 
 
+# -- phase 19: a tp pod of two ranks on one card, and the train step -------------
+
+TP = 2  # the pod's ranks: two processes on cuda:0 over gloo
+TP_MODEL = "llama-flagship-1.14b"
+TP_RUNS = (("bf16", False, 1), ("int8", True, 4))  # page format, decode_steps
+TP_NEW = 16  # greedy tokens a request
+TP_JOIN_S = 300.0  # the children's time limit, from their start
+TP_COLLECTIVE_S = 60  # gloo's bound on one collective: a rank out of step fails, not hangs
+TP_TICK_REPS = 10
+TRAIN_BATCH = (4, 512)
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-3
+# 19b's bars: the step-0 loss within this relative error of the f32 twin's;
+# each tensor's gradient (each layer's slice of a stacked weight) within
+# this relative norm error of the f32 twin's: about 3x the largest reading
+# on an H100 (4.87e-2, layer 15's wk), far under the 1.0 of a dropped
+# layer (chip_fault_check.py).
+TRAIN_LOSS_REL = 1e-2
+TRAIN_GRAD_REL = 0.15
+
+
+def tp_traffic(vocab: int) -> list:
+    """Phase 5's traffic shape for one pod: ten requests of one 1,024-token
+    prefix and 512 unique tokens, TP_NEW greedy tokens each."""
+    rng = np.random.default_rng(1234)
+    prefix = rng.integers(0, vocab, 1024).tolist()
+    return [dict(prompt_tokens=prefix + rng.integers(0, vocab, 512).tolist(),
+                 max_new_tokens=TP_NEW, sampling=None) for _ in range(10)]
+
+
+def tp_pod(params, cfg, int8: bool, events: list, group=None) -> EnginePod:
+    return EnginePod(
+        EnginePodConfig(pod_id="pod-tp", model_name=TP_MODEL, n_pages=4096, page_size=PAGE,
+                        device_tier="gpu", max_pages_per_seq=256, model_config=cfg,
+                        device="cuda", use_quantized_kv=int8,
+                        tp=1 if group is None else TP, group=group),
+        event_sink=events.append, params=params,
+    )
+
+
+class TableRecorder(Scheduler):
+    """A Scheduler that keeps every running sequence's block table after
+    each tick (the bar: both ranks' tables equal, tick by tick)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.tables = []
+
+    def step(self):
+        finished = super().step()
+        self.tables.append([(r.req_id, list(r.state.block_table)) for r in self._running])
+        return finished
+
+
+def tp_serve(params, cfg, int8: bool, steps: int, group=None) -> dict:
+    """The traffic through a Scheduler on a fresh pod (tp over `group`, or
+    tp = 1): tokens, cached tokens, events, per-tick tables, page shapes,
+    launches, tick walls."""
+    events = []
+    pod = tp_pod(params, cfg, int8, events, group)
+    reset_launch_counts()
+    r = run_scheduler(pod, tp_traffic(cfg.vocab_size), steps, max_batch=8, budget=512,
+                      scheduler=TableRecorder)
+    torch.cuda.synchronize()
+    out = dict(tokens=r["tokens"], cached=[q.num_cached_tokens for q in r["requests"]],
+               events=event_rows(events), tables=r["scheduler"].tables,
+               heads=[tuple(c.shape) for c in pod.kv_cache], launches=launch_counts(),
+               tick_ms=[t * 1e3 for t in r["tick_s"]], wall_s=r["wall_s"])
+    del pod
+    torch.cuda.empty_cache()
+    return out
+
+
+def prefill_check_inputs(cfg, seed: int = 3) -> tuple:
+    """prefill_logits_check's tokens (1,024 cached + the 512 chunk) and its
+    128-page table, the same for the same seed."""
+    l_new, s, off = PREFILL_SERVING_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (off + l_new,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    table = torch.randperm(s // PAGE, generator=gen, device="cuda").to(torch.int32)
+    return tokens, table
+
+
+def tp_prefill_logits(cfg, params, group=None, plain=False, at=None):
+    """The prefix-hit prefill's chunk logits on a fresh cache (head-sharded
+    under `at` with `group`)."""
+    l_new, s, off = PREFILL_SERVING_SHAPE
+    tokens, table = prefill_check_inputs(cfg)
+    cache = llama.make_kv_pages(cfg, s // PAGE, PAGE, "cuda")
+    if at is not None:
+        cache = tp_serving.shard_kv_cache(cache, at)
+    llama.prefill_cache(cfg, params, cache, tokens[:off], table, 0, plain=plain, group=group)
+    _, out = llama.prefill_cache(cfg, params, cache, tokens[off:], table, off, plain=plain,
+                                 group=group)
+    return out.float()
+
+
+def tp_decode_inputs(cfg, int8: bool, at=None):
+    """phase 6's batch-8 decode state (seed 5), head-sharded under `at`."""
+    cache, tables, lens, tokens, _ = decode_setup(cfg, int8, seed=5)
+    if at is not None:
+        cache = tp_serving.shard_kv_cache(cache, at)
+    return cache, tables, lens, tokens
+
+
+class CollectiveTimer:
+    """While entered, every all_reduce, all_gather and broadcast of this
+    process is timed between two synchronizations (checks only)."""
+
+    NAMES = ("all_reduce", "all_gather", "broadcast")
+
+    def __enter__(self):
+        self.ms, self.calls = 0.0, 0
+        self._real = {n: getattr(dist, n) for n in self.NAMES}
+
+        def timed(fn):
+            def call(*args, **kwargs):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.ms += (time.perf_counter() - t) * 1e3
+                self.calls += 1
+                return out
+            return call
+        for n, fn in self._real.items():
+            setattr(dist, n, timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._real.items():
+            setattr(dist, n, fn)
+
+
+def decode_tick_ms(cfg, params, cache, tables, lens, tokens, group=None) -> dict:
+    """The wall of one decode tick at batch 8 (the model step, the argmax,
+    rank 0's tokens broadcast, the read back), median of TP_TICK_REPS; with
+    `group`, again with every collective timed between synchronizations:
+    their share of that tick."""
+    from llm_d_kv_cache_manager_tpu_torch.parallel.collectives import broadcast_from_first
+
+    def tick():
+        _, logits = llama.decode_step_cache(cfg, params, cache, tokens, tables, lens,
+                                            group=group)
+        return broadcast_from_first(torch.argmax(logits, dim=-1), group).tolist()
+
+    wall = time_ms(tick, runs=TP_TICK_REPS, warmup=2)
+    out = dict(wall_ms=wall)
+    if group is not None:
+        ticks = []
+        for _ in range(TP_TICK_REPS):
+            with CollectiveTimer() as timer:
+                t = time.perf_counter()
+                tick()
+                torch.cuda.synchronize()
+                ticks.append(((time.perf_counter() - t) * 1e3, timer.ms, timer.calls))
+        tick_ms, coll_ms, calls = sorted(ticks)[len(ticks) // 2]
+        out.update(timed_tick_ms=tick_ms, collective_ms=coll_ms, collectives=calls,
+                   collective_share=coll_ms / tick_ms)
+    return out
+
+
+def tp_rank_main(rank: int, store: str, out_path: str, fault=None) -> None:
+    """One rank of phase 19a's tp pod, in its own process on cuda:0: the
+    same seeded weights as the parent, its shards; the traffic through the
+    Scheduler on both page formats; the logits checks' inputs on its shard;
+    a decode tick's wall and collective share. `fault`: a planted fault
+    (chip_fault_check.py), installed first. Writes its results to
+    `out_path` (or the traceback) and exits."""
+    import pickle
+    import traceback
+    from datetime import timedelta
+
+    result = None
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        multihost.initialize_distributed(init_method=f"file://{store}", world_size=TP,
+                                         rank=rank, backend="gloo",
+                                         timeout=timedelta(seconds=TP_COLLECTIVE_S))
+        group = dist.group.WORLD
+        if fault is not None:
+            fault(rank)
+        cfg = llama.LlamaConfig(**FLAGSHIP)
+        params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        out = {"runs": {}}
+        for fmt, int8, steps in TP_RUNS:
+            out["runs"][fmt] = tp_serve(params, cfg, int8, steps, group)
+        at = MeshCoords({"tp": TP}, {"tp": rank})
+        shard = tp_serving.shard_serving_params(params, at)
+        del params
+        out["prefill_logits"] = tp_prefill_logits(cfg, shard, group, at=at).cpu()
+        out["decode_logits"] = {}
+        for fmt, int8, _ in TP_RUNS:
+            cache, tables, lens, tokens = tp_decode_inputs(cfg, int8, at)
+            _, logits = llama.decode_step_cache(cfg, shard, cache, tokens, tables, lens,
+                                                group=group)
+            out["decode_logits"][fmt] = logits.float().cpu()
+            if not int8:
+                out["tick"] = decode_tick_ms(cfg, shard, cache, tables, lens, tokens, group)
+            del cache
+        result = ("ok", out)
+    except Exception:  # noqa: BLE001 - reported to the parent
+        result = ("error", traceback.format_exc())
+    with open(out_path, "wb") as f:
+        pickle.dump(result, f)
+    os._exit(0)  # the gloo group of a failed peer may not tear down
+
+
+def spawn_tp_ranks(fault=None) -> list:
+    """Run tp_rank_main in TP processes (spawned, a FileStore under the
+    package's build/ directory), each joined under TP_JOIN_S and killed
+    past it; returns each rank's results or raises with the failures."""
+    import multiprocessing as mp
+    import pickle
+
+    tmp = Path(tempfile.mkdtemp(prefix="tp-", dir=_build.BUILD_DIR))
+    ctx = mp.get_context("spawn")
+    outs = [tmp / f"rank{r}.pkl" for r in range(TP)]
+    procs = [ctx.Process(target=tp_rank_main, args=(r, str(tmp / "store"), str(outs[r]), fault))
+             for r in range(TP)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + TP_JOIN_S
+    for p in procs:
+        p.join(timeout=max(deadline - time.monotonic(), 0.1))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    results, failures = [], []
+    for r, path in enumerate(outs):
+        if not path.exists():
+            failures.append(f"rank {r}: no result (exit code {procs[r].exitcode})")
+            continue
+        kind, value = pickle.loads(path.read_bytes())
+        if kind == "error":
+            failures.append(f"rank {r}: {value}")
+        results.append(value)
+    for path in tmp.iterdir():
+        path.unlink()
+    tmp.rmdir()
+    if hung or failures:
+        raise AssertionError(f"phase 19a: ranks hung {hung}; " + "; ".join(failures)[-4000:])
+    return results
+
+
+class _Served:
+    def __init__(self, generated):
+        self.generated = generated
+
+
+def tp_check(params, cfg, params32, cfg32, deltas: dict, fault=None) -> dict:
+    """Phase 19a: the tp = 2 pod in two processes against a tp = 1 pod and
+    the f32 truth on the same weights. Returns the readings, with
+    `failures` listing every bar that failed."""
+    card = card_line()
+    failures = []
+    # The parent's side first, so the ranks' timings have the card alone.
+    truth = {"prefill": tp_prefill_logits(cfg32, params32, plain=True)}
+    plain = {"prefill": tp_prefill_logits(cfg, params, plain=True)}
+    decode_truth, decode_plain = {}, {}
+    for fmt, int8, _ in TP_RUNS:
+        cache, tables, lens, toks = tp_decode_inputs(cfg, int8)
+        page_ids = torch.gather(tables, 1, (lens // PAGE).long()[:, None])[:, 0]
+        cache32 = tuple(p.float() if p.dtype == torch.bfloat16 else p.clone() for p in cache)
+        _, t = llama._decode_once(cfg32, params32, cache32, toks, tables, lens, page_ids,
+                                  lens % PAGE, plain=True)
+        del cache32
+        _, p = llama._decode_once(cfg, params, cache, toks, tables, lens, page_ids,
+                                  lens % PAGE, plain=True)
+        decode_truth[fmt], decode_plain[fmt] = t.float(), p.float()
+        if not int8:
+            single_tick = decode_tick_ms(cfg, params, *tp_decode_inputs(cfg, False))
+        del cache
+    single = {fmt: tp_serve(params, cfg, int8, steps) for fmt, int8, steps in TP_RUNS}
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = spawn_tp_ranks(fault)
+    ranks_s = time.perf_counter() - t0
+
+    out = dict(card=card, ranks_s=ranks_s, runs={}, logits={})
+    n_kv = cfg.n_kv_heads // TP
+    traffic = tp_traffic(cfg.vocab_size)
+    for fmt, int8, steps in TP_RUNS:
+        r0, r1 = (r["runs"][fmt] for r in ranks)
+        ref = single[fmt]
+        # (i) rank 0 publishes the tp = 1 pod's prompt-page stream, rank 1 nothing.
+        # Every event is a prompt page's: 16 new tokens after a 96-page prompt
+        # never complete a page, so the whole streams are compared.
+        if r0["events"] != ref["events"]:
+            failures.append(f"{fmt}: rank 0's events differ from the tp = 1 pod's "
+                            f"({len(r0['events'])} vs {len(ref['events'])})")
+        if r1["events"]:
+            failures.append(f"{fmt}: rank 1 published {len(r1['events'])} events")
+        # (ii) the prefix hit.
+        if r0["cached"][0] != 0 or any(c != 1024 for c in r0["cached"][1:]):
+            failures.append(f"{fmt}: cached tokens {r0['cached']}")
+        # (iv) every served token inside the teacher-forced bar.
+        bar = teacher_forced_bar(params32, cfg32, traffic, [_Served(g) for g in r0["tokens"]],
+                                 deltas[fmt])
+        if not bar["ok"]:
+            failures.append(f"{fmt}: teacher-forced bar {bar}")
+        # (v) head shards, and the same tables (and tokens) on both ranks every tick.
+        for rank, r in enumerate((r0, r1)):
+            if any(shape[1] != n_kv for shape in r["heads"]):
+                failures.append(f"{fmt}: rank {rank}'s pages {r['heads']}")
+        if r0["tables"] != r1["tables"] or r0["tokens"] != r1["tokens"]:
+            failures.append(f"{fmt}: the ranks' block tables or tokens differ")
+        if r0["launches"] != r1["launches"]:
+            failures.append(f"{fmt}: launches differ between ranks: {r0['launches']} "
+                            f"{r1['launches']}")
+        agree = sum(a == b for a, b in zip(r0["tokens"], ref["tokens"]))
+        out["runs"][fmt] = dict(
+            decode_steps=steps, cached=r0["cached"], events=len(r0["events"]), bar=bar,
+            launches=r0["launches"], ticks=len(r0["tick_ms"]),
+            tick_ms_median=statistics.median(r0["tick_ms"]), wall_s=r0["wall_s"],
+            tp1_wall_s=ref["wall_s"], tp1_tick_ms_median=statistics.median(ref["tick_ms"]),
+            requests_equal_to_tp1=agree)
+        log(f"  19a {fmt} pages, decode_steps {steps} ({card}): {len(r0['events'])} events from "
+            f"rank 0 (tp = 1: {len(ref['events'])}), {len(r1['events'])} from rank 1; cached "
+            f"{r0['cached']}; teacher-forced worst {bar['worst']['greedy']:.4f} (delta "
+            f"{deltas[fmt]:.4f}); {agree}/10 requests' tokens equal the tp = 1 pod's; "
+            f"{len(r0['tick_ms'])} ticks, median {statistics.median(r0['tick_ms']):.1f} ms "
+            f"(tp = 1: {statistics.median(ref['tick_ms']):.1f} ms); wall {r0['wall_s']:.2f} s "
+            f"(tp = 1: {ref['wall_s']:.2f} s); launches {r0['launches']}")
+    # (iii) logits against the f32 truth, each rank.
+    checks = [("prefill", "prefill", r["prefill_logits"], rank) for rank, r in enumerate(ranks)]
+    checks += [(f"decode {fmt}", fmt, r["decode_logits"][fmt], rank)
+               for rank, r in enumerate(ranks) for fmt, _, _ in TP_RUNS]
+    for name, key, got, rank in checks:
+        want = truth[key] if key == "prefill" else decode_truth[key]
+        base = plain[key] if key == "prefill" else decode_plain[key]
+        got = got.to(want.device)
+        err = float((got - want).abs().max())
+        err_plain = float((base - want).abs().max())
+        tol = 2 * err_plain + 1e-2
+        ok = bool(torch.isfinite(got).all()) and got.shape == want.shape and err <= tol
+        out["logits"][f"{name} rank {rank}"] = dict(err=err, err_plain=err_plain, tol=tol, ok=ok)
+        log(f"  19a {name} logits, rank {rank}: vs f32 truth {err:.4e}, bf16 plain path "
+            f"{err_plain:.4e} (tol {tol:.4e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{name} logits on rank {rank}: {err:.4e} > {tol:.4e}")
+    tick = ranks[0]["tick"]
+    out.update(tick_tp1_ms=single_tick["wall_ms"], tick_tp2_ms=tick["wall_ms"],
+               collective_share=tick["collective_share"], collectives=tick["collectives"],
+               collective_ms=tick["collective_ms"],
+               launches={name: sum(r["launches"][name] for r in out["runs"].values())
+                         for name in KERNELS})
+    log(f"  19a decode tick, batch 8 x 2,048 ({card}): tp = 1 {single_tick['wall_ms']:.2f} ms, "
+        f"tp = 2 {tick['wall_ms']:.2f} ms; with each collective timed between syncs "
+        f"{tick['timed_tick_ms']:.2f} ms, of it {tick['collective_ms']:.2f} ms in "
+        f"{tick['collectives']} collectives ({100 * tick['collective_share']:.1f}%); the ranks "
+        f"took {ranks_s:.1f} s from spawn to join")
+    out["failures"] = failures
+    return out
+
+
+def phase_tp(params, cfg, deltas=None) -> dict:
+    log(f"== phase 19a: a tp = {TP} flagship pod, two processes on one card over gloo "
+        "(10 requests of 1,024 shared + 512 unique tokens, 16 greedy tokens; bf16 pages at "
+        "decode_steps 1, int8 pages at 4)")
+    t0 = time.perf_counter()
+    params32, cfg32 = f32_twin(params, cfg)
+    if deltas is None:
+        deltas = {fmt: teacher_forced_delta(params, cfg, params32, cfg32, int8)[0]
+                  for fmt, int8 in (("bf16", False), ("int8", True))}
+    out = tp_check(params, cfg, params32, cfg32, deltas)
+    del params32
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  19a took {out['phase_s']:.1f} s")
+    if out["failures"]:
+        raise AssertionError(f"phase 19a: {out['failures']}")
+    return out
+
+
+def train_batch(vocab: int) -> torch.Tensor:
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    return torch.randint(0, vocab, TRAIN_BATCH, generator=gen, device="cuda", dtype=torch.int32)
+
+
+def grad_errors(grads, grads32) -> dict:
+    """Relative norm error of each tensor's gradient (each layer's slice of
+    a stacked weight) against the f32 twin's."""
+    out = {}
+    for (path, g), (_, g32) in zip(llama._leaves(grads), llama._leaves(grads32)):
+        name = "/".join(path)
+        slices = [(name, g, g32)] if path[0] != "layers" else [
+            (f"{name}[{i}]", g[i], g32[i]) for i in range(g.shape[0])]
+        for label, a, b in slices:
+            out[label] = float((a.float() - b).norm() / b.norm().clamp_min(1e-30))
+    return out
+
+
+def plain_grads(cfg, params, tokens) -> tuple:
+    """The truth's (loss, gradient tree): plain autograd over the dense
+    forward, apart from the train step's own gradient code."""
+    paths, leaves = zip(*llama._leaves(params))
+    live = [p.detach().requires_grad_(True) for p in leaves]
+    with torch.enable_grad():
+        logits = llama.dense_core(cfg, llama._rebuild(params, dict(zip(paths, live))), tokens)
+        loss = torch.nn.functional.cross_entropy(
+            logits[:, :-1].float().reshape(-1, logits.shape[-1]),
+            tokens[:, 1:].long().reshape(-1))
+        grads = torch.autograd.grad(loss, live)
+    return loss.detach(), llama._rebuild(params, dict(zip(paths, grads)))
+
+
+def train_check(params, cfg, params32, cfg32) -> dict:
+    """Phase 19b's readings and failures: the step-0 loss and every gradient
+    against the f32 twin's, then TRAIN_STEPS SGD steps, timed."""
+    card = card_line()
+    tokens = train_batch(cfg.vocab_size)
+    loss, grads = llama.loss_and_grads(lambda p: llama.loss_fn(cfg, p, tokens), params)
+    loss32, grads32 = plain_grads(cfg32, params32, tokens)
+    errs = grad_errors(grads, grads32)
+    del grads, grads32
+    torch.cuda.empty_cache()
+    worst = max(errs, key=errs.get)
+    loss_rel = abs(float(loss) - float(loss32)) / abs(float(loss32))
+    failures = []
+    if not loss_rel <= TRAIN_LOSS_REL:
+        failures.append(f"step-0 loss {float(loss):.5f} vs f32 {float(loss32):.5f}")
+    if not errs[worst] <= TRAIN_GRAD_REL:
+        failures.append(f"gradient of {worst}: relative error {errs[worst]:.4e} > "
+                        f"{TRAIN_GRAD_REL:.4e}")
+    p, losses, step_ms = params, [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p, step_loss = llama.train_step(cfg, p, tokens, lr=TRAIN_LR)
+        losses.append(float(step_loss))  # the read back ends the step
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    del p
+    if not losses[-1] < losses[0]:
+        failures.append(f"the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    n_tokens = TRAIN_BATCH[0] * TRAIN_BATCH[1]
+    ms = statistics.median(step_ms)
+    top = sorted(errs.items(), key=lambda kv: -kv[1])[:4]
+    log(f"  19b ({card}): step-0 loss {float(loss):.5f}, f32 twin {float(loss32):.5f} "
+        f"(relative {loss_rel:.3e}, bar {TRAIN_LOSS_REL}); gradients of {len(errs)} tensors, "
+        f"relative norm error max {errs[worst]:.4e} ({worst}), median "
+        f"{statistics.median(errs.values()):.4e}; largest {top}; bar {TRAIN_GRAD_REL}")
+    log(f"  19b losses over {TRAIN_STEPS} steps at lr {TRAIN_LR}: {losses}; step wall ms "
+        f"{' '.join(f'{t:.1f}' for t in step_ms)} (median {ms:.1f} ms, "
+        f"{n_tokens / ms * 1e3:.0f} tokens/s)")
+    return dict(card=card, loss=float(loss), loss32=float(loss32), loss_rel=loss_rel,
+                grad_rel_max=errs[worst], grad_rel_worst=worst,
+                grad_rel_median=statistics.median(errs.values()), grad_bar=TRAIN_GRAD_REL,
+                losses=losses, step_ms=step_ms, tokens_per_s=n_tokens / ms * 1e3,
+                failures=failures)
+
+
+def phase_train(params, cfg) -> dict:
+    log(f"== phase 19b: the SGD train step on the flagship at full width (bf16 params, batch "
+        f"{TRAIN_BATCH[0]} x {TRAIN_BATCH[1]} tokens) against an f32 twin")
+    t0 = time.perf_counter()
+    params32, cfg32 = f32_twin(params, cfg)
+    out = train_check(params, cfg, params32, cfg32)
+    del params32
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  19b took {out['phase_s']:.1f} s")
+    if out["failures"]:
+        raise AssertionError(f"phase 19b: {out['failures']}")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -7131,7 +7640,7 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", default=None,
                         help="comma-separated phases to run after the build (3 4 5 5b 5c 6 7a "
                         "7b 8a 8 9a 9b 10a 10b 11a 11b 12a 12b 13 14a 14b 15a 15b 16a 16b "
-                        "16c 17a 17b 17c 17d 18a; 9b and "
+                        "16c 17a 17b 17c 17d 18a 19a 19b; 9b and "
                         "10b run 7b's deltas first, 14a and 15b run 12a first); a partial run "
                         "prints no "
                         "kernels or ok line")
@@ -7166,8 +7675,8 @@ def main(argv=None) -> int:
     if args.phases is not None:
         return partial_run(args.phases.split(","), gen, cfg, args.seed)
     errs = phase_kernel_checks(gen)
-    times, decode_times, prefill_serving, verify_time, mixtral_times, qwen_times = \
-        phase_times(gen)
+    (times, decode_times, prefill_serving, verify_time, mixtral_times, qwen_times,
+     tp_rank_times) = phase_times(gen)
 
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     n_params = sum(w.numel() for w in params["layers"].values()) + sum(
@@ -7204,6 +7713,8 @@ def main(argv=None) -> int:
         f"{FULL_RUN_PROACTIVE_ARMS}; the observe-only arm runs in --phases 16b / 16c")
     federation = phase_geo(params, cfg)
     chaos = phase_chaos(params, cfg)
+    tp = phase_tp(params, cfg, deltas)
+    train = phase_train(params, cfg)
     del params
     torch.cuda.empty_cache()
     governor = phase_governor(args.seed, control)
@@ -7247,6 +7758,9 @@ def main(argv=None) -> int:
         by_path[name]["autopilot"] = resilience["autopilot"]["launches"][name]
     for name in ("paged_decode", "paged_decode_int8", "flash_prefill"):  # 17c, both formats
         by_path[name]["transfer_chaos"] = chaos["launches"][name]
+        # Phase 19a's tp pod: rank 0's launches over its bf16 and int8 runs
+        # (rank 1 launches as many on its own head shard).
+        by_path[name]["tp"] = tp["launches"][name]
     for row in ("paged_decode_tiled", "paged_decode_tiled_int8"):
         by_path[row] = {"batched_decode": batched["checks"][row]["launches"],
                         "moe_batched_decode": moe["logits"][row]["launches"],
@@ -7276,6 +7790,7 @@ def main(argv=None) -> int:
                     "governor": governor, "proactive": proactive, "federation": federation,
                     "transfer_chaos": chaos,
                     "qwen_attention_shapes": qwen_times, "qwen": qwen,
+                    "tp_rank_attention_shape": tp_rank_times, "tp": tp, "train": train,
                     "build_s": build_s, "run_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -7318,6 +7833,8 @@ def partial_run(phases, gen, cfg, seed: int = 0) -> int:
         "17c": lambda: phase_chaos(params, cfg),
         "17d": lambda: phase_autopilot(params, cfg, seed),
         "18a": lambda: phase_service(params, cfg),
+        "19a": lambda: phase_tp(params, cfg),
+        "19b": lambda: phase_train(params, cfg),
         "15b": lambda: phase_governor(seed, out["12a"]),
     }
     for phase in phases:

@@ -19,6 +19,16 @@ With `enable_host_tier`, the pod has the reference's host tier
 offloaded to a host store, a device miss restores a chain from it or
 onboards it from a peer pod over the transfer wire, and `_DevicePageCodec`
 moves pages between the device pools and host bytes.
+
+With `tp > 1` the pod is one process of a tensor-parallel pod: every rank
+of `config.group` builds an EnginePod on the same weights and drives the
+same requests, keeps its Megatron shard of the weights and its head shard
+of every page (parallel/serving.py), and the model calls all-reduce and
+gather across the group. The block manager, the block tables and the trash
+page are the same on every rank; rank 0 alone publishes events, so the tp
+pod is one pod to the control plane; every chosen token is group rank 0's,
+broadcast (models/llama.py, engine/scheduler.py), so every rank commits the
+same pages.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from llm_d_kv_cache_manager_tpu_torch.engine.block_manager import (
     BlockManager,
@@ -40,6 +51,9 @@ from llm_d_kv_cache_manager_tpu_torch.engine.tiering import PageCodec
 from llm_d_kv_cache_manager_tpu_torch.kvevents.events import EventBatch
 from llm_d_kv_cache_manager_tpu_torch.models import llama
 from llm_d_kv_cache_manager_tpu_torch.models import lora as lora_mod
+from llm_d_kv_cache_manager_tpu_torch.parallel import serving as tp_serving
+from llm_d_kv_cache_manager_tpu_torch.parallel.collectives import broadcast_from_first
+from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import MeshCoords
 from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
 from llm_d_kv_cache_manager_tpu_torch.utils.device import resolve_device
 
@@ -277,6 +291,12 @@ class EnginePodConfig:
     transfer_connect_timeout_ms: int = 2000
     transfer_fetch_timeout_ms: int = 5000
     transfer_fetch_retries: int = 1
+    # Tensor parallelism: this pod is one rank of a tp-rank pod over `group`
+    # (a torch.distributed ProcessGroup of tp ranks, required at tp > 1;
+    # parallel.multihost.initialize_distributed starts the default one).
+    # tp=1 -> the whole model on this process.
+    tp: int = 1
+    group: Optional[object] = None
 
 
 class EnginePod:
@@ -289,8 +309,14 @@ class EnginePod:
     ):
         self.config = config
         self.device = resolve_device(config.device)
+        mc = config.model_config or llama.LlamaConfig()
+        self.group = None
+        if config.tp > 1:
+            self.group = self._tp_group(config, mc, lora_adapters)
+        # Rank 0 alone speaks for a tp pod.
+        self._publishes = self.group is None or dist.get_rank(self.group) == 0
         self._publisher = None
-        if config.zmq_endpoint:
+        if config.zmq_endpoint and self._publishes:
             from llm_d_kv_cache_manager_tpu_torch.kvevents.publisher import (
                 Publisher,
                 make_topic,
@@ -300,7 +326,6 @@ class EnginePod:
                 config.zmq_endpoint, make_topic(config.pod_id, config.model_name)
             )
         self._sink = event_sink
-        mc = config.model_config or llama.LlamaConfig()
         self._model_config = mc
 
         self.tier_store = None
@@ -376,7 +401,15 @@ class EnginePod:
         # refers to it and the block manager never hands it out.
         self.trash_page = config.n_pages
         make = llama.make_kv_pages_quantized if config.use_quantized_kv else llama.make_kv_pages
-        self.kv_cache = make(mc, config.n_pages + 1, config.page_size, self.device)
+        if self.group is not None:
+            # This rank's shards: the weights under the Megatron specs, the
+            # pages' kv heads (made whole, then split: the pools start zero).
+            at = MeshCoords({"tp": config.tp}, {"tp": dist.get_rank(self.group)})
+            self.params = tp_serving.shard_serving_params(params, at)
+            self.kv_cache = tp_serving.shard_kv_cache(
+                make(mc, config.n_pages + 1, config.page_size, self.device), at)
+        else:
+            self.kv_cache = make(mc, config.n_pages + 1, config.page_size, self.device)
         self.last_logits: Optional[torch.Tensor] = None
 
         # Multi-LoRA registry: adapter weights served per sequence, with the
@@ -390,9 +423,37 @@ class EnginePod:
             self.lora_stack = {k: v.to(self.device) for k, v in stack.items()}
             self._lora_index = {lid: i + 1 for i, lid in enumerate(ids)}
 
+    @staticmethod
+    def _tp_group(config: EnginePodConfig, mc, lora_adapters):
+        """The checks of a tp pod, all before any weight, page or thread is
+        made; returns its group."""
+        if llama.is_moe_config(mc):
+            raise NotImplementedError(
+                "tp serving for the MoE family needs an expert "
+                "sharding spec set (parallel/serving.py covers the "
+                "dense family); run MoE pods at tp=1"
+            )
+        tp_serving.validate_tp(config.tp, mc.n_q_heads, mc.n_kv_heads)
+        if config.group is None:
+            raise ValueError(
+                f"EnginePodConfig(tp={config.tp}) needs group=, a process group of "
+                f"its {config.tp} ranks: start one with "
+                "parallel.multihost.initialize_distributed (or torch.distributed) "
+                "and pass it"
+            )
+        if dist.get_world_size(config.group) != config.tp:
+            raise ValueError(f"tp={config.tp} but the group has "
+                             f"{dist.get_world_size(config.group)} ranks")
+        if config.enable_host_tier or lora_adapters:
+            raise NotImplementedError(
+                "a tp pod serves without a host tier and without LoRA adapters")
+        return config.group
+
     # -- events --------------------------------------------------------------
 
     def _emit(self, batch: EventBatch) -> None:
+        if not self._publishes:
+            return
         if self._publisher is not None:
             self._publisher.publish(batch)
         if self._sink is not None:
@@ -479,7 +540,7 @@ class EnginePod:
         self.kv_cache, self.last_logits = llama.prefill_cache(
             self._model_config, self.params, self.kv_cache, chunk,
             block_table, start, n_valid=length,
-            lora=self._lora_for_prefill(state.lora_id),
+            lora=self._lora_for_prefill(state.lora_id), group=self.group,
         )
 
     def prefill_chunk_batch(self, jobs) -> List[torch.Tensor]:
@@ -527,7 +588,7 @@ class EnginePod:
             self._model_config, self.params, self.kv_cache,
             torch.from_numpy(chunk).to(dev), torch.from_numpy(tables).to(dev),
             torch.from_numpy(starts).to(dev), torch.from_numpy(max_lens).to(dev),
-            self.trash_page, lora=self.lora_for_decode(lora_ids),
+            self.trash_page, lora=self.lora_for_decode(lora_ids), group=self.group,
         )
         return [logits[i, lengths[i] - 1] for i in range(len(jobs))]
 
@@ -549,14 +610,19 @@ class EnginePod:
             self._model_config, self.params, self.kv_cache, last_token,
             self._padded_table(state)[None],
             torch.tensor([pos], dtype=torch.int32, device=self.device),
-            pipelined=True, lora=self.lora_for_decode([state.lora_id]),
+            pipelined=True, lora=self.lora_for_decode([state.lora_id]), group=self.group,
         )
         # The pending token's KV row is now resident: commit any page it
         # completed before appending the next (pending) token.
         self.block_manager.mark_decode_computed(state)
-        token = int(torch.argmax(logits[0]))
+        token = int(self.choose(torch.argmax(logits[0])))
         self.block_manager.append_token(state, token)
         return token
+
+    def choose(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The tokens every rank of a tp pod commits: group rank 0's (the
+        tensor as it is on a single-rank pod)."""
+        return broadcast_from_first(tokens, self.group)
 
     def free(self, state: SequenceState) -> None:
         if self.tier_store is not None and self.config.eager_stage:

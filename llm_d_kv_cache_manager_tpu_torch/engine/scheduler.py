@@ -255,6 +255,7 @@ class Scheduler:
                                    dtype=torch.int32, device=self.pod.device)
                 toks = sample_tokens(stacked, sarr[0], sarr[1], sarr[2],
                                      position_keys(sarr[3], pos))
+            toks = self.pod.choose(toks)  # a tp pod's ranks commit rank 0's
             first_tokens = {id(r): int(t) for r, t in zip(completed, toks.tolist())}
         for req in completed:
             self.pod.finish_prefill(req.state)
@@ -362,6 +363,7 @@ class Scheduler:
             pod._model_config, pod.params, pod.kv_cache,
             torch.from_numpy(tokens).to(dev), torch.from_numpy(tables).to(dev),
             positions_t, pipelined=True, lora=self._lora_for(self._running, len(tokens)),
+            group=pod.group,
         )
         sarr = self._sampling_arrays(self._running, len(tokens))
         if sarr is None:
@@ -369,7 +371,7 @@ class Scheduler:
         else:
             next_tokens = sample_tokens(logits, sarr[0], sarr[1], sarr[2],
                                         position_keys(sarr[3], positions_t))
-        next_tokens = next_tokens.tolist()
+        next_tokens = pod.choose(next_tokens).tolist()
 
         # Every running sequence's pending token just had its KV row
         # written: commit the pages that row completed (the only point a
@@ -435,9 +437,9 @@ class Scheduler:
             torch.from_numpy(positions).to(dev), torch.from_numpy(max_lens).to(dev),
             pod.trash_page, n,
             sampling=self._sampling_arrays(running, len(tokens)),
-            lora=self._lora_for(running, len(tokens)),
+            lora=self._lora_for(running, len(tokens)), group=pod.group,
         )
-        toks = toks.tolist()  # [B][n]
+        toks = toks.tolist()  # [B][n], group rank 0's on a tp pod
 
         finished: List[Request] = []
         still_running: List[Request] = []

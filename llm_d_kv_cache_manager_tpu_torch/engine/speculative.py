@@ -111,6 +111,8 @@ class SpeculativeDecoder:
     def __init__(self, pod: EnginePod, draft_config, draft_params, k: int = 4):
         if pod.lora_stack is not None:
             raise NotImplementedError("speculative decoding with LoRA adapters")
+        if pod.group is not None:
+            raise NotImplementedError("speculative decoding on a tp pod")
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
         self.pod = pod
@@ -324,6 +326,8 @@ class SpeculativeScheduler:
     ):
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
+        if pod.group is not None:
+            raise NotImplementedError("speculative decoding on a tp pod")
         self.inner = Scheduler(pod, max_batch=max_batch,
                                prefill_token_budget=prefill_token_budget)
         self.pod = pod

@@ -27,7 +27,17 @@ reference returns new arrays).
 Both model families serve through these paths: the MLP dispatches on the
 layer dict (`_mlp_dispatch`), dense SwiGLU or the MoE mixture of
 `models/mixtral.py`. `forward_dense` is the dense family's cacheless
-forward, the oracle of the serving tests.
+forward, the oracle of the serving tests; `loss_fn` and `train_step` train
+on the same forward with autograd (no kernel runs under it, as the
+reference keeps its kernels out of `value_and_grad`).
+
+Tensor parallel: each paged path and the training forward take `group`, a
+process group whose ranks hold the Megatron shards of the weights and the
+head shards of the pages (parallel/serving.py). The rank projects onto its
+own heads, the kernels attend over those heads only, the row-parallel sums
+after wo and w_down are all-reduced and the vocab-parallel logits gathered
+(parallel/collectives.py); the multi-step decode broadcasts group rank 0's
+token each step. `group=None` is the single-rank model.
 Weights keep the reference's `[in, out]` layout (`x @ W`), stacked on a
 leading layer axis, so `params_from_jax` carries a JAX parameter tree across
 without transposes. On CUDA tensors every attention call runs a
@@ -62,6 +72,14 @@ from llm_d_kv_cache_manager_tpu_torch.ops.quantized_kv import (
     write_kv_pages_quantized,
 )
 from llm_d_kv_cache_manager_tpu_torch.ops.sampling import position_keys, sample_tokens
+from llm_d_kv_cache_manager_tpu_torch.parallel.collectives import (
+    all_reduce_mean,
+    broadcast_from_first,
+    copy_to_tp,
+    gather_from_tp,
+    reduce_from_tp,
+    tp_size,
+)
 from llm_d_kv_cache_manager_tpu_torch.utils.device import resolve_device
 
 Params = Dict
@@ -181,6 +199,18 @@ def _mlp(layer: Dict, x: torch.Tensor) -> torch.Tensor:
     return (gate * (x @ layer["w_up"])) @ layer["w_down"]
 
 
+def _local_heads(config, group) -> Tuple[int, int]:
+    """(query heads, kv heads) this rank of `group` holds."""
+    tp = tp_size(group)
+    return config.n_q_heads // tp, config.n_kv_heads // tp
+
+
+def _logits(x: torch.Tensor, out: torch.Tensor, group) -> torch.Tensor:
+    """The (vocab-parallel) head over normed rows: every rank's block of the
+    vocabulary, gathered."""
+    return gather_from_tp(copy_to_tp(x, group) @ out, group)
+
+
 def is_moe_config(config) -> bool:
     """The family predicate: a config carrying n_experts is the MoE family
     (models/mixtral.py), whose layers carry a "router" (the key
@@ -250,30 +280,97 @@ def _k_proj(layer: Dict, h: torch.Tensor) -> torch.Tensor:
     return k + layer["bk"] if "bk" in layer else k
 
 
-@torch.no_grad()
-def forward_dense(config: LlamaConfig, params: Params, tokens: torch.Tensor,
-                  first: int = 0) -> torch.Tensor:
-    """Plain causal forward over whole sequences (no cache; inference only):
-    the serving tests' oracle. tokens: [B, L] -> logits [B, L - first, vocab]
-    of positions first.. (the head runs on those rows only: at a 152k
-    vocabulary, logits of every position of a long batch take gigabytes)."""
+def dense_core(config: LlamaConfig, params: Params, tokens: torch.Tensor,
+               first: int = 0, group=None) -> torch.Tensor:
+    """Plain causal forward over whole sequences (no cache), differentiable:
+    the training forward. tokens: [B, L] -> logits [B, L - first, vocab] of
+    positions first.. (the head runs on those rows only: at a 152k
+    vocabulary, logits of every position of a long batch take gigabytes).
+    With `group`, params are this rank's Megatron shards (parallel/mesh.py)
+    and the collectives carry their gradients."""
     c = config
+    n_q, n_kv = _local_heads(c, group)
     b, l = tokens.shape
     x = params["embed"][tokens.long()]
     positions = torch.arange(l, device=x.device).expand(b, l)
     for i in range(c.n_layers):
         layer = layer_params(params, i)
-        h = rms_norm(x, layer["attn_norm"], c.rms_eps)
+        h = copy_to_tp(rms_norm(x, layer["attn_norm"], c.rms_eps), group)
         q_flat, v_flat = _qv_proj(h, layer)
-        q = _rope(q_flat.reshape(b, l, c.n_q_heads, c.head_dim), positions, c.rope_theta)
-        k = _rope(_k_proj(layer, h).reshape(b, l, c.n_kv_heads, c.head_dim), positions,
+        q = _rope(q_flat.reshape(b, l, n_q, c.head_dim), positions, c.rope_theta)
+        k = _rope(_k_proj(layer, h).reshape(b, l, n_kv, c.head_dim), positions,
                   c.rope_theta)
-        v = v_flat.reshape(b, l, c.n_kv_heads, c.head_dim)
+        v = v_flat.reshape(b, l, n_kv, c.head_dim)
         attn = dense_attention(q, k, v, 0, window=c.sliding_window)
-        x = x + attn.reshape(b, l, c.q_dim) @ layer["wo"]
-        x = x + _mlp(layer, rms_norm(x, layer["mlp_norm"], c.rms_eps))
+        x = x + reduce_from_tp(attn.reshape(b, l, n_q * c.head_dim) @ layer["wo"], group)
+        h = copy_to_tp(rms_norm(x, layer["mlp_norm"], c.rms_eps), group)
+        x = x + reduce_from_tp(_mlp(layer, h), group)
     x = rms_norm(x[:, first:], params["final_norm"], c.rms_eps)
-    return x @ params["out"]
+    return _logits(x, params["out"], group)
+
+
+@torch.no_grad()
+def forward_dense(config: LlamaConfig, params: Params, tokens: torch.Tensor,
+                  first: int = 0) -> torch.Tensor:
+    """`dense_core` for inference only: the serving tests' oracle."""
+    return dense_core(config, params, tokens, first)
+
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross-entropy in f32 over logits [B, L, vocab] of tokens
+    [B, L]: position i predicts token i + 1."""
+    logprobs = F.log_softmax(logits.float()[:, :-1], dim=-1)
+    nll = -torch.gather(logprobs, -1, tokens[:, 1:].long()[..., None])
+    return nll.mean()
+
+
+def loss_fn(config: LlamaConfig, params: Params, tokens: torch.Tensor,
+            group=None) -> torch.Tensor:
+    """Next-token cross-entropy of the dense forward (tp over `group`)."""
+    return next_token_loss(dense_core(config, params, tokens, group=group), tokens)
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _rebuild(tree, values: dict, prefix=()):
+    return {k: _rebuild(v, values, prefix + (k,)) if isinstance(v, dict) else values[prefix + (k,)]
+            for k, v in tree.items()}
+
+
+def loss_and_grads(loss_of, params: Params, dp_group=None) -> Tuple[torch.Tensor, Params]:
+    """(loss, gradient tree) of a loss over a param tree, by autograd (the
+    reference's `jax.value_and_grad`); with `dp_group`, both averaged over
+    its ranks, each of which holds a share of the batch."""
+    paths, leaves = zip(*_leaves(params))
+    live = [p.detach().requires_grad_(True) for p in leaves]
+    with torch.enable_grad():
+        loss = loss_of(_rebuild(params, dict(zip(paths, live))))
+        grads = torch.autograd.grad(loss, live)
+    grads = {path: all_reduce_mean(g, dp_group) for path, g in zip(paths, grads)}
+    return all_reduce_mean(loss.detach(), dp_group), _rebuild(params, grads)
+
+
+def sgd_step(loss_of, params: Params, lr: float, dp_group=None) -> Tuple[Params, torch.Tensor]:
+    """One SGD step of a loss over a param tree: p - lr * g in f32, cast
+    back to each param's dtype. Returns (new params, loss)."""
+    loss, grads = loss_and_grads(loss_of, params, dp_group)
+    new = {path: (p.float() - lr * g.float()).to(p.dtype)
+           for (path, p), (_, g) in zip(_leaves(params), _leaves(grads))}
+    return _rebuild(params, new), loss
+
+
+def train_step(config: LlamaConfig, params: Params, tokens: torch.Tensor, lr: float = 1e-3,
+               group=None, dp_group=None) -> Tuple[Params, torch.Tensor]:
+    """One SGD step. `group`: the tp group whose ranks hold the Megatron
+    shards; `dp_group`: the data-parallel group whose ranks each hold a
+    share of the batch (parallel/mesh.batch_sharding)."""
+    return sgd_step(lambda p: loss_fn(config, p, tokens, group), params, lr, dp_group)
 
 
 # ---------------------------------------------------------------------------
@@ -404,12 +501,14 @@ def prefill_cache(
     plain: bool = False,  # the plain attention path (checks compare with it)
     lora=None,  # this sequence's adapter (lora.select_adapter) or None
     all_logits: bool = False,  # True: logits of EVERY position (spec verify)
+    group=None,  # the tp group; params and pages are this rank's shards
 ) -> Tuple[tuple, torch.Tensor]:
     """Prefill new tokens, attending to the cached prefix; returns
     (kv_cache, logits of token n_valid-1 (or L-1 unpadded)), or with
     `all_logits` (kv_cache, logits [L, vocab]): the speculative decoder's
     verification pass. `lora` adds this sequence's q/v adapter deltas."""
     c = config
+    n_q, n_kv = _local_heads(c, group)
     l = tokens.shape[0]
     x = params["embed"][tokens.long()][None]  # [1, L, d]
     positions = (start_pos + torch.arange(l, device=x.device))[None]  # [1, L]
@@ -422,9 +521,9 @@ def prefill_cache(
             dq, dv = apply_prefill_delta(h, _layer_lora(lora, i))
             q_flat = q_flat + dq
             v_flat = v_flat + dv
-        q = q_flat.reshape(1, l, c.n_q_heads, c.head_dim)
-        k = _k_proj(layer, h).reshape(1, l, c.n_kv_heads, c.head_dim)
-        v = v_flat.reshape(1, l, c.n_kv_heads, c.head_dim)
+        q = q_flat.reshape(1, l, n_q, c.head_dim)
+        k = _k_proj(layer, h).reshape(1, l, n_kv, c.head_dim)
+        v = v_flat.reshape(1, l, n_kv, c.head_dim)
         q = _rope(q, positions, c.rope_theta)
         k = _rope(k, positions, c.rope_theta)
 
@@ -435,15 +534,15 @@ def prefill_cache(
         k_all, v_all = _cache_gather_dense(cache, block_table[None], c.dtype)
         attn = _serving_attention(q, k_all, v_all, start_pos, window=c.sliding_window,
                                   plain=plain)
-        x = x + attn.reshape(1, l, c.q_dim) @ layer["wo"]
+        x = x + reduce_from_tp(attn.reshape(1, l, n_q * c.head_dim) @ layer["wo"], group)
         h = rms_norm(x, layer["mlp_norm"], c.rms_eps)
-        x = x + _mlp_dispatch(c, layer, h)
+        x = x + reduce_from_tp(_mlp_dispatch(c, layer, h), group)
 
     x = rms_norm(x, params["final_norm"], c.rms_eps)
     if all_logits:
-        return kv_cache, x[0] @ params["out"]  # [L, vocab]
+        return kv_cache, _logits(x[0], params["out"], group)  # [L, vocab]
     last = l - 1 if n_valid is None else n_valid - 1
-    return kv_cache, x[0, last] @ params["out"]
+    return kv_cache, _logits(x[0, last], params["out"], group)
 
 
 @torch.no_grad()
@@ -459,10 +558,12 @@ def _decode_once(
     pipelined: bool = True,  # decode kernel variant; see _cache_attend
     plain: bool = False,  # the plain attention path (checks compare with it)
     lora_layers=None,  # gathered per-sequence adapters (_gathered_lora) or None
+    group=None,  # the tp group; params and pages are this rank's shards
 ) -> Tuple[tuple, torch.Tensor]:
     """Single batched decode step: writes each sequence's new K/V row at
     (write_page_ids, write_slots) and attends over seq_lens+1 positions."""
     c = config
+    n_q, n_kv = _local_heads(c, group)
     b = tokens.shape[0]
     x = params["embed"][tokens.long()][:, None]  # [B, 1, d]
     positions = seq_lens.long()[:, None]  # [B, 1]
@@ -474,9 +575,9 @@ def _decode_once(
         layer = layer_params(params, i)
         h = rms_norm(x, layer["attn_norm"], c.rms_eps)
         q_flat, v_flat = _qv_proj_with_lora(h, layer, _layer_lora(lora_layers, i))
-        q = q_flat.reshape(b, 1, c.n_q_heads, c.head_dim)
-        k = _k_proj(layer, h).reshape(b, 1, c.n_kv_heads, c.head_dim)
-        v = v_flat.reshape(b, 1, c.n_kv_heads, c.head_dim)
+        q = q_flat.reshape(b, 1, n_q, c.head_dim)
+        k = _k_proj(layer, h).reshape(b, 1, n_kv, c.head_dim)
+        v = v_flat.reshape(b, 1, n_kv, c.head_dim)
         q = _rope(q, positions, c.rope_theta)
         k = _rope(k, positions, c.rope_theta)
 
@@ -489,12 +590,12 @@ def _decode_once(
             cache, q[:, 0].contiguous(), block_tables, lens,
             pipelined=pipelined, window=c.sliding_window, plain=plain,
         )
-        x = x + attn.reshape(b, 1, c.q_dim) @ layer["wo"]
+        x = x + reduce_from_tp(attn.reshape(b, 1, n_q * c.head_dim) @ layer["wo"], group)
         h = rms_norm(x, layer["mlp_norm"], c.rms_eps)
-        x = x + _mlp_dispatch(c, layer, h)
+        x = x + reduce_from_tp(_mlp_dispatch(c, layer, h), group)
 
     x = rms_norm(x, params["final_norm"], c.rms_eps)
-    return kv_cache, x[:, 0] @ params["out"]
+    return kv_cache, _logits(x[:, 0], params["out"], group)
 
 
 def decode_step_cache(
@@ -507,6 +608,7 @@ def decode_step_cache(
     pipelined: bool = True,  # False: the split-KV tiled decode kernel
     lora=None,  # (adapter registry stack, [B] int32 indices) or None; a
     # batch mixes adapters and base traffic (index 0)
+    group=None,  # the tp group; params and pages are this rank's shards
 ) -> Tuple[tuple, torch.Tensor]:
     """One batched decode step; returns (kv_cache, logits [B, vocab]) with
     the pools updated in place."""
@@ -517,7 +619,7 @@ def decode_step_cache(
     slots = seq_lens % page_size
     return _decode_once(
         config, params, kv_cache, tokens, block_tables, seq_lens, page_ids, slots,
-        pipelined=pipelined, lora_layers=_gathered_lora(lora),
+        pipelined=pipelined, lora_layers=_gathered_lora(lora), group=group,
     )
 
 
@@ -536,6 +638,7 @@ def decode_multi_step_cache(
     # or None for greedy; keys are folded per in-loop position, so the
     # tokens equal single-step sampling's (ops/sampling.py)
     lora=None,  # (stack, [B] indices) or None, as decode_step_cache's
+    group=None,  # the tp group; each step's tokens are group rank 0's
 ) -> Tuple[tuple, torch.Tensor]:
     """N decode steps; returns (kv_cache, tokens_out [B, N]), where
     tokens_out[:, j] is the token chosen at step j (argmax, or filtered
@@ -560,7 +663,7 @@ def decode_multi_step_cache(
         pages = torch.where(lens < max_lens, pages, torch.full_like(pages, trash_page))
         kv_cache, logits = _decode_once(
             config, params, kv_cache, tok, block_tables, lens, pages, lens % page_size,
-            pipelined=True, lora_layers=lora_layers,
+            pipelined=True, lora_layers=lora_layers, group=group,
         )
         if sampling is None:
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -568,6 +671,7 @@ def decode_multi_step_cache(
             temps, top_ks, top_ps, base_keys = sampling
             tok = sample_tokens(logits, temps, top_ks, top_ps,
                                 position_keys(base_keys, lens))
+        tok = broadcast_from_first(tok, group)
         out.append(tok)
         lens = lens + 1
     return kv_cache, torch.stack(out, dim=1)
@@ -587,6 +691,7 @@ def verify_step_cache(
     # corrupting real pages. None: every row lands in a real page.
     trash_page: int = 0,
     lora=None,  # (stack, [B] indices) or None, as decode_step_cache's
+    group=None,  # the tp group; params and pages are this rank's shards
 ) -> Tuple[tuple, torch.Tensor]:
     """Batched multi-position pass: K/V and logits for S new tokens of every
     sequence at once (packed prefill, or the speculative scheduler's
@@ -596,6 +701,7 @@ def verify_step_cache(
     opinion after tokens[b, i]. Both cache layouts; pools updated in
     place."""
     c = config
+    n_q, n_kv = _local_heads(c, group)
     b, s = tokens.shape
     page_size = kv_cache[0].shape[3]
     starts = start_positions.to(torch.int32)
@@ -619,24 +725,62 @@ def verify_step_cache(
         layer = layer_params(params, i)
         h = rms_norm(x, layer["attn_norm"], c.rms_eps)
         q_flat, v_flat = _qv_proj_with_lora(h, layer, _layer_lora(lora_layers, i))
-        q = q_flat.reshape(b, s, c.n_q_heads, c.head_dim)
-        k = _k_proj(layer, h).reshape(b, s, c.n_kv_heads, c.head_dim)
-        v = v_flat.reshape(b, s, c.n_kv_heads, c.head_dim)
+        q = q_flat.reshape(b, s, n_q, c.head_dim)
+        k = _k_proj(layer, h).reshape(b, s, n_kv, c.head_dim)
+        v = v_flat.reshape(b, s, n_kv, c.head_dim)
         q = _rope(q, positions, c.rope_theta)
         k = _rope(k, positions, c.rope_theta)
 
         cache = _layer(kv_cache, i)
         _scatter_rows(
             cache, page_ids, slots,
-            k.reshape(b * s, c.n_kv_heads, c.head_dim).transpose(0, 1),
-            v.reshape(b * s, c.n_kv_heads, c.head_dim).transpose(0, 1),
+            k.reshape(b * s, n_kv, c.head_dim).transpose(0, 1),
+            v.reshape(b * s, n_kv, c.head_dim).transpose(0, 1),
         )
         # Each sequence attends its own pages from its own causal offset.
         k_all, v_all = _cache_gather_dense(cache, block_tables, c.dtype)
         attn = _serving_attention(q, k_all, v_all, starts, window=c.sliding_window)
-        x = x + attn.reshape(b, s, c.q_dim) @ layer["wo"]
+        x = x + reduce_from_tp(attn.reshape(b, s, n_q * c.head_dim) @ layer["wo"], group)
         h = rms_norm(x, layer["mlp_norm"], c.rms_eps)
-        x = x + _mlp_dispatch(c, layer, h)
+        x = x + reduce_from_tp(_mlp_dispatch(c, layer, h), group)
 
     x = rms_norm(x, params["final_norm"], c.rms_eps)
-    return kv_cache, x @ params["out"]  # [B, S, vocab]
+    return kv_cache, _logits(x, params["out"], group)  # [B, S, vocab]
+
+
+def prefill(
+    config: LlamaConfig,
+    params: Params,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    tokens: torch.Tensor,
+    block_table: torch.Tensor,
+    start_pos: int,
+    group=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Model-dtype-cache convenience wrapper over prefill_cache: (k_pages,
+    v_pages, logits)."""
+    (k_pages, v_pages), logits = prefill_cache(
+        config, params, (k_pages, v_pages), tokens, block_table, start_pos, group=group
+    )
+    return k_pages, v_pages, logits
+
+
+def decode_step(
+    config: LlamaConfig,
+    params: Params,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    tokens: torch.Tensor,
+    block_tables: torch.Tensor,
+    seq_lens: torch.Tensor,
+    pipelined: bool = True,
+    group=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Model-dtype-cache convenience wrapper over decode_step_cache:
+    (k_pages, v_pages, logits)."""
+    (k_pages, v_pages), logits = decode_step_cache(
+        config, params, (k_pages, v_pages), tokens, block_tables, seq_lens,
+        pipelined=pipelined, group=group,
+    )
+    return k_pages, v_pages, logits

@@ -22,6 +22,12 @@ The expert products are plain torch matrix products, as the reference
 computes them outside any Pallas kernel. Each runs as one batched product
 over the expert axis, so the stacked weights are read in place (an
 `einsum` over `edf` would permute a copy of them).
+
+`loss_fn` and `train_step` train on `dense_core` with autograd. Under
+`param_specs` the experts split over an "ep" group and the attention heads
+over a "tp" group: the dense dispatch then runs this rank's experts on
+every token and all-reduces their gated sum over "ep" (the gate matrix's
+gradient summed with it, so the router learns from every expert).
 """
 
 from __future__ import annotations
@@ -32,8 +38,20 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from llm_d_kv_cache_manager_tpu_torch.models.llama import _rope, rms_norm
+from llm_d_kv_cache_manager_tpu_torch.models.llama import (
+    _local_heads,
+    _logits,
+    _rope,
+    next_token_loss,
+    rms_norm,
+    sgd_step,
+)
 from llm_d_kv_cache_manager_tpu_torch.ops.flash_prefill import dense_attention
+from llm_d_kv_cache_manager_tpu_torch.parallel.collectives import (
+    copy_to_tp,
+    reduce_from_tp,
+    tp_rank,
+)
 from llm_d_kv_cache_manager_tpu_torch.utils.device import resolve_device
 
 Params = Dict
@@ -181,11 +199,13 @@ def _moe_mlp_capacity(
     return y.to(x.dtype).reshape(b, l, d)
 
 
-def _moe_mlp_dense(config: MixtralConfig, layer: Dict, x: torch.Tensor) -> torch.Tensor:
+def _moe_mlp_dense(config: MixtralConfig, layer: Dict, x: torch.Tensor,
+                   ep_group=None) -> torch.Tensor:
     """The exact dense, dropless dispatch. x: [B, L, d]. Router logits in
     the model dtype, then f32; top-k and softmax in f32, gates cast back to
     the model dtype; the gate matrix and the combine in the model dtype (the
-    reference's order). Each token's output depends on its own row only."""
+    reference's order). Each token's output depends on its own row only.
+    With `ep_group`, the layer holds this rank's block of experts."""
     c = config
     b, l, d = x.shape
     xf = x.reshape(b * l, d)
@@ -197,37 +217,101 @@ def _moe_mlp_dense(config: MixtralConfig, layer: Dict, x: torch.Tensor) -> torch
 
     # Every expert runs every row; combine through the gate matrix:
     # out[n] = sum_e gate[n, e] * expert_out[e, n].
-    expert_out = _experts(layer, xf.expand(c.n_experts, -1, -1))  # [E, N, d]
-    out = torch.bmm(gate_matrix[:, None, :], expert_out.transpose(0, 1))  # [N, 1, d]
-    return out.reshape(b, l, d)
+    n_local = layer["w_gate"].shape[0]
+    first = tp_rank(ep_group) * n_local
+    gates_local = copy_to_tp(gate_matrix, ep_group)[:, first:first + n_local]
+    rows = copy_to_tp(xf, ep_group)
+    expert_out = _experts(layer, rows.expand(n_local, -1, -1))  # [E, N, d]
+    out = torch.bmm(gates_local[:, None, :], expert_out.transpose(0, 1))  # [N, 1, d]
+    return reduce_from_tp(out.reshape(b, l, d), ep_group)
 
 
-def _moe_mlp(config: MixtralConfig, layer: Dict, x: torch.Tensor) -> torch.Tensor:
-    """Top-k routed mixture of SwiGLU experts. x: [B, L, d]."""
+def _moe_mlp(config: MixtralConfig, layer: Dict, x: torch.Tensor,
+             ep_group=None) -> torch.Tensor:
+    """Top-k routed mixture of SwiGLU experts. x: [B, L, d]. The capacity
+    dispatch runs whole (every expert on one rank)."""
     if config.capacity_factor is not None:
+        if ep_group is not None:
+            raise NotImplementedError("the capacity dispatch runs every expert on one rank")
         return _moe_mlp_capacity(config, layer, x)
-    return _moe_mlp_dense(config, layer, x)
+    if ep_group is None:  # the serving paths' call, which checks may wrap
+        return _moe_mlp_dense(config, layer, x)
+    return _moe_mlp_dense(config, layer, x, ep_group)
 
 
-@torch.no_grad()
-def forward_dense(config: MixtralConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """Plain causal forward over whole sequences (no cache; inference only):
-    the serving tests' oracle. tokens: [B, L] -> logits [B, L, vocab]."""
+def dense_core(config: MixtralConfig, params: Params, tokens: torch.Tensor,
+               group=None, ep_group=None) -> torch.Tensor:
+    """Plain causal forward over whole sequences (no cache), differentiable:
+    the training forward. tokens: [B, L] -> logits [B, L, vocab]. `group`
+    splits the attention heads and the vocabulary (as the dense family's),
+    `ep_group` the experts; params are this rank's shards."""
     c = config
+    n_q, n_kv = _local_heads(c, group)
     b, l = tokens.shape
     x = params["embed"][tokens.long()]
     positions = torch.arange(l, device=x.device).expand(b, l)
     for i in range(c.n_layers):
         layer = {name: w[i] for name, w in params["layers"].items()}
-        h = rms_norm(x, layer["attn_norm"], c.rms_eps)
-        q = (h @ layer["wq"]).reshape(b, l, c.n_q_heads, c.head_dim)
-        k = (h @ layer["wk"]).reshape(b, l, c.n_kv_heads, c.head_dim)
-        v = (h @ layer["wv"]).reshape(b, l, c.n_kv_heads, c.head_dim)
+        h = copy_to_tp(rms_norm(x, layer["attn_norm"], c.rms_eps), group)
+        q = (h @ layer["wq"]).reshape(b, l, n_q, c.head_dim)
+        k = (h @ layer["wk"]).reshape(b, l, n_kv, c.head_dim)
+        v = (h @ layer["wv"]).reshape(b, l, n_kv, c.head_dim)
         q = _rope(q, positions, c.rope_theta)
         k = _rope(k, positions, c.rope_theta)
         attn = dense_attention(q, k, v, 0, window=c.sliding_window)
-        x = x + attn.reshape(b, l, c.q_dim) @ layer["wo"]
+        x = x + reduce_from_tp(attn.reshape(b, l, n_q * c.head_dim) @ layer["wo"], group)
         h = rms_norm(x, layer["mlp_norm"], c.rms_eps)
-        x = x + _moe_mlp(c, layer, h)
+        x = x + _moe_mlp(c, layer, h, ep_group)
     x = rms_norm(x, params["final_norm"], c.rms_eps)
-    return x @ params["out"]
+    return _logits(x, params["out"], group)
+
+
+@torch.no_grad()
+def forward_dense(config: MixtralConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """`dense_core` for inference only: the serving tests' oracle."""
+    return dense_core(config, params, tokens)
+
+
+def loss_fn(config: MixtralConfig, params: Params, tokens: torch.Tensor,
+            group=None, ep_group=None) -> torch.Tensor:
+    """Next-token cross-entropy in f32 of the dense forward."""
+    return next_token_loss(dense_core(config, params, tokens, group, ep_group), tokens)
+
+
+def train_step(config: MixtralConfig, params: Params, tokens: torch.Tensor, lr: float = 1e-3,
+               group=None, ep_group=None, dp_group=None) -> Tuple[Params, torch.Tensor]:
+    """One SGD step ((p - lr * g) in f32, cast back); returns (new params,
+    loss). The groups as `dense_core`'s, and `dp_group` averages the
+    gradients of ranks that each hold a share of the batch."""
+    return sgd_step(lambda p: loss_fn(config, p, tokens, group, ep_group), params, lr,
+                    dp_group)
+
+
+def param_specs() -> Dict:
+    """Specs (parallel/mesh.py's tuples): experts over "ep", attention
+    heads over "tp", the vocabulary over "tp"."""
+    return {
+        "embed": (None, None),
+        "layers": {
+            "attn_norm": (None, None),
+            "wq": (None, None, "tp"),
+            "wk": (None, None, "tp"),
+            "wv": (None, None, "tp"),
+            "wo": (None, "tp", None),
+            "mlp_norm": (None, None),
+            "router": (None, None, None),
+            "w_gate": (None, "ep", None, None),
+            "w_up": (None, "ep", None, None),
+            "w_down": (None, "ep", None, None),
+        },
+        "final_norm": (None,),
+        "out": (None, "tp"),
+    }
+
+
+def shard_params(params: Params, mesh) -> Params:
+    """This rank's shard of a MoE param tree on an ("ep", "tp") mesh (a
+    DeviceMesh or a parallel.mesh.MeshCoords)."""
+    from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import shard_tree
+
+    return shard_tree(params, param_specs(), mesh)

@@ -656,3 +656,63 @@ def test_service_imports_without_the_service_libraries():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0 and "OK" in proc.stdout, proc.stdout + proc.stderr
+
+
+# -- parallel/ and the training path -----------------------------------------------
+
+PARALLEL_MODULES = [
+    "parallel", "parallel.collectives", "parallel.mesh", "parallel.serving",
+    "parallel.ring_attention", "parallel.pipeline", "parallel.multihost",
+]
+# The port's modules with no counterpart in the reference package.
+PORT_EXTRAS = {
+    "api/web.py", "kvevents/digest.py", "metrics/registry.py", "ops/_build.py",
+    "parallel/collectives.py", "utils/device.py", "utils/msgpack_codec.py", "utils/xxh64.py",
+}
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES, ids=lambda m: m.replace(".", "/") + ".py")
+def test_parallel_modules_are_checked(module):
+    """Each module of parallel/ is among the modules the import checks above
+    load and parse."""
+    rel = module.replace(".", "/")
+    path = PORT / rel / "__init__.py" if (PORT / rel).is_dir() else PORT / (rel + ".py")
+    assert path in _port_files()
+
+
+def test_port_module_tree_is_the_reference_tree_plus_its_extras():
+    def tree(root):
+        return {str(p.relative_to(root)) for p in root.rglob("*.py")
+                if "build" not in p.relative_to(root).parts}
+
+    assert tree(PORT) == tree(REPO / REFERENCE) | PORT_EXTRAS
+
+
+def test_parallel_imports_without_the_wire_libraries():
+    """With jax and the wire libraries blocked, every module of parallel/
+    imports, and the package's exports resolve."""
+    code = (
+        "import importlib, sys\n"
+        f"for lib in {WIRE_LIBRARIES + ('jax',)!r}:\n"
+        "    sys.modules[lib] = None\n"
+        f"for m in {PARALLEL_MODULES!r}:\n"
+        f"    importlib.import_module({(PORT.name + '.')!r} + m)\n"
+        f"par = importlib.import_module({(PORT.name + '.parallel')!r})\n"
+        "print('OK', [getattr(par, n).__name__ for n in par.__all__])\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0 and "OK" in proc.stdout, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("entry", ["make_mesh", "tp_mesh", "make_hybrid_mesh"])
+def test_default_device_meshes_raise_without_gpu(entry):
+    from llm_d_kv_cache_manager_tpu_torch.parallel import mesh, multihost, serving
+
+    calls = {"make_mesh": lambda: mesh.make_mesh(1, 1),
+             "tp_mesh": lambda: serving.tp_mesh(1),
+             "make_hybrid_mesh": lambda: multihost.make_hybrid_mesh({"tp": 1})}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
