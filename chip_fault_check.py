@@ -29,7 +29,26 @@ kernel sources, written only under the package's build/planted/ directory:
     formats): at head_dim 64 the last lane of each half-warp leaves its 4
     columns out of P @ V, so columns 60-63 of every output row stay 0.
     Its main-shape case is at Qwen2.5-0.5B's attention shape (14/2 heads of
-    64) and its logits bar is phase 13b's decode-logits check on that model.
+    64) and its logits bar is phase 13b's decode-logits check on that model;
+  - decode_sm90_hd100_cols (both decode sources for bf16 q, both page
+    formats): at head_dim 100 (run at the padded width 128) columns 96-99
+    are left out of P @ V, so the last 4 true columns of every output row
+    stay 0;
+  - decode_sm90_hd100_rounded_rows (the same builds): at head_dim 100 the
+    range a CTA copies and attends is rounded out to whole 4-row (400-byte,
+    16-byte aligned) spans at its end and the extra rows are left unmasked,
+    so a sequence or a split whose end is no multiple of 4 attends up to 3
+    rows past it. Both have their main-shape case at OpenLLaMA-3B's
+    attention shape (32/32 heads of 100) and phase 20b's decode-logits
+    check (ragged lengths) as their logits bar;
+  - flash_prefill_group71_chunk (the bf16 flash kernel): the last chunk of
+    a GQA group split over CTAs (group 71 over 64-row tiles: 36 + 35 heads)
+    is dropped, so its heads' outputs are never written. Its main-shape case
+    is the verify at Falcon-7B's attention shape (71 heads of 64 over one;
+    8 rows of 5 tokens take one-warpgroup CTAs, so the group splits; at 128
+    rows a CTA it fits whole); it has no logits bar: no model of
+    chip_smoke.py has a group above 64, and phase 20b's (group 1) runs one
+    chunk a kv head.
 
 Phase 7b's teacher-forced bar (the flagship served through the scheduler on
 a bf16 pod, every generated token held against an f32 truth) is held to
@@ -47,11 +66,13 @@ proposal more than matched. Both faults must fail their bars.
 
 Phase 11b's checks of the served tokens (Mixtral-8x7B's widths at 4
 layers through the scheduler on a bf16 pod: the teacher-forced bar against
-the f32 truth, and the greedy tokens' agreement with the truth's argmax
-against the plain bf16 path's) are held to the real MoE dispatch and to a
-planted MoE fault, top-1 serving: every token keeps only its first routed
-expert, at gate 1; the fault must fail them (either check fails phase 11b;
-each one's reading is printed).
+the f32 truth held to the served path's expert choice at every (token,
+layer), its delta read with the truth held to the plain path's, and the
+greedy tokens' agreement with the truth's argmax against the plain bf16
+path's) are held to the real MoE dispatch and to a planted MoE fault,
+top-1 serving: every token keeps only its first routed expert, at gate 1;
+the fault must fail the teacher-forced bar, and fails the agreement check
+too (each one's reading is printed).
 
 Phase 14a's index equality (12a's fleet stream, here at 4 pods, through the
 EventPool into the native index: the index must hold the plain replay's
@@ -232,24 +253,72 @@ MUTANTS = {
         ("paged_decode", "paged_decode_int8", "paged_decode_tiled", "paged_decode_tiled_int8"),
         "bf16",
     ),
+    "decode_sm90_hd100_cols": (
+        ("paged_decode", "paged_decode_tiled"), "paged_decode_sm90.cuh",
+        "for (int e = 0; e < kCols; ++e) acc[g][e] = fmaf(p, v[e], acc[g][e]);",
+        "for (int e = 0; e < kCols; ++e) {\n"
+        "              if (hd != 100 || kCols * hl + e < 96) acc[g][e] = fmaf(p, v[e], acc[g][e]);\n"
+        "            }",
+        ("paged_decode", "paged_decode_int8", "paged_decode_tiled", "paged_decode_tiled_int8"),
+        "bf16",
+    ),
+    "decode_sm90_hd100_rounded_rows": (
+        ("paged_decode", "paged_decode_tiled"), "paged_decode_sm90.cuh",
+        "const int n_stages = pos_end > pos0 ? (pos_end - pos0 + kStage - 1) / kStage : 0;",
+        "if (hd == 100) pos_end = (pos_end + 3) & ~3;\n"
+        "  const int n_stages = pos_end > pos0 ? (pos_end - pos0 + kStage - 1) / kStage : 0;",
+        ("paged_decode", "paged_decode_int8", "paged_decode_tiled", "paged_decode_tiled_int8"),
+        "bf16",
+    ),
+    "flash_prefill_group71_chunk": (
+        ("flash_prefill",), "flash_prefill.cu",
+        "const int head0 = h * group + (blockIdx.x % n_gc) * gc;\n"
+        "  const int hc = min(gc, (h + 1) * group - head0);",
+        "const int head0 = h * group + (blockIdx.x % n_gc) * gc;\n"
+        "  const int hc = n_gc > 1 && blockIdx.x % n_gc == n_gc - 1 ? 0\n"
+        "                 : min(gc, (h + 1) * group - head0);",
+        ("flash_prefill",), "bf16",
+    ),
 }
 
 
 # The kernel faults also held to phase 7b's teacher-forced bar (a bf16 pod
 # through the scheduler), beside the planted scheduler fault.
 SCHEDULER_BAR_MUTANTS = ("decode_sm90_stage",)
-# Faults at a phase 13 model's attention shape: their main-shape case and
-# logits bar are that model's (chip_smoke.QWEN_MAIN_CASES, phase 13b).
-MUTANT_MODEL = {"decode_sm90_hd64_cols": "qwen2.5-0.5b"}
+# Faults at a phase 13 or phase 20 model's attention shape: their main-shape
+# case and logits bar are that model's (chip_smoke.QWEN_MAIN_CASES and
+# WIDE_MAIN_CASES; phase 13b, phase 20b at ragged lengths).
+MUTANT_MODEL = {"decode_sm90_hd64_cols": "qwen2.5-0.5b",
+                "decode_sm90_hd100_cols": chip_smoke.OPENLLAMA_MODEL,
+                "decode_sm90_hd100_rounded_rows": chip_smoke.OPENLLAMA_MODEL}
+# Faults at a shape no model of chip_smoke.py serves: their main-shape case
+# (of each kernel they target) and no logits bar.
+MUTANT_SHAPE = {"flash_prefill_group71_chunk": {
+    "flash_prefill": "flash_prefill bf16 falcon-7b group=71 verify B=8 L=5 S=2048 per-batch "
+                     "offsets"}}
+MAIN_CASES = {**chip_smoke.QWEN_MAIN_CASES, **chip_smoke.WIDE_MAIN_CASES}
 
 
 def main_case(kernel: str, dtype: str, mutant: str = "") -> str:
     """chip_smoke's case of `kernel` at the main path's shape, in `dtype`
     ("bf16" or "f32"): the flagship's, or for a fault of MUTANT_MODEL that
-    model's."""
-    model = MUTANT_MODEL.get(mutant)
-    cases = chip_smoke.MAIN_CASES if model is None else chip_smoke.QWEN_MAIN_CASES[model]
+    model's, or of MUTANT_SHAPE its own."""
+    if mutant in MUTANT_SHAPE:
+        cases = MUTANT_SHAPE[mutant]
+    elif mutant in MUTANT_MODEL:
+        cases = MAIN_CASES[MUTANT_MODEL[mutant]]
+    else:
+        cases = chip_smoke.MAIN_CASES
     return cases[kernel].replace(" bf16 ", f" {dtype} ")
+
+
+def mutant_model(name: str) -> tuple:
+    """(params, cfg, params32, cfg32) of a MUTANT_MODEL model."""
+    if name == chip_smoke.OPENLLAMA_MODEL:
+        cfg, params = chip_smoke.openllama_model()
+    else:
+        cfg, params = chip_smoke.qwen_model(name)
+    return (params, cfg, *chip_smoke.f32_twin(params, cfg))
 
 
 def build_mutants() -> dict:
@@ -302,12 +371,14 @@ def run_cases(label: str, sources=None) -> list:
 
 def run_decode_logits(label: str, rows, params, cfg, params32, cfg32) -> dict:
     """chip_smoke's batch-8 decode-logits check of each decode kernel in
-    `rows`: {row: passed}."""
+    `rows` (at phase 20b's ragged lengths on a head dim of 100): {row:
+    passed}."""
     out = {}
     for row in rows:
         spec = chip_smoke.DECODE_ROWS[row]
         r = chip_smoke.batched_decode_check(
-            params, cfg, params32, cfg32, spec["int8"], spec["pipelined"])
+            params, cfg, params32, cfg32, spec["int8"], spec["pipelined"],
+            ragged=cfg.head_dim == 100)
         out[row] = r["ok"]
         chip_smoke.log(f"  [{label}] batched decode {row}: {'ok' if r['ok'] else 'FAIL'}")
     return out
@@ -446,10 +517,12 @@ def run_moe_bar(label: str, params, cfg, params32, cfg32, delta: float, moe=None
     teacher-forced bar: the bar's reading."""
     mixtral._moe_mlp_dense = moe or real_moe
     try:
-        r, traffic, *_ = chip_smoke.moe_run(params, cfg, False)
+        r, traffic, *_, routes = chip_smoke.moe_run(params, cfg, False)
     finally:
         mixtral._moe_mlp_dense = real_moe
-    bar = chip_smoke.teacher_forced_bar(params32, cfg32, traffic, r["requests"], delta)
+    bar = chip_smoke.teacher_forced_bar(
+        params32, cfg32, traffic, r["requests"], delta,
+        truth_routes=chip_smoke.served_routes(routes, traffic, r["requests"], cfg))
     agree = chip_smoke.greedy_agreement(params, cfg, params32, cfg32, traffic, r["requests"],
                                         False)
     chip_smoke.log(f"  [{label}] MoE teacher-forced bar: greedy worst "
@@ -940,11 +1013,9 @@ def main() -> int:
     cfg = llama.LlamaConfig(**chip_smoke.FLAGSHIP)
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     params32, cfg32 = chip_smoke.f32_twin(params, cfg)
-    # Phase 13b's model of each MUTANT_MODEL fault: (params, cfg, params32, cfg32).
-    models = {}
-    for model in set(MUTANT_MODEL.values()):
-        qcfg, qparams = chip_smoke.qwen_model(model)
-        models[model] = (qparams, qcfg, *chip_smoke.f32_twin(qparams, qcfg))
+    # Phase 13b's or 20b's model of each MUTANT_MODEL fault: (params, cfg,
+    # params32, cfg32).
+    models = {model: mutant_model(model) for model in set(MUTANT_MODEL.values())}
 
     chip_smoke.log("== real kernels")
     rows = run_cases("real")
@@ -966,6 +1037,8 @@ def main() -> int:
         rows += run_cases(label, sources=tuple(libs))
         if name in MUTANT_MODEL:
             logits_ok[label] = run_decode_logits(label, targets, *models[MUTANT_MODEL[name]])
+        elif name in MUTANT_SHAPE:
+            pass  # no logits bar (MUTANT_SHAPE)
         elif targets == ("flash_prefill",):
             logits_ok[label] = run_prefill_logits(label, params, cfg, params32, cfg32)
         elif dtype == "bf16":
@@ -1070,6 +1143,9 @@ def main() -> int:
     serving_caught = {label: not serving_bars[label]["ok"]
                       for label in ("lora_adapter_dropped_in_decode", "spec_over_accept",
                                     "moe_top1")}
+    # Held to the served routes, the teacher-forced bar alone fails top-1
+    # serving (its delta no longer spans a whole expert's flip).
+    serving_caught["moe_top1_teacher_forced_bar"] = not serving_bars["moe_top1"]["bar_ok"]
     host_tier_caught = not host_tier["insert_one_page_off"]["ok"]
     bar_caught = {label: not bar["ok"] for label, bar in bars.items() if label != "real"}
     main_rows = {

@@ -18,6 +18,8 @@
                                         # of 16a's precise arm
     python3 chip_smoke.py --phases 19a,19b  # a tp = 2 pod in two processes
                                             # on one card, and the train step
+    python3 chip_smoke.py --phases 3,4,20  # the kernels at every head_dim to
+                                           # 256 and OpenLLaMA-3B whole
 
 Phases, in order (any failure raises and the script exits non-zero):
   1. device lines: torch's device name and nvidia-smi's name + power limit;
@@ -37,7 +39,14 @@ Phases, in order (any failure raises and the script exits non-zero):
      group 7), prefix-hit offsets, padded chunks, per-batch offsets, both
      flash tile plans, flash at head_dim 64 and at group 7, the
      speculative verify's shape: 8 rows of 2, 5 or 9 new tokens at offsets
-     that are no multiple of a tile, one offset 0, a window), the
+     that are no multiple of a tile, one offset 0, a window), every row
+     again at head dims off the built widths and groups above 64
+     (`WIDE_SHAPES`: head_dim 50, 80, 96, OpenLLaMA-3B's 32/32 heads of 100
+     and 100 at group 4, Gemma-7B's 16/16 heads of 256 and 256 at group 8,
+     Falcon-7B's 71 heads of 64 over one, 128 heads of 128 over one; decode
+     at pages 16 and 17, with and without a window; flash at the serving
+     chunk, at per-batch offsets with a window and at the verify, whose
+     one-warpgroup tiles split a group above 64 into head chunks), the
      tiled decode against the pipelined one at f32 on both page formats, and
      two calls of each decode kernel for bf16 q (both page formats, the
      flagship's and both Qwen2.5 shapes) bit for bit;
@@ -55,7 +64,9 @@ Phases, in order (any failure raises and the script exits non-zero):
      Qwen2.5 attention shapes (decode at batch 8 x 2,048 and at the serving
      shape, prefill at the serving chunk); rows 1, 2 and 5 again at a tp = 2
      rank's shape (8/4 heads of 128: decode at batch 8 x 2,048, prefill at
-     the serving chunk);
+     the serving chunk); every row at OpenLLaMA-3B's shape (32/32 heads of
+     100, bounds on the true width; the SDPA backend that served each
+     yardstick is named);
   5. serving at the flagship width (1.14B Llama, bf16, random weights from a
      seeded generator): two bf16 pods and one int8-KV pod whose KV events are
      digested into one index; prefix reuse, pod ranking and kernel launch
@@ -131,7 +142,10 @@ Phases, in order (any failure raises and the script exits non-zero):
      then 8 requests (1,024 shared + 512 unique tokens, 32 new, 4 sampled)
      through the Scheduler on a bf16 pod and an int8 pod: prefix hits, each
      pod ranked first for its own prefix, launches per layer pass, phase
-     7b's teacher-forced bar on every token, and the greedy tokens off the
+     7b's teacher-forced bar on every token with the f32 truth held to the
+     expert set the served path's router picked at every (token, layer)
+     (`ServedRoutes`, `forced_routes`; the delta read with the truth held
+     to the plain path's routes), and the greedy tokens off the
      truth's argmax at most twice as often as the plain bf16 path's plus
      0.05 (routing flips widen the bar's delta); tokens/s, tick walls, and one
      decode tick's and one prefill chunk's device profile are logged;
@@ -163,9 +177,10 @@ Phases, in order (any failure raises and the script exits non-zero):
      batched, they pass phase 7b's teacher-forced bar; the batched runs' hit
      rates and TTFTs, drain and read-path times are logged. Neither phase imports zmq, msgpack, xxhash or tokenizers:
      the ZMQ hop is checked in tier-1 (tests/test_torch_zmq.py);
-  13. the Qwen2 family at its published widths, whole (no depth cut):
-     Qwen2.5-7B (28 layers, 28/4 heads of 128, 152,064 tokens, untied head)
-     and Qwen2.5-0.5B (24 layers, 14/2 heads of 64, tied head), configs
+  13. the Qwen2 family at its published widths: Qwen2.5-7B (28/4 heads of
+     128, 152,064 tokens, untied head) and Qwen2.5-0.5B (14/2 heads of 64,
+     tied head), cut to 4 of 28 and 12 of 24 layers to make room for phase
+     20 (`QWEN_LAYERS`, the cut printed), configs
      through the port's hf_loader.config_from_hf, seeded weights and q/k/v
      biases, bf16. Per model: 13a, a bf16 pod and an int8 pod (page 16)
      whose events one Indexer digests, 8 requests each of 1,024 shared +
@@ -369,8 +384,20 @@ Phases, in order (any failure raises and the script exits non-zero):
      relative 1e-2, each tensor's gradient (each layer's slice of a
      stacked weight) by relative norm error under the stated bar, and the
      loss falling over 5 steps; step wall and tokens/s logged;
-  then a JSON line of details, one JSON line describing every kernel, and
-  last: {"ok": true, "device": {...}}.
+  20. OpenLLaMA-3B whole (openlm-research/open_llama_3b_v2's config
+     through config_from_hf: 26 layers, 32/32 heads of 100, vocab 32,000,
+     untied head; bf16, seeded weights, page 16; head_dim 100 runs at the
+     kernels' padded width 128 over unpadded pages): 20a, two bf16 pods and
+     one int8 pod of 1,024 pages whose events one Indexer digests, phase
+     5's traffic (1,024 shared + 512 unique tokens): cached 0 then 1,024,
+     each pod ranked first for its own prefix, launches per layer pass; 20b,
+     phase 5c's prefill-logits and phase 6's batch-8 decode-logits checks
+     (every page format and decode kernel; lengths 2,047 down to 2,040) under
+     their bars; 20c, phase 7b's traffic through the Scheduler on a bf16 pod
+     at decode_steps 1 and an int8 pod at 4 with the teacher-forced bar;
+  then a JSON line of details, one JSON line describing every kernel (the
+  `openllama` key of launches_by_path: phase 20's launches), and last:
+  {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -629,6 +656,25 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def spilling_kernels(build_log: str) -> list:
+    """(kernel, bytes of spill stores) of each kernel of a ptxas -v log that
+    spills, the names demangled where c++filt is on the PATH."""
+    out, fn = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and int(m.group(1)) > 0 and fn is not None:
+            out.append((fn, int(m.group(1))))
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(f for f, _ in out),
+                               capture_output=True, text=True, check=True).stdout.split("\n")
+    except (OSError, subprocess.CalledProcessError):
+        names = [f for f, _ in out]
+    return [(name[:160], spill) for name, (_, spill) in zip(names, out)]
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -686,6 +732,26 @@ def sdpa_gqa(q, k, v, **kwargs):
     it), as a zero-argument callable."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return lambda: sdpa(q, k, v, enable_gqa=True, **kwargs)
+
+
+def sdpa_backend(call) -> str:
+    """The SDPA backend that serves `call` (a zero-argument SDPA call): the
+    first of torch's priority order that runs it when it is the only one
+    enabled."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for code in torch._C._get_sdp_priority_order():
+        backend = SDPBackend(code)
+        if backend.name == "OVERRIDEABLE":
+            continue
+        try:
+            with sdpa_kernel([backend]):
+                call()
+                torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return backend.name
+    return "none"
 
 
 def profile_device_share(label: str, fn, runs: int = 3) -> dict:
@@ -883,6 +949,40 @@ QWEN_MAIN_CASES = {
 # chunk); 64, the largest, in 8 chunks. And at head_dim 64.
 DECODE_GROUPS = (3, 5, 6, 7, 12, 13, 16, 64)
 HD64_GROUPS = (1, 2, 4, 7, 8, 12, 13)
+# Head dims off the 64/128 grid and groups above 64 (n_q, n_kv, head_dim):
+# a bf16 row of 100 bytes and an int8 row of 50 (head_dim 50, no multiple
+# of 4), 80 and 96, OpenLLaMA-3B's 32/32 heads of 100 and 100 at group 4,
+# Gemma-7B's 16/16 heads of 256 and 256 at group 8, Falcon-7B's 71 heads of
+# 64 over one, and 128 heads of 128 over one. The kernels run them at the
+# padded widths 64, 128 and 256.
+WIDE_SHAPES = {
+    "hd=50": (4, 2, 50),
+    "hd=80": (8, 4, 80),
+    "hd=96": (8, 2, 96),
+    "openllama-3b": (32, 32, 100),
+    "hd=100 group=4": (16, 4, 100),
+    "gemma-7b": (16, 16, 256),
+    "hd=256 group=8": (8, 1, 256),
+    "falcon-7b group=71": (71, 1, 64),
+    "group=128": (128, 1, 128),
+}
+OPENLLAMA_MODEL = "openllama-3b"
+OPENLLAMA_SHAPE = WIDE_SHAPES[OPENLLAMA_MODEL]
+# Their cases of each kernel at the main path's shape, as MAIN_CASES: decode
+# at batch 8, page 16, no window; flash at the serving chunk.
+WIDE_MAIN_CASES = {
+    shape: {**{row: f"{row} bf16 {shape} page=16 B=8" for row in DECODE_ROWS},
+            "flash_prefill": f"flash_prefill bf16 {shape} L=512 S=2048 off=1024"}
+    for shape in WIDE_SHAPES
+}
+# (name, lens, page, window): every WIDE_SHAPES decode case, pages of 16 and
+# 17 (a row piece starts at any row), with and without a window.
+WIDE_DECODE_CASES = (
+    ("page=16 B=8", [0, 1, PAGE, PAGE + 1, 2 * PAGE, 1000, 2047, 2048], PAGE, None),
+    ("page=16 window=100", [2048, 1500, 90], PAGE, 100),
+    ("page=17", [0, 1, 16, 17, 18, 35, 1000, 2040], 17, None),
+    ("page=17 window=100", [2040, 1500, 90, 17], 17, 100),
+)
 
 
 def verify_offsets(l: int) -> list:
@@ -945,6 +1045,14 @@ def kernel_cases(gen):
                 yield (row, dtype, f"{row} {tag} {name}",
                        run_decode(row, q, pages, tables, lens_t, window),
                        run_decode(row, q, pages, tables, lens_t, window, plain=True))
+            for shape, (n_q, n_kv, hd) in WIDE_SHAPES.items():
+                for name, lens, page, window in WIDE_DECODE_CASES:
+                    q, pages, tables, lens_t = decode_inputs(
+                        gen, dtype, len(lens), lens, page, n_q=n_q, n_kv=n_kv, hd=hd,
+                        int8=spec["int8"])
+                    yield (row, dtype, f"{row} {tag} {shape} {name}",
+                           run_decode(row, q, pages, tables, lens_t, window),
+                           run_decode(row, q, pages, tables, lens_t, window, plain=True))
         if dtype == torch.float32:
             for tiled, piped in (("paged_decode_tiled", "paged_decode"),
                                  ("paged_decode_tiled_int8", "paged_decode_int8")):
@@ -1006,6 +1114,18 @@ def kernel_cases(gen):
                 (f"{model} B=3 L=300 S=1000 per-batch offsets window=300", 3, 300, 1000,
                  [0, 100, 700], 300, None, n_q, n_kv, hd),
             ]
+        # WIDE_SHAPES: the serving chunk, per-batch offsets with a window, and
+        # the verify (few rows: one-warpgroup CTAs, where a group above 64
+        # splits into head chunks).
+        for shape, (n_q, n_kv, hd) in WIDE_SHAPES.items():
+            cases += [
+                (f"{shape} L=512 S=2048 off=1024", 1, 512, 2048, 1024, None, None, n_q, n_kv,
+                 hd),
+                (f"{shape} B=2 L=200 S=600 per-batch offsets window=150", 2, 200, 600,
+                 [100, 400], 150, None, n_q, n_kv, hd),
+                (f"{shape} verify B=8 L=5 S=2048 per-batch offsets", 8, 5, 2048,
+                 verify_offsets(5), None, None, n_q, n_kv, hd),
+            ]
         for name, b, l, s, off, window, n_valid, n_q, n_kv, hd in cases:
             q, k, v = flash_inputs(gen, dtype, b, l, s, n_q=n_q, n_kv=n_kv, hd=hd)
             offs = off if isinstance(off, int) else torch.tensor(off, dtype=torch.int32, device="cuda")
@@ -1022,7 +1142,8 @@ def determinism_checks(gen) -> int:
     atomics; phase 6's multi-step check relies on it), at the flagship's and
     the Qwen2.5 attention shapes."""
     n = 0
-    shapes = {"flagship": (N_Q, N_KV, HD), **QWEN_SHAPES}
+    shapes = {"flagship": (N_Q, N_KV, HD), **QWEN_SHAPES,
+              **{k: WIDE_SHAPES[k] for k in ("openllama-3b", "gemma-7b")}}
     for row, spec in DECODE_ROWS.items():
         for (model, (n_q, n_kv, hd)), lens in itertools.product(
                 shapes.items(), (SPLIT_LENS, [0, 1, PAGE, PAGE + 1, 2 * PAGE, 1000, 2047, 2048])):
@@ -1090,19 +1211,20 @@ def time_decode(gen, row: str, shape: str, plain: bool = True, n_q: int = N_Q,
     if plain:
         plain_ms = time_graph_ms(lambda: run_decode(row, q, pages, tables, lens, plain=True),
                                  cold=True)
-    library_ms = None
+    library_ms = backend = None
     if not int8:
         k, v = pages
         kd, vd = (p[:, tables.long()].movedim(1, 0).reshape(batch, n_kv, -1, hd)[:, :, :ctx]
                   .contiguous() for p in (k, v))
         library_ms = time_graph_ms(sdpa_gqa(q[:, :, None], kd, vd), cold=True)
+        backend = sdpa_backend(sdpa_gqa(q[:, :, None], kd, vd))
     live = int(lens.sum())
     kv_row_bytes = hd * (1 if int8 else 2) + (4 if int8 else 0)  # values (+ scale)
     live_pages = batch * -(-ctx // PAGE)
     nbytes = 2 * live * n_kv * kv_row_bytes + 2 * batch * n_q * hd * 2 + live_pages * 4
-    out = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+    out = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, library_backend=backend,
                **_bound(nbytes, 4 * live * n_q * hd), mbytes=nbytes / 1e6, max_abs_err=err)
-    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms ({backend})"
     plain_txt = "" if plain_ms is None else f", plain {plain_ms:.4f} ms"
     log(f"  {label} page={PAGE}: kernel {kernel_ms:.4f} ms "
         f"({nbytes / kernel_ms / 1e6:.1f} GB/s){plain_txt}, SDPA {lib}, bound "
@@ -1148,7 +1270,18 @@ def phase_times(gen) -> tuple:
                                       for row in ("paged_decode", "paged_decode_int8")},
                      "flash_prefill serving": time_prefill(gen, *PREFILL_SERVING_SHAPE, n_q=n_q,
                                                            n_kv=n_kv)}
-    return main, decode, serving, verify, mixtral_shape, qwen_shapes, tp_rank_shape
+    # Phase 20's model (OpenLLaMA-3B) at its attention shape: 32/32 heads of
+    # 100, every row at the batch-8 and the serving decode shapes and at the
+    # serving prefill chunk; bounds on the true width of 100.
+    n_q, n_kv, hd = OPENLLAMA_SHAPE
+    log(f"  at the {OPENLLAMA_MODEL} attention shape (n_q {n_q}, n_kv {n_kv}, head_dim {hd})")
+    openllama_shape = {shape: {row: time_decode(gen, row, shape, n_q=n_q, n_kv=n_kv, hd=hd)
+                               for row in DECODE_ROWS}
+                       for shape in ("B=8 ctx=2048", "B=1 ctx=1536 table=2048")}
+    openllama_shape["flash_prefill serving"] = time_prefill(gen, *PREFILL_SERVING_SHAPE, n_q=n_q,
+                                                            n_kv=n_kv, hd=hd)
+    return (main, decode, serving, verify, mixtral_shape, qwen_shapes, tp_rank_shape,
+            openllama_shape)
 
 
 # The prefill call of a prefix-hit request in phase 5: 512 new tokens after
@@ -1173,9 +1306,10 @@ def time_prefill(gen, l: int, s: int, off: int, n_q: int = N_Q, n_kv: int = N_KV
     kernel_ms = time_graph_ms(lambda: fp.flash_prefill(q, k, v, off))
     plain_ms = time_graph_ms(lambda: fp.dense_attention(q, k, v, off))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    library_ms, library_note = None, "SDPA is_causal"
+    library_ms, library_note, backend = None, "SDPA is_causal", None
     if off == 0 and l == s:
         library_ms = time_graph_ms(sdpa_gqa(qt, kt, vt, is_causal=True))
+        backend = sdpa_backend(sdpa_gqa(qt, kt, vt, is_causal=True))
     else:
         from torch.nn.attention.bias import causal_lower_right
 
@@ -1189,12 +1323,13 @@ def time_prefill(gen, l: int, s: int, off: int, n_q: int = N_Q, n_kv: int = N_KV
             library_note += f": none ({type(exc).__name__}: {str(exc)[:120]})"
         else:
             library_ms = time_graph_ms(sdpa)
+            backend = sdpa_backend(sdpa)
     keys = min(s, off + l)
     flops = 4 * causal_pairs(l, s, [off], None) * n_q * hd
     nbytes = (2 * l * n_q * hd + 2 * keys * n_kv * hd) * 2
-    out = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, **_bound(nbytes, flops),
-               gflop=flops / 1e9, max_abs_err=err)
-    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    out = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, library_backend=backend,
+               **_bound(nbytes, flops), gflop=flops / 1e9, max_abs_err=err)
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms ({backend})"
     log(f"  {label}: kernel {kernel_ms:.4f} ms "
         f"({flops / kernel_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, {library_note} "
         f"{lib}, bound {out['bound_ms']:.4f} ms ({flops / 1e9:.2f} GFLOP)")
@@ -1537,10 +1672,12 @@ def phase_prefill_logits(params, cfg) -> dict:
 DECODE_BATCH, DECODE_CTX = 8, 2048
 
 
-def decode_setup(cfg, int8: bool, seed: int):
-    """A batch-8 decode state at 2,047 cached tokens per sequence, the same
-    for the same seed: (cache, tables, lens, tokens, trash_page). Tables
-    cover 16 positions more than the context; page `trash_page` is in none."""
+def decode_setup(cfg, int8: bool, seed: int, ragged: bool = False):
+    """A batch-8 decode state at 2,047 cached tokens per sequence (`ragged`:
+    2,047 down to 2,040, so the attended lengths end at every row of a
+    16-byte span of rows of 100 elements), the same for the same seed:
+    (cache, tables, lens, tokens, trash_page). Tables cover 16 positions
+    more than the context; page `trash_page` is in none."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     pps = DECODE_CTX // PAGE + 1
     trash = DECODE_BATCH * pps
@@ -1558,18 +1695,21 @@ def decode_setup(cfg, int8: bool, seed: int):
     tables = torch.randperm(trash, generator=gen, device="cuda")
     tables = tables.reshape(DECODE_BATCH, pps).to(torch.int32).contiguous()
     lens = torch.full((DECODE_BATCH,), DECODE_CTX - 1, dtype=torch.int32, device="cuda")
+    if ragged:
+        lens -= torch.arange(DECODE_BATCH, dtype=torch.int32, device="cuda")
     tokens = torch.randint(0, cfg.vocab_size, (DECODE_BATCH,), generator=gen,
                            device="cuda", dtype=torch.int32)
     return cache, tables, lens, tokens, trash
 
 
 def batched_decode_check(params, cfg, params32, cfg32, int8: bool, pipelined: bool,
-                         seed: int = 5) -> dict:
+                         seed: int = 5, ragged: bool = False) -> dict:
     """One batch-8 decode step through the kernel path against the plain path,
     both against an f32 truth (the plain path with f32 weights on the same
-    pools, made before the bf16 steps write their new rows)."""
+    pools, made before the bf16 steps write their new rows); `ragged`:
+    decode_setup's ragged lengths."""
     label = f"{'int8' if int8 else 'bf16'} pages, {'pipelined' if pipelined else 'tiled'}"
-    cache, tables, lens, tokens, _ = decode_setup(cfg, int8, seed)
+    cache, tables, lens, tokens, _ = decode_setup(cfg, int8, seed, ragged)
     page_ids = torch.gather(tables, 1, (lens // PAGE).long()[:, None])[:, 0]
     cache32 = tuple(p.float() if p.dtype == torch.bfloat16 else p.clone() for p in cache)
     _, truth = llama._decode_once(cfg32, params32, cache32, tokens, tables, lens,
@@ -1834,10 +1974,12 @@ def dense_logits(cfg, params, tokens, first: int) -> torch.Tensor:
 
 
 def teacher_forced_bar(params32, cfg32, traffic, requests, delta: float,
-                       truth_params=None) -> dict:
+                       truth_params=None, truth_routes=None) -> dict:
     """Each finished request's prompt plus generated tokens through the f32
     truth in one pass (`truth_params(i)`: request i's f32 weights, default
-    params32). A greedy token's truth logit must be within `delta`
+    params32; `truth_routes(i)`: for a MoE model, the expert sets the truth
+    is held to at request i's positions, `forced_routes`'s argument). A
+    greedy token's truth logit must be within `delta`
     of its row's maximum; a sampled token must lie in the kept set of
     filter_logits of the truth row (its request's temperature, top_k and
     top_p), widened by `delta` in logit units. Readings are the largest
@@ -1849,7 +1991,8 @@ def teacher_forced_bar(params32, cfg32, traffic, requests, delta: float,
         prompt, gen = spec["prompt_tokens"], req.generated
         seq = torch.tensor(prompt + gen, dtype=torch.int32, device=dev)
         weights = params32 if truth_params is None else truth_params(i)
-        truth = dense_logits(cfg32, weights, seq, len(prompt) - 1)[: len(gen)]
+        with forced_routes(None if truth_routes is None else truth_routes(i)):
+            truth = dense_logits(cfg32, weights, seq, len(prompt) - 1)[: len(gen)]
         tok = torch.tensor(gen, device=dev)[:, None]
         picked = torch.gather(truth, 1, tok)[:, 0]
         sp = spec["sampling"]
@@ -1869,14 +2012,16 @@ def teacher_forced_bar(params32, cfg32, traffic, requests, delta: float,
 
 
 def flagship_run(params, cfg, int8: bool, decode_steps: int, eos_token, model: str,
-                 scheduler=Scheduler):
-    """One phase 7b run on a fresh pod: (result of run_scheduler, traffic,
-    prefix, indexer, pod, counted layer passes, launches)."""
+                 scheduler=Scheduler, n_pages=None):
+    """One phase 7b run on a fresh pod (`n_pages`, by default 4,096 of
+    bf16 or 8,192 of int8): (result of run_scheduler, traffic, prefix,
+    indexer, pod, counted layer passes, launches)."""
     index = InMemoryIndex()
     indexer = token_indexer(index)
     pod_id = "pod-sched-" + ("int8" if int8 else "bf16")
     pod = EnginePod(
-        EnginePodConfig(pod_id=pod_id, model_name=model, n_pages=8192 if int8 else 4096,
+        EnginePodConfig(pod_id=pod_id, model_name=model,
+                        n_pages=n_pages or (8192 if int8 else 4096),
                         page_size=PAGE, device_tier="gpu", max_pages_per_seq=256,
                         model_config=cfg, device=params["embed"].device,
                         use_quantized_kv=int8),
@@ -1892,21 +2037,24 @@ def flagship_run(params, cfg, int8: bool, decode_steps: int, eos_token, model: s
 
 
 def flagship_scheduler_check(params, cfg, params32, cfg32, int8: bool, decode_steps: int,
-                             delta: float, model: str = "llama-flagship-1.14b") -> dict:
-    """Phase 7b on one pod of `model`: a probe run finds a token the EOS
-    request reaches (the first after its third that it has not emitted
-    before; the pods are deterministic), then the recorded run with that EOS
-    on a fresh pod, its checks and the teacher-forced bar."""
+                             delta: float, model: str = "llama-flagship-1.14b",
+                             n_pages=None) -> dict:
+    """Phase 7b on one pod of `model` (`n_pages`: flagship_run's): a probe
+    run finds a token the EOS request reaches (the first after its third
+    that it has not emitted before; the pods are deterministic), then the
+    recorded run with that EOS on a fresh pod, its checks and the
+    teacher-forced bar."""
     tag = f"{model}, {'int8' if int8 else 'bf16'} pages, decode_steps {decode_steps}"
-    probe = flagship_run(params, cfg, int8, decode_steps, None, model)
+    probe = flagship_run(params, cfg, int8, decode_steps, None, model, n_pages=n_pages)
     out = probe[0]["tokens"][EOS_REQUEST]
     eos = next((t for j, t in enumerate(out) if j >= 3 and t not in out[:j]), None)
     del probe
     if eos is None:
         raise AssertionError(f"phase 7b ({tag}): no new token after the third in {out}")
+    gc.collect()  # the probe's pod and scheduler hold each other
     torch.cuda.empty_cache()
     r, traffic, prefix, indexer, pod, counter, launches = flagship_run(
-        params, cfg, int8, decode_steps, eos, model)
+        params, cfg, int8, decode_steps, eos, model, n_pages=n_pages)
     failures = []
     gen = r["tokens"]
     eos_out = gen[EOS_REQUEST]
@@ -1994,7 +2142,9 @@ def teacher_forced_delta(params, cfg, params32, cfg32, int8: bool) -> tuple:
     (prompt plus 32 tokens, prefilled from position 0 through
     `prefill_cache(plain=True)` on a fresh cache, last position); delta =
     2 x (2e + 1e-2), twice phase 6's bar, since a served token's logit and
-    its row's maximum may each sit that far from the truth."""
+    its row's maximum may each sit that far from the truth. On a MoE model
+    the truth takes the experts the plain path routed each (position, layer)
+    to (`forced_routes`), so e reads arithmetic, not routing flips."""
     traffic, _ = flagship_traffic(cfg.vocab_size)
     rng = np.random.default_rng(9)
     e, dev = 0.0, params["embed"].device
@@ -2005,8 +2155,11 @@ def teacher_forced_delta(params, cfg, params32, cfg32, int8: bool) -> tuple:
         n_pages = -(-len(seq) // PAGE)
         cache = make(cfg, n_pages, PAGE, dev)
         table = torch.arange(n_pages, dtype=torch.int32, device=dev)
-        _, got = llama.prefill_cache(cfg, params, cache, tokens, table, 0, plain=True)
-        truth = dense_logits(cfg32, params32, tokens, len(seq) - 1)[0]
+        with RoutingRecorder() as rec:
+            _, got = llama.prefill_cache(cfg, params, cache, tokens, table, 0, plain=True)
+        routes = [(calls, torch.ones(len(seq), dtype=torch.bool)) for calls in rec.calls]
+        with forced_routes(routes if llama.is_moe_config(cfg) else None):
+            truth = dense_logits(cfg32, params32, tokens, len(seq) - 1)[0]
         e = max(e, float((got.float() - truth).abs().max()))
         del cache
     return 2 * (2 * e + 1e-2), e
@@ -3163,6 +3316,122 @@ class RoutingRecorder:
                     routed_rows=sum(x.shape[0] for x in truth))
 
 
+class ServedRoutes:
+    """While entered, keeps the expert set a correct dispatch picks for
+    every row of the served MoE calls (read off the router product the
+    dispatch computes, on the served hidden states; a dispatch that then
+    uses fewer experts is what the bar must catch), keyed by the KV row the
+    token writes and what it holds: (page, slot, position, token) -> the
+    per-layer sets (a page freed and taken again holds other positions or
+    tokens). The rows come from the prefill_cache and decode_step_cache
+    calls around them (phase 11b's Scheduler runs at decode_steps 1)."""
+
+    def __enter__(self):
+        self.rows = {}
+        self._current = None
+        self._layer = 0
+        self._real = {name: getattr(llama, name) for name in MODEL_CALLS}
+        self._real_moe = mixtral._moe_mlp_dense
+
+        def prefill(config, params, kv_cache, tokens, block_table, start_pos, *a, **kw):
+            table = block_table.tolist()
+            self._current = [
+                (table[(start_pos + r) // PAGE], (start_pos + r) % PAGE, start_pos + r, t)
+                for r, t in enumerate(tokens.tolist())]
+            self._layer = 0
+            return self._real["prefill_cache"](config, params, kv_cache, tokens, block_table,
+                                               start_pos, *a, **kw)
+
+        def decode(config, params, kv_cache, tokens, block_tables, seq_lens, *a, **kw):
+            tables = block_tables.tolist()
+            self._current = [(tables[b][pos // PAGE], pos % PAGE, pos, t) for b, (pos, t) in
+                             enumerate(zip(seq_lens.tolist(), tokens.tolist()))]
+            self._layer = 0
+            return self._real["decode_step_cache"](config, params, kv_cache, tokens,
+                                                   block_tables, seq_lens, *a, **kw)
+
+        def other(*a, **kw):
+            raise AssertionError("ServedRoutes reads prefill_cache and decode_step_cache only")
+
+        def moe(config, layer, x):
+            logits = (x.reshape(-1, x.shape[-1]) @ layer["router"]).float()
+            sets = mixtral.top_k(logits, config.top_k)[1].sort(-1).values.cpu()
+            if sets.shape[0] != len(self._current):
+                raise AssertionError("a MoE call's rows are not its model call's")
+            for key, routed in zip(self._current, sets):
+                if self._layer == 0:  # a row computed again replaces its sets
+                    self.rows[key] = []
+                self.rows[key].append(routed)
+            self._layer += 1
+            return self._real_moe(config, layer, x)
+
+        llama.prefill_cache, llama.decode_step_cache = prefill, decode
+        llama.verify_step_cache = llama.decode_multi_step_cache = other
+        mixtral._moe_mlp_dense = moe
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._real.items():
+            setattr(llama, name, fn)
+        mixtral._moe_mlp_dense = self._real_moe
+
+    def of(self, seq: list, table: list, n_layers: int) -> list:
+        """The served sets of the sequence `seq` (prompt plus generated
+        tokens) whose pages were `table`, per layer: [(sets [n, top_k],
+        known [n])]; a position no served call computed (the last token) is
+        unknown."""
+        top_k = next(iter(self.rows.values()))[0].shape[0]
+        sets = [torch.zeros(len(seq), top_k, dtype=torch.long) for _ in range(n_layers)]
+        known = torch.zeros(len(seq), dtype=torch.bool)
+        for pos, token in enumerate(seq):
+            entry = self.rows.get((table[pos // PAGE], pos % PAGE, pos, token))
+            if entry is None or len(entry) != n_layers:
+                continue
+            known[pos] = True
+            for i in range(n_layers):
+                sets[i][pos] = entry[i]
+        if not known[:-1].all():
+            raise AssertionError(f"served routes miss {int((~known[:-1]).sum())} positions")
+        return [(s, known) for s in sets]
+
+
+class forced_routes:
+    """While entered with `routes` (per layer, (sets [n, top_k], known
+    [n])), the MoE dispatch of a one-sequence dense forward takes the given
+    experts at the known positions (gates: the softmax of the router's
+    logits at them, as the dispatch computes them) and its own top-k
+    elsewhere; with None, nothing changes. The truth computes this, so a
+    routing flip between the served bf16 path and the f32 truth no longer
+    moves a whole expert."""
+
+    def __init__(self, routes):
+        self.routes = routes
+
+    def __enter__(self):
+        self._real = mixtral._moe_mlp_dense
+        if self.routes is None:
+            return self
+        calls = itertools.count()
+
+        def forced(config, layer, x):
+            sets, known = self.routes[next(calls) % config.n_layers]
+            b, l, d = x.shape
+            xf = x.reshape(b * l, d)
+            logits = (xf @ layer["router"]).float()
+            own = mixtral.top_k(logits, config.top_k)[1]
+            idx = torch.where(known.to(x.device)[:, None], sets.to(x.device), own)
+            gates = torch.softmax(torch.gather(logits, 1, idx), dim=-1).to(x.dtype)
+            gate_matrix = torch.zeros(logits.shape, dtype=x.dtype, device=x.device)
+            gate_matrix.scatter_(1, idx, gates)
+            expert_out = mixtral._experts(layer, xf.expand(layer["w_gate"].shape[0], -1, -1))
+            return torch.bmm(gate_matrix[:, None, :], expert_out.transpose(0, 1)).reshape(b, l, d)
+        mixtral._moe_mlp_dense = forced
+        return self
+
+    def __exit__(self, *exc):
+        mixtral._moe_mlp_dense = self._real
+
+
 def moe_logits_checks(params, cfg, params32, cfg32) -> dict:
     """Phase 5c's prefill-logits check and phase 6's batch-8 decode-logits
     check of every (page format, decode kernel) pair on the Mixtral model,
@@ -3209,7 +3478,7 @@ def moe_run(params, cfg, int8: bool, index_parts=None):
     """Phase 11b's traffic through the Scheduler on a fresh Mixtral pod
     (2,048 pages of 16) whose events `index_parts` (an index and its
     indexer) digest: (result of run_scheduler, traffic, prefix, pod, counted
-    calls, launches)."""
+    calls, launches, the served routes)."""
     fmt = "int8" if int8 else "bf16"
     pod_id = f"pod-moe-{fmt}"
     index, indexer = index_parts or moe_indexer()
@@ -3221,9 +3490,9 @@ def moe_run(params, cfg, int8: bool, index_parts=None):
         params=params)
     traffic, prefix = moe_traffic(cfg.vocab_size, MOE_TRAFFIC_SEEDS[fmt])
     reset_launch_counts()
-    with CallCounter() as counter:
+    with CallCounter() as counter, ServedRoutes() as routes:
         r = run_scheduler(pod, traffic, 1, max_batch=8, budget=512)
-    return r, traffic, prefix, pod, counter, launch_counts()
+    return r, traffic, prefix, pod, counter, launch_counts(), routes
 
 
 def moe_step_bytes(cfg, batch: int, ctx: int, int8: bool) -> int:
@@ -3278,7 +3547,7 @@ def moe_check(params, cfg, params32, cfg32, int8: bool, delta: float, index_part
     """Phase 11b on one pod: the run, its checks, the teacher-forced bar,
     and the profiles of one decode tick and one prefill chunk."""
     fmt = "int8" if int8 else "bf16"
-    r, traffic, prefix, pod, counter, launches = moe_run(params, cfg, int8, index_parts)
+    r, traffic, prefix, pod, counter, launches, routes = moe_run(params, cfg, int8, index_parts)
     failures, gen = [], r["tokens"]
     for i, out in enumerate(gen):
         if len(out) != 32 or not all(0 <= t < cfg.vocab_size for t in out):
@@ -3289,7 +3558,8 @@ def moe_check(params, cfg, params32, cfg32, int8: bool, delta: float, index_part
     passes = counter.layer_passes()
     if launches != counter.kernels or not passes["decode"] or not passes["prefill"]:
         failures.append(f"launches {launches}, expected {counter.kernels}")
-    bar = teacher_forced_bar(params32, cfg32, traffic, r["requests"], delta)
+    bar = teacher_forced_bar(params32, cfg32, traffic, r["requests"], delta,
+                             truth_routes=served_routes(routes, traffic, r["requests"], cfg))
     if not bar["ok"]:
         failures.append(f"teacher-forced bar: {bar}")
     agree = greedy_agreement(params, cfg, params32, cfg32, traffic, r["requests"], int8)
@@ -3342,6 +3612,12 @@ def moe_check(params, cfg, params32, cfg32, int8: bool, delta: float, index_part
     del pod, counter
     torch.cuda.empty_cache()
     return out
+
+
+def served_routes(routes: ServedRoutes, traffic, requests, cfg):
+    """truth_routes for teacher_forced_bar: request i's served expert sets."""
+    return lambda i: routes.of(traffic[i]["prompt_tokens"] + requests[i].generated,
+                               requests[i].state.block_table, cfg.n_layers)
 
 
 def mixtral_model() -> tuple:
@@ -4477,8 +4753,8 @@ def phase_read_plane(params, cfg, seed: int) -> dict:
 
 # The config.json fields of Qwen/Qwen2.5-7B and Qwen/Qwen2.5-0.5B that the
 # port's hf_loader.config_from_hf reads, as plain attribute objects (the card
-# has no transformers, and nothing is downloaded). Both are served whole:
-# no depth cut.
+# has no transformers, and nothing is downloaded). Both are served at
+# QWEN_LAYERS' depth.
 QWEN_HF = {
     "qwen2.5-7b": dict(
         model_type="qwen2", hidden_size=3584, intermediate_size=18944, num_hidden_layers=28,
@@ -4500,14 +4776,21 @@ QWEN_HF = {
 # vector; a large one would make the random model's output nearly the same at
 # every position. q and k biases move the attention weights only.
 QWEN_BIAS_STD = {"bq": 0.5, "bk": 0.5, "bv": 0.05}
+# The whole run's cut, to make room for phase 20: Qwen2.5-7B at 4 of its 28
+# layers and Qwen2.5-0.5B at 12 of its 24 (every width kept, so rows 1-5
+# still run their group-7 attention at head_dim 128 and 64 at the published
+# shapes).
+QWEN_LAYERS = {"qwen2.5-7b": 4, "qwen2.5-0.5b": 12}
 QWEN_RUNS = (("bf16", False, 1), ("int8", True, 4))  # 13c: page format, decode_steps
 
 
 def qwen_model(name: str, seed: int = 0) -> tuple:
     """(config, params) of a phase 13 model on the card: the config through
-    config_from_hf, seeded init_params, seeded biases, and for a tied
-    checkpoint the head as the embedding's transpose (one tensor)."""
-    hf = types.SimpleNamespace(**QWEN_HF[name])
+    config_from_hf (at QWEN_LAYERS' depth where it cuts one), seeded
+    init_params, seeded biases, and for a tied checkpoint the head as the
+    embedding's transpose (one tensor)."""
+    hf = types.SimpleNamespace(**{**QWEN_HF[name], "num_hidden_layers": QWEN_LAYERS.get(
+        name, QWEN_HF[name]["num_hidden_layers"])})
     cfg = hf_loader.config_from_hf(hf)
     if (cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim) != QWEN_SHAPES[name] or not cfg.attn_bias \
             or cfg.sliding_window is not None:
@@ -4626,6 +4909,10 @@ def phase_qwen() -> dict:
         n_params = sum(w.numel() for w in params["layers"].values()) + sum(
             params[k].numel() for k in ("embed", "final_norm")) + (
             0 if QWEN_HF[name]["tie_word_embeddings"] else params["out"].numel())
+        if name in QWEN_LAYERS:
+            log(f"  {name}: cut to {QWEN_LAYERS[name]} of its "
+                f"{QWEN_HF[name]['num_hidden_layers']} layers for the whole run's time (phase 20's "
+                f"room); widths, heads and vocabulary as published")
         log(f"  {name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_q_heads}/"
             f"{cfg.n_kv_heads} of {cfg.head_dim}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B "
             f"params ({n_params * 2 / 1e9:.2f} GB bf16)")
@@ -4658,6 +4945,160 @@ def phase_qwen() -> dict:
         for row in KERNELS}
     log(f"  phase 13 launches: {out['launches']}")
     return out
+
+# -- phase 20: OpenLLaMA-3B, head_dim 100 ----------------------------------------
+
+# The config.json fields of openlm-research/open_llama_3b_v2 that the port's
+# hf_loader.config_from_hf reads, as a plain attribute object (nothing is
+# downloaded): 26 layers of 32 heads of 100 (hidden 3,200 / 32) over 32 kv
+# heads, untied head. Served whole: no depth cut.
+OPENLLAMA_HF = dict(
+    model_type="llama", vocab_size=32000, hidden_size=3200, intermediate_size=8640,
+    num_hidden_layers=26, num_attention_heads=32, num_key_value_heads=32, rms_norm_eps=1e-6,
+    rope_theta=10000.0, max_position_embeddings=2048, tie_word_embeddings=False)
+# 20a's pods: (pages, int8), and the requests each serves (phase 5's layout
+# and traffic: 1,024 shared + 512 unique tokens).
+OPENLLAMA_PODS = {"pod-ol-a": (1024, False), "pod-ol-b": (1024, False),
+                  "pod-ol-q": (1024, True)}
+OPENLLAMA_REQUESTS = {"pod-ol-a": 4, "pod-ol-b": 2, "pod-ol-q": 4}
+OPENLLAMA_RUNS = (("bf16", False, 1), ("int8", True, 4))  # 20c: page format, decode_steps
+# 20c's pods: 2,048 pages (phase 7b's traffic takes about 700; a bf16 page
+# of this model is 5.3 MB of K/V).
+OPENLLAMA_SCHED_PAGES = 2048
+
+
+def openllama_model(seed: int = 0) -> tuple:
+    """(config, params) of phase 20's model on the card: the config through
+    config_from_hf, seeded init_params."""
+    cfg = hf_loader.config_from_hf(types.SimpleNamespace(**OPENLLAMA_HF))
+    if (cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim) != OPENLLAMA_SHAPE or cfg.attn_bias \
+            or cfg.sliding_window is not None or cfg.n_q_heads // cfg.n_kv_heads != 1:
+        raise AssertionError(f"{OPENLLAMA_MODEL}: config_from_hf gave {cfg}")
+    return cfg, llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+
+
+def openllama_serving(params, cfg) -> dict:
+    """Phase 20a: two bf16 pods and one int8 pod of 1,024 pages (page 16)
+    whose BlockStored streams one Indexer digests; each serves phase 5's
+    traffic on a prefix of its own, one request at a time (prefill, then 8
+    greedy decode steps). Cached tokens 0, then 1,024; finite logits,
+    tokens in the vocabulary; each pod ranked first for a prompt on its own
+    prefix; launches = one per layer pass of each call (CallCounter)."""
+    index, indexer = moe_indexer()
+    rng = np.random.default_rng(2020)
+    prefixes = {pid: rng.integers(0, cfg.vocab_size, 1024).tolist() for pid in OPENLLAMA_PODS}
+    out, failures = {}, []
+    reset_launch_counts()
+    with CallCounter() as counter:
+        for pid, (n_pages, int8) in OPENLLAMA_PODS.items():
+            pod = EnginePod(
+                EnginePodConfig(pod_id=pid, model_name=OPENLLAMA_MODEL, n_pages=n_pages,
+                                page_size=PAGE, device_tier="gpu", max_pages_per_seq=256,
+                                model_config=cfg, device="cuda", use_quantized_kv=int8),
+                event_sink=lambda b, pid=pid: digest_batch(index, indexer.token_processor, pid,
+                                                           OPENLLAMA_MODEL, b),
+                params=params)
+            cached, ttfts = [], []
+            for r in range(OPENLLAMA_REQUESTS[pid]):
+                tokens = prefixes[pid] + rng.integers(0, cfg.vocab_size, 512).tolist()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, n_cached = pod.prefill(tokens)
+                first = int(torch.argmax(pod.last_logits))
+                ttfts.append(time.perf_counter() - t0)
+                if not torch.isfinite(pod.last_logits).all():
+                    failures.append(f"{pid} request {r}: non-finite prefill logits")
+                pod.decode_append(state, first)
+                generated = [first] + [pod.decode_step(state) for _ in range(8)]
+                if not all(0 <= t < cfg.vocab_size for t in generated):
+                    failures.append(f"{pid} request {r}: token out of vocabulary")
+                cached.append(n_cached)
+                pod.free(state)
+            if cached != [0] + [1024] * (len(cached) - 1):
+                failures.append(f"{pid}: cached tokens {cached}")
+            log(f"  20a {pid} ({'int8' if int8 else 'bf16'} pages, {n_pages} pages of {PAGE}, "
+                f"{pod.kv_cache[0].numel() * pod.kv_cache[0].element_size() * 2 / 1e9:.2f} GB of "
+                f"K/V values): cached {cached}; prefix-hit TTFT {min(ttfts[1:]) * 1e3:.2f}-"
+                f"{max(ttfts[1:]) * 1e3:.2f} ms")
+            out[pid] = dict(cached=cached, ttft_ms=[t * 1e3 for t in ttfts])
+            del pod
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    passes = counter.layer_passes()
+    if launches != counter.kernels or not passes["decode"] or not passes["prefill"]:
+        failures.append(f"launches {launches}, expected {counter.kernels}")
+    log(f"  20a layer passes {passes}; launches {launches}")
+    scores = {}
+    for pid in OPENLLAMA_PODS:
+        probe = prefixes[pid] + np.random.default_rng(5).integers(0, cfg.vocab_size,
+                                                                  256).tolist()
+        scores[pid] = chain_scores(indexer, probe, OPENLLAMA_MODEL)
+        best = max(scores[pid], key=scores[pid].get) if scores[pid] else None
+        log(f"  20a index scores for {pid}'s prefix: {scores[pid]}")
+        if best != pid or scores[pid][best] != 1024 // PAGE:
+            failures.append(f"{pid}'s prefix ranks {best} first: {scores[pid]}")
+    if failures:
+        raise AssertionError(f"phase 20a: {failures}")
+    return dict(pods=out, launches=launches, layer_passes=passes, scores=scores)
+
+
+def openllama_logits(params, cfg, params32, cfg32) -> dict:
+    """Phase 20b: phase 5c's prefill-logits check and phase 6's batch-8 x
+    2,048 decode-logits check of every (page format, decode kernel) pair,
+    the decode at ragged lengths (2,047 down to 2,040 cached: every end of
+    a 16-byte span of 100-element rows), under their bars unchanged."""
+    out = {"prefill": prefill_logits_check(params, cfg, params32, cfg32)}
+    for int8 in (False, True):
+        for pipelined in (True, False):
+            r = batched_decode_check(params, cfg, params32, cfg32, int8, pipelined, ragged=True)
+            del r["cache"], r["inputs"]
+            out[r["row"]] = r
+    torch.cuda.empty_cache()
+    failed = [k for k, r in out.items() if not r["ok"]]
+    if failed:
+        raise AssertionError(f"phase 20b: logits fail their bars: {failed}")
+    return out
+
+
+def phase_openllama() -> dict:
+    log(f"== phase 20: OpenLLaMA-3B whole (26 layers, 32/32 heads of 100, bf16, seeded "
+        f"weights): prefix reuse and routing, logits against an f32 truth, the Scheduler")
+    t0 = time.perf_counter()
+    cfg, params = openllama_model()
+    n_params = sum(w.numel() for w in params["layers"].values()) + sum(
+        params[k].numel() for k in ("embed", "final_norm", "out"))
+    log(f"  {OPENLLAMA_MODEL}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_q_heads}/{cfg.n_kv_heads} of {cfg.head_dim} (the kernels' padded width "
+        f"128), vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B params "
+        f"({n_params * 2 / 1e9:.2f} GB bf16)")
+    params32, cfg32 = f32_twin(params, cfg)
+    out = dict(n_params=n_params, serving=openllama_serving(params, cfg),
+               logits=openllama_logits(params, cfg, params32, cfg32))
+    for fmt, int8, steps in OPENLLAMA_RUNS:
+        delta, e = teacher_forced_delta(params, cfg, params32, cfg32, int8)
+        log(f"  20c {fmt} pages: bf16 plain path vs f32 truth {e:.4f}; delta {delta:.4f}")
+        r = flagship_scheduler_check(params, cfg, params32, cfg32, int8, steps, delta,
+                                     model=OPENLLAMA_MODEL, n_pages=OPENLLAMA_SCHED_PAGES)
+        out[f"scheduler {fmt} steps{steps}"] = dict(r, plain_err=e)
+        gc.collect()  # the run's pod and scheduler hold each other
+        torch.cuda.empty_cache()
+        if not r["ok"]:
+            raise AssertionError(f"phase 20c ({fmt}): {r['failures']}")
+    del params, params32
+    torch.cuda.empty_cache()
+    # Rows 1, 2 and 5 on 20a's pods and 20c's scheduler runs; rows 3 and 4
+    # on 20b's tiled decode steps.
+    out["launches"] = {
+        row: out["serving"]["launches"][row]
+        + sum(out[f"scheduler {fmt} steps{steps}"]["launches"][row]
+              for fmt, _, steps in OPENLLAMA_RUNS)
+        + (out["logits"][row]["launches"] if row in out["logits"] else 0)
+        for row in KERNELS}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 20 launches: {out['launches']}; took {out['seconds']:.1f} s")
+    return out
+
 
 # -- phase 15: the fleet's resilience plane -----------------------------------
 
@@ -7640,7 +8081,7 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", default=None,
                         help="comma-separated phases to run after the build (3 4 5 5b 5c 6 7a "
                         "7b 8a 8 9a 9b 10a 10b 11a 11b 12a 12b 13 14a 14b 15a 15b 16a 16b "
-                        "16c 17a 17b 17c 17d 18a 19a 19b; 9b and "
+                        "16c 17a 17b 17c 17d 18a 19a 19b 20; 9b and "
                         "10b run 7b's deltas first, 14a and 15b run 12a first); a partial run "
                         "prints no "
                         "kernels or ok line")
@@ -7662,13 +8103,17 @@ def main(argv=None) -> int:
 
     log("== phase 2: build")
     build_s = _build.build((*_build.KERNELS, _build.TRANSFER))
-    log(f"  built {_build.KERNELS} and the {_build.TRANSFER} library in {build_s:.2f} s")
+    log(f"  built {_build.KERNELS} and the {_build.TRANSFER} library in {build_s:.2f} s "
+        f"(each, from the start: "
+        f"{', '.join(f'{k} {v:.1f} s' for k, v in sorted(_build.seconds.items()))})")
     for name in _build.KERNELS:
         text = _build.build_log(name)
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
         spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", text))
         log(f"  {name}: {len(regs)} kernels, max {max(regs, default=0)} "
             f"registers/thread, {spills} bytes of spill stores in all")
+        for fn, spill in spilling_kernels(text):
+            log(f"    spills {spill} bytes: {fn}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cfg = llama.LlamaConfig(**FLAGSHIP)
@@ -7676,7 +8121,7 @@ def main(argv=None) -> int:
         return partial_run(args.phases.split(","), gen, cfg, args.seed)
     errs = phase_kernel_checks(gen)
     (times, decode_times, prefill_serving, verify_time, mixtral_times, qwen_times,
-     tp_rank_times) = phase_times(gen)
+     tp_rank_times, openllama_times) = phase_times(gen)
 
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     n_params = sum(w.numel() for w in params["layers"].values()) + sum(
@@ -7719,6 +8164,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     governor = phase_governor(args.seed, control)
     qwen = phase_qwen()
+    openllama = phase_openllama()
 
     # Rows 1, 2 and 5 are counted on the serving path (phase 5), on the
     # scheduler's path (phase 7b's recorded runs, summed), on the host
@@ -7765,6 +8211,10 @@ def main(argv=None) -> int:
         by_path[row] = {"batched_decode": batched["checks"][row]["launches"],
                         "moe_batched_decode": moe["logits"][row]["launches"],
                         "qwen_batched_decode": qwen["launches"][row]}
+    # Phase 20's model (head_dim 100): rows 1, 2 and 5 on 20a's pods and 20c's
+    # scheduler runs, rows 3 and 4 on 20b's tiled decode steps.
+    for name in KERNELS:
+        by_path[name]["openllama"] = openllama["launches"][name]
     kernels = [
         dict(
             name=name, route="cuda",
@@ -7791,6 +8241,7 @@ def main(argv=None) -> int:
                     "transfer_chaos": chaos,
                     "qwen_attention_shapes": qwen_times, "qwen": qwen,
                     "tp_rank_attention_shape": tp_rank_times, "tp": tp, "train": train,
+                    "openllama_attention_shape": openllama_times, "openllama": openllama,
                     "build_s": build_s, "run_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -7812,7 +8263,7 @@ def partial_run(phases, gen, cfg, seed: int = 0) -> int:
     if ("14a" in phases or "15b" in phases) and "12a" not in phases:
         phases = ["12a", *phases]  # 14a holds its scores to 12a's index, 15b governs it
     if any(p not in ("3", "4", "5b", "7a", "8a", "9a", "10a", "11a", "11b", "12a", "13", "14a",
-                     "15b") for p in phases):
+                     "15b", "20") for p in phases):
         params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     steps = {
         "5": lambda: phase_serving(params, cfg), "5b": phase_small_pod_vs_cpu,
@@ -7851,13 +8302,15 @@ def partial_run(phases, gen, cfg, seed: int = 0) -> int:
             out["9b"] = phase_lora_flagship(params, cfg, deltas)
         if "10b" in phases:
             out["10b"] = phase_spec_flagship(params, cfg, deltas)
-    if "11b" in phases or "13" in phases:
+    if "11b" in phases or "13" in phases or "20" in phases:
         del params
         torch.cuda.empty_cache()
     if "11b" in phases:
         out["11b"] = phase_moe_flagship()
     if "13" in phases:
         out["13"] = phase_qwen()
+    if "20" in phases:
+        out["20"] = phase_openllama()
     out.get("12a", {}).pop("readings", None)
     out.get("12a", {}).pop("digested", None)
     log(json.dumps(out, default=str))

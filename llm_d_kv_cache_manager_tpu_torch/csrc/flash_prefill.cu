@@ -60,26 +60,88 @@
 //
 // The f32 instantiation (checks and small f32 pods) keeps the first port's
 // CUDA-core structure: scores, probabilities and output in shared memory,
-// at head_dim 64 and 128 like the bf16 kernel.
+// at the same head dims as the bf16 kernel.
+//
+// Head dims: both kernels are built at the padded widths 64, 128 and 256
+// (HD) and take the true head_dim (hd, 1 to 256) at run time. At hd == HD
+// (64, 128, 256) the tiles load in 16-byte chunks as above. Below it (50,
+// 80, 96, 100, ...) a global row of q, k or v starts only 8, 4 or 2-byte
+// aligned (a bf16 row of 100 is 200 bytes), so each row is loaded in pieces
+// of the largest size its byte width allows (`row_piece`: 16, 8 or 4 bytes
+// by cp.async, which zero-fills the padded columns from a source size of 0;
+// 2 bytes by plain loads and stores), into the same padded tile. The padded
+// columns are zero in Q and K, so the k-steps of 16 over them add nothing
+// to a score, the P V product runs at the padded width, and only the true
+// columns are stored. At HD 256 the bf16 tiles are 64 keys (kBK): two
+// warpgroups' Q (64 KB) and two stages of K and V (128 KB) fit shared
+// memory, and O (128 f32 a thread) is two m64n128 products a k-step; the f32
+// kernel's k-blocks are 32 keys there.
 //
 // GQA: a group of g query heads folds into a tile's rows as (position, head)
-// pairs, floor(R / g) positions a CTA of R = 64 or 128 rows (a group of 7:
+// pairs, floor(R / gc) positions a CTA of R = 64 or 128 rows (a group of 7:
 // 9 positions in 63 of 64 rows, or 18 in 126 of 128; the rest are dead rows),
-// for any g up to 64. A warpgroup's 64 rows may then split a position's
-// heads between the two warpgroups of a CTA; each warpgroup's key range
-// covers every position it holds a row of.
+// where gc = g up to R; a larger group is split into ceil(g / R) chunks of
+// gc = ceil(g / chunks) heads, one CTA column of the grid's head axis each
+// (`head_chunk`; group 71 over 64 rows: 36 + 35 heads, one position a CTA).
+// A warpgroup's 64 rows may then split a position's heads between the two
+// warpgroups of a CTA; each warpgroup's key range covers every position it
+// holds a row of.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include <type_traits>
 
-constexpr int kBlockK = 64;  // keys per k-block (both kernels)
+namespace {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The width a head dim is built at: 64, 128 or 256 (0: none, above 256).
+constexpr int padded(int head_dim) {
+  return head_dim < 1 ? 0 : head_dim <= 64 ? 64 : head_dim <= 128 ? 128 : head_dim <= 256 ? 256 : 0;
+}
+
+// Query heads a CTA of `rows` tile rows takes of a GQA group: the whole
+// group up to `rows`, else an even share of ceil(group / rows) chunks.
+__host__ __device__ constexpr int head_chunk(int group, int rows) {
+  return group <= rows ? group : (group + (group + rows - 1) / rows - 1) / ((group + rows - 1) / rows);
+}
+
+// The largest piece (16, 8, 4 or 2 bytes) every row of `row_bytes` (even)
+// bytes splits into on aligned addresses.
+__host__ __device__ constexpr int row_piece(int row_bytes) {
+  return row_bytes % 16 == 0 ? 16 : row_bytes % 8 == 0 ? 8 : row_bytes % 4 == 0 ? 4 : 2;
+}
+
+// f(std::integral_constant<int, G>) for G = row_piece(row_bytes).
+template <typename F>
+__device__ __forceinline__ void with_piece(int row_bytes, F&& f) {
+  switch (row_piece(row_bytes)) {
+    case 16: f(std::integral_constant<int, 16>{}); break;
+    case 8: f(std::integral_constant<int, 8>{}); break;
+    case 4: f(std::integral_constant<int, 4>{}); break;
+    default: f(std::integral_constant<int, 2>{}); break;
+  }
+}
+
+// G bytes global to shared, or G zero bytes where `pred` is false (`gmem`
+// is then not read): cp.async for 16, 8 and 4 bytes, a plain load and store
+// for 2.
+template <int G>
+__device__ __forceinline__ void copy_piece(void* smem, const void* gmem, bool pred) {
+  if constexpr (G == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
+                 "l"(gmem), "r"(pred ? 16 : 0));
+  } else if constexpr (G >= 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(smem)),
+                 "l"(gmem), "n"(G), "r"(pred ? G : 0));
+  } else {
+    *static_cast<uint16_t*>(smem) = pred ? *static_cast<const uint16_t*>(gmem) : uint16_t(0);
+  }
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -109,7 +171,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 64;  // tile rows per warpgroup
 constexpr int kWGThreads = 128;
-constexpr int kBK = 128;    // keys per k-block
 constexpr int kStages = 2;  // K/V ring depth
 
 // Byte offset of 16-byte chunk `c` (0 .. HD/8-1) of row `r` in a bf16 tile
@@ -147,6 +208,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(float (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_regs(r[i]);
 }
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
@@ -193,6 +259,26 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -247,6 +333,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 
 template <int HD, int kWG>
 struct Smem {
+  static constexpr int kBK = HD > 128 ? 64 : 128;  // keys per k-block
   static constexpr int kQ = kRows * HD * 2;       // one warpgroup's Q tile, bytes
   static constexpr int kKV = kBK * HD * 2;        // one K or V tile, bytes
   static constexpr int kQPanel = kRows * 128;     // bytes of a 64-column panel of Q
@@ -259,17 +346,20 @@ struct Smem {
 // One CTA: kWG warpgroups, each owning 64 of its 64 kWG rows, share every
 // K/V tile of kBK keys. Accumulator element i of a thread sits in row
 // 8 * ((i / 2) % 2) + lane / 4 of its warp's 16 rows and column
-// 8 * (i / 4) + 2 * (lane % 4) + i % 2.
+// 8 * (i / 4) + 2 * (lane % 4) + i % 2 (O at HD 256: two products of 128
+// columns, o[1] the second's).
 template <int HD, int kWG>
 __global__ void __launch_bounds__(kWG * kWGThreads) flash_prefill_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const int* __restrict__ offsets, int offset, bf16* __restrict__ out, int q_len, int kv_len,
-    int n_q, int n_kv, int group, int window, float scale_log2) {
+    int n_q, int n_kv, int group, int gc, int hd, int window, float scale_log2) {
   using SM = Smem<HD, kWG>;
+  constexpr int kBK = SM::kBK;
   constexpr int kThreads = kWG * kWGThreads;
   constexpr int kChunks = HD / 8;                  // 16-byte chunks per row
   constexpr int kPass = kThreads / kChunks;        // K/V rows one pass of the CTA copies
-  constexpr int kAcc = HD / 2;                     // O accumulator floats per thread
+  constexpr int kOut = HD > 128 ? 2 : 1;           // P V products (128 columns at most each)
+  constexpr int kAcc = HD / 2 / kOut;              // O accumulator floats per product
   constexpr int kS = kBK / 2;                      // S accumulator floats per thread
 
   extern __shared__ unsigned char smem_raw[];
@@ -282,13 +372,19 @@ __global__ void __launch_bounds__(kWG * kWGThreads) flash_prefill_wgmma_kernel(
   const int wgi = tid / kWGThreads;  // this thread's warpgroup
   const int warp = (tid % kWGThreads) >> 5;
   const int lane = tid & 31;
-  const int h = blockIdx.x;
+  // Grid x is (kv head, chunk of gc query heads); head0 is the chunk's
+  // first query head, hc the heads it has (the last chunk may have fewer).
+  const int n_gc = (group + gc - 1) / gc;
+  const int h = blockIdx.x / n_gc;
+  const int head0 = h * group + (blockIdx.x % n_gc) * gc;
+  const int hc = min(gc, (h + 1) * group - head0);
   const int b = blockIdx.y;
   const int qb = gridDim.z - 1 - blockIdx.z;  // heaviest q-blocks first
-  const int block_q = kWG * kRows / group;    // query positions per CTA
-  const int rows_used = block_q * group;
+  const int block_q = kWG * kRows / gc;       // query positions per CTA
+  const int rows_used = block_q * gc;
   const int q0 = qb * block_q;
   const int off = offsets != nullptr ? offsets[b] : offset;
+  const int row_bytes = hd * 2;
 
   // k-blocks some row of the CTA attends.
   const int q_last = min(q0 + block_q, q_len) - 1;
@@ -298,8 +394,8 @@ __global__ void __launch_bounds__(kWG * kWGThreads) flash_prefill_wgmma_kernel(
   // Keys every row of this warpgroup (positions wq0 .. wq1) attends. Both
   // warpgroups walk the CTA's k-blocks; a block none of a warpgroup's rows
   // attends is fully masked for it (at most one at each end).
-  const int wq0 = q0 + wgi * kRows / group;
-  const int wq1 = min(q0 + (min(wgi * kRows + kRows, rows_used) - 1) / group, q_last);
+  const int wq0 = q0 + wgi * kRows / gc;
+  const int wq1 = min(q0 + (min(wgi * kRows + kRows, rows_used) - 1) / gc, q_last);
   const int lo_all = window < 0 ? 0 : wq1 + off - window + 1;
   const int hi_all = min(wq0 + off, kv_len - 1);
 
@@ -308,47 +404,86 @@ __global__ void __launch_bounds__(kWG * kWGThreads) flash_prefill_wgmma_kernel(
 #pragma unroll
   for (int u = 0; u < 2; ++u) {
     const int r = wgi * kRows + warp * 16 + (lane >> 2) + 8 * u;
-    const int pos = q0 + r / group;
-    const bool live = r < rows_used && pos < q_len;
+    const int pos = q0 + r / gc;
+    const bool live = r < rows_used && pos < q_len && r % gc < hc;
     hi[u] = live ? min(pos + off, kv_len - 1) : -1;
     lo[u] = window < 0 ? 0 : pos + off - window + 1;
   }
 
   // Q tiles, rows in the folded (position, head) order; dead rows zero.
-  for (int i = tid; i < kWG * kRows * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    const int pos = q0 + r / group;
-    const bool ok = r < rows_used && pos < q_len;
-    const bf16* src =
-        ok ? q + ((static_cast<size_t>(b) * q_len + pos) * n_q + h * group + r % group) * HD +
-                 c * 8
-           : q;
-    cp_async16_zfill(smem + SM::q_off + (r / kRows) * SM::kQ + swz(r % kRows, c, SM::kQPanel),
-                     src, ok);
+  if (hd == HD) {
+    for (int i = tid; i < kWG * kRows * kChunks; i += kThreads) {
+      const int r = i / kChunks;
+      const int c = i % kChunks;
+      const int pos = q0 + r / gc;
+      const bool ok = r < rows_used && pos < q_len && r % gc < hc;
+      const bf16* src =
+          ok ? q + ((static_cast<size_t>(b) * q_len + pos) * n_q + head0 + r % gc) * HD + c * 8
+             : q;
+      cp_async16_zfill(smem + SM::q_off + (r / kRows) * SM::kQ + swz(r % kRows, c, SM::kQPanel),
+                       src, ok);
+    }
+  } else {
+    // Unpadded rows: pieces of G bytes, zero past the row's hd columns.
+    with_piece(row_bytes, [&](auto piece) {
+      constexpr int G = decltype(piece)::value;
+      constexpr int kPieces = HD * 2 / G;  // pieces of a padded row
+      for (int i = tid; i < kWG * kRows * kPieces; i += kThreads) {
+        const int r = i / kPieces;
+        const int w = i % kPieces;
+        const int pos = q0 + r / gc;
+        const bool ok = r < rows_used && pos < q_len && r % gc < hc && w * G < row_bytes;
+        const unsigned char* src = reinterpret_cast<const unsigned char*>(
+            ok ? q + ((static_cast<size_t>(b) * q_len + pos) * n_q + head0 + r % gc) * hd : q);
+        copy_piece<G>(smem + SM::q_off + (r / kRows) * SM::kQ +
+                          swz(r % kRows, w * G / 16, SM::kQPanel) + w * G % 16,
+                      src + w * G, ok);
+      }
+    });
   }
-  // K/V: thread tid copies chunk tid % kChunks of rows tid / kChunks + kPass i.
+  // K/V: thread tid copies chunk tid % kChunks of rows tid / kChunks + kPass i
+  // (kPass is 4 at HD 256 with one warpgroup: the swizzle of each row is its
+  // own).
   const int lrow = tid / kChunks;
-  const size_t key_stride = static_cast<size_t>(n_kv) * HD;  // elements from key to key
+  const size_t key_stride = static_cast<size_t>(n_kv) * hd;  // elements from key to key
   const size_t g_thread = (static_cast<size_t>(b) * kv_len + lrow) * key_stride + h * HD +
                           (tid % kChunks) * 8;
-  const int s_thread = swz(lrow, tid % kChunks, SM::kKVPanel);
   auto load_kv = [&](int j, int s) {
     const int key0 = j * kBK;
+    if (hd != HD) {
+      // Unpadded rows: pieces of G bytes, zero past hd and past kv_len.
+      with_piece(row_bytes, [&](auto piece) {
+        constexpr int G = decltype(piece)::value;
+        constexpr int kPieces = HD * 2 / G;
+        for (int i = tid; i < kBK * kPieces; i += kThreads) {
+          const int key = i / kPieces;
+          const int w = i % kPieces;
+          const bool ok = key0 + key < kv_len && w * G < row_bytes;
+          const size_t g =
+              ((static_cast<size_t>(b) * kv_len + key0 + key) * n_kv + h) * hd * 2 + w * G;
+          unsigned char* d = smem + k_tile(s) + swz(key, w * G / 16, SM::kKVPanel) + w * G % 16;
+          copy_piece<G>(d, reinterpret_cast<const unsigned char*>(k) + (ok ? g : 0), ok);
+          copy_piece<G>(d + SM::kKV, reinterpret_cast<const unsigned char*>(v) + (ok ? g : 0),
+                        ok);
+        }
+      });
+      return;
+    }
     const bf16* kg = k + g_thread + key0 * key_stride;
     const bf16* vg = v + g_thread + key0 * key_stride;
-    unsigned char* ks = smem + k_tile(s) + s_thread;
+    unsigned char* ks = smem + k_tile(s);
     const bool full = key0 + kBK <= kv_len;
 #pragma unroll
     for (int i = 0; i < kBK / kPass; ++i) {
       const size_t g = i * kPass * key_stride;
+      const int d = swz(lrow + i * kPass, tid % kChunks, SM::kKVPanel);
       if (full) {
-        cp_async16(ks + i * kPass * 128, kg + g);
-        cp_async16(ks + SM::kKV + i * kPass * 128, vg + g);
+        cp_async16(ks + d, kg + g);
+        cp_async16(ks + SM::kKV + d, vg + g);
       } else {
         const bool ok = key0 + lrow + i * kPass < kv_len;
-        cp_async16_zfill(ks + i * kPass * 128, ok ? kg + g : k, ok);
-        cp_async16_zfill(ks + SM::kKV + i * kPass * 128, ok ? vg + g : v, ok);
+        cp_async16_zfill(ks + d, ok ? kg + g : k, ok);
+        cp_async16_zfill(ks + SM::kKV + d, ok ? vg + g : v, ok);
       }
     }
   };
@@ -358,9 +493,11 @@ __global__ void __launch_bounds__(kWG * kWGThreads) flash_prefill_wgmma_kernel(
     cp_async_commit();
   }
 
-  float o[kAcc];
+  float o[kOut][kAcc];
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) o[i] = 0.f;
+  for (int x = 0; x < kOut; ++x)
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) o[x][i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};  // running max, log2 domain
   float l[2] = {0.f, 0.f};              // this thread's share of the row sum
   const uint32_t q_base = base + SM::q_off + wgi * SM::kQ;
@@ -429,7 +566,9 @@ __global__ void __launch_bounds__(kWG * kWGThreads) flash_prefill_wgmma_kernel(
 #pragma unroll
     for (int u = 0; u < 2; ++u) l[u] = alpha[u] * l[u] + sum[u];
 #pragma unroll
-    for (int i = 0; i < kAcc; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int x = 0; x < kOut; ++x)
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) o[x][i] *= alpha[(i >> 1) & 1];
 
     // P in bf16 as wgmma A fragments: k-step kk takes S columns 16kk..16kk+15.
     uint32_t pa[kBK / 16][4];
@@ -440,14 +579,19 @@ __global__ void __launch_bounds__(kWG * kWGThreads) flash_prefill_wgmma_kernel(
     }
 
     // O += P V; the V tile [key][hd] is MN-major for this product, its
-    // 64-column panels kKVPanel bytes apart.
+    // 64-column panels kKVPanel bytes apart (at HD 256, product x takes
+    // panels 2x and 2x + 1).
     const uint32_t v_base = k_base + SM::kKV;
     fence_regs(pa);
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      wgmma_rs(o, pa[kk], make_desc(v_base + kk * 16 * 128, SM::kKVPanel / 16, 64));
+#pragma unroll
+      for (int x = 0; x < kOut; ++x) {
+        wgmma_rs(o[x], pa[kk],
+                 make_desc(v_base + x * 2 * SM::kKVPanel + kk * 16 * 128, SM::kKVPanel / 16, 64));
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -461,15 +605,25 @@ __global__ void __launch_bounds__(kWG * kWGThreads) flash_prefill_wgmma_kernel(
     l[u] += __shfl_xor_sync(0xffffffffu, l[u], 1);
     l[u] += __shfl_xor_sync(0xffffffffu, l[u], 2);
     const int r = wgi * kRows + warp * 16 + (lane >> 2) + 8 * u;
-    const int pos = q0 + r / group;
-    if (r >= rows_used || pos >= q_len) continue;
+    const int pos = q0 + r / gc;
+    if (r >= rows_used || pos >= q_len || r % gc >= hc) continue;
     const float inv = l[u] == 0.f ? 0.f : 1.f / l[u];  // no valid key: O is 0
-    bf16* dst = out + ((static_cast<size_t>(b) * q_len + pos) * n_q + h * group + r % group) * HD +
+    bf16* dst = out + ((static_cast<size_t>(b) * q_len + pos) * n_q + head0 + r % gc) * hd +
                 2 * (lane & 3);
+    constexpr int kN8 = kAcc / 4;  // 8-column groups of one product
 #pragma unroll
     for (int n8 = 0; n8 < HD / 8; ++n8) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n8) =
-          __floats2bfloat162_rn(o[4 * n8 + 2 * u] * inv, o[4 * n8 + 2 * u + 1] * inv);
+      const float lo = o[n8 / kN8][4 * (n8 % kN8) + 2 * u] * inv;
+      const float hi_v = o[n8 / kN8][4 * (n8 % kN8) + 2 * u + 1] * inv;
+      const int col = 8 * n8 + 2 * (lane & 3);
+      if (hd % 2 == 0) {  // rows and pairs 4-byte aligned
+        if (col < hd) {
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n8) = __floats2bfloat162_rn(lo, hi_v);
+        }
+      } else {
+        if (col < hd) dst[8 * n8] = __float2bfloat16(lo);
+        if (col + 1 < hd) dst[8 * n8 + 1] = __float2bfloat16(hi_v);
+      }
     }
   }
 }
@@ -477,18 +631,20 @@ __global__ void __launch_bounds__(kWG * kWGThreads) flash_prefill_wgmma_kernel(
 template <int HD, int kWG>
 cudaError_t launch_wg(const void* q, const void* k, const void* v, const void* offsets,
                       int offset, void* out, int batch, int q_len, int kv_len, int n_q, int n_kv,
-                      int window, float scale, cudaStream_t stream) {
-  const int block_q = kWG * kRows / (n_q / n_kv);
+                      int hd, int window, float scale, cudaStream_t stream) {
+  const int group = n_q / n_kv;
+  const int gc = head_chunk(group, kWG * kRows);
+  const int block_q = kWG * kRows / gc;
   const int smem = Smem<HD, kWG>::bytes;
   auto kernel = flash_prefill_wgmma_kernel<HD, kWG>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(n_kv, batch, (q_len + block_q - 1) / block_q);
+  const dim3 grid(n_kv * ((group + gc - 1) / gc), batch, (q_len + block_q - 1) / block_q);
   kernel<<<grid, kWG * kWGThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(offsets), offset, static_cast<bf16*>(out), q_len, kv_len, n_q, n_kv,
-      n_q / n_kv, window, scale * 1.4426950408889634f);
+      group, gc, hd, window, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -497,8 +653,8 @@ cudaError_t launch_wg(const void* q, const void* k, const void* v, const void* o
 // so that short chunks fill the card.
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* offsets, int offset,
-                   void* out, int batch, int q_len, int kv_len, int n_q, int n_kv, int window,
-                   float scale, cudaStream_t stream) {
+                   void* out, int batch, int q_len, int kv_len, int n_q, int n_kv, int hd,
+                   int window, float scale, cudaStream_t stream) {
   static int n_sm = 0;
   if (n_sm == 0) {
     int dev = 0;
@@ -506,14 +662,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* offs
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
   }
-  const int block_q2 = 2 * kRows / (n_q / n_kv);
-  const long ctas2 = static_cast<long>((q_len + block_q2 - 1) / block_q2) * n_kv * batch;
+  const int group = n_q / n_kv;
+  const int gc2 = head_chunk(group, 2 * kRows);
+  const int block_q2 = 2 * kRows / gc2;
+  const long ctas2 = static_cast<long>((q_len + block_q2 - 1) / block_q2) * n_kv *
+                     ((group + gc2 - 1) / gc2) * batch;
   if (ctas2 >= n_sm) {
-    return launch_wg<HD, 2>(q, k, v, offsets, offset, out, batch, q_len, kv_len, n_q, n_kv,
+    return launch_wg<HD, 2>(q, k, v, offsets, offset, out, batch, q_len, kv_len, n_q, n_kv, hd,
                             window, scale, stream);
   }
-  return launch_wg<HD, 1>(q, k, v, offsets, offset, out, batch, q_len, kv_len, n_q, n_kv, window,
-                          scale, stream);
+  return launch_wg<HD, 1>(q, k, v, offsets, offset, out, batch, q_len, kv_len, n_q, n_kv, hd,
+                          window, scale, stream);
 }
 
 }  // namespace wg
@@ -527,50 +686,53 @@ constexpr int kRows = 64;  // q rows per CTA (positions x group heads)
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-// Shared-memory plan, rows padded by 16 bytes against bank conflicts.
+// Shared-memory plan, rows padded by 16 bytes against bank conflicts; at
+// HD 256 32-key blocks, so that it fits.
 template <int HD>
 struct FlashSmem {
+  static constexpr int kBK = HD > 128 ? 32 : 64;  // keys per k-block
   static constexpr int LQ = HD + 4;        // q/k/v rows, floats
-  static constexpr int LS = kBlockK + 4;   // score and probability rows
+  static constexpr int LS = kBK + 4;       // score and probability rows
   static constexpr int LO = HD + 4;        // output accumulator rows
   static constexpr size_t q_off = 0;
   static constexpr size_t k_off = q_off + sizeof(float) * kRows * LQ;
-  static constexpr size_t v_off = k_off + sizeof(float) * kBlockK * LQ;
-  static constexpr size_t s_off = v_off + sizeof(float) * kBlockK * LQ;
+  static constexpr size_t v_off = k_off + sizeof(float) * kBK * LQ;
+  static constexpr size_t s_off = v_off + sizeof(float) * kBK * LQ;
   static constexpr size_t p_off = s_off + sizeof(float) * kRows * LS;
   static constexpr size_t o_off = p_off + sizeof(float) * kRows * LS;
   static constexpr size_t m_off = o_off + sizeof(float) * kRows * LO;
   static constexpr size_t bytes = m_off + sizeof(float) * 2 * kRows;
 };
 
-// S[kRows][kBlockK] = Q[kRows][HD] @ K[kBlockK][HD]^T (unscaled); a 16 x 16
-// thread grid, each thread a 4 x 4 block of scores.
+// S[kRows][kBK] = Q[kRows][HD] @ K[kBK][HD]^T (unscaled); a 16 x 16 thread
+// grid, each thread a 4 x (kBK / 16) block of scores.
 template <int HD>
 __device__ __forceinline__ void scores_tile(const float* qs, const float* ks, float* ss,
                                             int tid) {
   using SM = FlashSmem<HD>;
+  constexpr int kC = SM::kBK / 16;
   const int r0 = (tid / 16) * 4;
-  const int c0 = (tid % 16) * 4;
-  float acc[4][4] = {};
+  const int c0 = (tid % 16) * kC;
+  float acc[4][kC] = {};
   for (int d = 0; d < HD; ++d) {
-    float a[4], b[4];
+    float a[4], b[kC];
 #pragma unroll
     for (int i = 0; i < 4; ++i) a[i] = qs[(r0 + i) * SM::LQ + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = ks[(c0 + j) * SM::LQ + d];
+    for (int j = 0; j < kC; ++j) b[j] = ks[(c0 + j) * SM::LQ + d];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
+      for (int j = 0; j < kC; ++j) acc[i][j] += a[i] * b[j];
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) ss[(r0 + i) * SM::LS + c0 + j] = acc[i][j];
+    for (int j = 0; j < kC; ++j) ss[(r0 + i) * SM::LS + c0 + j] = acc[i][j];
 }
 
-// O[kRows][HD] += P[kRows][kBlockK] @ V[kBlockK][HD]; an 8 x 32 thread grid,
-// each thread 8 rows x (HD / 32) columns.
+// O[kRows][HD] += P[kRows][kBK] @ V[kBK][HD]; an 8 x 32 thread grid, each
+// thread 8 rows x (HD / 32) columns.
 template <int HD>
 __device__ __forceinline__ void pv_tile(const float* ps, const float* vs, float* os, int tid) {
   using SM = FlashSmem<HD>;
@@ -582,7 +744,7 @@ __device__ __forceinline__ void pv_tile(const float* ps, const float* vs, float*
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < kCols; ++j) acc[i][j] = os[(r0 + i) * SM::LO + c0 + j];
-  for (int t = 0; t < kBlockK; ++t) {
+  for (int t = 0; t < SM::kBK; ++t) {
     float vv[kCols];
 #pragma unroll
     for (int j = 0; j < kCols; ++j) vv[j] = vs[t * SM::LQ + c0 + j];
@@ -603,10 +765,11 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const int* __restrict__ offsets, int offset, float* __restrict__ out, int q_len, int kv_len,
-    int n_q, int n_kv, int group, int window, float scale) {
+    int n_q, int n_kv, int group, int gc, int hd, int window, float scale) {
   using SM = FlashSmem<HD>;
-  constexpr int kVec = 4;  // floats per 16-byte copy
-  constexpr int kVecPerRow = HD / kVec;
+  constexpr int kBlockK = SM::kBK;
+  constexpr int kPer = kBlockK / 32;  // scores a lane takes in the softmax
+  const int row_bytes = hd * 4;
 
   extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + SM::q_off);
@@ -621,10 +784,14 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int h = blockIdx.y;
+  // Grid y is (kv head, chunk of gc query heads), as in the bf16 kernel.
+  const int n_gc = (group + gc - 1) / gc;
+  const int h = blockIdx.y / n_gc;
+  const int head0 = h * group + (blockIdx.y % n_gc) * gc;
+  const int hc = min(gc, (h + 1) * group - head0);
   const int b = blockIdx.z;
-  const int block_q = kRows / group;  // query positions per CTA
-  const int rows_used = block_q * group;
+  const int block_q = kRows / gc;  // query positions per CTA
+  const int rows_used = block_q * gc;
   const int q0 = blockIdx.x * block_q;
   const int off = offsets != nullptr ? offsets[b] : offset;
 
@@ -633,18 +800,16 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   const int last_blk = min((q_last + off) / kBlockK, (kv_len - 1) / kBlockK);
   const int first_blk = window < 0 ? 0 : max(q0 + off - window + 1, 0) / kBlockK;
 
-  // Row r holds query position q0 + r / group of query head h*group + r % group.
-  for (int i = tid; i < kRows * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow;
-    const int vec = i % kVecPerRow;
-    const int pos = q0 + r / group;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_used && pos < q_len) {
-      val = *reinterpret_cast<const uint4*>(
-          q + ((static_cast<size_t>(b) * q_len + pos) * n_q + h * group + r % group) * HD +
-          vec * kVec);
-    }
-    *reinterpret_cast<uint4*>(qs + r * SM::LQ + vec * kVec) = val;
+  // Row r holds query position q0 + r / gc of query head head0 + r % gc;
+  // columns from hd on are zero.
+  for (int i = tid; i < kRows * HD; i += kThreads) {
+    const int r = i / HD;
+    const int d = i % HD;
+    const int pos = q0 + r / gc;
+    qs[r * SM::LQ + d] =
+        r < rows_used && pos < q_len && r % gc < hc && d < hd
+            ? q[((static_cast<size_t>(b) * q_len + pos) * n_q + head0 + r % gc) * hd + d]
+            : 0.f;
   }
   for (int i = tid; i < kRows * HD; i += kThreads) os[(i / HD) * SM::LO + i % HD] = 0.f;
   if (tid < kRows) {
@@ -653,18 +818,20 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   }
   __syncthreads();
 
+  // Rows in pieces of G bytes (16 at hd == HD), zero past hd and kv_len.
   auto load_tile = [&](float* dst, const float* src, int k0) {
-    for (int i = tid; i < kBlockK * kVecPerRow; i += kThreads) {
-      const int r = i / kVecPerRow;
-      const int vec = i % kVecPerRow;
-      float* d = dst + r * SM::LQ + vec * kVec;
-      if (k0 + r < kv_len) {
-        cp_async16(d, src + ((static_cast<size_t>(b) * kv_len + k0 + r) * n_kv + h) * HD +
-                          vec * kVec);
-      } else {
-        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    with_piece(row_bytes, [&](auto piece) {
+      constexpr int G = decltype(piece)::value;
+      constexpr int kPieces = HD * 4 / G;  // pieces of a padded row
+      for (int i = tid; i < kBlockK * kPieces; i += kThreads) {
+        const int r = i / kPieces;
+        const int w = i % kPieces;
+        const bool ok = k0 + r < kv_len && w * G < row_bytes;
+        const size_t g = ok ? ((static_cast<size_t>(b) * kv_len + k0 + r) * n_kv + h) * hd : 0;
+        copy_piece<G>(reinterpret_cast<unsigned char*>(dst + r * SM::LQ) + w * G,
+                      reinterpret_cast<const unsigned char*>(src + g) + (ok ? w * G : 0), ok);
       }
-    }
+    });
     cp_async_commit();
   };
 
@@ -681,19 +848,21 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     // Online softmax: warp w owns rows [8w, 8w + 8), lanes own columns.
     for (int rr = 0; rr < kRows / kWarps; ++rr) {
       const int r = warp * (kRows / kWarps) + rr;
-      const int pos = q0 + r / group;
-      const bool row_ok = r < rows_used && pos < q_len;
+      const int pos = q0 + r / gc;
+      const bool row_ok = r < rows_used && pos < q_len && r % gc < hc;
       const int q_abs = pos + off;
       const float m_prev = m_s[r];
-      float s[2];
-      bool valid[2];
+      float s[kPer];
+      bool valid[kPer];
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
+      for (int u = 0; u < kPer; ++u) {
         const int kp = k0 + lane + 32 * u;
         valid[u] = row_ok && kp <= q_abs && kp < kv_len && (window < 0 || kp > q_abs - window);
         s[u] = valid[u] ? ss[r * SM::LS + lane + 32 * u] * scale : -INFINITY;
       }
-      float m_cur = fmaxf(s[0], s[1]);
+      float m_cur = s[0];
+#pragma unroll
+      for (int u = 1; u < kPer; ++u) m_cur = fmaxf(m_cur, s[u]);
 #pragma unroll
       for (int o = 16; o; o >>= 1) m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, o));
       const float m_new = fmaxf(m_prev, m_cur);
@@ -703,7 +872,7 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
       const float base = m_new == -INFINITY ? 0.f : m_new;
       float sum = 0.f;
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
+      for (int u = 0; u < kPer; ++u) {
         const float p = valid[u] ? expf(s[u] - base) : 0.f;
         ps[r * SM::LS + lane + 32 * u] = p;
         sum += p;
@@ -726,10 +895,10 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   for (int i = tid; i < kRows * HD; i += kThreads) {
     const int r = i / HD;
     const int d = i % HD;
-    const int pos = q0 + r / group;
-    if (r < rows_used && pos < q_len) {
+    const int pos = q0 + r / gc;
+    if (r < rows_used && pos < q_len && r % gc < hc && d < hd) {
       const float l = l_s[r];
-      out[((static_cast<size_t>(b) * q_len + pos) * n_q + h * group + r % group) * HD + d] =
+      out[((static_cast<size_t>(b) * q_len + pos) * n_q + head0 + r % gc) * hd + d] =
           os[r * SM::LO + d] / (l == 0.f ? 1.f : l);
     }
   }
@@ -737,20 +906,21 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* offsets, int offset,
-                   void* out, int batch, int q_len, int kv_len, int n_q, int n_kv, int window,
-                   float scale, cudaStream_t stream) {
+                   void* out, int batch, int q_len, int kv_len, int n_q, int n_kv, int hd,
+                   int window, float scale, cudaStream_t stream) {
   const int group = n_q / n_kv;
-  const int block_q = kRows / group;
+  const int gc = head_chunk(group, kRows);
+  const int block_q = kRows / gc;
   const size_t smem = FlashSmem<HD>::bytes;
   auto kernel = flash_prefill_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((q_len + block_q - 1) / block_q, n_kv, batch);
+  const dim3 grid((q_len + block_q - 1) / block_q, n_kv * ((group + gc - 1) / gc), batch);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int*>(offsets), offset, static_cast<float*>(out), q_len, kv_len, n_q,
-      n_kv, group, window, scale);
+      n_kv, group, gc, hd, window, scale);
   return cudaGetLastError();
 }
 
@@ -761,31 +931,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* offs
 // q [batch, q_len, n_q, head_dim]; k/v [batch, kv_len, n_kv, head_dim];
 // offsets [batch] int32 causal offsets on the device, or null for one
 // `offset` shared by every batch row; out like q. window < 0: no sliding
-// window. dtype 0 = f32, 1 = bf16, each at head_dim 64 or 128; n_q / n_kv
-// (the GQA group) at most 64.
+// window. dtype 0 = f32, 1 = bf16, each at head_dim 1 to 256; any n_q /
+// n_kv (the GQA group).
 // Returns the launch's cudaError_t.
 extern "C" int kvt_flash_prefill(const void* q, const void* k, const void* v,
                                  const void* offsets, int offset, void* out, int batch,
                                  int q_len, int kv_len, int n_q, int n_kv, int head_dim,
                                  int window, float scale, int dtype, void* stream) {
-  if (n_kv <= 0 || n_q % n_kv != 0 || n_q / n_kv > 64 || batch <= 0 || q_len <= 0 ||
-      kv_len <= 0) {
+  if (n_kv <= 0 || n_q % n_kv != 0 || n_q / n_kv < 1 || batch <= 0 || q_len <= 0 ||
+      kv_len <= 0 || padded(head_dim) == 0 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 1 && head_dim == 128) {
-    err = wg::launch<128>(q, k, v, offsets, offset, out, batch, q_len, kv_len, n_q, n_kv, window,
-                          scale, s);
-  } else if (dtype == 1 && head_dim == 64) {
-    err = wg::launch<64>(q, k, v, offsets, offset, out, batch, q_len, kv_len, n_q, n_kv, window,
-                         scale, s);
-  } else if (dtype == 0 && head_dim == 128) {
-    err = f32::launch<128>(q, k, v, offsets, offset, out, batch, q_len, kv_len, n_q, n_kv, window,
-                           scale, s);
-  } else if (dtype == 0 && head_dim == 64) {
-    err = f32::launch<64>(q, k, v, offsets, offset, out, batch, q_len, kv_len, n_q, n_kv, window,
-                          scale, s);
+  auto go = [&](auto hd_padded) {
+    constexpr int HD = decltype(hd_padded)::value;
+    return dtype == 1 ? wg::launch<HD>(q, k, v, offsets, offset, out, batch, q_len, kv_len, n_q,
+                                       n_kv, head_dim, window, scale, s)
+                      : f32::launch<HD>(q, k, v, offsets, offset, out, batch, q_len, kv_len, n_q,
+                                        n_kv, head_dim, window, scale, s);
+  };
+  cudaError_t err;
+  switch (padded(head_dim)) {
+    case 64: err = go(std::integral_constant<int, 64>{}); break;
+    case 128: err = go(std::integral_constant<int, 128>{}); break;
+    default: err = go(std::integral_constant<int, 256>{}); break;
   }
   return static_cast<int>(err);
 }

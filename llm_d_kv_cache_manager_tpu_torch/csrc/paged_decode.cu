@@ -42,11 +42,13 @@
 // design: one CTA per (sequence, kv head) over the body of
 // paged_decode_common.cuh.
 //
-// Shapes: head_dim 64 or 128, any GQA group up to 64. A group above 8 runs
-// as chunks of at most 8 query heads over the same kv head
-// (paged_decode_common.cuh, `rows_of`): one more cluster (bf16 q) or CTA
-// (f32 q) per chunk, each reading the kv head's pages again, so group 12
-// moves twice the K/V bytes of one pass.
+// Shapes: every head_dim up to 256, built at the padded widths 64, 128 and
+// 256 with the true head_dim passed at run time (each body's notes say how
+// unpadded rows are copied); any GQA group. A group above 8 (4 at head dims
+// above 128) runs as chunks over the same kv head (paged_decode_common.cuh,
+// `rows_of`): one more cluster (bf16 q) or CTA (f32 q) per chunk, each
+// reading the kv head's pages again, so group 12 moves twice the K/V bytes
+// of one pass and group 71 nine times.
 
 #include <cooperative_groups.h>
 
@@ -61,27 +63,27 @@ __global__ void __launch_bounds__(HD) paged_decode_kernel(
     const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int* __restrict__ block_tables,
     const int* __restrict__ seq_lens, TQ* __restrict__ out, int n_q, int group,
-    int n_pages, int page_size, int table_width, int window, float scale) {
+    int n_pages, int page_size, int table_width, int window, float scale, int hd, int rows) {
   const int b = blockIdx.x;
-  const ChunkRows c = chunk_rows<ROWS>(blockIdx.y, group);
+  const ChunkRows c = chunk_rows(blockIdx.y, group, rows);
   const int seq_len = seq_lens[b];
   // Positions past the table do not exist, as in the plain version's gather.
   const int kv_len = min(seq_len, table_width * page_size);
   const int first_page = window < 0 ? 0 : max(seq_len - window, 0) / page_size;
   const int win_lo = window < 0 ? 0 : seq_len - window;
-  const size_t q0 = (static_cast<size_t>(b) * n_q + c.row0) * HD;
+  const size_t q0 = (static_cast<size_t>(b) * n_q + c.row0) * hd;
 
   float acc[ROWS], m[ROWS], l[ROWS];
   attend_range<TQ, TKV, HD, ROWS>(
       q + q0, k_pages, v_pages, k_scales, v_scales,
       block_tables + static_cast<size_t>(b) * table_width,
       static_cast<size_t>(c.h) * n_pages, n_pages, page_size,
-      first_page * page_size, kv_len, win_lo, scale, c.n_rows, acc, m, l);
+      first_page * page_size, kv_len, win_lo, scale, c.n_rows, hd, acc, m, l);
 
 #pragma unroll
   for (int g = 0; g < ROWS; ++g) {
-    if (g < c.n_rows) {
-      out[q0 + g * HD + threadIdx.x] = from_f<TQ>(acc[g] / (l[g] == 0.f ? 1.f : l[g]));
+    if (g < c.n_rows && static_cast<int>(threadIdx.x) < hd) {
+      out[q0 + g * hd + threadIdx.x] = from_f<TQ>(acc[g] / (l[g] == 0.f ? 1.f : l[g]));
     }
   }
 }
@@ -91,17 +93,17 @@ __global__ void __launch_bounds__(HD) paged_decode_kernel(
 // of the live pages; the cluster then merges through distributed shared
 // memory.
 template <typename TKV, int HD, int ROWS>
-__global__ void __launch_bounds__(sm90::kThreads, 2) paged_decode_cluster_kernel(
+__global__ void __launch_bounds__(sm90::kThreads, HD > 128 ? 1 : 2) paged_decode_cluster_kernel(
     const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k_pages,
     const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int* __restrict__ block_tables,
     const int* __restrict__ seq_lens, __nv_bfloat16* __restrict__ out, int n_q, int group,
-    int n_pages, int page_size, int table_width, int window, float scale_log2) {
+    int n_pages, int page_size, int table_width, int window, float scale_log2, int hd) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int n_ranks = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const ChunkRows c = chunk_rows<ROWS>(blockIdx.y, group);
+  const ChunkRows c = chunk_rows(blockIdx.y, group, ROWS);
   const int b = blockIdx.z;
   const int seq_len = seq_lens[b];
   // Positions past the table do not exist, as in the plain version's gather.
@@ -112,17 +114,18 @@ __global__ void __launch_bounds__(sm90::kThreads, 2) paged_decode_cluster_kernel
   const int per_rank = (max(n_seq_pages - first_page, 0) + n_ranks - 1) / n_ranks;
   const int lo_page = first_page + rank * per_rank;
   const int hi_page = min(lo_page + per_rank, n_seq_pages);
-  const size_t q0 = (static_cast<size_t>(b) * n_q + c.row0) * HD;
+  const size_t q0 = (static_cast<size_t>(b) * n_q + c.row0) * hd;
 
   const float* part = sm90::attend_range<__nv_bfloat16, TKV, HD, ROWS>(
       q + q0, k_pages, v_pages, k_scales, v_scales,
       block_tables + static_cast<size_t>(b) * table_width, static_cast<size_t>(c.h) * n_pages,
       n_pages, page_size, lo_page * page_size, min(hi_page * page_size, kv_len), win_lo,
-      scale_log2, c.n_rows);
+      scale_log2, c.n_rows, hd);
 
   cluster.sync();  // every rank's partial is in its shared memory
-  // Each rank merges HD / n_ranks columns (the cluster, a power of two up to
-  // 8, divides 64 and 128).
+  // Each rank merges HD / n_ranks columns of the padded width (the cluster,
+  // a power of two up to 8, divides 64, 128 and 256) and writes those below
+  // hd.
   const int cols = HD / n_ranks;
   for (int i = threadIdx.x; i < c.n_rows * cols; i += blockDim.x) {
     const int g = i / cols;
@@ -142,7 +145,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 2) paged_decode_cluster_kernel
         a = fmaf(f, pr[g * HD + col], a);
       }
     }
-    out[q0 + g * HD + col] = __float2bfloat16(ll == 0.f ? 0.f : a / ll);
+    if (col < hd) out[q0 + g * hd + col] = __float2bfloat16(ll == 0.f ? 0.f : a / ll);
   }
   cluster.sync();  // no CTA leaves while a peer may still read its partial
 }
@@ -156,12 +159,13 @@ struct Args {
   const int* bt;
   const int* sl;
   void* out;
-  int batch, n_q, n_kv, group, n_pages, page_size, table_width, window, cluster;
+  int batch, n_q, n_kv, group, n_pages, page_size, head_dim, table_width, window, cluster;
   float scale;
   cudaStream_t stream;
 };
 
-// f32 q: one CTA per (sequence, kv head, chunk).
+// f32 q: one CTA per (sequence, kv head, chunk), built at ROWS =
+// max_rows_of(HD) for every chunk size.
 template <typename TQ, typename TKV, int HD, int ROWS>
 cudaError_t launch(const Args& a) {
   const int smem = static_cast<int>(DecodeSmem<TKV, HD, ROWS>::bytes);
@@ -169,11 +173,11 @@ cudaError_t launch(const Args& a) {
   static std::atomic<unsigned> attributes_set{0};
   const cudaError_t attr = sm90::set_attributes(kernel, smem, attributes_set);
   if (attr != cudaSuccess) return attr;
-  kernel<<<dim3(a.batch, a.n_kv * n_chunks_of(a.group)), HD, smem, a.stream>>>(
+  kernel<<<dim3(a.batch, a.n_kv * n_chunks_of(a.group, a.head_dim)), HD, smem, a.stream>>>(
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), a.ks, a.vs, a.bt, a.sl,
       static_cast<TQ*>(a.out), a.n_q, a.group, a.n_pages, a.page_size, a.table_width,
-      a.window, a.scale);
+      a.window, a.scale, a.head_dim, rows_of(a.group, a.head_dim));
   return cudaGetLastError();
 }
 
@@ -191,7 +195,7 @@ cudaError_t launch_cluster(const Args& a) {
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.cluster, a.n_kv * n_chunks_of(a.group), a.batch);
+  cfg.gridDim = dim3(a.cluster, a.n_kv * n_chunks_of(a.group, a.head_dim), a.batch);
   cfg.blockDim = dim3(sm90::kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = a.stream;
@@ -201,21 +205,22 @@ cudaError_t launch_cluster(const Args& a) {
       &cfg, kernel, static_cast<const __nv_bfloat16*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), a.ks, a.vs, a.bt, a.sl, static_cast<__nv_bfloat16*>(a.out),
       a.n_q, a.group, a.n_pages, a.page_size, a.table_width, a.window,
-      a.scale * 1.4426950408889634f);
+      a.scale * 1.4426950408889634f, a.head_dim);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <typename TQ, typename TKV>
-cudaError_t dispatch(int head_dim, const Args& a) {
-  return with_shape(head_dim, rows_of(a.group), [&](auto hd, auto rows) {
-    return launch<TQ, TKV, decltype(hd)::value, decltype(rows)::value>(a);
+cudaError_t dispatch(const Args& a) {
+  return with_padded(a.head_dim, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    return launch<TQ, TKV, HD, max_rows_of(HD)>(a);
   });
 }
 
 template <typename TKV>
-cudaError_t dispatch_cluster(int head_dim, const Args& a) {
-  return with_shape(head_dim, rows_of(a.group), [&](auto hd, auto rows) {
+cudaError_t dispatch_cluster(const Args& a) {
+  return with_shape(a.head_dim, rows_of(a.group, a.head_dim), [&](auto hd, auto rows) {
     return launch_cluster<TKV, decltype(hd)::value, decltype(rows)::value>(a);
   });
 }
@@ -225,8 +230,8 @@ cudaError_t dispatch_cluster(int head_dim, const Args& a) {
 // q [batch, n_q, head_dim]; k/v pages [n_kv, n_pages, page_size, head_dim];
 // k/v scales [n_kv, n_pages, page_size, 1] f32 (int8 pages only, else null);
 // block_tables [batch, table_width] int32; seq_lens [batch] int32;
-// out [batch, n_q, head_dim]. head_dim 64 or 128; n_q / n_kv (the GQA group)
-// at most 64. window < 0: no sliding window. cluster: CTAs per (sequence, kv
+// out [batch, n_q, head_dim]. head_dim 1 to 256; any n_q / n_kv (the GQA
+// group). window < 0: no sliding window. cluster: CTAs per (sequence, kv
 // head, group chunk) for bf16 q, a power of two up to 8 (1 for f32 q).
 // dtype (of q and out) 0 = f32, 1 = bf16; kv_int8 0: pages in the dtype of
 // q, 1: int8 pages with scales.
@@ -239,8 +244,8 @@ extern "C" int kvt_paged_decode(const void* q, const void* k_pages,
                                 int head_dim, int table_width, int window,
                                 int cluster, float scale, int dtype, int kv_int8,
                                 void* stream) {
-  if ((head_dim != 64 && head_dim != 128) || n_kv <= 0 || n_q % n_kv != 0 ||
-      n_q / n_kv < 1 || n_q / n_kv > 64 || page_size <= 0 ||
+  if (head_dim < 1 || head_dim > 256 || n_kv <= 0 || n_q % n_kv != 0 || n_q / n_kv < 1 ||
+      page_size <= 0 ||
       (kv_int8 && (k_scales == nullptr || v_scales == nullptr)) || cluster <= 0 ||
       cluster > 8 || (cluster & (cluster - 1)) || (dtype != 1 && cluster != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -249,14 +254,13 @@ extern "C" int kvt_paged_decode(const void* q, const void* k_pages,
                static_cast<const float*>(v_scales),
                static_cast<const int*>(block_tables),
                static_cast<const int*>(seq_lens), out, batch, n_q, n_kv, n_q / n_kv,
-               n_pages, page_size, table_width, window, cluster, scale,
+               n_pages, page_size, head_dim, table_width, window, cluster, scale,
                static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   if (dtype == 1) {
-    err = kv_int8 ? dispatch_cluster<int8_t>(head_dim, a)
-                  : dispatch_cluster<__nv_bfloat16>(head_dim, a);
+    err = kv_int8 ? dispatch_cluster<int8_t>(a) : dispatch_cluster<__nv_bfloat16>(a);
   } else if (dtype == 0) {
-    err = kv_int8 ? dispatch<float, int8_t>(head_dim, a) : dispatch<float, float>(head_dim, a);
+    err = kv_int8 ? dispatch<float, int8_t>(a) : dispatch<float, float>(a);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -5,21 +5,28 @@
 // positions. bf16 q, on either page format, runs the Hopper body of
 // paged_decode_sm90.cuh instead.
 //
-// One thread per head_dim lane. The range is walked 64 tokens at a time
-// through a two-stage cp.async ring, so the next chunk's K and V are in
-// flight while the current one is scored. Each token row finds its own page,
-// `table[pos / page_size]`, so any page size works (a chunk spans several
-// small pages or half of a 128-token page). Copies are 16 bytes, rows are
-// padded by 16 bytes so the per-token score loop reads shared memory without
-// bank conflicts, and the GQA group shares each staged row, so K/V move once
-// per kv head. Int8 rows (128 bytes) take the same ring; their f32 scales
-// ride along with 4-byte copies and stay out of the inner products:
-// score = scale_k * sum(q * k_int8), and P @ V accumulates
+// One thread per lane of the padded head dim (64, 128 or 256; `padded`).
+// The range is walked 64 tokens at a time (32 for f32 pages at head_dim
+// 256, so two stages fit shared memory) through a two-stage cp.async ring,
+// so the next chunk's K and V are in flight while the current one is
+// scored. Each token row finds its own page, `table[pos / page_size]`, so
+// any page size works (a chunk spans several small pages or half of a
+// 128-token page). Rows are padded by 16 bytes so the per-token score loop
+// reads shared memory without bank conflicts, and the GQA group shares each
+// staged row, so K/V move once per kv head. Int8 rows take the same ring;
+// their f32 scales ride along with 4-byte copies and stay out of the inner
+// products: score = scale_k * sum(q * k_int8), and P @ V accumulates
 // (p * scale_v) * v_int8. The softmax runs online in f32.
 //
+// A head dim below its padded width (50, 80, 96, 100, ...) keeps the pools'
+// unpadded rows ([.., head_dim]): each row is copied in pieces of the
+// largest size its byte width is a multiple of (`row_piece`: 16, 8 or 4
+// bytes by cp.async, 2 or 1 by plain loads; `copy_piece`), the padded columns of the
+// shared rows and of q stay zero, and only the true columns are written.
+//
 // Also here, for both decode sources and both bodies: how a GQA group maps
-// onto CTAs (`n_chunks_of`, `rows_of`) and the dispatch over the built
-// (head_dim, rows) instantiations (`with_shape`).
+// onto CTAs (`n_chunks_of`, `rows_of`), the padded widths, and the dispatch
+// over the built (padded head_dim, rows) instantiations (`with_shape`).
 
 #pragma once
 
@@ -33,48 +40,74 @@
 
 namespace {
 
-constexpr int kChunk = 64;  // tokens staged per pipeline step
-
-// A decode CTA holds at most kMaxRows query heads (the sm90 body keeps q and
-// acc for each in registers). A GQA group above that runs as n_chunks_of
-// chunks of rows_of rows each over the same kv head, one more CTA (or
-// cluster) per chunk: group 12 as 2 x 6, 16 as 2 x 8, 13 as 2 x 7 (the last
-// chunk's seventh row does not exist). Each chunk reads the kv head's pages
-// again, so a group of g > 8 moves ceil(g / 8) times the K/V bytes of one
-// pass. ops/paged_attention.py (`group_chunks`) follows the same rule.
+// A decode CTA holds at most max_rows_of(head_dim) query heads (the sm90
+// body keeps q and acc for each in registers: 8 up to head_dim 128, 4 above,
+// where a lane holds 16 columns). A GQA group above that runs as
+// n_chunks_of chunks of rows_of rows each over the same kv head, one more
+// CTA (or cluster) per chunk: group 12 as 2 x 6, 16 as 2 x 8, 13 as 2 x 7
+// (the last chunk's seventh row does not exist), 71 as 9 x 8. Each chunk
+// reads the kv head's pages again, so a group of g > 8 moves ceil(g / 8)
+// times the K/V bytes of one pass. ops/paged_attention.py (`group_chunks`)
+// follows the same rule.
 constexpr int kMaxRows = 8;
-__host__ __device__ constexpr int n_chunks_of(int group) {
-  return (group + kMaxRows - 1) / kMaxRows;
+__host__ __device__ constexpr int max_rows_of(int head_dim) {
+  return head_dim > 128 ? kMaxRows / 2 : kMaxRows;
 }
-__host__ __device__ constexpr int rows_of(int group) {
-  return (group + n_chunks_of(group) - 1) / n_chunks_of(group);
+__host__ __device__ constexpr int n_chunks_of(int group, int head_dim) {
+  return (group + max_rows_of(head_dim) - 1) / max_rows_of(head_dim);
+}
+__host__ __device__ constexpr int rows_of(int group, int head_dim) {
+  return (group + n_chunks_of(group, head_dim) - 1) / n_chunks_of(group, head_dim);
+}
+
+// The width a head dim is built at: 64, 128 or 256 (0: none, above 256).
+constexpr int padded(int head_dim) {
+  return head_dim <= 64 ? 64 : head_dim <= 128 ? 128 : head_dim <= 256 ? 256 : 0;
 }
 
 // Grid row y of a decode launch is the pair (kv head h, chunk): the chunk's
-// first query row in the sequence's q, and how many of its ROWS exist.
+// first query row in the sequence's q, and how many of its `rows` (rows_of)
+// exist. (No chunk is empty, so a group runs in ceil(group / rows) chunks.)
 struct ChunkRows {
   int h, row0, n_rows;
 };
-template <int ROWS>
-__device__ __forceinline__ ChunkRows chunk_rows(int y, int group) {
-  const int n_chunks = n_chunks_of(group);
+__device__ __forceinline__ ChunkRows chunk_rows(int y, int group, int rows) {
+  const int n_chunks = (group + rows - 1) / rows;
   const int h = y / n_chunks;
   const int chunk = y % n_chunks;
-  return {h, h * group + chunk * ROWS, min(ROWS, group - chunk * ROWS)};
+  return {h, h * group + chunk * rows, min(rows, group - chunk * rows)};
 }
 
 // launch(std::integral_constant<int, HD>, std::integral_constant<int, ROWS>)
-// for the instantiation that serves head_dim and rows; cudaErrorInvalidValue
-// for a shape no kernel is built for.
+// for the instantiation that serves head_dim (HD its padded width) and rows;
+// cudaErrorInvalidValue for a shape no kernel is built for.
 template <int ROWS, typename F>
 cudaError_t with_head_dim(int head_dim, F& launch) {
-  if (head_dim == 64) {
-    return launch(std::integral_constant<int, 64>{}, std::integral_constant<int, ROWS>{});
+  switch (head_dim < 1 ? 0 : padded(head_dim)) {
+    case 64:
+      return launch(std::integral_constant<int, 64>{}, std::integral_constant<int, ROWS>{});
+    case 128:
+      return launch(std::integral_constant<int, 128>{}, std::integral_constant<int, ROWS>{});
+    case 256:
+      if constexpr (ROWS <= max_rows_of(256)) {
+        return launch(std::integral_constant<int, 256>{}, std::integral_constant<int, ROWS>{});
+      }
+      return cudaErrorInvalidValue;
+    default:
+      return cudaErrorInvalidValue;
   }
-  if (head_dim == 128) {
-    return launch(std::integral_constant<int, 128>{}, std::integral_constant<int, ROWS>{});
+}
+// launch(std::integral_constant<int, HD>) for head_dim's padded width: the
+// f32-q body, built once a width at max_rows_of(HD) rows, takes any chunk's
+// rows at run time.
+template <typename F>
+cudaError_t with_padded(int head_dim, F&& launch) {
+  switch (head_dim < 1 ? 0 : padded(head_dim)) {
+    case 64: return launch(std::integral_constant<int, 64>{});
+    case 128: return launch(std::integral_constant<int, 128>{});
+    case 256: return launch(std::integral_constant<int, 256>{});
+    default: return cudaErrorInvalidValue;
   }
-  return cudaErrorInvalidValue;
 }
 template <typename F>
 cudaError_t with_shape(int head_dim, int rows, F&& launch) {
@@ -89,6 +122,13 @@ cudaError_t with_shape(int head_dim, int rows, F&& launch) {
     case 8: return with_head_dim<8>(head_dim, launch);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The largest copy (16, 8, 4, 2 or 1 bytes) that every row of `row_bytes`
+// bytes splits into on aligned addresses (the pools are 16-byte aligned).
+__host__ __device__ constexpr int row_piece(int row_bytes) {
+  return row_bytes % 16 == 0 ? 16 : row_bytes % 8 == 0 ? 8 : row_bytes % 4 == 0 ? 4
+       : row_bytes % 2 == 0 ? 2 : 1;
 }
 
 template <typename T>
@@ -125,12 +165,38 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// One piece of g bytes (row_piece's) of a row, global to shared: cp.async
+// for 16, 8 and 4 bytes (the caller commits or arrives), a plain load and
+// store for 2 and 1. One loop with this switch inside keeps the generic
+// paths small.
+__device__ __forceinline__ void copy_piece(void* smem, const void* gmem, int g) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  switch (g) {
+    case 16:
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+      break;
+    case 8:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem) : "memory");
+      break;
+    case 4:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+      break;
+    case 2:
+      *static_cast<uint16_t*>(smem) = *static_cast<const uint16_t*>(gmem);
+      break;
+    default:
+      *static_cast<uint8_t*>(smem) = *static_cast<const uint8_t*>(gmem);
+  }
+}
+
 // TKV: the storage type of the pages, the type of q itself or int8_t (then
-// with f32 per-row scales).
+// with f32 per-row scales). HD: the padded head dim.
 template <typename TKV, int HD, int ROWS>
 struct DecodeSmem {
   static constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
-  static constexpr int kVec = 16 / sizeof(TKV);  // elements per 16-byte copy
+  // Tokens a stage: 64, or 32 where two stages of 64 rows would not fit.
+  static constexpr int kChunk = sizeof(TKV) * HD > 512 ? 32 : 64;
+  static constexpr int kVec = 16 / sizeof(TKV);  // elements per 16 bytes
   static constexpr int kRow = HD + kVec;         // padded K/V row, elements
   static constexpr size_t kv_bytes = 2ull * kChunk * kRow * sizeof(TKV);
   static constexpr size_t scale_floats = kQuant ? 2 * 2 * kChunk : 0;
@@ -139,28 +205,32 @@ struct DecodeSmem {
       sizeof(float) * (scale_floats + ROWS * HD + ROWS * kChunk + 3 * ROWS);
 };
 
-// Attend the ROWS query heads at q_group ([ROWS][HD]; rows from n_rows on
+// Attend the ROWS query heads at q_group ([ROWS][hd]; rows from n_rows on
 // do not exist and read as zeros) over positions [pos0, pos_end) of one
 // sequence and kv head (`table`: the sequence's block
 // table row; `head_page0`: h * n_pages), masking positions below win_lo.
-// Leaves this thread's lane of the unnormalized output in acc and each
-// group row's running max and normalizer in m and l (m = -inf, l = 0 when
-// nothing was attended). Every thread of the CTA must call it.
+// Leaves this thread's lane of the unnormalized output in acc (lanes from
+// hd on hold zeros) and each group row's running max and normalizer in m
+// and l (m = -inf, l = 0 when nothing was attended). Every thread of the
+// CTA (HD, the padded head dim) must call it.
 template <typename TQ, typename TKV, int HD, int ROWS>
 __device__ __forceinline__ void attend_range(
     const TQ* __restrict__ q_group, const TKV* __restrict__ k_pages,
     const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int* __restrict__ table,
     size_t head_page0, int n_pages, int page_size, int pos0, int pos_end,
-    int win_lo, float scale, int n_rows, float (&acc)[ROWS], float (&m)[ROWS],
+    int win_lo, float scale, int n_rows, int hd, float (&acc)[ROWS], float (&m)[ROWS],
     float (&l)[ROWS]) {
   using SM = DecodeSmem<TKV, HD, ROWS>;
   constexpr bool kQuant = SM::kQuant;
+  constexpr int kChunk = SM::kChunk;
+  constexpr int kPer = kChunk / 32;  // scores a lane takes in the softmax
   constexpr int kThreads = HD;  // one thread per output lane
   constexpr int kWarps = kThreads / 32;
   constexpr int kVec = SM::kVec;
   constexpr int kRow = SM::kRow;
   constexpr int kVecPerRow = HD / kVec;
+  const int row_bytes = hd * static_cast<int>(sizeof(TKV));
 
   extern __shared__ __align__(16) unsigned char smem[];
   TKV* ks = reinterpret_cast<TKV*>(smem);                // [2][kChunk][kRow]
@@ -179,11 +249,21 @@ __device__ __forceinline__ void attend_range(
   const int n_chunks = pos_end > pos0 ? (pos_end - pos0 + kChunk - 1) / kChunk : 0;
 
   for (int i = tid; i < ROWS * HD; i += kThreads) {
-    qs[i] = i / HD < n_rows ? to_f(q_group[i]) : 0.f;
+    const int g = i / HD, d = i % HD;
+    qs[i] = g < n_rows && d < hd ? to_f(q_group[g * hd + d]) : 0.f;
   }
   if (tid < ROWS) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
+  }
+  // The copies below write a row's first hd columns only: the padded
+  // columns of every staged row stay zero.
+  if (hd < HD) {
+    for (int i = tid; i < 2 * 2 * kChunk * (HD - hd); i += kThreads) {
+      const int r = i / (HD - hd);
+      (r < 2 * kChunk ? ks + r * kRow : vs + (r - 2 * kChunk) * kRow)[hd + i % (HD - hd)] =
+          TKV(0);
+    }
   }
 
   // Stage chunk c (positions pos0 + c*kChunk ...) into `stage`.
@@ -191,17 +271,42 @@ __device__ __forceinline__ void attend_range(
     const int c_start = pos0 + c * kChunk;
     TKV* kd = ks + stage * kChunk * kRow;
     TKV* vd = vs + stage * kChunk * kRow;
-    for (int i = tid; i < kChunk * kVecPerRow; i += kThreads) {
-      const int t = i / kVecPerRow;
-      const int vec = i % kVecPerRow;
-      const int pos = c_start + t;
-      if (pos >= pos_end) continue;
-      const int page = table[pos / page_size];
-      if (page < 0 || page >= n_pages) continue;
-      const size_t row = (head_page0 + page) * page_size + pos % page_size;
-      cp_async16(kd + t * kRow + vec * kVec, k_pages + row * HD + vec * kVec);
-      cp_async16(vd + t * kRow + vec * kVec, v_pages + row * HD + vec * kVec);
-      if (kQuant && vec == 0) {
+    if (hd == HD) {
+      for (int i = tid; i < kChunk * kVecPerRow; i += kThreads) {
+        const int t = i / kVecPerRow;
+        const int vec = i % kVecPerRow;
+        const int pos = c_start + t;
+        if (pos >= pos_end) continue;
+        const int page = table[pos / page_size];
+        if (page < 0 || page >= n_pages) continue;
+        const size_t row = (head_page0 + page) * page_size + pos % page_size;
+        cp_async16(kd + t * kRow + vec * kVec, k_pages + row * HD + vec * kVec);
+        cp_async16(vd + t * kRow + vec * kVec, v_pages + row * HD + vec * kVec);
+      }
+    } else {
+      const int g = row_piece(row_bytes);
+      const int pieces = row_bytes / g;
+      for (int i = tid; i < kChunk * pieces; i += kThreads) {
+        const int t = i / pieces;
+        const int off = (i - t * pieces) * g;
+        const int pos = c_start + t;
+        if (pos >= pos_end) continue;
+        const int page = table[pos / page_size];
+        if (page < 0 || page >= n_pages) continue;
+        const size_t row = (head_page0 + page) * page_size + pos % page_size;
+        copy_piece(reinterpret_cast<unsigned char*>(kd + t * kRow) + off,
+                   reinterpret_cast<const unsigned char*>(k_pages + row * hd) + off, g);
+        copy_piece(reinterpret_cast<unsigned char*>(vd + t * kRow) + off,
+                   reinterpret_cast<const unsigned char*>(v_pages + row * hd) + off, g);
+      }
+    }
+    if constexpr (kQuant) {
+      for (int t = tid; t < kChunk; t += kThreads) {
+        const int pos = c_start + t;
+        if (pos >= pos_end) continue;
+        const int page = table[pos / page_size];
+        if (page < 0 || page >= n_pages) continue;
+        const size_t row = (head_page0 + page) * page_size + pos % page_size;
         cp_async4(kss + stage * kChunk + t, k_scales + row);
         cp_async4(vss + stage * kChunk + t, v_scales + row);
       }
@@ -261,9 +366,13 @@ __device__ __forceinline__ void attend_range(
     // row scales for int8 pages) overwrite ss.
     for (int g = warp; g < ROWS; g += kWarps) {
       const float m_prev = m_s[g];
-      const float s0 = ss[g * kChunk + lane];
-      const float s1 = ss[g * kChunk + lane + 32];
-      float m_cur = fmaxf(s0, s1);
+      float s[kPer];
+      float m_cur = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        s[u] = ss[g * kChunk + lane + 32 * u];
+        m_cur = fmaxf(m_cur, s[u]);
+      }
 #pragma unroll
       for (int o = 16; o; o >>= 1) {
         m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, o));
@@ -273,17 +382,18 @@ __device__ __forceinline__ void attend_range(
       // and subtract 0 instead (exp(-inf - -inf) would be NaN).
       const float alpha = m_new == -INFINITY ? 0.f : expf(m_prev - m_new);
       const float base = m_new == -INFINITY ? 0.f : m_new;
-      const float p0 = s0 == -INFINITY ? 0.f : expf(s0 - base);
-      const float p1 = s1 == -INFINITY ? 0.f : expf(s1 - base);
-      if constexpr (kQuant) {
-        // Masked slots may hold stale scales: keep their weight exactly 0.
-        ss[g * kChunk + lane] = p0 == 0.f ? 0.f : p0 * vsc[lane];
-        ss[g * kChunk + lane + 32] = p1 == 0.f ? 0.f : p1 * vsc[lane + 32];
-      } else {
-        ss[g * kChunk + lane] = p0;
-        ss[g * kChunk + lane + 32] = p1;
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        const float p = s[u] == -INFINITY ? 0.f : expf(s[u] - base);
+        if constexpr (kQuant) {
+          // Masked slots may hold stale scales: keep their weight exactly 0.
+          ss[g * kChunk + lane + 32 * u] = p == 0.f ? 0.f : p * vsc[lane + 32 * u];
+        } else {
+          ss[g * kChunk + lane + 32 * u] = p;
+        }
+        sum += p;
       }
-      float sum = p0 + p1;
 #pragma unroll
       for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
       if (lane == 0) {

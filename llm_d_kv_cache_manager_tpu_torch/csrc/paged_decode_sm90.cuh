@@ -65,6 +65,22 @@
 //    scales, are never read, so a stale row in the ring cannot leak a NaN.
 //  - Warps merge their (m, l, acc) once, at the end of the range, through
 //    shared memory (the ring, free by then).
+//
+// Head dims: the body is built at the padded widths 64, 128 and 256 (HD);
+// the true head dim (hd) comes at run time. At hd == HD the rows are
+// 16-byte multiples and a page piece is one bulk copy, as above. Below it
+// (50, 80, 96, 100, ...) the pools keep their unpadded rows, whose starts
+// are only 8, 4, 2 or 1-byte aligned (a bf16 row of 100 is 200 bytes, an
+// int8 one 100), so no bulk copy may start or end there: the producer's
+// lanes copy each row of the piece into its padded slot in pieces of the
+// largest size its byte width allows (`row_piece`: 16, 8 or 4 bytes by
+// cp.async, each lane then arriving on the stage's "full" barrier through
+// cp.async.mbarrier.arrive; 2 or 1 by plain loads, the lane arriving after
+// them). The padded columns of every ring row are zeroed once, before the
+// first stage, and no copy writes them; q's padded columns are zero, so
+// they add nothing to a score, and only the true columns are written out.
+// At HD 256 a lane holds 16 columns, so a CTA takes at most 4 query heads
+// (`max_rows_of`) and one CTA fills an SM on bf16 pages (a 192 KB ring).
 
 #pragma once
 
@@ -75,6 +91,8 @@
 
 #include <atomic>
 #include <type_traits>
+
+#include "paged_decode_common.cuh"  // row_piece, copy_piece
 
 namespace sm90 {
 
@@ -92,9 +110,10 @@ struct Smem {
   static constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   static_assert(kQuant || std::is_same<TKV, __nv_bfloat16>::value,
                 "the sm90 decode body takes bf16 or int8 pages");
-  // A half-warp covers one row, HD / 16 columns a lane: 4 or 8, one vector
-  // load of 4 to 16 bytes on either page format.
-  static_assert(HD == 64 || HD == 128, "the sm90 decode body takes head_dim 64 or 128");
+  // A half-warp covers one row, HD / 16 columns a lane: 4, 8 or 16, vector
+  // loads of 4 to 32 bytes on either page format.
+  static_assert(HD == 64 || HD == 128 || HD == 256,
+                "the sm90 decode body is built at head_dim 64, 128 or 256");
   static constexpr int kCols = HD / 16;
   static constexpr int kRowBytes = HD * sizeof(TKV);
   static constexpr int kTileBytes = kStage * kRowBytes;  // one stage's K (or V)
@@ -150,6 +169,9 @@ __device__ __forceinline__ void copy4_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar)
                : "memory");
 }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
 // W words of bf16 pairs -> 2W floats.
 template <int W>
@@ -178,14 +200,20 @@ __device__ __forceinline__ void unpack(const uint32_t (&w)[W], float (&x)[4 * W]
 }
 
 // Columns N hl .. N hl + N - 1 of the row at `row` (type T, bf16 or int8),
-// as floats: one vector load of 4, 8 or 16 bytes.
+// as floats: vector loads of 4, 8, 16 or 2 x 16 bytes.
 template <typename T, int N>
 __device__ __forceinline__ void load_cols(const void* row, int hl, float (&x)[N]) {
   constexpr int kWords = N * static_cast<int>(sizeof(T)) / 4;
-  static_assert(kWords == 1 || kWords == 2 || kWords == 4, "a lane loads 4, 8 or 16 bytes");
+  static_assert(kWords == 1 || kWords == 2 || kWords == 4 || kWords == 8,
+                "a lane loads 4, 8, 16 or 32 bytes");
   const unsigned char* p = static_cast<const unsigned char*>(row) + hl * kWords * 4;
   uint32_t w[kWords];
-  if constexpr (kWords == 4) {
+  if constexpr (kWords == 8) {
+    const uint4 r0 = reinterpret_cast<const uint4*>(p)[0];
+    const uint4 r1 = reinterpret_cast<const uint4*>(p)[1];
+    w[0] = r0.x, w[1] = r0.y, w[2] = r0.z, w[3] = r0.w;
+    w[4] = r1.x, w[5] = r1.y, w[6] = r1.z, w[7] = r1.w;
+  } else if constexpr (kWords == 4) {
     const uint4 r = *reinterpret_cast<const uint4*>(p);
     w[0] = r.x, w[1] = r.y, w[2] = r.z, w[3] = r.w;
   } else if constexpr (kWords == 2) {
@@ -195,6 +223,22 @@ __device__ __forceinline__ void load_cols(const void* row, int hl, float (&x)[N]
     w[0] = *reinterpret_cast<const uint32_t*>(p);
   }
   unpack(w, x, T{});
+}
+
+// Rows [0, n) of K and V, `row_bytes` each and contiguous at k_src and
+// v_src, into their padded ring slots at k_row (`slot_bytes` apart, V
+// `tile_bytes` after K): lane l copies pieces l, l + 32, ... of G bytes of
+// every row, so a warp's copies cover a row's bytes side by side.
+template <int G>
+__device__ __forceinline__ void copy_rows(unsigned char* k_row, const unsigned char* k_src,
+                                       const unsigned char* v_src, int n, int row_bytes,
+                                       int slot_bytes, int tile_bytes, int lane) {
+  for (int off = lane * G; off < row_bytes; off += 32 * G) {
+    for (int r = 0; r < n; ++r) {
+      copy_piece(k_row + r * slot_bytes + off, k_src + r * row_bytes + off, G);
+      copy_piece(k_row + tile_bytes + r * slot_bytes + off, v_src + r * row_bytes + off, G);
+    }
+  }
 }
 
 // Kernel attributes belong to the current device's context: set the
@@ -213,23 +257,23 @@ cudaError_t set_attributes(Kernel kernel, int smem, std::atomic<unsigned>& done)
   return err;
 }
 
-// Attend the ROWS query heads at q_group ([ROWS][HD], type TQ; rows from
-// n_rows on do not exist and read as zeros) over the positions [pos0,
-// pos_end) of one sequence and kv head, pos0 page-aligned, masking positions
-// below win_lo. `table`: the sequence's block-table row;
+// Attend the ROWS query heads at q_group ([ROWS][hd], type TQ; rows from
+// n_rows on do not exist and read as zeros; hd <= HD, the padded width)
+// over the positions [pos0, pos_end) of one sequence and kv head, pos0
+// page-aligned, masking positions below win_lo. `table`: the sequence's block-table row;
 // `head_page0`: h * n_pages; `k_scales`/`v_scales`: the int8 pools' f32 row
 // scales ([n_kv, n_pages, page], unused on bf16 pages). Every thread of the
 // CTA (kThreads) must call it. On return (after a CTA barrier) the CTA's
 // partial lies in shared memory at the returned pointer: acc[ROWS][HD]
-// (unnormalized), m[ROWS] (log2 domain; -inf where nothing was attended),
-// l[ROWS].
+// (unnormalized; columns from hd on meaningless), m[ROWS] (log2 domain;
+// -inf where nothing was attended), l[ROWS].
 template <typename TQ, typename TKV, int HD, int ROWS>
 __device__ __forceinline__ const float* attend_range(
     const TQ* __restrict__ q_group, const TKV* __restrict__ k_pages,
     const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int* __restrict__ table, size_t head_page0,
     int n_pages, int page_size, int pos0, int pos_end, int win_lo, float scale_log2,
-    int n_rows) {
+    int n_rows, int hd) {
   using SM = Smem<TKV, HD, ROWS>;
   constexpr bool kQuant = SM::kQuant;
   constexpr int kCols = SM::kCols;
@@ -253,16 +297,40 @@ __device__ __forceinline__ const float* attend_range(
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
+  // A page piece is one bulk copy only where rows are whole 16-byte
+  // multiples laid out as in the ring: hd == HD.
+  const bool bulk = hd == HD;
+  const int row_bytes = hd * static_cast<int>(sizeof(TKV));
   const int n_stages = pos_end > pos0 ? (pos_end - pos0 + kStage - 1) / kStage : 0;
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
-      // The producer's elected lane; on int8 pages every producer lane, once
-      // its scale copies have landed.
-      mbar_init(full0 + 8 * s, kQuant ? 32 : 1);
+      // The producer's elected lane; on int8 pages and for rows copied in
+      // pieces every producer lane, once its copies have landed.
+      mbar_init(full0 + 8 * s, kQuant || !bulk ? 32 : 1);
       mbar_init(empty0 + 8 * s, kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (!bulk) {
+    // Zero the padded columns of every ring row (K and V of every stage),
+    // 4 bytes at a time: no copy writes them.
+    const int pad_words = (SM::kRowBytes - row_bytes) / 4;
+    const int lo = SM::kRowBytes / 4 - pad_words;
+    for (int i = tid; i < kStages * 2 * kStage * pad_words; i += kThreads) {
+      const int r = i / pad_words;  // ring row: stage, K or V, token
+      const int stage = r / (2 * kStage);
+      reinterpret_cast<uint32_t*>(smem + stage * SM::kStageBytes)[
+          (r % (2 * kStage)) * (SM::kRowBytes / 4) + lo + i % pad_words] = 0u;
+    }
+    if ((row_bytes & 3) != 0) {
+      // The word holding the row's last bytes: zero its part past them.
+      for (int r = tid; r < kStages * 2 * kStage; r += kThreads) {
+        unsigned char* row =
+            smem + (r / (2 * kStage)) * SM::kStageBytes + (r % (2 * kStage)) * SM::kRowBytes;
+        for (int b = row_bytes; b < ((row_bytes + 3) & ~3); ++b) row[b] = 0;
+      }
+    }
   }
   __syncthreads();
 
@@ -293,11 +361,35 @@ __device__ __forceinline__ const float* attend_range(
         const int r1 = min(s_end, (p + 1) * page_size);
         const size_t row = (head_page0 + page) * page_size + (r0 - p * page_size);
         const uint32_t dst = k_dst + (r0 - s_start) * SM::kRowBytes;
-        if (lane == 0) {
-          const uint32_t bytes = (r1 - r0) * SM::kRowBytes;
-          mbar_expect_tx(full, 2 * bytes);
-          bulk_copy(dst, k_pages + row * HD, bytes, full);
-          bulk_copy(dst + SM::kTileBytes, v_pages + row * HD, bytes, full);
+        if (bulk) {
+          if (lane == 0) {
+            const uint32_t bytes = (r1 - r0) * SM::kRowBytes;
+            mbar_expect_tx(full, 2 * bytes);
+            bulk_copy(dst, k_pages + row * HD, bytes, full);
+            bulk_copy(dst + SM::kTileBytes, v_pages + row * HD, bytes, full);
+          }
+        } else {
+          // Row by row into the padded slots.
+          const unsigned char* k_src = reinterpret_cast<const unsigned char*>(k_pages + row * hd);
+          const unsigned char* v_src = reinterpret_cast<const unsigned char*>(v_pages + row * hd);
+          unsigned char* k_row = smem + (dst - ring);
+          const int n = r1 - r0;
+          switch (row_piece(row_bytes)) {
+            case 16:
+              copy_rows<16>(k_row, k_src, v_src, n, row_bytes, SM::kRowBytes, SM::kTileBytes, lane);
+              break;
+            case 8:
+              copy_rows<8>(k_row, k_src, v_src, n, row_bytes, SM::kRowBytes, SM::kTileBytes, lane);
+              break;
+            case 4:
+              copy_rows<4>(k_row, k_src, v_src, n, row_bytes, SM::kRowBytes, SM::kTileBytes, lane);
+              break;
+            case 2:
+              copy_rows<2>(k_row, k_src, v_src, n, row_bytes, SM::kRowBytes, SM::kTileBytes, lane);
+              break;
+            default:
+              copy_rows<1>(k_row, k_src, v_src, n, row_bytes, SM::kRowBytes, SM::kTileBytes, lane);
+          }
         }
         if constexpr (kQuant) {
           // Lanes 0-15 copy the K scales of the piece's rows, 16-31 the V's.
@@ -307,7 +399,12 @@ __device__ __forceinline__ const float* attend_range(
           for (int i = hl; i < r1 - r0; i += 16) copy4(sdst + 4 * i, src + i);
         }
       }
-      if constexpr (kQuant) {
+      if (!bulk && row_piece(row_bytes) < 4) {
+        // Plain stores: this lane's scale copies land first, then its
+        // arrival publishes both.
+        cp_async_wait_all();
+        mbar_arrive(full);
+      } else if (kQuant || !bulk) {
         copy4_arrive(full);
       } else if (lane == 0) {
         mbar_arrive(full);
@@ -322,11 +419,14 @@ __device__ __forceinline__ const float* attend_range(
 #pragma unroll
   for (int g = 0; g < ROWS; ++g) {
     float x[kCols];
-    if (g < n_rows) {
+    if (g < n_rows && bulk) {
       load_cols<TQ, kCols>(q_group + g * HD, hl, x);
     } else {
 #pragma unroll
-      for (int e = 0; e < kCols; ++e) x[e] = 0.f;
+      for (int e = 0; e < kCols; ++e) {
+        const int col = kCols * hl + e;
+        x[e] = g < n_rows && col < hd ? __bfloat162float(q_group[g * hd + col]) : 0.f;
+      }
     }
 #pragma unroll
     for (int e = 0; e < kCols; ++e) {
@@ -450,7 +550,7 @@ __device__ __forceinline__ const float* attend_range(
     }
   }
   __syncthreads();
-  if (tid < HD) {
+  for (int col = tid; col < HD; col += kThreads) {
 #pragma unroll
     for (int g = 0; g < ROWS; ++g) {
       float mm = -INFINITY;
@@ -467,11 +567,11 @@ __device__ __forceinline__ const float* attend_range(
           if (mw == -INFINITY) continue;  // a warp with nothing live
           const float f = exp2f(mw - mm);
           ll = fmaf(f, pw[ROWS * HD + ROWS + g], ll);
-          a = fmaf(f, pw[g * HD + tid], a);
+          a = fmaf(f, pw[g * HD + col], a);
         }
       }
-      part[g * HD + tid] = a;
-      if (tid == 0) {
+      part[g * HD + col] = a;
+      if (col == 0) {
         part[ROWS * HD + g] = mm;
         part[ROWS * HD + ROWS + g] = ll;
       }

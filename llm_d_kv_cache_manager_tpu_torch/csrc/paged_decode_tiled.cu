@@ -40,12 +40,14 @@
 // three-stage bulk-copy ring. f32 q (the checking paths, on f32 or int8
 // pages) keeps the old body.
 //
-// Shapes: head_dim 64 or 128, any GQA group up to 64. A group above 8 runs
-// as chunks of at most 8 query heads over the same kv head
+// Shapes: every head_dim up to 256 (built at the padded widths 64, 128 and
+// 256, the true head_dim passed at run time; the workspace and the output
+// hold the true columns only), any GQA group. A group above 8 (4 at head
+// dims above 128) runs as chunks over the same kv head
 // (paged_decode_common.cuh, `rows_of`): the grid's kv-head axis becomes
 // (kv head, chunk), each chunk reading the kv head's pages again (group 12:
-// twice the K/V bytes of one pass), and the workspace holds rows_of(group)
-// rows per (sequence, kv head, chunk, split).
+// twice the K/V bytes of one pass), and the workspace holds rows_of(group,
+// head_dim) rows per (sequence, kv head, chunk, split).
 
 #include "paged_decode_common.cuh"
 #include "paged_decode_sm90.cuh"
@@ -53,8 +55,8 @@
 namespace {
 
 // Partial attention of one (sequence, kv head, chunk) over one split of its
-// pages. Workspace: m/l [batch, n_kv * n_chunks, n_splits, ROWS], acc [..,
-// ROWS, HD], f32.
+// pages. Workspace: m/l [batch, n_kv * n_chunks, n_splits, rows], acc [..,
+// rows, hd], f32 (rows = rows_of(group, hd) <= ROWS).
 template <typename TQ, typename TKV, int HD, int ROWS>
 __global__ void __launch_bounds__(HD) split_decode_kernel(
     const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
@@ -62,9 +64,9 @@ __global__ void __launch_bounds__(HD) split_decode_kernel(
     const float* __restrict__ v_scales, const int* __restrict__ block_tables,
     const int* __restrict__ seq_lens, float* __restrict__ m_ws,
     float* __restrict__ l_ws, float* __restrict__ acc_ws, int n_q, int group, int n_pages,
-    int page_size, int table_width, int window, float scale) {
+    int page_size, int table_width, int window, float scale, int hd, int rows) {
   const int b = blockIdx.x;
-  const ChunkRows c = chunk_rows<ROWS>(blockIdx.y, group);
+  const ChunkRows c = chunk_rows(blockIdx.y, group, rows);
   const int split = blockIdx.z;
   const int n_splits = gridDim.z;
   const int seq_len = seq_lens[b];
@@ -79,19 +81,20 @@ __global__ void __launch_bounds__(HD) split_decode_kernel(
 
   float acc[ROWS], m[ROWS], l[ROWS];
   attend_range<TQ, TKV, HD, ROWS>(
-      q + (static_cast<size_t>(b) * n_q + c.row0) * HD, k_pages, v_pages,
+      q + (static_cast<size_t>(b) * n_q + c.row0) * hd, k_pages, v_pages,
       k_scales, v_scales, block_tables + static_cast<size_t>(b) * table_width,
       static_cast<size_t>(c.h) * n_pages, n_pages, page_size,
       lo_page * page_size, min(hi_page * page_size, kv_len), win_lo, scale,
-      c.n_rows, acc, m, l);
+      c.n_rows, hd, acc, m, l);
 
   const size_t part = (static_cast<size_t>(b) * gridDim.y + blockIdx.y) * n_splits + split;
 #pragma unroll
   for (int g = 0; g < ROWS; ++g) {
-    acc_ws[(part * ROWS + g) * HD + threadIdx.x] = acc[g];
+    if (g >= rows) break;
+    if (static_cast<int>(threadIdx.x) < hd) acc_ws[(part * rows + g) * hd + threadIdx.x] = acc[g];
     if (threadIdx.x == 0) {
-      m_ws[part * ROWS + g] = m[g];
-      l_ws[part * ROWS + g] = l[g];
+      m_ws[part * rows + g] = m[g];
+      l_ws[part * rows + g] = l[g];
     }
   }
 }
@@ -100,15 +103,15 @@ __global__ void __launch_bounds__(HD) split_decode_kernel(
 // of paged_decode_sm90.cuh (its m, in the log2 domain, goes to the workspace
 // in natural units).
 template <typename TKV, int HD, int ROWS>
-__global__ void __launch_bounds__(sm90::kThreads, 2) split_decode_sm90_kernel(
+__global__ void __launch_bounds__(sm90::kThreads, HD > 128 ? 1 : 2) split_decode_sm90_kernel(
     const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k_pages,
     const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int* __restrict__ block_tables,
     const int* __restrict__ seq_lens, float* __restrict__ m_ws, float* __restrict__ l_ws,
     float* __restrict__ acc_ws, int n_q, int group, int n_pages, int page_size, int table_width,
-    int window, float scale_log2) {
+    int window, float scale_log2, int hd) {
   const int b = blockIdx.x;
-  const ChunkRows c = chunk_rows<ROWS>(blockIdx.y, group);
+  const ChunkRows c = chunk_rows(blockIdx.y, group, ROWS);
   const int split = blockIdx.z;
   const int n_splits = gridDim.z;
   const int seq_len = seq_lens[b];
@@ -121,15 +124,15 @@ __global__ void __launch_bounds__(sm90::kThreads, 2) split_decode_sm90_kernel(
   const int hi_page = min(lo_page + per_split, n_seq_pages);
 
   const float* part = sm90::attend_range<__nv_bfloat16, TKV, HD, ROWS>(
-      q + (static_cast<size_t>(b) * n_q + c.row0) * HD, k_pages, v_pages, k_scales,
+      q + (static_cast<size_t>(b) * n_q + c.row0) * hd, k_pages, v_pages, k_scales,
       v_scales, block_tables + static_cast<size_t>(b) * table_width,
       static_cast<size_t>(c.h) * n_pages,
       n_pages, page_size, lo_page * page_size, min(hi_page * page_size, kv_len), win_lo,
-      scale_log2, c.n_rows);
+      scale_log2, c.n_rows, hd);
 
   const size_t slot = (static_cast<size_t>(b) * gridDim.y + blockIdx.y) * n_splits + split;
-  for (int i = threadIdx.x; i < ROWS * HD; i += blockDim.x) {
-    acc_ws[slot * ROWS * HD + i] = part[i];
+  for (int i = threadIdx.x; i < ROWS * hd; i += blockDim.x) {
+    acc_ws[slot * ROWS * hd + i] = part[i / hd * HD + i % hd];
   }
   if (threadIdx.x < ROWS) {
     m_ws[slot * ROWS + threadIdx.x] = part[ROWS * HD + threadIdx.x] * sm90::kLn2;
@@ -138,32 +141,34 @@ __global__ void __launch_bounds__(sm90::kThreads, 2) split_decode_sm90_kernel(
 }
 
 // Second pass: merge the splits of one (sequence, kv head, chunk) and
-// normalize.
-template <typename TQ, int HD, int ROWS>
+// normalize. One thread a column of the padded width; those from hd on idle.
+// `rows`: the workspace's rows a chunk (rows_of).
+template <typename TQ, int HD>
 __global__ void __launch_bounds__(HD) combine_kernel(
     const float* __restrict__ m_ws, const float* __restrict__ l_ws,
     const float* __restrict__ acc_ws, TQ* __restrict__ out, int n_q, int group,
-    int n_splits) {
+    int n_splits, int hd, int rows) {
   const int b = blockIdx.x;
-  const ChunkRows c = chunk_rows<ROWS>(blockIdx.y, group);
+  const ChunkRows c = chunk_rows(blockIdx.y, group, rows);
   const int tid = threadIdx.x;
+  if (tid >= hd) return;
   const size_t part0 = (static_cast<size_t>(b) * gridDim.y + blockIdx.y) * n_splits;
   for (int g = 0; g < c.n_rows; ++g) {
     float m_max = -INFINITY;
     for (int s = 0; s < n_splits; ++s) {
-      m_max = fmaxf(m_max, m_ws[(part0 + s) * ROWS + g]);
+      m_max = fmaxf(m_max, m_ws[(part0 + s) * rows + g]);
     }
     float l = 0.f, o = 0.f;
     if (m_max != -INFINITY) {
       for (int s = 0; s < n_splits; ++s) {
-        const float m = m_ws[(part0 + s) * ROWS + g];
+        const float m = m_ws[(part0 + s) * rows + g];
         if (m == -INFINITY) continue;  // a split with no live position
         const float w = expf(m - m_max);
-        l += w * l_ws[(part0 + s) * ROWS + g];
-        o += w * acc_ws[((part0 + s) * ROWS + g) * HD + tid];
+        l += w * l_ws[(part0 + s) * rows + g];
+        o += w * acc_ws[((part0 + s) * rows + g) * hd + tid];
       }
     }
-    out[(static_cast<size_t>(b) * n_q + c.row0 + g) * HD + tid] =
+    out[(static_cast<size_t>(b) * n_q + c.row0 + g) * hd + tid] =
         from_f<TQ>(l == 0.f ? 0.f : o / l);
   }
 }
@@ -180,25 +185,27 @@ struct Args {
   float* l_ws;
   float* acc_ws;
   void* out;
-  int batch, n_q, n_kv, group, n_pages, page_size, table_width, window, n_splits;
+  int batch, n_q, n_kv, group, n_pages, page_size, head_dim, table_width, window, n_splits;
   float scale;
   cudaStream_t stream;
 };
 
 // Grid of the split pass: (sequence, kv head x chunk, split).
 dim3 split_grid(const Args& a) {
-  return dim3(a.batch, a.n_kv * n_chunks_of(a.group), a.n_splits);
+  return dim3(a.batch, a.n_kv * n_chunks_of(a.group, a.head_dim), a.n_splits);
 }
 
-template <typename TQ, int HD, int ROWS>
+template <typename TQ, int HD>
 cudaError_t combine(const Args& a) {
-  combine_kernel<TQ, HD, ROWS><<<dim3(a.batch, a.n_kv * n_chunks_of(a.group)), HD, 0,
-                                 a.stream>>>(
-      a.m_ws, a.l_ws, a.acc_ws, static_cast<TQ*>(a.out), a.n_q, a.group, a.n_splits);
+  combine_kernel<TQ, HD><<<dim3(a.batch, a.n_kv * n_chunks_of(a.group, a.head_dim)), HD, 0,
+                           a.stream>>>(
+      a.m_ws, a.l_ws, a.acc_ws, static_cast<TQ*>(a.out), a.n_q, a.group, a.n_splits,
+      a.head_dim, rows_of(a.group, a.head_dim));
   return cudaGetLastError();
 }
 
-// f32 q: the body of paged_decode_common.cuh.
+// f32 q: the body of paged_decode_common.cuh, built at ROWS = max_rows_of(HD)
+// for every chunk size.
 template <typename TQ, typename TKV, int HD, int ROWS>
 cudaError_t launch(const Args& a) {
   const int smem = static_cast<int>(DecodeSmem<TKV, HD, ROWS>::bytes);
@@ -210,10 +217,10 @@ cudaError_t launch(const Args& a) {
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), a.ks, a.vs, a.bt, a.sl, a.m_ws, a.l_ws,
       a.acc_ws, a.n_q, a.group, a.n_pages, a.page_size, a.table_width, a.window,
-      a.scale);
+      a.scale, a.head_dim, rows_of(a.group, a.head_dim));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return combine<TQ, HD, ROWS>(a);
+  return combine<TQ, HD>(a);
 }
 
 // bf16 q: the body of paged_decode_sm90.cuh.
@@ -227,22 +234,24 @@ cudaError_t launch_sm90(const Args& a) {
   kernel<<<split_grid(a), sm90::kThreads, smem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), a.ks, a.vs, a.bt, a.sl, a.m_ws, a.l_ws, a.acc_ws, a.n_q,
-      a.group, a.n_pages, a.page_size, a.table_width, a.window, a.scale * 1.4426950408889634f);
+      a.group, a.n_pages, a.page_size, a.table_width, a.window, a.scale * 1.4426950408889634f,
+      a.head_dim);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return combine<__nv_bfloat16, HD, ROWS>(a);
+  return combine<__nv_bfloat16, HD>(a);
 }
 
 template <typename TQ, typename TKV>
-cudaError_t dispatch(int head_dim, const Args& a) {
-  return with_shape(head_dim, rows_of(a.group), [&](auto hd, auto rows) {
-    return launch<TQ, TKV, decltype(hd)::value, decltype(rows)::value>(a);
+cudaError_t dispatch(const Args& a) {
+  return with_padded(a.head_dim, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    return launch<TQ, TKV, HD, max_rows_of(HD)>(a);
   });
 }
 
 template <typename TKV>
-cudaError_t dispatch_sm90(int head_dim, const Args& a) {
-  return with_shape(head_dim, rows_of(a.group), [&](auto hd, auto rows) {
+cudaError_t dispatch_sm90(const Args& a) {
+  return with_shape(a.head_dim, rows_of(a.group, a.head_dim), [&](auto hd, auto rows) {
     return launch_sm90<TKV, decltype(hd)::value, decltype(rows)::value>(a);
   });
 }
@@ -252,11 +261,11 @@ cudaError_t dispatch_sm90(int head_dim, const Args& a) {
 // q [batch, n_q, head_dim]; k/v pages [n_kv, n_pages, page_size, head_dim];
 // k/v scales [n_kv, n_pages, page_size, 1] f32 (int8 pages only, else null);
 // block_tables [batch, table_width] int32; seq_lens [batch] int32;
-// workspace (rows = rows_of(n_q / n_kv), chunks = n_chunks_of(n_q / n_kv)):
-// m_ws and l_ws [batch, n_kv * chunks, n_splits, rows] f32, acc_ws [batch,
-// n_kv * chunks, n_splits, rows, head_dim] f32; out [batch, n_q, head_dim].
-// head_dim 64 or 128; n_q / n_kv (the GQA group) at most 64. window < 0: no
-// sliding window. dtype (of q and out) 0 = f32, 1 = bf16; kv_int8 0: pages
+// workspace (rows = rows_of(n_q / n_kv, head_dim), chunks =
+// n_chunks_of(n_q / n_kv, head_dim)): m_ws and l_ws [batch, n_kv * chunks,
+// n_splits, rows] f32, acc_ws [batch, n_kv * chunks, n_splits, rows,
+// head_dim] f32; out [batch, n_q, head_dim]. head_dim 1 to 256; any n_q /
+// n_kv (the GQA group). window < 0: no sliding window. dtype (of q and out) 0 = f32, 1 = bf16; kv_int8 0: pages
 // in the dtype of q, 1: int8 pages with scales.
 // Returns the first failing launch's cudaError_t.
 extern "C" int kvt_paged_decode_tiled(
@@ -266,8 +275,8 @@ extern "C" int kvt_paged_decode_tiled(
     int batch, int n_q, int n_kv, int n_pages, int page_size, int head_dim,
     int table_width, int window, int n_splits, float scale, int dtype,
     int kv_int8, void* stream) {
-  if ((head_dim != 64 && head_dim != 128) || n_kv <= 0 || n_q % n_kv != 0 ||
-      n_q / n_kv < 1 || n_q / n_kv > 64 || page_size <= 0 || n_splits <= 0 ||
+  if (head_dim < 1 || head_dim > 256 || n_kv <= 0 || n_q % n_kv != 0 || n_q / n_kv < 1 ||
+      page_size <= 0 || n_splits <= 0 ||
       (kv_int8 && (k_scales == nullptr || v_scales == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -276,14 +285,13 @@ extern "C" int kvt_paged_decode_tiled(
                static_cast<const int*>(block_tables),
                static_cast<const int*>(seq_lens), static_cast<float*>(m_ws),
                static_cast<float*>(l_ws), static_cast<float*>(acc_ws), out,
-               batch, n_q, n_kv, n_q / n_kv, n_pages, page_size, table_width, window,
-               n_splits, scale, static_cast<cudaStream_t>(stream)};
+               batch, n_q, n_kv, n_q / n_kv, n_pages, page_size, head_dim, table_width,
+               window, n_splits, scale, static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   if (dtype == 1) {
-    err = kv_int8 ? dispatch_sm90<int8_t>(head_dim, a)
-                  : dispatch_sm90<__nv_bfloat16>(head_dim, a);
+    err = kv_int8 ? dispatch_sm90<int8_t>(a) : dispatch_sm90<__nv_bfloat16>(a);
   } else if (dtype == 0) {
-    err = kv_int8 ? dispatch<float, int8_t>(head_dim, a) : dispatch<float, float>(head_dim, a);
+    err = kv_int8 ? dispatch<float, int8_t>(a) : dispatch<float, float>(a);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -25,12 +25,14 @@ import torch
 
 launches = 0  # flash_prefill kernel launches (CUDA path only)
 
-# Head dims each dtype's kernel is built for: the bf16 (wgmma) kernel and
-# the f32 (CUDA-core) kernel, both at 64 and 128.
-_KERNEL_HEAD_DIMS = {torch.bfloat16: (64, 128), torch.float32: (64, 128)}
-_KERNEL_MAX_GROUP = 64  # the kernel folds the GQA group into 64-row tiles
-# What the JAX kernel takes and this one does not yet: raised by name.
-_STILL_OWED = "head dims other than 64 and 128, and GQA groups above 64"
+# The bf16 (wgmma) and the f32 (CUDA-core) kernels take every head_dim up
+# to this (built at the padded widths 64, 128 and 256) and any GQA group (a
+# group above a tile's rows splits over CTAs).
+_KERNEL_MAX_HEAD_DIM = 256
+# What the JAX kernel takes and this one does not yet: raised by name. A
+# wider head needs O split over column blocks (it no longer fits the
+# registers).
+_STILL_OWED = "head dims above 256"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 Offset = Union[int, torch.Tensor]
@@ -110,10 +112,9 @@ def _launch(q, k, v, causal_offset, window) -> torch.Tensor:
         raise ValueError(
             f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}"
         )
-    if hd not in _KERNEL_HEAD_DIMS[q.dtype] or group > _KERNEL_MAX_GROUP:
+    if hd > _KERNEL_MAX_HEAD_DIM:
         raise ValueError(
-            f"flash_prefill kernel takes head_dim in {_KERNEL_HEAD_DIMS[q.dtype]} for "
-            f"{q.dtype} and a GQA group <= {_KERNEL_MAX_GROUP}, got {hd} and {group} "
+            f"flash_prefill kernel takes head_dim up to {_KERNEL_MAX_HEAD_DIM}, got {hd} "
             f"(still owed: {_STILL_OWED})"
         )
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)):

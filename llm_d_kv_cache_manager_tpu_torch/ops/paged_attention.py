@@ -16,10 +16,12 @@ events the control plane ingests.
   `ops/quantized_kv.py` launches the same two kernels on int8 pages.
 - `decode_plan`: the launch shape of both kernels for bf16 q (on bf16 or
   int8 pages), from the shapes alone; `old_body_splits` for f32 q;
-  `group_chunks`: how a GQA group above 8 splits over CTAs.
-- The kernels take head_dim 64 or 128 and any GQA group up to 64, in bf16
-  and f32 q, on pages of q's dtype and on int8 pages; any other shape raises
-  on CUDA tensors (`_check_kernel_args`).
+  `group_chunks`: how a GQA group above 8 (4 at head dims above 128)
+  splits over CTAs.
+- The kernels take every head_dim up to 256 (built at the padded widths 64,
+  128 and 256, the pools' rows unpadded) and any GQA group, in bf16 and f32
+  q, on pages of q's dtype and on int8 pages; a wider head raises on CUDA
+  tensors before any launch (`_check_kernel_args`).
 - `write_kv_pages`: scatter of new K/V rows into their pages.
 """
 
@@ -35,11 +37,11 @@ import torch
 launches = 0  # csrc/paged_decode.cu, bf16/f32 pages
 tiled_launches = 0  # csrc/paged_decode_tiled.cu, bf16/f32 pages
 
-_KERNEL_HEAD_DIMS = (64, 128)
-_KERNEL_MAX_GROUP = 64  # flash_prefill's limit too: a model needs both
+_KERNEL_MAX_HEAD_DIM = 256  # flash_prefill's limit too: a model needs both
 _MAX_ROWS = 8  # query heads one decode CTA holds (csrc/paged_decode_common.cuh)
-# What the JAX kernels take and these do not yet: raised by name.
-_STILL_OWED = "head dims other than 64 and 128, and GQA groups above 64"
+# What the JAX kernels take and these do not yet: raised by name. A wider
+# head needs O split over column blocks (it no longer fits the registers).
+_STILL_OWED = "head dims above 256"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -100,18 +102,25 @@ _STAGE_TOKENS = 64  # tokens per ring stage of either decode kernel, on both pag
 _MAX_CLUSTER = 8  # the portable cluster size: every Hopper launch may ask for it
 
 
-def group_chunks(group: int) -> tuple:
-    """(n_chunks, rows): a GQA group of at most _MAX_ROWS query heads runs
-    as one chunk of `group` rows; a larger one as ceil(group / 8) chunks of
-    equal rows over the same kv head, the last chunk's spare rows unused
-    (12 -> 2 x 6, 16 -> 2 x 8, 13 -> 2 x 7). The kernels' `n_chunks_of` and
+def max_rows(head_dim: int = 128) -> int:
+    """Query heads one decode CTA holds: 8, or 4 above head_dim 128 (the
+    Hopper body keeps 16 columns of q and acc a lane there)."""
+    return _MAX_ROWS // 2 if head_dim > 128 else _MAX_ROWS
+
+
+def group_chunks(group: int, head_dim: int = 128) -> tuple:
+    """(n_chunks, rows): a GQA group of at most max_rows(head_dim) query
+    heads runs as one chunk of `group` rows; a larger one as ceil(group /
+    max_rows) chunks of equal rows over the same kv head, the last chunk's
+    spare rows unused (12 -> 2 x 6, 16 -> 2 x 8, 13 -> 2 x 7, 71 -> 9 x 8;
+    above head_dim 128, 8 -> 2 x 4). The kernels' `n_chunks_of` and
     `rows_of` (csrc/paged_decode_common.cuh) follow the same rule."""
-    n_chunks = -(-group // _MAX_ROWS)
+    n_chunks = -(-group // max_rows(head_dim))
     return n_chunks, -(-group // n_chunks)
 
 
 def decode_plan(batch: int, n_kv: int, table_width: int, page_size: int,
-                n_sms: int, group: int = 1) -> tuple:
+                n_sms: int, group: int = 1, head_dim: int = 128) -> tuple:
     """(cluster, n_splits): the CTAs per (sequence, kv head, group chunk)
     of the pipelined kernel for bf16 q (one thread-block cluster) and of the
     tiled kernel (a grid-level split), on bf16 and on int8 pages, from the
@@ -122,9 +131,9 @@ def decode_plan(batch: int, n_kv: int, table_width: int, page_size: int,
     its merge and, in the tiled kernel, a partial for the combine pass),
     never into more parts than the table has pages or 64-token stages. The
     cluster is that count rounded down to a power of two, at most 8, so it
-    divides head_dim 64 and 128 (each rank merges head_dim / cluster
-    columns)."""
-    pairs = batch * n_kv * group_chunks(group)[0]
+    divides the padded widths 64, 128 and 256 (each rank merges padded /
+    cluster columns and writes those below head_dim)."""
+    pairs = batch * n_kv * group_chunks(group, head_dim)[0]
     cap = max(1, min(table_width, table_width * page_size // _STAGE_TOKENS))
     n_splits = max(1, min(n_sms // pairs, cap))
     cluster = 1
@@ -134,13 +143,13 @@ def decode_plan(batch: int, n_kv: int, table_width: int, page_size: int,
 
 
 def old_body_splits(batch: int, n_kv: int, table_width: int, n_sms: int,
-                    group: int = 1) -> int:
+                    group: int = 1, head_dim: int = 128) -> int:
     """The tiled kernel's split count for f32 q (on f32 or int8 pages, the
     checking paths), which keeps the body of csrc/paged_decode_common.cuh
     (head_dim-thread CTAs, several to an SM): about two CTAs per SM over the
     (sequence, kv head, group chunk) triples, never more splits than the
     table has pages."""
-    triples = batch * n_kv * group_chunks(group)[0]
+    triples = batch * n_kv * group_chunks(group, head_dim)[0]
     return max(1, min(-(-2 * n_sms // triples), table_width))
 
 
@@ -185,11 +194,10 @@ def _check_kernel_args(q, k_pages, v_pages, block_tables, seq_lens, scales):
         )
     if block_tables.dim() != 2 or block_tables.shape[0] != batch or seq_lens.shape != (batch,):
         raise ValueError("block_tables must be [batch, pages] and seq_lens [batch]")
-    if head_dim not in _KERNEL_HEAD_DIMS or group > _KERNEL_MAX_GROUP:
+    if head_dim > _KERNEL_MAX_HEAD_DIM:
         raise ValueError(
-            f"paged decode kernels take head_dim in {_KERNEL_HEAD_DIMS} and a GQA "
-            f"group of at most {_KERNEL_MAX_GROUP}, got {head_dim} and {group} "
-            f"(still owed: {_STILL_OWED})"
+            f"paged decode kernels take head_dim up to {_KERNEL_MAX_HEAD_DIM}, got "
+            f"{head_dim} (still owed: {_STILL_OWED})"
         )
     if not all(t.is_contiguous() for t in tensors) or any(
         t.data_ptr() % 16 for t in (k_pages, v_pages)
@@ -209,14 +217,14 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _plan(n_sms: int, q_dtype: torch.dtype, batch: int, n_kv: int, table_width: int,
-          page_size: int, group: int = 1) -> tuple:
+          page_size: int, group: int = 1, head_dim: int = 128) -> tuple:
     """(cluster, n_splits) for a launch on a card of `n_sms` SMs: bf16 q, on
     either page format, runs the body of csrc/paged_decode_sm90.cuh and
     takes decode_plan; f32 q keeps the old body, old_body_splits and no
     cluster."""
     if q_dtype != torch.bfloat16:
-        return 1, old_body_splits(batch, n_kv, table_width, n_sms, group)
-    return decode_plan(batch, n_kv, table_width, page_size, n_sms, group)
+        return 1, old_body_splits(batch, n_kv, table_width, n_sms, group, head_dim)
+    return decode_plan(batch, n_kv, table_width, page_size, n_sms, group, head_dim)
 
 
 def launch_decode(q, k_pages, v_pages, block_tables, seq_lens, window, *,
@@ -241,7 +249,7 @@ def launch_decode(q, k_pages, v_pages, block_tables, seq_lens, window, *,
     )
     group = n_q // n_kv
     cluster, n_splits = _plan(_sm_count(q.device), q.dtype, batch, n_kv, table_width,
-                              page_size, group)
+                              page_size, group, head_dim)
     if pipelined:
         name = "paged_decode"
         err = _kernel_fn(name, "kvt_paged_decode")(
@@ -252,7 +260,7 @@ def launch_decode(q, k_pages, v_pages, block_tables, seq_lens, window, *,
         name = "paged_decode_tiled"
         # One f32 workspace: m and l [batch, n_kv * n_chunks, n_splits, rows],
         # then acc [..., rows, head_dim] (group_chunks).
-        n_chunks, rows = group_chunks(group)
+        n_chunks, rows = group_chunks(group, head_dim)
         n = batch * n_kv * n_chunks * n_splits * rows
         ws = torch.empty(n * (head_dim + 2), dtype=torch.float32, device=q.device)
         m_ws, l_ws, acc_ws = ws[:n], ws[n:2 * n], ws[2 * n:]

@@ -20,8 +20,8 @@ V vector of one kv head), scale = amax/127 and q = round(x/scale) in
   `csrc/paged_decode_sm90.cuh`, the bf16 pages' body, with the launch shape
   of `ops/paged_attention.py::decode_plan` (f32 q, a checking path, keeps
   the first port's body). On CPU tensors it runs the plain version. The
-  kernels take the shapes `ops/paged_attention.py` names (head_dim 64 or
-  128, any GQA group up to 64); its checks raise on any other.
+  kernels take the shapes `ops/paged_attention.py` names (every head_dim up
+  to 256, any GQA group); its checks raise on any other.
 """
 
 from __future__ import annotations

@@ -215,3 +215,19 @@ def test_load_hf_llama_reads_a_local_checkpoint(tmp_path):
     with torch.no_grad():
         want = model(torch.tensor([TOKENS])).logits.numpy()
     np.testing.assert_allclose(_forward(cfg, params, TOKENS).numpy(), want, **TOL)
+
+
+def test_openllama_3b_config_gives_head_dim_100():
+    """OpenLLaMA-3B v2's published config.json (openlm-research/open_llama_3b_v2)
+    through both packages' config_from_hf: 32 heads of 100 (hidden 3,200 / 32)
+    over 32 kv heads, the head dim the port's kernels run at the padded width
+    128."""
+    hf_cfg = transformers.LlamaConfig(
+        vocab_size=32000, hidden_size=3200, intermediate_size=8640, num_hidden_layers=26,
+        num_attention_heads=32, num_key_value_heads=32, max_position_embeddings=2048,
+        rope_theta=10000.0, rms_norm_eps=1e-6, tie_word_embeddings=False,
+    )
+    for cfg in (hf_loader.config_from_hf(hf_cfg), jax_hf.config_from_hf(hf_cfg)):
+        assert (cfg.head_dim, cfg.n_q_heads, cfg.n_kv_heads, cfg.d_model, cfg.n_layers,
+                cfg.d_ff, cfg.vocab_size) == (100, 32, 32, 3200, 26, 8640, 32000)
+        assert cfg.sliding_window is None and not cfg.attn_bias

@@ -5,11 +5,13 @@ kernels run in interpret mode on the CPU, as the JAX package's own tests run
 them. On CPU tensors the port's wrappers run their plain torch versions
 (the CUDA kernels are held against those same versions on the card by
 chip_smoke.py). f32 throughout; tolerance atol = rtol = 1e-5. The shapes
-run through every GQA group and head dim the CUDA kernels take (groups of 3
-to 7, groups above 8 that run in chunks, head_dim 64 beside 128, the
-Qwen2.5 attention shapes). Also on the CPU: the decode kernels' launch plan
-(by q's dtype and GQA group), the ctypes argument lists against the C entry
-points they call, and the messages that name what the kernels still owe.
+run through GQA groups and head dims the CUDA kernels take (groups of 3 to
+7, groups above 8 that run in chunks, 71 and 128 over one kv head; head_dim
+64 beside 128, and 50, 80, 96, 100 and 256, which the kernels run at padded
+widths; the Qwen2.5, OpenLLaMA-3B and Gemma-7B attention shapes). Also on
+the CPU: the decode kernels' launch plan (by q's dtype, GQA group and head
+dim), the ctypes argument lists against the C entry points they call, and
+the message that names what the kernels still owe (head dims above 256).
 """
 
 import ctypes
@@ -89,8 +91,11 @@ def test_paged_attention_narrow_table(pps):
 
 # (n_q, n_kv, head_dim, seq_lens, window) at page 16 over 6-page tables: the
 # groups and head dims the kernels take beyond the flagship family's (3-7 in
-# one CTA; 12 in two chunks of 6, 13 in 7 + 6; head_dim 64), the two Qwen2.5 attention
-# shapes (28/4 of 128, 14/2 of 64: group 7), an empty slot and windows.
+# one CTA; 12 in two chunks of 6, 13 in 7 + 6, 71 in 9 x 8, 128 in 16 x 8;
+# head_dim 64, and 50, 80, 96, 100 and 256 off the built widths), the two
+# Qwen2.5 attention shapes (28/4 of 128, 14/2 of 64: group 7), OpenLLaMA-3B's
+# (32/32 of 100), Gemma-7B's (16/16 of 256), Falcon-7B's (71/1 of 64), an
+# empty slot and windows.
 SHAPE_CASES = {
     "group_3": (6, 2, 128, [5, 90], None),
     "group_5": (10, 2, 128, [17, 96], None),
@@ -103,6 +108,16 @@ SHAPE_CASES = {
     "hd64_group_7_qwen05b_heads": (14, 2, 64, [1, 96], None),
     "hd64_group_7_window": (14, 2, 64, [70, 96], 30),
     "hd64_group_12_chunked": (12, 1, 64, [0, 64], None),
+    "hd50": (4, 2, 50, [5, 90], None),
+    "hd50_window": (4, 2, 50, [70, 96], 30),
+    "hd80": (8, 4, 80, [17, 96], None),
+    "hd96_window": (8, 2, 96, [40, 96], 24),
+    "hd100_openllama3b_heads": (32, 32, 100, [0, 77], None),
+    "hd100_group_4": (16, 4, 100, [33, 96], None),
+    "hd256_gemma7b_heads": (16, 16, 256, [31, 96], None),
+    "hd256_group_8_window": (8, 1, 256, [96, 50], 40),
+    "group_71_falcon7b_heads": (71, 1, 64, [17, 96], None),
+    "group_128": (128, 1, 128, [1, 96], 50),
 }
 
 
@@ -247,13 +262,19 @@ def test_decode_plan_counts_group_chunks(case):
 
 def test_group_chunks_cover_every_group():
     """Groups up to 8 run whole; a larger one in ceil(group / 8) chunks of
-    equal rows, at most 8, the last chunk not empty."""
-    assert [port_paged.group_chunks(g) for g in (1, 7, 8, 12, 13, 16, 64)] == [
-        (1, 1), (1, 7), (1, 8), (2, 6), (2, 7), (2, 8), (8, 8)]
-    for group in range(1, 65):
-        n_chunks, rows = port_paged.group_chunks(group)
-        assert rows <= 8 and n_chunks == -(-group // 8)
-        assert (n_chunks - 1) * rows < group <= n_chunks * rows
+    equal rows, at most 8, the last chunk not empty (so the kernels' chunk
+    count ceil(group / rows) is the same). Above head_dim 128 a CTA holds 4
+    rows."""
+    assert [port_paged.group_chunks(g) for g in (1, 7, 8, 12, 13, 16, 64, 71, 128)] == [
+        (1, 1), (1, 7), (1, 8), (2, 6), (2, 7), (2, 8), (8, 8), (9, 8), (16, 8)]
+    assert [port_paged.group_chunks(g, 256) for g in (1, 4, 5, 8, 16)] == [
+        (1, 1), (1, 4), (2, 3), (2, 4), (4, 4)]
+    for head_dim, limit in ((64, 8), (100, 8), (128, 8), (200, 4), (256, 4)):
+        for group in range(1, 257):
+            n_chunks, rows = port_paged.group_chunks(group, head_dim)
+            assert rows <= limit and n_chunks == -(-group // limit)
+            assert (n_chunks - 1) * rows < group <= n_chunks * rows
+            assert -(-group // rows) == n_chunks
 
 
 def _kernel_args(n_q, n_kv, hd, dtype=torch.bfloat16):
@@ -263,30 +284,50 @@ def _kernel_args(n_q, n_kv, hd, dtype=torch.bfloat16):
 
 
 @pytest.mark.parametrize("n_q, n_kv, hd", [(6, 2, 96), (130, 2, 128), (65, 1, 64),
-                                           (4, 2, 256)])
+                                           (4, 2, 256), (4, 2, 288), (2, 1, 512)])
 def test_decode_kernel_check_names_what_is_owed(n_q, n_kv, hd):
-    """A shape the decode kernels do not take raises before any launch, and
-    the message names what is still owed (head dims other than 64 and 128,
-    groups above 64)."""
-    with pytest.raises(ValueError, match="still owed: head dims other than 64 and 128, "
-                                         "and GQA groups above 64"):
-        port_paged._check_kernel_args(*_kernel_args(n_q, n_kv, hd), None)
+    """Every head_dim up to 256 and every GQA group pass the decode kernels'
+    check (these shapes were owed until the kernels took padded widths and
+    any group); a head dim above 256 raises before any launch, naming what
+    is still owed."""
+    args = _kernel_args(n_q, n_kv, hd)
+    if hd <= 256:
+        port_paged._check_kernel_args(*args, None)
+        return
+    with pytest.raises(ValueError, match="still owed: head dims above 256"):
+        port_paged._check_kernel_args(*args, None)
 
 
 @pytest.mark.parametrize("n_q, n_kv, hd", [(28, 4, 128), (14, 2, 64), (24, 2, 128),
-                                           (64, 1, 64), (8, 8, 64)])
+                                           (64, 1, 64), (8, 8, 64), (32, 32, 100), (4, 2, 50),
+                                           (71, 1, 64), (16, 16, 256), (3, 1, 17)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_decode_kernel_check_takes_new_shapes(n_q, n_kv, hd, dtype):
     port_paged._check_kernel_args(*_kernel_args(n_q, n_kv, hd, dtype), None)
 
 
+class _NoLaunch(Exception):
+    pass
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("n_q, n_kv, hd", [(6, 2, 96), (130, 2, 128)])
-def test_flash_kernel_check_names_what_is_owed(n_q, n_kv, hd, dtype):
+@pytest.mark.parametrize("n_q, n_kv, hd", [(6, 2, 96), (130, 2, 128), (4, 2, 288),
+                                           (2, 1, 512)])
+def test_flash_kernel_check_names_what_is_owed(n_q, n_kv, hd, dtype, monkeypatch):
+    """Every head_dim up to 256 and every GQA group pass the flash kernel's
+    checks and reach its launch (stopped here: the CPU has no kernel); a
+    head dim above 256 raises before it, naming what is still owed."""
+    def stop():
+        raise _NoLaunch
+
+    monkeypatch.setattr(port_flash, "_kernel", stop)
     q = torch.zeros(1, 16, n_q, hd, dtype=dtype)
     k = torch.zeros(1, 16, n_kv, hd, dtype=dtype)
-    with pytest.raises(ValueError, match="still owed: head dims other than 64 and 128, "
-                                         "and GQA groups above 64"):
+    if hd <= 256:
+        with pytest.raises(_NoLaunch):
+            port_flash._launch(q, k, k, 0, None)
+        return
+    with pytest.raises(ValueError, match="still owed: head dims above 256"):
         port_flash._launch(q, k, k, 0, None)
 
 
@@ -407,6 +448,17 @@ FLASH_CASES_GROUPS = {
     "group_12_per_batch": (2, 20, 60, 12, 1, 64, [0, 40], None, 8, 128),
     "group_13_hd64_per_batch": (2, 24, 70, 26, 2, 64, [5, 46], None, 8, 128),
     "group_64_window": (1, 12, 40, 64, 1, 128, 28, 16, 8, 128),
+    # Head dims off the built widths (50, 80, 96, 100, 256) and groups above
+    # 64 (71 over one kv head splits over two 64-row CTAs, 128 over two).
+    "hd50_group_2": (1, 40, 70, 4, 2, 50, 30, None, 8, 128),
+    "hd80_per_batch": (2, 24, 60, 8, 4, 80, [0, 36], None, 8, 128),
+    "hd96_window": (1, 40, 90, 8, 2, 96, 50, 20, 8, 128),
+    "hd100_openllama3b_heads": (1, 20, 52, 32, 32, 100, 32, None, 8, 128),
+    "hd100_group_4_window": (1, 30, 64, 16, 4, 100, 34, 24, 8, 128),
+    "hd256_gemma7b_heads": (1, 20, 40, 16, 16, 256, 20, None, 8, 128),
+    "hd256_group_8_window": (1, 16, 48, 8, 1, 256, 32, 20, 8, 128),
+    "group_71_falcon7b_heads": (1, 12, 30, 71, 1, 64, 18, None, 4, 128),
+    "group_128_window": (1, 8, 24, 128, 1, 128, 16, 10, 4, 128),
 }
 
 
