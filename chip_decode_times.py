@@ -22,7 +22,8 @@ The kernels of the timed package are built into this checkout's
 llm_d_kv_cache_manager_tpu_torch/build/ (another tree's into
 build/variants/<hash of its csrc/>/): the script writes nothing outside its
 own checkout. Compare two trees only inside one call, in turns (old, new,
-new, old). Prints the card's name and power limit, then one JSON line.
+new, old). Prints the card's name and power limit, the kernels' build
+time (0 where they were already built), then one JSON line.
 """
 
 from __future__ import annotations
@@ -109,7 +110,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     smoke.log(f"{smi}; package from {root}; kernels built into {_build.BUILD_DIR}")
-    _build.build()
+    build_s = _build.build()
+    smoke.log(f"  kernels built in {build_s:.2f} s (0: already built)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     times = {shape: {row: smoke.time_decode(gen, row, shape, plain=False)
                      for row in smoke.DECODE_ROWS}
@@ -120,7 +122,7 @@ def main() -> int:
     params = smoke.llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     steps = {("int8" if int8 else "bf16"): time_step(smoke, cfg, params, int8)
              for int8 in (False, True)}
-    print(json.dumps({"device": smi, "package_root": str(root),
+    print(json.dumps({"device": smi, "package_root": str(root), "build_s": build_s,
                       "ms": {shape: {row: t["ms"] for row, t in rows.items()}
                              for shape, rows in times.items()},
                       "sdpa_ms": {shape: rows["paged_decode"]["library_ms"]

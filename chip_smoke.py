@@ -8103,9 +8103,7 @@ def main(argv=None) -> int:
 
     log("== phase 2: build")
     build_s = _build.build((*_build.KERNELS, _build.TRANSFER))
-    log(f"  built {_build.KERNELS} and the {_build.TRANSFER} library in {build_s:.2f} s "
-        f"(each, from the start: "
-        f"{', '.join(f'{k} {v:.1f} s' for k, v in sorted(_build.seconds.items()))})")
+    log(f"  built {_build.KERNELS} and the {_build.TRANSFER} library in {build_s:.2f} s")
     for name in _build.KERNELS:
         text = _build.build_log(name)
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]

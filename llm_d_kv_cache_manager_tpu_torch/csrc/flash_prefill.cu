@@ -94,54 +94,18 @@
 
 #include <type_traits>
 
+#include "row_copy.cuh"  // padded, row_piece, with_piece, copy_piece
+
 namespace {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// The width a head dim is built at: 64, 128 or 256 (0: none, above 256).
-constexpr int padded(int head_dim) {
-  return head_dim < 1 ? 0 : head_dim <= 64 ? 64 : head_dim <= 128 ? 128 : head_dim <= 256 ? 256 : 0;
-}
-
 // Query heads a CTA of `rows` tile rows takes of a GQA group: the whole
 // group up to `rows`, else an even share of ceil(group / rows) chunks.
 __host__ __device__ constexpr int head_chunk(int group, int rows) {
   return group <= rows ? group : (group + (group + rows - 1) / rows - 1) / ((group + rows - 1) / rows);
-}
-
-// The largest piece (16, 8, 4 or 2 bytes) every row of `row_bytes` (even)
-// bytes splits into on aligned addresses.
-__host__ __device__ constexpr int row_piece(int row_bytes) {
-  return row_bytes % 16 == 0 ? 16 : row_bytes % 8 == 0 ? 8 : row_bytes % 4 == 0 ? 4 : 2;
-}
-
-// f(std::integral_constant<int, G>) for G = row_piece(row_bytes).
-template <typename F>
-__device__ __forceinline__ void with_piece(int row_bytes, F&& f) {
-  switch (row_piece(row_bytes)) {
-    case 16: f(std::integral_constant<int, 16>{}); break;
-    case 8: f(std::integral_constant<int, 8>{}); break;
-    case 4: f(std::integral_constant<int, 4>{}); break;
-    default: f(std::integral_constant<int, 2>{}); break;
-  }
-}
-
-// G bytes global to shared, or G zero bytes where `pred` is false (`gmem`
-// is then not read): cp.async for 16, 8 and 4 bytes, a plain load and store
-// for 2.
-template <int G>
-__device__ __forceinline__ void copy_piece(void* smem, const void* gmem, bool pred) {
-  if constexpr (G == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
-                 "l"(gmem), "r"(pred ? 16 : 0));
-  } else if constexpr (G >= 4) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(smem)),
-                 "l"(gmem), "n"(G), "r"(pred ? G : 0));
-  } else {
-    *static_cast<uint16_t*>(smem) = pred ? *static_cast<const uint16_t*>(gmem) : uint16_t(0);
-  }
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -425,7 +389,7 @@ __global__ void __launch_bounds__(kWG * kWGThreads) flash_prefill_wgmma_kernel(
     }
   } else {
     // Unpadded rows: pieces of G bytes, zero past the row's hd columns.
-    with_piece(row_bytes, [&](auto piece) {
+    with_piece<2>(row_bytes, [&](auto piece) {
       constexpr int G = decltype(piece)::value;
       constexpr int kPieces = HD * 2 / G;  // pieces of a padded row
       for (int i = tid; i < kWG * kRows * kPieces; i += kThreads) {
@@ -452,7 +416,7 @@ __global__ void __launch_bounds__(kWG * kWGThreads) flash_prefill_wgmma_kernel(
     const int key0 = j * kBK;
     if (hd != HD) {
       // Unpadded rows: pieces of G bytes, zero past hd and past kv_len.
-      with_piece(row_bytes, [&](auto piece) {
+      with_piece<2>(row_bytes, [&](auto piece) {
         constexpr int G = decltype(piece)::value;
         constexpr int kPieces = HD * 2 / G;
         for (int i = tid; i < kBK * kPieces; i += kThreads) {
@@ -820,7 +784,7 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
 
   // Rows in pieces of G bytes (16 at hd == HD), zero past hd and kv_len.
   auto load_tile = [&](float* dst, const float* src, int k0) {
-    with_piece(row_bytes, [&](auto piece) {
+    with_piece<4>(row_bytes, [&](auto piece) {
       constexpr int G = decltype(piece)::value;
       constexpr int kPieces = HD * 4 / G;  // pieces of a padded row
       for (int i = tid; i < kBlockK * kPieces; i += kThreads) {

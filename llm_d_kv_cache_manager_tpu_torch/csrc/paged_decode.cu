@@ -91,19 +91,23 @@ __global__ void __launch_bounds__(HD) paged_decode_kernel(
 // bf16 q on TKV (bf16 or int8) pages: rank blockIdx.x of the cluster of
 // (sequence blockIdx.z, kv head and chunk blockIdx.y) attends over its share
 // of the live pages; the cluster then merges through distributed shared
-// memory.
-template <typename TKV, int HD, int ROWS>
+// memory. BULK: head_dim == HD and the chunk's rows == ROWS, both known at
+// compile time; otherwise ROWS is the capacity (1 or a CTA's most) and both
+// come at run time.
+template <typename TKV, int HD, int ROWS, bool BULK>
 __global__ void __launch_bounds__(sm90::kThreads, HD > 128 ? 1 : 2) paged_decode_cluster_kernel(
     const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k_pages,
     const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int* __restrict__ block_tables,
     const int* __restrict__ seq_lens, __nv_bfloat16* __restrict__ out, int n_q, int group,
-    int n_pages, int page_size, int table_width, int window, float scale_log2, int hd) {
+    int n_pages, int page_size, int table_width, int window, float scale_log2, int head_dim,
+    int group_rows) {
+  const int hd = BULK ? HD : head_dim;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int n_ranks = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const ChunkRows c = chunk_rows(blockIdx.y, group, ROWS);
+  const ChunkRows c = chunk_rows(blockIdx.y, group, BULK ? ROWS : group_rows);
   const int b = blockIdx.z;
   const int seq_len = seq_lens[b];
   // Positions past the table do not exist, as in the plain version's gather.
@@ -116,7 +120,7 @@ __global__ void __launch_bounds__(sm90::kThreads, HD > 128 ? 1 : 2) paged_decode
   const int hi_page = min(lo_page + per_rank, n_seq_pages);
   const size_t q0 = (static_cast<size_t>(b) * n_q + c.row0) * hd;
 
-  const float* part = sm90::attend_range<__nv_bfloat16, TKV, HD, ROWS>(
+  const float* part = sm90::attend_range<__nv_bfloat16, TKV, HD, ROWS, BULK>(
       q + q0, k_pages, v_pages, k_scales, v_scales,
       block_tables + static_cast<size_t>(b) * table_width, static_cast<size_t>(c.h) * n_pages,
       n_pages, page_size, lo_page * page_size, min(hi_page * page_size, kv_len), win_lo,
@@ -182,10 +186,10 @@ cudaError_t launch(const Args& a) {
 }
 
 // bf16 q: one cluster of `a.cluster` CTAs per (sequence, kv head, chunk).
-template <typename TKV, int HD, int ROWS>
+template <typename TKV, int HD, int ROWS, bool BULK>
 cudaError_t launch_cluster(const Args& a) {
   constexpr int smem = sm90::Smem<TKV, HD, ROWS>::bytes;
-  auto kernel = paged_decode_cluster_kernel<TKV, HD, ROWS>;
+  auto kernel = paged_decode_cluster_kernel<TKV, HD, ROWS, BULK>;
   static std::atomic<unsigned> attributes_set{0};
   cudaError_t err = sm90::set_attributes(kernel, smem, attributes_set);
   if (err != cudaSuccess) return err;
@@ -205,7 +209,7 @@ cudaError_t launch_cluster(const Args& a) {
       &cfg, kernel, static_cast<const __nv_bfloat16*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), a.ks, a.vs, a.bt, a.sl, static_cast<__nv_bfloat16*>(a.out),
       a.n_q, a.group, a.n_pages, a.page_size, a.table_width, a.window,
-      a.scale * 1.4426950408889634f, a.head_dim);
+      a.scale * 1.4426950408889634f, a.head_dim, rows_of(a.group, a.head_dim));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -220,8 +224,10 @@ cudaError_t dispatch(const Args& a) {
 
 template <typename TKV>
 cudaError_t dispatch_cluster(const Args& a) {
-  return with_shape(a.head_dim, rows_of(a.group, a.head_dim), [&](auto hd, auto rows) {
-    return launch_cluster<TKV, decltype(hd)::value, decltype(rows)::value>(a);
+  return with_sm90_shape(a.head_dim, rows_of(a.group, a.head_dim),
+                         [&](auto hd, auto rows, auto bulk) {
+    return launch_cluster<TKV, decltype(hd)::value, decltype(rows)::value,
+                          decltype(bulk)::value>(a);
   });
 }
 

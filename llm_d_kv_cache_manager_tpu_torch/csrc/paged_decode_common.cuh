@@ -18,15 +18,16 @@
 // products: score = scale_k * sum(q * k_int8), and P @ V accumulates
 // (p * scale_v) * v_int8. The softmax runs online in f32.
 //
-// A head dim below its padded width (50, 80, 96, 100, ...) keeps the pools'
-// unpadded rows ([.., head_dim]): each row is copied in pieces of the
-// largest size its byte width is a multiple of (`row_piece`: 16, 8 or 4
-// bytes by cp.async, 2 or 1 by plain loads; `copy_piece`), the padded columns of the
-// shared rows and of q stay zero, and only the true columns are written.
+// Every head dim runs at its padded width (row_copy.cuh): each row of the
+// pools' unpadded rows ([.., head_dim]) is copied in pieces of
+// `row_piece(row_bytes)` bytes (16 at head_dim 64, 128 and 256; 8, 4, 2 or
+// 1 below the padded width), the padded columns of the shared rows and of q
+// stay zero, and only the true columns are written.
 //
 // Also here, for both decode sources and both bodies: how a GQA group maps
 // onto CTAs (`n_chunks_of`, `rows_of`), the padded widths, and the dispatch
-// over the built (padded head_dim, rows) instantiations (`with_shape`).
+// over the built (padded head_dim, rows) instantiations (`with_shape`,
+// `with_sm90_shape`).
 
 #pragma once
 
@@ -37,6 +38,8 @@
 
 #include <type_traits>
 #include <utility>
+
+#include "row_copy.cuh"  // padded, row_piece, with_piece, copy_piece
 
 namespace {
 
@@ -60,11 +63,6 @@ __host__ __device__ constexpr int rows_of(int group, int head_dim) {
   return (group + n_chunks_of(group, head_dim) - 1) / n_chunks_of(group, head_dim);
 }
 
-// The width a head dim is built at: 64, 128 or 256 (0: none, above 256).
-constexpr int padded(int head_dim) {
-  return head_dim <= 64 ? 64 : head_dim <= 128 ? 128 : head_dim <= 256 ? 256 : 0;
-}
-
 // Grid row y of a decode launch is the pair (kv head h, chunk): the chunk's
 // first query row in the sequence's q, and how many of its `rows` (rows_of)
 // exist. (No chunk is empty, so a group runs in ceil(group / rows) chunks.)
@@ -83,7 +81,7 @@ __device__ __forceinline__ ChunkRows chunk_rows(int y, int group, int rows) {
 // cudaErrorInvalidValue for a shape no kernel is built for.
 template <int ROWS, typename F>
 cudaError_t with_head_dim(int head_dim, F& launch) {
-  switch (head_dim < 1 ? 0 : padded(head_dim)) {
+  switch (padded(head_dim)) {
     case 64:
       return launch(std::integral_constant<int, 64>{}, std::integral_constant<int, ROWS>{});
     case 128:
@@ -102,7 +100,7 @@ cudaError_t with_head_dim(int head_dim, F& launch) {
 // rows at run time.
 template <typename F>
 cudaError_t with_padded(int head_dim, F&& launch) {
-  switch (head_dim < 1 ? 0 : padded(head_dim)) {
+  switch (padded(head_dim)) {
     case 64: return launch(std::integral_constant<int, 64>{});
     case 128: return launch(std::integral_constant<int, 128>{});
     case 256: return launch(std::integral_constant<int, 256>{});
@@ -123,12 +121,27 @@ cudaError_t with_shape(int head_dim, int rows, F&& launch) {
     default: return cudaErrorInvalidValue;
   }
 }
-
-// The largest copy (16, 8, 4, 2 or 1 bytes) that every row of `row_bytes`
-// bytes splits into on aligned addresses (the pools are 16-byte aligned).
-__host__ __device__ constexpr int row_piece(int row_bytes) {
-  return row_bytes % 16 == 0 ? 16 : row_bytes % 8 == 0 ? 8 : row_bytes % 4 == 0 ? 4
-       : row_bytes % 2 == 0 ? 2 : 1;
+// launch(std::integral_constant<int, HD>, std::integral_constant<int, ROWS>,
+// std::bool_constant<BULK>) for the Hopper body's instantiation that serves
+// head_dim and a chunk of `rows` query heads. At the padded width (BULK: the
+// rows are whole 16-byte multiples, one bulk copy a page piece) it is built
+// for every rows, as the shape. Below it (rows copied in pieces) it is built
+// at ROWS 1 (a group of 1) and at max_rows_of(HD) for every other group,
+// the chunk's rows then passed at run time: 6 instantiations a page format
+// where the rows would take 20, which keeps the build short, at the cost of
+// idle rows' arithmetic for groups of 2 to 7 at such head dims.
+template <typename F>
+cudaError_t with_sm90_shape(int head_dim, int rows, F&& launch) {
+  if (head_dim == padded(head_dim)) {
+    return with_shape(head_dim, rows, [&](auto hd, auto r) {
+      return launch(hd, r, std::true_type{});
+    });
+  }
+  return with_padded(head_dim, [&](auto hd) {
+    constexpr int kMost = max_rows_of(decltype(hd)::value);
+    return rows == 1 ? launch(hd, std::integral_constant<int, 1>{}, std::false_type{})
+                     : launch(hd, std::integral_constant<int, kMost>{}, std::false_type{});
+  });
 }
 
 template <typename T>
@@ -149,44 +162,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
-}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// One piece of g bytes (row_piece's) of a row, global to shared: cp.async
-// for 16, 8 and 4 bytes (the caller commits or arrives), a plain load and
-// store for 2 and 1. One loop with this switch inside keeps the generic
-// paths small.
-__device__ __forceinline__ void copy_piece(void* smem, const void* gmem, int g) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  switch (g) {
-    case 16:
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-      break;
-    case 8:
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem) : "memory");
-      break;
-    case 4:
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
-      break;
-    case 2:
-      *static_cast<uint16_t*>(smem) = *static_cast<const uint16_t*>(gmem);
-      break;
-    default:
-      *static_cast<uint8_t*>(smem) = *static_cast<const uint8_t*>(gmem);
-  }
 }
 
 // TKV: the storage type of the pages, the type of q itself or int8_t (then
@@ -271,35 +252,23 @@ __device__ __forceinline__ void attend_range(
     const int c_start = pos0 + c * kChunk;
     TKV* kd = ks + stage * kChunk * kRow;
     TKV* vd = vs + stage * kChunk * kRow;
-    if (hd == HD) {
-      for (int i = tid; i < kChunk * kVecPerRow; i += kThreads) {
-        const int t = i / kVecPerRow;
-        const int vec = i % kVecPerRow;
-        const int pos = c_start + t;
-        if (pos >= pos_end) continue;
-        const int page = table[pos / page_size];
-        if (page < 0 || page >= n_pages) continue;
-        const size_t row = (head_page0 + page) * page_size + pos % page_size;
-        cp_async16(kd + t * kRow + vec * kVec, k_pages + row * HD + vec * kVec);
-        cp_async16(vd + t * kRow + vec * kVec, v_pages + row * HD + vec * kVec);
-      }
-    } else {
-      const int g = row_piece(row_bytes);
-      const int pieces = row_bytes / g;
+    with_piece<sizeof(TKV)>(row_bytes, [&](auto piece) {
+      constexpr int G = decltype(piece)::value;
+      const int pieces = row_bytes / G;
       for (int i = tid; i < kChunk * pieces; i += kThreads) {
         const int t = i / pieces;
-        const int off = (i - t * pieces) * g;
+        const int off = (i - t * pieces) * G;
         const int pos = c_start + t;
         if (pos >= pos_end) continue;
         const int page = table[pos / page_size];
         if (page < 0 || page >= n_pages) continue;
         const size_t row = (head_page0 + page) * page_size + pos % page_size;
-        copy_piece(reinterpret_cast<unsigned char*>(kd + t * kRow) + off,
-                   reinterpret_cast<const unsigned char*>(k_pages + row * hd) + off, g);
-        copy_piece(reinterpret_cast<unsigned char*>(vd + t * kRow) + off,
-                   reinterpret_cast<const unsigned char*>(v_pages + row * hd) + off, g);
+        copy_piece<G>(reinterpret_cast<unsigned char*>(kd + t * kRow) + off,
+                      reinterpret_cast<const unsigned char*>(k_pages + row * hd) + off);
+        copy_piece<G>(reinterpret_cast<unsigned char*>(vd + t * kRow) + off,
+                      reinterpret_cast<const unsigned char*>(v_pages + row * hd) + off);
       }
-    }
+    });
     if constexpr (kQuant) {
       for (int t = tid; t < kChunk; t += kThreads) {
         const int pos = c_start + t;
@@ -307,8 +276,8 @@ __device__ __forceinline__ void attend_range(
         const int page = table[pos / page_size];
         if (page < 0 || page >= n_pages) continue;
         const size_t row = (head_page0 + page) * page_size + pos % page_size;
-        cp_async4(kss + stage * kChunk + t, k_scales + row);
-        cp_async4(vss + stage * kChunk + t, v_scales + row);
+        copy_piece<4>(kss + stage * kChunk + t, k_scales + row);
+        copy_piece<4>(vss + stage * kChunk + t, v_scales + row);
       }
     }
     cp_async_commit();

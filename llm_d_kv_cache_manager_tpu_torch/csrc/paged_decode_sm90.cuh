@@ -68,7 +68,8 @@
 //
 // Head dims: the body is built at the padded widths 64, 128 and 256 (HD);
 // the true head dim (hd) comes at run time. At hd == HD the rows are
-// 16-byte multiples and a page piece is one bulk copy, as above. Below it
+// 16-byte multiples and a page piece is one bulk copy, as above: that
+// instantiation (kBulk) compiles this producer alone. Below it
 // (50, 80, 96, 100, ...) the pools keep their unpadded rows, whose starts
 // are only 8, 4, 2 or 1-byte aligned (a bf16 row of 100 is 200 bytes, an
 // int8 one 100), so no bulk copy may start or end there: the producer's
@@ -92,7 +93,7 @@
 #include <atomic>
 #include <type_traits>
 
-#include "paged_decode_common.cuh"  // row_piece, copy_piece
+#include "row_copy.cuh"  // row_piece, with_piece, copy_piece
 
 namespace sm90 {
 
@@ -235,8 +236,8 @@ __device__ __forceinline__ void copy_rows(unsigned char* k_row, const unsigned c
                                        int slot_bytes, int tile_bytes, int lane) {
   for (int off = lane * G; off < row_bytes; off += 32 * G) {
     for (int r = 0; r < n; ++r) {
-      copy_piece(k_row + r * slot_bytes + off, k_src + r * row_bytes + off, G);
-      copy_piece(k_row + tile_bytes + r * slot_bytes + off, v_src + r * row_bytes + off, G);
+      copy_piece<G>(k_row + r * slot_bytes + off, k_src + r * row_bytes + off);
+      copy_piece<G>(k_row + tile_bytes + r * slot_bytes + off, v_src + r * row_bytes + off);
     }
   }
 }
@@ -266,8 +267,10 @@ cudaError_t set_attributes(Kernel kernel, int smem, std::atomic<unsigned>& done)
 // CTA (kThreads) must call it. On return (after a CTA barrier) the CTA's
 // partial lies in shared memory at the returned pointer: acc[ROWS][HD]
 // (unnormalized; columns from hd on meaningless), m[ROWS] (log2 domain;
-// -inf where nothing was attended), l[ROWS].
-template <typename TQ, typename TKV, int HD, int ROWS>
+// -inf where nothing was attended), l[ROWS]. kBulk: hd == HD, whose rows
+// are whole 16-byte multiples laid out as in the ring, so a page piece is
+// one bulk copy; the caller picks the instantiation from hd.
+template <typename TQ, typename TKV, int HD, int ROWS, bool kBulk>
 __device__ __forceinline__ const float* attend_range(
     const TQ* __restrict__ q_group, const TKV* __restrict__ k_pages,
     const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
@@ -297,22 +300,19 @@ __device__ __forceinline__ const float* attend_range(
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  // A page piece is one bulk copy only where rows are whole 16-byte
-  // multiples laid out as in the ring: hd == HD.
-  const bool bulk = hd == HD;
-  const int row_bytes = hd * static_cast<int>(sizeof(TKV));
+  [[maybe_unused]] const int row_bytes = hd * static_cast<int>(sizeof(TKV));
   const int n_stages = pos_end > pos0 ? (pos_end - pos0 + kStage - 1) / kStage : 0;
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
       // The producer's elected lane; on int8 pages and for rows copied in
       // pieces every producer lane, once its copies have landed.
-      mbar_init(full0 + 8 * s, kQuant || !bulk ? 32 : 1);
+      mbar_init(full0 + 8 * s, kQuant || !kBulk ? 32 : 1);
       mbar_init(empty0 + 8 * s, kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (!bulk) {
+  if constexpr (!kBulk) {
     // Zero the padded columns of every ring row (K and V of every stage),
     // 4 bytes at a time: no copy writes them.
     const int pad_words = (SM::kRowBytes - row_bytes) / 4;
@@ -361,7 +361,7 @@ __device__ __forceinline__ const float* attend_range(
         const int r1 = min(s_end, (p + 1) * page_size);
         const size_t row = (head_page0 + page) * page_size + (r0 - p * page_size);
         const uint32_t dst = k_dst + (r0 - s_start) * SM::kRowBytes;
-        if (bulk) {
+        if constexpr (kBulk) {
           if (lane == 0) {
             const uint32_t bytes = (r1 - r0) * SM::kRowBytes;
             mbar_expect_tx(full, 2 * bytes);
@@ -373,23 +373,10 @@ __device__ __forceinline__ const float* attend_range(
           const unsigned char* k_src = reinterpret_cast<const unsigned char*>(k_pages + row * hd);
           const unsigned char* v_src = reinterpret_cast<const unsigned char*>(v_pages + row * hd);
           unsigned char* k_row = smem + (dst - ring);
-          const int n = r1 - r0;
-          switch (row_piece(row_bytes)) {
-            case 16:
-              copy_rows<16>(k_row, k_src, v_src, n, row_bytes, SM::kRowBytes, SM::kTileBytes, lane);
-              break;
-            case 8:
-              copy_rows<8>(k_row, k_src, v_src, n, row_bytes, SM::kRowBytes, SM::kTileBytes, lane);
-              break;
-            case 4:
-              copy_rows<4>(k_row, k_src, v_src, n, row_bytes, SM::kRowBytes, SM::kTileBytes, lane);
-              break;
-            case 2:
-              copy_rows<2>(k_row, k_src, v_src, n, row_bytes, SM::kRowBytes, SM::kTileBytes, lane);
-              break;
-            default:
-              copy_rows<1>(k_row, k_src, v_src, n, row_bytes, SM::kRowBytes, SM::kTileBytes, lane);
-          }
+          with_piece<sizeof(TKV)>(row_bytes, [&](auto piece) {
+            copy_rows<decltype(piece)::value>(k_row, k_src, v_src, r1 - r0, row_bytes,
+                                              SM::kRowBytes, SM::kTileBytes, lane);
+          });
         }
         if constexpr (kQuant) {
           // Lanes 0-15 copy the K scales of the piece's rows, 16-31 the V's.
@@ -399,12 +386,16 @@ __device__ __forceinline__ const float* attend_range(
           for (int i = hl; i < r1 - r0; i += 16) copy4(sdst + 4 * i, src + i);
         }
       }
-      if (!bulk && row_piece(row_bytes) < 4) {
-        // Plain stores: this lane's scale copies land first, then its
-        // arrival publishes both.
-        cp_async_wait_all();
-        mbar_arrive(full);
-      } else if (kQuant || !bulk) {
+      if constexpr (!kBulk) {
+        if (row_piece(row_bytes) < 4) {
+          // Plain stores: this lane's scale copies land first, then its
+          // arrival publishes both.
+          cp_async_wait_all();
+          mbar_arrive(full);
+        } else {
+          copy4_arrive(full);
+        }
+      } else if (kQuant) {
         copy4_arrive(full);
       } else if (lane == 0) {
         mbar_arrive(full);
@@ -419,7 +410,7 @@ __device__ __forceinline__ const float* attend_range(
 #pragma unroll
   for (int g = 0; g < ROWS; ++g) {
     float x[kCols];
-    if (g < n_rows && bulk) {
+    if (kBulk && g < n_rows) {
       load_cols<TQ, kCols>(q_group + g * HD, hl, x);
     } else {
 #pragma unroll

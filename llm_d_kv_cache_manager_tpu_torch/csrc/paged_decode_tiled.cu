@@ -101,17 +101,21 @@ __global__ void __launch_bounds__(HD) split_decode_kernel(
 
 // The same partial for bf16 q on TKV (bf16 or int8) pages, through the body
 // of paged_decode_sm90.cuh (its m, in the log2 domain, goes to the workspace
-// in natural units).
-template <typename TKV, int HD, int ROWS>
+// in natural units). BULK: head_dim == HD and the chunk's rows == ROWS, both
+// known at compile time; otherwise ROWS is the capacity (1 or a CTA's most)
+// and both come at run time.
+template <typename TKV, int HD, int ROWS, bool BULK>
 __global__ void __launch_bounds__(sm90::kThreads, HD > 128 ? 1 : 2) split_decode_sm90_kernel(
     const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k_pages,
     const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int* __restrict__ block_tables,
     const int* __restrict__ seq_lens, float* __restrict__ m_ws, float* __restrict__ l_ws,
     float* __restrict__ acc_ws, int n_q, int group, int n_pages, int page_size, int table_width,
-    int window, float scale_log2, int hd) {
+    int window, float scale_log2, int head_dim, int group_rows) {
+  const int hd = BULK ? HD : head_dim;
+  const int rows = BULK ? ROWS : group_rows;
   const int b = blockIdx.x;
-  const ChunkRows c = chunk_rows(blockIdx.y, group, ROWS);
+  const ChunkRows c = chunk_rows(blockIdx.y, group, rows);
   const int split = blockIdx.z;
   const int n_splits = gridDim.z;
   const int seq_len = seq_lens[b];
@@ -123,7 +127,7 @@ __global__ void __launch_bounds__(sm90::kThreads, HD > 128 ? 1 : 2) split_decode
   const int lo_page = first_page + split * per_split;
   const int hi_page = min(lo_page + per_split, n_seq_pages);
 
-  const float* part = sm90::attend_range<__nv_bfloat16, TKV, HD, ROWS>(
+  const float* part = sm90::attend_range<__nv_bfloat16, TKV, HD, ROWS, BULK>(
       q + (static_cast<size_t>(b) * n_q + c.row0) * hd, k_pages, v_pages, k_scales,
       v_scales, block_tables + static_cast<size_t>(b) * table_width,
       static_cast<size_t>(c.h) * n_pages,
@@ -131,23 +135,27 @@ __global__ void __launch_bounds__(sm90::kThreads, HD > 128 ? 1 : 2) split_decode
       scale_log2, c.n_rows, hd);
 
   const size_t slot = (static_cast<size_t>(b) * gridDim.y + blockIdx.y) * n_splits + split;
-  for (int i = threadIdx.x; i < ROWS * hd; i += blockDim.x) {
-    acc_ws[slot * ROWS * hd + i] = part[i / hd * HD + i % hd];
+  for (int i = threadIdx.x; i < rows * hd; i += blockDim.x) {
+    acc_ws[slot * rows * hd + i] = part[i / hd * HD + i % hd];
   }
-  if (threadIdx.x < ROWS) {
-    m_ws[slot * ROWS + threadIdx.x] = part[ROWS * HD + threadIdx.x] * sm90::kLn2;
-    l_ws[slot * ROWS + threadIdx.x] = part[ROWS * HD + ROWS + threadIdx.x];
+  if (static_cast<int>(threadIdx.x) < rows) {
+    m_ws[slot * rows + threadIdx.x] = part[ROWS * HD + threadIdx.x] * sm90::kLn2;
+    l_ws[slot * rows + threadIdx.x] = part[ROWS * HD + ROWS + threadIdx.x];
   }
 }
 
 // Second pass: merge the splits of one (sequence, kv head, chunk) and
 // normalize. One thread a column of the padded width; those from hd on idle.
-// `rows`: the workspace's rows a chunk (rows_of).
-template <typename TQ, int HD>
+// The workspace holds `rows` (rows_of) rows a chunk. ROWS > 0 (after a bulk
+// split pass): hd == HD and rows == ROWS at compile time; 0: both at run
+// time.
+template <typename TQ, int HD, int ROWS>
 __global__ void __launch_bounds__(HD) combine_kernel(
     const float* __restrict__ m_ws, const float* __restrict__ l_ws,
     const float* __restrict__ acc_ws, TQ* __restrict__ out, int n_q, int group,
-    int n_splits, int hd, int rows) {
+    int n_splits, int head_dim, int group_rows) {
+  const int hd = ROWS ? HD : head_dim;
+  const int rows = ROWS ? ROWS : group_rows;
   const int b = blockIdx.x;
   const ChunkRows c = chunk_rows(blockIdx.y, group, rows);
   const int tid = threadIdx.x;
@@ -195,10 +203,10 @@ dim3 split_grid(const Args& a) {
   return dim3(a.batch, a.n_kv * n_chunks_of(a.group, a.head_dim), a.n_splits);
 }
 
-template <typename TQ, int HD>
+template <typename TQ, int HD, int ROWS>
 cudaError_t combine(const Args& a) {
-  combine_kernel<TQ, HD><<<dim3(a.batch, a.n_kv * n_chunks_of(a.group, a.head_dim)), HD, 0,
-                           a.stream>>>(
+  combine_kernel<TQ, HD, ROWS><<<dim3(a.batch, a.n_kv * n_chunks_of(a.group, a.head_dim)), HD,
+                                 0, a.stream>>>(
       a.m_ws, a.l_ws, a.acc_ws, static_cast<TQ*>(a.out), a.n_q, a.group, a.n_splits,
       a.head_dim, rows_of(a.group, a.head_dim));
   return cudaGetLastError();
@@ -220,14 +228,14 @@ cudaError_t launch(const Args& a) {
       a.scale, a.head_dim, rows_of(a.group, a.head_dim));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return combine<TQ, HD>(a);
+  return combine<TQ, HD, 0>(a);
 }
 
 // bf16 q: the body of paged_decode_sm90.cuh.
-template <typename TKV, int HD, int ROWS>
+template <typename TKV, int HD, int ROWS, bool BULK>
 cudaError_t launch_sm90(const Args& a) {
   const int smem = sm90::Smem<TKV, HD, ROWS>::bytes;
-  auto kernel = split_decode_sm90_kernel<TKV, HD, ROWS>;
+  auto kernel = split_decode_sm90_kernel<TKV, HD, ROWS, BULK>;
   static std::atomic<unsigned> attributes_set{0};
   const cudaError_t attr = sm90::set_attributes(kernel, smem, attributes_set);
   if (attr != cudaSuccess) return attr;
@@ -235,10 +243,10 @@ cudaError_t launch_sm90(const Args& a) {
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), a.ks, a.vs, a.bt, a.sl, a.m_ws, a.l_ws, a.acc_ws, a.n_q,
       a.group, a.n_pages, a.page_size, a.table_width, a.window, a.scale * 1.4426950408889634f,
-      a.head_dim);
+      a.head_dim, rows_of(a.group, a.head_dim));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return combine<__nv_bfloat16, HD>(a);
+  return combine<__nv_bfloat16, HD, BULK ? ROWS : 0>(a);
 }
 
 template <typename TQ, typename TKV>
@@ -251,8 +259,10 @@ cudaError_t dispatch(const Args& a) {
 
 template <typename TKV>
 cudaError_t dispatch_sm90(const Args& a) {
-  return with_shape(a.head_dim, rows_of(a.group, a.head_dim), [&](auto hd, auto rows) {
-    return launch_sm90<TKV, decltype(hd)::value, decltype(rows)::value>(a);
+  return with_sm90_shape(a.head_dim, rows_of(a.group, a.head_dim),
+                         [&](auto hd, auto rows, auto bulk) {
+    return launch_sm90<TKV, decltype(hd)::value, decltype(rows)::value,
+                       decltype(bulk)::value>(a);
   });
 }
 

@@ -59,7 +59,6 @@ CC_FLAGS = ("-O3", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-seconds: Dict[str, float] = {}  # each library's last build: seconds from its start
 _extensions: Dict[str, ModuleType] = {}
 
 
@@ -146,23 +145,20 @@ def build(names: Iterable[str] = KERNELS) -> float:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         commands[name] = (out, tmp, _command(name, tmp))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, (out, tmp, cmd) in commands.items():
-        with open(out.with_suffix(".log"), "w") as log:
-            procs[name] = (out, tmp, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT))
-    failed, pending = [], set(procs)
-    while pending:
-        for name in sorted(pending):
-            out, tmp, proc = procs[name]
-            if proc.poll() is None:
-                continue
-            pending.discard(name)
-            seconds[name] = time.perf_counter() - t0
-            if proc.returncode != 0:
-                failed.append(f"{name} (exit {proc.returncode}):\n{build_log(name)}")
-                continue
-            os.replace(tmp, out)
-        time.sleep(0.05)
+    procs = [
+        (name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+        for name, (out, tmp, cmd) in commands.items()
+    ]
+    failed = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{name} (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
     if failed:
         raise RuntimeError("native library build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
