@@ -48,7 +48,17 @@ kernel sources, written only under the package's build/planted/ directory:
     8 rows of 5 tokens take one-warpgroup CTAs, so the group splits; at 128
     rows a CTA it fits whole); it has no logits bar: no model of
     chip_smoke.py has a group above 64, and phase 20b's (group 1) runs one
-    chunk a kv head.
+    chunk a kv head;
+  - decode_wide_second_slab (both decode variants, both q dtypes, both page
+    formats of paged_decode_wide.cu, head dims above 256): every
+    column slab but the first leaves P @ V out, so columns 256 onwards of
+    every output row stay 0;
+  - flash_wide_last_panel (the bf16 flash kernel above head dim 256): the
+    last 256-column panel of K is never loaded (zero-filled), so every score
+    leaves out that panel's share of Q K^T. Both have their main-shape case
+    at phase 21's attention shape (4/2 heads of 512) and phase 21b's
+    logits bars (decode at ragged lengths; the prefix-hit prefill) on its
+    model.
 
 Phase 7b's teacher-forced bar (the flagship served through the scheduler on
 a bf16 pod, every generated token held against an f32 truth) is held to
@@ -270,6 +280,19 @@ MUTANTS = {
         ("paged_decode", "paged_decode_int8", "paged_decode_tiled", "paged_decode_tiled_int8"),
         "bf16",
     ),
+    "decode_wide_second_slab": (
+        ("paged_decode_wide",), "paged_decode_wide.cu",
+        "for (int g = 0; g < kRows; ++g) acc[g] += ss[g * kChunk + t] * vv;",
+        "for (int g = 0; g < kRows; ++g) acc[g] += slab == 0 ? ss[g * kChunk + t] * vv : 0.f;",
+        ("paged_decode", "paged_decode_int8", "paged_decode_tiled", "paged_decode_tiled_int8"),
+        "bf16",
+    ),
+    "flash_wide_last_panel": (
+        ("flash_prefill",), "flash_prefill.cu",
+        "const bool ok = key0 + key < kv_len && at < row_bytes;",
+        "const bool ok = key0 + key < kv_len && at < row_bytes && p != n_pan - 1;",
+        ("flash_prefill",), "bf16",
+    ),
     "flash_prefill_group71_chunk": (
         ("flash_prefill",), "flash_prefill.cu",
         "const int head0 = h * group + (blockIdx.x % n_gc) * gc;\n"
@@ -285,12 +308,17 @@ MUTANTS = {
 # The kernel faults also held to phase 7b's teacher-forced bar (a bf16 pod
 # through the scheduler), beside the planted scheduler fault.
 SCHEDULER_BAR_MUTANTS = ("decode_sm90_stage",)
-# Faults at a phase 13 or phase 20 model's attention shape: their main-shape
+# Faults at a phase 13, 20 or 21 model's attention shape: their main-shape
 # case and logits bar are that model's (chip_smoke.QWEN_MAIN_CASES and
-# WIDE_MAIN_CASES; phase 13b, phase 20b at ragged lengths).
+# WIDE_MAIN_CASES; phase 13b, phases 20b and 21b at ragged lengths).
 MUTANT_MODEL = {"decode_sm90_hd64_cols": "qwen2.5-0.5b",
                 "decode_sm90_hd100_cols": chip_smoke.OPENLLAMA_MODEL,
-                "decode_sm90_hd100_rounded_rows": chip_smoke.OPENLLAMA_MODEL}
+                "decode_sm90_hd100_rounded_rows": chip_smoke.OPENLLAMA_MODEL,
+                "decode_wide_second_slab": chip_smoke.WIDE_HEAD_MODEL,
+                "flash_wide_last_panel": chip_smoke.WIDE_HEAD_MODEL}
+# The models whose decode-logits check runs at ragged lengths (phases 20b
+# and 21b), by head dim.
+RAGGED_HEAD_DIMS = (chip_smoke.OPENLLAMA_SHAPE[2], chip_smoke.WIDE_HEAD_SHAPE[2])
 # Faults at a shape no model of chip_smoke.py serves: their main-shape case
 # (of each kernel they target) and no logits bar.
 MUTANT_SHAPE = {"flash_prefill_group71_chunk": {
@@ -316,6 +344,8 @@ def mutant_model(name: str) -> tuple:
     """(params, cfg, params32, cfg32) of a MUTANT_MODEL model."""
     if name == chip_smoke.OPENLLAMA_MODEL:
         cfg, params = chip_smoke.openllama_model()
+    elif name == chip_smoke.WIDE_HEAD_MODEL:
+        cfg, params = chip_smoke.wide_head_model()
     else:
         cfg, params = chip_smoke.qwen_model(name)
     return (params, cfg, *chip_smoke.f32_twin(params, cfg))
@@ -353,12 +383,12 @@ def build_mutants() -> dict:
 
 
 def run_cases(label: str, sources=None) -> list:
-    """chip_smoke's kernel cases, or only those of the kernels built from
+    """chip_smoke's kernel cases, or only those run by the kernels built from
     `sources`."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for kernel, dtype, name, got, ref in chip_smoke.kernel_cases(gen):
-        if sources is not None and chip_smoke.SOURCE[kernel] not in sources:
+        if sources is not None and chip_smoke.kernel_source(kernel, got.shape[-1]) not in sources:
             continue
         torch.cuda.synchronize()
         m = chip_smoke.compare(kernel, got, ref, dtype)
@@ -371,14 +401,14 @@ def run_cases(label: str, sources=None) -> list:
 
 def run_decode_logits(label: str, rows, params, cfg, params32, cfg32) -> dict:
     """chip_smoke's batch-8 decode-logits check of each decode kernel in
-    `rows` (at phase 20b's ragged lengths on a head dim of 100): {row:
+    `rows` (at phases 20b's and 21b's ragged lengths on their models): {row:
     passed}."""
     out = {}
     for row in rows:
         spec = chip_smoke.DECODE_ROWS[row]
         r = chip_smoke.batched_decode_check(
             params, cfg, params32, cfg32, spec["int8"], spec["pipelined"],
-            ragged=cfg.head_dim == 100)
+            ragged=cfg.head_dim in RAGGED_HEAD_DIMS)
         out[row] = r["ok"]
         chip_smoke.log(f"  [{label}] batched decode {row}: {'ok' if r['ok'] else 'FAIL'}")
     return out
@@ -1026,6 +1056,10 @@ def main() -> int:
         logits_ok["real"].update({
             f"{model}/{row}": ok for row, ok in run_decode_logits(
                 f"real {model}", chip_smoke.DECODE_ROWS, *weights).items()})
+        if any(MUTANT_MODEL[m] == model and MUTANTS[m][4] == ("flash_prefill",)
+               for m in MUTANT_MODEL):
+            logits_ok["real"][f"{model}/flash_prefill"] = run_prefill_logits(
+                f"real {model}", *weights)["flash_prefill"]
     delta, plain_err = chip_smoke.teacher_forced_delta(params, cfg, params32, cfg32, False)
     chip_smoke.log(f"  phase 7b's delta on bf16 pages: {delta:.4f} (plain path {plain_err:.4f})")
     bars = {"real": run_scheduler_bar("real", params, cfg, params32, cfg32, delta)}
@@ -1035,7 +1069,9 @@ def main() -> int:
         chip_smoke.log(f"== {label}")
         _build._libs.update(libs)
         rows += run_cases(label, sources=tuple(libs))
-        if name in MUTANT_MODEL:
+        if name in MUTANT_MODEL and targets == ("flash_prefill",):
+            logits_ok[label] = run_prefill_logits(label, *models[MUTANT_MODEL[name]])
+        elif name in MUTANT_MODEL:
             logits_ok[label] = run_decode_logits(label, targets, *models[MUTANT_MODEL[name]])
         elif name in MUTANT_SHAPE:
             pass  # no logits bar (MUTANT_SHAPE)

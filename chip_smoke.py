@@ -18,12 +18,15 @@
                                         # of 16a's precise arm
     python3 chip_smoke.py --phases 19a,19b  # a tp = 2 pod in two processes
                                             # on one card, and the train step
-    python3 chip_smoke.py --phases 3,4,20  # the kernels at every head_dim to
-                                           # 256 and OpenLLaMA-3B whole
+    python3 chip_smoke.py --phases 3,4,20  # the kernels at every head_dim and
+                                           # OpenLLaMA-3B
+    python3 chip_smoke.py --phases 3,4,21  # the kernels at every head_dim and
+                                           # a flagship-width pod with heads
+                                           # of 512
 
 Phases, in order (any failure raises and the script exits non-zero):
   1. device lines: torch's device name and nvidia-smi's name + power limit;
-  2. build: the three kernel sources in llm_d_kv_cache_manager_tpu_torch/csrc
+  2. build: the four kernel sources in llm_d_kv_cache_manager_tpu_torch/csrc
      with nvcc for sm_90a and the host tier's transfer library
      (kv_connectors/cpp/kv_transfer.cpp) with the C++ compiler, all at once
      (build seconds, ptxas register/spill lines);
@@ -43,10 +46,14 @@ Phases, in order (any failure raises and the script exits non-zero):
      again at head dims off the built widths and groups above 64
      (`WIDE_SHAPES`: head_dim 50, 80, 96, OpenLLaMA-3B's 32/32 heads of 100
      and 100 at group 4, Gemma-7B's 16/16 heads of 256 and 256 at group 8,
-     Falcon-7B's 71 heads of 64 over one, 128 heads of 128 over one; decode
-     at pages 16 and 17, with and without a window; flash at the serving
-     chunk, at per-batch offsets with a window and at the verify, whose
-     one-warpgroup tiles split a group above 64 into head chunks), the
+     Falcon-7B's 71 heads of 64 over one, 128 heads of 128 over one; and
+     head dims above 256, run in column slabs of 256: 257, 288, 300 (rows
+     only 8-byte aligned, group 8 in two chunks), 320, 384, phase 21's 4/2
+     heads of 512, 576 at group 16 and 1,024; decode at pages 16 and 17,
+     with and without a window, bf16 and f32 q on both page formats; flash
+     at the serving chunk, at per-batch offsets with a window and at the
+     verify, whose one-warpgroup tiles split a group above 64 into head
+     chunks), the
      tiled decode against the pipelined one at f32 on both page formats, and
      two calls of each decode kernel for bf16 q (both page formats, the
      flagship's and both Qwen2.5 shapes) bit for bit;
@@ -65,8 +72,9 @@ Phases, in order (any failure raises and the script exits non-zero):
      shape, prefill at the serving chunk); rows 1, 2 and 5 again at a tp = 2
      rank's shape (8/4 heads of 128: decode at batch 8 x 2,048, prefill at
      the serving chunk); every row at OpenLLaMA-3B's shape (32/32 heads of
-     100, bounds on the true width; the SDPA backend that served each
-     yardstick is named);
+     100, bounds on the true width) and at phase 21's (4/2 heads of 512,
+     the flagship's bounds; the SDPA backend that served each yardstick is
+     named);
   5. serving at the flagship width (1.14B Llama, bf16, random weights from a
      seeded generator): two bf16 pods and one int8-KV pod whose KV events are
      digested into one index; prefix reuse, pod ranking and kernel launch
@@ -179,8 +187,8 @@ Phases, in order (any failure raises and the script exits non-zero):
      the ZMQ hop is checked in tier-1 (tests/test_torch_zmq.py);
   13. the Qwen2 family at its published widths: Qwen2.5-7B (28/4 heads of
      128, 152,064 tokens, untied head) and Qwen2.5-0.5B (14/2 heads of 64,
-     tied head), cut to 4 of 28 and 12 of 24 layers to make room for phase
-     20 (`QWEN_LAYERS`, the cut printed), configs
+     tied head), cut to 4 of 28 and 4 of 24 layers to make room for phases
+     20 and 21 (`QWEN_LAYERS`, the cut printed), configs
      through the port's hf_loader.config_from_hf, seeded weights and q/k/v
      biases, bf16. Per model: 13a, a bf16 pod and an int8 pod (page 16)
      whose events one Indexer digests, 8 requests each of 1,024 shared +
@@ -384,9 +392,10 @@ Phases, in order (any failure raises and the script exits non-zero):
      relative 1e-2, each tensor's gradient (each layer's slice of a
      stacked weight) by relative norm error under the stated bar, and the
      loss falling over 5 steps; step wall and tokens/s logged;
-  20. OpenLLaMA-3B whole (openlm-research/open_llama_3b_v2's config
-     through config_from_hf: 26 layers, 32/32 heads of 100, vocab 32,000,
-     untied head; bf16, seeded weights, page 16; head_dim 100 runs at the
+  20. OpenLLaMA-3B (openlm-research/open_llama_3b_v2's config through
+     config_from_hf: 32/32 heads of 100, vocab 32,000, untied head; cut to
+     2 of its 26 layers to make room for phase 21, `OPENLLAMA_LAYERS`, the
+     cut printed; bf16, seeded weights, page 16; head_dim 100 runs at the
      kernels' padded width 128 over unpadded pages): 20a, two bf16 pods and
      one int8 pod of 1,024 pages whose events one Indexer digests, phase
      5's traffic (1,024 shared + 512 unique tokens): cached 0 then 1,024,
@@ -395,9 +404,14 @@ Phases, in order (any failure raises and the script exits non-zero):
      (every page format and decode kernel; lengths 2,047 down to 2,040) under
      their bars; 20c, phase 7b's traffic through the Scheduler on a bf16 pod
      at decode_steps 1 and an int8 pod at 4 with the teacher-forced bar;
+  21. the flagship's widths (vocab 32,768, d_model 2,048, 16 layers, d_ff
+     8,192: 1.141 B) with its attention regrouped to 4 query heads over 2
+     kv heads of 512 (bf16, seeded weights, page 16; every kernel runs
+     head_dim 512 in column slabs of 256): 21a, 21b and 21c as 20a, 20b and
+     20c;
   then a JSON line of details, one JSON line describing every kernel (the
-  `openllama` key of launches_by_path: phase 20's launches), and last:
-  {"ok": true, "device": {...}}.
+  `openllama` and `wide_heads` keys of launches_by_path: phases 20's and
+  21's launches), and last: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -638,11 +652,17 @@ DECODE_ROWS = {
     "paged_decode_tiled_int8": dict(pipelined=False, int8=True),
 }
 KERNELS = (*DECODE_ROWS, "flash_prefill")
-SOURCE = {  # the csrc/ source of each kernel
+SOURCE = {  # the csrc/ source of each kernel up to head_dim 256
     "paged_decode": "paged_decode", "paged_decode_int8": "paged_decode",
     "paged_decode_tiled": "paged_decode_tiled",
     "paged_decode_tiled_int8": "paged_decode_tiled", "flash_prefill": "flash_prefill",
 }
+WIDE_SOURCE = "paged_decode_wide"  # the decode rows' source above head_dim 256
+
+
+def kernel_source(kernel: str, head_dim: int) -> str:
+    """The csrc/ source that runs `kernel` at `head_dim`."""
+    return WIDE_SOURCE if kernel in DECODE_ROWS and head_dim > 256 else SOURCE[kernel]
 REPLACES = {
     "paged_decode": "llm_d_kv_cache_manager_tpu/ops/paged_attention.py:157",
     "paged_decode_int8": "llm_d_kv_cache_manager_tpu/ops/paged_attention.py:157",
@@ -652,7 +672,13 @@ REPLACES = {
 }
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's header ("== ...") with the script's seconds so far."""
+    if msg.startswith("== "):
+        msg = f"{msg} [{time.perf_counter() - _T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -949,12 +975,16 @@ QWEN_MAIN_CASES = {
 # chunk); 64, the largest, in 8 chunks. And at head_dim 64.
 DECODE_GROUPS = (3, 5, 6, 7, 12, 13, 16, 64)
 HD64_GROUPS = (1, 2, 4, 7, 8, 12, 13)
-# Head dims off the 64/128 grid and groups above 64 (n_q, n_kv, head_dim):
-# a bf16 row of 100 bytes and an int8 row of 50 (head_dim 50, no multiple
-# of 4), 80 and 96, OpenLLaMA-3B's 32/32 heads of 100 and 100 at group 4,
-# Gemma-7B's 16/16 heads of 256 and 256 at group 8, Falcon-7B's 71 heads of
-# 64 over one, and 128 heads of 128 over one. The kernels run them at the
-# padded widths 64, 128 and 256.
+# Head dims off the 64/128 grid, groups above 64 and heads above 256 (n_q,
+# n_kv, head_dim): a bf16 row of 100 bytes and an int8 row of 50 (head_dim
+# 50, no multiple of 4), 80 and 96, OpenLLaMA-3B's 32/32 heads of 100 and
+# 100 at group 4, Gemma-7B's 16/16 heads of 256 and 256 at group 8,
+# Falcon-7B's 71 heads of 64 over one, and 128 heads of 128 over one, which
+# the kernels run at the padded widths 64, 128 and 256; then head dims above
+# 256, which they cut into column slabs of 256: 257 (a slab of one column),
+# 288, 300 (a bf16 row of 600 bytes, only 8-byte aligned), 320, 384, 512
+# (phase 21's 4/2 heads), 576 (DeepSeek-V2/V3's absorbed MLA width, 512
+# latent + 64 rope, its query heads over one) and 1,024, at groups 1 to 16.
 WIDE_SHAPES = {
     "hd=50": (4, 2, 50),
     "hd=80": (8, 4, 80),
@@ -965,9 +995,19 @@ WIDE_SHAPES = {
     "hd=256 group=8": (8, 1, 256),
     "falcon-7b group=71": (71, 1, 64),
     "group=128": (128, 1, 128),
+    "hd=257": (4, 2, 257),
+    "hd=288": (2, 2, 288),
+    "hd=300 group=8": (8, 1, 300),
+    "hd=320": (4, 2, 320),
+    "hd=384 group=3": (6, 2, 384),
+    "flagship-heads-512": (4, 2, 512),
+    "hd=576 group=16": (16, 1, 576),
+    "hd=1024": (2, 1, 1024),
 }
 OPENLLAMA_MODEL = "openllama-3b"
 OPENLLAMA_SHAPE = WIDE_SHAPES[OPENLLAMA_MODEL]
+WIDE_HEAD_MODEL = "flagship-heads-512"  # phase 21's model, and its attention shape
+WIDE_HEAD_SHAPE = WIDE_SHAPES[WIDE_HEAD_MODEL]
 # Their cases of each kernel at the main path's shape, as MAIN_CASES: decode
 # at batch 8, page 16, no window; flash at the serving chunk.
 WIDE_MAIN_CASES = {
@@ -1143,7 +1183,7 @@ def determinism_checks(gen) -> int:
     the Qwen2.5 attention shapes."""
     n = 0
     shapes = {"flagship": (N_Q, N_KV, HD), **QWEN_SHAPES,
-              **{k: WIDE_SHAPES[k] for k in ("openllama-3b", "gemma-7b")}}
+              **{k: WIDE_SHAPES[k] for k in (OPENLLAMA_MODEL, "gemma-7b", WIDE_HEAD_MODEL)}}
     for row, spec in DECODE_ROWS.items():
         for (model, (n_q, n_kv, hd)), lens in itertools.product(
                 shapes.items(), (SPLIT_LENS, [0, 1, PAGE, PAGE + 1, 2 * PAGE, 1000, 2047, 2048])):
@@ -1280,8 +1320,19 @@ def phase_times(gen) -> tuple:
                        for shape in ("B=8 ctx=2048", "B=1 ctx=1536 table=2048")}
     openllama_shape["flash_prefill serving"] = time_prefill(gen, *PREFILL_SERVING_SHAPE, n_q=n_q,
                                                             n_kv=n_kv, hd=hd)
+    # Phase 21's model at its attention shape: 4/2 heads of 512, the same K/V
+    # bytes a token and the same attention FLOPs as the flagship's 16/8 of
+    # 128, so the same bounds; every row at the two decode shapes and the
+    # serving prefill chunk.
+    n_q, n_kv, hd = WIDE_HEAD_SHAPE
+    log(f"  at the {WIDE_HEAD_MODEL} attention shape (n_q {n_q}, n_kv {n_kv}, head_dim {hd})")
+    wide_head_shape = {shape: {row: time_decode(gen, row, shape, n_q=n_q, n_kv=n_kv, hd=hd)
+                               for row in DECODE_ROWS}
+                       for shape in ("B=8 ctx=2048", "B=1 ctx=1536 table=2048")}
+    wide_head_shape["flash_prefill serving"] = time_prefill(gen, *PREFILL_SERVING_SHAPE, n_q=n_q,
+                                                            n_kv=n_kv, hd=hd)
     return (main, decode, serving, verify, mixtral_shape, qwen_shapes, tp_rank_shape,
-            openllama_shape)
+            openllama_shape, wide_head_shape)
 
 
 # The prefill call of a prefix-hit request in phase 5: 512 new tokens after
@@ -4780,7 +4831,7 @@ QWEN_BIAS_STD = {"bq": 0.5, "bk": 0.5, "bv": 0.05}
 # layers and Qwen2.5-0.5B at 12 of its 24 (every width kept, so rows 1-5
 # still run their group-7 attention at head_dim 128 and 64 at the published
 # shapes).
-QWEN_LAYERS = {"qwen2.5-7b": 4, "qwen2.5-0.5b": 12}
+QWEN_LAYERS = {"qwen2.5-7b": 4, "qwen2.5-0.5b": 4}
 QWEN_RUNS = (("bf16", False, 1), ("int8", True, 4))  # 13c: page format, decode_steps
 
 
@@ -4911,8 +4962,8 @@ def phase_qwen() -> dict:
             0 if QWEN_HF[name]["tie_word_embeddings"] else params["out"].numel())
         if name in QWEN_LAYERS:
             log(f"  {name}: cut to {QWEN_LAYERS[name]} of its "
-                f"{QWEN_HF[name]['num_hidden_layers']} layers for the whole run's time (phase 20's "
-                f"room); widths, heads and vocabulary as published")
+                f"{QWEN_HF[name]['num_hidden_layers']} layers for the whole run's time (phases "
+                f"20's and 21's room); widths, heads and vocabulary as published")
         log(f"  {name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_q_heads}/"
             f"{cfg.n_kv_heads} of {cfg.head_dim}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B "
             f"params ({n_params * 2 / 1e9:.2f} GB bf16)")
@@ -4946,60 +4997,78 @@ def phase_qwen() -> dict:
     log(f"  phase 13 launches: {out['launches']}")
     return out
 
-# -- phase 20: OpenLLaMA-3B, head_dim 100 ----------------------------------------
+# -- phases 20 and 21: whole pods at head dims the flagship does not reach -------
 
 # The config.json fields of openlm-research/open_llama_3b_v2 that the port's
 # hf_loader.config_from_hf reads, as a plain attribute object (nothing is
 # downloaded): 26 layers of 32 heads of 100 (hidden 3,200 / 32) over 32 kv
-# heads, untied head. Served whole: no depth cut.
+# heads, untied head. Served at OPENLLAMA_LAYERS of its 26 layers: the
+# whole run's time pays for phase 21 with this depth; widths, heads and
+# vocabulary as published.
 OPENLLAMA_HF = dict(
     model_type="llama", vocab_size=32000, hidden_size=3200, intermediate_size=8640,
     num_hidden_layers=26, num_attention_heads=32, num_key_value_heads=32, rms_norm_eps=1e-6,
     rope_theta=10000.0, max_position_embeddings=2048, tie_word_embeddings=False)
-# 20a's pods: (pages, int8), and the requests each serves (phase 5's layout
-# and traffic: 1,024 shared + 512 unique tokens).
-OPENLLAMA_PODS = {"pod-ol-a": (1024, False), "pod-ol-b": (1024, False),
-                  "pod-ol-q": (1024, True)}
-OPENLLAMA_REQUESTS = {"pod-ol-a": 4, "pod-ol-b": 2, "pod-ol-q": 4}
-OPENLLAMA_RUNS = (("bf16", False, 1), ("int8", True, 4))  # 20c: page format, decode_steps
-# 20c's pods: 2,048 pages (phase 7b's traffic takes about 700; a bf16 page
-# of this model is 5.3 MB of K/V).
-OPENLLAMA_SCHED_PAGES = 2048
+OPENLLAMA_LAYERS = 2
+# Phase 21's model: the flagship's widths (vocab 32,768, d_model 2,048, 16
+# layers, d_ff 8,192: 1.141 B parameters) with its attention regrouped to 4
+# query heads over 2 kv heads of 512, where the flagship has 16 over 8 of
+# 128: the same projections, K/V bytes a token and attention FLOPs. No
+# published model of the families the JAX package loads has heads this wide.
+WIDE_HEAD_CONFIG = dict(FLAGSHIP, n_q_heads=4, n_kv_heads=2, head_dim=512)
+# The 20a and 21a pods: (pages, int8), and the requests each serves (phase
+# 5's layout and traffic: 1,024 shared + 512 unique tokens).
+MODEL_PODS = {"a": (1024, False), "b": (1024, False), "q": (1024, True)}
+MODEL_REQUESTS = {"a": 4, "b": 2, "q": 4}
+MODEL_RUNS = (("bf16", False, 1), ("int8", True, 4))  # 20c, 21c: page format, decode_steps
+# The 20c and 21c pods: 2,048 pages (phase 7b's traffic takes about 700; a
+# bf16 page of OpenLLaMA-3B is 5.3 MB of K/V at its full depth).
+MODEL_SCHED_PAGES = 2048
 
 
 def openllama_model(seed: int = 0) -> tuple:
     """(config, params) of phase 20's model on the card: the config through
-    config_from_hf, seeded init_params."""
-    cfg = hf_loader.config_from_hf(types.SimpleNamespace(**OPENLLAMA_HF))
+    config_from_hf at OPENLLAMA_LAYERS' depth, seeded init_params."""
+    cfg = hf_loader.config_from_hf(types.SimpleNamespace(
+        **{**OPENLLAMA_HF, "num_hidden_layers": OPENLLAMA_LAYERS}))
     if (cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim) != OPENLLAMA_SHAPE or cfg.attn_bias \
             or cfg.sliding_window is not None or cfg.n_q_heads // cfg.n_kv_heads != 1:
         raise AssertionError(f"{OPENLLAMA_MODEL}: config_from_hf gave {cfg}")
     return cfg, llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
 
 
-def openllama_serving(params, cfg) -> dict:
-    """Phase 20a: two bf16 pods and one int8 pod of 1,024 pages (page 16)
-    whose BlockStored streams one Indexer digests; each serves phase 5's
-    traffic on a prefix of its own, one request at a time (prefill, then 8
-    greedy decode steps). Cached tokens 0, then 1,024; finite logits,
-    tokens in the vocabulary; each pod ranked first for a prompt on its own
-    prefix; launches = one per layer pass of each call (CallCounter)."""
+def wide_head_model(seed: int = 0) -> tuple:
+    """(config, params) of phase 21's model on the card: seeded init_params."""
+    cfg = llama.LlamaConfig(**WIDE_HEAD_CONFIG)
+    if (cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim) != WIDE_HEAD_SHAPE:
+        raise AssertionError(f"{WIDE_HEAD_MODEL}: {cfg}")
+    return cfg, llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+
+
+def model_serving(params, cfg, model: str, phase: str, seed: int) -> dict:
+    """Phase 20a or 21a: MODEL_PODS (page 16) whose BlockStored streams one
+    Indexer digests; each serves phase 5's traffic on a prefix of its own,
+    one request at a time (prefill, then 8 greedy decode steps). Cached
+    tokens 0, then 1,024; finite logits, tokens in the vocabulary; each pod
+    ranked first for a prompt on its own prefix; launches = one per layer
+    pass of each call (CallCounter)."""
     index, indexer = moe_indexer()
-    rng = np.random.default_rng(2020)
-    prefixes = {pid: rng.integers(0, cfg.vocab_size, 1024).tolist() for pid in OPENLLAMA_PODS}
+    rng = np.random.default_rng(seed)
+    pods = {f"pod-{phase}-{x}": spec for x, spec in MODEL_PODS.items()}
+    prefixes = {pid: rng.integers(0, cfg.vocab_size, 1024).tolist() for pid in pods}
     out, failures = {}, []
     reset_launch_counts()
     with CallCounter() as counter:
-        for pid, (n_pages, int8) in OPENLLAMA_PODS.items():
+        for (pid, (n_pages, int8)), n_requests in zip(pods.items(), MODEL_REQUESTS.values()):
             pod = EnginePod(
-                EnginePodConfig(pod_id=pid, model_name=OPENLLAMA_MODEL, n_pages=n_pages,
+                EnginePodConfig(pod_id=pid, model_name=model, n_pages=n_pages,
                                 page_size=PAGE, device_tier="gpu", max_pages_per_seq=256,
                                 model_config=cfg, device="cuda", use_quantized_kv=int8),
                 event_sink=lambda b, pid=pid: digest_batch(index, indexer.token_processor, pid,
-                                                           OPENLLAMA_MODEL, b),
+                                                           model, b),
                 params=params)
             cached, ttfts = [], []
-            for r in range(OPENLLAMA_REQUESTS[pid]):
+            for r in range(n_requests):
                 tokens = prefixes[pid] + rng.integers(0, cfg.vocab_size, 512).tolist()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -5016,7 +5085,7 @@ def openllama_serving(params, cfg) -> dict:
                 pod.free(state)
             if cached != [0] + [1024] * (len(cached) - 1):
                 failures.append(f"{pid}: cached tokens {cached}")
-            log(f"  20a {pid} ({'int8' if int8 else 'bf16'} pages, {n_pages} pages of {PAGE}, "
+            log(f"  {phase}a {pid} ({'int8' if int8 else 'bf16'} pages, {n_pages} pages of {PAGE}, "
                 f"{pod.kv_cache[0].numel() * pod.kv_cache[0].element_size() * 2 / 1e9:.2f} GB of "
                 f"K/V values): cached {cached}; prefix-hit TTFT {min(ttfts[1:]) * 1e3:.2f}-"
                 f"{max(ttfts[1:]) * 1e3:.2f} ms")
@@ -5028,26 +5097,27 @@ def openllama_serving(params, cfg) -> dict:
     passes = counter.layer_passes()
     if launches != counter.kernels or not passes["decode"] or not passes["prefill"]:
         failures.append(f"launches {launches}, expected {counter.kernels}")
-    log(f"  20a layer passes {passes}; launches {launches}")
+    log(f"  {phase}a layer passes {passes}; launches {launches}")
     scores = {}
-    for pid in OPENLLAMA_PODS:
+    for pid in pods:
         probe = prefixes[pid] + np.random.default_rng(5).integers(0, cfg.vocab_size,
                                                                   256).tolist()
-        scores[pid] = chain_scores(indexer, probe, OPENLLAMA_MODEL)
+        scores[pid] = chain_scores(indexer, probe, model)
         best = max(scores[pid], key=scores[pid].get) if scores[pid] else None
-        log(f"  20a index scores for {pid}'s prefix: {scores[pid]}")
+        log(f"  {phase}a index scores for {pid}'s prefix: {scores[pid]}")
         if best != pid or scores[pid][best] != 1024 // PAGE:
             failures.append(f"{pid}'s prefix ranks {best} first: {scores[pid]}")
     if failures:
-        raise AssertionError(f"phase 20a: {failures}")
+        raise AssertionError(f"phase {phase}a: {failures}")
     return dict(pods=out, launches=launches, layer_passes=passes, scores=scores)
 
 
-def openllama_logits(params, cfg, params32, cfg32) -> dict:
-    """Phase 20b: phase 5c's prefill-logits check and phase 6's batch-8 x
-    2,048 decode-logits check of every (page format, decode kernel) pair,
-    the decode at ragged lengths (2,047 down to 2,040 cached: every end of
-    a 16-byte span of 100-element rows), under their bars unchanged."""
+def model_logits(params, cfg, params32, cfg32, phase: str) -> dict:
+    """Phase 20b or 21b: phase 5c's prefill-logits check and phase 6's
+    batch-8 x 2,048 decode-logits check of every (page format, decode
+    kernel) pair, the decode at ragged lengths (2,047 down to 2,040 cached:
+    every end of a 16-byte span of 100-element rows, and ranges that end
+    inside a chunk), under their bars unchanged."""
     out = {"prefill": prefill_logits_check(params, cfg, params32, cfg32)}
     for int8 in (False, True):
         for pipelined in (True, False):
@@ -5057,47 +5127,66 @@ def openllama_logits(params, cfg, params32, cfg32) -> dict:
     torch.cuda.empty_cache()
     failed = [k for k, r in out.items() if not r["ok"]]
     if failed:
-        raise AssertionError(f"phase 20b: logits fail their bars: {failed}")
+        raise AssertionError(f"phase {phase}b: logits fail their bars: {failed}")
     return out
 
 
-def phase_openllama() -> dict:
-    log(f"== phase 20: OpenLLaMA-3B whole (26 layers, 32/32 heads of 100, bf16, seeded "
-        f"weights): prefix reuse and routing, logits against an f32 truth, the Scheduler")
+def model_phase(phase: str, model: str, cfg, params, seed: int) -> dict:
+    """Phase 20 or 21 on `model`: {phase}a (model_serving), {phase}b
+    (model_logits), {phase}c (phase 7b's traffic through the Scheduler on a
+    bf16 pod at decode_steps 1 and an int8 pod at 4, with the teacher-forced
+    bar), and the launches of each row."""
     t0 = time.perf_counter()
-    cfg, params = openllama_model()
     n_params = sum(w.numel() for w in params["layers"].values()) + sum(
         params[k].numel() for k in ("embed", "final_norm", "out"))
-    log(f"  {OPENLLAMA_MODEL}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
-        f"{cfg.n_q_heads}/{cfg.n_kv_heads} of {cfg.head_dim} (the kernels' padded width "
-        f"128), vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B params "
-        f"({n_params * 2 / 1e9:.2f} GB bf16)")
+    log(f"  {model}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_q_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, vocab {cfg.vocab_size}: "
+        f"{n_params / 1e9:.3f} B params ({n_params * 2 / 1e9:.2f} GB bf16)")
     params32, cfg32 = f32_twin(params, cfg)
-    out = dict(n_params=n_params, serving=openllama_serving(params, cfg),
-               logits=openllama_logits(params, cfg, params32, cfg32))
-    for fmt, int8, steps in OPENLLAMA_RUNS:
+    out = dict(n_params=n_params, serving=model_serving(params, cfg, model, phase, seed),
+               logits=model_logits(params, cfg, params32, cfg32, phase))
+    for fmt, int8, steps in MODEL_RUNS:
         delta, e = teacher_forced_delta(params, cfg, params32, cfg32, int8)
-        log(f"  20c {fmt} pages: bf16 plain path vs f32 truth {e:.4f}; delta {delta:.4f}")
+        log(f"  {phase}c {fmt} pages: bf16 plain path vs f32 truth {e:.4f}; delta {delta:.4f}")
         r = flagship_scheduler_check(params, cfg, params32, cfg32, int8, steps, delta,
-                                     model=OPENLLAMA_MODEL, n_pages=OPENLLAMA_SCHED_PAGES)
+                                     model=model, n_pages=MODEL_SCHED_PAGES)
         out[f"scheduler {fmt} steps{steps}"] = dict(r, plain_err=e)
         gc.collect()  # the run's pod and scheduler hold each other
         torch.cuda.empty_cache()
         if not r["ok"]:
-            raise AssertionError(f"phase 20c ({fmt}): {r['failures']}")
-    del params, params32
+            raise AssertionError(f"phase {phase}c ({fmt}): {r['failures']}")
+    del params32
     torch.cuda.empty_cache()
-    # Rows 1, 2 and 5 on 20a's pods and 20c's scheduler runs; rows 3 and 4
-    # on 20b's tiled decode steps.
+    # Rows 1, 2 and 5 on the {phase}a pods and the {phase}c scheduler runs;
+    # rows 3 and 4 on the {phase}b tiled decode steps.
     out["launches"] = {
         row: out["serving"]["launches"][row]
         + sum(out[f"scheduler {fmt} steps{steps}"]["launches"][row]
-              for fmt, _, steps in OPENLLAMA_RUNS)
+              for fmt, _, steps in MODEL_RUNS)
         + (out["logits"][row]["launches"] if row in out["logits"] else 0)
         for row in KERNELS}
     out["seconds"] = time.perf_counter() - t0
-    log(f"  phase 20 launches: {out['launches']}; took {out['seconds']:.1f} s")
+    log(f"  phase {phase} launches: {out['launches']}; took {out['seconds']:.1f} s")
     return out
+
+
+def phase_openllama() -> dict:
+    log(f"== phase 20: OpenLLaMA-3B (32/32 heads of 100, bf16, seeded weights; the kernels' "
+        f"padded width 128): prefix reuse and routing, logits against an f32 truth, the "
+        f"Scheduler")
+    log(f"  {OPENLLAMA_MODEL}: cut to {OPENLLAMA_LAYERS} of its {OPENLLAMA_HF['num_hidden_layers']} "
+        f"layers for the whole run's time (phase 21's room); widths, heads and vocabulary as "
+        f"published")
+    cfg, params = openllama_model()
+    return model_phase("20", OPENLLAMA_MODEL, cfg, params, seed=2020)
+
+
+def phase_wide_heads() -> dict:
+    log(f"== phase 21: the flagship's widths with heads of 512 ({WIDE_HEAD_SHAPE[0]}/"
+        f"{WIDE_HEAD_SHAPE[1]}; column slabs of 256 in every kernel; bf16, seeded weights): "
+        f"prefix reuse and routing, logits against an f32 truth, the Scheduler")
+    cfg, params = wide_head_model()
+    return model_phase("21", WIDE_HEAD_MODEL, cfg, params, seed=2121)
 
 
 # -- phase 15: the fleet's resilience plane -----------------------------------
@@ -8081,7 +8170,7 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", default=None,
                         help="comma-separated phases to run after the build (3 4 5 5b 5c 6 7a "
                         "7b 8a 8 9a 9b 10a 10b 11a 11b 12a 12b 13 14a 14b 15a 15b 16a 16b "
-                        "16c 17a 17b 17c 17d 18a 19a 19b 20; 9b and "
+                        "16c 17a 17b 17c 17d 18a 19a 19b 20 21; 9b and "
                         "10b run 7b's deltas first, 14a and 15b run 12a first); a partial run "
                         "prints no "
                         "kernels or ok line")
@@ -8119,7 +8208,7 @@ def main(argv=None) -> int:
         return partial_run(args.phases.split(","), gen, cfg, args.seed)
     errs = phase_kernel_checks(gen)
     (times, decode_times, prefill_serving, verify_time, mixtral_times, qwen_times,
-     tp_rank_times, openllama_times) = phase_times(gen)
+     tp_rank_times, openllama_times, wide_head_times) = phase_times(gen)
 
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     n_params = sum(w.numel() for w in params["layers"].values()) + sum(
@@ -8163,6 +8252,7 @@ def main(argv=None) -> int:
     governor = phase_governor(args.seed, control)
     qwen = phase_qwen()
     openllama = phase_openllama()
+    wide_heads = phase_wide_heads()
 
     # Rows 1, 2 and 5 are counted on the serving path (phase 5), on the
     # scheduler's path (phase 7b's recorded runs, summed), on the host
@@ -8209,14 +8299,20 @@ def main(argv=None) -> int:
         by_path[row] = {"batched_decode": batched["checks"][row]["launches"],
                         "moe_batched_decode": moe["logits"][row]["launches"],
                         "qwen_batched_decode": qwen["launches"][row]}
-    # Phase 20's model (head_dim 100): rows 1, 2 and 5 on 20a's pods and 20c's
-    # scheduler runs, rows 3 and 4 on 20b's tiled decode steps.
+    # Phase 20's model (head_dim 100) and phase 21's (head_dim 512): rows 1,
+    # 2 and 5 on their a pods and c scheduler runs, rows 3 and 4 on their b
+    # tiled decode steps.
     for name in KERNELS:
         by_path[name]["openllama"] = openllama["launches"][name]
+        by_path[name]["wide_heads"] = wide_heads["launches"][name]
     kernels = [
         dict(
             name=name, route="cuda",
             source=f"llm_d_kv_cache_manager_tpu_torch/csrc/{SOURCE[name]}.cu",
+            # Every source the row runs from: above head_dim 256 (phase 21's
+            # launches) the decode rows run csrc/paged_decode_wide.cu.
+            sources=sorted({f"llm_d_kv_cache_manager_tpu_torch/csrc/{kernel_source(name, hd)}.cu"
+                            for hd in (HD, WIDE_HEAD_SHAPE[2])}),
             replaces=REPLACES[name], launches=next(iter(by_path[name].values())),
             launches_by_path=by_path[name], max_abs_err=errs[name],
             **{k: times[name][k] for k in
@@ -8240,6 +8336,7 @@ def main(argv=None) -> int:
                     "qwen_attention_shapes": qwen_times, "qwen": qwen,
                     "tp_rank_attention_shape": tp_rank_times, "tp": tp, "train": train,
                     "openllama_attention_shape": openllama_times, "openllama": openllama,
+                    "wide_head_attention_shape": wide_head_times, "wide_heads": wide_heads,
                     "build_s": build_s, "run_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -8261,7 +8358,7 @@ def partial_run(phases, gen, cfg, seed: int = 0) -> int:
     if ("14a" in phases or "15b" in phases) and "12a" not in phases:
         phases = ["12a", *phases]  # 14a holds its scores to 12a's index, 15b governs it
     if any(p not in ("3", "4", "5b", "7a", "8a", "9a", "10a", "11a", "11b", "12a", "13", "14a",
-                     "15b", "20") for p in phases):
+                     "15b", "20", "21") for p in phases):
         params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     steps = {
         "5": lambda: phase_serving(params, cfg), "5b": phase_small_pod_vs_cpu,
@@ -8300,7 +8397,7 @@ def partial_run(phases, gen, cfg, seed: int = 0) -> int:
             out["9b"] = phase_lora_flagship(params, cfg, deltas)
         if "10b" in phases:
             out["10b"] = phase_spec_flagship(params, cfg, deltas)
-    if "11b" in phases or "13" in phases or "20" in phases:
+    if any(p in phases for p in ("11b", "13", "20", "21")):
         del params
         torch.cuda.empty_cache()
     if "11b" in phases:
@@ -8309,6 +8406,8 @@ def partial_run(phases, gen, cfg, seed: int = 0) -> int:
         out["13"] = phase_qwen()
     if "20" in phases:
         out["20"] = phase_openllama()
+    if "21" in phases:
+        out["21"] = phase_wide_heads()
     out.get("12a", {}).pop("readings", None)
     out.get("12a", {}).pop("digested", None)
     log(json.dumps(out, default=str))

@@ -63,7 +63,7 @@
 // at the same head dims as the bf16 kernel.
 //
 // Head dims: both kernels are built at the padded widths 64, 128 and 256
-// (HD) and take the true head_dim (hd, 1 to 256) at run time. At hd == HD
+// (HD) and take the true head_dim (hd, any >= 1) at run time. At hd == HD
 // (64, 128, 256) the tiles load in 16-byte chunks as above. Below it (50,
 // 80, 96, 100, ...) a global row of q, k or v starts only 8, 4 or 2-byte
 // aligned (a bf16 row of 100 is 200 bytes), so each row is loaded in pieces
@@ -76,6 +76,21 @@
 // warpgroups' Q (64 KB) and two stages of K and V (128 KB) fit shared
 // memory, and O (128 f32 a thread) is two m64n128 products a k-step; the f32
 // kernel's k-blocks are 32 keys there.
+//
+// Above 256 (288, 300, 512, 576, 1,024, ...) neither fits: at hd 512 one
+// warpgroup's Q (64 KB) and two stages of 64-key K/V tiles (128 KB each)
+// need 320 KB of shared memory, and O of 64 x 512 f32 is 256 registers a
+// thread. So O is cut into column slabs of kPanel (256) columns, one CTA
+// column of the grid each (grid x is (kv head, head chunk, slab)), and S =
+// Q K^T sums over the head dim's panels of 256 columns (row_copy.cuh,
+// `n_panels`). The bf16 kernel (`flash_prefill_wide_kernel`) is the HD-256
+// one-warpgroup machinery on a ring of P + 1 stages a 64-key block: Q's and
+// K's panel p (32 KB each; S accumulates over p in registers), then V's
+// slab (O += P V, two m64n128 products). Q is read again from L2 each
+// k-block (P x 32 KB for 64 rows would not fit beside the ring at every
+// hd), K once a slab: at hd 512, two slabs, a CTA reads 1.5x the K/V bytes
+// of one pass and computes S twice. The f32 kernel walks the same panels
+// through its HD-256 shared-memory plan. Every head dim runs, however wide.
 //
 // GQA: a group of g query heads folds into a tile's rows as (position, head)
 // pairs, floor(R / gc) positions a CTA of R = 64 or 128 rows (a group of 7:
@@ -639,6 +654,263 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* offs
                           window, scale, stream);
 }
 
+// Head dims above 256: one warpgroup (64 rows) a CTA, its slab of kPanel
+// columns of O. A ring stage holds Q's panel (WideSmem::kQ bytes, laid out
+// as the HD-256 Q tile), then K's panel of a 64-key block or V's slab of it
+// (as the HD-256 K/V tile).
+struct WideSmem {
+  using Tile = Smem<kPanel, 1>;
+  static constexpr int kStage = Tile::kQ + Tile::kKV;
+  static constexpr int bytes = kStages * kStage + 1024;  // + alignment slack
+};
+
+// The HD-256 one-warpgroup kernel over the panels of a head dim above 256,
+// for slab (blockIdx.x % n_panels(hd)) of the output: per 64-key block, one
+// stage per panel p adds Q_p K_p^T to S, then one stage of V's slab runs
+// the mask, the online softmax and O += P V. Accumulator layouts as in
+// flash_prefill_wgmma_kernel at HD 256.
+__global__ void __launch_bounds__(kWGThreads) flash_prefill_wide_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const int* __restrict__ offsets, int offset, bf16* __restrict__ out, int q_len, int kv_len,
+    int n_q, int n_kv, int group, int gc, int hd, int window, float scale_log2) {
+  using SM = WideSmem::Tile;
+  constexpr int kBK = SM::kBK;     // 64 keys a block
+  constexpr int kAcc = kPanel / 4;  // O floats of one m64n128 product
+  constexpr int kS = kBK / 2;      // S accumulator floats per thread
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int n_pan = n_panels(hd);
+  // Grid x is (kv head, chunk of gc query heads, slab).
+  const int slab = blockIdx.x % n_pan;
+  const int n_gc = (group + gc - 1) / gc;
+  const int h = blockIdx.x / n_pan / n_gc;
+  const int head0 = h * group + (blockIdx.x / n_pan % n_gc) * gc;
+  const int hc = min(gc, (h + 1) * group - head0);
+  const int b = blockIdx.y;
+  const int qb = gridDim.z - 1 - blockIdx.z;  // heaviest q-blocks first
+  const int block_q = kRows / gc;             // query positions per CTA
+  const int rows_used = block_q * gc;
+  const int q0 = qb * block_q;
+  const int off = offsets != nullptr ? offsets[b] : offset;
+  const int row_bytes = hd * 2;
+
+  // k-blocks some row attends, and the keys every row attends.
+  const int q_last = min(q0 + block_q, q_len) - 1;
+  const int first_blk = (window < 0 ? 0 : max(q0 + off - window + 1, 0)) / kBK;
+  const int last_blk = min(q_last + off, kv_len - 1) / kBK;  // < first_blk: none
+  const int lo_all = window < 0 ? 0 : min(q0 + (rows_used - 1) / gc, q_last) + off - window + 1;
+  const int hi_all = min(q0 + off, kv_len - 1);
+
+  // This thread's two rows: their key range [lo, hi] (hi = -1: dead row).
+  int lo[2], hi[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int r = warp * 16 + (lane >> 2) + 8 * u;
+    const int pos = q0 + r / gc;
+    const bool live = r < rows_used && pos < q_len && r % gc < hc;
+    hi[u] = live ? min(pos + off, kv_len - 1) : -1;
+    lo[u] = window < 0 ? 0 : pos + off - window + 1;
+  }
+
+  // Stage `it` of the k-loop: block first_blk + it / (n_pan + 1); at p = it
+  // % (n_pan + 1) < n_pan Q's and K's panel p, at n_pan V's slab. Rows in
+  // pieces of G bytes, zero past hd, past kv_len and in dead rows.
+  const int per_blk = n_pan + 1;
+  const int n_items = last_blk >= first_blk ? (last_blk - first_blk + 1) * per_blk : 0;
+  auto load_item = [&](int it) {
+    const int key0 = (first_blk + it / per_blk) * kBK;
+    const int p = it % per_blk;
+    const int col0 = (p < n_pan ? p : slab) * kPanel * 2;  // the panel's first byte in a row
+    unsigned char* st = smem + (it % kStages) * WideSmem::kStage;
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(p < n_pan ? k : v);
+    with_piece<2>(row_bytes, [&](auto piece) {
+      constexpr int G = decltype(piece)::value;
+      constexpr int kPieces = kPanel * 2 / G;  // pieces of a panel's row
+      if (p < n_pan) {
+        for (int i = tid; i < kRows * kPieces; i += kWGThreads) {
+          const int r = i / kPieces;
+          const int at = col0 + (i % kPieces) * G;
+          const int pos = q0 + r / gc;
+          const bool ok = r < rows_used && pos < q_len && r % gc < hc && at < row_bytes;
+          const size_t g =
+              ok ? ((static_cast<size_t>(b) * q_len + pos) * n_q + head0 + r % gc) * row_bytes + at
+                 : 0;
+          copy_piece<G>(st + swz(r, (at - col0) / 16, SM::kQPanel) + (at - col0) % 16,
+                        reinterpret_cast<const unsigned char*>(q) + g, ok);
+        }
+      }
+      for (int i = tid; i < kBK * kPieces; i += kWGThreads) {
+        const int key = i / kPieces;
+        const int at = col0 + (i % kPieces) * G;
+        const bool ok = key0 + key < kv_len && at < row_bytes;
+        const size_t g =
+            ok ? ((static_cast<size_t>(b) * kv_len + key0 + key) * n_kv + h) * row_bytes + at : 0;
+        copy_piece<G>(st + SM::kQ + swz(key, (at - col0) / 16, SM::kKVPanel) + (at - col0) % 16,
+                      src + g, ok);
+      }
+    });
+  };
+  if (n_items > 0) load_item(0);
+  cp_async_commit();
+
+  float o[2][kAcc];
+#pragma unroll
+  for (int x = 0; x < 2; ++x)
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) o[x][i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max, log2 domain
+  float l[2] = {0.f, 0.f};              // this thread's share of the row sum
+  float s[kS];
+
+  // Waits for stage `it` (every thread's copies, visible to wgmma), then
+  // starts the next one into the stage the previous one freed.
+  auto next_stage = [&](int it) {
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    if (it + 1 < n_items) load_item(it + 1);
+    cp_async_commit();
+    return base + (it % kStages) * WideSmem::kStage;
+  };
+  int it = 0;
+  for (int j = first_blk; j <= last_blk; ++j) {
+    const int blk0 = j * kBK;  // the block's first key
+    // S = Q K^T, a panel of the head dim a stage, 16 columns a k-step.
+    for (int p = 0; p < n_pan; ++p, ++it) {
+      const uint32_t q_base = next_stage(it);
+      const uint32_t k_base = q_base + SM::kQ;
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kPanel / 16; ++kk) {
+        const uint32_t dq = (kk >> 2) * SM::kQPanel + (kk & 3) * 32;
+        const uint32_t dk = (kk >> 2) * SM::kKVPanel + (kk & 3) * 32;
+        wgmma_ss(s, make_desc(q_base + dq, 1, 64), make_desc(k_base + dk, 1, 64), p | kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+    }
+    const uint32_t v_base = next_stage(it) + SM::kQ;
+    ++it;
+
+    const bool interior = blk0 + kBK - 1 <= hi_all && blk0 >= lo_all;
+    if (!interior) {
+#pragma unroll
+      for (int i = 0; i < kS; ++i) {
+        const int u = (i >> 1) & 1;
+        const int kp = blk0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        if (kp > hi[u] || kp < lo[u]) s[i] = -INFINITY;
+      }
+    }
+
+    // Online softmax in the exp2 domain; each row lives in a quad of lanes.
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < kS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    float alpha[2], shift[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 1));
+      mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 2));
+      const float m_new = fmaxf(m[u], mx[u] * scale_log2);
+      alpha[u] = m_new == -INFINITY ? 0.f : exp2_approx(m[u] - m_new);
+      shift[u] = m_new == -INFINITY ? 0.f : m_new;
+      m[u] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      const int u = (i >> 1) & 1;
+      s[i] = exp2_approx(fmaf(s[i], scale_log2, -shift[u]));
+      sum[u] += s[i];
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) l[u] = alpha[u] * l[u] + sum[u];
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) o[x][i] *= alpha[(i >> 1) & 1];
+
+    uint32_t pa[kBK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) pa[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+    }
+
+    // O += P V over the slab's two 128-column halves.
+    fence_regs(pa);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        wgmma_rs(o[x], pa[kk],
+                 make_desc(v_base + x * 2 * SM::kKVPanel + kk * 16 * 128, SM::kKVPanel / 16, 64));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+  }
+  cp_async_wait<0>();
+
+  // Epilogue: reduce l over the quad, normalize, store the slab's columns.
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    l[u] += __shfl_xor_sync(0xffffffffu, l[u], 1);
+    l[u] += __shfl_xor_sync(0xffffffffu, l[u], 2);
+    const int r = warp * 16 + (lane >> 2) + 8 * u;
+    const int pos = q0 + r / gc;
+    if (r >= rows_used || pos >= q_len || r % gc >= hc) continue;
+    const float inv = l[u] == 0.f ? 0.f : 1.f / l[u];  // no valid key: O is 0
+    const int col0 = slab * kPanel + 2 * (lane & 3);
+    bf16* dst = out + ((static_cast<size_t>(b) * q_len + pos) * n_q + head0 + r % gc) * hd + col0;
+    constexpr int kN8 = kAcc / 4;  // 8-column groups of one product
+#pragma unroll
+    for (int n8 = 0; n8 < kPanel / 8; ++n8) {
+      const float lo_v = o[n8 / kN8][4 * (n8 % kN8) + 2 * u] * inv;
+      const float hi_v = o[n8 / kN8][4 * (n8 % kN8) + 2 * u + 1] * inv;
+      const int col = col0 + 8 * n8;
+      if (hd % 2 == 0) {  // rows and pairs 4-byte aligned
+        if (col < hd) {
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n8) = __floats2bfloat162_rn(lo_v, hi_v);
+        }
+      } else {
+        if (col < hd) dst[8 * n8] = __float2bfloat16(lo_v);
+        if (col + 1 < hd) dst[8 * n8 + 1] = __float2bfloat16(hi_v);
+      }
+    }
+  }
+}
+
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* offsets,
+                        int offset, void* out, int batch, int q_len, int kv_len, int n_q, int n_kv,
+                        int hd, int window, float scale, cudaStream_t stream) {
+  const int group = n_q / n_kv;
+  const int gc = head_chunk(group, kRows);
+  const int block_q = kRows / gc;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_prefill_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WideSmem::bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_kv * ((group + gc - 1) / gc) * n_panels(hd), batch,
+                  (q_len + block_q - 1) / block_q);
+  flash_prefill_wide_kernel<<<grid, kWGThreads, WideSmem::bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const int*>(offsets), offset, static_cast<bf16*>(out), q_len, kv_len, n_q, n_kv,
+      group, gc, hd, window, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
@@ -668,11 +940,12 @@ struct FlashSmem {
   static constexpr size_t bytes = m_off + sizeof(float) * 2 * kRows;
 };
 
-// S[kRows][kBK] = Q[kRows][HD] @ K[kBK][HD]^T (unscaled); a 16 x 16 thread
-// grid, each thread a 4 x (kBK / 16) block of scores.
+// S[kRows][kBK] (+)= Q[kRows][HD] @ K[kBK][HD]^T (unscaled; `accumulate`:
+// added to S, a later panel of a head dim above 256); a 16 x 16 thread grid,
+// each thread a 4 x (kBK / 16) block of scores.
 template <int HD>
 __device__ __forceinline__ void scores_tile(const float* qs, const float* ks, float* ss,
-                                            int tid) {
+                                            int tid, bool accumulate) {
   using SM = FlashSmem<HD>;
   constexpr int kC = SM::kBK / 16;
   const int r0 = (tid / 16) * 4;
@@ -692,7 +965,10 @@ __device__ __forceinline__ void scores_tile(const float* qs, const float* ks, fl
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < kC; ++j) ss[(r0 + i) * SM::LS + c0 + j] = acc[i][j];
+    for (int j = 0; j < kC; ++j) {
+      float* dst = ss + (r0 + i) * SM::LS + c0 + j;
+      *dst = accumulate ? *dst + acc[i][j] : acc[i][j];
+    }
 }
 
 // O[kRows][HD] += P[kRows][kBK] @ V[kBK][HD]; an 8 x 32 thread grid, each
@@ -748,10 +1024,15 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  // Grid y is (kv head, chunk of gc query heads), as in the bf16 kernel.
+  // Above head_dim 256 (HD 256): the panels of 256 columns S sums over, and
+  // the slab of O this CTA writes; else one panel.
+  const int n_pan = HD < kPanel ? 1 : n_panels(hd);
+  const int slab = blockIdx.y % n_pan;
+  // Grid y is (kv head, chunk of gc query heads, slab), as in the bf16
+  // kernels.
   const int n_gc = (group + gc - 1) / gc;
-  const int h = blockIdx.y / n_gc;
-  const int head0 = h * group + (blockIdx.y % n_gc) * gc;
+  const int h = blockIdx.y / n_pan / n_gc;
+  const int head0 = h * group + (blockIdx.y / n_pan % n_gc) * gc;
   const int hc = min(gc, (h + 1) * group - head0);
   const int b = blockIdx.z;
   const int block_q = kRows / gc;  // query positions per CTA
@@ -764,17 +1045,20 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   const int last_blk = min((q_last + off) / kBlockK, (kv_len - 1) / kBlockK);
   const int first_blk = window < 0 ? 0 : max(q0 + off - window + 1, 0) / kBlockK;
 
-  // Row r holds query position q0 + r / gc of query head head0 + r % gc;
-  // columns from hd on are zero.
-  for (int i = tid; i < kRows * HD; i += kThreads) {
-    const int r = i / HD;
-    const int d = i % HD;
-    const int pos = q0 + r / gc;
-    qs[r * SM::LQ + d] =
-        r < rows_used && pos < q_len && r % gc < hc && d < hd
-            ? q[((static_cast<size_t>(b) * q_len + pos) * n_q + head0 + r % gc) * hd + d]
-            : 0.f;
-  }
+  // Panel p of Q: row r holds query position q0 + r / gc of query head
+  // head0 + r % gc; columns from hd on are zero.
+  auto load_q = [&](int p) {
+    for (int i = tid; i < kRows * HD; i += kThreads) {
+      const int r = i / HD;
+      const int d = p * HD + i % HD;
+      const int pos = q0 + r / gc;
+      qs[r * SM::LQ + i % HD] =
+          r < rows_used && pos < q_len && r % gc < hc && d < hd
+              ? q[((static_cast<size_t>(b) * q_len + pos) * n_q + head0 + r % gc) * hd + d]
+              : 0.f;
+    }
+  };
+  if (n_pan == 1) load_q(0);
   for (int i = tid; i < kRows * HD; i += kThreads) os[(i / HD) * SM::LO + i % HD] = 0.f;
   if (tid < kRows) {
     m_s[tid] = -INFINITY;
@@ -782,18 +1066,21 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   }
   __syncthreads();
 
-  // Rows in pieces of G bytes (16 at hd == HD), zero past hd and kv_len.
-  auto load_tile = [&](float* dst, const float* src, int k0) {
+  // Panel p's columns of rows k0 .. k0 + kBlockK - 1, in pieces of G bytes
+  // (16 at hd == HD), zero past hd and kv_len.
+  auto load_tile = [&](float* dst, const float* src, int k0, int p) {
+    const int col0 = p * HD * 4;  // the panel's first byte in a row
     with_piece<4>(row_bytes, [&](auto piece) {
       constexpr int G = decltype(piece)::value;
       constexpr int kPieces = HD * 4 / G;  // pieces of a padded row
       for (int i = tid; i < kBlockK * kPieces; i += kThreads) {
         const int r = i / kPieces;
         const int w = i % kPieces;
-        const bool ok = k0 + r < kv_len && w * G < row_bytes;
+        const bool ok = k0 + r < kv_len && col0 + w * G < row_bytes;
         const size_t g = ok ? ((static_cast<size_t>(b) * kv_len + k0 + r) * n_kv + h) * hd : 0;
         copy_piece<G>(reinterpret_cast<unsigned char*>(dst + r * SM::LQ) + w * G,
-                      reinterpret_cast<const unsigned char*>(src + g) + (ok ? w * G : 0), ok);
+                      reinterpret_cast<const unsigned char*>(src + g) + (ok ? col0 + w * G : 0),
+                      ok);
       }
     });
     cp_async_commit();
@@ -801,13 +1088,21 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
 
   for (int j = first_blk; j <= last_blk; ++j) {
     const int k0 = j * kBlockK;
-    load_tile(ks, k, k0);
-    load_tile(vs, v, k0);
-    cp_async_wait<1>();  // K has landed; V may still be in flight
-    __syncthreads();
+    // S over the head dim's panels; V's slab rides with the last one.
+    for (int p = 0; p < n_pan; ++p) {
+      if (n_pan > 1) load_q(p);
+      load_tile(ks, k, k0, p);
+      if (p + 1 < n_pan) {
+        cp_async_wait<0>();
+      } else {
+        load_tile(vs, v, k0, slab);
+        cp_async_wait<1>();  // K has landed; V may still be in flight
+      }
+      __syncthreads();
 
-    scores_tile<HD>(qs, ks, ss, tid);
-    __syncthreads();
+      scores_tile<HD>(qs, ks, ss, tid, p > 0);
+      __syncthreads();
+    }
 
     // Online softmax: warp w owns rows [8w, 8w + 8), lanes own columns.
     for (int rr = 0; rr < kRows / kWarps; ++rr) {
@@ -860,9 +1155,9 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     const int r = i / HD;
     const int d = i % HD;
     const int pos = q0 + r / gc;
-    if (r < rows_used && pos < q_len && r % gc < hc && d < hd) {
+    if (r < rows_used && pos < q_len && r % gc < hc && slab * HD + d < hd) {
       const float l = l_s[r];
-      out[((static_cast<size_t>(b) * q_len + pos) * n_q + head0 + r % gc) * hd + d] =
+      out[((static_cast<size_t>(b) * q_len + pos) * n_q + head0 + r % gc) * hd + slab * HD + d] =
           os[r * SM::LO + d] / (l == 0.f ? 1.f : l);
     }
   }
@@ -880,7 +1175,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* offs
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((q_len + block_q - 1) / block_q, n_kv * ((group + gc - 1) / gc), batch);
+  const int n_pan = HD < kPanel ? 1 : n_panels(hd);
+  const dim3 grid((q_len + block_q - 1) / block_q, n_kv * ((group + gc - 1) / gc) * n_pan, batch);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int*>(offsets), offset, static_cast<float*>(out), q_len, kv_len, n_q,
@@ -895,7 +1191,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* offs
 // q [batch, q_len, n_q, head_dim]; k/v [batch, kv_len, n_kv, head_dim];
 // offsets [batch] int32 causal offsets on the device, or null for one
 // `offset` shared by every batch row; out like q. window < 0: no sliding
-// window. dtype 0 = f32, 1 = bf16, each at head_dim 1 to 256; any n_q /
+// window. dtype 0 = f32, 1 = bf16, each at any head_dim >= 1; any n_q /
 // n_kv (the GQA group).
 // Returns the launch's cudaError_t.
 extern "C" int kvt_flash_prefill(const void* q, const void* k, const void* v,
@@ -918,7 +1214,13 @@ extern "C" int kvt_flash_prefill(const void* q, const void* k, const void* v,
   switch (padded(head_dim)) {
     case 64: err = go(std::integral_constant<int, 64>{}); break;
     case 128: err = go(std::integral_constant<int, 128>{}); break;
-    default: err = go(std::integral_constant<int, 256>{}); break;
+    case 256: err = go(std::integral_constant<int, 256>{}); break;
+    default:  // above 256: slabs and panels of 256
+      err = dtype == 1 ? wg::launch_wide(q, k, v, offsets, offset, out, batch, q_len, kv_len, n_q,
+                                         n_kv, head_dim, window, scale, s)
+                       : f32::launch<256>(q, k, v, offsets, offset, out, batch, q_len, kv_len,
+                                          n_q, n_kv, head_dim, window, scale, s);
+      break;
   }
   return static_cast<int>(err);
 }

@@ -42,13 +42,13 @@
 // design: one CTA per (sequence, kv head) over the body of
 // paged_decode_common.cuh.
 //
-// Shapes: every head_dim up to 256, built at the padded widths 64, 128 and
-// 256 with the true head_dim passed at run time (each body's notes say how
-// unpadded rows are copied); any GQA group. A group above 8 (4 at head dims
-// above 128) runs as chunks over the same kv head (paged_decode_common.cuh,
-// `rows_of`): one more cluster (bf16 q) or CTA (f32 q) per chunk, each
-// reading the kv head's pages again, so group 12 moves twice the K/V bytes
-// of one pass and group 71 nine times.
+// Shapes: every head_dim up to 256 (wider heads: paged_decode_wide.cu),
+// built at the padded widths 64, 128 and 256 with the true head_dim passed
+// at run time (each body's notes say how unpadded rows are copied); any GQA
+// group. A group above 8 (4 at head dims above 128) runs as chunks over the
+// same kv head (paged_decode_common.cuh, `rows_of`): one more cluster (bf16
+// q) or CTA (f32 q) per chunk, each reading the kv head's pages again, so
+// group 12 moves twice the K/V bytes of one pass and group 71 nine times.
 
 #include <cooperative_groups.h>
 
@@ -236,9 +236,10 @@ cudaError_t dispatch_cluster(const Args& a) {
 // q [batch, n_q, head_dim]; k/v pages [n_kv, n_pages, page_size, head_dim];
 // k/v scales [n_kv, n_pages, page_size, 1] f32 (int8 pages only, else null);
 // block_tables [batch, table_width] int32; seq_lens [batch] int32;
-// out [batch, n_q, head_dim]. head_dim 1 to 256; any n_q / n_kv (the GQA
-// group). window < 0: no sliding window. cluster: CTAs per (sequence, kv
-// head, group chunk) for bf16 q, a power of two up to 8 (1 for f32 q).
+// out [batch, n_q, head_dim]. head_dim 1 to 256 (above it:
+// kvt_paged_decode_wide); any n_q / n_kv (the GQA group). window < 0: no
+// sliding window. cluster: CTAs per (sequence, kv head, group chunk) for
+// bf16 q, a power of two up to 8 (1 for f32 q).
 // dtype (of q and out) 0 = f32, 1 = bf16; kv_int8 0: pages in the dtype of
 // q, 1: int8 pages with scales.
 // Returns the launch's cudaError_t.

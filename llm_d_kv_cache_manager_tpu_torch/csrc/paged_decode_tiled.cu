@@ -40,14 +40,15 @@
 // three-stage bulk-copy ring. f32 q (the checking paths, on f32 or int8
 // pages) keeps the old body.
 //
-// Shapes: every head_dim up to 256 (built at the padded widths 64, 128 and
-// 256, the true head_dim passed at run time; the workspace and the output
-// hold the true columns only), any GQA group. A group above 8 (4 at head
-// dims above 128) runs as chunks over the same kv head
-// (paged_decode_common.cuh, `rows_of`): the grid's kv-head axis becomes
-// (kv head, chunk), each chunk reading the kv head's pages again (group 12:
-// twice the K/V bytes of one pass), and the workspace holds rows_of(group,
-// head_dim) rows per (sequence, kv head, chunk, split).
+// Shapes: every head_dim up to 256 (wider heads: paged_decode_wide.cu;
+// built at the padded widths 64, 128 and 256, the true head_dim passed at
+// run time; the workspace and the output hold the true columns only), any
+// GQA group. A group above 8 (4 at head dims above 128) runs as chunks
+// over the same kv head (paged_decode_common.cuh, `rows_of`): the grid's
+// kv-head axis becomes (kv head, chunk), each chunk reading the kv head's
+// pages again (group 12: twice the K/V bytes of one pass), and the
+// workspace holds rows_of(group, head_dim) rows per (sequence, kv head,
+// chunk, split).
 
 #include "paged_decode_common.cuh"
 #include "paged_decode_sm90.cuh"
@@ -274,9 +275,10 @@ cudaError_t dispatch_sm90(const Args& a) {
 // workspace (rows = rows_of(n_q / n_kv, head_dim), chunks =
 // n_chunks_of(n_q / n_kv, head_dim)): m_ws and l_ws [batch, n_kv * chunks,
 // n_splits, rows] f32, acc_ws [batch, n_kv * chunks, n_splits, rows,
-// head_dim] f32; out [batch, n_q, head_dim]. head_dim 1 to 256; any n_q /
-// n_kv (the GQA group). window < 0: no sliding window. dtype (of q and out) 0 = f32, 1 = bf16; kv_int8 0: pages
-// in the dtype of q, 1: int8 pages with scales.
+// head_dim] f32; out [batch, n_q, head_dim]. head_dim 1 to 256 (above it:
+// kvt_paged_decode_wide_tiled); any n_q / n_kv (the GQA group). window < 0:
+// no sliding window. dtype (of q and out) 0 = f32, 1 = bf16; kv_int8 0:
+// pages in the dtype of q, 1: int8 pages with scales.
 // Returns the first failing launch's cudaError_t.
 extern "C" int kvt_paged_decode_tiled(
     const void* q, const void* k_pages, const void* v_pages,

@@ -1,12 +1,17 @@
 // The head-dim padding and the row copies that every kernel shares
-// (paged_decode_common.cuh, paged_decode_sm90.cuh, flash_prefill.cu).
+// (paged_decode_common.cuh, paged_decode_sm90.cuh, paged_decode_wide.cu,
+// flash_prefill.cu).
 //
 // Each kernel is built at a padded width, 64, 128 or 256 (`padded`), and
-// takes the true head dim at run time. The pools and tensors keep their
-// unpadded rows, so a row of hd elements starts only as aligned as its byte
-// width allows (a bf16 row of 100 is 200 bytes, an int8 row of 50 is 50):
-// such rows are copied into their padded shared-memory slots in pieces of
-// `row_piece(row_bytes)` bytes (`with_piece`, `copy_piece`).
+// takes the true head dim at run time. A head dim above 256 runs in panels
+// of kPanel (256) columns: its scores sum over every panel, and each CTA
+// owns one panel of the output (a column slab; `n_panels`). The pools and
+// tensors keep their unpadded rows, so a row of hd elements starts only as
+// aligned as its byte width allows (a bf16 row of 100 is 200 bytes, an int8
+// row of 50 is 50, a bf16 row of 300 is 600): such rows are copied into
+// their padded shared-memory slots in pieces of `row_piece(row_bytes)`
+// bytes (`with_piece`, `copy_piece`). A panel starts kPanel elements into
+// its row, a multiple of 16 bytes, so a row's pieces tile its panels too.
 
 #pragma once
 
@@ -17,10 +22,18 @@
 
 namespace {
 
-// The width a head dim is built at: 64, 128 or 256 (0: none, below 1 or
-// above 256).
+constexpr int kPanel = 256;  // the widest built width, and a wide head's panel
+
+// The width a head dim is built at: 64, 128 or 256; above 256 its width
+// rounded up to whole panels (0: none, below 1).
 __host__ __device__ constexpr int padded(int head_dim) {
-  return head_dim < 1 ? 0 : head_dim <= 64 ? 64 : head_dim <= 128 ? 128 : head_dim <= 256 ? 256 : 0;
+  return head_dim < 1 ? 0 : head_dim <= 64 ? 64 : head_dim <= 128 ? 128
+       : (head_dim + kPanel - 1) / kPanel * kPanel;
+}
+
+// Panels of kPanel columns a head dim spans: 1 up to 256.
+__host__ __device__ constexpr int n_panels(int head_dim) {
+  return (head_dim + kPanel - 1) / kPanel;
 }
 
 // The largest copy (16, 8, 4, 2 or 1 bytes) that every row of `row_bytes`

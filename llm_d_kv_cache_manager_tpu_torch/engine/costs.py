@@ -158,3 +158,13 @@ ALWAYS_TRANSFER = TransferCostModel(
     insert_s=0.0,
     source="always-transfer",
 )
+
+#: Gate that refuses every transfer: the degenerate "recompute everything"
+#: policy, a bench arm.
+NEVER_TRANSFER = TransferCostModel(
+    recompute_s=0.0,
+    staged_restore_s=1.0,
+    onboard_s=1.0,
+    insert_s=1.0,
+    source="never-transfer",
+)

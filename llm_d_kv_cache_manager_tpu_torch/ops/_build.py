@@ -42,7 +42,7 @@ from typing import Dict, Iterable, List
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-KERNELS = ("paged_decode", "paged_decode_tiled", "flash_prefill")
+KERNELS = ("paged_decode", "paged_decode_tiled", "paged_decode_wide", "flash_prefill")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -25,14 +25,10 @@ import torch
 
 launches = 0  # flash_prefill kernel launches (CUDA path only)
 
-# The bf16 (wgmma) and the f32 (CUDA-core) kernels take every head_dim up
-# to this (built at the padded widths 64, 128 and 256) and any GQA group (a
-# group above a tile's rows splits over CTAs).
-_KERNEL_MAX_HEAD_DIM = 256
-# What the JAX kernel takes and this one does not yet: raised by name. A
-# wider head needs O split over column blocks (it no longer fits the
-# registers).
-_STILL_OWED = "head dims above 256"
+# The bf16 (wgmma) and the f32 (CUDA-core) kernels take every head_dim (up
+# to 256 built at the padded widths 64, 128 and 256; above it in column
+# slabs of 256 over panels of 256) and any GQA group (a group above a tile's
+# rows splits over CTAs).
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 Offset = Union[int, torch.Tensor]
@@ -111,11 +107,6 @@ def _launch(q, k, v, causal_offset, window) -> torch.Tensor:
     if k.shape != (b, s, n_kv, hd) or v.shape != k.shape:
         raise ValueError(
             f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}"
-        )
-    if hd > _KERNEL_MAX_HEAD_DIM:
-        raise ValueError(
-            f"flash_prefill kernel takes head_dim up to {_KERNEL_MAX_HEAD_DIM}, got {hd} "
-            f"(still owed: {_STILL_OWED})"
         )
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)):
         raise ValueError("flash_prefill kernel needs contiguous, 16-byte aligned q/k/v")

@@ -11,17 +11,18 @@ events the control plane ingests.
 - `paged_attention`: the wrapper, with the reference's `pipelined` switch
   (default False). On CUDA tensors it launches a hand-written kernel,
   `csrc/paged_decode.cu` (pipelined: for bf16 q one cluster launch) or
-  the split-KV `csrc/paged_decode_tiled.cu` (tiled); on CPU tensors it runs
-  the plain version. It never falls back from CUDA to the plain version.
+  the split-KV `csrc/paged_decode_tiled.cu` (tiled), or above head_dim 256
+  the same two variants of `csrc/paged_decode_wide.cu`; on CPU tensors it
+  runs the plain version. It never falls back from CUDA to the plain version.
   `ops/quantized_kv.py` launches the same two kernels on int8 pages.
 - `decode_plan`: the launch shape of both kernels for bf16 q (on bf16 or
   int8 pages), from the shapes alone; `old_body_splits` for f32 q;
   `group_chunks`: how a GQA group above 8 (4 at head dims above 128)
-  splits over CTAs.
-- The kernels take every head_dim up to 256 (built at the padded widths 64,
-  128 and 256, the pools' rows unpadded) and any GQA group, in bf16 and f32
-  q, on pages of q's dtype and on int8 pages; a wider head raises on CUDA
-  tensors before any launch (`_check_kernel_args`).
+  splits over CTAs; `n_slabs`: the column slabs of a head dim above 256.
+- The kernels take every head_dim (up to 256 built at the padded widths 64,
+  128 and 256; above it in column slabs of 256, the scores summed over
+  panels of 256; the pools' rows unpadded) and any GQA group, in bf16 and
+  f32 q, on pages of q's dtype and on int8 pages.
 - `write_kv_pages`: scatter of new K/V rows into their pages.
 """
 
@@ -37,11 +38,8 @@ import torch
 launches = 0  # csrc/paged_decode.cu, bf16/f32 pages
 tiled_launches = 0  # csrc/paged_decode_tiled.cu, bf16/f32 pages
 
-_KERNEL_MAX_HEAD_DIM = 256  # flash_prefill's limit too: a model needs both
 _MAX_ROWS = 8  # query heads one decode CTA holds (csrc/paged_decode_common.cuh)
-# What the JAX kernels take and these do not yet: raised by name. A wider
-# head needs O split over column blocks (it no longer fits the registers).
-_STILL_OWED = "head dims above 256"
+_PANEL = 256  # the widest built head_dim, and a wider head's slab (csrc/row_copy.cuh)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -92,11 +90,14 @@ def paged_attention_reference(
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: pointers, then int shape arguments, then scale, dtype,
-# kv_int8 and the stream (csrc/paged_decode.cu, csrc/paged_decode_tiled.cu).
+# kv_int8 and the stream (csrc/paged_decode.cu, csrc/paged_decode_tiled.cu;
+# csrc/paged_decode_wide.cu's two entry points take the same).
 _ARGTYPES = {
     "kvt_paged_decode": [_P] * 8 + [_I] * 9 + [_F, _I, _I, _P],
     "kvt_paged_decode_tiled": [_P] * 11 + [_I] * 9 + [_F, _I, _I, _P],
 }
+_ARGTYPES["kvt_paged_decode_wide"] = _ARGTYPES["kvt_paged_decode"]
+_ARGTYPES["kvt_paged_decode_wide_tiled"] = _ARGTYPES["kvt_paged_decode_tiled"]
 
 _STAGE_TOKENS = 64  # tokens per ring stage of either decode kernel, on both page formats
 _MAX_CLUSTER = 8  # the portable cluster size: every Hopper launch may ask for it
@@ -108,13 +109,20 @@ def max_rows(head_dim: int = 128) -> int:
     return _MAX_ROWS // 2 if head_dim > 128 else _MAX_ROWS
 
 
+def n_slabs(head_dim: int) -> int:
+    """Column slabs of 256 a head_dim's output is cut into, one CTA (or
+    cluster) each: 1 up to 256 (`n_panels` in csrc/row_copy.cuh)."""
+    return -(-head_dim // _PANEL)
+
+
 def group_chunks(group: int, head_dim: int = 128) -> tuple:
     """(n_chunks, rows): a GQA group of at most max_rows(head_dim) query
     heads runs as one chunk of `group` rows; a larger one as ceil(group /
     max_rows) chunks of equal rows over the same kv head, the last chunk's
     spare rows unused (12 -> 2 x 6, 16 -> 2 x 8, 13 -> 2 x 7, 71 -> 9 x 8;
-    above head_dim 128, 8 -> 2 x 4). The kernels' `n_chunks_of` and
-    `rows_of` (csrc/paged_decode_common.cuh) follow the same rule."""
+    above head_dim 128, the wide heads above 256 included, 8 -> 2 x 4). The
+    kernels' `n_chunks_of` and `rows_of` (csrc/paged_decode_common.cuh)
+    follow the same rule."""
     n_chunks = -(-group // max_rows(head_dim))
     return n_chunks, -(-group // n_chunks)
 
@@ -129,11 +137,12 @@ def decode_plan(batch: int, n_kv: int, table_width: int, page_size: int,
     Both split each (sequence, kv head) as far as one CTA per SM allows
     (more CTAs read slower on an H100: each extra CTA adds its start-up,
     its merge and, in the tiled kernel, a partial for the combine pass),
-    never into more parts than the table has pages or 64-token stages. The
-    cluster is that count rounded down to a power of two, at most 8, so it
-    divides the padded widths 64, 128 and 256 (each rank merges padded /
-    cluster columns and writes those below head_dim)."""
-    pairs = batch * n_kv * group_chunks(group, head_dim)[0]
+    never into more parts than the table has pages or 64-token stages. Above
+    head_dim 256 each column slab is a pair of its own. The cluster is that
+    count rounded down to a power of two, at most 8, so it divides the
+    padded widths 64, 128 and 256 and a slab's 256 columns (each rank merges
+    padded / cluster columns and writes those below head_dim)."""
+    pairs = batch * n_kv * group_chunks(group, head_dim)[0] * n_slabs(head_dim)
     cap = max(1, min(table_width, table_width * page_size // _STAGE_TOKENS))
     n_splits = max(1, min(n_sms // pairs, cap))
     cluster = 1
@@ -146,10 +155,11 @@ def old_body_splits(batch: int, n_kv: int, table_width: int, n_sms: int,
                     group: int = 1, head_dim: int = 128) -> int:
     """The tiled kernel's split count for f32 q (on f32 or int8 pages, the
     checking paths), which keeps the body of csrc/paged_decode_common.cuh
-    (head_dim-thread CTAs, several to an SM): about two CTAs per SM over the
-    (sequence, kv head, group chunk) triples, never more splits than the
-    table has pages."""
-    triples = batch * n_kv * group_chunks(group, head_dim)[0]
+    (head_dim-thread CTAs, several to an SM; above head_dim 256 the body of
+    csrc/paged_decode_wide.cu, a CTA per column slab): about two CTAs per
+    SM over the (sequence, kv head, group chunk, slab) tuples, never more
+    splits than the table has pages."""
+    triples = batch * n_kv * group_chunks(group, head_dim)[0] * n_slabs(head_dim)
     return max(1, min(-(-2 * n_sms // triples), table_width))
 
 
@@ -194,11 +204,6 @@ def _check_kernel_args(q, k_pages, v_pages, block_tables, seq_lens, scales):
         )
     if block_tables.dim() != 2 or block_tables.shape[0] != batch or seq_lens.shape != (batch,):
         raise ValueError("block_tables must be [batch, pages] and seq_lens [batch]")
-    if head_dim > _KERNEL_MAX_HEAD_DIM:
-        raise ValueError(
-            f"paged decode kernels take head_dim up to {_KERNEL_MAX_HEAD_DIM}, got "
-            f"{head_dim} (still owed: {_STILL_OWED})"
-        )
     if not all(t.is_contiguous() for t in tensors) or any(
         t.data_ptr() % 16 for t in (k_pages, v_pages)
     ):
@@ -230,7 +235,8 @@ def _plan(n_sms: int, q_dtype: torch.dtype, batch: int, n_kv: int, table_width: 
 def launch_decode(q, k_pages, v_pages, block_tables, seq_lens, window, *,
                   pipelined: bool, scales=None) -> torch.Tensor:
     """Launch `csrc/paged_decode.cu` (pipelined) or
-    `csrc/paged_decode_tiled.cu` on CUDA tensors; `scales` = (k_scale,
+    `csrc/paged_decode_tiled.cu` on CUDA tensors, above head_dim 256 the
+    same variant of `csrc/paged_decode_wide.cu`; `scales` = (k_scale,
     v_scale) for int8 pages. Counting the launch is the caller's."""
     _check_kernel_args(q, k_pages, v_pages, block_tables, seq_lens, scales)
     n_kv, n_pages, page_size, head_dim = k_pages.shape
@@ -250,21 +256,23 @@ def launch_decode(q, k_pages, v_pages, block_tables, seq_lens, window, *,
     group = n_q // n_kv
     cluster, n_splits = _plan(_sm_count(q.device), q.dtype, batch, n_kv, table_width,
                               page_size, group, head_dim)
+    name = "paged_decode" if pipelined else "paged_decode_tiled"
+    fn_name = "kvt_" + name
+    if head_dim > _PANEL:  # both variants in one source, built apart
+        name, fn_name = "paged_decode_wide", fn_name.replace("decode", "decode_wide")
     if pipelined:
-        name = "paged_decode"
-        err = _kernel_fn(name, "kvt_paged_decode")(
+        err = _kernel_fn(name, fn_name)(
             *common, _ptr(out), batch, n_q, n_kv, n_pages, page_size, head_dim,
             table_width, window_arg, cluster, *tail,
         )
     else:
-        name = "paged_decode_tiled"
         # One f32 workspace: m and l [batch, n_kv * n_chunks, n_splits, rows],
         # then acc [..., rows, head_dim] (group_chunks).
         n_chunks, rows = group_chunks(group, head_dim)
         n = batch * n_kv * n_chunks * n_splits * rows
         ws = torch.empty(n * (head_dim + 2), dtype=torch.float32, device=q.device)
         m_ws, l_ws, acc_ws = ws[:n], ws[n:2 * n], ws[2 * n:]
-        err = _kernel_fn(name, "kvt_paged_decode_tiled")(
+        err = _kernel_fn(name, fn_name)(
             *common, _ptr(m_ws), _ptr(l_ws), _ptr(acc_ws), _ptr(out), batch, n_q,
             n_kv, n_pages, page_size, head_dim, table_width, window_arg,
             n_splits, *tail,

@@ -19,9 +19,10 @@ V vector of one kv head), scale = amax/127 and q = round(x/scale) in
   in f32 inside the kernel; for bf16 q both run the Hopper body of
   `csrc/paged_decode_sm90.cuh`, the bf16 pages' body, with the launch shape
   of `ops/paged_attention.py::decode_plan` (f32 q, a checking path, keeps
-  the first port's body). On CPU tensors it runs the plain version. The
-  kernels take the shapes `ops/paged_attention.py` names (every head_dim up
-  to 256, any GQA group); its checks raise on any other.
+  the first port's body; above head_dim 256 both q dtypes run
+  `csrc/paged_decode_wide.cu`). On CPU tensors it runs the plain version.
+  The kernels take the shapes `ops/paged_attention.py` names (every
+  head_dim, any GQA group); its checks raise on malformed inputs.
 """
 
 from __future__ import annotations

@@ -8,10 +8,11 @@ chip_smoke.py). f32 throughout; tolerance atol = rtol = 1e-5. The shapes
 run through GQA groups and head dims the CUDA kernels take (groups of 3 to
 7, groups above 8 that run in chunks, 71 and 128 over one kv head; head_dim
 64 beside 128, and 50, 80, 96, 100 and 256, which the kernels run at padded
-widths; the Qwen2.5, OpenLLaMA-3B and Gemma-7B attention shapes). Also on
-the CPU: the decode kernels' launch plan (by q's dtype, GQA group and head
-dim), the ctypes argument lists against the C entry points they call, and
-the message that names what the kernels still owe (head dims above 256).
+widths; 288, 300, 512 and 576, which they run in column slabs of 256; the
+Qwen2.5, OpenLLaMA-3B and Gemma-7B attention shapes). Also on the CPU: the
+decode kernels' launch plan (by q's dtype, GQA group and head dim), the
+ctypes argument lists against the C entry points they call, and that every
+head dim passes the kernels' checks.
 """
 
 import ctypes
@@ -95,7 +96,10 @@ def test_paged_attention_narrow_table(pps):
 # head_dim 64, and 50, 80, 96, 100 and 256 off the built widths), the two
 # Qwen2.5 attention shapes (28/4 of 128, 14/2 of 64: group 7), OpenLLaMA-3B's
 # (32/32 of 100), Gemma-7B's (16/16 of 256), Falcon-7B's (71/1 of 64), an
-# empty slot and windows.
+# empty slot and windows; and head dims above 256, which the kernels cut
+# into column slabs of 256 (288 and 300: a second slab of 32 and 44
+# columns, 300's bf16 rows only 8-byte aligned; 512; 576, DeepSeek-V2/V3's
+# absorbed MLA width) at groups 1, 2 and 8 (two chunks of 4).
 SHAPE_CASES = {
     "group_3": (6, 2, 128, [5, 90], None),
     "group_5": (10, 2, 128, [17, 96], None),
@@ -118,6 +122,12 @@ SHAPE_CASES = {
     "hd256_group_8_window": (8, 1, 256, [96, 50], 40),
     "group_71_falcon7b_heads": (71, 1, 64, [17, 96], None),
     "group_128": (128, 1, 128, [1, 96], 50),
+    "hd288_group_1": (2, 2, 288, [17, 96], None),
+    "hd300_group_2_window": (4, 2, 300, [70, 96], 30),
+    "hd512_group_2_empty_slot": (4, 2, 512, [0, 77], None),
+    "hd512_group_8_chunked": (8, 1, 512, [33, 96], None),
+    "hd576_group_1_window": (2, 2, 576, [96, 50], 40),
+    "hd576_group_8": (16, 2, 576, [31, 96], None),
 }
 
 
@@ -239,6 +249,39 @@ GROUP_PLAN_CASES = {
 }
 
 
+# (batch, n_kv, table_width, group, head_dim): head dims above 256 at phase
+# 21's shape (4/2 heads of 512: the flagship's width regrouped) at its
+# decode shapes, and wider heads and groups in chunks.
+SLAB_PLAN_CASES = {
+    "hd512_b8": (8, 2, 129, 2, 512),
+    "hd512_serving_b1": (1, 2, 128, 2, 512),
+    "hd288_group8_b1": (1, 2, 128, 8, 288),
+    "hd576_b2": (2, 4, 256, 1, 576),
+    "hd1024_b1_narrow": (1, 1, 2, 2, 1024),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SLAB_PLAN_CASES))
+def test_decode_plan_counts_slabs(case):
+    """Above head_dim 256 each column slab of 256 is a CTA (or cluster) of
+    its own: the plans count it beside the group chunks, and the cluster
+    still divides a slab's 256 columns. Up to 256 there is one slab."""
+    batch, n_kv, width, group, hd = SLAB_PLAN_CASES[case]
+    assert [port_paged.n_slabs(d) for d in (1, 128, 256, 257, 512, 576, 1024)] == [
+        1, 1, 1, 2, 2, 3, 4]
+    tuples = batch * n_kv * port_paged.group_chunks(group, hd)[0] * port_paged.n_slabs(hd)
+    cluster, n_splits = port_paged.decode_plan(batch, n_kv, width, 16, 132, group, hd)
+    assert 1 <= cluster <= n_splits <= width
+    assert cluster & (cluster - 1) == 0 and 256 % cluster == 0 and cluster <= 8
+    if tuples < 132:
+        assert tuples * max(cluster, n_splits) <= 132
+    splits32 = port_paged.old_body_splits(batch, n_kv, width, 132, group, hd)
+    assert 1 <= splits32 <= width and (splits32 == 1 or tuples * (splits32 - 1) < 2 * 132)
+    # One slab: the plans of a head dim up to 256 are those of 128.
+    assert port_paged.decode_plan(batch, n_kv, width, 16, 132, group, 256) == \
+        port_paged.decode_plan(batch, n_kv, width, 16, 132, group, 200)
+
+
 @pytest.mark.parametrize("case", sorted(GROUP_PLAN_CASES))
 def test_decode_plan_counts_group_chunks(case):
     batch, n_kv, width, page, n_sms, group, hd = GROUP_PLAN_CASES[case]
@@ -264,12 +307,14 @@ def test_group_chunks_cover_every_group():
     """Groups up to 8 run whole; a larger one in ceil(group / 8) chunks of
     equal rows, at most 8, the last chunk not empty (so the kernels' chunk
     count ceil(group / rows) is the same). Above head_dim 128 a CTA holds 4
-    rows."""
+    rows, the wide heads above 256 included."""
     assert [port_paged.group_chunks(g) for g in (1, 7, 8, 12, 13, 16, 64, 71, 128)] == [
         (1, 1), (1, 7), (1, 8), (2, 6), (2, 7), (2, 8), (8, 8), (9, 8), (16, 8)]
-    assert [port_paged.group_chunks(g, 256) for g in (1, 4, 5, 8, 16)] == [
-        (1, 1), (1, 4), (2, 3), (2, 4), (4, 4)]
-    for head_dim, limit in ((64, 8), (100, 8), (128, 8), (200, 4), (256, 4)):
+    for head_dim in (256, 288, 512, 576, 1024):
+        assert [port_paged.group_chunks(g, head_dim) for g in (1, 4, 5, 8, 16)] == [
+            (1, 1), (1, 4), (2, 3), (2, 4), (4, 4)]
+    for head_dim, limit in ((64, 8), (100, 8), (128, 8), (200, 4), (256, 4), (257, 4),
+                            (300, 4), (512, 4), (576, 4), (1024, 4), (4096, 4)):
         for group in range(1, 257):
             n_chunks, rows = port_paged.group_chunks(group, head_dim)
             assert rows <= limit and n_chunks == -(-group // limit)
@@ -285,17 +330,15 @@ def _kernel_args(n_q, n_kv, hd, dtype=torch.bfloat16):
 
 @pytest.mark.parametrize("n_q, n_kv, hd", [(6, 2, 96), (130, 2, 128), (65, 1, 64),
                                            (4, 2, 256), (4, 2, 288), (2, 1, 512)])
-def test_decode_kernel_check_names_what_is_owed(n_q, n_kv, hd):
-    """Every head_dim up to 256 and every GQA group pass the decode kernels'
-    check (these shapes were owed until the kernels took padded widths and
-    any group); a head dim above 256 raises before any launch, naming what
-    is still owed."""
+def test_decode_kernel_check_takes_every_head_dim(n_q, n_kv, hd):
+    """Every head_dim and every GQA group pass the decode kernels' check on
+    both page formats: up to 256 at padded widths, above it in column slabs
+    (these shapes were owed until the kernels took them)."""
     args = _kernel_args(n_q, n_kv, hd)
-    if hd <= 256:
-        port_paged._check_kernel_args(*args, None)
-        return
-    with pytest.raises(ValueError, match="still owed: head dims above 256"):
-        port_paged._check_kernel_args(*args, None)
+    port_paged._check_kernel_args(*args, None)
+    k8 = torch.zeros(args[1].shape, dtype=torch.int8)
+    scale = torch.ones(*args[1].shape[:3], 1)
+    port_paged._check_kernel_args(args[0], k8, k8, *args[3:], (scale, scale))
 
 
 @pytest.mark.parametrize("n_q, n_kv, hd", [(28, 4, 128), (14, 2, 64), (24, 2, 128),
@@ -313,21 +356,17 @@ class _NoLaunch(Exception):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n_q, n_kv, hd", [(6, 2, 96), (130, 2, 128), (4, 2, 288),
                                            (2, 1, 512)])
-def test_flash_kernel_check_names_what_is_owed(n_q, n_kv, hd, dtype, monkeypatch):
-    """Every head_dim up to 256 and every GQA group pass the flash kernel's
-    checks and reach its launch (stopped here: the CPU has no kernel); a
-    head dim above 256 raises before it, naming what is still owed."""
+def test_flash_kernel_check_reaches_launch_at_every_head_dim(n_q, n_kv, hd, dtype,
+                                                             monkeypatch):
+    """Every head_dim and every GQA group pass the flash kernel's checks and
+    reach its launch (stopped here: the CPU has no kernel)."""
     def stop():
         raise _NoLaunch
 
     monkeypatch.setattr(port_flash, "_kernel", stop)
     q = torch.zeros(1, 16, n_q, hd, dtype=dtype)
     k = torch.zeros(1, 16, n_kv, hd, dtype=dtype)
-    if hd <= 256:
-        with pytest.raises(_NoLaunch):
-            port_flash._launch(q, k, k, 0, None)
-        return
-    with pytest.raises(ValueError, match="still owed: head dims above 256"):
+    with pytest.raises(_NoLaunch):
         port_flash._launch(q, k, k, 0, None)
 
 
@@ -348,7 +387,8 @@ def _c_signatures() -> dict:
 
 
 @pytest.mark.parametrize("fn_name", ["kvt_flash_prefill", "kvt_paged_decode",
-                                     "kvt_paged_decode_tiled"])
+                                     "kvt_paged_decode_tiled", "kvt_paged_decode_wide",
+                                     "kvt_paged_decode_wide_tiled"])
 def test_ctypes_argtypes_match_c_signatures(fn_name):
     """A ctypes argument list that disagrees with the C entry point cuts
     pointers or shifts arguments silently on the card."""
@@ -459,6 +499,12 @@ FLASH_CASES_GROUPS = {
     "hd256_group_8_window": (1, 16, 48, 8, 1, 256, 32, 20, 8, 128),
     "group_71_falcon7b_heads": (1, 12, 30, 71, 1, 64, 18, None, 4, 128),
     "group_128_window": (1, 8, 24, 128, 1, 128, 16, 10, 4, 128),
+    # Head dims above 256 (column slabs of 256 in the CUDA kernels): groups
+    # 1, 2 and 8, per-batch offsets, a window.
+    "hd288_group_1": (1, 20, 40, 2, 2, 288, 20, None, 8, 128),
+    "hd300_group_2_window": (1, 24, 60, 4, 2, 300, 30, 20, 8, 128),
+    "hd512_group_2_per_batch": (2, 16, 48, 4, 2, 512, [0, 32], None, 8, 128),
+    "hd576_group_8_window": (1, 16, 40, 16, 2, 576, 24, 12, 8, 128),
 }
 
 

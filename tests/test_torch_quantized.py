@@ -139,6 +139,10 @@ SHAPE_CASES = {
     "hd64_group_7_qwen05b_heads": (14, 2, 64, [1, 96], None),
     "hd64_group_7_window": (14, 2, 64, [70, 96], 30),
     "hd64_group_12_chunked": (12, 1, 64, [0, 64], None),
+    "hd288_group_1": (2, 2, 288, [17, 96], None),
+    "hd300_group_2_window": (4, 2, 300, [70, 96], 30),
+    "hd512_group_2_empty_slot": (4, 2, 512, [0, 77], None),
+    "hd576_group_8": (16, 2, 576, [31, 96], None),
 }
 
 

@@ -557,9 +557,24 @@ def _tier_eager_stage(pkg, log):
         store.close()
 
 
+def _tier_never_transfer(pkg, log):
+    """A host tier built with the gate that refuses every transfer: nothing
+    restores, nothing prefetches, every block counted as gated."""
+    conn = FakeConnector(peer_blocks={1000 + i: _payload(i) for i in range(3)})
+    store = pkg["tiering"].TieredKVStore(conn, pkg["tiering"].NullPageCodec(),
+                                         cost_model=pkg["costs"].NEVER_TRANSFER)
+    try:
+        store.export_blocks([(h, [1, 2], None, 0, None) for h in (7, 11)])
+        log.append((store.plan_restore([7, 11]), store.prefetch([7, 11])))
+        log.append((store.load_chain([(7, [1, 2], None)], _taker()), conn.calls,
+                    dict(store.stats)))
+    finally:
+        store.close()
+
+
 TIER_SCENARIOS = [_tier_stage_waves, _tier_peer_runs, _tier_mixed_sources,
                   _tier_hedged_candidates, _tier_prefetch, _tier_prefetch_cap, _tier_gate,
-                  _tier_eager_stage]
+                  _tier_eager_stage, _tier_never_transfer]
 
 
 @pytest.mark.parametrize("scenario", TIER_SCENARIOS, ids=lambda f: f.__name__[6:])
@@ -729,6 +744,24 @@ def test_cost_model_matches_jax(quantized, margin):
             assert got.with_margin(3.0).admit_prefix(chain, page) == want.with_margin(
                 3.0).admit_prefix(chain, page)
     assert port_costs.ALWAYS_TRANSFER.admit_prefix([P] * 5, 16) == 5
+
+
+def test_never_transfer_matches_jax():
+    """The gate that refuses every transfer (the JAX package's NEVER_TRANSFER,
+    tests/test_costs.py's sentinel and gated-store arms) admits no block of
+    any chain, as the JAX package's does."""
+    got, want = port_costs.NEVER_TRANSFER, jax_costs.NEVER_TRANSFER
+    fields = ("recompute_s", "staged_restore_s", "onboard_s", "insert_s", "margin", "source")
+    assert [getattr(got, f) for f in fields] == [getattr(want, f) for f in fields]
+    S, P, R = port_costs.STAGED, port_costs.PEER, port_costs.READY
+    for chain in ([R], [S] * 8, [P] * 8, [P, R, R, R], [S, P, S, P], [], [R] * 3):
+        for page in (1, 16, 64):
+            assert got.admit_prefix(chain, page) == want.admit_prefix(chain, page) == 0
+            assert got.with_margin(3.0).admit_prefix(chain, page) == want.with_margin(
+                3.0).admit_prefix(chain, page)
+    log = []
+    _tier_never_transfer(PORT, log)
+    assert log[0] == (0, 0) and log[1][0] == [] and log[1][2]["gated_blocks"] >= 2
 
 
 def test_cost_model_rates_and_f32_bytes():
