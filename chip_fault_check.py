@@ -140,9 +140,17 @@ that a rank that fails or hangs fails the phase, or the logits bars);
 rank1_gets_rank0_heads, the KV pages sharded with rank 1 given rank 0's
 heads (it must fail the decode-logits bar on the pre-filled cache);
 rank1_publishes, rank 1 publishing its events too (it must fail the bar
-that rank 1 publishes nothing); and drop_one_layer_grad, a train step whose
-gradients of layer 5 are dropped (swapped in as llama.loss_and_grads: it
-must fail 19b's gradient bar).
+that rank 1 publishes nothing); rank_bytes_payload, a tp pod's block
+payload assembled as the ranks' byte strings end to end instead of their
+heads joined inside each layer (it must fail the bar that the tp pod stages
+a block it onboarded byte for byte as the tp = 1 pod's payload);
+rank1_skips_lora_delta, rank 1 leaving its adapter deltas out of q and v
+(it must fail the LoRA leg's logits or teacher-forced bar);
+rank1_own_acceptance, rank 1 taking part in the speculative read back's
+broadcast but committing its own acceptance, whose sampled draws only rank
+0 makes (it must fail the bar that both ranks accept the same tokens); and
+drop_one_layer_grad, a train step whose gradients of layer 5 are dropped
+(swapped in as llama.loss_and_grads: it must fail 19b's gradient bar).
 
 Phase 8b's bit-identical check (P' restored from the host store on a tight
 bf16 pod against the same prompt on a pod that never evicts: suffix logits
@@ -181,6 +189,7 @@ import chip_smoke
 from llm_d_kv_cache_manager_tpu_torch import obs
 from llm_d_kv_cache_manager_tpu_torch.api import http_service
 from llm_d_kv_cache_manager_tpu_torch.engine import engine as engine_mod
+from llm_d_kv_cache_manager_tpu_torch.engine import speculative
 from llm_d_kv_cache_manager_tpu_torch.engine.engine import EnginePod
 from llm_d_kv_cache_manager_tpu_torch.engine.scheduler import Scheduler
 from llm_d_kv_cache_manager_tpu_torch.antientropy import ResidencyAuditor
@@ -989,6 +998,41 @@ def rank1_publishes(rank: int) -> None:
     EnginePod.__init__ = init
 
 
+def rank_bytes_payload(rank: int) -> None:
+    """A tp pod's whole block assembled from the ranks' byte strings end to
+    end, not from their heads joined on the head axis of each layer."""
+    def extract_heads(self, ids):
+        local = engine_mod._gather_pages(self.pod.kv_cache, self._page_ids(ids))[:len(ids)].cpu()
+        parts = [torch.empty_like(local) for _ in range(self._tp)]
+        torch.distributed.all_gather(parts, local, group=self.pod.group)
+        return torch.cat(parts, dim=1)
+    engine_mod._DevicePageCodec.extract_heads = extract_heads
+
+
+def rank1_skips_lora_delta(rank: int) -> None:
+    """Rank 1 leaves its adapter deltas out of its q and v heads."""
+    if rank != 1:
+        return
+    for name in ("apply_prefill_delta", "apply_decode_delta"):
+        real = getattr(llama, name)
+        setattr(llama, name, lambda h, lo, real=real: tuple(torch.zeros_like(d)
+                                                             for d in real(h, lo)))
+
+
+def rank1_own_acceptance(rank: int) -> None:
+    """Rank 1 takes part in the speculative read back's broadcast, then
+    commits its own read back (its sampled draws are zeros: only rank 0
+    draws) instead of rank 0's."""
+    if rank != 1:
+        return
+    real = speculative._read_back
+
+    def own(parts, group=None):
+        real(parts, group)
+        return torch.cat([p.reshape(-1).long() for p in parts]).tolist()
+    speculative._read_back = own
+
+
 DROPPED_LAYER = 5
 REAL_LOSS_AND_GRADS = llama.loss_and_grads
 
@@ -1003,7 +1047,10 @@ def drop_one_layer_grad(loss_of, params, dp_group=None):
 
 TP_FAULTS = {"skip_wo_all_reduce": skip_wo_all_reduce,
              "rank1_gets_rank0_heads": rank1_gets_rank0_heads,
-             "rank1_publishes": rank1_publishes}
+             "rank1_publishes": rank1_publishes,
+             "rank_bytes_payload": rank_bytes_payload,
+             "rank1_skips_lora_delta": rank1_skips_lora_delta,
+             "rank1_own_acceptance": rank1_own_acceptance}
 
 
 def run_tp_bars(params, cfg, params32, cfg32, deltas: dict) -> dict:
@@ -1129,8 +1176,10 @@ def main() -> int:
                    "that skips every 7th increment, a recorder that drops every other trace")
     service = run_service_bars(params, cfg)
     chip_smoke.log("== tp and training faults: rank 1 skipping the all-reduce after wo, rank 1 "
-                   "given rank 0's KV heads, rank 1 publishing events, a train step dropping "
-                   "one layer's gradients")
+                   "given rank 0's KV heads, rank 1 publishing events, a block payload of the "
+                   "ranks' bytes end to end, rank 1 without its LoRA deltas, rank 1 committing "
+                   "its own speculative acceptance, a train step dropping one layer's "
+                   "gradients")
     int8_delta, _ = chip_smoke.teacher_forced_delta(params, cfg, params32, cfg32, True)
     tp_bars = run_tp_bars(params, cfg, params32, cfg32, {"bf16": delta, "int8": int8_delta})
 

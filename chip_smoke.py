@@ -2883,8 +2883,8 @@ class SpecRecorder(SpeculativeScheduler):
         seen = []
         real = speculative._read_back
 
-        def capture(parts):
-            host = real(parts)
+        def capture(parts, *group):
+            host = real(parts, *group)
             seen.append((tuple(parts[0].shape), host))
             return host
         speculative._read_back = capture
@@ -3143,8 +3143,8 @@ def spec_decoder_check(params, cfg, params32, cfg32, draft: str, draft_cfg, draf
     hosts = []
     real = speculative._read_back
 
-    def capture(parts):
-        host = real(parts)
+    def capture(parts, *group):
+        host = real(parts, *group)
         hosts.append((parts[0].numel() - 1, host))
         return host
     speculative._read_back = capture
@@ -7720,13 +7720,15 @@ def tp_traffic(vocab: int) -> list:
                  max_new_tokens=TP_NEW, sampling=None) for _ in range(10)]
 
 
-def tp_pod(params, cfg, int8: bool, events: list, group=None) -> EnginePod:
+def tp_pod(params, cfg, int8: bool, events: list, group=None, adapters=None,
+           **over) -> EnginePod:
+    kw = dict(pod_id="pod-tp", model_name=TP_MODEL, n_pages=4096, page_size=PAGE,
+              device_tier="gpu", max_pages_per_seq=256)
+    kw.update(over)
     return EnginePod(
-        EnginePodConfig(pod_id="pod-tp", model_name=TP_MODEL, n_pages=4096, page_size=PAGE,
-                        device_tier="gpu", max_pages_per_seq=256, model_config=cfg,
-                        device="cuda", use_quantized_kv=int8,
+        EnginePodConfig(**kw, model_config=cfg, device="cuda", use_quantized_kv=int8,
                         tp=1 if group is None else TP, group=group),
-        event_sink=events.append, params=params,
+        event_sink=events.append, params=params, lora_adapters=adapters,
     )
 
 
@@ -7774,17 +7776,19 @@ def prefill_check_inputs(cfg, seed: int = 3) -> tuple:
     return tokens, table
 
 
-def tp_prefill_logits(cfg, params, group=None, plain=False, at=None):
+def tp_prefill_logits(cfg, params, group=None, plain=False, at=None, lora_layers=None):
     """The prefix-hit prefill's chunk logits on a fresh cache (head-sharded
-    under `at` with `group`)."""
+    under `at` with `group`), with one sequence's adapter (`lora_layers`,
+    lora.select_adapter's) if given."""
     l_new, s, off = PREFILL_SERVING_SHAPE
     tokens, table = prefill_check_inputs(cfg)
     cache = llama.make_kv_pages(cfg, s // PAGE, PAGE, "cuda")
     if at is not None:
         cache = tp_serving.shard_kv_cache(cache, at)
-    llama.prefill_cache(cfg, params, cache, tokens[:off], table, 0, plain=plain, group=group)
+    llama.prefill_cache(cfg, params, cache, tokens[:off], table, 0, plain=plain, group=group,
+                        lora=lora_layers)
     _, out = llama.prefill_cache(cfg, params, cache, tokens[off:], table, off, plain=plain,
-                                 group=group)
+                                 group=group, lora=lora_layers)
     return out.float()
 
 
@@ -7794,6 +7798,189 @@ def tp_decode_inputs(cfg, int8: bool, at=None):
     if at is not None:
         cache = tp_serving.shard_kv_cache(cache, at)
     return cache, tables, lens, tokens
+
+
+# 19a's legs with a host tier, LoRA adapters and speculation: four requests
+# or fewer each (prompts of 512 shared and 256 unique tokens), TP_LEG_NEW
+# greedy or sampled tokens, which never complete a page after a whole-page
+# prompt (the final token is not appended), so the event streams hold the
+# prompts' pages and the host tier's moves only.
+TP_LEG_NEW = 16
+TP_LEG_PAGES = 512  # the LoRA and speculative legs' pools
+# The host-tier leg's pool: request A (48 pages and the decode's) fits, B,
+# unrelated, reclaims and offloads most of A's prefix, and C, A's prefix
+# again, restores it.
+TP_TIER_PAGES = 72
+TP_CROSS_PAGES = 128  # the cross-onboarding pods' pools
+TP_LORA_IDS = (11, 12, None, 11)  # two of phase 9b's adapters and the base
+TP_SPEC_K = 3
+TP_WAIT_S = 120.0  # the parent's onboard of the tp pod's export, once the ranks offer it
+# The tier stats that the block manager's decisions fix: the prefetcher's
+# own ("prefetched", "ready_hits") depend on its thread's timing on either
+# pod, so a restore may come from the ready buffer on one and the store on
+# the other.
+TIER_DECIDED = ("offloads", "restores", "onboards", "host_evictions", "gated_blocks")
+
+
+def tp_leg_traffic(vocab: int, seed: int, samplings=(None,) * 4, lora_ids=None) -> list:
+    """Four requests of one 512-token prefix and 256 unique tokens."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, 512).tolist()
+    return [dict(prompt_tokens=prefix + rng.integers(0, vocab, 256).tolist(),
+                 max_new_tokens=TP_LEG_NEW, sampling=sp,
+                 **({} if lora_ids is None else dict(lora_id=lora_ids[i])))
+            for i, sp in enumerate(samplings)]
+
+
+def tp_tier_traffic(vocab: int) -> list:
+    """The host-tier leg's three waves: A (a prefix P and 256 unique
+    tokens), B (768 unrelated tokens, which reclaims A's pages) and C (P and
+    256 other tokens, which restores P)."""
+    a, c = tp_leg_traffic(vocab, 1911)[:2]
+    rng = np.random.default_rng(1912)
+    b = dict(a, prompt_tokens=rng.integers(0, vocab, 768).tolist())
+    return [a, b, c]
+
+
+def tp_cross_prompts(vocab: int) -> tuple:
+    """(x, y): the prompts of the two onboards, 32 whole pages and 8 tokens more."""
+    rng = np.random.default_rng(1913)
+    return tuple(rng.integers(0, vocab, 520).tolist() for _ in range(2))
+
+
+def tier_digests(pod, prompt) -> list:
+    """The sha-256 of each full block of `prompt` in the pod's host store
+    (None where it is not staged)."""
+    keys = pod.block_manager.token_db.tokens_to_kv_block_keys(None, prompt, "")
+    size = pod.tier_store.codec.page_nbytes
+    payloads = [pod.connector.fetch_staged(k.chunk_hash, size) for k in keys]
+    return [None if p is None else hashlib.sha256(p).hexdigest() for p in payloads]
+
+
+def serve_from(pod, peer_address, prompt) -> None:
+    """Resolve `prompt`'s blocks to a peer's transfer server."""
+    hashes = {k.chunk_hash for k in pod.block_manager.token_db.tokens_to_kv_block_keys(
+        None, prompt, "")}
+    pod.set_peer_resolver(lambda h: peer_address if h in hashes else None)
+
+
+class SpecTableRecorder(SpeculativeScheduler):
+    """TableRecorder's per-tick block tables for a SpeculativeScheduler."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.tables = []
+
+    def step(self):
+        finished = super().step()
+        self.tables.append([(r.req_id, list(r.state.block_table))
+                            for r in self.inner._running])
+        return finished
+
+
+def tp_leg_run(pod, traffic, scheduler=TableRecorder) -> dict:
+    """One leg's traffic through a scheduler on `pod`, its launches counted
+    from 0: tokens, cached tokens, per-tick tables, launches, wall."""
+    reset_launch_counts()
+    r = run_scheduler(pod, traffic, 1, max_batch=8, budget=512, scheduler=scheduler)
+    torch.cuda.synchronize()
+    out = dict(tokens=r["tokens"], cached=[q.num_cached_tokens for q in r["requests"]],
+               tables=r["scheduler"].tables, launches=launch_counts(), wall_s=r["wall_s"])
+    stats = getattr(r["scheduler"], "stats", None)
+    if stats is not None:
+        out["stats"] = dataclasses.astuple(stats)
+    return out
+
+
+def tp_tier_serve(params, cfg, int8: bool, group=None) -> dict:
+    """The host-tier leg: the three waves, one at a time, on a fresh
+    TP_TIER_PAGES pod with an ALWAYS_TRANSFER host tier."""
+    events = []
+    pod = tp_pod(params, cfg, int8, events, group, n_pages=TP_TIER_PAGES, enable_host_tier=True,
+                 transfer_cost_model=ALWAYS_TRANSFER)
+    try:
+        waves = [tp_leg_run(pod, [req]) for req in tp_tier_traffic(cfg.vocab_size)]
+        out = {key: [w[key][0] for w in waves] for key in ("tokens", "cached")}
+        out.update(tables=[w["tables"] for w in waves], events=event_rows(events),
+                   wall_s=sum(w["wall_s"] for w in waves),
+                   launches={k: sum(w["launches"][k] for w in waves) for k in KERNELS})
+        if pod.tier_store is not None:
+            out["stats"] = dict(pod.tier_store.stats)
+        return out
+    finally:
+        pod.close()
+
+
+def tp_cross_serve(params, cfg, group, x_address, handshake: Path) -> dict:
+    """The tp pod's side of the onboards (bf16 pages): x from the parent's
+    tp = 1 pod (at `x_address`), served as a hit and staged again (its
+    digests); then y computed and exported, its digests and this pod's
+    address offered in `handshake`/y.pkl (the tier store's rank) until the
+    parent has onboarded it (`handshake`/done)."""
+    import pickle
+
+    x, y = tp_cross_prompts(cfg.vocab_size)
+    pod = tp_pod(params, cfg, False, [], group, n_pages=TP_CROSS_PAGES, enable_host_tier=True,
+                 transfer_cost_model=ALWAYS_TRANSFER, pod_id="pod-tp-cross")
+    out = {}
+    try:
+        serve_from(pod, x_address, x)
+        state, out["x_cached"] = pod.prefill(x)
+        pod.export_sequence(state)
+        pod.free(state)
+        state, _ = pod.prefill(y)
+        pod.export_sequence(state)
+        pod.free(state)
+        if pod.tier_store is not None:
+            out.update(x_digests=tier_digests(pod, x), onboards=pod.tier_store.stats["onboards"])
+            offer = dict(address=pod.transfer_address, y_digests=tier_digests(pod, y))
+            (handshake / "y.tmp").write_bytes(pickle.dumps(offer))
+            (handshake / "y.tmp").rename(handshake / "y.pkl")
+        deadline = time.monotonic() + TP_WAIT_S
+        while not (handshake / "done").exists():
+            if time.monotonic() > deadline:
+                raise TimeoutError("the parent never onboarded y")
+            time.sleep(0.05)
+        return out
+    finally:
+        pod.close()
+
+
+def tp_lora_serve(params, cfg, adapters, group=None, at=None) -> dict:
+    """The LoRA leg (bf16 pages): the adapters' traffic, then (on a tp pod's
+    rank) the prefix-hit prefill logits under the first adapter."""
+    events = []
+    pod = tp_pod(params, cfg, False, events, group, adapters=adapters, n_pages=TP_LEG_PAGES)
+    out = tp_leg_run(pod, tp_leg_traffic(cfg.vocab_size, 1914, lora_ids=TP_LORA_IDS))
+    out["events"] = event_rows(events)
+    if group is not None:  # the tp = 1 side's truths are taken on the dense path
+        out["prefill_logits"] = tp_prefill_logits(
+            cfg, pod.params, group, at=at,
+            lora_layers=pod._lora_for_prefill(TP_LORA_IDS[0])).cpu()
+    del pod
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_spec_traffic(vocab: int) -> list:
+    """The speculative leg's four requests, the odd ones sampled as phase
+    7b's (temperature 0.8, top_k 50, top_p 0.95, seed i)."""
+    return tp_leg_traffic(vocab, 1915, [SamplingParams(0.8, 50, 0.95, seed=i) if i % 2 else None
+                                        for i in range(4)])
+
+
+def tp_spec_serve(params, cfg, group=None) -> dict:
+    """The speculative leg: SpeculativeScheduler at k = TP_SPEC_K with phase
+    10b's weak draft on int8 target pages (the draft's own are bf16)."""
+    events = []
+    pod = tp_pod(params, cfg, True, events, group, n_pages=TP_LEG_PAGES)
+    draft_cfg, draft_params = weak_draft()
+    out = tp_leg_run(pod, tp_spec_traffic(cfg.vocab_size),
+                     spec_scheduler(draft_cfg, draft_params, TP_SPEC_K, cls=SpecTableRecorder))
+    out["events"] = event_rows(events)
+    del pod, draft_params
+    torch.cuda.empty_cache()
+    return out
 
 
 class CollectiveTimer:
@@ -7853,13 +8040,16 @@ def decode_tick_ms(cfg, params, cache, tables, lens, tokens, group=None) -> dict
     return out
 
 
-def tp_rank_main(rank: int, store: str, out_path: str, fault=None) -> None:
+def tp_rank_main(rank: int, store: str, out_path: str, fault=None, x_address=None,
+                 handshake=None) -> None:
     """One rank of phase 19a's tp pod, in its own process on cuda:0: the
     same seeded weights as the parent, its shards; the traffic through the
-    Scheduler on both page formats; the logits checks' inputs on its shard;
-    a decode tick's wall and collective share. `fault`: a planted fault
-    (chip_fault_check.py), installed first. Writes its results to
-    `out_path` (or the traceback) and exits."""
+    Scheduler on both page formats; the host-tier, LoRA and speculative
+    legs, and the onboards to and from the parent's tp = 1 pod at
+    `x_address` (`handshake`: tp_cross_serve's directory); the logits
+    checks' inputs on its shard; a decode tick's wall and collective share.
+    `fault`: a planted fault (chip_fault_check.py), installed first. Writes
+    its results to `out_path` (or the traceback) and exits."""
     import pickle
     import traceback
     from datetime import timedelta
@@ -7881,6 +8071,12 @@ def tp_rank_main(rank: int, store: str, out_path: str, fault=None) -> None:
         for fmt, int8, steps in TP_RUNS:
             out["runs"][fmt] = tp_serve(params, cfg, int8, steps, group)
         at = MeshCoords({"tp": TP}, {"tp": rank})
+        t = time.perf_counter()
+        out["tier"] = {fmt: tp_tier_serve(params, cfg, int8, group) for fmt, int8, _ in TP_RUNS}
+        out["lora"] = tp_lora_serve(params, cfg, tp_adapters(cfg), group, at)
+        out["spec"] = tp_spec_serve(params, cfg, group)
+        out["cross"] = tp_cross_serve(params, cfg, group, x_address, Path(handshake))
+        out["legs_s"] = time.perf_counter() - t
         shard = tp_serving.shard_serving_params(params, at)
         del params
         out["prefill_logits"] = tp_prefill_logits(cfg, shard, group, at=at).cpu()
@@ -7901,21 +8097,25 @@ def tp_rank_main(rank: int, store: str, out_path: str, fault=None) -> None:
     os._exit(0)  # the gloo group of a failed peer may not tear down
 
 
-def spawn_tp_ranks(fault=None) -> list:
+def spawn_tp_ranks(fault=None, x_address=None, during=None) -> list:
     """Run tp_rank_main in TP processes (spawned, a FileStore under the
     package's build/ directory), each joined under TP_JOIN_S and killed
-    past it; returns each rank's results or raises with the failures."""
+    past it; `during(directory, processes)` runs while they do. Returns each
+    rank's results or raises with the failures."""
     import multiprocessing as mp
     import pickle
 
     tmp = Path(tempfile.mkdtemp(prefix="tp-", dir=_build.BUILD_DIR))
     ctx = mp.get_context("spawn")
     outs = [tmp / f"rank{r}.pkl" for r in range(TP)]
-    procs = [ctx.Process(target=tp_rank_main, args=(r, str(tmp / "store"), str(outs[r]), fault))
+    procs = [ctx.Process(target=tp_rank_main, args=(r, str(tmp / "store"), str(outs[r]), fault,
+                                                    x_address, str(tmp)))
              for r in range(TP)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + TP_JOIN_S
+    if during is not None:
+        during(tmp, procs)
     for p in procs:
         p.join(timeout=max(deadline - time.monotonic(), 0.1))
     hung = [r for r, p in enumerate(procs) if p.is_alive()]
@@ -7945,6 +8145,129 @@ class _Served:
         self.generated = generated
 
 
+def tp_adapters(cfg) -> dict:
+    """The LoRA leg's adapters: phase 9b's of TP_LORA_IDS."""
+    return {lid: a for lid, a in flagship_adapters(cfg).items() if lid in TP_LORA_IDS}
+
+
+def onboard_offer(pod, prompt, handshake: Path, procs, out: dict) -> None:
+    """The parent's side of tp_cross_serve: wait for the ranks' offer of y,
+    onboard it into `pod` through their transfer server, stage it again, and
+    let the ranks go on (`done`), whatever happened."""
+    import pickle
+
+    try:
+        deadline = time.monotonic() + TP_JOIN_S
+        while not (handshake / "y.pkl").exists():
+            if time.monotonic() > deadline or not all(p.is_alive() for p in procs):
+                out["y_error"] = "the ranks never offered y"
+                return
+            time.sleep(0.05)
+        offer = pickle.loads((handshake / "y.pkl").read_bytes())
+        serve_from(pod, offer["address"], prompt)
+        state, out["y_cached"] = pod.prefill(prompt)
+        pod.export_sequence(state)
+        pod.free(state)
+        out.update(y_digests=tier_digests(pod, prompt), y_offered=offer["y_digests"],
+                   y_onboards=pod.tier_store.stats["onboards"])
+    finally:
+        (handshake / "done").touch()
+
+
+def tp_leg_checks(ranks, single: dict, cross: dict, truth: dict, deltas: dict,
+                  params32, cfg32, merged: dict, card: str) -> tuple:
+    """The host-tier, LoRA and speculative legs' bars (19a's first three
+    hold for them too: rank 0 publishes the tp = 1 pod's stream, rank 1
+    nothing, the same tables and tokens on both ranks every tick). Returns
+    (readings, failures)."""
+    failures, out = [], {}
+    vocab = cfg32.vocab_size
+    legs = [(f"host tier {fmt}", ("tier", fmt), tp_tier_traffic(vocab), deltas[fmt], None)
+            for fmt, _, _ in TP_RUNS]
+    legs.append(("lora", ("lora",), tp_leg_traffic(vocab, 1914, lora_ids=TP_LORA_IDS),
+                 deltas["bf16"], lambda i: merged.get(TP_LORA_IDS[i], params32)))
+    legs.append(("speculative", ("spec",), tp_spec_traffic(vocab), deltas["int8"], None))
+    for name, path, traffic, delta, truth_params in legs:
+        r0, r1, ref = (r[path[0]] if len(path) == 1 else r[path[0]][path[1]]
+                       for r in (*ranks, single))
+        if r0["events"] != ref["events"]:
+            failures.append(f"{name}: rank 0's events differ from the tp = 1 pod's "
+                            f"({len(r0['events'])} vs {len(ref['events'])})")
+        if r1["events"]:
+            failures.append(f"{name}: rank 1 published {len(r1['events'])} events")
+        if r0["tables"] != r1["tables"] or r0["tokens"] != r1["tokens"]:
+            failures.append(f"{name}: the ranks' block tables or tokens differ")
+        if r0["cached"] != ref["cached"] or r1["cached"] != ref["cached"]:
+            failures.append(f"{name}: cached tokens {r0['cached']} {r1['cached']}, tp = 1 "
+                            f"{ref['cached']}")
+        bar = teacher_forced_bar(params32, cfg32, traffic, [_Served(g) for g in r0["tokens"]],
+                                 delta, truth_params=truth_params)
+        if not bar["ok"]:
+            failures.append(f"{name}: teacher-forced bar {bar}")
+        agree = sum(a == b for a, b in zip(r0["tokens"], ref["tokens"]))
+        reading = dict(cached=r0["cached"], events=len(r0["events"]), bar=bar,
+                       launches=r0["launches"], wall_s=r0["wall_s"], tp1_wall_s=ref["wall_s"],
+                       requests_equal_to_tp1=agree)
+        extra = ""
+        if path[0] == "tier":
+            decided = {k: r0.get("stats", {}).get(k) for k in TIER_DECIDED}
+            if decided != {k: ref["stats"][k] for k in TIER_DECIDED} or "stats" in r1:
+                failures.append(f"{name}: tier stats {r0.get('stats')} (rank 1 "
+                                f"{r1.get('stats')}), tp = 1 {ref['stats']}")
+            if ref["stats"]["restores"] <= 0 or ref["stats"]["offloads"] <= 0:
+                failures.append(f"{name}: the traffic restored {ref['stats']['restores']} and "
+                                f"offloaded {ref['stats']['offloads']} blocks")
+            reading["stats"] = r0.get("stats")
+            extra = f"; tier stats {r0.get('stats')}"
+        if path[0] == "spec":
+            if r0["stats"] != r1["stats"]:
+                failures.append(f"{name}: SpeculativeStats rank 0 {r0['stats']}, rank 1 "
+                                f"{r1['stats']}")
+            reading["stats"] = r0["stats"]
+            extra = f"; (proposed, accepted, rounds) {r0['stats']} (tp = 1: {ref['stats']})"
+        out[name] = reading
+        log(f"  19a {name} ({card}): {len(r0['events'])} events from rank 0 (tp = 1: "
+            f"{len(ref['events'])}), {len(r1['events'])} from rank 1; cached {r0['cached']}"
+            f"{extra}; teacher-forced worst {max(bar['worst'].values()):.4f} (delta "
+            f"{delta:.4f}); {agree}/{len(traffic)} requests' tokens equal the tp = 1 pod's; "
+            f"wall {r0['wall_s']:.2f} s (tp = 1: {ref['wall_s']:.2f} s); launches "
+            f"{r0['launches']}")
+    # LoRA: the prefix-hit prefill's logits under the first adapter, each rank.
+    for rank, r in enumerate(ranks):
+        got = r["lora"]["prefill_logits"].to(truth["lora"].device)
+        err = float((got - truth["lora"]).abs().max())
+        tol = 2 * truth["lora_plain_err"] + 1e-2
+        ok = bool(torch.isfinite(got).all()) and got.shape == truth["lora"].shape and err <= tol
+        out[f"lora prefill logits rank {rank}"] = dict(err=err, tol=tol, ok=ok)
+        log(f"  19a lora prefill logits (adapter {TP_LORA_IDS[0]}), rank {rank}: vs f32 truth "
+            f"{err:.4e}, bf16 plain path {truth['lora_plain_err']:.4e} (tol {tol:.4e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"lora prefill logits on rank {rank}: {err:.4e} > {tol:.4e}")
+    # The onboards both ways through the transfer servers, each a hit, and what
+    # each stages again byte for byte the exporter's.
+    r0, r1 = (r["cross"] for r in ranks)
+    n_x = len(tp_cross_prompts(vocab)[0]) // PAGE * PAGE
+    checks = {
+        "tp pod serves x (the tp = 1 pod's) as a hit": r0["x_cached"] == r1["x_cached"] == n_x,
+        "x staged again by the tp pod, byte for byte": None not in r0["x_digests"]
+        and r0["x_digests"] == cross["x_digests"],
+        "tp = 1 pod serves y (the tp pod's) as a hit": cross.get("y_cached") == n_x,
+        "y staged again by the tp = 1 pod, byte for byte": None not in cross.get("y_digests", [None])
+        and cross.get("y_digests") == cross.get("y_offered"),
+        "every block crossed the wire": r0["onboards"] == n_x // PAGE
+        and cross.get("y_onboards") == n_x // PAGE,
+    }
+    out["cross"] = dict(checks=checks, x_cached=r0["x_cached"], y_cached=cross.get("y_cached"),
+                        error=cross.get("y_error"))
+    log(f"  19a onboards ({card}): tp pod cached {r0['x_cached']} of x, tp = 1 pod "
+        f"{cross.get('y_cached')} of y; {checks}")
+    failures += [f"onboards: {name}" for name, ok in checks.items() if not ok]
+    if cross.get("y_error"):
+        failures.append(f"onboards: {cross['y_error']}")
+    return out, failures
+
+
 def tp_check(params, cfg, params32, cfg32, deltas: dict, fault=None) -> dict:
     """Phase 19a: the tp = 2 pod in two processes against a tp = 1 pod and
     the f32 truth on the same weights. Returns the readings, with
@@ -7969,10 +8292,33 @@ def tp_check(params, cfg, params32, cfg32, deltas: dict, fault=None) -> dict:
             single_tick = decode_tick_ms(cfg, params, *tp_decode_inputs(cfg, False))
         del cache
     single = {fmt: tp_serve(params, cfg, int8, steps) for fmt, int8, steps in TP_RUNS}
+    # The legs' tp = 1 pods, their truths, and the tp = 1 pod the ranks
+    # onboard x from (and onboard y into while they run).
+    t0 = time.perf_counter()
+    adapters = tp_adapters(cfg)
+    legs = dict(tier={fmt: tp_tier_serve(params, cfg, int8) for fmt, int8, _ in TP_RUNS},
+                lora=tp_lora_serve(params, cfg, adapters), spec=tp_spec_serve(params, cfg))
+    merged = {lid: lora.merge_adapter(params32, a) for lid, a in adapters.items()}
+    leg_truth = dict(lora=tp_prefill_logits(cfg32, merged[TP_LORA_IDS[0]], plain=True))
+    leg_truth["lora_plain_err"] = float((tp_prefill_logits(
+        cfg, params, plain=True, lora_layers=adapters[TP_LORA_IDS[0]])
+        - leg_truth["lora"]).abs().max())
+    x, y = tp_cross_prompts(cfg.vocab_size)
+    cross_pod = tp_pod(params, cfg, False, [], n_pages=TP_CROSS_PAGES, enable_host_tier=True,
+                       transfer_cost_model=ALWAYS_TRANSFER, pod_id="pod-one-cross")
+    state, _ = cross_pod.prefill(x)
+    cross_pod.export_sequence(state)
+    cross_pod.free(state)
+    cross = dict(x_digests=tier_digests(cross_pod, x))
+    legs_tp1_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    ranks = spawn_tp_ranks(fault)
+    try:
+        ranks = spawn_tp_ranks(fault, cross_pod.transfer_address,
+                               lambda tmp, procs: onboard_offer(cross_pod, y, tmp, procs, cross))
+    finally:
+        cross_pod.close()
     ranks_s = time.perf_counter() - t0
 
     out = dict(card=card, ranks_s=ranks_s, runs={}, logits={})
@@ -8037,6 +8383,16 @@ def tp_check(params, cfg, params32, cfg32, deltas: dict, fault=None) -> dict:
             f"{err_plain:.4e} (tol {tol:.4e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"{name} logits on rank {rank}: {err:.4e} > {tol:.4e}")
+    out["legs"], leg_failures = tp_leg_checks(ranks, legs, cross, leg_truth, deltas, params32,
+                                              cfg32, merged, card)
+    failures += leg_failures
+    del merged
+    out.update(legs_s=ranks[0]["legs_s"], legs_tp1_s=legs_tp1_s, leg_launches={
+        "tp_host_tier": {name: sum(r["launches"][name] for r in ranks[0]["tier"].values())
+                         for name in KERNELS},
+        "tp_lora": ranks[0]["lora"]["launches"], "tp_speculative": ranks[0]["spec"]["launches"]})
+    log(f"  19a's host-tier, LoRA, speculative legs and onboards took {ranks[0]['legs_s']:.1f} s "
+        f"on the ranks and {legs_tp1_s:.1f} s on the tp = 1 pods ({card})")
     tick = ranks[0]["tick"]
     out.update(tick_tp1_ms=single_tick["wall_ms"], tick_tp2_ms=tick["wall_ms"],
                collective_share=tick["collective_share"], collectives=tick["collectives"],
@@ -8293,8 +8649,12 @@ def main(argv=None) -> int:
     for name in ("paged_decode", "paged_decode_int8", "flash_prefill"):  # 17c, both formats
         by_path[name]["transfer_chaos"] = chaos["launches"][name]
         # Phase 19a's tp pod: rank 0's launches over its bf16 and int8 runs
-        # (rank 1 launches as many on its own head shard).
+        # (rank 1 launches as many on its own head shard), and over its
+        # host-tier (both formats), LoRA (bf16) and speculative (int8 target
+        # pages, bf16 draft pages) legs.
         by_path[name]["tp"] = tp["launches"][name]
+        for leg, counts in tp["leg_launches"].items():
+            by_path[name][leg] = counts[name]
     for row in ("paged_decode_tiled", "paged_decode_tiled_int8"):
         by_path[row] = {"batched_decode": batched["checks"][row]["launches"],
                         "moe_batched_decode": moe["logits"][row]["launches"],

@@ -28,7 +28,10 @@ gather across the group. The block manager, the block tables and the trash
 page are the same on every rank; rank 0 alone publishes events, so the tp
 pod is one pod to the control plane; every chosen token is group rank 0's,
 broadcast (models/llama.py, engine/scheduler.py), so every rank commits the
-same pages.
+same pages. A tp pod's LoRA registry splits as its weights do, and its host
+tier is one tier store on rank 0 (`_TpTier`): rank 0 decides, the other
+ranks follow its commands, and a block's payload is every rank's heads
+joined, the single-rank pod's bytes.
 """
 
 from __future__ import annotations
@@ -52,7 +55,12 @@ from llm_d_kv_cache_manager_tpu_torch.kvevents.events import EventBatch
 from llm_d_kv_cache_manager_tpu_torch.models import llama
 from llm_d_kv_cache_manager_tpu_torch.models import lora as lora_mod
 from llm_d_kv_cache_manager_tpu_torch.parallel import serving as tp_serving
-from llm_d_kv_cache_manager_tpu_torch.parallel.collectives import broadcast_from_first
+from llm_d_kv_cache_manager_tpu_torch.parallel.collectives import (
+    broadcast_from_first,
+    broadcast_object,
+    tp_rank,
+    tp_size,
+)
 from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import MeshCoords
 from llm_d_kv_cache_manager_tpu_torch.utils import logging as kvlog
 from llm_d_kv_cache_manager_tpu_torch.utils.device import resolve_device
@@ -159,17 +167,65 @@ class _DevicePageCodec(PageCodec):
     event. An insert copies the payloads into a pinned buffer, then
     host-to-device and scatters in place on the current stream. On the CPU
     nothing is pinned.
+
+    On a tp pod (`tier`) each rank holds a contiguous range of kv heads
+    inside every layer, so a block's payload is the ranks' slices joined on
+    the head axis of each component, not their bytes end to end. Rank 0's
+    extract tells the other ranks which pages, every rank gathers its heads
+    to the host and an all-gather brings them together: the collective runs
+    at call time, on the calling thread, and resolve() only cuts bytes. Rank
+    0's insert broadcasts the whole payloads and every rank scatters its
+    own heads. The collectives move CPU uint8 tensors.
     """
 
-    def __init__(self, pod: "EnginePod"):
+    def __init__(self, pod: "EnginePod", tier: Optional["_TpTier"] = None):
         self.pod = pod
+        self._tp_tier = tier
+        self._tp = tp_size(pod.group)
         self._cuda = pod.device.type == "cuda"
-        self._buffers = _HostBuffers() if self._cuda else None
-        self._stream = torch.cuda.Stream(device=pod.device) if self._cuda else None
+        self._buffers = _HostBuffers() if self._cuda and tier is None else None
+        self._stream = (torch.cuda.Stream(device=pod.device)
+                        if self._cuda and tier is None else None)
 
     @property
     def page_nbytes(self) -> int:
-        return sum(_slice_nbytes(c) for c in self.pod.kv_cache)
+        """A whole block's bytes (every rank's heads on a tp pod)."""
+        return self._tp * sum(_slice_nbytes(c) for c in self.pod.kv_cache)
+
+    def _head_views(self, rows: torch.Tensor, comp: torch.Tensor, offset: int, heads: int):
+        """A component's part of uint8 rows [N, ...] as [N, n_layers, heads,
+        bytes a head], and the offset past it."""
+        nbytes = _slice_nbytes(comp) // comp.shape[1] * heads
+        part = rows[:, offset:offset + nbytes].reshape(rows.shape[0], comp.shape[0], heads, -1)
+        return part, offset + nbytes
+
+    def extract_heads(self, ids: List[int]) -> torch.Tensor:
+        """Every rank: whole blocks [N, page_nbytes] uint8 on the host, from
+        each rank's heads of the pages (a collective)."""
+        n = len(ids)
+        local = _gather_pages(self.pod.kv_cache, self._page_ids(ids))[:n].cpu()
+        parts = [torch.empty_like(local) for _ in range(self._tp)]
+        dist.all_gather(parts, local, group=self.pod.group)
+        joined, offsets = [], [0] * self._tp
+        for comp in self.pod.kv_cache:
+            views = []
+            for r, part in enumerate(parts):
+                view, offsets[r] = self._head_views(part, comp, offsets[r], comp.shape[1])
+                views.append(view)
+            joined.append(torch.cat(views, dim=2).reshape(n, -1))
+        return torch.cat(joined, dim=1)
+
+    def insert_heads(self, ids: List[int], blocks: torch.Tensor) -> None:
+        """Every rank: rank 0's whole blocks [N, page_nbytes] uint8 on the
+        host (broadcast here), this rank's heads scattered into its pages."""
+        dist.broadcast(blocks, src=dist.get_global_rank(self.pod.group, 0),
+                       group=self.pod.group)
+        first, offset, own = tp_rank(self.pod.group), 0, []
+        for comp in self.pod.kv_cache:
+            heads = comp.shape[1]
+            whole, offset = self._head_views(blocks, comp, offset, heads * self._tp)
+            own.append(whole[:, :, first * heads:(first + 1) * heads].reshape(len(ids), -1))
+        self._scatter(ids, torch.cat(own, dim=1).to(self.pod.device))
 
     def _page_ids(self, ids: List[int]) -> torch.Tensor:
         padded = ids + [ids[-1]] * (_pad_bucket(len(ids)) - len(ids))
@@ -188,6 +244,10 @@ class _DevicePageCodec(PageCodec):
         if not ids:
             return lambda: []
         n = len(ids)
+        if self._tp_tier is not None:
+            self._tp_tier.send(("extract", ids))
+            rows = self.extract_heads(ids).numpy()
+            return lambda: [rows[i].tobytes() for i in range(n)]
         gathered = _gather_pages(self.pod.kv_cache, self._page_ids(ids))[:n]
         if not self._cuda:
             rows = gathered.numpy()
@@ -220,7 +280,8 @@ class _DevicePageCodec(PageCodec):
             if len(payload) != nbytes:
                 raise ValueError(f"block payload is {len(payload)} bytes, expected {nbytes}")
         n = len(items)
-        if self._cuda:
+        ids = [int(p) for p, _ in items]
+        if self._buffers is not None:
             buf = self._buffers.take(n * nbytes)
             host = buf[: n * nbytes].view(n, nbytes)
         else:
@@ -228,15 +289,100 @@ class _DevicePageCodec(PageCodec):
         rows = host.numpy()
         for i, (_, payload) in enumerate(items):
             rows[i] = np.frombuffer(payload, dtype=np.uint8)
+        if self._tp_tier is not None:
+            self._tp_tier.send(("insert", ids))
+            self.insert_heads(ids, host)
+            return
         blocks = host.to(self.pod.device, non_blocking=True)
         if self._cuda:
             copied = torch.cuda.Event()
             copied.record()
             self._buffers.give(buf, after=copied)
+        self._scatter(ids, blocks)
+
+    def _scatter(self, ids: List[int], blocks: torch.Tensor) -> None:
+        n = len(ids)
         bucket = _pad_bucket(n)
         if bucket > n:  # pad rows repeat the last item: identical bytes
             blocks = torch.cat([blocks, blocks[-1:].expand(bucket - n, -1)])
-        _scatter_pages(self.pod.kv_cache, self._page_ids([int(p) for p, _ in items]), blocks)
+        _scatter_pages(self.pod.kv_cache, self._page_ids(ids), blocks)
+
+
+class _TpTier:
+    """The host tier of a tp pod: one tier store on group rank 0, which
+    decides; the other ranks follow.
+
+    Every answer that changes the block manager (a chain's plan, what a
+    chain load landed, the staged subset, the cost gate's choice) depends on
+    timing on rank 0 (its stager and prefetch threads, peer fetches), so no
+    other rank decides for itself. Each tier call of the block manager or
+    the pod runs on the main thread of every rank at the same point: rank 0
+    runs it on its store and broadcasts ("done", answer) at its end; the
+    other ranks meanwhile serve rank 0's commands in order: ("extract",
+    pages) and ("insert", pages) are the codec's collectives, ("take", k) a
+    chain load's page grab (which may reclaim, and so nest a tier call of
+    its own). A raise on rank 0 is broadcast and raised on every rank, so
+    the block manager's recovery is the same everywhere. Collectives run on
+    the main thread only, in the same order on every rank."""
+
+    def __init__(self, pod: "EnginePod", store=None):
+        self.group = pod.group
+        self.leads = tp_rank(pod.group) == 0
+        self.store = store  # rank 0's TieredKVStore
+        self.codec: Optional[_DevicePageCodec] = None
+
+    def send(self, message) -> None:
+        """Rank 0: one command or answer to the other ranks."""
+        broadcast_object(message, self.group)
+
+    def call(self, name: str, *args, take_pages=None):
+        """The store's `name(*args)` on rank 0, its answer on every rank."""
+        if not self.leads:
+            return self._follow(take_pages)
+        if take_pages is not None:  # a chain load: each page grab is a command
+            def take(k: int) -> List[int]:
+                self.send(("take", k))
+                return take_pages(k)
+            args += (take,)
+        try:
+            out = getattr(self.store, name)(*args)
+        except Exception as e:
+            self.send(("error", f"{type(e).__name__}: {e}"))
+            raise
+        self.send(("done", out))
+        return out
+
+    def _follow(self, take_pages):
+        while True:
+            op, arg = broadcast_object(None, self.group)
+            if op == "extract":
+                self.codec.extract_heads(arg)
+            elif op == "insert":
+                self.codec.insert_heads(
+                    arg, torch.empty((len(arg), self.codec.page_nbytes), dtype=torch.uint8))
+            elif op == "take":
+                take_pages(arg)
+            elif op == "error":
+                raise RuntimeError(f"rank 0's host tier raised {arg}")
+            else:
+                return arg
+
+    # -- the block manager's hooks (engine/block_manager.py) ------------------
+
+    def reclaim_hook(self, *block) -> None:
+        self.call("reclaim_hook", *block)
+
+    def reclaim_many_hook(self, blocks: List[tuple]) -> None:
+        self.call("reclaim_many_hook", blocks)
+
+    def page_loader(self, *block) -> bool:
+        return self.call("page_loader", *block)
+
+    def plan_restore(self, chunk_hashes: List[int]) -> int:
+        return self.call("plan_restore", chunk_hashes)
+
+    def load_chain(self, blocks: List[tuple], take_pages) -> List[int]:
+        return self.call("load_chain", blocks, take_pages=take_pages)
 
 
 @dataclass
@@ -312,7 +458,7 @@ class EnginePod:
         mc = config.model_config or llama.LlamaConfig()
         self.group = None
         if config.tp > 1:
-            self.group = self._tp_group(config, mc, lora_adapters)
+            self.group = self._tp_group(config, mc)
         # Rank 0 alone speaks for a tp pod.
         self._publishes = self.group is None or dist.get_rank(self.group) == 0
         self._publisher = None
@@ -330,7 +476,12 @@ class EnginePod:
 
         self.tier_store = None
         self.connector = None
-        if config.enable_host_tier:
+        self._tp_tier: Optional[_TpTier] = None
+        if config.enable_host_tier and self.group is not None:
+            # One tier store, connector and transfer server for the tp pod,
+            # on rank 0 (rank 0 alone publishes their events too).
+            self._tp_tier = _TpTier(self)
+        if config.enable_host_tier and self._publishes:
             from llm_d_kv_cache_manager_tpu_torch.engine.costs import TransferCostModel
             from llm_d_kv_cache_manager_tpu_torch.engine.tiering import TieredKVStore
             from llm_d_kv_cache_manager_tpu_torch.kv_connectors.connector import (
@@ -353,7 +504,7 @@ class EnginePod:
                 cost_model = TransferCostModel.for_model(
                     mc, quantized=config.use_quantized_kv)
             self.tier_store = TieredKVStore(
-                self.connector, _DevicePageCodec(self),
+                self.connector, _DevicePageCodec(self, self._tp_tier),
                 capacity_blocks=config.host_capacity_blocks,
                 cost_model=cost_model,
                 prefetch_capacity_blocks=config.prefetch_capacity_blocks,
@@ -363,6 +514,11 @@ class EnginePod:
                 fetch_batch_blocks=config.fetch_batch_blocks,
             )
         store = self.tier_store
+        if self._tp_tier is not None:
+            self._tp_tier.store = store
+            self._tp_tier.codec = (store.codec if store is not None
+                                   else _DevicePageCodec(self, self._tp_tier))
+            store = self._tp_tier  # the hooks: rank 0's answers on every rank
         self.block_manager = BlockManager(
             BlockManagerConfig(
                 n_pages=config.n_pages,
@@ -420,11 +576,13 @@ class EnginePod:
         if lora_adapters:
             ids = sorted(lora_adapters)
             stack = lora_mod.stack_adapters([lora_adapters[i] for i in ids])
+            if self.group is not None:  # the B matrices of this rank's heads
+                stack = tp_serving.shard_lora_stack(stack, at)
             self.lora_stack = {k: v.to(self.device) for k, v in stack.items()}
             self._lora_index = {lid: i + 1 for i, lid in enumerate(ids)}
 
     @staticmethod
-    def _tp_group(config: EnginePodConfig, mc, lora_adapters):
+    def _tp_group(config: EnginePodConfig, mc):
         """The checks of a tp pod, all before any weight, page or thread is
         made; returns its group."""
         if llama.is_moe_config(mc):
@@ -444,9 +602,6 @@ class EnginePod:
         if dist.get_world_size(config.group) != config.tp:
             raise ValueError(f"tp={config.tp} but the group has "
                              f"{dist.get_world_size(config.group)} ranks")
-        if config.enable_host_tier or lora_adapters:
-            raise NotImplementedError(
-                "a tp pod serves without a host tier and without LoRA adapters")
         return config.group
 
     # -- events --------------------------------------------------------------
@@ -624,15 +779,22 @@ class EnginePod:
         tensor as it is on a single-rank pod)."""
         return broadcast_from_first(tokens, self.group)
 
+    def _tier(self, name: str, *args):
+        """The tier store's `name(*args)`; on a tp pod, rank 0's answer on
+        every rank (`_TpTier`)."""
+        if self._tp_tier is not None:
+            return self._tp_tier.call(name, *args)
+        return getattr(self.tier_store, name)(*args)
+
     def free(self, state: SequenceState) -> None:
-        if self.tier_store is not None and self.config.eager_stage:
+        if self.config.enable_host_tier and self.config.eager_stage:
             # Snapshot while the pages are still committed: the gather is
             # queued on this (serving) thread, so it precedes any later
             # allocation's overwrite in device order. Best-effort: a failed
             # snapshot must never leak the sequence's pages; its blocks fall
             # back to the reclaim-time stage.
             try:
-                self.tier_store.stage_async(list(self.block_manager.committed_blocks(state)))
+                self._tier("stage_async", list(self.block_manager.committed_blocks(state)))
             except Exception as e:  # noqa: BLE001 - staging is best-effort
                 logger.debug("eager stage snapshot failed on free: %s", e)
         self.block_manager.free(state)
@@ -648,26 +810,28 @@ class EnginePod:
 
     def set_peer_resolver(self, resolver) -> None:
         """Install the hash -> peer-address resolver (once the fleet's pods
-        and shared index exist: tiering.IndexBackedPeerResolver)."""
-        if self.tier_store is None:
+        and shared index exist: tiering.IndexBackedPeerResolver). A tp pod's
+        resolver is rank 0's; the other ranks keep none."""
+        if not self.config.enable_host_tier:
             raise RuntimeError("enable_host_tier=False: no data plane to configure")
-        self.tier_store.peer_resolver = resolver
+        if self.tier_store is not None:
+            self.tier_store.peer_resolver = resolver
 
     def export_sequence(self, state: SequenceState) -> int:
         """Stage every committed page of a live sequence in the transfer
         server (the pages stay on the device) so peers can onboard them: the
         prefill/decode-disaggregation push. Returns the number staged."""
-        if self.tier_store is None:
+        if not self.config.enable_host_tier:
             raise RuntimeError("enable_host_tier=False: no data plane to export to")
         blocks = list(self.block_manager.committed_blocks(state))
-        self.tier_store.export_blocks(blocks)
+        self._tier("export_blocks", blocks)
         return len(blocks)
 
     def prefetch(self, tokens: List[int], lora_id: Optional[int] = None) -> int:
         """Start background payload fetches for a queued prompt's restorable
         blocks (the fetch rides the queue wait instead of the time to first
         token). No-op without a host tier. Returns the fetches queued."""
-        if self.tier_store is None:
+        if not self.config.enable_host_tier:
             return 0
         keys = self.block_manager.token_db.tokens_to_kv_block_keys(
             None, [int(t) for t in tokens], "", lora_id=lora_id
@@ -678,10 +842,10 @@ class EnginePod:
         """Prefetch by chain hashes the caller already derived: the blocks
         not resident on the device go to the background fetch queue.
         Returns the fetches queued."""
-        if self.tier_store is None:
+        if not self.config.enable_host_tier:
             return 0
         missing = [h for h in chunk_hashes if not self.block_manager.is_cached(h)]
-        return self.tier_store.prefetch(missing)
+        return self._tier("prefetch", missing)
 
     def resident_prefix_blocks(self, chunk_hashes: List[int]) -> int:
         """Length of the leading run of `chunk_hashes` resident on the
@@ -709,10 +873,10 @@ class EnginePod:
             "extra_device": [],
             "extra_host": [],
         }
-        if self.tier_store is not None:
-            out["host"] = self.tier_store.staged_subset(host_hashes)
+        if self.config.enable_host_tier:
+            out["host"] = self._tier("staged_subset", host_hashes)
             if max_extra > 0:
-                out["extra_host"] = self.tier_store.staged_sample(max_extra)
+                out["extra_host"] = self._tier("staged_sample", max_extra)
         if max_extra > 0:
             out["extra_device"] = self.block_manager.cached_hashes(max_extra)
         return out
@@ -723,7 +887,7 @@ class EnginePod:
         cached blocks (the chained BlockStored tells the index) and release
         the pages to the evictable prefix cache. Never computes; resident
         blocks cost nothing. Returns the number of blocks newly landed."""
-        if self.tier_store is None:
+        if not self.config.enable_host_tier:
             return 0
         tokens = [int(t) for t in tokens]
         ps = self.config.page_size
@@ -736,7 +900,7 @@ class EnginePod:
         rest = [k.chunk_hash for k in keys[n_resident:]]
         if not rest:
             return 0
-        restorable = self.tier_store.plan_restore(rest)
+        restorable = self._tier("plan_restore", rest)
         if restorable <= 0:
             return 0
         try:

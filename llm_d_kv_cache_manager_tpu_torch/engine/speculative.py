@@ -28,6 +28,12 @@ Tokens stay on the device through a round: the draft's proposals feed its
 next step and the verify chunk without a host copy, and the host reads one
 tensor back a round (`SpeculativeDecoder`) or a tick
 (`SpeculativeScheduler`); `read_backs` counts them.
+
+On a tp pod every rank runs the draft whole (its weights are not sharded)
+and the target's verify over its heads; the verify chunk (the frontier
+token and the proposals) and the read back are group rank 0's, broadcast,
+so every rank commits rank 0's accepted tokens and counts its stats. The
+sampled acceptance draws run on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -51,15 +57,28 @@ from llm_d_kv_cache_manager_tpu_torch.ops.sampling import (
     sample_tokens,
     split_key,
 )
+from llm_d_kv_cache_manager_tpu_torch.parallel.collectives import (
+    broadcast_from_first,
+    tp_rank,
+)
 
 read_backs = 0  # device-to-host reads of a round's (or tick's) results
 
 
-def _read_back(parts: List[torch.Tensor]) -> List[int]:
-    """One device-to-host read of several int tensors, flattened in order."""
+def _read_back(parts: List[torch.Tensor], group=None) -> List[int]:
+    """One device-to-host read of several int tensors, flattened in order:
+    group rank 0's on a tp pod."""
     global read_backs
     read_backs += 1
-    return torch.cat([p.reshape(-1).long() for p in parts]).tolist()
+    return broadcast_from_first(torch.cat([p.reshape(-1).long() for p in parts]), group).tolist()
+
+
+def _rank0_draws(pod: EnginePod, n: int, draw) -> torch.Tensor:
+    """`draw()`'s int tensors flattened ([n] in all) on group rank 0, zeros
+    on the other ranks of a tp pod, whose read back is rank 0's."""
+    if tp_rank(pod.group) == 0:
+        return torch.cat([p.reshape(-1).long() for p in draw()])
+    return torch.zeros(n, dtype=torch.long, device=pod.device)
 
 
 @dataclass
@@ -111,8 +130,6 @@ class SpeculativeDecoder:
     def __init__(self, pod: EnginePod, draft_config, draft_params, k: int = 4):
         if pod.lora_stack is not None:
             raise NotImplementedError("speculative decoding with LoRA adapters")
-        if pod.group is not None:
-            raise NotImplementedError("speculative decoding on a tp pod")
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
         self.pod = pod
@@ -176,6 +193,7 @@ class SpeculativeDecoder:
                                keys(k_target, positions(len(state.tokens), 1)))
         else:
             t0 = torch.argmax(pod.last_logits).to(torch.int32).reshape(1)
+        t0 = pod.choose(t0)
         generated: List[int] = []
         try:
             while len(generated) < max_new_tokens:
@@ -211,12 +229,12 @@ class SpeculativeDecoder:
                 # is the target's opinion after chunk[i], so logits[i] vs
                 # proposals[i] is the acceptance test and column n_accept
                 # seeds the next round.
-                chunk = torch.cat([t0] + proposals)
+                chunk = pod.choose(torch.cat([t0] + proposals))
                 n = chunk.shape[0]
                 pod.block_manager.reserve_pages(state, (pos_t0 + n + page_size - 1) // page_size)
                 pod.kv_cache, verify_logits = llama.prefill_cache(
                     pod._model_config, pod.params, pod.kv_cache, chunk,
-                    pod._padded_table(state), pos_t0, all_logits=True,
+                    pod._padded_table(state), pos_t0, all_logits=True, group=pod.group,
                 )
 
                 if sampled_mode:
@@ -224,16 +242,18 @@ class SpeculativeDecoder:
                     # n_accept acceptances sits at pos_t0 + 1 + n_accept),
                     # and the accept/resample draws of every proposal: one
                     # batch each, one read back.
-                    emit = sample_tokens(verify_logits, *rep(n),
-                                         keys(k_target, positions(pos_t0 + 1, n)))
-                    parts = [chunk, emit]
-                    if proposals:
+                    def draw():
+                        emit = sample_tokens(verify_logits, *rep(n),
+                                             keys(k_target, positions(pos_t0 + 1, n)))
+                        if not proposals:
+                            return [emit]
                         qs = torch.softmax(filter_logits(verify_logits[:k_eff], *rep(k_eff)), -1)
-                        toks_a, oks = accept_or_resample(
+                        return [emit, *accept_or_resample(
                             qs, torch.stack(draft_dists), chunk[1:],
-                            keys(k_accept, positions(pos_t0 + 1, k_eff)))
-                        parts += [toks_a, oks]
-                    host = _read_back(parts)
+                            keys(k_accept, positions(pos_t0 + 1, k_eff)))]
+
+                    host = _read_back([chunk, _rank0_draws(pod, n + 2 * k_eff, draw)],
+                                      pod.group)
                     tokens, emit_h = host[:n], host[n:2 * n]
                     toks_h, oks_h = host[2 * n:2 * n + k_eff], host[2 * n + k_eff:]
                     n_accept, resampled = 0, None
@@ -250,7 +270,7 @@ class SpeculativeDecoder:
                     # convention plain decode uses).
                     next_t0 = resampled if resampled is not None else emit_h[n_accept]
                 else:
-                    host = _read_back([chunk, torch.argmax(verify_logits, dim=-1)])
+                    host = _read_back([chunk, torch.argmax(verify_logits, dim=-1)], pod.group)
                     tokens, argmaxes = host[:n], host[n:]
                     n_accept = 0
                     for i in range(k_eff):
@@ -326,8 +346,6 @@ class SpeculativeScheduler:
     ):
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
-        if pod.group is not None:
-            raise NotImplementedError("speculative decoding on a tp pod")
         self.inner = Scheduler(pod, max_batch=max_batch,
                                prefill_token_budget=prefill_token_budget)
         self.pod = pod
@@ -551,7 +569,7 @@ class SpeculativeScheduler:
         # One batched target verification over [pending, proposals...], with
         # per-sequence row allowances: sequence i's rows land in real pages
         # up to position len + accepts[i] - 1 and in the trash page past it.
-        chunk = torch.stack([pending_t] + proposals, dim=1)
+        chunk = pod.choose(torch.stack([pending_t] + proposals, dim=1))
         max_lens = np.zeros((b_pad,), np.int32)  # pad rows: every write to trash
         max_lens[:b] = [len(r.state.tokens) + a for r, a in zip(running, accepts)]
         need = max(len(r.state.block_table) for r in running)
@@ -564,7 +582,7 @@ class SpeculativeScheduler:
             pod._model_config, pod.params, pod.kv_cache, chunk,
             torch.from_numpy(tables).to(dev), starts_t,
             torch.from_numpy(max_lens).to(dev), pod.trash_page,
-            lora=pod.lora_for_decode(lora_ids),
+            lora=pod.lora_for_decode(lora_ids), group=pod.group,
         )
         cols1 = k_eff + 1
         parts = [chunk[:, 1:], torch.argmax(verify_logits, dim=-1)]  # [B, k], [B, k+1]
@@ -573,22 +591,25 @@ class SpeculativeScheduler:
             # draws (the bonus on full acceptance, or the plain draw at
             # accepts[i] == 0) for every column, batched. Column j of a row
             # sits at absolute position starts + 1 + j.
-            vocab = verify_logits.shape[-1]
-            flat = verify_logits.reshape(b_pad * cols1, vocab)
-            pos = (starts_t[:, None] + 1 + torch.arange(cols1, device=dev)[None]).reshape(-1)
-            flat_sp = tuple(rep(t, cols1) for t in sp_arrays)
-            parts.append(sample_tokens(flat, *flat_sp, position_keys(rep(emit_keys, cols1), pos)))
-            if k_eff > 0:
-                q_all = torch.softmax(filter_logits(flat, *flat_sp), dim=-1)
-                q_all = q_all.reshape(b_pad, cols1, vocab)[:, :k_eff].reshape(-1, vocab)
-                pos_k = pos.reshape(b_pad, cols1)[:, :k_eff].reshape(-1)
-                toks_a, oks = accept_or_resample(
-                    q_all, torch.stack(draft_dists, dim=1).reshape(-1, vocab),
-                    chunk[:, 1:].reshape(-1),
-                    position_keys(rep(accept_keys, k_eff), pos_k),
-                )
-                parts += [toks_a, oks]
-        host = np.asarray(_read_back(parts), dtype=np.int64)
+            def draw():
+                vocab = verify_logits.shape[-1]
+                flat = verify_logits.reshape(b_pad * cols1, vocab)
+                pos = (starts_t[:, None] + 1 + torch.arange(cols1, device=dev)[None]).reshape(-1)
+                flat_sp = tuple(rep(t, cols1) for t in sp_arrays)
+                out = [sample_tokens(flat, *flat_sp, position_keys(rep(emit_keys, cols1), pos))]
+                if k_eff > 0:
+                    q_all = torch.softmax(filter_logits(flat, *flat_sp), dim=-1)
+                    q_all = q_all.reshape(b_pad, cols1, vocab)[:, :k_eff].reshape(-1, vocab)
+                    pos_k = pos.reshape(b_pad, cols1)[:, :k_eff].reshape(-1)
+                    out += accept_or_resample(
+                        q_all, torch.stack(draft_dists, dim=1).reshape(-1, vocab),
+                        chunk[:, 1:].reshape(-1),
+                        position_keys(rep(accept_keys, k_eff), pos_k),
+                    )
+                return out
+
+            parts.append(_rank0_draws(pod, b_pad * (cols1 + 2 * k_eff), draw))
+        host = np.asarray(_read_back(parts, pod.group), dtype=np.int64)
         sizes = [b_pad * k_eff, b_pad * cols1] + ([b_pad * cols1] if any_sampled else [])
         sizes += [b_pad * k_eff] * 2 if any_sampled and k_eff > 0 else []
         pieces = np.split(host, np.cumsum(sizes)[:-1])

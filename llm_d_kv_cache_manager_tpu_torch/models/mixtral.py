@@ -49,8 +49,10 @@ from llm_d_kv_cache_manager_tpu_torch.models.llama import (
 from llm_d_kv_cache_manager_tpu_torch.ops.flash_prefill import dense_attention
 from llm_d_kv_cache_manager_tpu_torch.parallel.collectives import (
     copy_to_tp,
+    gather_rows,
     reduce_from_tp,
     tp_rank,
+    tp_size,
 )
 from llm_d_kv_cache_manager_tpu_torch.utils.device import resolve_device
 
@@ -145,7 +147,7 @@ def _experts(layer: Dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _moe_mlp_capacity(
-    config: MixtralConfig, layer: Dict, x: torch.Tensor
+    config: MixtralConfig, layer: Dict, x: torch.Tensor, ep_group=None, dp_group=None
 ) -> torch.Tensor:
     """Capacity-based (GShard/Switch-style) top-k dispatch. x: [B, L, d].
 
@@ -153,50 +155,68 @@ def _moe_mlp_capacity(
     k=0 claims slots first), given in-group positions by a cumulative
     count and scattered into the [E, C, d] expert batch; pairs past the
     capacity land in a trash slot that is sliced away. Gates and the
-    combine are in f32, as in the reference."""
+    combine are in f32, as in the reference.
+
+    With `ep_group` the layer holds this rank's block of E_local experts:
+    every rank routes and slots every pair, fills and runs only its own
+    experts' [E_local, C, d] slots, combines its kept pairs, and the
+    contributions sum over the group. With `dp_group` each rank holds a
+    share of the batch: the slots are the whole batch's, as one device
+    would compute them (batch-major tokens, dp rank r's after those of the
+    ranks below it, and C from the whole token count), so the routing pairs
+    (integers) are gathered over dp and no activation crosses it. `x` and
+    the gates enter the expert group through `copy_to_tp`, so their
+    gradients sum every rank's experts' pairs."""
     c = config
     b, l, d = x.shape
     s = b * l
-    sk = s * c.top_k
     dev = x.device
     xf = x.reshape(s, d)
+    s_all = s * tp_size(dp_group)
+    sk = s_all * c.top_k
     capacity = max(
         1,
-        int(-(-s * c.top_k * c.capacity_factor // c.n_experts)),  # ceil
+        int(-(-s_all * c.top_k * c.capacity_factor // c.n_experts)),  # ceil
     )
 
     logits = (xf @ layer["router"]).float()  # [S, E]
     top_vals, top_idx = top_k(logits, c.top_k)
-    gates = torch.softmax(top_vals, dim=-1)  # [S, K] f32
+    gates = copy_to_tp(torch.softmax(top_vals, dim=-1), ep_group)  # [S, K] f32
 
-    # k-major pair order: all k=0 pairs (token order), then k=1, ...
-    flat_expert = top_idx.T.reshape(sk)
-    flat_gate = gates.T.reshape(sk)
-    flat_tok = torch.arange(s, device=dev).repeat(c.top_k)
+    # k-major pair order over the whole batch: all k=0 pairs (token order),
+    # then k=1, ...
+    flat_expert = gather_rows(top_idx, dp_group).T.reshape(sk)
+    flat_tok = torch.arange(s_all, device=dev).repeat(c.top_k)
 
     order = torch.argsort(flat_expert, stable=True)
     se = flat_expert[order]  # sorted pair -> expert
-    sg = flat_gate[order]
     st = flat_tok[order]
+    sk_of = order // s_all  # sorted pair -> its choice k
     counts = torch.bincount(flat_expert, minlength=c.n_experts)
     group_start = torch.cumsum(counts, 0) - counts
     pos = torch.arange(sk, device=dev) - group_start[se]
-    keep = pos < capacity
 
-    # Kept pairs' destinations are distinct (expert, position) slots.
-    slot = se * capacity + pos
-    dest = torch.where(keep, slot, torch.full_like(slot, c.n_experts * capacity))
-    expert_in = torch.zeros(c.n_experts * capacity + 1, d, dtype=x.dtype, device=dev)
-    expert_in[dest] = xf[st]
-    expert_out = _experts(layer, expert_in[:-1].reshape(c.n_experts, capacity, d))
+    # This rank's kept pairs: its experts, its tokens. Their destinations
+    # are distinct (expert, position) slots.
+    n_local = layer["w_gate"].shape[0]
+    first_expert = tp_rank(ep_group) * n_local
+    local_tok = st - tp_rank(dp_group) * s
+    mine = ((pos < capacity) & (se >= first_expert) & (se < first_expert + n_local)
+            & (local_tok >= 0) & (local_tok < s))
+    slot = (se - first_expert) * capacity + pos
+    tok = torch.where(mine, local_tok, torch.zeros_like(local_tok))
+    dest = torch.where(mine, slot, torch.full_like(slot, n_local * capacity))
+    expert_in = torch.zeros(n_local * capacity + 1, d, dtype=x.dtype, device=dev)
+    expert_in[dest] = copy_to_tp(xf, ep_group)[tok]
+    expert_out = _experts(layer, expert_in[:-1].reshape(n_local, capacity, d))
 
     # Combine: gather each kept pair's expert output, weight it by its gate
     # and add it to its token (a token's k pairs sum).
-    out_flat = expert_out.reshape(c.n_experts * capacity, d).float()
-    vals = out_flat[torch.where(keep, slot, torch.zeros_like(slot))]
-    vals = vals * (sg * keep.float())[:, None]
-    y = torch.zeros(s, d, dtype=torch.float32, device=dev).index_add_(0, st, vals)
-    return y.to(x.dtype).reshape(b, l, d)
+    out_flat = expert_out.reshape(n_local * capacity, d).float()
+    vals = out_flat[torch.where(mine, slot, torch.zeros_like(slot))]
+    vals = vals * (gates[tok, sk_of] * mine.float())[:, None]
+    y = torch.zeros(s, d, dtype=torch.float32, device=dev).index_add_(0, tok, vals)
+    return reduce_from_tp(y.to(x.dtype).reshape(b, l, d), ep_group)
 
 
 def _moe_mlp_dense(config: MixtralConfig, layer: Dict, x: torch.Tensor,
@@ -227,24 +247,24 @@ def _moe_mlp_dense(config: MixtralConfig, layer: Dict, x: torch.Tensor,
 
 
 def _moe_mlp(config: MixtralConfig, layer: Dict, x: torch.Tensor,
-             ep_group=None) -> torch.Tensor:
-    """Top-k routed mixture of SwiGLU experts. x: [B, L, d]. The capacity
-    dispatch runs whole (every expert on one rank)."""
+             ep_group=None, dp_group=None) -> torch.Tensor:
+    """Top-k routed mixture of SwiGLU experts. x: [B, L, d]. `dp_group`
+    matters to the capacity dispatch only: the dense one routes each token
+    on its own."""
     if config.capacity_factor is not None:
-        if ep_group is not None:
-            raise NotImplementedError("the capacity dispatch runs every expert on one rank")
-        return _moe_mlp_capacity(config, layer, x)
+        return _moe_mlp_capacity(config, layer, x, ep_group, dp_group)
     if ep_group is None:  # the serving paths' call, which checks may wrap
         return _moe_mlp_dense(config, layer, x)
     return _moe_mlp_dense(config, layer, x, ep_group)
 
 
 def dense_core(config: MixtralConfig, params: Params, tokens: torch.Tensor,
-               group=None, ep_group=None) -> torch.Tensor:
+               group=None, ep_group=None, dp_group=None) -> torch.Tensor:
     """Plain causal forward over whole sequences (no cache), differentiable:
     the training forward. tokens: [B, L] -> logits [B, L, vocab]. `group`
     splits the attention heads and the vocabulary (as the dense family's),
-    `ep_group` the experts; params are this rank's shards."""
+    `ep_group` the experts, `dp_group` the batch (the capacity dispatch
+    slots over the whole of it); params are this rank's shards."""
     c = config
     n_q, n_kv = _local_heads(c, group)
     b, l = tokens.shape
@@ -261,7 +281,7 @@ def dense_core(config: MixtralConfig, params: Params, tokens: torch.Tensor,
         attn = dense_attention(q, k, v, 0, window=c.sliding_window)
         x = x + reduce_from_tp(attn.reshape(b, l, n_q * c.head_dim) @ layer["wo"], group)
         h = rms_norm(x, layer["mlp_norm"], c.rms_eps)
-        x = x + _moe_mlp(c, layer, h, ep_group)
+        x = x + _moe_mlp(c, layer, h, ep_group, dp_group)
     x = rms_norm(x, params["final_norm"], c.rms_eps)
     return _logits(x, params["out"], group)
 
@@ -273,9 +293,10 @@ def forward_dense(config: MixtralConfig, params: Params, tokens: torch.Tensor) -
 
 
 def loss_fn(config: MixtralConfig, params: Params, tokens: torch.Tensor,
-            group=None, ep_group=None) -> torch.Tensor:
+            group=None, ep_group=None, dp_group=None) -> torch.Tensor:
     """Next-token cross-entropy in f32 of the dense forward."""
-    return next_token_loss(dense_core(config, params, tokens, group, ep_group), tokens)
+    return next_token_loss(dense_core(config, params, tokens, group, ep_group, dp_group),
+                           tokens)
 
 
 def train_step(config: MixtralConfig, params: Params, tokens: torch.Tensor, lr: float = 1e-3,
@@ -283,8 +304,8 @@ def train_step(config: MixtralConfig, params: Params, tokens: torch.Tensor, lr: 
     """One SGD step ((p - lr * g) in f32, cast back); returns (new params,
     loss). The groups as `dense_core`'s, and `dp_group` averages the
     gradients of ranks that each hold a share of the batch."""
-    return sgd_step(lambda p: loss_fn(config, p, tokens, group, ep_group), params, lr,
-                    dp_group)
+    return sgd_step(lambda p: loss_fn(config, p, tokens, group, ep_group, dp_group), params,
+                    lr, dp_group)
 
 
 def param_specs() -> Dict:

@@ -16,6 +16,10 @@ explicitly (models/llama.py, models/mixtral.py):
 - `broadcast_from_first`: group rank 0's tensor on every rank (no
   gradient). Serving broadcasts the chosen tokens with it, so every rank
   commits the same tokens whatever its own argmax says.
+- `gather_rows`: every rank's tensor concatenated on the first axis (no
+  gradient): the MoE capacity dispatch's routing pairs over "dp".
+- `broadcast_object`: group rank 0's picklable object on every rank: a tp
+  pod's host-tier decisions (engine/engine.py).
 
 With `group=None` or a group of one rank each is the identity: the
 single-rank case, not a fallback. The collectives take tensors on any
@@ -25,6 +29,7 @@ on one card), an NCCL group on the card.
 
 from __future__ import annotations
 
+import pickle
 from typing import Optional
 
 import torch
@@ -116,6 +121,35 @@ def broadcast_from_first(x: torch.Tensor, group: Group) -> torch.Tensor:
     x = x.contiguous()
     dist.broadcast(x, src=dist.get_global_rank(group, 0), group=group)
     return x
+
+
+def broadcast_object(obj, group: Group):
+    """Group rank 0's picklable `obj` on every rank (the other ranks pass
+    anything): its length, then its bytes, broadcast as CPU tensors, which
+    a gloo group takes as they are."""
+    src = dist.get_global_rank(group, 0)
+    if dist.get_rank(group) == 0:
+        data = torch.frombuffer(bytearray(pickle.dumps(obj)), dtype=torch.uint8)
+        size = torch.tensor([data.numel()], dtype=torch.int64)
+        dist.broadcast(size, src=src, group=group)
+        dist.broadcast(data, src=src, group=group)
+        return obj
+    size = torch.zeros(1, dtype=torch.int64)
+    dist.broadcast(size, src=src, group=group)
+    data = torch.empty(int(size), dtype=torch.uint8)
+    dist.broadcast(data, src=src, group=group)
+    return pickle.loads(data.numpy().tobytes())
+
+
+def gather_rows(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """Every rank's `x` concatenated on the first axis in rank order (no
+    gradient): the MoE capacity dispatch's routing pairs over "dp"."""
+    if tp_size(group) == 1:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=0)
 
 
 def all_reduce_mean(x: torch.Tensor, group: Group) -> torch.Tensor:

@@ -96,6 +96,18 @@ def param_specs(attn_bias: bool = False) -> Dict:
     }
 
 
+# Specs of the multi-LoRA registry (models/lora.py stack_adapters,
+# [n_adapters + 1, n_layers, ...]): each B splits its output axis in the
+# same contiguous head ranges as the projection it adds onto (wq, wv); each
+# A stays whole, since every rank projects the whole activation.
+LORA_STACK_SPECS: Dict[str, Spec] = {
+    "wq_a": (None, None, None, None),
+    "wq_b": (None, None, None, "tp"),
+    "wv_a": (None, None, None, None),
+    "wv_b": (None, None, None, "tp"),
+}
+
+
 def param_shardings(mesh: MeshLike, attn_bias: bool = False) -> Dict:
     """For each param, this rank's (dim, chunk index, chunks) per split dim:
     the slices `shard_params` takes."""

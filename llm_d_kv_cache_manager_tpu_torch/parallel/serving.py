@@ -15,6 +15,8 @@ control plane (one pod id, one event stream, one index entry):
 - The paged paths (models/llama.py, `group=`) project onto the rank's
   heads, run the attention kernels on them, all-reduce after wo and
   w_down and gather the vocab-parallel logits.
+- LoRA adapters: the registry's B matrices split as wq and wv do, the A
+  matrices stay whole (`shard_lora_stack`).
 
 tp must divide n_kv_heads (and n_q_heads): the head-major page layout makes
 the kv-head axis the natural split.
@@ -25,11 +27,13 @@ from __future__ import annotations
 from typing import Tuple
 
 from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import (
+    LORA_STACK_SPECS,
     MeshLike,
     placement,
     mesh_coords,
     shard_params,
     shard_tensor,
+    shard_tree,
 )
 from llm_d_kv_cache_manager_tpu_torch.utils.device import resolve_device
 
@@ -65,6 +69,13 @@ def shard_serving_params(params: dict, mesh: MeshLike) -> dict:
 def shard_kv_cache(kv_cache: tuple, mesh: MeshLike) -> tuple:
     """This rank's head shard of a paged KV cache (either format)."""
     return tuple(shard_tensor(c, KV_SPEC, mesh) for c in kv_cache)
+
+
+def shard_lora_stack(stack: dict, mesh: MeshLike) -> dict:
+    """This rank's shard of a multi-LoRA registry (mesh.LORA_STACK_SPECS):
+    the B matrices' columns of this rank's heads, so the per-row deltas add
+    onto the rank's own q and v columns with no collective."""
+    return shard_tree(stack, LORA_STACK_SPECS, mesh)
 
 
 def validate_tp(tp: int, n_q_heads: int, n_kv_heads: int) -> None:

@@ -14,6 +14,11 @@ At f32, on the same numpy weights:
   (tests/test_model.py:101-124, tests/test_mixtral.py's expert-parallel
   step), and each rank's shard of the new params equals the matching slice
   of the JAX single-device step's (atol 1e-7);
+- in the same four processes, the Mixtral step on the capacity dispatch
+  (8 experts, factors 1.25 and 0.5) at ep 2 x tp 2 and at dp 2 x ep 2 with
+  the batch split over dp, held the same way to the JAX single-device
+  `train_step` on that factor; the 0.5 factor drops pairs, and slotting
+  each dp shard alone would keep a different set;
 - `prefill` and `decode_step` against the JAX wrappers (atol 1e-5) and the
   dense forward (atol 1e-4, tests/test_model.py:42-88's bar).
 """
@@ -111,21 +116,40 @@ def _shard_of(tree: dict, specs: dict, at) -> dict:
     return _flat(mesh.shard_tree(full, specs, at))
 
 
-def test_dp_tp_train_step_matches_the_host_loss(tmp_path):
-    """tests/test_model.py:101-124 and tests/test_mixtral.py's expert-parallel
-    step, each rank a gloo process."""
-    kw = dict(LLAMA, n_q_heads=8, n_kv_heads=4)
-    jcfg = jax_llama.LlamaConfig(**kw, dtype=jnp.float32)
+# The capacity dispatch's factors in the multi-rank step: the reference's
+# production factor, and one whose routing overflows the capacity.
+CAPACITY_FACTORS = (1.25, 0.5)
+DP_TP_KW = dict(LLAMA, n_q_heads=8, n_kv_heads=4)
+DP_TP_MOE_KW = dict(MOE, n_experts=8)
+
+
+def _dp_tp_inputs():
+    jcfg = jax_llama.LlamaConfig(**DP_TP_KW, dtype=jnp.float32)
     jparams = jax_llama.init_params(jcfg, jax.random.PRNGKey(9))
-    batch = np.asarray(jax.random.randint(jax.random.PRNGKey(10), (4, 32), 0, kw["vocab_size"]))
-    moe_kw = dict(MOE, n_experts=8)
-    mcfg = jax_mixtral.MixtralConfig(**moe_kw, dtype=jnp.float32)
+    batch = np.asarray(jax.random.randint(jax.random.PRNGKey(10), (4, 32), 0,
+                                          DP_TP_KW["vocab_size"]))
+    mcfg = jax_mixtral.MixtralConfig(**DP_TP_MOE_KW, dtype=jnp.float32)
     mparams = jax_mixtral.init_params(mcfg, jax.random.PRNGKey(4))
     moe_batch = np.asarray(jax.random.randint(jax.random.PRNGKey(5), (4, 16), 0,
-                                              moe_kw["vocab_size"]))
-    ranks = spawn("train_dp_tp", 4, tmp_path, kw, _np_tree(jparams), batch, moe_kw,
-                  _np_tree(mparams), moe_batch)
+                                              DP_TP_MOE_KW["vocab_size"]))
+    return jcfg, jparams, batch, mcfg, mparams, moe_batch
 
+
+@pytest.fixture(scope="module")
+def dp_tp_ranks(tmp_path_factory):
+    """The four gloo ranks' results of train_dp_tp (one spawn for every
+    multi-rank training test)."""
+    _, jparams, batch, _, mparams, moe_batch = _dp_tp_inputs()
+    return spawn("train_dp_tp", 4, tmp_path_factory.mktemp("train"), DP_TP_KW,
+                 _np_tree(jparams), batch, DP_TP_MOE_KW, _np_tree(mparams), moe_batch,
+                 CAPACITY_FACTORS)
+
+
+def test_dp_tp_train_step_matches_the_host_loss(dp_tp_ranks):
+    """tests/test_model.py:101-124 and tests/test_mixtral.py's expert-parallel
+    step, each rank a gloo process."""
+    jcfg, jparams, batch, mcfg, mparams, moe_batch = _dp_tp_inputs()
+    ranks = dp_tp_ranks
     ref_loss = float(jax_llama.loss_fn(jcfg, jparams, batch))
     ref_new, _ = jax.jit(lambda p, b: jax_llama.train_step(jcfg, p, b))(jparams, batch)
     moe_ref_loss = float(jax_mixtral.loss_fn(mcfg, mparams, moe_batch))
@@ -144,6 +168,76 @@ def test_dp_tp_train_step_matches_the_host_loss(tmp_path):
         want = _shard_of(_np_tree(moe_ref_new), mixtral.param_specs(), at)
         for name, got in r["moe_new"].items():
             np.testing.assert_allclose(got, want[name].numpy(), atol=1e-7, err_msg=name)
+
+
+def _capacity_reference(factor):
+    """The JAX single-device Mixtral step on the capacity dispatch: (loss,
+    new params as numpy)."""
+    _, _, _, mcfg, mparams, moe_batch = _dp_tp_inputs()
+    jcfg = jax_mixtral.MixtralConfig(**DP_TP_MOE_KW, capacity_factor=factor, dtype=jnp.float32)
+    new, loss = jax.jit(lambda p, b: jax_mixtral.train_step(jcfg, p, b))(mparams, moe_batch)
+    return float(loss), _np_tree(new)
+
+
+@pytest.mark.parametrize("layout", ["ep_tp", "dp_ep"])
+@pytest.mark.parametrize("factor", CAPACITY_FACTORS)
+def test_capacity_dispatch_step_matches_the_single_device_step(dp_tp_ranks, layout, factor):
+    """The capacity dispatch under an ep group, at ep 2 x tp 2 and at dp 2 x
+    ep 2 (the batch split over dp): each rank's loss and its shard of the
+    new params against JAX's single-device `train_step`, at the dense ep
+    step's tolerances."""
+    ref_loss, ref_new = _capacity_reference(factor)
+    for r in dp_tp_ranks:
+        loss, new = r["capacity"][(layout, factor)]
+        np.testing.assert_allclose(loss, ref_loss, rtol=1e-5)
+        d, t = r["coords"]["dp"], r["coords"]["tp"]
+        at = (mesh.MeshCoords({"ep": 2, "tp": 2}, {"ep": d, "tp": t}) if layout == "ep_tp"
+              else mesh.MeshCoords({"ep": 2, "tp": 1}, {"ep": t, "tp": 0}))
+        want = _shard_of(ref_new, mixtral.param_specs(), at)
+        for name, got in new.items():
+            np.testing.assert_allclose(got, want[name].numpy(), atol=1e-7,
+                                       err_msg=f"{layout} {factor} {name}")
+
+
+def _kept_pairs(top_idx: torch.Tensor, n_experts: int, capacity: int, first_tok: int = 0):
+    """The (token, choice) pairs the capacity dispatch keeps for routing
+    `top_idx` [S, K]: k-major, each expert's first `capacity` pairs."""
+    s, k = top_idx.shape
+    load = [0] * n_experts
+    kept = set()
+    for choice in range(k):
+        for tok in range(s):
+            e = int(top_idx[tok, choice])
+            if load[e] < capacity:
+                kept.add((first_tok + tok, choice))
+            load[e] += 1
+    return kept
+
+
+def test_capacity_overflow_drops_the_whole_batchs_pairs(monkeypatch):
+    """The overflowing factor drops pairs on layer 0, and slotting each dp
+    shard on its own would keep a different set: the dp 2 x ep 2 step's
+    equality with the single-device step (above) is then the global slots'."""
+    _, _, _, _, mparams, moe_batch = _dp_tp_inputs()
+    factor = min(CAPACITY_FACTORS)
+    cfg = mixtral.MixtralConfig(**DP_TP_MOE_KW, capacity_factor=factor, dtype=torch.float32)
+    port = llama.params_from_jax(_np_tree(mparams), "cpu")
+    inputs, real = [], mixtral._moe_mlp
+    monkeypatch.setattr(mixtral, "_moe_mlp",
+                        lambda c, layer, x, *a: inputs.append(x) or real(c, layer, x, *a))
+    mixtral.forward_dense(cfg, port, torch.from_numpy(moe_batch))
+    e, k = cfg.n_experts, cfg.top_k
+    h = inputs[0].reshape(-1, cfg.d_model)
+    _, top_idx = mixtral.top_k((h @ port["layers"]["router"][0]).float(), k)
+    s = top_idx.shape[0]
+    kept = _kept_pairs(top_idx, e, -(-int(s * k * factor) // e))
+    assert len(kept) < s * k  # pairs are dropped
+    half = s // 2
+    per_shard = set()
+    for shard in range(2):
+        per_shard |= _kept_pairs(top_idx[shard * half:(shard + 1) * half], e,
+                                 -(-int(half * k * factor) // e), shard * half)
+    assert per_shard != kept
 
 
 # -- the bf16-cache wrappers -----------------------------------------------------------

@@ -248,10 +248,14 @@ def p2p(rank: int, world: int, ring_cases: list, long_case, pipe_case) -> dict:
 
 
 def train_dp_tp(rank: int, world: int, cfg_kw: dict, np_params: dict, batch: np.ndarray,
-                moe_kw: dict, moe_params: dict, moe_batch: np.ndarray) -> dict:
+                moe_kw: dict, moe_params: dict, moe_batch: np.ndarray,
+                capacity_factors: tuple = ()) -> dict:
     """A dp 2 x tp 2 llama train step and an ep 2 x tp 2 Mixtral train step,
     f32: each rank's loss and its shard of the new params; and the
-    DeviceMesh's shard_params against MeshCoords'."""
+    DeviceMesh's shard_params against MeshCoords'. For each capacity
+    factor, the Mixtral step on the capacity dispatch at ep 2 x tp 2 and at
+    dp 2 x ep 2 (the batch split over dp, the experts over the mesh's "tp"
+    dim)."""
     from llm_d_kv_cache_manager_tpu_torch.models import llama, mixtral
     from llm_d_kv_cache_manager_tpu_torch.parallel import mesh as pmesh
 
@@ -279,4 +283,229 @@ def train_dp_tp(rank: int, world: int, cfg_kw: dict, np_params: dict, batch: np.
                                    group=m.get_group("tp"), ep_group=m.get_group("dp"))
     out["moe_loss"] = float(loss)
     out["moe_new"] = {"/".join(p): _np(t) for p, t in llama._leaves(new)}
+
+    dp_ep = pmesh.MeshCoords({"ep": 2, "tp": 1}, {"ep": at.coords["tp"], "tp": 0})
+    out["capacity"] = {}
+    for factor in capacity_factors:
+        ccfg = mixtral.MixtralConfig(**moe_kw, capacity_factor=factor, dtype=torch.float32)
+        moe = mixtral.shard_params(_tree(moe_params), moe_mesh)
+        new, loss = mixtral.train_step(ccfg, moe, torch.from_numpy(moe_batch),
+                                       group=m.get_group("tp"), ep_group=m.get_group("dp"))
+        out["capacity"][("ep_tp", factor)] = (
+            float(loss), {"/".join(p): _np(t) for p, t in llama._leaves(new)})
+        moe = mixtral.shard_params(_tree(moe_params), dp_ep)
+        rows = pmesh.batch_sharding(torch.from_numpy(moe_batch), m)
+        new, loss = mixtral.train_step(ccfg, moe, rows, ep_group=m.get_group("tp"),
+                                       dp_group=m.get_group("dp"))
+        out["capacity"][("dp_ep", factor)] = (
+            float(loss), {"/".join(p): _np(t) for p, t in llama._leaves(new)})
+    return out
+
+
+# -- a tp pod's host tier, LoRA adapters and speculation --------------------------
+
+
+MEDIA = {"hbm": "gpu", "host": "cpu"}  # the JAX pod's media, read as the port's
+
+
+def event_rows(batches) -> list:
+    """Each event's tagged union, a JAX pod's media read as the port's."""
+    rows = []
+    for b in batches:
+        for e in b.events:
+            row = list(e.to_tagged_union())
+            if row[-1] in MEDIA:
+                row[-1] = MEDIA[row[-1]]
+            rows.append(tuple(row))
+    return rows
+
+
+class PortKit:
+    """The port's side of the tp feature scenarios: pods of one f32 model
+    (tp over `group`, or tp = 1), the draft model and two adapters, from
+    numpy trees."""
+
+    def __init__(self, cfg_kw: dict, np_params: dict, draft_kw: dict, np_draft: dict,
+                 np_adapters: dict, group=None):
+        from llm_d_kv_cache_manager_tpu_torch.engine import speculative
+        from llm_d_kv_cache_manager_tpu_torch.engine.costs import ALWAYS_TRANSFER
+        from llm_d_kv_cache_manager_tpu_torch.engine.scheduler import Scheduler
+        from llm_d_kv_cache_manager_tpu_torch.models import llama, lora
+
+        self.cfg = llama.LlamaConfig(**cfg_kw, dtype=torch.float32)
+        self.params = _tree(np_params)
+        self.draft = (llama.LlamaConfig(**draft_kw, dtype=torch.float32), _tree(np_draft))
+        self.adapters = {k: lora.lora_from_jax(v, "cpu") for k, v in np_adapters.items()}
+        self.group = group
+        self.tp = 1 if group is None else dist.get_world_size(group)
+        self.leads = group is None or dist.get_rank(group) == 0
+        self.always = ALWAYS_TRANSFER
+        self.Scheduler = Scheduler
+        self.speculative = speculative
+
+    def pod(self, events: list, adapters=None, single=False, **over):
+        """A pod of this kit (`single`: tp = 1 whatever the kit's group)."""
+        from llm_d_kv_cache_manager_tpu_torch.engine.engine import EnginePod, EnginePodConfig
+
+        kw = dict(pod_id="pod-t", model_name="m", page_size=4, max_pages_per_seq=8,
+                  device_tier="gpu", transfer_cost_model=self.always)
+        kw.update(over)
+        tp, group = (1, None) if single else (self.tp, self.group)
+        return EnginePod(EnginePodConfig(**kw, model_config=self.cfg, device="cpu", tp=tp,
+                                         group=group),
+                         event_sink=events.append, params=self.params,
+                         lora_adapters={k: self.adapters[v] for k, v in (adapters or {}).items()})
+
+    def pick(self, pod, logits) -> int:
+        return int(pod.choose(torch.argmax(logits)))
+
+
+HOST_PREFIX = list(range(16))
+
+
+def host_tier_sequence(kit, int8: bool) -> dict:
+    """The reference's restore-on-miss sequence on a 6-page host-tier pod:
+    a prefix, an unrelated prompt that reclaims (and offloads) it, the
+    prefix again (restored), 5 greedy tokens. Tokens, tier stats, events,
+    and the staged payloads (the tier store's rank only)."""
+    events = []
+    pod = kit.pod(events, n_pages=6, use_quantized_kv=int8, enable_host_tier=True)
+    try:
+        s1, _ = pod.prefill(HOST_PREFIX + [50, 51])
+        first = kit.pick(pod, pod.last_logits)
+        pod.free(s1)
+        s2, _ = pod.prefill([90 + i for i in range(20)])
+        pod.free(s2)
+        s3, cached = pod.prefill(HOST_PREFIX + [50, 51])
+        again = kit.pick(pod, pod.last_logits)
+        pod.decode_append(s3, again)
+        tokens = [pod.decode_step(s3) for _ in range(5)]
+        pod.free(s3)
+        out = dict(tokens=(first, again, cached, tokens), events=event_rows(events))
+        if pod.tier_store is not None:
+            store = pod.tier_store
+            out.update(stats=dict(store.stats), staged=store.staged_count,
+                       payloads={h: pod.connector.fetch_staged(h, store.codec.page_nbytes)
+                                 for h in store.staged_sample(store.staged_count)})
+        return out
+    finally:
+        pod.close()
+
+
+LORA_PROMPTS = [(list(range(2, 13)), 7), (list(range(2, 13)), 9), (list(range(2, 13)), None),
+                (list(range(30, 41)), 7)]
+
+
+def lora_sequence(kit) -> dict:
+    """Two adapters and the base through the Scheduler: tokens and events
+    (block hashes scoped by adapter)."""
+    events = []
+    pod = kit.pod(events, adapters={7: "A", 9: "B"}, n_pages=64, max_pages_per_seq=16)
+    sched = kit.Scheduler(pod, max_batch=4)
+    ids = [sched.submit(p, max_new_tokens=6, lora_id=lid) for p, lid in LORA_PROMPTS]
+    results = sched.run()
+    return dict(tokens=[results[i] for i in ids], events=event_rows(events))
+
+
+SPEC_PROMPTS = [list(range(2, 13)), list(range(20, 29)), list(range(40, 47))]
+
+
+def speculative_sequence(kit, sampling=None) -> dict:
+    """SpeculativeScheduler at k = 3 with the kit's draft (the prompts
+    greedy, and one more request under `sampling` if given) and a greedy
+    SpeculativeDecoder with the target as its own draft (every proposal
+    accepted): tokens, stats, events."""
+    import dataclasses
+
+    events = []
+    pod = kit.pod(events, n_pages=64, max_pages_per_seq=16)
+    spec = kit.speculative.SpeculativeScheduler(pod, *kit.draft, k=3, max_batch=4)
+    ids = [spec.submit(p, max_new_tokens=8) for p in SPEC_PROMPTS]
+    if sampling is not None:
+        ids.append(spec.submit(SPEC_PROMPTS[0], max_new_tokens=8, sampling=sampling))
+    results = spec.run()
+    out = dict(scheduler=[results[i] for i in ids],
+               scheduler_stats=dataclasses.astuple(spec.stats), scheduler_events=event_rows(events))
+    events = []
+    decoder = kit.speculative.SpeculativeDecoder(
+        kit.pod(events, n_pages=64, max_pages_per_seq=16), kit.cfg, kit.params, k=3)
+    out["decoder"] = decoder.generate(SPEC_PROMPTS[1], max_new_tokens=10)
+    out["decoder_stats"] = dataclasses.astuple(decoder.stats)
+    out["decoder_events"] = event_rows(events)
+    return out
+
+
+def cross_onboard(kit, int8: bool) -> dict:
+    """A tp pod and a tp = 1 pod (on the tier store's rank) each onboard the
+    other's exported prefix through its transfer server and serve it as a
+    hit, the suffix logits against the exporter's own prefix hit. Then each
+    exports what it onboarded: its staged bytes must equal the exporter's
+    byte for byte (a block crossing head-sharded pages and back)."""
+    kw = dict(n_pages=16, use_quantized_kv=int8, enable_host_tier=True)
+    rng = np.random.default_rng(3)
+    x_prompt, y_prompt = (rng.integers(0, kit.cfg.vocab_size, 19).tolist() for _ in range(2))
+    tp_pod = kit.pod([], pod_id="pod-tp", **kw)
+    single = kit.pod([], single=True, pod_id="pod-one", **kw) if kit.leads else None
+    out = {}
+
+    def staged(pod, prompt):
+        keys = pod.block_manager.token_db.tokens_to_kv_block_keys(None, prompt, "")
+        size = pod.tier_store.codec.page_nbytes
+        return [pod.connector.fetch_staged(k.chunk_hash, size) for k in keys]
+
+    def serves_from(pod, peer, prompt):
+        hashes = {k.chunk_hash for k in pod.block_manager.token_db.tokens_to_kv_block_keys(
+            None, prompt, "")}
+        pod.set_peer_resolver(lambda h: peer.transfer_address if h in hashes else None)
+
+    try:
+        # x: the tp = 1 pod computes and exports, the tp pod onboards.
+        if kit.leads:
+            state, _ = single.prefill(x_prompt)
+            single.export_sequence(state)
+            single.prefill(x_prompt)
+            x_logits = single.last_logits.clone()
+            serves_from(tp_pod, single, x_prompt)
+        state, out["x_cached"] = tp_pod.prefill(x_prompt)
+        logits = tp_pod.last_logits.clone()
+        tp_pod.export_sequence(state)
+        if kit.leads:
+            out["x_err"] = float((logits - x_logits).abs().max())
+            out["x_bytes_equal"] = staged(tp_pod, x_prompt) == staged(single, x_prompt)
+            out["x_onboards"] = tp_pod.tier_store.stats["onboards"]
+        # y: the tp pod computes and exports, the tp = 1 pod onboards.
+        state, _ = tp_pod.prefill(y_prompt)
+        tp_pod.export_sequence(state)
+        _, out["y_tp_hit"] = tp_pod.prefill(y_prompt)
+        logits = tp_pod.last_logits.clone()
+        if kit.leads:
+            serves_from(single, tp_pod, y_prompt)
+            state, out["y_cached"] = single.prefill(y_prompt)
+            out["y_err"] = float((single.last_logits - logits).abs().max())
+            single.export_sequence(state)
+            out["y_bytes_equal"] = staged(single, y_prompt) == staged(tp_pod, y_prompt)
+            out["y_onboards"] = single.tier_store.stats["onboards"]
+        return out
+    finally:
+        tp_pod.close()
+        if single is not None:
+            single.close()
+
+
+def tp_features(rank: int, world: int, cfg_kw: dict, np_params: dict, draft_kw: dict,
+                np_draft: dict, np_adapters: dict, sampling_kw: dict) -> dict:
+    """Every tp feature scenario on this rank of a tp = world pod: the host
+    tier on both page formats, cross-onboarding with a tp = 1 pod, LoRA and
+    speculation; every rank's page shapes and LoRA B widths."""
+    from llm_d_kv_cache_manager_tpu_torch.ops.sampling import SamplingParams
+
+    kit = PortKit(cfg_kw, np_params, draft_kw, np_draft, np_adapters, dist.group.WORLD)
+    out = {fmt: host_tier_sequence(kit, int8) for fmt, int8 in (("f32", False), ("int8", True))}
+    out["cross"] = {fmt: cross_onboard(kit, int8) for fmt, int8 in (("f32", False),
+                                                                    ("int8", True))}
+    out["lora"] = lora_sequence(kit)
+    out["speculative"] = speculative_sequence(kit, SamplingParams(**sampling_kw))
+    pod = kit.pod([], adapters={7: "A"}, n_pages=4)
+    out["shapes"] = dict(pages=[tuple(c.shape) for c in pod.kv_cache],
+                         lora={k: tuple(v.shape) for k, v in pod.lora_stack.items()})
     return out
