@@ -49,13 +49,13 @@ kernel sources, written only under the package's build/planted/ directory:
     rows a CTA it fits whole); it has no logits bar: no model of
     chip_smoke.py has a group above 64, and phase 20b's (group 1) runs one
     chunk a kv head;
-  - decode_wide_second_slab (both decode variants, both q dtypes, both page
-    formats of paged_decode_wide.cu, head dims above 256): every
-    column slab but the first leaves P @ V out, so columns 256 onwards of
-    every output row stay 0;
+  - decode_wide_last_panel (both decode variants of paged_decode_wide.cu's
+    Hopper body, bf16 q on both page formats, head dims 257 to 1,024): each
+    lane's dot leaves out its last 8-column chunk, the head dim's last panel
+    of 256 columns, so every score leaves out that panel's share of q K^T;
   - flash_wide_last_panel (the bf16 flash kernel above head dim 256): the
-    last 256-column panel of K is never loaded (zero-filled), so every score
-    leaves out that panel's share of Q K^T. Both have their main-shape case
+    cluster's last panel CTA never loads its panel of K (zero-filled), so
+    every score leaves out that panel's share of Q K^T. Both have their main-shape case
     at phase 21's attention shape (4/2 heads of 512) and phase 21b's
     logits bars (decode at ragged lengths; the prefix-hit prefill) on its
     model.
@@ -289,17 +289,17 @@ MUTANTS = {
         ("paged_decode", "paged_decode_int8", "paged_decode_tiled", "paged_decode_tiled_int8"),
         "bf16",
     ),
-    "decode_wide_second_slab": (
+    "decode_wide_last_panel": (
         ("paged_decode_wide",), "paged_decode_wide.cu",
-        "for (int g = 0; g < kRows; ++g) acc[g] += ss[g * kChunk + t] * vv;",
-        "for (int g = 0; g < kRows; ++g) acc[g] += slab == 0 ? ss[g * kChunk + t] * vv : 0.f;",
+        "for (int e = 0; e < kCols; ++e) d = fmaf(q[g][e], k[e], d);",
+        "for (int e = 0; e < kCols - 8; ++e) d = fmaf(q[g][e], k[e], d);",
         ("paged_decode", "paged_decode_int8", "paged_decode_tiled", "paged_decode_tiled_int8"),
         "bf16",
     ),
     "flash_wide_last_panel": (
         ("flash_prefill",), "flash_prefill.cu",
-        "const bool ok = key0 + key < kv_len && at < row_bytes;",
-        "const bool ok = key0 + key < kv_len && at < row_bytes && p != n_pan - 1;",
+        "copy_piece<G>(d, reinterpret_cast<const unsigned char*>(k) + g, ok);",
+        "copy_piece<G>(d, reinterpret_cast<const unsigned char*>(k) + g, ok && pan != n_pan - 1);",
         ("flash_prefill",), "bf16",
     ),
     "flash_prefill_group71_chunk": (
@@ -323,7 +323,7 @@ SCHEDULER_BAR_MUTANTS = ("decode_sm90_stage",)
 MUTANT_MODEL = {"decode_sm90_hd64_cols": "qwen2.5-0.5b",
                 "decode_sm90_hd100_cols": chip_smoke.OPENLLAMA_MODEL,
                 "decode_sm90_hd100_rounded_rows": chip_smoke.OPENLLAMA_MODEL,
-                "decode_wide_second_slab": chip_smoke.WIDE_HEAD_MODEL,
+                "decode_wide_last_panel": chip_smoke.WIDE_HEAD_MODEL,
                 "flash_wide_last_panel": chip_smoke.WIDE_HEAD_MODEL}
 # The models whose decode-logits check runs at ragged lengths (phases 20b
 # and 21b), by head dim.

@@ -47,9 +47,10 @@ Phases, in order (any failure raises and the script exits non-zero):
      (`WIDE_SHAPES`: head_dim 50, 80, 96, OpenLLaMA-3B's 32/32 heads of 100
      and 100 at group 4, Gemma-7B's 16/16 heads of 256 and 256 at group 8,
      Falcon-7B's 71 heads of 64 over one, 128 heads of 128 over one; and
-     head dims above 256, run in column slabs of 256: 257, 288, 300 (rows
+     head dims above 256, run in panels of 256: 257, 288, 300 (rows
      only 8-byte aligned, group 8 in two chunks), 320, 384, phase 21's 4/2
-     heads of 512, 576 at group 16 and 1,024; decode at pages 16 and 17,
+     heads of 512, 576 at group 16 and 1,024, and past any model
+     (`BEYOND_SHAPES`) 1,280 at group 8 and 2,304; decode at pages 16 and 17,
      with and without a window, bf16 and f32 q on both page formats; flash
      at the serving chunk, at per-batch offsets with a window and at the
      verify, whose one-warpgroup tiles split a group above 64 into head
@@ -75,7 +76,8 @@ Phases, in order (any failure raises and the script exits non-zero):
      100, bounds on the true width) and at phase 21's (4/2 heads of 512,
      the flagship's bounds; the SDPA backend that served each yardstick is
      named);
-  5. serving at the flagship width (1.14B Llama, bf16, random weights from a
+  5. serving at the flagship width (the 1.14B Llama's widths cut to 4 of its
+     16 layers, `FLAGSHIP_LAYERS`, the cut printed; bf16, random weights from a
      seeded generator): two bf16 pods and one int8-KV pod whose KV events are
      digested into one index; prefix reuse, pod ranking and kernel launch
      counts are asserted; then packed prefill (4 jobs in one batched pass)
@@ -110,7 +112,7 @@ Phases, in order (any failure raises and the script exits non-zero):
      prefix and 512 other tokens) restores it; a fresh pod onboards it from a
      reference pod over the transfer wire, found through the index; P' on
      both must be bit-identical (suffix logits, 32 greedy tokens) to the
-     reference pod, which never evicts; launches are 16 per layer pass. The
+     reference pod, which never evicts; one launch a layer each pass. The
      codec's and the wire's rates, four times to first token of P'
      (resident, restore, onboard, recompute) and the cost model's verdict
      at those rates are logged;
@@ -123,7 +125,7 @@ Phases, in order (any failure raises and the script exits non-zero):
      shared 1,024-token prefix, 6 sampled): every token against a dense f32
      truth of its adapter's merged weights, each adapter's truth apart from
      the base's by more than the bar, adapter-scoped prefix hits and index
-     scores, 16 launches per layer pass; tokens/s against the same traffic
+     scores, one launch a layer each pass; tokens/s against the same traffic
      on the base model and one decode tick's device share are logged;
   10a. speculative decoding on small f32 pods on the card against the CPU:
      SpeculativeDecoder (greedy and sampled, k = 4) and SpeculativeScheduler
@@ -158,7 +160,7 @@ Phases, in order (any failure raises and the script exits non-zero):
      0.05 (routing flips widen the bar's delta); tokens/s, tick walls, and one
      decode tick's and one prefill chunk's device profile are logged;
   12a. the control plane at a fleet's size, host only: 16 simulated pods of
-     28,672 blocks of 16 (64 shared 64-block prefixes, each held by 4 pods,
+     14,336 blocks of 16 (half a card's 28,672, cut for the run's time; 64 shared 64-block prefixes, each held by 4 pods,
      and unique tails; 10% of each pod's blocks then removed), made from
      --seed, as msgpack bytes from the port's own codec through the
      EventPool's 4 workers into IndexConfig.default()'s ShardedIndex; the
@@ -404,10 +406,11 @@ Phases, in order (any failure raises and the script exits non-zero):
      (every page format and decode kernel; lengths 2,047 down to 2,040) under
      their bars; 20c, phase 7b's traffic through the Scheduler on a bf16 pod
      at decode_steps 1 and an int8 pod at 4 with the teacher-forced bar;
-  21. the flagship's widths (vocab 32,768, d_model 2,048, 16 layers, d_ff
-     8,192: 1.141 B) with its attention regrouped to 4 query heads over 2
-     kv heads of 512 (bf16, seeded weights, page 16; every kernel runs
-     head_dim 512 in column slabs of 256): 21a, 21b and 21c as 20a, 20b and
+  21. the flagship's widths (vocab 32,768, d_model 2,048, d_ff 8,192; its
+     depth cut as in phase 5) with its attention regrouped to 4 query heads over 2
+     kv heads of 512 (bf16, seeded weights, page 16; decode holds every
+     column in one CTA, flash shares S between the CTAs of two panels of
+     256): 21a, 21b and 21c as 20a, 20b and
      20c;
   then a JSON line of details, one JSON line describing every kernel (the
   `openllama` and `wide_heads` keys of launches_by_path: phases 20's and
@@ -631,16 +634,26 @@ BF16_ROW_REL = {
     "paged_decode_tiled_int8": 1.5e-2,
     "flash_prefill": 1.5e-2,
 }
-# Packed prefill against the same jobs one by one (bf16, 16 layers): the
+# Packed prefill against the same jobs one by one (bf16, every layer): the
 # largest |logit| difference allowed, four bf16 ulps at |logit| in [2, 4).
 # An H100 read 0: each row's products and attention run in the same order in
 # both shapes.
 PACKED_LOGITS_TOL = 0.0625
 
+# The flagship Llama's widths (vocab 32,768, d_model 2,048, 16/8 heads of
+# 128, d_ff 8,192: 1.141 B parameters at its 16 layers), cut to
+# FLAGSHIP_LAYERS of its layers for the whole run's time: the phases that
+# serve it are bound by the host's launches, which scale with the depth
+# (phase 7b's decode tick kept the card 14% busy at 16 layers). The cut is
+# printed with the parameter count.
+FLAGSHIP_FULL_LAYERS = 16
+FLAGSHIP_LAYERS = 4
 FLAGSHIP = dict(
-    vocab_size=32768, d_model=2048, n_layers=16, n_q_heads=16, n_kv_heads=8,
+    vocab_size=32768, d_model=2048, n_layers=FLAGSHIP_LAYERS, n_q_heads=16, n_kv_heads=8,
     head_dim=128, d_ff=8192,
 )
+FLAGSHIP_CUT = (f"the flagship cut to {FLAGSHIP_LAYERS} of its {FLAGSHIP_FULL_LAYERS} layers "
+                "for the whole run's time; widths, heads and vocabulary as published")
 PAGE = 16
 N_Q, N_KV, HD = FLAGSHIP["n_q_heads"], FLAGSHIP["n_kv_heads"], FLAGSHIP["head_dim"]
 
@@ -981,7 +994,7 @@ HD64_GROUPS = (1, 2, 4, 7, 8, 12, 13)
 # 100 at group 4, Gemma-7B's 16/16 heads of 256 and 256 at group 8,
 # Falcon-7B's 71 heads of 64 over one, and 128 heads of 128 over one, which
 # the kernels run at the padded widths 64, 128 and 256; then head dims above
-# 256, which they cut into column slabs of 256: 257 (a slab of one column),
+# 256, which they cut into panels of 256: 257 (a panel of one column),
 # 288, 300 (a bf16 row of 600 bytes, only 8-byte aligned), 320, 384, 512
 # (phase 21's 4/2 heads), 576 (DeepSeek-V2/V3's absorbed MLA width, 512
 # latent + 64 rope, its query heads over one) and 1,024, at groups 1 to 16.
@@ -1004,6 +1017,12 @@ WIDE_SHAPES = {
     "hd=576 group=16": (16, 1, 576),
     "hd=1024": (2, 1, 1024),
 }
+# Head dims above 1,024 that no model serves, held in phase 3 beside
+# WIDE_SHAPES: 1,280 at group 8 (decode in bf16 q past the wide Hopper
+# body: column slabs of 256 in chunks of 4 heads; flash in a cluster of 5
+# panels) and 2,304 (9 panels: flash past the portable cluster of 8 walks
+# the panels in one CTA a slab).
+BEYOND_SHAPES = {"hd=1280 group=8": (8, 1, 1280), "hd=2304 group=2": (4, 2, 2304)}
 OPENLLAMA_MODEL = "openllama-3b"
 OPENLLAMA_SHAPE = WIDE_SHAPES[OPENLLAMA_MODEL]
 WIDE_HEAD_MODEL = "flagship-heads-512"  # phase 21's model, and its attention shape
@@ -1085,7 +1104,7 @@ def kernel_cases(gen):
                 yield (row, dtype, f"{row} {tag} {name}",
                        run_decode(row, q, pages, tables, lens_t, window),
                        run_decode(row, q, pages, tables, lens_t, window, plain=True))
-            for shape, (n_q, n_kv, hd) in WIDE_SHAPES.items():
+            for shape, (n_q, n_kv, hd) in {**WIDE_SHAPES, **BEYOND_SHAPES}.items():
                 for name, lens, page, window in WIDE_DECODE_CASES:
                     q, pages, tables, lens_t = decode_inputs(
                         gen, dtype, len(lens), lens, page, n_q=n_q, n_kv=n_kv, hd=hd,
@@ -1154,10 +1173,10 @@ def kernel_cases(gen):
                 (f"{model} B=3 L=300 S=1000 per-batch offsets window=300", 3, 300, 1000,
                  [0, 100, 700], 300, None, n_q, n_kv, hd),
             ]
-        # WIDE_SHAPES: the serving chunk, per-batch offsets with a window, and
-        # the verify (few rows: one-warpgroup CTAs, where a group above 64
-        # splits into head chunks).
-        for shape, (n_q, n_kv, hd) in WIDE_SHAPES.items():
+        # WIDE_SHAPES and BEYOND_SHAPES: the serving chunk, per-batch offsets
+        # with a window, and the verify (few rows: one-warpgroup CTAs, where a
+        # group above 64 splits into head chunks).
+        for shape, (n_q, n_kv, hd) in {**WIDE_SHAPES, **BEYOND_SHAPES}.items():
             cases += [
                 (f"{shape} L=512 S=2048 off=1024", 1, 512, 2048, 1024, None, None, n_q, n_kv,
                  hd),
@@ -1522,8 +1541,8 @@ def phase_serving(params, cfg) -> dict:
     for name in ("paged_decode", "paged_decode_int8", "flash_prefill"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} kernel was never launched on the serving path")
-    # 16 layers x 31 decode steps x 4 requests on the int8 pod.
-    if launches["paged_decode_int8"] != 16 * 31 * 4:
+    # Every layer x 31 decode steps x 4 requests on the int8 pod.
+    if launches["paged_decode_int8"] != cfg.n_layers * 31 * 4:
         raise AssertionError(f"int8 decode launches {launches['paged_decode_int8']}")
 
     for pid in pods:
@@ -1600,7 +1619,7 @@ def phase_packed_prefill(params, cfg) -> dict:
             f"{b['n_flash']} one by one; logits max_abs_diff={err:.4e} (tol "
             f"{PACKED_LOGITS_TOL:g}), max |logit| {float(b['logits'].abs().max()):.4f}; "
             f"event streams equal: {same_events} ({len(a['events'])} events)")
-        if not finite or err > PACKED_LOGITS_TOL or not same_events or a["n_flash"] != 16:
+        if not finite or err > PACKED_LOGITS_TOL or not same_events or a["n_flash"] != cfg.n_layers:
             raise AssertionError(f"packed prefill ({tag}) disagrees with one-by-one prefill")
         out[tag] = dict(max_abs_diff=err, events=len(a["events"]))
     torch.cuda.empty_cache()
@@ -1691,7 +1710,7 @@ def prefill_logits_check(params, cfg, params32, cfg32, seed: int = 3) -> dict:
     err = float((logits["kernel"] - logits["plain"]).abs().max())
     err_kernel = float((logits["kernel"] - logits["truth"]).abs().max())
     err_plain = float((logits["plain"] - logits["truth"]).abs().max())
-    # As for decode: bf16 through 16 layers moves both bf16 paths off the
+    # As for decode: bf16 through every layer moves both bf16 paths off the
     # f32 truth; the kernel path may not stray further than twice the plain
     # path's own error (plus 1e-2 absolute).
     tol = 2 * err_plain + 1e-2
@@ -1778,7 +1797,7 @@ def batched_decode_check(params, cfg, params32, cfg32, int8: bool, pipelined: bo
     err_kernel = float((logits.float() - truth).abs().max())
     err_plain = float((plain.float() - truth).abs().max())
     agree = int((logits.argmax(-1) == plain.argmax(-1)).sum())
-    # bf16 rounding through 16 layers moves both bf16 paths off the f32
+    # bf16 rounding through every layer moves both bf16 paths off the f32
     # truth; the kernel path may not stray further than twice the plain
     # path's own bf16 error (plus 1e-2 absolute).
     tol = 2 * err_plain + 1e-2
@@ -1841,7 +1860,7 @@ def phase_batched_decode(params, cfg) -> dict:
             raise AssertionError("multi-step decode tokens differ from single steps")
     for row, prof in profiles.items():
         ms = prof["wall_ms"]
-        log(f"  decode step ({row}, 16 layers, batch {DECODE_BATCH}): {ms:.3f} ms, "
+        log(f"  decode step ({row}, {cfg.n_layers} layers, batch {DECODE_BATCH}): {ms:.3f} ms, "
             f"{DECODE_BATCH / ms * 1e3:.1f} tokens/s")
     return dict(checks=results, step_profiles=profiles)
 
@@ -2596,12 +2615,13 @@ def phase_host_tier_flagship(params, cfg) -> dict:
         got = launch_counts()
         passes = counter.layer_passes()
         decode_row = "paged_decode_int8" if int8 else "paged_decode"
-        want = {"flash_prefill": 16 * passes["prefill"], decode_row: 16 * passes["decode"]}
+        want = {"flash_prefill": cfg.n_layers * passes["prefill"],
+                decode_row: cfg.n_layers * passes["decode"]}
         for name, n in want.items():
             launches[name] += got[name]
             if got[name] != n or n <= 0:
                 raise AssertionError(f"phase 8 ({fmt}): {name} launched {got[name]} times, "
-                                     f"16 per layer pass is {n}")
+                                     f"{cfg.n_layers} per layer pass is {n}")
         try:
             if not r["ok"]:
                 raise AssertionError(f"phase 8 ({fmt}): {r['checks']} {r['readings']}")
@@ -3721,7 +3741,10 @@ def phase_moe_flagship() -> dict:
 
 FLEET_MODEL = "llama-8b-fleet"
 FLEET_PODS = 16  # simulated pods of an 80 GB card each
-FLEET_BLOCKS_PER_POD = 28672  # 458,752 tokens of an 8B model's 128 KiB/token KV
+# 229,376 tokens of an 8B model's 128 KiB/token KV (28 GiB) a pod: half of
+# an 80 GB card's 458,752, cut for the whole run's time (the digest and its
+# replay scale with the blocks); the 16 pods and their sharing are whole.
+FLEET_BLOCKS_PER_POD = 14336
 FLEET_SHARED = 64  # shared prefixes of 64 blocks
 FLEET_PREFIXES_PER_POD = 16  # each shared prefix is held by 4 pods (<= 10 per key)
 FLEET_TAIL_BLOCKS = 48  # per conversation: one shared prefix + a unique tail
@@ -5010,8 +5033,8 @@ OPENLLAMA_HF = dict(
     num_hidden_layers=26, num_attention_heads=32, num_key_value_heads=32, rms_norm_eps=1e-6,
     rope_theta=10000.0, max_position_embeddings=2048, tie_word_embeddings=False)
 OPENLLAMA_LAYERS = 2
-# Phase 21's model: the flagship's widths (vocab 32,768, d_model 2,048, 16
-# layers, d_ff 8,192: 1.141 B parameters) with its attention regrouped to 4
+# Phase 21's model: the flagship's widths (vocab 32,768, d_model 2,048, d_ff
+# 8,192) and its cut depth, with its attention regrouped to 4
 # query heads over 2 kv heads of 512, where the flagship has 16 over 8 of
 # 128: the same projections, K/V bytes a token and attention FLOPs. No
 # published model of the families the JAX package loads has heads this wide.
@@ -5183,7 +5206,7 @@ def phase_openllama() -> dict:
 
 def phase_wide_heads() -> dict:
     log(f"== phase 21: the flagship's widths with heads of 512 ({WIDE_HEAD_SHAPE[0]}/"
-        f"{WIDE_HEAD_SHAPE[1]}; column slabs of 256 in every kernel; bf16, seeded weights): "
+        f"{WIDE_HEAD_SHAPE[1]}; the wide Hopper bodies; bf16, seeded weights): "
         f"prefix reuse and routing, logits against an f32 truth, the Scheduler")
     cfg, params = wide_head_model()
     return model_phase("21", WIDE_HEAD_MODEL, cfg, params, seed=2121)
@@ -8569,7 +8592,8 @@ def main(argv=None) -> int:
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     n_params = sum(w.numel() for w in params["layers"].values()) + sum(
         params[k].numel() for k in ("embed", "final_norm", "out"))
-    log(f"flagship params: {n_params / 1e9:.3f} B ({n_params * 2 / 1e9:.2f} GB bf16)")
+    log(f"flagship params: {n_params / 1e9:.3f} B ({n_params * 2 / 1e9:.2f} GB bf16); "
+        f"{FLAGSHIP_CUT}")
     serving = phase_serving(params, cfg)
     packed = phase_packed_prefill(params, cfg)
     phase_small_pod_vs_cpu()
@@ -8720,6 +8744,7 @@ def partial_run(phases, gen, cfg, seed: int = 0) -> int:
     if any(p not in ("3", "4", "5b", "7a", "8a", "9a", "10a", "11a", "11b", "12a", "13", "14a",
                      "15b", "20", "21") for p in phases):
         params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        log(FLAGSHIP_CUT)
     steps = {
         "5": lambda: phase_serving(params, cfg), "5b": phase_small_pod_vs_cpu,
         "5c": lambda: phase_prefill_logits(params, cfg),

@@ -56,7 +56,8 @@
 //    serial loop against one that overlaps a block's softmax with the
 //    previous block's P V (measured, chip_smoke.py's shapes).
 // Not yet done (later work): TMA loads, a producer warp with setmaxnreg,
-// two consumer warpgroups in ping-pong behind mbarriers.
+// two consumer warpgroups in ping-pong behind mbarriers (the head dims above
+// 256 have the producer warpgroup and the mbarriers: below).
 //
 // The f32 instantiation (checks and small f32 pods) keeps the first port's
 // CUDA-core structure: scores, probabilities and output in shared memory,
@@ -80,17 +81,52 @@
 // Above 256 (288, 300, 512, 576, 1,024, ...) neither fits: at hd 512 one
 // warpgroup's Q (64 KB) and two stages of 64-key K/V tiles (128 KB each)
 // need 320 KB of shared memory, and O of 64 x 512 f32 is 256 registers a
-// thread. So O is cut into column slabs of kPanel (256) columns, one CTA
-// column of the grid each (grid x is (kv head, head chunk, slab)), and S =
-// Q K^T sums over the head dim's panels of 256 columns (row_copy.cuh,
-// `n_panels`). The bf16 kernel (`flash_prefill_wide_kernel`) is the HD-256
-// one-warpgroup machinery on a ring of P + 1 stages a 64-key block: Q's and
-// K's panel p (32 KB each; S accumulates over p in registers), then V's
-// slab (O += P V, two m64n128 products). Q is read again from L2 each
-// k-block (P x 32 KB for 64 rows would not fit beside the ring at every
-// hd), K once a slab: at hd 512, two slabs, a CTA reads 1.5x the K/V bytes
-// of one pass and computes S twice. The f32 kernel walks the same panels
-// through its HD-256 shared-memory plan. Every head dim runs, however wide.
+// thread. The bf16 kernel (`flash_prefill_wide_kernel`) cuts the head dim
+// into P = n_panels(hd) panels of 256 columns (row_copy.cuh) over a
+// thread-block cluster of P x key_splits CTAs per query tile of 64 rows:
+//  - CTA (panel p, split s) keeps Q's panel p resident (32 KB, loaded once)
+//    and owns O's slab p (an m64n256 accumulator as two m64n128 products,
+//    128 f32 registers a thread). Per 64-key block of its split it computes
+//    its panel's share of S = Q K^T (m64n64, 16 k-steps) and exchanges it
+//    with the other panel CTAs: up to 3 panels it pushes its share into
+//    each peer's slot by st.async, whose bytes complete the peer's
+//    "exchange full" mbarrier (the peer's thread 0 expects them), two
+//    buffers by block parity; above 3 (the slots would outgrow shared
+//    memory) it writes its share to its own buffer, arrives on every
+//    peer's barrier with release at cluster scope, and the peers read it
+//    through distributed shared memory. Every panel CTA adds the shares in
+//    panel order (its own from registers), so each holds the same S, m and
+//    l. Then mask, online softmax and O += P V on its own V slab. S is
+//    computed once per (query tile, key block): the P CTAs' products add up
+//    to one QK^T over the head dim, and each K and V byte is read once per
+//    query tile (panel p's columns by CTA p only).
+//  - Two warpgroups a CTA: warpgroup 0 computes; warpgroup 1 loads, each
+//    block's K panel and V slab (32 KB each) into a two-stage ring by
+//    cp.async in `row_piece` pieces straight into the 128-byte swizzle
+//    (a bulk copy cannot swizzle, and a tensor map needs 16-byte row
+//    strides that hd 257 and 300 lack), each thread arriving on the
+//    stage's "full" mbarrier through cp.async.mbarrier.arrive once its
+//    copies land, so the loaders run a stage ahead without waiting; the
+//    computing warpgroup fences the async proxy after its wait, and
+//    arrives on the stage's "empty" mbarrier after its last wgmma of the
+//    block. With one computing warpgroup the CTA's 256 threads get 255
+//    registers each without setmaxnreg.
+//  - Key splits fill the card: the serving chunk (L = 512 at offset 1,024,
+//    4/2 heads of 512) has 32 query tiles x 2 panels; key_splits = 2
+//    (ops/flash_prefill.py `wide_plan`: the most, with the cluster at most
+//    the portable 8, that keep one CTA per SM) gives 128 CTAs. Split s walks
+//    a contiguous share of the tile's key blocks; after the loop each CTA
+//    leaves its slab's unnormalized O, m and l in its stages, and after a
+//    cluster barrier rank (p, s) merges rows s * 64 / splits .. of slab p
+//    from every split, in split order (no atomics).
+// Above 2,048 the panels outgrow the portable cluster of 8, and the bf16
+// kernel is `flash_prefill_panel_kernel`: one warpgroup a CTA, a CTA per
+// slab of O, walking Q's and K's panels through a two-stage ring of P + 1
+// stages a 64-key block (S accumulates over the panels in registers), then
+// V's slab. It reads Q again from L2 each block and K once a slab, and
+// computes S once a slab. The f32 kernel walks the head dim's panels
+// through its HD-256 shared-memory plan, a CTA per slab. Every head dim
+// runs in both dtypes.
 //
 // GQA: a group of g query heads folds into a tile's rows as (position, head)
 // pairs, floor(R / gc) positions a CTA of R = 64 or 128 rows (a group of 7:
@@ -102,6 +138,7 @@
 // warpgroups of a CTA; each warpgroup's key range covers every position it
 // holds a row of.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -109,7 +146,7 @@
 
 #include <type_traits>
 
-#include "row_copy.cuh"  // padded, row_piece, with_piece, copy_piece
+#include "row_copy.cuh"  // padded, row_piece, with_piece, copy_piece, cp_async*
 
 namespace {
 
@@ -121,24 +158,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // group up to `rows`, else an even share of ceil(group / rows) chunks.
 __host__ __device__ constexpr int head_chunk(int group, int rows) {
   return group <= rows ? group : (group + (group + rows - 1) / rows - 1) / ((group + rows - 1) / rows);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)),
-               "l"(gmem));
-}
-// Copies 16 bytes, or writes 16 zero bytes when `pred` is false (`gmem` is
-// then not read).
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
-               "l"(gmem), "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -308,6 +327,93 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The pieces of a k-block that both bf16 kernels share. A thread's S
+// accumulator (kS floats of an m64nN product) holds, at element i, key
+// 8 (i / 4) + 2 (lane % 4) + i % 2 of the block for row-half u = (i / 2) % 2
+// (rows lane / 4 and lane / 4 + 8 of its warp's 16); O (kOut products of
+// kAcc floats) the same way over columns.
+
+// Keys outside a row's [lo, hi] get -inf (k0: the block's first key).
+template <int kS>
+__device__ __forceinline__ void mask_block(float (&s)[kS], int k0, int lane, const int (&lo)[2],
+                                           const int (&hi)[2]) {
+#pragma unroll
+  for (int i = 0; i < kS; ++i) {
+    const int u = (i >> 1) & 1;
+    const int kp = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+    if (kp > hi[u] || kp < lo[u]) s[i] = -INFINITY;
+  }
+}
+
+// Online softmax in the exp2 domain; each row lives in a quad of lanes. s
+// (raw scores) becomes the probabilities; m (running max, log2 domain) and
+// l (this thread's share of the row sum) update, and O is rescaled.
+template <int kS, int kOut, int kAcc>
+__device__ __forceinline__ void online_softmax(float (&s)[kS], float (&m)[2], float (&l)[2],
+                                               float (&o)[kOut][kAcc], float scale_log2) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < kS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float alpha[2], shift[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 1));
+    mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 2));
+    const float m_new = fmaxf(m[u], mx[u] * scale_log2);
+    // A row still fully masked keeps m == -inf: pin the rescale to 0
+    // (-inf - -inf is NaN) and shift by 0 instead of m_new.
+    alpha[u] = m_new == -INFINITY ? 0.f : exp2_approx(m[u] - m_new);
+    shift[u] = m_new == -INFINITY ? 0.f : m_new;
+    m[u] = m_new;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kS; ++i) {
+    const int u = (i >> 1) & 1;
+    s[i] = exp2_approx(fmaf(s[i], scale_log2, -shift[u]));
+    sum[u] += s[i];
+  }
+#pragma unroll
+  for (int u = 0; u < 2; ++u) l[u] = alpha[u] * l[u] + sum[u];
+#pragma unroll
+  for (int x = 0; x < kOut; ++x)
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) o[x][i] *= alpha[(i >> 1) & 1];
+}
+
+// P in bf16 as wgmma A fragments: k-step kk takes S columns 16kk..16kk+15.
+template <int kS>
+__device__ __forceinline__ void pack_probs(const float (&s)[kS], uint32_t (&pa)[kS / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kS / 8; ++kk) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) pa[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+  }
+}
+
+// Row-half u of O times inv, as bf16 pairs, to the output row at `row` (hd
+// columns): O's column c goes to column col0 + c, only those below hd.
+template <int kOut, int kAcc>
+__device__ __forceinline__ void store_row(bf16* row, const float (&o)[kOut][kAcc], int u,
+                                          float inv, int hd, int col0, int lane) {
+  bf16* dst = row + col0 + 2 * (lane & 3);
+  constexpr int kN8 = kAcc / 4;  // 8-column groups of one product
+#pragma unroll
+  for (int n8 = 0; n8 < kOut * kN8; ++n8) {
+    const float lo = o[n8 / kN8][4 * (n8 % kN8) + 2 * u] * inv;
+    const float hi = o[n8 / kN8][4 * (n8 % kN8) + 2 * u + 1] * inv;
+    const int col = col0 + 8 * n8 + 2 * (lane & 3);
+    if (hd % 2 == 0) {  // rows and pairs 4-byte aligned
+      if (col < hd) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n8) = __floats2bfloat162_rn(lo, hi);
+      }
+    } else {
+      if (col < hd) dst[8 * n8] = __float2bfloat16(lo);
+      if (col + 1 < hd) dst[8 * n8 + 1] = __float2bfloat16(hi);
+    }
+  }
 }
 
 template <int HD, int kWG>
@@ -510,52 +616,10 @@ __global__ void __launch_bounds__(kWG * kWGThreads) flash_prefill_wgmma_kernel(
 
     // Interior blocks are valid for every row: no mask.
     const bool interior = k0 + kBK - 1 <= hi_all && k0 >= lo_all;
-    if (!interior) {
-#pragma unroll
-      for (int i = 0; i < kS; ++i) {
-        const int u = (i >> 1) & 1;
-        const int kp = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
-        if (kp > hi[u] || kp < lo[u]) s[i] = -INFINITY;
-      }
-    }
-
-    // Online softmax in the exp2 domain; each row lives in a quad of lanes.
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int i = 0; i < kS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-    float alpha[2], shift[2];
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 1));
-      mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 2));
-      const float m_new = fmaxf(m[u], mx[u] * scale_log2);
-      // A row still fully masked keeps m == -inf: pin the rescale to 0
-      // (-inf - -inf is NaN) and shift by 0 instead of m_new.
-      alpha[u] = m_new == -INFINITY ? 0.f : exp2_approx(m[u] - m_new);
-      shift[u] = m_new == -INFINITY ? 0.f : m_new;
-      m[u] = m_new;
-    }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < kS; ++i) {
-      const int u = (i >> 1) & 1;
-      s[i] = exp2_approx(fmaf(s[i], scale_log2, -shift[u]));
-      sum[u] += s[i];
-    }
-#pragma unroll
-    for (int u = 0; u < 2; ++u) l[u] = alpha[u] * l[u] + sum[u];
-#pragma unroll
-    for (int x = 0; x < kOut; ++x)
-#pragma unroll
-      for (int i = 0; i < kAcc; ++i) o[x][i] *= alpha[(i >> 1) & 1];
-
-    // P in bf16 as wgmma A fragments: k-step kk takes S columns 16kk..16kk+15.
+    if (!interior) mask_block(s, k0, lane, lo, hi);
+    online_softmax(s, m, l, o, scale_log2);
     uint32_t pa[kBK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-#pragma unroll
-      for (int x = 0; x < 4; ++x) pa[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
-    }
+    pack_probs(s, pa);
 
     // O += P V; the V tile [key][hd] is MN-major for this product, its
     // 64-column panels kKVPanel bytes apart (at HD 256, product x takes
@@ -587,23 +651,8 @@ __global__ void __launch_bounds__(kWG * kWGThreads) flash_prefill_wgmma_kernel(
     const int pos = q0 + r / gc;
     if (r >= rows_used || pos >= q_len || r % gc >= hc) continue;
     const float inv = l[u] == 0.f ? 0.f : 1.f / l[u];  // no valid key: O is 0
-    bf16* dst = out + ((static_cast<size_t>(b) * q_len + pos) * n_q + head0 + r % gc) * hd +
-                2 * (lane & 3);
-    constexpr int kN8 = kAcc / 4;  // 8-column groups of one product
-#pragma unroll
-    for (int n8 = 0; n8 < HD / 8; ++n8) {
-      const float lo = o[n8 / kN8][4 * (n8 % kN8) + 2 * u] * inv;
-      const float hi_v = o[n8 / kN8][4 * (n8 % kN8) + 2 * u + 1] * inv;
-      const int col = 8 * n8 + 2 * (lane & 3);
-      if (hd % 2 == 0) {  // rows and pairs 4-byte aligned
-        if (col < hd) {
-          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n8) = __floats2bfloat162_rn(lo, hi_v);
-        }
-      } else {
-        if (col < hd) dst[8 * n8] = __float2bfloat16(lo);
-        if (col + 1 < hd) dst[8 * n8 + 1] = __float2bfloat16(hi_v);
-      }
-    }
+    store_row(out + ((static_cast<size_t>(b) * q_len + pos) * n_q + head0 + r % gc) * hd, o, u,
+              inv, hd, 0, lane);
   }
 }
 
@@ -654,26 +703,432 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* offs
                           window, scale, stream);
 }
 
-// Head dims above 256: one warpgroup (64 rows) a CTA, its slab of kPanel
-// columns of O. A ring stage holds Q's panel (WideSmem::kQ bytes, laid out
-// as the HD-256 Q tile), then K's panel of a 64-key block or V's slab of it
-// (as the HD-256 K/V tile).
+// Head dims above 256, bf16 (the note at the top): a thread-block cluster
+// of n_panels(hd) x key_splits CTAs per query tile of 64 rows. Rank r of the
+// cluster holds panel pan = r % n_pan of the head dim (its columns pan *
+// 256 .. pan * 256 + 255 of Q, K, V and O) over key split r / n_pan. A CTA
+// is two warpgroups: warpgroup 0 computes, warpgroup 1 loads.
 struct WideSmem {
+  using Tile = Smem<kPanel, 1>;  // the HD-256 layouts: 64-key blocks, Q and K/V tiles
+  static constexpr int kBK = Tile::kBK;
+  static constexpr int kStages = 2;
+  static constexpr int kStage = 2 * Tile::kKV;  // K's panel, then V's, of one block
+  static constexpr int kX = 32 * kWGThreads * 4;  // one S partial: 32 floats a consumer thread
+  // Up to kPushPanels panels the peers push their shares into this CTA's
+  // slots (two buffers of n_pan - 1); above, each CTA's share stays in its
+  // own buffer (two) for the peers to read.
+  static constexpr int kPushPanels = 3;
+  static constexpr int stage_off = Tile::kQ;      // after Q's panel (resident)
+  static constexpr int x_off = stage_off + kStages * kStage;  // exchange buffers
+  static constexpr int bar_off = x_off + 2 * (kPushPanels - 1) * kX;  // full, empty, xfull, xempty: [2] each
+  static constexpr int bytes = bar_off + 8 * 8 + 1024;  // + alignment slack
+  // After the k-loop, with key_splits > 1, the stages hold the CTA's
+  // partial: O [kRows][kPanel] f32, then m [kRows] (log2 domain), l [kRows].
+  static constexpr int kPartFloats = kRows * kPanel + 2 * kRows;
+  static_assert(kPartFloats * 4 <= kStages * kStage, "the partial fits the stages");
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// One arrival on `bar` once every cp.async this thread issued has landed.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+// One arrival on the barrier at `bar` (this CTA's shared address) in the
+// cluster's CTA `cta`, releasing this thread's writes to the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, int cta) {
+  asm volatile(
+      "{\n .reg .b32 remote;\n mapa.shared::cluster.u32 remote, %0, %1;\n"
+      " mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+// This thread's arrival on `bar`, and `bytes` more of asynchronous writes
+// (st.async complete_tx) that the current phase waits for.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// 16 bytes to this CTA's shared address `addr` in the cluster's CTA `cta`,
+// completing 16 bytes of the transaction on that CTA's barrier at `bar`
+// (this CTA's shared address of it).
+__device__ __forceinline__ void st_async16(uint32_t addr, uint32_t bar, int cta, float4 x) {
+  asm volatile(
+      "{\n .reg .b32 ra, rb;\n mapa.shared::cluster.u32 ra, %0, %2;\n"
+      " mapa.shared::cluster.u32 rb, %1, %2;\n"
+      " st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [ra], {%3, %4, %5, %6}, [rb];\n}\n"
+      ::"r"(addr), "r"(bar), "r"(cta), "f"(x.x), "f"(x.y), "f"(x.z), "f"(x.w)
+      : "memory");
+}
+// Wait for phase `parity` of the barrier at `bar`; kCluster: acquire the
+// writes that the cluster's arrivals released. A wait that never ends (a
+// broken protocol) traps after about 2^30 polls, a launch failure the
+// wrapper reports, instead of holding the card.
+template <bool kCluster>
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 30)) __trap();
+    if constexpr (kCluster) {
+      asm volatile(
+          "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(bar), "r"(parity)
+          : "memory");
+    } else {
+      asm volatile(
+          "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(bar), "r"(parity)
+          : "memory");
+    }
+  }
+}
+
+__global__ void __launch_bounds__(2 * kWGThreads, 1) flash_prefill_wide_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const int* __restrict__ offsets, int offset, bf16* __restrict__ out, int q_len, int kv_len,
+    int n_q, int n_kv, int group, int gc, int hd, int window, float scale_log2) {
+  using WS = WideSmem;
+  using SM = WS::Tile;
+  constexpr int kBK = WS::kBK;     // 64 keys a block
+  constexpr int kAcc = kPanel / 4;  // O floats of one m64n128 product
+  constexpr int kS = kBK / 2;      // S accumulator floats per thread
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t full0 = base + WS::bar_off;  // K/V of a stage landed (128 loader arrivals)
+  const uint32_t empty0 = full0 + 16;          // a stage consumed (4 warp arrivals)
+  const uint32_t xfull0 = empty0 + 16;         // every panel's S partial of a block written
+  const uint32_t xempty0 = xfull0 + 16;        // every panel read this CTA's S partial
+
+  const int tid = threadIdx.x;
+  const int wgi = tid / kWGThreads;
+  const int warp = (tid % kWGThreads) >> 5;
+  const int lane = tid & 31;
+  const int n_pan = n_panels(hd);
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int n_split = csize / n_pan;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int pan = rank % n_pan;
+  const int split = rank / n_pan;
+  // Grid x is ((kv head, chunk of gc query heads), cluster rank).
+  const int n_gc = (group + gc - 1) / gc;
+  const int hx = blockIdx.x / csize;
+  const int h = hx / n_gc;
+  const int head0 = h * group + (hx % n_gc) * gc;
+  const int hc = min(gc, (h + 1) * group - head0);
+  const int b = blockIdx.y;
+  const int qb = gridDim.z - 1 - blockIdx.z;  // heaviest q-blocks first
+  const int block_q = kRows / gc;             // query positions per CTA
+  const int rows_used = block_q * gc;
+  const int q0 = qb * block_q;
+  const int off = offsets != nullptr ? offsets[b] : offset;
+  const int row_bytes = hd * 2;
+  const int col0 = pan * kPanel * 2;  // the panel's first byte in a row
+
+  // k-blocks some row attends, and the keys every row attends; this
+  // split's share of the blocks.
+  const int q_last = min(q0 + block_q, q_len) - 1;
+  const int first_blk = (window < 0 ? 0 : max(q0 + off - window + 1, 0)) / kBK;
+  const int last_blk = min(q_last + off, kv_len - 1) / kBK;  // < first_blk: none
+  const int lo_all = window < 0 ? 0 : min(q0 + (rows_used - 1) / gc, q_last) + off - window + 1;
+  const int hi_all = min(q0 + off, kv_len - 1);
+  const int n_blk = max(last_blk - first_blk + 1, 0);
+  const int per_split = (n_blk + n_split - 1) / n_split;
+  const int blk0 = first_blk + split * per_split;
+  const int n_items = max(min(per_split, n_blk - split * per_split), 0);
+
+  if (tid == 0) {
+    for (int s = 0; s < WS::kStages; ++s) {
+      mbar_init(full0 + 8 * s, kWGThreads);
+      mbar_init(empty0 + 8 * s, 4);
+      // Push: this CTA's thread 0 arrives, the peers' bytes complete the
+      // phase. Pull: every warp of every panel arrives.
+      mbar_init(xfull0 + 8 * s, n_pan <= WS::kPushPanels ? 1 : 4 * n_pan);
+      mbar_init(xempty0 + 8 * s, 4 * n_pan);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster.sync();  // every peer's barriers exist before the first remote arrival
+
+  if (wgi == 1) {
+    // Loader warpgroup: Q's panel once (with the first block), then each
+    // block's K panel and V slab into its stage, rows in pieces of G bytes
+    // by cp.async, zero past hd, past kv_len and in dead rows. Each thread
+    // arrives on the stage's "full" barrier once its copies land
+    // (cp.async.mbarrier.arrive), so it runs ahead to the next stage; for
+    // pieces of 2 bytes (plain stores) it arrives after them.
+    const int ltid = tid - kWGThreads;
+    for (int it = 0; it < n_items; ++it) {
+      const int st = it & 1;
+      if (it >= WS::kStages) mbar_wait<false>(empty0 + 8 * st, ((it >> 1) - 1) & 1);
+      const int key0 = (blk0 + it) * kBK;
+      unsigned char* dst = smem + WS::stage_off + st * WS::kStage;
+      with_piece<2>(row_bytes, [&](auto piece) {
+        constexpr int G = decltype(piece)::value;
+        constexpr int kPieces = kPanel * 2 / G;  // pieces of a panel's row
+        if (it == 0) {
+          for (int i = ltid; i < kRows * kPieces; i += kWGThreads) {
+            const int r = i / kPieces;
+            const int at = col0 + (i % kPieces) * G;
+            const int pos = q0 + r / gc;
+            const bool ok = r < rows_used && pos < q_len && r % gc < hc && at < row_bytes;
+            const size_t g =
+                ok ? ((static_cast<size_t>(b) * q_len + pos) * n_q + head0 + r % gc) * row_bytes + at
+                   : 0;
+            copy_piece<G>(smem + swz(r, (at - col0) / 16, SM::kQPanel) + (at - col0) % 16,
+                          reinterpret_cast<const unsigned char*>(q) + g, ok);
+          }
+        }
+        for (int i = ltid; i < kBK * kPieces; i += kWGThreads) {
+          const int key = i / kPieces;
+          const int at = col0 + (i % kPieces) * G;
+          const bool ok = key0 + key < kv_len && at < row_bytes;
+          const size_t g =
+              ok ? ((static_cast<size_t>(b) * kv_len + key0 + key) * n_kv + h) * row_bytes + at : 0;
+          unsigned char* d = dst + swz(key, (at - col0) / 16, SM::kKVPanel) + (at - col0) % 16;
+          copy_piece<G>(d, reinterpret_cast<const unsigned char*>(k) + g, ok);
+          copy_piece<G>(d + SM::kKV, reinterpret_cast<const unsigned char*>(v) + g, ok);
+        }
+      });
+      if (row_piece(row_bytes) < 4) {
+        mbar_arrive(full0 + 8 * st);
+      } else {
+        cp_async_arrive(full0 + 8 * st);
+      }
+    }
+  } else {
+    // Compute warpgroup.
+    int lo[2], hi[2];  // this thread's two rows: their key range (hi = -1: dead row)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int r = warp * 16 + (lane >> 2) + 8 * u;
+      const int pos = q0 + r / gc;
+      const bool live = r < rows_used && pos < q_len && r % gc < hc;
+      hi[u] = live ? min(pos + off, kv_len - 1) : -1;
+      lo[u] = window < 0 ? 0 : pos + off - window + 1;
+    }
+    float o[2][kAcc];
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) o[x][i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};  // running max, log2 domain
+    float l[2] = {0.f, 0.f};              // this thread's share of the row sum
+    float s[kS];
+    float* xbuf = reinterpret_cast<float*>(smem + WS::x_off);  // [2][kS][kWGThreads]
+
+    // No branch may skip a wgmma inside this loop: the compiler would then
+    // serialize every wgmma of the kernel.
+    for (int it = 0; it < n_items; ++it) {
+      const int st = it & 1;
+      const int k0 = (blk0 + it) * kBK;
+      mbar_wait<false>(full0 + 8 * st, (it >> 1) & 1);
+      fence_proxy_async();  // the loaders' writes, to wgmma's async proxy
+      const uint32_t k_base = base + WS::stage_off + st * WS::kStage;
+
+      // This panel's share of S = Q K^T, 16 columns a k-step.
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kPanel / 16; ++kk) {
+        const uint32_t dq = (kk >> 2) * SM::kQPanel + (kk & 3) * 32;
+        const uint32_t dk = (kk >> 2) * SM::kKVPanel + (kk & 3) * 32;
+        wgmma_ss(s, make_desc(base + dq, 1, 64), make_desc(k_base + dk, 1, 64), kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      // S is the sum of every panel's share, added in panel order in every
+      // CTA of the split (this CTA's own from its registers), so all of them
+      // hold the same S, m and l.
+      float own[kS];
+#pragma unroll
+      for (int i = 0; i < kS; ++i) own[i] = s[i];
+      if (n_pan <= WS::kPushPanels) {
+        // Push: st.async this thread's share into each peer's slot for this
+        // panel (buffer st), completing bytes on the peer's "exchange
+        // full" barrier, whose own thread 0 expects the n_pan - 1 shares.
+        // A peer's slot of block it - 2 is free: the peer pushed its share
+        // of block it - 1, which it does only after reading block it - 2.
+        float4* slots = reinterpret_cast<float4*>(smem + WS::x_off) +
+                        st * (n_pan - 1) * (kS / 4) * kWGThreads;
+        if (tid == 0) mbar_arrive_expect_tx(xfull0 + 8 * st, (n_pan - 1) * WS::kX);
+        for (int p = 0; p < n_pan; ++p) {
+          if (p == pan) continue;
+          const float4* slot = slots + (pan < p ? pan : pan - 1) * (kS / 4) * kWGThreads;
+#pragma unroll
+          for (int q4 = 0; q4 < kS / 4; ++q4) {
+            st_async16(smem_addr(slot + q4 * kWGThreads + tid), xfull0 + 8 * st, split * n_pan + p,
+                       make_float4(own[4 * q4], own[4 * q4 + 1], own[4 * q4 + 2], own[4 * q4 + 3]));
+          }
+        }
+        mbar_wait<false>(xfull0 + 8 * st, (it >> 1) & 1);
+        for (int p = 0; p < n_pan; ++p) {
+          const float4* slot = slots + (p < pan ? p : p - 1) * (kS / 4) * kWGThreads;
+#pragma unroll
+          for (int q4 = 0; q4 < kS / 4; ++q4) {
+            const float4 x = p == pan ? make_float4(own[4 * q4], own[4 * q4 + 1], own[4 * q4 + 2],
+                                                    own[4 * q4 + 3])
+                                      : slot[q4 * kWGThreads + tid];
+            s[4 * q4] = p == 0 ? x.x : s[4 * q4] + x.x;
+            s[4 * q4 + 1] = p == 0 ? x.y : s[4 * q4 + 1] + x.y;
+            s[4 * q4 + 2] = p == 0 ? x.z : s[4 * q4 + 2] + x.z;
+            s[4 * q4 + 3] = p == 0 ? x.w : s[4 * q4 + 3] + x.w;
+          }
+        }
+      } else {
+        // Pull: this CTA's share into its own buffer st (free once every
+        // panel read block it - 2), released to the cluster; then every
+        // panel's read through distributed shared memory.
+        float* mine = xbuf + st * kS * kWGThreads;
+        if (it >= 2) mbar_wait<true>(xempty0 + 8 * st, ((it >> 1) - 1) & 1);
+#pragma unroll
+        for (int i = 0; i < kS; ++i) mine[i * kWGThreads + tid] = s[i];
+        __syncwarp();
+        if (lane == 0) {
+          for (int p = 0; p < n_pan; ++p) mbar_arrive_cluster(xfull0 + 8 * st, split * n_pan + p);
+        }
+        mbar_wait<true>(xfull0 + 8 * st, (it >> 1) & 1);
+        for (int p = 0; p < n_pan; ++p) {
+          const float* xp = cluster.map_shared_rank(mine, split * n_pan + p);
+#pragma unroll
+          for (int i = 0; i < kS; ++i) {
+            const float x = p == pan ? own[i] : xp[i * kWGThreads + tid];
+            s[i] = p == 0 ? x : s[i] + x;
+          }
+        }
+        __syncwarp();
+        if (lane == 0) {
+          for (int p = 0; p < n_pan; ++p) mbar_arrive_cluster(xempty0 + 8 * st, split * n_pan + p);
+        }
+      }
+
+      // Blocks inside every row's keys take no mask.
+      if (k0 < lo_all || k0 + kBK - 1 > hi_all) mask_block(s, k0, lane, lo, hi);
+      online_softmax(s, m, l, o, scale_log2);
+      uint32_t pa[kBK / 16][4];
+      pack_probs(s, pa);
+
+      // O += P V over this panel's slab, two 128-column halves.
+      const uint32_t v_base = k_base + SM::kKV;
+      fence_regs(pa);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          wgmma_rs(o[x], pa[kk],
+                   make_desc(v_base + x * 2 * SM::kKVPanel + kk * 16 * 128, SM::kKVPanel / 16, 64));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * st);
+    }
+
+    // Epilogue: reduce l over the quad; one split writes its rows' slab
+    // normalized, several leave their partials to the merge below.
+    float* part = reinterpret_cast<float*>(smem + WS::stage_off);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      l[u] += __shfl_xor_sync(0xffffffffu, l[u], 1);
+      l[u] += __shfl_xor_sync(0xffffffffu, l[u], 2);
+      const int r = warp * 16 + (lane >> 2) + 8 * u;
+      if (n_split > 1) {
+        if ((lane & 3) == 0) {
+          part[kRows * kPanel + r] = m[u];
+          part[kRows * kPanel + kRows + r] = l[u];
+        }
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+#pragma unroll
+          for (int n8 = 0; n8 < kAcc / 4; ++n8) {
+            float2* dst = reinterpret_cast<float2*>(part + r * kPanel + x * 128 + 8 * n8 +
+                                                    2 * (lane & 3));
+            *dst = make_float2(o[x][4 * n8 + 2 * u], o[x][4 * n8 + 2 * u + 1]);
+          }
+        continue;
+      }
+      const int pos = q0 + r / gc;
+      if (r >= rows_used || pos >= q_len || r % gc >= hc) continue;
+      const float inv = l[u] == 0.f ? 0.f : 1.f / l[u];  // no valid key: O is 0
+      store_row(out + ((static_cast<size_t>(b) * q_len + pos) * n_q + head0 + r % gc) * hd, o, u,
+                inv, hd, pan * kPanel, lane);
+    }
+  }
+
+  if (n_split > 1) {
+    // Merge the splits: rank (pan, split) writes rows [r0, r1) of its
+    // panel's slab from every split's partial, in split order.
+    cluster.sync();
+    const float* mine = reinterpret_cast<const float*>(smem + WS::stage_off);
+    const int r0 = split * kRows / n_split;
+    const int r1 = (split + 1) * kRows / n_split;
+    for (int i = tid; i < (r1 - r0) * kPanel; i += 2 * kWGThreads) {
+      const int r = r0 + i / kPanel;
+      const int c = i % kPanel;
+      const int pos = q0 + r / gc;
+      if (r >= rows_used || pos >= q_len || r % gc >= hc || pan * kPanel + c >= hd) continue;
+      float mm = -INFINITY;
+      for (int sp = 0; sp < n_split; ++sp) {
+        mm = fmaxf(mm, cluster.map_shared_rank(mine, sp * n_pan + pan)[kRows * kPanel + r]);
+      }
+      float ll = 0.f, a = 0.f;
+      if (mm != -INFINITY) {
+        for (int sp = 0; sp < n_split; ++sp) {
+          const float* ps = cluster.map_shared_rank(mine, sp * n_pan + pan);
+          const float ms = ps[kRows * kPanel + r];
+          if (ms == -INFINITY) continue;  // a split with no live key for this row
+          const float f = exp2f(ms - mm);
+          ll = fmaf(f, ps[kRows * kPanel + kRows + r], ll);
+          a = fmaf(f, ps[r * kPanel + c], a);
+        }
+      }
+      out[((static_cast<size_t>(b) * q_len + pos) * n_q + head0 + r % gc) * hd + pan * kPanel +
+          c] = __float2bfloat16(ll == 0.f ? 0.f : a / ll);
+    }
+  }
+  cluster.sync();  // no CTA leaves while a peer may still read its shared memory
+}
+
+// Head dims above kMaxCluster panels (2,048): one warpgroup (64 rows) a CTA,
+// its slab of kPanel columns of O, grid x (kv head, head chunk, slab). A
+// ring stage holds Q's panel (laid out as the HD-256 Q tile), then K's
+// panel of a 64-key block or V's slab of it (as the HD-256 K/V tile).
+constexpr int kMaxCluster = 8;  // the portable cluster: panels of one cluster kernel
+struct PanelSmem {
   using Tile = Smem<kPanel, 1>;
   static constexpr int kStage = Tile::kQ + Tile::kKV;
   static constexpr int bytes = kStages * kStage + 1024;  // + alignment slack
 };
 
-// The HD-256 one-warpgroup kernel over the panels of a head dim above 256,
-// for slab (blockIdx.x % n_panels(hd)) of the output: per 64-key block, one
-// stage per panel p adds Q_p K_p^T to S, then one stage of V's slab runs
-// the mask, the online softmax and O += P V. Accumulator layouts as in
-// flash_prefill_wgmma_kernel at HD 256.
-__global__ void __launch_bounds__(kWGThreads) flash_prefill_wide_kernel(
+// The HD-256 one-warpgroup kernel walking every panel for its slab
+// (blockIdx.x % n_panels(hd)) of the output: per 64-key block, one stage
+// per panel p adds Q_p K_p^T to S, then one stage of V's slab runs the mask,
+// the online softmax and O += P V. Q is read again from L2 each block and K
+// once a slab, so S is computed n_panels times; it serves the head dims that
+// the cluster kernel's panels do not fit.
+__global__ void __launch_bounds__(kWGThreads) flash_prefill_panel_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const int* __restrict__ offsets, int offset, bf16* __restrict__ out, int q_len, int kv_len,
     int n_q, int n_kv, int group, int gc, int hd, int window, float scale_log2) {
-  using SM = WideSmem::Tile;
+  using SM = PanelSmem::Tile;
   constexpr int kBK = SM::kBK;     // 64 keys a block
   constexpr int kAcc = kPanel / 4;  // O floats of one m64n128 product
   constexpr int kS = kBK / 2;      // S accumulator floats per thread
@@ -687,7 +1142,6 @@ __global__ void __launch_bounds__(kWGThreads) flash_prefill_wide_kernel(
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int n_pan = n_panels(hd);
-  // Grid x is (kv head, chunk of gc query heads, slab).
   const int slab = blockIdx.x % n_pan;
   const int n_gc = (group + gc - 1) / gc;
   const int h = blockIdx.x / n_pan / n_gc;
@@ -708,8 +1162,7 @@ __global__ void __launch_bounds__(kWGThreads) flash_prefill_wide_kernel(
   const int lo_all = window < 0 ? 0 : min(q0 + (rows_used - 1) / gc, q_last) + off - window + 1;
   const int hi_all = min(q0 + off, kv_len - 1);
 
-  // This thread's two rows: their key range [lo, hi] (hi = -1: dead row).
-  int lo[2], hi[2];
+  int lo[2], hi[2];  // this thread's two rows: their key range (hi = -1: dead row)
 #pragma unroll
   for (int u = 0; u < 2; ++u) {
     const int r = warp * 16 + (lane >> 2) + 8 * u;
@@ -719,16 +1172,16 @@ __global__ void __launch_bounds__(kWGThreads) flash_prefill_wide_kernel(
     lo[u] = window < 0 ? 0 : pos + off - window + 1;
   }
 
-  // Stage `it` of the k-loop: block first_blk + it / (n_pan + 1); at p = it
-  // % (n_pan + 1) < n_pan Q's and K's panel p, at n_pan V's slab. Rows in
-  // pieces of G bytes, zero past hd, past kv_len and in dead rows.
+  // Stage `it`: block first_blk + it / (n_pan + 1); at p = it % (n_pan + 1)
+  // < n_pan Q's and K's panel p, at n_pan V's slab. Rows in pieces of G
+  // bytes, zero past hd, past kv_len and in dead rows.
   const int per_blk = n_pan + 1;
   const int n_items = last_blk >= first_blk ? (last_blk - first_blk + 1) * per_blk : 0;
   auto load_item = [&](int it) {
     const int key0 = (first_blk + it / per_blk) * kBK;
     const int p = it % per_blk;
     const int col0 = (p < n_pan ? p : slab) * kPanel * 2;  // the panel's first byte in a row
-    unsigned char* st = smem + (it % kStages) * WideSmem::kStage;
+    unsigned char* st = smem + (it % kStages) * PanelSmem::kStage;
     const unsigned char* src = reinterpret_cast<const unsigned char*>(p < n_pan ? k : v);
     with_piece<2>(row_bytes, [&](auto piece) {
       constexpr int G = decltype(piece)::value;
@@ -777,11 +1230,11 @@ __global__ void __launch_bounds__(kWGThreads) flash_prefill_wide_kernel(
     __syncthreads();
     if (it + 1 < n_items) load_item(it + 1);
     cp_async_commit();
-    return base + (it % kStages) * WideSmem::kStage;
+    return base + (it % kStages) * PanelSmem::kStage;
   };
   int it = 0;
   for (int j = first_blk; j <= last_blk; ++j) {
-    const int blk0 = j * kBK;  // the block's first key
+    const int first_key = j * kBK;
     // S = Q K^T, a panel of the head dim a stage, 16 columns a k-step.
     for (int p = 0; p < n_pan; ++p, ++it) {
       const uint32_t q_base = next_stage(it);
@@ -801,50 +1254,12 @@ __global__ void __launch_bounds__(kWGThreads) flash_prefill_wide_kernel(
     const uint32_t v_base = next_stage(it) + SM::kQ;
     ++it;
 
-    const bool interior = blk0 + kBK - 1 <= hi_all && blk0 >= lo_all;
-    if (!interior) {
-#pragma unroll
-      for (int i = 0; i < kS; ++i) {
-        const int u = (i >> 1) & 1;
-        const int kp = blk0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
-        if (kp > hi[u] || kp < lo[u]) s[i] = -INFINITY;
-      }
+    if (first_key < lo_all || first_key + kBK - 1 > hi_all) {
+      mask_block(s, first_key, lane, lo, hi);
     }
-
-    // Online softmax in the exp2 domain; each row lives in a quad of lanes.
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int i = 0; i < kS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-    float alpha[2], shift[2];
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 1));
-      mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 2));
-      const float m_new = fmaxf(m[u], mx[u] * scale_log2);
-      alpha[u] = m_new == -INFINITY ? 0.f : exp2_approx(m[u] - m_new);
-      shift[u] = m_new == -INFINITY ? 0.f : m_new;
-      m[u] = m_new;
-    }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < kS; ++i) {
-      const int u = (i >> 1) & 1;
-      s[i] = exp2_approx(fmaf(s[i], scale_log2, -shift[u]));
-      sum[u] += s[i];
-    }
-#pragma unroll
-    for (int u = 0; u < 2; ++u) l[u] = alpha[u] * l[u] + sum[u];
-#pragma unroll
-    for (int x = 0; x < 2; ++x)
-#pragma unroll
-      for (int i = 0; i < kAcc; ++i) o[x][i] *= alpha[(i >> 1) & 1];
-
+    online_softmax(s, m, l, o, scale_log2);
     uint32_t pa[kBK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-#pragma unroll
-      for (int x = 0; x < 4; ++x) pa[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
-    }
+    pack_probs(s, pa);
 
     // O += P V over the slab's two 128-column halves.
     fence_regs(pa);
@@ -873,41 +1288,67 @@ __global__ void __launch_bounds__(kWGThreads) flash_prefill_wide_kernel(
     const int pos = q0 + r / gc;
     if (r >= rows_used || pos >= q_len || r % gc >= hc) continue;
     const float inv = l[u] == 0.f ? 0.f : 1.f / l[u];  // no valid key: O is 0
-    const int col0 = slab * kPanel + 2 * (lane & 3);
-    bf16* dst = out + ((static_cast<size_t>(b) * q_len + pos) * n_q + head0 + r % gc) * hd + col0;
-    constexpr int kN8 = kAcc / 4;  // 8-column groups of one product
-#pragma unroll
-    for (int n8 = 0; n8 < kPanel / 8; ++n8) {
-      const float lo_v = o[n8 / kN8][4 * (n8 % kN8) + 2 * u] * inv;
-      const float hi_v = o[n8 / kN8][4 * (n8 % kN8) + 2 * u + 1] * inv;
-      const int col = col0 + 8 * n8;
-      if (hd % 2 == 0) {  // rows and pairs 4-byte aligned
-        if (col < hd) {
-          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n8) = __floats2bfloat162_rn(lo_v, hi_v);
-        }
-      } else {
-        if (col < hd) dst[8 * n8] = __float2bfloat16(lo_v);
-        if (col + 1 < hd) dst[8 * n8 + 1] = __float2bfloat16(hi_v);
-      }
-    }
+    store_row(out + ((static_cast<size_t>(b) * q_len + pos) * n_q + head0 + r % gc) * hd, o, u,
+              inv, hd, slab * kPanel, lane);
   }
 }
 
-cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* offsets,
-                        int offset, void* out, int batch, int q_len, int kv_len, int n_q, int n_kv,
-                        int hd, int window, float scale, cudaStream_t stream) {
+cudaError_t launch_panels(const void* q, const void* k, const void* v, const void* offsets,
+                          int offset, void* out, int batch, int q_len, int kv_len, int n_q,
+                          int n_kv, int hd, int window, float scale, cudaStream_t stream) {
   const int group = n_q / n_kv;
   const int gc = head_chunk(group, kRows);
   const int block_q = kRows / gc;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WideSmem::bytes);
+      flash_prefill_panel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PanelSmem::bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_kv * ((group + gc - 1) / gc) * n_panels(hd), batch,
                   (q_len + block_q - 1) / block_q);
-  flash_prefill_wide_kernel<<<grid, kWGThreads, WideSmem::bytes, stream>>>(
+  flash_prefill_panel_kernel<<<grid, kWGThreads, PanelSmem::bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(offsets), offset, static_cast<bf16*>(out), q_len, kv_len, n_q, n_kv,
       group, gc, hd, window, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+// key_splits: the key splits a query tile's cluster takes (ops/flash_prefill.py
+// `wide_plan`); the cluster, n_panels(hd) x key_splits CTAs, is at most the
+// portable 8. More panels than that run flash_prefill_panel_kernel
+// (key_splits 1).
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* offsets,
+                        int offset, void* out, int batch, int q_len, int kv_len, int n_q, int n_kv,
+                        int hd, int window, int key_splits, float scale, cudaStream_t stream) {
+  if (n_panels(hd) > kMaxCluster) {
+    if (key_splits != 1) return cudaErrorInvalidValue;
+    return launch_panels(q, k, v, offsets, offset, out, batch, q_len, kv_len, n_q, n_kv, hd,
+                         window, scale, stream);
+  }
+  const int group = n_q / n_kv;
+  const int gc = head_chunk(group, kRows);
+  const int block_q = kRows / gc;
+  const int csize = n_panels(hd) * key_splits;
+  if (key_splits < 1 || csize > kMaxCluster) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_prefill_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WideSmem::bytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = csize;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_kv * ((group + gc - 1) / gc) * csize, batch, (q_len + block_q - 1) / block_q);
+  cfg.blockDim = dim3(2 * kWGThreads);
+  cfg.dynamicSmemBytes = WideSmem::bytes;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, flash_prefill_wide_kernel, static_cast<const bf16*>(q),
+                           static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                           static_cast<const int*>(offsets), offset, static_cast<bf16*>(out),
+                           q_len, kv_len, n_q, n_kv, group, gc, hd, window,
+                           scale * 1.4426950408889634f);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -1191,13 +1632,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* offs
 // q [batch, q_len, n_q, head_dim]; k/v [batch, kv_len, n_kv, head_dim];
 // offsets [batch] int32 causal offsets on the device, or null for one
 // `offset` shared by every batch row; out like q. window < 0: no sliding
-// window. dtype 0 = f32, 1 = bf16, each at any head_dim >= 1; any n_q /
-// n_kv (the GQA group).
+// window. dtype 0 = f32, 1 = bf16, at any head_dim >= 1; any n_q / n_kv
+// (the GQA group). key_splits: the key splits of a query tile in bf16 from
+// head_dim 257 to 2,048 (n_panels(head_dim) x key_splits at most 8), else
+// 1.
 // Returns the launch's cudaError_t.
 extern "C" int kvt_flash_prefill(const void* q, const void* k, const void* v,
                                  const void* offsets, int offset, void* out, int batch,
                                  int q_len, int kv_len, int n_q, int n_kv, int head_dim,
-                                 int window, float scale, int dtype, void* stream) {
+                                 int window, int key_splits, float scale, int dtype,
+                                 void* stream) {
   if (n_kv <= 0 || n_q % n_kv != 0 || n_q / n_kv < 1 || batch <= 0 || q_len <= 0 ||
       kv_len <= 0 || padded(head_dim) == 0 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1217,7 +1661,7 @@ extern "C" int kvt_flash_prefill(const void* q, const void* k, const void* v,
     case 256: err = go(std::integral_constant<int, 256>{}); break;
     default:  // above 256: slabs and panels of 256
       err = dtype == 1 ? wg::launch_wide(q, k, v, offsets, offset, out, batch, q_len, kv_len, n_q,
-                                         n_kv, head_dim, window, scale, s)
+                                         n_kv, head_dim, window, key_splits, scale, s)
                        : f32::launch<256>(q, k, v, offsets, offset, out, batch, q_len, kv_len,
                                           n_q, n_kv, head_dim, window, scale, s);
       break;

@@ -39,7 +39,7 @@
 #include <type_traits>
 #include <utility>
 
-#include "row_copy.cuh"  // padded, row_piece, with_piece, copy_piece
+#include "row_copy.cuh"  // padded, row_piece, with_piece, copy_piece, cp_async_*
 
 namespace {
 
@@ -160,14 +160,6 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // TKV: the storage type of the pages, the type of q itself or int8_t (then

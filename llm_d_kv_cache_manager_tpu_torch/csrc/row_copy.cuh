@@ -1,6 +1,6 @@
-// The head-dim padding and the row copies that every kernel shares
-// (paged_decode_common.cuh, paged_decode_sm90.cuh, paged_decode_wide.cu,
-// flash_prefill.cu).
+// The head-dim padding, the row copies and the cp.async helpers that every
+// kernel shares (paged_decode_common.cuh, paged_decode_sm90.cuh,
+// paged_decode_wide.cu, flash_prefill.cu).
 //
 // Each kernel is built at a padded width, 64, 128 or 256 (`padded`), and
 // takes the true head dim at run time. A head dim above 256 runs in panels
@@ -55,6 +55,28 @@ __device__ __forceinline__ void with_piece(int row_bytes, F&& f) {
   } else {
     with_piece<kElem, G / 2>(row_bytes, f);
   }
+}
+
+// cp.async groups: commit the copies this thread issued, and wait until at
+// most N of its committed groups are still in flight.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// 16 bytes global to shared by cp.async; `_zfill`: 16 zero bytes where
+// `pred` is false (`gmem` is then not read).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(smem))),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(smem))),
+               "l"(gmem), "r"(pred ? 16 : 0));
 }
 
 // G bytes global to shared, or G zero bytes where `pred` is false (`gmem`

@@ -9,6 +9,9 @@ Port of the reference package's `ops/flash_prefill.py`.
   dtype before the second product, as on the TPU.
 - `flash_prefill`: the wrapper. On CUDA tensors it launches the hand-written
   kernel `csrc/flash_prefill.cu`; on CPU tensors it runs `dense_attention`.
+- `wide_plan`: the launch shape of the bf16 kernel above head_dim 256 (a
+  cluster of panels x key splits per query tile up to 2,048; above it one
+  CTA per slab), from the shapes alone.
 
 Semantics: q position i (of batch b) attends k positions
 <= causal_offset[b] + i, optionally windowed to
@@ -19,6 +22,7 @@ key yields zeros.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Union
 
 import torch
@@ -26,10 +30,12 @@ import torch
 launches = 0  # flash_prefill kernel launches (CUDA path only)
 
 # The bf16 (wgmma) and the f32 (CUDA-core) kernels take every head_dim (up
-# to 256 built at the padded widths 64, 128 and 256; above it in column
-# slabs of 256 over panels of 256) and any GQA group (a group above a tile's
-# rows splits over CTAs).
+# to 256 built at the padded widths 64, 128 and 256; above it in panels of
+# 256) and any GQA group (a group above a tile's rows splits over CTAs).
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_PANEL = 256  # a wide head's panel (csrc/row_copy.cuh)
+_ROWS = 64  # tile rows of the wide bf16 kernel's CTA (one computing warpgroup)
+_MAX_CLUSTER = 8  # the portable cluster size
 
 Offset = Union[int, torch.Tensor]
 
@@ -76,9 +82,43 @@ def dense_attention(
     return out.reshape(b, l, n_q, hd).to(q.dtype)
 
 
+def head_chunk(group: int, rows: int) -> int:
+    """Query heads a CTA of `rows` tile rows takes of a GQA group: the whole
+    group up to `rows`, else an even share of ceil(group / rows) chunks
+    (`head_chunk` in csrc/flash_prefill.cu)."""
+    if group <= rows:
+        return group
+    n = -(-group // rows)
+    return -(-group // n)
+
+
+def wide_plan(batch: int, q_len: int, n_q: int, n_kv: int, head_dim: int,
+              n_sms: int) -> tuple:
+    """(n_panels, key_splits) of the bf16 kernel above head_dim 256: each
+    query tile of 64 rows is a cluster of n_panels x key_splits CTAs, one a
+    panel of 256 columns and split of the tile's key blocks. The splits are
+    the most that keep the grid within one CTA per SM and the cluster within
+    the portable 8 (at least 1): the serving chunk of 4/2 heads of 512 (32
+    tiles x 2 panels) takes 2 on 132 SMs, a 2,048-token chunk 1. Above
+    head_dim 2,048 (more than 8 panels) no cluster holds the panels: the
+    kernel walks them in one CTA per slab, key_splits 1."""
+    n_pan = -(-head_dim // _PANEL)
+    if n_pan > _MAX_CLUSTER:
+        return n_pan, 1
+    group = n_q // n_kv
+    gc = head_chunk(group, _ROWS)
+    tiles = batch * n_kv * -(-group // gc) * -(-q_len // (_ROWS // gc))
+    return n_pan, max(1, min(_MAX_CLUSTER // n_pan, n_sms // (tiles * n_pan)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # The C signature of csrc/flash_prefill.cu's entry point.
-_ARGTYPES = {"kvt_flash_prefill": [_P] * 4 + [_I, _P] + [_I] * 7 + [ctypes.c_float, _I, _P]}
+_ARGTYPES = {"kvt_flash_prefill": [_P] * 4 + [_I, _P] + [_I] * 8 + [ctypes.c_float, _I, _P]}
 
 
 def _kernel() -> ctypes.CDLL:
@@ -118,10 +158,14 @@ def _launch(q, k, v, causal_offset, window) -> torch.Tensor:
         shared = causal_offset
     else:
         offs = _offsets(causal_offset, b, q.device).contiguous()
-    err = _kernel().kvt_flash_prefill(
+    lib = _kernel()
+    key_splits = 1
+    if q.dtype == torch.bfloat16 and hd > _PANEL:
+        key_splits = wide_plan(b, l, n_q, n_kv, hd, _sm_count(q.device))[1]
+    err = lib.kvt_flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if offs is None else offs.data_ptr(),
         shared, out.data_ptr(), b, l, s, n_q, n_kv, hd, -1 if window is None else int(window),
-        1.0 / (hd**0.5), _DTYPE_CODE[q.dtype],
+        key_splits, 1.0 / (hd**0.5), _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:

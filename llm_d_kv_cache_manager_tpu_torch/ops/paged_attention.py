@@ -17,12 +17,14 @@ events the control plane ingests.
   `ops/quantized_kv.py` launches the same two kernels on int8 pages.
 - `decode_plan`: the launch shape of both kernels for bf16 q (on bf16 or
   int8 pages), from the shapes alone; `old_body_splits` for f32 q;
-  `group_chunks`: how a GQA group above 8 (4 at head dims above 128)
-  splits over CTAs; `n_slabs`: the column slabs of a head dim above 256.
+  `group_chunks`: how a GQA group above `max_rows(head_dim)` splits over
+  CTAs; `n_slabs`: the column slabs of a head dim above 256 in the first
+  wide body.
 - The kernels take every head_dim (up to 256 built at the padded widths 64,
-  128 and 256; above it in column slabs of 256, the scores summed over
-  panels of 256; the pools' rows unpadded) and any GQA group, in bf16 and
-  f32 q, on pages of q's dtype and on int8 pages.
+  128 and 256; above it, for bf16 q up to 1,024, one CTA holding every
+  column; for f32 q, and bf16 q above 1,024, column slabs of 256, the
+  scores summed over panels of 256; the pools' rows unpadded) and any GQA
+  group, in bf16 and f32 q, on pages of q's dtype and on int8 pages.
 - `write_kv_pages`: scatter of new K/V rows into their pages.
 """
 
@@ -40,6 +42,10 @@ tiled_launches = 0  # csrc/paged_decode_tiled.cu, bf16/f32 pages
 
 _MAX_ROWS = 8  # query heads one decode CTA holds (csrc/paged_decode_common.cuh)
 _PANEL = 256  # the widest built head_dim, and a wider head's slab (csrc/row_copy.cuh)
+# bf16 q up to this head_dim runs csrc/paged_decode_wide.cu's Hopper body,
+# one CTA for every column (`hw::kMaxChunks` panels); above it the first
+# wide body's slabs.
+_HOPPER_WIDE = 4 * _PANEL
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -98,37 +104,65 @@ _ARGTYPES = {
 }
 _ARGTYPES["kvt_paged_decode_wide"] = _ARGTYPES["kvt_paged_decode"]
 _ARGTYPES["kvt_paged_decode_wide_tiled"] = _ARGTYPES["kvt_paged_decode_tiled"]
+# head_dim, group, kv_int8, cluster -> clusters resident at once
+_ARGTYPES["kvt_paged_decode_wide_resident"] = [_I] * 4
 
 _STAGE_TOKENS = 64  # tokens per ring stage of either decode kernel, on both page formats
 _MAX_CLUSTER = 8  # the portable cluster size: every Hopper launch may ask for it
+# The wide Hopper body's clusters go to the non-portable 16 (its kernels set
+# cudaFuncAttributeNonPortableClusterSizeAllowed), so that batch 1 spreads
+# over more SMs.
+_MAX_WIDE_CLUSTER = 16
 
 
-def max_rows(head_dim: int = 128) -> int:
-    """Query heads one decode CTA holds: 8, or 4 above head_dim 128 (the
-    Hopper body keeps 16 columns of q and acc a lane there)."""
-    return _MAX_ROWS // 2 if head_dim > 128 else _MAX_ROWS
+def max_rows(head_dim: int = 128, bf16_q: bool = True) -> int:
+    """Query heads one decode CTA holds: 8 up to head_dim 128, else 4 (the
+    Hopper bodies keep 16 columns of q and acc a lane; `max_rows_of` in
+    csrc/paged_decode_common.cuh); but in the wide Hopper body (bf16 q,
+    head_dim 257 to 1,024) 3 up to 768 and 2 above (24 and 32 columns a
+    lane; `hw::max_rows` in csrc/paged_decode_wide.cu)."""
+    if head_dim <= 128:
+        return _MAX_ROWS
+    if bf16_q and 512 < head_dim <= _HOPPER_WIDE:
+        return 3 if head_dim <= 768 else 2
+    return _MAX_ROWS // 2
 
 
 def n_slabs(head_dim: int) -> int:
-    """Column slabs of 256 a head_dim's output is cut into, one CTA (or
-    cluster) each: 1 up to 256 (`n_panels` in csrc/row_copy.cuh)."""
+    """Column slabs of 256 a head_dim's output is cut into in the first wide
+    body (f32 q; bf16 q above 1,024), one CTA (or cluster) each: 1 up to 256
+    (`n_panels` in csrc/row_copy.cuh)."""
     return -(-head_dim // _PANEL)
 
 
-def group_chunks(group: int, head_dim: int = 128) -> tuple:
-    """(n_chunks, rows): a GQA group of at most max_rows(head_dim) query
-    heads runs as one chunk of `group` rows; a larger one as ceil(group /
-    max_rows) chunks of equal rows over the same kv head, the last chunk's
-    spare rows unused (12 -> 2 x 6, 16 -> 2 x 8, 13 -> 2 x 7, 71 -> 9 x 8;
-    above head_dim 128, the wide heads above 256 included, 8 -> 2 x 4). The
-    kernels' `n_chunks_of` and `rows_of` (csrc/paged_decode_common.cuh)
-    follow the same rule."""
-    n_chunks = -(-group // max_rows(head_dim))
+def hopper_slabs(head_dim: int) -> int:
+    """Column slabs of a bf16-q launch: one CTA holds every column up to
+    head_dim 1,024 (the Hopper bodies), `n_slabs` above."""
+    return 1 if head_dim <= _HOPPER_WIDE else n_slabs(head_dim)
+
+
+def max_cluster(head_dim: int) -> int:
+    """The largest cluster of a bf16-q pipelined launch: 16 for the wide
+    Hopper body (head_dim 257 to 1,024), else the portable 8."""
+    return _MAX_WIDE_CLUSTER if _PANEL < head_dim <= _HOPPER_WIDE else _MAX_CLUSTER
+
+
+def group_chunks(group: int, head_dim: int = 128, bf16_q: bool = True) -> tuple:
+    """(n_chunks, rows): a GQA group of at most max_rows(head_dim, bf16_q)
+    query heads runs as one chunk of `group` rows; a larger one as
+    ceil(group / max_rows) chunks of equal rows over the same kv head, the
+    last chunk's spare rows unused (12 -> 2 x 6, 16 -> 2 x 8, 13 -> 2 x 7,
+    71 -> 9 x 8; above head_dim 128, 8 -> 2 x 4; at 576 for bf16 q, 16 ->
+    6 x 3). The kernels' `n_chunks_of` and `rows_of`
+    (csrc/paged_decode_common.cuh) and `hw::n_chunks` and `hw::rows`
+    (csrc/paged_decode_wide.cu) follow the same rule."""
+    n_chunks = -(-group // max_rows(head_dim, bf16_q))
     return n_chunks, -(-group // n_chunks)
 
 
 def decode_plan(batch: int, n_kv: int, table_width: int, page_size: int,
-                n_sms: int, group: int = 1, head_dim: int = 128) -> tuple:
+                n_sms: int, group: int = 1, head_dim: int = 128,
+                resident: Optional[dict] = None) -> tuple:
     """(cluster, n_splits): the CTAs per (sequence, kv head, group chunk)
     of the pipelined kernel for bf16 q (one thread-block cluster) and of the
     tiled kernel (a grid-level split), on bf16 and on int8 pages, from the
@@ -137,16 +171,24 @@ def decode_plan(batch: int, n_kv: int, table_width: int, page_size: int,
     Both split each (sequence, kv head) as far as one CTA per SM allows
     (more CTAs read slower on an H100: each extra CTA adds its start-up,
     its merge and, in the tiled kernel, a partial for the combine pass),
-    never into more parts than the table has pages or 64-token stages. Above
-    head_dim 256 each column slab is a pair of its own. The cluster is that
-    count rounded down to a power of two, at most 8, so it divides the
-    padded widths 64, 128 and 256 and a slab's 256 columns (each rank merges
-    padded / cluster columns and writes those below head_dim)."""
-    pairs = batch * n_kv * group_chunks(group, head_dim)[0] * n_slabs(head_dim)
+    never into more parts than the table has pages or 64-token stages. A CTA
+    holds every column up to head_dim 1,024; above it each column slab is a
+    pair of its own (`hopper_slabs`). The cluster is that count rounded down
+    to a power of two, at most `max_cluster(head_dim)` (8, or 16 for head
+    dims 257 to 1,024), so it divides the padded widths 64, 128 and 256, the
+    wide body's 512, 768 and 1,024 columns and a slab's 256 (each rank
+    merges padded / cluster columns and writes those below head_dim).
+    `resident` ({cluster: clusters the card holds at once}, the wide
+    body's, from the card) also keeps every cluster of the launch resident
+    at once: a second wave of clusters costs more than smaller ones (at 4/2
+    heads of 512 and batch 8, 16 clusters of 8 run in two waves on an H100
+    and 16 of 4 in one)."""
+    pairs = batch * n_kv * group_chunks(group, head_dim)[0] * hopper_slabs(head_dim)
     cap = max(1, min(table_width, table_width * page_size // _STAGE_TOKENS))
     n_splits = max(1, min(n_sms // pairs, cap))
     cluster = 1
-    while 2 * cluster <= min(_MAX_CLUSTER, n_splits):
+    while 2 * cluster <= min(max_cluster(head_dim), n_splits) and (
+            resident is None or pairs <= resident.get(2 * cluster, 0)):
         cluster *= 2
     return cluster, n_splits
 
@@ -159,7 +201,7 @@ def old_body_splits(batch: int, n_kv: int, table_width: int, n_sms: int,
     csrc/paged_decode_wide.cu, a CTA per column slab): about two CTAs per
     SM over the (sequence, kv head, group chunk, slab) tuples, never more
     splits than the table has pages."""
-    triples = batch * n_kv * group_chunks(group, head_dim)[0] * n_slabs(head_dim)
+    triples = batch * n_kv * group_chunks(group, head_dim, False)[0] * n_slabs(head_dim)
     return max(1, min(-(-2 * n_sms // triples), table_width))
 
 
@@ -222,14 +264,27 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _plan(n_sms: int, q_dtype: torch.dtype, batch: int, n_kv: int, table_width: int,
-          page_size: int, group: int = 1, head_dim: int = 128) -> tuple:
+          page_size: int, group: int = 1, head_dim: int = 128,
+          resident: Optional[dict] = None) -> tuple:
     """(cluster, n_splits) for a launch on a card of `n_sms` SMs: bf16 q, on
-    either page format, runs the body of csrc/paged_decode_sm90.cuh and
-    takes decode_plan; f32 q keeps the old body, old_body_splits and no
-    cluster."""
+    either page format, runs a Hopper body (csrc/paged_decode_sm90.cuh, or
+    above head_dim 256 csrc/paged_decode_wide.cu's) and takes decode_plan;
+    f32 q keeps the old body, old_body_splits and no cluster."""
     if q_dtype != torch.bfloat16:
         return 1, old_body_splits(batch, n_kv, table_width, n_sms, group, head_dim)
-    return decode_plan(batch, n_kv, table_width, page_size, n_sms, group, head_dim)
+    return decode_plan(batch, n_kv, table_width, page_size, n_sms, group, head_dim, resident)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(device: torch.device, head_dim: int, group: int, int8: bool) -> dict:
+    """{cluster: clusters of that many CTAs the card holds at once} of the
+    wide Hopper body's pipelined kernel at this shape (the C query)."""
+    fn = _kernel_fn("paged_decode_wide", "kvt_paged_decode_wide_resident")
+    with torch.cuda.device(device):
+        counts = {c: fn(head_dim, group, int(int8), c) for c in (2, 4, 8, 16)}
+    if counts[2] < 1:
+        raise RuntimeError(f"paged_decode_wide: the cluster residency query failed: {counts}")
+    return counts
 
 
 def launch_decode(q, k_pages, v_pages, block_tables, seq_lens, window, *,
@@ -254,8 +309,11 @@ def launch_decode(q, k_pages, v_pages, block_tables, seq_lens, window, *,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     group = n_q // n_kv
+    resident = None
+    if q.dtype == torch.bfloat16 and _PANEL < head_dim <= _HOPPER_WIDE:
+        resident = _resident(q.device, head_dim, group, scales is not None)
     cluster, n_splits = _plan(_sm_count(q.device), q.dtype, batch, n_kv, table_width,
-                              page_size, group, head_dim)
+                              page_size, group, head_dim, resident)
     name = "paged_decode" if pipelined else "paged_decode_tiled"
     fn_name = "kvt_" + name
     if head_dim > _PANEL:  # both variants in one source, built apart
@@ -268,7 +326,7 @@ def launch_decode(q, k_pages, v_pages, block_tables, seq_lens, window, *,
     else:
         # One f32 workspace: m and l [batch, n_kv * n_chunks, n_splits, rows],
         # then acc [..., rows, head_dim] (group_chunks).
-        n_chunks, rows = group_chunks(group, head_dim)
+        n_chunks, rows = group_chunks(group, head_dim, q.dtype == torch.bfloat16)
         n = batch * n_kv * n_chunks * n_splits * rows
         ws = torch.empty(n * (head_dim + 2), dtype=torch.float32, device=q.device)
         m_ws, l_ws, acc_ws = ws[:n], ws[n:2 * n], ws[2 * n:]

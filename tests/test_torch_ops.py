@@ -251,32 +251,79 @@ GROUP_PLAN_CASES = {
 
 # (batch, n_kv, table_width, group, head_dim): head dims above 256 at phase
 # 21's shape (4/2 heads of 512: the flagship's width regrouped) at its
-# decode shapes, and wider heads and groups in chunks.
+# decode shapes, wider heads and groups in chunks, every head dim above 256
+# of chip_smoke.py's WIDE_SHAPES at batch 1 and 8 over a 2,048-token table
+# (`WIDE_PLAN_SHAPES`), and head dims above 1,024, which bf16 q runs in the
+# first wide body's slabs (`BEYOND_PLAN_SHAPES` among them).
+WIDE_PLAN_SHAPES = {  # chip_smoke.WIDE_SHAPES above 256: (n_q, n_kv, head_dim)
+    "hd=257": (4, 2, 257), "hd=288": (2, 2, 288), "hd=300 group=8": (8, 1, 300),
+    "hd=320": (4, 2, 320), "hd=384 group=3": (6, 2, 384), "flagship-heads-512": (4, 2, 512),
+    "hd=576 group=16": (16, 1, 576), "hd=1024": (2, 1, 1024),
+}
+# chip_smoke.BEYOND_SHAPES: head dims past any model, 1,280 at group 8 and
+# 2,304 (flash: 9 panels, past the cluster kernel's 8).
+BEYOND_PLAN_SHAPES = {"hd=1280 group=8": (8, 1, 1280), "hd=2304 group=2": (4, 2, 2304)}
 SLAB_PLAN_CASES = {
     "hd512_b8": (8, 2, 129, 2, 512),
     "hd512_serving_b1": (1, 2, 128, 2, 512),
     "hd288_group8_b1": (1, 2, 128, 8, 288),
     "hd576_b2": (2, 4, 256, 1, 576),
     "hd1024_b1_narrow": (1, 1, 2, 2, 1024),
+    "hd1280_slabs_b1": (1, 2, 128, 2, 1280),
+    "hd2048_slabs_b8": (8, 1, 128, 1, 2048),
+    **{f"{name} B={b}": (b, n_kv, 128, n_q // n_kv, hd)
+       for name, (n_q, n_kv, hd) in {**WIDE_PLAN_SHAPES, **BEYOND_PLAN_SHAPES}.items()
+       for b in (1, 8)},
 }
+
+
+def test_wide_plan_shapes_are_the_smokes():
+    import chip_smoke
+
+    assert WIDE_PLAN_SHAPES == {k: v for k, v in chip_smoke.WIDE_SHAPES.items() if v[2] > 256}
+    assert BEYOND_PLAN_SHAPES == chip_smoke.BEYOND_SHAPES
 
 
 @pytest.mark.parametrize("case", sorted(SLAB_PLAN_CASES))
 def test_decode_plan_counts_slabs(case):
-    """Above head_dim 256 each column slab of 256 is a CTA (or cluster) of
-    its own: the plans count it beside the group chunks, and the cluster
-    still divides a slab's 256 columns. Up to 256 there is one slab."""
+    """bf16 q up to head_dim 1,024 runs the wide Hopper body, one CTA (or
+    cluster) for every column: the plan counts no slabs, and its cluster (up
+    to the non-portable 16) divides the body's 512, 768 or 1,024 columns.
+    Above 1,024 each column slab of 256 is a CTA (or cluster) of its own, at
+    most the portable 8. f32 q keeps the slabs at every head dim above 256.
+    Up to 256 there is one slab."""
     batch, n_kv, width, group, hd = SLAB_PLAN_CASES[case]
     assert [port_paged.n_slabs(d) for d in (1, 128, 256, 257, 512, 576, 1024)] == [
         1, 1, 1, 2, 2, 3, 4]
-    tuples = batch * n_kv * port_paged.group_chunks(group, hd)[0] * port_paged.n_slabs(hd)
+    assert [port_paged.hopper_slabs(d) for d in (1, 256, 257, 512, 576, 1024, 1025, 2048)] == [
+        1, 1, 1, 1, 1, 1, 5, 8]
+    assert [port_paged.max_cluster(d) for d in (128, 256, 257, 1024, 1025)] == [8, 8, 16, 16, 8]
+    n_chunks, rows = port_paged.group_chunks(group, hd)
+    assert rows <= port_paged.max_rows(hd) and (n_chunks - 1) * rows < group <= n_chunks * rows
+    tuples = batch * n_kv * n_chunks * port_paged.hopper_slabs(hd)
     cluster, n_splits = port_paged.decode_plan(batch, n_kv, width, 16, 132, group, hd)
     assert 1 <= cluster <= n_splits <= width
-    assert cluster & (cluster - 1) == 0 and 256 % cluster == 0 and cluster <= 8
+    assert cluster & (cluster - 1) == 0 and cluster <= port_paged.max_cluster(hd)
+    # Each rank merges an equal slice of the columns a CTA holds.
+    cols = 256 * port_paged.n_slabs(hd) if hd <= 1024 else 256
+    assert cols % cluster == 0 and (cols // cluster) % 4 == 0
     if tuples < 132:
         assert tuples * max(cluster, n_splits) <= 132
+    assert port_paged._plan(132, torch.bfloat16, batch, n_kv, width, 16, group, hd) == (
+        cluster, n_splits)
+    # With the card's residency, every cluster of the launch fits at once:
+    # the cluster shrinks (never the split count) until the pairs fit.
+    for resident in ({2: 66, 4: 32, 8: 15, 16: 7}, {2: 66, 4: 33, 8: 16, 16: 8}, {}):
+        c, n = port_paged.decode_plan(batch, n_kv, width, 16, 132, group, hd, resident)
+        assert n == n_splits and c <= cluster and c & (c - 1) == 0
+        assert c == 1 or tuples <= resident[c]
+        assert 2 * c > min(cluster, n_splits) or tuples > resident.get(2 * c, 0)
+    f32_tuples = batch * n_kv * port_paged.group_chunks(group, hd, False)[0] * \
+        port_paged.n_slabs(hd)
     splits32 = port_paged.old_body_splits(batch, n_kv, width, 132, group, hd)
-    assert 1 <= splits32 <= width and (splits32 == 1 or tuples * (splits32 - 1) < 2 * 132)
+    assert 1 <= splits32 <= width and (splits32 == 1 or f32_tuples * (splits32 - 1) < 2 * 132)
+    assert port_paged._plan(132, torch.float32, batch, n_kv, width, 16, group, hd) == (
+        1, splits32)
     # One slab: the plans of a head dim up to 256 are those of 128.
     assert port_paged.decode_plan(batch, n_kv, width, 16, 132, group, 256) == \
         port_paged.decode_plan(batch, n_kv, width, 16, 132, group, 200)
@@ -307,16 +354,27 @@ def test_group_chunks_cover_every_group():
     """Groups up to 8 run whole; a larger one in ceil(group / 8) chunks of
     equal rows, at most 8, the last chunk not empty (so the kernels' chunk
     count ceil(group / rows) is the same). Above head_dim 128 a CTA holds 4
-    rows, the wide heads above 256 included."""
+    rows, but the wide Hopper body (bf16 q, head_dim 257 to 1,024) 3 up to
+    768 and 2 above (its lane holds 24 and 32 columns there); f32 q, and
+    bf16 q above 1,024, keep 4 (the first wide body)."""
     assert [port_paged.group_chunks(g) for g in (1, 7, 8, 12, 13, 16, 64, 71, 128)] == [
         (1, 1), (1, 7), (1, 8), (2, 6), (2, 7), (2, 8), (8, 8), (9, 8), (16, 8)]
-    for head_dim in (256, 288, 512, 576, 1024):
-        assert [port_paged.group_chunks(g, head_dim) for g in (1, 4, 5, 8, 16)] == [
-            (1, 1), (1, 4), (2, 3), (2, 4), (4, 4)]
-    for head_dim, limit in ((64, 8), (100, 8), (128, 8), (200, 4), (256, 4), (257, 4),
-                            (300, 4), (512, 4), (576, 4), (1024, 4), (4096, 4)):
+    four = [(1, 1), (1, 4), (2, 3), (2, 4), (4, 4)]
+    for head_dims, bf16_q, want in (
+            ((256, 288, 512), True, four),
+            ((576, 768), True, [(1, 1), (2, 2), (2, 3), (3, 3), (6, 3)]),
+            ((1024,), True, [(1, 1), (2, 2), (3, 2), (4, 2), (8, 2)]),
+            ((1025, 2048), True, four), ((576, 1024, 2048), False, four)):
+        for head_dim in head_dims:
+            assert [port_paged.group_chunks(g, head_dim, bf16_q)
+                    for g in (1, 4, 5, 8, 16)] == want
+    for head_dim, bf16_q, limit in (
+            (64, True, 8), (100, True, 8), (128, True, 8), (200, True, 4), (256, True, 4),
+            (257, True, 4), (300, True, 4), (512, True, 4), (576, True, 3), (768, True, 3),
+            (1024, True, 2), (1280, True, 4), (4096, True, 4), (128, False, 8),
+            (576, False, 4), (1024, False, 4), (4096, False, 4)):
         for group in range(1, 257):
-            n_chunks, rows = port_paged.group_chunks(group, head_dim)
+            n_chunks, rows = port_paged.group_chunks(group, head_dim, bf16_q)
             assert rows <= limit and n_chunks == -(-group // limit)
             assert (n_chunks - 1) * rows < group <= n_chunks * rows
             assert -(-group // rows) == n_chunks
@@ -388,7 +446,8 @@ def _c_signatures() -> dict:
 
 @pytest.mark.parametrize("fn_name", ["kvt_flash_prefill", "kvt_paged_decode",
                                      "kvt_paged_decode_tiled", "kvt_paged_decode_wide",
-                                     "kvt_paged_decode_wide_tiled"])
+                                     "kvt_paged_decode_wide_tiled",
+                                     "kvt_paged_decode_wide_resident"])
 def test_ctypes_argtypes_match_c_signatures(fn_name):
     """A ctypes argument list that disagrees with the C entry point cuts
     pointers or shifts arguments silently on the card."""
@@ -547,3 +606,67 @@ def test_flash_prefill_bad_grouping_raises():
     k = torch.zeros(1, 32, 2, 64)
     with pytest.raises(ValueError, match="not divisible"):
         port_flash.flash_prefill(q, k, k, 0)
+
+
+def test_fault_check_mutants_name_one_source_line_each():
+    """Each kernel fault of chip_fault_check.py names a line (or lines) that
+    stands exactly once in its source, as the planting requires."""
+    import chip_fault_check
+
+    for name, (sources, target, old, new, targets, dtype) in chip_fault_check.MUTANTS.items():
+        text = (_CSRC / target).read_text()
+        assert text.count(old) == 1, name
+        assert new != old and dtype in ("bf16", "f32"), name
+        assert all((_CSRC / f"{source}.cu").exists() for source in sources), name
+
+
+# (batch, L) of the wide flash plans: the serving chunk (L = 512), a 2,048-
+# token chunk, the speculative verify (8 x 5) and a small ragged batch.
+FLASH_PLAN_CALLS = {"serving": (1, 512), "chunk2048": (1, 2048), "verify": (8, 5),
+                    "b2_l200": (2, 200)}
+
+
+@pytest.mark.parametrize("call", sorted(FLASH_PLAN_CALLS))
+@pytest.mark.parametrize("shape", sorted(WIDE_PLAN_SHAPES))
+def test_flash_wide_plan_fits_the_card(shape, call):
+    """Above head_dim 256 the bf16 flash kernel runs a cluster of
+    n_panels x key_splits CTAs per 64-row query tile: the cluster stays
+    within the portable 8, and the key splits are the most that keep one CTA
+    per SM (at least 1)."""
+    n_q, n_kv, hd = WIDE_PLAN_SHAPES[shape]
+    batch, l = FLASH_PLAN_CALLS[call]
+    n_pan, splits = port_flash.wide_plan(batch, l, n_q, n_kv, hd, 132)
+    assert n_pan == -(-hd // 256) and splits >= 1 and n_pan * splits <= 8
+    group = n_q // n_kv
+    gc = port_flash.head_chunk(group, 64)
+    tiles = batch * n_kv * -(-group // gc) * -(-l // (64 // gc))
+    if tiles * n_pan <= 132:
+        assert tiles * n_pan * splits <= 132
+    else:
+        assert splits == 1
+    assert n_pan * (splits + 1) > 8 or tiles * n_pan * (splits + 1) > 132
+
+
+def test_flash_wide_plan_serving_chunk_and_limit():
+    """Phase 21's serving chunk (4/2 heads of 512) takes 2 key splits on 132
+    SMs: 32 tiles x 2 panels x 2 = 128 CTAs. Up to head_dim 2,048 the panels
+    fit the portable cluster of 8; above it (more than 8 panels) the kernel
+    walks them, one CTA a slab, and takes no key split. Groups split as the
+    kernel's head_chunk."""
+    assert port_flash.wide_plan(1, 512, 4, 2, 512, 132) == (2, 2)
+    assert port_flash.wide_plan(1, 512, 4, 2, 2048, 132) == (8, 1)
+    assert port_flash.wide_plan(1, 512, 4, 2, 2049, 132) == (9, 1)
+    assert port_flash.wide_plan(1, 5, 4, 2, 4096, 132) == (16, 1)
+    assert [port_flash.head_chunk(g, 64) for g in (1, 16, 64, 65, 71, 128)] == [
+        1, 16, 64, 33, 36, 64]
+
+
+
+@pytest.mark.parametrize("call", sorted(FLASH_PLAN_CALLS))
+@pytest.mark.parametrize("hd", [2049, 2304, 3000, 4096, 8192])
+def test_flash_wide_plan_walks_panels_above_2048(hd, call):
+    """Every head_dim above 2,048 has a bf16 launch: the panels of 256,
+    one CTA a slab, no key split (the C entry point refuses any other)."""
+    batch, l = FLASH_PLAN_CALLS[call]
+    assert port_flash.wide_plan(batch, l, 4, 2, hd, 132) == (-(-hd // 256), 1)
+
