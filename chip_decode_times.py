@@ -12,7 +12,7 @@
     python3 chip_decode_times.py --readings narrow_flash,beyond  # some readings only
     python3 chip_decode_times.py --build-only         # build, to time later
 
-Seven readings (all by default):
+Eight readings (all by default):
   - kernels: the four decode rows at the three decode shapes (batch 8 x
     2,048, the serving shape batch 1 x 1,536 over a 128-page table, batch 1 x
     4,096), each call cold in L2 and graph-timed, with SDPA over pre-gathered
@@ -35,7 +35,15 @@ Seven readings (all by default):
     SDPA, bound);
   - beyond: at chip_smoke.py's BEYOND_SHAPES (head dims 1,280 at group 8 and
     2,304), rows 1 and 2 at batch 8 x 2,048 and row 5 at the serving chunk
-    (kernel, SDPA, bound).
+    (kernel, SDPA, bound);
+  - combine: the four decode rows at the batch-8 x 2,048 and serving decode
+    shapes at the Qwen2.5-7B, Qwen2.5-0.5B, OpenLLaMA-3B and 4/2 x 512
+    attention shapes (`COMBINE_TIMED`; the flagship's are the kernels
+    reading's), graph-timed cold as there; and at those shapes and the
+    flagship's three, each tiled row's call split into its two launches by
+    torch.profiler over 20 warm calls: the split pass and the combine pass
+    (the kernel whose name holds "combine"), device microseconds per call.
+    It reads any tree's package alike, the combine inside the tiled entry.
 
 The kernels of the timed package are built into this checkout's
 llm_d_kv_cache_manager_tpu_torch/build/ (another tree's into
@@ -116,7 +124,7 @@ def time_wide(smoke, gen) -> dict:
     for shape in WIDE_TIMED:
         n_q, n_kv, hd = smoke.WIDE_SHAPES[shape]
         rows = {dshape: {row: smoke.time_decode(gen, row, dshape, plain=False, n_q=n_q,
-                                                n_kv=n_kv, hd=hd)
+                                                n_kv=n_kv, hd=hd, combine=False)
                          for row in ("paged_decode", "paged_decode_int8")}
                 for dshape in ("B=8 ctx=2048", "B=1 ctx=1536 table=2048")}
         rows["flash_prefill serving"] = smoke.time_prefill(gen, *smoke.PREFILL_SERVING_SHAPE,
@@ -149,7 +157,7 @@ def time_beyond(smoke, gen) -> dict:
     out = {}
     for shape, (n_q, n_kv, hd) in smoke.BEYOND_SHAPES.items():
         rows = {row: smoke.time_decode(gen, row, "B=8 ctx=2048", plain=False, n_q=n_q,
-                                       n_kv=n_kv, hd=hd)
+                                       n_kv=n_kv, hd=hd, combine=False)
                 for row in ("paged_decode", "paged_decode_int8")}
         rows["flash_prefill serving"] = smoke.time_prefill(gen, *smoke.PREFILL_SERVING_SHAPE,
                                                            n_q=n_q, n_kv=n_kv, hd=hd)
@@ -158,7 +166,69 @@ def time_beyond(smoke, gen) -> dict:
     return out
 
 
-READINGS = ("kernels", "flash", "wide", "host", "steps", "narrow_flash", "beyond")
+# The attention shapes beside the flagship's at which the combine reading
+# times the four decode rows (chip_smoke.py's QWEN_SHAPES and WIDE_SHAPES).
+COMBINE_TIMED = ("qwen2.5-7b", "qwen2.5-0.5b", "openllama-3b", "flagship-heads-512")
+
+
+def tiled_launches_us(smoke, gen, row: str, shape: str, n_q: int, n_kv: int, hd: int,
+                      calls: int = 20) -> dict:
+    """A tiled row's call at a DECODE_SHAPES shape, split into its launches by
+    torch.profiler over `calls` warm calls: device microseconds per call of
+    the split pass and of the combine pass (kernel names holding
+    "combine"), and the combine's launches per call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch, ctx, table_ctx = smoke.DECODE_SHAPES[shape]
+    q, pages, tables, lens = smoke.decode_inputs(
+        gen, torch.bfloat16, batch, [ctx] * batch, smoke.PAGE, max_ctx=table_ctx,
+        int8=smoke.DECODE_ROWS[row]["int8"], n_q=n_q, n_kv=n_kv, hd=hd)
+    for _ in range(3):
+        smoke.run_decode(row, q, pages, tables, lens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            smoke.run_decode(row, q, pages, tables, lens)
+        torch.cuda.synchronize()
+    out = dict(split_us=0.0, combine_us=0.0, combine_launches=0.0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        part = "combine" if "combine" in e.key else "split"
+        out[f"{part}_us"] += e.self_device_time_total / calls
+        if part == "combine":
+            out["combine_launches"] += e.count / calls
+    if out["split_us"] == 0.0:
+        raise RuntimeError(f"{row} {shape}: the profiler recorded no device time")
+    return out
+
+
+def time_combine(smoke, gen) -> dict:
+    """The combine reading (see the module's docstring)."""
+    shapes = {"flagship": (smoke.N_Q, smoke.N_KV, smoke.HD), **smoke.QWEN_SHAPES,
+              **smoke.WIDE_SHAPES}
+    out = {}
+    for model in ("flagship", *COMBINE_TIMED):
+        n_q, n_kv, hd = shapes[model]
+        dshapes = (tuple(smoke.DECODE_SHAPES) if model == "flagship"
+                   else ("B=8 ctx=2048", "B=1 ctx=1536 table=2048"))
+        for dshape in dshapes:
+            r = {}
+            if model != "flagship":
+                r["ms"] = {row: smoke.time_decode(gen, row, dshape, plain=False, n_q=n_q,
+                                                  n_kv=n_kv, hd=hd, combine=False)["ms"]
+                           for row in smoke.DECODE_ROWS}
+            r["launches_us"] = {row: tiled_launches_us(smoke, gen, row, dshape, n_q, n_kv, hd)
+                                for row, spec in smoke.DECODE_ROWS.items()
+                                if not spec["pipelined"]}
+            smoke.log(f"  {model} {dshape}: {r}")
+            out[f"{model} {dshape}"] = r
+    return out
+
+
+READINGS = ("kernels", "flash", "wide", "host", "steps", "narrow_flash", "beyond", "combine")
 
 
 def sass_functions(cuobjdump: str, lib: Path) -> dict:
@@ -257,7 +327,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {"device": smi, "package_root": str(root), "build_s": build_s}
     if "kernels" in readings:
-        times = {shape: {row: smoke.time_decode(gen, row, shape, plain=False)
+        times = {shape: {row: smoke.time_decode(gen, row, shape, plain=False, combine=False)
                          for row in smoke.DECODE_ROWS}
                  for shape in smoke.DECODE_SHAPES}
         out["ms"] = {shape: {row: t["ms"] for row, t in rows.items()}
@@ -275,6 +345,8 @@ def main() -> int:
         out["narrow_flash"] = time_narrow_flash(smoke, gen)
     if "beyond" in readings:
         out["beyond"] = time_beyond(smoke, gen)
+    if "combine" in readings:
+        out["combine"] = time_combine(smoke, gen)
     if "host" in readings:
         out["wrapper_host_us"] = {row: wrapper_host_us(smoke, gen, row)
                                   for row in smoke.DECODE_ROWS}

@@ -13,8 +13,14 @@ kernel sources, written only under the package's build/planted/ directory:
   - decode_cluster_rank (pipelined decode for bf16 q, both page formats):
     cluster rank 0's partial is left out of the merge through distributed
     shared memory;
-  - decode_combine_split (split-KV decode, both page formats): the combine
-    pass drops split 1;
+  - decode_combine_split (split-KV decode, both page formats and both
+    tiled sources, and the combine alone: paged_decode_combine.cuh): the
+    combine pass gives the last split no weight, dropping it;
+  - decode_combine_wide_last_block (the same builds): above head dim 256
+    the combine's last column block writes zeros, as if it left the last
+    slab out. Its main-shape cases (rows 3 and 4 and the combine alone) are
+    at phase 21's attention shape (4/2 heads of 512) and its logits bar
+    phase 21b's decode-logits check;
   - paged_decode (pipelined decode for f32 q, on f32 and int8 pages: the
     first port's body, paged_decode_common.cuh): the second 64-token chunk
     of every sequence is skipped;
@@ -149,8 +155,9 @@ rank1_skips_lora_delta, rank 1 leaving its adapter deltas out of q and v
 rank1_own_acceptance, rank 1 taking part in the speculative read back's
 broadcast but committing its own acceptance, whose sampled draws only rank
 0 makes (it must fail the bar that both ranks accept the same tokens); and
-drop_one_layer_grad, a train step whose gradients of layer 5 are dropped
-(swapped in as llama.loss_and_grads: it must fail 19b's gradient bar).
+drop_one_layer_grad, a train step whose gradients of one layer
+(DROPPED_LAYER, inside the flagship's cut depth) are dropped (swapped in as
+llama.loss_and_grads: it must fail 19b's gradient bar).
 
 Phase 8b's bit-identical check (P' restored from the host store on a tight
 bf16 pod against the same prompt on a pod that never evicts: suffix logits
@@ -234,10 +241,16 @@ MUTANTS = {
         ("paged_decode", "paged_decode_int8"), "bf16",
     ),
     "decode_combine_split": (
-        ("paged_decode_tiled",), "paged_decode_tiled.cu",
-        "if (m == -INFINITY) continue;  // a split with no live position",
-        "if (m == -INFINITY || s == 1) continue;",
-        ("paged_decode_tiled", "paged_decode_tiled_int8"), "bf16",
+        ("paged_decode_tiled", "paged_decode_wide"), "paged_decode_combine.cuh",
+        "const float ws = m == -INFINITY ? 0.f : expf(m - m_max);",
+        "const float ws = m == -INFINITY || s == n_splits - 1 ? 0.f : expf(m - m_max);",
+        ("paged_decode_tiled", "paged_decode_tiled_int8", "paged_decode_combine"), "bf16",
+    ),
+    "decode_combine_wide_last_block": (
+        ("paged_decode_tiled", "paged_decode_wide"), "paged_decode_combine.cuh",
+        "const float scale = inv_l[0];  // 1 / L, or 0 for an all-empty row",
+        "const float scale = hd > kPanel && blockIdx.z == gridDim.z - 1 ? 0.f : inv_l[0];",
+        ("paged_decode_tiled", "paged_decode_tiled_int8", "paged_decode_combine"), "bf16",
     ),
     "paged_decode": (
         ("paged_decode",), "paged_decode_common.cuh",
@@ -324,6 +337,7 @@ MUTANT_MODEL = {"decode_sm90_hd64_cols": "qwen2.5-0.5b",
                 "decode_sm90_hd100_cols": chip_smoke.OPENLLAMA_MODEL,
                 "decode_sm90_hd100_rounded_rows": chip_smoke.OPENLLAMA_MODEL,
                 "decode_wide_last_panel": chip_smoke.WIDE_HEAD_MODEL,
+                "decode_combine_wide_last_block": chip_smoke.WIDE_HEAD_MODEL,
                 "flash_wide_last_panel": chip_smoke.WIDE_HEAD_MODEL}
 # The models whose decode-logits check runs at ragged lengths (phases 20b
 # and 21b), by head dim.
@@ -410,10 +424,10 @@ def run_cases(label: str, sources=None) -> list:
 
 def run_decode_logits(label: str, rows, params, cfg, params32, cfg32) -> dict:
     """chip_smoke's batch-8 decode-logits check of each decode kernel in
-    `rows` (at phases 20b's and 21b's ragged lengths on their models): {row:
-    passed}."""
+    `rows` (at phases 20b's and 21b's ragged lengths on their models; the
+    combine rides on rows 3 and 4): {row: passed}."""
     out = {}
-    for row in rows:
+    for row in (r for r in rows if r in chip_smoke.DECODE_ROWS):
         spec = chip_smoke.DECODE_ROWS[row]
         r = chip_smoke.batched_decode_check(
             params, cfg, params32, cfg32, spec["int8"], spec["pipelined"],
@@ -1033,7 +1047,8 @@ def rank1_own_acceptance(rank: int) -> None:
     speculative._read_back = own
 
 
-DROPPED_LAYER = 5
+# A layer of the flagship as chip_smoke.py serves it (FLAGSHIP_LAYERS deep).
+DROPPED_LAYER = chip_smoke.FLAGSHIP_LAYERS // 2
 REAL_LOSS_AND_GRADS = llama.loss_and_grads
 
 

@@ -57,7 +57,15 @@ Phases, in order (any failure raises and the script exits non-zero):
      chunks), the
      tiled decode against the pipelined one at f32 on both page formats, and
      two calls of each decode kernel for bf16 q (both page formats, the
-     flagship's and both Qwen2.5 shapes) bit for bit;
+     flagship's and both Qwen2.5 shapes) bit for bit; the split-KV combine
+     alone (`pa.combine_splits`, its own C entry) on the workspace that the
+     tiled call's split pass wrote, against `pa.combine_reference` on it
+     (f32 out 1e-5 + 1e-5 |ref| elementwise, bf16 out within one bf16
+     rounding more, all-empty rows exactly zero) and equal bit for bit to
+     the tiled call's output, at the flagship's, both Qwen2.5, every
+     `WIDE_SHAPES` and `BEYOND_SHAPES` attention shape and every decode
+     timing shape, bf16 and f32 q (int8 pages too at the first three); at
+     f32 the split pass's workspace against `pa.split_partials_reference`;
   4. times at the main path's shapes: kernel, plain version, the card's
      bound, and SDPA as a library yardstick that the port itself never calls
      (none exists for int8 pages), each the median of 10 replays of a CUDA
@@ -75,7 +83,9 @@ Phases, in order (any failure raises and the script exits non-zero):
      the serving chunk); every row at OpenLLaMA-3B's shape (32/32 heads of
      100, bounds on the true width) and at phase 21's (4/2 heads of 512,
      the flagship's bounds; the SDPA backend that served each yardstick is
-     named);
+     named); beside each timed tiled row, its combine pass alone on the
+     workspace of its own split pass (warm, as it runs after the split:
+     time, plain version, bound);
   5. serving at the flagship width (the 1.14B Llama's widths cut to 4 of its
      16 layers, `FLAGSHIP_LAYERS`, the cut printed; bf16, random weights from a
      seeded generator): two bf16 pods and one int8-KV pod whose KV events are
@@ -611,6 +621,7 @@ from llm_d_kv_cache_manager_tpu_torch.workloads.synthetic import text as synthet
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 
 # Kernel-vs-plain bars. f32, elementwise: |kernel - plain| <= 1e-4 +
 # 1e-4 |plain| (both sides accumulate in f32, in different orders). bf16, per
@@ -627,6 +638,12 @@ PEAK_BF16_FLOPS = 989e12
 # body that bf16 q now runs on int8 pages too. Rows whose plain output is
 # all zeros (seq_len 0) must be exactly zero.
 F32_TOL = (1e-4, 1e-4)
+# The combine alone against combine_reference on the same workspace,
+# elementwise: f32, |kernel - plain| <= 1e-5 + 1e-5 |plain| (two orders of
+# the same f32 sums); bf16 out, within one bf16 rounding of the f32 merge
+# besides (2^-8 |plain|). Rows whose splits are all empty exactly zero.
+COMBINE_TOL = (1e-5, 1e-5)
+BF16_ROUNDING = 2.0 ** -8
 BF16_ROW_REL = {
     "paged_decode": 4e-3,
     "paged_decode_int8": 1.5e-2,
@@ -665,10 +682,14 @@ DECODE_ROWS = {
     "paged_decode_tiled_int8": dict(pipelined=False, int8=True),
 }
 KERNELS = (*DECODE_ROWS, "flash_prefill")
+# The split-KV second pass of rows 3 and 4 (csrc/paged_decode_combine.cuh),
+# held and timed alone through its own C entry (`pa.combine_splits`).
+COMBINE = "paged_decode_combine"
 SOURCE = {  # the csrc/ source of each kernel up to head_dim 256
     "paged_decode": "paged_decode", "paged_decode_int8": "paged_decode",
     "paged_decode_tiled": "paged_decode_tiled",
     "paged_decode_tiled_int8": "paged_decode_tiled", "flash_prefill": "flash_prefill",
+    COMBINE: "paged_decode_tiled",  # its entry point; the body in paged_decode_combine.cuh
 }
 WIDE_SOURCE = "paged_decode_wide"  # the decode rows' source above head_dim 256
 
@@ -682,6 +703,7 @@ REPLACES = {
     "paged_decode_tiled": "llm_d_kv_cache_manager_tpu/ops/paged_attention.py:78",
     "paged_decode_tiled_int8": "llm_d_kv_cache_manager_tpu/ops/paged_attention.py:78",
     "flash_prefill": "llm_d_kv_cache_manager_tpu/ops/flash_prefill.py:47",
+    COMBINE: "llm_d_kv_cache_manager_tpu/ops/paged_attention.py:78",
 }
 
 
@@ -733,7 +755,7 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     pa.launches = pa.tiled_launches = qkv.launches = qkv.tiled_launches = 0
-    fp.launches = 0
+    fp.launches = pa.combine_launches = 0
 
 
 def compare(kernel: str, got: torch.Tensor, ref: torch.Tensor, dtype) -> dict:
@@ -746,7 +768,13 @@ def compare(kernel: str, got: torch.Tensor, ref: torch.Tensor, dtype) -> dict:
     live = ref_norm > 0
     row_rel = float((err.norm(dim=1)[live] / ref_norm[live]).max()) if live.any() else 0.0
     ok = bool(torch.isfinite(got).all()) and bool((got[~live] == 0).all())
-    if dtype == torch.float32:
+    if kernel == COMBINE:
+        atol, rtol = COMBINE_TOL
+        if dtype != torch.float32:
+            rtol += BF16_ROUNDING
+        ok = ok and bool((err.abs() <= atol + rtol * ref.abs()).all())
+        bar = f"|err| <= {atol:g} + {rtol:g}|ref|"
+    elif dtype == torch.float32:
         atol, rtol = F32_TOL
         ok = ok and bool((err.abs() <= atol + rtol * ref.abs()).all())
         bar = f"|err| <= {atol:g} + {rtol:g}|ref|"
@@ -973,6 +1001,7 @@ SPLIT_CASES = (
 MAIN_CASES = {
     **{row: f"{row} bf16 page=16 window=None B=8" for row in DECODE_ROWS},
     "flash_prefill": "flash_prefill bf16 L=S=2048 off=0",
+    COMBINE: f"{COMBINE} bf16 flagship B=8 ctx=2048",
 }
 # Phase 13's models at their attention shapes (n_q, n_kv, head_dim): GQA
 # group 7 at head_dim 128 and at 64.
@@ -980,7 +1009,8 @@ QWEN_SHAPES = {"qwen2.5-7b": (28, 4, 128), "qwen2.5-0.5b": (14, 2, 64)}
 # Their cases of each kernel at the main path's shape, as MAIN_CASES.
 QWEN_MAIN_CASES = {
     model: {**{row: f"{row} bf16 {model} B=8" for row in DECODE_ROWS},
-            "flash_prefill": f"flash_prefill bf16 {model} L=S=2048 off=0"}
+            "flash_prefill": f"flash_prefill bf16 {model} L=S=2048 off=0",
+            COMBINE: f"{COMBINE} bf16 {model} B=8 ctx=2048"}
     for model in QWEN_SHAPES
 }
 # Decode groups held at head_dim 128 beside 1, 4 and 8: 3-7 in one CTA; 12
@@ -1031,7 +1061,8 @@ WIDE_HEAD_SHAPE = WIDE_SHAPES[WIDE_HEAD_MODEL]
 # at batch 8, page 16, no window; flash at the serving chunk.
 WIDE_MAIN_CASES = {
     shape: {**{row: f"{row} bf16 {shape} page=16 B=8" for row in DECODE_ROWS},
-            "flash_prefill": f"flash_prefill bf16 {shape} L=512 S=2048 off=1024"}
+            "flash_prefill": f"flash_prefill bf16 {shape} L=512 S=2048 off=1024",
+            COMBINE: f"{COMBINE} bf16 {shape} B=8 ctx=2048"}
     for shape in WIDE_SHAPES
 }
 # (name, lens, page, window): every WIDE_SHAPES decode case, pages of 16 and
@@ -1050,11 +1081,77 @@ def verify_offsets(l: int) -> list:
     return [1501, 1537, 1601, 1663, 1729, 1800, 1950, 2048 - l]
 
 
+# The attention shapes (n_q, n_kv, head_dim) at which phase 3 holds the
+# combine alone: the flagship's, the Qwen2.5 pair's, WIDE_SHAPES (OpenLLaMA-
+# 3B's and phase 21's among them) and BEYOND_SHAPES. Row 4's workspace too
+# at the first three (the combine reads either page format's alike).
+COMBINE_SHAPES = {"flagship": (N_Q, N_KV, HD), **QWEN_SHAPES, **WIDE_SHAPES, **BEYOND_SHAPES}
+COMBINE_INT8_SHAPES = ("flagship", *QWEN_SHAPES)
+
+
+def split_pass_rows(ws, ref_ws, group: int) -> tuple:
+    """Each real (sequence, kv head x chunk, split, row) of a tiled split
+    pass's workspace and of split_partials_reference's, as [acc / l, m]
+    (zeros for an empty split), for compare(): (kernel's, plain)."""
+    def rows_of(m, l, acc):
+        rows = m.shape[3]
+        real = (torch.arange(m.shape[1] * rows, device=m.device).reshape(m.shape[1], rows)
+                % (-(-group // rows) * rows) < group)  # (pair, row) -> row of a group
+        live = l > 0
+        part = torch.cat([acc / torch.where(live, l, 1.0)[..., None], m[..., None]], dim=-1)
+        part = torch.where(live[..., None], part, 0.0)
+        return part.movedim(2, 3)[:, real].reshape(-1, part.shape[-1])
+    return rows_of(*ws), rows_of(*ref_ws)
+
+
+def combine_cases(gen, dtype):
+    """Yields phase 3's cases of the combine alone: at every COMBINE_SHAPES
+    shape and DECODE_SHAPES decode shape (batch 8 with a sequence of 0
+    tokens and short ones that leave splits empty; batch 1 at 1,536 tokens
+    over a 128-page table, and at 4,096 with a window of 1,000), row 3's
+    tiled call (and row 4's at COMBINE_INT8_SHAPES) with its workspace
+    kept, then the combine alone (`pa.combine_splits`, its own C entry) on
+    that workspace against `pa.combine_reference` on it. The tiled call's
+    own output must equal the combine alone's bit for bit. At f32 q the
+    split pass's workspace is also held to `pa.split_partials_reference`
+    (as a case of its row: the partials acc / l and m, F32_TOL)."""
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    for shape, (n_q, n_kv, hd) in COMBINE_SHAPES.items():
+        formats = (False, True) if shape in COMBINE_INT8_SHAPES else (False,)
+        for (dshape, (batch, ctx, table_ctx)), int8 in itertools.product(DECODE_SHAPES.items(),
+                                                                           formats):
+            lens = [0, 1, PAGE + 1, 300, 1000, 1500, 2047, ctx][-batch:]
+            window = 1000 if ctx == 4096 else None
+            q, pages, tables, lens_t = decode_inputs(gen, dtype, batch, lens, PAGE, n_q=n_q,
+                                                     n_kv=n_kv, hd=hd, max_ctx=table_ctx,
+                                                     int8=int8)
+            k, v = (pages[0], pages[2]) if int8 else pages
+            scales = (pages[1], pages[3]) if int8 else None
+            ws = pa.decode_workspace(q, k, tables)
+            tiled = pa.launch_decode(q, k, v, tables, lens_t, window, pipelined=False,
+                                     scales=scales, workspace=ws)
+            got = pa.combine_splits(*ws, n_q // n_kv, dtype)
+            torch.cuda.synchronize()
+            row = "paged_decode_tiled_int8" if int8 else "paged_decode_tiled"
+            name = f"{COMBINE} {tag} {shape} {dshape}{' int8 pages' if int8 else ''}"
+            if not torch.equal(got, tiled):
+                raise AssertionError(f"{name}: the combine alone differs from {row}'s call")
+            if dtype == torch.float32:
+                kf, vf = (pages[0].float() * pages[1], pages[2].float() * pages[3]) if int8 \
+                    else pages
+                ref_ws = pa.split_partials_reference(q, kf, vf, tables, lens_t, ws[0].shape[2],
+                                                     window)
+                yield (row, dtype, f"{row} {tag} {shape} {dshape} workspace vs "
+                       "split_partials_reference", *split_pass_rows(ws, ref_ws, n_q // n_kv))
+            yield COMBINE, dtype, name, got, pa.combine_reference(*ws, n_q // n_kv)
+
+
 def kernel_cases(gen):
     """Yields (kernel, dtype, case name, kernel output, plain output) over
     the edge cases, bf16 first, then f32. At f32 the tiled kernels are also
     held against the pipelined ones (then "plain output" is the pipelined
-    kernel's)."""
+    kernel's). The combine alone's cases (combine_cases) follow each
+    dtype's decode rows."""
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         for row, spec in DECODE_ROWS.items():
@@ -1112,6 +1209,7 @@ def kernel_cases(gen):
                     yield (row, dtype, f"{row} {tag} {shape} {name}",
                            run_decode(row, q, pages, tables, lens_t, window),
                            run_decode(row, q, pages, tables, lens_t, window, plain=True))
+        yield from combine_cases(gen, dtype)
         if dtype == torch.float32:
             for tiled, piped in (("paged_decode_tiled", "paged_decode"),
                                  ("paged_decode_tiled_int8", "paged_decode_int8")):
@@ -1234,10 +1332,41 @@ def phase_kernel_checks(gen) -> dict:
     return errs
 
 
-def _bound(nbytes: int, flops: int) -> dict:
-    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+def _bound(nbytes: int, flops: int, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
     return dict(bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def time_combine(q, k, v, tables, lens, scales, label: str) -> dict:
+    """The combine alone (`pa.combine_splits`, bf16 out) on the workspace
+    that the tiled row's own split pass wrote for these inputs, graph-timed
+    warm (on the main path it reads what the split pass just left in L2),
+    against its plain version on the same workspace and the bound: the
+    workspace's (m, l, acc) of every real row read once, the output written
+    once; 2 f32 operations an acc element at the card's f32 rate. No
+    PyTorch call computes it (library_ms None). max_abs_err under phase 3's
+    bar."""
+    group = q.shape[1] // k.shape[0]
+    ws = pa.decode_workspace(q, k, tables)
+    pa.launch_decode(q, k, v, tables, lens, None, pipelined=False, scales=scales, workspace=ws)
+    got = pa.combine_splits(*ws, group, torch.bfloat16)
+    torch.cuda.synchronize()
+    err = check_close(COMBINE, f"{COMBINE} {label}", got, pa.combine_reference(*ws, group),
+                      torch.bfloat16)
+    ms = time_graph_ms(lambda: pa.combine_splits(*ws, group, torch.bfloat16))
+    plain_ms = time_graph_ms(lambda: pa.combine_reference(*ws, group, torch.bfloat16))
+    batch, n_q, hd = q.shape
+    n_splits = ws[0].shape[2]
+    read = batch * n_q * n_splits  # (row, split) partials of real rows
+    nbytes = read * (hd + 2) * 4 + batch * n_q * hd * 2
+    out = dict(ms=ms, plain_ms=plain_ms, library_ms=None, n_splits=n_splits,
+               rows=ws[0].shape[3], **_bound(nbytes, 2 * read * hd, PEAK_F32_FLOPS),
+               mbytes=nbytes / 1e6, max_abs_err=err)
+    log(f"    {COMBINE} alone ({n_splits} splits): {ms * 1e3:.2f} us, plain "
+        f"{plain_ms * 1e3:.2f} us, bound {out['bound_ms'] * 1e3:.3f} us "
+        f"({nbytes / 1e6:.3f} MB)")
+    return out
 
 
 # Decode timing shapes: (batch, context, table positions). The serving shape
@@ -1250,13 +1379,14 @@ DECODE_SHAPES = {
 
 
 def time_decode(gen, row: str, shape: str, plain: bool = True, n_q: int = N_Q,
-                n_kv: int = N_KV, hd: int = HD) -> dict:
+                n_kv: int = N_KV, hd: int = HD, combine: bool = True) -> dict:
     """Row `row` at a DECODE_SHAPES shape (bf16 q, page 16, n_q query heads
     over n_kv KV heads of hd, by default the flagship's), each call cold in
     L2: kernel, plain version (`plain`), SDPA over pre-gathered K/V of the
     live positions (bf16 pages only; no PyTorch call attends over int8
     pages), and the bound. On the timed inputs the kernel is also held
-    against its plain version (max_abs_err, under phase 3's bar)."""
+    against its plain version (max_abs_err, under phase 3's bar). A tiled
+    row also gives its combine pass alone (`combine`, time_combine)."""
     batch, ctx, table_ctx = DECODE_SHAPES[shape]
     int8 = DECODE_ROWS[row]["int8"]
     q, pages, tables, lens = decode_inputs(gen, torch.bfloat16, batch, [ctx] * batch,
@@ -1288,6 +1418,10 @@ def time_decode(gen, row: str, shape: str, plain: bool = True, n_q: int = N_Q,
     log(f"  {label} page={PAGE}: kernel {kernel_ms:.4f} ms "
         f"({nbytes / kernel_ms / 1e6:.1f} GB/s){plain_txt}, SDPA {lib}, bound "
         f"{out['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB)")
+    if combine and not DECODE_ROWS[row]["pipelined"]:
+        k, v = (pages[0], pages[2]) if int8 else pages
+        out["combine"] = time_combine(q, k, v, tables, lens,
+                                      (pages[1], pages[3]) if int8 else None, label)
     return out
 
 
@@ -1789,7 +1923,7 @@ def batched_decode_check(params, cfg, params32, cfg32, int8: bool, pipelined: bo
     _, logits = llama.decode_step_cache(cfg, params, cache, tokens, tables, lens,
                                         pipelined=pipelined)
     torch.cuda.synchronize()
-    launches = launch_counts()
+    launches, combine_launches = launch_counts(), pa.combine_launches
     _, plain = llama._decode_once(cfg, params, cache, tokens, tables, lens, page_ids,
                                   lens % PAGE, plain=True)
     torch.cuda.synchronize()
@@ -1803,14 +1937,23 @@ def batched_decode_check(params, cfg, params32, cfg32, int8: bool, pipelined: bo
     tol = 2 * err_plain + 1e-2
     row = ("paged_decode_tiled" if not pipelined else "paged_decode") + ("_int8" if int8 else "")
     ok = (bool(torch.isfinite(logits).all()) and logits.shape == (DECODE_BATCH, cfg.vocab_size)
-          and err_kernel <= tol and launches[row] == cfg.n_layers)
+          and err_kernel <= tol and launches[row] == cfg.n_layers
+          and combine_launches == (0 if pipelined else cfg.n_layers))
     log(f"  {label}: kernel vs plain max_abs_err={err:.4e}; vs f32 truth: kernel "
         f"{err_kernel:.4e}, plain {err_plain:.4e} (tol {tol:.4e}); max |logit| "
         f"{float(truth.abs().max()):.4f}; argmax agrees on {agree}/{DECODE_BATCH}; "
-        f"{row} launches {launches[row]} {'ok' if ok else 'FAIL'}")
-    return dict(ok=ok, row=row, launches=launches[row], max_abs_err=err,
+        f"{row} launches {launches[row]}, {COMBINE} {combine_launches} "
+        f"{'ok' if ok else 'FAIL'}")
+    return dict(ok=ok, row=row, launches=launches[row], combine_launches=combine_launches,
+                max_abs_err=err,
                 err_kernel_vs_f32=err_kernel, err_plain_vs_f32=err_plain,
                 argmax_agree=agree, cache=cache, inputs=(tokens, tables, lens))
+
+
+def combine_launches(checks: dict) -> int:
+    """The combine's launches over a phase's logits checks (its tiled rows'
+    batched_decode_check results)."""
+    return sum(r.get("combine_launches", 0) for r in checks.values())
 
 
 def multi_step_check(params, cfg, int8: bool, n_steps: int = 8) -> bool:
@@ -5017,6 +5160,7 @@ def phase_qwen() -> dict:
         + sum(out[m]["logits"][row]["launches"] for m in QWEN_HF
               if row in out[m]["logits"])
         for row in KERNELS}
+    out["launches"][COMBINE] = sum(combine_launches(out[m]["logits"]) for m in QWEN_HF)
     log(f"  phase 13 launches: {out['launches']}")
     return out
 
@@ -5188,6 +5332,7 @@ def model_phase(phase: str, model: str, cfg, params, seed: int) -> dict:
               for fmt, _, steps in MODEL_RUNS)
         + (out["logits"][row]["launches"] if row in out["logits"] else 0)
         for row in KERNELS}
+    out["launches"][COMBINE] = combine_launches(out["logits"])
     out["seconds"] = time.perf_counter() - t0
     log(f"  phase {phase} launches: {out['launches']}; took {out['seconds']:.1f} s")
     return out
@@ -8643,8 +8788,8 @@ def main(argv=None) -> int:
     # pods and 13c's scheduler runs, both models) and on the read plane's
     # (phase 14b's four pods, its three runs; bf16 pages); rows 1 and 5 also on
     # the fleet's resilience plane (phase 15a's pods, its three arms); rows 3 and 4 (the tiled
-    # decode entry) on phase 6's, phase 11b's and phase 13b's tiled decode
-    # steps.
+    # decode entry) and their combine pass on phase 6's, phase 11b's and
+    # phase 13b's tiled decode steps.
     runs = [sched[f"{fmt} steps{steps}"] for fmt, _, steps in FLAGSHIP_RUNS]
     by_path = {name: {"serving": serving["launches"][name],
                       "scheduler": sum(r["launches"][name] for r in runs),
@@ -8683,6 +8828,13 @@ def main(argv=None) -> int:
         by_path[row] = {"batched_decode": batched["checks"][row]["launches"],
                         "moe_batched_decode": moe["logits"][row]["launches"],
                         "qwen_batched_decode": qwen["launches"][row]}
+    # The combine pass of rows 3 and 4 on the same tiled decode steps, both
+    # page formats together.
+    by_path[COMBINE] = {"batched_decode": combine_launches(batched["checks"]),
+                        "moe_batched_decode": combine_launches(moe["logits"]),
+                        "qwen_batched_decode": qwen["launches"][COMBINE],
+                        "openllama": openllama["launches"][COMBINE],
+                        "wide_heads": wide_heads["launches"][COMBINE]}
     # Phase 20's model (head_dim 100) and phase 21's (head_dim 512): rows 1,
     # 2 and 5 on their a pods and c scheduler runs, rows 3 and 4 on their b
     # tiled decode steps.
@@ -8704,6 +8856,18 @@ def main(argv=None) -> int:
         )
         for name in KERNELS
     ]
+    # The combine alone at the main path's shape (row 3's workspace, batch 8
+    # x 2,048, the flagship's heads): phase 4's reading.
+    kernels.append(dict(
+        name=COMBINE, route="cuda",
+        source="llm_d_kv_cache_manager_tpu_torch/csrc/paged_decode_combine.cuh",
+        sources=[f"llm_d_kv_cache_manager_tpu_torch/csrc/{src}" for src in (
+            "paged_decode_combine.cuh", "paged_decode_tiled.cu", "paged_decode_wide.cu")],
+        replaces=REPLACES[COMBINE], launches=next(iter(by_path[COMBINE].values())),
+        launches_by_path=by_path[COMBINE], max_abs_err=errs[COMBINE],
+        **{k: times["paged_decode_tiled"]["combine"][k] for k in
+           ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    ))
     log(json.dumps({"decode_shapes": decode_times,
                     "prefill_serving_shape": prefill_serving, "verify_shape": verify_time,
                     "serving": serving, "prefill_logits": prefill_logits,

@@ -24,12 +24,14 @@
 // ceil(seq_len / page_size), so padding slots of the table are never read)
 // and writes the GQA group's (m, l, acc) unnormalized to an f32 workspace
 // (one tensor, m, l and acc its views). A split with no live page writes
-// m = -inf, l = 0. The combine kernel, one CTA per (sequence, kv head),
-// rescales each split by exp(m_s - M), skips empty splits, normalizes and
-// writes zeros for an all-empty row. The split count comes from the shapes
-// alone (ops/paged_attention.py: `decode_plan` for bf16 q, which also sizes
-// paged_decode.cu's clusters; `old_body_splits` for f32 q). No atomics: the
-// result is deterministic.
+// m = -inf, l = 0. The combine pass (paged_decode_combine.cuh, a CTA per
+// query row and column block, the splits reduced in parallel) rescales
+// each split by exp(m_s - M), skips empty splits, normalizes and writes
+// zeros for an all-empty row; `kvt_paged_decode_combine` runs it alone on
+// a given workspace. The split count comes from the shapes alone
+// (ops/paged_attention.py: `decode_plan` for bf16 q, which also sizes
+// paged_decode.cu's clusters; `old_body_splits` for f32 q). No atomics:
+// the result is deterministic.
 //
 // bf16 q, on bf16 or int8 pages, runs the body of paged_decode_sm90.cuh: the
 // first port's split over the body of paged_decode_common.cuh had CTAs enough
@@ -50,6 +52,7 @@
 // workspace holds rows_of(group, head_dim) rows per (sequence, kv head,
 // chunk, split).
 
+#include "paged_decode_combine.cuh"
 #include "paged_decode_common.cuh"
 #include "paged_decode_sm90.cuh"
 
@@ -145,43 +148,6 @@ __global__ void __launch_bounds__(sm90::kThreads, HD > 128 ? 1 : 2) split_decode
   }
 }
 
-// Second pass: merge the splits of one (sequence, kv head, chunk) and
-// normalize. One thread a column of the padded width; those from hd on idle.
-// The workspace holds `rows` (rows_of) rows a chunk. ROWS > 0 (after a bulk
-// split pass): hd == HD and rows == ROWS at compile time; 0: both at run
-// time.
-template <typename TQ, int HD, int ROWS>
-__global__ void __launch_bounds__(HD) combine_kernel(
-    const float* __restrict__ m_ws, const float* __restrict__ l_ws,
-    const float* __restrict__ acc_ws, TQ* __restrict__ out, int n_q, int group,
-    int n_splits, int head_dim, int group_rows) {
-  const int hd = ROWS ? HD : head_dim;
-  const int rows = ROWS ? ROWS : group_rows;
-  const int b = blockIdx.x;
-  const ChunkRows c = chunk_rows(blockIdx.y, group, rows);
-  const int tid = threadIdx.x;
-  if (tid >= hd) return;
-  const size_t part0 = (static_cast<size_t>(b) * gridDim.y + blockIdx.y) * n_splits;
-  for (int g = 0; g < c.n_rows; ++g) {
-    float m_max = -INFINITY;
-    for (int s = 0; s < n_splits; ++s) {
-      m_max = fmaxf(m_max, m_ws[(part0 + s) * rows + g]);
-    }
-    float l = 0.f, o = 0.f;
-    if (m_max != -INFINITY) {
-      for (int s = 0; s < n_splits; ++s) {
-        const float m = m_ws[(part0 + s) * rows + g];
-        if (m == -INFINITY) continue;  // a split with no live position
-        const float w = expf(m - m_max);
-        l += w * l_ws[(part0 + s) * rows + g];
-        o += w * acc_ws[((part0 + s) * rows + g) * hd + tid];
-      }
-    }
-    out[(static_cast<size_t>(b) * n_q + c.row0 + g) * hd + tid] =
-        from_f<TQ>(l == 0.f ? 0.f : o / l);
-  }
-}
-
 struct Args {
   const void* q;
   const void* k;
@@ -204,13 +170,12 @@ dim3 split_grid(const Args& a) {
   return dim3(a.batch, a.n_kv * n_chunks_of(a.group, a.head_dim), a.n_splits);
 }
 
-template <typename TQ, int HD, int ROWS>
-cudaError_t combine(const Args& a) {
-  combine_kernel<TQ, HD, ROWS><<<dim3(a.batch, a.n_kv * n_chunks_of(a.group, a.head_dim)), HD,
-                                 0, a.stream>>>(
-      a.m_ws, a.l_ws, a.acc_ws, static_cast<TQ*>(a.out), a.n_q, a.group, a.n_splits,
-      a.head_dim, rows_of(a.group, a.head_dim));
-  return cudaGetLastError();
+// The combine pass of a tiled launch (paged_decode_combine.cuh).
+template <typename TQ>
+cudaError_t combine_splits(const Args& a) {
+  return combine::launch(a.m_ws, a.l_ws, a.acc_ws, static_cast<TQ*>(a.out), a.batch, a.n_q,
+                         a.group, a.n_splits, a.head_dim, rows_of(a.group, a.head_dim),
+                         a.stream);
 }
 
 // f32 q: the body of paged_decode_common.cuh, built at ROWS = max_rows_of(HD)
@@ -229,7 +194,7 @@ cudaError_t launch(const Args& a) {
       a.scale, a.head_dim, rows_of(a.group, a.head_dim));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return combine<TQ, HD, 0>(a);
+  return combine_splits<TQ>(a);
 }
 
 // bf16 q: the body of paged_decode_sm90.cuh.
@@ -247,7 +212,7 @@ cudaError_t launch_sm90(const Args& a) {
       a.head_dim, rows_of(a.group, a.head_dim));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return combine<__nv_bfloat16, HD, BULK ? ROWS : 0>(a);
+  return combine_splits<__nv_bfloat16>(a);
 }
 
 template <typename TQ, typename TKV>
@@ -304,6 +269,37 @@ extern "C" int kvt_paged_decode_tiled(
     err = kv_int8 ? dispatch_sm90<int8_t>(a) : dispatch_sm90<__nv_bfloat16>(a);
   } else if (dtype == 0) {
     err = kv_int8 ? dispatch<float, int8_t>(a) : dispatch<float, float>(a);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// The combine pass alone (paged_decode_combine.cuh) on a workspace of the
+// tiled entry points' layout: m_ws and l_ws [batch, n_kv * chunks,
+// n_splits, rows] f32 and acc_ws [batch, n_kv * chunks, n_splits, rows,
+// head_dim] f32, where rows is what a chunk of the body that wrote it
+// holds (rows_of(n_q / n_kv, head_dim), or hw::rows where
+// paged_decode_wide.cu's Hopper body ran) and chunks = ceil((n_q / n_kv) /
+// rows); out [batch, n_q, head_dim], dtype 0 = f32, 1 = bf16. Any head_dim,
+// n_splits up to 4,096. Returns the launch's cudaError_t.
+extern "C" int kvt_paged_decode_combine(const void* m_ws, const void* l_ws, const void* acc_ws,
+                                        void* out, int batch, int n_q, int n_kv, int head_dim,
+                                        int n_splits, int rows, int dtype, void* stream) {
+  if (batch < 1 || n_kv <= 0 || n_q % n_kv != 0 || n_q / n_kv < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* m = static_cast<const float*>(m_ws);
+  const auto* l = static_cast<const float*>(l_ws);
+  const auto* acc = static_cast<const float*>(acc_ws);
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 1) {
+    err = combine::launch(m, l, acc, static_cast<__nv_bfloat16*>(out), batch, n_q, n_q / n_kv,
+                          n_splits, head_dim, rows, s);
+  } else if (dtype == 0) {
+    err = combine::launch(m, l, acc, static_cast<float*>(out), batch, n_q, n_q / n_kv, n_splits,
+                          head_dim, rows, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -55,7 +55,8 @@
 //  - Splits: the pipelined kernel's cluster (up to 16 CTAs, the
 //    non-portable size, so that batch 1 spreads over the card) merges the
 //    ranks' partials through distributed shared memory; the tiled kernel
-//    writes each split's partial to the workspace for combine_wide_kernel.
+//    writes each split's partial to the workspace for the combine pass
+//    (paged_decode_combine.cuh, which paged_decode_tiled.cu runs too).
 //    A CTA of ~200 KB of shared memory fills an SM, and clusters that the
 //    card cannot hold at once run in a second wave (at batch 8, 16 clusters
 //    of 8 do on an H100), so ops/paged_attention.py takes the largest
@@ -94,6 +95,7 @@
 #include <atomic>
 #include <type_traits>
 
+#include "paged_decode_combine.cuh"  // combine::launch, the split-KV second pass
 #include "paged_decode_common.cuh"  // to_f, from_f, cp_async_*, ChunkRows, rows_of
 #include "paged_decode_sm90.cuh"    // sm90::set_attributes
 #include "row_copy.cuh"             // kPanel, n_panels, row_piece, with_piece, copy_piece
@@ -896,7 +898,7 @@ __global__ void __launch_bounds__((hw::Smem<TKV, KC, ROWS>::kThreads), 1) paged_
 // Split-KV, first pass, on the Hopper body: the partial of one (sequence,
 // kv head, chunk) over one split of its pages, every column, into the
 // workspace of split_decode_wide_kernel (m in the natural-log domain, as
-// combine_wide_kernel takes it).
+// the combine pass takes it).
 template <typename TKV, int KC, int ROWS>
 __global__ void __launch_bounds__((hw::Smem<TKV, KC, ROWS>::kThreads), 1) split_decode_hw_kernel(
     const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k_pages,
@@ -934,36 +936,6 @@ __global__ void __launch_bounds__((hw::Smem<TKV, KC, ROWS>::kThreads), 1) split_
     const float m = part[ROWS * W + threadIdx.x];
     m_ws[slot * rows + threadIdx.x] = m == -INFINITY ? m : m * sm90::kLn2;
     l_ws[slot * rows + threadIdx.x] = part[ROWS * W + ROWS + threadIdx.x];
-  }
-}
-
-// Split-KV, second pass: merge the splits of one (sequence, kv head, chunk)
-// and normalize, a thread per column, 256 columns apart.
-template <typename TQ>
-__global__ void __launch_bounds__(wide::kThreads) combine_wide_kernel(
-    const float* __restrict__ m_ws, const float* __restrict__ l_ws,
-    const float* __restrict__ acc_ws, TQ* __restrict__ out, int n_q, int group, int n_splits,
-    int hd, int rows) {
-  const int b = blockIdx.x;
-  const ChunkRows c = chunk_rows(blockIdx.y, group, rows);
-  const size_t part0 = (static_cast<size_t>(b) * gridDim.y + blockIdx.y) * n_splits;
-  for (int g = 0; g < c.n_rows; ++g) {
-    float m_max = -INFINITY;
-    for (int s = 0; s < n_splits; ++s) m_max = fmaxf(m_max, m_ws[(part0 + s) * rows + g]);
-    for (int col = threadIdx.x; col < hd; col += blockDim.x) {
-      float l = 0.f, o = 0.f;
-      if (m_max != -INFINITY) {
-        for (int s = 0; s < n_splits; ++s) {
-          const float m = m_ws[(part0 + s) * rows + g];
-          if (m == -INFINITY) continue;  // a split with no live position
-          const float w = expf(m - m_max);
-          l += w * l_ws[(part0 + s) * rows + g];
-          o += w * acc_ws[((part0 + s) * rows + g) * hd + col];
-        }
-      }
-      out[(static_cast<size_t>(b) * n_q + c.row0 + g) * hd + col] =
-          from_f<TQ>(l == 0.f ? 0.f : o / l);
-    }
   }
 }
 
@@ -1031,10 +1003,8 @@ cudaError_t launch_tiled(const Args& a) {
       a.table_width, a.window, a.scale, a.head_dim, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  combine_wide_kernel<TQ><<<dim3(a.batch, chunks), wide::kThreads, 0, a.stream>>>(
-      a.m_ws, a.l_ws, a.acc_ws, static_cast<TQ*>(a.out), a.n_q, a.group, a.n_splits,
-      a.head_dim, rows);
-  return cudaGetLastError();
+  return combine::launch(a.m_ws, a.l_ws, a.acc_ws, static_cast<TQ*>(a.out), a.batch, a.n_q,
+                         a.group, a.n_splits, a.head_dim, rows, a.stream);
 }
 
 // The Hopper body's attributes, once per device and instantiation (as
@@ -1100,10 +1070,8 @@ cudaError_t launch_hw_tiled(const Args& a) {
       a.head_dim, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  combine_wide_kernel<__nv_bfloat16><<<dim3(a.batch, chunks), wide::kThreads, 0, a.stream>>>(
-      a.m_ws, a.l_ws, a.acc_ws, static_cast<__nv_bfloat16*>(a.out), a.n_q, a.group, a.n_splits,
-      a.head_dim, rows);
-  return cudaGetLastError();
+  return combine::launch(a.m_ws, a.l_ws, a.acc_ws, static_cast<__nv_bfloat16*>(a.out), a.batch,
+                         a.n_q, a.group, a.n_splits, a.head_dim, rows, a.stream);
 }
 
 // Clusters of `cluster` CTAs of the pipelined Hopper-body kernel that the

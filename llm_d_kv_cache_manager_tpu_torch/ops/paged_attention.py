@@ -25,6 +25,12 @@ events the control plane ingests.
   column; for f32 q, and bf16 q above 1,024, column slabs of 256, the
   scores summed over panels of 256; the pools' rows unpadded) and any GQA
   group, in bf16 and f32 q, on pages of q's dtype and on int8 pages.
+- The tiled kernel's second pass on its own: `decode_workspace` (the f32
+  workspace of m, l and acc that its split pass writes), `combine_splits`
+  (on CUDA tensors the combine kernel, `kvt_paged_decode_combine` in
+  `csrc/paged_decode_tiled.cu` over `csrc/paged_decode_combine.cuh`; on CPU
+  tensors its plain version `combine_reference`) and
+  `split_partials_reference`, the split pass's plain version.
 - `write_kv_pages`: scatter of new K/V rows into their pages.
 """
 
@@ -32,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -39,6 +46,9 @@ import torch
 # Kernel launches, counted by the wrappers (CUDA path only).
 launches = 0  # csrc/paged_decode.cu, bf16/f32 pages
 tiled_launches = 0  # csrc/paged_decode_tiled.cu, bf16/f32 pages
+# The combine pass (csrc/paged_decode_combine.cuh): one a tiled launch on
+# either page format (launch_decode), and one a combine_splits call.
+combine_launches = 0
 
 _MAX_ROWS = 8  # query heads one decode CTA holds (csrc/paged_decode_common.cuh)
 _PANEL = 256  # the widest built head_dim, and a wider head's slab (csrc/row_copy.cuh)
@@ -106,6 +116,8 @@ _ARGTYPES["kvt_paged_decode_wide"] = _ARGTYPES["kvt_paged_decode"]
 _ARGTYPES["kvt_paged_decode_wide_tiled"] = _ARGTYPES["kvt_paged_decode_tiled"]
 # head_dim, group, kv_int8, cluster -> clusters resident at once
 _ARGTYPES["kvt_paged_decode_wide_resident"] = [_I] * 4
+# m, l, acc, out, batch, n_q, n_kv, head_dim, n_splits, rows, dtype, stream
+_ARGTYPES["kvt_paged_decode_combine"] = [_P] * 4 + [_I] * 7 + [_P]
 
 _STAGE_TOKENS = 64  # tokens per ring stage of either decode kernel, on both page formats
 _MAX_CLUSTER = 8  # the portable cluster size: every Hopper launch may ask for it
@@ -287,13 +299,69 @@ def _resident(device: torch.device, head_dim: int, group: int, int8: bool) -> di
     return counts
 
 
+def workspace_shape(q, k_pages, block_tables) -> tuple:
+    """(batch, n_kv * n_chunks, n_splits, rows): the shape of m and l in the
+    tiled kernel's workspace for these inputs on their card (acc adds
+    head_dim). Its n_splits is `_plan`'s, which no residency changes."""
+    n_kv, _, page_size, head_dim = k_pages.shape
+    batch, n_q, _ = q.shape
+    group = _check_grouping(n_q, n_kv)
+    _, n_splits = _plan(_sm_count(q.device), q.dtype, batch, n_kv, block_tables.shape[1],
+                        page_size, group, head_dim)
+    n_chunks, rows = group_chunks(group, head_dim, q.dtype == torch.bfloat16)
+    return batch, n_kv * n_chunks, n_splits, rows
+
+
+def _new_workspace(shape: tuple, head_dim: int, device) -> tuple:
+    n = math.prod(shape)
+    ws = torch.empty(n * (head_dim + 2), dtype=torch.float32, device=device)
+    return (ws[n * head_dim:n * (head_dim + 1)].view(shape),
+            ws[n * (head_dim + 1):].view(shape), ws[:n * head_dim].view(*shape, head_dim))
+
+
+def decode_workspace(q, k_pages, block_tables) -> tuple:
+    """(m, l, acc): the tiled kernel's f32 workspace for these inputs, m and
+    l `workspace_shape(...)`, acc that and head_dim; views of one
+    allocation, acc first so that its rows start 16-byte aligned."""
+    return _new_workspace(workspace_shape(q, k_pages, block_tables), k_pages.shape[3],
+                          q.device)
+
+
+def _check_workspace(m_ws, l_ws, acc_ws) -> None:
+    """Raise on what the combine kernel does not take."""
+    if acc_ws.dim() != 5 or m_ws.shape != acc_ws.shape[:4] or l_ws.shape != m_ws.shape:
+        raise ValueError(
+            f"workspace: m and l [batch, pairs, n_splits, rows], acc [..., head_dim]; got "
+            f"{tuple(m_ws.shape)}, {tuple(l_ws.shape)}, {tuple(acc_ws.shape)}"
+        )
+    tensors = (m_ws, l_ws, acc_ws)
+    if any(t.dtype != torch.float32 or not t.is_contiguous() for t in tensors):
+        raise TypeError("workspace tensors must be contiguous f32")
+    if any(t.device != acc_ws.device for t in tensors):
+        raise ValueError("workspace tensors must be on one device")
+
+
 def launch_decode(q, k_pages, v_pages, block_tables, seq_lens, window, *,
-                  pipelined: bool, scales=None) -> torch.Tensor:
+                  pipelined: bool, scales=None, workspace=None) -> torch.Tensor:
     """Launch `csrc/paged_decode.cu` (pipelined) or
     `csrc/paged_decode_tiled.cu` on CUDA tensors, above head_dim 256 the
     same variant of `csrc/paged_decode_wide.cu`; `scales` = (k_scale,
-    v_scale) for int8 pages. Counting the launch is the caller's."""
+    v_scale) for int8 pages. The tiled kernel writes its partials to
+    `workspace` ((m, l, acc) of `workspace_shape`; by default a new
+    `decode_workspace`). Counting the launch is the caller's; the combine
+    pass of a tiled launch is counted here (`combine_launches`)."""
+    global combine_launches
     _check_kernel_args(q, k_pages, v_pages, block_tables, seq_lens, scales)
+    if not pipelined:
+        shape = workspace_shape(q, k_pages, block_tables)
+        if workspace is None:
+            workspace = _new_workspace(shape, k_pages.shape[3], q.device)
+        _check_workspace(*workspace)
+        m_ws, l_ws, acc_ws = workspace
+        if m_ws.shape != shape or acc_ws.shape[4] != k_pages.shape[3] or (
+                acc_ws.device != q.device):
+            raise ValueError(f"workspace {tuple(acc_ws.shape)} on {acc_ws.device}: these "
+                             f"inputs take {shape + (k_pages.shape[3],)} on {q.device}")
     n_kv, n_pages, page_size, head_dim = k_pages.shape
     batch, n_q, _ = q.shape
     table_width = block_tables.shape[1]
@@ -308,35 +376,31 @@ def launch_decode(q, k_pages, v_pages, block_tables, seq_lens, window, *,
         1.0 / (head_dim**0.5), _DTYPE_CODE[q.dtype], int(scales is not None),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    group = n_q // n_kv
-    resident = None
-    if q.dtype == torch.bfloat16 and _PANEL < head_dim <= _HOPPER_WIDE:
-        resident = _resident(q.device, head_dim, group, scales is not None)
-    cluster, n_splits = _plan(_sm_count(q.device), q.dtype, batch, n_kv, table_width,
-                              page_size, group, head_dim, resident)
     name = "paged_decode" if pipelined else "paged_decode_tiled"
     fn_name = "kvt_" + name
     if head_dim > _PANEL:  # both variants in one source, built apart
         name, fn_name = "paged_decode_wide", fn_name.replace("decode", "decode_wide")
     if pipelined:
+        group = n_q // n_kv
+        resident = None
+        if q.dtype == torch.bfloat16 and _PANEL < head_dim <= _HOPPER_WIDE:
+            resident = _resident(q.device, head_dim, group, scales is not None)
+        cluster, _ = _plan(_sm_count(q.device), q.dtype, batch, n_kv, table_width,
+                           page_size, group, head_dim, resident)
         err = _kernel_fn(name, fn_name)(
             *common, _ptr(out), batch, n_q, n_kv, n_pages, page_size, head_dim,
             table_width, window_arg, cluster, *tail,
         )
     else:
-        # One f32 workspace: m and l [batch, n_kv * n_chunks, n_splits, rows],
-        # then acc [..., rows, head_dim] (group_chunks).
-        n_chunks, rows = group_chunks(group, head_dim, q.dtype == torch.bfloat16)
-        n = batch * n_kv * n_chunks * n_splits * rows
-        ws = torch.empty(n * (head_dim + 2), dtype=torch.float32, device=q.device)
-        m_ws, l_ws, acc_ws = ws[:n], ws[n:2 * n], ws[2 * n:]
         err = _kernel_fn(name, fn_name)(
             *common, _ptr(m_ws), _ptr(l_ws), _ptr(acc_ws), _ptr(out), batch, n_q,
             n_kv, n_pages, page_size, head_dim, table_width, window_arg,
-            n_splits, *tail,
+            shape[2], *tail,
         )
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    if not pipelined:
+        combine_launches += 1
     return out
 
 
@@ -369,6 +433,122 @@ def paged_attention(
     return paged_attention_reference(
         q, k_pages, v_pages, block_tables, seq_lens, window=window
     )
+
+
+def split_partials_reference(q, k_pages, v_pages, block_tables, seq_lens, n_splits: int,
+                             window: Optional[int] = None, bf16_q: Optional[bool] = None):
+    """The tiled kernel's split pass, plainly, in f32: for each (sequence,
+    kv head, group chunk) and split s, the unnormalized softmax state over
+    the split's pages, as the kernel writes its workspace. The live pages
+    are [first_page, n_seq_pages): first_page the window's first page (else
+    0), n_seq_pages = ceil(min(seq_len, table positions) / page_size); split
+    s takes `per_split` = ceil((n_seq_pages - first_page) / n_splits) of
+    them from first_page + s * per_split on, clipped to n_seq_pages, and
+    attends its positions below seq_len and, windowed, at or past seq_len -
+    window. m is the largest score (natural log, scale 1/sqrt(head_dim)), l
+    = sum exp(score - m), acc = sum exp(score - m) v; a split with no live
+    position (and a spare row of the last chunk) m = -inf, l = 0, acc = 0.
+    Rows a chunk as `group_chunks(group, head_dim, bf16_q)`, bf16_q by
+    default q's dtype. Returns (m, l, acc): [batch, n_kv * n_chunks,
+    n_splits, rows] and [..., rows, head_dim]."""
+    n_kv, _, page_size, head_dim = k_pages.shape
+    batch, n_q, _ = q.shape
+    group = _check_grouping(n_q, n_kv)
+    if bf16_q is None:
+        bf16_q = q.dtype == torch.bfloat16
+    n_chunks, rows = group_chunks(group, head_dim, bf16_q)
+    width = block_tables.shape[1]
+    tables = block_tables.long()
+    k = k_pages[:, tables].movedim(1, 0).reshape(batch, n_kv, -1, head_dim).float()
+    v = v_pages[:, tables].movedim(1, 0).reshape(batch, n_kv, -1, head_dim).float()
+    qg = q.reshape(batch, n_kv, group, head_dim).float()
+    scores = torch.einsum("bhgd,bhld->bhgl", qg, k) / math.sqrt(head_dim)
+
+    lens = seq_lens.long().to(q.device)
+    kv_len = lens.clamp(max=width * page_size)
+    if window is None:
+        first_page, win_lo = torch.zeros_like(lens), torch.zeros_like(lens)
+    else:
+        first_page, win_lo = (lens - window).clamp(min=0) // page_size, lens - window
+    n_seq_pages = (kv_len + page_size - 1) // page_size
+    per_split = ((n_seq_pages - first_page).clamp(min=0) + n_splits - 1) // n_splits
+    pos = torch.arange(width * page_size, device=q.device)
+    page = pos // page_size
+    live = (pos < kv_len[:, None]) & (pos >= win_lo[:, None]) & (page >= first_page[:, None])
+    split_of = (page - first_page[:, None]) // per_split.clamp(min=1)[:, None]
+    ms, ls, accs = [], [], []
+    for s in range(n_splits):
+        mask = (live & (split_of == s))[:, None, None, :]
+        sc = scores.masked_fill(~mask, float("-inf"))
+        m = sc.amax(dim=-1)
+        p = torch.exp(sc - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhgl,bhld->bhgd", p, v))
+
+    def by_chunk(parts, fill):  # [batch, n_kv, group, S(, hd)] -> workspace layout
+        x = torch.stack(parts, dim=3)
+        pad = n_chunks * rows - group
+        if pad:
+            x = torch.cat([x, x.new_full((batch, n_kv, pad, *x.shape[3:]), fill)], dim=2)
+        x = x.reshape(batch, n_kv, n_chunks, rows, *x.shape[3:]).transpose(3, 4)
+        return x.reshape(batch, n_kv * n_chunks, n_splits, rows, *x.shape[5:]).contiguous()
+
+    return by_chunk(ms, float("-inf")), by_chunk(ls, 0.0), by_chunk(accs, 0.0)
+
+
+def combine_reference(m_ws, l_ws, acc_ws, group: int,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The combine pass, plainly, in f32: for each query row of a workspace
+    of the tiled kernel's layout ((m, l) [batch, n_kv * n_chunks, n_splits,
+    rows], acc [..., head_dim], n_chunks = ceil(group / rows)), M = the
+    largest m over the splits, w_s = exp(m_s - M) (0 for a split with m =
+    -inf), out = sum w_s acc_s / sum w_s l_s; a row whose splits are all
+    empty gives zeros. Returns [batch, n_q, head_dim] in `dtype`."""
+    batch, pairs, _, rows, head_dim = acc_ws.shape
+    n_chunks = -(-group // rows)
+    n_kv = pairs // n_chunks
+    if n_kv * n_chunks != pairs:
+        raise ValueError(f"{pairs} workspace pairs are no whole number of kv heads of "
+                         f"{n_chunks} chunks")
+    m, l, acc = m_ws.float(), l_ws.float(), acc_ws.float()
+    empty = m == float("-inf")
+    m_max = m.amax(dim=2, keepdim=True)
+    w = torch.where(empty, 0.0, torch.exp(m - torch.where(torch.isinf(m_max), 0.0, m_max)))
+    total = (w * l).sum(dim=2)
+    o = (w[..., None] * torch.where(empty[..., None], 0.0, acc)).sum(dim=2)
+    out = torch.where(total[..., None] > 0, o / total[..., None], 0.0)
+    out = out.reshape(batch, n_kv, n_chunks * rows, head_dim)[:, :, :group]
+    return out.reshape(batch, n_kv * group, head_dim).to(dtype)
+
+
+def combine_splits(m_ws, l_ws, acc_ws, group: int,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The tiled kernel's second pass on its own: on CUDA tensors the
+    combine kernel (`kvt_paged_decode_combine`, csrc/paged_decode_tiled.cu),
+    on CPU tensors `combine_reference`. `dtype`: the output's, f32 or bf16.
+    Returns [batch, n_q, head_dim]."""
+    global combine_launches
+    _check_workspace(m_ws, l_ws, acc_ws)
+    if not acc_ws.is_cuda:
+        return combine_reference(m_ws, l_ws, acc_ws, group, dtype)
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"the combine kernel writes bf16 or f32, not {dtype}")
+    batch, pairs, n_splits, rows, head_dim = acc_ws.shape
+    n_chunks = -(-group // rows)
+    n_kv = pairs // n_chunks
+    if n_kv * n_chunks != pairs or rows > group:
+        raise ValueError(f"a workspace of {pairs} pairs of {rows} rows does not hold group "
+                         f"{group}")
+    out = torch.empty(batch, n_kv * group, head_dim, dtype=dtype, device=acc_ws.device)
+    err = _kernel_fn("paged_decode_tiled", "kvt_paged_decode_combine")(
+        _ptr(m_ws), _ptr(l_ws), _ptr(acc_ws), _ptr(out), batch, n_kv * group, n_kv, head_dim,
+        n_splits, rows, _DTYPE_CODE[dtype], torch.cuda.current_stream(acc_ws.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"paged_decode_combine kernel launch failed: CUDA error {err}")
+    combine_launches += 1
+    return out
 
 
 def write_kv_pages(

@@ -447,7 +447,8 @@ def _c_signatures() -> dict:
 @pytest.mark.parametrize("fn_name", ["kvt_flash_prefill", "kvt_paged_decode",
                                      "kvt_paged_decode_tiled", "kvt_paged_decode_wide",
                                      "kvt_paged_decode_wide_tiled",
-                                     "kvt_paged_decode_wide_resident"])
+                                     "kvt_paged_decode_wide_resident",
+                                     "kvt_paged_decode_combine"])
 def test_ctypes_argtypes_match_c_signatures(fn_name):
     """A ctypes argument list that disagrees with the C entry point cuts
     pointers or shifts arguments silently on the card."""
@@ -618,6 +619,16 @@ def test_fault_check_mutants_name_one_source_line_each():
         assert text.count(old) == 1, name
         assert new != old and dtype in ("bf16", "f32"), name
         assert all((_CSRC / f"{source}.cu").exists() for source in sources), name
+
+
+def test_fault_check_drops_a_layer_the_flagship_has():
+    """The planted train-step fault zeroes one layer's gradients: that layer
+    must exist at the depth chip_smoke.py serves the flagship at (a layer
+    past it raised IndexError in the fault check's training bar)."""
+    import chip_fault_check
+    import chip_smoke
+
+    assert 0 <= chip_fault_check.DROPPED_LAYER < chip_smoke.FLAGSHIP["n_layers"]
 
 
 # (batch, L) of the wide flash plans: the serving chunk (L = 512), a 2,048-
