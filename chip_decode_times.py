@@ -10,9 +10,10 @@
                                                       # up to head_dim 256, this tree's
                                                       # against DIR's, function by function
     python3 chip_decode_times.py --readings narrow_flash,beyond  # some readings only
+    python3 chip_decode_times.py --readings f32       # the f32-q decode and flash
     python3 chip_decode_times.py --build-only         # build, to time later
 
-Eight readings (all by default):
+Nine readings (all by default):
   - kernels: the four decode rows at the three decode shapes (batch 8 x
     2,048, the serving shape batch 1 x 1,536 over a 128-page table, batch 1 x
     4,096), each call cold in L2 and graph-timed, with SDPA over pre-gathered
@@ -43,7 +44,15 @@ Eight readings (all by default):
     flagship's three, each tiled row's call split into its two launches by
     torch.profiler over 20 warm calls: the split pass and the combine pass
     (the kernel whose name holds "combine"), device microseconds per call.
-    It reads any tree's package alike, the combine inside the tiled entry.
+    It reads any tree's package alike, the combine inside the tiled entry;
+  - f32: the four decode rows with f32 q, on f32 pages (rows 1 and 3) and
+    on int8 pages (rows 2 and 4), at the three decode shapes of the
+    flagship's heads, at Qwen2.5-7B's and -0.5B's heads at batch 8 x 2,048
+    and the serving shape, and at OpenLLaMA-3B's at batch 8 (`F32_TIMED`),
+    cold in L2 and graph-timed: kernel, plain version, SDPA over the K/V
+    gathered in f32 (the backend named), and the bound; then row 5 in f32
+    at a 2,048-token chunk and the serving chunk (kernel, plain, SDPA, the
+    bound at the card's f32 rate outside the tensor cores).
 
 The kernels of the timed package are built into this checkout's
 llm_d_kv_cache_manager_tpu_torch/build/ (another tree's into
@@ -228,7 +237,41 @@ def time_combine(smoke, gen) -> dict:
     return out
 
 
-READINGS = ("kernels", "flash", "wide", "host", "steps", "narrow_flash", "beyond", "combine")
+# The f32 reading's attention shapes (chip_smoke.py's QWEN_SHAPES and
+# WIDE_SHAPES beside the flagship's) and the decode shapes each is timed at.
+F32_TIMED = {
+    "flagship": ("B=8 ctx=2048", "B=1 ctx=1536 table=2048", "B=1 ctx=4096"),
+    "qwen2.5-7b": ("B=8 ctx=2048", "B=1 ctx=1536 table=2048"),
+    "qwen2.5-0.5b": ("B=8 ctx=2048", "B=1 ctx=1536 table=2048"),
+    "openllama-3b": ("B=8 ctx=2048",),
+}
+F32_KEYS = ("ms", "plain_ms", "library_ms", "library_backend", "bound_ms", "mbytes",
+            "max_abs_err")
+
+
+def time_f32(smoke, gen) -> dict:
+    """The f32 reading (see the module's docstring)."""
+    import torch
+
+    shapes = {"flagship": (smoke.N_Q, smoke.N_KV, smoke.HD), **smoke.QWEN_SHAPES,
+              **smoke.WIDE_SHAPES}
+    out = {}
+    for model, dshapes in F32_TIMED.items():
+        n_q, n_kv, hd = shapes[model]
+        for dshape in dshapes:
+            rows = out[f"{model} {dshape}"] = {}
+            for row in smoke.DECODE_ROWS:
+                t = smoke.time_decode(gen, row, dshape, n_q=n_q, n_kv=n_kv, hd=hd, combine=False,
+                                      dtype=torch.float32)
+                rows[row] = {k: t[k] for k in F32_KEYS}
+    for name, shape in (("L=S=2048", (2048, 2048, 0)), ("serving", smoke.PREFILL_SERVING_SHAPE)):
+        t = smoke.time_prefill(gen, *shape, dtype=torch.float32)
+        out[f"flash_prefill {name}"] = {k: t[k] for k in (*F32_KEYS, "gflop") if k != "mbytes"}
+    return out
+
+
+READINGS = ("kernels", "flash", "wide", "host", "steps", "narrow_flash", "beyond", "combine",
+            "f32")
 
 
 def sass_functions(cuobjdump: str, lib: Path) -> dict:
@@ -347,6 +390,8 @@ def main() -> int:
         out["beyond"] = time_beyond(smoke, gen)
     if "combine" in readings:
         out["combine"] = time_combine(smoke, gen)
+    if "f32" in readings:
+        out["f32"] = time_f32(smoke, gen)
     if "host" in readings:
         out["wrapper_host_us"] = {row: wrapper_host_us(smoke, gen, row)
                                   for row in smoke.DECODE_ROWS}

@@ -7,10 +7,10 @@ Shows that the kernel-vs-plain bars of chip_smoke.py catch a kernel that
 drops or leaks work. Each planted fault is built from a mutated copy of its
 kernel sources, written only under the package's build/planted/ directory:
 
-  - decode_sm90_stage (both decode sources for bf16 q, on bf16 and int8
-    pages: the body of paged_decode_sm90.cuh): the second 64-token stage of
-    every CTA's range is skipped;
-  - decode_cluster_rank (pipelined decode for bf16 q, both page formats):
+  - decode_sm90_stage (both decode sources, every q dtype and page format:
+    the body of paged_decode_sm90.cuh): the second stage of every CTA's
+    range is skipped;
+  - decode_cluster_rank (pipelined decode, every q dtype and page format):
     cluster rank 0's partial is left out of the merge through distributed
     shared memory;
   - decode_combine_split (split-KV decode, both page formats and both
@@ -22,11 +22,13 @@ kernel sources, written only under the package's build/planted/ directory:
     at phase 21's attention shape (4/2 heads of 512) and its logits bar
     phase 21b's decode-logits check;
   - paged_decode (pipelined decode for f32 q, on f32 and int8 pages: the
-    first port's body, paged_decode_common.cuh): the second 64-token chunk
-    of every sequence is skipped;
-  - paged_decode_tiled (split-KV decode for f32 q, the same body): the
-    second page of every split is dropped (both planted in the body the two
-    sources share, each in its own source's build only);
+    f32 instantiation of paged_decode_sm90.cuh's body): the second stage of
+    every CTA's range is skipped;
+  - paged_decode_tiled (split-KV decode for f32 q, the same instantiation):
+    the second page of every split is dropped (both planted in the body the
+    two sources share, for f32 q only, each in its own source's build only;
+    decode_sm90_stage, decode_sm90_hd64_cols and decode_sm90_hd100_cols now
+    reach f32 q too);
   - flash_prefill: the second live 128-key block of every q-block is skipped
     by the bf16 (wgmma) kernel;
   - flash_prefill_diagonal: the k-block on each q-block's causal diagonal
@@ -174,10 +176,10 @@ printed beside its bar, then one JSON summary line. Exits non-zero unless
 the real kernels pass every case and every logits bar, and each mutant
 fails the main-shape case (batch 8, page 16, no window) and the logits bar
 of every kernel it targets. The main-shape case is the bf16 one, except for
-the two faults of the first port's body, which bf16 q no longer reaches:
-they are held to the f32 case of each row they target ("paged_decode f32
-page=16 window=None B=8" and its three siblings) and to no logits bar (the
-flagship logits run in bf16).
+the two faults planted in the f32-q instantiation, which bf16 q never
+reaches: they are held to the f32 case of each row they target
+("paged_decode f32 page=16 window=None B=8" and its three siblings) and to
+no logits bar (the flagship logits run in bf16).
 """
 
 from __future__ import annotations
@@ -253,15 +255,18 @@ MUTANTS = {
         ("paged_decode_tiled", "paged_decode_tiled_int8", "paged_decode_combine"), "bf16",
     ),
     "paged_decode": (
-        ("paged_decode",), "paged_decode_common.cuh",
-        "const int t_end = min(kChunk, pos_end - c_start);",
-        "const int t_end = c == 1 ? 0 : min(kChunk, pos_end - c_start);",
+        ("paged_decode",), "paged_decode_sm90.cuh",
+        "const int n_valid = min(kStage, pos_end - s_start);",
+        "const int n_valid =\n"
+        "          std::is_same<TQ, float>::value && c == 1 ? 0 : min(kStage, pos_end - s_start);",
         ("paged_decode", "paged_decode_int8"), "f32",
     ),
     "paged_decode_tiled": (
-        ("paged_decode_tiled",), "paged_decode_common.cuh",
-        "const bool live = t < t_end && pos >= win_lo;",
-        "const bool live = t < t_end && pos >= win_lo && pos / page_size != pos0 / page_size + 1;",
+        ("paged_decode_tiled",), "paged_decode_sm90.cuh",
+        "live[j] = !masked || (t < n_valid && s_start + t >= win_lo);",
+        "live[j] = (!masked || (t < n_valid && s_start + t >= win_lo)) &&\n"
+        "                    !(std::is_same<TQ, float>::value &&\n"
+        "                      (s_start + t) / page_size == pos0 / page_size + 1);",
         ("paged_decode_tiled", "paged_decode_tiled_int8"), "f32",
     ),
     "flash_prefill": (

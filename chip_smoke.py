@@ -56,8 +56,8 @@ Phases, in order (any failure raises and the script exits non-zero):
      verify, whose one-warpgroup tiles split a group above 64 into head
      chunks), the
      tiled decode against the pipelined one at f32 on both page formats, and
-     two calls of each decode kernel for bf16 q (both page formats, the
-     flagship's and both Qwen2.5 shapes) bit for bit; the split-KV combine
+     two calls of each decode kernel for bf16 and f32 q (both page formats,
+     the flagship's and both Qwen2.5 shapes) bit for bit; the split-KV combine
      alone (`pa.combine_splits`, its own C entry) on the workspace that the
      tiled call's split pass wrote, against `pa.combine_reference` on it
      (f32 out 1e-5 + 1e-5 |ref| elementwise, bf16 out within one bf16
@@ -97,6 +97,13 @@ Phases, in order (any failure raises and the script exits non-zero):
   5c. a prefix-hit prefill (1,024 cached tokens, then 512 new) at the
      flagship width through the flash kernel path and through the plain
      path, both against an f32 truth;
+  5d. the flagship's widths in f32 (its FLAGSHIP_LAYERS layers) on f32 and
+     on int8 pages: two requests of a shared 1,024-token prefix and 512 new
+     tokens through a pod (the second a prefix-hit prefill) and 16 greedy
+     tokens each, and a batch-8 decode step at 2,048 through both decode
+     kernels, against the plain path on the card under phase 5b's bars (the
+     same tokens and events, logits within 1e-3); the f32 decode step's
+     wall and device time;
   6. batched decode at batch 8 x 2048 context for every (page format, decode
      kernel) pair, kernel path vs plain path vs an f32 truth, with the
      launches of each kernel counted; then 8-step multi-step decode against 8
@@ -199,8 +206,8 @@ Phases, in order (any failure raises and the script exits non-zero):
      the ZMQ hop is checked in tier-1 (tests/test_torch_zmq.py);
   13. the Qwen2 family at its published widths: Qwen2.5-7B (28/4 heads of
      128, 152,064 tokens, untied head) and Qwen2.5-0.5B (14/2 heads of 64,
-     tied head), cut to 4 of 28 and 4 of 24 layers to make room for phases
-     20 and 21 (`QWEN_LAYERS`, the cut printed), configs
+     tied head), cut to 2 of 28 and 4 of 24 layers to make room for phases
+     5d, 20 and 21 (`QWEN_LAYERS`, the cut printed), configs
      through the port's hf_loader.config_from_hf, seeded weights and q/k/v
      biases, bf16. Per model: 13a, a bf16 pod and an int8 pod (page 16)
      whose events one Indexer digests, 8 requests each of 1,024 shared +
@@ -1294,24 +1301,26 @@ def kernel_cases(gen):
 
 
 def determinism_checks(gen) -> int:
-    """Two calls of each decode kernel for bf16 q (cluster merge, split and
-    combine; bf16 and int8 pages) on the same inputs give the same bits (no
-    atomics; phase 6's multi-step check relies on it), at the flagship's and
-    the Qwen2.5 attention shapes."""
+    """Two calls of each decode kernel for bf16 and f32 q (cluster merge,
+    split and combine; pages in q's dtype and int8 pages) on the same inputs
+    give the same bits (no atomics; phase 6's multi-step check relies on
+    it), at the flagship's and the Qwen2.5 attention shapes."""
     n = 0
     shapes = {"flagship": (N_Q, N_KV, HD), **QWEN_SHAPES,
               **{k: WIDE_SHAPES[k] for k in (OPENLLAMA_MODEL, "gemma-7b", WIDE_HEAD_MODEL)}}
-    for row, spec in DECODE_ROWS.items():
+    for (row, spec), dtype in itertools.product(DECODE_ROWS.items(),
+                                                (torch.bfloat16, torch.float32)):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
         for (model, (n_q, n_kv, hd)), lens in itertools.product(
                 shapes.items(), (SPLIT_LENS, [0, 1, PAGE, PAGE + 1, 2 * PAGE, 1000, 2047, 2048])):
-            q, pages, tables, lens_t = decode_inputs(gen, torch.bfloat16, len(lens), lens, PAGE,
+            q, pages, tables, lens_t = decode_inputs(gen, dtype, len(lens), lens, PAGE,
                                                      n_q=n_q, n_kv=n_kv, hd=hd,
                                                      int8=spec["int8"])
             first = run_decode(row, q, pages, tables, lens_t)
             second = run_decode(row, q, pages, tables, lens_t)
             torch.cuda.synchronize()
             same = torch.equal(first, second)
-            log(f"  {row} bf16 {model} B={len(lens)}: two calls bit-identical: {same}")
+            log(f"  {row} {tag} {model} B={len(lens)}: two calls bit-identical: {same}")
             if not same:
                 raise AssertionError(f"{row}: two calls on the same inputs differ")
             n += 1
@@ -1379,22 +1388,26 @@ DECODE_SHAPES = {
 
 
 def time_decode(gen, row: str, shape: str, plain: bool = True, n_q: int = N_Q,
-                n_kv: int = N_KV, hd: int = HD, combine: bool = True) -> dict:
-    """Row `row` at a DECODE_SHAPES shape (bf16 q, page 16, n_q query heads
-    over n_kv KV heads of hd, by default the flagship's), each call cold in
-    L2: kernel, plain version (`plain`), SDPA over pre-gathered K/V of the
-    live positions (bf16 pages only; no PyTorch call attends over int8
-    pages), and the bound. On the timed inputs the kernel is also held
-    against its plain version (max_abs_err, under phase 3's bar). A tiled
-    row also gives its combine pass alone (`combine`, time_combine)."""
+                n_kv: int = N_KV, hd: int = HD, combine: bool = True,
+                dtype=torch.bfloat16) -> dict:
+    """Row `row` at a DECODE_SHAPES shape (q in `dtype`, bf16 by default,
+    pages in q's dtype or int8; page 16, n_q query heads over n_kv KV heads
+    of hd, by default the flagship's), each call cold in L2: kernel, plain
+    version (`plain`), SDPA over pre-gathered K/V of the live positions
+    (pages in q's dtype only; no PyTorch call attends over int8 pages), and
+    the bound (f32 q: its dots at the f32 rate outside the tensor cores). On
+    the timed inputs the kernel is also held against its plain version
+    (max_abs_err, under phase 3's bar). A tiled row also gives its combine
+    pass alone (`combine`, time_combine)."""
     batch, ctx, table_ctx = DECODE_SHAPES[shape]
     int8 = DECODE_ROWS[row]["int8"]
-    q, pages, tables, lens = decode_inputs(gen, torch.bfloat16, batch, [ctx] * batch,
+    q, pages, tables, lens = decode_inputs(gen, dtype, batch, [ctx] * batch,
                                            PAGE, max_ctx=table_ctx, int8=int8, n_q=n_q,
                                            n_kv=n_kv, hd=hd)
-    label = f"{row} {shape} n_q={n_q} n_kv={n_kv} hd={hd}"
+    f32 = dtype == torch.float32
+    label = f"{row}{' f32' if f32 else ''} {shape} n_q={n_q} n_kv={n_kv} hd={hd}"
     err = check_close(row, label, run_decode(row, q, pages, tables, lens),
-                      run_decode(row, q, pages, tables, lens, plain=True), torch.bfloat16)
+                      run_decode(row, q, pages, tables, lens, plain=True), dtype)
     kernel_ms = time_graph_ms(lambda: run_decode(row, q, pages, tables, lens), cold=True)
     plain_ms = None
     if plain:
@@ -1408,11 +1421,13 @@ def time_decode(gen, row: str, shape: str, plain: bool = True, n_q: int = N_Q,
         library_ms = time_graph_ms(sdpa_gqa(q[:, :, None], kd, vd), cold=True)
         backend = sdpa_backend(sdpa_gqa(q[:, :, None], kd, vd))
     live = int(lens.sum())
-    kv_row_bytes = hd * (1 if int8 else 2) + (4 if int8 else 0)  # values (+ scale)
+    elem = q.element_size()
+    kv_row_bytes = hd * (1 if int8 else elem) + (4 if int8 else 0)  # values (+ scale)
     live_pages = batch * -(-ctx // PAGE)
-    nbytes = 2 * live * n_kv * kv_row_bytes + 2 * batch * n_q * hd * 2 + live_pages * 4
+    nbytes = 2 * live * n_kv * kv_row_bytes + 2 * batch * n_q * hd * elem + live_pages * 4
     out = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, library_backend=backend,
-               **_bound(nbytes, 4 * live * n_q * hd), mbytes=nbytes / 1e6, max_abs_err=err)
+               **_bound(nbytes, 4 * live * n_q * hd, PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS),
+               mbytes=nbytes / 1e6, max_abs_err=err)
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms ({backend})"
     plain_txt = "" if plain_ms is None else f", plain {plain_ms:.4f} ms"
     log(f"  {label} page={PAGE}: kernel {kernel_ms:.4f} ms "
@@ -1495,18 +1510,21 @@ PREFILL_SERVING_SHAPE = (512, 2048, 1024)
 
 
 def time_prefill(gen, l: int, s: int, off: int, n_q: int = N_Q, n_kv: int = N_KV,
-                 hd: int = HD) -> dict:
-    """Row 5 at L new tokens after `off` cached, S positions of K/V (bf16,
-    n_q query heads over n_kv KV heads of hd, by default the flagship's):
-    kernel, plain version, SDPA (is_causal where off == 0 and L == S, else a
-    lower-right causal bias over the first off + L keys, the same function),
-    and the bound over the keys the mask keeps. On the timed inputs the
-    kernel is also held against its plain version."""
-    q, k, v = flash_inputs(gen, torch.bfloat16, 1, l, s, n_q=n_q, n_kv=n_kv, hd=hd)
-    label = f"flash_prefill L={l} S={s} off={off} n_q={n_q} n_kv={n_kv} hd={hd}"
+                 hd: int = HD, dtype=torch.bfloat16) -> dict:
+    """Row 5 at L new tokens after `off` cached, S positions of K/V (in
+    `dtype`, bf16 by default; n_q query heads over n_kv KV heads of hd, by
+    default the flagship's): kernel, plain version, SDPA (is_causal where
+    off == 0 and L == S, else a lower-right causal bias over the first off
+    + L keys, the same function), and the bound over the keys the mask keeps
+    (f32: at the f32 rate outside the tensor cores; TF32 would round the
+    operands to a 10-bit mantissa, which phase 3's f32 bar cannot hold). On
+    the timed inputs the kernel is also held against its plain version."""
+    q, k, v = flash_inputs(gen, dtype, 1, l, s, n_q=n_q, n_kv=n_kv, hd=hd)
+    f32 = dtype == torch.float32
+    label = (f"flash_prefill{' f32' if f32 else ''} L={l} S={s} off={off} n_q={n_q} "
+             f"n_kv={n_kv} hd={hd}")
     err = check_close("flash_prefill", label,
-                      fp.flash_prefill(q, k, v, off), fp.dense_attention(q, k, v, off),
-                      torch.bfloat16)
+                      fp.flash_prefill(q, k, v, off), fp.dense_attention(q, k, v, off), dtype)
     kernel_ms = time_graph_ms(lambda: fp.flash_prefill(q, k, v, off))
     plain_ms = time_graph_ms(lambda: fp.dense_attention(q, k, v, off))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -1530,9 +1548,10 @@ def time_prefill(gen, l: int, s: int, off: int, n_q: int = N_Q, n_kv: int = N_KV
             backend = sdpa_backend(sdpa)
     keys = min(s, off + l)
     flops = 4 * causal_pairs(l, s, [off], None) * n_q * hd
-    nbytes = (2 * l * n_q * hd + 2 * keys * n_kv * hd) * 2
+    nbytes = (2 * l * n_q * hd + 2 * keys * n_kv * hd) * q.element_size()
     out = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, library_backend=backend,
-               **_bound(nbytes, flops), gflop=flops / 1e9, max_abs_err=err)
+               **_bound(nbytes, flops, PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS),
+               gflop=flops / 1e9, max_abs_err=err)
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms ({backend})"
     log(f"  {label}: kernel {kernel_ms:.4f} ms "
         f"({flops / kernel_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, {library_note} "
@@ -1869,6 +1888,121 @@ def phase_prefill_logits(params, cfg) -> dict:
     if not r["ok"]:
         raise AssertionError("prefill logits (flash_prefill) fail their bar")
     return r
+
+
+# -- phase 5d: the flagship's widths in f32 ------------------------------------------
+
+# Phase 5b's bar on the card: the kernel path's logits against the plain
+# path's (both f32), largest |difference|.
+F32_LOGITS_TOL = 1e-3
+
+
+class plain_attention:
+    """Within it the llama entry points attend through the plain versions
+    (`plain=True` on `_cache_attend` and `_serving_attention`), so a pod
+    runs the kernels' comparison path end to end."""
+
+    def __enter__(self):
+        self.saved = llama._cache_attend, llama._serving_attention
+        attend, serve = self.saved
+        llama._cache_attend = lambda *a, **k: attend(*a, **{**k, "plain": True})
+        llama._serving_attention = lambda *a, **k: serve(*a, **{**k, "plain": True})
+        return self
+
+    def __exit__(self, *exc):
+        llama._cache_attend, llama._serving_attention = self.saved
+        return False
+
+
+def f32_pod_run(params32, cfg32, int8: bool, prompts, device: str = "cuda") -> dict:
+    """The prompts through one fresh f32 pod (one after another, so the
+    second hits the first's prefix), 16 greedy tokens each: tokens, prefill
+    logits, cached tokens, the event stream and the launches."""
+    events = []
+    pod = EnginePod(
+        EnginePodConfig(n_pages=512, page_size=PAGE, device_tier="gpu", max_pages_per_seq=128,
+                        model_config=cfg32, device=device, use_quantized_kv=int8),
+        event_sink=events.append, params=params32,
+    )
+    reset_launch_counts()
+    tokens, logits, cached = [], [], []
+    for prompt in prompts:
+        state, hit = pod.prefill(prompt)
+        logits.append(pod.last_logits.float())
+        tok = int(torch.argmax(pod.last_logits))
+        pod.decode_append(state, tok)
+        tokens.append([tok] + [pod.decode_step(state) for _ in range(15)])
+        cached.append(hit)
+        pod.free(state)
+    sync()
+    launches = launch_counts()
+    del pod
+    return dict(tokens=tokens, logits=logits, cached=cached, events=event_rows(events),
+                launches=launches)
+
+
+def phase_f32_pod(params, cfg) -> dict:
+    log(f"== phase 5d: the flagship's widths in f32 ({cfg.n_layers} layers) on f32 and int8 "
+        "pages, the kernel path vs the plain path on the card")
+    params32, cfg32 = f32_twin(params, cfg)
+    rng = np.random.default_rng(4321)
+    prefix = rng.integers(0, cfg.vocab_size, 1024).tolist()
+    prompts = [prefix + rng.integers(0, cfg.vocab_size, 512).tolist() for _ in range(2)]
+    out, failures = {}, []
+    for int8 in (False, True):
+        tag = "int8" if int8 else "f32"
+        kernel = f32_pod_run(params32, cfg32, int8, prompts)
+        with plain_attention():
+            plain = f32_pod_run(params32, cfg32, int8, prompts)
+        err = max(float((a - b).abs().max()) for a, b in zip(kernel["logits"], plain["logits"]))
+        row = "paged_decode_int8" if int8 else "paged_decode"
+        log(f"  {tag} pages, pod: cached {kernel['cached']}; prefill logits max_abs_err="
+            f"{err:.3e} (tol {F32_LOGITS_TOL:g}); tokens equal: "
+            f"{kernel['tokens'] == plain['tokens']}; event streams equal: "
+            f"{kernel['events'] == plain['events']} ({len(kernel['events'])} events); "
+            f"launches {kernel['launches']} (plain path {plain['launches']})")
+        if (err > F32_LOGITS_TOL or kernel["tokens"] != plain["tokens"]
+                or kernel["events"] != plain["events"] or kernel["cached"] != [0, 1024]
+                or kernel["launches"][row] != cfg.n_layers * 15 * len(prompts)
+                or kernel["launches"]["flash_prefill"] != cfg.n_layers * len(prompts)
+                or any(plain["launches"].values())):
+            failures.append(f"{tag} pod")
+        r = dict(pod_logits_max_abs_err=err, cached=kernel["cached"],
+                 launches=kernel["launches"], events=len(kernel["events"]))
+
+        cache, tables, lens, tokens, _ = decode_setup(cfg32, int8, seed=5)
+        page_ids = torch.gather(tables, 1, (lens // PAGE).long()[:, None])[:, 0]
+        for pipelined in (True, False):
+            reset_launch_counts()
+            _, logits = llama.decode_step_cache(cfg32, params32, cache, tokens, tables, lens,
+                                                pipelined=pipelined)
+            torch.cuda.synchronize()
+            launches, combines = launch_counts(), pa.combine_launches
+            _, ref = llama._decode_once(cfg32, params32, cache, tokens, tables, lens, page_ids,
+                                        lens % PAGE, plain=True)
+            err = float((logits - ref).abs().max())
+            same = torch.equal(logits.argmax(-1), ref.argmax(-1))
+            step = ("paged_decode" if pipelined else "paged_decode_tiled") + (
+                "_int8" if int8 else "")
+            log(f"  {tag} pages, batch-{DECODE_BATCH} decode step at {DECODE_CTX} ({step}): "
+                f"logits max_abs_err={err:.3e} (tol {F32_LOGITS_TOL:g}); tokens equal: {same}; "
+                f"{step} launches {launches[step]}, {COMBINE} {combines}")
+            if (err > F32_LOGITS_TOL or not same or launches[step] != cfg.n_layers
+                    or combines != (0 if pipelined else cfg.n_layers)):
+                failures.append(f"{tag} {step}")
+            r[step] = dict(max_abs_err=err, launches=launches[step], combine_launches=combines)
+        r["step_profile"] = profile_device_share(
+            f"f32 decode step, batch {DECODE_BATCH}, {tag} pages",
+            lambda: llama.decode_step_cache(cfg32, params32, cache, tokens, tables, lens,
+                                            pipelined=True))
+        del cache
+        out[tag] = r
+    del params32
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"phase 5d: the f32 kernel path disagrees with the plain path: "
+                             f"{failures}")
+    return out
 
 
 # -- phase 6: batched decode --------------------------------------------------------
@@ -4993,11 +5127,13 @@ QWEN_HF = {
 # vector; a large one would make the random model's output nearly the same at
 # every position. q and k biases move the attention weights only.
 QWEN_BIAS_STD = {"bq": 0.5, "bk": 0.5, "bv": 0.05}
-# The whole run's cut, to make room for phase 20: Qwen2.5-7B at 4 of its 28
-# layers and Qwen2.5-0.5B at 12 of its 24 (every width kept, so rows 1-5
-# still run their group-7 attention at head_dim 128 and 64 at the published
-# shapes).
-QWEN_LAYERS = {"qwen2.5-7b": 4, "qwen2.5-0.5b": 4}
+# The whole run's cut, to make room for phases 5d, 20 and 21: Qwen2.5-7B at
+# 2 of its 28 layers and Qwen2.5-0.5B at 4 of its 24 (every width kept, so
+# rows 1-5 still run their group-7 attention at head_dim 128 and 64 at the
+# published shapes; the phase is bound by the host's launches, which scale
+# with the depth). At 2 layers the seeded 0.5B emits one token over and
+# over, which 13c's check that the scheduler makes progress refuses.
+QWEN_LAYERS = {"qwen2.5-7b": 2, "qwen2.5-0.5b": 4}
 QWEN_RUNS = (("bf16", False, 1), ("int8", True, 4))  # 13c: page format, decode_steps
 
 
@@ -8692,7 +8828,7 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases to run after the build (3 4 5 5b 5c 6 7a "
+                        help="comma-separated phases to run after the build (3 4 5 5b 5c 5d 6 7a "
                         "7b 8a 8 9a 9b 10a 10b 11a 11b 12a 12b 13 14a 14b 15a 15b 16a 16b "
                         "16c 17a 17b 17c 17d 18a 19a 19b 20 21; 9b and "
                         "10b run 7b's deltas first, 14a and 15b run 12a first); a partial run "
@@ -8743,6 +8879,7 @@ def main(argv=None) -> int:
     packed = phase_packed_prefill(params, cfg)
     phase_small_pod_vs_cpu()
     prefill_logits = phase_prefill_logits(params, cfg)
+    f32_pod = phase_f32_pod(params, cfg)
     batched = phase_batched_decode(params, cfg)
     sched_small = phase_scheduler_small()
     sched = phase_scheduler_flagship(params, cfg)
@@ -8835,6 +8972,19 @@ def main(argv=None) -> int:
                         "qwen_batched_decode": qwen["launches"][COMBINE],
                         "openllama": openllama["launches"][COMBINE],
                         "wide_heads": wide_heads["launches"][COMBINE]}
+    # Phase 5d's f32 flagship: rows 1 and 2 on its pods and batch-8 steps
+    # (f32 and int8 pages), rows 3 and 4 and the combine on its tiled steps,
+    # row 5 on its pods' prefills.
+    for tag, pipe, tiled in (("f32", "paged_decode", "paged_decode_tiled"),
+                             ("int8", "paged_decode_int8", "paged_decode_tiled_int8")):
+        r = f32_pod[tag]
+        by_path[pipe]["f32_pod"] = r["launches"][pipe] + r[pipe]["launches"]
+        by_path[tiled]["f32_pod"] = r[tiled]["launches"]
+    by_path["flash_prefill"]["f32_pod"] = sum(f32_pod[t]["launches"]["flash_prefill"]
+                                              for t in ("f32", "int8"))
+    by_path[COMBINE]["f32_pod"] = sum(
+        f32_pod[t][tiled]["combine_launches"]
+        for t, tiled in (("f32", "paged_decode_tiled"), ("int8", "paged_decode_tiled_int8")))
     # Phase 20's model (head_dim 100) and phase 21's (head_dim 512): rows 1,
     # 2 and 5 on their a pods and c scheduler runs, rows 3 and 4 on their b
     # tiled decode steps.
@@ -8870,7 +9020,7 @@ def main(argv=None) -> int:
     ))
     log(json.dumps({"decode_shapes": decode_times,
                     "prefill_serving_shape": prefill_serving, "verify_shape": verify_time,
-                    "serving": serving, "prefill_logits": prefill_logits,
+                    "serving": serving, "prefill_logits": prefill_logits, "f32_pod": f32_pod,
                     "packed_prefill": packed, "batched_decode": batched,
                     "scheduler_small": sched_small, "scheduler": sched,
                     "host_tier_small": tier_small, "host_tier": tier,
@@ -8912,6 +9062,7 @@ def partial_run(phases, gen, cfg, seed: int = 0) -> int:
     steps = {
         "5": lambda: phase_serving(params, cfg), "5b": phase_small_pod_vs_cpu,
         "5c": lambda: phase_prefill_logits(params, cfg),
+        "5d": lambda: phase_f32_pod(params, cfg),
         "6": lambda: phase_batched_decode(params, cfg), "7a": phase_scheduler_small,
         "7b": lambda: phase_scheduler_flagship(params, cfg), "8a": phase_host_tier_small,
         "8": lambda: phase_host_tier_flagship(params, cfg), "9a": phase_lora_small,

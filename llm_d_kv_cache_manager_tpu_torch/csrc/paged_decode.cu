@@ -17,38 +17,33 @@
 // read once and used for 2*group FLOPs per element, far below the ~295
 // FLOP/byte at which an H100 turns compute-bound. At the flagship decode
 // shape (batch 8, 2048 tokens, 8 kv heads, head_dim 128) one layer call
-// must move 67.2 MB in bf16 (20.0 us at 3.35 TB/s) and 34.7 MB in int8
-// (10.4 us).
+// must move 67.2 MB in bf16 (20.0 us at 3.35 TB/s), 134.2 MB in f32 (40.1
+// us) and 34.7 MB in int8 (10.4 us).
 //
-// bf16 q, on bf16 or int8 pages (the pods' main path). The first port ran one
-// 128-thread CTA per (sequence, kv head) over the body of
-// paged_decode_common.cuh: 64 CTAs on 132 SMs at batch 8, and 8 CTAs at
-// batch 1, the shape a pod decodes one request at; the body itself stalled
-// between loads (paged_decode_sm90.cuh lists where). Here the live pages of
-// each (sequence, kv head) are split
-// over a thread-block cluster of `cluster` CTAs (grid cluster x kv heads x
-// batch, the cluster along x), each running the body of
-// paged_decode_sm90.cuh over a contiguous share and leaving its partial
-// (m, l, acc) in its own shared memory. After a cluster barrier each rank
-// merges one slice of the head_dim columns from every rank through
-// distributed shared memory, in rank order, and writes the normalized
-// output; a second cluster barrier keeps every CTA's shared memory alive
-// until its peers have read it. A rank with no live page still reaches both
-// barriers with m = -inf, l = 0. The cluster size (a power of two, at most
-// the portable 8) comes from the shapes: ops/paged_attention.py
-// `decode_plan`.
-//
-// f32 q (on f32 or int8 pages, the checking paths) keeps the first port's
-// design: one CTA per (sequence, kv head) over the body of
-// paged_decode_common.cuh.
+// The first port ran one 128-thread CTA per (sequence, kv head) over the
+// body of paged_decode_common.cuh: 64 CTAs on 132 SMs at batch 8, and 8 CTAs
+// at batch 1, the shape a pod decodes one request at; the body itself stalled
+// between loads (paged_decode_sm90.cuh lists where). Here, for bf16 q on
+// bf16 or int8 pages and for f32 q on f32 or int8 pages alike, the live
+// pages of each (sequence, kv head) are split over a thread-block cluster of
+// `cluster` CTAs (grid cluster x kv heads x batch, the cluster along x),
+// each running the body of paged_decode_sm90.cuh over a contiguous share and
+// leaving its partial (m, l, acc) in its own shared memory. After a cluster
+// barrier each rank merges one slice of the head_dim columns from every rank
+// through distributed shared memory, in rank order, in f32, and writes the
+// normalized output in q's dtype; a second cluster barrier keeps every CTA's
+// shared memory alive until its peers have read it. A rank with no live page
+// still reaches both barriers with m = -inf, l = 0. The cluster size (a power
+// of two, at most the portable 8) comes from the shapes:
+// ops/paged_attention.py `decode_plan`.
 //
 // Shapes: every head_dim up to 256 (wider heads: paged_decode_wide.cu),
 // built at the padded widths 64, 128 and 256 with the true head_dim passed
-// at run time (each body's notes say how unpadded rows are copied); any GQA
+// at run time (the body's notes say how unpadded rows are copied); any GQA
 // group. A group above 8 (4 at head dims above 128) runs as chunks over the
-// same kv head (paged_decode_common.cuh, `rows_of`): one more cluster (bf16
-// q) or CTA (f32 q) per chunk, each reading the kv head's pages again, so
-// group 12 moves twice the K/V bytes of one pass and group 71 nine times.
+// same kv head (paged_decode_common.cuh, `rows_of`): one more cluster per
+// chunk, each reading the kv head's pages again, so group 12 moves twice the
+// K/V bytes of one pass and group 71 nine times.
 
 #include <cooperative_groups.h>
 
@@ -57,49 +52,18 @@
 
 namespace {
 
-template <typename TQ, typename TKV, int HD, int ROWS>
-__global__ void __launch_bounds__(HD) paged_decode_kernel(
+// TQ q (bf16 or f32) on TKV pages (q's dtype, or int8): rank blockIdx.x of
+// the cluster of (sequence blockIdx.z, kv head and chunk blockIdx.y) attends
+// over its share of the live pages; the cluster then merges through
+// distributed shared memory. BULK: head_dim == HD and the chunk's rows ==
+// ROWS, both known at compile time; otherwise ROWS is the capacity (1 or a
+// CTA's most) and both come at run time.
+template <typename TQ, typename TKV, int HD, int ROWS, bool BULK>
+__global__ void __launch_bounds__(sm90::kThreads, HD > 128 ? 1 : 2) paged_decode_cluster_kernel(
     const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
     const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int* __restrict__ block_tables,
     const int* __restrict__ seq_lens, TQ* __restrict__ out, int n_q, int group,
-    int n_pages, int page_size, int table_width, int window, float scale, int hd, int rows) {
-  const int b = blockIdx.x;
-  const ChunkRows c = chunk_rows(blockIdx.y, group, rows);
-  const int seq_len = seq_lens[b];
-  // Positions past the table do not exist, as in the plain version's gather.
-  const int kv_len = min(seq_len, table_width * page_size);
-  const int first_page = window < 0 ? 0 : max(seq_len - window, 0) / page_size;
-  const int win_lo = window < 0 ? 0 : seq_len - window;
-  const size_t q0 = (static_cast<size_t>(b) * n_q + c.row0) * hd;
-
-  float acc[ROWS], m[ROWS], l[ROWS];
-  attend_range<TQ, TKV, HD, ROWS>(
-      q + q0, k_pages, v_pages, k_scales, v_scales,
-      block_tables + static_cast<size_t>(b) * table_width,
-      static_cast<size_t>(c.h) * n_pages, n_pages, page_size,
-      first_page * page_size, kv_len, win_lo, scale, c.n_rows, hd, acc, m, l);
-
-#pragma unroll
-  for (int g = 0; g < ROWS; ++g) {
-    if (g < c.n_rows && static_cast<int>(threadIdx.x) < hd) {
-      out[q0 + g * hd + threadIdx.x] = from_f<TQ>(acc[g] / (l[g] == 0.f ? 1.f : l[g]));
-    }
-  }
-}
-
-// bf16 q on TKV (bf16 or int8) pages: rank blockIdx.x of the cluster of
-// (sequence blockIdx.z, kv head and chunk blockIdx.y) attends over its share
-// of the live pages; the cluster then merges through distributed shared
-// memory. BULK: head_dim == HD and the chunk's rows == ROWS, both known at
-// compile time; otherwise ROWS is the capacity (1 or a CTA's most) and both
-// come at run time.
-template <typename TKV, int HD, int ROWS, bool BULK>
-__global__ void __launch_bounds__(sm90::kThreads, HD > 128 ? 1 : 2) paged_decode_cluster_kernel(
-    const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k_pages,
-    const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
-    const float* __restrict__ v_scales, const int* __restrict__ block_tables,
-    const int* __restrict__ seq_lens, __nv_bfloat16* __restrict__ out, int n_q, int group,
     int n_pages, int page_size, int table_width, int window, float scale_log2, int head_dim,
     int group_rows) {
   const int hd = BULK ? HD : head_dim;
@@ -120,7 +84,7 @@ __global__ void __launch_bounds__(sm90::kThreads, HD > 128 ? 1 : 2) paged_decode
   const int hi_page = min(lo_page + per_rank, n_seq_pages);
   const size_t q0 = (static_cast<size_t>(b) * n_q + c.row0) * hd;
 
-  const float* part = sm90::attend_range<__nv_bfloat16, TKV, HD, ROWS, BULK>(
+  const float* part = sm90::attend_range<TQ, TKV, HD, ROWS, BULK>(
       q + q0, k_pages, v_pages, k_scales, v_scales,
       block_tables + static_cast<size_t>(b) * table_width, static_cast<size_t>(c.h) * n_pages,
       n_pages, page_size, lo_page * page_size, min(hi_page * page_size, kv_len), win_lo,
@@ -149,7 +113,7 @@ __global__ void __launch_bounds__(sm90::kThreads, HD > 128 ? 1 : 2) paged_decode
         a = fmaf(f, pr[g * HD + col], a);
       }
     }
-    if (col < hd) out[q0 + g * hd + col] = __float2bfloat16(ll == 0.f ? 0.f : a / ll);
+    if (col < hd) out[q0 + g * hd + col] = from_f<TQ>(ll == 0.f ? 0.f : a / ll);
   }
   cluster.sync();  // no CTA leaves while a peer may still read its partial
 }
@@ -168,28 +132,11 @@ struct Args {
   cudaStream_t stream;
 };
 
-// f32 q: one CTA per (sequence, kv head, chunk), built at ROWS =
-// max_rows_of(HD) for every chunk size.
-template <typename TQ, typename TKV, int HD, int ROWS>
-cudaError_t launch(const Args& a) {
-  const int smem = static_cast<int>(DecodeSmem<TKV, HD, ROWS>::bytes);
-  auto kernel = paged_decode_kernel<TQ, TKV, HD, ROWS>;
-  static std::atomic<unsigned> attributes_set{0};
-  const cudaError_t attr = sm90::set_attributes(kernel, smem, attributes_set);
-  if (attr != cudaSuccess) return attr;
-  kernel<<<dim3(a.batch, a.n_kv * n_chunks_of(a.group, a.head_dim)), HD, smem, a.stream>>>(
-      static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
-      static_cast<const TKV*>(a.v), a.ks, a.vs, a.bt, a.sl,
-      static_cast<TQ*>(a.out), a.n_q, a.group, a.n_pages, a.page_size, a.table_width,
-      a.window, a.scale, a.head_dim, rows_of(a.group, a.head_dim));
-  return cudaGetLastError();
-}
-
-// bf16 q: one cluster of `a.cluster` CTAs per (sequence, kv head, chunk).
-template <typename TKV, int HD, int ROWS, bool BULK>
+// One cluster of `a.cluster` CTAs per (sequence, kv head, chunk).
+template <typename TQ, typename TKV, int HD, int ROWS, bool BULK>
 cudaError_t launch_cluster(const Args& a) {
   constexpr int smem = sm90::Smem<TKV, HD, ROWS>::bytes;
-  auto kernel = paged_decode_cluster_kernel<TKV, HD, ROWS, BULK>;
+  auto kernel = paged_decode_cluster_kernel<TQ, TKV, HD, ROWS, BULK>;
   static std::atomic<unsigned> attributes_set{0};
   cudaError_t err = sm90::set_attributes(kernel, smem, attributes_set);
   if (err != cudaSuccess) return err;
@@ -206,8 +153,8 @@ cudaError_t launch_cluster(const Args& a) {
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const __nv_bfloat16*>(a.q), static_cast<const TKV*>(a.k),
-      static_cast<const TKV*>(a.v), a.ks, a.vs, a.bt, a.sl, static_cast<__nv_bfloat16*>(a.out),
+      &cfg, kernel, static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
+      static_cast<const TKV*>(a.v), a.ks, a.vs, a.bt, a.sl, static_cast<TQ*>(a.out),
       a.n_q, a.group, a.n_pages, a.page_size, a.table_width, a.window,
       a.scale * 1.4426950408889634f, a.head_dim, rows_of(a.group, a.head_dim));
   if (err != cudaSuccess) return err;
@@ -215,18 +162,10 @@ cudaError_t launch_cluster(const Args& a) {
 }
 
 template <typename TQ, typename TKV>
-cudaError_t dispatch(const Args& a) {
-  return with_padded(a.head_dim, [&](auto hd) {
-    constexpr int HD = decltype(hd)::value;
-    return launch<TQ, TKV, HD, max_rows_of(HD)>(a);
-  });
-}
-
-template <typename TKV>
 cudaError_t dispatch_cluster(const Args& a) {
   return with_sm90_shape(a.head_dim, rows_of(a.group, a.head_dim),
                          [&](auto hd, auto rows, auto bulk) {
-    return launch_cluster<TKV, decltype(hd)::value, decltype(rows)::value,
+    return launch_cluster<TQ, TKV, decltype(hd)::value, decltype(rows)::value,
                           decltype(bulk)::value>(a);
   });
 }
@@ -238,8 +177,8 @@ cudaError_t dispatch_cluster(const Args& a) {
 // block_tables [batch, table_width] int32; seq_lens [batch] int32;
 // out [batch, n_q, head_dim]. head_dim 1 to 256 (above it:
 // kvt_paged_decode_wide); any n_q / n_kv (the GQA group). window < 0: no
-// sliding window. cluster: CTAs per (sequence, kv head, group chunk) for
-// bf16 q, a power of two up to 8 (1 for f32 q).
+// sliding window. cluster: CTAs per (sequence, kv head, group chunk), a
+// power of two up to 8.
 // dtype (of q and out) 0 = f32, 1 = bf16; kv_int8 0: pages in the dtype of
 // q, 1: int8 pages with scales.
 // Returns the launch's cudaError_t.
@@ -254,7 +193,7 @@ extern "C" int kvt_paged_decode(const void* q, const void* k_pages,
   if (head_dim < 1 || head_dim > 256 || n_kv <= 0 || n_q % n_kv != 0 || n_q / n_kv < 1 ||
       page_size <= 0 ||
       (kv_int8 && (k_scales == nullptr || v_scales == nullptr)) || cluster <= 0 ||
-      cluster > 8 || (cluster & (cluster - 1)) || (dtype != 1 && cluster != 1)) {
+      cluster > 8 || (cluster & (cluster - 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{q, k_pages, v_pages, static_cast<const float*>(k_scales),
@@ -265,9 +204,10 @@ extern "C" int kvt_paged_decode(const void* q, const void* k_pages,
                static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   if (dtype == 1) {
-    err = kv_int8 ? dispatch_cluster<int8_t>(a) : dispatch_cluster<__nv_bfloat16>(a);
+    err = kv_int8 ? dispatch_cluster<__nv_bfloat16, int8_t>(a)
+                  : dispatch_cluster<__nv_bfloat16, __nv_bfloat16>(a);
   } else if (dtype == 0) {
-    err = kv_int8 ? dispatch<float, int8_t>(a) : dispatch<float, float>(a);
+    err = kv_int8 ? dispatch_cluster<float, int8_t>(a) : dispatch_cluster<float, float>(a);
   } else {
     err = cudaErrorInvalidValue;
   }

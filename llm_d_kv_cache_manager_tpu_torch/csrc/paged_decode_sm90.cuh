@@ -1,28 +1,28 @@
-// The Hopper attention body of the two paged-decode kernels for bf16 q, on
-// bf16 pages and on int8 pages with f32 per-row scales (paged_decode.cu: the
-// splits of one (sequence, kv head) form a thread-block cluster;
-// paged_decode_tiled.cu: one CTA per (sequence, kv head, split)): one query
-// token's GQA group attends over a contiguous range of one sequence's
-// positions and leaves its partial softmax state in shared memory. A CTA
-// holds ROWS query heads of one kv head: the whole GQA group, or one chunk of
-// a group above 8 (paged_decode_common.cuh, `rows_of`).
+// The Hopper attention body of the two paged-decode kernels, for bf16 q on
+// bf16 pages and for f32 q on f32 pages, each also on int8 pages with f32
+// per-row scales (paged_decode.cu: the splits of one (sequence, kv head) form
+// a thread-block cluster; paged_decode_tiled.cu: one CTA per (sequence, kv
+// head, split)): one query token's GQA group attends over a contiguous range
+// of one sequence's positions and leaves its partial softmax state in shared
+// memory. A CTA holds ROWS query heads of one kv head: the whole GQA group,
+// or one chunk of a group above 8 (paged_decode_common.cuh, `rows_of`).
 //
-// Replaces, for bf16 q, the body of paged_decode_common.cuh (which the f32-q
-// instantiations keep). Both serve the TPU kernels `_decode_kernel_pipelined`
-// and `_decode_kernel` of the reference package
-// (llm_d_kv_cache_manager_tpu/ops/paged_attention.py:157 and :78), the int8
-// pages those kernels' `quantized=True` instantiations (dequantized in f32,
-// as there: :118-121 and :247-250).
+// Every decode up to head_dim 256 runs here, for either q dtype. Both serve
+// the TPU kernels `_decode_kernel_pipelined` and `_decode_kernel` of the
+// reference package (llm_d_kv_cache_manager_tpu/ops/paged_attention.py:157
+// and :78), the int8 pages those kernels' `quantized=True` instantiations
+// (dequantized in f32, as there: :118-121 and :247-250).
 //
 // Bound on this card: bytes. Every K and V row of every live position is read
 // once and used for 2 * group FLOPs per element, far below the ~295 FLOP/byte
 // at which an H100 turns compute-bound, so tensor cores buy nothing; what
 // counts is bytes in flight and a cheap inner loop. At batch 8 x 2,048 tokens,
 // 8 kv heads of 128, one layer call moves 67.2 MB on bf16 pages (20.0 us at
-// 3.35 TB/s) and 34.7 MB on int8 pages (10.4 us). Head dim 64 halves the
-// bytes of a row, and the body's work per row with them.
+// 3.35 TB/s), 134.2 MB on f32 pages (40.1 us) and 34.7 MB on int8 pages
+// (10.4 us). Head dim 64 halves the bytes of a row, and the body's work per
+// row with them.
 //
-// What the old body lost, and where (paged_decode_common.cuh): four
+// What the first port's body lost, and where: four
 // __syncthreads per 64-token chunk; scores written to shared memory and read
 // back for the softmax and again for P @ V; each (group row, token) dot read
 // q as f32 from shared memory, 512 bytes beside the 256-byte K row; a ring
@@ -32,24 +32,26 @@
 // This body:
 //  - One producer warp and four consumer warps. The producer loads the CTA's
 //    block-table entries 32 at a time (one coalesced load, then shuffles) and
-//    moves each stage of 64 tokens with Hopper's bulk copy
+//    moves each stage with Hopper's bulk copy
 //    (cp.async.bulk ... mbarrier::complete_tx), one copy of K and one of V
 //    per page piece (4 KB at page 16 in bf16 at head_dim 128, half a page at
-//    page 128), into
-//    a three-stage ring of 32 KB stages (16.5 KB on int8 pages). Each stage
-//    has a "full" mbarrier (the copies' bytes) and an "empty" one (one
-//    arrival per consumer warp); no thread of the CTA waits for another
-//    except through them.
+//    page 128), into a three-stage ring. A stage holds `stage_tokens` (64,
+//    or 32 for f32 rows of 128 and 256 columns), so a stage of K and V is 32
+//    KB up to head_dim 128 and 64 KB at 256 on bf16 and f32 pages alike
+//    (16.5 KB on int8 pages at 128), and three stages fit shared memory at
+//    every width. Each stage has a "full" mbarrier (the copies' bytes) and an
+//    "empty" one (one arrival per consumer warp); no thread of the CTA waits
+//    for another except through them.
 //  - The math is in registers. A half-warp owns one token row at a time:
 //    lane i reads the kCols = HD / 16 columns from kCols * i onwards. At
-//    head_dim 128 that is 16 bytes (8 bf16) or 8 bytes (8 int8) a lane, at 64
-//    8 bytes (4 bf16) or 4 bytes (4 int8), conflict-free on the unpadded
-//    rows (256, 128 or 64 bytes). q for the CTA's rows sits in registers as
-//    f32, pre-scaled by log2(e)/sqrt(head_dim), so scores are in the exp2
-//    domain; a score is a 4-step shuffle reduction inside the half-warp.
-//    Each warp takes 16 tokens of every stage and keeps its own (m, l) per
-//    row and its own acc (kCols columns x rows), P @ V accumulating in the
-//    lanes that read V. No score buffer, no per-token barrier.
+//    head_dim 128 that is 32 bytes (8 f32), 16 bytes (8 bf16) or 8 bytes (8
+//    int8) a lane, in 16-byte loads where it is 16 bytes or more. q for the
+//    CTA's rows sits in registers as f32 (either q dtype), pre-scaled by
+//    log2(e)/sqrt(head_dim), so scores are in the exp2 domain; a score is a
+//    4-step shuffle reduction inside the half-warp. Each warp takes a quarter
+//    of every stage and keeps its own (m, l) per row and its own acc (kCols
+//    columns x rows), P @ V accumulating in the lanes that read V. No score
+//    buffer, no per-token barrier. The output is written in q's dtype.
 //  - Int8 pages: a row's f32 scale stays out of the inner products (score =
 //    k_scale * sum(q * k), and p * v_scale enters P @ V), one multiply per
 //    token row. An int8 element becomes f32 through a byte permute into the
@@ -81,7 +83,8 @@
 // first stage, and no copy writes them; q's padded columns are zero, so
 // they add nothing to a score, and only the true columns are written out.
 // At HD 256 a lane holds 16 columns, so a CTA takes at most 4 query heads
-// (`max_rows_of`) and one CTA fills an SM on bf16 pages (a 192 KB ring).
+// (`max_rows_of`) and one CTA fills an SM on bf16 and f32 pages (a 192 KB
+// ring).
 
 #pragma once
 
@@ -93,28 +96,48 @@
 #include <atomic>
 #include <type_traits>
 
-#include "row_copy.cuh"  // row_piece, with_piece, copy_piece
+#include "paged_decode_common.cuh"  // to_f
+#include "row_copy.cuh"               // row_piece, with_piece, copy_piece
 
 namespace sm90 {
 
-constexpr int kStage = 64;          // tokens per ring stage, on either page format
-constexpr int kStages = 3;          // ring depth
-constexpr int kConsumerWarps = 4;   // each takes 16 tokens of a stage
+constexpr int kStages = 3;          // ring depth, at every page format and width
+constexpr int kConsumerWarps = 4;   // each takes a quarter of a stage
 constexpr int kThreads = (kConsumerWarps + 1) * 32;  // + the producer warp
-constexpr int kTokPerHalf = kStage / kConsumerWarps / 2;  // rows per half-warp per stage
 constexpr float kLn2 = 0.6931471805599453f;
 
-// TKV: __nv_bfloat16, or int8_t with f32 per-row scales. A stage holds K
-// [kStage][HD], V [kStage][HD] and, on int8 pages, their scales [kStage] each.
+// Tokens a ring stage holds, kStageTokens[page format][padded width]: formats
+// int8, bf16, f32 (`format_of`), widths 64, 128, 256. A 64-token stage of K
+// and V is at most 64 KB, but for f32 rows of 128 and 256 columns (64 and
+// 128 KB), which take 32 tokens: so three stages fit at every width, and a
+// stage's bytes at 128 and 256 are bf16's. ops/paged_attention.py's
+// STAGE_TOKENS mirrors this table (a tier-1 test holds the two equal), for
+// decode_plan's cap.
+constexpr int kStageTokens[3][3] = {
+    {64, 64, 64},  // int8
+    {64, 64, 64},  // bf16
+    {64, 32, 32},  // f32
+};
+template <typename TKV>
+constexpr int format_of() {
+  return std::is_same<TKV, int8_t>::value ? 0 : std::is_same<TKV, __nv_bfloat16>::value ? 1 : 2;
+}
+
+// TKV: __nv_bfloat16, float, or int8_t with f32 per-row scales. A stage
+// holds K [kStage][HD], V [kStage][HD] and, on int8 pages, their scales
+// [kStage] each.
 template <typename TKV, int HD, int ROWS>
 struct Smem {
   static constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
-  static_assert(kQuant || std::is_same<TKV, __nv_bfloat16>::value,
-                "the sm90 decode body takes bf16 or int8 pages");
+  static_assert(kQuant || std::is_same<TKV, __nv_bfloat16>::value ||
+                    std::is_same<TKV, float>::value,
+                "the sm90 decode body takes bf16, f32 or int8 pages");
   // A half-warp covers one row, HD / 16 columns a lane: 4, 8 or 16, vector
-  // loads of 4 to 32 bytes on either page format.
+  // loads of 4 to 64 bytes on any page format.
   static_assert(HD == 64 || HD == 128 || HD == 256,
                 "the sm90 decode body is built at head_dim 64, 128 or 256");
+  static constexpr int kStage = kStageTokens[format_of<TKV>()][HD == 64 ? 0 : HD == 128 ? 1 : 2];
+  static constexpr int kTokPerHalf = kStage / kConsumerWarps / 2;  // rows a half-warp a stage
   static constexpr int kCols = HD / 16;
   static constexpr int kRowBytes = HD * sizeof(TKV);
   static constexpr int kTileBytes = kStage * kRowBytes;  // one stage's K (or V)
@@ -174,6 +197,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// W words of f32 -> W floats.
+template <int W>
+__device__ __forceinline__ void unpack(const uint32_t (&w)[W], float (&x)[W], float) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) x[i] = __uint_as_float(w[i]);
+}
+
 // W words of bf16 pairs -> 2W floats.
 template <int W>
 __device__ __forceinline__ void unpack(const uint32_t (&w)[W], float (&x)[2 * W],
@@ -200,23 +230,21 @@ __device__ __forceinline__ void unpack(const uint32_t (&w)[W], float (&x)[4 * W]
   }
 }
 
-// Columns N hl .. N hl + N - 1 of the row at `row` (type T, bf16 or int8),
-// as floats: vector loads of 4, 8, 16 or 2 x 16 bytes.
+// Columns N hl .. N hl + N - 1 of the row at `row` (type T: f32, bf16 or
+// int8), as floats: vector loads of 4 or 8 bytes, or 1 to 4 of 16 bytes.
 template <typename T, int N>
 __device__ __forceinline__ void load_cols(const void* row, int hl, float (&x)[N]) {
   constexpr int kWords = N * static_cast<int>(sizeof(T)) / 4;
-  static_assert(kWords == 1 || kWords == 2 || kWords == 4 || kWords == 8,
-                "a lane loads 4, 8, 16 or 32 bytes");
+  static_assert(kWords == 1 || kWords == 2 || kWords == 4 || kWords == 8 || kWords == 16,
+                "a lane loads 4, 8, 16, 32 or 64 bytes");
   const unsigned char* p = static_cast<const unsigned char*>(row) + hl * kWords * 4;
   uint32_t w[kWords];
-  if constexpr (kWords == 8) {
-    const uint4 r0 = reinterpret_cast<const uint4*>(p)[0];
-    const uint4 r1 = reinterpret_cast<const uint4*>(p)[1];
-    w[0] = r0.x, w[1] = r0.y, w[2] = r0.z, w[3] = r0.w;
-    w[4] = r1.x, w[5] = r1.y, w[6] = r1.z, w[7] = r1.w;
-  } else if constexpr (kWords == 4) {
-    const uint4 r = *reinterpret_cast<const uint4*>(p);
-    w[0] = r.x, w[1] = r.y, w[2] = r.z, w[3] = r.w;
+  if constexpr (kWords >= 4) {
+#pragma unroll
+    for (int i = 0; i < kWords / 4; ++i) {
+      const uint4 r = reinterpret_cast<const uint4*>(p)[i];
+      w[4 * i] = r.x, w[4 * i + 1] = r.y, w[4 * i + 2] = r.z, w[4 * i + 3] = r.w;
+    }
   } else if constexpr (kWords == 2) {
     const uint2 r = *reinterpret_cast<const uint2*>(p);
     w[0] = r.x, w[1] = r.y;
@@ -263,7 +291,8 @@ cudaError_t set_attributes(Kernel kernel, int smem, std::atomic<unsigned>& done)
 // over the positions [pos0, pos_end) of one sequence and kv head, pos0
 // page-aligned, masking positions below win_lo. `table`: the sequence's block-table row;
 // `head_page0`: h * n_pages; `k_scales`/`v_scales`: the int8 pools' f32 row
-// scales ([n_kv, n_pages, page], unused on bf16 pages). Every thread of the
+// scales ([n_kv, n_pages, page], unused on bf16 and f32 pages). TQ: bf16
+// (on bf16 or int8 pages) or float (on f32 or int8 pages). Every thread of the
 // CTA (kThreads) must call it. On return (after a CTA barrier) the CTA's
 // partial lies in shared memory at the returned pointer: acc[ROWS][HD]
 // (unnormalized; columns from hd on meaningless), m[ROWS] (log2 domain;
@@ -280,15 +309,19 @@ __device__ __forceinline__ const float* attend_range(
   using SM = Smem<TKV, HD, ROWS>;
   constexpr bool kQuant = SM::kQuant;
   constexpr int kCols = SM::kCols;
-  static_assert(std::is_same<TQ, __nv_bfloat16>::value, "q is bf16");
+  constexpr int kStage = SM::kStage;
+  constexpr int kTokPerHalf = SM::kTokPerHalf;
+  static_assert(std::is_same<TQ, __nv_bfloat16>::value || std::is_same<TQ, float>::value,
+                "q is bf16 or f32");
+  static_assert(kQuant || std::is_same<TQ, TKV>::value, "pages in q's dtype, or int8");
   // Tokens per half-warp between two softmax updates: scores s[kTok][ROWS]
   // stay within 16 registers.
   constexpr int kTokWanted = ROWS > 4 ? 2 : (ROWS > 2 ? 4 : 8);
   constexpr int kTok = kTokWanted < kTokPerHalf ? kTokWanted : kTokPerHalf;
   static_assert(kTokPerHalf % kTok == 0, "steps tile a stage");
 
-  // (Named apart from paged_decode_common.cuh's array, which the same
-  // translation units declare with another alignment.)
+  // (Named apart from the combine's array, which paged_decode_tiled.cu
+  // declares with another type.)
   extern __shared__ __align__(128) unsigned char ring_smem[];
   unsigned char* smem = ring_smem;
   const uint32_t ring = smem_u32(smem);
@@ -416,7 +449,7 @@ __device__ __forceinline__ const float* attend_range(
 #pragma unroll
       for (int e = 0; e < kCols; ++e) {
         const int col = kCols * hl + e;
-        x[e] = g < n_rows && col < hd ? __bfloat162float(q_group[g * hd + col]) : 0.f;
+        x[e] = g < n_rows && col < hd ? to_f(q_group[g * hd + col]) : 0.f;
       }
     }
 #pragma unroll

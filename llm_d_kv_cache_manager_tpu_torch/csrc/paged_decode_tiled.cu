@@ -11,9 +11,10 @@
 // writes zeros.
 //
 // Bound on this card: bytes, as for paged_decode.cu. At batch 8 x 2048
-// tokens, 8 kv heads of 128: 67.2 MB in bf16 (20.0 us at 3.35 TB/s), 34.7 MB
-// in int8 (10.4 us); at batch 1 x 4096 tokens: 16.8 MB bf16 (5.0 us) and
-// 8.7 MB int8 (2.6 us). The partials this design adds (n_splits x group x
+// tokens, 8 kv heads of 128: 67.2 MB in bf16 (20.0 us at 3.35 TB/s), 134.2
+// MB in f32 (40.1 us), 34.7 MB in int8 (10.4 us); at batch 1 x 4096 tokens:
+// 16.8 MB bf16 (5.0 us), 33.6 MB f32 (10.0 us) and 8.7 MB int8 (2.6 us).
+// The partials this design adds (n_splits x group x
 // (head_dim + 2) f32 per sequence and kv head) are under 2% of that.
 //
 // Design: on the TPU the page axis of the grid runs in order and carries the
@@ -29,18 +30,16 @@
 // each split by exp(m_s - M), skips empty splits, normalizes and writes
 // zeros for an all-empty row; `kvt_paged_decode_combine` runs it alone on
 // a given workspace. The split count comes from the shapes alone
-// (ops/paged_attention.py: `decode_plan` for bf16 q, which also sizes
-// paged_decode.cu's clusters; `old_body_splits` for f32 q). No atomics:
-// the result is deterministic.
+// (ops/paged_attention.py `decode_plan`, which also sizes paged_decode.cu's
+// clusters). No atomics: the result is deterministic.
 //
-// bf16 q, on bf16 or int8 pages, runs the body of paged_decode_sm90.cuh: the
-// first port's split over the body of paged_decode_common.cuh had CTAs enough
-// (about 320 at batch 8) but moved 27% of the card's bytes per second on
-// bf16 pages, stalling between loads (four CTA barriers and a shared-memory
-// score buffer per 64-token chunk, a two-stage ring, a table read per
-// 16-byte copy); the new body keeps the math in registers behind a
-// three-stage bulk-copy ring. f32 q (the checking paths, on f32 or int8
-// pages) keeps the old body.
+// Every q dtype and page format (bf16 q on bf16 or int8 pages, f32 q on f32
+// or int8 pages) runs the body of paged_decode_sm90.cuh: the first port's
+// split over the body of paged_decode_common.cuh had CTAs enough (about 320
+// at batch 8) but moved 27% of the card's bytes per second on bf16 pages,
+// stalling between loads (four CTA barriers and a shared-memory score buffer
+// per 64-token chunk, a two-stage ring, a table read per 16-byte copy); the
+// new body keeps the math in registers behind a three-stage bulk-copy ring.
 //
 // Shapes: every head_dim up to 256 (wider heads: paged_decode_wide.cu;
 // built at the padded widths 64, 128 and 256, the true head_dim passed at
@@ -59,58 +58,15 @@
 namespace {
 
 // Partial attention of one (sequence, kv head, chunk) over one split of its
-// pages. Workspace: m/l [batch, n_kv * n_chunks, n_splits, rows], acc [..,
-// rows, hd], f32 (rows = rows_of(group, hd) <= ROWS).
-template <typename TQ, typename TKV, int HD, int ROWS>
-__global__ void __launch_bounds__(HD) split_decode_kernel(
-    const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
-    const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
-    const float* __restrict__ v_scales, const int* __restrict__ block_tables,
-    const int* __restrict__ seq_lens, float* __restrict__ m_ws,
-    float* __restrict__ l_ws, float* __restrict__ acc_ws, int n_q, int group, int n_pages,
-    int page_size, int table_width, int window, float scale, int hd, int rows) {
-  const int b = blockIdx.x;
-  const ChunkRows c = chunk_rows(blockIdx.y, group, rows);
-  const int split = blockIdx.z;
-  const int n_splits = gridDim.z;
-  const int seq_len = seq_lens[b];
-  // Positions past the table do not exist, as in the plain version's gather.
-  const int kv_len = min(seq_len, table_width * page_size);
-  const int first_page = window < 0 ? 0 : max(seq_len - window, 0) / page_size;
-  const int win_lo = window < 0 ? 0 : seq_len - window;
-  const int n_seq_pages = (kv_len + page_size - 1) / page_size;
-  const int per_split = (max(n_seq_pages - first_page, 0) + n_splits - 1) / n_splits;
-  const int lo_page = first_page + split * per_split;
-  const int hi_page = min(lo_page + per_split, n_seq_pages);
-
-  float acc[ROWS], m[ROWS], l[ROWS];
-  attend_range<TQ, TKV, HD, ROWS>(
-      q + (static_cast<size_t>(b) * n_q + c.row0) * hd, k_pages, v_pages,
-      k_scales, v_scales, block_tables + static_cast<size_t>(b) * table_width,
-      static_cast<size_t>(c.h) * n_pages, n_pages, page_size,
-      lo_page * page_size, min(hi_page * page_size, kv_len), win_lo, scale,
-      c.n_rows, hd, acc, m, l);
-
-  const size_t part = (static_cast<size_t>(b) * gridDim.y + blockIdx.y) * n_splits + split;
-#pragma unroll
-  for (int g = 0; g < ROWS; ++g) {
-    if (g >= rows) break;
-    if (static_cast<int>(threadIdx.x) < hd) acc_ws[(part * rows + g) * hd + threadIdx.x] = acc[g];
-    if (threadIdx.x == 0) {
-      m_ws[part * rows + g] = m[g];
-      l_ws[part * rows + g] = l[g];
-    }
-  }
-}
-
-// The same partial for bf16 q on TKV (bf16 or int8) pages, through the body
-// of paged_decode_sm90.cuh (its m, in the log2 domain, goes to the workspace
-// in natural units). BULK: head_dim == HD and the chunk's rows == ROWS, both
-// known at compile time; otherwise ROWS is the capacity (1 or a CTA's most)
-// and both come at run time.
-template <typename TKV, int HD, int ROWS, bool BULK>
+// pages, TQ q (bf16 or f32) on TKV pages (q's dtype, or int8), through the
+// body of paged_decode_sm90.cuh (its m, in the log2 domain, goes to the
+// workspace in natural units). Workspace: m/l [batch, n_kv * n_chunks,
+// n_splits, rows], acc [.., rows, hd], f32. BULK: head_dim == HD and the
+// chunk's rows == ROWS, both known at compile time; otherwise ROWS is the
+// capacity (1 or a CTA's most) and both come at run time.
+template <typename TQ, typename TKV, int HD, int ROWS, bool BULK>
 __global__ void __launch_bounds__(sm90::kThreads, HD > 128 ? 1 : 2) split_decode_sm90_kernel(
-    const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k_pages,
+    const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
     const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int* __restrict__ block_tables,
     const int* __restrict__ seq_lens, float* __restrict__ m_ws, float* __restrict__ l_ws,
@@ -131,7 +87,7 @@ __global__ void __launch_bounds__(sm90::kThreads, HD > 128 ? 1 : 2) split_decode
   const int lo_page = first_page + split * per_split;
   const int hi_page = min(lo_page + per_split, n_seq_pages);
 
-  const float* part = sm90::attend_range<__nv_bfloat16, TKV, HD, ROWS, BULK>(
+  const float* part = sm90::attend_range<TQ, TKV, HD, ROWS, BULK>(
       q + (static_cast<size_t>(b) * n_q + c.row0) * hd, k_pages, v_pages, k_scales,
       v_scales, block_tables + static_cast<size_t>(b) * table_width,
       static_cast<size_t>(c.h) * n_pages,
@@ -178,56 +134,29 @@ cudaError_t combine_splits(const Args& a) {
                          a.stream);
 }
 
-// f32 q: the body of paged_decode_common.cuh, built at ROWS = max_rows_of(HD)
-// for every chunk size.
-template <typename TQ, typename TKV, int HD, int ROWS>
-cudaError_t launch(const Args& a) {
-  const int smem = static_cast<int>(DecodeSmem<TKV, HD, ROWS>::bytes);
-  auto kernel = split_decode_kernel<TQ, TKV, HD, ROWS>;
-  static std::atomic<unsigned> attributes_set{0};
-  const cudaError_t attr = sm90::set_attributes(kernel, smem, attributes_set);
-  if (attr != cudaSuccess) return attr;
-  kernel<<<split_grid(a), HD, smem, a.stream>>>(
-      static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
-      static_cast<const TKV*>(a.v), a.ks, a.vs, a.bt, a.sl, a.m_ws, a.l_ws,
-      a.acc_ws, a.n_q, a.group, a.n_pages, a.page_size, a.table_width, a.window,
-      a.scale, a.head_dim, rows_of(a.group, a.head_dim));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return combine_splits<TQ>(a);
-}
-
-// bf16 q: the body of paged_decode_sm90.cuh.
-template <typename TKV, int HD, int ROWS, bool BULK>
+// The split pass on the body of paged_decode_sm90.cuh, then the combine.
+template <typename TQ, typename TKV, int HD, int ROWS, bool BULK>
 cudaError_t launch_sm90(const Args& a) {
   const int smem = sm90::Smem<TKV, HD, ROWS>::bytes;
-  auto kernel = split_decode_sm90_kernel<TKV, HD, ROWS, BULK>;
+  auto kernel = split_decode_sm90_kernel<TQ, TKV, HD, ROWS, BULK>;
   static std::atomic<unsigned> attributes_set{0};
   const cudaError_t attr = sm90::set_attributes(kernel, smem, attributes_set);
   if (attr != cudaSuccess) return attr;
   kernel<<<split_grid(a), sm90::kThreads, smem, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const TKV*>(a.k),
+      static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), a.ks, a.vs, a.bt, a.sl, a.m_ws, a.l_ws, a.acc_ws, a.n_q,
       a.group, a.n_pages, a.page_size, a.table_width, a.window, a.scale * 1.4426950408889634f,
       a.head_dim, rows_of(a.group, a.head_dim));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return combine_splits<__nv_bfloat16>(a);
+  return combine_splits<TQ>(a);
 }
 
 template <typename TQ, typename TKV>
-cudaError_t dispatch(const Args& a) {
-  return with_padded(a.head_dim, [&](auto hd) {
-    constexpr int HD = decltype(hd)::value;
-    return launch<TQ, TKV, HD, max_rows_of(HD)>(a);
-  });
-}
-
-template <typename TKV>
 cudaError_t dispatch_sm90(const Args& a) {
   return with_sm90_shape(a.head_dim, rows_of(a.group, a.head_dim),
                          [&](auto hd, auto rows, auto bulk) {
-    return launch_sm90<TKV, decltype(hd)::value, decltype(rows)::value,
+    return launch_sm90<TQ, TKV, decltype(hd)::value, decltype(rows)::value,
                        decltype(bulk)::value>(a);
   });
 }
@@ -266,9 +195,10 @@ extern "C" int kvt_paged_decode_tiled(
                window, n_splits, scale, static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   if (dtype == 1) {
-    err = kv_int8 ? dispatch_sm90<int8_t>(a) : dispatch_sm90<__nv_bfloat16>(a);
+    err = kv_int8 ? dispatch_sm90<__nv_bfloat16, int8_t>(a)
+                  : dispatch_sm90<__nv_bfloat16, __nv_bfloat16>(a);
   } else if (dtype == 0) {
-    err = kv_int8 ? dispatch<float, int8_t>(a) : dispatch<float, float>(a);
+    err = kv_int8 ? dispatch_sm90<float, int8_t>(a) : dispatch_sm90<float, float>(a);
   } else {
     err = cudaErrorInvalidValue;
   }

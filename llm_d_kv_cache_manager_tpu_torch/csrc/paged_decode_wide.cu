@@ -63,8 +63,8 @@
 //    cluster whose launch is resident at once, from the card's own count
 //    (`kvt_paged_decode_wide_resident`, cudaOccupancyMaxActiveClusters).
 //
-// f32 q (the checking paths, on f32 or int8 pages), and bf16 q above head
-// dim 1,024, keep the first wide body (namespace `wide`): the output cut
+// f32 q (on f32 or int8 pages), and bf16 q above head dim 1,024, keep the
+// first wide body (namespace `wide`): the output cut
 // into column slabs of kPanel (256) columns, one CTA (or cluster) a slab,
 // each CTA walking K in panels of kPanel columns (row_copy.cuh, `n_panels`):
 //  - 256 threads, one a column of the slab: acc for every query head of the
@@ -101,11 +101,6 @@
 #include "row_copy.cuh"             // kPanel, n_panels, row_piece, with_piece, copy_piece
 
 namespace {
-
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 namespace wide {
 

@@ -1,5 +1,5 @@
 // The head-dim padding, the row copies and the cp.async helpers that every
-// kernel shares (paged_decode_common.cuh, paged_decode_sm90.cuh,
+// kernel shares (paged_decode_common.cuh's dispatch, paged_decode_sm90.cuh,
 // paged_decode_wide.cu, flash_prefill.cu).
 //
 // Each kernel is built at a padded width, 64, 128 or 256 (`padded`), and

@@ -43,9 +43,14 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 KERNELS = ("paged_decode", "paged_decode_tiled", "paged_decode_wide", "flash_prefill")
+# --split-compile=0 (NVVM) and -Xptxas --split-compile=0 (ptxas) optimize and
+# assemble a source's kernels on every core: the two decode sources hold about
+# a hundred instantiations each, and their build then takes 67.5 s where it
+# took 122.4 s, with the same registers and SASS (H100 host, CUDA 12.9).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--split-compile=0", "-Xptxas", "--split-compile=0",
 )
 # The host tier's C++ engine, with the flags of kv_connectors/cpp/Makefile.
 TRANSFER = "kvtransfer"

@@ -10,16 +10,17 @@ events the control plane ingests.
   softmax in f32). A `seq_len == 0` slot yields zeros, as the kernel does.
 - `paged_attention`: the wrapper, with the reference's `pipelined` switch
   (default False). On CUDA tensors it launches a hand-written kernel,
-  `csrc/paged_decode.cu` (pipelined: for bf16 q one cluster launch) or
+  `csrc/paged_decode.cu` (pipelined: one cluster launch) or
   the split-KV `csrc/paged_decode_tiled.cu` (tiled), or above head_dim 256
   the same two variants of `csrc/paged_decode_wide.cu`; on CPU tensors it
   runs the plain version. It never falls back from CUDA to the plain version.
   `ops/quantized_kv.py` launches the same two kernels on int8 pages.
-- `decode_plan`: the launch shape of both kernels for bf16 q (on bf16 or
-  int8 pages), from the shapes alone; `old_body_splits` for f32 q;
-  `group_chunks`: how a GQA group above `max_rows(head_dim)` splits over
-  CTAs; `n_slabs`: the column slabs of a head dim above 256 in the first
-  wide body.
+- `decode_plan`: the launch shape of both kernels, from the shapes alone
+  (its cap on the splits from `stage_tokens`, the ring stage of the
+  page format); `old_body_splits` for f32 q above head_dim 256 (the first
+  wide body's slabs); `group_chunks`: how a GQA group above
+  `max_rows(head_dim)` splits over CTAs; `n_slabs`: the column slabs of a
+  head dim above 256 in the first wide body.
 - The kernels take every head_dim (up to 256 built at the padded widths 64,
   128 and 256; above it, for bf16 q up to 1,024, one CTA holding every
   column; for f32 q, and bf16 q above 1,024, column slabs of 256, the
@@ -119,7 +120,16 @@ _ARGTYPES["kvt_paged_decode_wide_resident"] = [_I] * 4
 # m, l, acc, out, batch, n_q, n_kv, head_dim, n_splits, rows, dtype, stream
 _ARGTYPES["kvt_paged_decode_combine"] = [_P] * 4 + [_I] * 7 + [_P]
 
-_STAGE_TOKENS = 64  # tokens per ring stage of either decode kernel, on both page formats
+# Tokens a ring stage of the Hopper decode body holds, by page dtype and
+# padded head_dim: csrc/paged_decode_sm90.cuh's kStageTokens (a tier-1 test
+# holds the two equal). Above head_dim 256 the plans cap the splits at 64-token
+# stages (`_WIDE_STAGE_TOKENS`).
+STAGE_TOKENS = {
+    torch.int8: {64: 64, 128: 64, 256: 64},
+    torch.bfloat16: {64: 64, 128: 64, 256: 64},
+    torch.float32: {64: 64, 128: 32, 256: 32},
+}
+_WIDE_STAGE_TOKENS = 64
 _MAX_CLUSTER = 8  # the portable cluster size: every Hopper launch may ask for it
 # The wide Hopper body's clusters go to the non-portable 16 (its kernels set
 # cudaFuncAttributeNonPortableClusterSizeAllowed), so that batch 1 spreads
@@ -172,18 +182,30 @@ def group_chunks(group: int, head_dim: int = 128, bf16_q: bool = True) -> tuple:
     return n_chunks, -(-group // n_chunks)
 
 
+def stage_tokens(head_dim: int = 128, page_dtype: torch.dtype = torch.bfloat16) -> int:
+    """Tokens a ring stage of the decode body holds on pages of `page_dtype`
+    (int8, bf16 or f32): STAGE_TOKENS at head_dim's padded width up to 256,
+    else `_WIDE_STAGE_TOKENS`."""
+    if head_dim > _PANEL:
+        return _WIDE_STAGE_TOKENS
+    return STAGE_TOKENS[page_dtype][64 if head_dim <= 64 else 128 if head_dim <= 128 else 256]
+
+
 def decode_plan(batch: int, n_kv: int, table_width: int, page_size: int,
                 n_sms: int, group: int = 1, head_dim: int = 128,
-                resident: Optional[dict] = None) -> tuple:
+                resident: Optional[dict] = None,
+                page_dtype: torch.dtype = torch.bfloat16) -> tuple:
     """(cluster, n_splits): the CTAs per (sequence, kv head, group chunk)
-    of the pipelined kernel for bf16 q (one thread-block cluster) and of the
-    tiled kernel (a grid-level split), on bf16 and on int8 pages, from the
-    shapes alone (no read of seq_lens).
+    of the pipelined kernel (one thread-block cluster) and of the tiled
+    kernel (a grid-level split), for bf16 q on bf16 or int8 pages and for
+    f32 q on f32 or int8 pages (`page_dtype`; f32 q above head_dim 256
+    takes `old_body_splits`), from the shapes alone (no read of seq_lens).
 
     Both split each (sequence, kv head) as far as one CTA per SM allows
     (more CTAs read slower on an H100: each extra CTA adds its start-up,
     its merge and, in the tiled kernel, a partial for the combine pass),
-    never into more parts than the table has pages or 64-token stages. A CTA
+    never into more parts than the table has pages or ring stages
+    (`stage_tokens(head_dim, page_dtype)` tokens each). A CTA
     holds every column up to head_dim 1,024; above it each column slab is a
     pair of its own (`hopper_slabs`). The cluster is that count rounded down
     to a power of two, at most `max_cluster(head_dim)` (8, or 16 for head
@@ -196,7 +218,8 @@ def decode_plan(batch: int, n_kv: int, table_width: int, page_size: int,
     heads of 512 and batch 8, 16 clusters of 8 run in two waves on an H100
     and 16 of 4 in one)."""
     pairs = batch * n_kv * group_chunks(group, head_dim)[0] * hopper_slabs(head_dim)
-    cap = max(1, min(table_width, table_width * page_size // _STAGE_TOKENS))
+    cap = max(1, min(table_width,
+                     table_width * page_size // stage_tokens(head_dim, page_dtype)))
     n_splits = max(1, min(n_sms // pairs, cap))
     cluster = 1
     while 2 * cluster <= min(max_cluster(head_dim), n_splits) and (
@@ -207,12 +230,12 @@ def decode_plan(batch: int, n_kv: int, table_width: int, page_size: int,
 
 def old_body_splits(batch: int, n_kv: int, table_width: int, n_sms: int,
                     group: int = 1, head_dim: int = 128) -> int:
-    """The tiled kernel's split count for f32 q (on f32 or int8 pages, the
-    checking paths), which keeps the body of csrc/paged_decode_common.cuh
-    (head_dim-thread CTAs, several to an SM; above head_dim 256 the body of
-    csrc/paged_decode_wide.cu, a CTA per column slab): about two CTAs per
-    SM over the (sequence, kv head, group chunk, slab) tuples, never more
-    splits than the table has pages."""
+    """The tiled kernel's split count for f32 q above head_dim 256 (on f32
+    or int8 pages), which runs the first wide body of
+    csrc/paged_decode_wide.cu (a CTA per column slab of 256, several to an
+    SM): about two CTAs per SM over the (sequence, kv head, group chunk,
+    slab) tuples, never more splits than the table has pages. Up to 256 f32
+    q takes decode_plan."""
     triples = batch * n_kv * group_chunks(group, head_dim, False)[0] * n_slabs(head_dim)
     return max(1, min(-(-2 * n_sms // triples), table_width))
 
@@ -277,14 +300,17 @@ def _sm_count(device: torch.device) -> int:
 
 def _plan(n_sms: int, q_dtype: torch.dtype, batch: int, n_kv: int, table_width: int,
           page_size: int, group: int = 1, head_dim: int = 128,
-          resident: Optional[dict] = None) -> tuple:
-    """(cluster, n_splits) for a launch on a card of `n_sms` SMs: bf16 q, on
-    either page format, runs a Hopper body (csrc/paged_decode_sm90.cuh, or
-    above head_dim 256 csrc/paged_decode_wide.cu's) and takes decode_plan;
-    f32 q keeps the old body, old_body_splits and no cluster."""
-    if q_dtype != torch.bfloat16:
+          resident: Optional[dict] = None, int8: bool = False) -> tuple:
+    """(cluster, n_splits) for a launch on a card of `n_sms` SMs, on pages
+    in q's dtype or (`int8`) int8: a Hopper body (csrc/paged_decode_sm90.cuh
+    up to head_dim 256, both q dtypes; above it, for bf16 q,
+    csrc/paged_decode_wide.cu's) takes decode_plan at its page format's
+    stage; f32 q above 256 runs the first wide body, old_body_splits and no
+    cluster."""
+    if q_dtype != torch.bfloat16 and head_dim > _PANEL:
         return 1, old_body_splits(batch, n_kv, table_width, n_sms, group, head_dim)
-    return decode_plan(batch, n_kv, table_width, page_size, n_sms, group, head_dim, resident)
+    return decode_plan(batch, n_kv, table_width, page_size, n_sms, group, head_dim, resident,
+                       torch.int8 if int8 else q_dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -307,7 +333,7 @@ def workspace_shape(q, k_pages, block_tables) -> tuple:
     batch, n_q, _ = q.shape
     group = _check_grouping(n_q, n_kv)
     _, n_splits = _plan(_sm_count(q.device), q.dtype, batch, n_kv, block_tables.shape[1],
-                        page_size, group, head_dim)
+                        page_size, group, head_dim, int8=k_pages.dtype == torch.int8)
     n_chunks, rows = group_chunks(group, head_dim, q.dtype == torch.bfloat16)
     return batch, n_kv * n_chunks, n_splits, rows
 
@@ -386,7 +412,7 @@ def launch_decode(q, k_pages, v_pages, block_tables, seq_lens, window, *,
         if q.dtype == torch.bfloat16 and _PANEL < head_dim <= _HOPPER_WIDE:
             resident = _resident(q.device, head_dim, group, scales is not None)
         cluster, _ = _plan(_sm_count(q.device), q.dtype, batch, n_kv, table_width,
-                           page_size, group, head_dim, resident)
+                           page_size, group, head_dim, resident, int8=scales is not None)
         err = _kernel_fn(name, fn_name)(
             *common, _ptr(out), batch, n_q, n_kv, n_pages, page_size, head_dim,
             table_width, window_arg, cluster, *tail,
@@ -415,8 +441,8 @@ def paged_attention(
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """Flash-decoding paged attention: on CUDA tensors the kernel of the
-    chosen variant (`pipelined=True`: `csrc/paged_decode.cu`, one launch, for
-    bf16 q a thread-block cluster per sequence and kv head; False: the
+    chosen variant (`pipelined=True`: `csrc/paged_decode.cu`, one launch, a
+    thread-block cluster per sequence and kv head; False: the
     split-KV `csrc/paged_decode_tiled.cu` and its combine pass),
     on CPU tensors the plain version. Entries of a block table past
     ceil(seq_len / page_size) are never read."""

@@ -13,14 +13,14 @@ V vector of one kv head), scale = amax/127 and q = round(x/scale) in
 - `paged_attention_quantized_reference`: the plain version (dequantize,
   round to q's dtype as the reference does, then `paged_attention_reference`).
 - `paged_attention_quantized`: the wrapper. On CUDA tensors it launches the
-  int8 instantiation of `csrc/paged_decode.cu` (`pipelined=True`: for bf16
-  q one thread-block cluster launch) or of the split-KV
+  int8 instantiation of `csrc/paged_decode.cu` (`pipelined=True`: one
+  thread-block cluster launch) or of the split-KV
   `csrc/paged_decode_tiled.cu` (False: split and combine), which dequantize
-  in f32 inside the kernel; for bf16 q both run the Hopper body of
-  `csrc/paged_decode_sm90.cuh`, the bf16 pages' body, with the launch shape
-  of `ops/paged_attention.py::decode_plan` (f32 q, a checking path, keeps
-  the first port's body; above head_dim 256 both q dtypes run
-  `csrc/paged_decode_wide.cu`). On CPU tensors it runs the plain version.
+  in f32 inside the kernel; for bf16 and f32 q both run the Hopper body of
+  `csrc/paged_decode_sm90.cuh`, the body of pages in q's dtype, with the
+  launch shape of `ops/paged_attention.py::decode_plan` (above head_dim
+  256 both q dtypes run `csrc/paged_decode_wide.cu`). On CPU tensors it
+  runs the plain version.
   The kernels take the shapes `ops/paged_attention.py` names (every
   head_dim, any GQA group); its checks raise on malformed inputs.
 """

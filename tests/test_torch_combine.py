@@ -190,15 +190,17 @@ def test_combine_splits_on_cpu_takes_the_plain_version():
         port_paged.combine_splits(ws[0].double(), ws[1], ws[2], 7)
 
 
-# (n_q, n_kv, head_dim, q dtype, table width): decode_plan's and
-# old_body_splits' shapes at the flagship's, a Qwen2.5 and the wide bodies'.
+# (n_q, n_kv, head_dim, q dtype, table width, the plan that sizes its
+# splits): decode_plan's shapes at the flagship's, the Qwen2.5 pair's (f32
+# q up to head_dim 256 runs the Hopper body and takes decode_plan at its f32
+# stage) and the wide bodies', old_body_splits' at f32 q above 256.
 WORKSPACE_CASES = {
-    "flagship_b8_bf16": (16, 8, 128, torch.bfloat16, 128),
-    "qwen7b_b1_bf16": (28, 4, 128, torch.bfloat16, 128),
-    "qwen05b_b1_f32": (14, 2, 64, torch.float32, 128),
-    "hd576_group16_bf16": (16, 1, 576, torch.bfloat16, 128),
-    "hd576_group16_f32": (16, 1, 576, torch.float32, 128),
-    "hd50_odd_rows": (3, 1, 50, torch.bfloat16, 5),
+    "flagship_b8_bf16": (16, 8, 128, torch.bfloat16, 128, "decode_plan"),
+    "qwen7b_b1_bf16": (28, 4, 128, torch.bfloat16, 128, "decode_plan"),
+    "qwen05b_b1_f32": (14, 2, 64, torch.float32, 128, "decode_plan"),
+    "hd576_group16_bf16": (16, 1, 576, torch.bfloat16, 128, "decode_plan"),
+    "hd576_group16_f32": (16, 1, 576, torch.float32, 128, "old_body_splits"),
+    "hd50_odd_rows": (3, 1, 50, torch.bfloat16, 5, "decode_plan"),
 }
 
 
@@ -209,7 +211,7 @@ def test_decode_workspace_layout(case, monkeypatch):
     loads), m and l after it; launch_decode refuses one of another shape
     before it builds or launches anything."""
     monkeypatch.setattr(port_paged, "_sm_count", lambda device: 132)
-    n_q, n_kv, hd, dtype, width = WORKSPACE_CASES[case]
+    n_q, n_kv, hd, dtype, width, plan = WORKSPACE_CASES[case]
     batch = 8 if case.endswith("b8_bf16") else 1
     q = torch.zeros(batch, n_q, hd, dtype=dtype)
     k = torch.zeros(n_kv, batch * width, PAGE, hd, dtype=dtype)
@@ -218,6 +220,11 @@ def test_decode_workspace_layout(case, monkeypatch):
     bf16 = dtype == torch.bfloat16
     n_chunks, rows = port_paged.group_chunks(n_q // n_kv, hd, bf16)
     _, n_splits = port_paged._plan(132, dtype, batch, n_kv, width, PAGE, n_q // n_kv, hd)
+    if plan == "decode_plan":
+        assert n_splits == port_paged.decode_plan(batch, n_kv, width, PAGE, 132, n_q // n_kv, hd,
+                                                  page_dtype=dtype)[1]
+    else:
+        assert n_splits == port_paged.old_body_splits(batch, n_kv, width, 132, n_q // n_kv, hd)
     assert m.shape == l.shape == (batch, n_kv * n_chunks, n_splits, rows)
     assert acc.shape == m.shape + (hd,)
     assert all(t.dtype == torch.float32 and t.is_contiguous() for t in (m, l, acc))

@@ -210,23 +210,30 @@ def test_decode_plan(case):
 @pytest.mark.parametrize("batch, width, want",
                          [(8, 129, 5), (1, 128, 33), (1, 2, 2), (64, 256, 1)])
 def test_old_body_splits_keep_two_ctas_per_sm(batch, width, want):
-    """f32 q (on f32 or int8 pages) keeps the first port's split rule
-    (about two CTAs per SM)."""
+    """f32 q above head_dim 256 (on f32 or int8 pages, the first wide
+    body) keeps the first port's split rule (about two CTAs per SM over the
+    tuples; at one slab, as here, those of head_dim 128)."""
     assert port_paged.old_body_splits(batch, 8, width, 132) == want
 
 
 @pytest.mark.parametrize("case", sorted(PLAN_CASES))
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
-def test_launch_plan_follows_q_dtype(case, q_dtype):
-    """bf16 q runs the Hopper body on bf16 and on int8 pages alike and takes
-    decode_plan; f32 q keeps the old body: old_body_splits, no cluster. The
-    page format does not enter the plan: both formats stage 64 tokens."""
+@pytest.mark.parametrize("int8", [False, True], ids=["q_pages", "int8_pages"])
+@pytest.mark.parametrize("hd", [64, 100, 128, 256])
+def test_launch_plan_follows_q_dtype(case, q_dtype, int8, hd):
+    """Up to head_dim 256 bf16 q and f32 q run the Hopper body on pages of
+    their dtype and on int8 pages alike and take decode_plan, its splits
+    capped at the page format's ring stages: 64 tokens, but 32 on f32 pages
+    at the padded widths 128 and 256."""
     batch, n_kv, width, page, n_sms = PLAN_CASES[case]
-    got = port_paged._plan(n_sms, q_dtype, batch, n_kv, width, page)
-    if q_dtype == torch.bfloat16:
-        assert got == port_paged.decode_plan(batch, n_kv, width, page, n_sms)
-    else:
-        assert got == (1, port_paged.old_body_splits(batch, n_kv, width, n_sms))
+    got = port_paged._plan(n_sms, q_dtype, batch, n_kv, width, page, head_dim=hd, int8=int8)
+    page_dtype = torch.int8 if int8 else q_dtype
+    assert got == port_paged.decode_plan(batch, n_kv, width, page, n_sms, head_dim=hd,
+                                         page_dtype=page_dtype)
+    stage = 32 if page_dtype == torch.float32 and hd > 64 else 64
+    assert port_paged.stage_tokens(hd, page_dtype) == stage
+    cluster, n_splits = got
+    assert 1 <= cluster <= n_splits <= max(1, min(width, width * page // stage))
 
 
 _CTYPE = {"ptr": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
@@ -342,12 +349,21 @@ def test_decode_plan_counts_group_chunks(case):
     # Split no further than one CTA per SM, counting the chunk axis.
     if triples < n_sms:
         assert triples * max(cluster, n_splits) <= n_sms
-    splits32 = port_paged.old_body_splits(batch, n_kv, width, n_sms, group)
-    assert 1 <= splits32 <= width and (splits32 == 1 or triples * (splits32 - 1) < 2 * n_sms)
-    assert port_paged._plan(n_sms, torch.bfloat16, batch, n_kv, width, page, group) == (
-        cluster, n_splits)
-    assert port_paged._plan(n_sms, torch.float32, batch, n_kv, width, page, group) == (
-        1, splits32)
+    assert port_paged._plan(n_sms, torch.bfloat16, batch, n_kv, width, page, group,
+                            head_dim=hd) == port_paged.decode_plan(batch, n_kv, width, page,
+                                                                   n_sms, group, hd)
+    # f32 q takes the same plan at its own stage: the chunks are bf16 q's
+    # up to head_dim 256, and 32-token stages on f32 pages at 128.
+    assert port_paged.group_chunks(group, hd, False) == port_paged.group_chunks(group, hd)
+    for int8 in (False, True):
+        page_dtype = torch.int8 if int8 else torch.float32
+        c32, n32 = port_paged.decode_plan(batch, n_kv, width, page, n_sms, group, hd,
+                                          page_dtype=page_dtype)
+        assert port_paged._plan(n_sms, torch.float32, batch, n_kv, width, page, group,
+                                head_dim=hd, int8=int8) == (c32, n32)
+        assert 1 <= c32 <= n32 <= width and c32 & (c32 - 1) == 0 and c32 <= 8
+        if triples < n_sms:
+            assert triples * max(c32, n32) <= n_sms
 
 
 def test_group_chunks_cover_every_group():
@@ -455,6 +471,59 @@ def test_ctypes_argtypes_match_c_signatures(fn_name):
     sigs = _c_signatures()
     assert sorted(sigs) == sorted({**port_paged._ARGTYPES, **port_flash._ARGTYPES})
     assert sigs[fn_name] == {**port_paged._ARGTYPES, **port_flash._ARGTYPES}[fn_name]
+
+
+def test_every_decode_up_to_256_runs_the_hopper_body():
+    """No instantiation of the first port's decode body remains, f32 q's
+    included: paged_decode_common.cuh keeps only the shared helpers, both
+    decode sources launch the Hopper body's kernels for every (q dtype, page
+    format), and kvt_paged_decode takes a cluster whatever q's dtype."""
+    common = (_CSRC / "paged_decode_common.cuh").read_text()
+    assert not re.search(r"\b(attend_range|DecodeSmem)\b", common)
+    for name, kernel, dispatch in (
+            ("paged_decode", "paged_decode_cluster_kernel", "dispatch_cluster"),
+            ("paged_decode_tiled", "split_decode_sm90_kernel", "dispatch_sm90")):
+        src = (_CSRC / f"{name}.cu").read_text()
+        assert not re.search(r"\b(paged_decode_kernel|split_decode_kernel)\b", src)
+        assert "sm90::attend_range<TQ, TKV, HD, ROWS, BULK>(" in src
+        assert f"{kernel}<TQ, TKV, HD, ROWS, BULK>;" in src
+        for q, kv in (("__nv_bfloat16", "int8_t"), ("__nv_bfloat16", "__nv_bfloat16"),
+                      ("float", "int8_t"), ("float", "float")):
+            assert f"{dispatch}<{q}, {kv}>(a)" in src
+    entry = (_CSRC / "paged_decode.cu").read_text()
+    entry = entry[entry.index('extern "C" int kvt_paged_decode('):]
+    entry = entry[entry.index("  if ("):]  # the body's first statement: the refusal
+    refusal = entry[:entry.index("return static_cast<int>(cudaErrorInvalidValue);")]
+    assert "cluster > 8" in refusal and "dtype" not in refusal
+
+
+_STAGE_FORMATS = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def _c_stage_table() -> dict:
+    """csrc/paged_decode_sm90.cuh's kStageTokens as {page dtype: {padded
+    head_dim: tokens}}, its rows named by their comments."""
+    src = (_CSRC / "paged_decode_sm90.cuh").read_text()
+    body = re.search(r"constexpr int kStageTokens\[3\]\[3\] = \{(.*?)\n\};", src, re.S)
+    rows = re.findall(r"\{(\d+), (\d+), (\d+)\},\s*// (\w+)", body.group(1))
+    assert [r[3] for r in rows] == list(_STAGE_FORMATS)
+    # format_of maps the page types onto those rows in that order.
+    assert ("std::is_same<TKV, int8_t>::value ? 0 : std::is_same<TKV, __nv_bfloat16>::value "
+            "? 1 : 2") in src
+    return {_STAGE_FORMATS[r[3]]: dict(zip((64, 128, 256), map(int, r[:3]))) for r in rows}
+
+
+@pytest.mark.parametrize("fmt", sorted(_STAGE_FORMATS))
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_stage_tokens_mirror_the_c_table(fmt, hd):
+    """decode_plan's cap reads STAGE_TOKENS, the Python copy of the Hopper
+    body's stage table (tier-1 cannot build the library): equal entry for
+    entry, and every head_dim takes its padded width's entry."""
+    page_dtype = _STAGE_FORMATS[fmt]
+    assert port_paged.STAGE_TOKENS[page_dtype][hd] == _c_stage_table()[page_dtype][hd]
+    lo = {64: 1, 128: 65, 256: 129}[hd]
+    assert {port_paged.stage_tokens(d, page_dtype) for d in range(lo, hd + 1)} == {
+        port_paged.STAGE_TOKENS[page_dtype][hd]}
 
 
 def test_paged_attention_bad_grouping_raises():
