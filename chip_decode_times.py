@@ -24,7 +24,8 @@ Nine readings (all by default):
     two batch-8 and serving decode shapes and row 5 at the serving prefill
     chunk (512 new tokens after 1,024 cached), at phase 21's attention shape
     (4/2 heads of 512) and at head_dim 576 with group 16 (WIDE_SHAPES), with
-    SDPA (its MATH path at these head dims) and the bound beside each;
+    the plain version, SDPA (its MATH path at these head dims) and the bound
+    beside each;
   - steps: phase 6's batch-8 x 2,048 flagship decode step (pipelined, bf16
     pages and int8 pages): wall time (median of 30 CUDA-event-timed calls),
     device kernel time and launches (torch.profiler);
@@ -36,7 +37,7 @@ Nine readings (all by default):
     SDPA, bound);
   - beyond: at chip_smoke.py's BEYOND_SHAPES (head dims 1,280 at group 8 and
     2,304), rows 1 and 2 at batch 8 x 2,048 and row 5 at the serving chunk
-    (kernel, SDPA, bound);
+    (kernel, plain version, SDPA, bound);
   - combine: the four decode rows at the batch-8 x 2,048 and serving decode
     shapes at the Qwen2.5-7B, Qwen2.5-0.5B, OpenLLaMA-3B and 4/2 x 512
     attention shapes (`COMBINE_TIMED`; the flagship's are the kernels
@@ -48,10 +49,12 @@ Nine readings (all by default):
   - f32: the four decode rows with f32 q, on f32 pages (rows 1 and 3) and
     on int8 pages (rows 2 and 4), at the three decode shapes of the
     flagship's heads, at Qwen2.5-7B's and -0.5B's heads at batch 8 x 2,048
-    and the serving shape, and at OpenLLaMA-3B's at batch 8 (`F32_TIMED`),
+    and the serving shape, at OpenLLaMA-3B's at batch 8, and at phase 21's
+    4/2 heads of 512 at batch 8 x 2,048 and the serving shape (`F32_TIMED`),
     cold in L2 and graph-timed: kernel, plain version, SDPA over the K/V
     gathered in f32 (the backend named), and the bound; then row 5 in f32
-    at a 2,048-token chunk and the serving chunk (kernel, plain, SDPA, the
+    at a 2,048-token chunk and the serving chunk of the flagship's heads and
+    at the serving chunk of 4/2 heads of 512 (kernel, plain, SDPA, the
     bound at the card's f32 rate outside the tensor cores).
 
 The kernels of the timed package are built into this checkout's
@@ -128,19 +131,20 @@ SASS_SOURCES = ("paged_decode", "paged_decode_tiled", "flash_prefill")
 
 
 def time_wide(smoke, gen) -> dict:
-    """Rows 1, 2 and 5 at WIDE_TIMED: kernel, SDPA, bound (chip_smoke's)."""
+    """Rows 1, 2 and 5 at WIDE_TIMED: kernel, plain version, SDPA, bound
+    (chip_smoke's)."""
     out = {}
     for shape in WIDE_TIMED:
         n_q, n_kv, hd = smoke.WIDE_SHAPES[shape]
-        rows = {dshape: {row: smoke.time_decode(gen, row, dshape, plain=False, n_q=n_q,
+        rows = {dshape: {row: smoke.time_decode(gen, row, dshape, n_q=n_q,
                                                 n_kv=n_kv, hd=hd, combine=False)
                          for row in ("paged_decode", "paged_decode_int8")}
                 for dshape in ("B=8 ctx=2048", "B=1 ctx=1536 table=2048")}
         rows["flash_prefill serving"] = smoke.time_prefill(gen, *smoke.PREFILL_SERVING_SHAPE,
                                                            n_q=n_q, n_kv=n_kv, hd=hd)
         out[shape] = {
-            case: {row: {k: t[k] for k in ("ms", "library_ms", "library_backend", "bound_ms",
-                                           "max_abs_err")}
+            case: {row: {k: t[k] for k in ("ms", "plain_ms", "library_ms", "library_backend",
+                                           "bound_ms", "max_abs_err")}
                    for row, t in rows[case].items()} if case != "flash_prefill serving"
             else {k: rows[case][k] for k in ("ms", "plain_ms", "library_ms", "library_backend",
                                              "bound_ms", "gflop", "max_abs_err")}
@@ -162,15 +166,16 @@ def time_narrow_flash(smoke, gen) -> dict:
 
 
 def time_beyond(smoke, gen) -> dict:
-    """Rows 1, 2 (batch 8 x 2,048) and 5 (the serving chunk) at BEYOND_SHAPES."""
+    """Rows 1, 2 (batch 8 x 2,048) and 5 (the serving chunk) at BEYOND_SHAPES:
+    kernel, plain version, SDPA, bound."""
     out = {}
     for shape, (n_q, n_kv, hd) in smoke.BEYOND_SHAPES.items():
-        rows = {row: smoke.time_decode(gen, row, "B=8 ctx=2048", plain=False, n_q=n_q,
+        rows = {row: smoke.time_decode(gen, row, "B=8 ctx=2048", n_q=n_q,
                                        n_kv=n_kv, hd=hd, combine=False)
                 for row in ("paged_decode", "paged_decode_int8")}
         rows["flash_prefill serving"] = smoke.time_prefill(gen, *smoke.PREFILL_SERVING_SHAPE,
                                                            n_q=n_q, n_kv=n_kv, hd=hd)
-        out[shape] = {row: {k: t[k] for k in ("ms", "library_ms", "bound_ms")}
+        out[shape] = {row: {k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
                       for row, t in rows.items()}
     return out
 
@@ -244,6 +249,7 @@ F32_TIMED = {
     "qwen2.5-7b": ("B=8 ctx=2048", "B=1 ctx=1536 table=2048"),
     "qwen2.5-0.5b": ("B=8 ctx=2048", "B=1 ctx=1536 table=2048"),
     "openllama-3b": ("B=8 ctx=2048",),
+    "flagship-heads-512": ("B=8 ctx=2048", "B=1 ctx=1536 table=2048"),
 }
 F32_KEYS = ("ms", "plain_ms", "library_ms", "library_backend", "bound_ms", "mbytes",
             "max_abs_err")
@@ -264,8 +270,13 @@ def time_f32(smoke, gen) -> dict:
                 t = smoke.time_decode(gen, row, dshape, n_q=n_q, n_kv=n_kv, hd=hd, combine=False,
                                       dtype=torch.float32)
                 rows[row] = {k: t[k] for k in F32_KEYS}
-    for name, shape in (("L=S=2048", (2048, 2048, 0)), ("serving", smoke.PREFILL_SERVING_SHAPE)):
-        t = smoke.time_prefill(gen, *shape, dtype=torch.float32)
+    flash = (("L=S=2048", (2048, 2048, 0), "flagship"),
+             ("serving", smoke.PREFILL_SERVING_SHAPE, "flagship"),
+             (f"{smoke.WIDE_HEAD_MODEL} serving", smoke.PREFILL_SERVING_SHAPE,
+              smoke.WIDE_HEAD_MODEL))
+    for name, shape, model in flash:
+        n_q, n_kv, hd = shapes[model]
+        t = smoke.time_prefill(gen, *shape, n_q=n_q, n_kv=n_kv, hd=hd, dtype=torch.float32)
         out[f"flash_prefill {name}"] = {k: t[k] for k in (*F32_KEYS, "gflop") if k != "mbytes"}
     return out
 

@@ -33,6 +33,10 @@ kernel sources, written only under the package's build/planted/ directory:
     by the bf16 (wgmma) kernel;
   - flash_prefill_diagonal: the k-block on each q-block's causal diagonal
     takes the unmasked interior path, so rows see future keys;
+  - flash_prefill_f32 (the f32 flash kernel up to head dim 256,
+    `flash_prefill_f32_kernel`): every key of each q-block's second live
+    key block is masked, as if the block were skipped. It must fail the f32
+    flash cases and no bf16 case;
   - decode_sm90_hd64_cols (both decode sources for bf16 q, both page
     formats): at head_dim 64 the last lane of each half-warp leaves its 4
     columns out of P @ V, so columns 60-63 of every output row stay 0.
@@ -176,10 +180,12 @@ printed beside its bar, then one JSON summary line. Exits non-zero unless
 the real kernels pass every case and every logits bar, and each mutant
 fails the main-shape case (batch 8, page 16, no window) and the logits bar
 of every kernel it targets. The main-shape case is the bf16 one, except for
-the two faults planted in the f32-q instantiation, which bf16 q never
-reaches: they are held to the f32 case of each row they target
-("paged_decode f32 page=16 window=None B=8" and its three siblings) and to
-no logits bar (the flagship logits run in bf16).
+the faults planted in f32-only code, which bf16 never reaches: the two in
+the f32-q instantiation of the decode body and the f32 flash fault. They
+are held to the f32 case of each row they target ("paged_decode f32
+page=16 window=None B=8" and its three siblings; "flash_prefill f32 L=S=2048
+off=0") and to no logits bar (the flagship logits run in bf16), and must
+fail no bf16 case.
 """
 
 from __future__ import annotations
@@ -274,6 +280,12 @@ MUTANTS = {
         "const int k0 = j * kBK;",
         "const int k0 = j * kBK;\n    if (j == first_blk + 1) continue;",
         ("flash_prefill",), "bf16",
+    ),
+    "flash_prefill_f32": (
+        ("flash_prefill",), "flash_prefill.cu",
+        "const int kw0 = k0 + kh * kKW;",
+        "const int kw0 = k0 + kh * kKW + (it == 1 ? 1 << 28 : 0);",
+        ("flash_prefill",), "f32",
     ),
     "flash_prefill_diagonal": (
         ("flash_prefill",), "flash_prefill.cu",
@@ -1142,7 +1154,7 @@ def main() -> int:
             logits_ok[label] = run_decode_logits(label, targets, *models[MUTANT_MODEL[name]])
         elif name in MUTANT_SHAPE:
             pass  # no logits bar (MUTANT_SHAPE)
-        elif targets == ("flash_prefill",):
+        elif targets == ("flash_prefill",) and dtype == "bf16":
             logits_ok[label] = run_prefill_logits(label, params, cfg, params32, cfg32)
         elif dtype == "bf16":
             logits_ok[label] = run_decode_logits(label, targets, params, cfg, params32, cfg32)
@@ -1259,6 +1271,11 @@ def main() -> int:
         for name, (*_, targets, dtype) in MUTANTS.items() for kernel in targets
     }
     caught = {key: not r["ok"] for key, r in main_rows.items()}
+    # A fault planted in f32-only code must leave every bf16 case passing.
+    f32_faults_spare_bf16 = {
+        name: all(r["ok"] for r in rows
+                  if r["variant"] == f"{name}-mutant" and r["case"].split()[1] == "bf16")
+        for name, (*_, dtype) in MUTANTS.items() if dtype == "f32"}
     logits_caught = {label: not any(ok.values())
                      for label, ok in logits_ok.items() if label != "real"}
     worst = {}
@@ -1268,6 +1285,7 @@ def main() -> int:
             worst[key] = max(worst.get(key, 0.0), r["row_rel_err"])
     chip_smoke.log(json.dumps({
         "real_ok": real_ok, "mutant_caught_at_main_shape": caught,
+        "f32_faults_spare_bf16": f32_faults_spare_bf16,
         "mutant_row_rel_err_at_main_shape": {
             kernel: r["row_rel_err"] for kernel, r in main_rows.items()},
         "mutant_caught_by_logits": logits_caught,
@@ -1288,6 +1306,7 @@ def main() -> int:
         "bf16_row_rel_limits": chip_smoke.BF16_ROW_REL,
     }))
     return 0 if (real_ok and all(caught.values()) and all(logits_caught.values())
+                 and all(f32_faults_spare_bf16.values())
                  and all(bar_caught.values()) and host_tier_caught
                  and all(serving_caught.values()) and all(read_plane_caught.values())
                  and all(resilience_caught.values()) and all(proactive_caught.values())

@@ -59,9 +59,46 @@
 // two consumer warpgroups in ping-pong behind mbarriers (the head dims above
 // 256 have the producer warpgroup and the mbarriers: below).
 //
-// The f32 instantiation (checks and small f32 pods) keeps the first port's
-// CUDA-core structure: scores, probabilities and output in shared memory,
-// at the same head dims as the bf16 kernel.
+// f32 design (f32 pods and the checks; namespace f32). The FMAs are f32 on
+// the CUDA cores: TF32 would round the operands to a 10-bit mantissa, which
+// an f32 result cannot carry. Bound on this card: operations, at 67 TFLOP/s
+// outside the tensor cores (the serving chunk's 5.37 GFLOP: 0.080 ms). The
+// first port's f32 body kept S, P and O in shared memory, loaded every
+// operand there one float at a time, passed four barriers a k-block and
+// requested block j + 1 only once block j was done: 11-12 TFLOP/s on an
+// H100. Here, up to head_dim 256 (`flash_prefill_f32_kernel`):
+//  - 8 warps own the CTA's 64 rows. Up to 128 two warps share a row group
+//    of 16 rows, each taking one half of every 128-key block with its own
+//    m, l and O (the halves merge once, after the last block); at 256 the
+//    blocks are 64 keys and a warp owns 8 rows. So a warp's rows are whole
+//    in it: the row max takes three or four shuffles, and P goes from S's
+//    lanes to O's through the warp's own rows of shared memory.
+//  - Both products are register-tiled, on different lane grids: of S a lane
+//    holds 4 rows by 8 keys (4 by 4 at 256), of O 8 rows by 8 columns (4 at
+//    64), the whole k-loop. Q, K and V lie in shared memory with rows
+//    padded by 4 floats, so every 16-byte load of a warp takes the fewest
+//    wavefronts its bytes allow; a float loaded feeds 2.67 FMAs in S and 4
+//    in P V. The online softmax runs on registers in the exp2 domain with
+//    log2(e)/sqrt(hd) folded into one scale; O is rescaled in registers by
+//    its rows' alpha, read back from shared memory beside P.
+//  - K and V have a buffer each: V of block j is requested at the block's
+//    first barrier and lands while S runs, K of block j + 1 at its second
+//    and lands while P V runs (a block of 128 keys has two handoffs: one a
+//    64 keys). Each thread copies fixed 16-byte columns, one pointer step a
+//    copy, where a row is the padded width. 206 KB of shared memory at HD
+//    128 leaves one CTA an SM: the serving chunk has 128 CTAs for 132 SMs,
+//    so a second slot would stand empty there, and the room goes to
+//    128-key blocks, which give each lane of S twice the keys of 64-key
+//    blocks.
+//  - Only the keys of a block that cross one of the row group's limits are
+//    masked; blocks above the diagonal or below the window are neither
+//    loaded nor computed; the grid walks the heaviest q-blocks first.
+// It runs at 2.5-3x the first port's rate on an H100 (28.8-31.6 TFLOP/s,
+// 43-47% of the f32 rate). The likely limit is the shared-memory load
+// pipe: if an LDS.128 returns 512 bytes a warp whatever its broadcast, S at
+// 2.67 FMAs a float waits on it. 4 FMAs a float would take 8 x 8 tiles of S
+// a lane, so 256-key blocks at 64 rows a CTA: 270 KB of f32 K and V at
+// head_dim 128, past the 227 KB a CTA can have.
 //
 // Head dims: both kernels are built at the padded widths 64, 128 and 256
 // (HD) and take the true head_dim (hd, any >= 1) at run time. At hd == HD
@@ -75,8 +112,7 @@
 // to a score, the P V product runs at the padded width, and only the true
 // columns are stored. At HD 256 the bf16 tiles are 64 keys (kBK): two
 // warpgroups' Q (64 KB) and two stages of K and V (128 KB) fit shared
-// memory, and O (128 f32 a thread) is two m64n128 products a k-step; the f32
-// kernel's k-blocks are 32 keys there.
+// memory, and O (128 f32 a thread) is two m64n128 products a k-step.
 //
 // Above 256 (288, 300, 512, 576, 1,024, ...) neither fits: at hd 512 one
 // warpgroup's Q (64 KB) and two stages of 64-key K/V tiles (128 KB each)
@@ -124,9 +160,12 @@
 // slab of O, walking Q's and K's panels through a two-stage ring of P + 1
 // stages a 64-key block (S accumulates over the panels in registers), then
 // V's slab. It reads Q again from L2 each block and K once a slab, and
-// computes S once a slab. The f32 kernel walks the head dim's panels
-// through its HD-256 shared-memory plan, a CTA per slab. Every head dim
-// runs in both dtypes.
+// computes S once a slab. Above 256 the f32 kernel is
+// `flash_prefill_f32_panel_kernel`: a CTA a slab of O, S over every panel
+// (so S is computed once a slab: 1.5x the FLOPs at 512), 32-key K panels
+// and V's slab streamed through a ring of two slots with a barrier a tile,
+// Q's two panels resident at 512 and streamed beside K's above, the lane
+// grids of the HD-256 plan. Every head dim runs in both dtypes.
 //
 // GQA: a group of g query heads folds into a tile's rows as (position, head)
 // pairs, floor(R / gc) positions a CTA of R = 64 or 128 rows (a group of 7:
@@ -1355,274 +1394,580 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, const void*
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
-// f32: CUDA-core FMAs, scores / probabilities / output in shared memory.
+// f32: register-tiled CUDA-core FMAs, the softmax on registers, K/V on a
+// cp.async ring (the design note at the top of this file).
 
 namespace f32 {
 
-constexpr int kRows = 64;  // q rows per CTA (positions x group heads)
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 64;  // tile rows per CTA (positions x group heads)
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
 
-// Shared-memory plan, rows padded by 16 bytes against bank conflicts; at
-// HD 256 32-key blocks, so that it fits.
-template <int HD>
-struct FlashSmem {
-  static constexpr int kBK = HD > 128 ? 32 : 64;  // keys per k-block
-  static constexpr int LQ = HD + 4;        // q/k/v rows, floats
-  static constexpr int LS = kBK + 4;       // score and probability rows
-  static constexpr int LO = HD + 4;        // output accumulator rows
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + sizeof(float) * kRows * LQ;
-  static constexpr size_t v_off = k_off + sizeof(float) * kBK * LQ;
-  static constexpr size_t s_off = v_off + sizeof(float) * kBK * LQ;
-  static constexpr size_t p_off = s_off + sizeof(float) * kRows * LS;
-  static constexpr size_t o_off = p_off + sizeof(float) * kRows * LS;
-  static constexpr size_t m_off = o_off + sizeof(float) * kRows * LO;
-  static constexpr size_t bytes = m_off + sizeof(float) * 2 * kRows;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The CTA's share of the grid. Grid x is (kv head, chunk of gc query heads,
+// slab), y the batch row, z the q-block, heaviest (most keys) first. Row r
+// (0 .. kRows - 1) of the tile is query position q0 + r / gc of query head
+// head0 + r % gc. Above head_dim 256 the CTA writes O's slab `slab` of
+// kPanel columns, and S sums over n_pan panels.
+struct Cta {
+  int n_pan, slab, h, head0, hc, b, gc, rows_used, q0, q_last, off;
+  __device__ Cta(const int* offsets, int offset, int q_len, int group, int gc_, int hd, bool panels)
+      : n_pan(panels ? n_panels(hd) : 1), gc(gc_) {
+    slab = blockIdx.x % n_pan;
+    const int n_gc = (group + gc - 1) / gc;
+    h = blockIdx.x / n_pan / n_gc;
+    head0 = h * group + (blockIdx.x / n_pan % n_gc) * gc;
+    hc = min(gc, (h + 1) * group - head0);
+    b = blockIdx.y;
+    const int block_q = kRows / gc;  // query positions per CTA
+    rows_used = block_q * gc;
+    q0 = (gridDim.z - 1 - blockIdx.z) * block_q;
+    q_last = min(q0 + block_q, q_len) - 1;
+    off = offsets != nullptr ? offsets[b] : offset;
+  }
+  __device__ bool live(int r) const {
+    return r < rows_used && q0 + r / gc <= q_last && r % gc < hc;
+  }
+  __device__ size_t q_row(int r, int q_len, int n_q) const {
+    return (static_cast<size_t>(b) * q_len + q0 + r / gc) * n_q + head0 + r % gc;
+  }
+  // Key blocks of kBN keys some row attends: the first, and how many (<= 0: none).
+  __device__ int first_block(int window, int kBN) const {
+    return (window < 0 ? 0 : max(q0 + off - window + 1, 0)) / kBN;
+  }
+  __device__ int n_blocks(int window, int kv_len, int kBN) const {
+    return min(q_last + off, kv_len - 1) / kBN - first_block(window, kBN) + 1;
+  }
+  // Rows r0 .. r0 + n - 1: the keys every live one of them attends, [lo, hi].
+  __device__ void common_keys(int r0, int n, int window, int kv_len, int& lo, int& hi) const {
+    const int p0 = q0 + r0 / gc;
+    const int p1 = min(q0 + (min(r0 + n, rows_used) - 1) / gc, q_last);
+    hi = min(p0 + off, kv_len - 1);
+    lo = window < 0 ? 0 : p1 + off - window + 1;
+  }
+  // Row r's key range [lo, hi] (hi = -1: a dead row).
+  __device__ void keys(int r, int window, int kv_len, int& lo, int& hi) const {
+    const int pos = q0 + r / gc;
+    hi = live(r) ? min(pos + off, kv_len - 1) : -1;
+    lo = window < 0 ? 0 : pos + off - window + 1;
+  }
 };
 
-// S[kRows][kBK] (+)= Q[kRows][HD] @ K[kBK][HD]^T (unscaled; `accumulate`:
-// added to S, a later panel of a head dim above 256); a 16 x 16 thread grid,
-// each thread a 4 x (kBK / 16) block of scores.
-template <int HD>
-__device__ __forceinline__ void scores_tile(const float* qs, const float* ks, float* ss,
-                                            int tid, bool accumulate) {
-  using SM = FlashSmem<HD>;
-  constexpr int kC = SM::kBK / 16;
-  const int r0 = (tid / 16) * 4;
-  const int c0 = (tid % 16) * kC;
-  float acc[4][kC] = {};
-  for (int d = 0; d < HD; ++d) {
-    float a[4], b[kC];
+// Panel p of `rows` rows of src (row r at row_of(r) * hd elements) into
+// dst, rows kLD floats apart, in pieces of G bytes (16 at hd == HD); a piece
+// past hd or a row that live(r) refuses is zero-filled. Not committed.
+template <int HD, int kLD, typename RowOf, typename Live>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src, int rows, int p,
+                                          int row_bytes, RowOf row_of, Live live) {
+  with_piece<4>(row_bytes, [&](auto piece) {
+    constexpr int G = decltype(piece)::value;
+    constexpr int kPieces = HD * 4 / G;  // pieces of a padded row
+    for (int i = threadIdx.x; i < rows * kPieces; i += kThreads) {
+      const int r = i / kPieces;
+      const int byte = p * HD * 4 + (i % kPieces) * G;
+      const bool ok = live(r) && byte < row_bytes;
+      const unsigned char* g = reinterpret_cast<const unsigned char*>(src) +
+                               (ok ? row_of(r) * static_cast<size_t>(row_bytes) + byte : 0);
+      copy_piece<G>(reinterpret_cast<unsigned char*>(dst + r * kLD) + (i % kPieces) * G, g, ok);
+    }
+  });
+}
+
+// s[i][j] += Q row (qr + i kSA rows) . K row (kr + j kSB rows) over HD
+// columns, rows kLD floats apart: per 4 columns, 4 + kKS float4 loads feed
+// 16 kKS FMAs.
+template <int HD, int kLD, int kSA, int kSB, int kKS>
+__device__ __forceinline__ void scores(float (&s)[4][kKS], const float* qr, const float* kr) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = qs[(r0 + i) * SM::LQ + d];
+  for (int d = 0; d < HD; d += 4) {
+    float4 qv[4], kv[kKS];
 #pragma unroll
-    for (int j = 0; j < kC; ++j) b[j] = ks[(c0 + j) * SM::LQ + d];
+    for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(qr + kSA * i * kLD + d);
+#pragma unroll
+    for (int j = 0; j < kKS; ++j) kv[j] = *reinterpret_cast<const float4*>(kr + kSB * j * kLD + d);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < kC; ++j) acc[i][j] += a[i] * b[j];
+      for (int j = 0; j < kKS; ++j) {
+        s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+        s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+        s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+        s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+      }
   }
+}
+
+// Keys kw0 + sb + kSB j outside a row's [lo, hi] get -inf.
+template <int kSB, int kKS>
+__device__ __forceinline__ void mask_keys(float (&s)[4][kKS], int kw0, int sb, const int (&lo)[4],
+                                          const int (&hi)[4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < kC; ++j) {
-      float* dst = ss + (r0 + i) * SM::LS + c0 + j;
-      *dst = accumulate ? *dst + acc[i][j] : acc[i][j];
+    for (int j = 0; j < kKS; ++j) {
+      const int kp = kw0 + sb + kSB * j;
+      if (kp > hi[i] || kp < lo[i]) s[i][j] = -INFINITY;
     }
 }
 
-// O[kRows][HD] += P[kRows][kBK] @ V[kBK][HD]; an 8 x 32 thread grid, each
-// thread 8 rows x (HD / 32) columns.
-template <int HD>
-__device__ __forceinline__ void pv_tile(const float* ps, const float* vs, float* os, int tid) {
-  using SM = FlashSmem<HD>;
-  constexpr int kCols = HD / 32;
-  const int r0 = (tid / 32) * 8;
-  const int c0 = (tid % 32) * kCols;
-  float acc[8][kCols];
+// Online softmax in the exp2 domain over a lane's 4 rows, each spread over
+// kSB lanes (shuffles within them): s (raw scores, -inf where masked)
+// becomes P, m (running max, log2 domain) and l (this lane's share of the
+// row sum) update, and P goes to the warp's P rows (pr: row 0 of the lane's
+// first, rows kSA apart; key column j at kSB j) and each row's rescale to
+// `alpha_rows` (lanes with key lane 0).
+template <int kSA, int kSB, int kKS, int kLP>
+__device__ __forceinline__ void softmax(float (&s)[4][kKS], float (&m)[4], float (&l)[4],
+                                        float scale_log2, float* pr, float* alpha_rows,
+                                        bool key_lane0) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 4; ++i) {
+    float mx = s[i][0];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = os[(r0 + i) * SM::LO + c0 + j];
-  for (int t = 0; t < SM::kBK; ++t) {
-    float vv[kCols];
+    for (int j = 1; j < kKS; ++j) mx = fmaxf(mx, s[i][j]);
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) vv[j] = vs[t * SM::LQ + c0 + j];
+    for (int x = 1; x < kSB; x <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+    const float m_new = fmaxf(m[i], mx * scale_log2);
+    // A row still fully masked keeps m == -inf: pin the rescale to 0
+    // (-inf - -inf is NaN) and shift by 0 instead of m_new.
+    const float alpha = m_new == -INFINITY ? 0.f : ex2(m[i] - m_new);
+    const float shift = m_new == -INFINITY ? 0.f : m_new;
+    m[i] = m_new;
+    float sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float p = ps[(r0 + i) * SM::LS + t];
+    for (int j = 0; j < kKS; ++j) {
+      const float p = ex2(fmaf(s[i][j], scale_log2, -shift));
+      pr[kSA * i * kLP + kSB * j] = p;
+      sum += p;
+    }
+    l[i] = fmaf(alpha, l[i], sum);
+    if (key_lane0) alpha_rows[kSA * i] = alpha;
+  }
+}
+
+// O (8 rows, kOA rows apart; kC4 float4 columns, 4 kOB apart) *= its rows'
+// alpha, then += P V over kKW keys: per 4 keys, 8 float4 loads of P and
+// 4 kC4 of V feed 128 kC4 FMAs.
+template <int kKW, int kLD, int kLP, int kOA, int kOB, int kC4>
+__device__ __forceinline__ void accumulate(float (&o)[8][4 * kC4], const float* alpha_rows,
+                                           const float* pr, const float* vr) {
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] += p * vv[j];
+  for (int i = 0; i < 8; ++i) {
+    const float a = alpha_rows[kOA * i];
+#pragma unroll
+    for (int c = 0; c < 4 * kC4; ++c) o[i][c] *= a;
+  }
+#pragma unroll 2
+  for (int t = 0; t < kKW; t += 4) {
+    float4 p4[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) p4[i] = *reinterpret_cast<const float4*>(pr + kOA * i * kLP + t);
+#pragma unroll
+    for (int tt = 0; tt < 4; ++tt) {
+#pragma unroll
+      for (int c = 0; c < kC4; ++c) {
+        const float4 vv = *reinterpret_cast<const float4*>(vr + (t + tt) * kLD + 4 * kOB * c);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float p = tt == 0 ? p4[i].x : tt == 1 ? p4[i].y : tt == 2 ? p4[i].z : p4[i].w;
+          o[i][4 * c] = fmaf(p, vv.x, o[i][4 * c]);
+          o[i][4 * c + 1] = fmaf(p, vv.y, o[i][4 * c + 1]);
+          o[i][4 * c + 2] = fmaf(p, vv.z, o[i][4 * c + 2]);
+          o[i][4 * c + 3] = fmaf(p, vv.w, o[i][4 * c + 3]);
+        }
+      }
+    }
+  }
+}
+
+// After the last block: each warp leaves its rows' m and row sum (reduced
+// over the kSB key lanes) in ml[0 .. 2 kRows) and its unnormalized O in
+// mo (rows kLD apart), one buffer per half of the keys; then, after a
+// barrier, the halves merge in a fixed order and the live rows' columns
+// below hd go out, 4 at a time where rows are 16-byte aligned (a row with
+// no valid key writes zeros).
+template <int HD, int kLD, int kHalves>
+__device__ __forceinline__ void merge_store(const Cta& c, const float* mo, const float* ml,
+                                            float* out, int hd, int q_len, int n_q) {
+  for (int e = threadIdx.x; e < kRows * (HD / 4); e += kThreads) {
+    const int r = e / (HD / 4);
+    const int c0 = 4 * (e % (HD / 4));
+    const int gcol = c.slab * HD + c0;  // the output column of c0
+    if (!c.live(r) || gcol >= hd) continue;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int x = 0; x < kHalves; ++x) mx = fmaxf(mx, ml[x * 2 * kRows + r]);
+    float sum = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int x = 0; x < kHalves; ++x) {
+      const float mh = ml[x * 2 * kRows + r];
+      const float w = mh == -INFINITY ? 0.f : exp2f(mh - mx);  // a half with no live key: 0
+      sum = fmaf(w, ml[x * 2 * kRows + kRows + r], sum);
+      const float4 oh = *reinterpret_cast<const float4*>(mo + (x * kRows + r) * kLD + c0);
+      acc[0] = fmaf(w, oh.x, acc[0]);
+      acc[1] = fmaf(w, oh.y, acc[1]);
+      acc[2] = fmaf(w, oh.z, acc[2]);
+      acc[3] = fmaf(w, oh.w, acc[3]);
+    }
+    const float inv = sum == 0.f ? 0.f : 1.f / sum;
+    float* dst = out + c.q_row(r, q_len, n_q) * hd + gcol;
+    if (hd % 4 == 0 && gcol + 3 < hd) {
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(acc[0] * inv, acc[1] * inv, acc[2] * inv, acc[3] * inv);
+    } else {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        if (gcol + x < hd) dst[x] = acc[x] * inv;
+      }
+    }
+  }
+}
+
+// Leave a warp's m, row sums and O for merge_store (see there).
+template <int kLD, int kSA, int kSB, int kOA, int kOB, int kC4>
+__device__ __forceinline__ void stage_partials(float* mo, float* ml, const float (&o)[8][4 * kC4],
+                                               const float (&m)[4], float (&l)[4], int s_row0,
+                                               bool key_lane0, int o_row0, int o_col0) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int x = 1; x < kSB; x <<= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], x);
+    if (key_lane0) {
+      ml[s_row0 + kSA * i] = m[i];
+      ml[kRows + s_row0 + kSA * i] = l[i];
     }
   }
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) os[(r0 + i) * SM::LO + c0 + j] = acc[i][j];
+    for (int c = 0; c < kC4; ++c) {
+      *reinterpret_cast<float4*>(mo + (o_row0 + kOA * i) * kLD + o_col0 + 4 * kOB * c) =
+          make_float4(o[i][4 * c], o[i][4 * c + 1], o[i][4 * c + 2], o[i][4 * c + 3]);
+    }
 }
 
+// Up to head_dim 256 (HD 64, 128, 256; hd <= HD). A warp owns kWarpRows
+// rows of the tile and takes kKW = 64 keys of every key block: up to 128 the
+// blocks are 128 keys and two warps share a row group of 16 rows, one for
+// each half of every block (each keeps its own m, l and O over its keys;
+// the halves merge once, after the last block); at 256 the blocks are 64
+// keys and a warp owns 8 rows (O stays at 64 registers a lane). S and O
+// take different lane grids, so that each float a lane loads feeds as many
+// FMAs as the registers allow: of S a lane holds 4 rows (lane / kSB + kSA
+// i) by kKS keys (lane % kSB + kSB j), of O 8 rows (lane / kOB + kOA i) by
+// kC4 float4 columns (4 (lane % kOB) + 4 kOB c). Q, K and V rows are padded
+// to kLD = HD + 4 floats (rows 1 apart are 4 banks apart) and P's to kLP
+// (32 / kSA banks apart), so every warp access of a phase takes the fewest
+// wavefronts its bytes allow.
 template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
+struct Plan {
+  static constexpr int kBN = HD > 128 ? 64 : 128;   // keys per block
+  static constexpr int kHalves = HD > 128 ? 1 : 2;  // warps sharing a row group
+  static constexpr int kWarpRows = kRows * kHalves / kWarps;
+  static constexpr int kKW = kBN / kHalves;
+  static constexpr int kSA = kWarpRows / 4;
+  static constexpr int kSB = 32 / kSA;
+  static constexpr int kKS = kKW / kSB;
+  static constexpr int kOA = kWarpRows / 8;
+  static constexpr int kOB = 32 / kOA;
+  static constexpr int kC4 = HD / (4 * kOB);
+  static constexpr int kLD = HD + 4;
+  static constexpr int kLP = kKW + 32 / kSA;
+  // Q, one block's K and V (each requested during the other's phase), each
+  // warp's P rows and their rescales. After the last block K's tile holds
+  // the halves' O and Q's their m and l.
+  static constexpr int k_off = kRows * kLD;
+  static constexpr int v_off = k_off + kBN * kLD;
+  static constexpr int p_off = v_off + kBN * kLD;
+  static constexpr int a_off = p_off + kWarps * kWarpRows * kLP;
+  static constexpr size_t bytes = sizeof(float) * (a_off + kWarps * kWarpRows);
+  static_assert(kHalves * kRows <= kBN && kKW == 64 && kC4 >= 1, "the plan's tiles");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1) flash_prefill_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const int* __restrict__ offsets, int offset, float* __restrict__ out, int q_len, int kv_len,
-    int n_q, int n_kv, int group, int gc, int hd, int window, float scale) {
-  using SM = FlashSmem<HD>;
-  constexpr int kBlockK = SM::kBK;
-  constexpr int kPer = kBlockK / 32;  // scores a lane takes in the softmax
-  const int row_bytes = hd * 4;
+    int n_q, int n_kv, int group, int gc, int hd, int window, float scale_log2) {
+  using PL = Plan<HD>;
+  constexpr int kBN = PL::kBN, kKW = PL::kKW, kLD = PL::kLD, kLP = PL::kLP;
+  constexpr int kSA = PL::kSA, kSB = PL::kSB, kKS = PL::kKS;
+  constexpr int kOA = PL::kOA, kOB = PL::kOB, kC4 = PL::kC4;
+  constexpr int kWarpRows = PL::kWarpRows;
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem + SM::q_off);
-  float* ks = reinterpret_cast<float*>(smem + SM::k_off);
-  float* vs = reinterpret_cast<float*>(smem + SM::v_off);
-  float* ss = reinterpret_cast<float*>(smem + SM::s_off);
-  float* ps = reinterpret_cast<float*>(smem + SM::p_off);
-  float* os = reinterpret_cast<float*>(smem + SM::o_off);
-  float* m_s = reinterpret_cast<float*>(smem + SM::m_off);
-  float* l_s = m_s + kRows;
-
+  extern __shared__ __align__(16) float smem[];
+  float* const qs = smem;
+  float* const ks = smem + PL::k_off;
+  float* const vs = smem + PL::v_off;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  // Above head_dim 256 (HD 256): the panels of 256 columns S sums over, and
-  // the slab of O this CTA writes; else one panel.
-  const int n_pan = HD < kPanel ? 1 : n_panels(hd);
-  const int slab = blockIdx.y % n_pan;
-  // Grid y is (kv head, chunk of gc query heads, slab), as in the bf16
-  // kernels.
-  const int n_gc = (group + gc - 1) / gc;
-  const int h = blockIdx.y / n_pan / n_gc;
-  const int head0 = h * group + (blockIdx.y / n_pan % n_gc) * gc;
-  const int hc = min(gc, (h + 1) * group - head0);
-  const int b = blockIdx.z;
-  const int block_q = kRows / gc;  // query positions per CTA
-  const int rows_used = block_q * gc;
-  const int q0 = blockIdx.x * block_q;
-  const int off = offsets != nullptr ? offsets[b] : offset;
+  const int kh = warp / (kWarps / PL::kHalves);               // this warp's half of a block
+  const int r0 = warp % (kWarps / PL::kHalves) * kWarpRows;  // its row group's first row
+  const int sa = lane / kSB, sb = lane % kSB;                // S: rows r0 + sa + kSA i
+  const int oa = lane / kOB, ob = lane % kOB;                // O: rows r0 + oa + kOA i
+  float* const pw = smem + PL::p_off + warp * kWarpRows * kLP;  // this warp's P rows
+  float* const aw = smem + PL::a_off + warp * kWarpRows;        // and their rescales
 
-  // Live k-block range of this q block.
-  const int q_last = min(q0 + block_q, q_len) - 1;
-  const int last_blk = min((q_last + off) / kBlockK, (kv_len - 1) / kBlockK);
-  const int first_blk = window < 0 ? 0 : max(q0 + off - window + 1, 0) / kBlockK;
+  const Cta c(offsets, offset, q_len, group, gc, hd, false);
+  const int row_bytes = hd * 4;
+  const int first_blk = c.first_block(window, kBN);
+  const int n_blocks = c.n_blocks(window, kv_len, kBN);
+  int lo[4], hi[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c.keys(r0 + sa + kSA * i, window, kv_len, lo[i], hi[i]);
+  int lo_all, hi_all;  // keys of a block inside both take no mask
+  c.common_keys(r0, kWarpRows, window, kv_len, lo_all, hi_all);
 
-  // Panel p of Q: row r holds query position q0 + r / gc of query head
-  // head0 + r % gc; columns from hd on are zero.
-  auto load_q = [&](int p) {
-    for (int i = tid; i < kRows * HD; i += kThreads) {
-      const int r = i / HD;
-      const int d = p * HD + i % HD;
-      const int pos = q0 + r / gc;
-      qs[r * SM::LQ + i % HD] =
-          r < rows_used && pos < q_len && r % gc < hc && d < hd
-              ? q[((static_cast<size_t>(b) * q_len + pos) * n_q + head0 + r % gc) * hd + d]
-              : 0.f;
-    }
-  };
-  if (n_pan == 1) load_q(0);
-  for (int i = tid; i < kRows * HD; i += kThreads) os[(i / HD) * SM::LO + i % HD] = 0.f;
-  if (tid < kRows) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-  }
-  __syncthreads();
-
-  // Panel p's columns of rows k0 .. k0 + kBlockK - 1, in pieces of G bytes
-  // (16 at hd == HD), zero past hd and kv_len.
-  auto load_tile = [&](float* dst, const float* src, int k0, int p) {
-    const int col0 = p * HD * 4;  // the panel's first byte in a row
-    with_piece<4>(row_bytes, [&](auto piece) {
-      constexpr int G = decltype(piece)::value;
-      constexpr int kPieces = HD * 4 / G;  // pieces of a padded row
-      for (int i = tid; i < kBlockK * kPieces; i += kThreads) {
-        const int r = i / kPieces;
-        const int w = i % kPieces;
-        const bool ok = k0 + r < kv_len && col0 + w * G < row_bytes;
-        const size_t g = ok ? ((static_cast<size_t>(b) * kv_len + k0 + r) * n_kv + h) * hd : 0;
-        copy_piece<G>(reinterpret_cast<unsigned char*>(dst + r * SM::LQ) + w * G,
-                      reinterpret_cast<const unsigned char*>(src + g) + (ok ? col0 + w * G : 0),
-                      ok);
+  // K or V of the block at key0. At hd == HD thread tid copies the 16-byte
+  // chunk tid % kChunks of rows tid / kChunks + kPass i: one pointer step a
+  // copy; else rows go in pieces (copy_rows).
+  constexpr int kChunks = HD / 4;
+  constexpr int kPass = kThreads / kChunks;
+  const size_t key_stride = static_cast<size_t>(n_kv) * hd;  // floats from key to key
+  const size_t g_thread = (static_cast<size_t>(c.b) * kv_len + tid / kChunks) * key_stride +
+                          static_cast<size_t>(c.h) * hd + tid % kChunks * 4;
+  const int s_thread = tid / kChunks * kLD + tid % kChunks * 4;
+  auto load_tile = [&](float* dst, const float* src, int key0) {
+    if (hd != HD) {
+      copy_rows<HD, kLD>(
+          dst, src, kBN, 0, row_bytes,
+          [&](int r) { return (static_cast<size_t>(c.b) * kv_len + key0 + r) * n_kv + c.h; },
+          [&](int r) { return key0 + r < kv_len; });
+    } else {
+      const float* g = src + g_thread + key0 * key_stride;
+      const bool full = key0 + kBN <= kv_len;
+#pragma unroll
+      for (int i = 0; i < kBN / kPass; ++i) {
+        const bool ok = full || key0 + tid / kChunks + i * kPass < kv_len;
+        cp_async16_zfill(dst + s_thread + i * kPass * kLD, ok ? g + i * kPass * key_stride : src,
+                         ok);
       }
-    });
+    }
     cp_async_commit();
   };
 
-  for (int j = first_blk; j <= last_blk; ++j) {
-    const int k0 = j * kBlockK;
-    // S over the head dim's panels; V's slab rides with the last one.
-    for (int p = 0; p < n_pan; ++p) {
-      if (n_pan > 1) load_q(p);
-      load_tile(ks, k, k0, p);
-      if (p + 1 < n_pan) {
-        cp_async_wait<0>();
-      } else {
-        load_tile(vs, v, k0, slab);
-        cp_async_wait<1>();  // K has landed; V may still be in flight
-      }
-      __syncthreads();
+  copy_rows<HD, kLD>(
+      qs, q, kRows, 0, row_bytes, [&](int r) { return c.q_row(r, q_len, n_q); },
+      [&](int r) { return c.live(r); });
+  cp_async_commit();
+  if (n_blocks > 0) load_tile(ks, k, first_blk * kBN);
 
-      scores_tile<HD>(qs, ks, ss, tid, p > 0);
-      __syncthreads();
-    }
+  float o[8][4 * kC4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int x = 0; x < 4 * kC4; ++x) o[i][x] = 0.f;
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
 
-    // Online softmax: warp w owns rows [8w, 8w + 8), lanes own columns.
-    for (int rr = 0; rr < kRows / kWarps; ++rr) {
-      const int r = warp * (kRows / kWarps) + rr;
-      const int pos = q0 + r / gc;
-      const bool row_ok = r < rows_used && pos < q_len && r % gc < hc;
-      const int q_abs = pos + off;
-      const float m_prev = m_s[r];
-      float s[kPer];
-      bool valid[kPer];
-#pragma unroll
-      for (int u = 0; u < kPer; ++u) {
-        const int kp = k0 + lane + 32 * u;
-        valid[u] = row_ok && kp <= q_abs && kp < kv_len && (window < 0 || kp > q_abs - window);
-        s[u] = valid[u] ? ss[r * SM::LS + lane + 32 * u] * scale : -INFINITY;
-      }
-      float m_cur = s[0];
-#pragma unroll
-      for (int u = 1; u < kPer; ++u) m_cur = fmaxf(m_cur, s[u]);
-#pragma unroll
-      for (int o = 16; o; o >>= 1) m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, o));
-      const float m_new = fmaxf(m_prev, m_cur);
-      // A row still fully masked keeps m == -inf: pin the rescale to 0
-      // (exp(-inf - -inf) is NaN) and subtract 0 instead of m_new.
-      const float alpha = m_new == -INFINITY ? 0.f : expf(m_prev - m_new);
-      const float base = m_new == -INFINITY ? 0.f : m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int u = 0; u < kPer; ++u) {
-        const float p = valid[u] ? expf(s[u] - base) : 0.f;
-        ps[r * SM::LS + lane + 32 * u] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      for (int d = lane; d < HD; d += 32) os[r * SM::LO + d] *= alpha;
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = alpha * l_s[r] + sum;
-      }
-    }
+  for (int it = 0; it < n_blocks; ++it) {
+    const int k0 = (first_blk + it) * kBN;
+    const int kw0 = k0 + kh * kKW;  // this warp's first key of the block
+    // K has landed and every warp is done with the last block's V: request
+    // this block's V, to land while S runs.
     cp_async_wait<0>();
     __syncthreads();
+    load_tile(vs, v, k0);
 
-    pv_tile<HD>(ps, vs, os, tid);
-    __syncthreads();  // K, V, P are rewritten by the next k-block
-  }
+    float s[4][kKS];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kKS; ++j) s[i][j] = 0.f;
+    scores<HD, kLD, kSA, kSB, kKS>(s, qs + (r0 + sa) * kLD, ks + (kh * kKW + sb) * kLD);
+    // Only keys that cross one of the row group's limits are masked.
+    if (kw0 + kKW - 1 > hi_all || kw0 < lo_all) mask_keys<kSB, kKS>(s, kw0, sb, lo, hi);
+    softmax<kSA, kSB, kKS, kLP>(s, m, l, scale_log2, pw + sa * kLP + sb, aw + sa, sb == 0);
 
-  for (int i = tid; i < kRows * HD; i += kThreads) {
-    const int r = i / HD;
-    const int d = i % HD;
-    const int pos = q0 + r / gc;
-    if (r < rows_used && pos < q_len && r % gc < hc && slab * HD + d < hd) {
-      const float l = l_s[r];
-      out[((static_cast<size_t>(b) * q_len + pos) * n_q + head0 + r % gc) * hd + slab * HD + d] =
-          os[r * SM::LO + d] / (l == 0.f ? 1.f : l);
-    }
+    // V has landed and every warp is done with K: request the next block's
+    // K, to land while P V runs.
+    cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < n_blocks) load_tile(ks, k, k0 + kBN);
+    accumulate<kKW, kLD, kLP, kOA, kOB, kC4>(o, aw + oa, pw + oa * kLP,
+                                             vs + kh * kKW * kLD + 4 * ob);
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the tiles are free for the merge
+  stage_partials<kLD, kSA, kSB, kOA, kOB, kC4>(ks + kh * kRows * kLD, qs + kh * 2 * kRows, o, m,
+                                               l, r0 + sa, sb == 0, r0 + oa, 4 * ob);
+  __syncthreads();
+  merge_store<HD, kLD, PL::kHalves>(c, ks, qs, out, hd, q_len, n_q);
 }
 
+// Above head_dim 256: a CTA a slab of kPanel columns of O, S over every
+// panel of the head dim (computed once a slab). The K/V tiles of 32 keys
+// stream through a ring of two slots, n_pan K panels and V's slab a block,
+// tile u requested at tile u - 1's barrier; Q's two panels stay resident
+// at n_pan == 2, else each K panel brings Q's panel along (Q buffer c % 2
+// for the c-th K panel). A warp owns 8 rows, S and O on the lane grids of
+// the HD-256 plan (4 rows by 2 keys of S, 8 rows by 8 columns of O).
+struct PanelPlan {
+  static constexpr int kBN = 32;
+  static constexpr int kWarpRows = kRows / kWarps;
+  static constexpr int kSA = 2, kSB = 16, kKS = kBN / kSB;
+  static constexpr int kOA = 1, kOB = 32, kC4 = kPanel / (4 * kOB);
+  static constexpr int kLD = kPanel + 4;
+  static constexpr int kLP = kBN + 32 / kSA;
+  static constexpr int kQ = kRows * kLD;   // a Q panel
+  static constexpr int kTile = kBN * kLD;  // a K panel or V slab
+  // Q's two panels, two tiles, each warp's P rows and rescales. After the
+  // last block Q's first panel holds O and the second m and l.
+  static constexpr int slot_off = 2 * kQ;
+  static constexpr int p_off = slot_off + 2 * kTile;
+  static constexpr int a_off = p_off + kWarps * kWarpRows * kLP;
+  static constexpr size_t bytes = sizeof(float) * (a_off + kWarps * kWarpRows);
+};
+
+__global__ void __launch_bounds__(kThreads, 1) flash_prefill_f32_panel_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const int* __restrict__ offsets, int offset, float* __restrict__ out, int q_len, int kv_len,
+    int n_q, int n_kv, int group, int gc, int hd, int window, float scale_log2) {
+  using PL = PanelPlan;
+  constexpr int kBN = PL::kBN, kLD = PL::kLD, kLP = PL::kLP, kTile = PL::kTile;
+  constexpr int kSA = PL::kSA, kSB = PL::kSB, kKS = PL::kKS;
+  constexpr int kOA = PL::kOA, kOB = PL::kOB, kC4 = PL::kC4;
+  constexpr int kWarpRows = PL::kWarpRows;
+
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int r0 = warp * kWarpRows;
+  const int sa = lane / kSB, sb = lane % kSB;
+  const int oa = lane / kOB, ob = lane % kOB;
+  float* const pw = smem + PL::p_off + warp * kWarpRows * kLP;
+  float* const aw = smem + PL::a_off + warp * kWarpRows;
+  auto q_tile = [&](int i) { return smem + i * PL::kQ; };
+  auto slot = [&](int u) { return smem + PL::slot_off + (u % 2) * kTile; };
+
+  const Cta c(offsets, offset, q_len, group, gc, hd, true);
+  const int n_pan = c.n_pan;
+  const bool q_resident = n_pan == 2;
+  const int row_bytes = hd * 4;
+  const int first_blk = c.first_block(window, kBN);
+  const int n_blocks = c.n_blocks(window, kv_len, kBN);
+  int lo[4], hi[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c.keys(r0 + sa + kSA * i, window, kv_len, lo[i], hi[i]);
+  int lo_all, hi_all;
+  c.common_keys(r0, kWarpRows, window, kv_len, lo_all, hi_all);
+
+  auto load_q = [&](float* dst, int p) {
+    copy_rows<kPanel, kLD>(
+        dst, q, kRows, p, row_bytes, [&](int r) { return c.q_row(r, q_len, n_q); },
+        [&](int r) { return c.live(r); });
+  };
+  // Tile u: block u / (n_pan + 1), part u % (n_pan + 1) (K's panels, then
+  // V's slab), with Q's panel where Q streams. One cp.async group a tile.
+  auto issue = [&](int u) {
+    const int it = u / (n_pan + 1);
+    const int p = u % (n_pan + 1);
+    if (it < n_blocks) {
+      const int key0 = (first_blk + it) * kBN;
+      copy_rows<kPanel, kLD>(
+          slot(u), p < n_pan ? k : v, kBN, p < n_pan ? p : c.slab, row_bytes,
+          [&](int r) { return (static_cast<size_t>(c.b) * kv_len + key0 + r) * n_kv + c.h; },
+          [&](int r) { return key0 + r < kv_len; });
+      if (p < n_pan && !q_resident) load_q(q_tile((it * n_pan + p) % 2), p);
+    }
+    cp_async_commit();
+  };
+  // Tile u has landed for every thread and every thread is done with tile
+  // u - 1: request tile u + 1 into its slot.
+  auto handoff = [&](int u) {
+    cp_async_wait<0>();
+    __syncthreads();
+    issue(u + 1);
+  };
+
+  if (q_resident) {  // Q rides in the first group
+    load_q(q_tile(0), 0);
+    load_q(q_tile(1), 1);
+  }
+  issue(0);
+
+  float o[8][4 * kC4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int x = 0; x < 4 * kC4; ++x) o[i][x] = 0.f;
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+
+  for (int it = 0; it < n_blocks; ++it) {
+    const int k0 = (first_blk + it) * kBN;
+    const int u0 = it * (n_pan + 1);
+    float s[4][kKS];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kKS; ++j) s[i][j] = 0.f;
+    for (int p = 0; p < n_pan; ++p) {
+      handoff(u0 + p);
+      scores<kPanel, kLD, kSA, kSB, kKS>(
+          s, q_tile(q_resident ? p : (it * n_pan + p) % 2) + (r0 + sa) * kLD,
+          slot(u0 + p) + sb * kLD);
+    }
+    handoff(u0 + n_pan);
+    if (k0 + kBN - 1 > hi_all || k0 < lo_all) mask_keys<kSB, kKS>(s, k0, sb, lo, hi);
+    softmax<kSA, kSB, kKS, kLP>(s, m, l, scale_log2, pw + sa * kLP + sb, aw + sa, sb == 0);
+    __syncwarp();  // P and the rescales of the warp's rows are in shared memory
+    accumulate<kBN, kLD, kLP, kOA, kOB, kC4>(o, aw + oa, pw + oa * kLP, slot(u0 + n_pan) + 4 * ob);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // Q's panels are free for the merge
+  stage_partials<kLD, kSA, kSB, kOA, kOB, kC4>(q_tile(0), q_tile(1), o, m, l, r0 + sa, sb == 0,
+                                               r0 + oa, 4 * ob);
+  __syncthreads();
+  merge_store<kPanel, kLD, 1>(c, q_tile(0), q_tile(1), out, hd, q_len, n_q);
+}
+
+template <typename Kernel>
+cudaError_t launch_kernel(Kernel kernel, size_t smem, int n_pan, const void* q, const void* k,
+                          const void* v, const void* offsets, int offset, void* out, int batch,
+                          int q_len, int kv_len, int n_q, int n_kv, int hd, int window,
+                          float scale, cudaStream_t stream) {
+  const int group = n_q / n_kv;
+  const int gc = head_chunk(group, kRows);
+  const int block_q = kRows / gc;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_kv * ((group + gc - 1) / gc) * n_pan, batch, (q_len + block_q - 1) / block_q);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(offsets), offset, static_cast<float*>(out), q_len, kv_len, n_q,
+      n_kv, group, gc, hd, window, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+// HD: the padded width up to 256; above it (HD 256) the panel kernel.
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* offsets, int offset,
                    void* out, int batch, int q_len, int kv_len, int n_q, int n_kv, int hd,
                    int window, float scale, cudaStream_t stream) {
-  const int group = n_q / n_kv;
-  const int gc = head_chunk(group, kRows);
-  const int block_q = kRows / gc;
-  const size_t smem = FlashSmem<HD>::bytes;
-  auto kernel = flash_prefill_kernel<HD>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int n_pan = HD < kPanel ? 1 : n_panels(hd);
-  const dim3 grid((q_len + block_q - 1) / block_q, n_kv * ((group + gc - 1) / gc) * n_pan, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const int*>(offsets), offset, static_cast<float*>(out), q_len, kv_len, n_q,
-      n_kv, group, gc, hd, window, scale);
-  return cudaGetLastError();
+  if (hd > kPanel) {
+    return launch_kernel(flash_prefill_f32_panel_kernel, PanelPlan::bytes, n_panels(hd), q, k, v,
+                         offsets, offset, out, batch, q_len, kv_len, n_q, n_kv, hd, window, scale,
+                         stream);
+  }
+  return launch_kernel(flash_prefill_f32_kernel<HD>, Plan<HD>::bytes, 1, q, k, v, offsets, offset,
+                       out, batch, q_len, kv_len, n_q, n_kv, hd, window, scale, stream);
 }
 
 }  // namespace f32

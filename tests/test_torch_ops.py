@@ -497,6 +497,26 @@ def test_every_decode_up_to_256_runs_the_hopper_body():
     assert "cluster > 8" in refusal and "dtype" not in refusal
 
 
+def test_every_f32_flash_runs_the_register_tiled_bodies():
+    """The first port's f32 flash body is gone: scores, probabilities and
+    the output in shared memory (`FlashSmem`), its `scores_tile` and
+    `pv_tile` products and its kernel `flash_prefill_kernel`. Both f32
+    launches of kvt_flash_prefill (the padded widths up to 256, and above)
+    go through `f32::launch`, which launches the register-tiled body up to
+    head_dim 256 and the panel body above it."""
+    src = (_CSRC / "flash_prefill.cu").read_text()
+    assert not re.search(r"\b(FlashSmem|scores_tile|pv_tile|flash_prefill_kernel)\b", src)
+    f32 = src[src.index("namespace f32 {"):src.index("}  // namespace f32")]
+    kernels = set(re.findall(r"__global__ void __launch_bounds__\([^)]*\) (\w+)\(", f32))
+    assert kernels == {"flash_prefill_f32_kernel", "flash_prefill_f32_panel_kernel"}
+    launch = f32[f32.index("cudaError_t launch(const void* q"):]
+    assert "if (hd > kPanel) {" in launch
+    assert "launch_kernel(flash_prefill_f32_panel_kernel," in launch
+    assert "launch_kernel(flash_prefill_f32_kernel<HD>," in launch
+    entry = src[src.index('extern "C" int kvt_flash_prefill('):]
+    assert re.findall(r"f32::launch<(\w+)>", entry) == ["HD", "256"]
+
+
 _STAGE_FORMATS = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
 
 
